@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""The PyTorch port's main path on one NVIDIA GPU: SliME-8B serving a query.
+
+Run from the repository root, on a machine with one CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phase 0  requires CUDA, prints the card, the versions and the kernel build
+         time, and turns TF32 off. Phases 1 and 3 run under
+         ``layers.fp32_accumulation`` (no TF32, no reduced-precision bf16
+         reductions), the policy ``generate`` pins for its own work.
+Phase 1  runs each hand-written kernel of the path (encoder attention, the
+         fused QKV / O-residual / MLP decode kernels) against its plain
+         PyTorch version on the card at the main path's shapes, asserts
+         agreement, and times both (median of CUDA-event timings). It also
+         prints the smallest absolute floor each comparison needed.
+Phase 2  builds SliME-8B at full width from a seed (vision, projector and
+         sampler in bf16; the LLM int8 weight-only, stacked, with an int8
+         lm_head, as bench.py lays it out), then answers three requests
+         through ``generate`` and one through ``generate_stream``: a 672x672
+         image and a 64-token prompt, 64 greedy tokens each. It checks the
+         outputs and that every kernel was launched on that path.
+Phase 3  times the slice's stages on the host clock around
+         synchronised calls, and traces one request's TTFT and 8 decode
+         steps with ``torch.profiler``: device busy time, idle share,
+         kernel launches per step and the largest device kernels.
+
+The last lines are the kernels' JSON record, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
+"""
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 0
+N_GENERATE, N_NEW, CHUNK = 3, 64, 16
+TIMED_RUNS = 25
+PROFILE_STEPS = 8
+# bf16 outputs, fp32 sums in another order than the plain version: about one
+# bf16 ulp (2^-8 relative), plus an absolute floor for small outputs. The
+# floors lie above the largest any comparison of the kernels' tests needed on
+# an H100 (PERF.md): under 2e-4 for K2-K4, 3.2e-3 for the MLP, whose bf16
+# intermediate can flip by one ulp before the down projection.
+RTOL = 2 ** -7
+ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
+        "fused_o_residual": 2e-3, "fused_mlp_decode": 5e-3}
+KERNELS = {
+    "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
+                          "slime_tpu/ops/encoder_attention.py:88"),
+    "fused_qkv_decode": ("slime_tpu_torch/csrc/fused_decode.cu",
+                         "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual": ("slime_tpu_torch/csrc/fused_decode.cu",
+                         "slime_tpu/ops/fused_qkvo.py:209"),
+    "fused_mlp_decode": ("slime_tpu_torch/csrc/fused_decode.cu",
+                         "slime_tpu/ops/fused_mlp.py:366"),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, runs=TIMED_RUNS, flush=None):
+    """Median milliseconds of fn() over ``runs`` CUDA-event timings, after
+    warm-up; ``flush`` (outside the timed region) evicts L2 between runs so
+    each run streams its weights from HBM, as in a decode step."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        if flush is not None:
+            flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(name, got, want):
+    """(max abs error, smallest absolute floor that passes at RTOL) of kernel
+    output(s) vs the plain version; raise if not close."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = need = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL[name],
+                                   msg=lambda m: f"{name}: kernel vs plain: {m}")
+        err = max(err, (g - w).abs().max().item())
+        need = max(need, ((g - w).abs() - RTOL * w.abs()).max().item())
+    return err, need
+
+
+def int8_llm_params(cfg, generator, device):
+    """Random SliME-8B LLM params, int8 weight-only with per-row scales of
+    N(0, 0.02) rows, layers stacked [L, ...], int8 lm_head (bench.py:68-117)."""
+    H, HD, I, NL = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_layers
+
+    def q(out_d, in_d, lead=(NL,)):
+        return {"q": torch.randint(-127, 128, lead + (out_d, in_d), dtype=torch.int8,
+                                   device=device, generator=generator),
+                "scale": torch.full(lead + (out_d, 1), 0.02 / 127.0, device=device)}
+
+    ones = lambda *s: torch.ones(s, device=device)     # noqa: E731
+    layers = {
+        "input_layernorm": {"weight": ones(NL, H)},
+        "q_proj": {"weight": q(cfg.num_heads * HD, H)},
+        "k_proj": {"weight": q(cfg.num_kv_heads * HD, H)},
+        "v_proj": {"weight": q(cfg.num_kv_heads * HD, H)},
+        "o_proj": {"weight": q(H, cfg.num_heads * HD)},
+        "post_attention_layernorm": {"weight": ones(NL, H)},
+        "gate_proj": {"weight": q(I, H)},
+        "up_proj": {"weight": q(I, H)},
+        "down_proj": {"weight": q(H, I)},
+    }
+    embed = torch.randn((cfg.vocab_size, H), device=device, generator=generator) * 0.02
+    return {"embed_tokens": embed.to(torch.bfloat16), "norm": {"weight": ones(H)},
+            "layers": layers, "lm_head": {"weight": q(cfg.vocab_size, H, lead=())}}
+
+
+class IdText:
+    """Stand-in detokenizer for generate_stream (no tokenizer ships with the
+    port): ids -> space-joined decimal text."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def trace_device(path):
+    """From a torch.profiler chrome trace: (device busy ms, the union of
+    kernel / memcpy / memset intervals; kernel launches; device ms by kernel)."""
+    spans, by_name, launches = [], {}, 0
+    for e in json.loads(Path(path).read_text())["traceEvents"]:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+        launches += cat == "kernel"
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy / 1e3, launches, by_name
+
+
+def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
+    """Phase 3: stage times (host clock around synchronised calls, median of
+    3) and a torch.profiler trace of one TTFT and of PROFILE_STEPS decode
+    steps. Idle share = 1 - device busy / the unprofiled host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama, slime, vit
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    bf = torch.bfloat16
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+
+    def host_ms(fn, runs=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    crops, mask = anyres(img)
+    pv, cm = crops[None], mask[None]
+    with fp32_accumulation():
+        fused = slime.prepare_multimodal(params, cfg, ids, attn, pv, cm, compute_dtype=bf)
+        idx = torch.clamp(fused.lengths.long() - 1, min=0)
+        h1 = torch.randn((1, cfg.llm.hidden_size), device=ids.device).to(bf)
+        stages = {
+            "anyres": host_ms(lambda: anyres(img)),
+            "vit.apply (8 crops)": host_ms(lambda: vit.apply(
+                params["vision"], crops.to(bf), cfg.vision)),
+            "encode_images (vit + projector + sampler)": host_ms(
+                lambda: slime.encode_images(params, cfg, pv, cm, ids, attn, compute_dtype=bf)),
+            "prepare_multimodal": host_ms(lambda: slime.prepare_multimodal(
+                params, cfg, ids, attn, pv, cm, compute_dtype=bf)),
+            f"llama.forward prefill ({fused.embeds.shape[1]} positions)": host_ms(
+                lambda: llama.forward(params["llm"], fused.embeds, cfg.llm,
+                                      positions=fused.positions, return_kv=True,
+                                      compute_dtype=bf, logit_positions=idx)),
+            "llama._lm_head (int8, B=1)": host_ms(lambda: llama._lm_head(params["llm"], h1)),
+        }
+    del fused
+    for name, ms in stages.items():
+        log(f"phase 3 stage {name}: {ms:.2f} ms")
+
+    # decode: a cache after one prefill, then steps of the generate loop
+    last, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
+    cache = llama.prefill_into_cache(
+        llama.init_kv_cache(cfg.llm, 1, L + N_NEW, dtype=bf, device=ids.device),
+        kvs, lengths)
+    del kvs
+    first = last.argmax(-1).to(torch.int32)
+
+    def steps(n):
+        gen._decode_loop(params["llm"], cache, first, -1, cfg=cfg, max_new_tokens=n + 1,
+                         temperature=0.0, top_p=1.0, compute_dtype=bf, generator=None)
+        torch.cuda.synchronize()
+
+    steps(4)
+    step_ms = []
+    for _ in range(32):
+        t0 = time.perf_counter()
+        steps(1)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 3 decode step host wall over 32 steps (EOS sync included): median "
+        f"{statistics.median(step_ms):.2f} ms, mean {statistics.mean(step_ms):.2f}, "
+        f"p90 {np.percentile(step_ms, 90):.2f}, max {max(step_ms):.2f}")
+    step_ms = statistics.median(step_ms)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        steps(PROFILE_STEPS)
+    prof.export_chrome_trace(str(out / "profile_decode.json"))
+    busy, launches, by_name = trace_device(out / "profile_decode.json")
+    busy /= PROFILE_STEPS
+    log(f"phase 3 decode step: device busy {busy:.2f} ms/step; idle share "
+        f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"phase 3 decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
+    del cache, last
+
+    with profile(activities=acts) as prof:
+        request(1).cpu()
+    prof.export_chrome_trace(str(out / "profile_ttft.json"))
+    busy, launches, by_name = trace_device(out / "profile_ttft.json")
+    log(f"phase 3 TTFT: device busy {busy:.2f} ms of {ttft_ms:.2f} ms unprofiled; "
+        f"idle share {1 - busy / ttft_ms:.3f}; {launches} kernel launches")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"phase 3 TTFT kernel {ms:8.3f} ms  {name[:90]}")
+
+
+def main():
+    # ---------------- phase 0 ----------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA card")
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.config import IMAGE_TOKEN_INDEX, SliMEConfig
+    from slime_tpu_torch.data.image_ops import make_device_anyres_fn
+    from slime_tpu_torch.models import projector, sampler, vit
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.ops import _cuda
+    from slime_tpu_torch.ops import encoder_attention as ea
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+
+    dev = torch.device("cuda", 0)
+    log(f"card: {card_line()}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matmul and cuDNN; phases 1 and 3 and generate's own work "
+        "run with fp32 accumulation (no reduced-precision bf16 reductions)")
+    t0 = time.perf_counter()
+    _cuda.library()
+    log(f"kernel build: {_cuda.build_seconds if _cuda.build_seconds is not None else 0.0:.2f} s "
+        f"nvcc (cached library: {_cuda.build_seconds is None}); load "
+        f"{time.perf_counter() - t0:.2f} s")
+    fns = {"encoder_attention": ea.encoder_attention,
+           "fused_qkv_decode": fused_qkvo.fused_qkv_decode,
+           "fused_o_residual": fused_qkvo.fused_o_residual,
+           "fused_mlp_decode": fused_mlp.fused_mlp_decode}
+
+    # ---------------- phase 1: kernels vs plain versions ----------------
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
+    record = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    cfg = SliMEConfig.slime_8b()
+
+    with fp32_accumulation():
+        q, k, v = (torch.randn((8, 577, 16, 64), device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        err, need = compare("encoder_attention", ea.encoder_attention(q, k, v),
+                            ea.encoder_attention_ref(q, k, v))
+        ms = cuda_ms(lambda: ea.encoder_attention(q, k, v), flush=flush)
+        plain = cuda_ms(lambda: ea.encoder_attention_ref(q, k, v), flush=flush)
+        record["encoder_attention"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+        log(f"phase 1 encoder_attention [8,577,16,64] bf16: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, max_abs_err {err:.3g}, floor needed {need:.3g} "
+            f"(set {ATOL['encoder_attention']:g})")
+        del q, k, v
+
+        two = int8_llm_params(dataclasses.replace(cfg.llm, num_layers=2), g, dev)["layers"]
+        cases = {
+            "fused_qkv_decode": (lambda x, a: fused_qkvo.fused_qkv_decode(x, two, 1),
+                                 lambda x, a: fused_qkvo.fused_qkv_decode_ref(x, two, 1)),
+            "fused_o_residual": (lambda x, a: fused_qkvo.fused_o_residual(a, x, two, 1),
+                                 lambda x, a: fused_qkvo.fused_o_residual_ref(a, x, two, 1)),
+            "fused_mlp_decode": (lambda x, a: fused_mlp.fused_mlp_decode(x, two, 1),
+                                 lambda x, a: fused_mlp.fused_mlp_decode_ref(x, two, 1)),
+        }
+        for B in (1, 8):
+            x = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+            a = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+            for name, (kern, ref) in cases.items():
+                err, need = compare(name, kern(x, a), ref(x, a))
+                rec = record[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                ms = cuda_ms(lambda: kern(x, a), flush=flush)
+                plain = cuda_ms(lambda: ref(x, a), flush=flush)
+                if B == 1:            # the record keeps the main path's batch size
+                    rec.update(ms=ms, plain_ms=plain)
+                log(f"phase 1 {name} 8B width int8 B={B} layer 1: kernel {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms, max_abs_err {err:.3g}, floor needed "
+                    f"{need:.3g} (set {ATOL[name]:g})")
+        del two, flush
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 2: the slice at full SliME-8B width ----------------
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
+    params = {"vision": vit.init(cfg.vision, **kw),
+              "projector": projector.init(cfg, **kw),
+              "sampler": sampler.init(cfg, **kw),
+              "llm": int8_llm_params(cfg.llm, g, dev)}
+    torch.cuda.synchronize()
+    log(f"phase 2 params built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    rng = np.random.default_rng(SEED)
+    img = torch.from_numpy(rng.integers(0, 255, (672, 672, 3), dtype=np.uint8)).to(dev)
+    ids = rng.integers(5, cfg.llm.vocab_size, (1, 64)).astype(np.int64)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    ids = torch.from_numpy(ids).to(dev)
+    attn = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    anyres = make_device_anyres_fn((672, 672), device=dev)
+    # a fixed-length answer: random weights make EOS meaningless
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+
+    # generate_stream sizes its cache one longer than generate's default; the
+    # same cache length makes both run identical shapes, so their greedy
+    # answers must agree token for token
+    cache_len = cfg.tokenizer_model_max_length + N_NEW + 1
+
+    def request(max_new):
+        crops, mask = anyres(img)
+        return gen.generate(params, cfg_run, ids, attn, crops[None], mask[None],
+                            max_new_tokens=max_new, compute_dtype=torch.bfloat16,
+                            cache_len=cache_len)
+
+    request(2)                                     # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+
+    for fn in fns.values():
+        fn.launches = 0
+    latencies, answers = [], []
+    for _ in range(N_GENERATE):
+        t0 = time.perf_counter()
+        toks = request(N_NEW).cpu()
+        latencies.append(time.perf_counter() - t0)
+        answers.append(toks)
+    t0 = time.perf_counter()
+    crops, mask = anyres(img)
+    texts = list(gen.generate_stream(params, cfg_run, IdText(), ids, attn, crops[None],
+                                     mask[None], max_new_tokens=N_NEW, chunk=CHUNK,
+                                     compute_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in fns.items()}
+    log(f"phase 2 launches on the main path: {json.dumps(launches)}")
+
+    # outputs: shape, range, determinism, the stream agrees with generate
+    V = cfg.llm.vocab_size
+    for toks in answers:
+        if toks.shape != (1, N_NEW) or int(toks.min()) < 0 or int(toks.max()) >= V:
+            raise AssertionError(f"tokens out of shape/range: {tuple(toks.shape)} "
+                                 f"[{int(toks.min())}, {int(toks.max())}]")
+        if not torch.equal(toks, answers[0]):
+            raise AssertionError("greedy requests on the same input disagree")
+    if not texts or texts[-1] != IdText().decode(answers[0][0].tolist()):
+        raise AssertionError("generate_stream text differs from generate's tokens")
+    requests = N_GENERATE + 1
+    steps = requests * (N_NEW - 1)
+    need = {"encoder_attention": 23 * requests, "fused_qkv_decode": 32 * steps,
+            "fused_o_residual": 32 * steps, "fused_mlp_decode": 32 * steps}
+    for n, want in need.items():
+        if launches[n] < want:
+            raise AssertionError(f"{n} launched {launches[n]} times on the main "
+                                 f"path, expected at least {want}")
+
+    # first-step logits, and TTFT = anyres + encode + fusion + prefill + 1st token
+    crops, mask = anyres(img)
+    last, _, lengths, L = gen.prefill(params, cfg_run, ids, attn, crops[None],
+                                       mask[None], torch.bfloat16)
+    if last.shape != (1, V) or not bool(torch.isfinite(last).all()):
+        raise AssertionError("first-step logits are not finite [1, V]")
+    log(f"phase 2 prefill: {int(lengths[0])} valid of {L} positions; first-step "
+        f"logits finite, argmax {int(last.argmax())} == answer {int(answers[0][0, 0])}: "
+        f"{int(last.argmax()) == int(answers[0][0, 0])}")
+    del last
+    ttft = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        request(1).cpu()
+        ttft.append(time.perf_counter() - t0)
+    ttft_s, e2e_s = statistics.median(ttft), statistics.median(latencies)
+    log(f"phase 2 TTFT {ttft_s * 1e3:.1f} ms (median of 3; anyres + encode + "
+        f"fusion + {L}-position prefill + first token)")
+    log(f"phase 2 request latency {e2e_s * 1e3:.1f} ms (median of {N_GENERATE}); "
+        f"decode {(N_NEW - 1) / (e2e_s - ttft_s):.2f} tok/s; "
+        f"{N_GENERATE / sum(latencies) * 60:.2f} queries/min at bs=1; "
+        f"stream request {stream_s * 1e3:.1f} ms, {len(texts)} chunks")
+    log(f"phase 2 peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # ---------------- phase 3: where the time goes ----------------
+    profile_slice(params, cfg_run, ids, attn, img, anyres, request, ttft_s * 1e3)
+
+    kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[n], "max_abs_err": record[n]["max_abs_err"],
+                "ms": record[n]["ms"], "plain_ms": record[n]["plain_ms"]}
+               for n, (src, rep) in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,313 @@
+// Weight-streaming kernels for one decode step of a Llama layer, for Hopper
+// (sm_90a). They replace three TPU kernels of the JAX package:
+//   slime_tpu/ops/fused_qkvo.py  fused_qkv_decode  (_qkv_kernel)
+//   slime_tpu/ops/fused_qkvo.py  fused_o_residual  (_o_kernel)
+//   slime_tpu/ops/fused_mlp.py   fused_mlp_decode  (_kernel)
+//
+// What bounds them on this card: bytes. At batch 1 a decode step of the 8B
+// model streams about 7 GB of int8 weights and does two flops per weight byte,
+// far below the H100's ridge (about 295 bf16 flops per byte of HBM). So the
+// kernels spend nothing on tensor cores and everything on reading each weight
+// row once, with wide coalesced loads:
+//   - one warp owns one output row; every lane loads 16 bytes of the row per
+//     step, so a warp reads 512 contiguous bytes at a time;
+//   - the activations (B <= 64 rows of bf16, at most 512 KB) do not fit in
+//     shared memory at B = 64, so they are read through L1/L2, where they stay
+//     hot: they are small next to the weights;
+//   - the batch runs in tiles of kBT rows, so each lane keeps kBT fp32
+//     accumulators in registers; a weight row is re-read from L2 once per tile;
+//   - int8 converts to fp32 exactly, every dot accumulates in fp32, and the
+//     per-row int8 scale multiplies the fp32 result, as on the TPU.
+// The TPU kernels pick the layer by scalar prefetch; here the wrapper passes a
+// pointer to layer li of the contiguous [L, out, in] stack, which is a view.
+// The MLP runs as two launches: gate/up into a [B, I] bf16 scratch (a few tens
+// of KB, which stays in L2), then down plus the residual.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;                 // output rows per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kBT = 8;                    // batch rows per tile
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// 16 bytes of one weight row -> N fp32 values (exact for int8 and bf16).
+template <typename TW> struct WVec;
+
+template <> struct WVec<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* f) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[4 * i + j] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu));
+      }
+    }
+  }
+};
+
+template <> struct WVec<bf16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const bf16* p, float* f) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = bf16_lo(w[i]);
+      f[2 * i + 1] = bf16_hi(w[i]);
+    }
+  }
+};
+
+// N (8 or 16) bf16 activations -> fp32.
+template <int N>
+__device__ __forceinline__ void load_act(const bf16* p, float* f) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    const uint4 v = q[c];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[8 * c + 2 * i] = bf16_lo(w[i]);
+      f[8 * c + 2 * i + 1] = bf16_hi(w[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[b] = sum_k h[b, k] * w[k] for the nb (<= kBT) activation rows at h
+// (row stride K), summed over the warp: every lane returns the full sums.
+// K is a multiple of 16 bytes of weights (the wrapper checks).
+template <typename TW>
+__device__ __forceinline__ void row_dot(const bf16* __restrict__ h, int K, int nb,
+                                        const TW* __restrict__ w, float* acc) {
+  constexpr int N = WVec<TW>::N;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < kBT; ++b) acc[b] = 0.f;
+  for (int k = lane * N; k < K; k += 32 * N) {
+    float wf[N];
+    WVec<TW>::load(w + k, wf);
+#pragma unroll
+    for (int b = 0; b < kBT; ++b) {
+      if (b < nb) {
+        float hf[N];
+        load_act<N>(h + (size_t)b * K + k, hf);
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[b] = fmaf(hf[j], wf[j], acc[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kBT; ++b) acc[b] = warp_sum(acc[b]);
+}
+
+// h[b] = bf16(x[b] * rsqrt(mean(x[b]^2) + eps) * w), one block per row
+// (fused_qkvo.py:72-77, fused_mlp.py:227-233).
+__global__ void __launch_bounds__(256) rms_norm_kernel(const bf16* __restrict__ x,
+                                                       const float* __restrict__ w,
+                                                       bf16* __restrict__ h, int H, float eps) {
+  __shared__ float part[32];
+  const bf16* xr = x + (size_t)blockIdx.x * H;
+  bf16* hr = h + (size_t)blockIdx.x * H;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    const float v = __bfloat162float(xr[i]);
+    ss = fmaf(v, v, ss);
+  }
+  ss = warp_sum(ss);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) part[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < (int)(blockDim.x >> 5) ? part[lane] : 0.f;
+    t = warp_sum(t);
+    if (lane == 0) part[0] = t;
+  }
+  __syncthreads();
+  const float r = 1.f / sqrtf(part[0] / (float)H + eps);
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    hr[i] = __float2bfloat16_rn(__bfloat162float(xr[i]) * r * w[i]);
+  }
+}
+
+// q, k, v = (h @ Wq.T) * sq, ... over the concatenated row space
+// [0, nq) | [nq, nq + nkv) | [nq + nkv, nq + 2 nkv): one launch for all three.
+// A null scale pointer means dense weights.
+template <typename TW>
+__global__ void __launch_bounds__(kThreads) qkv_kernel(
+    const bf16* __restrict__ h, int B, int K,
+    const TW* __restrict__ wq, const float* __restrict__ sq, int nq,
+    const TW* __restrict__ wk, const float* __restrict__ sk,
+    const TW* __restrict__ wv, const float* __restrict__ sv, int nkv,
+    bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v) {
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= nq + 2 * nkv) return;          // uniform over the warp
+  const TW* w;
+  const float* s;
+  bf16* y;
+  int n;
+  if (row < nq) {
+    w = wq; s = sq; y = q; n = nq;
+  } else if (row < nq + nkv) {
+    row -= nq; w = wk; s = sk; y = k; n = nkv;
+  } else {
+    row -= nq + nkv; w = wv; s = sv; y = v; n = nkv;
+  }
+  const TW* wr = w + (size_t)row * K;
+  const float scale = s ? s[row] : 1.f;
+  float acc[kBT];
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int nb = min(kBT, B - b0);
+    row_dot<TW>(h + (size_t)b0 * K, K, nb, wr, acc);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int b = 0; b < kBT; ++b) {
+        if (b < nb) y[(size_t)(b0 + b) * n + row] = __float2bfloat16_rn(acc[b] * scale);
+      }
+    }
+  }
+}
+
+// y = bf16(x + (h @ W.T) * s): the o projection (fused_qkvo.py:100-106) and the
+// down projection with its residual (fused_mlp.py:283-292).
+template <typename TW>
+__global__ void __launch_bounds__(kThreads) resid_kernel(
+    const bf16* __restrict__ h, int B, int K, const TW* __restrict__ w,
+    const float* __restrict__ s, int n, const bf16* __restrict__ x, bf16* __restrict__ y) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const TW* wr = w + (size_t)row * K;
+  const float scale = s ? s[row] : 1.f;
+  float acc[kBT];
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int nb = min(kBT, B - b0);
+    row_dot<TW>(h + (size_t)b0 * K, K, nb, wr, acc);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int b = 0; b < kBT; ++b) {
+        if (b < nb) {
+          const size_t i = (size_t)(b0 + b) * n + row;
+          y[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + acc[b] * scale);
+        }
+      }
+    }
+  }
+}
+
+// a = bf16(silu(g * sg) * (u * su)) with g = h @ Wg.T, u = h @ Wu.T
+// (fused_mlp.py:274-282); silu(t) = t * sigmoid(t), as jax.nn.silu.
+template <typename TW>
+__global__ void __launch_bounds__(kThreads) gate_up_kernel(
+    const bf16* __restrict__ h, int B, int K,
+    const TW* __restrict__ wg, const float* __restrict__ sg,
+    const TW* __restrict__ wu, const float* __restrict__ su, int n, bf16* __restrict__ a) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const TW* gr = wg + (size_t)row * K;
+  const TW* ur = wu + (size_t)row * K;
+  const float gscale = sg ? sg[row] : 1.f;
+  const float uscale = su ? su[row] : 1.f;
+  float g[kBT], u[kBT];
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int nb = min(kBT, B - b0);
+    row_dot<TW>(h + (size_t)b0 * K, K, nb, gr, g);
+    row_dot<TW>(h + (size_t)b0 * K, K, nb, ur, u);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int b = 0; b < kBT; ++b) {
+        if (b < nb) {
+          const float gf = g[b] * gscale;
+          const float uf = u[b] * uscale;
+          const float sig = 1.f / (1.f + expf(-gf));
+          a[(size_t)(b0 + b) * n + row] = __float2bfloat16_rn(gf * sig * uf);
+        }
+      }
+    }
+  }
+}
+
+inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
+
+}  // namespace
+
+// Plain C interface, bound with ctypes. Pointers are device pointers, `stream`
+// is a cudaStream_t; wfmt 0 = dense bf16 weights (scales null), 1 = int8 with
+// per-row fp32 scales. Each call returns cudaGetLastError() after its launch.
+extern "C" {
+
+int slime_rms_norm(const void* x, const void* w, void* h, int B, int H, float eps,
+                   void* stream) {
+  rms_norm_kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)w, (bf16*)h, H, eps);
+  return (int)cudaGetLastError();
+}
+
+int slime_qkv_gemv(int wfmt, const void* h, int B, int K,
+                   const void* wq, const void* sq, int nq,
+                   const void* wk, const void* sk, const void* wv, const void* sv, int nkv,
+                   void* q, void* k, void* v, void* stream) {
+  const dim3 grid(blocks_for(nq + 2 * nkv));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wfmt == 1) {
+    qkv_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const int8_t*)wq, (const float*)sq, nq,
+        (const int8_t*)wk, (const float*)sk, (const int8_t*)wv, (const float*)sv, nkv,
+        (bf16*)q, (bf16*)k, (bf16*)v);
+  } else {
+    qkv_kernel<bf16><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const bf16*)wq, (const float*)sq, nq,
+        (const bf16*)wk, (const float*)sk, (const bf16*)wv, (const float*)sv, nkv,
+        (bf16*)q, (bf16*)k, (bf16*)v);
+  }
+  return (int)cudaGetLastError();
+}
+
+int slime_resid_gemv(int wfmt, const void* h, int B, int K, const void* w, const void* s,
+                     int n, const void* x, void* y, void* stream) {
+  const dim3 grid(blocks_for(n));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wfmt == 1) {
+    resid_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const int8_t*)w, (const float*)s, n, (const bf16*)x, (bf16*)y);
+  } else {
+    resid_kernel<bf16><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const bf16*)w, (const float*)s, n, (const bf16*)x, (bf16*)y);
+  }
+  return (int)cudaGetLastError();
+}
+
+int slime_gate_up_gemv(int wfmt, const void* h, int B, int K, const void* wg, const void* sg,
+                       const void* wu, const void* su, int n, void* a, void* stream) {
+  const dim3 grid(blocks_for(n));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wfmt == 1) {
+    gate_up_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const int8_t*)wg, (const float*)sg,
+        (const int8_t*)wu, (const float*)su, n, (bf16*)a);
+  } else {
+    gate_up_kernel<bf16><<<grid, kThreads, 0, st>>>(
+        (const bf16*)h, B, K, (const bf16*)wg, (const float*)sg,
+        (const bf16*)wu, (const float*)su, n, (bf16*)a);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* slime_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

@@ -1,0 +1,259 @@
+"""Decoder-only LLM (Llama-3 family) in PyTorch: prefill and KV-cache decode.
+
+Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
+
+- ``forward`` is the prefill over list or stacked ``[L, ...]`` layers, with
+  ``positions``, ``return_kv`` and ``logit_positions`` (``llama.py:233-299``);
+  its attention is the plain ``reference_attention``.
+- ``decode_step`` has the structure of ``_decode_step_fused``
+  (``llama.py:670-766``): per layer, ``fused_qkv_decode`` -> RoPE -> the KV
+  write -> masked attention over the cache in plain torch (plain XLA in JAX)
+  -> ``fused_o_residual`` -> ``fused_mlp_decode``. On the card those three are
+  the CUDA kernels of ``ops/``.
+
+Logits are fp32. The int8 ``lm_head`` dequantizes the whole matrix to fp32 on
+every call, as the JAX code does; on the card that is a 2.1 GB temporary at
+the 128k vocabulary (see PERF.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..config import LLMConfig
+from ..ops.flash_attention import reference_attention
+from ..ops.fused_mlp import fused_mlp_decode, silu
+from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
+from ..ops.quantization import dequantize_weight
+from . import layers as L
+
+_MOE_TODO = "MoE layers are not ported yet (ROADMAP Queue 1 step 11)"
+
+
+def init(cfg: LLMConfig, *, generator, device="cpu", dtype=torch.float32) -> Dict:
+    """Random parameters with the JAX ``llama.init`` key set and shapes
+    (list-of-layers layout)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    H, HD = cfg.hidden_size, cfg.head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
+
+    params: Dict = {"embed_tokens": normal(cfg.vocab_size, H),
+                    "norm": L.rms_norm_init(H, device=device, dtype=dtype),
+                    "layers": []}
+    for _ in range(cfg.num_layers):
+        params["layers"].append({
+            "input_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
+            "q_proj": L.linear_init(H, cfg.num_heads * HD, bias=cfg.attention_bias, **kw),
+            "k_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
+            "v_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
+            "o_proj": L.linear_init(cfg.num_heads * HD, H, bias=False, **kw),
+            "post_attention_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
+            "gate_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
+            "up_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
+            "down_proj": L.linear_init(cfg.intermediate_size, H, bias=False, **kw),
+        })
+    params["lm_head"] = {"weight": normal(cfg.vocab_size, H)}
+    return params
+
+
+def stack_layers(layers):
+    """List of layer dicts -> one dict with a leading [num_layers] dim."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def _layer(layers, i):
+    """Layer i of a list or of a stacked dict (views, no copy)."""
+    if isinstance(layers, list):
+        return layers[i]
+
+    def pick(node):
+        return {k: pick(v) for k, v in node.items()} if isinstance(node, dict) else node[i]
+    return pick(layers)
+
+
+# ----------------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------------
+
+_ROPE_CACHE: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def rope_table(cfg: LLMConfig, max_len: int, device="cpu"):
+    """(cos, sin) [max_len, head_dim] fp32, HF half-rotation layout, built in
+    fp32 as ``llama.py:78-85``; cached per (theta, head_dim, length, device)."""
+    key = (cfg.rope_theta, cfg.head_dim, max_len, str(device))
+    if key not in _ROPE_CACHE:
+        hd = cfg.head_dim
+        exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+        inv_freq = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                                device=device), exps)
+        t = torch.arange(max_len, dtype=torch.float32, device=device)
+        freqs = torch.outer(t, inv_freq)
+        emb = torch.cat([freqs, freqs], dim=-1)
+        _ROPE_CACHE[key] = (torch.cos(emb), torch.sin(emb))
+    return _ROPE_CACHE[key]
+
+
+def apply_rope(x, cos, sin):
+    """x [B, S, H, hd]; cos/sin [B, S, hd] or [S, hd]."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].to(torch.float32)
+    sin = sin[:, :, None, :].to(torch.float32)
+    xf = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Prefill
+# ----------------------------------------------------------------------------
+
+def _mlp(lp, x):
+    g = L.linear(lp["gate_proj"], x)
+    u = L.linear(lp["up_proj"], x)
+    return L.linear(lp["down_proj"], silu(g) * u)
+
+
+def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
+    q = L.linear(lp["q_proj"], h).reshape(B, S, cfg.num_heads, hd)
+    k = L.linear(lp["k_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
+    v = L.linear(lp["v_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True)
+    out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
+    x = x + L.linear(lp["o_proj"], out)
+    h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
+    return x + _mlp(lp, h), (k, v)
+
+
+def embed(params, input_ids):
+    return params["embed_tokens"][input_ids]
+
+
+def _lm_head(params, x):
+    """Final vocab projection -> fp32 logits. The weight (dequantized when
+    int8) is cast to x.dtype and the products accumulate in fp32, as the JAX
+    einsum with preferred_element_type=fp32."""
+    w = params["lm_head"]["weight"]
+    if isinstance(w, dict):
+        w = dequantize_weight(w)
+    return torch.matmul(x.to(torch.float32),
+                        w.to(x.dtype).to(torch.float32).T)
+
+
+def forward(params, embeds, cfg: LLMConfig, *, positions=None,
+            return_kv: bool = False, compute_dtype=torch.float32,
+            logit_positions=None):
+    """Full-sequence forward (prefill). embeds [B, S, H]; positions [B, S] or
+    None (arange). Returns (logits fp32 [B, S, V] or [B, 1, V] at
+    ``logit_positions`` [B], list of per-layer (k, v) or None)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    B, S, _ = embeds.shape
+    x = embeds.to(compute_dtype)
+    cos, sin = rope_table(cfg, cfg.max_position_embeddings, x.device)
+    if positions is None:
+        cos_s, sin_s = cos[:S], sin[:S]
+    else:
+        cos_s, sin_s = cos[positions], sin[positions]
+    kvs = []
+    for i in range(cfg.num_layers):
+        x, kv = _layer_prefill(_layer(params["layers"], i), x, cos_s, sin_s, cfg)
+        if return_kv:
+            kvs.append(kv)
+    x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
+    if logit_positions is not None:
+        x = torch.gather(x, 1, logit_positions[:, None, None].expand(B, 1, x.shape[-1]))
+    return _lm_head(params, x), (kvs if return_kv else None)
+
+
+# ----------------------------------------------------------------------------
+# KV-cache decode
+# ----------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int,
+                  dtype=torch.float32, device="cpu", quantized: bool = False):
+    """[L, B, max_len, KVH, hd] k/v caches and per-row lengths."""
+    if quantized:
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP: int8 KV cache)")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill_into_cache(cache, kvs, lengths):
+    """Write prefill KV (list of (k [B,S,KVH,hd], v)) into the cache at offset
+    0, in place, and set the lengths. Returns the same cache dict."""
+    S = kvs[0][0].shape[1]
+    for li, (k, v) in enumerate(kvs):
+        cache["k"][li, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][li, :, :S] = v.to(cache["v"].dtype)
+    cache["length"] = lengths.to(torch.int32)
+    return cache
+
+
+def decode_step(params, cache, token_ids, cfg: LLMConfig,
+                compute_dtype=torch.float32, window: Optional[int] = None):
+    """One decode step: token_ids [B] -> (logits fp32 [B, V], cache).
+
+    ``params["layers"]`` must be stacked (``stack_layers``): the decode
+    kernels index layer li of the [L, ...] weights. The cache is updated in
+    place (the new k/v at [li, b, length[b]], then length + 1) and returned.
+    ``window``: attend only over the first ``window`` cache positions."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    layers = params["layers"]
+    if not isinstance(layers, dict):
+        raise ValueError("decode_step needs stacked layers (llama.stack_layers)")
+    B = token_ids.shape[0]
+    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    group = nh // nkv
+    pos = cache["length"].long()                                    # [B]
+    x = params["embed_tokens"][token_ids].to(compute_dtype)         # [B, H]
+    cos, sin = rope_table(cfg, cfg.max_position_embeddings, x.device)
+    cos_s, sin_s = cos[pos][:, None], sin[pos][:, None]             # [B, 1, hd]
+    max_len = cache["k"].shape[2]
+    W = max_len if window is None else min(window, max_len)
+    bidx = torch.arange(B, device=x.device)
+    visible = torch.arange(W, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+
+    for li in range(cfg.num_layers):
+        qf, kf, vf = fused_qkv_decode(x, layers, li, eps=cfg.rms_norm_eps)
+        q = apply_rope(qf.reshape(B, 1, nh, hd), cos_s, sin_s)
+        k = apply_rope(kf.reshape(B, 1, nkv, hd), cos_s, sin_s)
+        # in-place KV write at each row's position
+        cache["k"][li, bidx, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][li, bidx, pos] = vf.reshape(B, nkv, hd).to(cache["v"].dtype)
+
+        qg = q[:, 0].reshape(B, nkv, group, hd).to(torch.float32)
+        kk = cache["k"][li, :, :W].to(compute_dtype).to(torch.float32)
+        vv = cache["v"][li, :, :W].to(compute_dtype).to(torch.float32)
+        s = torch.einsum("bkgd,btkd->bkgt", qg, kk) / math.sqrt(hd)
+        s = torch.where(visible, s, -1e30)
+        p = torch.softmax(s, dim=-1).to(compute_dtype).to(torch.float32)
+        o = torch.einsum("bkgt,btkd->bkgd", p, vv).to(compute_dtype)
+        x = fused_o_residual(o.reshape(B, nh * hd).contiguous(), x, layers, li)
+        x = fused_mlp_decode(x, layers, li, eps=cfg.rms_norm_eps)
+
+    x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
+    logits = _lm_head(params, x)
+    cache["length"] = cache["length"] + 1
+    return logits, cache

@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels (``slime_tpu_torch/csrc``).
+
+Every ``csrc/*.cu`` compiles with nvcc for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ctypes. The build runs at first use into
+``slime_tpu_torch/_build/``, keyed by a hash of the sources and the flags, so a
+checkout builds once and a changed source rebuilds. Importing this module
+builds nothing: the CPU tests import every module of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {
+    "slime_rms_norm": [_P, _P, _P, _I, _I, _F, _P],
+    "slime_qkv_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
+                       _P, _P, _P, _P],
+    "slime_resid_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "slime_gate_up_gemv": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
+                               + [_LL] * 9 + [_F, _P],
+}
+
+# the loaded library, and the seconds nvcc took if this process built it
+_lib = None
+build_seconds = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "port's CUDA kernels cannot be built")
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/*.cu`` if needed."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        key.update(src.name.encode())
+        key.update(src.read_bytes())
+    so = BUILD_DIR / f"libslime_kernels_{key.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               *map(str, sources)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)                   # atomic: no half-written library
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.slime_error_string.argtypes = [ctypes.c_int]
+    lib.slime_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = library().slime_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream() -> int:
+    """The current PyTorch CUDA stream, as the ``cudaStream_t`` the kernels take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless ``tensors`` all lie on the current CUDA device (the one
+    the kernels launch on)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"kernel inputs must lie on the current CUDA device "
+                             f"{dev}, got {[str(x.device) for x in tensors]}")
+
+
+def ptr(t):
+    """Device pointer of ``t`` (None for a missing optional tensor)."""
+    return None if t is None else t.data_ptr()

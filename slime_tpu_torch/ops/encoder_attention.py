@@ -1,0 +1,74 @@
+"""Non-causal encoder (ViT) attention: the CUDA kernel and its plain version.
+
+Port of ``slime_tpu/ops/encoder_attention.py``. The TPU kernel (K4,
+``_pallas_fwd``/``_kernel``) keeps a whole score row of a head in VMEM and
+replaces the softmax's row-max subtract with a clamp, ``exp(min(s, 80))``: the
+result equals the stabilized softmax unless a score exceeds 80, and fp32 cannot
+overflow (1024 * e^80 < fp32 max). The Hopper kernel
+(``csrc/encoder_attention.cu``) keeps those semantics; ``encoder_attention_ref``
+is the same math in plain PyTorch.
+
+Layout: q/k/v [B, S, H, D], the ViT's own layout, on both paths.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _cuda
+
+MAX_SEQ = 1024          # the TPU kernel's single-tile gate (encoder_attention.py:164-171)
+MAX_HEAD_DIM = 128
+CLAMP = 80.0
+
+
+def encoder_attention_ref(q, k, v, *, scale: Optional[float] = None):
+    """Plain PyTorch version of the kernel's math (encoder_attention.py:57-75),
+    as the JAX kernel evaluates it: q scaled in fp32 and rounded to its dtype;
+    fp32 scores; p = exp(bf16(min(s, 80))) in fp32; l = the fp32 sum of p,
+    rounded to bf16; o = (p in v's dtype) @ v, accumulated in fp32, over l."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qs = (q.to(torch.float32) * scale).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.to(torch.float32), k.to(torch.float32))
+    p = torch.exp(torch.clamp(s, max=CLAMP).to(torch.bfloat16).to(torch.float32))
+    l = p.sum(dim=-1, keepdim=True).to(torch.bfloat16)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    return (o / l.to(torch.float32).transpose(1, 2)).to(q.dtype)
+
+
+def encoder_attention(q, k, v, *, scale: Optional[float] = None):
+    """Bidirectional attention, q/k/v [B, S, H, D] -> [B, S, H, D].
+
+    CPU tensors take ``encoder_attention_ref``. CUDA tensors launch the kernel
+    (bf16, unit stride over D, S <= 1024, D <= 128, D % 8 == 0) or raise."""
+    if q.device.type == "cpu":
+        return encoder_attention_ref(q, k, v, scale=scale)
+    _cuda.require_cuda(q, k, v)
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape}, {k.shape}, {v.shape}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError("encoder_attention kernel takes bf16 q/k/v")
+    if S > MAX_SEQ or D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"encoder_attention kernel takes S <= {MAX_SEQ}, "
+                         f"D <= {MAX_HEAD_DIM}, D % 8 == 0; got S={S}, D={D}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("encoder_attention kernel needs unit stride over D")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _cuda.library()
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+    _cuda.check(lib.slime_encoder_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, D, *strides, scale, _cuda.stream()), "encoder_attention")
+    encoder_attention.launches += 1
+    return out
+
+
+encoder_attention.launches = 0

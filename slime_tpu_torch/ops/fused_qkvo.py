@@ -1,0 +1,171 @@
+"""Decode-step attention projections: CUDA kernels and their plain versions.
+
+Port of ``slime_tpu/ops/fused_qkvo.py``:
+
+  fused_qkv_decode   x [B,H] -> rms_norm -> (q [B,NQ], k [B,NKV], v [B,NKV])
+  fused_o_residual   (attn [B,NQ], x [B,H]) -> x + attn @ Wo.T
+
+for one layer ``layer_idx`` of the pre-stacked ``[L, out, in]`` weights. On
+the TPU the layer is picked by scalar prefetch so XLA never copies a sliced
+operand; in PyTorch ``w[layer_idx]`` of a contiguous stack is already a view,
+so the wrappers index it directly. The kernels are in ``csrc/fused_decode.cu``.
+
+Weight formats: dense (bf16 on the card, any float on the CPU) and int8
+per-row ``{"q", "scale"}``. q4g is not ported yet (ROADMAP, Queue 2).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+MAX_BATCH = 64              # decode rows the kernels take (llama.py:525)
+_Q4G_TODO = ("fused decode takes dense or per-row int8 weights; q4g is not "
+             "ported yet (ROADMAP: q4/q4g/NF4 formats with K6/K7)")
+
+
+def split_weight(p):
+    """Projection param dict -> (weight [L, out, in], scale [L, out, 1] or None,
+    format code: 0 dense, 1 int8 per-row)."""
+    w = p["weight"]
+    if isinstance(w, dict):
+        if "q" in w and w["scale"].shape[-1] == 1:
+            return w["q"], w["scale"], 1
+        raise NotImplementedError(_Q4G_TODO)
+    return w, None, 0
+
+
+def rms_h(x, norm_w, eps):
+    """h = rms_norm(x) * w rounded to x.dtype, as the kernels' prologue."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * norm_w.to(torch.float32)).to(x.dtype)
+
+
+def proj_ref(h, w, s):
+    """h [B, K] @ W.T in fp32 over the exact products of h and W cast to
+    h.dtype, per-row scale applied to the fp32 result -> [B, out] fp32."""
+    y = torch.matmul(h.to(torch.float32), w.to(h.dtype).to(torch.float32).T)
+    if s is not None:
+        y = y * s[:, 0].to(torch.float32)[None, :]
+    return y
+
+
+def fused_qkv_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
+    """Plain version of ``fused_qkv_decode`` (fused_qkvo.py:64-97)."""
+    h = rms_h(x, layers["input_layernorm"]["weight"][layer_idx], eps)
+    outs = []
+    for name in ("q_proj", "k_proj", "v_proj"):
+        w, s, _ = split_weight(layers[name])
+        outs.append(proj_ref(h, w[layer_idx],
+                             None if s is None else s[layer_idx]).to(x.dtype))
+    return tuple(outs)
+
+
+def fused_o_residual_ref(attn, x, layers, layer_idx):
+    """Plain version of ``fused_o_residual`` (fused_qkvo.py:100-106)."""
+    w, s, _ = split_weight(layers["o_proj"])
+    y = proj_ref(attn, w[layer_idx], None if s is None else s[layer_idx])
+    return (x.to(torch.float32) + y).to(x.dtype)
+
+
+def check_operands(x, mats):
+    """Validate a kernel call: x [B, K] bf16 contiguous with B <= 64; each
+    (w [out, K], s [out, 1] or None, fmt) on x's device, contiguous, bf16 for
+    dense weights, and K a whole number of 16-byte weight vectors."""
+    _cuda.require_cuda(x, *[t for w, s, _ in mats for t in (w, s) if t is not None])
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"decode kernels take contiguous bf16 [B, K] activations, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    B, K = x.shape
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"decode kernels take 1..{MAX_BATCH} rows, got {B}")
+    for w, s, fmt in mats:
+        want = torch.int8 if fmt == 1 else torch.bfloat16
+        if w.dtype != want or w.shape[-1] != K or not w.is_contiguous():
+            raise ValueError(f"weight {w.dtype} {tuple(w.shape)}: expected "
+                             f"contiguous {want} [out, {K}]")
+        if (K * w.element_size()) % 16:
+            raise ValueError(f"contraction {K} is not a multiple of 16 bytes")
+        if s is not None and (s.dtype != torch.float32 or not s.is_contiguous()
+                              or s.shape != (w.shape[0], 1)):
+            raise ValueError(f"scale {s.dtype} {tuple(s.shape)}: expected "
+                             f"contiguous fp32 [{w.shape[0]}, 1]")
+
+
+def layer_mats(layers, names, layer_idx):
+    """[(w[li], s[li] or None, fmt)] for the named projections; all one format."""
+    mats = []
+    for name in names:
+        w, s, fmt = split_weight(layers[name])
+        mats.append((w[layer_idx], None if s is None else s[layer_idx], fmt))
+    if len({m[2] for m in mats}) != 1:
+        raise ValueError(f"mixed weight formats across {names}")
+    return mats
+
+
+def rms_norm_launch(x, norm_w, eps, lib):
+    """Launch the row-norm pass; returns h [B, H] in x.dtype."""
+    B, H = x.shape
+    nw = norm_w.to(torch.float32).contiguous()
+    if nw.device != x.device or nw.shape != (H,):
+        raise ValueError(f"norm weight {tuple(nw.shape)} on {nw.device} for x "
+                         f"{tuple(x.shape)} on {x.device}")
+    h = torch.empty_like(x)
+    _cuda.check(lib.slime_rms_norm(x.data_ptr(), nw.data_ptr(), h.data_ptr(),
+                                   B, H, eps, _cuda.stream()), "rms_norm")
+    return h
+
+
+def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
+    """x [B, H] -> (q [B, NQ], k [B, NKV], v [B, NKV]) for layer ``layer_idx``
+    of the stacked dict, h = rms_norm(x, input_layernorm) computed first.
+    RoPE stays outside (it needs positions). CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == "cpu":
+        return fused_qkv_decode_ref(x, layers, layer_idx, eps=eps)
+    mats = layer_mats(layers, ("q_proj", "k_proj", "v_proj"), layer_idx)
+    check_operands(x, mats)
+    (wq, sq, fmt), (wk, sk, _), (wv, sv, _) = mats
+    if wk.shape != wv.shape:
+        raise ValueError(f"k/v projections differ: {wk.shape} vs {wv.shape}")
+    B, H = x.shape
+    NQ, NKV = wq.shape[0], wk.shape[0]
+    lib = _cuda.library()
+    h = rms_norm_launch(x, layers["input_layernorm"]["weight"][layer_idx], eps, lib)
+    q = torch.empty((B, NQ), dtype=x.dtype, device=x.device)
+    k = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
+    v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
+    p = _cuda.ptr
+    _cuda.check(lib.slime_qkv_gemv(
+        fmt, h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk), p(sk), p(wv), p(sv),
+        NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.stream()),
+        "fused_qkv_decode")
+    fused_qkv_decode.launches += 1
+    return q, k, v
+
+
+def fused_o_residual(attn, x, layers, layer_idx):
+    """(attn [B, NQ], x [B, H]) -> x + attn @ dequant(Wo[layer_idx]).T.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_o_residual_ref(attn, x, layers, layer_idx)
+    mats = layer_mats(layers, ("o_proj",), layer_idx)
+    check_operands(attn, mats)
+    (wo, so, fmt), = mats
+    B, H = x.shape
+    if (x.dtype != attn.dtype or x.device != attn.device or not x.is_contiguous()
+            or attn.shape[0] != B or wo.shape[0] != H):
+        raise ValueError(f"residual x {x.dtype} {tuple(x.shape)} does not match "
+                         f"attn {tuple(attn.shape)} and Wo {tuple(wo.shape)}")
+    lib = _cuda.library()
+    y = torch.empty_like(x)
+    _cuda.check(lib.slime_resid_gemv(
+        fmt, attn.data_ptr(), B, attn.shape[1], wo.data_ptr(), _cuda.ptr(so), H,
+        x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
+    fused_o_residual.launches += 1
+    return y
+
+
+fused_qkv_decode.launches = 0
+fused_o_residual.launches = 0

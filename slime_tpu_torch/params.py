@@ -1,0 +1,51 @@
+"""Parameter bridge between the JAX package and the port.
+
+Both packages hold parameters as the same nested dicts in torch layout
+(Linear [out, in], stacked [L, ...] layers, ``{"q", "scale"}`` int8 dicts),
+so converting is a leaf-by-leaf copy. bf16 crosses through a 16-bit integer
+view, so it is bit-exact; int8 stays int8 and fp32 stays fp32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.quantization import is_quantized
+
+
+def _leaf_to_torch(a, device, dtype):
+    a = np.array(a)                          # a writable contiguous copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16, as JAX exports it
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_numpy(tree, device="cpu", dtype=None):
+    """Nested dict/list of numpy arrays (``jax.device_get`` of JAX params) ->
+    the same tree of tensors on ``device``. ``dtype`` casts floating leaves,
+    except the fp32 scales of quantized weights."""
+    if isinstance(tree, dict):
+        if is_quantized(tree):
+            return {k: _leaf_to_torch(v, device, None) for k, v in tree.items()}
+        return {k: from_jax_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_numpy(v, device, dtype) for v in tree)
+    return _leaf_to_torch(tree, device, dtype)
+
+
+def to_jax_numpy(tree):
+    """Inverse of ``from_jax_numpy``: tensors -> numpy arrays on the host, bf16
+    as ``ml_dtypes.bfloat16`` (imported here: only the JAX side needs it)."""
+    if isinstance(tree, dict):
+        return {k: to_jax_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_jax_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

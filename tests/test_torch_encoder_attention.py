@@ -1,0 +1,48 @@
+"""Encoder attention: the port's plain version against the JAX Pallas kernel
+run in interpret mode (the kernel's own semantics: clamp instead of a row max,
+bf16-rounded clamped scores, l rounded to bf16).
+
+fp32 inputs, so both sides round at the same points: tolerance 1e-5 relative
+(fp32 sums in another order). S = 577 covers the ragged tail of the TPU
+kernel's 128-row block.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slime_tpu.ops import encoder_attention as jea
+from slime_tpu_torch.ops import encoder_attention as tea
+
+
+def _qkv(B, S, H, D, seed):
+    r = np.random.default_rng(seed)
+    return [r.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("S", [128, 577])
+def test_ref_matches_jax_kernel_interpret(S):
+    q, k, v = _qkv(2, S, 4, 64, seed=S)
+    want = jea.encoder_attention(*map(jnp.asarray, (q, k, v)), interpret=True)
+    got = tea.encoder_attention_ref(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_ref_bf16_within_one_ulp_of_jax_kernel():
+    q, k, v = _qkv(2, 577, 4, 64, seed=1)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jea.encoder_attention(*jb, interpret=True).astype(jnp.float32))
+    got = tea.encoder_attention_ref(
+        *[torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)])
+    # bf16 outputs: one bf16 ulp (2^-8 relative) from fp32 sums in another order
+    np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                               rtol=2 ** -8, atol=2 ** -10)
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    q, k, v = map(torch.from_numpy, _qkv(1, 50, 2, 32, seed=2))
+    before = tea.encoder_attention.launches
+    out = tea.encoder_attention(q, k, v, scale=0.3)
+    torch.testing.assert_close(out, tea.encoder_attention_ref(q, k, v, scale=0.3),
+                               rtol=0, atol=0)
+    assert tea.encoder_attention.launches == before

@@ -1,0 +1,152 @@
+"""Fused decode kernels and the decode step: the port's plain versions against
+the JAX Pallas kernels in interpret mode, and the port's ``decode_step``
+against JAX ``decode_step(..., fused=True)``.
+
+Inputs come from one seeded numpy generator and run in fp32 through both
+packages, at a non-zero layer index of a 2-layer stack. Tolerance 1e-5
+relative: the same rounding points, fp32 sums in another order.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slime_tpu.config import LLMConfig
+from slime_tpu.models import llama as jllama
+from slime_tpu.ops import fused_mlp as jmlp
+from slime_tpu.ops import fused_qkvo as jqkvo
+from slime_tpu.ops.quantization import quantize_weight
+from slime_tpu_torch import params as bridge
+from slime_tpu_torch.models import llama as tllama
+from slime_tpu_torch.ops import fused_mlp as tmlp
+from slime_tpu_torch.ops import fused_qkvo as tqkvo
+
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _cfg():
+    return LLMConfig(vocab_size=96, hidden_size=64, intermediate_size=256,
+                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                     max_position_embeddings=64)
+
+
+def _layers(fmt, seed=0):
+    """Stacked JAX layer dict (numpy leaves) with random norms; fmt 'fp32'
+    (dense) or 'int8' (per-row int8 on all seven projections)."""
+    cfg = _cfg()
+    r = np.random.default_rng(seed)
+    p = jax.device_get(jllama.init(jax.random.PRNGKey(seed), cfg))
+    for lp in p["layers"]:
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            lp[n]["weight"] = (1 + 0.1 * r.standard_normal(cfg.hidden_size)
+                               ).astype(np.float32)
+        if fmt == "int8":
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                      "up_proj", "down_proj"):
+                lp[n]["weight"] = jax.device_get(quantize_weight(lp[n]["weight"], 8))
+    p["layers"] = jax.device_get(jllama.stack_layers(p["layers"]))
+    return p
+
+
+def _x(B, H, seed):
+    return np.random.default_rng(seed).standard_normal((B, H)).astype(np.float32)
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_qkv_ref_matches_jax_kernel(fmt, B):
+    layers = _layers(fmt)["layers"]
+    x = _x(B, 64, seed=B)
+    want = jqkvo.fused_qkv_decode(jnp.asarray(x), jax.tree_util.tree_map(
+        jnp.asarray, layers), 1, eps=1e-5, interpret=True)
+    got = tqkvo.fused_qkv_decode_ref(torch.from_numpy(x),
+                                     bridge.from_jax_numpy(layers), 1, eps=1e-5)
+    for t, j in zip(got, want):
+        _close(t, j)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_o_residual_ref_matches_jax_kernel(fmt, B):
+    layers = _layers(fmt)["layers"]
+    attn, x = _x(B, 64, seed=10 + B), _x(B, 64, seed=20 + B)
+    want = jqkvo.fused_o_residual(jnp.asarray(attn), jnp.asarray(x),
+                                  jax.tree_util.tree_map(jnp.asarray, layers), 1,
+                                  interpret=True)
+    got = tqkvo.fused_o_residual_ref(torch.from_numpy(attn), torch.from_numpy(x),
+                                     bridge.from_jax_numpy(layers), 1)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_mlp_ref_matches_jax_kernel(fmt, B):
+    layers = _layers(fmt)["layers"]
+    x = _x(B, 64, seed=30 + B)
+    want = jmlp.fused_mlp_decode(jnp.asarray(x), jax.tree_util.tree_map(
+        jnp.asarray, layers), 1, eps=1e-5, block_inter=128, interpret=True)
+    got = tmlp.fused_mlp_decode_ref(torch.from_numpy(x),
+                                    bridge.from_jax_numpy(layers), 1, eps=1e-5)
+    _close(got, want)
+
+
+def test_cpu_dispatch_takes_the_plain_versions():
+    layers = bridge.from_jax_numpy(_layers("int8")["layers"])
+    x = torch.from_numpy(_x(2, 64, seed=5))
+    counts = (tqkvo.fused_qkv_decode.launches, tqkvo.fused_o_residual.launches,
+              tmlp.fused_mlp_decode.launches)
+    for a, b in zip(tqkvo.fused_qkv_decode(x, layers, 0),
+                    tqkvo.fused_qkv_decode_ref(x, layers, 0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(tqkvo.fused_o_residual(x, x, layers, 0),
+                               tqkvo.fused_o_residual_ref(x, x, layers, 0),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tmlp.fused_mlp_decode(x, layers, 0),
+                               tmlp.fused_mlp_decode_ref(x, layers, 0),
+                               rtol=0, atol=0)
+    assert counts == (tqkvo.fused_qkv_decode.launches,
+                      tqkvo.fused_o_residual.launches,
+                      tmlp.fused_mlp_decode.launches)
+
+
+def test_unported_weight_format_raises():
+    layers = bridge.from_jax_numpy(_layers("int8")["layers"])
+    layers["q_proj"] = {"weight": {"q4g": layers["q_proj"]["weight"]["q"],
+                                   "scale": layers["q_proj"]["weight"]["scale"]}}
+    with pytest.raises(NotImplementedError):
+        tqkvo.fused_qkv_decode(torch.zeros(1, 64), layers, 0)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_decode_step_matches_jax_fused(fmt):
+    cfg = _cfg()
+    p = _layers(fmt, seed=3)
+    r = np.random.default_rng(4)
+    B, T = 2, 24
+    k0 = (r.standard_normal((2, B, T, 2, 16)) * 0.3).astype(np.float32)
+    v0 = (r.standard_normal((2, B, T, 2, 16)) * 0.3).astype(np.float32)
+    lengths = np.array([3, 9], np.int32)
+    jcache = {"k": jnp.asarray(k0), "v": jnp.asarray(v0),
+              "length": jnp.asarray(lengths)}
+    tcache = {"k": torch.from_numpy(k0.copy()), "v": torch.from_numpy(v0.copy()),
+              "length": torch.from_numpy(lengths.copy())}
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+    tp = bridge.from_jax_numpy(p)
+    toks = np.array([5, 17], np.int32)
+    for _ in range(3):
+        jl, jcache = jllama.decode_step(jp, jcache, jnp.asarray(toks), cfg,
+                                        fused=True)
+        tl, tcache = tllama.decode_step(tp, tcache, torch.from_numpy(toks).long(),
+                                        cfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-5)
+        toks = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(jcache[key]),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(tcache["length"].numpy(),
+                                  np.asarray(jcache["length"]))

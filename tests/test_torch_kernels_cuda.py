@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: without CUDA every test skips (the kernels have no CPU mode;
+the CPU parity tests hold the plain versions to the JAX package). Run on a
+machine with an H100 and nvcc, without the JAX conftest:
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
+
+Tolerances: outputs are bf16 and the kernels sum fp32 in another order than
+the plain versions, so an element may differ by about one bf16 ulp
+(2^-8 relative); near-zero elements get an absolute floor.
+"""
+import pytest
+import torch
+
+from slime_tpu_torch.models.layers import fp32_accumulation
+from slime_tpu_torch.ops import encoder_attention as ea
+from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+
+pytestmark = pytest.mark.gpu
+RTOL = 2 ** -7
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    with fp32_accumulation():         # the plain versions' matmuls, as generate runs them
+        yield torch.device("cuda")
+
+
+def _assert_close(got, want, atol):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=atol)
+
+
+def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
+    """Random stacked decode weights: int8 per-row (scales ~ N(0, 0.02)
+    rows, as bench.py builds them) or dense bf16."""
+    def proj(out_d, in_d):
+        if fmt == "int8":
+            q = torch.randint(-127, 128, (L, out_d, in_d), dtype=torch.int8,
+                              device=device, generator=generator)
+            return {"weight": {"q": q, "scale": torch.full(
+                (L, out_d, 1), 0.02 / 127.0, device=device)}}
+        w = torch.randn((L, out_d, in_d), device=device, generator=generator) * 0.02
+        return {"weight": w.to(torch.bfloat16)}
+
+    def norm():
+        return {"weight": 1 + 0.1 * torch.randn((L, H), device=device,
+                                                generator=generator)}
+    return {"input_layernorm": norm(), "post_attention_layernorm": norm(),
+            "q_proj": proj(NQ, H), "k_proj": proj(NKV, H), "v_proj": proj(NKV, H),
+            "o_proj": proj(H, NQ), "gate_proj": proj(I, H), "up_proj": proj(I, H),
+            "down_proj": proj(H, I)}
+
+
+@pytest.mark.parametrize("shape", [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)])
+def test_encoder_attention_kernel(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    before = ea.encoder_attention.launches
+    out = ea.encoder_attention(q, k, v)
+    assert ea.encoder_attention.launches == before + 1
+    _assert_close(out, ea.encoder_attention_ref(q, k, v), atol=2e-3)
+
+
+def test_encoder_attention_kernel_strided(dev):
+    """q/k/v as views of one packed projection, as a packed qkv linear gives."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn((2, 577, 3 * 16 * 64), device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = (t.reshape(2, 577, 16, 64) for t in qkv.split(16 * 64, dim=-1))
+    assert not q.is_contiguous()
+    _assert_close(ea.encoder_attention(q, k, v), ea.encoder_attention_ref(q, k, v),
+                  atol=2e-3)
+
+
+def test_encoder_attention_kernel_rejects(dev):
+    q = torch.zeros((1, 1025, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ea.encoder_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 64), device=dev)
+    with pytest.raises(ValueError):
+        ea.encoder_attention(q, q, q)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_fused_decode_kernels(dev, fmt, B):
+    """K1-K3 at 8B width (H = NQ = 4096, NKV = 1024, I = 14336), layer 1 of 2."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    layers = decode_layers(L=2, H=4096, NQ=4096, NKV=1024, I=14336, fmt=fmt,
+                           generator=g, device=dev)
+    x = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+    counts = (fused_qkvo.fused_qkv_decode.launches,
+              fused_qkvo.fused_o_residual.launches,
+              fused_mlp.fused_mlp_decode.launches)
+    got = fused_qkvo.fused_qkv_decode(x, layers, 1)
+    want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
+    for a, b in zip(got, want):
+        _assert_close(a, b, atol=2e-3)
+    _assert_close(fused_qkvo.fused_o_residual(attn, x, layers, 1),
+                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
+    # the MLP rounds a = silu(g) * u to bf16 before the down projection, and a
+    # one-ulp flip there moves an output by ulp * |w|: on an H100 these cases
+    # needed a floor of up to 3.2e-3 (bf16, B=64), and under 4e-4 at B <= 8
+    _assert_close(fused_mlp.fused_mlp_decode(x, layers, 1),
+                  fused_mlp.fused_mlp_decode_ref(x, layers, 1), atol=5e-3)
+    assert (fused_qkvo.fused_qkv_decode.launches,
+            fused_qkvo.fused_o_residual.launches,
+            fused_mlp.fused_mlp_decode.launches) == tuple(c + 1 for c in counts)
+
+
+def test_fused_decode_kernels_reject(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    layers = decode_layers(L=1, H=256, NQ=256, NKV=128, I=512, fmt="int8",
+                           generator=g, device=dev)
+    with pytest.raises(ValueError):         # B > 64
+        fused_qkvo.fused_qkv_decode(
+            torch.zeros((65, 256), device=dev, dtype=torch.bfloat16), layers, 0)
+    with pytest.raises(ValueError):         # fp32 activations
+        fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev), layers, 0)

@@ -1,0 +1,274 @@
+"""The whole slice against the JAX package: prepare_multimodal, greedy
+generate and generate_stream on bench.py's query shape (a 672x672 image, a
+64-token prompt with the image sentinel at position 2), at reduced width in
+fp32; and a check that the port runs without importing jax.
+
+JAX's ViT attention runs its Pallas kernel in interpret mode (what it runs on
+a TPU), and JAX prefill takes ``use_pallas=False``, the configuration the
+port implements. Tolerance 1e-4 relative for the composed embeddings; token
+ids, masks and lengths must be equal.
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import slime_tpu.ops.encoder_attention as jea
+from slime_tpu.config import LLMConfig, SliMEConfig, VisionConfig
+from slime_tpu.constants import IMAGE_TOKEN_INDEX
+from slime_tpu import generate as jgen
+from slime_tpu.data.image_ops import make_device_anyres_fn as j_anyres
+from slime_tpu.models import llama as jllama
+from slime_tpu.models import slime as jslime
+from slime_tpu_torch import generate as tgen
+from slime_tpu_torch import params as bridge
+from slime_tpu_torch.data.image_ops import make_device_anyres_fn as t_anyres
+from slime_tpu_torch.models import slime as tslime
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg():
+    return SliMEConfig(
+        llm=LLMConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                      max_position_embeddings=1024),
+        vision=VisionConfig(image_size=336, patch_size=14, hidden_size=256,
+                            intermediate_size=512, num_layers=3, num_heads=4),
+        mm_resampler_dim=4, seperator=7, tokenizer_model_max_length=700,
+        bos_token_id=1, eos_token_id=2)
+
+
+class _IdText:
+    """Minimal tokenizer for generate_stream: ids -> space-joined text."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+@pytest.fixture(scope="module")
+def query():
+    """Shared JAX params (stacked LLM layers), inputs and both packages'
+    preprocessed crops."""
+    cfg = _cfg()
+    p = jax.device_get(jslime.init(jax.random.PRNGKey(0), cfg))
+    r = np.random.default_rng(0)
+    p["projector"]["w_gate"] = r.standard_normal((256, 2)).astype(np.float32)
+    p["llm"]["layers"] = jax.device_get(jllama.stack_layers(p["llm"]["layers"]))
+    ids = r.integers(5, cfg.llm.vocab_size, (1, 64)).astype(np.int32)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    img = r.integers(0, 255, (672, 672, 3), dtype=np.uint8)
+    jc, jm = j_anyres((672, 672))(jnp.asarray(img))
+    tc, tm = t_anyres((672, 672))(torch.from_numpy(img))
+    return dict(cfg=cfg, jp=jax.tree_util.tree_map(jnp.asarray, p),
+                tp=bridge.from_jax_numpy(p), ids=ids, attn=np.ones((1, 64), bool),
+                jpx=(jc[None], jm[None]), tpx=(tc[None], tm[None]))
+
+
+@pytest.fixture
+def jax_kernel_attention(monkeypatch):
+    monkeypatch.setattr(jea, "encoder_attention",
+                        functools.partial(jea.encoder_attention, interpret=True))
+
+
+def test_prepare_multimodal(query, jax_kernel_attention):
+    q = query
+    want = jslime.prepare_multimodal(q["jp"], q["cfg"], jnp.asarray(q["ids"]),
+                                     jnp.asarray(q["attn"]), *q["jpx"])
+    got = tslime.prepare_multimodal(q["tp"], q["cfg"], torch.from_numpy(q["ids"]).long(),
+                                    torch.from_numpy(q["attn"]), *q["tpx"])
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.attn_mask.numpy(), np.asarray(want.attn_mask))
+    np.testing.assert_array_equal(got.positions.numpy(), np.asarray(want.positions))
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_allclose(got.embeds.numpy(), np.asarray(want.embeds),
+                               rtol=1e-4, atol=1e-5)
+    # global view + separator + some selected local tokens + 63 text tokens
+    assert 576 + 1 + 63 < int(got.lengths[0]) < 576 + 1 + 63 + 4 * 4
+    assert tslime.image_token_budget(q["cfg"]) == jslime.image_token_budget(q["cfg"])
+
+
+def test_generate_greedy_token_exact(query, jax_kernel_attention):
+    q = query
+    want = jgen.generate(q["jp"], q["cfg"], jnp.asarray(q["ids"]), jnp.asarray(q["attn"]),
+                         *q["jpx"], max_new_tokens=10, eos_id=-1, use_pallas=False)
+    got = tgen.generate(q["tp"], q["cfg"], torch.from_numpy(q["ids"]).long(),
+                        torch.from_numpy(q["attn"]), *q["tpx"],
+                        max_new_tokens=10, eos_id=-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tgen.trim_at_eos(got, -1) == jgen.trim_at_eos(np.asarray(want), -1)
+
+
+def test_generate_stream_same_text(query, jax_kernel_attention):
+    q = query
+    cfg = dataclasses.replace(q["cfg"], eos_token_id=-1)
+    want = list(jgen.generate_stream(q["jp"], cfg, _IdText(), jnp.asarray(q["ids"]),
+                                     jnp.asarray(q["attn"]), *q["jpx"],
+                                     max_new_tokens=7, chunk=3))
+    got = list(tgen.generate_stream(q["tp"], cfg, _IdText(),
+                                    torch.from_numpy(q["ids"]).long(),
+                                    torch.from_numpy(q["attn"]), *q["tpx"],
+                                    max_new_tokens=7, chunk=3))
+    assert got == want and len(got) == 3
+
+
+def test_generate_text_only_token_exact(query):
+    q = query
+    ids = np.random.default_rng(7).integers(5, 256, (2, 12)).astype(np.int32)
+    attn = np.ones((2, 12), bool)
+    attn[1, 9:] = False
+    want = jgen.generate(q["jp"], q["cfg"], jnp.asarray(ids), jnp.asarray(attn),
+                         max_new_tokens=6, eos_id=-1, use_pallas=False)
+    got = tgen.generate(q["tp"], q["cfg"], torch.from_numpy(ids).long(),
+                        torch.from_numpy(attn), max_new_tokens=6, eos_id=-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sample_token_top_p_support():
+    """Sampling draws only from the nucleus JAX's rule keeps (the token whose
+    exclusive cumulative probability crosses top_p is kept)."""
+    logits = np.log(np.array([[0.5, 0.3, 0.15, 0.05], [0.05, 0.05, 0.1, 0.8]],
+                             np.float32))
+    g = torch.Generator().manual_seed(0)
+    seen = {0: set(), 1: set()}
+    for _ in range(200):
+        tok = tgen.sample_token(torch.from_numpy(logits),
+                                temperature=1.0, top_p=0.7, generator=g)
+        for b in (0, 1):
+            seen[b].add(int(tok[b]))
+    assert seen == {0: {0, 1}, 1: {3}}
+    greedy = tgen.sample_token(torch.from_numpy(logits))
+    np.testing.assert_array_equal(greedy.numpy(),
+                                  np.asarray(jgen.sample_token(None, jnp.asarray(logits))))
+
+
+def test_port_runs_without_jax():
+    """Import the port and run a tiny slice in a fresh process without the
+    test suite's JAX setup; jax must never be imported."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np, torch
+        from slime_tpu_torch import generate, params
+        from slime_tpu_torch.config import (IMAGE_TOKEN_INDEX, LLMConfig,
+                                            SliMEConfig, VisionConfig)
+        from slime_tpu_torch.data.image_ops import make_device_anyres_fn
+        from slime_tpu_torch.models import llama, slime
+        cfg = SliMEConfig(
+            llm=LLMConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                          num_layers=1, num_heads=2, num_kv_heads=1, head_dim=16,
+                          max_position_embeddings=256),
+            vision=VisionConfig(image_size=56, patch_size=14, hidden_size=32,
+                                intermediate_size=64, num_layers=2, num_heads=2),
+            mm_resampler_dim=4, seperator=7, tokenizer_model_max_length=128,
+            bos_token_id=1, eos_token_id=2)
+        p = slime.init(cfg, generator=torch.Generator().manual_seed(0))
+        p["llm"]["layers"] = llama.stack_layers(p["llm"]["layers"])
+        crops, mask = make_device_anyres_fn((112, 112), tile=56)(
+            torch.randint(0, 255, (112, 112, 3), dtype=torch.uint8))
+        ids = torch.randint(5, 64, (1, 16)); ids[0, 2] = IMAGE_TOKEN_INDEX
+        out = generate.generate(p, cfg, ids, torch.ones((1, 16), dtype=torch.bool),
+                                crops[None], mask[None], max_new_tokens=4, eos_id=-1)
+        assert out.shape == (1, 4)
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SLIME_PLATFORM", "XLA_FLAGS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_import_hides_slime_platform():
+    """With SLIME_PLATFORM set (which makes ``slime_tpu/__init__`` import jax),
+    importing the port and every module ``chip_smoke.py`` uses still loads no
+    jax, and the variable is back in the environment afterwards."""
+    script = textwrap.dedent("""
+        import os, sys
+        import slime_tpu_torch
+        from slime_tpu_torch import config, generate, params
+        from slime_tpu_torch.data import image_ops
+        from slime_tpu_torch.models import layers, llama, projector, sampler, slime, vit
+        from slime_tpu_torch.ops import _cuda, encoder_attention, fused_mlp, fused_qkvo
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert not bad, bad
+        assert os.environ["SLIME_PLATFORM"] == "cpu"
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=REPO, SLIME_PLATFORM="cpu")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py runs where there is no jax: it names neither jax nor the
+    JAX package, only ``slime_tpu_torch``."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert "slime_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "slime_tpu"))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode"])
+def test_entry_points_accumulate_in_fp32(monkeypatch, entry):
+    """generate's prefill and decode loop run with TF32 and reduced-precision
+    reductions off, whatever the caller set, and restore the caller's
+    settings afterwards (here with the model replaced by a probe)."""
+    mm = torch.backends.cuda.matmul
+    flags = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    seen = []
+
+    class Probe(Exception):
+        pass
+
+    def probe(*args, **kwargs):
+        seen.append([getattr(mm, f) for f in flags] + [torch.backends.cudnn.allow_tf32])
+        raise Probe
+
+    saved = [getattr(mm, f) for f in flags] + [torch.backends.cudnn.allow_tf32]
+    try:
+        for f in flags:
+            setattr(mm, f, True)
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = _cfg()
+        ids = torch.ones((1, 4), dtype=torch.long)
+        with pytest.raises(Probe):
+            if entry == "prefill":
+                monkeypatch.setattr(tgen.llama, "forward", probe)
+                tgen.prefill({"llm": {"embed_tokens": torch.zeros((256, 64))}}, cfg, ids,
+                             torch.ones((1, 4), dtype=torch.bool), None, None,
+                             torch.float32)
+            else:
+                monkeypatch.setattr(tgen.llama, "decode_step", probe)
+                tgen._decode_loop({}, {}, ids[:, 0].to(torch.int32), -1, cfg=cfg,
+                                  max_new_tokens=2, temperature=0.0, top_p=1.0,
+                                  compute_dtype=torch.float32, generator=None)
+        assert seen == [[False] * 4]
+        assert [getattr(mm, f) for f in flags] + [torch.backends.cudnn.allow_tf32] == [True] * 4
+    finally:
+        for f, v in zip(flags, saved):
+            setattr(mm, f, v)
+        torch.backends.cudnn.allow_tf32 = saved[-1]
