@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The PyTorch port's main path on one NVIDIA GPU: SliME-8B serving a query.
+"""The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query,
+and SliME-8B's staged pretraining.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -8,10 +9,12 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 Phase 0  requires CUDA, prints the card, the versions and the kernel build
          time, and turns TF32 off. Phases 1 and 3 run under
          ``layers.fp32_accumulation`` (no TF32, no reduced-precision bf16
-         reductions), the policy ``generate`` pins for its own work.
-Phase 1  runs each hand-written kernel of the path (encoder attention, the
-         fused QKV / O-residual / MLP decode kernels) against its plain
-         PyTorch version on the card at the main path's shapes, asserts
+         reductions), the policy ``generate`` and the train step pin for
+         their own work.
+Phase 1  runs each hand-written kernel of the paths (encoder attention, the
+         fused QKV / O-residual / MLP decode kernels, the flash-attention
+         forward and its dK/dV and dQ backward kernels) against its plain
+         PyTorch version on the card at the paths' shapes, asserts
          agreement, and times both (median of CUDA-event timings). It also
          prints the smallest absolute floor each comparison needed.
 Phase 2  builds SliME-8B at full width from a seed (vision, projector and
@@ -19,11 +22,21 @@ Phase 2  builds SliME-8B at full width from a seed (vision, projector and
          lm_head, as bench.py lays it out), then answers three requests
          through ``generate`` and one through ``generate_stream``: a 672x672
          image and a 64-token prompt, 64 greedy tokens each. It checks the
-         outputs and that every kernel was launched on that path.
+         outputs and that every kernel was launched on that path (the
+         2048-position prefill takes the flash forward in all 32 layers).
 Phase 3  times the slice's stages on the host clock around
          synchronised calls, and traces one request's TTFT and 8 decode
          steps with ``torch.profiler``: device busy time, idle share,
          kernel launches per step and the largest device kernels.
+Phase 4  frees the serving model, builds SliME-8B for training (bf16 frozen
+         LLM and CLIP-L, fp32 projector and sampler) and runs stages 1-3 of
+         the staged pretraining through ``run_stage`` at S = 2048 with
+         per-layer remat, on batches of 672x672 images (host anyres, uint8)
+         and ~300-token texts collated as the JAX package does. It checks
+         finite losses, that exactly the leaves each stage trains moved and
+         the frozen ones did not, and the flash kernels' launch counts; it
+         holds one stage-1 step with the kernels to the same step with the
+         plain attention, splits a stage-1 step's time and traces it.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
@@ -48,9 +61,32 @@ PROFILE_STEPS = 8
 # floors lie above the largest any comparison of the kernels' tests needed on
 # an H100 (PERF.md): under 2e-4 for K2-K4, 3.2e-3 for the MLP, whose bf16
 # intermediate can flip by one ulp before the down projection.
+# The flash kernels (fp32 online softmax over key tiles, p and ds rounded to
+# bf16 per tile) against flash_fwd_ref / flash_bwd_ref (fp32 over whole rows
+# from the same bf16 inputs) needed floors of up to 3.3e-3 on an H100 (K5c
+# through autograd at the ragged S = 2000; PERF.md has each reading).
 RTOL = 2 ** -7
 ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
-        "fused_o_residual": 2e-3, "fused_mlp_decode": 5e-3}
+        "fused_o_residual": 2e-3, "fused_mlp_decode": 5e-3,
+        "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3}
+# the staged pretraining: (name, SliMEConfig and TrainConfig changes, batch
+# size, steps, the parameter prefixes that stage moves)
+TRAIN_STAGES = (
+    ("stage 1", dict(use_global_only=True, mm_learnable_gated=0),
+     dict(tune_mm_mlp_adapter=True, mm_learnable_gated=0), 4, 3,
+     ("projector/projection/",)),
+    ("stage 2", dict(use_global_only=True, mm_learnable_gated=1),
+     dict(tune_mm_mlp_adapter=True, mm_learnable_gated=1), 2, 2,
+     ("projector/attn/",)),
+    ("stage 3", dict(use_local_only=True), dict(tune_mm_mlp_adapter=True), 2, 2,
+     ("projector/projection/", "sampler/")),
+)
+TRAIN_TEXT, TRAIN_PROMPT, TRAIN_LR = 300, 40, 1e-3
+# one stage-1 step with the kernels vs with the plain attention (bf16 model,
+# fp32 online softmax vs the plain bf16 softmax normalisation): an H100 read
+# 1.8e-5 relative on the loss and 6.3e-4 on the projector's gradient norm
+# (PERF.md)
+TRAIN_RTOL = 5e-3
 KERNELS = {
     "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
                           "slime_tpu/ops/encoder_attention.py:88"),
@@ -60,6 +96,12 @@ KERNELS = {
                          "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode": ("slime_tpu_torch/csrc/fused_decode.cu",
                          "slime_tpu/ops/fused_mlp.py:366"),
+    "flash_fwd": ("slime_tpu_torch/csrc/flash_attention.cu",
+                  "slime_tpu/ops/flash_attention.py:133"),
+    "flash_bwd_dkdv": ("slime_tpu_torch/csrc/flash_attention.cu",
+                       "slime_tpu/ops/flash_attention.py:347"),
+    "flash_bwd_dq": ("slime_tpu_torch/csrc/flash_attention.cu",
+                     "slime_tpu/ops/flash_attention.py:389"),
 }
 
 
@@ -90,6 +132,20 @@ def cuda_ms(fn, runs=TIMED_RUNS, flush=None):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, runs=3):
+    """Median milliseconds of fn() on the host clock around synchronised
+    calls, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -176,17 +232,6 @@ def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
     out = Path(__file__).resolve().parent / "bench_out"
     out.mkdir(exist_ok=True)
 
-    def host_ms(fn, runs=3):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     crops, mask = anyres(img)
     pv, cm = crops[None], mask[None]
     with fp32_accumulation():
@@ -256,44 +301,75 @@ def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
         log(f"phase 3 TTFT kernel {ms:8.3f} ms  {name[:90]}")
 
 
-def main():
-    # ---------------- phase 0 ----------------
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this script runs only on a CUDA card")
-    from slime_tpu_torch import generate as gen
-    from slime_tpu_torch.config import IMAGE_TOKEN_INDEX, SliMEConfig
-    from slime_tpu_torch.data.image_ops import make_device_anyres_fn
-    from slime_tpu_torch.models import projector, sampler, vit
+def flash_kernels(dev, g, flush, record):
+    """Phase 1 for K5, K5b and K5c at the serving prefill's shape (q [1, 32,
+    2048, 128], kv [1, 8, 2048, 128] bf16, causal, in llama's [B, S, H, D]
+    storage) and at stage 1's batch of 4, plus three packed segments and a
+    ragged S = 2000 through ``flash_attention(use_kernel=True)`` and
+    autograd. The record keeps the B = 1 times."""
+    from slime_tpu_torch.ops import flash_attention as fa
+
+    def bhsd(B, S, heads):
+        return torch.randn((B, S, heads, 128), device=dev, generator=g).to(
+            torch.bfloat16).transpose(1, 2)
+
+    segs = torch.ones((1, 2048), dtype=torch.int32, device=dev)
+    segs[:, 700:1400], segs[:, 1400:] = 2, 3
+    cases = {"main": (1, 2048, None), "batch 4": (4, 2048, None),
+             "segments": (1, 2048, segs), "ragged": (1, 2000, None)}
+    for case, (B, S, seg) in cases.items():
+        q, k, v, do = bhsd(B, S, 32), bhsd(B, S, 8), bhsd(B, S, 8), bhsd(B, S, 32)
+        kw = dict(causal=True, segment_ids=seg)
+        ro, rl = fa.flash_fwd_ref(q, k, v, **kw)
+        delta = (do.float() * ro.float()).sum(-1)
+        want_dq, want_dk, want_dv = fa.flash_bwd_ref(q, k, v, do, rl, delta, **kw)
+        got = {"flash_fwd": fa.flash_fwd(q, k, v, **kw),
+               "flash_bwd_dkdv": fa.flash_bwd_dkdv(q, k, v, do, rl, delta, **kw),
+               "flash_bwd_dq": fa.flash_bwd_dq(q, k, v, do, rl, delta, **kw)}
+        want = {"flash_fwd": (ro, rl), "flash_bwd_dkdv": (want_dk, want_dv),
+                "flash_bwd_dq": want_dq}
+        if case == "ragged":
+            # the autograd path: forward kernel, delta from its output, K5b, K5c
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fa.flash_attention(*leaves, causal=True, use_kernel=True)
+            out.backward(do)
+            got["flash_fwd"] = (out.detach(),)
+            want["flash_fwd"] = (ro,)
+            got["flash_bwd_dkdv"] = (leaves[1].grad, leaves[2].grad)
+            got["flash_bwd_dq"] = leaves[0].grad
+        torch.cuda.synchronize()
+        for name in got:
+            err, need = compare(name, got[name], want[name])
+            rec = record[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            log(f"phase 1 {name} {case} B={B} S={S}: max_abs_err {err:.3g}, floor "
+                f"needed {need:.3g} (set {ATOL[name]:g})")
+        if case in ("main", "batch 4"):
+            fns = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v),
+                                 lambda: fa.flash_fwd_ref(q, k, v)),
+                   "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, do, rl, delta),
+                                      lambda: fa.flash_bwd_dkdv_ref(q, k, v, do, rl, delta)),
+                   "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta),
+                                    lambda: fa.flash_bwd_dq_ref(q, k, v, do, rl, delta))}
+            for name, (kern, ref) in fns.items():
+                ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
+                if case == "main":
+                    record[name].update(ms=ms, plain_ms=plain)
+                log(f"phase 1 {name} [{B},32|8,2048,128] bf16 causal: kernel {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms")
+        del q, k, v, do, ro, rl, delta, want_dq, want_dk, want_dv, got, want
+    torch.cuda.empty_cache()
+
+
+def kernel_phase(dev, cfg):
+    """Phase 1: every kernel against its plain version; returns the record."""
     from slime_tpu_torch.models.layers import fp32_accumulation
-    from slime_tpu_torch.ops import _cuda
     from slime_tpu_torch.ops import encoder_attention as ea
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 
-    dev = torch.device("cuda", 0)
-    log(f"card: {card_line()}")
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmul and cuDNN; phases 1 and 3 and generate's own work "
-        "run with fp32 accumulation (no reduced-precision bf16 reductions)")
-    t0 = time.perf_counter()
-    _cuda.library()
-    log(f"kernel build: {_cuda.build_seconds if _cuda.build_seconds is not None else 0.0:.2f} s "
-        f"nvcc (cached library: {_cuda.build_seconds is None}); load "
-        f"{time.perf_counter() - t0:.2f} s")
-    fns = {"encoder_attention": ea.encoder_attention,
-           "fused_qkv_decode": fused_qkvo.fused_qkv_decode,
-           "fused_o_residual": fused_qkvo.fused_o_residual,
-           "fused_mlp_decode": fused_mlp.fused_mlp_decode}
-
-    # ---------------- phase 1: kernels vs plain versions ----------------
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
     record = {n: {"max_abs_err": 0.0} for n in KERNELS}
-    cfg = SliMEConfig.slime_8b()
-
     with fp32_accumulation():
         q, k, v = (torch.randn((8, 577, 16, 64), device=dev, generator=g).to(torch.bfloat16)
                    for _ in range(3))
@@ -330,10 +406,21 @@ def main():
                 log(f"phase 1 {name} 8B width int8 B={B} layer 1: kernel {ms:.4f} ms, "
                     f"plain {plain:.4f} ms, max_abs_err {err:.3g}, floor needed "
                     f"{need:.3g} (set {ATOL[name]:g})")
-        del two, flush
+        del two
+        flash_kernels(dev, g, flush, record)
+    del flush
     torch.cuda.empty_cache()
+    return record
 
-    # ---------------- phase 2: the slice at full SliME-8B width ----------------
+
+def serve_phases(dev, cfg, fns, fa):
+    """Phases 2 and 3 on the int8 serving model; returns the launch counts
+    of the counted window (3 generate requests and 1 stream request)."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from slime_tpu_torch.data.image_ops import make_device_anyres_fn
+    from slime_tpu_torch.models import projector, sampler, vit
+
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
     kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
@@ -371,6 +458,7 @@ def main():
 
     for fn in fns.values():
         fn.launches = 0
+    fa.flash_attention.fwd_launches = 0
     latencies, answers = [], []
     for _ in range(N_GENERATE):
         t0 = time.perf_counter()
@@ -385,6 +473,7 @@ def main():
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in fns.items()}
+    launches["flash_fwd"] = fa.flash_attention.fwd_launches
     log(f"phase 2 launches on the main path: {json.dumps(launches)}")
 
     # outputs: shape, range, determinism, the stream agrees with generate
@@ -405,6 +494,10 @@ def main():
         if launches[n] < want:
             raise AssertionError(f"{n} launched {launches[n]} times on the main "
                                  f"path, expected at least {want}")
+    # one 2048-position prefill per request, the flash forward in each layer
+    if launches["flash_fwd"] != 32 * requests:
+        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} times in "
+                             f"{requests} prefills, expected {32 * requests}")
 
     # first-step logits, and TTFT = anyres + encode + fusion + prefill + 1st token
     crops, mask = anyres(img)
@@ -432,6 +525,254 @@ def main():
 
     # ---------------- phase 3: where the time goes ----------------
     profile_slice(params, cfg_run, ids, attn, img, anyres, request, ttft_s * 1e3)
+    return launches
+
+
+def train_batches(cfg, rng, n, B):
+    """n collated batches of B samples: a 672x672 image cut by the host
+    anyres into uint8 crops, ~300 text tokens with the image sentinel, the
+    first TRAIN_PROMPT tokens unlabelled, padded to the model's 2048."""
+    from PIL import Image
+
+    from slime_tpu_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from slime_tpu_torch.data.dataset import collate, process_anyres_image_host
+
+    out = []
+    for _ in range(n):
+        items = []
+        for _ in range(B):
+            img = Image.fromarray(rng.integers(0, 255, (672, 672, 3), dtype=np.uint8))
+            crops, mask, _ = process_anyres_image_host(img, normalize=False)
+            ids = rng.integers(5, cfg.llm.vocab_size, TRAIN_TEXT + int(rng.integers(0, 40)))
+            ids[0], ids[5] = cfg.bos_token_id, IMAGE_TOKEN_INDEX
+            labels = ids.copy()
+            labels[:TRAIN_PROMPT] = IGNORE_INDEX
+            items.append({"input_ids": ids, "labels": labels, "pixel_values": crops,
+                          "crop_mask": mask})
+        out.append(collate(items, pad_token_id=cfg.pad_token_id,
+                           seq_len=cfg.tokenizer_model_max_length))
+    return out
+
+
+def snapshot(params):
+    """Per leaf: a copy (vision, projector, sampler) or, for the 16 GB LLM,
+    two integer sums over its bits (any in-place write moves them)."""
+    from slime_tpu_torch.params import named_leaves
+
+    snap = {}
+    for path, t in named_leaves(params):
+        t = t.detach()
+        if not path.startswith("llm/"):
+            snap[path] = t.clone()
+            continue
+        bits = t.reshape(-1).view(torch.int16)
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for c in range(0, bits.numel(), 2 ** 26):
+            x = bits[c:c + 2 ** 26].to(torch.int64)
+            s1, s2 = s1 + x.sum(), s2 + (x * x).sum()
+        snap[path] = torch.stack([s1, s2])
+    return snap
+
+
+def moved_leaves(before, after):
+    return sorted(p for p in before if not torch.equal(before[p], after[p]))
+
+
+def train_phase(dev, cfg, fa):
+    """Phase 4: stages 1-3 of the staged pretraining at full width."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from slime_tpu_torch.models import llama, projector, sampler, slime, vit
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.ops.loss import chunked_cross_entropy
+    from slime_tpu_torch.params import named_leaves
+    from slime_tpu_torch.train.optim import TrainConfig
+    from slime_tpu_torch.train.step import init_train_state, make_train_step
+    from slime_tpu_torch.train.trainer import RunConfig, run_stage
+
+    bf = torch.bfloat16
+    out_dir = Path(__file__).resolve().parent / "bench_out"
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = {"vision": vit.init(cfg.vision, generator=g, device=dev, dtype=bf),
+              "projector": projector.init(cfg, generator=g, device=dev),
+              "sampler": sampler.init(cfg, generator=g, device=dev),
+              "llm": llama.init(cfg.llm, generator=g, device=dev, dtype=bf)}
+    params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
+    torch.cuda.synchronize()
+    log(f"phase 4 params built on the card in {time.perf_counter() - t0:.1f} s: LLM "
+        f"and CLIP-L bf16, projector and sampler fp32; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    rng = np.random.default_rng(SEED)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}  # noqa: E731
+    launches = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    L = cfg.llm.num_layers
+    first = None
+    for name, cfg_kw, tc_kw, B, steps, moving in TRAIN_STAGES:
+        scfg = dataclasses.replace(cfg, **cfg_kw)
+        tc = TrainConfig(learning_rate=TRAIN_LR, total_steps=steps, **tc_kw)
+        batches = train_batches(cfg, rng, steps, B)
+        if first is None:
+            first = (scfg, tc, to_dev(batches[0]), params)
+        stage_dir = out_dir / f"train_{name.replace(' ', '')}"
+        shutil.rmtree(stage_dir, ignore_errors=True)
+        before = snapshot(params)
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.fwd_launches = 0
+        fa.flash_attention.dkdv_launches = 0
+        fa.flash_attention.dq_launches = 0
+        t0 = time.perf_counter()
+        params, _ = run_stage(params, scfg, tc,
+                              RunConfig(output_dir=str(stage_dir), save_steps=0, log_steps=1,
+                                        seed=SEED),
+                              batches, remat=True,
+                              generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"flash_fwd": fa.flash_attention.fwd_launches,
+               "flash_bwd_dkdv": fa.flash_attention.dkdv_launches,
+               "flash_bwd_dq": fa.flash_attention.dq_launches}
+        want = {"flash_fwd": 2 * L * steps, "flash_bwd_dkdv": L * steps,
+                "flash_bwd_dq": L * steps}
+        log(f"phase 4 {name} launches {json.dumps(got)} (expected {json.dumps(want)}: "
+            f"{L} layers x {steps} steps, the forward twice under remat)")
+        if got != want:
+            raise AssertionError(f"{name}: flash launches {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+        recs = [json.loads(line) for line in
+                (stage_dir / "metrics.jsonl").read_text().splitlines()]
+        for r in recs:
+            log(f"phase 4 {name} step {r['step']}: {B * 2048 / r['tokens_per_sec'] * 1e3:.1f} "
+                f"ms, {r['tokens_per_sec']:.1f} tokens/s, loss {r['loss']:.5f}, grad_norm "
+                f"{r['grad_norm']:.5f}, target tokens {r['target_tokens']}")
+        if len(recs) != steps or not all(np.isfinite([r["loss"] for r in recs])):
+            raise AssertionError(f"{name}: losses {[r['loss'] for r in recs]}")
+        moved = moved_leaves(before, snapshot(params))
+        heads = sorted({m for m in moving if any(p.startswith(m) for p in moved)})
+        stray = [p for p in moved if not p.startswith(moving)]
+        log(f"phase 4 {name}: {len(moved)} leaves moved under {heads}; stage wall "
+            f"{wall:.1f} s; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if stray or heads != sorted(moving):
+            raise AssertionError(f"{name}: moved {moved}, expected only and all of {moving}")
+        del before
+
+    # one stage-1 step with the kernels vs the same step with the plain attention
+    scfg, tc, batch, start = first
+
+    def grad_step(use_kernel):
+        state, _ = init_train_state(start, tc)
+        with fp32_accumulation():
+            loss, _ = slime.loss_fn(state["params"], scfg, batch, training=True,
+                                    use_kernel=use_kernel, compute_dtype=bf, remat=True)
+            loss.backward()
+        sq = sum(p.grad.float().square().sum() for _, p in
+                 named_leaves(state["params"]["projector"]) if p.grad is not None)
+        return float(loss.detach()), float(torch.sqrt(sq))
+
+    (lk, gk), (lp, gp) = grad_step(True), grad_step(False)
+    log(f"phase 4 stage-1 step, kernels vs plain attention: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.3g}); projector grad norm {gk:.6f} vs {gp:.6f} "
+        f"(rel {abs(gk - gp) / abs(gp):.3g}); set {TRAIN_RTOL:g}")
+    if abs(lk - lp) > TRAIN_RTOL * abs(lp) or abs(gk - gp) > TRAIN_RTOL * abs(gp):
+        raise AssertionError("the kernel step and the plain-attention step disagree")
+
+    # where a stage-1 step's time goes
+    state, tx = init_train_state(start, tc)
+    step = make_train_step(scfg, tc, tx, remat=True)
+    step(state, batch)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = min(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out_dir / "profile_train_step.json"))
+    busy, n_kernels, by_name = trace_device(out_dir / "profile_train_step.json")
+    groups = {"flash attention (K5, K5b, K5c)": ("flash_",),
+              "encoder attention (K4)": ("enc_attn",),
+              "GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass", "cublas")}
+    split = {k: 0.0 for k in groups}
+    split["other kernels, copies"] = 0.0
+    for kname, kms in by_name.items():
+        low = kname.lower()
+        key = next((k for k, pats in groups.items() if any(p in low for p in pats)),
+                   "other kernels, copies")
+        split[key] += kms
+    log(f"phase 4 stage-1 step (B=4, S=2048, remat): host wall {wall:.1f} ms "
+        f"(best of 2, unprofiled); device busy {busy:.1f} ms; idle share "
+        f"{1 - busy / wall:.3f}; {n_kernels} kernel launches")
+    for k, kms in split.items():
+        log(f"phase 4 stage-1 step device time {k}: {kms:.1f} ms")
+    for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"phase 4 stage-1 step kernel {kms:8.2f} ms  {kname[:90]}")
+    del state, tx, step
+
+    with fp32_accumulation():
+        vis = host_ms(lambda: slime.encode_images(
+            start, scfg, batch["pixel_values"], batch["crop_mask"], batch["input_ids"],
+            batch["attention_mask"], compute_dtype=bf))
+        hid = torch.randn((4, 2048, cfg.hidden_size), device=dev, generator=g).to(bf)
+        hid.requires_grad_()
+
+        def ce():
+            total, _ = chunked_cross_entropy(hid, start["llm"]["lm_head"], batch["labels"])
+            total.backward()
+        ce_ms = host_ms(ce)
+        ids = torch.randint(0, cfg.llm.vocab_size, (4, 2048), device=dev, generator=g)
+        emb = llama.embed(start["llm"], ids).to(bf)
+        llm_fwd = host_ms(lambda: llama.forward(start["llm"], emb, cfg.llm,
+                                                compute_dtype=bf, return_hidden=True))
+    log(f"phase 4 stage-1 parts (host clock, synchronised, median of 3): encode_images (CLIP-L on "
+        f"32 crops, projector, sampler) {vis:.1f} ms; chunked CE forward + backward "
+        f"{ce_ms:.1f} ms; frozen LLM forward without grad {llm_fwd:.1f} ms")
+    return launches
+
+
+def main():
+    # ---------------- phase 0 ----------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA card")
+    from slime_tpu_torch.config import SliMEConfig
+    from slime_tpu_torch.ops import _cuda
+    from slime_tpu_torch.ops import encoder_attention as ea
+    from slime_tpu_torch.ops import flash_attention as fa
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+
+    dev = torch.device("cuda", 0)
+    log(f"card: {card_line()}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matmul and cuDNN; phases 1 and 3, generate's and the train "
+        "step's own work run with fp32 accumulation (no reduced-precision bf16 "
+        "reductions)")
+    t0 = time.perf_counter()
+    _cuda.library()
+    log(f"kernel build: {_cuda.build_seconds if _cuda.build_seconds is not None else 0.0:.2f} s "
+        f"nvcc (cached library: {_cuda.build_seconds is None}); load "
+        f"{time.perf_counter() - t0:.2f} s")
+    fns = {"encoder_attention": ea.encoder_attention,
+           "fused_qkv_decode": fused_qkvo.fused_qkv_decode,
+           "fused_o_residual": fused_qkvo.fused_o_residual,
+           "fused_mlp_decode": fused_mlp.fused_mlp_decode}
+    cfg = SliMEConfig.slime_8b()
+
+    record = kernel_phase(dev, cfg)                              # phase 1
+    launches = serve_phases(dev, cfg, fns, fa)                   # phases 2, 3
+    torch.cuda.empty_cache()
+    launches.update(flash_bwd_dkdv=0, flash_bwd_dq=0)
+    for name, n in train_phase(dev, cfg, fa).items():            # phase 4
+        launches[name] += n
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "max_abs_err": record[n]["max_abs_err"],

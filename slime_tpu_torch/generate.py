@@ -1,9 +1,12 @@
 """Autoregressive generation: multimodal prefill + KV-cache decode loop.
 
 Port of ``slime_tpu/generate.py`` (``generate`` :127-198, ``generate_stream``
-:201-286, the decode loop :97-124). Prefill attention is the plain
-``reference_attention`` (what JAX's ``generate(..., use_pallas=False)``
-runs); decode goes through ``llama.decode_step`` and its kernels.
+:201-286, the decode loop :97-124). Prefill attention goes through
+``ops.flash_attention`` under JAX's rule: the K5 kernel for causal CUDA
+tensors at S >= 2048 (multimodal prompts are padded to 2048 positions; the
+kernel takes bf16, and an fp32 prefill there raises), the plain
+``reference_attention`` otherwise; decode goes through
+``llama.decode_step`` and its kernels.
 
 The decode loop is a Python loop with the JAX loop's semantics: rows that are
 done emit ``eos_id``, untouched slots stay 0, and the loop stops once every

@@ -2,9 +2,13 @@
 
 Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
 
-- ``forward`` is the prefill over list or stacked ``[L, ...]`` layers, with
-  ``positions``, ``return_kv`` and ``logit_positions`` (``llama.py:233-299``);
-  its attention is the plain ``reference_attention``.
+- ``forward`` is the full-sequence forward of prefill and training over list
+  or stacked ``[L, ...]`` layers (``llama.py:233-323``), with ``positions``,
+  ``return_kv``, ``logit_positions``, ``return_hidden``, ``segment_ids``
+  (sequence packing) and ``remat`` (each layer a ``torch.utils.checkpoint``
+  region, JAX's ``jax.checkpoint`` around each block). Its attention is
+  ``ops.flash_attention`` (JAX ``_attn_prefill`` :176-179): the K5 kernels
+  under JAX's rule or ``use_kernel=True``, the plain version otherwise.
 - ``decode_step`` has the structure of ``_decode_step_fused``
   (``llama.py:670-766``): per layer, ``fused_qkv_decode`` -> RoPE -> the KV
   write -> masked attention over the cache in plain torch (plain XLA in JAX)
@@ -21,9 +25,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
-from ..ops.flash_attention import reference_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_mlp import fused_mlp_decode, silu
 from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
 from ..ops.quantization import dequantize_weight
@@ -125,7 +130,8 @@ def _mlp(lp, x):
     return L.linear(lp["down_proj"], silu(g) * u)
 
 
-def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig):
+def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
+                   segment_ids=None):
     B, S, _ = x.shape
     hd = cfg.head_dim
     h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
@@ -134,8 +140,9 @@ def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig):
     v = L.linear(lp["v_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, use_kernel=use_kernel,
+                          segment_ids=segment_ids)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
     x = x + L.linear(lp["o_proj"], out)
     h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
@@ -143,7 +150,7 @@ def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig):
 
 
 def embed(params, input_ids):
-    return params["embed_tokens"][input_ids]
+    return params["embed_tokens"][input_ids.long()]
 
 
 def _lm_head(params, x):
@@ -158,11 +165,17 @@ def _lm_head(params, x):
 
 
 def forward(params, embeds, cfg: LLMConfig, *, positions=None,
-            return_kv: bool = False, compute_dtype=torch.float32,
-            logit_positions=None):
-    """Full-sequence forward (prefill). embeds [B, S, H]; positions [B, S] or
-    None (arange). Returns (logits fp32 [B, S, V] or [B, 1, V] at
-    ``logit_positions`` [B], list of per-layer (k, v) or None)."""
+            use_kernel: Optional[bool] = None, return_kv: bool = False,
+            compute_dtype=torch.float32, remat: bool = False,
+            logit_positions=None, return_hidden: bool = False,
+            segment_ids=None):
+    """Full-sequence forward (training / prefill). embeds [B, S, H];
+    positions [B, S] or None (arange); segment_ids [B, S] (packed sequences:
+    attention stays inside a segment; pass per-segment positions too).
+    Returns (logits fp32 [B, S, V], or [B, 1, V] at ``logit_positions`` [B],
+    or the final normed hidden states with ``return_hidden``; list of
+    per-layer (k, v) or None). ``use_kernel`` is JAX's ``use_pallas``;
+    ``remat`` recomputes each layer in the backward (under autograd)."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_TODO)
     B, S, _ = embeds.shape
@@ -171,16 +184,23 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
     if positions is None:
         cos_s, sin_s = cos[:S], sin[:S]
     else:
-        cos_s, sin_s = cos[positions], sin[positions]
+        cos_s, sin_s = cos[positions.long()], sin[positions.long()]
+    remat = remat and torch.is_grad_enabled()
     kvs = []
     for i in range(cfg.num_layers):
-        x, kv = _layer_prefill(_layer(params["layers"], i), x, cos_s, sin_s, cfg)
+        args = (_layer(params["layers"], i), x, cos_s, sin_s, cfg, use_kernel,
+                segment_ids)
+        if remat:
+            x, kv = checkpoint(_layer_prefill, *args, use_reentrant=False)
+        else:
+            x, kv = _layer_prefill(*args)
         if return_kv:
             kvs.append(kv)
     x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
     if logit_positions is not None:
         x = torch.gather(x, 1, logit_positions[:, None, None].expand(B, 1, x.shape[-1]))
-    return _lm_head(params, x), (kvs if return_kv else None)
+    out = x if return_hidden else _lm_head(params, x)
+    return out, (kvs if return_kv else None)
 
 
 # ----------------------------------------------------------------------------

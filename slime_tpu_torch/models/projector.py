@@ -4,8 +4,9 @@ Port of ``slime_tpu/models/projector.py``. The ``gated`` type is SliME's
 2-expert MoE: an MLP projection expert and a Resampler attention-adapter
 expert mixed by a softmax gate over per-token features; with k == 2 == number
 of experts the top-k gate is a dense softmax mixture (``projector.py:110-146``).
-Only the inference gate is ported (no training noise). The ``qformer`` and
-``qformer_text`` types are not ported yet.
+In training the gate logits get Gaussian noise (``gate_weights``, :82-99),
+drawn from an explicit ``torch.Generator`` or passed in as ``noise``. The
+``qformer`` and ``qformer_text`` types are not ported yet.
 """
 from __future__ import annotations
 
@@ -64,18 +65,30 @@ def init(cfg: SliMEConfig, *, generator, device="cpu",
     raise NotImplementedError(f"projector type {ptype!r} is not ported yet")
 
 
-def gate_weights(params, x):
-    """Per-token expert mixture weights [..., 2] (inference form):
-    softmax(x @ w_gate), renormalized with the reference's +1e-6."""
+def gate_weights(params, x, *, training: bool = False, generator=None,
+                 noise=None, noise_epsilon: float = 1e-2):
+    """Per-token expert mixture weights [..., 2]: softmax(x @ w_gate),
+    renormalized with the reference's +1e-6. In training (with a
+    ``generator``, or ``noise`` of the logits' shape) the logits first get
+    N(0, 1) noise times softplus(logits) + 1e-2 (the reference derives the
+    stddev from w_gate, not w_noise)."""
     logits = torch.matmul(x.to(torch.float32), params["w_gate"].to(torch.float32))
+    if training and (noise is not None or generator is not None):
+        if noise is None:
+            noise = torch.randn(logits.shape, generator=generator,
+                                device=logits.device)
+        stddev = F.softplus(logits) + noise_epsilon
+        logits = logits + noise.to(torch.float32) * stddev
     g = torch.softmax(logits, dim=-1)
     g = g / (g.sum(dim=-1, keepdim=True) + 1e-6)
     return g.to(x.dtype)
 
 
-def apply(params, x, *, cfg: SliMEConfig) -> torch.Tensor:
+def apply(params, x, *, cfg: SliMEConfig, training: bool = False,
+          generator=None, noise=None) -> torch.Tensor:
     """x [N, L, mm_hidden] -> [N, L_out, llm_hidden]. For the gated type a
-    sequence of other than 576 tokens takes the MLP expert alone."""
+    sequence of other than 576 tokens takes the MLP expert alone;
+    ``training``, ``generator`` and ``noise`` reach ``gate_weights``."""
     t = cfg.mm_projector_type
     if t == "linear":
         return L.linear(params["proj"], x)
@@ -90,5 +103,6 @@ def apply(params, x, *, cfg: SliMEConfig) -> torch.Tensor:
     if cfg.mm_learnable_gated == 1:
         return expert1
     expert0 = _mlp_apply(params["projection"], x)
-    g = gate_weights(params, x)
+    g = gate_weights(params, x, training=training, generator=generator,
+                     noise=noise)
     return expert0 * g[..., 0:1] + expert1 * g[..., 1:2]

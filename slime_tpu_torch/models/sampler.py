@@ -7,7 +7,9 @@ the JAX package vmaps:
   ``mm_resampler_dim`` queries.
 - ``select``: summed cosine similarity of each compressed local token against
   the valid text tokens, temperature softmax, then a static keep mask for the
-  top-p prefix (rank < k). The ``qformer`` router is not ported yet.
+  top-p prefix (rank < k). In training the scores get N(0, 1) * 0.1 noise
+  (:110-111), drawn from an explicit ``torch.Generator`` or passed in as
+  ``noise``. The ``qformer`` router is not ported yet.
 """
 from __future__ import annotations
 
@@ -52,18 +54,25 @@ def _cosine_scores(local_f, text_emb, text_mask) -> torch.Tensor:
 
 
 def select(params, local_f, text_emb, text_mask, token_valid, *,
-           cfg: SliMEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+           cfg: SliMEConfig, training: bool = False, generator=None,
+           noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-p token selection as a static keep mask, per sample.
 
     local_f [B, M, llm_hidden]; text_emb [B, L, llm_hidden]; text_mask [B, L];
     token_valid [B, M]. Returns (keep [B, M] bool, probs [B, M] fp32): sort
     descending (stable), k = #(cumsum <= topp) + 1 clamped to the valid count,
-    keep that prefix in original order."""
+    keep that prefix in original order. In training (with a ``generator``,
+    or ``noise`` [B, M]) the scores first get ``noise * 0.1``."""
     del params      # the cosine selector has no parameters
     if cfg.mm_resampler_type != "cosine":
         raise NotImplementedError(f"selector {cfg.mm_resampler_type!r} is not "
                                   "ported yet (cosine only)")
     scores = _cosine_scores(local_f, text_emb, text_mask)
+    if training and (noise is not None or generator is not None):
+        if noise is None:
+            noise = torch.randn(scores.shape, generator=generator,
+                                device=scores.device)
+        scores = scores + noise.to(torch.float32) * 0.1
     valid = token_valid.to(torch.bool)
     scores = torch.where(valid, scores, float("-inf"))
     probs = torch.softmax(scores.to(torch.float32) / cfg.mm_resampler_temp, dim=-1)

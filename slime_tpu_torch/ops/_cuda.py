@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "slime_rms_norm": [_P, _P, _P, _I, _I, _F, _P],
     "slime_qkv_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
@@ -33,6 +34,9 @@ _SIGNATURES = {
     "slime_gate_up_gemv": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _P],
+    "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 6 + [_F, _P],
+    "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 6 + [_F, _P],
+    "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 6 + [_F, _P],
 }
 
 # the loaded library, and the seconds nvcc took if this process built it
@@ -106,6 +110,11 @@ def require_cuda(*tensors: torch.Tensor) -> None:
         if t.device != dev:
             raise ValueError(f"kernel inputs must lie on the current CUDA device "
                              f"{dev}, got {[str(x.device) for x in tensors]}")
+
+
+def longs(values):
+    """A C array of 64-bit ints (the stride tables the flash kernels take)."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def ptr(t):

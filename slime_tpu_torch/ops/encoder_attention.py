@@ -8,6 +8,12 @@ overflow (1024 * e^80 < fp32 max). The Hopper kernel
 (``csrc/encoder_attention.cu``) keeps those semantics; ``encoder_attention_ref``
 is the same math in plain PyTorch.
 
+The gradient is JAX's (``_enc_bwd``, :133-138): the backward recomputes the
+attention through the plain stabilized softmax (``stable_attention``, JAX's
+``_xla_attention`` :108-120, not the clamped form) and differentiates that.
+The vision tower is frozen in the staged pretraining, so no path of the port
+runs it yet.
+
 Layout: q/k/v [B, S, H, D], the ViT's own layout, on both paths.
 """
 from __future__ import annotations
@@ -41,11 +47,48 @@ def encoder_attention_ref(q, k, v, *, scale: Optional[float] = None):
     return (o / l.to(torch.float32).transpose(1, 2)).to(q.dtype)
 
 
+def stable_attention(q, k, v, *, scale: float):
+    """Plain attention with the stabilized softmax (fp32 scores; for bf16 the
+    max-subtract in fp32, exp and normalize in bf16), JAX's _xla_attention."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    if q.dtype == torch.bfloat16:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(q.dtype)
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)
+
+
+class _Enc(torch.autograd.Function):
+    """K4 forward; backward by recomputing ``stable_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = stable_attention(q, k, v, scale=ctx.scale)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
+
+
 def encoder_attention(q, k, v, *, scale: Optional[float] = None):
     """Bidirectional attention, q/k/v [B, S, H, D] -> [B, S, H, D].
 
     CPU tensors take ``encoder_attention_ref``. CUDA tensors launch the kernel
-    (bf16, unit stride over D, S <= 1024, D <= 128, D % 8 == 0) or raise."""
+    (bf16, unit stride over D, S <= 1024, D <= 128, D % 8 == 0) or raise.
+    Under autograd the gradient is that of ``stable_attention``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Enc.apply(q, k, v, scale)
+
+
+def _forward(q, k, v, scale: float):
     if q.device.type == "cpu":
         return encoder_attention_ref(q, k, v, scale=scale)
     _cuda.require_cuda(q, k, v)
@@ -59,8 +102,6 @@ def encoder_attention(q, k, v, *, scale: Optional[float] = None):
                          f"D <= {MAX_HEAD_DIM}, D % 8 == 0; got S={S}, D={D}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("encoder_attention kernel needs unit stride over D")
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _cuda.library()
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]

@@ -4,6 +4,9 @@ Both packages hold parameters as the same nested dicts in torch layout
 (Linear [out, in], stacked [L, ...] layers, ``{"q", "scale"}`` int8 dicts),
 so converting is a leaf-by-leaf copy. bf16 crosses through a 16-bit integer
 view, so it is bit-exact; int8 stays int8 and fp32 stays fp32.
+
+``named_leaves`` / ``map_leaves`` walk such a tree with the leaf paths JAX's
+``optim._path_str`` writes ("llm/layers/0/q_proj/weight").
 """
 from __future__ import annotations
 
@@ -49,3 +52,27 @@ def to_jax_numpy(tree):
         import ml_dtypes
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def map_leaves(fn, tree, prefix: str = ""):
+    """The same tree with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)

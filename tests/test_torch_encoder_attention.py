@@ -4,8 +4,10 @@ bf16-rounded clamped scores, l rounded to bf16).
 
 fp32 inputs, so both sides round at the same points: tolerance 1e-5 relative
 (fp32 sums in another order). S = 577 covers the ragged tail of the TPU
-kernel's 128-row block.
+kernel's 128-row block. The gradients go against ``jax.vjp`` of the same
+call.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,3 +48,18 @@ def test_cpu_dispatch_takes_the_plain_version():
     torch.testing.assert_close(out, tea.encoder_attention_ref(q, k, v, scale=0.3),
                                rtol=0, atol=0)
     assert tea.encoder_attention.launches == before
+
+
+@pytest.mark.parametrize("S", [50, 577])
+def test_gradients_match_jax_vjp(S):
+    """K4's backward as JAX has it: the gradient of the stabilized softmax
+    (JAX recomputes through _xla_attention), not of the clamped form."""
+    q, k, v = _qkv(2, S, 2, 32, seed=10 + S)
+    g = np.random.default_rng(S).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jea.encoder_attention(a, b, c, interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tea.encoder_attention(tq, tk, tv).backward(torch.from_numpy(g))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)

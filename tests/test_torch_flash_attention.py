@@ -1,0 +1,168 @@
+"""Causal flash attention (K5): the port against the JAX package.
+
+Seeded fp32 inputs at H=4, KVH=2, D=16. JAX's Pallas kernels run in
+interpret mode with 32-row blocks, so several tiles, a ragged tail and a
+wholly masked first tile occur. Two paths of the port are held to them: the
+``_Flash`` autograd function (on CPU tensors its steps take the kernels'
+plain versions ``flash_fwd_ref`` / ``flash_bwd_ref``, with delta computed as
+on the card) and ``flash_attention``'s CPU path (``reference_attention``
+under autograd). Tolerance 1e-5 abs / 1e-5 rel: fp32 sums in another order.
+
+For a ragged S, JAX's interpret-mode dK is NaN (the dK/dV kernel reads the
+lse/delta block past S without zeroing it, and p = 0 times NaN stays NaN),
+so there the port's dK is held to ``jax.vjp`` of JAX's reference_attention.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slime_tpu.ops import flash_attention as jfa
+from slime_tpu_torch.ops import flash_attention as tfa
+
+H, KVH, D = 4, 2, 16
+BLOCK = 32
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(B, S, seed):
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, H, S, D)).astype(np.float32)
+    k = r.standard_normal((B, KVH, S, D)).astype(np.float32)
+    v = r.standard_normal((B, KVH, S, D)).astype(np.float32)
+    g = r.standard_normal((B, H, S, D)).astype(np.float32)
+    return q, k, v, g
+
+
+def _segments(B, S, kind):
+    if kind is None:
+        return None
+    seg = np.zeros((B, S), np.int32)
+    if kind == "first_tile_masked":          # segment 2 fills exactly the second tile
+        seg[:, :BLOCK] = 1
+        seg[:, BLOCK:2 * BLOCK] = 2
+    else:                                    # three packed segments and a zero tail
+        seg[:, :20] = 1
+        seg[:, 20:50] = 2
+        seg[:, 50:S - 6] = 3
+    return seg
+
+
+CASES = {
+    # name: (B, S, causal, segments)
+    "causal": (2, 64, True, None),
+    "noncausal": (1, 64, False, None),
+    "ragged": (1, 80, True, None),
+    "ragged_noncausal": (2, 70, False, None),
+    "segments": (2, 96, True, "packed"),
+    "segments_noncausal": (1, 96, False, "packed"),
+    "first_tile_masked": (1, 64, True, "first_tile_masked"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(case):
+    """JAX's forward and gradients for ``case`` (shared by both port paths)."""
+    B, S, causal, kind = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=len(case))
+    seg = _segments(B, S, kind)
+    jseg = None if seg is None else jnp.asarray(seg)
+
+    def kernel(a, b, c):
+        return jfa.flash_attention_interpret(a, b, c, causal=causal, block_q=BLOCK,
+                                             block_k=BLOCK, segment_ids=jseg)
+
+    def plain(a, b, c):
+        return jfa.reference_attention(a, b, c, causal=causal, segment_ids=jseg)
+
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    out, vjp = jax.vjp(kernel, *args)
+    grads = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    if q.shape[2] % BLOCK:
+        grads[1] = np.asarray(jax.vjp(plain, *args)[1](jnp.asarray(g))[1])
+    return np.asarray(out), grads
+
+
+def _torch_case(path, q, k, v, g, causal, seg):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tseg = None if seg is None else torch.from_numpy(seg)
+    if path == "autograd_fn":
+        out = tfa._Flash.apply(tq, tk, tv, tseg, causal, 1.0 / np.sqrt(D))
+    else:
+        out = tfa.flash_attention(tq, tk, tv, causal=causal, segment_ids=tseg)
+    out.backward(torch.from_numpy(g))
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("path", ["autograd_fn", "flash_attention"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_and_gradients_match_jax(case, path):
+    B, S, causal, kind = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=len(case))
+    seg = _segments(B, S, kind)
+    want_out, want_grads = _jax_case(case)
+    before = (tfa.flash_attention.fwd_launches, tfa.flash_attention.dkdv_launches,
+              tfa.flash_attention.dq_launches)
+    got_out, got_grads = _torch_case(path, q, k, v, g, causal, seg)
+    np.testing.assert_allclose(got_out, want_out, **TOL)
+    for got, want, name in zip(got_grads, want_grads, ("dq", "dk", "dv")):
+        assert np.isfinite(got).all(), name
+        np.testing.assert_allclose(got, want, err_msg=name, **TOL)
+    # CPU tensors never launch a kernel
+    assert (tfa.flash_attention.fwd_launches, tfa.flash_attention.dkdv_launches,
+            tfa.flash_attention.dq_launches) == before
+
+
+@pytest.mark.parametrize("case", ["causal", "ragged", "segments", "first_tile_masked"])
+def test_fwd_ref_lse_matches_jax_kernel(case):
+    B, S, causal, kind = CASES[case]
+    q, k, v, _ = _inputs(B, S, seed=3)
+    seg = _segments(B, S, kind)
+    out, lse = jfa._fwd(*map(jnp.asarray, (q, k, v)),
+                        None if seg is None else jnp.asarray(seg),
+                        scale=1.0 / np.sqrt(D), causal=causal, block_q=BLOCK,
+                        block_k=BLOCK, interpret=True)
+    got_out, got_lse = tfa.flash_fwd_ref(
+        *map(torch.from_numpy, (q, k, v)), causal=causal,
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse).transpose(0, 2, 1), **TOL)
+
+
+@pytest.mark.parametrize("case", ["causal", "noncausal", "segments"])
+def test_bwd_ref_matches_jax_kernels(case):
+    """flash_bwd_ref from the saved lse and delta vs JAX's two backward
+    kernels, given the same (out, lse) from JAX's forward kernel."""
+    B, S, causal, kind = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=5)
+    seg = _segments(B, S, kind)
+    jseg = None if seg is None else jnp.asarray(seg)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kw = dict(scale=1.0 / np.sqrt(D), causal=causal, block_q=BLOCK, block_k=BLOCK,
+              interpret=True)
+    out, lse = jfa._fwd(jq, jk, jv, jseg, **kw)
+    want = jfa._bwd_impl(jq, jk, jv, out, lse, jnp.asarray(g), jseg, **kw)
+    out_t = torch.from_numpy(np.array(out))
+    g_t = torch.from_numpy(g)
+    delta = (g_t * out_t).sum(-1)
+    got = tfa.flash_bwd_ref(*map(torch.from_numpy, (q, k, v)), g_t,
+                            torch.from_numpy(np.array(lse)).transpose(1, 2),
+                            delta, causal=causal,
+                            segment_ids=None if seg is None else torch.from_numpy(seg))
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+def test_auto_rule_takes_the_plain_path_on_cpu():
+    """use_kernel=None is JAX's rule on the card only: a CPU tensor at S=2048
+    takes reference_attention, bit for bit."""
+    r = np.random.default_rng(0)
+    q = torch.from_numpy(r.standard_normal((1, 2, 2048, 128)).astype(np.float32))
+    k = torch.from_numpy(r.standard_normal((1, 1, 2048, 128)).astype(np.float32))
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    assert not tfa._auto_kernel(q, True)
+    torch.testing.assert_close(tfa.flash_attention(q, k, k),
+                               tfa.reference_attention(q, k, k), rtol=0, atol=0)

@@ -121,3 +121,98 @@ def test_fused_decode_kernels_reject(dev):
             torch.zeros((65, 256), device=dev, dtype=torch.bfloat16), layers, 0)
     with pytest.raises(ValueError):         # fp32 activations
         fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev), layers, 0)
+
+
+def _bhsd(B, S, heads, D, g, dev):
+    """bf16 [B, heads, S, D] in llama's [B, S, heads, D] storage."""
+    return torch.randn((B, S, heads, D), device=dev, generator=g).to(
+        torch.bfloat16).transpose(1, 2)
+
+
+# (B, H, KVH, S, D, causal, segments): the serving and stage-1 training
+# shapes, GQA group sizes, ragged S, non-causal, packed segments (the third
+# one first in a tile)
+FLASH_CASES = [(1, 32, 8, 2048, 128, True, False), (4, 32, 8, 2048, 128, True, False),
+               (2, 4, 2, 200, 128, False, False),
+               (1, 4, 1, 2000, 128, True, False), (1, 4, 2, 256, 128, True, True),
+               (2, 8, 8, 130, 128, False, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels(dev, case):
+    """K5, K5b, K5c against flash_fwd_ref / flash_bwd_ref. The kernels keep
+    an fp32 online softmax over key tiles and round p and ds to bf16 per
+    tile; the plain versions work on whole rows: on an H100 the largest
+    floor needed was 3.2e-3."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    B, H, KVH, S, D, causal, segmented = case
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v, do = (_bhsd(B, S, n, D, g, dev) for n in (H, KVH, KVH, H))
+    seg = None
+    if segmented:
+        seg = torch.ones((B, S), dtype=torch.int32, device=dev)
+        seg[:, S // 3:2 * S // 3], seg[:, 2 * S // 3:] = 2, 3
+    kw = dict(causal=causal, segment_ids=seg)
+    counts = (fa.flash_attention.fwd_launches, fa.flash_attention.dkdv_launches,
+              fa.flash_attention.dq_launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rl = fa.flash_fwd_ref(q, k, v, **kw)
+    _assert_close(out, ro, atol=5e-3)
+    _assert_close(lse, rl, atol=5e-3)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, do, rl, delta, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, do, rl, delta, **kw)
+    for got, want in zip((dq, dk, dv), fa.flash_bwd_ref(q, k, v, do, rl, delta, **kw)):
+        _assert_close(got, want, atol=5e-3)
+    assert (fa.flash_attention.fwd_launches, fa.flash_attention.dkdv_launches,
+            fa.flash_attention.dq_launches) == tuple(c + 1 for c in counts)
+
+
+def test_flash_attention_autograd(dev):
+    """flash_attention(use_kernel=True) under autograd: the forward kernel,
+    then delta, K5b and K5c."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (_bhsd(2, 512, n, 128, g, dev) for n in (8, 2, 2, 8))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, use_kernel=True)
+    out.backward(do)
+    ro, rl = fa.flash_fwd_ref(q, k, v)
+    _assert_close(out.detach(), ro, atol=5e-3)
+    delta = (do.float() * ro.float()).sum(-1)
+    for leaf, want in zip(leaves, fa.flash_bwd_ref(q, k, v, do, rl, delta)):
+        _assert_close(leaf.grad, want, atol=5e-3)
+
+
+def test_flash_attention_auto_rule(dev):
+    """use_kernel=None takes the kernel for causal attention at S >= 2048 (S,
+    D multiples of 128) and the plain path below that, as JAX's rule does.
+    A tensor the rule picks that the kernels cannot take raises: fp32, or
+    D = 256."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(8)
+    for S, launched in ((2048, 1), (1024, 0)):
+        q, k = _bhsd(1, S, 4, 128, g, dev), _bhsd(1, S, 2, 128, g, dev)
+        before = fa.flash_attention.fwd_launches
+        fa.flash_attention(q, k, k)
+        assert fa.flash_attention.fwd_launches == before + launched
+    q = _bhsd(1, 2048, 4, 128, g, dev).float()
+    with pytest.raises(ValueError):                  # fp32
+        fa.flash_attention(q, q, q)
+    q = _bhsd(1, 2048, 2, 256, g, dev)
+    with pytest.raises(ValueError):                  # D = 256
+        fa.flash_attention(q, q, q)
+
+
+def test_flash_kernels_reject(dev):
+    from slime_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros((1, 2, 256, 128), device=dev)
+    with pytest.raises(ValueError):                  # fp32
+        fa.flash_attention(q, q, q, use_kernel=True)
+    q = torch.zeros((1, 2, 256, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # D = 96
+        fa.flash_attention(q, q, q, use_kernel=True)
+    q = torch.zeros((1, 3, 256, 128), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 256, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # KVH does not divide H
+        fa.flash_attention(q, k, k, use_kernel=True)

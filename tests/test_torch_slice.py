@@ -151,8 +151,8 @@ def test_sample_token_top_p_support():
 
 
 def test_port_runs_without_jax():
-    """Import the port and run a tiny slice in a fresh process without the
-    test suite's JAX setup; jax must never be imported."""
+    """Import the port, run a tiny slice and two training steps in a fresh
+    process without the test suite's JAX setup; jax must never be imported."""
     script = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -177,6 +177,22 @@ def test_port_runs_without_jax():
         out = generate.generate(p, cfg, ids, torch.ones((1, 16), dtype=torch.bool),
                                 crops[None], mask[None], max_new_tokens=4, eos_id=-1)
         assert out.shape == (1, 4)
+        # two steps of training stage 1 through run_stage
+        import dataclasses, tempfile
+        from slime_tpu_torch.train.optim import TrainConfig
+        from slime_tpu_torch.train.trainer import RunConfig, run_stage
+        batch = {"input_ids": ids.numpy().astype(np.int32),
+                 "labels": np.where(ids.numpy() < 0, -100, ids.numpy()).astype(np.int32),
+                 "attention_mask": np.ones((1, 16), bool),
+                 "pixel_values": crops[None].numpy(), "crop_mask": mask[None].numpy()}
+        _, m = run_stage(p, dataclasses.replace(cfg, use_global_only=True,
+                                                mm_learnable_gated=0),
+                         TrainConfig(total_steps=2, tune_mm_mlp_adapter=True,
+                                     mm_learnable_gated=0),
+                         RunConfig(output_dir=tempfile.mkdtemp(), save_steps=0,
+                                   log_steps=1), [batch, batch],
+                         compute_dtype=torch.float32, remat=True)
+        assert np.isfinite(m["loss"])
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
         assert not bad, bad
         print("OK")
@@ -201,6 +217,9 @@ def test_port_import_hides_slime_platform():
         from slime_tpu_torch.data import image_ops
         from slime_tpu_torch.models import layers, llama, projector, sampler, slime, vit
         from slime_tpu_torch.ops import _cuda, encoder_attention, fused_mlp, fused_qkvo
+        from slime_tpu_torch.ops import flash_attention, loss
+        from slime_tpu_torch.data import dataset
+        from slime_tpu_torch.train import optim, step, trainer
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
         assert not bad, bad
         assert os.environ["SLIME_PLATFORM"] == "cpu"
