@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query,
-and SliME-8B's staged pretraining.
+"""The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query
+(int8, and the CLI's 4-bit configurations), and SliME-8B's staged pretraining.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -12,11 +12,16 @@ Phase 0  requires CUDA, prints the card, the versions and the kernel build
          reductions), the policy ``generate`` and the train step pin for
          their own work.
 Phase 1  runs each hand-written kernel of the paths (encoder attention, the
-         fused QKV / O-residual / MLP decode kernels, the flash-attention
-         forward and its dK/dV and dQ backward kernels) against its plain
-         PyTorch version on the card at the paths' shapes, asserts
-         agreement, and times both (median of CUDA-event timings). It also
-         prints the smallest absolute floor each comparison needed.
+         fused QKV / O-residual / MLP decode kernels in int8 and q4g, the
+         flash-attention forward and its dK/dV and dQ backward kernels, the
+         quantized matmul in its q4, int8 and q4g loaders, the W8A8 matmul)
+         against its plain PyTorch version on the card at the paths' shapes,
+         asserts agreement, and times both (median of CUDA-event timings),
+         and one PyTorch call computing the same function where there is one
+         (scaled_dot_product_attention for the attention kernels). It prints
+         the smallest absolute floor each comparison needed, and each
+         kernel's bound: the larger of its bytes over HBM bandwidth and its
+         operations over the tensor-core peak (H100 SXM data sheet).
 Phase 2  builds SliME-8B at full width from a seed (vision, projector and
          sampler in bf16; the LLM int8 weight-only, stacked, with an int8
          lm_head, as bench.py lays it out), then answers three requests
@@ -37,6 +42,23 @@ Phase 4  frees the serving model, builds SliME-8B for training (bf16 frozen
          the frozen ones did not, and the flash kernels' launch counts; it
          holds one stage-1 step with the kernels to the same step with the
          plain attention, splits a stage-1 step's time and traces it.
+
+Phase 5  builds SliME-8B as ``--load-4bit --int4-scheme group
+         --quantize-lm-head --quantize-vision`` does (config A: q4g LLM
+         layers, int8 lm_head, W8A8 CLIP-L; projector and sampler bf16), at
+         full width and depth from seed 0, one fp32 layer at a time through
+         ``checkpoint.quantize_loaded``; answers phase 2's four requests and
+         checks them as phase 2 does, and the launches per request (the
+         quantized matmul's q4g loader 7 x 32 per prefill, the W8A8 matmul
+         4 x 23 per encode, the flash forward 32 per prefill, the q4g decode
+         kernels 32 per step, its q4 and int8 loaders never); then phase 3's
+         stage times and traces for it.
+Phase 5b builds config B (``--load-4bit --int4-scheme absmax
+         --quantize-lm-head``: per-row q4 LLM layers, vision bf16) at full
+         width and depth, answers one 16-token request twice, and checks
+         that the quantized matmul's q4 loader ran 7 x 32 times in each
+         prefill and each decode step (the non-fused decode) and that the
+         answers repeat.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
@@ -65,10 +87,21 @@ PROFILE_STEPS = 8
 # bf16 per tile) against flash_fwd_ref / flash_bwd_ref (fp32 over whole rows
 # from the same bf16 inputs) needed floors of up to 3.3e-3 on an H100 (K5c
 # through autograd at the ragged S = 2000; PERF.md has each reading).
+# The quantized matmul's loaders (exact integer weights in bf16 tiles, fp32
+# sums in another order, bf16 out) needed floors of up to 2.3e-5 on an H100,
+# the q4g decode kernels up to 3.7e-4 (K1 at B = 64); the W8A8 matmul, which
+# rounds at the plain version's points after an exact integer dot, agreed
+# exactly (PERF.md).
 RTOL = 2 ** -7
 ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_o_residual": 2e-3, "fused_mlp_decode": 5e-3,
-        "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3}
+        "fused_qkv_decode_q4g": 2e-3, "fused_o_residual_q4g": 2e-3,
+        "fused_mlp_decode_q4g": 5e-3,
+        "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3,
+        "quant_matmul_q4": 2e-3, "quant_matmul_int8": 2e-3, "quant_matmul_q4g": 2e-3,
+        "w8a8_matmul": 1e-6}
+# H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s
+HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
 # the staged pretraining: (name, SliMEConfig and TrainConfig changes, batch
 # size, steps, the parameter prefixes that stage moves)
 TRAIN_STAGES = (
@@ -102,7 +135,74 @@ KERNELS = {
                        "slime_tpu/ops/flash_attention.py:347"),
     "flash_bwd_dq": ("slime_tpu_torch/csrc/flash_attention.cu",
                      "slime_tpu/ops/flash_attention.py:389"),
+    "fused_qkv_decode_q4g": ("slime_tpu_torch/csrc/fused_decode.cu",
+                             "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual_q4g": ("slime_tpu_torch/csrc/fused_decode.cu",
+                             "slime_tpu/ops/fused_qkvo.py:209"),
+    "fused_mlp_decode_q4g": ("slime_tpu_torch/csrc/fused_decode.cu",
+                             "slime_tpu/ops/fused_mlp.py:366"),
+    "quant_matmul_q4": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                        "slime_tpu/ops/quant_matmul.py:130"),
+    "quant_matmul_int8": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                          "slime_tpu/ops/quant_matmul.py:130"),
+    "quant_matmul_q4g": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                         "slime_tpu/ops/quant_matmul.py:82"),
+    "w8a8_matmul": ("slime_tpu_torch/csrc/w8a8_matmul.cu",
+                    "slime_tpu/ops/w8a8_matmul.py:64"),
 }
+# K6's int8 loader has no caller on any path: the JAX package routes only q4
+# and q4g weights to its quantized matmuls (layers.py:52-59). Phase 1 checks
+# it; its launch count stays 0.
+OFF_PATH = ("quant_matmul_int8",)
+
+
+def _counters():
+    """{record name: (wrapper, counter attribute)} of every kernel launch
+    count."""
+    from slime_tpu_torch.ops import encoder_attention as ea
+    from slime_tpu_torch.ops import flash_attention as fa
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    from slime_tpu_torch.ops import quant_matmul as qm
+    from slime_tpu_torch.ops import w8a8_matmul as w8
+    fused = {"fused_qkv_decode": fused_qkvo.fused_qkv_decode,
+             "fused_o_residual": fused_qkvo.fused_o_residual,
+             "fused_mlp_decode": fused_mlp.fused_mlp_decode}
+    out = {"encoder_attention": (ea.encoder_attention, "launches"),
+           "flash_fwd": (fa.flash_attention, "fwd_launches"),
+           "flash_bwd_dkdv": (fa.flash_attention, "dkdv_launches"),
+           "flash_bwd_dq": (fa.flash_attention, "dq_launches"),
+           "quant_matmul_q4": (qm.quant_matmul, "q4_launches"),
+           "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
+           "quant_matmul_q4g": (qm.quant_matmul_q4g, "launches"),
+           "w8a8_matmul": (w8.w8a8_matmul, "launches")}
+    for n, fn in fused.items():
+        out[n], out[n + "_q4g"] = (fn, "launches"), (fn, "q4g_launches")
+    return out
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by record name (the decode
+    kernels' dense/int8 launches and their q4g loader's counted apart)."""
+    counts = {n: getattr(fn, attr) for n, (fn, attr) in _counters().items()}
+    for n in ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode"):
+        counts[n] -= counts[n + "_q4g"]        # .launches counts every format
+    return counts
+
+
+def reset_launch_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved, ops, peak):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    HBM bandwidth and the operations over the peak for their type."""
+    t_bytes, t_ops = nbytes_moved / HBM_BPS, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def log(msg):
@@ -133,6 +233,20 @@ def cuda_ms(fn, runs=TIMED_RUNS, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def dispatch_us(fn, calls=50):
+    """Host microseconds per call of fn() issued back to back without a
+    sync (its launches queue behind each other): the host cost of a
+    wrapper, which bounds a decode step that the device finishes first."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def host_ms(fn, runs=3):
@@ -218,10 +332,12 @@ def trace_device(path):
     return busy / 1e3, launches, by_name
 
 
-def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
-    """Phase 3: stage times (host clock around synchronised calls, median of
-    3) and a torch.profiler trace of one TTFT and of PROFILE_STEPS decode
-    steps. Idle share = 1 - device busy / the unprofiled host wall time."""
+def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
+    """Phase 3 (and 5's part of it): stage times (host clock around
+    synchronised calls, median of 3) and a torch.profiler trace of one TTFT
+    and of PROFILE_STEPS decode steps. Idle share = 1 - device busy / the
+    unprofiled host wall time. ``tag`` names the phase in the log and the
+    trace files."""
     from torch.profiler import ProfilerActivity, profile
 
     from slime_tpu_torch import generate as gen
@@ -254,7 +370,7 @@ def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
         }
     del fused
     for name, ms in stages.items():
-        log(f"phase 3 stage {name}: {ms:.2f} ms")
+        log(f"phase {tag} stage {name}: {ms:.2f} ms")
 
     # decode: a cache after one prefill, then steps of the generate loop
     last, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
@@ -275,30 +391,59 @@ def profile_slice(params, cfg, ids, attn, img, anyres, request, ttft_ms):
         t0 = time.perf_counter()
         steps(1)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"phase 3 decode step host wall over 32 steps (EOS sync included): median "
+    log(f"phase {tag} decode step host wall over 32 steps (EOS sync included): median "
         f"{statistics.median(step_ms):.2f} ms, mean {statistics.mean(step_ms):.2f}, "
         f"p90 {np.percentile(step_ms, 90):.2f}, max {max(step_ms):.2f}")
     step_ms = statistics.median(step_ms)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         steps(PROFILE_STEPS)
-    prof.export_chrome_trace(str(out / "profile_decode.json"))
-    busy, launches, by_name = trace_device(out / "profile_decode.json")
+    prof.export_chrome_trace(str(out / f"profile_decode_{tag}.json"))
+    busy, launches, by_name = trace_device(out / f"profile_decode_{tag}.json")
     busy /= PROFILE_STEPS
-    log(f"phase 3 decode step: device busy {busy:.2f} ms/step; idle share "
+    log(f"phase {tag} decode step: device busy {busy:.2f} ms/step; idle share "
         f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"phase 3 decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
+        log(f"phase {tag} decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
     del cache, last
 
     with profile(activities=acts) as prof:
         request(1).cpu()
-    prof.export_chrome_trace(str(out / "profile_ttft.json"))
-    busy, launches, by_name = trace_device(out / "profile_ttft.json")
-    log(f"phase 3 TTFT: device busy {busy:.2f} ms of {ttft_ms:.2f} ms unprofiled; "
+    prof.export_chrome_trace(str(out / f"profile_ttft_{tag}.json"))
+    busy, launches, by_name = trace_device(out / f"profile_ttft_{tag}.json")
+    log(f"phase {tag} TTFT: device busy {busy:.2f} ms of {ttft_ms:.2f} ms unprofiled; "
         f"idle share {1 - busy / ttft_ms:.3f}; {launches} kernel launches")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"phase 3 TTFT kernel {ms:8.3f} ms  {name[:90]}")
+        log(f"phase {tag} TTFT kernel {ms:8.3f} ms  {name[:90]}")
+
+
+def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main,
+                   library=None, dispatch=False):
+    """Hold kern() to its plain version ref() and time both (and one PyTorch
+    call computing the same function, where there is one). ``moved`` bytes
+    and ``ops`` operations at ``peak`` give the bound; the record keeps the
+    ``main`` case, the main path's shape. ``dispatch`` also logs the
+    wrapper's host cost per call."""
+    err, need = compare(name, kern(), ref())
+    rec = record[name]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
+    lib = None if library is None else cuda_ms(library, flush=flush)
+    b_ms, b_by = bound(moved, ops, peak)
+    if main:
+        rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log(f"phase 1 {name} {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}); "
+        f"max_abs_err {err:.3g}, floor needed {need:.3g} (set {ATOL[name]:g})"
+        + (f"; host dispatch {dispatch_us(kern):.1f} us/call" if dispatch else ""))
+
+
+def sdpa(q, k, v, **kw):
+    """torch's scaled_dot_product_attention over [B, H, S, D] views, GQA by
+    ``enable_gqa`` where kv has fewer heads."""
+    import torch.nn.functional as F
+    gqa = k.shape[1] != q.shape[1]
+    return F.scaled_dot_product_attention(q, k, v, **kw, **({"enable_gqa": True} if gqa else {}))
 
 
 def flash_kernels(dev, g, flush, record):
@@ -306,7 +451,9 @@ def flash_kernels(dev, g, flush, record):
     2048, 128], kv [1, 8, 2048, 128] bf16, causal, in llama's [B, S, H, D]
     storage) and at stage 1's batch of 4, plus three packed segments and a
     ragged S = 2000 through ``flash_attention(use_kernel=True)`` and
-    autograd. The record keeps the B = 1 times."""
+    autograd. The record keeps the B = 1 times, the bounds and the time of
+    torch's causal GQA scaled_dot_product_attention: its forward for K5, its
+    backward (dQ, dK and dV in one call) for K5b and K5c alike."""
     from slime_tpu_torch.ops import flash_attention as fa
 
     def bhsd(B, S, heads):
@@ -351,13 +498,148 @@ def flash_kernels(dev, g, flush, record):
                                       lambda: fa.flash_bwd_dkdv_ref(q, k, v, do, rl, delta)),
                    "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta),
                                     lambda: fa.flash_bwd_dq_ref(q, k, v, do, rl, delta))}
+            # causal products of B x 32 heads x S^2 / 2 x 128: the forward
+            # does 2 (QK^T, PV), dK/dV 4 (QK^T, dP, dV, dK), dQ 3 (QK^T, dP, dQ)
+            prod = 2 * B * 32 * S * S * 128 // 2
+            io = {"flash_fwd": (nbytes(q, k, v, ro, rl), 2 * prod),
+                  "flash_bwd_dkdv": (nbytes(q, k, v, do, rl, delta, k, v), 4 * prod),
+                  "flash_bwd_dq": (nbytes(q, k, v, do, rl, delta, q), 3 * prod)}
+            lib = {}
+            if case == "main":
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                lo = sdpa(ql, kl, vl, is_causal=True)
+                lib = {"flash_fwd": lambda: sdpa(q, k, v, is_causal=True),
+                       "flash_bwd_dkdv": lambda: torch.autograd.grad(
+                           lo, (ql, kl, vl), do, retain_graph=True)}
+                lib["flash_bwd_dq"] = lib["flash_bwd_dkdv"]
             for name, (kern, ref) in fns.items():
                 ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
+                b_ms, b_by = bound(*io[name], BF16_OPS)
+                lib_ms = cuda_ms(lib[name], flush=flush) if name in lib else None
                 if case == "main":
-                    record[name].update(ms=ms, plain_ms=plain)
+                    record[name].update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=lib_ms)
                 log(f"phase 1 {name} [{B},32|8,2048,128] bf16 causal: kernel {ms:.4f} ms, "
-                    f"plain {plain:.4f} ms")
+                    f"plain {plain:.4f} ms, library "
+                    f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms "
+                    f"({b_by})")
+            del lib
         del q, k, v, do, ro, rl, delta, want_dq, want_dk, want_dv, got, want
+    torch.cuda.empty_cache()
+
+
+def q4g_llm_layers(cfg, generator, device):
+    """Random stacked decode layers in the CLI's q4g format: N(0, 0.02)
+    weights quantized group-128 (``--int4-scheme group``)."""
+    from slime_tpu_torch.ops.quantization import quantize_weight_q4g
+
+    H, HD, I, NL = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_layers
+
+    def q(out_d, in_d):
+        return quantize_weight_q4g(
+            torch.randn((NL, out_d, in_d), device=device, generator=generator) * 0.02)
+
+    ones = lambda *s: torch.ones(s, device=device)     # noqa: E731
+    return {"input_layernorm": {"weight": ones(NL, H)},
+            "q_proj": {"weight": q(cfg.num_heads * HD, H)},
+            "k_proj": {"weight": q(cfg.num_kv_heads * HD, H)},
+            "v_proj": {"weight": q(cfg.num_kv_heads * HD, H)},
+            "o_proj": {"weight": q(H, cfg.num_heads * HD)},
+            "post_attention_layernorm": {"weight": ones(NL, H)},
+            "gate_proj": {"weight": q(I, H)},
+            "up_proj": {"weight": q(I, H)},
+            "down_proj": {"weight": q(H, I)}}
+
+
+def decode_kernels(dev, cfg, g, flush, record):
+    """Phase 1 for K1-K3 at 8B width, layer 1 of a 2-layer stack: int8 (B =
+    1, 8) and q4g (B = 1, 64); the record keeps B = 1."""
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+
+    cfg2 = dataclasses.replace(cfg.llm, num_layers=2)
+    H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
+    NKV, I = cfg2.num_kv_heads * cfg2.head_dim, cfg2.intermediate_size
+    for fmt, batches in (("int8", (1, 8)), ("q4g", (1, 64))):
+        two = (int8_llm_params(cfg2, g, dev)["layers"] if fmt == "int8"
+               else q4g_llm_layers(cfg2, g, dev))
+        sfx = "_q4g" if fmt == "q4g" else ""
+
+        def w(*names):          # layer 1's weights, scales and norm weights
+            return [t[1] for n in names for t in (
+                two[n]["weight"].values() if isinstance(two[n]["weight"], dict)
+                else (two[n]["weight"],))]
+        # name: (kernel, plain, layer-1 tensors read, output columns, MACs per row)
+        cases = {
+            "fused_qkv_decode": (lambda x, a: fused_qkvo.fused_qkv_decode(x, two, 1),
+                                 lambda x, a: fused_qkvo.fused_qkv_decode_ref(x, two, 1),
+                                 w("input_layernorm", "q_proj", "k_proj", "v_proj"),
+                                 NQ + 2 * NKV, H * (NQ + 2 * NKV)),
+            "fused_o_residual": (lambda x, a: fused_qkvo.fused_o_residual(a, x, two, 1),
+                                 lambda x, a: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
+                                 w("o_proj"), H, NQ * H),
+            "fused_mlp_decode": (lambda x, a: fused_mlp.fused_mlp_decode(x, two, 1),
+                                 lambda x, a: fused_mlp.fused_mlp_decode_ref(x, two, 1),
+                                 w("post_attention_layernorm", "gate_proj", "up_proj",
+                                   "down_proj"), H, 3 * H * I),
+        }
+        for B in batches:
+            x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+            a = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+            for name, (kern, ref, reads, cols, macs) in cases.items():
+                acts = (x, a) if name == "fused_o_residual" else (x,)
+                check_and_time(record, name + sfx, f"8B width {fmt} B={B} layer 1",
+                               lambda: kern(x, a), lambda: ref(x, a),
+                               nbytes(*acts, *reads) + B * cols * 2, 2 * B * macs,
+                               BF16_OPS, flush, main=B == 1, dispatch=B == 1)
+        del two, cases
+
+
+def quant_kernels(dev, g, flush, record):
+    """Phase 1 for the quantized matmul (K6: q4 and int8 loaders; K7: q4g)
+    and the W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
+    prefill (B = 2048) rows of q_proj [4096, 4096] and down_proj [4096,
+    14336], K7 at prefill rows of q_proj, gate_proj [14336, 4096] and
+    down_proj, K8 at one 8-crop encode's 4616 tokens of the packed qkv [3072,
+    1024] and fc2 [1024, 4096]. No single PyTorch call computes these
+    functions, so they have no library time."""
+    from slime_tpu_torch.ops import quant_matmul as qm
+    from slime_tpu_torch.ops import quantization as quant
+    from slime_tpu_torch.ops import w8a8_matmul as w8
+
+    bf = torch.bfloat16
+    # (record name, rows, out, in, the record's case)
+    cases = [("quant_matmul_q4", 1, 4096, 4096, True), ("quant_matmul_q4", 1, 4096, 14336, False),
+             ("quant_matmul_q4", 2048, 4096, 4096, False),
+             ("quant_matmul_q4", 2048, 4096, 14336, False),
+             ("quant_matmul_int8", 1, 4096, 4096, True),
+             ("quant_matmul_int8", 2048, 4096, 14336, False),
+             ("quant_matmul_q4g", 2048, 14336, 4096, True),
+             ("quant_matmul_q4g", 2048, 4096, 4096, False),
+             ("quant_matmul_q4g", 2048, 4096, 14336, False)]
+    for name, M, N, K, main in cases:
+        w = torch.randn((N, K), device=dev, generator=g) * 0.02
+        x = torch.randn((M, K), device=dev, generator=g).to(bf)
+        if name == "quant_matmul_q4g":
+            qw = quant.quantize_weight_q4g(w)
+            kern, ref = qm.quant_matmul_q4g, qm.quant_matmul_q4g_ref
+        else:
+            qw = quant.quantize_weight(w, 4 if name == "quant_matmul_q4" else 8)
+            kern, ref = qm.quant_matmul, qm.quant_matmul_ref
+        del w
+        check_and_time(record, name, f"x [{M}, {K}] bf16, W [{N}, {K}]",
+                       lambda: kern(x, qw), lambda: ref(x, qw),
+                       nbytes(x, *qw.values()) + M * N * 2, 2 * M * N * K, BF16_OPS,
+                       flush, main, dispatch=M == 1)
+    for N, K, main in ((3072, 1024, True), (1024, 4096, False)):
+        M = 8 * 577
+        qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=g) * 0.02, 8)
+        bias = torch.randn((N,), device=dev, generator=g) * 0.02
+        x = torch.randn((M, K), device=dev, generator=g).to(bf)
+        check_and_time(record, "w8a8_matmul", f"x [{M}, {K}] bf16, W [{N}, {K}] int8",
+                       lambda: w8.w8a8_matmul(x, qw, bias),
+                       lambda: w8.w8a8_matmul_ref(x, qw, bias),
+                       nbytes(x, *qw.values(), bias) + M * N * 2, 2 * M * N * K, INT8_OPS,
+                       flush, main)
     torch.cuda.empty_cache()
 
 
@@ -365,7 +647,6 @@ def kernel_phase(dev, cfg):
     """Phase 1: every kernel against its plain version; returns the record."""
     from slime_tpu_torch.models.layers import fp32_accumulation
     from slime_tpu_torch.ops import encoder_attention as ea
-    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
@@ -373,64 +654,26 @@ def kernel_phase(dev, cfg):
     with fp32_accumulation():
         q, k, v = (torch.randn((8, 577, 16, 64), device=dev, generator=g).to(torch.bfloat16)
                    for _ in range(3))
-        err, need = compare("encoder_attention", ea.encoder_attention(q, k, v),
-                            ea.encoder_attention_ref(q, k, v))
-        ms = cuda_ms(lambda: ea.encoder_attention(q, k, v), flush=flush)
-        plain = cuda_ms(lambda: ea.encoder_attention_ref(q, k, v), flush=flush)
-        record["encoder_attention"].update(max_abs_err=err, ms=ms, plain_ms=plain)
-        log(f"phase 1 encoder_attention [8,577,16,64] bf16: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, max_abs_err {err:.3g}, floor needed {need:.3g} "
-            f"(set {ATOL['encoder_attention']:g})")
+        # two products of 8 x 16 heads x 577^2 x 64; q, k, v in, out out
+        check_and_time(record, "encoder_attention", "[8,577,16,64] bf16",
+                       lambda: ea.encoder_attention(q, k, v),
+                       lambda: ea.encoder_attention_ref(q, k, v), 4 * nbytes(q),
+                       2 * 2 * 8 * 16 * 577 * 577 * 64, BF16_OPS, flush, True,
+                       library=lambda: sdpa(*(t.transpose(1, 2) for t in (q, k, v))))
         del q, k, v
-
-        two = int8_llm_params(dataclasses.replace(cfg.llm, num_layers=2), g, dev)["layers"]
-        cases = {
-            "fused_qkv_decode": (lambda x, a: fused_qkvo.fused_qkv_decode(x, two, 1),
-                                 lambda x, a: fused_qkvo.fused_qkv_decode_ref(x, two, 1)),
-            "fused_o_residual": (lambda x, a: fused_qkvo.fused_o_residual(a, x, two, 1),
-                                 lambda x, a: fused_qkvo.fused_o_residual_ref(a, x, two, 1)),
-            "fused_mlp_decode": (lambda x, a: fused_mlp.fused_mlp_decode(x, two, 1),
-                                 lambda x, a: fused_mlp.fused_mlp_decode_ref(x, two, 1)),
-        }
-        for B in (1, 8):
-            x = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
-            a = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
-            for name, (kern, ref) in cases.items():
-                err, need = compare(name, kern(x, a), ref(x, a))
-                rec = record[name]
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                ms = cuda_ms(lambda: kern(x, a), flush=flush)
-                plain = cuda_ms(lambda: ref(x, a), flush=flush)
-                if B == 1:            # the record keeps the main path's batch size
-                    rec.update(ms=ms, plain_ms=plain)
-                log(f"phase 1 {name} 8B width int8 B={B} layer 1: kernel {ms:.4f} ms, "
-                    f"plain {plain:.4f} ms, max_abs_err {err:.3g}, floor needed "
-                    f"{need:.3g} (set {ATOL[name]:g})")
-        del two
+        decode_kernels(dev, cfg, g, flush, record)
         flash_kernels(dev, g, flush, record)
+        quant_kernels(dev, g, flush, record)
     del flush
     torch.cuda.empty_cache()
     return record
 
 
-def serve_phases(dev, cfg, fns, fa):
-    """Phases 2 and 3 on the int8 serving model; returns the launch counts
-    of the counted window (3 generate requests and 1 stream request)."""
-    from slime_tpu_torch import generate as gen
+def query(dev, cfg):
+    """bench.py's query: one 672x672 image, a 64-token prompt with the image
+    sentinel at position 2, and the device anyres for that image size."""
     from slime_tpu_torch.config import IMAGE_TOKEN_INDEX
     from slime_tpu_torch.data.image_ops import make_device_anyres_fn
-    from slime_tpu_torch.models import projector, sampler, vit
-
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
-    params = {"vision": vit.init(cfg.vision, **kw),
-              "projector": projector.init(cfg, **kw),
-              "sampler": sampler.init(cfg, **kw),
-              "llm": int8_llm_params(cfg.llm, g, dev)}
-    torch.cuda.synchronize()
-    log(f"phase 2 params built on the card in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
 
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.integers(0, 255, (672, 672, 3), dtype=np.uint8)).to(dev)
@@ -438,10 +681,21 @@ def serve_phases(dev, cfg, fns, fa):
     ids[:, 2] = IMAGE_TOKEN_INDEX
     ids = torch.from_numpy(ids).to(dev)
     attn = torch.ones((1, 64), dtype=torch.bool, device=dev)
-    anyres = make_device_anyres_fn((672, 672), device=dev)
+    return img, ids, attn, make_device_anyres_fn((672, 672), device=dev)
+
+
+def serve(tag, dev, cfg, params, expect, profile_tag):
+    """Answer N_GENERATE generate requests and one generate_stream request
+    on bench.py's query with the counts set to 0 just before and read just
+    after; check the answers and ``expect`` ({kernel: (count, exact)}: the
+    launches for the window's requests and decode steps); time TTFT and the
+    decode rate; then profile the slice (phase ``profile_tag``). Returns the
+    window's launch counts."""
+    from slime_tpu_torch import generate as gen
+
+    img, ids, attn, anyres = query(dev, cfg)
     # a fixed-length answer: random weights make EOS meaningless
     cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
-
     # generate_stream sizes its cache one longer than generate's default; the
     # same cache length makes both run identical shapes, so their greedy
     # answers must agree token for token
@@ -456,9 +710,7 @@ def serve_phases(dev, cfg, fns, fa):
     request(2)                                     # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
 
-    for fn in fns.values():
-        fn.launches = 0
-    fa.flash_attention.fwd_launches = 0
+    reset_launch_counts()
     latencies, answers = [], []
     for _ in range(N_GENERATE):
         t0 = time.perf_counter()
@@ -472,9 +724,8 @@ def serve_phases(dev, cfg, fns, fa):
                                      compute_dtype=torch.bfloat16))
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in fns.items()}
-    launches["flash_fwd"] = fa.flash_attention.fwd_launches
-    log(f"phase 2 launches on the main path: {json.dumps(launches)}")
+    launches = launch_counts()
+    log(f"phase {tag} launches on the main path: {json.dumps(launches)}")
 
     # outputs: shape, range, determinism, the stream agrees with generate
     V = cfg.llm.vocab_size
@@ -488,16 +739,11 @@ def serve_phases(dev, cfg, fns, fa):
         raise AssertionError("generate_stream text differs from generate's tokens")
     requests = N_GENERATE + 1
     steps = requests * (N_NEW - 1)
-    need = {"encoder_attention": 23 * requests, "fused_qkv_decode": 32 * steps,
-            "fused_o_residual": 32 * steps, "fused_mlp_decode": 32 * steps}
-    for n, want in need.items():
-        if launches[n] < want:
-            raise AssertionError(f"{n} launched {launches[n]} times on the main "
-                                 f"path, expected at least {want}")
-    # one 2048-position prefill per request, the flash forward in each layer
-    if launches["flash_fwd"] != 32 * requests:
-        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} times in "
-                             f"{requests} prefills, expected {32 * requests}")
+    for n, (want, exact) in expect(requests, steps).items():
+        if launches[n] < want or (exact and launches[n] != want):
+            raise AssertionError(f"phase {tag}: {n} launched {launches[n]} times in "
+                                 f"{requests} requests and {steps} decode steps, expected "
+                                 f"{'' if exact else 'at least '}{want}")
 
     # first-step logits, and TTFT = anyres + encode + fusion + prefill + 1st token
     crops, mask = anyres(img)
@@ -505,7 +751,7 @@ def serve_phases(dev, cfg, fns, fa):
                                        mask[None], torch.bfloat16)
     if last.shape != (1, V) or not bool(torch.isfinite(last).all()):
         raise AssertionError("first-step logits are not finite [1, V]")
-    log(f"phase 2 prefill: {int(lengths[0])} valid of {L} positions; first-step "
+    log(f"phase {tag} prefill: {int(lengths[0])} valid of {L} positions; first-step "
         f"logits finite, argmax {int(last.argmax())} == answer {int(answers[0][0, 0])}: "
         f"{int(last.argmax()) == int(answers[0][0, 0])}")
     del last
@@ -515,16 +761,146 @@ def serve_phases(dev, cfg, fns, fa):
         request(1).cpu()
         ttft.append(time.perf_counter() - t0)
     ttft_s, e2e_s = statistics.median(ttft), statistics.median(latencies)
-    log(f"phase 2 TTFT {ttft_s * 1e3:.1f} ms (median of 3; anyres + encode + "
+    log(f"phase {tag} TTFT {ttft_s * 1e3:.1f} ms (median of 3; anyres + encode + "
         f"fusion + {L}-position prefill + first token)")
-    log(f"phase 2 request latency {e2e_s * 1e3:.1f} ms (median of {N_GENERATE}); "
+    log(f"phase {tag} request latency {e2e_s * 1e3:.1f} ms (median of {N_GENERATE}); "
         f"decode {(N_NEW - 1) / (e2e_s - ttft_s):.2f} tok/s; "
         f"{N_GENERATE / sum(latencies) * 60:.2f} queries/min at bs=1; "
         f"stream request {stream_s * 1e3:.1f} ms, {len(texts)} chunks")
-    log(f"phase 2 peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"phase {tag} peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    profile_slice(profile_tag, params, cfg_run, ids, attn, img, anyres, request,
+                  ttft_s * 1e3)
+    return launches
 
-    # ---------------- phase 3: where the time goes ----------------
-    profile_slice(params, cfg_run, ids, attn, img, anyres, request, ttft_s * 1e3)
+
+def serve_phases(dev, cfg):
+    """Phases 2 and 3 on the int8 serving model; returns the launch counts
+    of the counted window (3 generate requests and 1 stream request)."""
+    from slime_tpu_torch.models import projector, sampler, vit
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
+    params = {"vision": vit.init(cfg.vision, **kw),
+              "projector": projector.init(cfg, **kw),
+              "sampler": sampler.init(cfg, **kw),
+              "llm": int8_llm_params(cfg.llm, g, dev)}
+    torch.cuda.synchronize()
+    log(f"phase 2 params built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    def expect(requests, steps):
+        # one 2048-position prefill per request, the flash forward in each layer
+        return {"encoder_attention": (23 * requests, False),
+                "fused_qkv_decode": (32 * steps, False),
+                "fused_o_residual": (32 * steps, False),
+                "fused_mlp_decode": (32 * steps, False),
+                "flash_fwd": (32 * requests, True)}
+    return serve("2", dev, cfg, params, expect, "3")
+
+
+def quantized_model(dev, cfg, scheme, quantize_vision):
+    """SliME-8B as the CLI's ``--load-4bit --int4-scheme {scheme}
+    --quantize-lm-head [--quantize-vision]`` builds it, from fp weights drawn
+    from seed 0 on the card: each LLM layer is drawn in fp32 and quantized
+    through ``checkpoint.quantize_loaded`` before the next is drawn (the fp32
+    layers are never all held), the layers stacked; then the int8 lm_head
+    and, with ``quantize_vision``, the W8A8 CLIP-L. Embeddings, norms,
+    projector and sampler stay bf16 (norms fp32)."""
+    from slime_tpu_torch.checkpoint import quantize_loaded
+    from slime_tpu_torch.models import llama, projector, sampler, vit
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
+    layers = []
+    for _ in range(cfg.llm.num_layers):
+        one = {"llm": {"layers": [llama.init_layer(cfg.llm, generator=g, device=dev)]}}
+        layers += quantize_loaded(one, cfg, load_bits=4, int4_scheme=scheme)["llm"]["layers"]
+        del one
+    H, V = cfg.llm.hidden_size, cfg.llm.vocab_size
+    llm = {"embed_tokens": (torch.randn((V, H), device=dev, generator=g) * 0.02).to(
+               torch.bfloat16),
+           "norm": {"weight": torch.ones(H, device=dev)},
+           "layers": llama.stack_layers(layers),
+           "lm_head": {"weight": torch.randn((V, H), device=dev, generator=g) * 0.02}}
+    del layers
+    params = quantize_loaded({"vision": vit.init(cfg.vision, **kw),
+                              "projector": projector.init(cfg, **kw),
+                              "sampler": sampler.init(cfg, **kw), "llm": llm}, cfg,
+                             quantize_lm_head=True, quantize_vision=quantize_vision)
+    torch.cuda.synchronize()
+    fmts = sorted({k for k in params["llm"]["layers"]["q_proj"]["weight"]})
+    log(f"quantized SliME-8B ({scheme}, vision "
+        f"{'W8A8' if quantize_vision else 'bf16'}) built on the card in "
+        f"{time.perf_counter() - t0:.1f} s: LLM layer leaves {fmts}; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    return params
+
+
+def quantized_serve_phases(dev, cfg):
+    """Phases 5 (config A) and 5b (config B); returns their launch counts."""
+    from slime_tpu_torch import generate as gen
+
+    torch.cuda.reset_peak_memory_stats()
+    params = quantized_model(dev, cfg, "group", quantize_vision=True)
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+
+    def expect(requests, steps):
+        exact = {"quant_matmul_q4g": 7 * L * requests, "w8a8_matmul": 4 * vis * requests,
+                 "encoder_attention": vis * requests, "flash_fwd": L * requests,
+                 "fused_qkv_decode_q4g": L * steps, "fused_o_residual_q4g": L * steps,
+                 "fused_mlp_decode_q4g": L * steps, "quant_matmul_q4": 0,
+                 "quant_matmul_int8": 0, "fused_qkv_decode": 0, "fused_o_residual": 0,
+                 "fused_mlp_decode": 0}
+        return {n: (want, True) for n, want in exact.items()}
+    launches = serve("5", dev, cfg, params, expect, "5")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 5b: config B ----------------
+    torch.cuda.reset_peak_memory_stats()
+    params = quantized_model(dev, cfg, "absmax", quantize_vision=False)
+    img, ids, attn, anyres = query(dev, cfg)
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    n_new = 16
+    reset_launch_counts()
+    answers, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        crops, mask = anyres(img)
+        answers.append(gen.generate(params, cfg_run, ids, attn, crops[None], mask[None],
+                                    max_new_tokens=n_new,
+                                    compute_dtype=torch.bfloat16).cpu())
+        walls.append(time.perf_counter() - t0)
+    got = launch_counts()
+    log(f"phase 5b launches: {json.dumps(got)}")
+    want = 7 * L * 2 * n_new            # 7 x L in each prefill and each decode step
+    if got["quant_matmul_q4"] != want or got["flash_fwd"] != 2 * L:
+        raise AssertionError(f"phase 5b: quant_matmul_q4 launched {got['quant_matmul_q4']} "
+                             f"times, expected {want} (2 prefills and "
+                             f"{2 * (n_new - 1)} non-fused decode steps)")
+    if any(got[n] for n in got if n not in ("quant_matmul_q4", "flash_fwd",
+                                            "encoder_attention")):
+        raise AssertionError("phase 5b launched a kernel off its path")
+    t0 = time.perf_counter()
+    crops, mask = anyres(img)
+    gen.generate(params, cfg_run, ids, attn, crops[None], mask[None], max_new_tokens=1,
+                 compute_dtype=torch.bfloat16).cpu()
+    ttft = time.perf_counter() - t0
+    toks = answers[0]
+    if (toks.shape != (1, n_new) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.llm.vocab_size or not torch.equal(toks, answers[1])):
+        raise AssertionError(f"phase 5b: answers {answers} are out of range or differ")
+    log(f"phase 5b: two {n_new}-token requests agree; request wall {walls[0] * 1e3:.1f}, "
+        f"{walls[1] * 1e3:.1f} ms; TTFT {ttft * 1e3:.1f} ms (one request, 1 token); "
+        f"decode {(n_new - 1) / (walls[1] - ttft):.2f} tok/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    for n, c in got.items():
+        launches[n] += c
     return launches
 
 
@@ -535,7 +911,8 @@ def train_batches(cfg, rng, n, B):
     from PIL import Image
 
     from slime_tpu_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-    from slime_tpu_torch.data.dataset import collate, process_anyres_image_host
+    from slime_tpu_torch.data.dataset import collate
+    from slime_tpu_torch.data.image_ops import process_anyres_image_host
 
     out = []
     for _ in range(n):
@@ -743,9 +1120,7 @@ def main():
                          "this script runs only on a CUDA card")
     from slime_tpu_torch.config import SliMEConfig
     from slime_tpu_torch.ops import _cuda
-    from slime_tpu_torch.ops import encoder_attention as ea
     from slime_tpu_torch.ops import flash_attention as fa
-    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 
     dev = torch.device("cuda", 0)
     log(f"card: {card_line()}")
@@ -761,22 +1136,25 @@ def main():
     log(f"kernel build: {_cuda.build_seconds if _cuda.build_seconds is not None else 0.0:.2f} s "
         f"nvcc (cached library: {_cuda.build_seconds is None}); load "
         f"{time.perf_counter() - t0:.2f} s")
-    fns = {"encoder_attention": ea.encoder_attention,
-           "fused_qkv_decode": fused_qkvo.fused_qkv_decode,
-           "fused_o_residual": fused_qkvo.fused_o_residual,
-           "fused_mlp_decode": fused_mlp.fused_mlp_decode}
     cfg = SliMEConfig.slime_8b()
 
     record = kernel_phase(dev, cfg)                              # phase 1
-    launches = serve_phases(dev, cfg, fns, fa)                   # phases 2, 3
+    launches = serve_phases(dev, cfg)                            # phases 2, 3
     torch.cuda.empty_cache()
-    launches.update(flash_bwd_dkdv=0, flash_bwd_dq=0)
     for name, n in train_phase(dev, cfg, fa).items():            # phase 4
         launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in quantized_serve_phases(dev, cfg).items():     # phases 5, 5b
+        launches[name] += n
+    idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "max_abs_err": record[n]["max_abs_err"],
-                "ms": record[n]["ms"], "plain_ms": record[n]["plain_ms"]}
+                "ms": record[n]["ms"], "plain_ms": record[n]["plain_ms"],
+                "bound_ms": record[n]["bound_ms"], "bound_by": record[n]["bound_by"],
+                "library_ms": record[n]["library_ms"]}
                for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,25 +1,14 @@
 """SliME in PyTorch for one NVIDIA H100: a port of the JAX package ``slime_tpu``.
 
 Module names mirror ``slime_tpu``. The JAX package stays the reference the
-port is tested against; this package imports ``torch`` and never ``jax``.
-Its hand-written CUDA kernels live in ``csrc/`` and are built at first use
-(``ops/_cuda.py``).
+port is tested against; this package imports ``torch`` and nothing of
+``jax`` or ``slime_tpu``: it keeps its own copies of the configuration, the
+constants and the host data path. Its hand-written CUDA kernels live in
+``csrc/`` and are built at first use (``ops/_cuda.py``).
 
-The port reuses the jax-free modules of ``slime_tpu`` (``config``,
-``constants``, ``data.anyres``, ``data.tokenization``; see ``config.py``).
-``slime_tpu/__init__.py`` imports jax when ``SLIME_PLATFORM`` is set, so the
-first import of ``slime_tpu`` happens here with that variable hidden, and the
-environment is restored afterwards.
+Entry points (``*.init``, ``params.from_jax_numpy``,
+``data.image_ops.make_device_anyres_fn``) put their tensors on the current
+CUDA device unless the caller passes ``device="cpu"``.
 """
-import os as _os
-import sys as _sys
 
 __version__ = "0.1.0"
-
-if "slime_tpu" not in _sys.modules:
-    _platform = _os.environ.pop("SLIME_PLATFORM", None)
-    try:
-        import slime_tpu  # noqa: F401
-    finally:
-        if _platform is not None:
-            _os.environ["SLIME_PLATFORM"] = _platform

@@ -17,7 +17,14 @@
 //   - the batch runs in tiles of kBT rows, so each lane keeps kBT fp32
 //     accumulators in registers; a weight row is re-read from L2 once per tile;
 //   - int8 converts to fp32 exactly, every dot accumulates in fp32, and the
-//     per-row int8 scale multiplies the fp32 result, as on the TPU.
+//     per-row int8 scale multiplies the fp32 result, as on the TPU;
+//   - q4g (group-128 int4, half the int8 bytes): packed block b of a row (128
+//     bytes) holds group 2b in its low nibbles and group 2b+1 in its high
+//     nibbles, so a lane's 16 packed bytes at offset j of block b are the
+//     columns 2b*128 + j..j+15 and (2b+1)*128 + j..j+15. The lane keeps one
+//     fp32 partial sum per group over those 16 columns and scales it by the
+//     group's scale when it is done (_q4g_contract's per-group partial sums,
+//     fused_mlp.py:126-211); scales are the canonical [out, in/128].
 // The TPU kernels pick the layer by scalar prefetch; here the wrapper passes a
 // pointer to layer li of the contiguous [L, out, in] stack, which is a view.
 // The MLP runs as two launches: gate/up into a [B, I] bf16 scratch (a few tens
@@ -90,6 +97,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Weight formats of the kernels (the wrappers' format codes).
+enum { kDense = 0, kInt8 = 1, kQ4G = 2 };
+
 // acc[b] = sum_k h[b, k] * w[k] for the nb (<= kBT) activation rows at h
 // (row stride K), summed over the warp: every lane returns the full sums.
 // K is a multiple of 16 bytes of weights (the wrapper checks).
@@ -115,6 +125,69 @@ __device__ __forceinline__ void row_dot(const bf16* __restrict__ h, int K, int n
   }
 #pragma unroll
   for (int b = 0; b < kBT; ++b) acc[b] = warp_sum(acc[b]);
+}
+
+// The q4g row dot: acc[b] = sum_g (sum_{k in g} h[b, k] * nibble[k]) * s[g]
+// over the packed row w (K / 2 bytes) and its K / 128 group scales s. K is a
+// multiple of 256 (the wrapper checks).
+__device__ __forceinline__ void row_dot_q4g(const bf16* __restrict__ h, int K, int nb,
+                                            const uint8_t* __restrict__ w,
+                                            const float* __restrict__ s, float* acc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < kBT; ++b) acc[b] = 0.f;
+  for (int p = lane * 16; p < K / 2; p += 32 * 16) {
+    const int blk = p >> 7, j = p & 127;
+    const uint4 v = *reinterpret_cast<const uint4*>(w + p);
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+    float lo[16], hi[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t byte = (wd[i / 4] >> (8 * (i % 4))) & 0xffu;
+      lo[i] = (float)((int)((byte & 0xFu) ^ 8u) - 8);
+      hi[i] = (float)((int)(((byte >> 4) & 0xFu) ^ 8u) - 8);
+    }
+    const float s_lo = s[2 * blk], s_hi = s[2 * blk + 1];
+    const int c_lo = 2 * blk * 128 + j, c_hi = c_lo + 128;
+#pragma unroll
+    for (int b = 0; b < kBT; ++b) {
+      if (b < nb) {
+        float hl[16], hh[16];
+        load_act<16>(h + (size_t)b * K + c_lo, hl);
+        load_act<16>(h + (size_t)b * K + c_hi, hh);
+        float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          d_lo = fmaf(hl[i], lo[i], d_lo);
+          d_hi = fmaf(hh[i], hi[i], d_hi);
+        }
+        acc[b] += d_lo * s_lo + d_hi * s_hi;
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kBT; ++b) acc[b] = warp_sum(acc[b]);
+}
+
+// acc[b] = (h[b] @ W[row]) with the row's scales applied, for weight format
+// FMT: dense bf16 (s null), int8 with one scale per row (applied to the fp32
+// sum), or q4g with K / 128 scales per row.
+template <int FMT>
+__device__ __forceinline__ void scaled_row_dot(const bf16* __restrict__ h, int K, int nb,
+                                               const void* __restrict__ w,
+                                               const float* __restrict__ s, int row,
+                                               float* acc) {
+  if (FMT == kQ4G) {
+    row_dot_q4g(h, K, nb, static_cast<const uint8_t*>(w) + (size_t)row * (K / 2),
+                s + (size_t)row * (K / 128), acc);
+  } else if (FMT == kInt8) {
+    row_dot<int8_t>(h, K, nb, static_cast<const int8_t*>(w) + (size_t)row * K, acc);
+    const float scale = s[row];
+#pragma unroll
+    for (int b = 0; b < kBT; ++b) acc[b] *= scale;
+  } else {
+    row_dot<bf16>(h, K, nb, static_cast<const bf16*>(w) + (size_t)row * K, acc);
+  }
 }
 
 // h[b] = bf16(x[b] * rsqrt(mean(x[b]^2) + eps) * w), one block per row
@@ -148,17 +221,16 @@ __global__ void __launch_bounds__(256) rms_norm_kernel(const bf16* __restrict__ 
 
 // q, k, v = (h @ Wq.T) * sq, ... over the concatenated row space
 // [0, nq) | [nq, nq + nkv) | [nq + nkv, nq + 2 nkv): one launch for all three.
-// A null scale pointer means dense weights.
-template <typename TW>
+template <int FMT>
 __global__ void __launch_bounds__(kThreads) qkv_kernel(
     const bf16* __restrict__ h, int B, int K,
-    const TW* __restrict__ wq, const float* __restrict__ sq, int nq,
-    const TW* __restrict__ wk, const float* __restrict__ sk,
-    const TW* __restrict__ wv, const float* __restrict__ sv, int nkv,
+    const void* __restrict__ wq, const float* __restrict__ sq, int nq,
+    const void* __restrict__ wk, const float* __restrict__ sk,
+    const void* __restrict__ wv, const float* __restrict__ sv, int nkv,
     bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v) {
   int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= nq + 2 * nkv) return;          // uniform over the warp
-  const TW* w;
+  const void* w;
   const float* s;
   bf16* y;
   int n;
@@ -169,16 +241,14 @@ __global__ void __launch_bounds__(kThreads) qkv_kernel(
   } else {
     row -= nq + nkv; w = wv; s = sv; y = v; n = nkv;
   }
-  const TW* wr = w + (size_t)row * K;
-  const float scale = s ? s[row] : 1.f;
   float acc[kBT];
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int nb = min(kBT, B - b0);
-    row_dot<TW>(h + (size_t)b0 * K, K, nb, wr, acc);
+    scaled_row_dot<FMT>(h + (size_t)b0 * K, K, nb, w, s, row, acc);
     if ((threadIdx.x & 31) == 0) {
 #pragma unroll
       for (int b = 0; b < kBT; ++b) {
-        if (b < nb) y[(size_t)(b0 + b) * n + row] = __float2bfloat16_rn(acc[b] * scale);
+        if (b < nb) y[(size_t)(b0 + b) * n + row] = __float2bfloat16_rn(acc[b]);
       }
     }
   }
@@ -186,24 +256,22 @@ __global__ void __launch_bounds__(kThreads) qkv_kernel(
 
 // y = bf16(x + (h @ W.T) * s): the o projection (fused_qkvo.py:100-106) and the
 // down projection with its residual (fused_mlp.py:283-292).
-template <typename TW>
+template <int FMT>
 __global__ void __launch_bounds__(kThreads) resid_kernel(
-    const bf16* __restrict__ h, int B, int K, const TW* __restrict__ w,
+    const bf16* __restrict__ h, int B, int K, const void* __restrict__ w,
     const float* __restrict__ s, int n, const bf16* __restrict__ x, bf16* __restrict__ y) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n) return;
-  const TW* wr = w + (size_t)row * K;
-  const float scale = s ? s[row] : 1.f;
   float acc[kBT];
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int nb = min(kBT, B - b0);
-    row_dot<TW>(h + (size_t)b0 * K, K, nb, wr, acc);
+    scaled_row_dot<FMT>(h + (size_t)b0 * K, K, nb, w, s, row, acc);
     if ((threadIdx.x & 31) == 0) {
 #pragma unroll
       for (int b = 0; b < kBT; ++b) {
         if (b < nb) {
           const size_t i = (size_t)(b0 + b) * n + row;
-          y[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + acc[b] * scale);
+          y[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + acc[b]);
         }
       }
     }
@@ -212,28 +280,24 @@ __global__ void __launch_bounds__(kThreads) resid_kernel(
 
 // a = bf16(silu(g * sg) * (u * su)) with g = h @ Wg.T, u = h @ Wu.T
 // (fused_mlp.py:274-282); silu(t) = t * sigmoid(t), as jax.nn.silu.
-template <typename TW>
+template <int FMT>
 __global__ void __launch_bounds__(kThreads) gate_up_kernel(
     const bf16* __restrict__ h, int B, int K,
-    const TW* __restrict__ wg, const float* __restrict__ sg,
-    const TW* __restrict__ wu, const float* __restrict__ su, int n, bf16* __restrict__ a) {
+    const void* __restrict__ wg, const float* __restrict__ sg,
+    const void* __restrict__ wu, const float* __restrict__ su, int n, bf16* __restrict__ a) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n) return;
-  const TW* gr = wg + (size_t)row * K;
-  const TW* ur = wu + (size_t)row * K;
-  const float gscale = sg ? sg[row] : 1.f;
-  const float uscale = su ? su[row] : 1.f;
   float g[kBT], u[kBT];
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int nb = min(kBT, B - b0);
-    row_dot<TW>(h + (size_t)b0 * K, K, nb, gr, g);
-    row_dot<TW>(h + (size_t)b0 * K, K, nb, ur, u);
+    scaled_row_dot<FMT>(h + (size_t)b0 * K, K, nb, wg, sg, row, g);
+    scaled_row_dot<FMT>(h + (size_t)b0 * K, K, nb, wu, su, row, u);
     if ((threadIdx.x & 31) == 0) {
 #pragma unroll
       for (int b = 0; b < kBT; ++b) {
         if (b < nb) {
-          const float gf = g[b] * gscale;
-          const float uf = u[b] * uscale;
+          const float gf = g[b];
+          const float uf = u[b];
           const float sig = 1.f / (1.f + expf(-gf));
           a[(size_t)(b0 + b) * n + row] = __float2bfloat16_rn(gf * sig * uf);
         }
@@ -248,7 +312,8 @@ inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
 // Plain C interface, bound with ctypes. Pointers are device pointers, `stream`
 // is a cudaStream_t; wfmt 0 = dense bf16 weights (scales null), 1 = int8 with
-// per-row fp32 scales. Each call returns cudaGetLastError() after its launch.
+// per-row fp32 scales, 2 = q4g with fp32 scales [out, in/128]. Each call
+// returns cudaGetLastError() after its launch.
 extern "C" {
 
 int slime_rms_norm(const void* x, const void* w, void* h, int B, int H, float eps,
@@ -264,17 +329,15 @@ int slime_qkv_gemv(int wfmt, const void* h, int B, int K,
                    void* q, void* k, void* v, void* stream) {
   const dim3 grid(blocks_for(nq + 2 * nkv));
   cudaStream_t st = (cudaStream_t)stream;
-  if (wfmt == 1) {
-    qkv_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const int8_t*)wq, (const float*)sq, nq,
-        (const int8_t*)wk, (const float*)sk, (const int8_t*)wv, (const float*)sv, nkv,
-        (bf16*)q, (bf16*)k, (bf16*)v);
-  } else {
-    qkv_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const bf16*)wq, (const float*)sq, nq,
-        (const bf16*)wk, (const float*)sk, (const bf16*)wv, (const float*)sv, nkv,
-        (bf16*)q, (bf16*)k, (bf16*)v);
-  }
+#define SLIME_QKV(F)                                                                  \
+  qkv_kernel<F><<<grid, kThreads, 0, st>>>((const bf16*)h, B, K, wq, (const float*)sq, \
+                                           nq, wk, (const float*)sk, wv,               \
+                                           (const float*)sv, nkv, (bf16*)q, (bf16*)k,  \
+                                           (bf16*)v)
+  if (wfmt == kQ4G) SLIME_QKV(kQ4G);
+  else if (wfmt == kInt8) SLIME_QKV(kInt8);
+  else SLIME_QKV(kDense);
+#undef SLIME_QKV
   return (int)cudaGetLastError();
 }
 
@@ -282,13 +345,13 @@ int slime_resid_gemv(int wfmt, const void* h, int B, int K, const void* w, const
                      int n, const void* x, void* y, void* stream) {
   const dim3 grid(blocks_for(n));
   cudaStream_t st = (cudaStream_t)stream;
-  if (wfmt == 1) {
-    resid_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const int8_t*)w, (const float*)s, n, (const bf16*)x, (bf16*)y);
-  } else {
-    resid_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const bf16*)w, (const float*)s, n, (const bf16*)x, (bf16*)y);
-  }
+#define SLIME_RESID(F)                                                                \
+  resid_kernel<F><<<grid, kThreads, 0, st>>>((const bf16*)h, B, K, w, (const float*)s, \
+                                             n, (const bf16*)x, (bf16*)y)
+  if (wfmt == kQ4G) SLIME_RESID(kQ4G);
+  else if (wfmt == kInt8) SLIME_RESID(kInt8);
+  else SLIME_RESID(kDense);
+#undef SLIME_RESID
   return (int)cudaGetLastError();
 }
 
@@ -296,15 +359,13 @@ int slime_gate_up_gemv(int wfmt, const void* h, int B, int K, const void* wg, co
                        const void* wu, const void* su, int n, void* a, void* stream) {
   const dim3 grid(blocks_for(n));
   cudaStream_t st = (cudaStream_t)stream;
-  if (wfmt == 1) {
-    gate_up_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const int8_t*)wg, (const float*)sg,
-        (const int8_t*)wu, (const float*)su, n, (bf16*)a);
-  } else {
-    gate_up_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        (const bf16*)h, B, K, (const bf16*)wg, (const float*)sg,
-        (const bf16*)wu, (const float*)su, n, (bf16*)a);
-  }
+#define SLIME_GATE_UP(F)                                                               \
+  gate_up_kernel<F><<<grid, kThreads, 0, st>>>((const bf16*)h, B, K, wg, (const float*)sg, \
+                                               wu, (const float*)su, n, (bf16*)a)
+  if (wfmt == kQ4G) SLIME_GATE_UP(kQ4G);
+  else if (wfmt == kInt8) SLIME_GATE_UP(kInt8);
+  else SLIME_GATE_UP(kDense);
+#undef SLIME_GATE_UP
   return (int)cudaGetLastError();
 }
 

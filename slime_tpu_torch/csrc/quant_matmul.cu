@@ -1,0 +1,319 @@
+// Weight-only quantized matmul for Hopper (sm_90a): y = x @ dequant(W).T.
+// It replaces two TPU kernels of slime_tpu/ops/quant_matmul.py:
+//   K6  quant_matmul      (:130; _kernel_int4 :23, _kernel_int8 :38)
+//       per-row scales: y[b, o] = (sum_i x[b, i] * w_int[o, i]) * scale[o]
+//   K7  quant_matmul_q4g  (:82; _kernel_int4_group :46)
+//       group-128 scales: y[b, o] = sum_g (sum_{i in g} x[b, i] * w_int[o, i]) * scale[o, g]
+// with x bf16 [M, K], packed weights int8 and fp32 scales. Storage formats
+// (slime_tpu/ops/quantization.py): "q4" holds column 2i in the low nibble of
+// byte i and column 2i+1 in the high nibble; "q4g" packed block b (128 bytes
+// of a row) holds group 2b in its low nibbles and group 2b+1 in its high
+// nibbles; "q" (int8) is one byte per column.
+//
+// What bounds it on this card. At prefill (M = 2048 rows, K = 4096 or 14336)
+// the product is far above the H100's ridge: operations, at the bf16
+// tensor-core rate. At decode (M = 1) it is the packed weight bytes. So:
+//   - one tiled GEMM on mma.sync m16n8k16 bf16 tiles with fp32 sums (the
+//     fragment vocabulary of csrc/flash_attention.cu). A block owns a 64 x 64
+//     output tile; 4 warps own 32 x 32 each;
+//   - the weight tile is unpacked into shared memory as bf16: nibbles and int8
+//     values are exact in bf16, so every product is exact and only the fp32
+//     sums round, as on the TPU. Sign extension reads the packed byte as
+//     unsigned and takes ((p & 0xF) ^ 8) - 8. q4 is unpacked in natural column
+//     order (the TPU kernel's column permutation of x is a Mosaic device);
+//   - K6 applies the per-row scale once, in the epilogue. K7's k-tile is one
+//     packed block, two 128-column groups: each group's products go to a fresh
+//     fragment, which is scaled by scale[o, g] and added to the fp32
+//     accumulator (folding the scale into the bf16 weight would change the
+//     rounding);
+//   - at decode an output-tile grid alone would leave most of the 132 SMs idle
+//     (16 blocks for a 1024-row k/v projection), so the wrapper splits K over
+//     blockIdx.z into an fp32 workspace and a second pass sums the splits in
+//     a fixed order, applies the per-row scale and rounds to bf16.
+// Loads are plain 16-byte loads staged through registers (no cp.async, TMA or
+// wgmma yet): a right and simple first version.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBM = 64, kBN = 64;   // output tile
+constexpr int kThreads = 128;       // 4 warps, 2 x 2 over the tile
+constexpr int kPad = 8;             // bf16 elements of padding per staged row
+constexpr int kGroup = 128;         // q4g group width
+
+enum { kQ4 = 0, kInt8 = 1, kQ4G = 2 };
+
+template <int FMT> struct Fmt { static constexpr int BK = FMT == kQ4G ? 2 * kGroup : 128; };
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ float nib(uint32_t byte, int shift) {
+  return (float)((int)(((byte >> shift) & 0xFu) ^ 8u) - 8);
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 sum
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of the 16 x 16 slab at `base` (row-major, row stride ld): lane
+// (g, t) holds rows g and g + 8, columns 2t, 2t+1 and 2t+8, 2t+9.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld,
+                                       int g, int t) {
+  a[0] = ld_pair(base + g * ld + 2 * t);
+  a[1] = ld_pair(base + (g + 8) * ld + 2 * t);
+  a[2] = ld_pair(base + g * ld + 2 * t + 8);
+  a[3] = ld_pair(base + (g + 8) * ld + 2 * t + 8);
+}
+
+// B fragment (16 deep x 8 wide) from W's rows (the B columns), row-major.
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* base,
+                                       int ld, int g, int t) {
+  b0 = ld_pair(base + g * ld + 2 * t);
+  b1 = ld_pair(base + g * ld + 2 * t + 8);
+}
+
+// Stage x[m0:m0+64, k0:k0+BK] (rows past M are 0).
+template <int BK>
+__device__ __forceinline__ void stage_x(bf16* xs, const bf16* __restrict__ x, int M, int K,
+                                        int m0, int k0) {
+  constexpr int LD = BK + kPad, kVec = BK / 8;
+  for (int e = threadIdx.x; e < kBM * kVec; e += kThreads) {
+    const int r = e / kVec, c = (e % kVec) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (m0 + r < M) v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
+    *reinterpret_cast<uint4*>(xs + r * LD + c) = v;
+  }
+}
+
+// Stage W's k-tile for output rows n0..n0+63 as bf16 values (rows past N are 0).
+template <int FMT>
+__device__ __forceinline__ void stage_w(bf16* ws, const uint8_t* __restrict__ w, int N, int K,
+                                        int n0, int k0) {
+  constexpr int BK = Fmt<FMT>::BK, LD = BK + kPad;
+  if (FMT == kInt8) {                       // 16 bytes = 16 columns
+    for (int e = threadIdx.x; e < kBN * (BK / 16); e += kThreads) {
+      const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c);
+      const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+      uint32_t out[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        out[2 * i] = pack_bf16((float)(int8_t)(wd[i] & 0xffu), (float)(int8_t)((wd[i] >> 8) & 0xffu));
+        out[2 * i + 1] = pack_bf16((float)(int8_t)((wd[i] >> 16) & 0xffu),
+                                   (float)(int8_t)(wd[i] >> 24));
+      }
+      uint4* dst = reinterpret_cast<uint4*>(ws + r * LD + c);
+      dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+      dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+    }
+  } else if (FMT == kQ4) {                  // 16 bytes = 32 columns, natural order
+    const int KP = K / 2;
+    for (int e = threadIdx.x; e < kBN * (BK / 32); e += kThreads) {
+      const int r = e / (BK / 32), c = (e % (BK / 32)) * 32;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + (k0 + c) / 2);
+      const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+      uint32_t out[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {        // byte i -> columns 2i (low), 2i+1 (high)
+        const uint32_t byte = (wd[i / 4] >> (8 * (i % 4))) & 0xffu;
+        out[i] = pack_bf16(nib(byte, 0), nib(byte, 4));
+      }
+      uint4* dst = reinterpret_cast<uint4*>(ws + r * LD + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dst[i] = make_uint4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
+    }
+  } else {                                  // q4g: one packed block = groups 2b, 2b+1
+    const int KP = K / 2, blk = k0 / BK;
+    for (int e = threadIdx.x; e < kBN * (kGroup / 16); e += kThreads) {
+      const int r = e / (kGroup / 16), j = (e % (kGroup / 16)) * 16;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + blk * kGroup + j);
+      const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+      uint32_t lo[8], hi[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {         // bytes 2i, 2i+1 -> columns j+2i, j+2i+1
+        const uint32_t b0 = (wd[i / 2] >> (16 * (i % 2))) & 0xffu;
+        const uint32_t b1 = (wd[i / 2] >> (16 * (i % 2) + 8)) & 0xffu;
+        lo[i] = pack_bf16(nib(b0, 0), nib(b1, 0));
+        hi[i] = pack_bf16(nib(b0, 4), nib(b1, 4));
+      }
+      uint4* dlo = reinterpret_cast<uint4*>(ws + r * LD + j);
+      uint4* dhi = reinterpret_cast<uint4*>(ws + r * LD + kGroup + j);
+      dlo[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      dlo[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      dhi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dhi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+  }
+}
+
+// acc += part * scale[o, grp] per output column, then part = 0 (K7).
+__device__ __forceinline__ void fold_group(float (&acc)[2][4][4], float (&part)[2][4][4],
+                                           const float* __restrict__ s, int N, int G,
+                                           int ncol0, int grp, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = ncol0 + 8 * j + 2 * t;
+    const float s0 = c < N ? s[(size_t)c * G + grp] : 0.f;
+    const float s1 = c + 1 < N ? s[(size_t)(c + 1) * G + grp] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc[i][j][0] += part[i][j][0] * s0;
+      acc[i][j][1] += part[i][j][1] * s1;
+      acc[i][j][2] += part[i][j][2] * s0;
+      acc[i][j][3] += part[i][j][3] * s1;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+    }
+  }
+}
+
+// One 64 x 64 output tile over k-tiles [kt0, kt1) of blockIdx.z's split. With
+// `ws` null the epilogue writes bf16 y (K6 scaled per row); otherwise the
+// split's fp32 sums go to ws[z] (K7's already carry the group scales).
+template <int FMT>
+__global__ void __launch_bounds__(kThreads) qmm_kernel(
+    const bf16* __restrict__ x, int M, int K, const uint8_t* __restrict__ w,
+    const float* __restrict__ s, int N, bf16* __restrict__ y, float* __restrict__ ws,
+    int tiles_per_split) {
+  constexpr int BK = Fmt<FMT>::BK, LD = BK + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);      // [kBM][LD]
+  bf16* wsm = xs + kBM * LD;                      // [kBN][LD]
+
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, z = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int nk = K / BK;
+  const int kt0 = z * tiles_per_split, kt1 = min(nk, kt0 + tiles_per_split);
+  const int G = K / kGroup;
+
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = part[i][j][q] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();                              // the last tile's readers are done
+    stage_x<BK>(xs, x, M, K, m0, k0);
+    stage_w<FMT>(wsm, w, N, K, n0, k0);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (FMT == kQ4G && kk == kGroup / 16)       // group 2b done, 2b+1 starts
+        fold_group(acc, part, s, N, G, n0 + wn, 2 * kt, t);
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) load_a(a[i], xs + (wm + 16 * i) * LD + kk * 16, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b0, b1;
+        load_b(b0, b1, wsm + (wn + 8 * j) * LD + kk * 16, LD, g, t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (FMT == kQ4G) mma16816(part[i][j], a[i], b0, b1);
+          else mma16816(acc[i][j], a[i], b0, b1);
+        }
+      }
+    }
+    if (FMT == kQ4G) fold_group(acc, part, s, N, G, n0 + wn, 2 * kt + 1, t);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + wm + 16 * i + g + (q >= 2 ? 8 : 0);
+        const int c = n0 + wn + 8 * j + 2 * t + (q & 1);
+        if (r >= M || c >= N) continue;
+        if (ws != nullptr) {
+          ws[((size_t)z * M + r) * N + c] = acc[i][j][q];
+        } else {
+          const float v = FMT == kQ4G ? acc[i][j][q] : acc[i][j][q] * s[c];
+          y[(size_t)r * N + c] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+  }
+}
+
+// y = bf16(sum_z ws[z] (* scale[o] when `s` is given)), z in order.
+__global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
+                                     const float* __restrict__ s, bf16* __restrict__ y) {
+  const size_t MN = (size_t)M * N;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += ws[z * MN + e];
+    if (s != nullptr) v *= s[e % N];
+    y[e] = __float2bfloat16_rn(v);
+  }
+}
+
+template <int FMT>
+int launch(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
+           void* ws, int splits, int tiles_per_split, cudaStream_t st) {
+  constexpr int BK = Fmt<FMT>::BK;
+  const int smem = (kBM + kBN) * (BK + kPad) * (int)sizeof(bf16);
+  static bool smem_set = false;             // once per kernel instance
+  cudaError_t err;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(qmm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  qmm_kernel<FMT><<<grid, kThreads, smem, st>>>(
+      (const bf16*)x, M, K, (const uint8_t*)w, (const float*)s, N, (bf16*)y,
+      splits > 1 ? (float*)ws : nullptr, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t MN = (size_t)M * N;
+  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, st>>>((const float*)ws, splits, M, N,
+                                                FMT == kQ4G ? nullptr : (const float*)s,
+                                                (bf16*)y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes. fmt 0 = q4 per-row, 1 = int8 per-row
+// (K6), 2 = q4g group-128 (K7). x bf16 [M, K]; w int8 [N, K/2] (q4, q4g) or
+// [N, K] (int8); s fp32 [N, 1] or [N, K/128]; y bf16 [M, N]; ws fp32
+// [splits, M, N] when splits > 1. Returns the cudaError_t of the launches.
+extern "C" int slime_quant_matmul(int fmt, const void* x, int M, int K, const void* w,
+                                  const void* s, int N, void* y, void* ws, int splits,
+                                  int tiles_per_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fmt == kQ4) return launch<kQ4>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kInt8) return launch<kInt8>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kQ4G) return launch<kQ4G>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -23,9 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from slime_tpu.data.tokenization import StopStringMatcher
-
 from .config import SliMEConfig
+from .data.tokenization import StopStringMatcher
 from .models import llama, slime
 from .models.layers import fp32_accumulation
 

@@ -18,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops.quant_matmul import quant_matmul, quant_matmul_q4g
 from ..ops.quantization import dequantize_weight
 
 
@@ -38,14 +39,27 @@ def fp32_accumulation():
          mm.allow_fp16_reduced_precision_reduction, cudnn.allow_tf32) = saved
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the current CUDA device when it is None. Without a card
+    that raises: the port's entry points run on the card unless the caller
+    asks for the CPU (``device="cpu"``), and never fall back to it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def trunc_normal(shape, std, generator, device, dtype):
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
 
 
-def linear_init(in_dim: int, out_dim: int, *, generator, device="cpu",
+def linear_init(in_dim: int, out_dim: int, *, generator, device=None,
                 dtype=torch.float32, bias: bool = True, std: float = 0.02):
+    device = resolve_device(device)
     p = {"weight": trunc_normal((out_dim, in_dim), std, generator, device, dtype)}
     if bias:
         p["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
@@ -55,21 +69,31 @@ def linear_init(in_dim: int, out_dim: int, *, generator, device="cpu",
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ W.T [in, out] (+ b). Torch layout: weight [out, in].
 
-    int8 ``{"q", "scale"}`` weights dequantize to fp32 and are cast to
-    ``x.dtype`` before the matmul, as XLA does in ``layers.py:60-64``."""
+    Quantized weights route as in ``layers.py:46-64``, with "on the TPU"
+    read as "a CUDA tensor": per-row ``q4`` goes to the K6 kernel and ``q4g``
+    to K7 (``ops.quant_matmul``); every other format (int8, NF4, grouped
+    ``q4``), and every format on the CPU, dequantizes to fp32 and is cast to
+    ``x.dtype`` before the matmul, as XLA does."""
     if "lora" in p or "lora_b" in p:
         raise NotImplementedError("LoRA adapters are not ported yet "
                                   "(ROADMAP Queue 1 step 9: lora.py)")
     w = p["weight"]
-    if isinstance(w, dict):
-        w = dequantize_weight(w)
-    y = torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
+    if isinstance(w, dict) and x.device.type == "cuda" and (
+            ("q4" in w and w["scale"].shape[-1] == 1) or "q4g" in w):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = quant_matmul_q4g(x2, w) if "q4g" in w else quant_matmul(x2, w)
+        y = y.reshape(*x.shape[:-1], -1)
+    else:
+        if isinstance(w, dict):
+            w = dequantize_weight(w)
+        y = torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
 
 
-def layer_norm_init(dim: int, *, device="cpu", dtype=torch.float32):
+def layer_norm_init(dim: int, *, device=None, dtype=torch.float32):
+    device = resolve_device(device)
     return {"weight": torch.ones((dim,), dtype=dtype, device=device),
             "bias": torch.zeros((dim,), dtype=dtype, device=device)}
 
@@ -83,8 +107,8 @@ def layer_norm(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
             + p["bias"].to(torch.float32)).to(x.dtype)
 
 
-def rms_norm_init(dim: int, *, device="cpu", dtype=torch.float32):
-    return {"weight": torch.ones((dim,), dtype=dtype, device=device)}
+def rms_norm_init(dim: int, *, device=None, dtype=torch.float32):
+    return {"weight": torch.ones((dim,), dtype=dtype, device=resolve_device(device))}
 
 
 def rms_norm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -99,8 +123,9 @@ def rms_norm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
 # resampler and router use it.
 # ----------------------------------------------------------------------------
 
-def mha_init(embed_dim: int, *, generator, device="cpu", dtype=torch.float32,
+def mha_init(embed_dim: int, *, generator, device=None, dtype=torch.float32,
              std: float = 0.02):
+    device = resolve_device(device)
     return {
         "in_proj_weight": trunc_normal((3 * embed_dim, embed_dim), std,
                                        generator, device, dtype),

@@ -9,11 +9,14 @@ Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
   region, JAX's ``jax.checkpoint`` around each block). Its attention is
   ``ops.flash_attention`` (JAX ``_attn_prefill`` :176-179): the K5 kernels
   under JAX's rule or ``use_kernel=True``, the plain version otherwise.
-- ``decode_step`` has the structure of ``_decode_step_fused``
-  (``llama.py:670-766``): per layer, ``fused_qkv_decode`` -> RoPE -> the KV
-  write -> masked attention over the cache in plain torch (plain XLA in JAX)
-  -> ``fused_o_residual`` -> ``fused_mlp_decode``. On the card those three are
-  the CUDA kernels of ``ops/``.
+- ``decode_step`` takes JAX's ``fused`` choice (``llama.py:769-888``). The
+  fused path (``_decode_step_fused``, :670-766) runs per layer
+  ``fused_qkv_decode`` -> RoPE -> the KV write -> masked attention over the
+  cache in plain torch (plain XLA in JAX) -> ``fused_o_residual`` ->
+  ``fused_mlp_decode``; on the card those three are the CUDA kernels of
+  ``ops/`` (dense, int8 and q4g). The non-fused path (``layer_decode``) runs
+  the same layer through ``layers.linear``: per-row q4 (K6), NF4, mixed
+  formats and biases.
 
 Logits are fp32. The int8 ``lm_head`` dequantizes the whole matrix to fp32 on
 every call, as the JAX code does; on the card that is a 2.1 GB temporary at
@@ -29,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_mlp import fused_mlp_decode, silu
+from ..ops.fused_mlp import auto_block_ok, fused_mlp_decode, silu
 from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
 from ..ops.quantization import dequantize_weight
 from . import layers as L
@@ -37,32 +40,42 @@ from . import layers as L
 _MOE_TODO = "MoE layers are not ported yet (ROADMAP Queue 1 step 11)"
 
 
-def init(cfg: LLMConfig, *, generator, device="cpu", dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX ``llama.init`` key set and shapes
-    (list-of-layers layout)."""
+def init_layer(cfg: LLMConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
+    """One decoder layer's random parameters (``init``'s per-layer dict)."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_TODO)
     H, HD = cfg.hidden_size, cfg.head_dim
+    device = L.resolve_device(device)
     kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "input_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
+        "q_proj": L.linear_init(H, cfg.num_heads * HD, bias=cfg.attention_bias, **kw),
+        "k_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
+        "v_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
+        "o_proj": L.linear_init(cfg.num_heads * HD, H, bias=False, **kw),
+        "post_attention_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
+        "gate_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
+        "up_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
+        "down_proj": L.linear_init(cfg.intermediate_size, H, bias=False, **kw),
+    }
+
+
+def init(cfg: LLMConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
+    """Random parameters with the JAX ``llama.init`` key set and shapes
+    (list-of-layers layout), on ``device`` (the current CUDA device when
+    None)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    H = cfg.hidden_size
+    device = L.resolve_device(device)
 
     def normal(*shape):
         return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
 
     params: Dict = {"embed_tokens": normal(cfg.vocab_size, H),
                     "norm": L.rms_norm_init(H, device=device, dtype=dtype),
-                    "layers": []}
-    for _ in range(cfg.num_layers):
-        params["layers"].append({
-            "input_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
-            "q_proj": L.linear_init(H, cfg.num_heads * HD, bias=cfg.attention_bias, **kw),
-            "k_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
-            "v_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
-            "o_proj": L.linear_init(cfg.num_heads * HD, H, bias=False, **kw),
-            "post_attention_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
-            "gate_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
-            "up_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
-            "down_proj": L.linear_init(cfg.intermediate_size, H, bias=False, **kw),
-        })
+                    "layers": [init_layer(cfg, generator=generator, device=device, dtype=dtype)
+                               for _ in range(cfg.num_layers)]}
     params["lm_head"] = {"weight": normal(cfg.vocab_size, H)}
     return params
 
@@ -208,11 +221,13 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
 # ----------------------------------------------------------------------------
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int,
-                  dtype=torch.float32, device="cpu", quantized: bool = False):
-    """[L, B, max_len, KVH, hd] k/v caches and per-row lengths."""
+                  dtype=torch.float32, device=None, quantized: bool = False):
+    """[L, B, max_len, KVH, hd] k/v caches and per-row lengths, on ``device``
+    (the current CUDA device when None)."""
     if quantized:
         raise NotImplementedError("the int8 KV cache is not ported yet "
                                   "(ROADMAP: int8 KV cache)")
+    device = L.resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -230,22 +245,84 @@ def prefill_into_cache(cache, kvs, lengths):
     return cache
 
 
+def _fused_fmt(p):
+    """Weight format if a fused decode kernel can serve this projection
+    (``llama.py:626-637``): dense, per-row int8 or q4g, without bias or LoRA."""
+    if "lora" in p or "lora_b" in p or "bias" in p:
+        return None
+    w = p["weight"]
+    if isinstance(w, dict):
+        if "q4g" in w:
+            return "q4g"
+        if "q" in w and w["scale"].shape[-1] == 1:
+            return "int8"
+        return None               # NF4, per-row or grouped q4, grouped int8
+    return "dense"
+
+
+def _uniform_fused_fmt(layers, names) -> bool:
+    if not isinstance(layers, dict) or names[0] not in layers:
+        return False
+    fmts = {_fused_fmt(layers[k]) for k in names}
+    return len(fmts) == 1 and None not in fmts
+
+
+def _fused_mlp_ok(layers) -> bool:
+    """Stacked layers whose three MLP projections share one fused format."""
+    return _uniform_fused_fmt(layers, ("gate_proj", "up_proj", "down_proj"))
+
+
+def _fused_auto_ok(layers) -> bool:
+    """The automatic choice of the fused decode: fused-able, and the
+    intermediate dim tiles at the TPU kernel's preferred chunk."""
+    return _fused_mlp_ok(layers) and auto_block_ok(layers)
+
+
+def _fused_attn_ok(layers) -> bool:
+    """q/k/v/o share one fused format (else the fused decode runs them
+    through ``layers.linear``)."""
+    return _uniform_fused_fmt(layers, ("q_proj", "k_proj", "v_proj", "o_proj"))
+
+
+def _attend(q, cache, li, pos, visible, W, cfg: LLMConfig, compute_dtype):
+    """One query row per sequence over layer li's cache window: q [B, NH,
+    hd] -> [B, NH * hd] in compute_dtype. Scores and the softmax in fp32
+    over compute_dtype values; p rounds to compute_dtype before P.V."""
+    B, hd = q.shape[0], cfg.head_dim
+    qg = q.reshape(B, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
+    kk = cache["k"][li, :, :W].to(compute_dtype).to(torch.float32)
+    vv = cache["v"][li, :, :W].to(compute_dtype).to(torch.float32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32), kk) / math.sqrt(hd)
+    s = torch.where(visible, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(compute_dtype).to(torch.float32)
+    o = torch.einsum("bkgt,btkd->bkgd", p, vv).to(compute_dtype)
+    return o.reshape(B, cfg.num_heads * hd)
+
+
 def decode_step(params, cache, token_ids, cfg: LLMConfig,
-                compute_dtype=torch.float32, window: Optional[int] = None):
+                compute_dtype=torch.float32, window: Optional[int] = None,
+                fused: Optional[bool] = None):
     """One decode step: token_ids [B] -> (logits fp32 [B, V], cache).
 
-    ``params["layers"]`` must be stacked (``stack_layers``): the decode
-    kernels index layer li of the [L, ...] weights. The cache is updated in
-    place (the new k/v at [li, b, length[b]], then length + 1) and returned.
-    ``window``: attend only over the first ``window`` cache positions."""
+    ``fused`` is JAX's (``llama.py:769-798``): True runs each layer through
+    the fused decode kernels (``_decode_step_fused``: stacked layers whose
+    MLP has one fused format); False the per-layer ``layers.linear`` path
+    (list or stacked layers; per-row q4 takes K6 there on the card, NF4 and
+    mixed formats their dequantize path); None is ``_fused_auto_ok``, on any
+    device (the CPU runs the kernels' plain versions). The cache is updated
+    in place (the new k/v at [li, b, length[b]], then length + 1) and
+    returned. ``window``: attend only over the first ``window`` cache
+    positions."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_TODO)
     layers = params["layers"]
-    if not isinstance(layers, dict):
-        raise ValueError("decode_step needs stacked layers (llama.stack_layers)")
+    if fused is None:
+        fused = _fused_auto_ok(layers)
+    if fused and not _fused_mlp_ok(layers):
+        raise ValueError("fused decode needs stacked layers with one fused MLP "
+                         "format (dense, per-row int8 or q4g)")
     B = token_ids.shape[0]
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    group = nh // nkv
     pos = cache["length"].long()                                    # [B]
     x = params["embed_tokens"][token_ids].to(compute_dtype)         # [B, H]
     cos, sin = rope_table(cfg, cfg.max_position_embeddings, x.device)
@@ -254,24 +331,30 @@ def decode_step(params, cache, token_ids, cfg: LLMConfig,
     W = max_len if window is None else min(window, max_len)
     bidx = torch.arange(B, device=x.device)
     visible = torch.arange(W, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+    attn_fused = fused and _fused_attn_ok(layers)
 
     for li in range(cfg.num_layers):
-        qf, kf, vf = fused_qkv_decode(x, layers, li, eps=cfg.rms_norm_eps)
+        lp = None if attn_fused else _layer(layers, li)
+        if attn_fused:
+            qf, kf, vf = fused_qkv_decode(x, layers, li, eps=cfg.rms_norm_eps)
+        else:
+            h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
+            qf, kf, vf = (L.linear(lp[n], h) for n in ("q_proj", "k_proj", "v_proj"))
         q = apply_rope(qf.reshape(B, 1, nh, hd), cos_s, sin_s)
         k = apply_rope(kf.reshape(B, 1, nkv, hd), cos_s, sin_s)
         # in-place KV write at each row's position
         cache["k"][li, bidx, pos] = k[:, 0].to(cache["k"].dtype)
         cache["v"][li, bidx, pos] = vf.reshape(B, nkv, hd).to(cache["v"].dtype)
-
-        qg = q[:, 0].reshape(B, nkv, group, hd).to(torch.float32)
-        kk = cache["k"][li, :, :W].to(compute_dtype).to(torch.float32)
-        vv = cache["v"][li, :, :W].to(compute_dtype).to(torch.float32)
-        s = torch.einsum("bkgd,btkd->bkgt", qg, kk) / math.sqrt(hd)
-        s = torch.where(visible, s, -1e30)
-        p = torch.softmax(s, dim=-1).to(compute_dtype).to(torch.float32)
-        o = torch.einsum("bkgt,btkd->bkgd", p, vv).to(compute_dtype)
-        x = fused_o_residual(o.reshape(B, nh * hd).contiguous(), x, layers, li)
-        x = fused_mlp_decode(x, layers, li, eps=cfg.rms_norm_eps)
+        o = _attend(q[:, 0], cache, li, pos, visible, W, cfg, compute_dtype)
+        if attn_fused:
+            x = fused_o_residual(o.contiguous(), x, layers, li)
+        else:
+            x = x + L.linear(lp["o_proj"], o)
+        if fused:
+            x = fused_mlp_decode(x, layers, li, eps=cfg.rms_norm_eps)
+        else:
+            h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
+            x = x + _mlp(lp, h)
 
     x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
     logits = _lm_head(params, x)

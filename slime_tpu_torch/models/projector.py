@@ -40,9 +40,11 @@ def _mlp_apply(p, x):
     return x
 
 
-def init(cfg: SliMEConfig, *, generator, device="cpu",
+def init(cfg: SliMEConfig, *, generator, device=None,
          dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX ``projector.init`` key set and shapes."""
+    """Random parameters with the JAX ``projector.init`` key set and shapes,
+    on ``device`` (the current CUDA device when None)."""
+    device = L.resolve_device(device)
     kw = dict(generator=generator, device=device, dtype=dtype)
     ptype = cfg.mm_projector_type
     if ptype == "linear":

@@ -19,9 +19,11 @@ LN_EPS = 1e-6
 
 def init(*, grid_size: int, embed_dim: int, kv_dim: Optional[int] = None,
          llm_hidden_size: int = 4096, use_post_proj: bool = False, generator,
-         device="cpu", dtype=torch.float32) -> Dict:
+         device=None, dtype=torch.float32) -> Dict:
     """Random parameters with the JAX ``resampler.init`` key set and shapes
-    (text variant excluded). The head count only shapes ``apply``."""
+    (text variant excluded), on ``device`` (the current CUDA device when
+    None). The head count only shapes ``apply``."""
+    device = L.resolve_device(device)
     params: Dict = {
         "pos_embed": torch.from_numpy(L.sincos_2d(embed_dim, grid_size)).to(
             device=device, dtype=dtype),

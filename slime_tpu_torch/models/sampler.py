@@ -22,9 +22,10 @@ from ..config import SliMEConfig
 from . import resampler
 
 
-def init(cfg: SliMEConfig, *, generator, device="cpu",
+def init(cfg: SliMEConfig, *, generator, device=None,
          dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX ``sampler.init`` key set and shapes."""
+    """Random parameters with the JAX ``sampler.init`` key set and shapes,
+    on ``device`` (the current CUDA device when None)."""
     if cfg.mm_resampler_type != "cosine":
         raise NotImplementedError(f"selector {cfg.mm_resampler_type!r} is not "
                                   "ported yet (cosine only)")

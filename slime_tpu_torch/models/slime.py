@@ -25,7 +25,7 @@ from ..config import (CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, IGNORE_INDEX,
                       IMAGE_TOKEN_INDEX, SliMEConfig)
 from ..ops.loss import DEFAULT_LOSS_CHUNK, chunked_cross_entropy
 from ..params import named_leaves
-from . import llama, projector, sampler, vit
+from . import layers, llama, projector, sampler, vit
 
 
 class FusedBatch(NamedTuple):
@@ -46,9 +46,11 @@ def _any_requires_grad(tree) -> bool:
     return any(t.requires_grad for _, t in named_leaves(tree))
 
 
-def init(cfg: SliMEConfig, *, generator, device="cpu", dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX ``slime.init`` key set and shapes."""
+def init(cfg: SliMEConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
+    """Random parameters with the JAX ``slime.init`` key set and shapes, on
+    ``device`` (the current CUDA device when None; ``"cpu"`` to build there)."""
     _check_supported(cfg)
+    device = layers.resolve_device(device)
     kw = dict(generator=generator, device=device, dtype=dtype)
     return {"vision": vit.init(cfg.vision, **kw),
             "projector": projector.init(cfg, **kw),

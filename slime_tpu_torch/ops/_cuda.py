@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``slime_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` compiles with nvcc for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The build runs at first use into
+Every ``csrc/*.cu`` compiles with nvcc for ``sm_90a`` (one nvcc process per
+source, all started together) and links into one shared library with a plain
+C interface, loaded with ctypes. The build runs at first use into
 ``slime_tpu_torch/_build/``, keyed by a hash of the sources and the flags, so a
 checkout builds once and a changed source rebuilds. Importing this module
 builds nothing: the CPU tests import every module of the port.
@@ -13,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -22,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -37,6 +39,8 @@ _SIGNATURES = {
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 6 + [_F, _P],
     "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 6 + [_F, _P],
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 6 + [_F, _P],
+    "slime_quant_matmul": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "slime_w8a8_matmul": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
 }
 
 # the loaded library, and the seconds nvcc took if this process built it
@@ -69,15 +73,28 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libslime_kernels_{key.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, sources)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)                   # atomic: no half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+                     for src, obj in zip(sources, objs)]
+            errors = []
+            for src, proc in zip(sources, procs):
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+            if errors:
+                raise RuntimeError("nvcc failed: " + "\n".join(errors))
+            lib_tmp = os.path.join(tmp, so.name)
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                                   f"{proc.stderr}")
+            os.replace(lib_tmp, so)           # atomic: no half-written library
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -8,18 +8,51 @@ one wrapper (``csrc/fused_decode.cu``): gate/up into an ``a [B, I]`` scratch,
 a few tens of KB that stays in L2, then down plus the residual.
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292): h rounds to the
-working dtype; dots accumulate in fp32 over exactly converted int8; per-row
-scales multiply the fp32 results; a = silu(g*gs) * (u*us) rounds to the
-working dtype; down accumulates in fp32, takes its scale, and x is added in
-fp32 before the final cast.
+working dtype; dots accumulate in fp32 over exactly converted int8 or int4;
+per-row int8 scales multiply the fp32 results, q4g scales each 128-column
+group's fp32 partial sum; a = silu(g) * u rounds to the working dtype; down
+accumulates in fp32 with its scales, and x is added in fp32 before the final
+cast. Weight formats and their codes are ``fused_qkvo``'s.
+
+``auto_block_ok`` (fused_mlp.py:330-363) is the JAX package's rule for when
+the fused decode is the automatic choice: the intermediate dim must tile
+cleanly at the TPU kernel's preferred chunk. The port keeps the rule so
+``decode_step(fused=None)`` picks the same path on both packages.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .fused_qkvo import (check_operands, layer_mats, proj_ref, rms_h,
+from .fused_qkvo import (Q4G, _at, check_operands, layer_mats, proj_ref, rms_h,
                          rms_norm_launch, split_weight)
+
+# the TPU kernel's preferred intermediate chunk per format (fused_mlp.py:323)
+_PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
+
+
+def _block_divisor(I: int, want: int, *, step: int = 128) -> int:
+    """Largest multiple of ``step`` that divides I, at most ``want``; I
+    itself when none does (fused_mlp.py:352-363)."""
+    bi = min(want, I)
+    bi -= bi % step
+    while bi >= step and I % bi:
+        bi -= step
+    return bi if bi >= step and I % bi == 0 else I
+
+
+def auto_block_ok(layers) -> bool:
+    """True when the MLP's intermediate dim tiles at the preferred chunk:
+    the condition for the fused kernels to be the automatic choice."""
+    gw = layers["gate_proj"]["weight"]
+    if not isinstance(gw, dict):
+        fmt, I = "dense", gw.shape[1]
+    else:
+        fmt = "q4g" if "q4g" in gw else "int8"
+        I = gw.get("q4g", gw.get("q")).shape[1]
+    want = _PREFERRED_BLOCK[fmt]
+    step = 1024 if fmt == "q4g" else 128
+    return _block_divisor(I, want, step=step) >= min(I, want) // 2
 
 
 def silu(x):
@@ -30,13 +63,12 @@ def silu(x):
 def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
     """Plain version of ``fused_mlp_decode``."""
     h = rms_h(x, layers["post_attention_layernorm"]["weight"][layer_idx], eps)
-    (wg, sg, _), (wu, su, _), (wd, sd, _) = [
+    (wg, sg, fg), (wu, su, fu), (wd, sd, fd) = [
         split_weight(layers[n]) for n in ("gate_proj", "up_proj", "down_proj")]
-    at = lambda s: None if s is None else s[layer_idx]     # noqa: E731
-    g = proj_ref(h, wg[layer_idx], at(sg))
-    u = proj_ref(h, wu[layer_idx], at(su))
+    g = proj_ref(h, wg[layer_idx], _at(sg, layer_idx), fg)
+    u = proj_ref(h, wu[layer_idx], _at(su, layer_idx), fu)
     a = (silu(g) * u).to(x.dtype)
-    y = proj_ref(a, wd[layer_idx], at(sd))
+    y = proj_ref(a, wd[layer_idx], _at(sd, layer_idx), fd)
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
@@ -54,7 +86,10 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     (wd, sd, fmt_d), = down
     B, H = x.shape
     I = wg.shape[0]
-    if wu.shape != wg.shape or wd.shape != (H, I) or fmt_d != fmt:
+    if fmt == Q4G and I % 256:
+        raise ValueError(f"q4g decode kernels take I a multiple of 256, got {I}")
+    if (wu.shape != wg.shape or wd.shape[0] != H or fmt_d != fmt
+            or wd.shape[1] != (I // 2 if fmt == Q4G else I)):
         raise ValueError(f"MLP weights gate {tuple(wg.shape)} up {tuple(wu.shape)} "
                          f"down {tuple(wd.shape)} do not form one SwiGLU block")
     lib = _cuda.library()
@@ -71,7 +106,8 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
         fmt, a.data_ptr(), B, I, p(wd), p(sd), H, x.data_ptr(), y.data_ptr(),
         _cuda.stream()), "fused_mlp_decode down")
     fused_mlp_decode.launches += 1
+    fused_mlp_decode.q4g_launches += fmt == Q4G
     return y
 
 
-fused_mlp_decode.launches = 0
+fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0

@@ -10,29 +10,43 @@ the TPU the layer is picked by scalar prefetch so XLA never copies a sliced
 operand; in PyTorch ``w[layer_idx]`` of a contiguous stack is already a view,
 so the wrappers index it directly. The kernels are in ``csrc/fused_decode.cu``.
 
-Weight formats: dense (bf16 on the card, any float on the CPU) and int8
-per-row ``{"q", "scale"}``. q4g is not ported yet (ROADMAP, Queue 2).
+Weight formats (format codes of the kernels): 0 dense (bf16 on the card,
+any float on the CPU), 1 int8 per-row ``{"q", "scale"}``, 2 group-128 q4g
+``{"q4g", "scale"}`` with the canonical scales ``[L, out, in/128]``. The
+JAX package's ``prepare_fused_layers`` stores the down projection's q4g
+scales transposed, ``[L, in/128, out]`` (a Mosaic tiling device); that
+layout is accepted by its shape and read transposed. NF4 and grouped int8
+have no fused kernel (``llama._fused_fmt``) and raise here.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
+from .quantization import int_values
 
 MAX_BATCH = 64              # decode rows the kernels take (llama.py:525)
-_Q4G_TODO = ("fused decode takes dense or per-row int8 weights; q4g is not "
-             "ported yet (ROADMAP: q4/q4g/NF4 formats with K6/K7)")
+DENSE, INT8, Q4G = 0, 1, 2
+_FMT_NAMES = {DENSE: "dense", INT8: "int8", Q4G: "q4g"}
 
 
 def split_weight(p):
-    """Projection param dict -> (weight [L, out, in], scale [L, out, 1] or None,
-    format code: 0 dense, 1 int8 per-row)."""
+    """Projection param dict -> (weight [L, out, in] or packed q4g [L, out,
+    in/2], scale [L, out, 1] / [L, out, in/128] or None, format code)."""
     w = p["weight"]
-    if isinstance(w, dict):
-        if "q" in w and w["scale"].shape[-1] == 1:
-            return w["q"], w["scale"], 1
-        raise NotImplementedError(_Q4G_TODO)
-    return w, None, 0
+    if not isinstance(w, dict):
+        return w, None, DENSE
+    if "q" in w and w["scale"].shape[-1] == 1:
+        return w["q"], w["scale"], INT8
+    if "q4g" in w:
+        q, s = w["q4g"], w["scale"]
+        out, n_g = q.shape[-2], 2 * q.shape[-1] // 128
+        if s.shape[-2:] != (out, n_g) and s.shape[-2:] == (n_g, out):
+            s = s.transpose(-1, -2)          # prepare_fused_layers' layout
+        return q, s, Q4G
+    raise NotImplementedError("the fused decode kernels take dense, per-row int8 or "
+                              "q4g weights; NF4, grouped int8 and per-row q4 take "
+                              "the non-fused decode path (llama._fused_fmt)")
 
 
 def rms_h(x, norm_w, eps):
@@ -42,13 +56,29 @@ def rms_h(x, norm_w, eps):
     return (xf * torch.rsqrt(var + eps) * norm_w.to(torch.float32)).to(x.dtype)
 
 
-def proj_ref(h, w, s):
+def proj_ref(h, w, s, fmt):
     """h [B, K] @ W.T in fp32 over the exact products of h and W cast to
-    h.dtype, per-row scale applied to the fp32 result -> [B, out] fp32."""
-    y = torch.matmul(h.to(torch.float32), w.to(h.dtype).to(torch.float32).T)
-    if s is not None:
+    h.dtype -> [B, out] fp32. int8: the per-row scale multiplies the fp32
+    result; q4g: one fp32 partial sum per 128-column group, times the
+    group's scale, groups added in order (``_q4g_contract``)."""
+    hf = h.to(torch.float32)
+    if fmt == Q4G:
+        wf = int_values({"q4g": w, "scale": s}).to(torch.float32)
+        sf = s.to(torch.float32)
+        y = None
+        for g in range(sf.shape[-1]):
+            part = torch.matmul(hf[:, g * 128:(g + 1) * 128],
+                                wf[:, g * 128:(g + 1) * 128].T) * sf[:, g][None, :]
+            y = part if y is None else y + part
+        return y
+    y = torch.matmul(hf, w.to(h.dtype).to(torch.float32).T)
+    if fmt == INT8:
         y = y * s[:, 0].to(torch.float32)[None, :]
     return y
+
+
+def _at(s, layer_idx):
+    return None if s is None else s[layer_idx]
 
 
 def fused_qkv_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
@@ -56,23 +86,24 @@ def fused_qkv_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
     h = rms_h(x, layers["input_layernorm"]["weight"][layer_idx], eps)
     outs = []
     for name in ("q_proj", "k_proj", "v_proj"):
-        w, s, _ = split_weight(layers[name])
-        outs.append(proj_ref(h, w[layer_idx],
-                             None if s is None else s[layer_idx]).to(x.dtype))
+        w, s, fmt = split_weight(layers[name])
+        outs.append(proj_ref(h, w[layer_idx], _at(s, layer_idx), fmt).to(x.dtype))
     return tuple(outs)
 
 
 def fused_o_residual_ref(attn, x, layers, layer_idx):
     """Plain version of ``fused_o_residual`` (fused_qkvo.py:100-106)."""
-    w, s, _ = split_weight(layers["o_proj"])
-    y = proj_ref(attn, w[layer_idx], None if s is None else s[layer_idx])
+    w, s, fmt = split_weight(layers["o_proj"])
+    y = proj_ref(attn, w[layer_idx], _at(s, layer_idx), fmt)
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
 def check_operands(x, mats):
     """Validate a kernel call: x [B, K] bf16 contiguous with B <= 64; each
-    (w [out, K], s [out, 1] or None, fmt) on x's device, contiguous, bf16 for
-    dense weights, and K a whole number of 16-byte weight vectors."""
+    (w, s, fmt) on x's device and contiguous: dense bf16 [out, K], int8
+    [out, K] with fp32 scales [out, 1], or q4g int8 [out, K/2] with fp32
+    scales [out, K/128]; K a whole number of 16-byte weight vectors, and a
+    multiple of 256 for q4g."""
     _cuda.require_cuda(x, *[t for w, s, _ in mats for t in (w, s) if t is not None])
     if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"decode kernels take contiguous bf16 [B, K] activations, "
@@ -81,24 +112,31 @@ def check_operands(x, mats):
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"decode kernels take 1..{MAX_BATCH} rows, got {B}")
     for w, s, fmt in mats:
-        want = torch.int8 if fmt == 1 else torch.bfloat16
-        if w.dtype != want or w.shape[-1] != K or not w.is_contiguous():
-            raise ValueError(f"weight {w.dtype} {tuple(w.shape)}: expected "
-                             f"contiguous {want} [out, {K}]")
-        if (K * w.element_size()) % 16:
-            raise ValueError(f"contraction {K} is not a multiple of 16 bytes")
+        want = torch.bfloat16 if fmt == DENSE else torch.int8
+        width = K // 2 if fmt == Q4G else K
+        if (w.dtype != want or w.dim() != 2 or w.shape[-1] != width
+                or not w.is_contiguous()):
+            raise ValueError(f"{_FMT_NAMES[fmt]} weight {w.dtype} {tuple(w.shape)}: "
+                             f"expected contiguous {want} [out, {width}]")
+        if (K * w.element_size()) % 16 or (fmt == Q4G and K % 256):
+            raise ValueError(f"contraction {K} does not fit the {_FMT_NAMES[fmt]} "
+                             f"kernel (16-byte vectors; q4g: a multiple of 256)")
+        n_s = K // 128 if fmt == Q4G else 1
         if s is not None and (s.dtype != torch.float32 or not s.is_contiguous()
-                              or s.shape != (w.shape[0], 1)):
+                              or s.shape != (w.shape[0], n_s)):
             raise ValueError(f"scale {s.dtype} {tuple(s.shape)}: expected "
-                             f"contiguous fp32 [{w.shape[0]}, 1]")
+                             f"contiguous fp32 [{w.shape[0]}, {n_s}]")
 
 
 def layer_mats(layers, names, layer_idx):
-    """[(w[li], s[li] or None, fmt)] for the named projections; all one format."""
+    """[(w[li], s[li] or None, fmt)] for the named projections; all one
+    format. A transposed q4g scale is copied into the canonical layout for
+    this layer only."""
     mats = []
     for name in names:
         w, s, fmt = split_weight(layers[name])
-        mats.append((w[layer_idx], None if s is None else s[layer_idx], fmt))
+        s = _at(s, layer_idx)
+        mats.append((w[layer_idx], None if s is None else s.contiguous(), fmt))
     if len({m[2] for m in mats}) != 1:
         raise ValueError(f"mixed weight formats across {names}")
     return mats
@@ -131,6 +169,8 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
         raise ValueError(f"k/v projections differ: {wk.shape} vs {wv.shape}")
     B, H = x.shape
     NQ, NKV = wq.shape[0], wk.shape[0]
+    if fmt == Q4G and NQ % 256:
+        raise ValueError(f"q4g decode kernels take NQ a multiple of 256, got {NQ}")
     lib = _cuda.library()
     h = rms_norm_launch(x, layers["input_layernorm"]["weight"][layer_idx], eps, lib)
     q = torch.empty((B, NQ), dtype=x.dtype, device=x.device)
@@ -142,6 +182,7 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
         NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.stream()),
         "fused_qkv_decode")
     fused_qkv_decode.launches += 1
+    fused_qkv_decode.q4g_launches += fmt == Q4G
     return q, k, v
 
 
@@ -155,7 +196,7 @@ def fused_o_residual(attn, x, layers, layer_idx):
     (wo, so, fmt), = mats
     B, H = x.shape
     if (x.dtype != attn.dtype or x.device != attn.device or not x.is_contiguous()
-            or attn.shape[0] != B or wo.shape[0] != H):
+            or attn.shape[0] != B or wo.shape[0] != H or (fmt == Q4G and H % 256)):
         raise ValueError(f"residual x {x.dtype} {tuple(x.shape)} does not match "
                          f"attn {tuple(attn.shape)} and Wo {tuple(wo.shape)}")
     lib = _cuda.library()
@@ -164,8 +205,9 @@ def fused_o_residual(attn, x, layers, layer_idx):
         fmt, attn.data_ptr(), B, attn.shape[1], wo.data_ptr(), _cuda.ptr(so), H,
         x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
     fused_o_residual.launches += 1
+    fused_o_residual.q4g_launches += fmt == Q4G
     return y
 
 
-fused_qkv_decode.launches = 0
-fused_o_residual.launches = 0
+fused_qkv_decode.launches = fused_qkv_decode.q4g_launches = 0
+fused_o_residual.launches = fused_o_residual.q4g_launches = 0

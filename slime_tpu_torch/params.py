@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.layers import resolve_device
 from .ops.quantization import is_quantized
 
 
@@ -27,10 +28,12 @@ def _leaf_to_torch(a, device, dtype):
     return t.to(device)
 
 
-def from_jax_numpy(tree, device="cpu", dtype=None):
+def from_jax_numpy(tree, device=None, dtype=None):
     """Nested dict/list of numpy arrays (``jax.device_get`` of JAX params) ->
-    the same tree of tensors on ``device``. ``dtype`` casts floating leaves,
-    except the fp32 scales of quantized weights."""
+    the same tree of tensors on ``device`` (the current CUDA device when
+    None). ``dtype`` casts floating leaves, except the fp32 scales of
+    quantized weights."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         if is_quantized(tree):
             return {k: _leaf_to_torch(v, device, None) for k, v in tree.items()}

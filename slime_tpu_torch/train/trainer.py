@@ -12,11 +12,11 @@ pretraining runs through it:
 
 In all three the LLM body and the vision tower are frozen.
 
-Reused from the JAX package, which are plain Python: the input pipeline's
-``Prefetcher`` (the host-to-device copy runs in its producer thread, from
-pinned memory), the SIGTERM ``PreemptionGuard`` and ``save_checkpoint``
-(the staged ``mm_projector.bin`` / ``sampler.bin`` saves). The step counter
-stays on the host; device scalars are read only at log steps.
+The input pipeline's ``Prefetcher`` runs the host-to-device copy in its
+producer thread, from pinned memory; a SIGTERM (``PreemptionGuard``) saves
+the parameters and ends the loop; ``checkpoint.save_checkpoint`` writes the
+reference's files (the staged ``mm_projector.bin`` / ``sampler.bin``). The
+step counter stays on the host; device scalars are read only at log steps.
 
 Not ported yet (ROADMAP): the Orbax train-state save and resume
 (``state_ckpt``; a ``resume_from`` or a found ``state-*`` directory raises,
@@ -35,14 +35,13 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from slime_tpu import checkpoint as ckpt_lib
-from slime_tpu.data.dataset import Prefetcher
-from slime_tpu.train import state_ckpt
-from slime_tpu.train.preemption import PreemptionGuard
-
+from .. import checkpoint as ckpt_lib
 from ..config import SliMEConfig
-from ..params import named_leaves, to_jax_numpy
+from ..data.dataset import Prefetcher
+from ..params import named_leaves
+from . import state_ckpt
 from .optim import TrainConfig
+from .preemption import PreemptionGuard
 from .step import init_train_state, make_train_step
 
 _TODO = "is not ported yet (ROADMAP: the port's training queue)"
@@ -159,14 +158,13 @@ class Trainer:
         return {k: float(v) for k, v in m.items()}
 
     def save(self, path: str) -> None:
-        """Write a checkpoint directory through the JAX package's
-        ``save_checkpoint``: the projector and sampler only with
-        ``adapters_only_save`` (the staged-pretrain files), else the whole
-        tree."""
+        """Write a checkpoint directory (``checkpoint.save_checkpoint``): the
+        projector and sampler only with ``adapters_only_save`` (the
+        staged-pretrain files), else the whole tree."""
         params = self.params
         if self.rc.adapters_only_save:
             params = {k: params[k] for k in ("projector", "sampler") if k in params}
-        ckpt_lib.save_checkpoint(path, to_jax_numpy(params), self.cfg,
+        ckpt_lib.save_checkpoint(path, params, self.cfg,
                                  adapters_only=self.rc.adapters_only_save)
 
 

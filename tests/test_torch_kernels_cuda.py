@@ -12,9 +12,13 @@ the plain versions, so an element may differ by about one bf16 ulp
 import pytest
 import torch
 
+from slime_tpu_torch.models import layers as L
 from slime_tpu_torch.models.layers import fp32_accumulation
 from slime_tpu_torch.ops import encoder_attention as ea
 from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+from slime_tpu_torch.ops import quant_matmul as qm
+from slime_tpu_torch.ops import quantization as quant
+from slime_tpu_torch.ops import w8a8_matmul as w8
 
 pytestmark = pytest.mark.gpu
 RTOL = 2 ** -7
@@ -35,8 +39,12 @@ def _assert_close(got, want, atol):
 
 def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
     """Random stacked decode weights: int8 per-row (scales ~ N(0, 0.02)
-    rows, as bench.py builds them) or dense bf16."""
+    rows, as bench.py builds them), q4g (N(0, 0.02) weights quantized) or
+    dense bf16."""
     def proj(out_d, in_d):
+        if fmt == "q4g":
+            w = torch.randn((L, out_d, in_d), device=device, generator=generator) * 0.02
+            return {"weight": quant.quantize_weight_q4g(w)}
         if fmt == "int8":
             q = torch.randint(-127, 128, (L, out_d, in_d), dtype=torch.int8,
                               device=device, generator=generator)
@@ -84,7 +92,7 @@ def test_encoder_attention_kernel_rejects(dev):
         ea.encoder_attention(q, q, q)
 
 
-@pytest.mark.parametrize("fmt", ["int8", "bf16"])
+@pytest.mark.parametrize("fmt", ["int8", "bf16", "q4g"])
 @pytest.mark.parametrize("B", [1, 8, 64])
 def test_fused_decode_kernels(dev, fmt, B):
     """K1-K3 at 8B width (H = NQ = 4096, NKV = 1024, I = 14336), layer 1 of 2."""
@@ -112,6 +120,20 @@ def test_fused_decode_kernels(dev, fmt, B):
             fused_mlp.fused_mlp_decode.launches) == tuple(c + 1 for c in counts)
 
 
+def test_fused_decode_q4g_transposed_down_scales(dev):
+    """The down projection's q4g scales in prepare_fused_layers' [L, in/128,
+    out] layout give the canonical layout's result."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    layers = decode_layers(L=2, H=512, NQ=512, NKV=256, I=1024, fmt="q4g",
+                           generator=g, device=dev)
+    x = torch.randn((4, 512), device=dev, generator=g).to(torch.bfloat16)
+    want = fused_mlp.fused_mlp_decode(x, layers, 1)
+    dw = layers["down_proj"]["weight"]
+    layers["down_proj"] = {"weight": {"q4g": dw["q4g"],
+                                      "scale": dw["scale"].transpose(1, 2).contiguous()}}
+    _assert_close(fused_mlp.fused_mlp_decode(x, layers, 1), want, atol=0)
+
+
 def test_fused_decode_kernels_reject(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     layers = decode_layers(L=1, H=256, NQ=256, NKV=128, I=512, fmt="int8",
@@ -121,6 +143,102 @@ def test_fused_decode_kernels_reject(dev):
             torch.zeros((65, 256), device=dev, dtype=torch.bfloat16), layers, 0)
     with pytest.raises(ValueError):         # fp32 activations
         fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev), layers, 0)
+    q4g = {"weight": {"q4g": torch.zeros((1, 256, 192), dtype=torch.int8, device=dev),
+                      "scale": torch.ones((1, 256, 3), device=dev)}}
+    layers = {"input_layernorm": {"weight": torch.ones((1, 384), device=dev)},
+              "q_proj": q4g, "k_proj": q4g, "v_proj": q4g}
+    with pytest.raises(ValueError):         # q4g with H = 384, not a multiple of 256
+        fused_qkvo.fused_qkv_decode(
+            torch.zeros((1, 384), device=dev, dtype=torch.bfloat16), layers, 0)
+
+
+def _qweight(fmt, N, K, g, dev):
+    w = torch.randn((N, K), device=dev, generator=g) * 0.02
+    if fmt == "q4g":
+        return quant.quantize_weight_q4g(w)
+    return quant.quantize_weight(w, 4 if fmt == "q4" else 8)
+
+
+# (fmt, M, N, K): decode rows (split over K), prefill rows, a ragged M and a
+# ragged N (not a multiple of the 64-wide tile)
+QMM_CASES = [("q4", 1, 1024, 4096), ("q4", 2048, 4096, 4096), ("q4", 37, 1000, 1024),
+             ("int8", 1, 4096, 14336), ("int8", 130, 1000, 512),
+             ("q4g", 1, 1024, 4096), ("q4g", 2048, 14336, 4096), ("q4g", 2048, 4096, 14336),
+             ("q4g", 70, 1000, 768)]
+
+
+@pytest.mark.parametrize("case", QMM_CASES)
+def test_quant_matmul_kernels(dev, case):
+    """K6 (q4, int8) and K7 (q4g) against their plain versions: exact
+    products, fp32 sums in another order, bf16 out."""
+    fmt, M, N, K = case
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((M, K), device=dev, generator=g).to(torch.bfloat16)
+    if fmt == "q4g":
+        before = qm.quant_matmul_q4g.launches
+        got, want = qm.quant_matmul_q4g(x, qw), qm.quant_matmul_q4g_ref(x, qw)
+        assert qm.quant_matmul_q4g.launches == before + 1
+    else:
+        name = f"{fmt}_launches"
+        before = getattr(qm.quant_matmul, name)
+        got, want = qm.quant_matmul(x, qw), qm.quant_matmul_ref(x, qw)
+        assert getattr(qm.quant_matmul, name) == before + 1
+    _assert_close(got, want, atol=2e-3)
+
+
+def test_quant_matmul_kernels_reject(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.zeros((4, 200), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):         # K not a multiple of 128
+        qm.quant_matmul(x, _qweight("q4", 64, 200, g, dev))
+    x = torch.zeros((4, 384), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):         # q4g K not a multiple of 256
+        qm.quant_matmul_q4g(x, quant.quantize_weight_q4g(
+            torch.zeros((64, 384), device=dev), group=64))
+    with pytest.raises(ValueError):         # fp32 activations
+        qm.quant_matmul(x.float(), _qweight("q4", 64, 384, g, dev))
+    with pytest.raises(ValueError):         # grouped q4 has no K6 kernel
+        qm.quant_matmul(x, quant.quantize_weight(torch.zeros((64, 384), device=dev),
+                                                 4, group=128))
+
+
+def test_linear_routes_q4g_to_k7_and_q4_to_k6(dev):
+    """layers.linear on a CUDA tensor: q4g launches K7, per-row q4 K6, and
+    NF4 / int8 take the dequantize path (no launch)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 3, 512), device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn((256, 512), device=dev, generator=g) * 0.02
+    counts = lambda: (qm.quant_matmul_q4g.launches, qm.quant_matmul.q4_launches,  # noqa: E731
+                      qm.quant_matmul.int8_launches)
+    c0 = counts()
+    y = L.linear({"weight": quant.quantize_weight_q4g(w)}, x)
+    assert y.shape == (2, 3, 256) and counts() == (c0[0] + 1, c0[1], c0[2])
+    L.linear({"weight": quant.quantize_weight(w, 4)}, x)
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2])
+    L.linear({"weight": quant.quantize_weight_nf4(w)}, x)
+    L.linear({"weight": quant.quantize_weight(w, 8)}, x)
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2])
+
+
+@pytest.mark.parametrize("case", [(4616, 3072, 1024, True), (4616, 1024, 4096, True),
+                                  (100, 1000, 256, False)])
+def test_w8a8_kernel(dev, case):
+    """K8 against w8a8_matmul_ref: the integer dot is exact and the epilogue
+    rounds at the same points, so they agree to within a bf16 ulp."""
+    M, N, K, with_bias = case
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    x = (torch.randn((M, K), device=dev, generator=g) * 2).to(torch.bfloat16)
+    x[3] = 0                                  # a zero row: scale 1
+    qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=g) * 0.02, 8)
+    bias = torch.randn((N,), device=dev, generator=g) if with_bias else None
+    before = w8.w8a8_matmul.launches
+    got = w8.w8a8_matmul(x, qw, bias)
+    assert w8.w8a8_matmul.launches == before + 1
+    _assert_close(got, w8.w8a8_matmul_ref(x, qw, bias), atol=1e-6)
+    with pytest.raises(ValueError):         # K not a multiple of 128
+        w8.w8a8_matmul(x[:, :100].contiguous(), {"q": qw["q"][:, :100].contiguous(),
+                                                 "scale": qw["scale"]})
 
 
 def _bhsd(B, S, heads, D, g, dev):

@@ -57,9 +57,9 @@ def test_linear_int8():
 
 
 def test_linear_rejects_unported_formats():
+    """LoRA and multi-LoRA adapters are not ported yet (every weight format is)."""
     with pytest.raises(NotImplementedError):
-        TL.linear({"weight": {"q4g": torch.zeros(4, 4, dtype=torch.int8),
-                              "scale": torch.ones(4, 1)}}, torch.zeros(1, 8))
+        TL.linear({"weight": torch.zeros(4, 4), "lora_b": {}}, torch.zeros(1, 4))
     with pytest.raises(NotImplementedError):
         TL.linear({"weight": torch.zeros(4, 4), "lora": {}}, torch.zeros(1, 4))
 
@@ -128,11 +128,14 @@ def test_quantize_dequantize_equal(shape):
     np.testing.assert_array_equal(tq["scale"].numpy(), np.asarray(jq["scale"]))
     np.testing.assert_array_equal(TQ.dequantize_weight(tq).numpy(),
                                   np.asarray(JQ.dequantize_weight(jq)))
-    with pytest.raises(NotImplementedError):
-        TQ.quantize_weight(_t(w), 4)
-    grouped = JQ.quantize_weight(jnp.asarray(w), 8, group=16)
-    with pytest.raises(NotImplementedError):
-        TQ.dequantize_weight({k: _t(v) for k, v in grouped.items()})
+    # int4 and group-scaled int8 (ported since): the same bytes and values
+    for bits, group in ((4, None), (8, 16)):
+        jg = JQ.quantize_weight(jnp.asarray(w), bits, group=group)
+        tg = TQ.quantize_weight(_t(w), bits, group=group)
+        for k in jg:
+            np.testing.assert_array_equal(tg[k].numpy(), np.asarray(jg[k]))
+        np.testing.assert_array_equal(TQ.dequantize_weight(tg).numpy(),
+                                      np.asarray(JQ.dequantize_weight(jg)))
 
 
 def test_rope():

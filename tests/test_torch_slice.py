@@ -1,7 +1,11 @@
 """The whole slice against the JAX package: prepare_multimodal, greedy
 generate and generate_stream on bench.py's query shape (a 672x672 image, a
 64-token prompt with the image sentinel at position 2), at reduced width in
-fp32; and a check that the port runs without importing jax.
+fp32; the CLI's 4-bit serving configurations (config A: q4g LLM layers, int8
+lm_head, W8A8 vision; config B: per-row q4 layers, int8 lm_head), built by
+``checkpoint.quantize_loaded`` byte for byte as JAX's ``load_pretrained``
+quantizes, with token-exact greedy generate on the same tree; and a check
+that the port runs without importing jax.
 
 JAX's ViT attention runs its Pallas kernel in interpret mode (what it runs on
 a TPU), and JAX prefill takes ``use_pallas=False``, the configuration the
@@ -28,9 +32,13 @@ from slime_tpu import generate as jgen
 from slime_tpu.data.image_ops import make_device_anyres_fn as j_anyres
 from slime_tpu.models import llama as jllama
 from slime_tpu.models import slime as jslime
+from slime_tpu.models import vit as jvit
+from slime_tpu.ops.quantization import quantize_params as jquantize_params
 from slime_tpu_torch import generate as tgen
 from slime_tpu_torch import params as bridge
+from slime_tpu_torch.checkpoint import quantize_loaded
 from slime_tpu_torch.data.image_ops import make_device_anyres_fn as t_anyres
+from slime_tpu_torch.models import llama as tllama
 from slime_tpu_torch.models import slime as tslime
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,9 +75,9 @@ def query():
     ids[:, 2] = IMAGE_TOKEN_INDEX
     img = r.integers(0, 255, (672, 672, 3), dtype=np.uint8)
     jc, jm = j_anyres((672, 672))(jnp.asarray(img))
-    tc, tm = t_anyres((672, 672))(torch.from_numpy(img))
+    tc, tm = t_anyres((672, 672), device="cpu")(torch.from_numpy(img))
     return dict(cfg=cfg, jp=jax.tree_util.tree_map(jnp.asarray, p),
-                tp=bridge.from_jax_numpy(p), ids=ids, attn=np.ones((1, 64), bool),
+                tp=bridge.from_jax_numpy(p, device="cpu"), ids=ids, attn=np.ones((1, 64), bool),
                 jpx=(jc[None], jm[None]), tpx=(tc[None], tm[None]))
 
 
@@ -132,6 +140,78 @@ def test_generate_text_only_token_exact(query):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _cfg_4bit():
+    """q4g needs contractions that are multiples of 256: LLM hidden 256."""
+    cfg = _cfg()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, hidden_size=256, intermediate_size=512, head_dim=64))
+
+
+def _jax_load_step(p, cfg, scheme, quantize_vision):
+    """The quantization step of JAX's ``load_pretrained``
+    (checkpoint.py:368-393) with --load-4bit --int4-scheme ``scheme``
+    --quantize-lm-head [--quantize-vision], on a list-of-layers tree."""
+    p = dict(p, llm=dict(p["llm"]))
+    p["llm"]["layers"] = jquantize_params(p["llm"]["layers"], bits=4, min_size=1024,
+                                          scheme=scheme)
+    p["llm"]["lm_head"] = jquantize_params(p["llm"]["lm_head"], bits=8, min_size=1024)
+    if quantize_vision:
+        p["vision"] = jvit.quantize_tower(p["vision"], cfg.vision)
+    return p
+
+
+@pytest.fixture(scope="module", params=["A", "B"])
+def query_4bit(request, query):
+    """Config A (--int4-scheme group --quantize-lm-head --quantize-vision) or
+    B (--int4-scheme absmax --quantize-lm-head), quantized by both packages
+    from the same fp32 tree; layers stacked after quantizing, as JAX does."""
+    cfg = _cfg_4bit()
+    scheme, vision = {"A": ("group", True), "B": ("absmax", False)}[request.param]
+    p = jax.device_get(jslime.init(jax.random.PRNGKey(1), cfg))
+    p["projector"]["w_gate"] = np.random.default_rng(2).standard_normal(
+        (256, 2)).astype(np.float32)
+    jq = jax.device_get(_jax_load_step(jax.tree_util.tree_map(jnp.asarray, p), cfg,
+                                       scheme, vision))
+    tq = quantize_loaded(bridge.from_jax_numpy(p, device="cpu"), cfg, load_bits=4,
+                         int4_scheme=scheme, quantize_lm_head=True,
+                         quantize_vision=vision)
+    jq["llm"]["layers"] = jax.device_get(jllama.stack_layers(jq["llm"]["layers"]))
+    return dict(query, cfg=cfg, name=request.param, jq=jq, tq=tq,
+                jp=jax.tree_util.tree_map(jnp.asarray, jq))
+
+
+def test_quantize_loaded_equals_jax_load_step(query_4bit):
+    """Every leaf of the port's quantized tree (layers stacked after) equals
+    JAX's, byte for byte and dtype for dtype."""
+    q = query_4bit
+    tq = q["tq"]
+    got = bridge.to_jax_numpy(dict(tq, llm=dict(
+        tq["llm"], layers=tllama.stack_layers(tq["llm"]["layers"]))))
+    got, want = (jax.tree_util.tree_leaves_with_path(t) for t in (got, q["jq"]))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype, jax.tree_util.keystr(path)
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(path))
+    fmt = "q4g" if q["name"] == "A" else "q4"
+    assert fmt in tq["llm"]["layers"][0]["gate_proj"]["weight"]
+    assert "q" in tq["llm"]["lm_head"]["weight"]
+    assert ("qkv" in tq["vision"]["layers"][0]) == (q["name"] == "A")
+
+
+def test_generate_4bit_token_exact(query_4bit, jax_kernel_attention):
+    """Greedy generate on the same quantized tree: JAX on the CPU (dequantize
+    paths, W8A8 reference, non-fused decode) and the port on the CPU (its
+    plain versions; config A decodes through the fused structure, B through
+    the non-fused path)."""
+    q = query_4bit
+    tp = bridge.from_jax_numpy(q["jq"], device="cpu")
+    want = jgen.generate(q["jp"], q["cfg"], jnp.asarray(q["ids"]), jnp.asarray(q["attn"]),
+                         *q["jpx"], max_new_tokens=8, eos_id=-1, use_pallas=False)
+    got = tgen.generate(tp, q["cfg"], torch.from_numpy(q["ids"]).long(),
+                        torch.from_numpy(q["attn"]), *q["tpx"], max_new_tokens=8, eos_id=-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_sample_token_top_p_support():
     """Sampling draws only from the nucleus JAX's rule keeps (the token whose
     exclusive cumulative probability crosses top_p is kept)."""
@@ -169,9 +249,9 @@ def test_port_runs_without_jax():
                                 intermediate_size=64, num_layers=2, num_heads=2),
             mm_resampler_dim=4, seperator=7, tokenizer_model_max_length=128,
             bos_token_id=1, eos_token_id=2)
-        p = slime.init(cfg, generator=torch.Generator().manual_seed(0))
+        p = slime.init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         p["llm"]["layers"] = llama.stack_layers(p["llm"]["layers"])
-        crops, mask = make_device_anyres_fn((112, 112), tile=56)(
+        crops, mask = make_device_anyres_fn((112, 112), tile=56, device="cpu")(
             torch.randint(0, 255, (112, 112, 3), dtype=torch.uint8))
         ids = torch.randint(5, 64, (1, 16)); ids[0, 2] = IMAGE_TOKEN_INDEX
         out = generate.generate(p, cfg, ids, torch.ones((1, 16), dtype=torch.bool),
@@ -207,9 +287,9 @@ def test_port_runs_without_jax():
 
 
 def test_port_import_hides_slime_platform():
-    """With SLIME_PLATFORM set (which makes ``slime_tpu/__init__`` import jax),
-    importing the port and every module ``chip_smoke.py`` uses still loads no
-    jax, and the variable is back in the environment afterwards."""
+    """With SLIME_PLATFORM set (the JAX package's switch to import jax at
+    package import), importing the port and every module ``chip_smoke.py``
+    uses loads no jax and leaves the variable as it was."""
     script = textwrap.dedent("""
         import os, sys
         import slime_tpu_torch

@@ -136,7 +136,7 @@ def test_loss_and_trainable_gradients_match_jax(setup, jax_kernel_attention, sta
         {"projector": jp["projector"], "sampler": jp["sampler"]})
     want_g = _leaf_dict(jax.device_get(want_g))
 
-    tp = bridge.from_jax_numpy(p)
+    tp = bridge.from_jax_numpy(p, device="cpu")
     labels = _leaf_dict(toptim.label_tree(tp, tc))
     for path, leaf in bridge.named_leaves(tp):
         leaf.requires_grad_(labels[path] != "frozen")
@@ -180,7 +180,7 @@ def test_packed_text_only_loss_and_gradients_match_jax(setup):
 
     (want_loss, want_m), want_g = jax.value_and_grad(jloss, has_aux=True)(jp["llm"])
     want_g = _leaf_dict(jax.device_get(want_g))
-    tp = bridge.from_jax_numpy(p)
+    tp = bridge.from_jax_numpy(p, device="cpu")
     for _, leaf in bridge.named_leaves(tp["llm"]):
         leaf.requires_grad_(True)
     loss, m = tslime.loss_fn(tp, cfg, _t(batch))
@@ -218,7 +218,7 @@ def test_optimizer_matches_optax(schedule):
     tx, jlabels = joptim.make_optimizer(jp, jtc)
     opt_state = tx.init(jp)
     assert toptim.label_tree(p, tc) == jlabels
-    state, ttx = tstep.init_train_state(bridge.from_jax_numpy(p), tc)
+    state, ttx = tstep.init_train_state(bridge.from_jax_numpy(p, device="cpu"), tc)
     r = np.random.default_rng(1)
     for step in range(3):
         grads = jax.tree_util.tree_map(
@@ -250,7 +250,7 @@ def test_trainer_stages_match_jax_train_step(setup, jax_kernel_attention, tmp_pa
     JAX's ``make_train_step``: 2 steps each; the losses and every leaf after
     each stage (the frozen ones bitwise unchanged)."""
     cfg, p = setup
-    jparams, tparams = p, bridge.from_jax_numpy(p)
+    jparams, tparams = p, bridge.from_jax_numpy(p, device="cpu")
     for stage, expect in ((1, "projector/projection/"), (2, "projector/attn/")):
         scfg, tc = _stage(cfg, stage)
         batches = [_batch(10 * stage + i) for i in range(2)]
@@ -286,7 +286,7 @@ def test_trainer_stages_match_jax_train_step(setup, jax_kernel_attention, tmp_pa
 def test_trainer_refuses_what_is_not_ported(setup, tmp_path):
     cfg, p = setup
     scfg, tc = _stage(cfg, 1)
-    tp = bridge.from_jax_numpy(p)
+    tp = bridge.from_jax_numpy(p, device="cpu")
     with pytest.raises(NotImplementedError):
         Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)), lora={"rank": 4})
     (tmp_path / "state-3").mkdir()

@@ -69,7 +69,7 @@ def test_vit_apply(params, jax_kernel_attention):
     px = np.random.default_rng(1).standard_normal((2, 3, 336, 336)).astype(np.float32)
     want = jvit.apply(jax.tree_util.tree_map(jnp.asarray, params["vision"]),
                       jnp.asarray(px), cfg.vision)
-    got = tvit.apply(bridge.from_jax_numpy(params["vision"]), torch.from_numpy(px),
+    got = tvit.apply(bridge.from_jax_numpy(params["vision"], device="cpu"), torch.from_numpy(px),
                      cfg.vision)
     assert got.shape == (2, 576, 256)
     _close(got, want, atol=1e-4)
@@ -81,7 +81,7 @@ def test_gated_projector(params, tokens, learnable):
     x = np.random.default_rng(2).standard_normal((2, tokens, 256)).astype(np.float32)
     want = jproj.apply(jax.tree_util.tree_map(jnp.asarray, params["projector"]),
                        jnp.asarray(x), cfg=cfg)
-    got = tproj.apply(bridge.from_jax_numpy(params["projector"]),
+    got = tproj.apply(bridge.from_jax_numpy(params["projector"], device="cpu"),
                       torch.from_numpy(x), cfg=cfg)
     _close(got, want)
 
@@ -91,7 +91,7 @@ def test_sampler_compress(params):
     x = np.random.default_rng(3).standard_normal((3, 576, 256)).astype(np.float32)
     want = jsamp.compress(jax.tree_util.tree_map(jnp.asarray, params["sampler"]),
                           jnp.asarray(x), cfg=cfg)
-    got = tsamp.compress(bridge.from_jax_numpy(params["sampler"]),
+    got = tsamp.compress(bridge.from_jax_numpy(params["sampler"], device="cpu"),
                          torch.from_numpy(x), cfg=cfg)
     _close(got, want)
 
@@ -120,6 +120,6 @@ def test_sampler_select(topp):
 def test_device_anyres():
     img = np.random.default_rng(5).integers(0, 255, (672, 500, 3), dtype=np.uint8)
     jc, jm = j_anyres((672, 500))(jnp.asarray(img))
-    tc, tm = t_anyres((672, 500))(torch.from_numpy(img))
+    tc, tm = t_anyres((672, 500), device="cpu")(torch.from_numpy(img))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     _close(tc, jc, atol=1e-4)
