@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query
-(int8, and the CLI's 4-bit configurations), and SliME-8B's staged pretraining.
+(int8, and the CLI's 4-bit configurations), SliME-8B's staged pretraining,
+and a context-parallel (ring attention) prefill of Llama-3-8B's full 8192
+positions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -13,9 +15,11 @@ Phase 0  requires CUDA, prints the card, the versions and the kernel build
          their own work.
 Phase 1  runs each hand-written kernel of the paths (encoder attention, the
          fused QKV / O-residual / MLP decode kernels in int8 and q4g, the
-         flash-attention forward and its dK/dV and dQ backward kernels, the
-         quantized matmul in its q4, int8 and q4g loaders, the W8A8 matmul)
-         against its plain PyTorch version on the card at the paths' shapes,
+         flash-attention forward and its dK/dV and dQ backward kernels in
+         bf16 and fp32, the quantized matmul in its q4, int8 and q4g
+         loaders, the W8A8 matmul, the ring-attention kernel K9 on 4 virtual
+         ranks at S = 8192) against its plain PyTorch version on the card at
+         the paths' shapes,
          asserts agreement, and times both (median of CUDA-event timings),
          and one PyTorch call computing the same function where there is one
          (scaled_dot_product_attention for the attention kernels). It prints
@@ -59,6 +63,16 @@ Phase 5b builds config B (``--load-4bit --int4-scheme absmax
          that the quantized matmul's q4 loader ran 7 x 32 times in each
          prefill and each decode step (the non-fused decode) and that the
          answers repeat.
+Phase 6  rebuilds phase 2's int8 LLM and prefills S = 8192 random token ids:
+         (a) ``llama.forward(ring=4)``, the collective ring on 4 virtual
+         ranks, and (b) the forward without a ring (K5, 32 launches), both
+         bf16; (c) K9 on layer 0's RoPE'd q/k/v of that prompt (exactly 4
+         launches); (a32) and (b32), the same two forwards in fp32 (the fp32
+         K5 in b32); (d) the default fp32 forward at S = 2048 through the
+         fp32 K5. It holds (a) to (b) and (a32) to (b32) (logits, argmax),
+         K9 to its plain version, the collective ring and K5's forward, and
+         (d) to the plain attention, and prints the host walls, K9's device
+         time and the peak memory.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
@@ -92,16 +106,36 @@ PROFILE_STEPS = 8
 # the q4g decode kernels up to 3.7e-4 (K1 at B = 64); the W8A8 matmul, which
 # rounds at the plain version's points after an exact integer dot, agreed
 # exactly (PERF.md).
+# The fp32 flash kernels (FFMA, nothing rounded) differ from their plain
+# versions only in the order of fp32 sums: floors of up to 1.1e-6 on an H100.
+# K9 (bf16 out; p split into two bf16 halves for P.V) against its plain
+# version (the TPU kernel's fp32 arithmetic through the same protocol): 9.3e-7
+# (PERF.md).
 RTOL = 2 ** -7
 ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_o_residual": 2e-3, "fused_mlp_decode": 5e-3,
         "fused_qkv_decode_q4g": 2e-3, "fused_o_residual_q4g": 2e-3,
         "fused_mlp_decode_q4g": 5e-3,
         "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3,
+        "flash_fwd_f32": 1e-5, "flash_bwd_dkdv_f32": 1e-5, "flash_bwd_dq_f32": 1e-5,
         "quant_matmul_q4": 2e-3, "quant_matmul_int8": 2e-3, "quant_matmul_q4g": 2e-3,
-        "w8a8_matmul": 1e-6}
-# H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s
-HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
+        "w8a8_matmul": 1e-6, "ring_attention_rdma": 1e-4}
+# H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
+# fp32 ops/s outside the tensor cores
+HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
+# phase 6: the context-parallel prefill's sequence (Llama-3-8B's
+# max_position_embeddings) and virtual ranks, and the fp32 forward's length
+CP_SEQ, CP_RANKS, F32_SEQ = 8192, 4, 2048
+# phase 6's comparisons, from readings on an H100 (PERF.md). The
+# last-position logits (std 0.74) of the bf16 ring forward (a) and the bf16
+# K5 forward (b) differed by up to 0.101, as much as any two bf16 attention
+# paths through the 32 random layers do (K5 against the plain attention:
+# 0.108; each 0.10 from the fp32 result), while this model's top two logits
+# lie 0.037 apart: the argmax is held on the same two forwards in fp32 (a32,
+# b32), which agreed to 4e-5. K9 on layer 0 against the collective ring and
+# K5's forward (which round p to bf16 where K9 keeps about 17 bits); the fp32
+# forward through the fp32 K5 against the plain fp32 attention.
+CP_LOGIT_ATOL, CP_F32_LOGIT_ATOL, CP_ATTN_ATOL, F32_LOGIT_ATOL = 0.25, 1e-3, 2e-2, 1e-3
 # the staged pretraining: (name, SliMEConfig and TrainConfig changes, batch
 # size, steps, the parameter prefixes that stage moves)
 TRAIN_STAGES = (
@@ -149,11 +183,21 @@ KERNELS = {
                          "slime_tpu/ops/quant_matmul.py:82"),
     "w8a8_matmul": ("slime_tpu_torch/csrc/w8a8_matmul.cu",
                     "slime_tpu/ops/w8a8_matmul.py:64"),
+    "flash_fwd_f32": ("slime_tpu_torch/csrc/flash_attention.cu",
+                      "slime_tpu/ops/flash_attention.py:133"),
+    "flash_bwd_dkdv_f32": ("slime_tpu_torch/csrc/flash_attention.cu",
+                           "slime_tpu/ops/flash_attention.py:347"),
+    "flash_bwd_dq_f32": ("slime_tpu_torch/csrc/flash_attention.cu",
+                         "slime_tpu/ops/flash_attention.py:389"),
+    "ring_attention_rdma": ("slime_tpu_torch/csrc/ring_attention.cu",
+                            "slime_tpu/ops/ring_attention_rdma.py:148"),
 }
 # K6's int8 loader has no caller on any path: the JAX package routes only q4
-# and q4g weights to its quantized matmuls (layers.py:52-59). Phase 1 checks
-# it; its launch count stays 0.
-OFF_PATH = ("quant_matmul_int8",)
+# and q4g weights to its quantized matmuls (layers.py:52-59). No path of the
+# port trains in fp32 on the card (phase 4 trains the bf16 model), so the
+# fp32 K5b and K5c have none either. Phase 1 checks them; their launch counts
+# stay 0.
+OFF_PATH = ("quant_matmul_int8", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32")
 
 
 def _counters():
@@ -163,6 +207,7 @@ def _counters():
     from slime_tpu_torch.ops import flash_attention as fa
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.ops import quant_matmul as qm
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
     from slime_tpu_torch.ops import w8a8_matmul as w8
     fused = {"fused_qkv_decode": fused_qkvo.fused_qkv_decode,
              "fused_o_residual": fused_qkvo.fused_o_residual,
@@ -171,6 +216,10 @@ def _counters():
            "flash_fwd": (fa.flash_attention, "fwd_launches"),
            "flash_bwd_dkdv": (fa.flash_attention, "dkdv_launches"),
            "flash_bwd_dq": (fa.flash_attention, "dq_launches"),
+           "flash_fwd_f32": (fa.flash_attention, "fwd_f32_launches"),
+           "flash_bwd_dkdv_f32": (fa.flash_attention, "dkdv_f32_launches"),
+           "flash_bwd_dq_f32": (fa.flash_attention, "dq_f32_launches"),
+           "ring_attention_rdma": (rd.ring_attention_rdma, "launches"),
            "quant_matmul_q4": (qm.quant_matmul, "q4_launches"),
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
            "quant_matmul_q4g": (qm.quant_matmul_q4g, "launches"),
@@ -182,10 +231,13 @@ def _counters():
 
 def launch_counts():
     """Every kernel wrapper's launch count, by record name (the decode
-    kernels' dense/int8 launches and their q4g loader's counted apart)."""
+    kernels' dense/int8 launches and their q4g loader's counted apart, and
+    the flash kernels' bf16 and fp32 launches)."""
     counts = {n: getattr(fn, attr) for n, (fn, attr) in _counters().items()}
     for n in ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode"):
         counts[n] -= counts[n + "_q4g"]        # .launches counts every format
+    for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        counts[n] -= counts[n + "_f32"]        # and every dtype
     return counts
 
 
@@ -526,6 +578,75 @@ def flash_kernels(dev, g, flush, record):
             del lib
         del q, k, v, do, ro, rl, delta, want_dq, want_dk, want_dv, got, want
     torch.cuda.empty_cache()
+    flash_kernels_f32(dev, g, flush, record)
+
+
+def flash_kernels_f32(dev, g, flush, record):
+    """Phase 1 for the fp32 K5, K5b and K5c (FFMA kernels) at the serving
+    prefill's shape in fp32, q [1, 32, 2048, 128], kv [1, 8, 2048, 128],
+    causal, in llama's [B, S, H, D] storage, against the plain versions;
+    timed beside torch's fp32 scaled_dot_product_attention (forward; its
+    backward for K5b and K5c alike), with the bound at the 67 TFLOP/s fp32
+    rate."""
+    from slime_tpu_torch.ops import flash_attention as fa
+
+    B, S = 1, 2048
+    q, k, v, do = (torch.randn((B, S, heads, 128), device=dev, generator=g).transpose(1, 2)
+                   for heads in (32, 8, 8, 32))
+    ro, rl = fa.flash_fwd_ref(q, k, v)
+    delta = (do * ro).sum(-1)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = sdpa(ql, kl, vl, is_causal=True)
+    backward = lambda: torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)  # noqa: E731
+    prod = 2 * B * 32 * S * S * 128 // 2
+    cases = {
+        "flash_fwd_f32": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_ref(q, k, v),
+                          nbytes(q, k, v, ro, rl), 2 * prod,
+                          lambda: sdpa(q, k, v, is_causal=True)),
+        "flash_bwd_dkdv_f32": (lambda: fa.flash_bwd_dkdv(q, k, v, do, rl, delta),
+                               lambda: fa.flash_bwd_dkdv_ref(q, k, v, do, rl, delta),
+                               nbytes(q, k, v, do, rl, delta, k, v), 4 * prod, backward),
+        "flash_bwd_dq_f32": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta),
+                             lambda: fa.flash_bwd_dq_ref(q, k, v, do, rl, delta),
+                             nbytes(q, k, v, do, rl, delta, q), 3 * prod, backward),
+    }
+    for name, (kern, ref, moved, ops, lib) in cases.items():
+        check_and_time(record, name, "[1,32|8,2048,128] fp32 causal", kern, ref, moved, ops,
+                       F32_OPS, flush, True, library=lib)
+    del q, k, v, do, ro, rl, delta, ql, kl, vl, lo, cases
+    torch.cuda.empty_cache()
+
+
+def ring_kernel(dev, g, flush, record):
+    """Phase 1 for K9 at the context-parallel prefill's shape: q [1, 32,
+    8192, 128], kv [1, 8, 8192, 128] bf16 in llama's storage, causal, on 4
+    virtual ranks (S/n = 2048), against its plain version; the library time
+    is torch's causal scaled_dot_product_attention on the same global q/k/v
+    with kv repeated to 32 heads. Bound: 4 B H D S (S + 1) / 2 operations
+    (the causal pairs) at the bf16 rate, or q, k, v in and out out."""
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+
+    def bhsd(heads):
+        return torch.randn((1, CP_SEQ, heads, 128), device=dev, generator=g).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = bhsd(32), bhsd(8), bhsd(8)
+    kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
+    before = rd.ring_attention_rdma.launches
+    rd.ring_attention_rdma(q, k, v, ring=CP_RANKS)
+    per_call = rd.ring_attention_rdma.launches - before
+    if per_call != CP_RANKS:
+        raise AssertionError(f"K9 launched {per_call} times in one call on {CP_RANKS} ranks")
+    ops = 4 * 32 * 128 * CP_SEQ * (CP_SEQ + 1) // 2
+    check_and_time(record, "ring_attention_rdma",
+                   f"q [1,32,{CP_SEQ},128], kv [1,8,{CP_SEQ},128] bf16 causal, "
+                   f"{CP_RANKS} virtual ranks ({per_call} launches per call)",
+                   lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS),
+                   lambda: rd.ring_attention_rdma_ref(q, k, v, ring=CP_RANKS),
+                   nbytes(q, k, v, q), ops, BF16_OPS, flush, True,
+                   library=lambda: sdpa(q, kr, vr, is_causal=True))
+    del q, k, v, kr, vr
+    torch.cuda.empty_cache()
 
 
 def q4g_llm_layers(cfg, generator, device):
@@ -664,6 +785,7 @@ def kernel_phase(dev, cfg):
         decode_kernels(dev, cfg, g, flush, record)
         flash_kernels(dev, g, flush, record)
         quant_kernels(dev, g, flush, record)
+        ring_kernel(dev, g, flush, record)
     del flush
     torch.cuda.empty_cache()
     return record
@@ -1113,6 +1235,154 @@ def train_phase(dev, cfg, fa):
     return launches
 
 
+def context_parallel_phase(dev, cfg):
+    """Phase 6: context-parallel prefill at full width on phase 2's int8
+    SliME-8B LLM (B = 1, S = CP_SEQ random token ids from the seed, logits
+    at the last position) with the counts set to 0 just before and read just
+    after: (a) ``llama.forward(ring=4)`` in bf16, the collective ring on 4
+    virtual ranks; (b) ``llama.forward`` without a ring in bf16, K5 in each
+    layer; (c) K9 on layer 0's RoPE'd q/k/v of that prompt (``embed`` ->
+    ``rms_norm`` -> ``linear`` -> ``apply_rope``); (a32) and (b32), (a) and
+    (b) with the default fp32 compute dtype (the fp32 K5 in each layer of
+    b32); (d) ``llama.forward`` with its default fp32 compute dtype at S =
+    F32_SEQ. Then the checks: (a) against (b) (logits; each one's top token
+    within the tolerance of the other's top logit), (a32) against (b32)
+    (logits and the same argmax), the bf16 noise (the bf16 forward with the
+    plain attention beside (a), (b) and (b32)), K9 against its plain
+    version, the collective ring and K5's forward, (d) against the same call
+    with the plain attention; and the times. Returns the launch counts."""
+    from slime_tpu_torch.models import layers as L
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.ops import flash_attention as fa
+    from slime_tpu_torch.ops import ring_attention as ra
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+
+    bf, lcfg = torch.bfloat16, cfg.llm
+    NH, NKV, HD = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
+    params = int8_llm_params(lcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        5, lcfg.vocab_size, (1, CP_SEQ))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def layer0_qkv(emb):
+        lp = llama._layer(params["layers"], 0)
+        h = L.rms_norm(lp["input_layernorm"], emb, eps=lcfg.rms_norm_eps)
+        cos, sin = llama.rope_table(lcfg, lcfg.max_position_embeddings, dev)
+        q = llama.apply_rope(L.linear(lp["q_proj"], h).reshape(1, CP_SEQ, NH, HD),
+                             cos[:CP_SEQ], sin[:CP_SEQ])
+        k = llama.apply_rope(L.linear(lp["k_proj"], h).reshape(1, CP_SEQ, NKV, HD),
+                             cos[:CP_SEQ], sin[:CP_SEQ])
+        v = L.linear(lp["v_proj"], h).reshape(1, CP_SEQ, NKV, HD)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def top_within(x, y):
+        """y's logit at x's top token lies within CP_LOGIT_ATOL of y's top."""
+        return float(y[0, 0, int(x.argmax())]) >= float(y.max()) - CP_LOGIT_ATOL
+
+    with fp32_accumulation():
+        emb = llama.embed(params, ids).to(bf)
+        last = torch.tensor([CP_SEQ - 1], device=dev)
+        fwd = lambda **kw: llama.forward(params, emb, lcfg, logit_positions=last,  # noqa: E731
+                                         **kw)[0]
+        fwd(ring=CP_RANKS, compute_dtype=bf)           # warm-up (allocator, cuBLAS)
+        fwd(compute_dtype=bf)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ring_logits = timed("(a) forward bf16, ring=4",
+                            lambda: fwd(ring=CP_RANKS, compute_dtype=bf))
+        after_ring = launch_counts()
+        flash_logits = timed("(b) forward bf16, K5", lambda: fwd(compute_dtype=bf))
+        q, k, v = layer0_qkv(emb)
+        k9 = timed("(c) K9 on layer 0", lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS))
+        ring32 = timed("(a32) forward fp32, ring=4", lambda: fwd(ring=CP_RANKS))
+        flash32 = timed("(b32) forward fp32, K5 fp32", fwd)
+        f32_last = torch.tensor([F32_SEQ - 1], device=dev)
+        f32_logits = timed("(d) forward fp32 at S = 2048, K5 fp32", lambda: llama.forward(
+            params, emb[:, :F32_SEQ], lcfg, logit_positions=f32_last)[0])
+        launches = launch_counts()
+        log(f"phase 6 launches on the path: {json.dumps(launches)}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # the checks (their kernel launches come after the counts were read)
+        L_ = lcfg.num_layers
+        want = {"ring_attention_rdma": CP_RANKS, "flash_fwd": L_, "flash_fwd_f32": 2 * L_}
+        wrong = {n: c for n, c in launches.items() if c != want.get(n, 0)}
+        if wrong or any(after_ring.values()):
+            raise AssertionError(f"phase 6 launches {wrong} (expected {want}; the ring forward "
+                                 f"alone launched {after_ring})")
+        V = lcfg.vocab_size
+        outs = {"(a)": ring_logits, "(b)": flash_logits, "(a32)": ring32, "(b32)": flash32,
+                "(d)": f32_logits}
+        for name, lg in outs.items():
+            if lg.shape != (1, 1, V) or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"phase 6 {name}: logits not finite [1, 1, {V}]")
+        for (x, y, atol) in (("(a)", "(b)", CP_LOGIT_ATOL), ("(a32)", "(b32)", CP_F32_LOGIT_ATOL)):
+            err = (outs[x] - outs[y]).abs().max().item()
+            top2 = torch.topk(outs[y][0, 0], 2).values.tolist()
+            log(f"phase 6 {x} vs {y}: last-position logits max abs diff {err:.4g} (set "
+                f"{atol:g}; logit std {outs[y].std().item():.4g}); argmax "
+                f"{int(outs[x].argmax())} vs {int(outs[y].argmax())} ({y}'s top two "
+                f"{top2[0]:.4f}, {top2[1]:.4f})")
+            if err > atol:
+                raise AssertionError(f"phase 6: {x} and {y} disagree")
+        if not (top_within(ring_logits, flash_logits) and top_within(flash_logits, ring_logits)):
+            raise AssertionError("phase 6: (a)'s and (b)'s top tokens differ by more than the "
+                                 "tolerance")
+        if int(ring32.argmax()) != int(flash32.argmax()):
+            raise AssertionError("phase 6: (a32) and (b32) pick different tokens")
+        # the bf16 rounding noise of this model: a third bf16 attention path
+        # (the plain one) and each bf16 forward against the fp32 result
+        outs["(b-plain)"] = fwd(compute_dtype=bf, use_kernel=False)
+        noise = {f"{x} vs {y}": (outs[x] - outs[y]).abs().max().item() for x, y in (
+            ("(b-plain)", "(b)"), ("(b-plain)", "(a)"), ("(a)", "(b32)"), ("(b)", "(b32)"),
+            ("(b-plain)", "(b32)"))}
+        log("phase 6 bf16 noise, last-position logits max abs diff: " + "; ".join(
+            f"{k} {e:.4g}" for k, e in noise.items()) + f"; (b-plain) argmax "
+            f"{int(outs['(b-plain)'].argmax())}")
+
+        ref = rd.ring_attention_rdma_ref(q, k, v, ring=CP_RANKS)
+        err_ref, need = compare("ring_attention_rdma", k9, ref)
+        del ref
+        others = {"the collective ring": ra.ring_attention(q, k, v, ring=CP_RANKS),
+                  "K5's forward": fa.flash_fwd(q, k, v)[0]}
+        msg = f"phase 6 (c) K9 on layer 0: vs its plain version max abs err {err_ref:.3g} " \
+              f"(floor needed {need:.3g}, set {ATOL['ring_attention_rdma']:g})"
+        for name, other in others.items():
+            e = (k9.float() - other.float()).abs().max().item()
+            msg += f"; vs {name} {e:.3g}"
+            torch.testing.assert_close(k9.float(), other.float(), rtol=RTOL, atol=CP_ATTN_ATOL,
+                                       msg=lambda m: f"phase 6 K9 vs {name}: {m}")
+        log(msg + f" (set {CP_ATTN_ATOL:g})")
+        del others
+        k9_ms = cuda_ms(lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS), runs=10)
+
+        plain = llama.forward(params, emb[:, :F32_SEQ], lcfg, logit_positions=f32_last,
+                              use_kernel=False)[0]
+        err = (f32_logits - plain).abs().max().item()
+        log(f"phase 6 (d) fp32 forward, K5 fp32 vs plain attention: logits max abs diff "
+            f"{err:.4g} (set {F32_LOGIT_ATOL:g}); argmax {int(f32_logits.argmax())} vs "
+            f"{int(plain.argmax())}")
+        if err > F32_LOGIT_ATOL or int(f32_logits.argmax()) != int(plain.argmax()):
+            raise AssertionError("phase 6: the fp32 kernel forward and the plain one disagree")
+    for name, ms in walls.items():
+        log(f"phase 6 host wall {name}: {ms:.1f} ms")
+    log(f"phase 6 K9 device time (4 launches and the kv copies, CUDA events, median of 10): "
+        f"{k9_ms:.3f} ms; peak memory of (a)-(d) {peak:.2f} GiB")
+    del params, emb, q, k, v, k9
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     # ---------------- phase 0 ----------------
     if not torch.cuda.is_available():
@@ -1145,6 +1415,9 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in quantized_serve_phases(dev, cfg).items():     # phases 5, 5b
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in context_parallel_phase(dev, cfg).items():     # phase 6
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

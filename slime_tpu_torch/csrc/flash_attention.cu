@@ -20,6 +20,9 @@
 //   - backward: p = ok ? exp(s - lse) : 0; dp = do . v; ds = p (dp - delta)
 //     scale; dv += bf16(p)^T do, dk += bf16(ds)^T q, dq += bf16(ds) k, all
 //     accumulated in fp32 and rounded once to bf16 at the end.
+// Every kernel also takes fp32 q/k/v/do (its *_f32 twin at the end of this
+// file, on the FFMA units): then p and ds are never rounded, and the outputs
+// are fp32. D is 128 in both.
 // Rows and keys past S are bound-checked on load (zero-filled), which is what
 // JAX's _zero_tail does for the TPU's ragged block padding.
 //
@@ -46,120 +49,32 @@
 //   - q/k/v/do are read through (batch, head, sequence) element strides, so
 //     llama's [B, S, H, D] projections need no transpose copy; outputs are
 //     written through strides too. lse and delta are [B, H, S] fp32.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "attention_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kBlock = 64;       // rows a block owns: queries (fwd, dq) or keys (dkdv)
-constexpr int kTile = 64;        // columns a loop step visits: keys or queries
-constexpr int kThreads = 128;    // 4 warps x 16 rows
-constexpr int kPad = 8;          // bf16 elements of padding per staged row
-constexpr float kNegInf = -1e30f;
-
 struct Mat { long long b, h, s; };       // element strides; unit stride over D
 
+// T is bf16 (the mma.sync kernels) or float (the FFMA kernels)
+template <typename T>
 struct Args {
-  const bf16* q; const bf16* k; const bf16* v; const bf16* dout;
-  bf16* out; bf16* dq; bf16* dk; bf16* dv;
+  const T* q; const T* k; const T* v; const T* dout;
+  T* out; T* dq; T* dk; T* dv;
   float* lse; const float* delta; const int* seg;
   Mat sq, sk, sv, sdo, so, sdq, sdk, sdv;
   int H, KVH, S, causal;
   float scale;
 };
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 sum
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of the 16 x 16 slab at `base` (row-major, row stride ld).
-// Lane (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t+1
-// and 2t+8, 2t+9.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld,
-                                       int g, int t) {
-  a[0] = ld_pair(base + g * ld + 2 * t);
-  a[1] = ld_pair(base + (g + 8) * ld + 2 * t);
-  a[2] = ld_pair(base + g * ld + 2 * t + 8);
-  a[3] = ld_pair(base + (g + 8) * ld + 2 * t + 8);
-}
-
-// B fragment (16 deep x 8 wide) from its transpose stored row-major at
-// `base`: 8 rows (the B columns) of 16 contiguous elements (the depth).
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* base,
-                                       int ld, int g, int t) {
-  b0 = ld_pair(base + g * ld + 2 * t);
-  b1 = ld_pair(base + g * ld + 2 * t + 8);
-}
-
-// The A operand of a product from two adjacent 16 x 8 fp32 accumulators
-// (columns 0-7 and 8-15 of a 16 x 16 slab), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Stage rows [r0, r0 + 64) of one head's [S, D] matrix (row stride rs) in
-// shared memory: row-major into `rows` ([64][D + kPad]) and/or transposed
-// into `cols` ([D][64 + kPad]); either may be null. Rows at or past S are 0.
-// With a transposed copy, neighbouring threads take neighbouring rows, so the
-// 2-byte transposed stores of a warp fall in distinct banks; otherwise they
-// take neighbouring 16-byte pieces of a row, so the global loads coalesce.
-template <int D>
-__device__ __forceinline__ void stage(const bf16* src, long long rs, int r0, int S,
-                                      bf16* rows, bf16* cols) {
-  constexpr int kVec = D / 8;
-  for (int e = threadIdx.x; e < kTile * kVec; e += kThreads) {
-    int r, c;
-    if (cols) { r = e % kTile; c = (e / kTile) * 8; }
-    else      { r = e / kVec;  c = (e % kVec) * 8; }
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + c);
-    if (rows) *reinterpret_cast<uint4*>(rows + r * (D + kPad) + c) = val;
-    if (cols) {
-      const bf16* x = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[(c + j) * (kTile + kPad) + r] = x[j];
-    }
-  }
-}
-
 __device__ __forceinline__ void stage_ids(int* dst, const int* seg, int r0, int S) {
   if (seg != nullptr && threadIdx.x < kTile)
     dst[threadIdx.x] = r0 + (int)threadIdx.x < S ? seg[r0 + threadIdx.x] : 0;
 }
 
-__device__ __forceinline__ bool attends(const Args& a, int query, int key, int seg_q,
+template <typename A>
+__device__ __forceinline__ bool attends(const A& a, int query, int key, int seg_q,
                                         int seg_k) {
   bool ok = query < a.S && key < a.S;
   if (a.causal) ok = ok && key <= query;
@@ -171,7 +86,7 @@ __device__ __forceinline__ bool attends(const Args& a, int query, int key, int s
 // K5: forward
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<bf16> a) {
   constexpr int LD = D + kPad, LDT = kTile + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);         // [kBlock][LD]
@@ -309,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 // K5c: dQ
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args<bf16> a) {
   constexpr int LD = D + kPad, LDT = kTile + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);         // [kBlock][LD]
@@ -426,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
 // K5b: dK, dV (the GQA group summed inside the block)
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args<bf16> a) {
   constexpr int LD = D + kPad, LDT = kTile + kPad;
   constexpr int kHalf = kTile / 2;                  // queries per inner product step
   extern __shared__ __align__(16) unsigned char smem[];
@@ -558,30 +473,428 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) 
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, void* stream) {
+// ---------------------------------------------------------------------------
+// fp32 inputs: K5, K5c and K5b on the FFMA units
+// ---------------------------------------------------------------------------
+// The loops of the bf16 kernels above with every product a plain fp32 FMA (no
+// TF32, p and ds never rounded): what JAX's interpret-mode kernels compute
+// for fp32 inputs, and what llama.forward's default fp32 compute dtype sends
+// here. 256 threads; thread (ty = tid / 16, tx = tid % 16) owns rows 4 ty ..
+// 4 ty + 3 of the block, columns tx + 16 c (c < 4) of a 64-wide tile and
+// output columns tx + 16 n (n < D / 16). The 16 threads of a row group are
+// one half-warp, so row reductions are shuffles within it. Staged rows are
+// padded to D + 1 floats: the 16 threads reading 16 rows at one depth hit 16
+// distinct banks. Shared memory holds the operands, so these kernels are
+// bound by its bandwidth (two loads per two FMAs in the score loop), not by
+// the 67 TFLOP/s fp32 peak; a register-blocked design is for a later version.
+constexpr int kF32Threads = 256;
+constexpr int kRows = 4;               // block rows per thread
+constexpr int kCols = kTile / 16;      // tile columns per thread
+constexpr int kLdp = kTile + 1;        // row stride of the [64][64] p / ds tiles
+
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Rows [r0, r0 + 64) of one head's [S, D] fp32 matrix (row stride rs) into
+// dst [64][D + 1]; rows at or past S are 0.
+template <int D>
+__device__ __forceinline__ void stage_f32(const float* src, long long rs, int r0, int S,
+                                          float* dst) {
+  for (int e = threadIdx.x; e < kTile * D; e += kF32Threads) {
+    const int r = e / D, c = e % D;
+    dst[r * (D + 1) + c] = r0 + r < S ? src[(long long)(r0 + r) * rs + c] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Args<float> a) {
+  constexpr int LD = D + 1, NO = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);              // [kBlock][LD]
+  float* Ks = Qs + kBlock * LD;                            // [kTile][LD]
+  float* Vs = Ks + kTile * LD;                             // [kTile][LD]
+  float* Ps = Vs + kTile * LD;                             // [kBlock][kLdp]
+  int* segk = reinterpret_cast<int*>(Ps + kBlock * kLdp);  // [kTile]
+
+  const int S = a.S;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;   // diagonal-heavy first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.H / a.KVH);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* kp = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vp = a.v + b * a.sv.b + hk * a.sv.h;
+  const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
+
+  stage_f32<D>(a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, S, Qs);
+  int row[kRows], segr[kRows];
+  float o[kRows][NO], m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    row[i] = q0 + ty * kRows + i;
+    segr[i] = segb != nullptr && row[i] < S ? segb[row[i]] : 0;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[i][n] = 0.f;
+  }
+
+  const int kend = a.causal ? min(S, q0 + kBlock) : S;
+  const int ntiles = (kend + kTile - 1) / kTile;
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    __syncthreads();                              // the previous tile is consumed
+    stage_f32<D>(kp, a.sk.s, k0, S, Ks);
+    stage_f32<D>(vp, a.sv.s, k0, S, Vs);
+    stage_ids(segk, segb, k0, S);
+    __syncthreads();
+
+    float s[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[kRows], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty * kRows + i) * LD + d];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = tx + 16 * c;
+        const float x = attends(a, row[i], k0 + col, segr[i], segk[col]) ? s[i][c] * a.scale
+                                                                         : kNegInf;
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float mn = fmaxf(m[i], max16(mx));
+      const float al = expf(m[i] - mn);
+      float ls = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float p = expf(s[i][c] - mn);
+        Ps[(ty * kRows + i) * kLdp + tx + 16 * c] = p;
+        ls += p;
+      }
+      // per-thread partial row sums; the half-warp adds them up at the end
+      l[i] = l[i] * al + ls;
+      m[i] = mn;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) o[i][n] *= al;
+    }
+    __syncwarp();                                 // a row's p is written by its half-warp
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pv[kRows], vv[NO];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty * kRows + i) * kLdp + kk];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) vv[n] = Vs[kk * LD + tx + 16 * n];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int n = 0; n < NO; ++n) o[i][n] = fmaf(pv[i], vv[n], o[i][n]);
+    }
+  }
+
+  float* op = a.out + b * a.so.b + h * a.so.h;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const float lt = sum16(l[i]);
+    const float dn = lt == 0.f ? 1.f : lt;
+    if (row[i] >= S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) op[row[i] * a.so.s + tx + 16 * n] = o[i][n] / dn;
+    if (tx == 0) a.lse[((long long)b * a.H + h) * S + row[i]] = m[i] + logf(dn);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Args<float> a) {
+  constexpr int LD = D + 1, NO = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);              // [kBlock][LD]
+  float* dOs = Qs + kBlock * LD;                           // [kBlock][LD]
+  float* Ks = dOs + kBlock * LD;                           // [kTile][LD]
+  float* Vs = Ks + kTile * LD;                             // [kTile][LD]
+  float* DSs = Vs + kTile * LD;                            // [kBlock][kLdp]
+  int* segk = reinterpret_cast<int*>(DSs + kBlock * kLdp); // [kTile]
+
+  const int S = a.S;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.H / a.KVH);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* kp = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vp = a.v + b * a.sv.b + hk * a.sv.h;
+  const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
+  const long long bh = ((long long)b * a.H + h) * S;
+
+  stage_f32<D>(a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, S, Qs);
+  stage_f32<D>(a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, S, dOs);
+  int row[kRows], segr[kRows];
+  float lse[kRows], dl[kRows], dq[kRows][NO];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    row[i] = q0 + ty * kRows + i;
+    const bool in = row[i] < S;
+    segr[i] = segb != nullptr && in ? segb[row[i]] : 0;
+    lse[i] = in ? a.lse[bh + row[i]] : 0.f;
+    dl[i] = in ? a.delta[bh + row[i]] : 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) dq[i][n] = 0.f;
+  }
+
+  const int kend = a.causal ? min(S, q0 + kBlock) : S;
+  const int ntiles = (kend + kTile - 1) / kTile;
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    __syncthreads();
+    stage_f32<D>(kp, a.sk.s, k0, S, Ks);
+    stage_f32<D>(vp, a.sv.s, k0, S, Vs);
+    stage_ids(segk, segb, k0, S);
+    __syncthreads();
+
+    float s[kRows][kCols], dp[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[kRows], dov[kRows], kv[kCols], vv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        qv[i] = Qs[(ty * kRows + i) * LD + d];
+        dov[i] = dOs[(ty * kRows + i) * LD + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        kv[c] = Ks[(tx + 16 * c) * LD + d];
+        vv[c] = Vs[(tx + 16 * c) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+          dp[i][c] = fmaf(dov[i], vv[c], dp[i][c]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = tx + 16 * c;
+        const float p = attends(a, row[i], k0 + col, segr[i], segk[col])
+                            ? expf(s[i][c] * a.scale - lse[i]) : 0.f;
+        DSs[(ty * kRows + i) * kLdp + col] = p * (dp[i][c] - dl[i]) * a.scale;
+      }
+    __syncwarp();
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float dsv[kRows], kv[NO];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) dsv[i] = DSs[(ty * kRows + i) * kLdp + kk];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) kv[n] = Ks[kk * LD + tx + 16 * n];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int n = 0; n < NO; ++n) dq[i][n] = fmaf(dsv[i], kv[n], dq[i][n]);
+    }
+  }
+
+  float* dqp = a.dq + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (row[i] >= S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) dqp[row[i] * a.sdq.s + tx + 16 * n] = dq[i][n];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const Args<float> a) {
+  constexpr int LD = D + 1, NO = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);              // [kBlock][LD]
+  float* Vs = Ks + kBlock * LD;                            // [kBlock][LD]
+  float* Qs = Vs + kBlock * LD;                            // [kTile][LD]
+  float* dOs = Qs + kTile * LD;                            // [kTile][LD]
+  float* PT = dOs + kTile * LD;                             // [kBlock][kLdp]: p^T
+  float* DST = PT + kBlock * kLdp;                         // [kBlock][kLdp]: ds^T
+  float* lse_s = DST + kBlock * kLdp;                      // [kTile]
+  float* dl_s = lse_s + kTile;                             // [kTile]
+  int* segq = reinterpret_cast<int*>(dl_s + kTile);        // [kTile]
+
+  const int S = a.S;
+  const int k0 = blockIdx.x * kBlock;                      // causal: low keys are heavy
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = a.H / a.KVH;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
+  stage_f32<D>(a.k + b * a.sk.b + hk * a.sk.h, a.sk.s, k0, S, Ks);
+  stage_f32<D>(a.v + b * a.sv.b + hk * a.sv.h, a.sv.s, k0, S, Vs);
+  int key[kRows], segr[kRows];
+  float dk[kRows][NO], dv[kRows][NO];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    key[i] = k0 + ty * kRows + i;
+    segr[i] = segb != nullptr && key[i] < S ? segb[key[i]] : 0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) dk[i][n] = dv[i][n] = 0.f;
+  }
+
+  const int nq = (S + kTile - 1) / kTile;
+  const int first = a.causal ? k0 / kTile : 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const float* qp = a.q + b * a.sq.b + h * a.sq.h;
+    const float* dop = a.dout + b * a.sdo.b + h * a.sdo.h;
+    const long long bh = ((long long)b * a.H + h) * S;
+    for (int qi = first; qi < nq; ++qi) {
+      const int q0 = qi * kTile;
+      __syncthreads();
+      stage_f32<D>(qp, a.sq.s, q0, S, Qs);
+      stage_f32<D>(dop, a.sdo.s, q0, S, dOs);
+      if (threadIdx.x < kTile) {
+        const int r = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = r < S ? a.lse[bh + r] : 0.f;
+        dl_s[threadIdx.x] = r < S ? a.delta[bh + r] : 0.f;
+      }
+      stage_ids(segq, segb, q0, S);
+      __syncthreads();
+
+      float st[kRows][kCols], dpt[kRows][kCols];   // S^T and dP^T: keys x queries
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) st[i][c] = dpt[i][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[kRows], vv[kRows], qv[kCols], dov[kCols];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          kv[i] = Ks[(ty * kRows + i) * LD + d];
+          vv[i] = Vs[(ty * kRows + i) * LD + d];
+        }
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          qv[c] = Qs[(tx + 16 * c) * LD + d];
+          dov[c] = dOs[(tx + 16 * c) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
+            dpt[i][c] = fmaf(vv[i], dov[c], dpt[i][c]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int col = tx + 16 * c;              // query within the tile
+          const float p = attends(a, q0 + col, key[i], segq[col], segr[i])
+                              ? expf(st[i][c] * a.scale - lse_s[col]) : 0.f;
+          PT[(ty * kRows + i) * kLdp + col] = p;
+          DST[(ty * kRows + i) * kLdp + col] = p * (dpt[i][c] - dl_s[col]) * a.scale;
+        }
+      __syncwarp();
+#pragma unroll 2
+      for (int qq = 0; qq < kTile; ++qq) {
+        float pv[kRows], dsv[kRows], dov[NO], qv[NO];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          pv[i] = PT[(ty * kRows + i) * kLdp + qq];
+          dsv[i] = DST[(ty * kRows + i) * kLdp + qq];
+        }
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          dov[n] = dOs[qq * LD + tx + 16 * n];
+          qv[n] = Qs[qq * LD + tx + 16 * n];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            dv[i][n] = fmaf(pv[i], dov[n], dv[i][n]);
+            dk[i][n] = fmaf(dsv[i], qv[n], dk[i][n]);
+          }
+      }
+    }
+  }
+
+  float* dkp = a.dk + b * a.sdk.b + hk * a.sdk.h;
+  float* dvp = a.dv + b * a.sdv.b + hk * a.sdv.h;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (key[i] >= S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      dkp[key[i] * a.sdk.s + tx + 16 * n] = dk[i][n];
+      dvp[key[i] * a.sdv.s + tx + 16 * n] = dv[i][n];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+template <typename Kernel, typename A>
+int launch(Kernel kernel, int threads, size_t smem, dim3 grid, const A& a, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// bytes of the bf16 kernels' staged tiles: row-major [64][D + kPad] and
+// transposed [D][64 + kPad]
 template <int D>
 size_t tile_bytes(int row_tiles, int col_tiles) {
   return (size_t)(row_tiles * kTile * (D + kPad) + col_tiles * D * (kTile + kPad)) *
          sizeof(bf16);
 }
 
+// bytes of the fp32 kernels' staged [64][D + 1] tiles and [64][65] p / ds tiles
+template <int D>
+size_t f32_bytes(int row_tiles, int p_tiles) {
+  return (size_t)(row_tiles * kTile * (D + 1) + p_tiles * kBlock * kLdp) * sizeof(float);
+}
+
 Mat mat(const long long* s, int i) { return Mat{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
-Args base_args(const void* q, const void* k, const void* v, int H, int KVH, int S,
-               int causal, float scale, const void* seg) {
-  Args a = {};
-  a.q = (const bf16*)q;
-  a.k = (const bf16*)k;
-  a.v = (const bf16*)v;
+template <typename T>
+Args<T> base_args(const void* q, const void* k, const void* v, const long long* strides,
+                  int H, int KVH, int S, int causal, float scale, const void* seg) {
+  Args<T> a = {};
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
   a.seg = (const int*)seg;
+  a.sq = mat(strides, 0); a.sk = mat(strides, 1); a.sv = mat(strides, 2);
   a.H = H;
   a.KVH = KVH;
   a.S = S;
@@ -590,71 +903,111 @@ Args base_args(const void* q, const void* k, const void* v, int H, int KVH, int 
   return a;
 }
 
-bool bad_shape(int B, int H, int KVH, int S) {
-  return B < 1 || B > 65535 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535;
+bool bad_shape(int B, int H, int KVH, int S, int D) {
+  return B < 1 || B > 65535 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535 || D != 128;
+}
+
+template <typename T>
+int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+            const void* seg, const long long* strides, int B, int H, int KVH, int S,
+            int causal, float scale, void* stream) {
+  Args<T> a = base_args<T>(q, k, v, strides, H, KVH, S, causal, scale, seg);
+  a.out = (T*)out;
+  a.lse = (float*)lse;
+  a.so = mat(strides, 3);
+  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
+  if constexpr (std::is_same<T, float>::value)
+    return launch(flash_fwd_f32_kernel<128>, kF32Threads,
+                  f32_bytes<128>(3, 1) + kTile * sizeof(int), grid, a, stream);
+  else
+    return launch(flash_fwd_kernel<128>, kThreads,
+                  tile_bytes<128>(2, 1) + kTile * sizeof(int), grid, a, stream);
+}
+
+template <typename T>
+int run_dkdv(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* seg, void* dk, void* dv,
+             const long long* strides, int B, int H, int KVH, int S, int causal,
+             float scale, void* stream) {
+  Args<T> a = base_args<T>(q, k, v, strides, H, KVH, S, causal, scale, seg);
+  a.dout = (const T*)dout;
+  a.lse = (float*)lse;
+  a.delta = (const float*)delta;
+  a.dk = (T*)dk;
+  a.dv = (T*)dv;
+  a.sdo = mat(strides, 3); a.sdk = mat(strides, 4); a.sdv = mat(strides, 5);
+  const dim3 grid((S + kBlock - 1) / kBlock, KVH, B);
+  const size_t extra = 2 * kTile * sizeof(float) + kTile * sizeof(int);
+  if constexpr (std::is_same<T, float>::value)
+    return launch(flash_bwd_dkdv_f32_kernel<128>, kF32Threads, f32_bytes<128>(4, 2) + extra,
+                  grid, a, stream);
+  else
+    return launch(flash_bwd_dkdv_kernel<128>, kThreads, tile_bytes<128>(4, 2) + extra, grid,
+                  a, stream);
+}
+
+template <typename T>
+int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, const void* seg, void* dq, const long long* strides, int B,
+           int H, int KVH, int S, int causal, float scale, void* stream) {
+  Args<T> a = base_args<T>(q, k, v, strides, H, KVH, S, causal, scale, seg);
+  a.dout = (const T*)dout;
+  a.lse = (float*)lse;
+  a.delta = (const float*)delta;
+  a.dq = (T*)dq;
+  a.sdo = mat(strides, 3); a.sdq = mat(strides, 4);
+  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
+  if constexpr (std::is_same<T, float>::value)
+    return launch(flash_bwd_dq_f32_kernel<128>, kF32Threads,
+                  f32_bytes<128>(4, 1) + kTile * sizeof(int), grid, a, stream);
+  else
+    return launch(flash_bwd_dq_kernel<128>, kThreads,
+                  tile_bytes<128>(4, 1) + kTile * sizeof(int), grid, a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, H, S, D], k/v [B, KVH, S, D] bf16, unit stride over D; `strides`
-// holds (batch, head, seq) element strides of q, k, v, out. out has q's
-// shape; lse is a contiguous [B, H, S] fp32 output; seg is a contiguous
-// [B, S] int32 array or null. D is 128 (every Llama-family model here).
+// q [B, H, S, D], k/v [B, KVH, S, D], all bf16 (fp32 == 0) or all fp32
+// (fp32 == 1), unit stride over D; `strides` holds (batch, head, seq) element
+// strides of q, k, v, out. out has q's shape and dtype; lse is a contiguous
+// [B, H, S] fp32 output; seg is a contiguous [B, S] int32 array or null. D is
+// 128 (every Llama-family model here).
 int slime_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                     const void* seg, const long long* strides, int B, int H, int KVH,
-                    int S, int D, int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, S)) return (int)cudaErrorInvalidValue;
-  Args a = base_args(q, k, v, H, KVH, S, causal, scale, seg);
-  a.out = (bf16*)out;
-  a.lse = (float*)lse;
-  a.sq = mat(strides, 0); a.sk = mat(strides, 1); a.sv = mat(strides, 2);
-  a.so = mat(strides, 3);
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return launch(flash_fwd_kernel<128>, tile_bytes<128>(2, 1) + kTile * sizeof(int), grid, a,
-                stream);
+                    int S, int D, int fp32, int causal, float scale, void* stream) {
+  if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
+  return fp32 ? run_fwd<float>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal, scale,
+                               stream)
+              : run_fwd<bf16>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal, scale,
+                              stream);
 }
 
-// dk/dv [B, KVH, S, D] bf16 from q, k, v, do (strides of q, k, v, do, dk, dv
-// in that order), lse and delta contiguous [B, H, S] fp32.
+// dk/dv [B, KVH, S, D] in the inputs' dtype from q, k, v, do (strides of q,
+// k, v, do, dk, dv in that order), lse and delta contiguous [B, H, S] fp32.
 int slime_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, const void* seg, void* dk,
                          void* dv, const long long* strides, int B, int H, int KVH,
-                         int S, int D, int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, S)) return (int)cudaErrorInvalidValue;
-  Args a = base_args(q, k, v, H, KVH, S, causal, scale, seg);
-  a.dout = (const bf16*)dout;
-  a.lse = (float*)lse;
-  a.delta = (const float*)delta;
-  a.dk = (bf16*)dk;
-  a.dv = (bf16*)dv;
-  a.sq = mat(strides, 0); a.sk = mat(strides, 1); a.sv = mat(strides, 2);
-  a.sdo = mat(strides, 3); a.sdk = mat(strides, 4); a.sdv = mat(strides, 5);
-  const dim3 grid((S + kBlock - 1) / kBlock, KVH, B);
-  const size_t extra = 2 * kTile * sizeof(float) + kTile * sizeof(int);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return launch(flash_bwd_dkdv_kernel<128>, tile_bytes<128>(4, 2) + extra, grid, a, stream);
+                         int S, int D, int fp32, int causal, float scale, void* stream) {
+  if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
+  return fp32 ? run_dkdv<float>(q, k, v, dout, lse, delta, seg, dk, dv, strides, B, H, KVH,
+                                S, causal, scale, stream)
+              : run_dkdv<bf16>(q, k, v, dout, lse, delta, seg, dk, dv, strides, B, H, KVH,
+                               S, causal, scale, stream);
 }
 
-// dq [B, H, S, D] bf16 from the same inputs (strides of q, k, v, do, dq).
+// dq [B, H, S, D] in the inputs' dtype from the same inputs (strides of q,
+// k, v, do, dq).
 int slime_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, const void* seg, void* dq,
                        const long long* strides, int B, int H, int KVH, int S, int D,
-                       int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, S)) return (int)cudaErrorInvalidValue;
-  Args a = base_args(q, k, v, H, KVH, S, causal, scale, seg);
-  a.dout = (const bf16*)dout;
-  a.lse = (float*)lse;
-  a.delta = (const float*)delta;
-  a.dq = (bf16*)dq;
-  a.sq = mat(strides, 0); a.sk = mat(strides, 1); a.sv = mat(strides, 2);
-  a.sdo = mat(strides, 3); a.sdq = mat(strides, 4);
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return launch(flash_bwd_dq_kernel<128>, tile_bytes<128>(4, 1) + kTile * sizeof(int), grid, a,
-                stream);
+                       int fp32, int causal, float scale, void* stream) {
+  if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
+  return fp32 ? run_dq<float>(q, k, v, dout, lse, delta, seg, dq, strides, B, H, KVH, S,
+                              causal, scale, stream)
+              : run_dq<bf16>(q, k, v, dout, lse, delta, seg, dq, strides, B, H, KVH, S,
+                             causal, scale, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@ Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
   (sequence packing) and ``remat`` (each layer a ``torch.utils.checkpoint``
   region, JAX's ``jax.checkpoint`` around each block). Its attention is
   ``ops.flash_attention`` (JAX ``_attn_prefill`` :176-179): the K5 kernels
-  under JAX's rule or ``use_kernel=True``, the plain version otherwise.
+  under JAX's rule or ``use_kernel=True``, the plain version otherwise; with
+  ``ring`` (context parallelism, :166-174) it is the collective
+  ``ops.ring_attention`` over n virtual ranks or a process group.
 - ``decode_step`` takes JAX's ``fused`` choice (``llama.py:769-888``). The
   fused path (``_decode_step_fused``, :670-766) runs per layer
   ``fused_qkv_decode`` -> RoPE -> the KV write -> masked attention over the
@@ -28,6 +30,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
@@ -35,6 +38,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_mlp import auto_block_ok, fused_mlp_decode, silu
 from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
 from ..ops.quantization import dequantize_weight
+from ..ops.ring_attention import ring_attention
 from . import layers as L
 
 _MOE_TODO = "MoE layers are not ported yet (ROADMAP Queue 1 step 11)"
@@ -144,7 +148,7 @@ def _mlp(lp, x):
 
 
 def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
-                   segment_ids=None):
+                   segment_ids=None, ring=None):
     B, S, _ = x.shape
     hd = cfg.head_dim
     h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
@@ -153,9 +157,14 @@ def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
     v = L.linear(lp["v_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, use_kernel=use_kernel,
-                          segment_ids=segment_ids)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if ring is not None:
+        # context parallelism: exact ring attention, GQA-native (only the
+        # KVH-head kv blocks rotate)
+        out = ring_attention(qh, kh, vh, ring=ring, causal=True)
+    else:
+        out = flash_attention(qh, kh, vh, causal=True, use_kernel=use_kernel,
+                              segment_ids=segment_ids)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
     x = x + L.linear(lp["o_proj"], out)
     h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
@@ -181,28 +190,42 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
             use_kernel: Optional[bool] = None, return_kv: bool = False,
             compute_dtype=torch.float32, remat: bool = False,
             logit_positions=None, return_hidden: bool = False,
-            segment_ids=None):
+            segment_ids=None, ring=None):
     """Full-sequence forward (training / prefill). embeds [B, S, H];
     positions [B, S] or None (arange); segment_ids [B, S] (packed sequences:
     attention stays inside a segment; pass per-segment positions too).
     Returns (logits fp32 [B, S, V], or [B, 1, V] at ``logit_positions`` [B],
     or the final normed hidden states with ``return_hidden``; list of
     per-layer (k, v) or None). ``use_kernel`` is JAX's ``use_pallas``;
-    ``remat`` recomputes each layer in the backward (under autograd)."""
+    ``remat`` recomputes each layer in the backward (under autograd).
+
+    ``ring`` (JAX's ``ring=(mesh, axis)``): the attention is the collective
+    ``ops.ring_attention`` with the sequence sharded over n virtual ranks (an
+    int; ``embeds`` is the whole sequence) or over a ``torch.distributed``
+    ProcessGroup (``embeds`` is this rank's shard of S/n positions, and
+    ``positions=None`` means its global positions from rank * S/n on;
+    ``logit_positions`` index the shard). ``remat`` keeps the ring (JAX's
+    non-scan remat path drops it, which changes no number: the ring is exact).
+    ``ring`` with ``segment_ids`` raises: JAX's ring branch ignores them,
+    which is wrong attention for packed sequences (ROADMAP Queue 3)."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_TODO)
+    if ring is not None and segment_ids is not None:
+        raise ValueError("forward: ring attention does not take segment_ids (packed "
+                         "sequences); JAX's ring branch ignores them (ROADMAP Queue 3)")
     B, S, _ = embeds.shape
     x = embeds.to(compute_dtype)
     cos, sin = rope_table(cfg, cfg.max_position_embeddings, x.device)
     if positions is None:
-        cos_s, sin_s = cos[:S], sin[:S]
+        start = dist.get_rank(ring) * S if isinstance(ring, dist.ProcessGroup) else 0
+        cos_s, sin_s = cos[start:start + S], sin[start:start + S]
     else:
         cos_s, sin_s = cos[positions.long()], sin[positions.long()]
     remat = remat and torch.is_grad_enabled()
     kvs = []
     for i in range(cfg.num_layers):
         args = (_layer(params["layers"], i), x, cos_s, sin_s, cfg, use_kernel,
-                segment_ids)
+                segment_ids, ring)
         if remat:
             x, kv = checkpoint(_layer_prefill, *args, use_reentrant=False)
         else:

@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` compiles with nvcc for ``sm_90a`` (one nvcc process per
 source, all started together) and links into one shared library with a plain
 C interface, loaded with ctypes. The build runs at first use into
-``slime_tpu_torch/_build/``, keyed by a hash of the sources and the flags, so a
-checkout builds once and a changed source rebuilds. Importing this module
-builds nothing: the CPU tests import every module of the port.
+``slime_tpu_torch/_build/``, keyed by a hash of the sources, the headers
+(``csrc/*.cuh``) and the flags, so a checkout builds once and a changed source
+rebuilds. Importing this module builds nothing: the CPU tests import every
+module of the port.
 """
 from __future__ import annotations
 
@@ -36,9 +37,10 @@ _SIGNATURES = {
     "slime_gate_up_gemv": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _P],
-    "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 6 + [_F, _P],
-    "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 6 + [_F, _P],
-    "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 6 + [_F, _P],
+    "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
+    "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 7 + [_F, _P],
+    "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
+    "slime_ring_attend": [_P] * 7 + [_LLP] + [_I] * 9 + [_F, _P],
     "slime_quant_matmul": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_w8a8_matmul": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
 }
@@ -67,7 +69,7 @@ def library() -> ctypes.CDLL:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         key.update(src.name.encode())
         key.update(src.read_bytes())
     so = BUILD_DIR / f"libslime_kernels_{key.hexdigest()[:16]}.so"

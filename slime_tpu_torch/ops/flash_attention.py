@@ -33,8 +33,16 @@ k's dtype before dK / dQ; all products accumulate in fp32. A query attends a
 key only under causality (when ``causal``) and, with ``segment_ids`` [B, S],
 only when both carry the same id (sequence packing).
 
+The kernels take q/k/v/do all bf16 (``mma.sync`` tiles, p and ds rounded to
+bf16 as above) or all fp32 (FFMA tiles with no TF32 and no rounding: what
+JAX's interpret-mode kernels compute for fp32, and what ``llama.forward``'s
+default fp32 compute dtype sends them), at D = 128; outputs come back in the
+inputs' dtype.
+
 Launch counts (one per kernel launch, nowhere else):
-``flash_attention.fwd_launches``, ``.dkdv_launches`` and ``.dq_launches``.
+``flash_attention.fwd_launches``, ``.dkdv_launches`` and ``.dq_launches``
+count every launch; ``.fwd_f32_launches``, ``.dkdv_f32_launches`` and
+``.dq_f32_launches`` those of them with fp32 inputs.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from . import _cuda
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MIN_AUTO_SEQ = 2048
 
 
@@ -193,10 +202,13 @@ def _check_kernel_inputs(q, k, v, *extra):
     if H % k.shape[1]:
         raise ValueError(f"flash kernels: KVH={k.shape[1]} does not divide H={H}")
     if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernels take D = {KERNEL_HEAD_DIM}, got {D}")
+        raise ValueError(f"flash kernels take D = {KERNEL_HEAD_DIM}, got {D}: other "
+                         "head dims (D = 256) come with K5's redesign (ROADMAP Queue 2)")
+    dtypes = {t.dtype for t in (q, k, v) + extra}
+    if len(dtypes) != 1 or q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash kernels take q/k/v/do all bf16 or all fp32, got "
+                         f"{sorted(str(d) for d in dtypes)}")
     for t in (q, k, v) + extra:
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash kernels take bf16 q/k/v/do, got {t.dtype}")
         if not _loadable(t):
             raise ValueError("flash kernels need unit stride over D, the other "
                              "strides multiples of 8 and 16-byte aligned data")
@@ -227,6 +239,11 @@ def _seg_arg(segment_ids, q):
     return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
 
 
+def _fp32(q) -> int:
+    """The kernels' dtype flag: 1 for fp32 inputs (the FFMA kernels), 0 for bf16."""
+    return int(q.dtype == torch.float32)
+
+
 def _f32_bhs(t, q):
     B, H, S, _ = q.shape
     if t.shape != (B, H, S):
@@ -249,9 +266,10 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     strides = _cuda.longs(_bhs(q) + _bhs(k) + _bhs(v) + _bhs(out))
     _cuda.check(_cuda.library().slime_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _cuda.ptr(seg), strides, B, H, k.shape[1], S, D, int(causal), scale,
+        _cuda.ptr(seg), strides, B, H, k.shape[1], S, D, _fp32(q), int(causal), scale,
         _cuda.stream()), "flash_fwd")
     flash_attention.fwd_launches += 1
+    flash_attention.fwd_f32_launches += _fp32(q)
     return out, lse
 
 
@@ -271,8 +289,10 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     _cuda.check(_cuda.library().slime_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), _cuda.ptr(seg), dk.data_ptr(), dv.data_ptr(), strides,
-        B, H, k.shape[1], S, D, int(causal), scale, _cuda.stream()), "flash_bwd_dkdv")
+        B, H, k.shape[1], S, D, _fp32(q), int(causal), scale, _cuda.stream()),
+        "flash_bwd_dkdv")
     flash_attention.dkdv_launches += 1
+    flash_attention.dkdv_f32_launches += _fp32(q)
     return dk, dv
 
 
@@ -292,8 +312,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     _cuda.check(_cuda.library().slime_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), _cuda.ptr(seg), dq.data_ptr(), strides,
-        B, H, k.shape[1], S, D, int(causal), scale, _cuda.stream()), "flash_bwd_dq")
+        B, H, k.shape[1], S, D, _fp32(q), int(causal), scale, _cuda.stream()),
+        "flash_bwd_dq")
     flash_attention.dq_launches += 1
+    flash_attention.dq_f32_launches += _fp32(q)
     return dq
 
 
@@ -325,8 +347,9 @@ class _Flash(torch.autograd.Function):
 def _auto_kernel(q, causal: bool) -> bool:
     """JAX's rule (flash_attention.py:523-525) with "on a TPU" read as "on
     the card": causal, S >= 2048, S and D multiples of 128. Nothing more:
-    a tensor the rule picks that the kernels cannot take (fp32, D != 128)
-    raises in them instead of quietly taking the plain path."""
+    a tensor the rule picks that the kernels cannot take (D != 128, or a
+    dtype other than bf16 and fp32) raises in them instead of quietly taking
+    the plain path."""
     S, D = q.shape[2], q.shape[3]
     return (q.is_cuda and causal and S >= MIN_AUTO_SEQ and S % 128 == 0
             and D % 128 == 0)
@@ -340,8 +363,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     causal CUDA tensors at S >= 2048 with S and D multiples of 128 (JAX's
     conditions) and ``reference_attention`` otherwise. True runs the kernels
     (with their backward under autograd). Either raises on a CUDA tensor
-    the kernels cannot take (they take bf16 with D = 128), and True raises
-    on a CPU tensor; False is the plain path."""
+    the kernels cannot take (they take bf16 or fp32 with D = 128), and True
+    raises on a CPU tensor; False is the plain path."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if use_kernel is None:
@@ -358,3 +381,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
 flash_attention.fwd_launches = 0
 flash_attention.dkdv_launches = 0
 flash_attention.dq_launches = 0
+flash_attention.fwd_f32_launches = 0
+flash_attention.dkdv_f32_launches = 0
+flash_attention.dq_f32_launches = 0

@@ -304,19 +304,18 @@ def test_flash_attention_autograd(dev):
 
 def test_flash_attention_auto_rule(dev):
     """use_kernel=None takes the kernel for causal attention at S >= 2048 (S,
-    D multiples of 128) and the plain path below that, as JAX's rule does.
-    A tensor the rule picks that the kernels cannot take raises: fp32, or
-    D = 256."""
+    D multiples of 128) and the plain path below that, as JAX's rule does:
+    bf16 and fp32 alike (fp32 takes the FFMA kernels). A tensor the rule
+    picks that the kernels cannot take raises: D = 256."""
     from slime_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(8)
-    for S, launched in ((2048, 1), (1024, 0)):
-        q, k = _bhsd(1, S, 4, 128, g, dev), _bhsd(1, S, 2, 128, g, dev)
-        before = fa.flash_attention.fwd_launches
-        fa.flash_attention(q, k, k)
-        assert fa.flash_attention.fwd_launches == before + launched
-    q = _bhsd(1, 2048, 4, 128, g, dev).float()
-    with pytest.raises(ValueError):                  # fp32
-        fa.flash_attention(q, q, q)
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, launched in ((2048, 1), (1024, 0)):
+            q, k = _bhsd(1, S, 4, 128, g, dev).to(dtype), _bhsd(1, S, 2, 128, g, dev).to(dtype)
+            before = (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches)
+            fa.flash_attention(q, k, k)
+            assert (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches) == (
+                before[0] + launched, before[1] + launched * (dtype == torch.float32))
     q = _bhsd(1, 2048, 2, 256, g, dev)
     with pytest.raises(ValueError):                  # D = 256
         fa.flash_attention(q, q, q)
@@ -325,8 +324,10 @@ def test_flash_attention_auto_rule(dev):
 def test_flash_kernels_reject(dev):
     from slime_tpu_torch.ops import flash_attention as fa
     q = torch.zeros((1, 2, 256, 128), device=dev)
-    with pytest.raises(ValueError):                  # fp32
-        fa.flash_attention(q, q, q, use_kernel=True)
+    with pytest.raises(ValueError):                  # fp32 q with bf16 k/v
+        fa.flash_attention(q, q.bfloat16(), q.bfloat16(), use_kernel=True)
+    with pytest.raises(ValueError):                  # fp16
+        fa.flash_attention(q.half(), q.half(), q.half(), use_kernel=True)
     q = torch.zeros((1, 2, 256, 96), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                  # D = 96
         fa.flash_attention(q, q, q, use_kernel=True)
@@ -334,3 +335,93 @@ def test_flash_kernels_reject(dev):
     k = torch.zeros((1, 2, 256, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                  # KVH does not divide H
         fa.flash_attention(q, k, k, use_kernel=True)
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[2], FLASH_CASES[3],
+                                  FLASH_CASES[4], FLASH_CASES[5]])
+def test_flash_kernels_fp32(dev, case):
+    """The fp32 K5, K5b, K5c (FFMA, nothing rounded) against the plain
+    versions in fp32: the same arithmetic with sums in another order."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    B, H, KVH, S, D, causal, segmented = case
+    g = torch.Generator(device=dev).manual_seed(S + 1)
+    q, k, v, do = (_bhsd(B, S, n, D, g, dev).float() for n in (H, KVH, KVH, H))
+    seg = None
+    if segmented:
+        seg = torch.ones((B, S), dtype=torch.int32, device=dev)
+        seg[:, S // 3:2 * S // 3], seg[:, 2 * S // 3:] = 2, 3
+    kw = dict(causal=causal, segment_ids=seg)
+    counts = (fa.flash_attention.fwd_f32_launches, fa.flash_attention.dkdv_f32_launches,
+              fa.flash_attention.dq_f32_launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rl = fa.flash_fwd_ref(q, k, v, **kw)
+    assert out.dtype == torch.float32
+    _assert_close(out, ro, atol=1e-4)
+    _assert_close(lse, rl, atol=1e-4)
+    delta = (do * ro).sum(-1)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, do, rl, delta, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, do, rl, delta, **kw)
+    for got, want in zip((dq, dk, dv), fa.flash_bwd_ref(q, k, v, do, rl, delta, **kw)):
+        assert got.dtype == torch.float32
+        _assert_close(got, want, atol=1e-4)
+    assert (fa.flash_attention.fwd_f32_launches, fa.flash_attention.dkdv_f32_launches,
+            fa.flash_attention.dq_f32_launches) == tuple(c + 1 for c in counts)
+
+
+# (n, H, KVH, S/n, causal): group size 4 (Llama-3-8B's 32/8) and MHA, at the
+# kernel's smallest shard and at the context-parallel prefill's S/n = 2048
+RING_CASES = [(n, H, KVH, Sn, causal) for n in (2, 4) for H, KVH in ((32, 8), (8, 8))
+              for Sn in (64, 2048) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_attention_rdma_kernel(dev, case):
+    """K9 against its plain version (the TPU kernel's fp32 arithmetic through
+    the same protocol) on n virtual ranks: bf16 out, fp32 sums in another
+    order, p split into two bf16 halves for P.V."""
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+    n, H, KVH, Sn, causal = case
+    g = torch.Generator(device=dev).manual_seed(n * Sn + H)
+    q, k, v = (_bhsd(1, n * Sn, heads, 128, g, dev) for heads in (H, KVH, KVH))
+    before = rd.ring_attention_rdma.launches
+    got = rd.ring_attention_rdma(q, k, v, ring=n, causal=causal)
+    assert rd.ring_attention_rdma.launches == before + n
+    _assert_close(got, rd.ring_attention_rdma_ref(q, k, v, ring=n, causal=causal), atol=2e-3)
+
+
+def test_ring_attention_rdma_kernel_rejects(dev):
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+    q = torch.zeros((1, 4, 256, 128), device=dev)
+    with pytest.raises(ValueError):                  # fp32
+        rd.ring_attention_rdma(q, q, q, ring=2)
+    q = torch.zeros((1, 4, 256, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # D = 64
+        rd.ring_attention_rdma(q, q, q, ring=2)
+    q = torch.zeros((1, 4, 96, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # S/n = 48, not a multiple of 64
+        rd.ring_attention_rdma(q, q, q, ring=2)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_attention_rdma_process_group(dev, world, tmp_path):
+    """K9 and the collective ring over an NCCL group of ``world`` cards (one
+    process each) against the same functions on ``world`` virtual ranks on
+    one card: K9 makes the same launches on the same shards, the collective
+    ring the same torch operations."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices for an NCCL ring")
+    from slime_tpu_torch.ops import ring_attention as ra
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+    from tests.test_torch_ring_attention import _run_ranks
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (_bhsd(1, 512 * world, heads, 128, g, dev).contiguous() for heads in (8, 2, 2))
+    want = {}                 # first, so the ranks find the kernels built
+    for causal in (True, False):
+        want[f"rdma_{causal}"] = rd.ring_attention_rdma(q, k, v, ring=world, causal=causal)
+        want[f"ring_{causal}"] = ra.ring_attention(q, k, v, ring=world, causal=causal)
+    torch.cuda.synchronize()
+    outs = _run_ranks("attention", world, {"qkv": tuple(t.cpu() for t in (q, k, v))},
+                      tmp_path, backend="nccl")
+    for name, w in want.items():
+        got = torch.cat([o[name] for o in outs], dim=2).to(dev)
+        _assert_close(got, w, atol=0 if name.startswith("rdma") else 2e-3)
