@@ -13,13 +13,15 @@ Phase 0  requires CUDA, prints the card, the versions and the kernel build
          ``layers.fp32_accumulation`` (no TF32, no reduced-precision bf16
          reductions), the policy ``generate`` and the train step pin for
          their own work.
-Phase 1  runs each hand-written kernel of the paths (encoder attention, the
-         fused QKV / O-residual / MLP decode kernels in int8 and q4g, the
-         flash-attention forward and its dK/dV and dQ backward kernels in
-         bf16 and fp32, the quantized matmul in its q4, int8 and q4g
-         loaders, the W8A8 matmul, the ring-attention kernel K9 on 4 virtual
-         ranks at S = 8192) against its plain PyTorch version on the card at
-         the paths' shapes,
+Phase 1  runs the self-test of the wgmma tile vocabulary
+         (``csrc/hopper_selftest.cu`` against torch.matmul, exactly), then
+         each hand-written kernel of the paths (encoder attention and its P2
+         design probe, the fused QKV / O-residual / MLP decode kernels in int8
+         and q4g, the flash-attention forward and its dK/dV and dQ backward
+         kernels in bf16 and fp32 at D = 128 and 256, the quantized matmul in
+         its q4, int8 and q4g loaders, the W8A8 matmul, the ring-attention
+         kernel K9 on 4 virtual ranks at S = 8192) against its plain PyTorch
+         version on the card at the paths' shapes,
          asserts agreement, and times both (median of CUDA-event timings),
          and one PyTorch call computing the same function where there is one
          (scaled_dot_product_attention for the attention kernels). It prints
@@ -108,6 +110,8 @@ PROFILE_STEPS = 8
 # exactly (PERF.md).
 # The fp32 flash kernels (FFMA, nothing rounded) differ from their plain
 # versions only in the order of fp32 sums: floors of up to 1.1e-6 on an H100.
+# The D = 256 instances (no path runs them yet) are held as their D = 128
+# twins are.
 # K9 (bf16 out; p split into two bf16 halves for P.V) against its plain
 # version (the TPU kernel's fp32 arithmetic through the same protocol): 9.3e-7
 # (PERF.md).
@@ -118,6 +122,9 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_mlp_decode_q4g": 5e-3,
         "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3,
         "flash_fwd_f32": 1e-5, "flash_bwd_dkdv_f32": 1e-5, "flash_bwd_dq_f32": 1e-5,
+        "flash_fwd_d256": 5e-3, "flash_bwd_dkdv_d256": 5e-3, "flash_bwd_dq_d256": 5e-3,
+        "flash_fwd_f32_d256": 1e-5, "flash_bwd_dkdv_f32_d256": 1e-5,
+        "flash_bwd_dq_f32_d256": 1e-5,
         "quant_matmul_q4": 2e-3, "quant_matmul_int8": 2e-3, "quant_matmul_q4g": 2e-3,
         "w8a8_matmul": 1e-6, "ring_attention_rdma": 1e-4}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
@@ -192,12 +199,16 @@ KERNELS = {
     "ring_attention_rdma": ("slime_tpu_torch/csrc/ring_attention.cu",
                             "slime_tpu/ops/ring_attention_rdma.py:148"),
 }
+# the D = 256 instances of K5-K5c, bf16 and fp32
+KERNELS.update({n + sfx: KERNELS[n] for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+                for sfx in ("_d256", "_f32_d256")})
+D256 = tuple(n for n in KERNELS if n.endswith("_d256"))
 # K6's int8 loader has no caller on any path: the JAX package routes only q4
 # and q4g weights to its quantized matmuls (layers.py:52-59). No path of the
 # port trains in fp32 on the card (phase 4 trains the bf16 model), so the
-# fp32 K5b and K5c have none either. Phase 1 checks them; their launch counts
-# stay 0.
-OFF_PATH = ("quant_matmul_int8", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32")
+# fp32 K5b and K5c have none either, and no model here has a head dim of 256.
+# Phase 1 checks them; their launch counts stay 0.
+OFF_PATH = ("quant_matmul_int8", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32") + D256
 
 
 def _counters():
@@ -219,6 +230,8 @@ def _counters():
            "flash_fwd_f32": (fa.flash_attention, "fwd_f32_launches"),
            "flash_bwd_dkdv_f32": (fa.flash_attention, "dkdv_f32_launches"),
            "flash_bwd_dq_f32": (fa.flash_attention, "dq_f32_launches"),
+           **{n: (fa.flash_attention, n.replace("flash_bwd_", "").replace("flash_", "")
+                  + "_launches") for n in D256},
            "ring_attention_rdma": (rd.ring_attention_rdma, "launches"),
            "quant_matmul_q4": (qm.quant_matmul, "q4_launches"),
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
@@ -232,12 +245,17 @@ def _counters():
 def launch_counts():
     """Every kernel wrapper's launch count, by record name (the decode
     kernels' dense/int8 launches and their q4g loader's counted apart, and
-    the flash kernels' bf16 and fp32 launches)."""
+    the flash kernels' launches by dtype and head dim)."""
     counts = {n: getattr(fn, attr) for n, (fn, attr) in _counters().items()}
     for n in ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode"):
         counts[n] -= counts[n + "_q4g"]        # .launches counts every format
     for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-        counts[n] -= counts[n + "_f32"]        # and every dtype
+        # .*_launches counts every dtype and head dim, .*_f32 and .*_d256
+        # every head dim and dtype, .*_f32_d256 the fp32 D = 256 ones
+        both = counts[n + "_f32_d256"]
+        counts[n] -= counts[n + "_f32"] + counts[n + "_d256"] - both
+        counts[n + "_f32"] -= both
+        counts[n + "_d256"] -= both
     return counts
 
 
@@ -617,6 +635,62 @@ def flash_kernels_f32(dev, g, flush, record):
     torch.cuda.empty_cache()
 
 
+def flash_kernels_d256(dev, g, flush, record):
+    """Phase 1 for K5, K5b and K5c at D = 256 (no model here has that head
+    dim; the port takes it as JAX does): q [1, 16, 2048, 256], kv [1, 4,
+    2048, 256], causal, in llama's [B, S, H, D] storage, bf16 and fp32,
+    against the plain versions; timed beside torch's scaled_dot_product_
+    attention (forward; its backward for K5b and K5c alike)."""
+    from slime_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, KVH, D = 1, 2048, 16, 4, 256
+    for dtype, sfx, peak in ((torch.bfloat16, "", BF16_OPS), (torch.float32, "_f32", F32_OPS)):
+        q, k, v, do = (torch.randn((B, S, heads, D), device=dev, generator=g).to(dtype)
+                       .transpose(1, 2) for heads in (H, KVH, KVH, H))
+        ro, rl = fa.flash_fwd_ref(q, k, v)
+        delta = (do.float() * ro.float()).sum(-1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = sdpa(ql, kl, vl, is_causal=True)
+        backward = lambda: torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)  # noqa: E731
+        prod = 2 * B * H * S * S * D // 2
+        label = f"[{B},{H}|{KVH},{S},{D}] {'bf16' if sfx == '' else 'fp32'} causal"
+        cases = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_ref(q, k, v),
+                          nbytes(q, k, v, ro, rl), 2 * prod,
+                          lambda: sdpa(q, k, v, is_causal=True)),
+            "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, do, rl, delta),
+                               lambda: fa.flash_bwd_dkdv_ref(q, k, v, do, rl, delta),
+                               nbytes(q, k, v, do, rl, delta, k, v), 4 * prod, backward),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta),
+                             lambda: fa.flash_bwd_dq_ref(q, k, v, do, rl, delta),
+                             nbytes(q, k, v, do, rl, delta, q), 3 * prod, backward),
+        }
+        for name, (kern, ref, moved, ops, lib) in cases.items():
+            check_and_time(record, name + sfx + "_d256", label, kern, ref, moved, ops, peak,
+                           flush, True, library=lib)
+        del q, k, v, do, ro, rl, delta, ql, kl, vl, lo, cases
+        torch.cuda.empty_cache()
+
+
+def hopper_selftest(dev, g):
+    """Phase 1's first check: the wgmma tile vocabulary against torch.matmul
+    on small integers, where every fp32 sum is exact (bit for bit)."""
+    from slime_tpu_torch.ops import _cuda
+
+    a, b = (torch.randint(-3, 4, (64, 64), device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randint(-3, 4, (64, 128), device=dev, generator=g).to(torch.bfloat16)
+    s, o = _cuda.hopper_selftest(a, b, v)
+    want_s = torch.matmul(a.float(), b.float().T)
+    want_o = torch.matmul(want_s.to(torch.bfloat16).float(), v.float())
+    torch.cuda.synchronize()
+    errs = [(s - want_s).abs().max().item(), (o - want_o).abs().max().item()]
+    log(f"phase 1 hopper_selftest (TMA, SS and RS wgmma): S max abs err {errs[0]:g}, "
+        f"O max abs err {errs[1]:g} (set 0)")
+    if any(errs):
+        raise AssertionError(f"hopper_selftest disagrees with torch.matmul: {errs}")
+
+
 def ring_kernel(dev, g, flush, record):
     """Phase 1 for K9 at the context-parallel prefill's shape: q [1, 32,
     8192, 128], kv [1, 8, 8192, 128] bf16 in llama's storage, causal, on 4
@@ -768,10 +842,14 @@ def kernel_phase(dev, cfg):
     """Phase 1: every kernel against its plain version; returns the record."""
     from slime_tpu_torch.models.layers import fp32_accumulation
     from slime_tpu_torch.ops import encoder_attention as ea
+    from slime_tpu_torch.probes import encoder_attention as p2
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
     record = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    # the self-test and the D = 256 checks draw from generators of their own,
+    # so every other check sees the inputs of earlier versions of this phase
+    hopper_selftest(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
     with fp32_accumulation():
         q, k, v = (torch.randn((8, 577, 16, 64), device=dev, generator=g).to(torch.bfloat16)
                    for _ in range(3))
@@ -782,8 +860,12 @@ def kernel_phase(dev, cfg):
                        2 * 2 * 8 * 16 * 577 * 577 * 64, BF16_OPS, flush, True,
                        library=lambda: sdpa(*(t.transpose(1, 2) for t in (q, k, v))))
         del q, k, v
+    p2.run(dev, runs=TIMED_RUNS, seed=SEED, log=log)           # the P2 probe: K4's variants
+    with fp32_accumulation():
         decode_kernels(dev, cfg, g, flush, record)
         flash_kernels(dev, g, flush, record)
+        flash_kernels_d256(dev, torch.Generator(device=dev).manual_seed(SEED + 2), flush,
+                           record)
         quant_kernels(dev, g, flush, record)
         ring_kernel(dev, g, flush, record)
     del flush

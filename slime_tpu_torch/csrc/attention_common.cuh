@@ -1,5 +1,5 @@
-// Tile helpers shared by the attention kernels (flash_attention.cu: K5-K5c;
-// ring_attention.cu: K9): bf16 mma.sync m16n8k16 fragments with fp32
+// Tile helpers shared by the mma.sync attention kernels (flash_attention.cu:
+// K5b, K5c; ring_attention.cu: K9): bf16 mma.sync m16n8k16 fragments with fp32
 // accumulation, quad reductions over the four lanes that hold one row of a
 // fragment, and staging of 64-row tiles in padded shared memory.
 #pragma once

@@ -1,6 +1,6 @@
-// Non-causal encoder (ViT) attention for Hopper (sm_90a). It replaces the TPU
-// kernel slime_tpu/ops/encoder_attention.py _pallas_fwd (_kernel), which runs
-// in every CLIP-L layer at q/k/v [crops, 577, 16, 64] bf16.
+// Non-causal encoder (ViT) attention for Hopper (sm_90a): K4. It replaces the
+// TPU kernel slime_tpu/ops/encoder_attention.py _pallas_fwd (_kernel, :57-105),
+// which runs in every CLIP-L layer at q/k/v [crops, 577, 16, 64] bf16.
 //
 // Semantics kept from the TPU kernel (encoder_attention.py:57-75):
 //   qs = bf16(q * scale)                   scale folded into q, in fp32
@@ -9,173 +9,161 @@
 //   l  = bf16(sum_keys p)                  p summed in fp32
 //   o  = (sum_keys bf16(p) * v) / l        p enters the product as bf16,
 //                                          fp32 accumulation
-// Keys past S (the ragged tail of the last key tile) get p = 0.
+// Keys past S (the ragged tail of the last key tile) get p = 0: TMA fills them
+// with zeros, and exp(0) = 1, so the tail is masked explicitly.
 //
-// Because of the clamp there is no running max, so unlike flash attention the
-// accumulators never need rescaling between key tiles: each tile's p only adds
-// to l and to o. That makes the kernel a plain two-phase loop.
+// Because of the clamp there is no running max: each key tile's p only adds
+// to l and to o, and nothing is rescaled between tiles.
 //
-// What bounds it on this card: operations. At the CLIP-L shape one layer
-// does 2 * 577^2 * 64 * 2 flops per head, against q/k/v of 577 * 64 values;
-// the q tile is reused over every key and each k/v tile over 64 queries. This
-// first version keeps the work on the fp32 FMA units, not the tensor cores:
-//   - one block per (query tile of 64, head, batch), 256 threads;
-//   - q, k, v and p tiles live in shared memory as bf16, rows padded by one
-//     word so the threads of a warp read distinct banks;
-//   - each thread keeps a 4 x 4 block of scores and a 4 x (D / 16) block of
-//     the output in registers, so each shared-memory read feeds 4 FMAs.
-// q/k/v are read in the ViT's [B, S, H, D] layout through their strides; the
-// TPU wrapper's transposes to [B, H, S, D] are not needed.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// What bounds it on this card: at CLIP-L's shape the bytes (q, k, v in, o out:
+// 0.011 ms at 3.35 TB/s) and the tensor work (2 x 2 x 577^2 x 64 flops per
+// head, 0.011 ms at 989 TFLOP/s) weigh about the same, so both products run on
+// the tensor cores and every copy is a TMA tile:
+//   - one block per (64 WGS query rows, head, crop): WGS consumer warpgroups
+//     of 64 rows and one producer warp;
+//   - the producer loads the block's q tile once, then streams k and v tiles
+//     of BN keys through a STAGES-deep ring of shared-memory stages with full
+//     and empty mbarriers; q/k/v are read in the ViT's [B, S, H, D] layout
+//     through their strides (views of one packed qkv projection need no copy);
+//   - each warpgroup scales its q rows in shared memory (the rounding point of
+//     the TPU kernel), then per tile: S = Q.K^T as an SS wgmma, clamp, round,
+//     exp (as exp2 of x log2(e), one MUFU op) and the row sums in registers,
+//     P.V as an RS wgmma (P straight from the score accumulator);
+//   - the epilogue divides by l, stages the rows swizzled in the warpgroup's
+//     own q rows and writes them with one TMA store per 64 columns.
+// D that is not a multiple of 64 (the tests' D = 40) is padded by the TMA
+// box's zero fill, which adds nothing to either product.
+//
+// `variant` selects the design (the P2 probe, slime_tpu_torch/probes/
+// encoder_attention.py, times each): 0 the production choice, 1-3 the others
+// (head dims up to 64 only).
+#include "hopper_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTQ = 64;                 // queries per block
-constexpr int kTK = 64;                 // keys per tile
-constexpr int kMaxD = 128;
-constexpr int kNJ = kMaxD / 16;         // output columns per thread, at most
-constexpr int kLdp = kTK + 2;           // padded row of the p tile
 constexpr float kClamp = 80.f;
+
+struct EncParams {
+  CUtensorMap q, k, v, o;
+  int S;
+  float scale;
+};
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__global__ void __launch_bounds__(256) enc_attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int S, int H, int D,
-    long long qb, long long qs, long long qh,
-    long long kb, long long ks, long long kh,
-    long long vb, long long vs, long long vh, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = D + 2;                 // padded row of the q/k/v tiles
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTQ * ld;
-  bf16* Vs = Ks + kTK * ld;
-  bf16* Ps = Vs + kTK * ld;
+// WGS consumer warpgroups of 64 query rows, key tiles of BN, a STAGES-deep
+// ring, W the head dim padded to 64 or 128.
+template <int WGS, int BN, int STAGES, int W>
+__global__ void __launch_bounds__(128 * WGS + 32) enc_attn_kernel(
+    const __grid_constant__ EncParams p) {
+  constexpr int BM = 64 * WGS, NCH = W / 64;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));    // [NCH][BM][64]
+  bf16* Ks = Qs + NCH * BM * 64;                                // [STAGES][NCH][BN][64]
+  bf16* Vs = Ks + STAGES * NCH * BN * 64;                       // [STAGES][NCH][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * NCH * BN * 64);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int q0 = blockIdx.x * kTQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;              // key / output-column lane
-  const int ty = tid >> 4;              // owns query rows 4 ty .. 4 ty + 3
-
-  const bf16* qp = q + b * qb + h * qh;
-  const bf16* kp = k + b * kb + h * kh;
-  const bf16* vp = v + b * vb + h * vh;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
-  for (int e = tid; e < kTQ * D; e += 256) {
-    const int r = e / D, d = e - r * D;
-    const int s = q0 + r;
-    float val = 0.f;
-    if (s < S) val = __bfloat162float(qp[s * qs + d]) * scale;
-    Qs[r * ld + d] = __float2bfloat16_rn(val);
-  }
-
-  float oacc[4][kNJ];
-  float lsum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lsum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) oacc[i][j] = 0.f;
-  }
-
-  const int ntiles = (S + kTK - 1) / kTK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kTK;
-    __syncthreads();                    // previous tile fully consumed
-    for (int e = tid; e < kTK * D; e += 256) {
-      const int r = e / D, d = e - r * D;
-      const int s = k0 + r;
-      bf16 kv = zero, vv = zero;
-      if (s < S) {
-        kv = kp[s * ks + d];
-        vv = vp[s * vs + d];
-      }
-      Ks[r * ld + d] = kv;
-      Vs[r * ld + d] = vv;
+  const int S = p.S, q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (S + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * WGS);
     }
-    __syncthreads();
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // scores for rows 4 ty + i, keys tx + 16 j
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int d = 0; d < D; d += 2) {
-      float2 qf[4], kf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&Qs[(4 * ty + i) * ld + d]));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&Ks[(tx + 16 * j) * ld + d]));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(qf[i].x, kf[j].x, acc[i][j]);
-          acc[i][j] = fmaf(qf[i].y, kf[j].y, acc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float p = 0.f;
-        if (key < S) p = expf(bf16r(fminf(acc[i][j], kClamp)));
-        lsum[i] += p;
-        Ps[(4 * ty + i) * kLdp + tx + 16 * j] = __float2bfloat16_rn(p);
-      }
-    __syncthreads();
-
-    // o[rows 4 ty + i][cols tx + 16 j] += p @ v
-    for (int key = 0; key < kTK; ++key) {
-      float pf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pf[i] = __bfloat162float(Ps[(4 * ty + i) * kLdp + key]);
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = tx + 16 * j;
-        if (col < D) {
-          const float vf = __bfloat162float(Vs[key * ld + col]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) oacc[i][j] = fmaf(pf[i], vf, oacc[i][j]);
+  const int wg = threadIdx.x >> 7;
+  if (wg == WGS) {                                  // the producer warp
+    if (threadIdx.x == 128 * WGS) {
+      mbar_arrive_expect_tx(qbar, NCH * BM * 128);
+      for (int c = 0; c < NCH; ++c) tma_load(Qs + c * BM * 64, &p.q, qbar, 64 * c, q0, h, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * NCH * BN * 128);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(Ks + (st * NCH + c) * BN * 64, &p.k, &full[st], 64 * c, j * BN, h, b);
+          tma_load(Vs + (st * NCH + c) * BN * 64, &p.v, &full[st], 64 * c, j * BN, h, b);
         }
       }
     }
+    return;
   }
 
-  // l: sum over the 16 lanes (tx) that share a row; they sit in one half-warp
+  const int t = threadIdx.x & 127, tq = t & 3;
+  bf16* Qw = Qs + 64 * wg * 64;                     // this warpgroup's rows of chunk 0
+  mbar_wait(qbar, 0);
+  // qs = bf16(q * scale) in place: elementwise, so the swizzle does not matter
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int c = 0; c < NCH; ++c) {
+    uint4* rows = reinterpret_cast<uint4*>(Qw + c * BM * 64);
+    for (int e = t; e < 64 * 64 / 8; e += 128) {
+      uint4 x = rows[e];
+      __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], off);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + 4 * ty + i;
-    if (s < S) {
-      const float l = bf16r(lsum[i]);
-      bf16* orow = o + (((long long)b * S + s) * H + h) * D;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = tx + 16 * j;
-        if (col < D) orow[col] = __float2bfloat16_rn(oacc[i][j] / l);
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(pair[i]);
+        pair[i] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
       }
+      rows[e] = x;
     }
   }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+
+  float o[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;                         // per-lane partial row sums
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES;
+    mbar_wait(&full[st], (j / STAGES) & 1);
+    float s[BN / 2];
+    qk_product<W, BN>(s, Qw, BM, Ks + st * NCH * BN * 64);
+    const int k0 = j * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+      const float e = key < S ? exp2f(bf16r(fminf(s[i], kClamp)) * kLog2e) : 0.f;
+      if (i & 2) l1 += e; else l0 += e;
+      s[i] = e;
+    }
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a_frag(pa[kk], s, kk);
+    pv_product<W, BN>(o, pa, Vs + st * NCH * BN * 64);
+    mbar_arrive(&empty[st]);
+  }
+  const float d0 = bf16r(quad_sum4(l0)), d1 = bf16r(quad_sum4(l1));
+  store_rows<W>(o, d0, d1, Qw, BM, &p.o, q0 + 64 * wg, h, b, 1 + wg);
+}
+
+template <int WGS, int BN, int STAGES, int W>
+int launch_enc(EncParams& p, const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int D, const long long* st, void* stream) {
+  constexpr int BM = 64 * WGS, NCH = W / 64;
+  int err = encode_bshd(&p.q, q, B, S, H, D, st[0], st[1], st[2], BM);
+  if (err == 0) err = encode_bshd(&p.k, k, B, S, H, D, st[3], st[4], st[5], BN);
+  if (err == 0) err = encode_bshd(&p.v, v, B, S, H, D, st[6], st[7], st[8], BN);
+  if (err == 0)
+    err = encode_bshd(&p.o, o, B, S, H, D, (long long)S * H * D, (long long)H * D, D, 64);
+  if (err != 0) return err;
+  const size_t smem = (size_t)NCH * BM * 128 + (size_t)2 * STAGES * NCH * BN * 128 +
+                      (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
+  auto kernel = enc_attn_kernel<WGS, BN, STAGES, W>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + BM - 1) / BM, H, B);
+  kernel<<<grid, 128 * WGS + 32, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -183,25 +171,34 @@ __global__ void __launch_bounds__(256) enc_attn_kernel(
 extern "C" {
 
 // q/k/v [B, S, H, D] bf16 with unit stride over D and element strides
-// (batch, seq, head); o is a contiguous [B, S, H, D] bf16 output.
-// S <= 1024, D <= 128, D % 8 == 0 (the wrapper checks).
-int slime_encoder_attention(const void* q, const void* k, const void* v, void* o,
-                            int B, int S, int H, int D,
-                            long long qb, long long qs, long long qh,
-                            long long kb, long long ks, long long kh,
-                            long long vb, long long vs, long long vh,
-                            float scale, void* stream) {
-  const int ld = D + 2;
-  const size_t smem = (size_t)(kTQ * ld + 2 * kTK * ld + kTQ * kLdp) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(enc_attn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kTQ - 1) / kTQ, H, B);
-  enc_attn_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, H, D,
-      qb, qs, qh, kb, ks, kh, vb, vs, vh, scale);
-  return (int)cudaGetLastError();
+// (batch, seq, head), 16-byte aligned; o is a contiguous [B, S, H, D] bf16
+// output. S <= 1024, D <= 128, D % 8 == 0 (the wrapper checks). variant 0 is
+// the production design; 1-3 are the P2 probe's others (D <= 64):
+//   0: 128 query rows (2 warpgroups), 64-key tiles, 2 stages
+//   1:  64 query rows (1 warpgroup),  64-key tiles, 2 stages
+//   2: 128 query rows, 128-key tiles, 2 stages
+//   3: 128 query rows,  64-key tiles, 3 stages
+int slime_encoder_attention(const void* q, const void* k, const void* v, void* o, int B, int S,
+                            int H, int D, long long qb, long long qs, long long qh,
+                            long long kb, long long ks, long long kh, long long vb,
+                            long long vs, long long vh, float scale, int variant,
+                            void* stream) {
+  if (S < 1 || S > 1024 || D < 8 || D > 128 || D % 8 || B > 65535 || H > 65535 ||
+      (variant != 0 && D > 64))
+    return (int)cudaErrorInvalidValue;
+  const long long st[9] = {qb, qs, qh, kb, ks, kh, vb, vs, vh};
+  EncParams p;
+  p.S = S;
+  p.scale = scale;
+  switch (variant) {
+    case 0:
+      return D <= 64 ? launch_enc<2, 64, 2, 64>(p, q, k, v, o, B, S, H, D, st, stream)
+                     : launch_enc<2, 64, 2, 128>(p, q, k, v, o, B, S, H, D, st, stream);
+    case 1: return launch_enc<1, 64, 2, 64>(p, q, k, v, o, B, S, H, D, st, stream);
+    case 2: return launch_enc<2, 128, 2, 64>(p, q, k, v, o, B, S, H, D, st, stream);
+    case 3: return launch_enc<2, 64, 3, 64>(p, q, k, v, o, B, S, H, D, st, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -22,36 +22,47 @@
 //     accumulated in fp32 and rounded once to bf16 at the end.
 // Every kernel also takes fp32 q/k/v/do (its *_f32 twin at the end of this
 // file, on the FFMA units): then p and ds are never rounded, and the outputs
-// are fp32. D is 128 in both.
-// Rows and keys past S are bound-checked on load (zero-filled), which is what
-// JAX's _zero_tail does for the TPU's ragged block padding.
+// are fp32. D is 128 (Llama-3-8B) or 256, in both dtypes.
+// Rows and keys past S read as zeros (TMA's out-of-bounds fill in the forward,
+// bound checks in the others), which is what JAX's _zero_tail does for the
+// TPU's ragged block padding; keys past S are masked.
 //
 // Design. What bounds attention at these shapes is tensor-core throughput
 // (S = 2048, D = 128: 256 flops per byte of q/k/v read). The TPU kernel's
 // grid order (b, i, h, j) and the lse read-modify-write across heads exist
 // for Mosaic's VMEM revisit rules; here a block owns one tile and loops:
-//   - forward and dQ: a block owns (64 query rows, head, batch) and loops over
-//     key tiles of 64 (causal: only up to the diagonal); heavy tiles launch
-//     first;
+//   - forward (bf16): Hopper's own shape (hopper_common.cuh). A block owns
+//     (128 query rows, q head, batch): one producer warp keeps TMA loads of
+//     K and V tiles (128 keys at D = 128, 64 at D = 256) in a 2-stage ring
+//     with full and empty mbarriers, and two consumer warpgroups of 64 rows
+//     each run S = Q.K^T as an SS wgmma, the online softmax in registers, and
+//     O += P.V as an RS wgmma with P straight from the score accumulator and V
+//     read MN-major (no transpose). Causal blocks visit key tiles up to the
+//     diagonal only and mask only the diagonal, ragged and segmented tiles;
+//     the heavy query tiles launch first. The epilogue stores O by TMA. The
+//     softmax does not overlap the products yet (FlashAttention-3's ping-pong
+//     is a later version);
+//   - dQ: a block owns (64 query rows, head, batch) and loops over key tiles
+//     of 64 (causal: only up to the diagonal); heavy tiles launch first;
 //   - dK/dV: a block owns (64 keys, kv head, batch) and loops over the query
 //     heads of its GQA group and over query tiles (causal: from the diagonal
 //     on). The group sum runs inside the block, so there is no [B, H, S, D]
 //     fp32 scratch and no separate reduction (JAX computes dK/dV per query
 //     head in fp32 and sums the group after the kernel, :385-386);
-//   - 4 warps of 16 rows each; every product is an mma.sync m16n8k16 bf16
-//     tile with fp32 accumulation (wgmma and TMA are for a later version).
-//     Q.K^T reuses the score accumulators as the A operand of P.V, as
-//     FlashAttention-2 does;
-//   - tiles are staged in shared memory with rows padded by 8 elements (16 B),
-//     so the fragment loads of a warp hit 32 distinct banks; operands that a
-//     product needs transposed (V for P.V, K for dS.K, Q and dO for the dK/dV
-//     products) are also stored transposed while loading;
+//   - dQ and dK/dV in bf16: 4 warps of 16 rows each; every product is an
+//     mma.sync m16n8k16 bf16 tile with fp32 accumulation; tiles are staged in
+//     shared memory with rows padded by 8 elements (16 B), so the fragment
+//     loads of a warp hit 32 distinct banks; operands that a product needs
+//     transposed (K for dS.K, Q and dO for the dK/dV products) are also stored
+//     transposed while loading. At D = 256 their accumulators spill to local
+//     memory (no path runs them yet);
 //   - q/k/v/do are read through (batch, head, sequence) element strides, so
 //     llama's [B, S, H, D] projections need no transpose copy; outputs are
 //     written through strides too. lse and delta are [B, H, S] fp32.
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -83,141 +94,151 @@ __device__ __forceinline__ bool attends(const A& a, int query, int key, int seg_
 }
 
 // ---------------------------------------------------------------------------
-// K5: forward
+// K5: forward (wgmma, TMA, mbarrier ring)
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<bf16> a) {
-  constexpr int LD = D + kPad, LDT = kTile + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);         // [kBlock][LD]
-  bf16* Ks = Qs + kBlock * LD;                      // [kTile][LD]
-  bf16* Vt = Ks + kTile * LD;                       // [D][LDT]
-  int* segk = reinterpret_cast<int*>(Vt + D * LDT); // [kTile]
+struct FwdParams {
+  CUtensorMap q, k, v, o;
+  float* lse;
+  const int* seg;
+  int H, KVH, S, causal;
+  float scale;
+};
 
-  const int S = a.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;   // diagonal-heavy first
+// One block per (128 query rows, q head, batch): consumer warpgroups 0 and 1
+// own 64 rows each, warp 8 is the producer. BN keys a tile: 128 at D = 128,
+// 64 at D = 256 so that the O accumulator (D / 2 fp32 a thread) and the
+// scores fit in registers.
+template <int D, int BN>
+__global__ void __launch_bounds__(288, 1) flash_fwd_kernel(const __grid_constant__ FwdParams p) {
+  constexpr int BM = 128, NCH = D / 64, STAGES = 2;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));    // [NCH][BM][64]
+  bf16* Ks = Qs + NCH * BM * 64;                                // [STAGES][NCH][BN][64]
+  bf16* Vs = Ks + STAGES * NCH * BN * 64;                       // [STAGES][NCH][BN][64]
+  int* segk = reinterpret_cast<int*>(Vs + STAGES * NCH * BN * 64);   // [STAGES][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(segk + STAGES * BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int S = p.S;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;           // diagonal-heavy first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.KVH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-
-  const bf16* qp = a.q + b * a.sq.b + h * a.sq.h;
-  const bf16* kp = a.k + b * a.sk.b + hk * a.sk.h;
-  const bf16* vp = a.v + b * a.sv.b + hk * a.sv.h;
-  const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
-
-  stage<D>(qp, a.sq.s, q0, S, Qs, nullptr);
+  const int hk = h / (p.H / p.KVH);
+  const int kend = p.causal ? min(S, q0 + BM) : S;
+  const int ntiles = (kend + BN - 1) / BN;
+  const int* segb = p.seg != nullptr ? p.seg + (long long)b * S : nullptr;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 32);                                  // the producer's lanes
+      mbar_init(&empty[i], 256);                                // every consumer thread
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qa[kk], Qs + wr * LD + kk * 16, LD, g, t);
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {                                                // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, NCH * BM * 128);
+      for (int c = 0; c < NCH; ++c) tma_load(Qs + c * BM * 64, &p.q, qbar, 64 * c, q0, h, b);
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES, k0 = j * BN;
+      mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+      // the tile's segment ids, published by each lane's arrive
+      if (segb != nullptr)
+        for (int i = lane; i < BN; i += 32) segk[st * BN + i] = k0 + i < S ? segb[k0 + i] : 0;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * NCH * BN * 128);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(Ks + (st * NCH + c) * BN * 64, &p.k, &full[st], 64 * c, k0, hk, b);
+          tma_load(Vs + (st * NCH + c) * BN * 64, &p.v, &full[st], 64 * c, k0, hk, b);
+        }
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x & 127, warp = t >> 5, g = (t & 31) >> 2, tq = t & 3;
+  const int qw = q0 + 64 * wg;                                  // this warpgroup's first row
+  const int row0 = qw + 16 * warp + g, row1 = row0 + 8;
+  // causal: the last tile the block loads may lie wholly above this warpgroup's rows
+  const int my_tiles = ((p.causal ? min(S, qw + 64) : S) + BN - 1) / BN;
   int seg0 = 0, seg1 = 0;
   if (segb != nullptr) {
     seg0 = row0 < S ? segb[row0] : 0;
     seg1 = row1 < S ? segb[row1] : 0;
   }
-
-  float o[D / 8][4];
+  bf16* Qw = Qs + 64 * wg * 64;
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  mbar_wait(qbar, 0);
 
-  const int kend = a.causal ? min(S, q0 + kBlock) : S;
-  const int ntiles = (kend + kTile - 1) / kTile;
   for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();                              // the previous tile is consumed
-    stage<D>(kp, a.sk.s, k0, S, Ks, nullptr);
-    stage<D>(vp, a.sv.s, k0, S, nullptr, Vt);
-    stage_ids(segk, segb, k0, S);
-    __syncthreads();
-
-    float s[kTile / 8][4];
+    const int st = j % STAGES, k0 = j * BN;
+    mbar_wait(&full[st], (j / STAGES) & 1);
+    if (j < my_tiles) {
+      float s[BN / 2];
+      qk_product<D, BN>(s, Qw, BM, Ks + st * NCH * BN * 64);
+      // only tiles on the diagonal, at the ragged end or with segments mask;
+      // scores and m are kept in log2 units (x log2(e)) so that each exp is
+      // one exp2
+      const bool edge = segb != nullptr || k0 + BN > S || (p.causal && k0 + BN - 1 > qw);
+      const float scale2 = p.scale * kLog2e;
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Ks + n * 8 * LD + kk * 16, LD, g, t);
-        mma16816(s[n], qa[kk], b0, b1);
+      for (int i = 0; i < BN / 2; ++i) {
+        float x = s[i] * scale2;
+        if (edge) {
+          const int col = 8 * (i >> 2) + 2 * tq + (i & 1), key = k0 + col;
+          const int row = (i & 2) ? row1 : row0;
+          bool ok = key < S && row < S;
+          if (p.causal) ok = ok && key <= row;
+          if (segb != nullptr) ok = ok && ((i & 2) ? seg1 : seg0) == segk[st * BN + col];
+          if (!ok) x = kNegInf;
+        }
+        s[i] = x;
+        if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
       }
-    }
-
-    float mx0 = kNegInf, mx1 = kNegInf;
+      const float mn0 = fmaxf(m0, quad_max4(mx0)), mn1 = fmaxf(m1, quad_max4(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n * 8 + 2 * t + (i & 1);
-        const bool ok = i < 2 ? attends(a, row0, k0 + col, seg0, segk[col])
-                              : attends(a, row1, k0 + col, seg1, segk[col]);
-        const float x = ok ? s[n][i] * a.scale : kNegInf;
-        s[n][i] = x;
-        if (i < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      for (int i = 0; i < BN / 2; ++i) {
+        const float e = exp2f(s[i] - ((i & 2) ? mn1 : mn0));
+        s[i] = e;
+        if (i & 2) ls1 += e; else ls0 += e;
       }
+      // per-lane partial row sums; the quad adds them up at the end
+      l0 = l0 * al0 + ls0;
+      l1 = l1 * al1 + ls1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a_frag(pa[kk], s, kk);
+      pv_product<D, BN>(o, pa, Vs + st * NCH * BN * 64);
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[n][i] - (i < 2 ? mn0 : mn1));
-        s[n][i] = p;
-        if (i < 2) ls0 += p; else ls1 += p;
-      }
-    }
-    // per-lane partial row sums; the quad adds them up at the end
-    l0 = l0 * al0 + ls0;
-    l1 = l1 * al1 + ls1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= al0; o[n][1] *= al0;
-      o[n][2] *= al1; o[n][3] *= al1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Vt + n * 8 * LDT + kk * 16, LDT, g, t);
-        mma16816(o[n], pa, b0, b1);
-      }
-    }
+    mbar_arrive(&empty[st]);
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+  l0 = quad_sum4(l0);
+  l1 = quad_sum4(l1);
   const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
-  bf16* op = a.out + b * a.so.b + h * a.so.h;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(op + row0 * a.so.s + col) =
-          __floats2bfloat162_rn(o[n][0] / d0, o[n][1] / d0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(op + row1 * a.so.s + col) =
-          __floats2bfloat162_rn(o[n][2] / d1, o[n][3] / d1);
+  if (tq == 0) {
+    float* lp = p.lse + ((long long)b * p.H + h) * S;
+    if (row0 < S) lp[row0] = m0 / kLog2e + logf(d0);
+    if (row1 < S) lp[row1] = m1 / kLog2e + logf(d1);
   }
-  if (t == 0) {
-    float* lp = a.lse + ((long long)b * a.H + h) * S;
-    if (row0 < S) lp[row0] = m0 + logf(d0);
-    if (row1 < S) lp[row1] = m1 + logf(d1);
-  }
+  store_rows<D>(o, d0, d1, Qw, BM, &p.o, qw, h, b, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -504,12 +525,12 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// Rows [r0, r0 + 64) of one head's [S, D] fp32 matrix (row stride rs) into
-// dst [64][D + 1]; rows at or past S are 0.
-template <int D>
+// Rows [r0, r0 + R) of one head's [S, D] fp32 matrix (row stride rs) into
+// dst [R][D + 1]; rows at or past S are 0.
+template <int D, int R = kTile>
 __device__ __forceinline__ void stage_f32(const float* src, long long rs, int r0, int S,
                                           float* dst) {
-  for (int e = threadIdx.x; e < kTile * D; e += kF32Threads) {
+  for (int e = threadIdx.x; e < R * D; e += kF32Threads) {
     const int r = e / D, c = e % D;
     dst[r * (D + 1) + c] = r0 + r < S ? src[(long long)(r0 + r) * rs + c] : 0.f;
   }
@@ -627,19 +648,19 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Args<f
   }
 }
 
-template <int D>
+template <int D, int BR>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Args<float> a) {
-  constexpr int LD = D + 1, NO = D / 16;
+  constexpr int LD = D + 1, NO = D / 16, R = BR / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);              // [kBlock][LD]
-  float* dOs = Qs + kBlock * LD;                           // [kBlock][LD]
-  float* Ks = dOs + kBlock * LD;                           // [kTile][LD]
+  float* Qs = reinterpret_cast<float*>(smem);              // [BR][LD]
+  float* dOs = Qs + BR * LD;                               // [BR][LD]
+  float* Ks = dOs + BR * LD;                               // [kTile][LD]
   float* Vs = Ks + kTile * LD;                             // [kTile][LD]
-  float* DSs = Vs + kTile * LD;                            // [kBlock][kLdp]
-  int* segk = reinterpret_cast<int*>(DSs + kBlock * kLdp); // [kTile]
+  float* DSs = Vs + kTile * LD;                            // [BR][kLdp]
+  int* segk = reinterpret_cast<int*>(DSs + BR * kLdp);     // [kTile]
 
   const int S = a.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.KVH);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
@@ -648,13 +669,13 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
   const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
   const long long bh = ((long long)b * a.H + h) * S;
 
-  stage_f32<D>(a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, S, Qs);
-  stage_f32<D>(a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, S, dOs);
-  int row[kRows], segr[kRows];
-  float lse[kRows], dl[kRows], dq[kRows][NO];
+  stage_f32<D, BR>(a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, S, Qs);
+  stage_f32<D, BR>(a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, S, dOs);
+  int row[R], segr[R];
+  float lse[R], dl[R], dq[R][NO];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    row[i] = q0 + ty * kRows + i;
+  for (int i = 0; i < R; ++i) {
+    row[i] = q0 + ty * R + i;
     const bool in = row[i] < S;
     segr[i] = segb != nullptr && in ? segb[row[i]] : 0;
     lse[i] = in ? a.lse[bh + row[i]] : 0.f;
@@ -663,7 +684,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
     for (int n = 0; n < NO; ++n) dq[i][n] = 0.f;
   }
 
-  const int kend = a.causal ? min(S, q0 + kBlock) : S;
+  const int kend = a.causal ? min(S, q0 + BR) : S;
   const int ntiles = (kend + kTile - 1) / kTile;
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = j * kTile;
@@ -673,18 +694,18 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
     stage_ids(segk, segb, k0, S);
     __syncthreads();
 
-    float s[kRows][kCols], dp[kRows][kCols];
+    float s[R][kCols], dp[R][kCols];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[kRows], dov[kRows], kv[kCols], vv[kCols];
+      float qv[R], dov[R], kv[kCols], vv[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = Qs[(ty * kRows + i) * LD + d];
-        dov[i] = dOs[(ty * kRows + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        qv[i] = Qs[(ty * R + i) * LD + d];
+        dov[i] = dOs[(ty * R + i) * LD + d];
       }
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -692,7 +713,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
         vv[c] = Vs[(tx + 16 * c) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
@@ -700,24 +721,24 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
         }
     }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int col = tx + 16 * c;
         const float p = attends(a, row[i], k0 + col, segr[i], segk[col])
                             ? expf(s[i][c] * a.scale - lse[i]) : 0.f;
-        DSs[(ty * kRows + i) * kLdp + col] = p * (dp[i][c] - dl[i]) * a.scale;
+        DSs[(ty * R + i) * kLdp + col] = p * (dp[i][c] - dl[i]) * a.scale;
       }
     __syncwarp();
 #pragma unroll 4
     for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[kRows], kv[NO];
+      float dsv[R], kv[NO];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) dsv[i] = DSs[(ty * kRows + i) * kLdp + kk];
+      for (int i = 0; i < R; ++i) dsv[i] = DSs[(ty * R + i) * kLdp + kk];
 #pragma unroll
       for (int n = 0; n < NO; ++n) kv[n] = Ks[kk * LD + tx + 16 * n];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int n = 0; n < NO; ++n) dq[i][n] = fmaf(dsv[i], kv[n], dq[i][n]);
     }
@@ -725,40 +746,40 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Arg
 
   float* dqp = a.dq + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (row[i] >= S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) dqp[row[i] * a.sdq.s + tx + 16 * n] = dq[i][n];
   }
 }
 
-template <int D>
+template <int D, int BR>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const Args<float> a) {
-  constexpr int LD = D + 1, NO = D / 16;
+  constexpr int LD = D + 1, NO = D / 16, R = BR / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);              // [kBlock][LD]
-  float* Vs = Ks + kBlock * LD;                            // [kBlock][LD]
-  float* Qs = Vs + kBlock * LD;                            // [kTile][LD]
+  float* Ks = reinterpret_cast<float*>(smem);              // [BR][LD]
+  float* Vs = Ks + BR * LD;                                // [BR][LD]
+  float* Qs = Vs + BR * LD;                                // [kTile][LD]
   float* dOs = Qs + kTile * LD;                            // [kTile][LD]
-  float* PT = dOs + kTile * LD;                             // [kBlock][kLdp]: p^T
-  float* DST = PT + kBlock * kLdp;                         // [kBlock][kLdp]: ds^T
-  float* lse_s = DST + kBlock * kLdp;                      // [kTile]
+  float* PT = dOs + kTile * LD;                             // [BR][kLdp]: p^T
+  float* DST = PT + BR * kLdp;                             // [BR][kLdp]: ds^T
+  float* lse_s = DST + BR * kLdp;                          // [kTile]
   float* dl_s = lse_s + kTile;                             // [kTile]
   int* segq = reinterpret_cast<int*>(dl_s + kTile);        // [kTile]
 
   const int S = a.S;
-  const int k0 = blockIdx.x * kBlock;                      // causal: low keys are heavy
+  const int k0 = blockIdx.x * BR;                          // causal: low keys are heavy
   const int hk = blockIdx.y, b = blockIdx.z;
   const int group = a.H / a.KVH;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
-  stage_f32<D>(a.k + b * a.sk.b + hk * a.sk.h, a.sk.s, k0, S, Ks);
-  stage_f32<D>(a.v + b * a.sv.b + hk * a.sv.h, a.sv.s, k0, S, Vs);
-  int key[kRows], segr[kRows];
-  float dk[kRows][NO], dv[kRows][NO];
+  stage_f32<D, BR>(a.k + b * a.sk.b + hk * a.sk.h, a.sk.s, k0, S, Ks);
+  stage_f32<D, BR>(a.v + b * a.sv.b + hk * a.sv.h, a.sv.s, k0, S, Vs);
+  int key[R], segr[R];
+  float dk[R][NO], dv[R][NO];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    key[i] = k0 + ty * kRows + i;
+  for (int i = 0; i < R; ++i) {
+    key[i] = k0 + ty * R + i;
     segr[i] = segb != nullptr && key[i] < S ? segb[key[i]] : 0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) dk[i][n] = dv[i][n] = 0.f;
@@ -784,18 +805,18 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const A
       stage_ids(segq, segb, q0, S);
       __syncthreads();
 
-      float st[kRows][kCols], dpt[kRows][kCols];   // S^T and dP^T: keys x queries
+      float st[R][kCols], dpt[R][kCols];   // S^T and dP^T: keys x queries
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) st[i][c] = dpt[i][c] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[kRows], vv[kRows], qv[kCols], dov[kCols];
+        float kv[R], vv[R], qv[kCols], dov[kCols];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          kv[i] = Ks[(ty * kRows + i) * LD + d];
-          vv[i] = Vs[(ty * kRows + i) * LD + d];
+        for (int i = 0; i < R; ++i) {
+          kv[i] = Ks[(ty * R + i) * LD + d];
+          vv[i] = Vs[(ty * R + i) * LD + d];
         }
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -803,7 +824,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const A
           dov[c] = dOs[(tx + 16 * c) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
@@ -811,23 +832,23 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const A
           }
       }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int col = tx + 16 * c;              // query within the tile
           const float p = attends(a, q0 + col, key[i], segq[col], segr[i])
                               ? expf(st[i][c] * a.scale - lse_s[col]) : 0.f;
-          PT[(ty * kRows + i) * kLdp + col] = p;
-          DST[(ty * kRows + i) * kLdp + col] = p * (dpt[i][c] - dl_s[col]) * a.scale;
+          PT[(ty * R + i) * kLdp + col] = p;
+          DST[(ty * R + i) * kLdp + col] = p * (dpt[i][c] - dl_s[col]) * a.scale;
         }
       __syncwarp();
 #pragma unroll 2
       for (int qq = 0; qq < kTile; ++qq) {
-        float pv[kRows], dsv[kRows], dov[NO], qv[NO];
+        float pv[R], dsv[R], dov[NO], qv[NO];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          pv[i] = PT[(ty * kRows + i) * kLdp + qq];
-          dsv[i] = DST[(ty * kRows + i) * kLdp + qq];
+        for (int i = 0; i < R; ++i) {
+          pv[i] = PT[(ty * R + i) * kLdp + qq];
+          dsv[i] = DST[(ty * R + i) * kLdp + qq];
         }
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
@@ -835,7 +856,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const A
           qv[n] = Qs[qq * LD + tx + 16 * n];
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int n = 0; n < NO; ++n) {
             dv[i][n] = fmaf(pv[i], dov[n], dv[i][n]);
@@ -848,7 +869,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(const A
   float* dkp = a.dk + b * a.sdk.b + hk * a.sdk.h;
   float* dvp = a.dv + b * a.sdv.b + hk * a.sdv.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (key[i] >= S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -870,18 +891,17 @@ int launch(Kernel kernel, int threads, size_t smem, dim3 grid, const A& a, void*
   return (int)cudaGetLastError();
 }
 
-// bytes of the bf16 kernels' staged tiles: row-major [64][D + kPad] and
-// transposed [D][64 + kPad]
+// bytes of the bf16 backward kernels' staged tiles: row-major [64][D + kPad]
+// and transposed [D][64 + kPad]
 template <int D>
 size_t tile_bytes(int row_tiles, int col_tiles) {
   return (size_t)(row_tiles * kTile * (D + kPad) + col_tiles * D * (kTile + kPad)) *
          sizeof(bf16);
 }
 
-// bytes of the fp32 kernels' staged [64][D + 1] tiles and [64][65] p / ds tiles
-template <int D>
-size_t f32_bytes(int row_tiles, int p_tiles) {
-  return (size_t)(row_tiles * kTile * (D + 1) + p_tiles * kBlock * kLdp) * sizeof(float);
+// bytes of the fp32 kernels' staged [rows][D + 1] tiles and [p_rows][65] p / ds tiles
+size_t f32_bytes(int D, int rows, int p_rows) {
+  return (size_t)(rows * (D + 1) + p_rows * kLdp) * sizeof(float);
 }
 
 Mat mat(const long long* s, int i) { return Mat{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
@@ -903,28 +923,60 @@ Args<T> base_args(const void* q, const void* k, const void* v, const long long* 
   return a;
 }
 
+// D = 128 (Llama-3-8B) or 256; other head dims are ROADMAP Queue 3
 bool bad_shape(int B, int H, int KVH, int S, int D) {
-  return B < 1 || B > 65535 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535 || D != 128;
+  return B < 1 || B > 65535 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535 ||
+         (D != 128 && D != 256);
 }
 
-template <typename T>
-int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-            const void* seg, const long long* strides, int B, int H, int KVH, int S,
-            int causal, float scale, void* stream) {
-  Args<T> a = base_args<T>(q, k, v, strides, H, KVH, S, causal, scale, seg);
-  a.out = (T*)out;
+// The bf16 forward: tensor maps of q, k, v (boxes of 128 query / BN key
+// rows) and out (64 rows, one warpgroup's store), then the launch.
+template <int D, int BN>
+int run_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
+                  const void* seg, const long long* st, int B, int H, int KVH, int S,
+                  int causal, float scale, void* stream) {
+  constexpr int NCH = D / 64, STAGES = 2;
+  FwdParams p;
+  // st: (batch, head, seq) element strides of q, k, v, out
+  int err = encode_bshd(&p.q, q, B, S, H, D, st[0], st[2], st[1], 128);
+  if (err == 0) err = encode_bshd(&p.k, k, B, S, KVH, D, st[3], st[5], st[4], BN);
+  if (err == 0) err = encode_bshd(&p.v, v, B, S, KVH, D, st[6], st[8], st[7], BN);
+  if (err == 0) err = encode_bshd(&p.o, out, B, S, H, D, st[9], st[11], st[10], 64);
+  if (err != 0) return err;
+  p.lse = (float*)lse;
+  p.seg = (const int*)seg;
+  p.H = H;
+  p.KVH = KVH;
+  p.S = S;
+  p.causal = causal;
+  p.scale = scale;
+  const size_t smem = (size_t)NCH * 128 * 128 + (size_t)2 * STAGES * NCH * BN * 128 +
+                      STAGES * BN * sizeof(int) + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
+  auto kernel = flash_fwd_kernel<D, BN>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((S + 127) / 128, H, B), 288, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int run_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+                const void* seg, const long long* strides, int B, int H, int KVH, int S,
+                int causal, float scale, void* stream) {
+  Args<float> a = base_args<float>(q, k, v, strides, H, KVH, S, causal, scale, seg);
+  a.out = (float*)out;
   a.lse = (float*)lse;
   a.so = mat(strides, 3);
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  if constexpr (std::is_same<T, float>::value)
-    return launch(flash_fwd_f32_kernel<128>, kF32Threads,
-                  f32_bytes<128>(3, 1) + kTile * sizeof(int), grid, a, stream);
-  else
-    return launch(flash_fwd_kernel<128>, kThreads,
-                  tile_bytes<128>(2, 1) + kTile * sizeof(int), grid, a, stream);
+  return launch(flash_fwd_f32_kernel<D>, kF32Threads,
+                f32_bytes(D, kBlock + 2 * kTile, kBlock) + kTile * sizeof(int),
+                dim3((S + kBlock - 1) / kBlock, H, B), a, stream);
 }
 
-template <typename T>
+// dK/dV: the bf16 mma.sync kernel (at D = 256 its two [64 keys][256] fp32
+// accumulators spill to local memory), the fp32 FFMA kernel with 64 keys a
+// block at D = 128 and 32 at D = 256 (shared memory)
+template <typename T, int D>
 int run_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, const void* seg, void* dk, void* dv,
              const long long* strides, int B, int H, int KVH, int S, int causal,
@@ -936,17 +988,20 @@ int run_dkdv(const void* q, const void* k, const void* v, const void* dout,
   a.dk = (T*)dk;
   a.dv = (T*)dv;
   a.sdo = mat(strides, 3); a.sdk = mat(strides, 4); a.sdv = mat(strides, 5);
-  const dim3 grid((S + kBlock - 1) / kBlock, KVH, B);
   const size_t extra = 2 * kTile * sizeof(float) + kTile * sizeof(int);
-  if constexpr (std::is_same<T, float>::value)
-    return launch(flash_bwd_dkdv_f32_kernel<128>, kF32Threads, f32_bytes<128>(4, 2) + extra,
-                  grid, a, stream);
-  else
-    return launch(flash_bwd_dkdv_kernel<128>, kThreads, tile_bytes<128>(4, 2) + extra, grid,
-                  a, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int BR = D == 128 ? 64 : 32;
+    return launch(flash_bwd_dkdv_f32_kernel<D, BR>, kF32Threads,
+                  f32_bytes(D, 2 * BR + 2 * kTile, 2 * BR) + extra,
+                  dim3((S + BR - 1) / BR, KVH, B), a, stream);
+  } else {
+    return launch(flash_bwd_dkdv_kernel<D>, kThreads, tile_bytes<D>(4, 2) + extra,
+                  dim3((S + kBlock - 1) / kBlock, KVH, B), a, stream);
+  }
 }
 
-template <typename T>
+// dQ: as dK/dV, with 32 query rows a block for the fp32 kernel at D = 256
+template <typename T, int D>
 int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, const void* seg, void* dq, const long long* strides, int B,
            int H, int KVH, int S, int causal, float scale, void* stream) {
@@ -956,13 +1011,15 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
   a.delta = (const float*)delta;
   a.dq = (T*)dq;
   a.sdo = mat(strides, 3); a.sdq = mat(strides, 4);
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  if constexpr (std::is_same<T, float>::value)
-    return launch(flash_bwd_dq_f32_kernel<128>, kF32Threads,
-                  f32_bytes<128>(4, 1) + kTile * sizeof(int), grid, a, stream);
-  else
-    return launch(flash_bwd_dq_kernel<128>, kThreads,
-                  tile_bytes<128>(4, 1) + kTile * sizeof(int), grid, a, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int BR = D == 128 ? 64 : 32;
+    return launch(flash_bwd_dq_f32_kernel<D, BR>, kF32Threads,
+                  f32_bytes(D, 2 * BR + 2 * kTile, BR) + kTile * sizeof(int),
+                  dim3((S + BR - 1) / BR, H, B), a, stream);
+  } else {
+    return launch(flash_bwd_dq_kernel<D>, kThreads, tile_bytes<D>(4, 1) + kTile * sizeof(int),
+                  dim3((S + kBlock - 1) / kBlock, H, B), a, stream);
+  }
 }
 
 }  // namespace
@@ -970,18 +1027,23 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
 extern "C" {
 
 // q [B, H, S, D], k/v [B, KVH, S, D], all bf16 (fp32 == 0) or all fp32
-// (fp32 == 1), unit stride over D; `strides` holds (batch, head, seq) element
-// strides of q, k, v, out. out has q's shape and dtype; lse is a contiguous
-// [B, H, S] fp32 output; seg is a contiguous [B, S] int32 array or null. D is
-// 128 (every Llama-family model here).
+// (fp32 == 1), unit stride over D, 16-byte aligned; `strides` holds (batch,
+// head, seq) element strides of q, k, v, out. out has q's shape and dtype; lse
+// is a contiguous [B, H, S] fp32 output; seg is a contiguous [B, S] int32
+// array or null. D is 128 (every Llama-family model here) or 256.
 int slime_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                     const void* seg, const long long* strides, int B, int H, int KVH,
                     int S, int D, int fp32, int causal, float scale, void* stream) {
   if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
-  return fp32 ? run_fwd<float>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal, scale,
-                               stream)
-              : run_fwd<bf16>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal, scale,
-                              stream);
+  if (fp32)
+    return D == 128 ? run_fwd_f32<128>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal,
+                                       scale, stream)
+                    : run_fwd_f32<256>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal,
+                                       scale, stream);
+  return D == 128 ? run_fwd_wgmma<128, 128>(q, k, v, out, lse, seg, strides, B, H, KVH, S,
+                                            causal, scale, stream)
+                  : run_fwd_wgmma<256, 64>(q, k, v, out, lse, seg, strides, B, H, KVH, S,
+                                           causal, scale, stream);
 }
 
 // dk/dv [B, KVH, S, D] in the inputs' dtype from q, k, v, do (strides of q,
@@ -991,10 +1053,11 @@ int slime_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void
                          void* dv, const long long* strides, int B, int H, int KVH,
                          int S, int D, int fp32, int causal, float scale, void* stream) {
   if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
-  return fp32 ? run_dkdv<float>(q, k, v, dout, lse, delta, seg, dk, dv, strides, B, H, KVH,
-                                S, causal, scale, stream)
-              : run_dkdv<bf16>(q, k, v, dout, lse, delta, seg, dk, dv, strides, B, H, KVH,
-                               S, causal, scale, stream);
+#define SLIME_DKDV(T, DD) run_dkdv<T, DD>(q, k, v, dout, lse, delta, seg, dk, dv, strides, \
+                                         B, H, KVH, S, causal, scale, stream)
+  if (fp32) return D == 128 ? SLIME_DKDV(float, 128) : SLIME_DKDV(float, 256);
+  return D == 128 ? SLIME_DKDV(bf16, 128) : SLIME_DKDV(bf16, 256);
+#undef SLIME_DKDV
 }
 
 // dq [B, H, S, D] in the inputs' dtype from the same inputs (strides of q,
@@ -1004,10 +1067,11 @@ int slime_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
                        const long long* strides, int B, int H, int KVH, int S, int D,
                        int fp32, int causal, float scale, void* stream) {
   if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
-  return fp32 ? run_dq<float>(q, k, v, dout, lse, delta, seg, dq, strides, B, H, KVH, S,
-                              causal, scale, stream)
-              : run_dq<bf16>(q, k, v, dout, lse, delta, seg, dq, strides, B, H, KVH, S,
-                             causal, scale, stream);
+#define SLIME_DQ(T, DD) run_dq<T, DD>(q, k, v, dout, lse, delta, seg, dq, strides, B, H, KVH, \
+                                     S, causal, scale, stream)
+  if (fp32) return D == 128 ? SLIME_DQ(float, 128) : SLIME_DQ(float, 256);
+  return D == 128 ? SLIME_DQ(bf16, 128) : SLIME_DQ(bf16, 256);
+#undef SLIME_DQ
 }
 
 }  // extern "C"

@@ -369,6 +369,13 @@ int slime_gate_up_gemv(int wfmt, const void* h, int B, int K, const void* wg, co
   return (int)cudaGetLastError();
 }
 
-const char* slime_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+// cudaError_t's text, or that of the TMA tensor-map helpers' codes
+// (hopper_common.cuh: 20000 no cuTensorMapEncodeTiled entry point, 20001 + a
+// CUresult when it refused a map)
+const char* slime_error_string(int err) {
+  if (err == 20000) return "cuTensorMapEncodeTiled: no driver entry point";
+  if (err > 20000) return "cuTensorMapEncodeTiled refused the tensor map (code - 20001 is its CUresult)";
+  return cudaGetErrorString((cudaError_t)err);
+}
 
 }  // extern "C"

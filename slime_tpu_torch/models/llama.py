@@ -109,9 +109,11 @@ def _layer(layers, i):
 _ROPE_CACHE: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def rope_table(cfg: LLMConfig, max_len: int, device="cpu"):
+def rope_table(cfg: LLMConfig, max_len: int, device=None):
     """(cos, sin) [max_len, head_dim] fp32, HF half-rotation layout, built in
-    fp32 as ``llama.py:78-85``; cached per (theta, head_dim, length, device)."""
+    fp32 as ``llama.py:78-85``; cached per (theta, head_dim, length, device).
+    ``device`` defaults to the current CUDA device (``layers.resolve_device``)."""
+    device = L.resolve_device(device)
     key = (cfg.rope_theta, cfg.head_dim, max_len, str(device))
     if key not in _ROPE_CACHE:
         hd = cfg.head_dim

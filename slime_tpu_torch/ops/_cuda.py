@@ -36,13 +36,14 @@ _SIGNATURES = {
     "slime_resid_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "slime_gate_up_gemv": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
-                               + [_LL] * 9 + [_F, _P],
+                               + [_LL] * 9 + [_F, _I, _P],
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_ring_attend": [_P] * 7 + [_LLP] + [_I] * 9 + [_F, _P],
     "slime_quant_matmul": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_w8a8_matmul": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "slime_hopper_selftest": [_P] * 6,
 }
 
 # the loaded library, and the seconds nvcc took if this process built it
@@ -131,6 +132,25 @@ def require_cuda(*tensors: torch.Tensor) -> None:
                              f"{dev}, got {[str(x.device) for x in tensors]}")
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t`` with TMA tiles (or 16-byte loads):
+    unit stride over the last dim, 16-byte aligned data, and the stride of
+    every other dim longer than 1 a multiple of 16 bytes. A pure function of
+    the tensor's layout, so CPU tests can check it."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def tma_strides(t: torch.Tensor, dims):
+    """Element strides of ``t`` over ``dims``; a dim of length 1 (always at
+    coordinate 0) gets a 16-byte multiple instead of whatever torch gave it,
+    so the tensor map takes it."""
+    fill = -(-t.numel() // 8) * 8
+    return [t.stride(d) if t.shape[d] > 1 else fill for d in dims]
+
+
 def longs(values):
     """A C array of 64-bit ints (the stride tables the flash kernels take)."""
     return (ctypes.c_longlong * len(values))(*values)
@@ -139,3 +159,21 @@ def longs(values):
 def ptr(t):
     """Device pointer of ``t`` (None for a missing optional tensor)."""
     return None if t is None else t.data_ptr()
+
+
+def hopper_selftest(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
+    """Run ``csrc/hopper_selftest.cu`` on contiguous bf16 a, b [64, 64] and v
+    [64, 128] on the card -> (s = a . b^T [64, 64], o = bf16(s) . v [64, 128])
+    in fp32: one TMA load, SS and RS wgmma and the accumulator-to-fragment
+    step of the attention kernels' tile vocabulary (``hopper_common.cuh``)."""
+    require_cuda(a, b, v)
+    for t, shape in ((a, (64, 64)), (b, (64, 64)), (v, (64, 128))):
+        if t.shape != shape or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"hopper_selftest takes contiguous bf16 {shape}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    s = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    o = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    check(library().slime_hopper_selftest(a.data_ptr(), b.data_ptr(), v.data_ptr(),
+                                          s.data_ptr(), o.data_ptr(), stream()),
+          "hopper_selftest")
+    return s, o

@@ -5,8 +5,9 @@ Port of ``slime_tpu/ops/encoder_attention.py``. The TPU kernel (K4,
 replaces the softmax's row-max subtract with a clamp, ``exp(min(s, 80))``: the
 result equals the stabilized softmax unless a score exceeds 80, and fp32 cannot
 overflow (1024 * e^80 < fp32 max). The Hopper kernel
-(``csrc/encoder_attention.cu``) keeps those semantics; ``encoder_attention_ref``
-is the same math in plain PyTorch.
+(``csrc/encoder_attention.cu``: TMA tiles in an mbarrier ring, both products
+as ``wgmma``) keeps those semantics; ``encoder_attention_ref`` is the same math
+in plain PyTorch.
 
 The gradient is JAX's (``_enc_bwd``, :133-138): the backward recomputes the
 attention through the plain stabilized softmax (``stable_attention``, JAX's
@@ -28,6 +29,12 @@ from . import _cuda
 MAX_SEQ = 1024          # the TPU kernel's single-tile gate (encoder_attention.py:164-171)
 MAX_HEAD_DIM = 128
 CLAMP = 80.0
+# the kernel's designs (csrc/encoder_attention.cu): 0 is the production one;
+# 1-3 are the P2 probe's others (slime_tpu_torch/probes/encoder_attention.py)
+VARIANTS = {0: "128 query rows (2 warpgroups), 64-key tiles, 2 stages",
+            1: "64 query rows (1 warpgroup), 64-key tiles, 2 stages",
+            2: "128 query rows, 128-key tiles, 2 stages",
+            3: "128 query rows, 64-key tiles, 3 stages"}
 
 
 def encoder_attention_ref(q, k, v, *, scale: Optional[float] = None):
@@ -81,35 +88,56 @@ def encoder_attention(q, k, v, *, scale: Optional[float] = None):
     """Bidirectional attention, q/k/v [B, S, H, D] -> [B, S, H, D].
 
     CPU tensors take ``encoder_attention_ref``. CUDA tensors launch the kernel
-    (bf16, unit stride over D, S <= 1024, D <= 128, D % 8 == 0) or raise.
+    (``kernel_input_error`` says what it takes) or raise.
     Under autograd the gradient is that of ``stable_attention``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _Enc.apply(q, k, v, scale)
 
 
+def kernel_input_error(q, k, v) -> Optional[str]:
+    """Why the kernel cannot take q/k/v (None if it can): bf16 [B, S, H, D]
+    of one shape, S <= 1024, D <= 128, D % 8 == 0, and a layout TMA reads
+    (``_cuda.tma_ready``: unit stride over D, 16-byte aligned data and
+    strides). Devices are not checked: a pure function of shapes, dtypes and
+    layouts."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        return f"q/k/v shapes differ or are not [B, S, H, D]: {q.shape}, {k.shape}, {v.shape}"
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        return "encoder_attention kernel takes bf16 q/k/v"
+    S, D = q.shape[1], q.shape[3]
+    if S > MAX_SEQ or D > MAX_HEAD_DIM or D % 8:
+        return (f"encoder_attention kernel takes S <= {MAX_SEQ}, D <= {MAX_HEAD_DIM}, "
+                f"D % 8 == 0; got S={S}, D={D}")
+    if not all(_cuda.tma_ready(t) for t in (q, k, v)):
+        return ("encoder_attention kernel reads q/k/v by TMA: unit stride over D, "
+                "16-byte aligned data and strides")
+    return None
+
+
+def encoder_attention_kernel(q, k, v, *, scale: float, variant: int = 0):
+    """Launch K4 (design ``variant``, see ``VARIANTS``) on CUDA q/k/v or
+    raise; counts ``encoder_attention.launches``."""
+    _cuda.require_cuda(q, k, v)
+    err = kernel_input_error(q, k, v)
+    if err is not None:
+        raise ValueError(err)
+    B, S, H, D = q.shape
+    if variant not in VARIANTS or (variant and D > 64):
+        raise ValueError(f"encoder_attention variant {variant}: 0 takes D <= 128, 1-3 D <= 64")
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    strides = [st for t in (q, k, v) for st in _cuda.tma_strides(t, (0, 1, 2))]
+    _cuda.check(_cuda.library().slime_encoder_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, D, *strides, scale, variant, _cuda.stream()), "encoder_attention")
+    encoder_attention.launches += 1
+    return out
+
+
 def _forward(q, k, v, scale: float):
     if q.device.type == "cpu":
         return encoder_attention_ref(q, k, v, scale=scale)
-    _cuda.require_cuda(q, k, v)
-    B, S, H, D = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v shapes differ: {q.shape}, {k.shape}, {v.shape}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError("encoder_attention kernel takes bf16 q/k/v")
-    if S > MAX_SEQ or D > MAX_HEAD_DIM or D % 8:
-        raise ValueError(f"encoder_attention kernel takes S <= {MAX_SEQ}, "
-                         f"D <= {MAX_HEAD_DIM}, D % 8 == 0; got S={S}, D={D}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("encoder_attention kernel needs unit stride over D")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lib = _cuda.library()
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    _cuda.check(lib.slime_encoder_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, D, *strides, scale, _cuda.stream()), "encoder_attention")
-    encoder_attention.launches += 1
-    return out
+    return encoder_attention_kernel(q, k, v, scale=scale)
 
 
 encoder_attention.launches = 0

@@ -33,16 +33,20 @@ k's dtype before dK / dQ; all products accumulate in fp32. A query attends a
 key only under causality (when ``causal``) and, with ``segment_ids`` [B, S],
 only when both carry the same id (sequence packing).
 
-The kernels take q/k/v/do all bf16 (``mma.sync`` tiles, p and ds rounded to
-bf16 as above) or all fp32 (FFMA tiles with no TF32 and no rounding: what
-JAX's interpret-mode kernels compute for fp32, and what ``llama.forward``'s
-default fp32 compute dtype sends them), at D = 128; outputs come back in the
-inputs' dtype.
+The kernels take q/k/v/do all bf16 (p and ds rounded to bf16 as above: the
+forward is a Hopper ``wgmma`` kernel fed by TMA through an mbarrier ring, the
+backward pair ``mma.sync`` tiles) or all fp32 (FFMA tiles with no TF32 and no
+rounding: what JAX's interpret-mode kernels compute for fp32, and what
+``llama.forward``'s default fp32 compute dtype sends them), at D = 128 or
+256; outputs come back in the inputs' dtype. ``kernel_input_error`` states
+what they take.
 
 Launch counts (one per kernel launch, nowhere else):
 ``flash_attention.fwd_launches``, ``.dkdv_launches`` and ``.dq_launches``
 count every launch; ``.fwd_f32_launches``, ``.dkdv_f32_launches`` and
-``.dq_f32_launches`` those of them with fp32 inputs.
+``.dq_f32_launches`` those of them with fp32 inputs; ``.fwd_d256_launches``,
+``.dkdv_d256_launches`` and ``.dq_d256_launches`` those at D = 256, and
+``.fwd_f32_d256_launches`` etc. those at D = 256 in fp32.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MIN_AUTO_SEQ = 2048
 
@@ -192,37 +196,44 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
 # Kernel wrappers: the kernel on CUDA tensors, the plain version on CPU ones
 # ----------------------------------------------------------------------------
 
-def _check_kernel_inputs(q, k, v, *extra):
-    """Raise unless the kernels take these tensors."""
-    _cuda.require_cuda(q, k, v, *extra)
+def kernel_input_error(q, k, v, *extra) -> Optional[str]:
+    """Why the kernels cannot take q [B, H, S, D], k/v [B, KVH, S, D] and
+    ``extra`` (do) (None if they can): KVH dividing H, D = 128 or 256, all
+    bf16 or all fp32, and a layout TMA and 16-byte loads read
+    (``_cuda.tma_ready``). Devices are not checked: a pure function of
+    shapes, dtypes and layouts."""
     B, H, S, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
-        raise ValueError(f"flash kernels: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not fit [B,H,S,D] / [B,KVH,S,D]")
+        return (f"flash kernels: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                f"v {tuple(v.shape)} do not fit [B,H,S,D] / [B,KVH,S,D]")
     if H % k.shape[1]:
-        raise ValueError(f"flash kernels: KVH={k.shape[1]} does not divide H={H}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernels take D = {KERNEL_HEAD_DIM}, got {D}: other "
-                         "head dims (D = 256) come with K5's redesign (ROADMAP Queue 2)")
+        return f"flash kernels: KVH={k.shape[1]} does not divide H={H}"
+    if D not in KERNEL_HEAD_DIMS:
+        more = (": larger head dims are ROADMAP Queue 3 (no model in the repo has one)"
+                if D > max(KERNEL_HEAD_DIMS) else "")
+        return f"flash kernels take D = 128 or 256, got {D}{more}"
     dtypes = {t.dtype for t in (q, k, v) + extra}
     if len(dtypes) != 1 or q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"flash kernels take q/k/v/do all bf16 or all fp32, got "
-                         f"{sorted(str(d) for d in dtypes)}")
-    for t in (q, k, v) + extra:
-        if not _loadable(t):
-            raise ValueError("flash kernels need unit stride over D, the other "
-                             "strides multiples of 8 and 16-byte aligned data")
+        return (f"flash kernels take q/k/v/do all bf16 or all fp32, got "
+                f"{sorted(str(d) for d in dtypes)}")
+    if not all(_cuda.tma_ready(t) for t in (q, k, v) + extra):
+        return ("flash kernels need unit stride over D and 16-byte aligned data and "
+                "strides (TMA tiles)")
+    return None
 
 
-def _loadable(t) -> bool:
-    """Rows the kernels can read with 16-byte loads."""
-    return (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0)
+def _check_kernel_inputs(q, k, v, *extra):
+    """Raise unless the kernels take these tensors on the current card."""
+    _cuda.require_cuda(q, k, v, *extra)
+    err = kernel_input_error(q, k, v, *extra)
+    if err is not None:
+        raise ValueError(err)
 
 
 def _bhs(t):
-    """Element strides of a [B, H, S, D] tensor over batch, head and sequence."""
-    return [t.stride(0), t.stride(1), t.stride(2)]
+    """Element strides of a [B, H, S, D] tensor over batch, head and sequence
+    (those of length-1 dims made 16-byte multiples for the tensor maps)."""
+    return _cuda.tma_strides(t, (0, 1, 2))
 
 
 def _bshd_like(q):
@@ -251,6 +262,14 @@ def _f32_bhs(t, q):
     return t.to(torch.float32).contiguous()
 
 
+def _count(q, kernel: str) -> None:
+    """One launch of ``kernel`` (fwd, dkdv or dq) with q's dtype and head dim."""
+    f32, d256 = _fp32(q), int(q.shape[-1] == 256)
+    for suffix, n in (("", 1), ("_f32", f32), ("_d256", d256), ("_f32_d256", f32 * d256)):
+        name = f"{kernel}{suffix}_launches"
+        setattr(flash_attention, name, getattr(flash_attention, name) + n)
+
+
 def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
               segment_ids=None):
     """K5 forward -> (out [B, H, S, D], lse [B, H, S] fp32)."""
@@ -268,8 +287,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _cuda.ptr(seg), strides, B, H, k.shape[1], S, D, _fp32(q), int(causal), scale,
         _cuda.stream()), "flash_fwd")
-    flash_attention.fwd_launches += 1
-    flash_attention.fwd_f32_launches += _fp32(q)
+    _count(q, "fwd")
     return out, lse
 
 
@@ -291,8 +309,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
         delta.data_ptr(), _cuda.ptr(seg), dk.data_ptr(), dv.data_ptr(), strides,
         B, H, k.shape[1], S, D, _fp32(q), int(causal), scale, _cuda.stream()),
         "flash_bwd_dkdv")
-    flash_attention.dkdv_launches += 1
-    flash_attention.dkdv_f32_launches += _fp32(q)
+    _count(q, "dkdv")
     return dk, dv
 
 
@@ -314,8 +331,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         delta.data_ptr(), _cuda.ptr(seg), dq.data_ptr(), strides,
         B, H, k.shape[1], S, D, _fp32(q), int(causal), scale, _cuda.stream()),
         "flash_bwd_dq")
-    flash_attention.dq_launches += 1
-    flash_attention.dq_f32_launches += _fp32(q)
+    _count(q, "dq")
     return dq
 
 
@@ -335,7 +351,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, seg = ctx.saved_tensors
-        if do.is_cuda and not _loadable(do):
+        if do.is_cuda and not _cuda.tma_ready(do):
             do = do.contiguous()
         delta = (do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
         kw = dict(causal=ctx.causal, scale=ctx.scale, segment_ids=seg)
@@ -347,7 +363,7 @@ class _Flash(torch.autograd.Function):
 def _auto_kernel(q, causal: bool) -> bool:
     """JAX's rule (flash_attention.py:523-525) with "on a TPU" read as "on
     the card": causal, S >= 2048, S and D multiples of 128. Nothing more:
-    a tensor the rule picks that the kernels cannot take (D != 128, or a
+    a tensor the rule picks that the kernels cannot take (D = 384, or a
     dtype other than bf16 and fp32) raises in them instead of quietly taking
     the plain path."""
     S, D = q.shape[2], q.shape[3]
@@ -363,7 +379,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     causal CUDA tensors at S >= 2048 with S and D multiples of 128 (JAX's
     conditions) and ``reference_attention`` otherwise. True runs the kernels
     (with their backward under autograd). Either raises on a CUDA tensor
-    the kernels cannot take (they take bf16 or fp32 with D = 128), and True
+    the kernels cannot take (they take bf16 or fp32 with D = 128 or 256), and True
     raises on a CPU tensor; False is the plain path."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -384,3 +400,9 @@ flash_attention.dq_launches = 0
 flash_attention.fwd_f32_launches = 0
 flash_attention.dkdv_f32_launches = 0
 flash_attention.dq_f32_launches = 0
+flash_attention.fwd_d256_launches = 0
+flash_attention.dkdv_d256_launches = 0
+flash_attention.dq_d256_launches = 0
+flash_attention.fwd_f32_d256_launches = 0
+flash_attention.dkdv_f32_d256_launches = 0
+flash_attention.dq_f32_d256_launches = 0

@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 from . import _cuda
-from .flash_attention import _bhs, _bshd_like, _loadable
+from .flash_attention import _bhs, _bshd_like
 from .ring_attention import NEG_INF, ring_layout, ring_peers
 
 KERNEL_HEAD_DIM = 128
@@ -198,16 +198,17 @@ def _check_kernel_inputs(q, k, v, ring):
                          f"v {tuple(v.shape)} do not fit [B,H,S,D] / [B,KVH,S,D]")
     if D != KERNEL_HEAD_DIM:
         raise ValueError(f"ring_attention_rdma's kernel takes D = {KERNEL_HEAD_DIM}, got {D}: "
-                         "other head dims come with K5's redesign (ROADMAP Queue 2)")
+                         "other head dims come with its move onto K5's Hopper tiles "
+                         "(ROADMAP Queue 2)")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise ValueError(f"ring_attention_rdma's kernel takes bf16 q/k/v, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}: fp32 is still to do (ROADMAP Queue 2)")
     if (S_here // len(ranks)) % KERNEL_ROWS:
         raise ValueError(f"ring_attention_rdma's kernel needs S/n a multiple of "
                          f"{KERNEL_ROWS}, got {S_here // len(ranks)}")
-    if B * k.shape[1] > 65535 or not _loadable(q):
+    if B * k.shape[1] > 65535 or not _cuda.tma_ready(q):
         raise ValueError("ring_attention_rdma's kernel needs B * KVH <= 65535 and q with "
-                         "unit stride over D, the other strides multiples of 8")
+                         "unit stride over D and 16-byte aligned data and strides")
 
 
 def ring_attention_rdma(q, k, v, *, ring, causal: bool = True, scale: Optional[float] = None):

@@ -1,0 +1,1 @@
+"""Design probes of the port's kernels, run on the card (no CPU mode)."""

@@ -63,3 +63,40 @@ def test_gradients_match_jax_vjp(S):
     tea.encoder_attention(tq, tk, tv).backward(torch.from_numpy(g))
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def _bf16_view(shape, offset=0):
+    """A bf16 [B, S, H, D] view into a flat buffer, starting ``offset``
+    elements in (the buffer itself is 16-byte aligned)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 64, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:offset + n].view(shape)
+
+
+def _packed_qkv(offset=0):
+    """q/k/v as views of one packed [2, 577, 3 * 16 * 64] projection."""
+    qkv = _bf16_view((2, 577, 3 * 16 * 64), offset)
+    return [t.reshape(2, 577, 16, 64) for t in qkv.split(16 * 64, dim=-1)]
+
+
+# name: (q/k/v, accepted) for the kernel's input rule (kernel_input_error)
+K4_INPUTS = {
+    "clip_l": (lambda: [_bf16_view((8, 577, 16, 64))] * 3, True),
+    "packed_qkv_view": (_packed_qkv, True),
+    "head_dim_40": (lambda: [_bf16_view((1, 64, 2, 40))] * 3, True),
+    "misaligned_view": (lambda: _packed_qkv(offset=1), False),
+    "stride_not_16_bytes": (lambda: [_bf16_view((1, 64, 3, 44))[..., :40]] * 3, False),
+    "seq_1025": (lambda: [_bf16_view((1, 1025, 2, 64))] * 3, False),
+    "head_dim_136": (lambda: [_bf16_view((1, 64, 2, 136))] * 3, False),
+    "fp32": (lambda: [torch.zeros((1, 64, 2, 64))] * 3, False),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_INPUTS))
+def test_kernel_input_rule(case):
+    """What K4 takes, decided from shapes, dtypes and layouts alone: TMA reads
+    q/k/v through tensor maps, so data and strides must be 16-byte aligned."""
+    make, accepted = K4_INPUTS[case]
+    err = tea.kernel_input_error(*make())
+    assert (err is None) == accepted, err

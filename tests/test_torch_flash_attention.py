@@ -1,6 +1,7 @@
 """Causal flash attention (K5): the port against the JAX package.
 
-Seeded fp32 inputs at H=4, KVH=2, D=16. JAX's Pallas kernels run in
+Seeded fp32 inputs at H=4, KVH=2, D=16 (and D=256, the other head dim the
+kernels take). JAX's Pallas kernels run in
 interpret mode with 32-row blocks, so several tiles, a ragged tail and a
 wholly masked first tile occur. Two paths of the port are held to them: the
 ``_Flash`` autograd function (on CPU tensors its steps take the kernels'
@@ -28,12 +29,12 @@ BLOCK = 32
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _inputs(B, S, seed):
+def _inputs(B, S, seed, d=D):
     r = np.random.default_rng(seed)
-    q = r.standard_normal((B, H, S, D)).astype(np.float32)
-    k = r.standard_normal((B, KVH, S, D)).astype(np.float32)
-    v = r.standard_normal((B, KVH, S, D)).astype(np.float32)
-    g = r.standard_normal((B, H, S, D)).astype(np.float32)
+    q = r.standard_normal((B, H, S, d)).astype(np.float32)
+    k = r.standard_normal((B, KVH, S, d)).astype(np.float32)
+    v = r.standard_normal((B, KVH, S, d)).astype(np.float32)
+    g = r.standard_normal((B, H, S, d)).astype(np.float32)
     return q, k, v, g
 
 
@@ -52,22 +53,26 @@ def _segments(B, S, kind):
 
 
 CASES = {
-    # name: (B, S, causal, segments)
-    "causal": (2, 64, True, None),
-    "noncausal": (1, 64, False, None),
-    "ragged": (1, 80, True, None),
-    "ragged_noncausal": (2, 70, False, None),
-    "segments": (2, 96, True, "packed"),
-    "segments_noncausal": (1, 96, False, "packed"),
-    "first_tile_masked": (1, 64, True, "first_tile_masked"),
+    # name: (B, S, causal, segments, head dim)
+    "causal": (2, 64, True, None, D),
+    "noncausal": (1, 64, False, None, D),
+    "ragged": (1, 80, True, None, D),
+    "ragged_noncausal": (2, 70, False, None, D),
+    "segments": (2, 96, True, "packed", D),
+    "segments_noncausal": (1, 96, False, "packed", D),
+    "first_tile_masked": (1, 64, True, "first_tile_masked", D),
+    # D = 256 at S a multiple of the block (JAX's ragged-S NaN, ROADMAP Queue 3)
+    "causal_d256": (1, 64, True, None, 256),
+    "noncausal_d256": (1, 64, False, None, 256),
+    "segments_d256": (1, 96, True, "packed", 256),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_case(case):
     """JAX's forward and gradients for ``case`` (shared by both port paths)."""
-    B, S, causal, kind = CASES[case]
-    q, k, v, g = _inputs(B, S, seed=len(case))
+    B, S, causal, kind, d = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=len(case), d=d)
     seg = _segments(B, S, kind)
     jseg = None if seg is None else jnp.asarray(seg)
 
@@ -90,7 +95,7 @@ def _torch_case(path, q, k, v, g, causal, seg):
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     tseg = None if seg is None else torch.from_numpy(seg)
     if path == "autograd_fn":
-        out = tfa._Flash.apply(tq, tk, tv, tseg, causal, 1.0 / np.sqrt(D))
+        out = tfa._Flash.apply(tq, tk, tv, tseg, causal, 1.0 / np.sqrt(q.shape[-1]))
     else:
         out = tfa.flash_attention(tq, tk, tv, causal=causal, segment_ids=tseg)
     out.backward(torch.from_numpy(g))
@@ -100,8 +105,8 @@ def _torch_case(path, q, k, v, g, causal, seg):
 @pytest.mark.parametrize("path", ["autograd_fn", "flash_attention"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_and_gradients_match_jax(case, path):
-    B, S, causal, kind = CASES[case]
-    q, k, v, g = _inputs(B, S, seed=len(case))
+    B, S, causal, kind, d = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=len(case), d=d)
     seg = _segments(B, S, kind)
     want_out, want_grads = _jax_case(case)
     before = (tfa.flash_attention.fwd_launches, tfa.flash_attention.dkdv_launches,
@@ -116,14 +121,15 @@ def test_forward_and_gradients_match_jax(case, path):
             tfa.flash_attention.dq_launches) == before
 
 
-@pytest.mark.parametrize("case", ["causal", "ragged", "segments", "first_tile_masked"])
+@pytest.mark.parametrize("case", ["causal", "ragged", "segments", "first_tile_masked",
+                                  "causal_d256", "segments_d256"])
 def test_fwd_ref_lse_matches_jax_kernel(case):
-    B, S, causal, kind = CASES[case]
-    q, k, v, _ = _inputs(B, S, seed=3)
+    B, S, causal, kind, d = CASES[case]
+    q, k, v, _ = _inputs(B, S, seed=3, d=d)
     seg = _segments(B, S, kind)
     out, lse = jfa._fwd(*map(jnp.asarray, (q, k, v)),
                         None if seg is None else jnp.asarray(seg),
-                        scale=1.0 / np.sqrt(D), causal=causal, block_q=BLOCK,
+                        scale=1.0 / np.sqrt(d), causal=causal, block_q=BLOCK,
                         block_k=BLOCK, interpret=True)
     got_out, got_lse = tfa.flash_fwd_ref(
         *map(torch.from_numpy, (q, k, v)), causal=causal,
@@ -132,16 +138,17 @@ def test_fwd_ref_lse_matches_jax_kernel(case):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse).transpose(0, 2, 1), **TOL)
 
 
-@pytest.mark.parametrize("case", ["causal", "noncausal", "segments"])
+@pytest.mark.parametrize("case", ["causal", "noncausal", "segments",
+                                  "causal_d256", "noncausal_d256"])
 def test_bwd_ref_matches_jax_kernels(case):
     """flash_bwd_ref from the saved lse and delta vs JAX's two backward
     kernels, given the same (out, lse) from JAX's forward kernel."""
-    B, S, causal, kind = CASES[case]
-    q, k, v, g = _inputs(B, S, seed=5)
+    B, S, causal, kind, d = CASES[case]
+    q, k, v, g = _inputs(B, S, seed=5, d=d)
     seg = _segments(B, S, kind)
     jseg = None if seg is None else jnp.asarray(seg)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
-    kw = dict(scale=1.0 / np.sqrt(D), causal=causal, block_q=BLOCK, block_k=BLOCK,
+    kw = dict(scale=1.0 / np.sqrt(d), causal=causal, block_q=BLOCK, block_k=BLOCK,
               interpret=True)
     out, lse = jfa._fwd(jq, jk, jv, jseg, **kw)
     want = jfa._bwd_impl(jq, jk, jv, out, lse, jnp.asarray(g), jseg, **kw)
@@ -166,3 +173,58 @@ def test_auto_rule_takes_the_plain_path_on_cpu():
     assert not tfa._auto_kernel(q, True)
     torch.testing.assert_close(tfa.flash_attention(q, k, k),
                                tfa.reference_attention(q, k, k), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_d256_on_cpu_takes_the_plain_path(dtype):
+    """A CPU tensor at D = 256 takes reference_attention, bit for bit, and
+    launches nothing; use_kernel=True raises (the kernels have no CPU mode)."""
+    r = np.random.default_rng(1)
+    q = torch.from_numpy(r.standard_normal((1, 2, 256, 256)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(r.standard_normal((1, 1, 256, 256)).astype(np.float32)).to(dtype)
+    before = tfa.flash_attention.fwd_d256_launches
+    torch.testing.assert_close(tfa.flash_attention(q, k, k), tfa.reference_attention(q, k, k),
+                               rtol=0, atol=0)
+    assert tfa.flash_attention.fwd_d256_launches == before
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, k, use_kernel=True)
+
+
+def _bhsd_view(shape, dtype=torch.bfloat16, offset=0, pad=0):
+    """A [B, H, S, D] view in [B, S, H, D + pad] storage, ``offset`` elements
+    into a 16-byte aligned buffer (llama's projections are such views)."""
+    B, Hh, S, d = shape
+    n = B * S * Hh * (d + pad)
+    flat = torch.zeros(n + 64, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:offset + n].view(B, S, Hh, d + pad)[..., :d].transpose(1, 2)
+
+
+# name: (q, k, v, accepted) for the kernels' input rule (kernel_input_error)
+K5_INPUTS = {
+    "d128": (lambda: (_bhsd_view((1, 4, 64, 128)),) + (_bhsd_view((1, 2, 64, 128)),) * 2,
+             True),
+    "d256": (lambda: (_bhsd_view((1, 4, 64, 256)),) + (_bhsd_view((1, 2, 64, 256)),) * 2,
+             True),
+    "d256_fp32": (lambda: (_bhsd_view((1, 4, 64, 256), torch.float32),) * 3, True),
+    "d384": (lambda: (_bhsd_view((1, 2, 64, 384)),) * 3, False),
+    "d64": (lambda: (_bhsd_view((1, 2, 64, 64)),) * 3, False),
+    "misaligned": (lambda: (_bhsd_view((1, 2, 64, 128), offset=4),) * 3, False),
+    "stride_not_16_bytes": (lambda: (_bhsd_view((1, 2, 64, 128), pad=4),) * 3, False),
+    "mixed_dtypes": (lambda: (_bhsd_view((1, 2, 64, 128), torch.float32),)
+                     + (_bhsd_view((1, 2, 64, 128)),) * 2, False),
+    "kvh_3_of_4": (lambda: (_bhsd_view((1, 4, 64, 128)),) + (_bhsd_view((1, 3, 64, 128)),) * 2,
+                   False),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_INPUTS))
+def test_kernel_input_rule(case):
+    """What K5-K5c take, decided from shapes, dtypes and layouts alone: D =
+    128 or 256 (384 names its ROADMAP line), one dtype, and 16-byte aligned
+    data and strides for the TMA tiles."""
+    make, accepted = K5_INPUTS[case]
+    err = tfa.kernel_input_error(*make())
+    assert (err is None) == accepted, err
+    if case == "d384":
+        assert "ROADMAP Queue 3" in err

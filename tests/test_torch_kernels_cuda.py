@@ -14,6 +14,7 @@ import torch
 
 from slime_tpu_torch.models import layers as L
 from slime_tpu_torch.models.layers import fp32_accumulation
+from slime_tpu_torch.ops import _cuda
 from slime_tpu_torch.ops import encoder_attention as ea
 from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 from slime_tpu_torch.ops import quant_matmul as qm
@@ -62,7 +63,29 @@ def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
             "down_proj": proj(H, I)}
 
 
-@pytest.mark.parametrize("shape", [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)])
+def test_hopper_selftest(dev):
+    """The wgmma tile vocabulary (hopper_common.cuh) against torch.matmul:
+    TMA loads with the 128-byte swizzle, SS wgmma (S = A.B^T, K-major), the
+    accumulator as P's register fragments, RS wgmma with V MN-major over two
+    64-column chunks. Small integers keep every sum exact in fp32, so both
+    must agree bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randint(-3, 4, (64, 64), device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randint(-3, 4, (64, 128), device=dev, generator=g).to(torch.bfloat16)
+    s, o = _cuda.hopper_selftest(a, b, v)
+    want_s = torch.matmul(a.float(), b.float().T)
+    _assert_close(s, want_s, atol=0)
+    _assert_close(o, torch.matmul(want_s.to(torch.bfloat16).float(), v.float()), atol=0)
+
+
+# (B, S, H, D): CLIP-L's shape, then S from one key to the kernel's 1024 at
+# head dims 40 (padded by the TMA box), 64 and 128
+ENC_SHAPES = [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)] + [
+    (2, S, 3, D) for S in (1, 64, 100, 577, 1024) for D in (40, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", ENC_SHAPES)
 def test_encoder_attention_kernel(dev, shape):
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
@@ -90,6 +113,24 @@ def test_encoder_attention_kernel_rejects(dev):
     q = torch.zeros((1, 16, 2, 64), device=dev)
     with pytest.raises(ValueError):
         ea.encoder_attention(q, q, q)
+    # a packed-qkv view one element off 16 bytes: TMA cannot read it
+    qkv = torch.zeros(2 * 64 * 3 * 2 * 64 + 8, device=dev, dtype=torch.bfloat16)[1:]
+    q, k, v = (t.reshape(2, 64, 2, 64) for t in
+               qkv[:2 * 64 * 3 * 2 * 64].view(2, 64, 3 * 2 * 64).split(2 * 64, dim=-1))
+    with pytest.raises(ValueError):
+        ea.encoder_attention(q, k, v)
+
+
+@pytest.mark.parametrize("variant", sorted(ea.VARIANTS))
+def test_encoder_attention_variants(dev, variant):
+    """Every design of the P2 probe against the plain version, at CLIP-L's
+    shape and a ragged short one."""
+    for shape in ((8, 577, 16, 64), (1, 100, 2, 40)):
+        g = torch.Generator(device=dev).manual_seed(variant)
+        q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        got = ea.encoder_attention_kernel(q, k, v, scale=shape[-1] ** -0.5, variant=variant)
+        _assert_close(got, ea.encoder_attention_ref(q, k, v), atol=2e-3)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "bf16", "q4g"])
@@ -249,11 +290,16 @@ def _bhsd(B, S, heads, D, g, dev):
 
 # (B, H, KVH, S, D, causal, segments): the serving and stage-1 training
 # shapes, GQA group sizes, ragged S, non-causal, packed segments (the third
-# one first in a tile)
+# one first in a tile); then D = 256: causal GQA at S = 2048, non-causal,
+# ragged S = 2000, segments
 FLASH_CASES = [(1, 32, 8, 2048, 128, True, False), (4, 32, 8, 2048, 128, True, False),
                (2, 4, 2, 200, 128, False, False),
                (1, 4, 1, 2000, 128, True, False), (1, 4, 2, 256, 128, True, True),
-               (2, 8, 8, 130, 128, False, True)]
+               (2, 8, 8, 130, 128, False, True),
+               (1, 16, 4, 2048, 256, True, False), (2, 4, 2, 200, 256, False, False),
+               (1, 4, 1, 2000, 256, True, False), (1, 4, 2, 256, 256, True, True),
+               (2, 8, 8, 130, 256, False, True)]
+D256_CASES = FLASH_CASES[6:]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -302,11 +348,29 @@ def test_flash_attention_autograd(dev):
         _assert_close(leaf.grad, want, atol=5e-3)
 
 
+def test_flash_attention_autograd_d256(dev):
+    """The same at D = 256, bf16 and fp32."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(9)
+    for dtype, atol in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
+        q, k, v, do = (_bhsd(1, 384, n, 256, g, dev).to(dtype) for n in (4, 2, 2, 4))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = fa.flash_attention.dq_d256_launches
+        out = fa.flash_attention(*leaves, use_kernel=True)
+        out.backward(do)
+        assert fa.flash_attention.dq_d256_launches == before + 1
+        ro, rl = fa.flash_fwd_ref(q, k, v)
+        _assert_close(out.detach(), ro, atol=atol)
+        delta = (do.float() * ro.float()).sum(-1)
+        for leaf, want in zip(leaves, fa.flash_bwd_ref(q, k, v, do, rl, delta)):
+            _assert_close(leaf.grad, want, atol=atol)
+
+
 def test_flash_attention_auto_rule(dev):
     """use_kernel=None takes the kernel for causal attention at S >= 2048 (S,
     D multiples of 128) and the plain path below that, as JAX's rule does:
-    bf16 and fp32 alike (fp32 takes the FFMA kernels). A tensor the rule
-    picks that the kernels cannot take raises: D = 256."""
+    bf16 and fp32 alike (fp32 takes the FFMA kernels), D = 128 and 256. A
+    tensor the rule picks that the kernels cannot take raises: D = 384."""
     from slime_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(8)
     for dtype in (torch.bfloat16, torch.float32):
@@ -317,7 +381,12 @@ def test_flash_attention_auto_rule(dev):
             assert (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches) == (
                 before[0] + launched, before[1] + launched * (dtype == torch.float32))
     q = _bhsd(1, 2048, 2, 256, g, dev)
-    with pytest.raises(ValueError):                  # D = 256
+    before = fa.flash_attention.fwd_d256_launches
+    torch.testing.assert_close(fa.flash_attention(q, q, q).float(),
+                               fa.reference_attention(q, q, q).float(), rtol=RTOL, atol=5e-3)
+    assert fa.flash_attention.fwd_d256_launches == before + 1
+    q = _bhsd(1, 2048, 2, 384, g, dev)
+    with pytest.raises(ValueError, match="Queue 3"):  # D = 384
         fa.flash_attention(q, q, q)
 
 
@@ -338,7 +407,7 @@ def test_flash_kernels_reject(dev):
 
 
 @pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[2], FLASH_CASES[3],
-                                  FLASH_CASES[4], FLASH_CASES[5]])
+                                  FLASH_CASES[4], FLASH_CASES[5]] + D256_CASES)
 def test_flash_kernels_fp32(dev, case):
     """The fp32 K5, K5b, K5c (FFMA, nothing rounded) against the plain
     versions in fp32: the same arithmetic with sums in another order."""

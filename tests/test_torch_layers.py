@@ -140,7 +140,7 @@ def test_quantize_dequantize_equal(shape):
 
 def test_rope():
     cfg = LLMConfig.tiny()
-    cos_t, sin_t = tllama.rope_table(cfg, 1024)
+    cos_t, sin_t = tllama.rope_table(cfg, 1024, device="cpu")
     cos_j, sin_j = jllama.rope_table(cfg, 1024)
     # fp32 tables; angles grow with position, so compare in absolute terms
     _close(cos_t, cos_j, rtol=0, atol=1e-5)

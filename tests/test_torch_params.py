@@ -131,6 +131,7 @@ ENTRY_POINTS = {
     "slime.init": lambda: tslime.init(_cfg(), generator=torch.Generator()),
     "llama.init": lambda: tllama.init(_cfg().llm, generator=torch.Generator()),
     "llama.init_kv_cache": lambda: tllama.init_kv_cache(_cfg().llm, 1, 8),
+    "llama.rope_table": lambda: tllama.rope_table(_cfg().llm, 16),
     "vit.init": lambda: tvit.init(_cfg().vision, generator=torch.Generator()),
     "projector.init": lambda: tproj.init(_cfg(), generator=torch.Generator()),
     "sampler.init": lambda: tsamp.init(_cfg(), generator=torch.Generator()),
