@@ -1,7 +1,8 @@
-// Tile helpers shared by the mma.sync attention kernels (flash_attention.cu:
-// K5b, K5c; ring_attention.cu: K9): bf16 mma.sync m16n8k16 fragments with fp32
-// accumulation, quad reductions over the four lanes that hold one row of a
-// fragment, and staging of 64-row tiles in padded shared memory.
+// Tile helpers of the mma.sync attention kernel (ring_attention.cu: K9): bf16
+// mma.sync m16n8k16 fragments with fp32 accumulation, quad reductions over the
+// four lanes that hold one row of a fragment, and staging of 64-row tiles in
+// padded shared memory. flash_attention.cu's FFMA kernels take its tile
+// constants.
 #pragma once
 
 #include <cuda_runtime.h>

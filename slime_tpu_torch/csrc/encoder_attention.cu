@@ -37,6 +37,13 @@
 // `variant` selects the design (the P2 probe, slime_tpu_torch/probes/
 // encoder_attention.py, times each): 0 the production choice, 1-3 the others
 // (head dims up to 64 only).
+//
+// fp32 q/k/v (the tower's default compute dtype) take enc_attn_f32_kernel: the
+// same semantics on the FFMA units, rounded where encoder_attention_ref rounds
+// for fp32 inputs: qs = q * scale and p enter their products unrounded (their
+// dtype is fp32), while p = exp(bf16(min(s, 80))) and l = bf16(sum p) keep
+// their bf16 roundings. It is the simplest right kernel, in the style of
+// flash_attention.cu's FFMA forward.
 #include "hopper_common.cuh"
 
 namespace {
@@ -166,14 +173,126 @@ int launch_enc(EncParams& p, const void* q, const void* k, const void* v, void* 
   return (int)cudaGetLastError();
 }
 
+// One block per (64 query rows, head, crop), 256 threads: thread (ty = tid /
+// 16, tx = tid % 16) owns rows 4 ty .. 4 ty + 3, keys tx + 16 c (c < 4) of a
+// 64-key tile and output columns tx + 16 n (n < DP / 16). q (scaled), k and
+// v tiles are staged as [64][DP + 1] floats, D zero-padded to DP (64 or 128):
+// the 16 threads reading 16 keys at one depth hit 16 distinct banks.
+struct EncF32Params {
+  const float* q; const float* k; const float* v;
+  float* o;
+  long long st[9];                      // (batch, seq, head) element strides of q, k, v
+  int S, H, D;
+  float scale;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(256) enc_attn_f32_kernel(const EncF32Params p) {
+  constexpr int LD = DP + 1, NO = DP / 16, LDP = 65;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);             // [64][LD]
+  float* Ks = Qs + 64 * LD;                                     // [64][LD]
+  float* Vs = Ks + 64 * LD;                                     // [64][LD]
+  float* Ps = Vs + 64 * LD;                                     // [64][LDP]
+  const int S = p.S, D = p.D, q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qp = p.q + b * p.st[0] + h * p.st[2];
+  const float* kp = p.k + b * p.st[3] + h * p.st[5];
+  const float* vp = p.v + b * p.st[6] + h * p.st[8];
+  for (int e = threadIdx.x; e < 64 * DP; e += 256) {
+    const int r = e / DP, c = e % DP;
+    Qs[r * LD + c] = q0 + r < S && c < D ? qp[(q0 + r) * p.st[1] + c] * p.scale : 0.f;
+  }
+  float o[4][NO], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[i][n] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += 64) {
+    __syncthreads();                                            // the last tile is consumed
+    for (int e = threadIdx.x; e < 64 * DP; e += 256) {
+      const int r = e / DP, c = e % DP;
+      const bool in = k0 + r < S && c < D;
+      Ks[r * LD + c] = in ? kp[(k0 + r) * p.st[4] + c] : 0.f;
+      Vs[r * LD + c] = in ? vp[(k0 + r) * p.st[7] + c] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float e = k0 + tx + 16 * c < S ? expf(bf16r(fminf(s[i][c], kClamp))) : 0.f;
+        Ps[(4 * ty + i) * LDP + tx + 16 * c] = e;
+        l[i] += e;
+      }
+    __syncwarp();                                               // a row's p is its half-warp's
+#pragma unroll 4
+    for (int kk = 0; kk < 64; ++kk) {
+      float pv[4], vv[NO];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * LDP + kk];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) vv[n] = Vs[kk * LD + tx + 16 * n];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < NO; ++n) o[i][n] = fmaf(pv[i], vv[n], o[i][n]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    lt = bf16r(lt);
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    float* orow = p.o + (((long long)b * S + row) * p.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (tx + 16 * n < D) orow[tx + 16 * n] = o[i][n] / lt;
+  }
+}
+
+template <int DP>
+int launch_enc_f32(const EncF32Params& p, int B, void* stream) {
+  const size_t smem = (size_t)(3 * 64 * (DP + 1) + 64 * 65) * sizeof(float);
+  auto kernel = enc_attn_f32_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((p.S + 63) / 64, p.H, B), 256, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q/k/v [B, S, H, D] bf16 with unit stride over D and element strides
-// (batch, seq, head), 16-byte aligned; o is a contiguous [B, S, H, D] bf16
-// output. S <= 1024, D <= 128, D % 8 == 0 (the wrapper checks). variant 0 is
-// the production design; 1-3 are the P2 probe's others (D <= 64):
+// q/k/v [B, S, H, D] bf16 (fp32 == 0) or fp32 (fp32 == 1) with unit stride
+// over D and element strides (batch, seq, head), 16-byte aligned; o is a
+// contiguous [B, S, H, D] output of their dtype. S <= 1024, D <= 128, D % 8
+// == 0 (the wrapper checks). fp32 takes the FFMA kernel (variant 0 only).
+// variant 0 is the production design; 1-3 are the P2 probe's others (D <= 64):
 //   0: 128 query rows (2 warpgroups), 64-key tiles, 2 stages
 //   1:  64 query rows (1 warpgroup),  64-key tiles, 2 stages
 //   2: 128 query rows, 128-key tiles, 2 stages
@@ -181,12 +300,25 @@ extern "C" {
 int slime_encoder_attention(const void* q, const void* k, const void* v, void* o, int B, int S,
                             int H, int D, long long qb, long long qs, long long qh,
                             long long kb, long long ks, long long kh, long long vb,
-                            long long vs, long long vh, float scale, int variant,
+                            long long vs, long long vh, float scale, int variant, int fp32,
                             void* stream) {
   if (S < 1 || S > 1024 || D < 8 || D > 128 || D % 8 || B > 65535 || H > 65535 ||
-      (variant != 0 && D > 64))
+      (variant != 0 && (D > 64 || fp32)))
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qb, qs, qh, kb, ks, kh, vb, vs, vh};
+  if (fp32) {
+    EncF32Params f;
+    f.q = (const float*)q;
+    f.k = (const float*)k;
+    f.v = (const float*)v;
+    f.o = (float*)o;
+    for (int i = 0; i < 9; ++i) f.st[i] = st[i];
+    f.S = S;
+    f.H = H;
+    f.D = D;
+    f.scale = scale;
+    return D <= 64 ? launch_enc_f32<64>(f, B, stream) : launch_enc_f32<128>(f, B, stream);
+  }
   EncParams p;
   p.S = S;
   p.scale = scale;

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) tile vocabulary of the wgmma attention kernels (K4 in
-// encoder_attention.cu, K5's forward in flash_attention.cu), and its self-test.
+// encoder_attention.cu; K5's forward and the K5b / K5c backward in
+// flash_attention.cu), and its self-test (hopper_selftest.cu).
 //
 // A tile of R rows x W columns of bf16 lives in shared memory as W / 64 chunks,
 // each [R][64] (128 bytes a row) in TMA's 128-byte swizzle: the 16-byte piece c
@@ -16,8 +17,9 @@
 //   - Device: mbarrier init / arrive / arrive.expect_tx / parity wait; TMA
 //     tile loads (cp.async.bulk.tensor) and stores; the wgmma shared-memory
 //     descriptor; wgmma.mma_async m64nNk16 bf16 -> fp32 with A from shared
-//     memory (SS: S = Q.K^T, both K-major) or from registers (RS: O += P.V,
-//     V MN-major through the transpose bit); the scores' fp32 accumulator
+//     memory (SS: S = Q.K^T or S^T = K.Q^T, both K-major) or from registers
+//     (RS: O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q, the shared
+//     operand MN-major through the transpose bit); the scores' fp32 accumulator
 //     rounded into P's register A fragment (acc_to_a_frag); the epilogue
 //     store of a 64-row output tile by TMA.
 //
@@ -343,35 +345,52 @@ __device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&s)
   a[3] = pack2_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
-// s (64 x BN fp32) = Q . K^T over the W columns (columns past D are TMA's
-// zero fill and add nothing). q: this warpgroup's 64 rows inside a [W / 64]
-// [q_rows][64] tile; k: a [W / 64][BN][64] tile. A compile-time step count
-// keeps the accumulator in fixed registers across the chain.
+// Issue (no commit, no wait) s (64 x BN fp32) = A . B^T over the W columns
+// of both (columns past D are TMA's zero fill and add nothing). a: 64 rows
+// inside a [W / 64][a_rows][64] tile; b: a [W / 64][BN][64] tile. Both are
+// K-major, so the same call gives S = Q.K^T and S^T = K.Q^T. A compile-time
+// step count keeps the accumulator in fixed registers across the chain.
+template <int W, int BN>
+__device__ __forceinline__ void ss_issue(float (&s)[BN / 2], const bf16* a, int a_rows,
+                                         const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const int chunk = kk >> 2, col = (kk & 3) * 16;
+    wgmma_ss<BN>(s, sw128_desc(a + chunk * a_rows * 64 + col, 16, 1024),
+                 sw128_desc(b + chunk * BN * 64 + col, 16, 1024), kk > 0);
+  }
+}
+
+// Issue o (64 x W fp32) += P (64 x BN bf16, register fragments) . B, b the
+// first W / 64 chunks of a [.][BN][64] tile read MN-major (its BN rows are
+// the depth): V in P.V, K in dS.K, dO and Q in P^T.dO and dS^T.Q.
+template <int W, int BN>
+__device__ __forceinline__ void rs_issue(float (&o)[W / 2], const uint32_t (&p)[BN / 16][4],
+                                         const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<W>(o, p[kk], sw128_desc(b + kk * 16 * 64, BN * 128, 1024));
+}
+
+// s = Q . K^T (ss_issue), waited for
 template <int W, int BN>
 __device__ __forceinline__ void qk_product(float (&s)[BN / 2], const bf16* q, int q_rows,
                                            const bf16* k) {
   fence_acc(s);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    const int chunk = kk >> 2, col = (kk & 3) * 16;
-    wgmma_ss<BN>(s, sw128_desc(q + chunk * q_rows * 64 + col, 16, 1024),
-                 sw128_desc(k + chunk * BN * 64 + col, 16, 1024), kk > 0);
-  }
+  ss_issue<W, BN>(s, q, q_rows, k);
   wgmma_commit();
   wgmma_wait_all();
   fence_acc(s);
 }
 
-// o (64 x W fp32) += P (64 x BN bf16, register fragments) . V, v a [W / 64][BN][64] tile
+// o += P . V (rs_issue), waited for
 template <int W, int BN>
 __device__ __forceinline__ void pv_product(float (&o)[W / 2], const uint32_t (&p)[BN / 16][4],
                                            const bf16* v) {
   fence_acc(o);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<W>(o, p[kk], sw128_desc(v + kk * 16 * 64, BN * 128, 1024));
+  rs_issue<W, BN>(o, p, v);
   wgmma_commit();
   wgmma_wait_all();
   fence_acc(o);

@@ -1,12 +1,17 @@
 // Self-test of the Hopper tile vocabulary (hopper_common.cuh): one warpgroup
 // loads A, B [64, 64] and V [64, 128] bf16 by TMA (128-byte swizzle, one
-// mbarrier), computes S = A . B^T with SS wgmmas (both K-major, k16 steps
-// inside one swizzled chunk) and O = bf16(S) . V with RS wgmmas (S's
-// accumulator turned into register A fragments; V MN-major over two 64-column
-// chunks, so LBO and SBO are both exercised), and writes S and O in fp32.
-// tests/test_torch_kernels_cuda.py holds both to torch.matmul: a swizzle,
-// descriptor or fragment mistake gives silently wrong numbers here, before
-// either attention kernel is debugged.
+// mbarrier) and computes, in the operand forms the attention kernels use:
+//   S  = A . B^T          SS wgmma, both K-major (Q.K^T in K4, K5, K5c)
+//   T  = B . A^T          the same tiles with the roles swapped (K.Q^T in K5b)
+//   O  = bf16(S) . V      RS wgmma, S's accumulator as register A fragments,
+//                         V MN-major over two 64-column chunks, so LBO and SBO
+//                         are both exercised (P.V in K4, K5)
+//   P1 = bf16(S) . B      B, the tile S read K-major, now read MN-major
+//                         (dS.K in K5c)
+//   P2 = bf16(T) . A      A read MN-major (dS^T.Q and P^T.dO in K5b)
+// and writes all five in fp32. tests/test_torch_kernels_cuda.py holds them to
+// torch.matmul: a swizzle, descriptor or fragment mistake gives silently wrong
+// numbers here, before any attention kernel is debugged.
 #include "hopper_common.cuh"
 
 namespace {
@@ -15,7 +20,16 @@ struct SelftestParams {
   CUtensorMap a, b, v;
   float* s;
   float* o;
+  float* t;
+  float* p1;
+  float* p2;
 };
+
+// thread's accumulator element i of a 64 x N fp32 tile -> row-major offset
+__device__ __forceinline__ int acc_offset(int i, int n) {
+  const int t = threadIdx.x, warp = t >> 5, g = (t & 31) >> 2, q = t & 3;
+  return (16 * warp + g + 8 * ((i >> 1) & 1)) * n + 8 * (i >> 2) + 2 * q + (i & 1);
+}
 
 __global__ void __launch_bounds__(128) hopper_selftest_kernel(
     const __grid_constant__ SelftestParams p) {
@@ -38,32 +52,47 @@ __global__ void __launch_bounds__(128) hopper_selftest_kernel(
   }
   mbar_wait(bar, 0);
 
-  const int t = threadIdx.x, warp = t >> 5, g = (t & 31) >> 2, q = t & 3;
-  float s[32];
+  float s[32], t[32];
   qk_product<64, 64>(s, As, 64, Bs);
+  qk_product<64, 64>(t, Bs, 64, As);
+  uint32_t sa[4][4], ta[4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
-    p.s[(16 * warp + g + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * q + (i & 1)] = s[i];
-  uint32_t pa[4][4];
+  for (int kk = 0; kk < 4; ++kk) {
+    acc_to_a_frag(sa[kk], s, kk);
+    acc_to_a_frag(ta[kk], t, kk);
+  }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) acc_to_a_frag(pa[kk], s, kk);
+  for (int i = 0; i < 32; ++i) {
+    p.s[acc_offset(i, 64)] = s[i];
+    p.t[acc_offset(i, 64)] = t[i];
+  }
   float o[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  pv_product<128, 64>(o, pa, Vs);
+  pv_product<128, 64>(o, sa, Vs);
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
-    p.o[(16 * warp + g + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * q + (i & 1)] = o[i];
+  for (int i = 0; i < 64; ++i) p.o[acc_offset(i, 128)] = o[i];
+  float p1[32], p2[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p1[i] = p2[i] = 0.f;
+  pv_product<64, 64>(p1, sa, Bs);
+  pv_product<64, 64>(p2, ta, As);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    p.p1[acc_offset(i, 64)] = p1[i];
+    p.p2[acc_offset(i, 64)] = p2[i];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// a, b [64, 64] and v [64, 128] contiguous bf16; s [64, 64] = a . b^T and
-// o [64, 128] = bf16(s) . v, contiguous fp32.
+// a, b [64, 64] and v [64, 128] contiguous bf16; s = a . b^T, t = b . a^T,
+// p1 = bf16(s) . b, p2 = bf16(t) . a [64, 64] and o = bf16(s) . v [64, 128],
+// contiguous fp32.
 int slime_hopper_selftest(const void* a, const void* b, const void* v, void* s, void* o,
-                          void* stream) {
+                          void* t, void* p1, void* p2, void* stream) {
   SelftestParams p;
   int err = encode_bshd(&p.a, a, 1, 64, 1, 64, 64 * 64, 64, 64, 64);
   if (err == 0) err = encode_bshd(&p.b, b, 1, 64, 1, 64, 64 * 64, 64, 64, 64);
@@ -71,6 +100,9 @@ int slime_hopper_selftest(const void* a, const void* b, const void* v, void* s, 
   if (err != 0) return err;
   p.s = (float*)s;
   p.o = (float*)o;
+  p.t = (float*)t;
+  p.p1 = (float*)p1;
+  p.p2 = (float*)p2;
   const size_t smem = 4 * 64 * 64 * sizeof(bf16) + sizeof(uint64_t) + 1024;
   cudaError_t e = cudaFuncSetAttribute(hopper_selftest_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -32,6 +32,13 @@
 //     a fixed order, applies the per-row scale and rounds to bf16.
 // Loads are plain 16-byte loads staged through registers (no cp.async, TMA or
 // wgmma yet): a right and simple first version.
+// fp32 x (the default compute dtype of llama.forward and generate) takes a
+// second kernel on the FFMA units with the same tiles and split: the weights
+// are dequantized to fp32 in shared memory (exact integers, JAX's
+// astype(x.dtype)), every product is an fp32 FMA (no TF32), the scales apply
+// as above, and y is fp32.
+#include <type_traits>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -263,57 +270,210 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
   }
 }
 
-// y = bf16(sum_z ws[z] (* scale[o] when `s` is given)), z in order.
+// ---------------------------------------------------------------------------
+// fp32 x: the FFMA kernel
+// ---------------------------------------------------------------------------
+// 256 threads own the 64 x 64 output tile, 4 x 4 each: thread (ty = tid / 16,
+// tx = tid % 16) rows 4 ty .. 4 ty + 3 and columns tx + 16 c (c < 4). A step
+// stages 128 columns of x and of W (one q4g group) as [64][129] floats, so the
+// 16 threads reading 16 W rows at one depth hit 16 distinct banks. Shared
+// memory bounds it (8 loads per 16 FMAs): a right and simple first version.
+constexpr int kF32Threads = 256, kF32K = 128, kF32LD = kF32K + 1;
+
+// Stage W's columns [k0, k0 + 128) for output rows n0..n0+63 as fp32 (rows
+// past N are 0); for q4g those columns are group k0 / 128, the low (even
+// group) or high (odd) nibbles of packed block k0 / 256.
+template <int FMT>
+__device__ __forceinline__ void stage_w_f32(float* ws, const uint8_t* __restrict__ w, int N,
+                                            int K, int n0, int k0) {
+  constexpr int kCols = FMT == kQ4 ? 32 : 16;   // columns in 16 bytes of a row
+  const int KP = FMT == kInt8 ? K : K / 2;
+  const int g = k0 / kGroup, shift = (g & 1) * 4;
+  for (int e = threadIdx.x; e < kBN * (kF32K / kCols); e += kF32Threads) {
+    const int r = e / (kF32K / kCols), c = (e % (kF32K / kCols)) * kCols;
+    size_t off;
+    if (FMT == kInt8) off = (size_t)k0 + c;
+    else if (FMT == kQ4) off = (size_t)(k0 + c) / 2;
+    else off = (size_t)(g / 2) * kGroup + c;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + off);
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+    float* dst = ws + r * kF32LD + c;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t byte = (wd[i / 4] >> (8 * (i % 4))) & 0xffu;
+      if (FMT == kInt8) {
+        dst[i] = (float)(int8_t)byte;
+      } else if (FMT == kQ4) {                  // byte i -> columns 2i (low), 2i+1 (high)
+        dst[2 * i] = nib(byte, 0);
+        dst[2 * i + 1] = nib(byte, 4);
+      } else {
+        dst[i] = nib(byte, shift);
+      }
+    }
+  }
+}
+
+// One 64 x 64 fp32 output tile over k-tiles [kt0, kt1) of blockIdx.z's split
+// (the bf16 kernel's k-tiles, in steps of 128 columns); the epilogue as
+// qmm_kernel's, in fp32.
+template <int FMT>
+__global__ void __launch_bounds__(kF32Threads) qmm_f32_kernel(
+    const float* __restrict__ x, int M, int K, const uint8_t* __restrict__ w,
+    const float* __restrict__ s, int N, float* __restrict__ y, float* __restrict__ ws,
+    int tiles_per_split) {
+  constexpr int BK = Fmt<FMT>::BK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);     // [kBM][kF32LD]
+  float* wsm = xs + kBM * kF32LD;                 // [kBN][kF32LD]
+
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, z = blockIdx.z;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int nk = K / BK;
+  const int kt0 = z * tiles_per_split, kt1 = min(nk, kt0 + tiles_per_split);
+  const int G = K / kGroup;
+
+  float acc[4][4], part[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = part[i][c] = 0.f;
+
+  for (int k0 = kt0 * BK; k0 < kt1 * BK; k0 += kF32K) {
+    __syncthreads();                              // the last step's readers are done
+    for (int e = threadIdx.x; e < kBM * (kF32K / 4); e += kF32Threads) {
+      const int r = e / (kF32K / 4), c = (e % (kF32K / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < M) v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c);
+      float* dst = xs + r * kF32LD + c;
+      dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+    }
+    stage_w_f32<FMT>(wsm, w, N, K, n0, k0);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kF32K; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[(4 * ty + i) * kF32LD + kk];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = wsm[(tx + 16 * c) * kF32LD + kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (FMT == kQ4G) part[i][c] = fmaf(a[i], b[c], part[i][c]);
+          else acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+        }
+    }
+    if (FMT == kQ4G) {                            // the group's partial sums, scaled
+      const int grp = k0 / kGroup;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = n0 + tx + 16 * c;
+        const float sc = col < N ? s[(size_t)col * G + grp] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][c] += part[i][c] * sc;
+          part[i][c] = 0.f;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = m0 + 4 * ty + i, col = n0 + tx + 16 * c;
+      if (r >= M || col >= N) continue;
+      if (ws != nullptr) ws[((size_t)z * M + r) * N + col] = acc[i][c];
+      else y[(size_t)r * N + col] = FMT == kQ4G ? acc[i][c] : acc[i][c] * s[col];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+// y = TY(sum_z ws[z] (* scale[o] when `s` is given)), z in order.
+template <typename TY>
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
-                                     const float* __restrict__ s, bf16* __restrict__ y) {
+                                     const float* __restrict__ s, TY* __restrict__ y) {
   const size_t MN = (size_t)M * N;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
        e += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int z = 0; z < splits; ++z) v += ws[z * MN + e];
     if (s != nullptr) v *= s[e % N];
-    y[e] = __float2bfloat16_rn(v);
+    store_out(y + e, v);
   }
 }
 
-template <int FMT>
+// x, y of type TX (bf16: the mma.sync kernel; float: the FFMA kernel)
+template <int FMT, typename TX>
 int launch(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
            void* ws, int splits, int tiles_per_split, cudaStream_t st) {
   constexpr int BK = Fmt<FMT>::BK;
-  const int smem = (kBM + kBN) * (BK + kPad) * (int)sizeof(bf16);
+  constexpr bool f32 = std::is_same<TX, float>::value;
   static bool smem_set = false;             // once per kernel instance
   cudaError_t err;
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(qmm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  qmm_kernel<FMT><<<grid, kThreads, smem, st>>>(
-      (const bf16*)x, M, K, (const uint8_t*)w, (const float*)s, N, (bf16*)y,
-      splits > 1 ? (float*)ws : nullptr, tiles_per_split);
+  float* split_ws = splits > 1 ? (float*)ws : nullptr;
+  if constexpr (f32) {
+    const int smem = (kBM + kBN) * kF32LD * (int)sizeof(float);
+    if (!smem_set) {
+      err = cudaFuncSetAttribute(qmm_f32_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      smem_set = true;
+    }
+    qmm_f32_kernel<FMT><<<grid, kF32Threads, smem, st>>>(
+        (const float*)x, M, K, (const uint8_t*)w, (const float*)s, N, (float*)y, split_ws,
+        tiles_per_split);
+  } else {
+    const int smem = (kBM + kBN) * (BK + kPad) * (int)sizeof(bf16);
+    if (!smem_set) {
+      err = cudaFuncSetAttribute(qmm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      smem_set = true;
+    }
+    qmm_kernel<FMT><<<grid, kThreads, smem, st>>>(
+        (const bf16*)x, M, K, (const uint8_t*)w, (const float*)s, N, (bf16*)y, split_ws,
+        tiles_per_split);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t MN = (size_t)M * N;
   const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>((const float*)ws, splits, M, N,
-                                                FMT == kQ4G ? nullptr : (const float*)s,
-                                                (bf16*)y);
+  splitk_reduce_kernel<TX><<<blocks, 256, 0, st>>>((const float*)ws, splits, M, N,
+                                                    FMT == kQ4G ? nullptr : (const float*)s,
+                                                    (TX*)y);
   return (int)cudaGetLastError();
+}
+
+template <typename TX>
+int launch_fmt(int fmt, const void* x, int M, int K, const void* w, const void* s, int N,
+               void* y, void* ws, int splits, int tiles_per_split, cudaStream_t st) {
+  if (fmt == kQ4) return launch<kQ4, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kInt8)
+    return launch<kInt8, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kQ4G)
+    return launch<kQ4G, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. fmt 0 = q4 per-row, 1 = int8 per-row
-// (K6), 2 = q4g group-128 (K7). x bf16 [M, K]; w int8 [N, K/2] (q4, q4g) or
-// [N, K] (int8); s fp32 [N, 1] or [N, K/128]; y bf16 [M, N]; ws fp32
-// [splits, M, N] when splits > 1. Returns the cudaError_t of the launches.
-extern "C" int slime_quant_matmul(int fmt, const void* x, int M, int K, const void* w,
-                                  const void* s, int N, void* y, void* ws, int splits,
-                                  int tiles_per_split, void* stream) {
+// (K6), 2 = q4g group-128 (K7). x bf16 (x_f32 == 0) or fp32 (x_f32 == 1)
+// [M, K]; w int8 [N, K/2] (q4, q4g) or [N, K] (int8); s fp32 [N, 1] or
+// [N, K/128]; y [M, N] in x's dtype; ws fp32 [splits, M, N] when splits > 1.
+// Returns the cudaError_t of the launches.
+extern "C" int slime_quant_matmul(int fmt, int x_f32, const void* x, int M, int K,
+                                  const void* w, const void* s, int N, void* y, void* ws,
+                                  int splits, int tiles_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (fmt == kQ4) return launch<kQ4>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
-  if (fmt == kInt8) return launch<kInt8>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
-  if (fmt == kQ4G) return launch<kQ4G>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
-  return (int)cudaErrorInvalidValue;
+  return x_f32 ? launch_fmt<float>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st)
+               : launch_fmt<bf16>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
 }

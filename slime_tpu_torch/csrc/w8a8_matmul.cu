@@ -8,7 +8,9 @@
 //   xs[m] = am > 0 ? am * (1/127) : 1, am = max_k |x[m, k]| (fp32)
 //   q[m, k] = rint(x[m, k] / xs[m])     (a true division, half to even)
 //   acc = sum_k q[m, k] * w[n, k]       (int32, exact)
-//   y = bf16((float(acc) * xs[m]) * ws[n] + b[n])
+//   y = T((float(acc) * xs[m]) * ws[n] + b[n])
+// with x and y bf16 or fp32 (T, the tower's compute dtype: JAX's kernel
+// writes x.dtype); the int8 dot does not depend on it.
 // The intrinsics (__fdiv_rn, __fmul_rn, __fadd_rn) keep nvcc from contracting
 // the epilogue into an fma, so every rounding is the plain version's.
 //
@@ -45,13 +47,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
 // Row pass: block m quantizes row m of x.
+template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
-    const bf16* __restrict__ x, int K, int8_t* __restrict__ q, float* __restrict__ xs) {
+    const T* __restrict__ x, int K, int8_t* __restrict__ q, float* __restrict__ xs) {
   __shared__ float part[kQuantThreads / 32];
-  const bf16* xr = x + (size_t)blockIdx.x * K;
+  const T* xr = x + (size_t)blockIdx.x * K;
   float am = 0.f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) am = fmaxf(am, fabsf(__bfloat162float(xr[k])));
+  for (int k = threadIdx.x; k < K; k += kQuantThreads) am = fmaxf(am, fabsf(to_f32(xr[k])));
   am = warp_max(am);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = am;
   __syncthreads();
@@ -62,7 +70,7 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
   if (threadIdx.x == 0) xs[blockIdx.x] = scale;
   int8_t* qr = q + (size_t)blockIdx.x * K;
   for (int k = threadIdx.x; k < K; k += kQuantThreads)
-    qr[k] = (int8_t)rintf(__fdiv_rn(__bfloat162float(xr[k]), scale));
+    qr[k] = (int8_t)rintf(__fdiv_rn(to_f32(xr[k]), scale));
 }
 
 // c += a (16 x 32, row-major) * b (32 x 8, column-major), s8 in, s32 sum
@@ -94,10 +102,11 @@ __device__ __forceinline__ void stage(int8_t* dst, const int8_t* __restrict__ sr
 // The m16n8k32 s8 fragments, in bytes, have the bf16 m16n8k16 layout: lane
 // (g, t) holds A rows g, g + 8 at bytes 4t..4t+3 and 4t+16..4t+19, and B
 // column g at depth bytes 4t..4t+3 and 4t+16..4t+19; C as for bf16.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) w8a8_gemm_kernel(
     const int8_t* __restrict__ q, const float* __restrict__ xs, int M, int K,
     const int8_t* __restrict__ w, const float* __restrict__ ws, const float* __restrict__ bias,
-    int N, bf16* __restrict__ y) {
+    int N, T* __restrict__ y) {
   __shared__ __align__(16) int8_t as[kBM * kLD];
   __shared__ __align__(16) int8_t bs[kBN * kLD];
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
@@ -150,28 +159,36 @@ __global__ void __launch_bounds__(kThreads) w8a8_gemm_kernel(
         if (row >= M || col >= N) continue;
         float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][r]), xs[row]), ws[col]);
         if (bias != nullptr) v = __fadd_rn(v, bias[col]);
-        y[(size_t)row * N + col] = __float2bfloat16_rn(v);
+        store_out(y + (size_t)row * N + col, v);
       }
     }
   }
 }
 
-}  // namespace
-
-// Plain C interface, bound with ctypes: x bf16 [M, K] -> q int8 [M, K] and
-// xs fp32 [M] (scratch the wrapper allocates), then y bf16 [M, N] from w int8
-// [N, K], ws fp32 [N] and bias fp32 [N] or null. K is a multiple of 128.
-// Returns the cudaError_t of the launches.
-extern "C" int slime_w8a8_matmul(const void* x, int M, int K, void* q, void* xs,
-                                 const void* w, const void* ws, const void* bias, int N,
-                                 void* y, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  row_quant_kernel<<<M, kQuantThreads, 0, st>>>((const bf16*)x, K, (int8_t*)q, (float*)xs);
+template <typename T>
+int launch(const void* x, int M, int K, void* q, void* xs, const void* w, const void* ws,
+           const void* bias, int N, void* y, cudaStream_t st) {
+  row_quant_kernel<T><<<M, kQuantThreads, 0, st>>>((const T*)x, K, (int8_t*)q, (float*)xs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  w8a8_gemm_kernel<<<grid, kThreads, 0, st>>>(
+  w8a8_gemm_kernel<T><<<grid, kThreads, 0, st>>>(
       (const int8_t*)q, (const float*)xs, M, K, (const int8_t*)w, (const float*)ws,
-      (const float*)bias, N, (bf16*)y);
+      (const float*)bias, N, (T*)y);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes: x bf16 (x_f32 == 0) or fp32 (x_f32
+// == 1) [M, K] -> q int8 [M, K] and xs fp32 [M] (scratch the wrapper
+// allocates), then y [M, N] in x's dtype from w int8 [N, K], ws fp32 [N] and
+// bias fp32 [N] or null. K is a multiple of 128. Returns the cudaError_t of
+// the launches.
+extern "C" int slime_w8a8_matmul(int x_f32, const void* x, int M, int K, void* q, void* xs,
+                                 const void* w, const void* ws, const void* bias, int N,
+                                 void* y, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return x_f32 ? launch<float>(x, M, K, q, xs, w, ws, bias, N, y, st)
+               : launch<bf16>(x, M, K, q, xs, w, ws, bias, N, y, st);
 }

@@ -2,11 +2,11 @@
 
 Port of ``slime_tpu/generate.py`` (``generate`` :127-198, ``generate_stream``
 :201-286, the decode loop :97-124). Prefill attention goes through
-``ops.flash_attention`` under JAX's rule: the K5 kernel for causal CUDA
-tensors at S >= 2048 (multimodal prompts are padded to 2048 positions; the
-kernel takes bf16, and an fp32 prefill there raises), the plain
-``reference_attention`` otherwise; decode goes through
-``llama.decode_step`` and its kernels.
+``ops.flash_attention`` under JAX's rule: the K5 kernels for causal CUDA
+tensors at S >= 2048 (multimodal prompts are padded to 2048 positions; bf16
+or the default fp32), the plain ``reference_attention`` otherwise; decode
+goes through ``llama.decode_step`` and its kernels, which take the default
+fp32 compute dtype and any batch too.
 
 The decode loop is a Python loop with the JAX loop's semantics: rows that are
 done emit ``eos_id``, untouched slots stay 0, and the loop stops once every

@@ -75,14 +75,16 @@ def _text_embeds_for_selector(params, input_ids, attention_mask):
 def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
                   input_ids, attention_mask, *, training: bool = False,
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[Dict] = None, compute_dtype=torch.float32):
+                  noise: Optional[Dict] = None, compute_dtype=torch.float32,
+                  remat: bool = False):
     """-> (img_embeds [B, T_img, H], img_valid [B, T_img]).
 
     pixel_values [B, MC, 3, t, t] (float, or uint8 normalized here);
     crop_mask [B, MC] (slot 0 = global view). ``training`` turns on the
     gate and selection noise (from ``noise`` or ``generator``).
     ``use_global_only`` / ``use_local_only`` keep only the global view or
-    only the selected local tokens valid (the separator with neither)."""
+    only the selected local tokens valid (the separator with neither).
+    ``remat`` reaches the vision tower (``vit.apply``), as slime.py:116."""
     _check_supported(cfg)
     B, MC = pixel_values.shape[:2]
     P = cfg.vision.num_patches
@@ -99,7 +101,7 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
                                 and _any_requires_grad(params["vision"])):
         feats = vit.apply(params["vision"],
                           pixel_values.reshape(B * MC, *pixel_values.shape[2:])
-                          .to(compute_dtype), cfg.vision)
+                          .to(compute_dtype), cfg.vision, remat=remat)
     feats = feats.reshape(B, MC, P, -1)
 
     # global view: the full gated projector; local crops: compression, then
@@ -181,7 +183,7 @@ def prepare_multimodal(params, cfg: SliMEConfig, input_ids, attention_mask,
                        training: bool = False,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[Dict] = None, max_len=None,
-                       compute_dtype=torch.float32) -> FusedBatch:
+                       compute_dtype=torch.float32, remat: bool = False) -> FusedBatch:
     """Encode images and splice them into the token stream. Only the first
     IMAGE_TOKEN_INDEX sentinel per sample expands; later ones are dropped."""
     B, S = input_ids.shape
@@ -190,7 +192,8 @@ def prepare_multimodal(params, cfg: SliMEConfig, input_ids, attention_mask,
     img_embeds, img_valid = encode_images(params, cfg, pixel_values, crop_mask,
                                           input_ids, attention_mask,
                                           training=training, generator=generator,
-                                          noise=noise, compute_dtype=compute_dtype)
+                                          noise=noise, compute_dtype=compute_dtype,
+                                          remat=remat)
     is_img = input_ids == IMAGE_TOKEN_INDEX
     text_emb = llama.embed(params["llm"], torch.where(is_img, 0, input_ids)
                            ).to(compute_dtype)
@@ -214,11 +217,12 @@ def forward(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values,
             compute_dtype=torch.float32, remat: bool = False,
             return_hidden: bool = False):
     """End to end -> (logits [B, L, V] fp32, or the final hidden states with
-    ``return_hidden``; the FusedBatch)."""
+    ``return_hidden``; the FusedBatch). ``remat`` checkpoints each LLM layer
+    and each vision block (slime.py:404-427)."""
     fused = prepare_multimodal(params, cfg, input_ids, attention_mask,
                                pixel_values, crop_mask, labels,
                                training=training, generator=generator,
-                               noise=noise, compute_dtype=compute_dtype)
+                               noise=noise, compute_dtype=compute_dtype, remat=remat)
     out, _ = llama.forward(params["llm"], fused.embeds, cfg.llm,
                            positions=fused.positions, use_kernel=use_kernel,
                            compute_dtype=compute_dtype, remat=remat,

@@ -19,6 +19,7 @@ import math
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import VisionConfig
 from ..ops.encoder_attention import encoder_attention
@@ -160,13 +161,20 @@ def embed_patches(params, pixel_values, cfg: VisionConfig):
     return x + params["position_embedding"].to(x.dtype)
 
 
-def apply(params, pixel_values, cfg: VisionConfig):
+def apply(params, pixel_values, cfg: VisionConfig, *, remat: bool = False):
     """[B, 3, H, W] -> patch features [B, P, E] (CLS dropped, layer
-    ``select_layer``)."""
+    ``select_layer``). ``remat`` recomputes each encoder block in the
+    backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` around
+    ``_block``, vit.py:180-192) when autograd records: the stash drops to each
+    block's input, and the numbers stay the same."""
     x = embed_patches(params, pixel_values, cfg)
     x = L.layer_norm(params["pre_layernorm"], x, eps=cfg.layer_norm_eps)
+    remat = remat and torch.is_grad_enabled()
     for i in range(_layers_run(cfg)):
-        x = _block(params["layers"][i], x, cfg)
+        if remat:
+            x = checkpoint(_block, params["layers"][i], x, cfg, use_reentrant=False)
+        else:
+            x = _block(params["layers"][i], x, cfg)
     if cfg.select_feature == "patch":
         x = x[:, 1:]
     return x

@@ -30,20 +30,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "slime_rms_norm": [_P, _P, _P, _I, _I, _F, _P],
-    "slime_qkv_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
+    "slime_rms_norm": [_I, _P, _P, _P, _I, _I, _F, _P],
+    "slime_qkv_gemv": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P],
-    "slime_resid_gemv": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
-    "slime_gate_up_gemv": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "slime_resid_gemv": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "slime_gate_up_gemv": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
-                               + [_LL] * 9 + [_F, _I, _P],
+                               + [_LL] * 9 + [_F, _I, _I, _P],
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_ring_attend": [_P] * 7 + [_LLP] + [_I] * 9 + [_F, _P],
-    "slime_quant_matmul": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
-    "slime_w8a8_matmul": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
-    "slime_hopper_selftest": [_P] * 6,
+    "slime_quant_matmul": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "slime_w8a8_matmul": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "slime_hopper_selftest": [_P] * 9,
 }
 
 # the loaded library, and the seconds nvcc took if this process built it
@@ -163,17 +163,23 @@ def ptr(t):
 
 def hopper_selftest(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
     """Run ``csrc/hopper_selftest.cu`` on contiguous bf16 a, b [64, 64] and v
-    [64, 128] on the card -> (s = a . b^T [64, 64], o = bf16(s) . v [64, 128])
-    in fp32: one TMA load, SS and RS wgmma and the accumulator-to-fragment
-    step of the attention kernels' tile vocabulary (``hopper_common.cuh``)."""
+    [64, 128] on the card -> (s = a . b^T, o = bf16(s) . v [64, 128], t =
+    b . a^T, p1 = bf16(s) . b, p2 = bf16(t) . a) in fp32: one TMA load, and
+    every operand form of the attention kernels' tile vocabulary
+    (``hopper_common.cuh``): SS wgmma with both operands K-major either way
+    round, RS wgmma from the accumulator's register fragments with the
+    shared operand read MN-major (v over two 64-column chunks; b and a, the
+    tiles s and t read K-major)."""
     require_cuda(a, b, v)
     for t, shape in ((a, (64, 64)), (b, (64, 64)), (v, (64, 128))):
         if t.shape != shape or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"hopper_selftest takes contiguous bf16 {shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    s = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    s, t, p1, p2 = (torch.empty((64, 64), dtype=torch.float32, device=a.device)
+                    for _ in range(4))
     o = torch.empty((64, 128), dtype=torch.float32, device=a.device)
     check(library().slime_hopper_selftest(a.data_ptr(), b.data_ptr(), v.data_ptr(),
-                                          s.data_ptr(), o.data_ptr(), stream()),
+                                          s.data_ptr(), o.data_ptr(), t.data_ptr(),
+                                          p1.data_ptr(), p2.data_ptr(), stream()),
           "hopper_selftest")
-    return s, o
+    return s, o, t, p1, p2

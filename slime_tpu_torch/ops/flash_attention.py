@@ -33,20 +33,24 @@ k's dtype before dK / dQ; all products accumulate in fp32. A query attends a
 key only under causality (when ``causal``) and, with ``segment_ids`` [B, S],
 only when both carry the same id (sequence packing).
 
-The kernels take q/k/v/do all bf16 (p and ds rounded to bf16 as above: the
-forward is a Hopper ``wgmma`` kernel fed by TMA through an mbarrier ring, the
-backward pair ``mma.sync`` tiles) or all fp32 (FFMA tiles with no TF32 and no
-rounding: what JAX's interpret-mode kernels compute for fp32, and what
-``llama.forward``'s default fp32 compute dtype sends them), at D = 128 or
-256; outputs come back in the inputs' dtype. ``kernel_input_error`` states
-what they take.
+The kernels take q/k/v/do all bf16 (p and ds rounded to bf16 as above) or
+all fp32 (no TF32 and no rounding: what JAX's interpret-mode kernels compute
+for fp32, and what ``llama.forward``'s default fp32 compute dtype sends
+them), at any D that is a multiple of 128, as JAX's rule sends every such D
+to its kernels. bf16 at D = 128 and 256 takes the Hopper ``wgmma`` kernels
+fed by TMA through an mbarrier ring (forward, dK/dV and dQ alike); fp32, and
+bf16 at D > 256 (no model in the repo has such a head), take FFMA tiles over
+128- or 256-column chunks of D. Outputs come back in the inputs' dtype.
+``kernel_input_error`` states what they take.
 
 Launch counts (one per kernel launch, nowhere else):
 ``flash_attention.fwd_launches``, ``.dkdv_launches`` and ``.dq_launches``
 count every launch; ``.fwd_f32_launches``, ``.dkdv_f32_launches`` and
 ``.dq_f32_launches`` those of them with fp32 inputs; ``.fwd_d256_launches``,
 ``.dkdv_d256_launches`` and ``.dq_d256_launches`` those at D = 256, and
-``.fwd_f32_d256_launches`` etc. those at D = 256 in fp32.
+``.fwd_f32_d256_launches`` etc. those at D = 256 in fp32;
+``.fwd_wide_launches`` etc. those at D > 256, ``.fwd_f32_wide_launches``
+etc. those at D > 256 in fp32.
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (128, 256)
+KERNEL_D_STEP = 128         # the kernels take every D that is a multiple of this
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MIN_AUTO_SEQ = 2048
 
@@ -198,8 +202,8 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
 
 def kernel_input_error(q, k, v, *extra) -> Optional[str]:
     """Why the kernels cannot take q [B, H, S, D], k/v [B, KVH, S, D] and
-    ``extra`` (do) (None if they can): KVH dividing H, D = 128 or 256, all
-    bf16 or all fp32, and a layout TMA and 16-byte loads read
+    ``extra`` (do) (None if they can): KVH dividing H, D a multiple of 128,
+    all bf16 or all fp32, and a layout TMA and 16-byte loads read
     (``_cuda.tma_ready``). Devices are not checked: a pure function of
     shapes, dtypes and layouts."""
     B, H, S, D = q.shape
@@ -208,10 +212,8 @@ def kernel_input_error(q, k, v, *extra) -> Optional[str]:
                 f"v {tuple(v.shape)} do not fit [B,H,S,D] / [B,KVH,S,D]")
     if H % k.shape[1]:
         return f"flash kernels: KVH={k.shape[1]} does not divide H={H}"
-    if D not in KERNEL_HEAD_DIMS:
-        more = (": larger head dims are ROADMAP Queue 3 (no model in the repo has one)"
-                if D > max(KERNEL_HEAD_DIMS) else "")
-        return f"flash kernels take D = 128 or 256, got {D}{more}"
+    if D < KERNEL_D_STEP or D % KERNEL_D_STEP:
+        return f"flash kernels take D a multiple of {KERNEL_D_STEP}, got {D}"
     dtypes = {t.dtype for t in (q, k, v) + extra}
     if len(dtypes) != 1 or q.dtype not in KERNEL_DTYPES:
         return (f"flash kernels take q/k/v/do all bf16 or all fp32, got "
@@ -264,8 +266,9 @@ def _f32_bhs(t, q):
 
 def _count(q, kernel: str) -> None:
     """One launch of ``kernel`` (fwd, dkdv or dq) with q's dtype and head dim."""
-    f32, d256 = _fp32(q), int(q.shape[-1] == 256)
-    for suffix, n in (("", 1), ("_f32", f32), ("_d256", d256), ("_f32_d256", f32 * d256)):
+    f32, d256, wide = _fp32(q), int(q.shape[-1] == 256), int(q.shape[-1] > 256)
+    for suffix, n in (("", 1), ("_f32", f32), ("_d256", d256), ("_f32_d256", f32 * d256),
+                      ("_wide", wide), ("_f32_wide", f32 * wide)):
         name = f"{kernel}{suffix}_launches"
         setattr(flash_attention, name, getattr(flash_attention, name) + n)
 
@@ -363,9 +366,9 @@ class _Flash(torch.autograd.Function):
 def _auto_kernel(q, causal: bool) -> bool:
     """JAX's rule (flash_attention.py:523-525) with "on a TPU" read as "on
     the card": causal, S >= 2048, S and D multiples of 128. Nothing more:
-    a tensor the rule picks that the kernels cannot take (D = 384, or a
-    dtype other than bf16 and fp32) raises in them instead of quietly taking
-    the plain path."""
+    a tensor the rule picks that the kernels cannot take (a dtype other than
+    bf16 and fp32) raises in them instead of quietly taking the plain
+    path."""
     S, D = q.shape[2], q.shape[3]
     return (q.is_cuda and causal and S >= MIN_AUTO_SEQ and S % 128 == 0
             and D % 128 == 0)
@@ -379,8 +382,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     causal CUDA tensors at S >= 2048 with S and D multiples of 128 (JAX's
     conditions) and ``reference_attention`` otherwise. True runs the kernels
     (with their backward under autograd). Either raises on a CUDA tensor
-    the kernels cannot take (they take bf16 or fp32 with D = 128 or 256), and True
-    raises on a CPU tensor; False is the plain path."""
+    the kernels cannot take (they take bf16 or fp32 with D a multiple of
+    128), and True raises on a CPU tensor; False is the plain path."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if use_kernel is None:
@@ -394,15 +397,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     return _Flash.apply(q, k, v, segment_ids, causal, scale)
 
 
-flash_attention.fwd_launches = 0
-flash_attention.dkdv_launches = 0
-flash_attention.dq_launches = 0
-flash_attention.fwd_f32_launches = 0
-flash_attention.dkdv_f32_launches = 0
-flash_attention.dq_f32_launches = 0
-flash_attention.fwd_d256_launches = 0
-flash_attention.dkdv_d256_launches = 0
-flash_attention.dq_d256_launches = 0
-flash_attention.fwd_f32_d256_launches = 0
-flash_attention.dkdv_f32_d256_launches = 0
-flash_attention.dq_f32_d256_launches = 0
+for _kernel in ("fwd", "dkdv", "dq"):
+    for _suffix in ("", "_f32", "_d256", "_f32_d256", "_wide", "_f32_wide"):
+        setattr(flash_attention, f"{_kernel}{_suffix}_launches", 0)

@@ -7,8 +7,9 @@ and keeps ``a = silu(g) * u`` in VMEM. On the card it takes two launches in
 one wrapper (``csrc/fused_decode.cu``): gate/up into an ``a [B, I]`` scratch,
 a few tens of KB that stays in L2, then down plus the residual.
 
-Rounding kept from the TPU kernel (fused_mlp.py:227-292): h rounds to the
-working dtype; dots accumulate in fp32 over exactly converted int8 or int4;
+Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
+dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
+accumulate in fp32 over exactly converted int8 or int4;
 per-row int8 scales multiply the fp32 results, q4g scales each 128-column
 group's fp32 partial sum; a = silu(g) * u rounds to the working dtype; down
 accumulates in fp32 with its scales, and x is added in fp32 before the final
@@ -24,8 +25,9 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .fused_qkvo import (Q4G, _at, check_operands, layer_mats, proj_ref, rms_h,
-                         rms_norm_launch, split_weight)
+from .fused_qkvo import (Q4G, _at, act_f32, check_operands, count, kernel_fmt, layer_mats,
+                         proj_ref, rms_h, rms_norm_launch, split_weight)
+from .quantization import int_values
 
 # the TPU kernel's preferred intermediate chunk per format (fused_mlp.py:323)
 _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
@@ -72,6 +74,36 @@ def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
+def intermediate_ulp_bound(x, layers, layer_idx, *, eps: float = 1e-5):
+    """[B, H] fp32: sum_i ulp(a_i) |w_down[o, i]| for the intermediate a =
+    bf16(silu(g) u) of the plain version (ulp: the spacing of bf16 at |a_i|,
+    2^(floor(log2 |a_i|) - 7)), w_down dequantized. Where the kernel and the
+    plain version, summing g and u in other orders, round an element of a to
+    neighbouring bf16 values, the output moves by that element's ulp times
+    its weight: this is the floor a comparison of the two needs. fp32
+    activations do not round a: zeros."""
+    B, H = x.shape
+    if x.dtype != torch.bfloat16:
+        return torch.zeros((B, H), dtype=torch.float32, device=x.device)
+    h = rms_h(x, layers["post_attention_layernorm"]["weight"][layer_idx], eps)
+    (wg, sg, fg), (wu, su, fu), (wd, sd, fd) = [
+        split_weight(layers[n]) for n in ("gate_proj", "up_proj", "down_proj")]
+    g = proj_ref(h, wg[layer_idx], _at(sg, layer_idx), fg)
+    u = proj_ref(h, wu[layer_idx], _at(su, layer_idx), fu)
+    a = (silu(g) * u).to(x.dtype).to(torch.float32).abs()
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7), 0.0)
+    # |w_down| dequantized to fp32, [H, I]
+    w, sc = wd[layer_idx], _at(sd, layer_idx)
+    if fd == Q4G:
+        w = int_values({"q4g": w, "scale": sc}).to(torch.float32).abs()
+        w = w * sc.to(torch.float32).abs().repeat_interleave(128, dim=-1)
+    elif sc is not None:
+        w = w.to(torch.float32).abs() * sc.to(torch.float32).abs()
+    else:
+        w = w.to(torch.float32).abs()
+    return torch.matmul(ulp, w.T)
+
+
 def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     """x [B, H] -> x + SwiGLU(rms_norm(x)) for layer ``layer_idx``; reads
     post_attention_layernorm / gate_proj / up_proj / down_proj of the stacked
@@ -89,6 +121,7 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     if fmt == Q4G and I % 256:
         raise ValueError(f"q4g decode kernels take I a multiple of 256, got {I}")
     if (wu.shape != wg.shape or wd.shape[0] != H or fmt_d != fmt
+            or len({wg.dtype, wu.dtype, wd.dtype}) != 1
             or wd.shape[1] != (I // 2 if fmt == Q4G else I)):
         raise ValueError(f"MLP weights gate {tuple(wg.shape)} up {tuple(wu.shape)} "
                          f"down {tuple(wd.shape)} do not form one SwiGLU block")
@@ -97,17 +130,18 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     h = rms_norm_launch(x, layers["post_attention_layernorm"]["weight"][layer_idx],
                         eps, lib)
     a = torch.empty((B, I), dtype=x.dtype, device=x.device)
+    wfmt, f32 = kernel_fmt(wg, fmt), act_f32(x)
     _cuda.check(lib.slime_gate_up_gemv(
-        fmt, h.data_ptr(), B, H, p(wg), p(sg), p(wu), p(su), I, a.data_ptr(),
+        f32, wfmt, h.data_ptr(), B, H, p(wg), p(sg), p(wu), p(su), I, a.data_ptr(),
         _cuda.stream()), "fused_mlp_decode gate/up")
     check_operands(a, down)
     y = torch.empty_like(x)
     _cuda.check(lib.slime_resid_gemv(
-        fmt, a.data_ptr(), B, I, p(wd), p(sd), H, x.data_ptr(), y.data_ptr(),
+        f32, wfmt, a.data_ptr(), B, I, p(wd), p(sd), H, x.data_ptr(), y.data_ptr(),
         _cuda.stream()), "fused_mlp_decode down")
-    fused_mlp_decode.launches += 1
-    fused_mlp_decode.q4g_launches += fmt == Q4G
+    count(fused_mlp_decode, x, fmt)
     return y
 
 
 fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0
+fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0

@@ -10,13 +10,23 @@ the TPU the layer is picked by scalar prefetch so XLA never copies a sliced
 operand; in PyTorch ``w[layer_idx]`` of a contiguous stack is already a view,
 so the wrappers index it directly. The kernels are in ``csrc/fused_decode.cu``.
 
+Activations are bf16 or fp32, the caller's compute dtype (JAX's kernels
+compute in the dtype of their input); outputs come back in it. Any number of
+rows B runs in one launch (the kernels loop over row tiles), as JAX's fused
+decode takes any B.
+
 Weight formats (format codes of the kernels): 0 dense (bf16 on the card,
-any float on the CPU), 1 int8 per-row ``{"q", "scale"}``, 2 group-128 q4g
+any float on the CPU; fp32 too with fp32 activations, code 3), 1 int8
+per-row ``{"q", "scale"}``, 2 group-128 q4g
 ``{"q4g", "scale"}`` with the canonical scales ``[L, out, in/128]``. The
 JAX package's ``prepare_fused_layers`` stores the down projection's q4g
 scales transposed, ``[L, in/128, out]`` (a Mosaic tiling device); that
 layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
+
+Launch counts (one per wrapper call that launches, nowhere else):
+``.launches`` every call, ``.q4g_launches`` those on q4g weights,
+``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both.
 """
 from __future__ import annotations
 
@@ -25,9 +35,9 @@ import torch
 from . import _cuda
 from .quantization import int_values
 
-MAX_BATCH = 64              # decode rows the kernels take (llama.py:525)
-DENSE, INT8, Q4G = 0, 1, 2
+DENSE, INT8, Q4G, DENSE_F32 = 0, 1, 2, 3
 _FMT_NAMES = {DENSE: "dense", INT8: "int8", Q4G: "q4g"}
+ACT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def split_weight(p):
@@ -99,25 +109,28 @@ def fused_o_residual_ref(attn, x, layers, layer_idx):
 
 
 def check_operands(x, mats):
-    """Validate a kernel call: x [B, K] bf16 contiguous with B <= 64; each
-    (w, s, fmt) on x's device and contiguous: dense bf16 [out, K], int8
-    [out, K] with fp32 scales [out, 1], or q4g int8 [out, K/2] with fp32
-    scales [out, K/128]; K a whole number of 16-byte weight vectors, and a
-    multiple of 256 for q4g."""
+    """Validate a kernel call: x [B, K] bf16 or fp32, contiguous and 16-byte
+    aligned, B >= 1; each (w, s, fmt) on x's device and contiguous: dense
+    [out, K] (bf16, or fp32 with fp32 x), int8 [out, K] with fp32 scales
+    [out, 1], or q4g int8 [out, K/2] with fp32 scales [out, K/128]; K a
+    whole number of 16-byte weight vectors, and a multiple of 256 for q4g."""
     _cuda.require_cuda(x, *[t for w, s, _ in mats for t in (w, s) if t is not None])
-    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"decode kernels take contiguous bf16 [B, K] activations, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    if (x.dtype not in ACT_DTYPES or x.dim() != 2 or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError(f"decode kernels take contiguous, 16-byte aligned bf16 or fp32 "
+                         f"[B, K] activations, got {x.dtype} {tuple(x.shape)}")
     B, K = x.shape
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"decode kernels take 1..{MAX_BATCH} rows, got {B}")
+    if B < 1:
+        raise ValueError(f"decode kernels take at least one row, got {B}")
     for w, s, fmt in mats:
-        want = torch.bfloat16 if fmt == DENSE else torch.int8
+        want = (torch.int8,) if fmt != DENSE else (
+            ACT_DTYPES if x.dtype == torch.float32 else (torch.bfloat16,))
         width = K // 2 if fmt == Q4G else K
-        if (w.dtype != want or w.dim() != 2 or w.shape[-1] != width
+        if (w.dtype not in want or w.dim() != 2 or w.shape[-1] != width
                 or not w.is_contiguous()):
             raise ValueError(f"{_FMT_NAMES[fmt]} weight {w.dtype} {tuple(w.shape)}: "
-                             f"expected contiguous {want} [out, {width}]")
+                             f"expected contiguous {' or '.join(map(str, want))} "
+                             f"[out, {width}] with {x.dtype} activations")
         if (K * w.element_size()) % 16 or (fmt == Q4G and K % 256):
             raise ValueError(f"contraction {K} does not fit the {_FMT_NAMES[fmt]} "
                              f"kernel (16-byte vectors; q4g: a multiple of 256)")
@@ -142,6 +155,25 @@ def layer_mats(layers, names, layer_idx):
     return mats
 
 
+def act_f32(x) -> int:
+    """The kernels' activation flag: 1 for fp32 activations, 0 for bf16."""
+    return int(x.dtype == torch.float32)
+
+
+def kernel_fmt(w, fmt) -> int:
+    """The format code a launch passes: dense fp32 weights are code 3."""
+    return DENSE_F32 if fmt == DENSE and w.dtype == torch.float32 else fmt
+
+
+def count(fn, x, fmt) -> None:
+    """One launch of ``fn`` on ``x``'s dtype and weight format ``fmt``."""
+    f32, q4g = act_f32(x), int(fmt == Q4G)
+    fn.launches += 1
+    fn.q4g_launches += q4g
+    fn.f32_launches += f32
+    fn.f32_q4g_launches += f32 * q4g
+
+
 def rms_norm_launch(x, norm_w, eps, lib):
     """Launch the row-norm pass; returns h [B, H] in x.dtype."""
     B, H = x.shape
@@ -150,7 +182,7 @@ def rms_norm_launch(x, norm_w, eps, lib):
         raise ValueError(f"norm weight {tuple(nw.shape)} on {nw.device} for x "
                          f"{tuple(x.shape)} on {x.device}")
     h = torch.empty_like(x)
-    _cuda.check(lib.slime_rms_norm(x.data_ptr(), nw.data_ptr(), h.data_ptr(),
+    _cuda.check(lib.slime_rms_norm(act_f32(x), x.data_ptr(), nw.data_ptr(), h.data_ptr(),
                                    B, H, eps, _cuda.stream()), "rms_norm")
     return h
 
@@ -165,8 +197,9 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     mats = layer_mats(layers, ("q_proj", "k_proj", "v_proj"), layer_idx)
     check_operands(x, mats)
     (wq, sq, fmt), (wk, sk, _), (wv, sv, _) = mats
-    if wk.shape != wv.shape:
-        raise ValueError(f"k/v projections differ: {wk.shape} vs {wv.shape}")
+    if wk.shape != wv.shape or len({wq.dtype, wk.dtype, wv.dtype}) != 1:
+        raise ValueError(f"k/v projections differ: {wk.dtype} {wk.shape} vs {wv.dtype} "
+                         f"{wv.shape} (q {wq.dtype})")
     B, H = x.shape
     NQ, NKV = wq.shape[0], wk.shape[0]
     if fmt == Q4G and NQ % 256:
@@ -178,11 +211,10 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     p = _cuda.ptr
     _cuda.check(lib.slime_qkv_gemv(
-        fmt, h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk), p(sk), p(wv), p(sv),
-        NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.stream()),
-        "fused_qkv_decode")
-    fused_qkv_decode.launches += 1
-    fused_qkv_decode.q4g_launches += fmt == Q4G
+        act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
+        p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _cuda.stream()), "fused_qkv_decode")
+    count(fused_qkv_decode, x, fmt)
     return q, k, v
 
 
@@ -202,12 +234,11 @@ def fused_o_residual(attn, x, layers, layer_idx):
     lib = _cuda.library()
     y = torch.empty_like(x)
     _cuda.check(lib.slime_resid_gemv(
-        fmt, attn.data_ptr(), B, attn.shape[1], wo.data_ptr(), _cuda.ptr(so), H,
-        x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
-    fused_o_residual.launches += 1
-    fused_o_residual.q4g_launches += fmt == Q4G
+        act_f32(x), kernel_fmt(wo, fmt), attn.data_ptr(), B, attn.shape[1], wo.data_ptr(),
+        _cuda.ptr(so), H, x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
+    count(fused_o_residual, x, fmt)
     return y
 
 
-fused_qkv_decode.launches = fused_qkv_decode.q4g_launches = 0
-fused_o_residual.launches = fused_o_residual.q4g_launches = 0
+for _fn in (fused_qkv_decode, fused_o_residual):
+    _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0

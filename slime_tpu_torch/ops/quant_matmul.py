@@ -14,7 +14,14 @@ Port of ``slime_tpu/ops/quant_matmul.py``:
 (JAX's ``layers.py:52-53`` on the TPU); int8 has no caller in the JAX
 package's routing, so K6's int8 loader is off the serving path. CPU tensors
 take the plain versions; CUDA tensors launch the kernel
-(``csrc/quant_matmul.cu``) or raise.
+(``csrc/quant_matmul.cu``) or raise. x is bf16 (an ``mma.sync`` GEMM) or fp32
+(the default compute dtype: an FFMA GEMM over the weights dequantized to
+fp32, as JAX's ``astype(x.dtype)``); y comes back in x's dtype.
+
+Launch counts: ``quant_matmul.q4_launches`` / ``.int8_launches`` and
+``quant_matmul_q4g.launches`` count every launch, ``.q4_f32_launches``,
+``.int8_f32_launches`` and ``quant_matmul_q4g.f32_launches`` those with fp32
+x.
 """
 from __future__ import annotations
 
@@ -54,12 +61,12 @@ def quant_matmul_q4g_ref(x: torch.Tensor, qw) -> torch.Tensor:
 
 def _launch(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Check the operands and launch the kernel (with a split over K when the
-    output tiles alone would leave SMs idle); returns y [M, N] bf16."""
+    output tiles alone would leave SMs idle); returns y [M, N] in x's dtype."""
     _cuda.require_cuda(x, w, s)
-    if (x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous()
-            or x.data_ptr() % 16):
-        raise ValueError(f"quantized matmul takes contiguous, 16-byte aligned bf16 "
-                         f"[M, K] activations, got {x.dtype} {tuple(x.shape)}")
+    if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"quantized matmul takes contiguous, 16-byte aligned bf16 or "
+                         f"fp32 [M, K] activations, got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     N = w.shape[0]
     step = 256 if fmt == _Q4G else 128
@@ -71,7 +78,7 @@ def _launch(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torc
         raise ValueError(f"weight {w.dtype} {tuple(w.shape)} / scale {s.dtype} "
                          f"{tuple(s.shape)} do not fit K = {K}: expected int8 {want_w}, "
                          f"fp32 {want_s}, K a multiple of {step}")
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
     n_k = K // step
@@ -83,8 +90,8 @@ def _launch(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torc
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     _cuda.check(_cuda.library().slime_quant_matmul(
-        fmt, x.data_ptr(), M, K, w.data_ptr(), s.data_ptr(), N, y.data_ptr(),
-        _cuda.ptr(ws), splits, per_split, _cuda.stream()), "quant_matmul")
+        fmt, int(x.dtype == torch.float32), x.data_ptr(), M, K, w.data_ptr(), s.data_ptr(),
+        N, y.data_ptr(), _cuda.ptr(ws), splits, per_split, _cuda.stream()), "quant_matmul")
     return y
 
 
@@ -95,10 +102,10 @@ def quant_matmul(x: torch.Tensor, qw) -> torch.Tensor:
         return quant_matmul_ref(x, qw)
     int4 = "q4" in qw
     y = _launch(_Q4 if int4 else _INT8, x, qw["q4"] if int4 else qw["q"], qw["scale"])
-    if int4:
-        quant_matmul.q4_launches += 1
-    else:
-        quant_matmul.int8_launches += 1
+    name = "q4" if int4 else "int8"
+    for suffix, n in (("", 1), ("_f32", int(x.dtype == torch.float32))):
+        attr = f"{name}{suffix}_launches"
+        setattr(quant_matmul, attr, getattr(quant_matmul, attr) + n)
     return y
 
 
@@ -109,9 +116,10 @@ def quant_matmul_q4g(x: torch.Tensor, qw) -> torch.Tensor:
         return quant_matmul_q4g_ref(x, qw)
     y = _launch(_Q4G, x, qw["q4g"], qw["scale"])
     quant_matmul_q4g.launches += 1
+    quant_matmul_q4g.f32_launches += x.dtype == torch.float32
     return y
 
 
-quant_matmul.q4_launches = 0
-quant_matmul.int8_launches = 0
-quant_matmul_q4g.launches = 0
+quant_matmul.q4_launches = quant_matmul.q4_f32_launches = 0
+quant_matmul.int8_launches = quant_matmul.int8_f32_launches = 0
+quant_matmul_q4g.launches = quant_matmul_q4g.f32_launches = 0

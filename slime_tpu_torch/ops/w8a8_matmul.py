@@ -6,7 +6,9 @@ the fp32 epilogue ``acc * xs * ws + bias`` rounds to x.dtype. It serves the
 W8A8 vision tower (``vit.quantize_tower``, the CLI's ``--quantize-vision``).
 CPU tensors take the plain version ``w8a8_matmul_ref``; CUDA tensors launch
 the kernels of ``csrc/w8a8_matmul.cu`` (a row-quant pass and the int8 GEMM)
-or raise.
+or raise. x is bf16 or fp32 (the tower's compute dtype); the int8 dot is the
+same for both. ``w8a8_matmul.launches`` counts every launch,
+``.f32_launches`` those with fp32 x.
 """
 from __future__ import annotations
 
@@ -40,10 +42,10 @@ def w8a8_matmul(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
     q, scale = qw["q"], qw["scale"]
     b = None if bias is None else bias.to(torch.float32).contiguous()
     _cuda.require_cuda(x, q, scale, *([] if b is None else [b]))
-    if (x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous()
-            or x.data_ptr() % 16):
-        raise ValueError(f"w8a8_matmul takes contiguous, 16-byte aligned bf16 [M, K] "
-                         f"activations, got {x.dtype} {tuple(x.shape)}")
+    if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"w8a8_matmul takes contiguous, 16-byte aligned bf16 or fp32 "
+                         f"[M, K] activations, got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     N = q.shape[0]
     if (K % 128 or q.dtype != torch.int8 or tuple(q.shape) != (N, K)
@@ -59,9 +61,11 @@ def w8a8_matmul(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
     if M == 0 or N == 0:
         return y
     _cuda.check(_cuda.library().slime_w8a8_matmul(
-        x.data_ptr(), M, K, xq.data_ptr(), xs.data_ptr(), q.data_ptr(),
-        scale.data_ptr(), _cuda.ptr(b), N, y.data_ptr(), _cuda.stream()), "w8a8_matmul")
+        int(x.dtype == torch.float32), x.data_ptr(), M, K, xq.data_ptr(), xs.data_ptr(),
+        q.data_ptr(), scale.data_ptr(), _cuda.ptr(b), N, y.data_ptr(), _cuda.stream()),
+        "w8a8_matmul")
     w8a8_matmul.launches += 1
+    w8a8_matmul.f32_launches += x.dtype == torch.float32
     return y
 
 
@@ -73,4 +77,4 @@ def w8a8_linear(p, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, -1)
 
 
-w8a8_matmul.launches = 0
+w8a8_matmul.launches = w8a8_matmul.f32_launches = 0

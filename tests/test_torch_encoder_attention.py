@@ -89,14 +89,45 @@ K4_INPUTS = {
     "stride_not_16_bytes": (lambda: [_bf16_view((1, 64, 3, 44))[..., :40]] * 3, False),
     "seq_1025": (lambda: [_bf16_view((1, 1025, 2, 64))] * 3, False),
     "head_dim_136": (lambda: [_bf16_view((1, 64, 2, 136))] * 3, False),
-    "fp32": (lambda: [torch.zeros((1, 64, 2, 64))] * 3, False),
+    "fp32": (lambda: [torch.zeros((1, 64, 2, 64))] * 3, True),
+    "mixed_dtypes": (lambda: [torch.zeros((1, 64, 2, 64))] + [_bf16_view((1, 64, 2, 64))] * 2,
+                     False),
 }
 
 
 @pytest.mark.parametrize("case", list(K4_INPUTS))
 def test_kernel_input_rule(case):
-    """What K4 takes, decided from shapes, dtypes and layouts alone: TMA reads
-    q/k/v through tensor maps, so data and strides must be 16-byte aligned."""
+    """What K4 takes, decided from shapes, dtypes and layouts alone: bf16 or
+    fp32 (one dtype); TMA reads q/k/v through tensor maps, so data and
+    strides must be 16-byte aligned."""
     make, accepted = K4_INPUTS[case]
     err = tea.kernel_input_error(*make())
     assert (err is None) == accepted, err
+
+
+# [B, S, H, D]: CLIP-L's shape, then S = 1025, D = 136 and D = 20 (JAX's
+# three hard limits), S = 1024 and S = 896 over the VMEM estimate, S = 896 at
+# one head a program under it, and short shapes
+RULE_SHAPES = [(8, 577, 16, 64), (1, 1025, 2, 64), (1, 64, 2, 136), (1, 64, 2, 20),
+               (1, 1024, 2, 64), (1, 896, 4, 128), (1, 896, 3, 64), (2, 100, 4, 128),
+               (1, 64, 2, 40)]
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("shape", RULE_SHAPES)
+def test_kernel_rule_is_jax_rule(shape, dtype, monkeypatch):
+    """``takes_kernel``, the port's routing of CUDA tensors, is JAX's
+    automatic choice with "on a TPU" read as "on the card": JAX's
+    encoder_attention, told that its backend is a TPU, calls its kernel for
+    exactly the shapes the rule sends to K4 and _xla_attention for the rest,
+    in either dtype."""
+    calls = []
+    monkeypatch.delenv("SLIME_USE_PALLAS_ATTN", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jea, "_enc", lambda q, *a: calls.append("kernel") or q)
+    monkeypatch.setattr(jea, "_xla_attention", lambda q, *a: calls.append("xla") or q)
+    q = jnp.zeros(shape, dtype)
+    jea.encoder_attention(q, q, q)
+    assert calls == ["kernel" if tea.takes_kernel(shape) else "xla"]
+    assert tea.takes_kernel(shape) == (shape in (RULE_SHAPES[0], RULE_SHAPES[6],
+                                                 RULE_SHAPES[7], RULE_SHAPES[8]))

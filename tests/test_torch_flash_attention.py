@@ -1,7 +1,7 @@
 """Causal flash attention (K5): the port against the JAX package.
 
-Seeded fp32 inputs at H=4, KVH=2, D=16 (and D=256, the other head dim the
-kernels take). JAX's Pallas kernels run in
+Seeded fp32 inputs at H=4, KVH=2, D=16 (and D=256 and 384: the kernels take
+every multiple of 128). JAX's Pallas kernels run in
 interpret mode with 32-row blocks, so several tiles, a ragged tail and a
 wholly masked first tile occur. Two paths of the port are held to them: the
 ``_Flash`` autograd function (on CPU tensors its steps take the kernels'
@@ -65,6 +65,10 @@ CASES = {
     "causal_d256": (1, 64, True, None, 256),
     "noncausal_d256": (1, 64, False, None, 256),
     "segments_d256": (1, 96, True, "packed", 256),
+    # D = 384, which the kernels now take (FFMA tiles over 128-column chunks)
+    "causal_d384": (1, 64, True, None, 384),
+    "noncausal_d384": (1, 64, False, None, 384),
+    "segments_d384": (1, 96, True, "packed", 384),
 }
 
 
@@ -122,7 +126,7 @@ def test_forward_and_gradients_match_jax(case, path):
 
 
 @pytest.mark.parametrize("case", ["causal", "ragged", "segments", "first_tile_masked",
-                                  "causal_d256", "segments_d256"])
+                                  "causal_d256", "segments_d256", "causal_d384"])
 def test_fwd_ref_lse_matches_jax_kernel(case):
     B, S, causal, kind, d = CASES[case]
     q, k, v, _ = _inputs(B, S, seed=3, d=d)
@@ -139,7 +143,8 @@ def test_fwd_ref_lse_matches_jax_kernel(case):
 
 
 @pytest.mark.parametrize("case", ["causal", "noncausal", "segments",
-                                  "causal_d256", "noncausal_d256"])
+                                  "causal_d256", "noncausal_d256",
+                                  "causal_d384", "noncausal_d384", "segments_d384"])
 def test_bwd_ref_matches_jax_kernels(case):
     """flash_bwd_ref from the saved lse and delta vs JAX's two backward
     kernels, given the same (out, lse) from JAX's forward kernel."""
@@ -207,7 +212,9 @@ K5_INPUTS = {
     "d256": (lambda: (_bhsd_view((1, 4, 64, 256)),) + (_bhsd_view((1, 2, 64, 256)),) * 2,
              True),
     "d256_fp32": (lambda: (_bhsd_view((1, 4, 64, 256), torch.float32),) * 3, True),
-    "d384": (lambda: (_bhsd_view((1, 2, 64, 384)),) * 3, False),
+    "d384": (lambda: (_bhsd_view((1, 2, 64, 384)),) * 3, True),
+    "d512_fp32": (lambda: (_bhsd_view((1, 2, 64, 512), torch.float32),) * 3, True),
+    "d320": (lambda: (_bhsd_view((1, 2, 64, 320)),) * 3, False),
     "d64": (lambda: (_bhsd_view((1, 2, 64, 64)),) * 3, False),
     "misaligned": (lambda: (_bhsd_view((1, 2, 64, 128), offset=4),) * 3, False),
     "stride_not_16_bytes": (lambda: (_bhsd_view((1, 2, 64, 128), pad=4),) * 3, False),
@@ -220,11 +227,9 @@ K5_INPUTS = {
 
 @pytest.mark.parametrize("case", list(K5_INPUTS))
 def test_kernel_input_rule(case):
-    """What K5-K5c take, decided from shapes, dtypes and layouts alone: D =
-    128 or 256 (384 names its ROADMAP line), one dtype, and 16-byte aligned
-    data and strides for the TMA tiles."""
+    """What K5-K5c take, decided from shapes, dtypes and layouts alone: D a
+    multiple of 128 (JAX's rule sends every such D to its kernels), one
+    dtype, and 16-byte aligned data and strides for the TMA tiles."""
     make, accepted = K5_INPUTS[case]
     err = tfa.kernel_input_error(*make())
     assert (err is None) == accepted, err
-    if case == "d384":
-        assert "ROADMAP Queue 3" in err

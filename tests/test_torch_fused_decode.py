@@ -142,23 +142,25 @@ def test_unported_weight_format_raises():
         tqkvo.fused_qkv_decode(torch.zeros(1, 64), layers, 0)
 
 
-def _decode_both(fmt, j_fused, t_fused):
+def _decode_both(fmt, j_fused, t_fused, B=2):
     """Three decode steps through both packages from one random cache;
     greedy tokens from JAX's logits feed both."""
     cfg = _cfg(fmt)
     p = _layers(fmt, seed=3)
     r = np.random.default_rng(4)
-    B, T, KVH, hd = 2, 24, cfg.num_kv_heads, cfg.head_dim
+    T, KVH, hd = 24, cfg.num_kv_heads, cfg.head_dim
     k0 = (r.standard_normal((2, B, T, KVH, hd)) * 0.3).astype(np.float32)
     v0 = (r.standard_normal((2, B, T, KVH, hd)) * 0.3).astype(np.float32)
-    lengths = np.array([3, 9], np.int32)
+    lengths = (np.array([3, 9], np.int32) if B == 2
+               else r.integers(1, T - 4, B).astype(np.int32))
     jcache = {"k": jnp.asarray(k0), "v": jnp.asarray(v0),
               "length": jnp.asarray(lengths)}
     tcache = {"k": torch.from_numpy(k0.copy()), "v": torch.from_numpy(v0.copy()),
               "length": torch.from_numpy(lengths.copy())}
     jp = jax.tree_util.tree_map(jnp.asarray, p)
     tp = bridge.from_jax_numpy(p, device="cpu")
-    toks = np.array([5, 17], np.int32)
+    toks = (np.array([5, 17], np.int32) if B == 2
+            else r.integers(0, cfg.vocab_size, B).astype(np.int32))
     for _ in range(3):
         jl, jcache = jllama.decode_step(jp, jcache, jnp.asarray(toks), cfg,
                                         fused=j_fused)
@@ -180,6 +182,14 @@ def test_decode_step_matches_jax_fused(fmt):
     assert tllama._fused_auto_ok(bridge.from_jax_numpy(_layers(fmt)["layers"],
                                                        device="cpu"))
     _decode_both(fmt, True, None)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+def test_decode_step_fused_past_64_rows(fmt):
+    """B = 65, one row past the decode kernels' former limit: the automatic
+    choice still takes the fused path (as JAX does at any B) and matches
+    JAX's ``_decode_step_fused`` with its kernels in interpret mode."""
+    _decode_both(fmt, True, None, B=65)
 
 
 @pytest.mark.parametrize("fmt", ["fp32", "int8", "q4", "nf4", "mixed"])

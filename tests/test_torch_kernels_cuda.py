@@ -5,9 +5,14 @@ the CPU parity tests hold the plain versions to the JAX package). Run on a
 machine with an H100 and nvcc, without the JAX conftest:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
-Tolerances: outputs are bf16 and the kernels sum fp32 in another order than
-the plain versions, so an element may differ by about one bf16 ulp
-(2^-8 relative); near-zero elements get an absolute floor.
+Tolerances: bf16 outputs from fp32 sums in another order than the plain
+versions may differ by about one bf16 ulp (2^-8 relative), and near-zero
+elements get an absolute floor; fp32 outputs (the default compute dtype)
+differ only by the order of fp32 sums (RTOL_F32, ATOL_F32).
+
+The entry points' default-dtype tests (``test_*_default_dtype``) run a path
+twice on the card: through the kernels, then with every kernel wrapper of
+the path replaced by its plain version (``plain_kernels``).
 """
 import pytest
 import torch
@@ -16,6 +21,7 @@ from slime_tpu_torch.models import layers as L
 from slime_tpu_torch.models.layers import fp32_accumulation
 from slime_tpu_torch.ops import _cuda
 from slime_tpu_torch.ops import encoder_attention as ea
+from slime_tpu_torch.ops import flash_attention as fa
 from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 from slime_tpu_torch.ops import quant_matmul as qm
 from slime_tpu_torch.ops import quantization as quant
@@ -23,6 +29,7 @@ from slime_tpu_torch.ops import w8a8_matmul as w8
 
 pytestmark = pytest.mark.gpu
 RTOL = 2 ** -7
+RTOL_F32, ATOL_F32 = 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -33,15 +40,48 @@ def dev():
         yield torch.device("cuda")
 
 
-def _assert_close(got, want, atol):
+def _assert_close(got, want, atol, rtol=RTOL):
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=atol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def plain_kernels(monkeypatch):
+    """Replace every kernel wrapper of the serving and training paths by its
+    plain version, where the path looks it up: the same path then runs in
+    plain torch on the card."""
+    from slime_tpu_torch.models import llama
+    monkeypatch.setattr(llama, "fused_qkv_decode", fused_qkvo.fused_qkv_decode_ref)
+    monkeypatch.setattr(llama, "fused_o_residual", fused_qkvo.fused_o_residual_ref)
+    monkeypatch.setattr(llama, "fused_mlp_decode", fused_mlp.fused_mlp_decode_ref)
+    monkeypatch.setattr(L, "quant_matmul", qm.quant_matmul_ref)
+    monkeypatch.setattr(L, "quant_matmul_q4g", qm.quant_matmul_q4g_ref)
+    monkeypatch.setattr(w8, "w8a8_matmul", w8.w8a8_matmul_ref)
+    monkeypatch.setattr(ea, "encoder_attention_kernel",
+                        lambda q, k, v, *, scale, variant=0: ea.encoder_attention_ref(
+                            q, k, v, scale=scale))
+    monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_ref)
+    monkeypatch.setattr(fa, "flash_bwd_dkdv", fa.flash_bwd_dkdv_ref)
+    monkeypatch.setattr(fa, "flash_bwd_dq", fa.flash_bwd_dq_ref)
+
+
+def _assert_mlp_close(got, want, floor):
+    """|got - want| <= RTOL |want| + floor + 1e-6, elementwise; ``floor`` is
+    the one-ulp bound of the MLP's bf16 intermediate a = bf16(silu(g) u)
+    (``fused_mlp.intermediate_ulp_bound``): where the kernel and the plain
+    version round an element of a to neighbouring bf16 values, the output
+    moves by that element's ulp times its down-projection weight."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    slack = RTOL * want.float().abs() + floor + 1e-6
+    assert bool((err <= slack).all()), (
+        f"MLP: max err {err.max().item():.3g}, worst excess "
+        f"{(err - slack).max().item():.3g} over the one-ulp floor")
 
 
 def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
     """Random stacked decode weights: int8 per-row (scales ~ N(0, 0.02)
     rows, as bench.py builds them), q4g (N(0, 0.02) weights quantized) or
-    dense bf16."""
+    dense bf16 ("bf16") or fp32 ("fp32")."""
     def proj(out_d, in_d):
         if fmt == "q4g":
             w = torch.randn((L, out_d, in_d), device=device, generator=generator) * 0.02
@@ -52,7 +92,7 @@ def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
             return {"weight": {"q": q, "scale": torch.full(
                 (L, out_d, 1), 0.02 / 127.0, device=device)}}
         w = torch.randn((L, out_d, in_d), device=device, generator=generator) * 0.02
-        return {"weight": w.to(torch.bfloat16)}
+        return {"weight": w if fmt == "fp32" else w.to(torch.bfloat16)}
 
     def norm():
         return {"weight": 1 + 0.1 * torch.randn((L, H), device=device,
@@ -73,10 +113,15 @@ def test_hopper_selftest(dev):
     a, b = (torch.randint(-3, 4, (64, 64), device=dev, generator=g).to(torch.bfloat16)
             for _ in range(2))
     v = torch.randint(-3, 4, (64, 128), device=dev, generator=g).to(torch.bfloat16)
-    s, o = _cuda.hopper_selftest(a, b, v)
+    s, o, t, p1, p2 = _cuda.hopper_selftest(a, b, v)
     want_s = torch.matmul(a.float(), b.float().T)
-    _assert_close(s, want_s, atol=0)
-    _assert_close(o, torch.matmul(want_s.to(torch.bfloat16).float(), v.float()), atol=0)
+    want_t = torch.matmul(b.float(), a.float().T)
+    rs, rt = want_s.to(torch.bfloat16).float(), want_t.to(torch.bfloat16).float()
+    _assert_close(s, want_s, atol=0, rtol=0)
+    _assert_close(t, want_t, atol=0, rtol=0)
+    _assert_close(o, torch.matmul(rs, v.float()), atol=0, rtol=0)
+    _assert_close(p1, torch.matmul(rs, b.float()), atol=0, rtol=0)
+    _assert_close(p2, torch.matmul(rt, a.float()), atol=0, rtol=0)
 
 
 # (B, S, H, D): CLIP-L's shape, then S from one key to the kernel's 1024 at
@@ -87,13 +132,52 @@ ENC_SHAPES = [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)] + [
 
 @pytest.mark.parametrize("shape", ENC_SHAPES)
 def test_encoder_attention_kernel(dev, shape):
+    """K4 itself at every S it takes (JAX's rule routes S = 1024 to the plain
+    attention, so the kernel is called directly; test_encoder_attention_rule
+    holds the routing)."""
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
                for _ in range(3))
     before = ea.encoder_attention.launches
-    out = ea.encoder_attention(q, k, v)
+    out = ea.encoder_attention_kernel(q, k, v, scale=shape[-1] ** -0.5)
     assert ea.encoder_attention.launches == before + 1
     _assert_close(out, ea.encoder_attention_ref(q, k, v), atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", [(8, 577, 16, 64), (1, 64, 2, 40)] + [
+    (2, S, 3, D) for S in (1, 100, 577, 1024) for D in (64, 128)])
+def test_encoder_attention_kernel_fp32(dev, shape):
+    """The fp32 K4 (FFMA) against the plain version in fp32: the same
+    roundings (bf16 clamped scores, l rounded to bf16), sums in another
+    order."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
+    before = (ea.encoder_attention.launches, ea.encoder_attention.f32_launches)
+    out = ea.encoder_attention_kernel(q, k, v, scale=shape[-1] ** -0.5)
+    assert out.dtype == torch.float32
+    assert (ea.encoder_attention.launches, ea.encoder_attention.f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    # l = bf16(sum p): fp32 sums in another order can round l to the
+    # neighbouring bf16 value, which moves a whole row by 2^-8 relative
+    _assert_close(out, ea.encoder_attention_ref(q, k, v), atol=ATOL_F32, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_encoder_attention_rule(dev, dtype):
+    """JAX's rule on the card: shapes it sends to _xla_attention (S > 1024,
+    D > 128, D % 8, or the TPU kernel's VMEM estimate over budget) take
+    stable_attention and launch nothing; CLIP-L's shape launches K4."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    for shape, launched in (((2, 577, 16, 64), 1), ((1, 1025, 2, 64), 0), ((1, 64, 2, 136), 0),
+                            ((1, 64, 2, 20), 0), ((1, 1024, 2, 64), 0)):
+        q, k, v = (torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(3))
+        assert ea.takes_kernel(shape) == bool(launched)
+        before = ea.encoder_attention.launches
+        out = ea.encoder_attention(q, k, v)
+        assert ea.encoder_attention.launches == before + launched
+        want = (ea.encoder_attention_ref(q, k, v) if launched
+                else ea.stable_attention(q, k, v, scale=shape[-1] ** -0.5))
+        _assert_close(out, want, atol=2e-3 if dtype == torch.bfloat16 else ATOL_F32)
 
 
 def test_encoder_attention_kernel_strided(dev):
@@ -109,10 +193,12 @@ def test_encoder_attention_kernel_strided(dev):
 def test_encoder_attention_kernel_rejects(dev):
     q = torch.zeros((1, 1025, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        ea.encoder_attention(q, q, q)
-    q = torch.zeros((1, 16, 2, 64), device=dev)
+        ea.encoder_attention_kernel(q, q, q, scale=0.125)
+    q = torch.zeros((1, 16, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         ea.encoder_attention(q, q, q)
+    with pytest.raises(ValueError):         # the P2 variants are bf16 designs
+        ea.encoder_attention_kernel(q.float(), q.float(), q.float(), scale=0.125, variant=1)
     # a packed-qkv view one element off 16 bytes: TMA cannot read it
     qkv = torch.zeros(2 * 64 * 3 * 2 * 64 + 8, device=dev, dtype=torch.bfloat16)[1:]
     q, k, v = (t.reshape(2, 64, 2, 64) for t in
@@ -133,32 +219,48 @@ def test_encoder_attention_variants(dev, variant):
         _assert_close(got, ea.encoder_attention_ref(q, k, v), atol=2e-3)
 
 
-@pytest.mark.parametrize("fmt", ["int8", "bf16", "q4g"])
-@pytest.mark.parametrize("B", [1, 8, 64])
-def test_fused_decode_kernels(dev, fmt, B):
-    """K1-K3 at 8B width (H = NQ = 4096, NKV = 1024, I = 14336), layer 1 of 2."""
+# (weight format, activation dtype): dense fp32 weights take fp32 activations
+# only (JAX casts them to bf16 for bf16 activations)
+DECODE_FORMATS = [(f, torch.bfloat16) for f in ("int8", "bf16", "q4g")] + [
+    (f, torch.float32) for f in ("int8", "bf16", "fp32", "q4g")]
+
+
+@pytest.mark.parametrize("fmt_dtype", DECODE_FORMATS)
+@pytest.mark.parametrize("B", [1, 8, 64, 65, 128])
+def test_fused_decode_kernels(dev, fmt_dtype, B):
+    """K1-K3 at 8B width (H = NQ = 4096, NKV = 1024, I = 14336), layer 1 of 2,
+    bf16 and fp32 activations, any B in one launch each."""
+    fmt, dtype = fmt_dtype
     g = torch.Generator(device=dev).manual_seed(B)
     layers = decode_layers(L=2, H=4096, NQ=4096, NKV=1024, I=14336, fmt=fmt,
                            generator=g, device=dev)
-    x = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
-    attn = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn((B, 4096), device=dev, generator=g).to(dtype)
+    attn = torch.randn((B, 4096), device=dev, generator=g).to(dtype)
+    bf = dtype == torch.bfloat16
+    tol = dict(atol=2e-3) if bf else dict(atol=ATOL_F32, rtol=RTOL_F32)
     counts = (fused_qkvo.fused_qkv_decode.launches,
               fused_qkvo.fused_o_residual.launches,
-              fused_mlp.fused_mlp_decode.launches)
+              fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches)
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
     for a, b in zip(got, want):
-        _assert_close(a, b, atol=2e-3)
+        assert a.dtype == dtype
+        _assert_close(a, b, **tol)
     _assert_close(fused_qkvo.fused_o_residual(attn, x, layers, 1),
-                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
-    # the MLP rounds a = silu(g) * u to bf16 before the down projection, and a
-    # one-ulp flip there moves an output by ulp * |w|: on an H100 these cases
-    # needed a floor of up to 3.2e-3 (bf16, B=64), and under 4e-4 at B <= 8
-    _assert_close(fused_mlp.fused_mlp_decode(x, layers, 1),
-                  fused_mlp.fused_mlp_decode_ref(x, layers, 1), atol=5e-3)
+                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), **tol)
+    # the MLP rounds a = silu(g) * u to bf16 before the down projection: held
+    # to the one-ulp bound of that rounding (zero in fp32, where a is not
+    # rounded)
+    got, want = (fused_mlp.fused_mlp_decode(x, layers, 1),
+                 fused_mlp.fused_mlp_decode_ref(x, layers, 1))
+    if bf:
+        _assert_mlp_close(got, want, fused_mlp.intermediate_ulp_bound(x, layers, 1))
+    else:
+        _assert_close(got, want, **tol)
     assert (fused_qkvo.fused_qkv_decode.launches,
             fused_qkvo.fused_o_residual.launches,
-            fused_mlp.fused_mlp_decode.launches) == tuple(c + 1 for c in counts)
+            fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
 
 
 def test_fused_decode_q4g_transposed_down_scales(dev):
@@ -179,11 +281,17 @@ def test_fused_decode_kernels_reject(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     layers = decode_layers(L=1, H=256, NQ=256, NKV=128, I=512, fmt="int8",
                            generator=g, device=dev)
-    with pytest.raises(ValueError):         # B > 64
+    with pytest.raises(ValueError):         # no rows
         fused_qkvo.fused_qkv_decode(
-            torch.zeros((65, 256), device=dev, dtype=torch.bfloat16), layers, 0)
-    with pytest.raises(ValueError):         # fp32 activations
-        fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev), layers, 0)
+            torch.zeros((0, 256), device=dev, dtype=torch.bfloat16), layers, 0)
+    with pytest.raises(ValueError):         # fp16 activations
+        fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev, dtype=torch.float16),
+                                   layers, 0)
+    dense = decode_layers(L=1, H=256, NQ=256, NKV=128, I=512, fmt="fp32", generator=g,
+                          device=dev)
+    with pytest.raises(ValueError):         # fp32 weights with bf16 activations
+        fused_mlp.fused_mlp_decode(torch.zeros((1, 256), device=dev, dtype=torch.bfloat16),
+                                   dense, 0)
     q4g = {"weight": {"q4g": torch.zeros((1, 256, 192), dtype=torch.int8, device=dev),
                       "scale": torch.ones((1, 256, 3), device=dev)}}
     layers = {"input_layernorm": {"weight": torch.ones((1, 384), device=dev)},
@@ -208,24 +316,29 @@ QMM_CASES = [("q4", 1, 1024, 4096), ("q4", 2048, 4096, 4096), ("q4", 37, 1000, 1
              ("q4g", 70, 1000, 768)]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", QMM_CASES)
-def test_quant_matmul_kernels(dev, case):
+def test_quant_matmul_kernels(dev, case, dtype):
     """K6 (q4, int8) and K7 (q4g) against their plain versions: exact
-    products, fp32 sums in another order, bf16 out."""
+    products, fp32 sums in another order, out in x's dtype (bf16: the
+    mma.sync kernel; fp32: the FFMA kernel)."""
     fmt, M, N, K = case
     g = torch.Generator(device=dev).manual_seed(M + N)
     qw = _qweight(fmt, N, K, g, dev)
-    x = torch.randn((M, K), device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn((M, K), device=dev, generator=g).to(dtype)
+    f32 = dtype == torch.float32
     if fmt == "q4g":
-        before = qm.quant_matmul_q4g.launches
+        before = (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.f32_launches)
         got, want = qm.quant_matmul_q4g(x, qw), qm.quant_matmul_q4g_ref(x, qw)
-        assert qm.quant_matmul_q4g.launches == before + 1
+        assert (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.f32_launches) == (
+            before[0] + 1, before[1] + f32)
     else:
-        name = f"{fmt}_launches"
-        before = getattr(qm.quant_matmul, name)
+        names = (f"{fmt}_launches", f"{fmt}_f32_launches")
+        before = [getattr(qm.quant_matmul, n) for n in names]
         got, want = qm.quant_matmul(x, qw), qm.quant_matmul_ref(x, qw)
-        assert getattr(qm.quant_matmul, name) == before + 1
-    _assert_close(got, want, atol=2e-3)
+        assert [getattr(qm.quant_matmul, n) for n in names] == [before[0] + 1, before[1] + f32]
+    assert got.dtype == dtype
+    _assert_close(got, want, **(dict(atol=ATOL_F32, rtol=RTOL_F32) if f32 else dict(atol=2e-3)))
 
 
 def test_quant_matmul_kernels_reject(dev):
@@ -237,8 +350,8 @@ def test_quant_matmul_kernels_reject(dev):
     with pytest.raises(ValueError):         # q4g K not a multiple of 256
         qm.quant_matmul_q4g(x, quant.quantize_weight_q4g(
             torch.zeros((64, 384), device=dev), group=64))
-    with pytest.raises(ValueError):         # fp32 activations
-        qm.quant_matmul(x.float(), _qweight("q4", 64, 384, g, dev))
+    with pytest.raises(ValueError):         # fp16 activations
+        qm.quant_matmul(x.half(), _qweight("q4", 64, 384, g, dev))
     with pytest.raises(ValueError):         # grouped q4 has no K6 kernel
         qm.quant_matmul(x, quant.quantize_weight(torch.zeros((64, 384), device=dev),
                                                  4, group=128))
@@ -262,20 +375,24 @@ def test_linear_routes_q4g_to_k7_and_q4_to_k6(dev):
     assert counts() == (c0[0] + 1, c0[1] + 1, c0[2])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [(4616, 3072, 1024, True), (4616, 1024, 4096, True),
                                   (100, 1000, 256, False)])
-def test_w8a8_kernel(dev, case):
-    """K8 against w8a8_matmul_ref: the integer dot is exact and the epilogue
-    rounds at the same points, so they agree to within a bf16 ulp."""
+def test_w8a8_kernel(dev, case, dtype):
+    """K8 against w8a8_matmul_ref, bf16 and fp32 x: the integer dot is exact
+    and the epilogue rounds at the same points, so they agree to within a
+    bf16 ulp (fp32: exactly, up to the epilogue's fp32 operations)."""
     M, N, K, with_bias = case
     g = torch.Generator(device=dev).manual_seed(M + N)
-    x = (torch.randn((M, K), device=dev, generator=g) * 2).to(torch.bfloat16)
+    x = (torch.randn((M, K), device=dev, generator=g) * 2).to(dtype)
     x[3] = 0                                  # a zero row: scale 1
     qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=g) * 0.02, 8)
     bias = torch.randn((N,), device=dev, generator=g) if with_bias else None
-    before = w8.w8a8_matmul.launches
+    before = (w8.w8a8_matmul.launches, w8.w8a8_matmul.f32_launches)
     got = w8.w8a8_matmul(x, qw, bias)
-    assert w8.w8a8_matmul.launches == before + 1
+    assert (w8.w8a8_matmul.launches, w8.w8a8_matmul.f32_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
+    assert got.dtype == dtype
     _assert_close(got, w8.w8a8_matmul_ref(x, qw, bias), atol=1e-6)
     with pytest.raises(ValueError):         # K not a multiple of 128
         w8.w8a8_matmul(x[:, :100].contiguous(), {"q": qw["q"][:, :100].contiguous(),
@@ -291,15 +408,20 @@ def _bhsd(B, S, heads, D, g, dev):
 # (B, H, KVH, S, D, causal, segments): the serving and stage-1 training
 # shapes, GQA group sizes, ragged S, non-causal, packed segments (the third
 # one first in a tile); then D = 256: causal GQA at S = 2048, non-causal,
-# ragged S = 2000, segments
+# ragged S = 2000, segments; then D = 384 and 512 (the FFMA kernels' 128- and
+# 256-column chunks): causal GQA, ragged, segments, non-causal
 FLASH_CASES = [(1, 32, 8, 2048, 128, True, False), (4, 32, 8, 2048, 128, True, False),
                (2, 4, 2, 200, 128, False, False),
                (1, 4, 1, 2000, 128, True, False), (1, 4, 2, 256, 128, True, True),
                (2, 8, 8, 130, 128, False, True),
                (1, 16, 4, 2048, 256, True, False), (2, 4, 2, 200, 256, False, False),
                (1, 4, 1, 2000, 256, True, False), (1, 4, 2, 256, 256, True, True),
-               (2, 8, 8, 130, 256, False, True)]
-D256_CASES = FLASH_CASES[6:]
+               (2, 8, 8, 130, 256, False, True),
+               (1, 8, 2, 1024, 384, True, False), (1, 4, 1, 300, 384, True, True),
+               (2, 4, 2, 130, 384, False, False), (1, 4, 2, 512, 512, True, False),
+               (1, 4, 2, 200, 512, False, True)]
+D256_CASES = FLASH_CASES[6:11]
+WIDE_CASES = FLASH_CASES[11:]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -369,8 +491,8 @@ def test_flash_attention_autograd_d256(dev):
 def test_flash_attention_auto_rule(dev):
     """use_kernel=None takes the kernel for causal attention at S >= 2048 (S,
     D multiples of 128) and the plain path below that, as JAX's rule does:
-    bf16 and fp32 alike (fp32 takes the FFMA kernels), D = 128 and 256. A
-    tensor the rule picks that the kernels cannot take raises: D = 384."""
+    bf16 and fp32 alike (fp32 takes the FFMA kernels), D = 128, 256 and 384
+    (the FFMA kernels in bf16)."""
     from slime_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(8)
     for dtype in (torch.bfloat16, torch.float32):
@@ -386,8 +508,10 @@ def test_flash_attention_auto_rule(dev):
                                fa.reference_attention(q, q, q).float(), rtol=RTOL, atol=5e-3)
     assert fa.flash_attention.fwd_d256_launches == before + 1
     q = _bhsd(1, 2048, 2, 384, g, dev)
-    with pytest.raises(ValueError, match="Queue 3"):  # D = 384
-        fa.flash_attention(q, q, q)
+    before = fa.flash_attention.fwd_wide_launches
+    torch.testing.assert_close(fa.flash_attention(q, q, q).float(),
+                               fa.reference_attention(q, q, q).float(), rtol=RTOL, atol=5e-3)
+    assert fa.flash_attention.fwd_wide_launches == before + 1
 
 
 def test_flash_kernels_reject(dev):
@@ -407,7 +531,7 @@ def test_flash_kernels_reject(dev):
 
 
 @pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[2], FLASH_CASES[3],
-                                  FLASH_CASES[4], FLASH_CASES[5]] + D256_CASES)
+                                  FLASH_CASES[4], FLASH_CASES[5]] + D256_CASES + WIDE_CASES)
 def test_flash_kernels_fp32(dev, case):
     """The fp32 K5, K5b, K5c (FFMA, nothing rounded) against the plain
     versions in fp32: the same arithmetic with sums in another order."""
@@ -494,3 +618,171 @@ def test_ring_attention_rdma_process_group(dev, world, tmp_path):
     for name, w in want.items():
         got = torch.cat([o[name] for o in outs], dim=2).to(dev)
         _assert_close(got, w, atol=0 if name.startswith("rdma") else 2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the entry points at their default compute dtype (fp32), kernels vs plain
+# ---------------------------------------------------------------------------
+
+def _small_slime_cfg():
+    """A small SliME whose paths reach every kernel: head_dim 128 (K5 in the
+    2048-position prefill), 336-px crops with 4 ViT heads of 64 (K4), an MLP
+    width the fused decode's auto rule takes, in-dims multiples of 256 (q4g)."""
+    from slime_tpu_torch.config import LLMConfig, SliMEConfig, VisionConfig
+    return SliMEConfig(
+        llm=LLMConfig(vocab_size=256, hidden_size=256, intermediate_size=1024,
+                      num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128,
+                      max_position_embeddings=4096),
+        vision=VisionConfig(image_size=336, patch_size=14, hidden_size=256,
+                            intermediate_size=512, num_layers=3, num_heads=4),
+        mm_resampler_dim=4, seperator=7, tokenizer_model_max_length=2048,
+        bos_token_id=1, eos_token_id=-1)
+
+
+def _small_slime(cfg, dev, llm_format):
+    """fp32 params from seed 0, the LLM layers int8 ("int8") or q4g with the
+    W8A8 tower ("q4g"), stacked; int8 lm_head."""
+    from slime_tpu_torch.checkpoint import quantize_loaded
+    from slime_tpu_torch.models import llama, slime
+    params = slime.init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = quantize_loaded(params, cfg, load_bits=8 if llm_format == "int8" else 4,
+                             int4_scheme="group", quantize_lm_head=True,
+                             quantize_vision=llm_format == "q4g")
+    params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
+    return params
+
+
+def _counts():
+    return {"k1_f32": fused_mlp.fused_mlp_decode.f32_launches,
+            "k2_f32": fused_qkvo.fused_qkv_decode.f32_launches,
+            "k3_f32": fused_qkvo.fused_o_residual.f32_launches,
+            "k4_f32": ea.encoder_attention.f32_launches,
+            "k5_f32": fa.flash_attention.fwd_f32_launches,
+            "k7_f32": qm.quant_matmul_q4g.f32_launches,
+            "k8_f32": w8.w8a8_matmul.f32_launches}
+
+
+@pytest.mark.parametrize("llm_format", ["int8", "q4g"])
+@pytest.mark.parametrize("B", [1, 65, 128])
+def test_decode_step_default_dtype(dev, monkeypatch, llm_format, B):
+    """llama.decode_step on stacked int8 / q4g layers at its default fp32
+    compute dtype and fused=None (JAX's automatic choice) launches the fp32
+    K1-K3 in every layer, at B beyond the former 64-row limit too, and
+    agrees with the same step through the plain versions."""
+    from slime_tpu_torch.models import llama
+    cfg = _small_slime_cfg()
+    llm = _small_slime(cfg, dev, llm_format)["llm"]
+    g = torch.Generator(device=dev).manual_seed(B)
+    tok = torch.randint(0, cfg.llm.vocab_size, (B,), device=dev, generator=g)
+
+    def two_steps():
+        cache = llama.init_kv_cache(cfg.llm, B, 8, device=dev)
+        logits, cache = llama.decode_step(llm, cache, tok, cfg.llm)
+        return llama.decode_step(llm, cache, logits.argmax(-1), cfg.llm)[0]
+
+    before = _counts()
+    got = two_steps()
+    after = _counts()
+    for k in ("k1_f32", "k2_f32", "k3_f32"):
+        assert after[k] - before[k] == 2 * cfg.llm.num_layers, (k, before, after)
+    plain_kernels(monkeypatch)
+    want = two_steps()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    _assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("llm_format", ["int8", "q4g"])
+def test_generate_default_dtype(dev, monkeypatch, llm_format):
+    """generate with an image at its default fp32 compute dtype: the fp32
+    K4 in the tower (and K8 in the W8A8 one), K5 in the 2048-position
+    prefill, K7 on q4g layers, K1-K3 in decode; the first-step logits agree
+    with the same prefill through the plain versions, and the greedy tokens
+    are the same."""
+    import numpy as np
+
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from slime_tpu_torch.data.image_ops import make_device_anyres_fn
+    cfg = _small_slime_cfg()
+    params = _small_slime(cfg, dev, llm_format)
+    r = np.random.default_rng(0)
+    ids = r.integers(5, cfg.llm.vocab_size, (1, 64))
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    ids = torch.from_numpy(ids).to(dev)
+    attn = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    img = torch.from_numpy(r.integers(0, 255, (672, 672, 3), dtype=np.uint8)).to(dev)
+    crops, mask = make_device_anyres_fn((672, 672), device=dev)(img)
+
+    def run():
+        toks = gen.generate(params, cfg, ids, attn, crops[None], mask[None], max_new_tokens=4)
+        last = gen.prefill(params, cfg, ids, attn, crops[None], mask[None], torch.float32)[0]
+        return toks, last
+
+    before = _counts()
+    toks, last = run()
+    after = _counts()
+    moved = {k for k in after if after[k] > before[k]}
+    want_moved = {"k1_f32", "k2_f32", "k3_f32", "k4_f32", "k5_f32"} | (
+        {"k7_f32", "k8_f32"} if llm_format == "q4g" else set())
+    assert moved == want_moved, (before, after)
+    plain_kernels(monkeypatch)
+    toks_p, last_p = run()
+    assert bool(torch.isfinite(last).all())
+    _assert_close(last, last_p, atol=1e-3, rtol=1e-4)
+    assert torch.equal(toks, toks_p)
+
+
+@pytest.mark.parametrize("scheme,fmt", [("absmax", "q4"), ("group", "q4g")])
+def test_forward_quantized_default_dtype(dev, monkeypatch, scheme, fmt):
+    """llama.forward on per-row q4 / q4g layers at its default fp32 compute
+    dtype: K6's or K7's fp32 instance in each of a layer's 7 linears and the
+    fp32 K5 at S = 2048; the logits agree with the same forward through the
+    plain versions."""
+    from slime_tpu_torch.checkpoint import quantize_loaded
+    from slime_tpu_torch.models import llama, slime
+    cfg = _small_slime_cfg()
+    params = slime.init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    llm = quantize_loaded(params, cfg, load_bits=4, int4_scheme=scheme)["llm"]
+    assert fmt in llm["layers"][0]["q_proj"]["weight"]
+    ids = torch.randint(5, cfg.llm.vocab_size, (1, 2048), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+
+    def run():
+        return llama.forward(llm, llama.embed(llm, ids).to(torch.float32), cfg.llm)[0]
+
+    def counts():
+        k = qm.quant_matmul.q4_f32_launches if fmt == "q4" else qm.quant_matmul_q4g.f32_launches
+        return k, fa.flash_attention.fwd_f32_launches
+
+    before = counts()
+    got = run()
+    after = counts()
+    L = cfg.llm.num_layers
+    assert (after[0] - before[0], after[1] - before[1]) == (7 * L, L), (before, after)
+    plain_kernels(monkeypatch)
+    want = run()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    _assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+def test_vit_remat_default_dtype(dev):
+    """vit.apply(remat=True) under autograd on the card: the same features
+    and gradients as without remat (only memory changes), through the fp32
+    K4 (whose backward recomputes stable_attention)."""
+    from slime_tpu_torch.models import vit
+    cfg = _small_slime_cfg().vision
+    params = vit.init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    px = torch.randn((2, 3, 336, 336), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    outs = []
+    for remat in (False, True):
+        leaf = params["layers"][0]["fc1"]["weight"].detach().requires_grad_()
+        p = dict(params, layers=[dict(params["layers"][0], fc1=dict(
+            params["layers"][0]["fc1"], weight=leaf))] + params["layers"][1:])
+        before = ea.encoder_attention.f32_launches
+        y = vit.apply(p, px, cfg, remat=remat)
+        y.square().mean().backward()
+        assert ea.encoder_attention.f32_launches > before
+        outs.append((y.detach(), leaf.grad))
+    _assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
+    _assert_close(outs[1][1], outs[0][1], atol=0, rtol=0)

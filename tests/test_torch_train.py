@@ -157,6 +157,58 @@ def test_loss_and_trainable_gradients_match_jax(setup, jax_kernel_attention, sta
     assert moving > 0
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_remat_matches_jax(setup, jax_kernel_attention, monkeypatch, remat):
+    """slime.forward(remat=...) with the vision tower and the projector
+    trainable (so the tower runs under autograd) against JAX's
+    slime.forward(remat=...): the logits and the gradients of both. remat
+    reaches every running ViT block and every LLM layer (counted here), as
+    slime.py:116 passes it down, and changes no number."""
+    from slime_tpu_torch.models import llama as tllama
+    from slime_tpu_torch.models import vit as tvit
+    cfg, p = setup
+    batch = _batch(7)
+    args = ("input_ids", "attention_mask", "pixel_values", "crop_mask")
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+
+    def jfwd(trainable):
+        return jslime.forward({**jp, **trainable}, cfg,
+                              *(jnp.asarray(batch[k]) for k in args), remat=remat)[0]
+
+    out, vjp = jax.vjp(jfwd, {"vision": jp["vision"], "projector": jp["projector"]})
+    cot = np.random.default_rng(8).standard_normal(out.shape).astype(np.float32)
+    want_g = _leaf_dict(jax.device_get(vjp(jnp.asarray(cot))[0]))
+
+    tp = bridge.from_jax_numpy(p, device="cpu")
+    for path, leaf in bridge.named_leaves(tp):
+        leaf.requires_grad_(path.startswith(("vision/", "projector/")))
+    calls = {"vit": 0, "llama": 0}
+    for name, mod in (("vit", tvit), ("llama", tllama)):
+        real = mod.checkpoint
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, "checkpoint", counted)
+    tb = _t(batch)
+    logits, _ = tslime.forward(tp, cfg, *(tb[k] for k in args), remat=remat)
+    logits.backward(torch.from_numpy(cot))
+    runs = tvit._layers_run(cfg.vision)
+    assert calls == ({"vit": runs, "llama": cfg.llm.num_layers} if remat
+                     else {"vit": 0, "llama": 0})
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(out), rtol=RTOL, atol=1e-5)
+    for path, leaf in bridge.named_leaves(tp):
+        if not path.startswith(("vision/", "projector/")):
+            continue
+        got = leaf.grad.numpy() if leaf.grad is not None else np.zeros(leaf.shape, np.float32)
+        want = want_g[path]
+        # fp32 sums over the 576-patch views in another order: a floor of
+        # 1e-5 of the leaf's largest entry, and 1e-6 for gradients that are
+        # zero but for rounding (k_proj's bias)
+        np.testing.assert_allclose(got, want, rtol=RTOL,
+                                   atol=max(1e-5 * np.abs(want).max(), 1e-6), err_msg=path)
+
+
 def test_packed_text_only_loss_and_gradients_match_jax(setup):
     cfg, p = setup
     r = np.random.default_rng(5)

@@ -123,3 +123,42 @@ def test_device_anyres():
     tc, tm = t_anyres((672, 500), device="cpu")(torch.from_numpy(img))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     _close(tc, jc, atol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_vit_apply_gradients_match_jax(params, jax_kernel_attention, monkeypatch, remat):
+    """vit.apply under autograd against jax.vjp of JAX's vit.apply with the
+    same ``remat``: the features and the gradients of the pixels and of
+    every parameter. remat checkpoints each running block (counted here)
+    and changes no number."""
+    cfg = _cfg()
+    r = np.random.default_rng(6)
+    px = r.standard_normal((1, 3, 336, 336)).astype(np.float32)
+    cot = r.standard_normal((1, 576, 256)).astype(np.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, params["vision"])
+    out, vjp = jax.vjp(lambda p, x: jvit.apply(p, x, cfg.vision, remat=remat), jp,
+                       jnp.asarray(px))
+    want_p, want_x = vjp(jnp.asarray(cot))
+    want_p = dict(bridge.named_leaves(jax.device_get(want_p)))
+
+    tp = bridge.from_jax_numpy(params["vision"], device="cpu")
+    for _, leaf in bridge.named_leaves(tp):
+        leaf.requires_grad_(True)
+    tx = torch.from_numpy(px).requires_grad_()
+    calls = []
+    real = tvit.checkpoint
+    monkeypatch.setattr(tvit, "checkpoint", lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = tvit.apply(tp, tx, cfg.vision, remat=remat)
+    got.backward(torch.from_numpy(cot))
+    assert len(calls) == (tvit._layers_run(cfg.vision) if remat else 0)
+    _close(got.detach(), out, atol=1e-4)
+    # gradients sum over 576 positions (and 588 pixels a patch) in another
+    # order: 1e-4 relative, with a floor of 1e-5 of the leaf's largest entry
+    # and 1e-6 (k_proj's bias gradient is zero but for rounding: the softmax
+    # ignores a shift of every key by one vector)
+    _close(tx.grad, want_x, rtol=1e-4, atol=1e-5 * np.abs(np.asarray(want_x)).max())
+    for path, leaf in bridge.named_leaves(tp):
+        g = leaf.grad.numpy() if leaf.grad is not None else np.zeros(leaf.shape, np.float32)
+        np.testing.assert_allclose(g, want_p[path], rtol=1e-4,
+                                   atol=max(1e-5 * np.abs(want_p[path]).max(), 1e-6),
+                                   err_msg=path)
