@@ -22,8 +22,9 @@ Phase 1  runs the self-test of the wgmma tile vocabulary
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in its q4, int8 and q4g
          loaders and the W8A8 matmul, bf16 and fp32, the ring-attention
-         kernel K9 on 4 virtual ranks at S = 8192) against its plain PyTorch
-         version on the card at the paths' shapes,
+         kernel K9 on 4 virtual ranks at S = 8192 in bf16 and fp32, at D =
+         64 and at S/n = 48, and the int4 design probes P1 and P4) against
+         its plain PyTorch version on the card at the paths' shapes,
          asserts agreement, and times both (median of CUDA-event timings),
          and one PyTorch call computing the same function where there is one
          (scaled_dot_product_attention for the attention kernels). It prints
@@ -57,10 +58,11 @@ Phase 5  builds SliME-8B as ``--load-4bit --int4-scheme group
          full width and depth from seed 0, one fp32 layer at a time through
          ``checkpoint.quantize_loaded``; answers phase 2's four requests and
          checks them as phase 2 does, and the launches per request (the
-         quantized matmul's q4g loader 7 x 32 per prefill, the W8A8 matmul
+         q4g matmul's wgmma instance 7 x 32 per prefill, the W8A8 matmul
          4 x 23 per encode, the flash forward 32 per prefill, the q4g decode
-         kernels 32 per step, its q4 and int8 loaders never); then phase 3's
-         stage times and traces for it.
+         kernels 32 per step, the q4 and int8 loaders never); then phase 3's
+         stage times and traces for it, with K7's device time and launches
+         in one TTFT.
 Phase 5b builds config B (``--load-4bit --int4-scheme absmax
          --quantize-lm-head``: per-row q4 LLM layers, vision bf16) at full
          width and depth, answers one 16-token request twice, and checks
@@ -71,12 +73,13 @@ Phase 6  rebuilds phase 2's int8 LLM and prefills S = 8192 random token ids:
          (a) ``llama.forward(ring=4)``, the collective ring on 4 virtual
          ranks, and (b) the forward without a ring (K5, 32 launches), both
          bf16; (c) K9 on layer 0's RoPE'd q/k/v of that prompt (exactly 4
-         launches); (a32) and (b32), the same two forwards in fp32 (the fp32
+         launches) and (c32) the same in fp32 (4 launches of its fp32
+         instance); (a32) and (b32), the same two forwards in fp32 (the fp32
          K5 in b32); (d) the default fp32 forward at S = 2048 through the
          fp32 K5. It holds (a) to (b) and (a32) to (b32) (logits, argmax),
-         K9 to its plain version, the collective ring and K5's forward, and
-         (d) to the plain attention, and prints the host walls, K9's device
-         time and the peak memory.
+         K9 to its plain version, the collective ring and K5's forward, (c32)
+         to the collective ring in fp32, and (d) to the plain attention, and
+         prints the host walls, K9's device times and the peak memory.
 
 Phase 7  the entry points at their default fp32 compute dtype, each run
          twice with the counts set to 0 before the first run and read after
@@ -125,7 +128,11 @@ PROFILE_STEPS = 8
 # twins are.
 # K9 (bf16 out; p split into two bf16 halves for P.V) against its plain
 # version (the TPU kernel's fp32 arithmetic through the same protocol): 9.3e-7
-# (PERF.md).
+# (PERF.md); its fp32 instance and its bf16 FFMA instance (D other than 128
+# and 256) are held as the other fp32 instances are. K7's wgmma instance
+# (exact integer weights in bf16 fragments, fp32 group sums) as its mma.sync
+# one; the P1 probe as K6, whose function it computes; the P4 probe's dots
+# (fp32 sums of exact products) at 1e-4, its totals exactly.
 # The MLP decode kernel in bf16 is held instead to the one-ulp bound of its
 # bf16 intermediate a = silu(g) u (fused_mlp.intermediate_ulp_bound, per
 # element: sum_i ulp(a_i) |w_down[o, i]|), which a fixed floor from one draw
@@ -154,7 +161,9 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_qkv_decode_f32_q4g": 1e-4, "fused_o_residual_f32_q4g": 1e-4,
         "fused_mlp_decode_f32_q4g": 1e-4, "quant_matmul_q4_f32": 1e-4,
         "quant_matmul_int8_f32": 1e-4, "quant_matmul_q4g_f32": 1e-4,
-        "w8a8_matmul_f32": 1e-6}
+        "w8a8_matmul_f32": 1e-6, "ring_attention_rdma_f32": 1e-4,
+        "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
+        "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -230,8 +239,16 @@ KERNELS = {
                          "slime_tpu/ops/flash_attention.py:389"),
     "ring_attention_rdma": ("slime_tpu_torch/csrc/ring_attention.cu",
                             "slime_tpu/ops/ring_attention_rdma.py:148"),
+    "quant_matmul_q4g_wgmma": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                               "slime_tpu/ops/quant_matmul.py:82"),
+    "p1_int4_matvec": ("slime_tpu_torch/csrc/int4_probes.cu", "bench_quant_kernel.py:75"),
+    "p4_q4g_unpack": ("slime_tpu_torch/csrc/int4_probes.cu",
+                      "scripts/bench_q4g_unpack_probe.py:90"),
 }
-# the D = 256 instances of K5-K5c, bf16 and fp32
+# K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
+# 128 and 256)
+KERNELS.update({"ring_attention_rdma" + sfx: KERNELS["ring_attention_rdma"]
+                for sfx in ("_f32", "_ffma")})
 # the D = 256 instances of K5-K5c, bf16 and fp32, and those at D > 256
 # ("wide": the FFMA kernels over 128- or 256-column chunks, checked at D = 384)
 KERNELS.update({n + sfx: KERNELS[n] for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -249,9 +266,14 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # and q4g weights to its quantized matmuls (layers.py:52-59). No path of the
 # port trains in fp32 on the card (phase 4 trains the bf16 model), so the
 # fp32 K5b and K5c have none either, and no model here has a head dim of 256
-# or more. Phase 1 checks them; their launch counts stay 0.
+# or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
+# mma.sync instance takes bf16 x below 64 rows, which no path sends it (the
+# prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1
+# and P4 probes are design probes, off every path. Phase 1 checks them; their
+# launch counts stay 0.
 OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "flash_bwd_dkdv_f32",
-            "flash_bwd_dq_f32") + D256 + WIDE
+            "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
+            "p1_int4_matvec", "p4_q4g_unpack") + D256 + WIDE
 
 
 def _counters():
@@ -263,6 +285,8 @@ def _counters():
     from slime_tpu_torch.ops import quant_matmul as qm
     from slime_tpu_torch.ops import ring_attention_rdma as rd
     from slime_tpu_torch.ops import w8a8_matmul as w8
+    from slime_tpu_torch.probes import q4g_unpack as p4
+    from slime_tpu_torch.probes import quant_matmul as p1
     fused = {"fused_qkv_decode": fused_qkvo.fused_qkv_decode,
              "fused_o_residual": fused_qkvo.fused_o_residual,
              "fused_mlp_decode": fused_mlp.fused_mlp_decode}
@@ -271,6 +295,11 @@ def _counters():
            **{n: (fa.flash_attention, n.replace("flash_bwd_", "").replace("flash_", "")
                   + "_launches") for n in KERNELS if n.startswith("flash_")},
            "ring_attention_rdma": (rd.ring_attention_rdma, "launches"),
+           "ring_attention_rdma_f32": (rd.ring_attention_rdma, "f32_launches"),
+           "ring_attention_rdma_ffma": (rd.ring_attention_rdma, "ffma_launches"),
+           "quant_matmul_q4g_wgmma": (qm.quant_matmul_q4g, "wgmma_launches"),
+           "p1_int4_matvec": (p1.matvec, "launches"),
+           "p4_q4g_unpack": (p4.stream, "launches"),
            "quant_matmul_q4": (qm.quant_matmul, "q4_launches"),
            "quant_matmul_q4_f32": (qm.quant_matmul, "q4_f32_launches"),
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
@@ -300,6 +329,10 @@ def launch_counts():
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
         counts[n] -= counts[n + "_f32"]
+    # K7's .launches counts every route, K9's every instance
+    counts["quant_matmul_q4g"] -= counts["quant_matmul_q4g_wgmma"]
+    counts["ring_attention_rdma"] -= (counts["ring_attention_rdma_f32"]
+                                      + counts["ring_attention_rdma_ffma"])
     for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         # .*_launches counts every dtype and head dim; .*_f32 every head dim
         # in fp32; .*_d256 / .*_wide both dtypes at D = 256 / D > 256;
@@ -462,6 +495,18 @@ def trace_device(path):
     return busy / 1e3, launches, by_name
 
 
+def trace_kernel(path, pattern):
+    """(device ms, launches) of the kernels whose names hold ``pattern`` in
+    a torch.profiler chrome trace."""
+    ms, n = 0.0, 0
+    for e in json.loads(Path(path).read_text())["traceEvents"]:
+        if (e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+                and pattern in e["name"]):
+            ms += e["dur"] / 1e3
+            n += 1
+    return ms, n
+
+
 def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
     """Phase 3 (and 5's part of it): stage times (host clock around
     synchronised calls, median of 3) and a torch.profiler trace of one TTFT
@@ -545,6 +590,11 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
         f"idle share {1 - busy / ttft_ms:.3f}; {launches} kernel launches")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} TTFT kernel {ms:8.3f} ms  {name[:90]}")
+    for what, pattern in (("K7 wgmma (q4g_wgmma_kernel)", "q4g_wgmma_kernel"),
+                          ("K7 mma.sync (qmm_kernel)", "qmm_kernel")):
+        ms, n = trace_kernel(out / f"profile_ttft_{tag}.json", pattern)
+        if n:
+            log(f"phase {tag} TTFT {what}: {ms:.3f} ms of device time over {n} launches")
 
 
 def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main,
@@ -798,13 +848,27 @@ def hopper_selftest(dev, g):
         raise AssertionError(f"hopper_selftest disagrees with torch.matmul: {errs}")
 
 
+def ring_moved_ops(q, k, n, causal=True):
+    """(bytes, operations) of K9's bound on global q [B, H, S, D], k [B,
+    KVH, S, D] over n ranks: q, k, v in and out out, plus the fp32 acc state
+    a rank reads and writes on each (rank, step) pair it attends (n (n + 1)
+    / 2 of them causal, n^2 full); operations 4 B H D S (S + 1) / 2 (the
+    causal pairs) or 4 B H D S^2."""
+    B, H, S, D = q.shape
+    pairs = n * (n + 1) // 2 if causal else n * n
+    state = B * H * (S // n) * D * 4
+    ops = 4 * B * H * D * (S * (S + 1) // 2 if causal else S * S)
+    return nbytes(q, k, k, q) + pairs * 2 * state, ops
+
+
 def ring_kernel(dev, g, flush, record):
     """Phase 1 for K9 at the context-parallel prefill's shape: q [1, 32,
     8192, 128], kv [1, 8, 8192, 128] bf16 in llama's storage, causal, on 4
     virtual ranks (S/n = 2048), against its plain version; the library time
     is torch's causal scaled_dot_product_attention on the same global q/k/v
-    with kv repeated to 32 heads. Bound: 4 B H D S (S + 1) / 2 operations
-    (the causal pairs) at the bf16 rate, or q, k, v in and out out."""
+    with kv repeated to 32 heads. Bound (``ring_moved_ops``): the causal
+    pairs' operations times 1.5 (P.V runs twice, on p's two bf16 halves) at
+    the bf16 rate, or q, k, v, out and the fp32 state traffic."""
     from slime_tpu_torch.ops import ring_attention_rdma as rd
 
     def bhsd(heads):
@@ -818,16 +882,47 @@ def ring_kernel(dev, g, flush, record):
     per_call = rd.ring_attention_rdma.launches - before
     if per_call != CP_RANKS:
         raise AssertionError(f"K9 launched {per_call} times in one call on {CP_RANKS} ranks")
-    ops = 4 * 32 * 128 * CP_SEQ * (CP_SEQ + 1) // 2
+    moved, ops = ring_moved_ops(q, k, CP_RANKS)
     check_and_time(record, "ring_attention_rdma",
                    f"q [1,32,{CP_SEQ},128], kv [1,8,{CP_SEQ},128] bf16 causal, "
                    f"{CP_RANKS} virtual ranks ({per_call} launches per call)",
                    lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS),
                    lambda: rd.ring_attention_rdma_ref(q, k, v, ring=CP_RANKS),
-                   nbytes(q, k, v, q), ops, BF16_OPS, flush, True,
+                   moved, ops * 3 // 2, BF16_OPS, flush, True,
                    library=lambda: sdpa(q, kr, vr, is_causal=True))
     del q, k, v, kr, vr
     torch.cuda.empty_cache()
+
+
+def ring_kernel_instances(dev, g, flush, record):
+    """Phase 1 for K9's other instances on 4 virtual ranks, causal, in
+    llama's storage, against the plain version and beside SDPA (kv repeated
+    to the query heads): fp32 at the prefill's shape (the FFMA kernel, bound
+    at the fp32 rate); bf16 at D = 64, [1, 32, 8192, 64] (the bf16 FFMA
+    kernel); bf16 at D = 128 with S/n = 48, [1, 32, 192, 128] (the wgmma
+    kernel on shards that are not a multiple of its 128-row tiles: a line,
+    not the record)."""
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+
+    cases = (("ring_attention_rdma_f32", torch.float32, CP_SEQ, 128, F32_OPS, True),
+             ("ring_attention_rdma_ffma", torch.bfloat16, CP_SEQ, 64, BF16_OPS, True),
+             ("ring_attention_rdma", torch.bfloat16, 4 * 48, 128, BF16_OPS, False))
+    for name, dtype, S, D, peak, main in cases:
+        q, k, v = (torch.randn((1, S, heads, D), device=dev, generator=g).to(dtype)
+                   .transpose(1, 2) for heads in (32, 8, 8))
+        kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
+        moved, ops = ring_moved_ops(q, k, CP_RANKS)
+        wgmma = dtype == torch.bfloat16 and D in rd.WGMMA_HEAD_DIMS
+        check_and_time(record, name,
+                       f"q [1,32,{S},{D}], kv [1,8,{S},{D}] "
+                       f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} causal, "
+                       f"{CP_RANKS} virtual ranks (S/n = {S // CP_RANKS})",
+                       lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS),
+                       lambda: rd.ring_attention_rdma_ref(q, k, v, ring=CP_RANKS),
+                       moved, ops * 3 // 2 if wgmma else ops, peak, flush, main,
+                       library=lambda: sdpa(q, kr, vr, is_causal=True))
+        del q, k, v, kr, vr
+        torch.cuda.empty_cache()
 
 
 def q4g_llm_layers(cfg, generator, device):
@@ -910,17 +1005,43 @@ def decode_kernels(dev, cfg, g, flush, record):
         del two, cases
 
 
+def int4pack_library(x, qw):
+    """torch._weight_int4pack_mm on K7's inputs, as a yardstick: q4g's
+    signed nibbles n as unsigned n + 8 with zero points 0 and the group
+    scales in bf16 (that call's form, w = (u - 8) s + 0), group size 128.
+    None, with the reason logged, where the installed torch does not run
+    it on this card."""
+    from slime_tpu_torch.ops import quantization as quant
+    try:
+        u = quant.int_values(qw).to(torch.int32) + 8
+        packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+        wp = torch._convert_weight_to_int4pack(packed, 8)
+        s = qw["scale"].to(torch.bfloat16).T.contiguous()
+        sz = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
+        fn = lambda: torch._weight_int4pack_mm(x, wp, 128, sz)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+        log(f"phase 1 quant_matmul_q4g_wgmma: torch._weight_int4pack_mm does not run here: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None
+
+
 def quant_kernels(dev, g, flush, record):
     """Phase 1 for the quantized matmul (K6: q4 and int8 loaders; K7: q4g)
     and the W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
     prefill (B = 2048) rows of q_proj [4096, 4096] and down_proj [4096,
-    14336], K7 at prefill rows of q_proj, gate_proj [14336, 4096] and
-    down_proj, K8 at one 8-crop encode's 4616 tokens of the packed qkv [3072,
-    1024] and fc2 [1024, 4096]; then, from a generator of their own, the fp32
-    instances (the FFMA K6/K7, fp32 K8) at the same shapes. K6's int8 loader
-    is timed beside ``torch._weight_int8pack_mm`` (bf16 x, int8 weights,
-    per-row scales: the same function) where the installed torch runs it on
-    the card; no other single PyTorch call computes these functions."""
+    14336]; K7's wgmma instance at prefill rows of gate_proj [14336, 4096]
+    (the record), q_proj, k_proj [1024, 4096] and down_proj (config A's
+    prefill shapes), and at 64 and 100 rows; K7's mma.sync instance at
+    decode rows (B = 1); K8 at one 8-crop encode's 4616 tokens of the packed
+    qkv [3072, 1024] and fc2 [1024, 4096]; then, from a generator of their
+    own, the fp32 instances (the FFMA K6/K7, fp32 K8) at the same shapes.
+    K6's int8 loader is timed beside ``torch._weight_int8pack_mm`` and K7's
+    wgmma instance beside ``torch._weight_int4pack_mm`` (``int4pack_library``)
+    where the installed torch runs them on the card; no other single PyTorch
+    call computes these functions."""
     from slime_tpu_torch.ops import quant_matmul as qm
     from slime_tpu_torch.ops import quantization as quant
     from slime_tpu_torch.ops import w8a8_matmul as w8
@@ -932,9 +1053,13 @@ def quant_kernels(dev, g, flush, record):
              ("quant_matmul_q4", 2048, 4096, 14336, False),
              ("quant_matmul_int8", 1, 4096, 4096, True),
              ("quant_matmul_int8", 2048, 4096, 14336, False),
-             ("quant_matmul_q4g", 2048, 14336, 4096, True),
-             ("quant_matmul_q4g", 2048, 4096, 4096, False),
-             ("quant_matmul_q4g", 2048, 4096, 14336, False)]
+             ("quant_matmul_q4g_wgmma", 2048, 14336, 4096, True),
+             ("quant_matmul_q4g_wgmma", 2048, 4096, 4096, False),
+             ("quant_matmul_q4g_wgmma", 2048, 1024, 4096, False),
+             ("quant_matmul_q4g_wgmma", 2048, 4096, 14336, False),
+             ("quant_matmul_q4g_wgmma", 64, 14336, 4096, False),
+             ("quant_matmul_q4g_wgmma", 100, 4096, 4096, False),
+             ("quant_matmul_q4g", 1, 4096, 4096, True)]
     f32_cases = [("quant_matmul_q4_f32", 1, 4096, 4096, True),
                  ("quant_matmul_q4_f32", 2048, 4096, 4096, False),
                  ("quant_matmul_int8_f32", 1, 4096, 4096, True),
@@ -962,6 +1087,8 @@ def quant_kernels(dev, g, flush, record):
                 log(f"phase 1 {name}: torch._weight_int8pack_mm does not run here: "
                     f"{str(e).splitlines()[0][:160]}")
                 library = None
+        if name == "quant_matmul_q4g_wgmma" and main:
+            library = int4pack_library(x, qw)
         check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
                        f"W [{N}, {K}]", lambda: kern(x, qw), lambda: ref(x, qw),
                        nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
@@ -980,6 +1107,38 @@ def quant_kernels(dev, g, flush, record):
                        lambda: w8.w8a8_matmul_ref(x, qw, bias),
                        nbytes(x, *qw.values(), bias) + M * N * x.element_size(),
                        2 * M * N * K, INT8_OPS, flush, main)
+    torch.cuda.empty_cache()
+
+
+def probe_kernels(dev, record):
+    """Phase 1 for the P1 and P4 probes: each variant or mode held to its
+    plain version and timed (``probes.quant_matmul.run``,
+    ``probes.q4g_unpack.run``, which print their JSON lines); the records
+    keep P1's magic variant at 64 rows a block and P4's unpack_dot mode, each
+    beside its plain version, with their bounds: the bytes streamed."""
+    from slime_tpu_torch.probes import q4g_unpack as p4
+    from slime_tpu_torch.probes import quant_matmul as p1
+
+    recs, plain_ms, int8_ms = p1.run(dev, runs=TIMED_RUNS, seed=SEED, log=log)
+    main = next(r for r in recs if r["variant"] == "magic" and r["rows"] == 64)
+    moved = p1.OUT * p1.IN // 2 + p1.IN * 2 + p1.OUT * 4 + p1.OUT * 2
+    b_ms, b_by = bound(moved, 2 * p1.OUT * p1.IN, BF16_OPS)
+    record["p1_int4_matvec"].update(
+        max_abs_err=max(r["max_abs_err"] for r in recs), ms=main["us"] / 1e3,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"phase 1 p1_int4_matvec: magic, 64 rows a block {main['us'] / 1e3:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); K6's int8 loader at the same "
+        f"rows {int8_ms:.4f} ms")
+    res, p4_plain = p4.run(dev, seed=SEED, log=log)
+    L, I, H = p4.SHAPE
+    moved = L * I * H // 2 + H * 2 + L * I * 4
+    b_ms, b_by = bound(moved, 2 * L * I * H, BF16_OPS)
+    record["p4_q4g_unpack"].update(
+        max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=res["unpack_dot"]["ms"],
+        plain_ms=p4_plain["unpack_dot"], bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"phase 1 p4_q4g_unpack: unpack_dot {res['unpack_dot']['ms']:.4f} ms, plain "
+        f"{p4_plain['unpack_dot']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); dma "
+        f"{res['dma']['ms']:.4f}, unpack {res['unpack']['ms']:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -1022,6 +1181,9 @@ def kernel_phase(dev, cfg):
                            record)
         quant_kernels(dev, g, flush, record)
         ring_kernel(dev, g, flush, record)
+        ring_kernel_instances(dev, torch.Generator(device=dev).manual_seed(SEED + 7), flush,
+                              record)
+    probe_kernels(dev, record)
     del flush
     torch.cuda.empty_cache()
     return record
@@ -1307,7 +1469,8 @@ def quantized_serve_phases(dev, cfg):
     vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
 
     def expect(requests, steps):
-        exact = {"quant_matmul_q4g": 7 * L * requests, "w8a8_matmul": 4 * vis * requests,
+        exact = {"quant_matmul_q4g_wgmma": 7 * L * requests, "quant_matmul_q4g": 0,
+                 "w8a8_matmul": 4 * vis * requests,
                  "encoder_attention": vis * requests, "flash_fwd": L * requests,
                  "fused_qkv_decode_q4g": L * steps, "fused_o_residual_q4g": L * steps,
                  "fused_mlp_decode_q4g": L * steps, "quant_matmul_q4": 0,
@@ -1651,6 +1814,9 @@ def context_parallel_phase(dev, cfg):
         flash_logits = timed("(b) forward bf16, K5", lambda: fwd(compute_dtype=bf))
         q, k, v = layer0_qkv(emb)
         k9 = timed("(c) K9 on layer 0", lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS))
+        q32, k32, v32 = layer0_qkv(emb.to(torch.float32))
+        k9_32 = timed("(c32) K9 fp32 on layer 0",
+                      lambda: rd.ring_attention_rdma(q32, k32, v32, ring=CP_RANKS))
         ring32 = timed("(a32) forward fp32, ring=4", lambda: fwd(ring=CP_RANKS))
         flash32 = timed("(b32) forward fp32, K5 fp32", fwd)
         f32_last = torch.tensor([F32_SEQ - 1], device=dev)
@@ -1662,7 +1828,8 @@ def context_parallel_phase(dev, cfg):
 
         # the checks (their kernel launches come after the counts were read)
         L_ = lcfg.num_layers
-        want = {"ring_attention_rdma": CP_RANKS, "flash_fwd": L_, "flash_fwd_f32": 2 * L_}
+        want = {"ring_attention_rdma": CP_RANKS, "ring_attention_rdma_f32": CP_RANKS,
+                "flash_fwd": L_, "flash_fwd_f32": 2 * L_}
         wrong = {n: c for n, c in launches.items() if c != want.get(n, 0)}
         if wrong or any(after_ring.values()):
             raise AssertionError(f"phase 6 launches {wrong} (expected {want}; the ring forward "
@@ -1712,6 +1879,11 @@ def context_parallel_phase(dev, cfg):
         log(msg + f" (set {CP_ATTN_ATOL:g})")
         del others
         k9_ms = cuda_ms(lambda: rd.ring_attention_rdma(q, k, v, ring=CP_RANKS), runs=10)
+        err32, need32 = compare("ring_attention_rdma_f32", k9_32,
+                                ra.ring_attention(q32, k32, v32, ring=CP_RANKS))
+        log(f"phase 6 (c32) K9 fp32 on layer 0 vs the collective ring in fp32: max abs err "
+            f"{err32:.3g} (floor needed {need32:.3g}, set {ATOL['ring_attention_rdma_f32']:g})")
+        k9_32_ms = cuda_ms(lambda: rd.ring_attention_rdma(q32, k32, v32, ring=CP_RANKS), runs=3)
 
         plain = llama.forward(params, emb[:, :F32_SEQ], lcfg, logit_positions=f32_last,
                               use_kernel=False)[0]
@@ -1724,8 +1896,9 @@ def context_parallel_phase(dev, cfg):
     for name, ms in walls.items():
         log(f"phase 6 host wall {name}: {ms:.1f} ms")
     log(f"phase 6 K9 device time (4 launches and the kv copies, CUDA events, median of 10): "
-        f"{k9_ms:.3f} ms; peak memory of (a)-(d) {peak:.2f} GiB")
-    del params, emb, q, k, v, k9
+        f"{k9_ms:.3f} ms; fp32 (median of 3) {k9_32_ms:.3f} ms; peak memory of (a)-(d) "
+        f"{peak:.2f} GiB")
+    del params, emb, q, k, v, k9, q32, k32, v32, k9_32
     torch.cuda.empty_cache()
     return launches
 

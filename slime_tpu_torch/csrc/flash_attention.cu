@@ -33,18 +33,21 @@
 // for Mosaic's VMEM revisit rules; here a block owns one tile and loops. The
 // bf16 kernels at D = 128 and 256 share Hopper's shape (hopper_common.cuh): one
 // producer warp keeps TMA loads in a 2-stage ring of shared-memory stages with
-// full and empty mbarriers, two consumer warpgroups run wgmma on them, and no
+// full and empty mbarriers, consumer warpgroups run wgmma on them (two in the
+// forward, whose producer warp sits in a warpgroup of its own that hands its
+// registers to them), and no
 // operand is ever copied transposed (the transpose bit of the descriptor reads
 // a tile MN-major):
 //   - K5 forward: a block owns (128 query rows, q head, batch), 64 rows a
 //     warpgroup; the producer streams K and V tiles (128 keys at D = 128, 64 at
 //     D = 256); S = Q.K^T is an SS wgmma, the online softmax runs in
 //     registers, O += P.V an RS wgmma with P straight from the score
-//     accumulator and V MN-major. Causal blocks visit key tiles up to the
-//     diagonal only and mask only the diagonal, ragged and segmented tiles;
-//     the heavy query tiles launch first; the epilogue stores O by TMA. The
-//     softmax does not overlap the products yet (FlashAttention-3's ping-pong
-//     is a later version);
+//     accumulator and V MN-major: the main loop of hopper_attention.cuh,
+//     which K9 (ring_attention.cu) shares. Causal blocks visit key tiles up
+//     to the diagonal only and mask only the diagonal, ragged and segmented
+//     tiles; the heavy query tiles launch first; the epilogue stores O by
+//     TMA. The softmax does not overlap the products yet (FlashAttention-3's
+//     ping-pong is a later version);
 //   - K5c dQ: a block owns (128 query rows at D = 128, 64 at D = 256; q head,
 //     batch) and keeps Q and dO; the producer streams 64-key tiles of K and V
 //     (up to the diagonal when causal). S = Q.K^T and dP = dO.V^T are SS
@@ -76,7 +79,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
-#include "hopper_common.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -118,13 +121,32 @@ struct FwdParams {
   float scale;
 };
 
+// K5's mask (attend_tiles): keys inside S, rows inside S, causal, segments;
+// only tiles on the diagonal, at the ragged end or with segments mask.
+struct FwdMask {
+  int S, causal, row0, row1, seg0, seg1, qw;
+  const int* segk;            // the ring's [kRingStages][BN] key segment ids, or null
+  int BN;
+  __device__ bool edge(int k0, int k1) const {
+    return segk != nullptr || k1 > S || (causal && k1 - 1 > qw);
+  }
+  __device__ bool ok(int st, int col, int key, bool second) const {
+    const int row = second ? row1 : row0;
+    bool keep = key < S && row < S;
+    if (causal) keep = keep && key <= row;
+    if (segk != nullptr) keep = keep && (second ? seg1 : seg0) == segk[st * BN + col];
+    return keep;
+  }
+};
+
 // One block per (128 query rows, q head, batch): consumer warpgroups 0 and 1
-// own 64 rows each, warp 8 is the producer. BN keys a tile: 128 at D = 128,
-// 64 at D = 256 so that the O accumulator (D / 2 fp32 a thread) and the
-// scores fit in registers.
+// own 64 rows each, warpgroup 2 is the producer (its warp 8 loads) and hands
+// its registers to them (kConsumerRegs). BN keys a tile: 128 at D = 128, 64
+// at D = 256 so that the O accumulator (D / 2 fp32 a thread) and the scores
+// fit in registers.
 template <int D, int BN>
-__global__ void __launch_bounds__(288, 1) flash_fwd_kernel(const __grid_constant__ FwdParams p) {
-  constexpr int BM = 128, NCH = D / 64, STAGES = 2;
+__global__ void __launch_bounds__(kAttnThreads, 1) flash_fwd_kernel(const __grid_constant__ FwdParams p) {
+  constexpr int BM = 128, NCH = D / 64, STAGES = kRingStages;
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));    // [NCH][BM][64]
   bf16* Ks = Qs + NCH * BM * 64;                                // [STAGES][NCH][BN][64]
@@ -152,7 +174,9 @@ __global__ void __launch_bounds__(288, 1) flash_fwd_kernel(const __grid_constant
   __syncthreads();
 
   const int wg = threadIdx.x >> 7;
-  if (wg == 2) {                                                // the producer warp
+  if (wg == 2) {                                  // the producer warpgroup; warp 8 loads
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x >= 288) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_expect_tx(qbar, NCH * BM * 128);
@@ -177,6 +201,7 @@ __global__ void __launch_bounds__(288, 1) flash_fwd_kernel(const __grid_constant
     return;
   }
 
+  regs_inc<kConsumerRegs>();
   const int t = threadIdx.x & 127, warp = t >> 5, g = (t & 31) >> 2, tq = t & 3;
   const int qw = q0 + 64 * wg;                                  // this warpgroup's first row
   const int row0 = qw + 16 * warp + g, row1 = row0 + 8;
@@ -193,56 +218,10 @@ __global__ void __launch_bounds__(288, 1) flash_fwd_kernel(const __grid_constant
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   mbar_wait(qbar, 0);
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int st = j % STAGES, k0 = j * BN;
-    mbar_wait(&full[st], (j / STAGES) & 1);
-    if (j < my_tiles) {
-      float s[BN / 2];
-      qk_product<D, BN>(s, Qw, BM, Ks + st * NCH * BN * 64);
-      // only tiles on the diagonal, at the ragged end or with segments mask;
-      // scores and m are kept in log2 units (x log2(e)) so that each exp is
-      // one exp2
-      const bool edge = segb != nullptr || k0 + BN > S || (p.causal && k0 + BN - 1 > qw);
-      const float scale2 = p.scale * kLog2e;
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        float x = s[i] * scale2;
-        if (edge) {
-          const int col = 8 * (i >> 2) + 2 * tq + (i & 1), key = k0 + col;
-          const int row = (i & 2) ? row1 : row0;
-          bool ok = key < S && row < S;
-          if (p.causal) ok = ok && key <= row;
-          if (segb != nullptr) ok = ok && ((i & 2) ? seg1 : seg0) == segk[st * BN + col];
-          if (!ok) x = kNegInf;
-        }
-        s[i] = x;
-        if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
-      }
-      const float mn0 = fmaxf(m0, quad_max4(mx0)), mn1 = fmaxf(m1, quad_max4(mx1));
-      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const float e = exp2f(s[i] - ((i & 2) ? mn1 : mn0));
-        s[i] = e;
-        if (i & 2) ls1 += e; else ls0 += e;
-      }
-      // per-lane partial row sums; the quad adds them up at the end
-      l0 = l0 * al0 + ls0;
-      l1 = l1 * al1 + ls1;
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
-      uint32_t pa[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a_frag(pa[kk], s, kk);
-      pv_product<D, BN>(o, pa, Vs + st * NCH * BN * 64);
-    }
-    mbar_arrive(&empty[st]);
-  }
+  const FwdMask mask{S, p.causal, row0, row1, seg0, seg1, qw, segb != nullptr ? segk : nullptr,
+                     BN};
+  attend_tiles<D, BN, false>(o, m0, m1, l0, l1, Qw, BM, Ks, Vs, full, empty, ntiles, my_tiles,
+                             p.scale * kLog2e, mask);
 
   l0 = quad_sum4(l0);
   l1 = quad_sum4(l1);
@@ -586,23 +565,6 @@ constexpr int kF32Threads = 256;
 constexpr int kRows = 4;               // block rows per thread
 constexpr int kCols = kTile / 16;      // tile columns per thread
 constexpr int kLdp = kTile + 1;        // row stride of the [64][64] p / ds tiles
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // x as the operand of the second product: rounded to bf16 for bf16 inputs
 template <typename T>
@@ -1050,7 +1012,7 @@ template <int D, int BN>
 int run_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                   const void* seg, const long long* st, int B, int H, int KVH, int S,
                   int causal, float scale, void* stream) {
-  constexpr int NCH = D / 64, STAGES = 2;
+  constexpr int NCH = D / 64, STAGES = kRingStages;
   FwdParams p;
   // st: (batch, head, seq) element strides of q, k, v, out
   int err = encode_bshd(&p.q, q, B, S, H, D, st[0], st[2], st[1], 128);
@@ -1067,7 +1029,7 @@ int run_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* 
   p.scale = scale;
   const size_t smem = (size_t)NCH * 128 * 128 + (size_t)2 * STAGES * NCH * BN * 128 +
                       STAGES * BN * sizeof(int) + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
-  return launch(flash_fwd_kernel<D, BN>, 288, smem, dim3((S + 127) / 128, H, B), p, stream);
+  return launch(flash_fwd_kernel<D, BN>, kAttnThreads, smem, dim3((S + 127) / 128, H, B), p, stream);
 }
 
 // The tensor maps of the backward kernels' inputs (boxes of q_rows query and

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) tile vocabulary of the wgmma attention kernels (K4 in
+// Hopper (sm_90a) tile vocabulary of the wgmma kernels (K4 in
 // encoder_attention.cu; K5's forward and the K5b / K5c backward in
-// flash_attention.cu), and its self-test (hopper_selftest.cu).
+// flash_attention.cu; K9's bf16 kernel in ring_attention.cu, which shares
+// K5's main loop through hopper_attention.cuh; K7's wgmma instance in
+// quant_matmul.cu), and its self-test (hopper_selftest.cu).
 //
 // A tile of R rows x W columns of bf16 lives in shared memory as W / 64 chunks,
 // each [R][64] (128 bytes a row) in TMA's 128-byte swizzle: the 16-byte piece c
@@ -14,12 +16,15 @@
 //     columns past D). cuTensorMapEncodeTiled comes from the runtime's driver
 //     entry point, so the library needs no -lcuda. A kernel takes the map as
 //     a __grid_constant__ parameter.
+//   - Host: encode_2d() builds the map of a row-major 2-D tensor (K7's x
+//     [M, K] bf16 and packed weights [N, K / 2] bytes), 128-byte boxes.
 //   - Device: mbarrier init / arrive / arrive.expect_tx / parity wait; TMA
-//     tile loads (cp.async.bulk.tensor) and stores; the wgmma shared-memory
+//     tile loads (cp.async.bulk.tensor, 4-D and 2-D) and stores; the wgmma shared-memory
 //     descriptor; wgmma.mma_async m64nNk16 bf16 -> fp32 with A from shared
 //     memory (SS: S = Q.K^T or S^T = K.Q^T, both K-major) or from registers
 //     (RS: O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q, the shared
-//     operand MN-major through the transpose bit); the scores' fp32 accumulator
+//     operand MN-major through the transpose bit; K7's W . x^T with x
+//     K-major, wgmma_rs_kmajor128); the scores' fp32 accumulator
 //     rounded into P's register A fragment (acc_to_a_frag); the epilogue
 //     store of a 64-row output tile by TMA.
 //
@@ -73,7 +78,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 // order of the [B, S, H, D] storage of llama's and the ViT's projections), a
 // box of 64 columns x 1 head x `rows` positions x 1 batch, which lands in
 // shared memory as [rows][64]. The caller keeps ptr and the strides 16-byte
-// aligned (the wrappers check). Returns 0 or an error code.
+// aligned (the wrappers copy a view that is not). Returns 0 or an error code.
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                        long long sb, long long ss, long long sh, int rows) {
   EncodeTiledFn fn = encode_tiled_fn();
@@ -86,6 +91,26 @@ inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, i
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+// The map of a row-major 2-D tensor of `inner` x `outer` elements of `type`
+// (row stride `row_bytes`, a multiple of 16), a box of `box_inner` x
+// `box_outer` in the 128-byte swizzle (box_inner elements are 128 bytes), zero
+// fill out of bounds: x [M, K] bf16 and the packed q4g weights [N, K / 2]
+// (bytes) of K7. Returns 0 or an error code.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                     long long inner, long long outer, long long row_bytes, int box_inner,
+                     int box_outer) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoTensorMapEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
 }
 
@@ -148,6 +173,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// the box at (inner, outer) of an encode_2d map into shared memory at dst
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
 // the box at src to (column, row, head, batch); rows and columns out of
 // bounds are dropped
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
@@ -167,6 +202,19 @@ __device__ __forceinline__ void tma_store_commit_and_wait() {
 // generic-proxy writes to shared memory become visible to TMA and wgmma
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Hand registers between the warpgroups of a block (all 128 threads of a
+// warpgroup execute it): a producer warpgroup drops to N, the consumers grow
+// to N, so a 384-thread block (168 registers a thread at launch) gives each
+// consumer thread up to 232.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // barrier over `count` threads (a warpgroup: 128) under id 1..15
@@ -202,6 +250,16 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps register A fragments alive and unmoved until this point (an RS wgmma
+// reads them after its issue returns)
+template <int R>
+__device__ __forceinline__ void keep_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[i][x])::"memory");
 }
 
 // keeps the compiler from moving accumulator registers while wgmma owns them
@@ -327,6 +385,45 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128 fp32) = [d if scale_d] + A (64 x 16 bf16, registers) . B (16 x
+// 128, shared, K-major): K7's W . x^T with x [tokens][k] as B.
+__device__ __forceinline__ void wgmma_rs_kmajor128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Two packed int4 bytes (b0 low, b1) -> the bf16x2 of their low (HI = false)
+// or high nibbles as signed values, exactly: spread to [b0, 0, b1, 0] (prmt),
+// (v & 0x000F000F) ^ 0x43084308 (one lop3) = 0x4300 | (n ^ 8), bf16 128 + (n +
+// 8) with an ulp of 1, then one bf16x2 subtract of 136. K7's wgmma instance
+// and the int4 probes (int4_probes.cu) unpack with it.
+template <bool HI>
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t two_bytes) {
+  uint32_t v = __byte_perm(two_bytes, 0u, 0x4140);
+  if (HI) v >>= 4;
+  v = (v & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const uint32_t c = 0x43084308u;                               // bf16x2 (136, 136)
+  h = __hsub2(h, *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {

@@ -12,7 +12,10 @@
 //
 // What bounds it on this card. At prefill (M = 2048 rows, K = 4096 or 14336)
 // the product is far above the H100's ridge: operations, at the bf16
-// tensor-core rate. At decode (M = 1) it is the packed weight bytes. So:
+// tensor-core rate. At decode (M = 1) it is the packed weight bytes. K7 with
+// bf16 x of 64 rows or more (the prefill) takes the Hopper kernel at the end
+// of this file (wgmma, weights dequantized in registers); below that, K6,
+// and fp32 x, the kernels here:
 //   - one tiled GEMM on mma.sync m16n8k16 bf16 tiles with fp32 sums (the
 //     fragment vocabulary of csrc/flash_attention.cu). A block owns a 64 x 64
 //     output tile; 4 warps own 32 x 32 each;
@@ -42,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -452,6 +457,222 @@ int launch(const void* x, int M, int K, const void* w, const void* s, int N, voi
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K7 at M >= 64 rows of bf16 x: wgmma with the weights dequantized in registers
+// ---------------------------------------------------------------------------
+// y^T = W . x^T, so the int4 weights are wgmma's A operand, which may come from
+// registers: they never pass through shared memory as bf16. A block owns 128
+// output rows (two consumer warpgroups of 64) x 128 tokens; a producer warp
+// streams one packed block a stage (256 columns of x: groups 2b and 2b+1) by
+// TMA into a 2-stage mbarrier ring: x [128 tokens][256] bf16 as four 128-byte
+// swizzled [128][64] chunks (wgmma's B, K-major in x's natural [M, K] layout)
+// and the packed weights [128 rows][128 bytes], swizzled the same way.
+//   - The A fragment of a k16 step (lane (g, t) of warp w: rows 16 w + g and
+//     + 8, k = 2t, 2t+1 and 2t+8, 2t+9) is two 16-bit shared loads a row of
+//     the packed bytes 16 kk + 2t (+ 8): their low nibbles are group 2b's
+//     pair, their high nibbles group 2b+1's in the same fragment slot, so one
+//     staged tile feeds both groups. (ldmatrix's b16 layout would hand a lane
+//     bytes 4t..4t+3, not the pairs the fragment needs.)
+//   - Exact nibble -> bf16: the two bytes spread to [b0, 0, b1, 0] (prmt),
+//     (x & 0x000F000F) ^ 0x43084308 (one lop3) is 0x4300 | (n ^ 8), bf16
+//     128 + (n + 8) with an ulp of 1, and one bf16x2 subtract of 136 leaves n
+//     in -8..7 exactly.
+//   - Group scaling without a second rounding: a group's eight k16 wgmmas go
+//     into a fresh fp32 `part` (scale-d 0 on the first); after they retire,
+//     acc += part * s[o, g] (two scales a thread a group: rows g and g + 8).
+//     Group 2b+1's fragments are converted while group 2b's wgmmas run. One
+//     `part` (acc 64 + part 64 + two groups' fragments 64 registers a
+//     thread): a second one would not fit beside them. Those 192 registers
+//     spilled 1040 bytes under the 168 a thread of a 288-thread block gets,
+//     so the producer is a whole warpgroup that hands its registers to the
+//     consumers (setmaxnreg: 40 for it, 232 for them).
+//   - Epilogue: the accumulator is y^T; each warpgroup stages its 64 x 128
+//     tile as bf16 [tokens][outputs] in shared memory and writes y in 16-byte
+//     rows. With a split over K (few tiles, few rows), fp32 partial sums go to
+//     the workspace from registers and the reduction kernel adds them in
+//     order.
+constexpr int kWgRows = 128, kWgTok = 128, kWgBK = 2 * kGroup, kWgStages = 2;
+constexpr int kWgThreads = 384;        // two consumer warpgroups, one producer
+constexpr int kYPitch = 72;           // bf16 pitch of the epilogue's [tokens][64] rows
+
+struct Q4gParams {
+  CUtensorMap x, w;
+  const float* s;
+  bf16* y;
+  float* ws;
+  int M, N, K, kb_per_split;
+};
+
+// The A fragments of one group (HI: 2b + 1) for the warpgroup's 64 rows
+// from the swizzled packed tile `wt` ([128 rows][128 bytes]).
+template <bool HI>
+__device__ __forceinline__ void q4g_frags(uint32_t (&a)[8][4], const unsigned char* wt,
+                                          int row0, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int row = row0 + 8 * (x & 1), j = 8 * (x >> 1) + 2 * t;
+      const uint32_t two = *reinterpret_cast<const uint16_t*>(
+          wt + row * 128 + ((kk ^ (row & 7)) << 4) + j);
+      a[kk][x] = nibbles_bf16x2<HI>(two);
+    }
+}
+
+// issue part = A . x-tile columns of group `half` (eight k16 steps)
+__device__ __forceinline__ void q4g_issue(float (&part)[64], const uint32_t (&a)[8][4],
+                                          const bf16* xs, int half) {
+  fence_acc(part);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int chunk = 2 * half + (kk >> 2), col = (kk & 3) * 16;
+    wgmma_rs_kmajor128(part, a[kk], sw128_desc(xs + chunk * kWgTok * 64 + col, 16, 1024),
+                       kk > 0);
+  }
+  wgmma_commit();
+}
+
+// wait for the group's wgmmas, then acc += part * scale; `a` (the fragments
+// they read from registers) stays live and untouched until the wait
+__device__ __forceinline__ void q4g_fold(float (&acc)[64], float (&part)[64], float s0,
+                                         float s1, uint32_t (&a)[8][4]) {
+  wgmma_wait_all();
+  keep_frags(a);
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] += part[i] * ((i & 2) ? s1 : s0);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) q4g_wgmma_kernel(
+    const __grid_constant__ Q4gParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(align1024(smem_raw));     // [stages][4][128][64]
+  unsigned char* Ws = reinterpret_cast<unsigned char*>(Xs + kWgStages * 4 * kWgTok * 64);
+  bf16* Ys = reinterpret_cast<bf16*>(Ws + kWgStages * kWgRows * 128);   // [2][128][kYPitch]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ys + 2 * kWgTok * kYPitch);
+  uint64_t* empty = full + kWgStages;
+
+  const int n0 = blockIdx.x * kWgRows, m0 = blockIdx.y * kWgTok, z = blockIdx.z;
+  const int nkb = p.K / kWgBK, kb0 = z * p.kb_per_split;
+  const int kb1 = min(nkb, kb0 + p.kb_per_split);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {                                                // the producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int kb = kb0; kb < kb1; ++kb) {
+        const int j = kb - kb0, st = j % kWgStages;
+        mbar_wait(&empty[st], ((j / kWgStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 4 * kWgTok * 128 + kWgRows * 128);
+        for (int c = 0; c < 4; ++c)
+          tma_load_2d(Xs + (st * 4 + c) * kWgTok * 64, &p.x, &full[st], kb * kWgBK + 64 * c,
+                      m0);
+        tma_load_2d(Ws + st * kWgRows * 128, &p.w, &full[st], kb * kGroup, n0);
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int tl = threadIdx.x & 127, warp = tl >> 5, g = (tl & 31) >> 2, tq = tl & 3;
+  const int row0 = 64 * wg + 16 * warp + g;                   // rows of the block's W tile
+  const int o0 = n0 + row0, o1 = o0 + 8;
+  const int G = p.K / kGroup;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t lo[8][4], hi[8][4];
+  for (int kb = kb0; kb < kb1; ++kb) {
+    const int j = kb - kb0, st = j % kWgStages;
+    const float s00 = o0 < p.N ? p.s[(size_t)o0 * G + 2 * kb] : 0.f;
+    const float s01 = o0 < p.N ? p.s[(size_t)o0 * G + 2 * kb + 1] : 0.f;
+    const float s10 = o1 < p.N ? p.s[(size_t)o1 * G + 2 * kb] : 0.f;
+    const float s11 = o1 < p.N ? p.s[(size_t)o1 * G + 2 * kb + 1] : 0.f;
+    mbar_wait(&full[st], (j / kWgStages) & 1);
+    const unsigned char* wt = Ws + st * kWgRows * 128;
+    const bf16* xs = Xs + st * 4 * kWgTok * 64;
+    q4g_frags<false>(lo, wt, row0, tq);
+    q4g_issue(part, lo, xs, 0);                                  // group 2b
+    q4g_frags<true>(hi, wt, row0, tq);                           // while it runs
+    q4g_fold(acc, part, s00, s10, lo);
+    q4g_issue(part, hi, xs, 1);                                  // group 2b + 1
+    q4g_fold(acc, part, s01, s11, hi);
+    mbar_arrive(&empty[st]);
+  }
+
+  // acc[i]: output row row0 + 8 ((i >> 1) & 1) of the block, token 8 (i >> 2) +
+  // 2 tq + (i & 1)
+  if (p.ws != nullptr) {
+    float* ws = p.ws + (size_t)z * p.M * p.N;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int m = m0 + 8 * (i >> 2) + 2 * tq + (i & 1), o = (i & 2) ? o1 : o0;
+      if (m < p.M && o < p.N) ws[(size_t)m * p.N + o] = acc[i];
+    }
+    return;
+  }
+  bf16* ys = Ys + wg * kWgTok * kYPitch;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int tok = 8 * (i >> 2) + 2 * tq + (i & 1), r = 16 * warp + g + ((i & 2) ? 8 : 0);
+    ys[tok * kYPitch + r] = __float2bfloat16_rn(acc[i]);
+  }
+  named_barrier(1 + wg, 128);
+  const int ob = n0 + 64 * wg;
+  for (int e = tl; e < kWgTok * 8; e += 128) {
+    const int tok = e >> 3, c8 = (e & 7) * 8, m = m0 + tok, o = ob + c8;
+    if (m >= p.M || o >= p.N) continue;
+    bf16* dst = p.y + (size_t)m * p.N + o;
+    const bf16* src = ys + tok * kYPitch + c8;
+    if (o + 8 <= p.N && p.N % 8 == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int c = 0; c < 8 && o + c < p.N; ++c) dst[c] = src[c];
+    }
+  }
+}
+
+int launch_q4g_wgmma(const void* x, int M, int K, const void* w, const void* s, int N,
+                     void* y, void* ws, int splits, int kb_per_split, cudaStream_t st) {
+  static bool smem_set = false;
+  Q4gParams p;
+  int err = encode_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (long long)K * 2, 64,
+                      kWgTok);
+  if (err == 0)
+    err = encode_2d(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K / 2, N, K / 2, 128, kWgRows);
+  if (err != 0) return err;
+  p.s = (const float*)s;
+  p.y = (bf16*)y;
+  p.ws = splits > 1 ? (float*)ws : nullptr;
+  p.M = M; p.N = N; p.K = K; p.kb_per_split = kb_per_split;
+  const int smem = kWgStages * (4 * kWgTok * 128 + kWgRows * 128) + 2 * kWgTok * kYPitch * 2 +
+                   2 * kWgStages * (int)sizeof(uint64_t) + 1024;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(q4g_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const dim3 grid((N + kWgRows - 1) / kWgRows, (M + kWgTok - 1) / kWgTok, splits);
+  q4g_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const size_t MN = (size_t)M * N;
+  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+  splitk_reduce_kernel<bf16><<<blocks, 256, 0, st>>>((const float*)ws, splits, M, N, nullptr,
+                                                      (bf16*)y);
+  return (int)cudaGetLastError();
+}
+
 template <typename TX>
 int launch_fmt(int fmt, const void* x, int M, int K, const void* w, const void* s, int N,
                void* y, void* ws, int splits, int tiles_per_split, cudaStream_t st) {
@@ -476,4 +697,17 @@ extern "C" int slime_quant_matmul(int fmt, int x_f32, const void* x, int M, int 
   cudaStream_t st = (cudaStream_t)stream;
   return x_f32 ? launch_fmt<float>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st)
                : launch_fmt<bf16>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+}
+
+// K7's wgmma instance: bf16 x [M, K] (M >= 64 in the wrapper's route), q4g w
+// [N, K / 2], s fp32 [N, K / 128], y bf16 [M, N]; a split over K of
+// `kb_per_split` packed blocks per blockIdx.z into ws fp32 [splits, M, N]
+// when splits > 1. Returns the cudaError_t of the launches (or a tensor-map
+// error code).
+extern "C" int slime_quant_matmul_q4g_wgmma(const void* x, int M, int K, const void* w,
+                                            const void* s, int N, void* y, void* ws,
+                                            int splits, int kb_per_split, void* stream) {
+  if (M < 1 || N < 1 || K < kWgBK || K % kWgBK != 0 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_q4g_wgmma(x, M, K, w, s, N, y, ws, splits, kb_per_split, (cudaStream_t)stream);
 }

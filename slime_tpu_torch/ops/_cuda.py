@@ -40,10 +40,13 @@ _SIGNATURES = {
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
-    "slime_ring_attend": [_P] * 7 + [_LLP] + [_I] * 9 + [_F, _P],
+    "slime_ring_attend": [_P] * 9 + [_LLP] + [_I] * 11 + [_F, _P],
     "slime_quant_matmul": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "slime_quant_matmul_q4g_wgmma": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_w8a8_matmul": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "slime_hopper_selftest": [_P] * 9,
+    "slime_p1_matvec": [_I, _I, _P, _P, _P, _P, _I, _P],
+    "slime_p4_stream": [_I, _P, _LL, _P, _P, _P, _I, _P],
 }
 
 # the loaded library, and the seconds nvcc took if this process built it
@@ -141,6 +144,13 @@ def tma_ready(t: torch.Tensor) -> bool:
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st * size % 16 == 0
                     for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can read it by TMA (``tma_ready``), else a fresh
+    contiguous copy they can: the wrappers launch the same kernel on the
+    copy, so an unaligned view computes instead of raising."""
+    return t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def tma_strides(t: torch.Tensor, dims):

@@ -129,10 +129,11 @@ def encoder_attention(q, k, v, *, scale: Optional[float] = None):
 
 def kernel_input_error(q, k, v) -> Optional[str]:
     """Why the kernel cannot take q/k/v (None if it can): all bf16 or all
-    fp32 [B, S, H, D] of one shape, S <= 1024, D <= 128, D % 8 == 0, and a
-    layout TMA reads (``_cuda.tma_ready``: unit stride over D, 16-byte
-    aligned data and strides). Devices are not checked: a pure function of
-    shapes, dtypes and layouts."""
+    fp32 [B, S, H, D] of one shape, S <= 1024, D <= 128, D % 8 == 0. Any
+    layout: a view TMA cannot read (``_cuda.tma_ready``: unit stride over D,
+    16-byte aligned data and strides) is copied into a fresh contiguous
+    tensor and the kernel runs on the copy. Devices are not checked: a pure
+    function of shapes and dtypes."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         return f"q/k/v shapes differ or are not [B, S, H, D]: {q.shape}, {k.shape}, {v.shape}"
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in (k, v)):
@@ -142,19 +143,18 @@ def kernel_input_error(q, k, v) -> Optional[str]:
     if S > MAX_SEQ or D > MAX_HEAD_DIM or D % 8:
         return (f"encoder_attention kernel takes S <= {MAX_SEQ}, D <= {MAX_HEAD_DIM}, "
                 f"D % 8 == 0; got S={S}, D={D}")
-    if not all(_cuda.tma_ready(t) for t in (q, k, v)):
-        return ("encoder_attention kernel reads q/k/v by TMA: unit stride over D, "
-                "16-byte aligned data and strides")
     return None
 
 
 def encoder_attention_kernel(q, k, v, *, scale: float, variant: int = 0):
     """Launch K4 (design ``variant``, see ``VARIANTS``) on CUDA q/k/v or
-    raise; counts ``encoder_attention.launches``."""
+    raise; counts ``encoder_attention.launches``. A view TMA cannot read is
+    copied first (``_cuda.tma_operand``); the output is a new tensor."""
     _cuda.require_cuda(q, k, v)
     err = kernel_input_error(q, k, v)
     if err is not None:
         raise ValueError(err)
+    q, k, v = (_cuda.tma_operand(t) for t in (q, k, v))
     B, S, H, D = q.shape
     f32 = int(q.dtype == torch.float32)
     if variant not in VARIANTS or (variant and (D > 64 or f32)):

@@ -203,9 +203,9 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
 def kernel_input_error(q, k, v, *extra) -> Optional[str]:
     """Why the kernels cannot take q [B, H, S, D], k/v [B, KVH, S, D] and
     ``extra`` (do) (None if they can): KVH dividing H, D a multiple of 128,
-    all bf16 or all fp32, and a layout TMA and 16-byte loads read
-    (``_cuda.tma_ready``). Devices are not checked: a pure function of
-    shapes, dtypes and layouts."""
+    all bf16 or all fp32. Any layout: an operand TMA cannot read
+    (``_cuda.tma_ready``) is copied first (``_check_kernel_inputs``). Devices are not
+    checked: a pure function of shapes and dtypes."""
     B, H, S, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
         return (f"flash kernels: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -218,18 +218,19 @@ def kernel_input_error(q, k, v, *extra) -> Optional[str]:
     if len(dtypes) != 1 or q.dtype not in KERNEL_DTYPES:
         return (f"flash kernels take q/k/v/do all bf16 or all fp32, got "
                 f"{sorted(str(d) for d in dtypes)}")
-    if not all(_cuda.tma_ready(t) for t in (q, k, v) + extra):
-        return ("flash kernels need unit stride over D and 16-byte aligned data and "
-                "strides (TMA tiles)")
     return None
 
 
 def _check_kernel_inputs(q, k, v, *extra):
-    """Raise unless the kernels take these tensors on the current card."""
+    """Raise unless the kernels take these tensors on the current card;
+    return them as the kernels read them (``_cuda.tma_operand``: a view
+    that is not 16-byte aligned, or has no unit stride over D, becomes a
+    fresh contiguous copy, and the same kernel runs on it)."""
     _cuda.require_cuda(q, k, v, *extra)
     err = kernel_input_error(q, k, v, *extra)
     if err is not None:
         raise ValueError(err)
+    return tuple(_cuda.tma_operand(t) for t in (q, k, v) + extra)
 
 
 def _bhs(t):
@@ -280,7 +281,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              segment_ids=segment_ids)
-    _check_kernel_inputs(q, k, v)
+    q, k, v = _check_kernel_inputs(q, k, v)
     B, H, S, D = q.shape
     seg = _seg_arg(segment_ids, q)
     out = _bshd_like(q)
@@ -301,7 +302,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dkdv_ref(q, k, v, do, lse, delta, causal=causal,
                                   scale=scale, segment_ids=segment_ids)
-    _check_kernel_inputs(q, k, v, do)
+    q, k, v, do = _check_kernel_inputs(q, k, v, do)
     B, H, S, D = q.shape
     seg = _seg_arg(segment_ids, q)
     lse, delta = _f32_bhs(lse, q), _f32_bhs(delta, q)
@@ -323,7 +324,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal, scale=scale,
                                 segment_ids=segment_ids)
-    _check_kernel_inputs(q, k, v, do)
+    q, k, v, do = _check_kernel_inputs(q, k, v, do)
     B, H, S, D = q.shape
     seg = _seg_arg(segment_ids, q)
     lse, delta = _f32_bhs(lse, q), _f32_bhs(delta, q)
@@ -354,8 +355,6 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, seg = ctx.saved_tensors
-        if do.is_cuda and not _cuda.tma_ready(do):
-            do = do.contiguous()
         delta = (do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
         kw = dict(causal=ctx.causal, scale=ctx.scale, segment_ids=seg)
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)

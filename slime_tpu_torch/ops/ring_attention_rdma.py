@@ -33,11 +33,25 @@ The plain version ``ring_attention_rdma_ref`` keeps the TPU kernel's
 arithmetic (``_attend_block``): q, k, v and p all fp32, m = max(max(s),
 NEG_INF), the merge c0 = exp(m0 - m), c1 = exp(bm - m), and at the end acc /
 l with ``l == 0 -> 1`` cast to q's dtype (:142-145). It is what CPU tensors
-run and the card's oracle for the kernel. The kernel takes bf16 q/k/v with
-D = 128 and S/n a multiple of 64; fp32 or another D raises (ROADMAP Queue 2).
+run and the card's oracle for the kernel.
 
-Launch count: ``ring_attention_rdma.launches``, one per kernel launch: n per
-call with n virtual ranks, n per rank with a process group.
+The kernel takes every input JAX's does (the TPU kernel casts q, k and v to
+fp32 inside, :55-57, and takes any D and any S/n): bf16 at D = 128 and 256
+runs the ``wgmma`` design K5's forward shares (p carried as two bf16 halves
+through P.V); fp32 at any D, and bf16 at every other D, runs an FFMA kernel
+with the TPU kernel's fp32 arithmetic. Any S/n: a row tile stops at its
+rank's shard and keys past it are masked. Inputs of another floating dtype,
+or of mixed dtypes, are cast to fp32 (the values JAX's kernel computes on)
+and the output is cast back to q's dtype, as JAX's is. B * KVH is folded
+into the grid's first dimension, so it has no limit of its own. A q that TMA
+cannot read (``_cuda.tma_ready``) is copied into a fresh contiguous tensor
+first, and the kernel runs on the copy. Only inputs that do not fit
+q [B, H, S, D] / k, v [B, KVH, S, D] raise.
+
+Launch counts: ``ring_attention_rdma.launches``, one per kernel launch: n per
+call with n virtual ranks, n per rank with a process group;
+``.f32_launches`` those of the fp32 FFMA kernel, ``.ffma_launches`` those of
+the bf16 FFMA kernel (D other than 128 and 256).
 """
 from __future__ import annotations
 
@@ -52,8 +66,7 @@ from . import _cuda
 from .flash_attention import _bhs, _bshd_like
 from .ring_attention import NEG_INF, ring_layout, ring_peers
 
-KERNEL_HEAD_DIM = 128
-KERNEL_ROWS = 64          # S/n must be a multiple of the kernel's row tile
+WGMMA_HEAD_DIMS = (128, 256)     # bf16 head dims of the wgmma kernel; others take FFMA
 
 
 def _attend_ref(q, slot, step, ranks, n, state, *, scale, causal):
@@ -92,19 +105,25 @@ def _attend_ref(q, slot, step, ranks, n, state, *, scale, causal):
         acc[:, :, rows] = (a0 * c0 + bacc * c1).reshape(B, H, Sq, D)
 
 
-def _attend_kernel(q, slot, src, ranks, state, out, *, scale, causal, last):
+def _attend_kernel(q, slot, src, ranks, state, out, *, scale, causal, step, last):
     """One launch of ``slime_ring_attend``: every local rank's block of
     ``slot`` (rank ranks[j]'s came from rank src[j], an int32 device
-    vector) merged into ``state``; on the ``last`` step it writes
-    ``acc / l`` to ``out`` in q's dtype instead."""
+    vector) merged into ``state`` = (m, l [2, R, B, H, Sq], acc); step s
+    reads m, l slot (s - 1) % 2 and writes slot s % 2. On the ``last`` step
+    it writes ``acc / l`` to ``out`` in q's dtype instead."""
     m, l, acc = state
     B, H, _, D = q.shape
+    rd, wr = (step - 1) % 2, step % 2
+    f32 = int(q.dtype == torch.float32)
     _cuda.check(_cuda.library().slime_ring_attend(
-        q.data_ptr(), slot.data_ptr(), src.data_ptr(), m.data_ptr(), l.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), _cuda.longs(_bhs(q) + _bhs(out)), len(ranks), B, H,
-        slot.shape[3], m.shape[-1], D, ranks[0], int(causal), int(last), scale,
-        _cuda.stream()), "ring_attend")
+        q.data_ptr(), slot.data_ptr(), src.data_ptr(), m[rd].data_ptr(), l[rd].data_ptr(),
+        m[wr].data_ptr(), l[wr].data_ptr(), acc.data_ptr(), out.data_ptr(),
+        _cuda.longs(_bhs(q) + _bhs(out)), len(ranks), B, H, slot.shape[3], m.shape[-1], D,
+        f32, ranks[0], int(causal), int(step == 0), int(last), scale, _cuda.stream()),
+        "ring_attend")
     ring_attention_rdma.launches += 1
+    ring_attention_rdma.f32_launches += f32
+    ring_attention_rdma.ffma_launches += int(not f32 and D not in WGMMA_HEAD_DIMS)
 
 
 def _start_transfer(src, dst, group, n, left, side, credit):
@@ -140,9 +159,14 @@ def _ring(q, k, v, ring, causal, scale, kernel):
     buf = torch.empty((2, R, 2, B, KVH, Sq, D), dtype=k.dtype, device=dev)
     buf[0, :, 0] = k.reshape(B, KVH, R, Sq, D).permute(2, 0, 1, 3, 4)
     buf[0, :, 1] = v.reshape(B, KVH, R, Sq, D).permute(2, 0, 1, 3, 4)
-    state = (torch.full((R, B, H, Sq), NEG_INF, dtype=torch.float32, device=dev),
-             torch.zeros((R, B, H, Sq), dtype=torch.float32, device=dev),
-             torch.zeros((B, H, S_here, D), dtype=torch.float32, device=dev))
+    if kernel:       # step 0 writes every state element before any is read
+        state = (torch.empty((2, R, B, H, Sq), dtype=torch.float32, device=dev),
+                 torch.empty((2, R, B, H, Sq), dtype=torch.float32, device=dev),
+                 torch.empty((B, H, S_here, D), dtype=torch.float32, device=dev))
+    else:
+        state = (torch.full((R, B, H, Sq), NEG_INF, dtype=torch.float32, device=dev),
+                 torch.zeros((R, B, H, Sq), dtype=torch.float32, device=dev),
+                 torch.zeros((B, H, S_here, D), dtype=torch.float32, device=dev))
     out = _bshd_like(q) if kernel else None
     # at step s rank ranks[j] holds rank srcs[s, j]'s block (the kernel's
     # input); a virtual rank receives from its left neighbour
@@ -162,7 +186,7 @@ def _ring(q, k, v, ring, causal, scale, kernel):
             moving = _start_transfer(buf[cur], buf[tgt], group, n, left, side, read_done)
         if kernel:
             _attend_kernel(q, buf[cur], srcs[step], ranks, state, out, scale=scale,
-                           causal=causal, last=step == n - 1)
+                           causal=causal, step=step, last=step == n - 1)
         else:
             _attend_ref(q, buf[cur], step, ranks, n, state, scale=scale, causal=causal)
         if side is not None:
@@ -190,38 +214,48 @@ def ring_attention_rdma_ref(q, k, v, *, ring, causal: bool = True,
 
 
 def _check_kernel_inputs(q, k, v, ring):
+    """Raise unless q [B, H, S, D] and k, v [B, KVH, S, D] (KVH dividing H)
+    lie on the current card; the shard shapes follow from ``ring``."""
     _cuda.require_cuda(q, k, v)
-    _, ranks, _ = ring_layout(ring, q, k)
-    B, H, S_here, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    ring_layout(ring, q, k)
+    B, H, _, D = q.shape
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != B
+            or k.shape[2] != q.shape[2] or k.shape[3] != D or H % k.shape[1]):
         raise ValueError(f"ring_attention_rdma: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit [B,H,S,D] / [B,KVH,S,D]")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"ring_attention_rdma's kernel takes D = {KERNEL_HEAD_DIM}, got {D}: "
-                         "other head dims come with its move onto K5's Hopper tiles "
-                         "(ROADMAP Queue 2)")
-    if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
-        raise ValueError(f"ring_attention_rdma's kernel takes bf16 q/k/v, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}: fp32 is still to do (ROADMAP Queue 2)")
-    if (S_here // len(ranks)) % KERNEL_ROWS:
-        raise ValueError(f"ring_attention_rdma's kernel needs S/n a multiple of "
-                         f"{KERNEL_ROWS}, got {S_here // len(ranks)}")
-    if B * k.shape[1] > 65535 or not _cuda.tma_ready(q):
-        raise ValueError("ring_attention_rdma's kernel needs B * KVH <= 65535 and q with "
-                         "unit stride over D and 16-byte aligned data and strides")
+
+
+def kernel_operands(q, k, v):
+    """q, k, v as the kernel reads them: one dtype, bf16 or fp32 (any other
+    floating dtype, or a mix, cast to fp32: the TPU kernel computes in fp32),
+    q with unit stride over D (the FFMA kernel's plain loads take any
+    alignment) and, for the wgmma kernel, 16-byte aligned data and strides
+    (``_cuda.tma_operand``: else a fresh contiguous copy).
+    A pure function of the tensors, so CPU tests can check it."""
+    dtype = (torch.bfloat16 if q.dtype == k.dtype == v.dtype == torch.bfloat16
+             else torch.float32)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    if dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
+        q = _cuda.tma_operand(q)
+    elif q.stride(-1) != 1:
+        q = q.contiguous()
+    return q, k, v
 
 
 def ring_attention_rdma(q, k, v, *, ring, causal: bool = True, scale: Optional[float] = None):
     """Drop-in for ``ring_attention.ring_attention``: q [B, H, S, D], k/v
     [B, KVH, S, D] sequence-sharded over ``ring``. CUDA tensors run the K9
-    kernel (or raise: it takes bf16 with D = 128 and S/n a multiple of 64);
+    kernel (bf16 at D = 128 or 256: ``wgmma``; fp32, or bf16 at another D:
+    FFMA; another dtype is computed in fp32 and cast back, as JAX does);
     CPU tensors run the plain version."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ring_attention_rdma_ref(q, k, v, ring=ring, causal=causal, scale=scale)
     _check_kernel_inputs(q, k, v, ring)
-    return _ring(q, k, v, ring, causal, scale, kernel=True)
+    kq, kk, kv = kernel_operands(q, k, v)
+    return _ring(kq, kk, kv, ring, causal, scale, kernel=True).to(q.dtype)
 
 
 ring_attention_rdma.launches = 0
+ring_attention_rdma.f32_launches = ring_attention_rdma.ffma_launches = 0

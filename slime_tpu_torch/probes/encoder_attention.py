@@ -14,30 +14,14 @@ Run on a machine with a CUDA card and nvcc, from the repository root:
 """
 from __future__ import annotations
 
-import statistics
-
 import torch
 
 from ..models.layers import fp32_accumulation
+from . import cuda_ms
 from ..ops import encoder_attention as ea
 
 SHAPE = (8, 577, 16, 64)
 RTOL, ATOL = 2 ** -7, 2e-3       # chip_smoke.py's tolerance for K4
-
-
-def _cuda_ms(fn, runs, flush):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def run(device=None, *, runs: int = 25, seed: int = 0, log=print):
@@ -67,7 +51,7 @@ def run(device=None, *, runs: int = 25, seed: int = 0, log=print):
                 "floor_needed": ((got - want).abs() - RTOL * want.abs()).max().item()}
         order = list(ea.VARIANTS)
         for variant in order + order[::-1]:
-            records[variant]["ms"].append(_cuda_ms(
+            records[variant]["ms"].append(cuda_ms(
                 lambda: ea.encoder_attention_kernel(q, k, v, scale=scale, variant=variant),
                 runs, flush))
     for r in records.values():

@@ -85,8 +85,8 @@ K4_INPUTS = {
     "clip_l": (lambda: [_bf16_view((8, 577, 16, 64))] * 3, True),
     "packed_qkv_view": (_packed_qkv, True),
     "head_dim_40": (lambda: [_bf16_view((1, 64, 2, 40))] * 3, True),
-    "misaligned_view": (lambda: _packed_qkv(offset=1), False),
-    "stride_not_16_bytes": (lambda: [_bf16_view((1, 64, 3, 44))[..., :40]] * 3, False),
+    "misaligned_view": (lambda: _packed_qkv(offset=1), True),
+    "stride_not_16_bytes": (lambda: [_bf16_view((1, 64, 3, 44))[..., :40]] * 3, True),
     "seq_1025": (lambda: [_bf16_view((1, 1025, 2, 64))] * 3, False),
     "head_dim_136": (lambda: [_bf16_view((1, 64, 2, 136))] * 3, False),
     "fp32": (lambda: [torch.zeros((1, 64, 2, 64))] * 3, True),
@@ -97,9 +97,10 @@ K4_INPUTS = {
 
 @pytest.mark.parametrize("case", list(K4_INPUTS))
 def test_kernel_input_rule(case):
-    """What K4 takes, decided from shapes, dtypes and layouts alone: bf16 or
-    fp32 (one dtype); TMA reads q/k/v through tensor maps, so data and
-    strides must be 16-byte aligned."""
+    """What K4 takes, decided from shapes and dtypes alone: bf16 or fp32
+    (one dtype). TMA reads q/k/v through tensor maps; a view whose data or
+    strides are not 16-byte aligned is copied into a fresh tensor first, so
+    every layout is taken."""
     make, accepted = K4_INPUTS[case]
     err = tea.kernel_input_error(*make())
     assert (err is None) == accepted, err

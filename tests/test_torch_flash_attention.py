@@ -216,8 +216,8 @@ K5_INPUTS = {
     "d512_fp32": (lambda: (_bhsd_view((1, 2, 64, 512), torch.float32),) * 3, True),
     "d320": (lambda: (_bhsd_view((1, 2, 64, 320)),) * 3, False),
     "d64": (lambda: (_bhsd_view((1, 2, 64, 64)),) * 3, False),
-    "misaligned": (lambda: (_bhsd_view((1, 2, 64, 128), offset=4),) * 3, False),
-    "stride_not_16_bytes": (lambda: (_bhsd_view((1, 2, 64, 128), pad=4),) * 3, False),
+    "misaligned": (lambda: (_bhsd_view((1, 2, 64, 128), offset=4),) * 3, True),
+    "stride_not_16_bytes": (lambda: (_bhsd_view((1, 2, 64, 128), pad=4),) * 3, True),
     "mixed_dtypes": (lambda: (_bhsd_view((1, 2, 64, 128), torch.float32),)
                      + (_bhsd_view((1, 2, 64, 128)),) * 2, False),
     "kvh_3_of_4": (lambda: (_bhsd_view((1, 4, 64, 128)),) + (_bhsd_view((1, 3, 64, 128)),) * 2,
@@ -227,9 +227,10 @@ K5_INPUTS = {
 
 @pytest.mark.parametrize("case", list(K5_INPUTS))
 def test_kernel_input_rule(case):
-    """What K5-K5c take, decided from shapes, dtypes and layouts alone: D a
-    multiple of 128 (JAX's rule sends every such D to its kernels), one
-    dtype, and 16-byte aligned data and strides for the TMA tiles."""
+    """What K5-K5c take, decided from shapes and dtypes alone: D a multiple
+    of 128 (JAX's rule sends every such D to its kernels) and one dtype. Any
+    layout: a view TMA cannot read (misaligned, or strides not 16-byte
+    multiples) is copied into a fresh tensor before the launch."""
     make, accepted = K5_INPUTS[case]
     err = tfa.kernel_input_error(*make())
     assert (err is None) == accepted, err

@@ -199,12 +199,46 @@ def test_encoder_attention_kernel_rejects(dev):
         ea.encoder_attention(q, q, q)
     with pytest.raises(ValueError):         # the P2 variants are bf16 designs
         ea.encoder_attention_kernel(q.float(), q.float(), q.float(), scale=0.125, variant=1)
-    # a packed-qkv view one element off 16 bytes: TMA cannot read it
-    qkv = torch.zeros(2 * 64 * 3 * 2 * 64 + 8, device=dev, dtype=torch.bfloat16)[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_take_unaligned_views(dev, dtype):
+    """K4 and K5-K5c on views one element off 16 bytes (TMA cannot read
+    them): the wrappers copy each into a fresh tensor and launch the same
+    kernel (the counts move), and the outputs, and K5's gradients through
+    autograd, equal the plain versions on the caller's views."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(21)
+    atol = 2e-3 if dtype == torch.bfloat16 else ATOL_F32
+    qkv = torch.randn(2 * 64 * 3 * 2 * 64 + 8, device=dev, generator=g).to(dtype)[1:]
     q, k, v = (t.reshape(2, 64, 2, 64) for t in
                qkv[:2 * 64 * 3 * 2 * 64].view(2, 64, 3 * 2 * 64).split(2 * 64, dim=-1))
-    with pytest.raises(ValueError):
-        ea.encoder_attention(q, k, v)
+    assert not _cuda.tma_ready(q)
+    before = ea.encoder_attention.launches
+    _assert_close(ea.encoder_attention(q, k, v), ea.encoder_attention_ref(q, k, v), atol=atol)
+    assert ea.encoder_attention.launches == before + 1
+    B, S, H, KVH, D = 1, 384, 4, 2, 128
+    flat = torch.randn(B * S * (H + 2 * KVH) * D + 8, device=dev, generator=g).to(dtype)[1:]
+    proj = flat[:B * S * (H + 2 * KVH) * D].view(B, S, (H + 2 * KVH) * D)
+    q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2)
+               for t in proj.split((H * D, KVH * D, KVH * D), dim=-1))
+    do = torch.randn(B * H * S * D + 8, device=dev, generator=g).to(dtype)[1:][
+        :B * H * S * D].view(B, H, S, D)
+    assert not any(_cuda.tma_ready(t) for t in (q, k, v, do))
+    before = (fa.flash_attention.fwd_launches, fa.flash_attention.dkdv_launches,
+              fa.flash_attention.dq_launches)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, use_kernel=True)
+    out.backward(do)
+    assert (fa.flash_attention.fwd_launches, fa.flash_attention.dkdv_launches,
+            fa.flash_attention.dq_launches) == tuple(c + 1 for c in before)
+    ro, rl = fa.flash_fwd_ref(q, k, v)
+    atol = 5e-3 if dtype == torch.bfloat16 else 1e-4
+    _assert_close(out.detach(), ro, atol=atol)
+    delta = (do.float() * ro.float()).sum(-1)
+    for leaf, want in zip(leaves, fa.flash_bwd_ref(q, k, v, do, rl, delta)):
+        assert leaf.grad.shape == leaf.shape
+        _assert_close(leaf.grad, want, atol=atol)
 
 
 @pytest.mark.parametrize("variant", sorted(ea.VARIANTS))
@@ -339,6 +373,67 @@ def test_quant_matmul_kernels(dev, case, dtype):
         assert [getattr(qm.quant_matmul, n) for n in names] == [before[0] + 1, before[1] + f32]
     assert got.dtype == dtype
     _assert_close(got, want, **(dict(atol=ATOL_F32, rtol=RTOL_F32) if f32 else dict(atol=2e-3)))
+
+
+@pytest.mark.parametrize("N", [1024, 4096, 14336])
+@pytest.mark.parametrize("M", [64, 100, 2048])
+def test_quant_matmul_q4g_wgmma(dev, M, N):
+    """K7's wgmma instance (bf16 x, M >= 64: weights dequantized in
+    registers, group scales on fp32 partial sums) against
+    quant_matmul_q4g_ref, at the prefill's rows, a ragged M and the decode
+    limit, and the k/v, q/o and MLP widths; a split over K where the tiles
+    leave SMs idle (M = 64, 100)."""
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    qw = _qweight("q4g", N, 4096, g, dev)
+    x = torch.randn((M, 4096), device=dev, generator=g).to(torch.bfloat16)
+    assert qm.q4g_route(M, x.dtype) == "wgmma"
+    before = (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.wgmma_launches)
+    got = qm.quant_matmul_q4g(x, qw)
+    assert (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_close(got, qm.quant_matmul_q4g_ref(x, qw), atol=2e-3)
+
+
+def test_quant_matmul_q4g_route(dev):
+    """The route on the card is q4g_route's: bf16 below 64 rows and fp32 x
+    do not launch the wgmma instance."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qw = _qweight("q4g", 512, 1024, g, dev)
+    for M, dtype, wgmma in ((63, torch.bfloat16, 0), (64, torch.bfloat16, 1),
+                            (64, torch.float32, 0), (300, torch.float32, 0)):
+        x = torch.randn((M, 1024), device=dev, generator=g).to(dtype)
+        before = qm.quant_matmul_q4g.wgmma_launches
+        got = qm.quant_matmul_q4g(x, qw)
+        assert qm.quant_matmul_q4g.wgmma_launches == before + wgmma
+        tol = dict(atol=ATOL_F32, rtol=RTOL_F32) if dtype == torch.float32 else dict(atol=2e-3)
+        _assert_close(got, qm.quant_matmul_q4g_ref(x, qw), **tol)
+
+
+@pytest.mark.parametrize("rows", [16, 64, 256])
+@pytest.mark.parametrize("variant", ["i32", "magic", "twodot"])
+def test_p1_variants(dev, variant, rows):
+    """Each P1 variant against its plain version (K6's) at the probe's shape."""
+    from slime_tpu_torch.probes import quant_matmul as p1
+    x, qw = p1.make_inputs(dev, seed=rows)
+    _assert_close(p1.matvec(x, qw, variant, rows), p1.plain(x, qw), atol=2e-3)
+
+
+@pytest.mark.parametrize("mode", ["dma", "unpack", "unpack_dot"])
+def test_p4_modes(dev, mode):
+    """Each P4 mode against its plain version on two layers of the stacked
+    gate_proj: the totals exactly, the dots at fp32 tolerance, and the TPU
+    kernel's checksum formed from either."""
+    from slime_tpu_torch.probes import q4g_unpack as p4
+    packed, h = p4.make_inputs(dev, seed=1, shape=(2, 14336, 4096))
+    got, want = p4.stream(mode, packed, h), p4.plain(mode, packed, h)
+    if mode == "unpack_dot":
+        _assert_close(got, want, atol=1e-4, rtol=1e-5)
+        got, want = got.cpu(), want.cpu()
+    else:
+        got = int(got)
+        assert got == want
+    torch.testing.assert_close(p4.checksum(mode, got), p4.checksum(mode, want), rtol=1e-5,
+                               atol=1e-2)
 
 
 def test_quant_matmul_kernels_reject(dev):
@@ -583,16 +678,59 @@ def test_ring_attention_rdma_kernel(dev, case):
 
 
 def test_ring_attention_rdma_kernel_rejects(dev):
+    """Only inputs that do not fit [B, H, S, D] / [B, KVH, S, D] raise."""
     from slime_tpu_torch.ops import ring_attention_rdma as rd
-    q = torch.zeros((1, 4, 256, 128), device=dev)
-    with pytest.raises(ValueError):                  # fp32
-        rd.ring_attention_rdma(q, q, q, ring=2)
-    q = torch.zeros((1, 4, 256, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                  # D = 64
-        rd.ring_attention_rdma(q, q, q, ring=2)
-    q = torch.zeros((1, 4, 96, 128), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                  # S/n = 48, not a multiple of 64
-        rd.ring_attention_rdma(q, q, q, ring=2)
+    q = torch.zeros((1, 4, 256, 64), device=dev)
+    with pytest.raises(ValueError):                  # k's head dim differs from q's
+        rd.ring_attention_rdma(q, q[..., :32], q[..., :32], ring=2)
+    with pytest.raises(ValueError):                  # KVH = 3 does not divide H = 4
+        rd.ring_attention_rdma(q, q[:, :3], q[:, :3], ring=2)
+
+
+# (dtype, D, n, S/n, causal): every dtype, D and shard length JAX's kernel
+# takes: fp32 at any D (the FFMA kernel), bf16 at D = 128 / 256 (wgmma) and
+# at other D (FFMA), shards that are not multiples of the row tiles
+ANY_CASES = ([(torch.float32, D, n, 48, c) for D in (8, 16, 64, 80, 256) for n in (2, 4)
+              for c in (True, False)]
+             + [(torch.bfloat16, D, n, Sn, c) for D, Sn in ((128, 48), (256, 48), (64, 48),
+                                                             (12, 40), (80, 100))
+                for n in (2, 4) for c in (True, False)]
+             + [(torch.float16, 128, 2, 48, True), (torch.bfloat16, 128, 1, 200, True)])
+
+
+@pytest.mark.parametrize("case", ANY_CASES)
+def test_ring_attention_rdma_kernel_any_input(dev, case):
+    """K9 against its plain version at the inputs it used to reject: fp32
+    (FFMA, the TPU kernel's fp32 arithmetic: sums in another order), bf16 at
+    D other than 128 (FFMA, bf16 out) and at S/n = 48, 40 and 100 (a row
+    tile stops at its rank's shard). fp16 computes in fp32 and comes back in
+    fp16, as JAX's kernel does."""
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+    dtype, D, n, Sn, causal = case
+    g = torch.Generator(device=dev).manual_seed(n * Sn + D)
+    q, k, v = (_bhsd(1, n * Sn, heads, D, g, dev).to(dtype) for heads in (8, 2, 2))
+    before = (rd.ring_attention_rdma.launches, rd.ring_attention_rdma.f32_launches)
+    got = rd.ring_attention_rdma(q, k, v, ring=n, causal=causal)
+    f32 = dtype != torch.bfloat16
+    assert (rd.ring_attention_rdma.launches, rd.ring_attention_rdma.f32_launches) == (
+        before[0] + n, before[1] + n * f32)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = rd.ring_attention_rdma_ref(q, k, v, ring=n, causal=causal)
+    if dtype == torch.float32:
+        _assert_close(got, want, atol=ATOL_F32, rtol=RTOL_F32)
+    else:
+        _assert_close(got, want, atol=2e-3)
+
+
+def test_ring_attention_rdma_kernel_wide_grid(dev):
+    """B * KVH past 65535 (folded into the grid's first dimension)."""
+    from slime_tpu_torch.ops import ring_attention_rdma as rd
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, KVH, S, D = 8200, 8, 16, 8
+    q, k, v = (torch.randn((B, KVH, S, D), device=dev, generator=g) for _ in range(3))
+    got = rd.ring_attention_rdma(q, k, v, ring=2)
+    _assert_close(got, rd.ring_attention_rdma_ref(q, k, v, ring=2), atol=ATOL_F32,
+                  rtol=RTOL_F32)
 
 
 @pytest.mark.parametrize("world", [2, 4])
