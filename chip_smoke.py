@@ -13,21 +13,25 @@ Phase 0  requires CUDA, prints the card, the versions and the kernel build
          ``layers.fp32_accumulation`` (no TF32, no reduced-precision bf16
          reductions), the policy ``generate`` and the train step pin for
          their own work.
-Phase 1  runs the self-test of the wgmma tile vocabulary
+Phase 1  runs the self-tests of the wgmma tile vocabulary
          (``csrc/hopper_selftest.cu`` against torch.matmul, exactly, in every
-         operand form the attention kernels use), then each hand-written
+         operand form the attention kernels use, and the int8 form of P3 and
+         K8 against the exact integer product), then each hand-written
          kernel instance of the paths (encoder attention in bf16 and fp32 and
          its P2 design probe, the fused QKV / O-residual / MLP decode kernels
          in int8 and q4g at B up to 128, bf16 and fp32, the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in its q4, int8 and q4g
-         loaders and the W8A8 matmul, bf16 and fp32, the ring-attention
-         kernel K9 on 4 virtual ranks at S = 8192 in bf16 and fp32, at D =
-         64 and at S/n = 48, and the int4 design probes P1 and P4) against
+         loaders, also at a K that is not a multiple of 128, and the W8A8
+         matmul at the CLIP-L tower's four linears and at such a K, bf16 and
+         fp32, the ring-attention kernel K9 on 4 virtual ranks at S = 8192
+         in bf16 and fp32, at D = 64 and at S/n = 48, the int4 design probes
+         P1 and P4 and the int8 dot probe P3 in its three forms) against
          its plain PyTorch version on the card at the paths' shapes,
          asserts agreement, and times both (median of CUDA-event timings),
          and one PyTorch call computing the same function where there is one
-         (scaled_dot_product_attention for the attention kernels). It prints
+         (scaled_dot_product_attention for the attention kernels,
+         torch._int_mm for P3 and for K8's int8 product alone). It prints
          the smallest absolute floor each comparison needed, and each
          kernel's bound: the larger of its bytes over HBM bandwidth and its
          operations over the tensor-core peak (H100 SXM data sheet).
@@ -61,8 +65,8 @@ Phase 5  builds SliME-8B as ``--load-4bit --int4-scheme group
          q4g matmul's wgmma instance 7 x 32 per prefill, the W8A8 matmul
          4 x 23 per encode, the flash forward 32 per prefill, the q4g decode
          kernels 32 per step, the q4 and int8 loaders never); then phase 3's
-         stage times and traces for it, with K7's device time and launches
-         in one TTFT.
+         stage times and traces for it, with K7's and K8's device time and
+         launches in one TTFT.
 Phase 5b builds config B (``--load-4bit --int4-scheme absmax
          --quantize-lm-head``: per-row q4 LLM layers, vision bf16) at full
          width and depth, answers one 16-token request twice, and checks
@@ -108,6 +112,7 @@ SEED = 0
 N_GENERATE, N_NEW, CHUNK = 3, 64, 16
 TIMED_RUNS = 25
 PROFILE_STEPS = 8
+SLEEP_CYCLES = 2_000_000    # a device sleep longer than a wrapper's enqueue (cuda_ms)
 # bf16 outputs, fp32 sums in another order than the plain version: about one
 # bf16 ulp (2^-8 relative), plus an absolute floor for small outputs. The
 # floors lie above the largest any comparison of the kernels' tests needed on
@@ -121,7 +126,7 @@ PROFILE_STEPS = 8
 # sums in another order, bf16 out) needed floors of up to 2.3e-5 on an H100,
 # the q4g decode kernels up to 3.7e-4 (K1 at B = 64); the W8A8 matmul, which
 # rounds at the plain version's points after an exact integer dot, agreed
-# exactly (PERF.md).
+# exactly (PERF.md), as P3's integer product must (its probe asserts equality).
 # The fp32 flash kernels (FFMA, nothing rounded) differ from their plain
 # versions only in the order of fp32 sums: floors of up to 1.1e-6 on an H100.
 # The D = 256 instances (no path runs them yet) are held as their D = 128
@@ -163,7 +168,7 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "quant_matmul_int8_f32": 1e-4, "quant_matmul_q4g_f32": 1e-4,
         "w8a8_matmul_f32": 1e-6, "ring_attention_rdma_f32": 1e-4,
         "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
-        "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4}
+        "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -244,6 +249,7 @@ KERNELS = {
     "p1_int4_matvec": ("slime_tpu_torch/csrc/int4_probes.cu", "bench_quant_kernel.py:75"),
     "p4_q4g_unpack": ("slime_tpu_torch/csrc/int4_probes.cu",
                       "scripts/bench_q4g_unpack_probe.py:90"),
+    "p3_int8_dot": ("slime_tpu_torch/csrc/int8_dot.cu", "scripts/bench_int8_dot_probe.py:59"),
 }
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
@@ -268,12 +274,12 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # fp32 K5b and K5c have none either, and no model here has a head dim of 256
 # or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
 # mma.sync instance takes bf16 x below 64 rows, which no path sends it (the
-# prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1
-# and P4 probes are design probes, off every path. Phase 1 checks them; their
-# launch counts stay 0.
+# prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1,
+# P3 and P4 probes are design probes, off every path. Phase 1 checks them;
+# their launch counts stay 0.
 OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
-            "p1_int4_matvec", "p4_q4g_unpack") + D256 + WIDE
+            "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + D256 + WIDE
 
 
 def _counters():
@@ -285,6 +291,7 @@ def _counters():
     from slime_tpu_torch.ops import quant_matmul as qm
     from slime_tpu_torch.ops import ring_attention_rdma as rd
     from slime_tpu_torch.ops import w8a8_matmul as w8
+    from slime_tpu_torch.probes import int8_dot as p3
     from slime_tpu_torch.probes import q4g_unpack as p4
     from slime_tpu_torch.probes import quant_matmul as p1
     fused = {"fused_qkv_decode": fused_qkvo.fused_qkv_decode,
@@ -300,6 +307,7 @@ def _counters():
            "quant_matmul_q4g_wgmma": (qm.quant_matmul_q4g, "wgmma_launches"),
            "p1_int4_matvec": (p1.matvec, "launches"),
            "p4_q4g_unpack": (p4.stream, "launches"),
+           "p3_int8_dot": (p3.dot, "launches"),
            "quant_matmul_q4": (qm.quant_matmul, "q4_launches"),
            "quant_matmul_q4_f32": (qm.quant_matmul, "q4_f32_launches"),
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
@@ -375,13 +383,16 @@ def card_line():
 def cuda_ms(fn, runs=TIMED_RUNS, flush=None):
     """Median milliseconds of fn() over ``runs`` CUDA-event timings, after
     warm-up; ``flush`` (outside the timed region) evicts L2 between runs so
-    each run streams its weights from HBM, as in a decode step."""
+    each run streams its weights from HBM, as in a decode step. fn()'s
+    launches are queued behind a device sleep (~1 ms), so the events time
+    the device and not the host's enqueue (``dispatch_us`` reads that)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(runs):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -591,7 +602,9 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} TTFT kernel {ms:8.3f} ms  {name[:90]}")
     for what, pattern in (("K7 wgmma (q4g_wgmma_kernel)", "q4g_wgmma_kernel"),
-                          ("K7 mma.sync (qmm_kernel)", "qmm_kernel")):
+                          ("K7 mma.sync (qmm_kernel)", "qmm_kernel"),
+                          ("K8 row pass (w8a8_row_quant_kernel)", "w8a8_row_quant_kernel"),
+                          ("K8 int8 GEMM (int8_gemm_kernel)", "int8_gemm_kernel")):
         ms, n = trace_kernel(out / f"profile_ttft_{tag}.json", pattern)
         if n:
             log(f"phase {tag} TTFT {what}: {ms:.3f} ms of device time over {n} launches")
@@ -827,7 +840,9 @@ def hopper_selftest(dev, g):
     on small integers, where every fp32 sum is exact (bit for bit), in every
     operand form the attention kernels use: S = A.B^T and T = B.A^T (SS,
     K-major), O = bf16(S).V, P1 = bf16(S).B and P2 = bf16(T).A (RS, the
-    shared operand read MN-major)."""
+    shared operand read MN-major); then the int8 SS form of P3 and K8 (s8
+    x s8 -> s32 at N = 128 and 256 over two K chunks) against the exact
+    integer product."""
     from slime_tpu_torch.ops import _cuda
 
     a, b = (torch.randint(-3, 4, (64, 64), device=dev, generator=g).to(torch.bfloat16)
@@ -839,13 +854,20 @@ def hopper_selftest(dev, g):
     rs, rt = want_s.to(torch.bfloat16).float(), want_t.to(torch.bfloat16).float()
     want = (want_s, torch.matmul(rs, v.float()), want_t, torch.matmul(rs, b.float()),
             torch.matmul(rt, a.float()))
+    a8 = torch.randint(-128, 128, (64, 256), dtype=torch.int8, device=dev, generator=g)
+    b8 = torch.randint(-128, 128, (256, 256), dtype=torch.int8, device=dev, generator=g)
+    c128, c256 = _cuda.hopper_selftest_s8(a8, b8)
+    exact = torch.matmul(a8.double(), b8.double().T).to(torch.int32)
     torch.cuda.synchronize()
     errs = {n: (x - w).abs().max().item() for n, x, w in zip(("S", "O", "T", "P1", "P2"),
                                                               got, want)}
-    log("phase 1 hopper_selftest (TMA, SS and RS wgmma, K- and MN-major operands): max abs "
-        "err " + ", ".join(f"{n} {e:g}" for n, e in errs.items()) + " (set 0)")
+    errs.update({n: (x - w).abs().max().item()
+                 for n, x, w in (("C128 s8", c128, exact[:, :128]), ("C256 s8", c256, exact))})
+    log("phase 1 hopper_selftest (TMA, SS and RS wgmma, K- and MN-major operands; SS s8 "
+        "wgmma at N = 128, 256): max abs err " + ", ".join(f"{n} {e:g}" for n, e in errs.items())
+        + " (set 0)")
     if any(errs.values()):
-        raise AssertionError(f"hopper_selftest disagrees with torch.matmul: {errs}")
+        raise AssertionError(f"hopper_selftest disagrees with the exact product: {errs}")
 
 
 def ring_moved_ops(q, k, n, causal=True):
@@ -1028,6 +1050,26 @@ def int4pack_library(x, qw):
         return None
 
 
+def int_mm_library(x, qw):
+    """torch._int_mm of K8's int8 operands (x quantized per token as the
+    plain version does, the int8 weight): the int8 product alone, without
+    the row pass and the epilogue. None, with the reason logged, where the
+    installed torch does not run it on this card."""
+    xf = x.float()
+    am = xf.abs().amax(dim=-1, keepdim=True)
+    xq = torch.round(xf / torch.where(am > 0, am * (1.0 / 127.0), torch.ones_like(am))).to(
+        torch.int8)
+    try:
+        fn = lambda: torch._int_mm(xq, qw["q"].T)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"phase 1 w8a8_matmul: torch._int_mm does not run here: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None
+
+
 def quant_kernels(dev, g, flush, record):
     """Phase 1 for the quantized matmul (K6: q4 and int8 loaders; K7: q4g)
     and the W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
@@ -1035,9 +1077,12 @@ def quant_kernels(dev, g, flush, record):
     14336]; K7's wgmma instance at prefill rows of gate_proj [14336, 4096]
     (the record), q_proj, k_proj [1024, 4096] and down_proj (config A's
     prefill shapes), and at 64 and 100 rows; K7's mma.sync instance at
-    decode rows (B = 1); K8 at one 8-crop encode's 4616 tokens of the packed
-    qkv [3072, 1024] and fc2 [1024, 4096]; then, from a generator of their
-    own, the fp32 instances (the FFMA K6/K7, fp32 K8) at the same shapes.
+    decode rows (B = 1); from a generator of their own, the fp32 instances
+    (the FFMA K6/K7) at the same shapes, and K6 at a K that is not a
+    multiple of 128; K8 at one 8-crop encode's 4616 tokens of the CLIP-L
+    tower's four linears (qkv [3072, 1024], out_proj, fc1, fc2) and at K =
+    1000, in bf16, and in fp32 at qkv, beside torch._int_mm of its int8
+    operands (the product alone).
     K6's int8 loader is timed beside ``torch._weight_int8pack_mm`` and K7's
     wgmma instance beside ``torch._weight_int4pack_mm`` (``int4pack_library``)
     where the installed torch runs them on the card; no other single PyTorch
@@ -1094,28 +1139,54 @@ def quant_kernels(dev, g, flush, record):
                        nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
                        F32_OPS if dtype == f32 else BF16_OPS, flush, main, dispatch=M == 1,
                        library=library)
-    for N, K, main, dtype in ((3072, 1024, True, bf), (1024, 4096, False, bf),
-                              (3072, 1024, True, f32)):
-        gen, sfx = (g_f32, "_f32") if dtype == f32 else (g, "")
+    # K6 at a K that is not a multiple of 128 (int8 any K, q4 any even K: the
+    # kernels mask their last k-tile), from a generator of its own
+    g_k = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for name, M, N, K in (("quant_matmul_int8", 1, 4096, 1000),
+                          ("quant_matmul_int8", 2048, 4096, 1000),
+                          ("quant_matmul_q4", 1, 4096, 1000),
+                          ("quant_matmul_q4", 2048, 4096, 1002),
+                          ("quant_matmul_int8_f32", 37, 1000, 200),
+                          ("quant_matmul_q4_f32", 37, 1000, 200)):
+        dtype = f32 if name.endswith("_f32") else bf
+        qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=g_k) * 0.02,
+                                   4 if name.startswith("quant_matmul_q4") else 8)
+        x = torch.randn((M, K), device=dev, generator=g_k).to(dtype)
+        check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
+                       f"W [{N}, {K}] (K not a multiple of 128)",
+                       lambda: qm.quant_matmul(x, qw), lambda: qm.quant_matmul_ref(x, qw),
+                       nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
+                       F32_OPS if dtype == f32 else BF16_OPS, flush, False)
+    # K8 at one 8-crop encode's 4616 tokens: the packed qkv (the record), fc2,
+    # then from a generator of their own out_proj, fc1 and a K of 1000; fp32
+    # at qkv. Library: torch._int_mm on the quantized x, the int8 product alone
+    g_w8 = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for N, K, main, dtype, gen in ((3072, 1024, True, bf, g), (1024, 4096, False, bf, g),
+                                   (3072, 1024, True, f32, g_f32), (1024, 1024, False, bf, g_w8),
+                                   (4096, 1024, False, bf, g_w8), (3072, 1000, False, bf, g_w8)):
+        sfx = "_f32" if dtype == f32 else ""
         M = 8 * 577
         qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=gen) * 0.02, 8)
         bias = torch.randn((N,), device=dev, generator=gen) * 0.02
         x = torch.randn((M, K), device=dev, generator=gen).to(dtype)
         check_and_time(record, "w8a8_matmul" + sfx,
-                       f"x [{M}, {K}] {'fp32' if sfx else 'bf16'}, W [{N}, {K}] int8",
+                       f"x [{M}, {K}] {'fp32' if sfx else 'bf16'}, W [{N}, {K}] int8 (library: "
+                       f"the int8 product alone)",
                        lambda: w8.w8a8_matmul(x, qw, bias),
                        lambda: w8.w8a8_matmul_ref(x, qw, bias),
                        nbytes(x, *qw.values(), bias) + M * N * x.element_size(),
-                       2 * M * N * K, INT8_OPS, flush, main)
+                       2 * M * N * K, INT8_OPS, flush, main, library=int_mm_library(x, qw))
     torch.cuda.empty_cache()
 
 
 def probe_kernels(dev, record):
-    """Phase 1 for the P1 and P4 probes: each variant or mode held to its
-    plain version and timed (``probes.quant_matmul.run``,
-    ``probes.q4g_unpack.run``, which print their JSON lines); the records
-    keep P1's magic variant at 64 rows a block and P4's unpack_dot mode, each
-    beside its plain version, with their bounds: the bytes streamed."""
+    """Phase 1 for the P1, P3 and P4 probes: each variant, form or mode held
+    to its plain version and timed (``probes.quant_matmul.run``,
+    ``probes.int8_dot.run``, ``probes.q4g_unpack.run``, which print their
+    JSON lines); the records keep P1's magic variant at 64 rows a block,
+    P3's nt form at its faster tile (beside torch._int_mm) and P4's
+    unpack_dot mode, each beside its plain version, with their bounds."""
+    from slime_tpu_torch.probes import int8_dot as p3
     from slime_tpu_torch.probes import q4g_unpack as p4
     from slime_tpu_torch.probes import quant_matmul as p1
 
@@ -1139,6 +1210,22 @@ def probe_kernels(dev, record):
     log(f"phase 1 p4_q4g_unpack: unpack_dot {res['unpack_dot']['ms']:.4f} ms, plain "
         f"{p4_plain['unpack_dot']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); dma "
         f"{res['dma']['ms']:.4f}, unpack {res['unpack']['ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    recs, plain_ms, lib = p3.run(dev, runs=TIMED_RUNS, seed=SEED, log=log)
+    M, K, N = p3.M, p3.K, p3.N
+    for form in p3.FORMS:
+        best = min((r for r in recs if r["form"] == form), key=lambda r: r["ms"])
+        out_bytes = 2 if form == "nn_bf16" else 4
+        b_ms, b_by = bound(M * K + N * K + M * N * out_bytes, 2 * M * N * K, INT8_OPS)
+        log(f"phase 1 p3_int8_dot {form}: 128 x {best['tile_n']} {best['ms']:.4f} ms (equal "
+            f"to the exact product), plain {plain_ms[form]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if form == "nt":
+            record["p3_int8_dot"].update(
+                max_abs_err=0.0, ms=best["ms"], plain_ms=plain_ms[form], bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib["int_mm"])
+    int_mm = "does not run here" if lib["int_mm"] is None else f"{lib['int_mm']:.4f} ms"
+    log(f"phase 1 p3_int8_dot library: torch._int_mm {int_mm}, bf16 torch.matmul "
+        f"{lib['bf16']:.4f} ms")
     torch.cuda.empty_cache()
 
 

@@ -12,6 +12,11 @@
 // and writes all five in fp32. tests/test_torch_kernels_cuda.py holds them to
 // torch.matmul: a swizzle, descriptor or fragment mistake gives silently wrong
 // numbers here, before any attention kernel is debugged.
+// A second kernel checks the int8 form of P3 and K8 (int8_gemm.cuh): A int8
+// [64, 256] and B int8 [256, 256] by TMA (128-byte boxes, two K chunks), then
+//   C256 = A . B^T          SS wgmma m64n256k32 s8 x s8 -> s32, both K-major
+//   C128 = A . B[:128]^T    the same at N = 128
+// over 8 k32 steps across the two chunks, exact against the integer product.
 #include "hopper_common.cuh"
 
 namespace {
@@ -84,6 +89,58 @@ __global__ void __launch_bounds__(128) hopper_selftest_kernel(
   }
 }
 
+struct SelftestS8Params {
+  CUtensorMap a, b;
+  int* c128;
+  int* c256;
+};
+
+__global__ void __launch_bounds__(128) hopper_selftest_s8_kernel(
+    const __grid_constant__ SelftestS8Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align1024(smem_raw);                    // [2][64][128]
+  unsigned char* Bs = As + 2 * 64 * 128;                      // [2][256][128]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Bs + 2 * 256 * 128);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, 2 * 64 * 128 + 2 * 256 * 128);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_2d(As + c * 64 * 128, &p.a, bar, 128 * c, 0);
+      tma_load_2d(Bs + c * 256 * 128, &p.b, bar, 128 * c, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  int c256[128], c128[64];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) c256[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) c128[i] = 0;
+  fence_acc(c256);
+  fence_acc(c128);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a = sw128_desc(As + c * 64 * 128 + 32 * kk, 16, 1024);
+      const uint64_t b = sw128_desc(Bs + c * 256 * 128 + 32 * kk, 16, 1024);
+      wgmma_s8<256>(c256, a, b, 1);
+      wgmma_s8<128>(c128, a, b, 1);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(c256);
+  fence_acc(c128);
+#pragma unroll
+  for (int i = 0; i < 128; ++i) p.c256[acc_offset(i, 256)] = c256[i];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) p.c128[acc_offset(i, 128)] = c128[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -108,6 +165,24 @@ int slime_hopper_selftest(const void* a, const void* b, const void* v, void* s, 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   hopper_selftest_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// a int8 [64, 256] and b int8 [256, 256], contiguous; c128 = a . b[:128]^T
+// [64, 128] and c256 = a . b^T [64, 256], contiguous int32.
+int slime_hopper_selftest_s8(const void* a, const void* b, void* c128, void* c256,
+                             void* stream) {
+  SelftestS8Params p;
+  int err = encode_2d(&p.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 256, 64, 256, 128, 64);
+  if (err == 0) err = encode_2d(&p.b, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, 256, 256, 256, 128, 256);
+  if (err != 0) return err;
+  p.c128 = (int*)c128;
+  p.c256 = (int*)c256;
+  const size_t smem = 2 * 64 * 128 + 2 * 256 * 128 + sizeof(uint64_t) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(hopper_selftest_s8_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  hopper_selftest_s8_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -74,6 +74,21 @@ __device__ __forceinline__ float nib(uint32_t byte, int shift) {
   return (float)((int)(((byte >> shift) & 0xFu) ^ 8u) - 8);
 }
 
+// K6's masked K tail, in the kernels' TAIL instances (K not a multiple of
+// the 128-column k-tile; the others keep their plain 16-byte loads): the 16
+// bytes at byte `off` of a row of `len` bytes, one vector load where they
+// lie inside a 16-byte aligned row, else byte loads, zero past len (zero
+// values and zero nibbles add nothing to a sum). x is never copied.
+__device__ __forceinline__ uint4 load16(const void* row, int off, int len) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(row);
+  if (len % 16 == 0 && off + 16 <= len) return *reinterpret_cast<const uint4*>(p + off);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (off + i < len) w[i / 4] |= (uint32_t)p[off + i] << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 sum
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -102,20 +117,23 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* b
 }
 
 // Stage x[m0:m0+64, k0:k0+BK] (rows past M are 0).
-template <int BK>
+template <int BK, bool TAIL>
 __device__ __forceinline__ void stage_x(bf16* xs, const bf16* __restrict__ x, int M, int K,
                                         int m0, int k0) {
   constexpr int LD = BK + kPad, kVec = BK / 8;
   for (int e = threadIdx.x; e < kBM * kVec; e += kThreads) {
     const int r = e / kVec, c = (e % kVec) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < M) v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
+    if (m0 + r < M) {
+      if constexpr (TAIL) v = load16(x + (size_t)(m0 + r) * K, (k0 + c) * 2, K * 2);
+      else v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
+    }
     *reinterpret_cast<uint4*>(xs + r * LD + c) = v;
   }
 }
 
 // Stage W's k-tile for output rows n0..n0+63 as bf16 values (rows past N are 0).
-template <int FMT>
+template <int FMT, bool TAIL>
 __device__ __forceinline__ void stage_w(bf16* ws, const uint8_t* __restrict__ w, int N, int K,
                                         int n0, int k0) {
   constexpr int BK = Fmt<FMT>::BK, LD = BK + kPad;
@@ -123,7 +141,10 @@ __device__ __forceinline__ void stage_w(bf16* ws, const uint8_t* __restrict__ w,
     for (int e = threadIdx.x; e < kBN * (BK / 16); e += kThreads) {
       const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c);
+      if (n0 + r < N) {
+        if constexpr (TAIL) v = load16(w + (size_t)(n0 + r) * K, k0 + c, K);
+        else v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c);
+      }
       const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
       uint32_t out[8];
 #pragma unroll
@@ -141,7 +162,10 @@ __device__ __forceinline__ void stage_w(bf16* ws, const uint8_t* __restrict__ w,
     for (int e = threadIdx.x; e < kBN * (BK / 32); e += kThreads) {
       const int r = e / (BK / 32), c = (e % (BK / 32)) * 32;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + (k0 + c) / 2);
+      if (n0 + r < N) {
+        if constexpr (TAIL) v = load16(w + (size_t)(n0 + r) * KP, (k0 + c) / 2, KP);
+        else v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + (k0 + c) / 2);
+      }
       const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
       uint32_t out[16];
 #pragma unroll
@@ -202,7 +226,7 @@ __device__ __forceinline__ void fold_group(float (&acc)[2][4][4], float (&part)[
 // One 64 x 64 output tile over k-tiles [kt0, kt1) of blockIdx.z's split. With
 // `ws` null the epilogue writes bf16 y (K6 scaled per row); otherwise the
 // split's fp32 sums go to ws[z] (K7's already carry the group scales).
-template <int FMT>
+template <int FMT, bool TAIL>
 __global__ void __launch_bounds__(kThreads) qmm_kernel(
     const bf16* __restrict__ x, int M, int K, const uint8_t* __restrict__ w,
     const float* __restrict__ s, int N, bf16* __restrict__ y, float* __restrict__ ws,
@@ -216,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int nk = K / BK;
+  const int nk = TAIL ? (K + BK - 1) / BK : K / BK;   // the last k-tile masked past K
   const int kt0 = z * tiles_per_split, kt1 = min(nk, kt0 + tiles_per_split);
   const int G = K / kGroup;
 
@@ -231,8 +255,8 @@ __global__ void __launch_bounds__(kThreads) qmm_kernel(
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                              // the last tile's readers are done
-    stage_x<BK>(xs, x, M, K, m0, k0);
-    stage_w<FMT>(wsm, w, N, K, n0, k0);
+    stage_x<BK, TAIL>(xs, x, M, K, m0, k0);
+    stage_w<FMT, TAIL>(wsm, w, N, K, n0, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -288,7 +312,7 @@ constexpr int kF32Threads = 256, kF32K = 128, kF32LD = kF32K + 1;
 // Stage W's columns [k0, k0 + 128) for output rows n0..n0+63 as fp32 (rows
 // past N are 0); for q4g those columns are group k0 / 128, the low (even
 // group) or high (odd) nibbles of packed block k0 / 256.
-template <int FMT>
+template <int FMT, bool TAIL>
 __device__ __forceinline__ void stage_w_f32(float* ws, const uint8_t* __restrict__ w, int N,
                                             int K, int n0, int k0) {
   constexpr int kCols = FMT == kQ4 ? 32 : 16;   // columns in 16 bytes of a row
@@ -301,7 +325,10 @@ __device__ __forceinline__ void stage_w_f32(float* ws, const uint8_t* __restrict
     else if (FMT == kQ4) off = (size_t)(k0 + c) / 2;
     else off = (size_t)(g / 2) * kGroup + c;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + r < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + off);
+    if (n0 + r < N) {
+      if constexpr (TAIL) v = load16(w + (size_t)(n0 + r) * KP, (int)off, KP);
+      else v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * KP + off);
+    }
     const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
     float* dst = ws + r * kF32LD + c;
 #pragma unroll
@@ -322,7 +349,7 @@ __device__ __forceinline__ void stage_w_f32(float* ws, const uint8_t* __restrict
 // One 64 x 64 fp32 output tile over k-tiles [kt0, kt1) of blockIdx.z's split
 // (the bf16 kernel's k-tiles, in steps of 128 columns); the epilogue as
 // qmm_kernel's, in fp32.
-template <int FMT>
+template <int FMT, bool TAIL>
 __global__ void __launch_bounds__(kF32Threads) qmm_f32_kernel(
     const float* __restrict__ x, int M, int K, const uint8_t* __restrict__ w,
     const float* __restrict__ s, int N, float* __restrict__ y, float* __restrict__ ws,
@@ -334,7 +361,7 @@ __global__ void __launch_bounds__(kF32Threads) qmm_f32_kernel(
 
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, z = blockIdx.z;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int nk = K / BK;
+  const int nk = TAIL ? (K + BK - 1) / BK : K / BK;
   const int kt0 = z * tiles_per_split, kt1 = min(nk, kt0 + tiles_per_split);
   const int G = K / kGroup;
 
@@ -349,11 +376,19 @@ __global__ void __launch_bounds__(kF32Threads) qmm_f32_kernel(
     for (int e = threadIdx.x; e < kBM * (kF32K / 4); e += kF32Threads) {
       const int r = e / (kF32K / 4), c = (e % (kF32K / 4)) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < M) v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c);
+      if (m0 + r < M) {
+        if constexpr (TAIL) {
+          const uint4 u = load16(x + (size_t)(m0 + r) * K, (k0 + c) * 4, K * 4);
+          v = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                          __uint_as_float(u.w));
+        } else {
+          v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c);
+        }
+      }
       float* dst = xs + r * kF32LD + c;
       dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
     }
-    stage_w_f32<FMT>(wsm, w, N, K, n0, k0);
+    stage_w_f32<FMT, TAIL>(wsm, w, N, K, n0, k0);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kF32K; ++kk) {
@@ -414,8 +449,9 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits, i
   }
 }
 
-// x, y of type TX (bf16: the mma.sync kernel; float: the FFMA kernel)
-template <int FMT, typename TX>
+// x, y of type TX (bf16: the mma.sync kernel; float: the FFMA kernel); TAIL:
+// K is not a multiple of the 128-column k-tile (the instance that masks it)
+template <int FMT, typename TX, bool TAIL>
 int launch(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
            void* ws, int splits, int tiles_per_split, cudaStream_t st) {
   constexpr int BK = Fmt<FMT>::BK;
@@ -427,23 +463,23 @@ int launch(const void* x, int M, int K, const void* w, const void* s, int N, voi
   if constexpr (f32) {
     const int smem = (kBM + kBN) * kF32LD * (int)sizeof(float);
     if (!smem_set) {
-      err = cudaFuncSetAttribute(qmm_f32_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+      err = cudaFuncSetAttribute(qmm_f32_kernel<FMT, TAIL>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
       smem_set = true;
     }
-    qmm_f32_kernel<FMT><<<grid, kF32Threads, smem, st>>>(
+    qmm_f32_kernel<FMT, TAIL><<<grid, kF32Threads, smem, st>>>(
         (const float*)x, M, K, (const uint8_t*)w, (const float*)s, N, (float*)y, split_ws,
         tiles_per_split);
   } else {
     const int smem = (kBM + kBN) * (BK + kPad) * (int)sizeof(bf16);
     if (!smem_set) {
-      err = cudaFuncSetAttribute(qmm_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+      err = cudaFuncSetAttribute(qmm_kernel<FMT, TAIL>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
       smem_set = true;
     }
-    qmm_kernel<FMT><<<grid, kThreads, smem, st>>>(
+    qmm_kernel<FMT, TAIL><<<grid, kThreads, smem, st>>>(
         (const bf16*)x, M, K, (const uint8_t*)w, (const float*)s, N, (bf16*)y, split_ws,
         tiles_per_split);
   }
@@ -676,11 +712,15 @@ int launch_q4g_wgmma(const void* x, int M, int K, const void* w, const void* s, 
 template <typename TX>
 int launch_fmt(int fmt, const void* x, int M, int K, const void* w, const void* s, int N,
                void* y, void* ws, int splits, int tiles_per_split, cudaStream_t st) {
-  if (fmt == kQ4) return launch<kQ4, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  const bool tail = K % 128 != 0;
+  if (fmt == kQ4)
+    return tail ? launch<kQ4, TX, true>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st)
+                : launch<kQ4, TX, false>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
   if (fmt == kInt8)
-    return launch<kInt8, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
-  if (fmt == kQ4G)
-    return launch<kQ4G, TX>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+    return tail ? launch<kInt8, TX, true>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st)
+                : launch<kInt8, TX, false>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kQ4G)       // K a multiple of 256 (the wrapper's rule): no tail
+    return launch<kQ4G, TX, false>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -690,7 +730,8 @@ int launch_fmt(int fmt, const void* x, int M, int K, const void* w, const void* 
 // (K6), 2 = q4g group-128 (K7). x bf16 (x_f32 == 0) or fp32 (x_f32 == 1)
 // [M, K]; w int8 [N, K/2] (q4, q4g) or [N, K] (int8); s fp32 [N, 1] or
 // [N, K/128]; y [M, N] in x's dtype; ws fp32 [splits, M, N] when splits > 1.
-// Returns the cudaError_t of the launches.
+// K: any for int8, even for q4 (the last k-tile is masked), a multiple of 256
+// for q4g. Returns the cudaError_t of the launches.
 extern "C" int slime_quant_matmul(int fmt, int x_f32, const void* x, int M, int K,
                                   const void* w, const void* s, int N, void* y, void* ws,
                                   int splits, int tiles_per_split, void* stream) {

@@ -43,8 +43,10 @@ _SIGNATURES = {
     "slime_ring_attend": [_P] * 9 + [_LLP] + [_I] * 11 + [_F, _P],
     "slime_quant_matmul": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_quant_matmul_q4g_wgmma": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
-    "slime_w8a8_matmul": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "slime_w8a8_matmul": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P],
+    "slime_int8_dot": [_I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
     "slime_hopper_selftest": [_P] * 9,
+    "slime_hopper_selftest_s8": [_P] * 5,
     "slime_p1_matvec": [_I, _I, _P, _P, _P, _P, _I, _P],
     "slime_p4_stream": [_I, _P, _LL, _P, _P, _P, _I, _P],
 }
@@ -193,3 +195,22 @@ def hopper_selftest(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
                                           p1.data_ptr(), p2.data_ptr(), stream()),
           "hopper_selftest")
     return s, o, t, p1, p2
+
+
+def hopper_selftest_s8(a: torch.Tensor, b: torch.Tensor):
+    """Run the int8 self-test of ``csrc/hopper_selftest.cu`` on contiguous
+    int8 a [64, 256] and b [256, 256] on the card -> (c128 = a . b[:128]^T
+    [64, 128], c256 = a . b^T [64, 256]) in int32: TMA loads of 128-byte
+    int8 boxes over two K chunks, and the SS s8 ``wgmma`` (both operands
+    K-major) of P3 and K8 at N = 128 and 256 over 8 k32 steps."""
+    require_cuda(a, b)
+    for t, shape in ((a, (64, 256)), (b, (256, 256))):
+        if t.shape != shape or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"hopper_selftest_s8 takes contiguous int8 {shape}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    c128 = torch.empty((64, 128), dtype=torch.int32, device=a.device)
+    c256 = torch.empty((64, 256), dtype=torch.int32, device=a.device)
+    check(library().slime_hopper_selftest_s8(a.data_ptr(), b.data_ptr(), c128.data_ptr(),
+                                             c256.data_ptr(), stream()),
+          "hopper_selftest_s8")
+    return c128, c256

@@ -21,7 +21,9 @@ in registers as the A operand of y^T = W.x^T and the group scales applied to
 fp32 partial sums; bf16 x below 64 rows (decode) and K6 with bf16 x run the
 ``mma.sync`` GEMM; fp32 x (the default compute dtype) runs an FFMA GEMM over
 the weights dequantized to fp32, as JAX's ``astype(x.dtype)``. y comes back
-in x's dtype.
+in x's dtype. K6 takes any K with int8 weights and any even K with q4 (its
+kernels mask the last k-tile and read x in place); q4g takes multiples of
+256 (``k_multiple``).
 
 Launch counts: ``quant_matmul.q4_launches`` / ``.int8_launches`` and
 ``quant_matmul_q4g.launches`` count every launch, ``.q4_f32_launches``,
@@ -75,8 +77,16 @@ def q4g_route(rows: int, dtype: torch.dtype) -> str:
     return "wgmma" if rows >= WGMMA_MIN_ROWS else "mma"
 
 
+def k_multiple(fmt: int) -> int:
+    """What K must be a multiple of: 1 for int8 and 2 for q4 (the kernels
+    mask their last k-tile, as JAX's kernels take the whole row), 256 for
+    q4g (two groups a packed block; JAX asserts it too)."""
+    return {_INT8: 1, _Q4: 2, _Q4G: 256}[fmt]
+
+
 def _operands(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
-    """Check the operands -> (M, K, N), or raise."""
+    """Check the operands -> (M, K, N, w), w 16-byte aligned (a copy of a
+    view that is not), or raise."""
     _cuda.require_cuda(x, w, s)
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2
             or not x.is_contiguous() or x.data_ptr() % 16):
@@ -84,16 +94,16 @@ def _operands(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
                          f"fp32 [M, K] activations, got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     N = w.shape[0]
-    step = 256 if fmt == _Q4G else 128
+    step = k_multiple(fmt)
     want_w = (N, K if fmt == _INT8 else K // 2)
     want_s = (N, K // 128 if fmt == _Q4G else 1)
-    if (K % step or w.dtype != torch.int8 or tuple(w.shape) != want_w
+    if (K < 1 or K % step or w.dtype != torch.int8 or tuple(w.shape) != want_w
             or not w.is_contiguous() or s.dtype != torch.float32
             or tuple(s.shape) != want_s or not s.is_contiguous()):
         raise ValueError(f"weight {w.dtype} {tuple(w.shape)} / scale {s.dtype} "
                          f"{tuple(s.shape)} do not fit K = {K}: expected int8 {want_w}, "
-                         f"fp32 {want_s}, K a multiple of {step}")
-    return M, K, N
+                         f"fp32 {want_s}, K a positive multiple of {step}")
+    return M, K, N, (w if w.data_ptr() % 16 == 0 else w.clone())
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -103,12 +113,11 @@ def _sms(x: torch.Tensor) -> int:
 def _launch(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The mma.sync or FFMA kernel (with a split over K when the output tiles
     alone would leave SMs idle); returns y [M, N] in x's dtype."""
-    M, K, N = _operands(fmt, x, w, s)
+    M, K, N, w = _operands(fmt, x, w, s)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    step = 256 if fmt == _Q4G else 128
-    n_k = K // step
+    n_k = -(-K // (256 if fmt == _Q4G else 128))     # k-tiles, the last masked past K
     blocks = -(-N // _TILE) * -(-M // _TILE)
     sms = _sms(x)
     splits = min(n_k, -(-2 * sms // blocks)) if blocks < sms else 1
@@ -134,7 +143,7 @@ def wgmma_splits(M: int, N: int, K: int, sms: int):
 
 
 def _launch_q4g_wgmma(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    M, K, N = _operands(_Q4G, x, w, s)
+    M, K, N, w = _operands(_Q4G, x, w, s)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     splits, per_split = wgmma_splits(M, N, K, _sms(x))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)

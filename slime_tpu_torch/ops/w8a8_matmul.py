@@ -5,10 +5,16 @@ Port of ``slime_tpu/ops/w8a8_matmul.py``: x [M, K] is quantized per row
 the fp32 epilogue ``acc * xs * ws + bias`` rounds to x.dtype. It serves the
 W8A8 vision tower (``vit.quantize_tower``, the CLI's ``--quantize-vision``).
 CPU tensors take the plain version ``w8a8_matmul_ref``; CUDA tensors launch
-the kernels of ``csrc/w8a8_matmul.cu`` (a row-quant pass and the int8 GEMM)
-or raise. x is bf16 or fp32 (the tower's compute dtype); the int8 dot is the
-same for both. ``w8a8_matmul.launches`` counts every launch,
-``.f32_launches`` those with fp32 x.
+the kernels of ``csrc/w8a8_matmul.cu`` (a row-quant pass, then the int8 GEMM
+of ``csrc/int8_gemm.cuh``: TMA, s8 ``wgmma``, a persistent grid over 128 x
+128 output tiles) or raise. x is bf16 or fp32 (the tower's compute dtype);
+the int8 dot is the same for both, and the kernel is bit for bit the plain
+version. Any K: the row pass
+writes the quantized rows with their length padded to ``padded_k(K)`` (a
+multiple of 16 bytes, the row stride TMA takes), and a weight of another
+length is copied into a zero-padded one (``weight_operand``).
+``w8a8_matmul.launches`` counts every launch, ``.f32_launches`` those with
+fp32 x.
 """
 from __future__ import annotations
 
@@ -16,12 +22,14 @@ import torch
 
 from . import _cuda
 
+TILE_M = TILE_N = 128       # K8's GEMM tile (two consumer warpgroups of 64 rows)
+
 
 def w8a8_matmul_ref(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
     """The JAX package's ``w8a8_matmul_ref`` (w8a8_matmul.py:101-115): the
     same per-token round-to-nearest-even quant, an exact integer dot (fp64
-    holds every partial sum of int8 products at these K exactly), and the
-    fp32 epilogue -> x.dtype."""
+    holds every partial sum of int8 products below K = 2^53 / 128^2), and
+    the fp32 epilogue -> x.dtype."""
     q, scale = qw["q"], qw["scale"]
     xf = x.to(torch.float32)
     am = xf.abs().amax(dim=-1, keepdim=True)
@@ -32,6 +40,32 @@ def w8a8_matmul_ref(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
     if bias is not None:
         y = y + bias.to(torch.float32)[None, :]
     return y.to(x.dtype)
+
+
+def padded_k(K: int) -> int:
+    """The quantized rows' length in bytes: K rounded up to 16 (TMA's row
+    stride); the columns past K are zero."""
+    return -(-K // 16) * 16
+
+
+def weight_operand(q: torch.Tensor, kp: int) -> torch.Tensor:
+    """``q`` [N, K] int8 if TMA can read it as [N, kp] rows (K == kp, 16-byte
+    aligned), else a zero-padded [N, kp] copy, made once a call."""
+    if q.shape[1] == kp and q.is_contiguous() and q.data_ptr() % 16 == 0:
+        return q
+    out = torch.zeros((q.shape[0], kp), dtype=torch.int8, device=q.device)
+    out[:, :q.shape[1]] = q
+    return out
+
+
+def persistent_grid(M: int, N: int, tile_n: int, sms: int) -> int:
+    """Blocks of the int8 GEMM's persistent grid: one an SM (its ring fills
+    the SM's shared memory), or one a tile where there are fewer tiles."""
+    return max(1, min(sms, -(-M // TILE_M) * -(-N // tile_n)))
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def w8a8_matmul(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
@@ -48,22 +82,23 @@ def w8a8_matmul(x: torch.Tensor, qw, bias=None) -> torch.Tensor:
                          f"[M, K] activations, got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     N = q.shape[0]
-    if (K % 128 or q.dtype != torch.int8 or tuple(q.shape) != (N, K)
-            or not q.is_contiguous() or scale.dtype != torch.float32
-            or tuple(scale.shape) != (N, 1) or not scale.is_contiguous()
-            or (b is not None and tuple(b.shape) != (N,))):
+    if (K < 1 or q.dtype != torch.int8 or tuple(q.shape) != (N, K)
+            or scale.dtype != torch.float32 or tuple(scale.shape) != (N, 1)
+            or not scale.is_contiguous() or (b is not None and tuple(b.shape) != (N,))):
         raise ValueError(f"weight {q.dtype} {tuple(q.shape)} / scale {tuple(scale.shape)}"
                          f" do not fit x [{M}, {K}]: expected int8 [N, K], fp32 [N, 1], "
-                         f"bias [N], K a multiple of 128")
-    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+                         f"bias [N], K >= 1")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    kp = padded_k(K)
+    w = weight_operand(q, kp)
+    xq = torch.empty((M, kp), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     _cuda.check(_cuda.library().slime_w8a8_matmul(
-        int(x.dtype == torch.float32), x.data_ptr(), M, K, xq.data_ptr(), xs.data_ptr(),
-        q.data_ptr(), scale.data_ptr(), _cuda.ptr(b), N, y.data_ptr(), _cuda.stream()),
-        "w8a8_matmul")
+        int(x.dtype == torch.float32), x.data_ptr(), M, K, kp, xq.data_ptr(), xs.data_ptr(),
+        w.data_ptr(), scale.data_ptr(), _cuda.ptr(b), N, y.data_ptr(),
+        persistent_grid(M, N, TILE_N, _sms(x)), _cuda.stream()), "w8a8_matmul")
     w8a8_matmul.launches += 1
     w8a8_matmul.f32_launches += x.dtype == torch.float32
     return y

@@ -1,22 +1,27 @@
 """Design probes of the TPU package, as hand-written kernels on the card:
-P1 (``quant_matmul``), P2 (``encoder_attention``) and P4 (``q4g_unpack``)."""
+P1 (``quant_matmul``), P2 (``encoder_attention``), P3 (``int8_dot``) and P4
+(``q4g_unpack``); and K8 at the CLIP-L tower's shapes (``w8a8_shapes``)."""
 from __future__ import annotations
 
 import statistics
 
 import torch
 
+SLEEP_CYCLES = 2_000_000    # a device sleep longer than a wrapper's enqueue
+
 
 def cuda_ms(fn, runs: int, flush=None) -> float:
     """Median milliseconds of fn() over ``runs`` CUDA-event timings after
     warm-up; ``flush`` (zeroed outside the timed region) evicts L2 between
-    runs."""
+    runs. fn()'s launches are queued behind a device sleep (~1 ms), so the
+    events time the device and not the host's enqueue."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(runs):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()

@@ -124,6 +124,21 @@ def test_hopper_selftest(dev):
     _assert_close(p2, torch.matmul(rt, a.float()), atol=0, rtol=0)
 
 
+def test_hopper_selftest_s8(dev):
+    """The int8 form of P3's and K8's main loop (hopper_common.cuh's
+    wgmma_s8): int8 tiles by TMA in 128-byte boxes over two K chunks, SS
+    s8 wgmma at N = 128 and 256, against the exact integer product, bit for
+    bit, over the full int8 range."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-128, 128, (64, 256), dtype=torch.int8, device=dev, generator=g)
+    b = torch.randint(-128, 128, (256, 256), dtype=torch.int8, device=dev, generator=g)
+    c128, c256 = _cuda.hopper_selftest_s8(a, b)
+    want = torch.matmul(a.double(), b.double().T).to(torch.int32)
+    torch.cuda.synchronize()
+    assert torch.equal(c256, want)
+    assert torch.equal(c128, want[:, :128])
+
+
 # (B, S, H, D): CLIP-L's shape, then S from one key to the kernel's 1024 at
 # head dims 40 (padded by the TMA box), 64 and 128
 ENC_SHAPES = [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)] + [
@@ -436,11 +451,31 @@ def test_p4_modes(dev, mode):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [("int8", 37, 1000, 200), ("int8", 1, 4096, 1000),
+                                  ("int8", 2048, 4096, 1000), ("int8", 5, 64, 37),
+                                  ("q4", 37, 320, 200), ("q4", 1, 4096, 1000),
+                                  ("q4", 130, 1000, 1002)])
+def test_quant_matmul_kernels_any_k(dev, case, dtype):
+    """K6 at a K that is not a multiple of 128 (int8 any K, q4 any even K,
+    as JAX's kernel takes the whole row): the masked last k-tile against
+    the plain version, with the split over K at one row."""
+    fmt, M, N, K = case
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((M, K), device=dev, generator=g).to(dtype)
+    got, want = qm.quant_matmul(x, qw), qm.quant_matmul_ref(x, qw)
+    f32 = dtype == torch.float32
+    _assert_close(got, want, **(dict(atol=ATOL_F32, rtol=RTOL_F32) if f32 else dict(atol=2e-3)))
+
+
 def test_quant_matmul_kernels_reject(dev):
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.zeros((4, 200), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):         # K not a multiple of 128
-        qm.quant_matmul(x, _qweight("q4", 64, 200, g, dev))
+    x = torch.zeros((4, 201), device=dev, dtype=torch.bfloat16)
+    w = torch.randn((64, 201), device=dev, generator=g)
+    with pytest.raises(ValueError):         # q4 at an odd K: the packing needs pairs
+        qm.quant_matmul(x, {"q4": quant.quantize_weight(w[:, :200], 4)["q4"],
+                            "scale": torch.ones((64, 1), device=dev)})
     x = torch.zeros((4, 384), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):         # q4g K not a multiple of 256
         qm.quant_matmul_q4g(x, quant.quantize_weight_q4g(
@@ -471,12 +506,17 @@ def test_linear_routes_q4g_to_k7_and_q4_to_k6(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", [(4616, 3072, 1024, True), (4616, 1024, 4096, True),
-                                  (100, 1000, 256, False)])
+@pytest.mark.parametrize("case", [(4616, 3072, 1024, True), (4616, 1024, 1024, True),
+                                  (4616, 4096, 1024, True), (4616, 1024, 4096, True),
+                                  (100, 1000, 256, False), (4616, 3072, 1000, True),
+                                  (77, 1001, 200, True), (130, 96, 37, False),
+                                  (65, 33, 1003, True)])
 def test_w8a8_kernel(dev, case, dtype):
-    """K8 against w8a8_matmul_ref, bf16 and fp32 x: the integer dot is exact
-    and the epilogue rounds at the same points, so they agree to within a
-    bf16 ulp (fp32: exactly, up to the epilogue's fp32 operations)."""
+    """K8 against w8a8_matmul_ref, bf16 and fp32 x, at the CLIP-L tower's
+    four linears and at ragged M, N and K (K not a multiple of 16: the row
+    pass's element loads and the padded weight copy): the integer dot is
+    exact and the epilogue rounds at the same points, so they agree bit for
+    bit."""
     M, N, K, with_bias = case
     g = torch.Generator(device=dev).manual_seed(M + N)
     x = (torch.randn((M, K), device=dev, generator=g) * 2).to(dtype)
@@ -488,10 +528,30 @@ def test_w8a8_kernel(dev, case, dtype):
     assert (w8.w8a8_matmul.launches, w8.w8a8_matmul.f32_launches) == (
         before[0] + 1, before[1] + (dtype == torch.float32))
     assert got.dtype == dtype
-    _assert_close(got, w8.w8a8_matmul_ref(x, qw, bias), atol=1e-6)
-    with pytest.raises(ValueError):         # K not a multiple of 128
-        w8.w8a8_matmul(x[:, :100].contiguous(), {"q": qw["q"][:, :100].contiguous(),
-                                                 "scale": qw["scale"]})
+    want = w8.w8a8_matmul_ref(x, qw, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got = w8.w8a8_matmul(x[:, :K - 3].contiguous(), {"q": qw["q"][:, :K - 3],   # a view of W
+                                                     "scale": qw["scale"]})
+    want = w8.w8a8_matmul_ref(x[:, :K - 3], {"q": qw["q"][:, :K - 3], "scale": qw["scale"]})
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tile_n", [128, 256])
+@pytest.mark.parametrize("form", ["nt", "nn", "nn_bf16"])
+@pytest.mark.parametrize("shape", [(1000, 1024, 4096), (300, 256, 784), (32768, 1024, 4096)])
+def test_p3_forms(dev, shape, form, tile_n):
+    """P3's kernel in each operand form and tile against the exact product
+    (int32, or rounded to bf16): equal, at a ragged M and N and at the
+    probe's shape."""
+    from slime_tpu_torch.probes import int8_dot as p3
+    xq, wq, wt = p3.make_inputs(dev, seed=shape[0], shape=shape)
+    w = wq if form == "nt" else wt
+    got = p3.dot(form, xq, w, tile_n)
+    want = p3.plain(form, xq, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _bhsd(B, S, heads, D, g, dev):

@@ -4,7 +4,7 @@ against the JAX package.
 - ``quant_matmul_ref`` (K6: per-row ``q4`` and int8) and
   ``quant_matmul_q4g_ref`` (K7: group-128 ``q4g``) against JAX's Pallas
   kernels in interpret mode, in fp32 and bf16, with ragged row and output
-  counts;
+  counts, K6 also at K = 200 and 1000; the contraction rule of the kernels;
 - the port's CPU ``linear`` against JAX's CPU ``layers.linear`` for per-row
   q4, grouped q4, q4g and NF4 (on the CPU both dequantize and matmul), and
   the CPU wrappers taking the plain versions without counting a launch.
@@ -58,6 +58,29 @@ def test_k6_plain_matches_jax_kernel(dtype, bits, M, N, K):
     jx, tx, tw = _inputs(x, qw, dtype)
     want = jqm.quant_matmul(jx, qw, block_out=128, block_rows=32, interpret=True)
     _close(tqm.quant_matmul_ref(tx, tw), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K", [200, 1000])
+def test_k6_plain_matches_jax_kernel_any_k(dtype, bits, K):
+    """K6 at a K that is not a multiple of 128 (int8 any K, q4 any even K: the
+    kernel masks its last k-tile; JAX's takes the whole row in one block),
+    with a ragged M and N."""
+    M, N = 37, 320
+    x, w = _data(M, N, K, seed=K + bits)
+    qw = JQ.quantize_weight(jnp.asarray(w), bits)
+    jx, tx, tw = _inputs(x, qw, dtype)
+    want = jqm.quant_matmul(jx, qw, block_out=128, block_rows=16, interpret=True)
+    _close(tqm.quant_matmul_ref(tx, tw), want, dtype)
+
+
+def test_k6_contraction_rule():
+    """What K the kernels take: any with int8, even with q4 (pairs of
+    nibbles), multiples of 256 with q4g (two groups a packed block, as JAX
+    asserts)."""
+    assert (tqm.k_multiple(tqm._INT8), tqm.k_multiple(tqm._Q4), tqm.k_multiple(tqm._Q4G)) == (
+        1, 2, 256)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,8 +3,9 @@ JAX package.
 
 - ``w8a8_matmul_ref`` (K8's plain version) against JAX's
   ``w8a8_matmul(interpret=True)`` and ``w8a8_matmul_ref``, in fp32 and bf16,
-  with and without a bias, a zero row and ragged tiles; ``w8a8_linear`` keeps
-  leading dims;
+  with and without a bias, a zero row and ragged tiles, and at K = 200 and
+  1000; ``w8a8_linear`` keeps leading dims; the wrapper's padded row length
+  and weight copy as pure rules;
 - ``quantize_tower`` and ``pack_qkv_tower`` give JAX's trees byte for byte,
   and ``vit.apply`` on them agrees with JAX's (JAX's ViT attention runs its
   Pallas kernel in interpret mode, as in ``test_torch_vision.py``).
@@ -66,6 +67,49 @@ def test_plain_matches_jax_kernel_and_ref(dtype, bias, M, K, N):
                  jw8.w8a8_matmul(jx, qw, jb, block_rows=128, block_out=64, interpret=True)):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [200, 1000])
+def test_plain_matches_jax_kernel_any_k(dtype, K):
+    """At a K that is not a multiple of 128 (the kernel takes any K; JAX's
+    takes the whole row in one block) and a ragged M: K8's plain version
+    against JAX's kernel in interpret mode and its reference."""
+    M, N = 300, 192
+    x, qw, b = _case(M, K, N, seed=K)
+    jt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jx = jnp.asarray(x, jt)
+    got = tw8.w8a8_matmul_ref(torch.from_numpy(x).to(getattr(torch, dtype)), _torch(qw),
+                              torch.from_numpy(b))
+    rtol = 2 ** -7 if dtype == "bfloat16" else 1e-6
+    for want in (jw8.w8a8_matmul_ref(jx, qw, jnp.asarray(b)),
+                 jw8.w8a8_matmul(jx, qw, jnp.asarray(b), block_rows=128, block_out=64,
+                                 interpret=True)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("K,want", [(1, 16), (16, 16), (37, 48), (200, 208), (1000, 1008),
+                                    (1024, 1024), (4096, 4096)])
+def test_padded_k(K, want):
+    """The quantized rows' length: K rounded up to 16 bytes (TMA's row stride)."""
+    assert tw8.padded_k(K) == want
+
+
+def test_weight_operand_copies_only_what_tma_cannot_read():
+    """The weight is launched on as it is when its rows are padded_k(K)
+    bytes and aligned; otherwise a zero-padded [N, padded_k(K)] copy, made
+    once a call, holds the same values."""
+    q = torch.randint(-127, 128, (8, 64), dtype=torch.int8)
+    assert tw8.weight_operand(q, 64) is q
+    for w in (q[:, :50], q[:, :50].contiguous(), q[1:, 8:]):
+        kp = tw8.padded_k(w.shape[1])
+        got = tw8.weight_operand(w, kp)
+        assert got is not w and got.shape == (w.shape[0], kp) and got.is_contiguous()
+        assert torch.equal(got[:, :w.shape[1]], w) and not got[:, w.shape[1]:].any()
+    view = torch.randint(-127, 128, (8, 80), dtype=torch.int8)[:, 16:]   # 64 columns, offset
+    got = tw8.weight_operand(view, 64)
+    assert got is not view and torch.equal(got, view)
 
 
 def test_w8a8_linear_keeps_leading_dims_and_takes_the_plain_version_on_cpu():
