@@ -15,11 +15,14 @@ Phase 0  requires CUDA, prints the card, the versions and the kernel build
          their own work.
 Phase 1  runs the self-tests of the wgmma tile vocabulary
          (``csrc/hopper_selftest.cu`` against torch.matmul, exactly, in every
-         operand form the attention kernels use, and the int8 form of P3 and
-         K8 against the exact integer product), then each hand-written
+         operand form the attention kernels use, the int8 form of P3 and
+         K8 against the exact integer product, and the 1-D bulk copy of
+         K1's weight ring byte for byte), then each hand-written
          kernel instance of the paths (encoder attention in bf16 and fp32 and
          its P2 design probe, the fused QKV / O-residual / MLP decode kernels
-         in int8 and q4g at B up to 128, bf16 and fp32, the flash-attention
+         in int8 and q4g at B up to 128, bf16 and fp32 (the MLP in bf16 at B
+         <= 8 on its weight ring, with its three launches' device times from
+         the profiler), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in its q4, int8 and q4g
          loaders, also at a K that is not a multiple of 128, and the W8A8
@@ -113,6 +116,8 @@ N_GENERATE, N_NEW, CHUNK = 3, 64, 16
 TIMED_RUNS = 25
 PROFILE_STEPS = 8
 SLEEP_CYCLES = 2_000_000    # a device sleep longer than a wrapper's enqueue (cuda_ms)
+# the bulk-copy self-test's two copies: multiples of 16 bytes, not powers of two
+BULK_SIZES = (4800, 9584)
 # bf16 outputs, fp32 sums in another order than the plain version: about one
 # bf16 ulp (2^-8 relative), plus an absolute floor for small outputs. The
 # floors lie above the largest any comparison of the kernels' tests needed on
@@ -150,7 +155,8 @@ RTOL = 2 ** -7
 ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_o_residual": 2e-3, "fused_mlp_decode": 2e-3,
         "fused_qkv_decode_q4g": 2e-3, "fused_o_residual_q4g": 2e-3,
-        "fused_mlp_decode_q4g": 2e-3,
+        "fused_mlp_decode_q4g": 2e-3, "fused_mlp_decode_ring": 2e-3,
+        "fused_mlp_decode_q4g_ring": 2e-3,
         "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3,
         "flash_fwd_f32": 1e-5, "flash_bwd_dkdv_f32": 1e-5, "flash_bwd_dq_f32": 1e-5,
         "flash_fwd_d256": 5e-3, "flash_bwd_dkdv_d256": 5e-3, "flash_bwd_dq_d256": 5e-3,
@@ -228,6 +234,11 @@ KERNELS = {
                              "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode_q4g": ("slime_tpu_torch/csrc/fused_decode.cu",
                              "slime_tpu/ops/fused_mlp.py:366"),
+    # K1's weight ring (bf16 x, int8 or q4g weights, B <= 8: the decode steps)
+    "fused_mlp_decode_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                              "slime_tpu/ops/fused_mlp.py:366"),
+    "fused_mlp_decode_q4g_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                  "slime_tpu/ops/fused_mlp.py:366"),
     "quant_matmul_q4": ("slime_tpu_torch/csrc/quant_matmul.cu",
                         "slime_tpu/ops/quant_matmul.py:130"),
     "quant_matmul_int8": ("slime_tpu_torch/csrc/quant_matmul.cu",
@@ -275,11 +286,14 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
 # mma.sync instance takes bf16 x below 64 rows, which no path sends it (the
 # prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1,
-# P3 and P4 probes are design probes, off every path. Phase 1 checks them;
-# their launch counts stay 0.
+# P3 and P4 probes are design probes, off every path. K1's row-per-warp
+# instances in bf16 with int8 or q4g weights take B > 8 only (the weight
+# ring takes B <= 8), which no path sends them (decode runs at B = 1; phase
+# 7's B = 65 is fp32). Phase 1 checks them; their launch counts stay 0.
 OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
-            "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + D256 + WIDE
+            "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot", "fused_mlp_decode",
+            "fused_mlp_decode_q4g") + D256 + WIDE
 
 
 def _counters():
@@ -319,6 +333,8 @@ def _counters():
     for n, fn in fused.items():
         for sfx in ("", "_q4g", "_f32", "_f32_q4g"):
             out[n + sfx] = (fn, sfx.lstrip("_") + ("_" if sfx else "") + "launches")
+    out["fused_mlp_decode_ring"] = (fused_mlp.fused_mlp_decode, "ring_launches")
+    out["fused_mlp_decode_q4g_ring"] = (fused_mlp.fused_mlp_decode, "q4g_ring_launches")
     return out
 
 
@@ -334,6 +350,11 @@ def launch_counts():
         counts[n] -= counts[n + "_q4g"] + counts[n + "_f32"] - both
         counts[n + "_q4g"] -= both
         counts[n + "_f32"] -= both
+    # K1's .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g ones
+    ring_q4g = counts["fused_mlp_decode_q4g_ring"]
+    counts["fused_mlp_decode_ring"] -= ring_q4g
+    counts["fused_mlp_decode"] -= counts["fused_mlp_decode_ring"]
+    counts["fused_mlp_decode_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
         counts[n] -= counts[n + "_f32"]
@@ -591,6 +612,11 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
         f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
+    for what, pattern in (("K1 weight ring (mlp_ring_kernel)", "mlp_ring_kernel"),
+                          ("row norms of K1 and K2 (rms_norm_kernel)", "rms_norm_kernel")):
+        ms, n = trace_kernel(out / f"profile_decode_{tag}.json", pattern)
+        log(f"phase {tag} decode {what}: {ms / PROFILE_STEPS:.3f} ms/step of device time over "
+            f"{n / PROFILE_STEPS:.0f} launches/step")
     del cache, last
 
     with profile(activities=acts) as prof:
@@ -615,15 +641,16 @@ def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main
     """Hold kern() to its plain version ref() and time both (and one PyTorch
     call computing the same function, where there is one). ``moved`` bytes
     and ``ops`` operations at ``peak`` give the bound; the record keeps the
-    ``main`` case, the main path's shape. ``dispatch`` also logs the
-    wrapper's host cost per call; ``floor`` is compare's."""
+    ``main`` case, the main path's shape (an instance that no main case
+    reaches keeps its first). ``dispatch`` also logs the wrapper's host cost
+    per call; ``floor`` is compare's."""
     err, need = compare(name, kern(), ref(), floor)
     rec = record[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
     lib = None if library is None else cuda_ms(library, flush=flush)
     b_ms, b_by = bound(moved, ops, peak)
-    if main:
+    if main or "ms" not in rec:     # an instance off the main shape keeps its first case
         rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     tol = (f"set {ATOL[name]:g}" if floor is None
            else f"one-ulp bound up to {floor.max().item():.3g}")
@@ -842,7 +869,9 @@ def hopper_selftest(dev, g):
     K-major), O = bf16(S).V, P1 = bf16(S).B and P2 = bf16(T).A (RS, the
     shared operand read MN-major); then the int8 SS form of P3 and K8 (s8
     x s8 -> s32 at N = 128 and 256 over two K chunks) against the exact
-    integer product."""
+    integer product; then the 1-D bulk copy of K1's weight ring, two copies
+    of ragged sizes from a 16- but not 128-byte aligned source onto one
+    mbarrier, byte for byte."""
     from slime_tpu_torch.ops import _cuda
 
     a, b = (torch.randint(-3, 4, (64, 64), device=dev, generator=g).to(torch.bfloat16)
@@ -863,9 +892,15 @@ def hopper_selftest(dev, g):
                                                               got, want)}
     errs.update({n: (x - w).abs().max().item()
                  for n, x, w in (("C128 s8", c128, exact[:, :128]), ("C256 s8", c256, exact))})
+    src = torch.randint(0, 256, (48 + sum(BULK_SIZES),), dtype=torch.uint8, device=dev,
+                        generator=g)
+    got = _cuda.bulk_selftest(src[48:], *BULK_SIZES)
+    torch.cuda.synchronize()
+    errs["bulk copy"] = int((got != src[48:]).sum().item())
     log("phase 1 hopper_selftest (TMA, SS and RS wgmma, K- and MN-major operands; SS s8 "
-        "wgmma at N = 128, 256): max abs err " + ", ".join(f"{n} {e:g}" for n, e in errs.items())
-        + " (set 0)")
+        f"wgmma at N = 128, 256; 1-D bulk copies of {BULK_SIZES[0]} + {BULK_SIZES[1]} bytes "
+        "at a 48-byte offset): max abs err (for the copy: bytes that differ) "
+        + ", ".join(f"{n} {e:g}" for n, e in errs.items()) + " (set 0)")
     if any(errs.values()):
         raise AssertionError(f"hopper_selftest disagrees with the exact product: {errs}")
 
@@ -975,9 +1010,13 @@ def decode_kernels(dev, cfg, g, flush, record):
     1, 8) and q4g (B = 1, 64) in bf16, as before; then, from a generator of
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
-    compute dtype). The records keep B = 1. The MLP in bf16 is held to the
-    one-ulp bound of its bf16 intermediate."""
+    compute dtype). The records keep B = 1; K1 in bf16 at B <= 8 is its
+    weight ring (``fused_mlp_decode_ring``, ``_q4g_ring``), whose three
+    launches' device time (profiler) is logged at B = 1 and 8, and K1's
+    row-per-warp bf16 instances keep their first case (B = 64 or 65). The
+    MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    from slime_tpu_torch.probes.mlp_decode import profile_split
 
     cfg2 = dataclasses.replace(cfg.llm, num_layers=2)
     H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
@@ -1017,13 +1056,23 @@ def decode_kernels(dev, cfg, g, flush, record):
                     acts = (x, a) if name == "fused_o_residual" else (x,)
                     floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                              if name == "fused_mlp_decode" and dtype == bf else None)
-                    check_and_time(record, name + dsfx + fsfx,
+                    ring = name == "fused_mlp_decode" and fused_mlp.ring_instance(
+                        B, dtype, fused_qkvo.INT8 if fmt == "int8" else fused_qkvo.Q4G)
+                    check_and_time(record, name + dsfx + fsfx + ("_ring" if ring else ""),
                                    f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} "
                                    f"B={B} layer 1",
                                    lambda: kern(x, a), lambda: ref(x, a),
                                    nbytes(*acts, *reads) + B * cols * x.element_size(),
                                    2 * B * macs, BF16_OPS if dtype == bf else F32_OPS, flush,
                                    main=B == 1, dispatch=B == 1, floor=floor)
+                    if ring and B in (1, 8):
+                        short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
+                                                    "").split("(")[0]
+                        split, span = profile_split(lambda: kern(x, a), flush)
+                        log(f"phase 1 fused_mlp_decode{fsfx}_ring {fmt} B={B} launches "
+                            f"(profiler, device ms each, L2 flushed): "
+                            + ", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
+                            + f"; first start to last end {span:.4f} ms")
         del two, cases
 
 
@@ -1429,7 +1478,7 @@ def serve_phases(dev, cfg):
         return {"encoder_attention": (23 * requests, False),
                 "fused_qkv_decode": (32 * steps, False),
                 "fused_o_residual": (32 * steps, False),
-                "fused_mlp_decode": (32 * steps, False),
+                "fused_mlp_decode_ring": (32 * steps, False),
                 "flash_fwd": (32 * requests, True)}
     launches = serve("2", dev, cfg, params, expect, "3")
 
@@ -1560,9 +1609,9 @@ def quantized_serve_phases(dev, cfg):
                  "w8a8_matmul": 4 * vis * requests,
                  "encoder_attention": vis * requests, "flash_fwd": L * requests,
                  "fused_qkv_decode_q4g": L * steps, "fused_o_residual_q4g": L * steps,
-                 "fused_mlp_decode_q4g": L * steps, "quant_matmul_q4": 0,
-                 "quant_matmul_int8": 0, "fused_qkv_decode": 0, "fused_o_residual": 0,
-                 "fused_mlp_decode": 0}
+                 "fused_mlp_decode_q4g_ring": L * steps, "fused_mlp_decode_q4g": 0,
+                 "quant_matmul_q4": 0, "quant_matmul_int8": 0, "fused_qkv_decode": 0,
+                 "fused_o_residual": 0, "fused_mlp_decode": 0, "fused_mlp_decode_ring": 0}
         return {n: (want, True) for n, want in exact.items()}
     launches = serve("5", dev, cfg, params, expect, "5")
     for n, c in default_dtype_quantized(dev, cfg, params, "q4g").items():

@@ -34,17 +34,43 @@
 // The MLP runs as two launches: gate/up into a [B, I] scratch in the
 // activations' dtype (a few tens of KB a row, which stays in L2), then down
 // plus the residual.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+//
+// The weight ring (K1's bf16 instances for int8 and q4g weights at B <= 8,
+// the decode steps of the int8 and 4-bit serving paths; mlp_ring_kernel).
+// On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
+// there, held by one I2F a weight (the conversion pipe does 16 a clock an
+// SM) and by one dependent 16-byte load a lane in flight. Instead:
+//   - a persistent grid (one block an SM) walks contiguous bands of output
+//     rows; one producer thread streams each band, R whole rows of every
+//     matrix a stage (one contiguous range each, ~8 KB), into a ring of up
+//     to 128 KB in shared memory by 1-D bulk copies on mbarriers;
+//   - sixteen consumer warps take the band's rows in turn, each summing
+//     whole rows on its own (no sums cross warps), sixteen rows at once;
+//   - int8 and int4 become fp32 exactly without I2F: the byte (XOR 0x80) or
+//     the nibble (XOR 8) is put into the low mantissa of 2^23 by one prmt,
+//     and one FADD of -(2^23 + 128) or -(2^23 + 8) leaves its signed value;
+//   - the activations (h for gate/up, a for down; at most 8 rows, cut into
+//     launches of fewer rows where they would not fit) are copied into
+//     shared memory once a block and read there, one load for gate and up;
+//     q4g scales ride in the stage beside their rows, int8 scales and
+//     down's residual are read into shared memory once a band;
+//   - rms_norm -> gate/up -> down are chained by programmatic dependent
+//     launch: each block signals its dependents at its start, so the next
+//     kernel's producer streams its first stages while the previous kernel
+//     ends, and waits (griddepcontrol.wait) before it copies the activations.
+// What bounds it: HBM's bytes for int8 (the ring without its dot products
+// streams the weights barely faster); for q4g, with two weights a byte, also
+// the consumers' instructions (about five a weight).
+// Sums stay fp32 FFMA of exact products, in another order than the plain
+// version's; scales, silu, the bf16 intermediate and the fp32 residual are
+// the row-per-warp kernels'.
+#include "hopper_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;                 // output rows per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kBT = 8;                    // batch rows per tile
-
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
@@ -222,12 +248,17 @@ __device__ __forceinline__ void scaled_row_dot(const TA* __restrict__ h, int K, 
 }
 
 // h[b] = TA(x[b] * rsqrt(mean(x[b]^2) + eps) * w), one block per row
-// (fused_qkvo.py:72-77, fused_mlp.py:227-233).
-template <typename TA>
-__global__ void __launch_bounds__(256) rms_norm_kernel(const TA* __restrict__ x,
-                                                       const float* __restrict__ w,
-                                                       TA* __restrict__ h, int H, float eps) {
+// (fused_qkvo.py:72-77, fused_mlp.py:227-233). K2 and the row-per-warp K1
+// launch 256 threads a row; the weight ring 1024, so each thread's few loads
+// are in flight at once (256 threads walk a 4096-wide row in 16 dependent
+// steps: 14 us at B = 1 on an H100, about a tenth of K1).
+template <typename TA, int THREADS = 256>
+__global__ void __launch_bounds__(THREADS) rms_norm_kernel(const TA* __restrict__ x,
+                                                           const float* __restrict__ w,
+                                                           TA* __restrict__ h, int H,
+                                                           float eps) {
   __shared__ float part[32];
+  griddep_launch_dependents();   // the ring's gate/up may start streaming its weights
   const TA* xr = x + (size_t)blockIdx.x * H;
   TA* hr = h + (size_t)blockIdx.x * H;
   float ss = 0.f;
@@ -340,6 +371,397 @@ __global__ void __launch_bounds__(kThreads) gate_up_kernel(
 
 inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
+// ---------------------------------------------------------------------------
+// The weight ring: K1's bf16 instances for int8 and q4g weights at B <= 8
+// ---------------------------------------------------------------------------
+constexpr int kRingMaxWarps = 16;                       // consumer warps a block, at most
+constexpr int kRingMaxRows = 8;                         // activation rows a launch
+constexpr int kRingSmemMax = 232448;                    // 227 KB, a block's most
+
+// One launch of mlp_ring_kernel (the wrapper's launch plan, fused_mlp.ring_plan):
+// y = f(act @ W_m^T) over MATS matrices of N rows, row_bytes a row.
+struct RingArgs {
+  const unsigned char* w[2];   // weights [N, row_bytes]: int8 [N, K] or packed q4g [N, K / 2]
+  const float* s[2];           // scales: int8 [N] (one a row), q4g [N, K / 128]
+  const bf16* act;             // [B, K] activations, copied into shared memory whole
+  const bf16* resid;           // [B, N] added to the output (MATS == 1)
+  bf16* out;                   // [B, N]
+  int B, K, N;                 // activation rows (<= 8), contraction, output rows
+  int row_bytes;               // weight bytes a row
+  int rows_per_stage;          // R (1, 2, 4 or 8): a stage holds R rows of each matrix
+  int stages;                  // S
+  int stage_bytes;             // MATS * R * row_bytes (q4g: + MATS * R * K / 128 * 4)
+  int align;                   // bands start at multiples of this many rows
+  int band_cap;                // rows a band holds at most: ceil(N / grid) + align
+};
+
+// 16 int8 weights (one 16-byte vector) -> fp32, exactly and without I2F: each
+// byte XOR 0x80 (its value + 128) goes into the low mantissa byte of 2^23
+// (prmt with 0x4B000000), and one FADD of -(2^23 + 128) leaves its value.
+__device__ __forceinline__ void int8x16_f32(const uint4 v, float* f) {
+  const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                         v.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u + j)) - 8388736.f;
+}
+
+// The low (HI false) or high nibbles of 16 packed q4g bytes -> 16 fp32 the
+// same way: n ^ 8 (the signed nibble + 8) in the mantissa of 2^23, minus
+// 2^23 + 8.
+template <bool HI>
+__device__ __forceinline__ void int4x16_f32(const uint4 v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t n = ((HI ? w[i] >> 4 : w[i]) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __uint_as_float(__byte_perm(n, 0x4B000000u, 0x7650u + j)) - 8388616.f;
+  }
+}
+
+// acc[m][b] += act[b, 16 c .. 16 c + 15] . W_m[row, same], for the int8 vector
+// c of one row of each matrix in the stage (matrix m at wrow + m * mat_stride).
+template <int MATS, int BT>
+__device__ __forceinline__ void ring_dot_int8(const unsigned char* wrow, int mat_stride, int c,
+                                              const bf16* act, int K, int B,
+                                              float (&acc)[MATS][BT]) {
+  float wf[MATS][16];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m)
+    int8x16_f32(*reinterpret_cast<const uint4*>(wrow + m * mat_stride + 16 * c), wf[m]);
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    if (b < B) {
+      float hf[16];
+      load_act<16>(act + (size_t)b * K + 16 * c, hf);
+#pragma unroll
+      for (int m = 0; m < MATS; ++m)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[m][b] = fmaf(hf[j], wf[m][j], acc[m][b]);
+    }
+  }
+}
+
+// The q4g vector c (packed bytes 16 c .. 16 c + 15 of block blk = c / 8: the
+// columns 256 blk + j .. + 15 in its low nibbles and 128 further in its high
+// ones, j = 16 (c % 8)): one fp32 partial sum for each group's 16 columns,
+// times the group's scale (s_m: the row's K / 128 scales in the stage),
+// added to acc.
+template <int MATS, int BT>
+__device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_stride, int c,
+                                             const bf16* act, int K, int B,
+                                             const float* const (&s)[MATS],
+                                             float (&acc)[MATS][BT]) {
+  const int blk = c >> 3, lo = 256 * blk + 16 * (c & 7);
+  uint4 v[MATS];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m)
+    v[m] = *reinterpret_cast<const uint4*>(wrow + m * mat_stride + 16 * c);
+  float d[MATS][BT];
+  {
+    float wf[MATS][16];
+#pragma unroll
+    for (int m = 0; m < MATS; ++m) int4x16_f32<false>(v[m], wf[m]);
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      if (b < B) {
+        float hf[16];
+        load_act<16>(act + (size_t)b * K + lo, hf);
+#pragma unroll
+        for (int m = 0; m < MATS; ++m) {
+          float t = 0.f;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) t = fmaf(hf[j], wf[m][j], t);
+          d[m][b] = t;
+        }
+      }
+    }
+  }
+  float s_lo[MATS], s_hi[MATS];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m) {
+    s_lo[m] = s[m][2 * blk];
+    s_hi[m] = s[m][2 * blk + 1];
+  }
+  float wf[MATS][16];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m) int4x16_f32<true>(v[m], wf[m]);
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    if (b < B) {
+      float hf[16];
+      load_act<16>(act + (size_t)b * K + lo + 128, hf);
+#pragma unroll
+      for (int m = 0; m < MATS; ++m) {
+        float t = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) t = fmaf(hf[j], wf[m][j], t);
+        acc[m][b] += d[m][b] * s_lo[m] + t * s_hi[m];
+      }
+    }
+  }
+}
+
+// Band g of a projection's N rows: [band_start(g), band_start(g + 1)), each
+// start rounded down to a multiple of `align` rows (q4g: so that every
+// stage's scales are whole 16-byte units), the last band ending at N.
+__device__ __forceinline__ int band_start(int g, int G, int N, int align) {
+  return g >= G ? N : (int)((long long)g * N / G) / align * align;
+}
+
+// Stage i of the block's band [r0, r1): rows r0 + R i .. (at most R, fewer
+// at the band's end) of every matrix into ring slot i % S, one bulk copy a
+// matrix, and for q4g one more a matrix of those rows' scales (after the
+// weights: [m][R][K / 128] fp32), all completing on full[i % S].
+template <int FMT, int MATS>
+__device__ __forceinline__ void ring_load(const RingArgs& p, unsigned char* ring,
+                                          uint64_t* full, int* issued, int i, int r0, int r1) {
+  const int slot = i % p.stages, R = p.rows_per_stage, row = r0 + i * R;
+  const int rows = min(R, r1 - row), kg = p.K / 128;
+  const uint32_t bytes = (uint32_t)rows * p.row_bytes;
+  const uint32_t sbytes = FMT == kQ4G ? (uint32_t)rows * kg * 4 : 0;
+  unsigned char* dst = ring + (size_t)slot * p.stage_bytes;
+  mbar_arrive_expect_tx(&full[slot], MATS * (bytes + sbytes));
+#pragma unroll
+  for (int m = 0; m < MATS; ++m) {
+    bulk_load(dst + m * R * p.row_bytes, p.w[m] + (size_t)row * p.row_bytes, bytes,
+              &full[slot]);
+    if (FMT == kQ4G)
+      bulk_load(dst + MATS * R * p.row_bytes + m * R * kg * 4, p.s[m] + (size_t)row * kg,
+                sbytes, &full[slot]);
+  }
+  reinterpret_cast<volatile int*>(issued)[slot] = i;
+}
+
+// Row `row`, activation row b, from the scaled sums v: gate/up (MATS 2)
+// a = bf16(silu(g) u); down (MATS 1) y = bf16(x + d) with res = x[b, row],
+// as gate_up_kernel and resid_kernel round them.
+template <int MATS>
+__device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
+                                              const float (&v)[MATS], float res) {
+  const size_t i = (size_t)b * p.N + row;
+  if constexpr (MATS == 2) {
+    const float g = v[0], u = v[1];
+    const float sig = 1.f / (1.f + expf(-g));
+    act_store(p.out + i, g * sig * u);
+  } else {
+    act_store(p.out + i, res + v[0]);
+  }
+}
+
+// Shared memory: the ring [S][stage_bytes], the activations [B][K] bf16,
+// full[S], empty[S], the activations' barrier and issued[S], then the epilogue's
+// operands of the band: int8 row scales [MATS][band_cap] and down's
+// residual x [B][band_cap] (fp32), loaded once at the start so no row waits
+// on global memory. The band's rows are dealt to the W = blockDim.x / 32 - 1
+// consumer warps in turn (row t of the band to warp t % W; R divides W, so a
+// warp keeps one row position of the stages it takes): each warp sums whole
+// rows on its own and writes their outputs, W rows of W / R stages at once,
+// and releases a stage (empty, R arrivals) as soon as its row is read. A
+// warp may reach stage i before the producer has armed its slot for it,
+// while the slot's barrier still waits for stage i - S: the parity wait
+// would then see stage i - 2 S's completed phase and return at once. So the
+// producer writes i into issued[slot] once the stage is armed, and a warp
+// waits for that before it waits on the barrier.
+template <int FMT, int MATS, int BT>
+__global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) mlp_ring_kernel(
+    const __grid_constant__ RingArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = p.stages, R = p.rows_per_stage, W = blockDim.x / 32 - 1;
+  unsigned char* ring = smem;
+  bf16* act = reinterpret_cast<bf16*>(smem + (size_t)S * p.stage_bytes);
+  const uint32_t act_bytes = (uint32_t)p.B * p.K * 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)S * p.stage_bytes + act_bytes);
+  uint64_t* empty = full + S;
+  uint64_t* act_bar = empty + S;
+  int* issued = reinterpret_cast<int*>(act_bar + 1);              // the stage each slot holds
+  float* ep_scale = reinterpret_cast<float*>(issued + S);         // int8: [MATS][cap]
+  float* ep_res = ep_scale + (FMT == kInt8 ? MATS * p.band_cap : 0);   // down: [B][cap]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = band_start(blockIdx.x, gridDim.x, p.N, p.align);
+  const int r1 = band_start(blockIdx.x + 1, gridDim.x, p.N, p.align);
+  const int band = r1 - r0, n_st = (band + R - 1) / R;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R);
+      issued[s] = -1;
+    }
+    mbar_init(act_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  griddep_launch_dependents();   // the next kernel's producers may start streaming
+
+  if (warp == W) {               // the producer
+    if (lane == 0) {
+      int i = 0;
+      for (; i < n_st && i < S; ++i) ring_load<FMT, MATS>(p, ring, full, issued, i, r0, r1);
+      griddep_wait();            // the activations are the previous kernel's output
+      mbar_arrive_expect_tx(act_bar, act_bytes);
+      bulk_load(act, p.act, act_bytes, act_bar);
+      for (; i < n_st; ++i) {
+        mbar_wait(&empty[i % S], ((i / S) - 1) & 1);
+        ring_load<FMT, MATS>(p, ring, full, issued, i, r0, r1);
+      }
+    }
+    return;
+  }
+
+  // the band's epilogue operands (x is older than the previous kernel)
+  if (FMT == kInt8)
+    for (int t = threadIdx.x; t < MATS * band; t += W * 32)
+      ep_scale[(t / band) * p.band_cap + t % band] = __ldg(p.s[t / band] + r0 + t % band);
+  if (MATS == 1)
+    for (int t = threadIdx.x; t < p.B * band; t += W * 32)
+      ep_res[(t / band) * p.band_cap + t % band] =
+          act_f32(p.resid[(size_t)(t / band) * p.N + r0 + t % band]);
+  named_barrier(1, W * 32);
+
+  const int vecs = p.row_bytes >> 4, mat_stride = R * p.row_bytes, kg = p.K / 128;
+  mbar_wait(act_bar, 0);
+  for (int t = warp; t < band; t += W) {
+    const int i = t / R, r = t % R, slot = i % S;
+    float acc[MATS][BT];
+#pragma unroll
+    for (int m = 0; m < MATS; ++m)
+#pragma unroll
+      for (int b = 0; b < BT; ++b) acc[m][b] = 0.f;
+    while (reinterpret_cast<volatile int*>(issued)[slot] != i) __nanosleep(32);
+    mbar_wait(&full[slot], (i / S) & 1);
+    const unsigned char* stage = ring + (size_t)slot * p.stage_bytes;
+    const unsigned char* wrow = stage + (size_t)r * p.row_bytes;
+    const float* s[MATS];
+#pragma unroll
+    for (int m = 0; m < MATS; ++m)
+      s[m] = reinterpret_cast<const float*>(stage + MATS * mat_stride) + (m * R + r) * kg;
+    const auto dot = [&](int c, float (&into)[MATS][BT]) {
+      if constexpr (FMT == kQ4G)
+        ring_dot_q4g<MATS, BT>(wrow, mat_stride, c, act, p.K, p.B, s, into);
+      else
+        ring_dot_int8<MATS, BT>(wrow, mat_stride, c, act, p.K, p.B, into);
+    };
+    int c = lane;
+    if constexpr (BT == 1) {
+      // two vectors at a time into two sets of sums: twice the loads and
+      // FFMA chains in flight, where one activation row leaves few
+      float acc2[MATS][BT];
+#pragma unroll
+      for (int m = 0; m < MATS; ++m) acc2[m][0] = 0.f;
+      for (; c + 32 < vecs; c += 64) {
+        dot(c, acc);
+        dot(c + 32, acc2);
+      }
+#pragma unroll
+      for (int m = 0; m < MATS; ++m) acc[m][0] += acc2[m][0];
+    }
+    for (; c < vecs; c += 32) dot(c, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);    // this row of the stage is read
+    const int row = r0 + t;
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      float v[MATS];
+#pragma unroll
+      for (int m = 0; m < MATS; ++m) {
+        v[m] = warp_sum(acc[m][b]);
+        if (FMT == kInt8) v[m] *= ep_scale[m * p.band_cap + t];
+      }
+      if (lane == b && b < p.B)
+        ring_epilogue<MATS>(p, row, b, v, MATS == 1 ? ep_res[b * p.band_cap + t] : 0.f);
+    }
+  }
+}
+
+// Launch one mlp_ring_kernel instance; with `pdl`, as a programmatic
+// dependent of the stream's previous kernel.
+template <int FMT, int MATS, int BT>
+int launch_ring_bt(const RingArgs& a, int grid, int warps, int smem, bool pdl,
+                   cudaStream_t st) {
+  static bool attrs_set = false;               // once per instance
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute(mlp_ring_kernel<FMT, MATS, BT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kRingSmemMax);
+    // the most shared memory for the carveout: a block takes over half an SM's
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mlp_ring_kernel<FMT, MATS, BT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    attrs_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3((warps + 1) * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, mlp_ring_kernel<FMT, MATS, BT>, a);
+}
+
+template <int FMT, int MATS>
+int launch_ring(const RingArgs& a, int grid, int warps, int smem, bool pdl, cudaStream_t st) {
+  if (a.B <= 1) return launch_ring_bt<FMT, MATS, 1>(a, grid, warps, smem, pdl, st);
+  if (a.B <= 2) return launch_ring_bt<FMT, MATS, 2>(a, grid, warps, smem, pdl, st);
+  if (a.B <= 4) return launch_ring_bt<FMT, MATS, 4>(a, grid, warps, smem, pdl, st);
+  return launch_ring_bt<FMT, MATS, 8>(a, grid, warps, smem, pdl, st);
+}
+
+// The launches of one projection over activation rows [0, B) in groups of
+// plan[4] (each group its own launch, streaming the weights again): plan =
+// {grid, rows_per_stage, stages, stage_bytes, batch_rows, smem, align,
+// consumer warps}. The plan is checked against what the kernel needs; one
+// it cannot run is refused.
+template <int MATS>
+int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cudaStream_t st) {
+  const int grid = plan[0], R = plan[1], S = plan[2], bg = plan[4], smem = plan[5];
+  const int warps = plan[7];
+  const bool q4g = wfmt == kQ4G;
+  a.rows_per_stage = R;
+  a.stages = S;
+  a.stage_bytes = plan[3];
+  a.align = plan[6];
+  a.band_cap = grid < 1 ? 0 : (a.N + grid - 1) / grid + a.align;
+  const int kg = a.K / 128;
+  const long long ep = (long long)((q4g ? 0 : MATS) + (MATS == 1 ? bg : 0)) * a.band_cap;
+  const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * 2 +
+                         8 * (2 * S + 1) + 4 * S + 4 * ep;
+  bool ok = (R == 1 || R == 2 || R == 4 || R == 8) && S >= 1 && bg >= 1 &&
+            bg <= kRingMaxRows && grid >= 1 && grid <= a.N && a.row_bytes % 16 == 0 &&
+            warps >= R && warps % R == 0 && warps <= kRingMaxWarps &&
+            a.stage_bytes == MATS * R * (a.row_bytes + (q4g ? kg * 4 : 0)) &&
+            need <= smem && smem <= kRingSmemMax && a.K % 8 == 0 &&
+            (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
+            (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0 && a.N % a.align == 0));
+  for (int m = 0; m < MATS; ++m)
+    ok = ok && reinterpret_cast<uintptr_t>(a.w[m]) % 16 == 0 &&
+         (!q4g || reinterpret_cast<uintptr_t>(a.s[m]) % 16 == 0);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const bf16* act = a.act;
+  const bf16* resid = a.resid;
+  bf16* out = a.out;
+  for (int b0 = 0; b0 < B; b0 += bg) {
+    a.B = min(bg, B - b0);
+    a.act = act + (size_t)b0 * a.K;
+    a.resid = resid == nullptr ? nullptr : resid + (size_t)b0 * a.N;
+    a.out = out + (size_t)b0 * a.N;
+    if (reinterpret_cast<uintptr_t>(a.act) % 16) return (int)cudaErrorInvalidValue;
+    const int e = q4g ? launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st)
+                      : launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Pointers are device pointers, `stream`
@@ -418,6 +840,47 @@ int slime_gate_up_gemv(int act_f32, int wfmt, const void* h, int B, int K, const
 }
 
 #undef SLIME_DISPATCH
+
+// K1 through the weight ring: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T),
+// y = x + a Wd^T, for bf16 x [B, H] (B <= 8) and int8 (wfmt 1) or q4g (2)
+// weights. h [B, H] and a [B, I] are the caller's scratch. plan: the launch
+// plans of gate/up (plan[0..7]) and down (plan[8..15]), ring_projection's
+// layout. With pdl, gate/up and down are programmatic dependents of the
+// kernel before them. Returns the first launch error, or 0.
+int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float eps, void* h,
+                   void* a, void* y, int B, int H, int I, const void* wg, const void* sg,
+                   const void* wu, const void* su, const void* wd, const void* sd,
+                   const int* plan, void* stream) {
+  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
+                                                  (bf16*)h, H, eps);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  const int q4g = wfmt == kQ4G;
+  RingArgs gu = {};
+  gu.w[0] = (const unsigned char*)wg;
+  gu.w[1] = (const unsigned char*)wu;
+  gu.s[0] = (const float*)sg;
+  gu.s[1] = (const float*)su;
+  gu.act = (const bf16*)h;
+  gu.out = (bf16*)a;
+  gu.K = H;
+  gu.N = I;
+  gu.row_bytes = q4g ? H / 2 : H;
+  e = ring_projection<2>(wfmt, pdl != 0, plan, gu, B, st);
+  if (e != 0) return e;
+  RingArgs dn = {};
+  dn.w[0] = (const unsigned char*)wd;
+  dn.s[0] = (const float*)sd;
+  dn.act = (const bf16*)a;
+  dn.resid = (const bf16*)x;
+  dn.out = (bf16*)y;
+  dn.K = I;
+  dn.N = H;
+  dn.row_bytes = q4g ? I / 2 : I;
+  return ring_projection<1>(wfmt, pdl != 0, plan + 8, dn, B, st);
+}
 
 // cudaError_t's text, or that of the TMA tensor-map helpers' codes
 // (hopper_common.cuh: 20000 no cuTensorMapEncodeTiled entry point, 20001 + a

@@ -20,7 +20,8 @@
 //   - Host: encode_2d() builds the map of a row-major 2-D tensor (K7's x
 //     [M, K] bf16 and packed weights [N, K / 2] bytes), 128-byte boxes.
 //   - Device: mbarrier init / arrive / arrive.expect_tx / parity wait; TMA
-//     tile loads (cp.async.bulk.tensor, 4-D and 2-D) and stores; the wgmma shared-memory
+//     tile loads (cp.async.bulk.tensor, 4-D and 2-D) and stores; 1-D bulk
+//     copies of contiguous bytes (cp.async.bulk, the decode weight ring); the wgmma shared-memory
 //     descriptor; wgmma.mma_async m64nNk16 bf16 -> fp32 with A from shared
 //     memory (SS: S = Q.K^T or S^T = K.Q^T, both K-major) or from registers
 //     (RS: O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q, the shared
@@ -183,6 +184,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` from global memory at src into shared memory at
+// dst, no tensor map: both addresses 16-byte aligned and bytes a multiple of
+// 16 (the callers check). Its bytes complete on `bar` (the caller's
+// arrive.expect_tx counts them). The decode weight ring (fused_decode.cu)
+// streams bands of whole weight rows with it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"((unsigned long long)__cvta_generic_to_global(src)), "r"(bytes),
+      "r"(smem_u32(bar))
       : "memory");
 }
 

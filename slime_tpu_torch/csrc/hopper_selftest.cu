@@ -17,6 +17,10 @@
 //   C256 = A . B^T          SS wgmma m64n256k32 s8 x s8 -> s32, both K-major
 //   C128 = A . B[:128]^T    the same at N = 128
 // over 8 k32 steps across the two chunks, exact against the integer product.
+// A third checks the 1-D bulk copy of the decode weight ring (bulk_load):
+// two copies of ragged sizes (multiples of 16 bytes, not powers of two) from
+// a source that is 16- but not 128-byte aligned onto one mbarrier, then
+// back out to global memory by the threads, equal byte for byte.
 #include "hopper_common.cuh"
 
 namespace {
@@ -141,6 +145,26 @@ __global__ void __launch_bounds__(128) hopper_selftest_s8_kernel(
   for (int i = 0; i < 64; ++i) p.c128[acc_offset(i, 128)] = c128[i];
 }
 
+
+__global__ void __launch_bounds__(128) bulk_selftest_kernel(const unsigned char* src,
+                                                             unsigned char* dst, int bytes0,
+                                                             int bytes1) {
+  extern __shared__ __align__(16) unsigned char buf[];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, bytes0 + bytes1);
+    bulk_load(buf, src, bytes0, &bar);
+    bulk_load(buf + bytes0, src + bytes0, bytes1, &bar);
+  }
+  mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < bytes0 + bytes1; i += blockDim.x) dst[i] = buf[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -183,6 +207,18 @@ int slime_hopper_selftest_s8(const void* a, const void* b, void* c128, void* c25
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   hopper_selftest_s8_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// src and dst: bytes0 + bytes1 bytes on the card, 16-byte aligned, each size a
+// multiple of 16 (the wrapper checks); dst = src through shared memory.
+int slime_bulk_selftest(const void* src, void* dst, int bytes0, int bytes1, void* stream) {
+  const int smem = bytes0 + bytes1;
+  cudaError_t e = cudaFuncSetAttribute(bulk_selftest_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bulk_selftest_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
+      (const unsigned char*)src, (unsigned char*)dst, bytes0, bytes1);
   return (int)cudaGetLastError();
 }
 

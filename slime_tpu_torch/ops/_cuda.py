@@ -35,6 +35,7 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "slime_resid_gemv": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "slime_gate_up_gemv": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "slime_mlp_ring": [_I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I] + [_P] * 8,
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _I, _I, _P],
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "slime_int8_dot": [_I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
     "slime_hopper_selftest": [_P] * 9,
     "slime_hopper_selftest_s8": [_P] * 5,
+    "slime_bulk_selftest": [_P, _P, _I, _I, _P],
     "slime_p1_matvec": [_I, _I, _P, _P, _P, _P, _I, _P],
     "slime_p4_stream": [_I, _P, _LL, _P, _P, _P, _I, _P],
 }
@@ -214,3 +216,24 @@ def hopper_selftest_s8(a: torch.Tensor, b: torch.Tensor):
                                              c256.data_ptr(), stream()),
           "hopper_selftest_s8")
     return c128, c256
+
+
+def bulk_selftest(src: torch.Tensor, bytes0: int, bytes1: int) -> torch.Tensor:
+    """Run the 1-D bulk copy self-test of ``csrc/hopper_selftest.cu``: the
+    first bytes0 + bytes1 bytes of ``src`` (contiguous uint8 on the card,
+    16-byte aligned) through shared memory by two bulk copies on one
+    mbarrier (``bulk_load``, the decode weight ring's copy) -> a new uint8
+    tensor of those bytes. Sizes must be multiples of 16 bytes."""
+    require_cuda(src)
+    n = bytes0 + bytes1
+    if (src.dtype != torch.uint8 or src.dim() != 1 or not src.is_contiguous()
+            or src.data_ptr() % 16 or bytes0 % 16 or bytes1 % 16 or min(bytes0, bytes1) < 16
+            or src.numel() < n):
+        raise ValueError(f"bulk_selftest takes 16-byte aligned contiguous uint8 of at least "
+                         f"{n} bytes and sizes that are multiples of 16, got {src.dtype} "
+                         f"{tuple(src.shape)} at {src.data_ptr() % 16} mod 16, {bytes0}, "
+                         f"{bytes1}")
+    dst = torch.empty(n, dtype=torch.uint8, device=src.device)
+    check(library().slime_bulk_selftest(src.data_ptr(), dst.data_ptr(), bytes0, bytes1,
+                                        stream()), "bulk_selftest")
+    return dst

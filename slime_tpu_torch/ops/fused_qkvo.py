@@ -174,13 +174,19 @@ def count(fn, x, fmt) -> None:
     fn.f32_q4g_launches += f32 * q4g
 
 
+def norm_weight(x, norm_w):
+    """The row norm's weight as the kernels take it: fp32 [H] on x's device."""
+    nw = norm_w.to(torch.float32).contiguous()
+    if nw.device != x.device or nw.shape != (x.shape[1],):
+        raise ValueError(f"norm weight {tuple(nw.shape)} on {nw.device} for x "
+                         f"{tuple(x.shape)} on {x.device}")
+    return nw
+
+
 def rms_norm_launch(x, norm_w, eps, lib):
     """Launch the row-norm pass; returns h [B, H] in x.dtype."""
     B, H = x.shape
-    nw = norm_w.to(torch.float32).contiguous()
-    if nw.device != x.device or nw.shape != (H,):
-        raise ValueError(f"norm weight {tuple(nw.shape)} on {nw.device} for x "
-                         f"{tuple(x.shape)} on {x.device}")
+    nw = norm_weight(x, norm_w)
     h = torch.empty_like(x)
     _cuda.check(lib.slime_rms_norm(act_f32(x), x.data_ptr(), nw.data_ptr(), h.data_ptr(),
                                    B, H, eps, _cuda.stream()), "rms_norm")

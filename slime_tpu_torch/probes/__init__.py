@@ -1,6 +1,7 @@
 """Design probes of the TPU package, as hand-written kernels on the card:
 P1 (``quant_matmul``), P2 (``encoder_attention``), P3 (``int8_dot``) and P4
-(``q4g_unpack``); and K8 at the CLIP-L tower's shapes (``w8a8_shapes``)."""
+(``q4g_unpack``); K8 at the CLIP-L tower's shapes (``w8a8_shapes``) and K1 at
+SliME-8B's width (``mlp_decode``)."""
 from __future__ import annotations
 
 import statistics

@@ -139,6 +139,21 @@ def test_hopper_selftest_s8(dev):
     assert torch.equal(c128, want[:, :128])
 
 
+def test_bulk_copy_selftest(dev):
+    """The 1-D bulk copy of K1's weight ring (hopper_common.cuh bulk_load):
+    two copies of ragged sizes (multiples of 16 bytes, not powers of two)
+    from a source 16- but not 128-byte aligned, onto one mbarrier, come back
+    byte for byte; a size that is not a multiple of 16 is refused."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    src = torch.randint(0, 256, (48 + 4800 + 9584,), dtype=torch.uint8, device=dev,
+                        generator=g)
+    got = _cuda.bulk_selftest(src[48:], 4800, 9584)
+    torch.cuda.synchronize()
+    assert torch.equal(got, src[48:])
+    with pytest.raises(ValueError):
+        _cuda.bulk_selftest(src[48:], 4808 - 1, 9584)
+
+
 # (B, S, H, D): CLIP-L's shape, then S from one key to the kernel's 1024 at
 # head dims 40 (padded by the TMA box), 64 and 128
 ENC_SHAPES = [(8, 577, 16, 64), (2, 100, 4, 128), (1, 64, 2, 40)] + [
@@ -290,6 +305,7 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
     counts = (fused_qkvo.fused_qkv_decode.launches,
               fused_qkvo.fused_o_residual.launches,
               fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches)
+    ring = fused_mlp.fused_mlp_decode.ring_launches
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
     for a, b in zip(got, want):
@@ -310,6 +326,55 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_qkvo.fused_o_residual.launches,
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
+    # the weight ring takes bf16 x with int8 or q4g weights at B <= 8, nothing else
+    routed = bf and fmt in ("int8", "q4g") and B <= 8
+    assert fused_mlp.fused_mlp_decode.ring_launches == ring + routed
+
+
+def _mlp_layers(H, I, fmt, generator, device):
+    """Post-attention norm and MLP weights of a 2-layer stack (decode_layers'
+    formats), without the attention projections."""
+    full = decode_layers(L=2, H=H, NQ=256, NKV=256, I=I, fmt=fmt, generator=generator,
+                         device=device)
+    return {n: full[n] for n in ("post_attention_layernorm", "gate_proj", "up_proj",
+                                 "down_proj")}
+
+
+def _check_ring(x, layers, fmt):
+    """fused_mlp_decode on the weight ring (its counter rises by one) against
+    the plain version, held to the one-ulp bound of the bf16 intermediate."""
+    ring, q4g = (fused_mlp.fused_mlp_decode.ring_launches,
+                 fused_mlp.fused_mlp_decode.q4g_ring_launches)
+    got = fused_mlp.fused_mlp_decode(x, layers, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_mlp_close(got, fused_mlp.fused_mlp_decode_ref(x, layers, 1),
+                      fused_mlp.intermediate_ulp_bound(x, layers, 1))
+    assert fused_mlp.fused_mlp_decode.ring_launches == ring + 1
+    assert fused_mlp.fused_mlp_decode.q4g_ring_launches == q4g + (fmt == "q4g")
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("B", [2, 3, 4, 5, 6, 7])
+def test_fused_mlp_ring_batches(dev, fmt, B):
+    """K1's weight ring at 8B width (H = 4096, I = 14336) at every B between
+    test_fused_decode_kernels' 1 and 8 (its BT = 2, 4, 8 instances with rows
+    unused, and down in two launches from B = 5)."""
+    g = torch.Generator(device=dev).manual_seed(100 + B)
+    layers = _mlp_layers(4096, 14336, fmt, g, dev)
+    _check_ring(torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16), layers,
+                fmt)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("width", [(768, 1280), (256, 512), (512, 2816)])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_fused_mlp_ring_ragged(dev, fmt, width, B):
+    """Small widths whose row counts are not multiples of the 132 bands nor
+    of the stages (q4g at H = 768: 6 scales a row, bands on even rows)."""
+    H, I = width
+    g = torch.Generator(device=dev).manual_seed(H + B)
+    layers = _mlp_layers(H, I, fmt, g, dev)
+    _check_ring(torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16), layers, fmt)
 
 
 def test_fused_decode_q4g_transposed_down_scales(dev):
