@@ -17,12 +17,13 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          (``csrc/hopper_selftest.cu`` against torch.matmul, exactly, in every
          operand form the attention kernels use, the int8 form of P3 and
          K8 against the exact integer product, and the 1-D bulk copy of
-         K1's weight ring byte for byte), then each hand-written
+         K1-K3's weight ring byte for byte), then each hand-written
          kernel instance of the paths (encoder attention in bf16 and fp32 and
          its P2 design probe, the fused QKV / O-residual / MLP decode kernels
-         in int8 and q4g at B up to 128, bf16 and fp32 (the MLP in bf16 at B
-         <= 8 on its weight ring, with its three launches' device times from
-         the profiler), the flash-attention
+         in int8 and q4g at B up to 128, bf16 and fp32 (in bf16 at B <= 8
+         on their weight ring, with its launches' device times from the
+         profiler, K2 and K3 beside torch's int8 / int4 weight-only
+         product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in its q4, int8 and q4g
          loaders, also at a K that is not a multiple of 128, and the W8A8
@@ -67,7 +68,8 @@ Phase 5  builds SliME-8B as ``--load-4bit --int4-scheme group
          checks them as phase 2 does, and the launches per request (the
          q4g matmul's wgmma instance 7 x 32 per prefill, the W8A8 matmul
          4 x 23 per encode, the flash forward 32 per prefill, the q4g decode
-         kernels 32 per step, the q4 and int8 loaders never); then phase 3's
+         kernels 32 per step, each on its weight ring, the q4 and int8
+         loaders never); then phase 3's
          stage times and traces for it, with K7's and K8's device time and
          launches in one TTFT.
 Phase 5b builds config B (``--load-4bit --int4-scheme absmax
@@ -156,7 +158,9 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_o_residual": 2e-3, "fused_mlp_decode": 2e-3,
         "fused_qkv_decode_q4g": 2e-3, "fused_o_residual_q4g": 2e-3,
         "fused_mlp_decode_q4g": 2e-3, "fused_mlp_decode_ring": 2e-3,
-        "fused_mlp_decode_q4g_ring": 2e-3,
+        "fused_mlp_decode_q4g_ring": 2e-3, "fused_qkv_decode_ring": 2e-3,
+        "fused_qkv_decode_q4g_ring": 2e-3, "fused_o_residual_ring": 2e-3,
+        "fused_o_residual_q4g_ring": 2e-3,
         "flash_fwd": 5e-3, "flash_bwd_dkdv": 5e-3, "flash_bwd_dq": 5e-3,
         "flash_fwd_f32": 1e-5, "flash_bwd_dkdv_f32": 1e-5, "flash_bwd_dq_f32": 1e-5,
         "flash_fwd_d256": 5e-3, "flash_bwd_dkdv_d256": 5e-3, "flash_bwd_dq_d256": 5e-3,
@@ -234,11 +238,20 @@ KERNELS = {
                              "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode_q4g": ("slime_tpu_torch/csrc/fused_decode.cu",
                              "slime_tpu/ops/fused_mlp.py:366"),
-    # K1's weight ring (bf16 x, int8 or q4g weights, B <= 8: the decode steps)
+    # K1-K3 on the weight ring (bf16 x, int8 or q4g weights, B <= 8, where a
+    # launch plan exists: the decode steps)
     "fused_mlp_decode_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
                               "slime_tpu/ops/fused_mlp.py:366"),
     "fused_mlp_decode_q4g_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
                                   "slime_tpu/ops/fused_mlp.py:366"),
+    "fused_qkv_decode_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                              "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_qkv_decode_q4g_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                  "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                              "slime_tpu/ops/fused_qkvo.py:209"),
+    "fused_o_residual_q4g_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                  "slime_tpu/ops/fused_qkvo.py:209"),
     "quant_matmul_q4": ("slime_tpu_torch/csrc/quant_matmul.cu",
                         "slime_tpu/ops/quant_matmul.py:130"),
     "quant_matmul_int8": ("slime_tpu_torch/csrc/quant_matmul.cu",
@@ -286,14 +299,15 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
 # mma.sync instance takes bf16 x below 64 rows, which no path sends it (the
 # prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1,
-# P3 and P4 probes are design probes, off every path. K1's row-per-warp
+# P3 and P4 probes are design probes, off every path. K1-K3's row-per-warp
 # instances in bf16 with int8 or q4g weights take B > 8 only (the weight
-# ring takes B <= 8), which no path sends them (decode runs at B = 1; phase
-# 7's B = 65 is fp32). Phase 1 checks them; their launch counts stay 0.
+# ring takes B <= 8 at these widths), which no path sends them (decode runs
+# at B = 1; phase 7's B = 65 is fp32). Phase 1 checks them; their launch
+# counts stay 0.
 OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
-            "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot", "fused_mlp_decode",
-            "fused_mlp_decode_q4g") + D256 + WIDE
+            "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
+    n + sfx for n in FUSED for sfx in ("", "_q4g")) + D256 + WIDE
 
 
 def _counters():
@@ -333,8 +347,9 @@ def _counters():
     for n, fn in fused.items():
         for sfx in ("", "_q4g", "_f32", "_f32_q4g"):
             out[n + sfx] = (fn, sfx.lstrip("_") + ("_" if sfx else "") + "launches")
-    out["fused_mlp_decode_ring"] = (fused_mlp.fused_mlp_decode, "ring_launches")
-    out["fused_mlp_decode_q4g_ring"] = (fused_mlp.fused_mlp_decode, "q4g_ring_launches")
+    for n, fn in fused.items():
+        out[n + "_ring"] = (fn, "ring_launches")
+        out[n + "_q4g_ring"] = (fn, "q4g_ring_launches")
     return out
 
 
@@ -350,11 +365,12 @@ def launch_counts():
         counts[n] -= counts[n + "_q4g"] + counts[n + "_f32"] - both
         counts[n + "_q4g"] -= both
         counts[n + "_f32"] -= both
-    # K1's .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g ones
-    ring_q4g = counts["fused_mlp_decode_q4g_ring"]
-    counts["fused_mlp_decode_ring"] -= ring_q4g
-    counts["fused_mlp_decode"] -= counts["fused_mlp_decode_ring"]
-    counts["fused_mlp_decode_q4g"] -= ring_q4g
+    for n in FUSED:
+        # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g ones
+        ring_q4g = counts[n + "_q4g_ring"]
+        counts[n + "_ring"] -= ring_q4g
+        counts[n] -= counts[n + "_ring"]
+        counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
         counts[n] -= counts[n + "_f32"]
@@ -612,8 +628,10 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
         f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
-    for what, pattern in (("K1 weight ring (mlp_ring_kernel)", "mlp_ring_kernel"),
-                          ("row norms of K1 and K2 (rms_norm_kernel)", "rms_norm_kernel")):
+    for what, pattern in (("K1-K3 weight ring (weight_ring_kernel)", "weight_ring_kernel"),
+                          ("row norms of K1 and K2 (rms_norm_kernel)", "rms_norm_kernel"),
+                          ("K2 row per warp (qkv_kernel)", "qkv_kernel"),
+                          ("K1 / K3 row per warp (resid_kernel)", "resid_kernel")):
         ms, n = trace_kernel(out / f"profile_decode_{tag}.json", pattern)
         log(f"phase {tag} decode {what}: {ms / PROFILE_STEPS:.3f} ms/step of device time over "
             f"{n / PROFILE_STEPS:.0f} launches/step")
@@ -1010,11 +1028,13 @@ def decode_kernels(dev, cfg, g, flush, record):
     1, 8) and q4g (B = 1, 64) in bf16, as before; then, from a generator of
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
-    compute dtype). The records keep B = 1; K1 in bf16 at B <= 8 is its
-    weight ring (``fused_mlp_decode_ring``, ``_q4g_ring``), whose three
-    launches' device time (profiler) is logged at B = 1 and 8, and K1's
-    row-per-warp bf16 instances keep their first case (B = 64 or 65). The
-    MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
+    compute dtype), and q4g at B = 8 in bf16. The records keep B = 1; K1-K3
+    in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
+    routing rule of each wrapper), whose launches' device time (profiler)
+    is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
+    their first case (B = 64 or 65). K2 and K3 in bf16 are timed beside one
+    PyTorch call of their int8 or q4g product alone (``decode_library``).
+    The MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.probes.mlp_decode import profile_split
 
@@ -1022,7 +1042,9 @@ def decode_kernels(dev, cfg, g, flush, record):
     H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
     NKV, I = cfg2.num_kv_heads * cfg2.head_dim, cfg2.intermediate_size
     g_new = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g_q4g8 = torch.Generator(device=dev).manual_seed(SEED + 10)
     bf, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fmt, batches in (("int8", (1, 8)), ("q4g", (1, 64))):
         two = (int8_llm_params(cfg2, g, dev)["layers"] if fmt == "int8"
                else q4g_llm_layers(cfg2, g, dev))
@@ -1046,8 +1068,17 @@ def decode_kernels(dev, cfg, g, flush, record):
                                  w("post_attention_layernorm", "gate_proj", "up_proj",
                                    "down_proj"), H, 3 * H * I),
         }
+        code = fused_qkvo.INT8 if fmt == "int8" else fused_qkvo.Q4G
+        # each wrapper's routing rule: (B, dtype) -> the weight ring or not
+        routes = {"fused_qkv_decode": lambda B, d: fused_qkvo.qkv_ring_route(
+                      B, d, code, H, NQ, NKV, sms),
+                  "fused_o_residual": lambda B, d: fused_qkvo.o_ring_route(
+                      B, d, code, NQ, H, sms),
+                  "fused_mlp_decode": lambda B, d: fused_mlp.ring_route(B, d, code, H, I, sms)}
         # (activation dtype, record suffix, batch sizes, generator)
         runs = ((bf, "", batches, g), (bf, "", (65, 128), g_new), (f32, "_f32", (1, 65), g_new))
+        if fmt == "q4g":
+            runs += ((bf, "", (8,), g_q4g8),)
         for dtype, dsfx, bs, gen in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
@@ -1056,32 +1087,68 @@ def decode_kernels(dev, cfg, g, flush, record):
                     acts = (x, a) if name == "fused_o_residual" else (x,)
                     floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                              if name == "fused_mlp_decode" and dtype == bf else None)
-                    ring = name == "fused_mlp_decode" and fused_mlp.ring_instance(
-                        B, dtype, fused_qkvo.INT8 if fmt == "int8" else fused_qkvo.Q4G)
+                    ring = routes[name](B, dtype) is not None
+                    library = (decode_library(name, fmt, two, x, a)
+                               if dtype == bf and name != "fused_mlp_decode" else None)
                     check_and_time(record, name + dsfx + fsfx + ("_ring" if ring else ""),
                                    f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} "
                                    f"B={B} layer 1",
                                    lambda: kern(x, a), lambda: ref(x, a),
                                    nbytes(*acts, *reads) + B * cols * x.element_size(),
                                    2 * B * macs, BF16_OPS if dtype == bf else F32_OPS, flush,
-                                   main=B == 1, dispatch=B == 1, floor=floor)
+                                   main=B == 1, dispatch=B == 1, floor=floor, library=library)
                     if ring and B in (1, 8):
                         short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
                                                     "").split("(")[0]
                         split, span = profile_split(lambda: kern(x, a), flush)
-                        log(f"phase 1 fused_mlp_decode{fsfx}_ring {fmt} B={B} launches "
+                        log(f"phase 1 {name}{fsfx}_ring {fmt} B={B} launches "
                             f"(profiler, device ms each, L2 flushed): "
                             + ", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
                             + f"; first start to last end {span:.4f} ms")
         del two, cases
 
 
-def int4pack_library(x, qw):
-    """torch._weight_int4pack_mm on K7's inputs, as a yardstick: q4g's
-    signed nibbles n as unsigned n + 8 with zero points 0 and the group
-    scales in bf16 (that call's form, w = (u - 8) s + 0), group size 128.
-    None, with the reason logged, where the installed torch does not run
-    it on this card."""
+def decode_library(name, fmt, two, x, a):
+    """One PyTorch call of K2's or K3's bf16 product alone (no row norm, no
+    residual) on layer 1's weights: torch._weight_int8pack_mm (int8) or
+    torch._weight_int4pack_mm at group size 128 (q4g), over W_q, W_k and
+    W_v concatenated (once, outside the timing) for K2. None, with the
+    reason logged, where the installed torch does not run it on this card."""
+    names = ("q_proj", "k_proj", "v_proj") if name == "fused_qkv_decode" else ("o_proj",)
+    act = x if name == "fused_qkv_decode" else a
+    ws = [two[n]["weight"] for n in names]
+    if fmt == "int8":
+        return int8pack_library(name, act, torch.cat([w["q"][1] for w in ws]),
+                                torch.cat([w["scale"][1, :, 0] for w in ws]))
+    return int4pack_library(act, {"q4g": torch.cat([w["q4g"][1] for w in ws]),
+                                  "scale": torch.cat([w["scale"][1] for w in ws])}, name)
+
+
+def int8pack_library(name, x, q, scale):
+    """torch._weight_int8pack_mm(x, q, scale) (bf16 x, int8 q [N, K], scales
+    [N]): per-row int8 weights' product. None, with the reason logged, where
+    the installed torch does not run it on this card."""
+    if not hasattr(torch, "_weight_int8pack_mm"):
+        log(f"phase 1 {name}: this torch has no torch._weight_int8pack_mm")
+        return None
+    scale = scale.to(x.dtype)
+    fn = lambda: torch._weight_int8pack_mm(x, q, scale)  # noqa: E731
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"phase 1 {name}: torch._weight_int8pack_mm does not run here: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None
+
+
+def int4pack_library(x, qw, name="quant_matmul_q4g_wgmma"):
+    """torch._weight_int4pack_mm on q4g inputs (K7's, K2's, K3's), as a
+    yardstick: q4g's signed nibbles n as unsigned n + 8 with zero points 0
+    and the group scales in bf16 (that call's form, w = (u - 8) s + 0),
+    group size 128. None, with the reason logged, where the installed torch
+    does not run it on this card."""
     from slime_tpu_torch.ops import quantization as quant
     try:
         u = quant.int_values(qw).to(torch.int32) + 8
@@ -1094,7 +1161,7 @@ def int4pack_library(x, qw):
         torch.cuda.synchronize()
         return fn
     except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
-        log(f"phase 1 quant_matmul_q4g_wgmma: torch._weight_int4pack_mm does not run here: "
+        log(f"phase 1 {name}: torch._weight_int4pack_mm does not run here: "
             f"{str(e).splitlines()[0][:160]}")
         return None
 
@@ -1133,9 +1200,11 @@ def quant_kernels(dev, g, flush, record):
     1000, in bf16, and in fp32 at qkv, beside torch._int_mm of its int8
     operands (the product alone).
     K6's int8 loader is timed beside ``torch._weight_int8pack_mm`` and K7's
-    wgmma instance beside ``torch._weight_int4pack_mm`` (``int4pack_library``)
-    where the installed torch runs them on the card; no other single PyTorch
-    call computes these functions."""
+    wgmma and mma.sync instances beside ``torch._weight_int4pack_mm`` at
+    group size 128 (``int4pack_library``) where the installed torch runs
+    them on the card; no other single PyTorch call computes these functions
+    (per-row q4 has none: ``_weight_int4pack_mm`` takes group sizes 32-256
+    only)."""
     from slime_tpu_torch.ops import quant_matmul as qm
     from slime_tpu_torch.ops import quantization as quant
     from slime_tpu_torch.ops import w8a8_matmul as w8
@@ -1172,17 +1241,10 @@ def quant_kernels(dev, g, flush, record):
             kern, ref = qm.quant_matmul, qm.quant_matmul_ref
         del w
         library = None
-        if name == "quant_matmul_int8" and hasattr(torch, "_weight_int8pack_mm"):
-            library = lambda: torch._weight_int8pack_mm(  # noqa: E731
-                x, qw["q"], qw["scale"][:, 0].to(bf))
-            try:
-                library()
-            except (RuntimeError, NotImplementedError) as e:
-                log(f"phase 1 {name}: torch._weight_int8pack_mm does not run here: "
-                    f"{str(e).splitlines()[0][:160]}")
-                library = None
-        if name == "quant_matmul_q4g_wgmma" and main:
-            library = int4pack_library(x, qw)
+        if name == "quant_matmul_int8":
+            library = int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
+        if name in ("quant_matmul_q4g_wgmma", "quant_matmul_q4g") and main:
+            library = int4pack_library(x, qw, name)
         check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
                        f"W [{N}, {K}]", lambda: kern(x, qw), lambda: ref(x, qw),
                        nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
@@ -1476,9 +1538,10 @@ def serve_phases(dev, cfg):
     def expect(requests, steps):
         # one 2048-position prefill per request, the flash forward in each layer
         return {"encoder_attention": (23 * requests, False),
-                "fused_qkv_decode": (32 * steps, False),
-                "fused_o_residual": (32 * steps, False),
+                "fused_qkv_decode_ring": (32 * steps, False),
+                "fused_o_residual_ring": (32 * steps, False),
                 "fused_mlp_decode_ring": (32 * steps, False),
+                **{n: (0, True) for n in FUSED},
                 "flash_fwd": (32 * requests, True)}
     launches = serve("2", dev, cfg, params, expect, "3")
 
@@ -1608,10 +1671,9 @@ def quantized_serve_phases(dev, cfg):
         exact = {"quant_matmul_q4g_wgmma": 7 * L * requests, "quant_matmul_q4g": 0,
                  "w8a8_matmul": 4 * vis * requests,
                  "encoder_attention": vis * requests, "flash_fwd": L * requests,
-                 "fused_qkv_decode_q4g": L * steps, "fused_o_residual_q4g": L * steps,
-                 "fused_mlp_decode_q4g_ring": L * steps, "fused_mlp_decode_q4g": 0,
-                 "quant_matmul_q4": 0, "quant_matmul_int8": 0, "fused_qkv_decode": 0,
-                 "fused_o_residual": 0, "fused_mlp_decode": 0, "fused_mlp_decode_ring": 0}
+                 **{n + "_q4g_ring": L * steps for n in FUSED},
+                 **{n + sfx: 0 for n in FUSED for sfx in ("", "_q4g", "_ring")},
+                 "quant_matmul_q4": 0, "quant_matmul_int8": 0}
         return {n: (want, True) for n, want in exact.items()}
     launches = serve("5", dev, cfg, params, expect, "5")
     for n, c in default_dtype_quantized(dev, cfg, params, "q4g").items():

@@ -35,8 +35,9 @@
 // activations' dtype (a few tens of KB a row, which stays in L2), then down
 // plus the residual.
 //
-// The weight ring (K1's bf16 instances for int8 and q4g weights at B <= 8,
-// the decode steps of the int8 and 4-bit serving paths; mlp_ring_kernel).
+// The weight ring (weight_ring_kernel): K1-K3's bf16 instances for int8 and
+// q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
+// paths, wherever a launch plan exists (the wrappers' routing rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
 // SM) and by one dependent 16-byte load a lane in flight. Instead:
@@ -45,19 +46,31 @@
 //     matrix a stage (one contiguous range each, ~8 KB), into a ring of up
 //     to 128 KB in shared memory by 1-D bulk copies on mbarriers;
 //   - sixteen consumer warps take the band's rows in turn, each summing
-//     whole rows on its own (no sums cross warps), sixteen rows at once;
+//     whole rows on its own (no sums cross warps), sixteen rows at once, or
+//     with one matrix of an even number of rows a stage (K2, K3) two rows a
+//     warp, each activation load serving both;
 //   - int8 and int4 become fp32 exactly without I2F: the byte (XOR 0x80) or
 //     the nibble (XOR 8) is put into the low mantissa of 2^23 by one prmt,
 //     and one FADD of -(2^23 + 128) or -(2^23 + 8) leaves its signed value;
-//   - the activations (h for gate/up, a for down; at most 8 rows, cut into
-//     launches of fewer rows where they would not fit) are copied into
-//     shared memory once a block and read there, one load for gate and up;
-//     q4g scales ride in the stage beside their rows, int8 scales and
-//     down's residual are read into shared memory once a band;
-//   - rms_norm -> gate/up -> down are chained by programmatic dependent
+//   - the activations (h for gate/up, a for down, attn for o; for q/k/v x,
+//     normalised by each block as it copies it: K2's input norm needs no
+//     launch of its own; at most 8 rows, cut into launches of fewer rows
+//     where they would not fit) are copied into shared memory once a block
+//     by the consumers, with plain loads that do not queue behind the
+//     weights' bulk copies, and read there, one load for gate and up; q4g
+//     scales ride in the stage beside their rows, int8 scales and the
+//     residual are read into shared memory once a band;
+//   - rms_norm -> gate/up -> down (K1), and K2's and K3's one launch after
+//     their caller's last kernel, are chained by programmatic dependent
 //     launch: each block signals its dependents at its start, so the next
 //     kernel's producer streams its first stages while the previous kernel
-//     ends, and waits (griddepcontrol.wait) before it copies the activations.
+//     ends; its consumers wait (griddepcontrol.wait) before they read the
+//     activations;
+//   - one kernel serves all three: gate/up streams two matrices a stage
+//     (MATS 2); down, o and q/k/v one (MATS 1), q/k/v over one row space of
+//     three parts, [0, NQ) of W_q, then W_k and W_v, a stage's copies split
+//     where it meets a part's end, so no copy crosses from one matrix into
+//     the next.
 // What bounds it: HBM's bytes for int8 (the ring without its dot products
 // streams the weights barely faster); for q4g, with two weights a byte, also
 // the consumers' instructions (about five a weight).
@@ -248,10 +261,11 @@ __device__ __forceinline__ void scaled_row_dot(const TA* __restrict__ h, int K, 
 }
 
 // h[b] = TA(x[b] * rsqrt(mean(x[b]^2) + eps) * w), one block per row
-// (fused_qkvo.py:72-77, fused_mlp.py:227-233). K2 and the row-per-warp K1
-// launch 256 threads a row; the weight ring 1024, so each thread's few loads
-// are in flight at once (256 threads walk a 4096-wide row in 16 dependent
-// steps: 14 us at B = 1 on an H100, about a tenth of K1).
+// (fused_qkvo.py:72-77, fused_mlp.py:227-233). The row-per-warp K1 and K2
+// launch 256 threads a row; K1's weight-ring call 1024, so each thread's
+// few loads are in flight at once (256 threads walk a 4096-wide row in 16
+// dependent steps: 14 us at B = 1 on an H100, about a tenth of K1). K2's
+// weight-ring call normalises x in the ring kernel's prologue instead.
 template <typename TA, int THREADS = 256>
 __global__ void __launch_bounds__(THREADS) rms_norm_kernel(const TA* __restrict__ x,
                                                            const float* __restrict__ w,
@@ -372,20 +386,28 @@ __global__ void __launch_bounds__(kThreads) gate_up_kernel(
 inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
 // ---------------------------------------------------------------------------
-// The weight ring: K1's bf16 instances for int8 and q4g weights at B <= 8
+// The weight ring: K1-K3's bf16 instances for int8 and q4g weights at B <= 8
 // ---------------------------------------------------------------------------
 constexpr int kRingMaxWarps = 16;                       // consumer warps a block, at most
 constexpr int kRingMaxRows = 8;                         // activation rows a launch
 constexpr int kRingSmemMax = 232448;                    // 227 KB, a block's most
 
-// One launch of mlp_ring_kernel (the wrapper's launch plan, fused_mlp.ring_plan):
-// y = f(act @ W_m^T) over MATS matrices of N rows, row_bytes a row.
+// One launch of weight_ring_kernel (the wrapper's launch plan,
+// weight_ring.ring_launch): y = f(act @ W^T) over N output rows, row_bytes
+// of weights a row. MATS 2 (gate/up): two matrices of N rows, w[0] and
+// w[1], streamed side by side, one output. MATS 1: the row space [0, N) is
+// `parts` matrices one after another (K2: W_q, W_k, W_v; else one), part p
+// rows [part_end[p - 1], part_end[p]) of w[p], written to out[p].
 struct RingArgs {
-  const unsigned char* w[2];   // weights [N, row_bytes]: int8 [N, K] or packed q4g [N, K / 2]
-  const float* s[2];           // scales: int8 [N] (one a row), q4g [N, K / 128]
+  const unsigned char* w[3];   // weights [rows, row_bytes]: int8 [rows, K] or q4g [rows, K / 2]
+  const float* s[3];           // scales: int8 [rows] (one a row), q4g [rows, K / 128]
   const bf16* act;             // [B, K] activations, copied into shared memory whole
-  const bf16* resid;           // [B, N] added to the output (MATS == 1)
-  bf16* out;                   // [B, N]
+  const bf16* resid;           // [B, N] added to the output (MATS == 1), or null
+  bf16* out[3];                // [B, rows of the part] (MATS 2: out[0], [B, N])
+  int part_end[3];             // MATS 1: where each part of the row space ends (the last N)
+  int parts;                   // 1 to 3 (MATS 2: 1)
+  const float* norm_w;         // [K] fp32: act is x, and the block stages rms_norm(x) * w
+  float eps;                   //   (K2's input norm), or null: act is staged as it is
   int B, K, N;                 // activation rows (<= 8), contraction, output rows
   int row_bytes;               // weight bytes a row
   int rows_per_stage;          // R (1, 2, 4 or 8): a stage holds R rows of each matrix
@@ -423,6 +445,32 @@ __device__ __forceinline__ void int4x16_f32(const uint4 v, float* f) {
   }
 }
 
+// The activations in shared memory: each row of K bf16 as K / 8 16-byte
+// chunks, chunk j stored at j ^ ((j >> 3) & 1). The consumers read a pair
+// of chunks (2 c, 2 c + 1: 16 columns) a lane, lanes c = 0..31 (or, for q4g,
+// pairs 16 blk + (lane & 7)) at once: unswizzled, their first chunks would
+// fall on half of the banks (a 2-way conflict); swizzled, eight lanes in a
+// row cover all 32 banks. K is a multiple of 16.
+__device__ __forceinline__ int act_chunk(int j) { return j ^ ((j >> 3) & 1); }
+
+// 8 bf16 (one 16-byte chunk) -> 8 fp32
+__device__ __forceinline__ void bf16x8_f32(const uint4 v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = bf16_lo(w[i]);
+    f[2 * i + 1] = bf16_hi(w[i]);
+  }
+}
+
+// columns 16 cc .. 16 cc + 15 of a swizzled activation row -> 16 fp32
+__device__ __forceinline__ void load_act16(const bf16* row, int cc, float* f) {
+  const uint4* q = reinterpret_cast<const uint4*>(row) + 2 * cc;
+  const int sw = (cc >> 2) & 1;                // the pair's chunks swap places
+  bf16x8_f32(q[sw], f);
+  bf16x8_f32(q[sw ^ 1], f + 8);
+}
+
 // acc[m][b] += act[b, 16 c .. 16 c + 15] . W_m[row, same], for the int8 vector
 // c of one row of each matrix in the stage (matrix m at wrow + m * mat_stride).
 template <int MATS, int BT>
@@ -437,7 +485,7 @@ __device__ __forceinline__ void ring_dot_int8(const unsigned char* wrow, int mat
   for (int b = 0; b < BT; ++b) {
     if (b < B) {
       float hf[16];
-      load_act<16>(act + (size_t)b * K + 16 * c, hf);
+      load_act16(act + (size_t)b * K, c, hf);
 #pragma unroll
       for (int m = 0; m < MATS; ++m)
 #pragma unroll
@@ -456,7 +504,7 @@ __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_
                                              const bf16* act, int K, int B,
                                              const float* const (&s)[MATS],
                                              float (&acc)[MATS][BT]) {
-  const int blk = c >> 3, lo = 256 * blk + 16 * (c & 7);
+  const int blk = c >> 3, lo = 16 * blk + (c & 7);      // lo: a pair of chunks
   uint4 v[MATS];
 #pragma unroll
   for (int m = 0; m < MATS; ++m)
@@ -470,7 +518,7 @@ __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_
     for (int b = 0; b < BT; ++b) {
       if (b < B) {
         float hf[16];
-        load_act<16>(act + (size_t)b * K + lo, hf);
+        load_act16(act + (size_t)b * K, lo, hf);
 #pragma unroll
         for (int m = 0; m < MATS; ++m) {
           float t = 0.f;
@@ -494,7 +542,7 @@ __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_
   for (int b = 0; b < BT; ++b) {
     if (b < B) {
       float hf[16];
-      load_act<16>(act + (size_t)b * K + lo + 128, hf);
+      load_act16(act + (size_t)b * K, lo + 8, hf);
 #pragma unroll
       for (int m = 0; m < MATS; ++m) {
         float t = 0.f;
@@ -513,74 +561,98 @@ __device__ __forceinline__ int band_start(int g, int G, int N, int align) {
   return g >= G ? N : (int)((long long)g * N / G) / align * align;
 }
 
+// The part of the row space that row `row` lies in, and (local) its row
+// within that part's matrix.
+__device__ __forceinline__ int part_of(const RingArgs& p, int row, int& local) {
+  int q = 0, lo = 0;
+  while (q + 1 < p.parts && row >= p.part_end[q]) lo = p.part_end[q++];
+  local = row - lo;
+  return q;
+}
+
 // Stage i of the block's band [r0, r1): rows r0 + R i .. (at most R, fewer
 // at the band's end) of every matrix into ring slot i % S, one bulk copy a
-// matrix, and for q4g one more a matrix of those rows' scales (after the
-// weights: [m][R][K / 128] fp32), all completing on full[i % S].
+// matrix and part of the row space the rows meet, and for q4g one more of
+// those rows' scales (after the weights: [m][R][K / 128] fp32), all
+// completing on full[i % S]. Matrix m of part q is w[MATS == 1 ? q : m].
 template <int FMT, int MATS>
 __device__ __forceinline__ void ring_load(const RingArgs& p, unsigned char* ring,
                                           uint64_t* full, int* issued, int i, int r0, int r1) {
   const int slot = i % p.stages, R = p.rows_per_stage, row = r0 + i * R;
   const int rows = min(R, r1 - row), kg = p.K / 128;
-  const uint32_t bytes = (uint32_t)rows * p.row_bytes;
-  const uint32_t sbytes = FMT == kQ4G ? (uint32_t)rows * kg * 4 : 0;
+  const uint32_t sb = FMT == kQ4G ? (uint32_t)kg * 4 : 0;     // scale bytes a row
   unsigned char* dst = ring + (size_t)slot * p.stage_bytes;
-  mbar_arrive_expect_tx(&full[slot], MATS * (bytes + sbytes));
+  mbar_arrive_expect_tx(&full[slot], MATS * rows * (p.row_bytes + sb));
+  for (int q = 0, lo = 0; q < p.parts; lo = p.part_end[q++]) {
+    const int a = max(row, lo), b = min(row + rows, p.part_end[q]);
+    if (a >= b) continue;
 #pragma unroll
-  for (int m = 0; m < MATS; ++m) {
-    bulk_load(dst + m * R * p.row_bytes, p.w[m] + (size_t)row * p.row_bytes, bytes,
-              &full[slot]);
-    if (FMT == kQ4G)
-      bulk_load(dst + MATS * R * p.row_bytes + m * R * kg * 4, p.s[m] + (size_t)row * kg,
-                sbytes, &full[slot]);
+    for (int m = 0; m < MATS; ++m) {
+      const int mi = MATS == 1 ? q : m, at = m * R + a - row;
+      bulk_load(dst + (size_t)at * p.row_bytes, p.w[mi] + (size_t)(a - lo) * p.row_bytes,
+                (uint32_t)(b - a) * p.row_bytes, &full[slot]);
+      if (FMT == kQ4G)
+        bulk_load(dst + (size_t)MATS * R * p.row_bytes + at * sb,
+                  p.s[mi] + (size_t)(a - lo) * kg, (uint32_t)(b - a) * sb, &full[slot]);
+    }
   }
   reinterpret_cast<volatile int*>(issued)[slot] = i;
 }
 
 // Row `row`, activation row b, from the scaled sums v: gate/up (MATS 2)
-// a = bf16(silu(g) u); down (MATS 1) y = bf16(x + d) with res = x[b, row],
-// as gate_up_kernel and resid_kernel round them.
+// a = bf16(silu(g) u); MATS 1 y = bf16(x + d) with res = x[b, row] (down,
+// o), or bf16(d) with res 0 (q/k/v), into its part's output, as
+// gate_up_kernel, resid_kernel and qkv_kernel round them.
 template <int MATS>
 __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
                                               const float (&v)[MATS], float res) {
-  const size_t i = (size_t)b * p.N + row;
   if constexpr (MATS == 2) {
     const float g = v[0], u = v[1];
     const float sig = 1.f / (1.f + expf(-g));
-    act_store(p.out + i, g * sig * u);
+    act_store(p.out[0] + (size_t)b * p.N + row, g * sig * u);
   } else {
-    act_store(p.out + i, res + v[0]);
+    int local;
+    const int q = part_of(p, row, local);
+    const int n = p.part_end[q] - (q ? p.part_end[q - 1] : 0);
+    act_store(p.out[q] + (size_t)b * n + local, res + v[0]);
   }
 }
 
-// Shared memory: the ring [S][stage_bytes], the activations [B][K] bf16,
-// full[S], empty[S], the activations' barrier and issued[S], then the epilogue's
-// operands of the band: int8 row scales [MATS][band_cap] and down's
-// residual x [B][band_cap] (fp32), loaded once at the start so no row waits
-// on global memory. The band's rows are dealt to the W = blockDim.x / 32 - 1
-// consumer warps in turn (row t of the band to warp t % W; R divides W, so a
-// warp keeps one row position of the stages it takes): each warp sums whole
-// rows on its own and writes their outputs, W rows of W / R stages at once,
-// and releases a stage (empty, R arrivals) as soon as its row is read. A
-// warp may reach stage i before the producer has armed its slot for it,
-// while the slot's barrier still waits for stage i - S: the parity wait
-// would then see stage i - 2 S's completed phase and return at once. So the
-// producer writes i into issued[slot] once the stage is armed, and a warp
-// waits for that before it waits on the barrier.
-template <int FMT, int MATS, int BT>
-__global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) mlp_ring_kernel(
+// Shared memory: the ring [S][stage_bytes], the activations [B][K] bf16
+// (chunk-swizzled, act_chunk), full[S], empty[S], issued[S], the norm's
+// partial sums [8][16], then the epilogue's operands of the band: int8 row
+// scales [MATS][band_cap] and the residual x [B][band_cap] (fp32, MATS 1
+// with a residual), loaded once at the start so no row waits on global
+// memory. The producer streams only weights, from the block's start; the
+// consumers wait (griddepcontrol.wait) for the previous kernel's writes,
+// then stage the activations themselves with plain loads (a bulk copy
+// behind the weights' would arrive only once the stages before it had: on
+// a small band, all of them), normalising them first where norm_w is set
+// (K2), and read the residual. The band's rows are dealt to the W =
+// blockDim.x / 32 - 1 consumer warps G at a time (rows t .. t + G - 1 of a
+// stage to warp (t / G) % W; G divides R and R / G divides W, so a warp
+// keeps one position of the stages it takes): each warp sums whole rows on
+// its own and writes their outputs, G W rows at once, one activation load
+// serving its G rows (or gate's and up's), and releases a stage (empty, R
+// / G arrivals) as soon as its rows are read. A warp may reach stage i
+// before the producer has armed its slot for it, while the slot's barrier
+// still waits for stage i - S: the parity wait would then see stage i - 2
+// S's completed phase and return at once. So the producer writes i into
+// issued[slot] once the stage is armed, and a warp waits for that before it
+// waits on the barrier.
+template <int FMT, int MATS, int BT, int G>
+__global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     const __grid_constant__ RingArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.stages, R = p.rows_per_stage, W = blockDim.x / 32 - 1;
   unsigned char* ring = smem;
   bf16* act = reinterpret_cast<bf16*>(smem + (size_t)S * p.stage_bytes);
-  const uint32_t act_bytes = (uint32_t)p.B * p.K * 2;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)S * p.stage_bytes + act_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(act + (size_t)p.B * p.K);
   uint64_t* empty = full + S;
-  uint64_t* act_bar = empty + S;
-  int* issued = reinterpret_cast<int*>(act_bar + 1);              // the stage each slot holds
-  float* ep_scale = reinterpret_cast<float*>(issued + S);         // int8: [MATS][cap]
-  float* ep_res = ep_scale + (FMT == kInt8 ? MATS * p.band_cap : 0);   // down: [B][cap]
+  int* issued = reinterpret_cast<int*>(empty + S);                // the stage each slot holds
+  float* red = reinterpret_cast<float*>(issued + S);              // norm: [rows][warps]
+  float* ep_scale = red + kRingMaxRows * kRingMaxWarps;           // int8: [MATS][cap]
+  float* ep_res = ep_scale + (FMT == kInt8 ? MATS * p.band_cap : 0);   // resid: [B][cap]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = band_start(blockIdx.x, gridDim.x, p.N, p.align);
   const int r1 = band_start(blockIdx.x + 1, gridDim.x, p.N, p.align);
@@ -588,22 +660,18 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) mlp_ring_kernel(
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], R);
+      mbar_init(&empty[s], R / G);
       issued[s] = -1;
     }
-    mbar_init(act_bar, 1);
     fence_barrier_init();
   }
   __syncthreads();
   griddep_launch_dependents();   // the next kernel's producers may start streaming
 
-  if (warp == W) {               // the producer
+  if (warp == W) {               // the producer: the weights only, which no kernel writes
     if (lane == 0) {
       int i = 0;
       for (; i < n_st && i < S; ++i) ring_load<FMT, MATS>(p, ring, full, issued, i, r0, r1);
-      griddep_wait();            // the activations are the previous kernel's output
-      mbar_arrive_expect_tx(act_bar, act_bytes);
-      bulk_load(act, p.act, act_bytes, act_bar);
       for (; i < n_st; ++i) {
         mbar_wait(&empty[i % S], ((i / S) - 1) & 1);
         ring_load<FMT, MATS>(p, ring, full, issued, i, r0, r1);
@@ -612,84 +680,208 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) mlp_ring_kernel(
     return;
   }
 
-  // the band's epilogue operands (x is older than the previous kernel)
+  // The consumers' prologue: the band's int8 scales (and K2's norm weight),
+  // then, once the previous kernel's writes are visible, the activations and
+  // the residual. Under the weights' stream a load's round trip takes
+  // microseconds, so each thread issues its loads (up to eight 16-byte
+  // chunks: all of a 4096-wide layer's activations) before it uses any.
+  const int tid = threadIdx.x, nthr = W * 32, chunks = p.K / 8;
+  const bool res = MATS == 1 && p.resid != nullptr, norm = p.norm_w != nullptr;
+  const float4* nw = reinterpret_cast<const float4*>(p.norm_w);
+  float sc = 0.f;                       // this thread's first int8 scale
+  bf16 rv = {};                         // and residual value (converted once the loads are out)
+  float4 w0 = {}, w1 = {};              // the norm weight of its first chunk
+  if (FMT == kInt8 && tid < MATS * band) {
+    int local;
+    const int q = part_of(p, r0 + tid % band, local);
+    sc = __ldg(p.s[MATS == 1 ? q : tid / band] + local);
+  }
+  if (norm && tid < chunks) {
+    w0 = __ldg(nw + 2 * tid);
+    w1 = __ldg(nw + 2 * tid + 1);
+  }
+  griddep_wait();
+  if (res && tid < p.B * band) rv = p.resid[(size_t)(tid / band) * p.N + r0 + tid % band];
+  const uint4* src = reinterpret_cast<const uint4*>(p.act);
+  uint4* dst = reinterpret_cast<uint4*>(act);
+  if (!norm) {
+    // U rounds of loads in flight at once (K1's down: a is 14336 wide)
+    constexpr int U = 8 / BT;
+    for (int j0 = tid; j0 < chunks; j0 += U * nthr) {
+      uint4 u[U][BT];
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          if (b < p.B && j0 + k * nthr < chunks)
+            u[k][b] = src[(size_t)b * chunks + j0 + k * nthr];
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          if (b < p.B && j0 + k * nthr < chunks)
+            dst[b * chunks + act_chunk(j0 + k * nthr)] = u[k][b];
+    }
+  } else {
+    // h = bf16(x * rsqrt(mean(x^2) + eps) * w), as rms_norm_kernel rounds it:
+    // each thread's sums of squares, then the block's over its warps
+    uint4 v[BT];                        // chunk j of every activation row
+    const auto load = [&](int j) {
+#pragma unroll
+      for (int b = 0; b < BT; ++b)
+        if (b < p.B) v[b] = src[(size_t)b * chunks + j];
+    };
+    if (tid < chunks) load(tid);
+    float ss[BT];
+#pragma unroll
+    for (int b = 0; b < BT; ++b) ss[b] = 0.f;
+    for (int j = tid; j < chunks; j += nthr) {
+      if (j != tid) load(j);
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        if (b >= p.B) continue;
+        float f[8];
+        bf16x8_f32(v[b], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ss[b] = fmaf(f[e], f[e], ss[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      const float t = warp_sum(ss[b]);
+      if (lane == 0) red[b * kRingMaxWarps + warp] = t;
+    }
+    named_barrier(1, nthr);
+    float r[BT];
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      float t = 0.f;
+      for (int w = 0; w < W; ++w) t += red[b * kRingMaxWarps + w];
+      r[b] = 1.f / sqrtf(t / (float)p.K + p.eps);
+    }
+    // one round: this thread's chunk is still in v
+    for (int j = tid; j < chunks; j += nthr) {
+      if (chunks > nthr) {
+        load(j);
+        w0 = __ldg(nw + 2 * j);
+        w1 = __ldg(nw + 2 * j + 1);
+      }
+      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        if (b >= p.B) continue;
+        float f[8];
+        bf16x8_f32(v[b], f);
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(f[2 * e] * r[b] * w[2 * e],
+                                                          f[2 * e + 1] * r[b] * w[2 * e + 1]);
+          o[e] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        dst[b * chunks + act_chunk(j)] = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
   if (FMT == kInt8)
-    for (int t = threadIdx.x; t < MATS * band; t += W * 32)
-      ep_scale[(t / band) * p.band_cap + t % band] = __ldg(p.s[t / band] + r0 + t % band);
-  if (MATS == 1)
-    for (int t = threadIdx.x; t < p.B * band; t += W * 32)
-      ep_res[(t / band) * p.band_cap + t % band] =
-          act_f32(p.resid[(size_t)(t / band) * p.N + r0 + t % band]);
-  named_barrier(1, W * 32);
+    for (int t = tid; t < MATS * band; t += nthr) {
+      if (t >= nthr) {
+        int local;
+        const int q = part_of(p, r0 + t % band, local);
+        sc = __ldg(p.s[MATS == 1 ? q : t / band] + local);
+      }
+      ep_scale[(t / band) * p.band_cap + t % band] = sc;
+    }
+  if (res)
+    for (int t = tid; t < p.B * band; t += nthr) {
+      if (t >= nthr) rv = p.resid[(size_t)(t / band) * p.N + r0 + t % band];
+      ep_res[(t / band) * p.band_cap + t % band] = act_f32(rv);
+    }
+  named_barrier(1, nthr);
 
+  // a lane's weight vectors at once: one row of each of MATS matrices, or G
+  // rows of one (MATS 1), vstride bytes apart in the stage; vector v is row
+  // r + gv of matrix mv
+  constexpr int NV = MATS * G;
   const int vecs = p.row_bytes >> 4, mat_stride = R * p.row_bytes, kg = p.K / 128;
-  mbar_wait(act_bar, 0);
-  for (int t = warp; t < band; t += W) {
+  const int vstride = MATS == 2 ? mat_stride : p.row_bytes;
+  for (int t = warp * G; t < band; t += W * G) {
     const int i = t / R, r = t % R, slot = i % S;
-    float acc[MATS][BT];
+    float acc[NV][BT];
 #pragma unroll
-    for (int m = 0; m < MATS; ++m)
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int b = 0; b < BT; ++b) acc[m][b] = 0.f;
+      for (int b = 0; b < BT; ++b) acc[v][b] = 0.f;
     while (reinterpret_cast<volatile int*>(issued)[slot] != i) __nanosleep(32);
     mbar_wait(&full[slot], (i / S) & 1);
     const unsigned char* stage = ring + (size_t)slot * p.stage_bytes;
     const unsigned char* wrow = stage + (size_t)r * p.row_bytes;
-    const float* s[MATS];
+    const float* s[NV];
 #pragma unroll
-    for (int m = 0; m < MATS; ++m)
-      s[m] = reinterpret_cast<const float*>(stage + MATS * mat_stride) + (m * R + r) * kg;
-    const auto dot = [&](int c, float (&into)[MATS][BT]) {
+    for (int v = 0; v < NV; ++v)
+      s[v] = reinterpret_cast<const float*>(stage + MATS * mat_stride) +
+             ((MATS == 2 ? v : 0) * R + r + (MATS == 2 ? 0 : v)) * kg;
+    const auto dot = [&](int c, float (&into)[NV][BT]) {
       if constexpr (FMT == kQ4G)
-        ring_dot_q4g<MATS, BT>(wrow, mat_stride, c, act, p.K, p.B, s, into);
+        ring_dot_q4g<NV, BT>(wrow, vstride, c, act, p.K, p.B, s, into);
       else
-        ring_dot_int8<MATS, BT>(wrow, mat_stride, c, act, p.K, p.B, into);
+        ring_dot_int8<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
     };
     int c = lane;
     if constexpr (BT == 1) {
       // two vectors at a time into two sets of sums: twice the loads and
       // FFMA chains in flight, where one activation row leaves few
-      float acc2[MATS][BT];
+      float acc2[NV][BT];
 #pragma unroll
-      for (int m = 0; m < MATS; ++m) acc2[m][0] = 0.f;
+      for (int v = 0; v < NV; ++v) acc2[v][0] = 0.f;
       for (; c + 32 < vecs; c += 64) {
         dot(c, acc);
         dot(c + 32, acc2);
       }
 #pragma unroll
-      for (int m = 0; m < MATS; ++m) acc[m][0] += acc2[m][0];
+      for (int v = 0; v < NV; ++v) acc[v][0] += acc2[v][0];
     }
     for (; c < vecs; c += 32) dot(c, acc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);    // this row of the stage is read
-    const int row = r0 + t;
+    if (lane == 0) mbar_arrive(&empty[slot]);    // this warp's rows of the stage are read
 #pragma unroll
     for (int b = 0; b < BT; ++b) {
-      float v[MATS];
+      float v[NV];
 #pragma unroll
-      for (int m = 0; m < MATS; ++m) {
-        v[m] = warp_sum(acc[m][b]);
-        if (FMT == kInt8) v[m] *= ep_scale[m * p.band_cap + t];
+      for (int k = 0; k < NV; ++k) {
+        v[k] = warp_sum(acc[k][b]);
+        if (FMT == kInt8)
+          v[k] *= ep_scale[(MATS == 2 ? k * p.band_cap : k) + t];
       }
-      if (lane == b && b < p.B)
-        ring_epilogue<MATS>(p, row, b, v, MATS == 1 ? ep_res[b * p.band_cap + t] : 0.f);
+      if (lane != b || b >= p.B) continue;
+      if constexpr (MATS == 2) {
+        ring_epilogue<2>(p, r0 + t, b, v, 0.f);
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {   // the band's last rows may not fill the group
+          const float vg[1] = {v[g]};
+          if (t + g < band)
+            ring_epilogue<1>(p, r0 + t + g, b, vg,
+                             p.resid ? ep_res[b * p.band_cap + t + g] : 0.f);
+        }
+      }
     }
   }
 }
 
-// Launch one mlp_ring_kernel instance; with `pdl`, as a programmatic
+// Launch one weight_ring_kernel instance; with `pdl`, as a programmatic
 // dependent of the stream's previous kernel.
-template <int FMT, int MATS, int BT>
-int launch_ring_bt(const RingArgs& a, int grid, int warps, int smem, bool pdl,
-                   cudaStream_t st) {
+template <int FMT, int MATS, int BT, int G>
+int launch_ring_g(const RingArgs& a, int grid, int warps, int smem, bool pdl,
+                  cudaStream_t st) {
   static bool attrs_set = false;               // once per instance
   if (!attrs_set) {
-    cudaError_t e = cudaFuncSetAttribute(mlp_ring_kernel<FMT, MATS, BT>,
+    cudaError_t e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kRingSmemMax);
     // the most shared memory for the carveout: a block takes over half an SM's
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(mlp_ring_kernel<FMT, MATS, BT>,
+      e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
@@ -705,7 +897,18 @@ int launch_ring_bt(const RingArgs& a, int grid, int warps, int smem, bool pdl,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, mlp_ring_kernel<FMT, MATS, BT>, a);
+  return (int)cudaLaunchKernelEx(&cfg, weight_ring_kernel<FMT, MATS, BT, G>, a);
+}
+
+// One matrix with an even number of rows a stage: each warp sums two rows of
+// a stage at once (G 2), so each activation it loads serves both.
+template <int FMT, int MATS, int BT>
+int launch_ring_bt(const RingArgs& a, int grid, int warps, int smem, bool pdl,
+                   cudaStream_t st) {
+  if constexpr (MATS == 1)
+    if (a.rows_per_stage % 2 == 0)
+      return launch_ring_g<FMT, MATS, BT, 2>(a, grid, warps, smem, pdl, st);
+  return launch_ring_g<FMT, MATS, BT, 1>(a, grid, warps, smem, pdl, st);
 }
 
 template <int FMT, int MATS>
@@ -733,27 +936,37 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
   a.band_cap = grid < 1 ? 0 : (a.N + grid - 1) / grid + a.align;
   const int kg = a.K / 128;
   const long long ep = (long long)((q4g ? 0 : MATS) + (MATS == 1 ? bg : 0)) * a.band_cap;
-  const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * 2 +
-                         8 * (2 * S + 1) + 4 * S + 4 * ep;
+  const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * 2 + 8 * 2 * S +
+                         4 * S + 4 * kRingMaxRows * kRingMaxWarps + 4 * ep;
   bool ok = (R == 1 || R == 2 || R == 4 || R == 8) && S >= 1 && bg >= 1 &&
             bg <= kRingMaxRows && grid >= 1 && grid <= a.N && a.row_bytes % 16 == 0 &&
             warps >= R && warps % R == 0 && warps <= kRingMaxWarps &&
             a.stage_bytes == MATS * R * (a.row_bytes + (q4g ? kg * 4 : 0)) &&
-            need <= smem && smem <= kRingSmemMax && a.K % 8 == 0 &&
+            need <= smem && smem <= kRingSmemMax && a.K % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(a.norm_w) % 16 == 0 &&
             (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
-            (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0 && a.N % a.align == 0));
-  for (int m = 0; m < MATS; ++m)
+            (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0)) &&
+            a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N;
+  // every part non-empty, and for q4g starting on a row whose scales are
+  // whole 16-byte units; every matrix 16-byte aligned
+  int part_rows[3] = {0, 0, 0};
+  for (int q = 0, lo = 0; ok && q < a.parts; lo = a.part_end[q++]) {
+    part_rows[q] = a.part_end[q] - lo;
+    ok = part_rows[q] >= 1 && (!q4g || a.part_end[q] % a.align == 0);
+  }
+  for (int m = 0; m < (MATS == 1 ? a.parts : MATS); ++m)
     ok = ok && reinterpret_cast<uintptr_t>(a.w[m]) % 16 == 0 &&
          (!q4g || reinterpret_cast<uintptr_t>(a.s[m]) % 16 == 0);
   if (!ok) return (int)cudaErrorInvalidValue;
   const bf16* act = a.act;
   const bf16* resid = a.resid;
-  bf16* out = a.out;
+  bf16* out[3] = {a.out[0], a.out[1], a.out[2]};
   for (int b0 = 0; b0 < B; b0 += bg) {
     a.B = min(bg, B - b0);
     a.act = act + (size_t)b0 * a.K;
     a.resid = resid == nullptr ? nullptr : resid + (size_t)b0 * a.N;
-    a.out = out + (size_t)b0 * a.N;
+    for (int q = 0; q < 3; ++q)
+      a.out[q] = out[q] == nullptr ? nullptr : out[q] + (size_t)b0 * part_rows[q];
     if (reinterpret_cast<uintptr_t>(a.act) % 16) return (int)cudaErrorInvalidValue;
     const int e = q4g ? launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st)
                       : launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
@@ -864,7 +1077,9 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   gu.s[0] = (const float*)sg;
   gu.s[1] = (const float*)su;
   gu.act = (const bf16*)h;
-  gu.out = (bf16*)a;
+  gu.out[0] = (bf16*)a;
+  gu.part_end[0] = I;
+  gu.parts = 1;
   gu.K = H;
   gu.N = I;
   gu.row_bytes = q4g ? H / 2 : H;
@@ -875,11 +1090,69 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   dn.s[0] = (const float*)sd;
   dn.act = (const bf16*)a;
   dn.resid = (const bf16*)x;
-  dn.out = (bf16*)y;
+  dn.out[0] = (bf16*)y;
+  dn.part_end[0] = H;
+  dn.parts = 1;
   dn.K = I;
   dn.N = H;
   dn.row_bytes = q4g ? I / 2 : I;
   return ring_projection<1>(wfmt, pdl != 0, plan + 8, dn, B, st);
+}
+
+// K2 through the weight ring: q [B, NQ], k and v [B, NKV] = h W^T (scaled)
+// with h = rms_norm(x) * norm_w, in one launch over the row space [0, NQ +
+// 2 NKV) of W_q, W_k, W_v; each block normalises x into its shared memory.
+// bf16 x (B <= 8), fp32 norm_w [H], int8 (wfmt 1) or q4g (2) weights; with
+// pdl a programmatic dependent of the stream's previous kernel. plan:
+// ring_projection's layout. Returns the launch error, or 0.
+int slime_qkv_ring(int wfmt, int pdl, const void* x, const void* norm_w, float eps, int B,
+                   int H, int NQ, int NKV, const void* wq, const void* sq, const void* wk,
+                   const void* sk, const void* wv, const void* sv, void* q, void* k, void* v,
+                   const int* plan, void* stream) {
+  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1 || norm_w == nullptr)
+    return (int)cudaErrorInvalidValue;
+  RingArgs a = {};
+  const void* w[3] = {wq, wk, wv};
+  const void* s[3] = {sq, sk, sv};
+  void* out[3] = {q, k, v};
+  for (int p = 0; p < 3; ++p) {
+    a.w[p] = (const unsigned char*)w[p];
+    a.s[p] = (const float*)s[p];
+    a.out[p] = (bf16*)out[p];
+  }
+  a.part_end[0] = NQ;
+  a.part_end[1] = NQ + NKV;
+  a.part_end[2] = NQ + 2 * NKV;
+  a.parts = 3;
+  a.act = (const bf16*)x;
+  a.norm_w = (const float*)norm_w;
+  a.eps = eps;
+  a.K = H;
+  a.N = NQ + 2 * NKV;
+  a.row_bytes = wfmt == kQ4G ? H / 2 : H;
+  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+}
+
+// K3 through the weight ring: y [B, H] = x + attn W_o^T (scaled), for bf16
+// attn [B, NQ] and x (B <= 8), int8 (wfmt 1) or q4g (2) weights; with pdl a
+// programmatic dependent of the stream's previous kernel (which may have
+// written attn or x: the consumers read both after griddepcontrol.wait). plan:
+// ring_projection's layout. Returns the launch error, or 0.
+int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, int B, int NQ,
+                 int H, const void* wo, const void* so, const int* plan, void* stream) {
+  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1) return (int)cudaErrorInvalidValue;
+  RingArgs a = {};
+  a.w[0] = (const unsigned char*)wo;
+  a.s[0] = (const float*)so;
+  a.act = (const bf16*)attn;
+  a.resid = (const bf16*)x;
+  a.out[0] = (bf16*)y;
+  a.part_end[0] = H;
+  a.parts = 1;
+  a.K = NQ;
+  a.N = H;
+  a.row_bytes = wfmt == kQ4G ? NQ / 2 : NQ;
+  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // cudaError_t's text, or that of the TMA tensor-map helpers' codes

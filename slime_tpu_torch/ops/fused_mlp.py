@@ -9,13 +9,16 @@ a few tens of KB that stays in L2, then down plus the residual.
 
 bf16 activations with int8 or q4g weights at B <= 8 (``ring_instance``: the
 decode steps of the int8 and 4-bit serving paths) take the weight ring
-(``mlp_ring_kernel``): one C call launches the row norm, gate/up and down,
-the last two as programmatic dependents of the launch before them, each a
-persistent grid that streams bands of whole weight rows into shared memory
-by 1-D bulk copies, with the launch plan of ``ring_plan``. Every other input
-takes the row-per-warp kernels. Launch counts: ``.ring_launches`` counts
-the calls that took the ring (``.q4g_ring_launches`` those on q4g weights),
-beside the counts every call adds.
+(``weight_ring_kernel``, ``ops/weight_ring.py``) where both projections
+have a launch plan (``ring_route``): one C call launches the row norm,
+gate/up and down, the last two as programmatic dependents of the launch
+before them, each a persistent grid that streams bands of whole weight rows
+into shared memory by 1-D bulk copies, with the launch plans of
+``ring_plan``. Every other input, a layer too wide for the ring's shared
+memory included, takes the row-per-warp kernels. Launch counts:
+``.ring_launches`` counts the calls that took the ring
+(``.q4g_ring_launches`` those on q4g weights), beside the counts every call
+adds.
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
@@ -34,15 +37,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
 from . import _cuda
-from .fused_qkvo import (INT8, Q4G, _at, act_f32, check_operands, count, kernel_fmt,
+from . import weight_ring as wr
+from .fused_qkvo import (Q4G, _at, act_f32, check_operands, count, count_ring, kernel_fmt,
                          layer_mats, norm_weight, proj_ref, rms_h, rms_norm_launch,
                          split_weight)
 from .quantization import int_values
+from .weight_ring import ring_instance
 
 # the TPU kernel's preferred intermediate chunk per format (fused_mlp.py:323)
 _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
@@ -72,124 +76,22 @@ def auto_block_ok(layers) -> bool:
     return _block_divisor(I, want, step=step) >= min(I, want) // 2
 
 
-# The weight ring's launch plan (csrc/fused_decode.cu, mlp_ring_kernel).
-RING_MAX_ROWS = 8             # activation rows the ring takes (one launch holds 8 at most)
-RING_BYTES = 128 * 1024       # the ring of stages of one block
-STAGE_BYTES = 8 * 1024        # a stage's weights at most, unless one row of each is more
-ACT_BYTES = 128 * 1024        # activations one launch stages in shared memory, at most
-SMEM_MAX = 232448             # shared memory one block can use (227 KB)
-SMEM_HALF = 116 * 1024        # above half of an SM's 228 KB less a block's 1 KB
-RING_WARPS = 16               # consumer warps a block (at most 16)
-PDL = True                    # chain the three launches (programmatic dependent launch)
-
-
-def ring_instance(B: int, dtype, fmt: int) -> bool:
-    """Whether ``fused_mlp_decode`` takes the weight ring: bf16 activations,
-    int8 or q4g weights, 1 <= B <= 8. Everything else takes the row-per-warp
-    kernels."""
-    return dtype == torch.bfloat16 and fmt in (INT8, Q4G) and 1 <= B <= RING_MAX_ROWS
-
-
-@dataclass(frozen=True)
-class RingLaunch:
-    """One projection's launches: ``grid`` persistent blocks, each a band of
-    output rows (``bands``); stages of ``rows_per_stage`` whole rows of each
-    of ``mats`` matrices (and for q4g their scales), ``stage_bytes``, in a
-    ring of ``stages``; ``batch_rows`` activation rows a launch (B rows take
-    ceil(B / batch_rows) launches, each streaming the weights); ``smem``
-    bytes of shared memory a block; bands start at multiples of ``align``
-    rows."""
-    rows: int                 # N, output rows
-    row_bytes: int            # weight bytes a row
-    scale_bytes: int          # q4g scale bytes a row (0 for int8: loaded by the epilogue)
-    mats: int                 # matrices streamed together (gate/up 2, down 1)
-    grid: int
-    rows_per_stage: int
-    stages: int
-    stage_bytes: int
-    batch_rows: int
-    smem: int
-    align: int
-    warps: int                # consumer warps a block
-
-    def bands(self):
-        """[(first row, end row)] of every block, as the kernel cuts them
-        (``band_start``)."""
-        starts = [g * self.rows // self.grid // self.align * self.align
-                  for g in range(self.grid)] + [self.rows]
-        return list(zip(starts[:-1], starts[1:]))
-
-    def copies(self, r0: int, r1: int):
-        """[(byte offset in the ring, byte offset in the source, bytes)] of
-        the bulk copies of band [r0, r1) in the order the kernel's producer
-        issues them: per stage and matrix, the weight rows, then (q4g) their
-        scales; source offsets within the weight or scale matrix."""
-        R, out = self.rows_per_stage, []
-        for i, row in enumerate(range(r0, r1, R)):
-            n, slot = min(R, r1 - row), (i % self.stages) * self.stage_bytes
-            for m in range(self.mats):
-                out.append((slot + m * R * self.row_bytes, row * self.row_bytes,
-                            n * self.row_bytes))
-                if self.scale_bytes:
-                    out.append((slot + self.mats * R * self.row_bytes + m * R * self.scale_bytes,
-                                row * self.scale_bytes, n * self.scale_bytes))
-        return out
-
-    def ints(self):
-        return [self.grid, self.rows_per_stage, self.stages, self.stage_bytes,
-                self.batch_rows, self.smem, self.align, self.warps]
-
-
-def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int) -> RingLaunch:
-    """The launch plan of one projection of N rows over K columns of int8
-    (K bytes a row) or q4g (K / 2, and K / 128 fp32 scales) weights, for B
-    activation rows, on a card of ``sms`` SMs: one block an SM (at most one
-    a row); R, the most rows (8, 4, 2 or 1, at least ``align``) whose
-    weights stay within STAGE_BYTES; as many activation rows a launch as
-    ACT_BYTES holds; as many stages (at least 2) as RING_BYTES holds and
-    shared memory leaves room for. q4g bands start at multiples of the
-    fewest rows whose scales are whole 16-byte units. Raises where two
-    stages do not fit."""
-    q4g = fmt == Q4G
-    row_bytes, scale_bytes = (K // 2, K // 128 * 4) if q4g else (K, 0)
-    align = next(a for a in (1, 2, 4) if a * scale_bytes % 16 == 0)
-    R = next(r for r in (8, 4, 2, 1)
-             if r == align or mats * r * row_bytes <= STAGE_BYTES)
-    stage = mats * R * (row_bytes + scale_bytes)
-    bg = max(1, min(B, RING_MAX_ROWS, ACT_BYTES // (2 * K)))
-    grid = min(sms, N)
-    # the epilogue's operands of a band: int8 row scales, down's residual rows
-    band_cap = -(-N // grid) + align
-    epilogue = ((0 if q4g else mats) + (bg if mats == 1 else 0)) * band_cap * 4
-    rest = bg * K * 2 + epilogue + 8      # activations, epilogue, the activations' barrier
-    # a stage, its two barriers and its issued index
-    stages = min(RING_BYTES // stage, (SMEM_MAX - rest) // (stage + 20))
-    if stages < 2 or row_bytes % 16 or K % 8 or N % align:
-        raise ValueError(f"no weight-ring plan for [{N}, {K}] ({row_bytes} bytes a row, "
-                         f"stages of {stage} bytes)")
-    # more than half an SM's shared memory: one block of a ring kernel an SM,
-    # also when the next kernel's blocks start early (PDL) on SMs that free up
-    smem = max(stages * (stage + 20) + rest, SMEM_HALF)
-    return RingLaunch(N, row_bytes, scale_bytes, mats, grid, R, stages, stage, bg, smem,
-                      align, RING_WARPS)
-
-
 @functools.lru_cache(maxsize=None)
 def ring_plan(B: int, H: int, I: int, fmt: int, sms: int):
     """(gate/up, down) launch plans of ``fused_mlp_decode`` on the ring, and
-    the C array of both that the launch takes."""
-    gu = ring_launch(B, H, I, fmt, 2, sms)
-    dn = ring_launch(B, I, H, fmt, 1, sms)
-    return gu, dn, (ctypes.c_int * 16)(*gu.ints(), *dn.ints())
+    the C array of both that the launch takes; None where either projection
+    has no plan."""
+    gu = wr.launch_or_none(B, H, I, fmt, 2, sms)
+    dn = wr.launch_or_none(B, I, H, fmt, 1, sms)
+    return None if gu is None or dn is None else (gu, dn, wr.c_plan(gu, dn))
 
 
-_SMS = {}
-
-
-def _sm_count(device) -> int:
-    if device.index not in _SMS:
-        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SMS[device.index]
+def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
+    """The routing rule of ``fused_mlp_decode``: ``ring_plan``'s plans where
+    the call takes the weight ring (``ring_instance`` holds and both
+    projections have a plan), None where it takes the row-per-warp
+    kernels."""
+    return ring_plan(B, H, I, fmt, sms) if ring_instance(B, dtype, fmt) else None
 
 
 def silu(x):
@@ -266,16 +168,16 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     a = torch.empty((B, I), dtype=x.dtype, device=x.device)
     check_operands(a, down)
     y = torch.empty_like(x)
-    if ring_instance(B, x.dtype, fmt):
+    route = ring_route(B, x.dtype, fmt, H, I, wr.sm_count(x.device))
+    if route is not None:
         nw = norm_weight(x, norm_w)
-        *_, plan = ring_plan(B, H, I, fmt, _sm_count(x.device))
+        *_, plan = route
         h = torch.empty_like(x)
         _cuda.check(lib.slime_mlp_ring(
-            fmt, int(PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(),
+            fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(),
             y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd),
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
-        fused_mlp_decode.ring_launches += 1
-        fused_mlp_decode.q4g_ring_launches += fmt == Q4G
+        count_ring(fused_mlp_decode, fmt)
     else:
         h = rms_norm_launch(x, norm_w, eps, lib)
         wfmt, f32 = kernel_fmt(wg, fmt), act_f32(x)

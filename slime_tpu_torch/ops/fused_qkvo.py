@@ -24,18 +24,32 @@ scales transposed, ``[L, in/128, out]`` (a Mosaic tiling device); that
 layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
 
+bf16 activations with int8 or q4g weights at B <= 8 (``ring_instance``: the
+decode steps of the int8 and 4-bit serving paths) take the weight ring
+(``weight_ring_kernel``, ``ops/weight_ring.py``) where a launch plan exists
+(``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch over the row
+space of W_q, W_k and W_v whose blocks each normalise x as they stage it
+(no row-norm launch), K3 as one ring launch; each a programmatic dependent
+of the caller's last kernel. Every other input, a layer too wide for the
+ring's shared memory included, takes the row-per-warp kernels.
+
 Launch counts (one per wrapper call that launches, nowhere else):
 ``.launches`` every call, ``.q4g_launches`` those on q4g weights,
-``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both.
+``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both;
+``.ring_launches`` the calls that took the weight ring,
+``.q4g_ring_launches`` those on q4g weights.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _cuda
+from . import weight_ring as wr
 from .quantization import int_values
+from .weight_ring import DENSE, DENSE_F32, INT8, Q4G, ring_instance
 
-DENSE, INT8, Q4G, DENSE_F32 = 0, 1, 2, 3
 _FMT_NAMES = {DENSE: "dense", INT8: "int8", Q4G: "q4g"}
 ACT_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -174,6 +188,12 @@ def count(fn, x, fmt) -> None:
     fn.f32_q4g_launches += f32 * q4g
 
 
+def count_ring(fn, fmt) -> None:
+    """One call of ``fn`` that took the weight ring, on weight format ``fmt``."""
+    fn.ring_launches += 1
+    fn.q4g_ring_launches += fmt == Q4G
+
+
 def norm_weight(x, norm_w):
     """The row norm's weight as the kernels take it: fp32 [H] on x's device."""
     nw = norm_w.to(torch.float32).contiguous()
@@ -191,6 +211,25 @@ def rms_norm_launch(x, norm_w, eps, lib):
     _cuda.check(lib.slime_rms_norm(act_f32(x), x.data_ptr(), nw.data_ptr(), h.data_ptr(),
                                    B, H, eps, _cuda.stream()), "rms_norm")
     return h
+
+
+def qkv_ring_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int):
+    """The routing rule of ``fused_qkv_decode``: (plan, its C array) of the
+    ring launch over the row space [W_q; W_k; W_v] where the call takes the
+    weight ring (``ring_instance`` holds and the plan exists), None where it
+    takes the row-per-warp kernels."""
+    if not ring_instance(B, dtype, fmt):
+        return None
+    return wr.projection_plan(B, H, NQ + 2 * NKV, fmt, sms, (NQ, NKV, NKV))
+
+
+def o_ring_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int):
+    """The routing rule of ``fused_o_residual``: (plan, its C array) of the
+    o projection's ring launch, or None where the call takes the
+    row-per-warp kernel."""
+    if not ring_instance(B, dtype, fmt):
+        return None
+    return wr.projection_plan(B, NQ, H, fmt, sms)
 
 
 def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
@@ -211,15 +250,25 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     if fmt == Q4G and NQ % 256:
         raise ValueError(f"q4g decode kernels take NQ a multiple of 256, got {NQ}")
     lib = _cuda.library()
-    h = rms_norm_launch(x, layers["input_layernorm"]["weight"][layer_idx], eps, lib)
+    norm_w = layers["input_layernorm"]["weight"][layer_idx]
     q = torch.empty((B, NQ), dtype=x.dtype, device=x.device)
     k = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     p = _cuda.ptr
-    _cuda.check(lib.slime_qkv_gemv(
-        act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
-        p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        _cuda.stream()), "fused_qkv_decode")
+    route = qkv_ring_route(B, x.dtype, fmt, H, NQ, NKV, wr.sm_count(x.device))
+    if route is not None:
+        nw = norm_weight(x, norm_w)
+        _cuda.check(lib.slime_qkv_ring(
+            fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, B, H, NQ, NKV, p(wq), p(sq),
+            p(wk), p(sk), p(wv), p(sv), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ctypes.addressof(route[1]), _cuda.stream()), "fused_qkv_decode (weight ring)")
+        count_ring(fused_qkv_decode, fmt)
+    else:
+        h = rms_norm_launch(x, norm_w, eps, lib)
+        _cuda.check(lib.slime_qkv_gemv(
+            act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
+            p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _cuda.stream()), "fused_qkv_decode")
     count(fused_qkv_decode, x, fmt)
     return q, k, v
 
@@ -239,12 +288,22 @@ def fused_o_residual(attn, x, layers, layer_idx):
                          f"attn {tuple(attn.shape)} and Wo {tuple(wo.shape)}")
     lib = _cuda.library()
     y = torch.empty_like(x)
-    _cuda.check(lib.slime_resid_gemv(
-        act_f32(x), kernel_fmt(wo, fmt), attn.data_ptr(), B, attn.shape[1], wo.data_ptr(),
-        _cuda.ptr(so), H, x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
+    NQ = attn.shape[1]
+    route = o_ring_route(B, x.dtype, fmt, NQ, H, wr.sm_count(x.device))
+    if route is not None:
+        _cuda.check(lib.slime_o_ring(
+            fmt, int(wr.PDL), attn.data_ptr(), x.data_ptr(), y.data_ptr(), B, NQ, H,
+            wo.data_ptr(), _cuda.ptr(so), ctypes.addressof(route[1]), _cuda.stream()),
+            "fused_o_residual (weight ring)")
+        count_ring(fused_o_residual, fmt)
+    else:
+        _cuda.check(lib.slime_resid_gemv(
+            act_f32(x), kernel_fmt(wo, fmt), attn.data_ptr(), B, NQ, wo.data_ptr(),
+            _cuda.ptr(so), H, x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
     count(fused_o_residual, x, fmt)
     return y
 
 
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
+    _fn.ring_launches = _fn.q4g_ring_launches = 0

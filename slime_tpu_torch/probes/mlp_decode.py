@@ -15,7 +15,7 @@ at H = 4096, I = 14336), this prints one JSON line each with:
 - ``max_abs_err`` against the plain version and the one-ulp bound of the
   bf16 intermediate that the smoke holds it to;
 - ``bound_ms``: the weights, x and y bytes over 3.35 TB/s (H100 SXM).
-- on a tree with the weight ring (``fused_mlp.PDL``), ``ms_unchained`` and
+- on a tree with the weight ring (``weight_ring.PDL``), ``ms_unchained`` and
   its launches: the same kernels launched without programmatic dependent
   launch.
 
@@ -47,7 +47,19 @@ HBM_BPS = 3.35e12
 SLEEP_CYCLES = 2_000_000          # ~1 ms at the H100's clock: longer than a wrapper's enqueue
 PROFILED = 10
 # kernels of csrc/fused_decode.cu that one fused_mlp_decode call launches
-K1_KERNELS = ("rms_norm", "gate_up", "resid", "mlp_ring")
+# (the weight ring's kernel was mlp_ring_kernel before K2 and K3 shared it)
+K1_KERNELS = ("rms_norm", "gate_up", "resid", "mlp_ring", "weight_ring")
+
+
+def pdl_owner():
+    """The module whose ``PDL`` flag the ring's launches read
+    (``ops/weight_ring.py``; ``fused_mlp`` on a tree from before it), or
+    None on a tree without the ring."""
+    try:
+        from slime_tpu_torch.ops import weight_ring
+        return weight_ring
+    except ImportError:
+        return fused_mlp if hasattr(fused_mlp, "PDL") else None
 
 
 def device_ms(fn, runs: int, flush, clean: bool = False) -> float:
@@ -186,13 +198,14 @@ def run(runs: int = 25, seed: int = 0, log=print):
                        "max_abs_err": err.max().item(), "excess_over_ulp_bound": excess,
                        "bound_ms": (wbytes + 2 * x.numel() * 2) / HBM_BPS * 1e3,
                        "card": torch.cuda.get_device_name(0)}
-                if getattr(fused_mlp, "PDL", False):
+                owner = pdl_owner()
+                if owner is not None:
                     # the same launches without programmatic dependent launch
-                    fused_mlp.PDL = False
+                    owner.PDL = False
                     rec["ms_unchained"] = device_ms(fn, runs, flush)
                     rec["launches_unchained"], rec["span_ms_unchained"] = profile_split(fn,
                                                                                        flush)
-                    fused_mlp.PDL = True
+                    owner.PDL = True
                 records.append(rec)
                 log(json.dumps(rec))
             del two

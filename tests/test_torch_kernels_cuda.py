@@ -306,6 +306,7 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
               fused_qkvo.fused_o_residual.launches,
               fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches)
     ring = fused_mlp.fused_mlp_decode.ring_launches
+    rings = _ring_counts()
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
     for a, b in zip(got, want):
@@ -329,6 +330,98 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
     # the weight ring takes bf16 x with int8 or q4g weights at B <= 8, nothing else
     routed = bf and fmt in ("int8", "q4g") and B <= 8
     assert fused_mlp.fused_mlp_decode.ring_launches == ring + routed
+    q4g = fmt == "q4g"
+    assert _ring_counts() == tuple(c + routed * (1, q4g)[i % 2] for i, c in enumerate(rings))
+
+
+def _ring_counts():
+    """K2's and K3's (ring, q4g ring) launch counts."""
+    return tuple(getattr(fn, a) for fn in (fused_qkvo.fused_qkv_decode,
+                                           fused_qkvo.fused_o_residual)
+                 for a in ("ring_launches", "q4g_ring_launches"))
+
+
+def _check_qkvo_ring(x, attn, layers, fmt, ring=True):
+    """fused_qkv_decode and fused_o_residual against their plain versions at
+    the row-per-warp bf16 instances' atol 2e-3; with ``ring`` each counter
+    of the weight ring rises by one, else none does."""
+    before = _ring_counts()
+    got, want = (fused_qkvo.fused_qkv_decode(x, layers, 1),
+                 fused_qkvo.fused_qkv_decode_ref(x, layers, 1))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _assert_close(a, b, atol=2e-3)
+    got = fused_qkvo.fused_o_residual(attn, x, layers, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_close(got, fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
+    q4g = fmt == "q4g"
+    assert _ring_counts() == tuple(c + ring * (1, q4g)[i % 2] for i, c in enumerate(before))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8])
+def test_fused_qkvo_ring_batches(dev, fmt, B):
+    """K2 and K3 on the weight ring at 8B width (H = NQ = 4096, NKV = 1024)
+    at B between 1 and 8 (the BT = 1, 2, 4, 8 instances, rows unused)."""
+    g = torch.Generator(device=dev).manual_seed(200 + B)
+    layers = decode_layers(L=2, H=4096, NQ=4096, NKV=1024, I=256, fmt=fmt, generator=g,
+                           device=dev)
+    x = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16)
+    _check_qkvo_ring(x, attn, layers, fmt)
+
+
+# (H, NQ, NKV): row counts ragged against the 132 bands and the stages, and
+# stages that meet W_q's or W_k's end (int8 NKV 40 and 136: 8-row stages)
+QKVO_RAGGED = {"int8": [(256, 256, 64), (256, 256, 40), (768, 512, 136)],
+               "q4g": [(512, 512, 256), (768, 512, 256), (256, 256, 32)]}
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_fused_qkvo_ring_ragged(dev, fmt, case, B):
+    H, NQ, NKV = QKVO_RAGGED[fmt][case]
+    g = torch.Generator(device=dev).manual_seed(H + NKV + B)
+    layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=256, fmt=fmt, generator=g,
+                           device=dev)
+    x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+    _check_qkvo_ring(x, attn, layers, fmt)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_fused_decode_no_ring_plan(dev, B):
+    """Layers too wide for the ring's shared memory compute through the
+    row-per-warp kernels and agree with the plain versions (int8, bf16):
+    K1 and K2 at H = 58112 (gate/up's and q/k/v's rows), K3 at NQ = 58112
+    (W_o's rows); K3 at H = 58112 still takes the ring."""
+    g = torch.Generator(device=dev).manual_seed(300 + B)
+    wide_h = decode_layers(L=2, H=58112, NQ=256, NKV=128, I=256, fmt="int8", generator=g,
+                           device=dev)
+    x = torch.randn((B, 58112), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, 256), device=dev, generator=g).to(torch.bfloat16)
+    mlp = fused_mlp.fused_mlp_decode.ring_launches
+    qkv = fused_qkvo.fused_qkv_decode.ring_launches
+    o = fused_qkvo.fused_o_residual.ring_launches
+    for a, b in zip(fused_qkvo.fused_qkv_decode(x, wide_h, 1),
+                    fused_qkvo.fused_qkv_decode_ref(x, wide_h, 1)):
+        _assert_close(a, b, atol=2e-3)
+    _assert_close(fused_qkvo.fused_o_residual(attn, x, wide_h, 1),
+                  fused_qkvo.fused_o_residual_ref(attn, x, wide_h, 1), atol=2e-3)
+    _assert_mlp_close(fused_mlp.fused_mlp_decode(x, wide_h, 1),
+                      fused_mlp.fused_mlp_decode_ref(x, wide_h, 1),
+                      fused_mlp.intermediate_ulp_bound(x, wide_h, 1))
+    assert (fused_mlp.fused_mlp_decode.ring_launches, fused_qkvo.fused_qkv_decode.ring_launches,
+            fused_qkvo.fused_o_residual.ring_launches) == (mlp, qkv, o + 1)
+    del wide_h
+    wide_nq = decode_layers(L=2, H=256, NQ=58112, NKV=128, I=256, fmt="int8", generator=g,
+                            device=dev)
+    x = torch.randn((B, 256), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, 58112), device=dev, generator=g).to(torch.bfloat16)
+    _assert_close(fused_qkvo.fused_o_residual(attn, x, wide_nq, 1),
+                  fused_qkvo.fused_o_residual_ref(attn, x, wide_nq, 1), atol=2e-3)
+    assert fused_qkvo.fused_o_residual.ring_launches == o + 1
 
 
 def _mlp_layers(H, I, fmt, generator, device):
