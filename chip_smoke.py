@@ -25,8 +25,10 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          profiler, K2 and K3 beside torch's int8 / int4 weight-only
          product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
-         = 128, 256 and 384, the quantized matmul in its q4, int8 and q4g
-         loaders, also at a K that is not a multiple of 128, and the W8A8
+         = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
+         its weight ring at decode rows and on wgmma at prefill rows, each
+         beside its mma.sync instance on the same inputs), also at a K that
+         is not a multiple of 128, and the W8A8
          matmul at the CLIP-L tower's four linears and at such a K, bf16 and
          fp32, the ring-attention kernel K9 on 4 virtual ranks at S = 8192
          in bf16 and fp32, at D = 64 and at S/n = 48, the int4 design probes
@@ -75,9 +77,11 @@ Phase 5  builds SliME-8B as ``--load-4bit --int4-scheme group
 Phase 5b builds config B (``--load-4bit --int4-scheme absmax
          --quantize-lm-head``: per-row q4 LLM layers, vision bf16) at full
          width and depth, answers one 16-token request twice, and checks
-         that the quantized matmul's q4 loader ran 7 x 32 times in each
-         prefill and each decode step (the non-fused decode) and that the
-         answers repeat.
+         that K6 ran 7 x 32 times in each prefill on its wgmma instance and
+         in each decode step (the non-fused decode) on its weight ring, its
+         mma.sync instance never, and that the answers repeat; then phase
+         3's stage times and traces for it, with K6's device time by
+         instance in one TTFT and a decode step.
 Phase 6  rebuilds phase 2's int8 LLM and prefills S = 8192 random token ids:
          (a) ``llama.forward(ring=4)``, the collective ring on 4 virtual
          ranks, and (b) the forward without a ring (K5, 32 launches), both
@@ -170,6 +174,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "flash_fwd_f32_wide": 1e-5, "flash_bwd_dkdv_f32_wide": 1e-5,
         "flash_bwd_dq_f32_wide": 1e-5,
         "quant_matmul_q4": 2e-3, "quant_matmul_int8": 2e-3, "quant_matmul_q4g": 2e-3,
+        "quant_matmul_q4_ring": 2e-3, "quant_matmul_int8_ring": 2e-3,
+        "quant_matmul_q4_wgmma": 2e-3, "quant_matmul_int8_wgmma": 2e-3,
         "w8a8_matmul": 1e-6, "ring_attention_rdma": 1e-4,
         "encoder_attention_f32": 1e-4, "fused_qkv_decode_f32": 1e-4,
         "fused_o_residual_f32": 1e-4, "fused_mlp_decode_f32": 1e-4,
@@ -258,6 +264,16 @@ KERNELS = {
                           "slime_tpu/ops/quant_matmul.py:130"),
     "quant_matmul_q4g": ("slime_tpu_torch/csrc/quant_matmul.cu",
                          "slime_tpu/ops/quant_matmul.py:82"),
+    # K6's Hopper instances: the weight ring at 1-8 bf16 rows (decode), wgmma
+    # at 64 and more (prefill); the mma.sync records above take the rest
+    "quant_matmul_q4_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                             "slime_tpu/ops/quant_matmul.py:130"),
+    "quant_matmul_int8_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/quant_matmul.py:130"),
+    "quant_matmul_q4_wgmma": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                              "slime_tpu/ops/quant_matmul.py:130"),
+    "quant_matmul_int8_wgmma": ("slime_tpu_torch/csrc/quant_matmul.cu",
+                                "slime_tpu/ops/quant_matmul.py:130"),
     "w8a8_matmul": ("slime_tpu_torch/csrc/w8a8_matmul.cu",
                     "slime_tpu/ops/w8a8_matmul.py:64"),
     "flash_fwd_f32": ("slime_tpu_torch/csrc/flash_attention.cu",
@@ -292,8 +308,11 @@ KERNELS.update({n + "_f32_q4g": KERNELS[n] for n in (
     "fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")})
 D256 = tuple(n for n in KERNELS if n.endswith("_d256"))
 WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
-# K6's int8 loader has no caller on any path: the JAX package routes only q4
-# and q4g weights to its quantized matmuls (layers.py:52-59). No path of the
+# K6's int8 instances have no caller on any path: the JAX package routes only q4
+# and q4g weights to its quantized matmuls (layers.py:52-59). K6's q4
+# mma.sync instance takes bf16 x of 9-63 rows (or a K the ring and TMA
+# cannot read), which no path sends it: config B's decode takes the ring and
+# its prefill wgmma. No path of the
 # port trains in fp32 on the card (phase 4 trains the bf16 model), so the
 # fp32 K5b and K5c have none either, and no model here has a head dim of 256
 # or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
@@ -304,7 +323,8 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # ring takes B <= 8 at these widths), which no path sends them (decode runs
 # at B = 1; phase 7's B = 65 is fp32). Phase 1 checks them; their launch
 # counts stay 0.
-OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "flash_bwd_dkdv_f32",
+OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
+            "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
             "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
     n + sfx for n in FUSED for sfx in ("", "_q4g")) + D256 + WIDE
@@ -340,6 +360,8 @@ def _counters():
            "quant_matmul_q4_f32": (qm.quant_matmul, "q4_f32_launches"),
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
            "quant_matmul_int8_f32": (qm.quant_matmul, "int8_f32_launches"),
+           **{f"quant_matmul_{f}_{r}": (qm.quant_matmul, f"{f}_{r}_launches")
+              for f in ("q4", "int8") for r in ("ring", "wgmma")},
            "quant_matmul_q4g": (qm.quant_matmul_q4g, "launches"),
            "quant_matmul_q4g_f32": (qm.quant_matmul_q4g, "f32_launches"),
            "w8a8_matmul": (w8.w8a8_matmul, "launches"),
@@ -374,8 +396,12 @@ def launch_counts():
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
         counts[n] -= counts[n + "_f32"]
-    # K7's .launches counts every route, K9's every instance
+    # K7's .launches counts every route, K9's every instance; K6's every
+    # route too: what is left is its mma.sync instance
     counts["quant_matmul_q4g"] -= counts["quant_matmul_q4g_wgmma"]
+    for f in ("q4", "int8"):
+        counts[f"quant_matmul_{f}"] -= (counts[f"quant_matmul_{f}_ring"]
+                                        + counts[f"quant_matmul_{f}_wgmma"])
     counts["ring_attention_rdma"] -= (counts["ring_attention_rdma_f32"]
                                       + counts["ring_attention_rdma_ffma"])
     for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
@@ -417,17 +443,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs=TIMED_RUNS, flush=None):
+def cuda_ms(fn, runs=TIMED_RUNS, flush=None, clean=False):
     """Median milliseconds of fn() over ``runs`` CUDA-event timings, after
     warm-up; ``flush`` (outside the timed region) evicts L2 between runs so
-    each run streams its weights from HBM, as in a decode step. fn()'s
-    launches are queued behind a device sleep (~1 ms), so the events time
-    the device and not the host's enqueue (``dispatch_us`` reads that)."""
+    each run streams its weights from HBM, as in a decode step: by writing
+    it (fn() then also pays the write-back of the dirty lines it evicts) or,
+    with ``clean``, by reading it. fn()'s launches are queued behind a device
+    sleep (~1 ms), so the events time the device and not the host's enqueue
+    (``dispatch_us`` reads that)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(runs):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.sum()
+        elif flush is not None:
             flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -556,11 +586,13 @@ def trace_kernel(path, pattern):
 
 
 def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
-    """Phase 3 (and 5's part of it): stage times (host clock around
+    """Phase 3 (and 5's and 5b's part of it): stage times (host clock around
     synchronised calls, median of 3) and a torch.profiler trace of one TTFT
     and of PROFILE_STEPS decode steps. Idle share = 1 - device busy / the
     unprofiled host wall time. ``tag`` names the phase in the log and the
-    trace files."""
+    trace files. Returns the traces' summary: for a decode step and the
+    TTFT, host and device ms, idle share, launches, and [device ms,
+    launches] of each kernel class it names."""
     from torch.profiler import ProfilerActivity, profile
 
     from slime_tpu_torch import generate as gen
@@ -624,15 +656,23 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
     prof.export_chrome_trace(str(out / f"profile_decode_{tag}.json"))
     busy, launches, by_name = trace_device(out / f"profile_decode_{tag}.json")
     busy /= PROFILE_STEPS
+    summary = {"decode_step": {"host_ms": step_ms, "device_ms": busy,
+                               "idle_share": 1 - busy / step_ms,
+                               "launches": launches / PROFILE_STEPS, "kernels": {}}}
     log(f"phase {tag} decode step: device busy {busy:.2f} ms/step; idle share "
         f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} decode kernel {ms / PROFILE_STEPS:8.3f} ms/step  {name[:90]}")
-    for what, pattern in (("K1-K3 weight ring (weight_ring_kernel)", "weight_ring_kernel"),
+    for what, pattern in (("weight ring, all (weight_ring_kernel)", "weight_ring_kernel"),
+                          ("K6 q4 weight ring (weight_ring_kernel<4, ...>)",
+                           "weight_ring_kernel<4,"),
+                          ("K6 mma.sync (qmm_kernel)", "qmm_kernel"),
+                          ("split-K reduction (splitk_reduce_kernel)", "splitk_reduce_kernel"),
                           ("row norms of K1 and K2 (rms_norm_kernel)", "rms_norm_kernel"),
                           ("K2 row per warp (qkv_kernel)", "qkv_kernel"),
                           ("K1 / K3 row per warp (resid_kernel)", "resid_kernel")):
         ms, n = trace_kernel(out / f"profile_decode_{tag}.json", pattern)
+        summary["decode_step"]["kernels"][what] = [ms / PROFILE_STEPS, n / PROFILE_STEPS]
         log(f"phase {tag} decode {what}: {ms / PROFILE_STEPS:.3f} ms/step of device time over "
             f"{n / PROFILE_STEPS:.0f} launches/step")
     del cache, last
@@ -641,27 +681,34 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
         request(1).cpu()
     prof.export_chrome_trace(str(out / f"profile_ttft_{tag}.json"))
     busy, launches, by_name = trace_device(out / f"profile_ttft_{tag}.json")
+    summary["ttft"] = {"host_ms": ttft_ms, "device_ms": busy, "idle_share": 1 - busy / ttft_ms,
+                       "launches": launches, "kernels": {}}
     log(f"phase {tag} TTFT: device busy {busy:.2f} ms of {ttft_ms:.2f} ms unprofiled; "
         f"idle share {1 - busy / ttft_ms:.3f}; {launches} kernel launches")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"phase {tag} TTFT kernel {ms:8.3f} ms  {name[:90]}")
     for what, pattern in (("K7 wgmma (q4g_wgmma_kernel)", "q4g_wgmma_kernel"),
-                          ("K7 mma.sync (qmm_kernel)", "qmm_kernel"),
+                          ("K6 wgmma (qmm_wgmma_kernel)", "qmm_wgmma_kernel"),
+                          ("split-K reduction (splitk_reduce_kernel)", "splitk_reduce_kernel"),
+                          ("K6 / K7 mma.sync (qmm_kernel)", "qmm_kernel"),
                           ("K8 row pass (w8a8_row_quant_kernel)", "w8a8_row_quant_kernel"),
                           ("K8 int8 GEMM (int8_gemm_kernel)", "int8_gemm_kernel")):
         ms, n = trace_kernel(out / f"profile_ttft_{tag}.json", pattern)
         if n:
+            summary["ttft"]["kernels"][what] = [ms, n]
             log(f"phase {tag} TTFT {what}: {ms:.3f} ms of device time over {n} launches")
+    return summary
 
 
 def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main,
-                   library=None, dispatch=False, floor=None):
+                   library=None, dispatch=False, floor=None, clean=False):
     """Hold kern() to its plain version ref() and time both (and one PyTorch
     call computing the same function, where there is one). ``moved`` bytes
     and ``ops`` operations at ``peak`` give the bound; the record keeps the
     ``main`` case, the main path's shape (an instance that no main case
     reaches keeps its first). ``dispatch`` also logs the wrapper's host cost
-    per call; ``floor`` is compare's."""
+    per call; ``floor`` is compare's; ``clean`` also logs kern()'s time with
+    L2 flushed by reading (no write-back charged to it)."""
     err, need = compare(name, kern(), ref(), floor)
     rec = record[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -675,7 +722,8 @@ def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main
     log(f"phase 1 {name} {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}); "
         f"max_abs_err {err:.3g}, floor needed {need:.3g} ({tol})"
-        + (f"; host dispatch {dispatch_us(kern):.1f} us/call" if dispatch else ""))
+        + (f"; host dispatch {dispatch_us(kern):.1f} us/call" if dispatch else "")
+        + (f"; ms_clean_flush {cuda_ms(kern, flush=flush, clean=True):.4f}" if clean else ""))
 
 
 def sdpa(q, k, v, **kw):
@@ -1032,8 +1080,9 @@ def decode_kernels(dev, cfg, g, flush, record):
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
-    their first case (B = 64 or 65). K2 and K3 in bf16 are timed beside one
-    PyTorch call of their int8 or q4g product alone (``decode_library``).
+    their first case (B = 64 or 65). K2 and K3 are timed beside one PyTorch
+    call of their int8 or q4g product alone (``decode_library``; in fp32
+    where the installed torch takes fp32 x, else the reason is logged).
     The MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.probes.mlp_decode import profile_split
@@ -1089,7 +1138,7 @@ def decode_kernels(dev, cfg, g, flush, record):
                              if name == "fused_mlp_decode" and dtype == bf else None)
                     ring = routes[name](B, dtype) is not None
                     library = (decode_library(name, fmt, two, x, a)
-                               if dtype == bf and name != "fused_mlp_decode" else None)
+                               if name != "fused_mlp_decode" else None)
                     check_and_time(record, name + dsfx + fsfx + ("_ring" if ring else ""),
                                    f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} "
                                    f"B={B} layer 1",
@@ -1144,11 +1193,12 @@ def int8pack_library(name, x, q, scale):
 
 
 def int4pack_library(x, qw, name="quant_matmul_q4g_wgmma"):
-    """torch._weight_int4pack_mm on q4g inputs (K7's, K2's, K3's), as a
-    yardstick: q4g's signed nibbles n as unsigned n + 8 with zero points 0
-    and the group scales in bf16 (that call's form, w = (u - 8) s + 0),
-    group size 128. None, with the reason logged, where the installed torch
-    does not run it on this card."""
+    """torch._weight_int4pack_mm on q4g inputs (K7's, K2's, K3's) or per-row
+    q4 ones with the scales given per group of 128 (K6's), as a yardstick:
+    the signed nibbles n as unsigned n + 8 with zero points 0 and the group
+    scales in bf16 (that call's form, w = (u - 8) s + 0), group size 128.
+    None, with the reason logged, where the installed torch does not run it
+    on this card."""
     from slime_tpu_torch.ops import quantization as quant
     try:
         u = quant.int_values(qw).to(torch.int32) + 8
@@ -1187,10 +1237,16 @@ def int_mm_library(x, qw):
 
 
 def quant_kernels(dev, g, flush, record):
-    """Phase 1 for the quantized matmul (K6: q4 and int8 loaders; K7: q4g)
-    and the W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
+    """Phase 1 for the quantized matmul (K6: q4 and int8; K7: q4g) and the
+    W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
     prefill (B = 2048) rows of q_proj [4096, 4096] and down_proj [4096,
-    14336]; K7's wgmma instance at prefill rows of gate_proj [14336, 4096]
+    14336] on the instance its routing names (the weight ring, wgmma), each
+    beside its mma.sync instance on the same inputs (the "was" lines, the
+    parent's kernel at these shapes); then, from a generator of their own,
+    the ring at k/v [1024, 4096] and at B = 8, wgmma at gate_proj and k/v,
+    int8 on both, and the mma.sync records at 32 rows (the rows it still
+    takes); the ring cases also with L2 flushed by reading;
+    K7's wgmma instance at prefill rows of gate_proj [14336, 4096]
     (the record), q_proj, k_proj [1024, 4096] and down_proj (config A's
     prefill shapes), and at 64 and 100 rows; K7's mma.sync instance at
     decode rows (B = 1); from a generator of their own, the fp32 instances
@@ -1199,24 +1255,60 @@ def quant_kernels(dev, g, flush, record):
     tower's four linears (qkv [3072, 1024], out_proj, fc1, fc2) and at K =
     1000, in bf16, and in fp32 at qkv, beside torch._int_mm of its int8
     operands (the product alone).
-    K6's int8 loader is timed beside ``torch._weight_int8pack_mm`` and K7's
-    wgmma and mma.sync instances beside ``torch._weight_int4pack_mm`` at
-    group size 128 (``int4pack_library``) where the installed torch runs
-    them on the card; no other single PyTorch call computes these functions
-    (per-row q4 has none: ``_weight_int4pack_mm`` takes group sizes 32-256
-    only)."""
+    K6's int8 instances are timed beside ``torch._weight_int8pack_mm``, and
+    K6's q4 instances (K a multiple of 128) and K7's wgmma and mma.sync
+    instances beside ``torch._weight_int4pack_mm`` at group size 128
+    (``int4pack_library``; per-row q4 as its row's one scale repeated over
+    the row's K / 128 groups), where the installed torch runs them on the
+    card."""
     from slime_tpu_torch.ops import quant_matmul as qm
     from slime_tpu_torch.ops import quantization as quant
     from slime_tpu_torch.ops import w8a8_matmul as w8
 
     bf, f32 = torch.bfloat16, torch.float32
+
+    def k6_case(name, M, N, K, main, gen, was):
+        """K6 in bf16 at x [M, K], W [N, K] on the instance k6_route names
+        (record ``name``_<route>), and with ``was`` its mma.sync instance on
+        the same inputs (record ``name``, never its main case)."""
+        code = qm._Q4 if name == "quant_matmul_q4" else qm._INT8
+        w = torch.randn((N, K), device=dev, generator=gen) * 0.02
+        x = torch.randn((M, K), device=dev, generator=gen).to(bf)
+        qw = quant.quantize_weight(w, 4 if code == qm._Q4 else 8)
+        del w
+        route = qm.k6_route(M, K, bf, code, N, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        library = (int8pack_library(name, x, qw["q"], qw["scale"][:, 0]) if code == qm._INT8
+                   else int4pack_library(x, {"q4": qw["q4"], "scale": qw["scale"].expand(
+                       N, K // 128)}, name))
+        if library is not None:
+            log(f"phase 1 {name} x [{M}, {K}], W [{N}, {K}]: library's max_abs_err against "
+                f"the plain version "
+                f"{(library().float() - qm.quant_matmul_ref(x, qw).float()).abs().max():.3g}")
+        moved, ops = nbytes(x, *qw.values()) + M * N * 2, 2 * M * N * K
+        check_and_time(record, name if route == "mma" else f"{name}_{route}",
+                       f"x [{M}, {K}] bf16, W [{N}, {K}] ({route})",
+                       lambda: qm.quant_matmul(x, qw), lambda: qm.quant_matmul_ref(x, qw),
+                       moved, ops, BF16_OPS, flush, main, library=library, dispatch=M == 1,
+                       clean=route == "ring")
+        if was and route != "mma":        # the mma.sync GEMM itself: not counted
+            w_int = qw["q4"] if code == qm._Q4 else qw["q"]
+            check_and_time(record, name, f"x [{M}, {K}] bf16, W [{N}, {K}] (was: the "
+                           f"mma.sync instance)", lambda: qm._launch(code, x, w_int, qw["scale"]),
+                           lambda: qm.quant_matmul_ref(x, qw), moved, ops, BF16_OPS, flush,
+                           False)
+
+    # K6 at the parent's cases, on the same draws: the new instances and
+    # their mma.sync "was" lines (main: the record's case)
+    for name, M, N, K, main in (("quant_matmul_q4", 1, 4096, 4096, True),
+                                ("quant_matmul_q4", 1, 4096, 14336, False),
+                                ("quant_matmul_q4", 2048, 4096, 4096, False),
+                                ("quant_matmul_q4", 2048, 4096, 14336, True),
+                                ("quant_matmul_int8", 1, 4096, 4096, True),
+                                ("quant_matmul_int8", 2048, 4096, 14336, True)):
+        k6_case(name, M, N, K, main, g, True)
     # (record name, rows, out, in, the record's case)
-    cases = [("quant_matmul_q4", 1, 4096, 4096, True), ("quant_matmul_q4", 1, 4096, 14336, False),
-             ("quant_matmul_q4", 2048, 4096, 4096, False),
-             ("quant_matmul_q4", 2048, 4096, 14336, False),
-             ("quant_matmul_int8", 1, 4096, 4096, True),
-             ("quant_matmul_int8", 2048, 4096, 14336, False),
-             ("quant_matmul_q4g_wgmma", 2048, 14336, 4096, True),
+    cases = [("quant_matmul_q4g_wgmma", 2048, 14336, 4096, True),
              ("quant_matmul_q4g_wgmma", 2048, 4096, 4096, False),
              ("quant_matmul_q4g_wgmma", 2048, 1024, 4096, False),
              ("quant_matmul_q4g_wgmma", 2048, 4096, 14336, False),
@@ -1241,15 +1333,31 @@ def quant_kernels(dev, g, flush, record):
             kern, ref = qm.quant_matmul, qm.quant_matmul_ref
         del w
         library = None
-        if name == "quant_matmul_int8":
-            library = int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
-        if name in ("quant_matmul_q4g_wgmma", "quant_matmul_q4g") and main:
+        if name in ("quant_matmul_q4g_wgmma", "quant_matmul_q4g", "quant_matmul_q4g_f32") and main:
             library = int4pack_library(x, qw, name)
+        if name == "quant_matmul_int8_f32":
+            library = int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
         check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
                        f"W [{N}, {K}]", lambda: kern(x, qw), lambda: ref(x, qw),
                        nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
                        F32_OPS if dtype == f32 else BF16_OPS, flush, main, dispatch=M == 1,
                        library=library)
+    # K6's other instances and shapes, from a generator of their own: the
+    # ring at k/v and at 8 rows (beside mma.sync: the down projection's 8
+    # rows take two ring launches), q4 wgmma at gate_proj and k/v, int8 on
+    # the ring at down_proj and on wgmma at q_proj, the mma.sync records at
+    # 32 rows
+    g_k6 = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for name, M, N, K, main in (("quant_matmul_q4", 1, 1024, 4096, False),
+                                ("quant_matmul_q4", 8, 4096, 4096, False),
+                                ("quant_matmul_q4", 8, 4096, 14336, False),
+                                ("quant_matmul_q4", 2048, 14336, 4096, False),
+                                ("quant_matmul_q4", 2048, 1024, 4096, False),
+                                ("quant_matmul_int8", 1, 4096, 14336, False),
+                                ("quant_matmul_int8", 2048, 4096, 4096, False),
+                                ("quant_matmul_q4", 32, 4096, 4096, True),
+                                ("quant_matmul_int8", 32, 4096, 4096, True)):
+        k6_case(name, M, N, K, main, g_k6, M == 8)
     # K6 at a K that is not a multiple of 128 (int8 any K, q4 any even K: the
     # kernels mask their last k-tile), from a generator of its own
     g_k = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -1263,11 +1371,13 @@ def quant_kernels(dev, g, flush, record):
         qw = quant.quantize_weight(torch.randn((N, K), device=dev, generator=g_k) * 0.02,
                                    4 if name.startswith("quant_matmul_q4") else 8)
         x = torch.randn((M, K), device=dev, generator=g_k).to(dtype)
+        library = (int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
+                   if name.startswith("quant_matmul_int8") else None)
         check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
                        f"W [{N}, {K}] (K not a multiple of 128)",
                        lambda: qm.quant_matmul(x, qw), lambda: qm.quant_matmul_ref(x, qw),
                        nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
-                       F32_OPS if dtype == f32 else BF16_OPS, flush, False)
+                       F32_OPS if dtype == f32 else BF16_OPS, flush, False, library=library)
     # K8 at one 8-crop encode's 4616 tokens: the packed qkv (the record), fc2,
     # then from a generator of their own out_proj, fc1 and a K of 1000; fp32
     # at qkv. Library: torch._int_mm on the quantized x, the int8 product alone
@@ -1290,13 +1400,15 @@ def quant_kernels(dev, g, flush, record):
     torch.cuda.empty_cache()
 
 
-def probe_kernels(dev, record):
+def probe_kernels(dev, record, flush):
     """Phase 1 for the P1, P3 and P4 probes: each variant, form or mode held
     to its plain version and timed (``probes.quant_matmul.run``,
     ``probes.int8_dot.run``, ``probes.q4g_unpack.run``, which print their
     JSON lines); the records keep P1's magic variant at 64 rows a block,
     P3's nt form at its faster tile (beside torch._int_mm) and P4's
-    unpack_dot mode, each beside its plain version, with their bounds."""
+    unpack_dot mode, each beside its plain version, with their bounds; P1's
+    also beside ``torch._weight_int4pack_mm`` on its inputs (K6's q4
+    function: ``int4pack_library``)."""
     from slime_tpu_torch.probes import int8_dot as p3
     from slime_tpu_torch.probes import q4g_unpack as p4
     from slime_tpu_torch.probes import quant_matmul as p1
@@ -1305,12 +1417,19 @@ def probe_kernels(dev, record):
     main = next(r for r in recs if r["variant"] == "magic" and r["rows"] == 64)
     moved = p1.OUT * p1.IN // 2 + p1.IN * 2 + p1.OUT * 4 + p1.OUT * 2
     b_ms, b_by = bound(moved, 2 * p1.OUT * p1.IN, BF16_OPS)
+    x, qw = p1.make_inputs(dev, SEED)
+    library = int4pack_library(x, {"q4": qw["q4"], "scale": qw["scale"].expand(
+        p1.OUT, p1.IN // 128)}, "p1_int4_matvec")
+    lib_ms = None if library is None else cuda_ms(library, flush=flush)
     record["p1_int4_matvec"].update(
         max_abs_err=max(r["max_abs_err"] for r in recs), ms=main["us"] / 1e3,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    ring = next(r for r in recs if r["variant"] == "ring")
     log(f"phase 1 p1_int4_matvec: magic, 64 rows a block {main['us'] / 1e3:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); K6's int8 loader at the same "
-        f"rows {int8_ms:.4f} ms")
+        f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.4f} ms ({b_by}); K6 at this shape on its weight "
+        f"ring {ring['us'] / 1e3:.4f} ms; K6's int8 instance at the same rows "
+        f"{int8_ms:.4f} ms")
     res, p4_plain = p4.run(dev, seed=SEED, log=log)
     L, I, H = p4.SHAPE
     moved = L * I * H // 2 + H * 2 + L * I * 4
@@ -1381,7 +1500,7 @@ def kernel_phase(dev, cfg):
         ring_kernel(dev, g, flush, record)
         ring_kernel_instances(dev, torch.Generator(device=dev).manual_seed(SEED + 7), flush,
                               record)
-    probe_kernels(dev, record)
+    probe_kernels(dev, record, flush)
     del flush
     torch.cuda.empty_cache()
     return record
@@ -1673,7 +1792,8 @@ def quantized_serve_phases(dev, cfg):
                  "encoder_attention": vis * requests, "flash_fwd": L * requests,
                  **{n + "_q4g_ring": L * steps for n in FUSED},
                  **{n + sfx: 0 for n in FUSED for sfx in ("", "_q4g", "_ring")},
-                 "quant_matmul_q4": 0, "quant_matmul_int8": 0}
+                 **{f"quant_matmul_{f}{r}": 0 for f in ("q4", "int8")
+                    for r in ("", "_ring", "_wgmma")}}
         return {n: (want, True) for n, want in exact.items()}
     launches = serve("5", dev, cfg, params, expect, "5")
     for n, c in default_dtype_quantized(dev, cfg, params, "q4g").items():
@@ -1698,13 +1818,15 @@ def quantized_serve_phases(dev, cfg):
         walls.append(time.perf_counter() - t0)
     got = launch_counts()
     log(f"phase 5b launches: {json.dumps(got)}")
-    want = 7 * L * 2 * n_new            # 7 x L in each prefill and each decode step
-    if got["quant_matmul_q4"] != want or got["flash_fwd"] != 2 * L:
-        raise AssertionError(f"phase 5b: quant_matmul_q4 launched {got['quant_matmul_q4']} "
-                             f"times, expected {want} (2 prefills and "
-                             f"{2 * (n_new - 1)} non-fused decode steps)")
-    if any(got[n] for n in got if n not in ("quant_matmul_q4", "flash_fwd",
-                                            "encoder_attention")):
+    # 7 x L K6 launches in each prefill (2048 rows: wgmma) and each non-fused
+    # decode step (1 row: the weight ring), none on the mma.sync instance
+    want = {"quant_matmul_q4_wgmma": 7 * L * 2, "quant_matmul_q4_ring": 7 * L * 2 * (n_new - 1),
+            "quant_matmul_q4": 0, "flash_fwd": 2 * L}
+    if any(got[n] != c for n, c in want.items()):
+        raise AssertionError(f"phase 5b: launches {({n: got[n] for n in want})}, expected "
+                             f"{want} (2 prefills and {2 * (n_new - 1)} non-fused decode "
+                             f"steps)")
+    if any(got[n] for n in got if n not in (*want, "encoder_attention")):
         raise AssertionError("phase 5b launched a kernel off its path")
     t0 = time.perf_counter()
     crops, mask = anyres(img)
@@ -1719,6 +1841,20 @@ def quantized_serve_phases(dev, cfg):
         f"{walls[1] * 1e3:.1f} ms; TTFT {ttft * 1e3:.1f} ms (one request, 1 token); "
         f"decode {(n_new - 1) / (walls[1] - ttft):.2f} tok/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # phase 3's stage times and traces for config B: one TTFT and 8 decode
+    # steps, K6's device time by instance
+    def request(max_new):
+        crops, mask = anyres(img)
+        return gen.generate(params, cfg_run, ids, attn, crops[None], mask[None],
+                            max_new_tokens=max_new, compute_dtype=torch.bfloat16)
+    ttfts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        request(1).cpu()
+        ttfts.append(time.perf_counter() - t0)
+    profile_slice("5b", params, cfg_run, ids, attn, img, anyres, request,
+                  statistics.median(ttfts) * 1e3)
     for n, c in default_dtype_quantized(dev, cfg, params, "q4").items():
         got[n] += c
     del params

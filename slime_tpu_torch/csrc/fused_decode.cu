@@ -3,6 +3,8 @@
 //   slime_tpu/ops/fused_qkvo.py  fused_qkv_decode  (_qkv_kernel)
 //   slime_tpu/ops/fused_qkvo.py  fused_o_residual  (_o_kernel)
 //   slime_tpu/ops/fused_mlp.py   fused_mlp_decode  (_kernel)
+// and, through the weight ring below, K6's decode rows:
+//   slime_tpu/ops/quant_matmul.py  quant_matmul  (:130; _kernel_int4 :23, _kernel_int8 :38)
 //
 // What bounds them on this card: bytes. At batch 1 a decode step of the 8B
 // model streams about 7 GB of int8 weights and does two flops per weight byte,
@@ -70,7 +72,16 @@
 //     (MATS 2); down, o and q/k/v one (MATS 1), q/k/v over one row space of
 //     three parts, [0, NQ) of W_q, then W_k and W_v, a stage's copies split
 //     where it meets a part's end, so no copy crosses from one matrix into
-//     the next.
+//     the next;
+//   - K6 (quant_matmul) at 1 <= B <= 8 bf16 rows is the MATS 1 instance with
+//     no norm and no residual, y = bf16((x . w_int) * scale[row]), for int8
+//     or per-row q4 weights (FMT kRowQ4: byte j of a row holds column 2j in its
+//     low nibble and 2j + 1 in its high one). Its blocks stage x
+//     de-interleaved, the even columns then the odd ones (each half
+//     chunk-swizzled as a row), so a lane's 16 packed bytes meet two chunk
+//     pairs read as q4g's and int8's are, without bank conflicts; the
+//     nibbles convert as q4g's do. It is launched without PDL: in the
+//     non-fused decode it follows plain PyTorch kernels.
 // What bounds it: HBM's bytes for int8 (the ring without its dot products
 // streams the weights barely faster); for q4g, with two weights a byte, also
 // the consumers' instructions (about five a weight).
@@ -164,8 +175,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Weight formats of the kernels (the wrappers' format codes): dense bf16,
-// per-row int8, q4g, dense fp32 (with fp32 activations only).
-enum { kDense = 0, kInt8 = 1, kQ4G = 2, kDenseF32 = 3 };
+// per-row int8, q4g, dense fp32 (with fp32 activations only), per-row q4
+// (the weight ring's K6 instance only).
+enum { kDense = 0, kInt8 = 1, kQ4G = 2, kDenseF32 = 3, kRowQ4 = 4 };
 
 // acc[b] = sum_k h[b, k] * w[k] for the nb (<= kBT) activation rows at h
 // (row stride K), summed over the warp: every lane returns the full sums.
@@ -399,8 +411,8 @@ constexpr int kRingSmemMax = 232448;                    // 227 KB, a block's mos
 // `parts` matrices one after another (K2: W_q, W_k, W_v; else one), part p
 // rows [part_end[p - 1], part_end[p]) of w[p], written to out[p].
 struct RingArgs {
-  const unsigned char* w[3];   // weights [rows, row_bytes]: int8 [rows, K] or q4g [rows, K / 2]
-  const float* s[3];           // scales: int8 [rows] (one a row), q4g [rows, K / 128]
+  const unsigned char* w[3];   // weights [rows, row_bytes]: int8 [rows, K], q4g or q4 [rows, K / 2]
+  const float* s[3];           // scales: int8 and q4 [rows] (one a row), q4g [rows, K / 128]
   const bf16* act;             // [B, K] activations, copied into shared memory whole
   const bf16* resid;           // [B, N] added to the output (MATS == 1), or null
   bf16* out[3];                // [B, rows of the part] (MATS 2: out[0], [B, N])
@@ -554,6 +566,54 @@ __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_
   }
 }
 
+// The per-row q4 vector c (packed bytes 16 c .. 16 c + 15: columns 32 c ..
+// 32 c + 31, column 2j in byte j's low nibble and 2j + 1 in its high one)
+// against activations staged de-interleaved (stage_act_q4): the low
+// nibbles meet columns 16 c .. 16 c + 15 of the even half, the high ones the
+// same of the odd half (K / 2 further), both read as load_act16 reads a row.
+template <int MATS, int BT>
+__device__ __forceinline__ void ring_dot_q4(const unsigned char* wrow, int mat_stride, int c,
+                                            const bf16* act, int K, int B,
+                                            float (&acc)[MATS][BT]) {
+  uint4 v[MATS];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m)
+    v[m] = *reinterpret_cast<const uint4*>(wrow + m * mat_stride + 16 * c);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    float wf[MATS][16];
+#pragma unroll
+    for (int m = 0; m < MATS; ++m) {
+      if (hi) int4x16_f32<true>(v[m], wf[m]);
+      else int4x16_f32<false>(v[m], wf[m]);
+    }
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      if (b < B) {
+        float hf[16];
+        load_act16(act + (size_t)b * K + hi * (K / 2), c, hf);
+#pragma unroll
+        for (int m = 0; m < MATS; ++m)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[m][b] = fmaf(hf[j], wf[m][j], acc[m][b]);
+      }
+    }
+  }
+}
+
+// Chunk j (columns 8 j .. 8 j + 7) of an activation row into shared memory
+// for the q4 dot: its even columns to the even half, its odd ones to the odd
+// half (K / 2 further), each half chunk-swizzled as a row of K / 2: the four
+// values of either kind fill half of that half's chunk j / 2.
+__device__ __forceinline__ void stage_act_q4(bf16* row, int K, int j, const uint4 u) {
+  const uint2 ev = make_uint2(__byte_perm(u.x, u.y, 0x5410), __byte_perm(u.z, u.w, 0x5410));
+  const uint2 od = make_uint2(__byte_perm(u.x, u.y, 0x7632), __byte_perm(u.z, u.w, 0x7632));
+  uint2* e = reinterpret_cast<uint2*>(row) + 2 * act_chunk(j >> 1) + (j & 1);
+  uint2* o = reinterpret_cast<uint2*>(row + K / 2) + 2 * act_chunk(j >> 1) + (j & 1);
+  *e = ev;
+  *o = od;
+}
+
 // Band g of a projection's N rows: [band_start(g), band_start(g + 1)), each
 // start rounded down to a multiple of `align` rows (q4g: so that every
 // stage's scales are whole 16-byte units), the last band ending at N.
@@ -619,8 +679,9 @@ __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
 }
 
 // Shared memory: the ring [S][stage_bytes], the activations [B][K] bf16
-// (chunk-swizzled, act_chunk), full[S], empty[S], issued[S], the norm's
-// partial sums [8][16], then the epilogue's operands of the band: int8 row
+// (chunk-swizzled, act_chunk; for q4 de-interleaved, stage_act_q4), full[S],
+// empty[S], issued[S], the norm's partial sums [8][16], then the epilogue's
+// operands of the band: int8 and q4 row
 // scales [MATS][band_cap] and the residual x [B][band_cap] (fp32, MATS 1
 // with a residual), loaded once at the start so no row waits on global
 // memory. The producer streams only weights, from the block's start; the
@@ -652,7 +713,8 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   int* issued = reinterpret_cast<int*>(empty + S);                // the stage each slot holds
   float* red = reinterpret_cast<float*>(issued + S);              // norm: [rows][warps]
   float* ep_scale = red + kRingMaxRows * kRingMaxWarps;           // int8: [MATS][cap]
-  float* ep_res = ep_scale + (FMT == kInt8 ? MATS * p.band_cap : 0);   // resid: [B][cap]
+  constexpr bool kRowScale = FMT == kInt8 || FMT == kRowQ4;        // a scale a row
+  float* ep_res = ep_scale + (kRowScale ? MATS * p.band_cap : 0);   // resid: [B][cap]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = band_start(blockIdx.x, gridDim.x, p.N, p.align);
   const int r1 = band_start(blockIdx.x + 1, gridDim.x, p.N, p.align);
@@ -680,7 +742,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     return;
   }
 
-  // The consumers' prologue: the band's int8 scales (and K2's norm weight),
+  // The consumers' prologue: the band's int8 / q4 scales (and K2's norm weight),
   // then, once the previous kernel's writes are visible, the activations and
   // the residual. Under the weights' stream a load's round trip takes
   // microseconds, so each thread issues its loads (up to eight 16-byte
@@ -688,10 +750,10 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   const int tid = threadIdx.x, nthr = W * 32, chunks = p.K / 8;
   const bool res = MATS == 1 && p.resid != nullptr, norm = p.norm_w != nullptr;
   const float4* nw = reinterpret_cast<const float4*>(p.norm_w);
-  float sc = 0.f;                       // this thread's first int8 scale
+  float sc = 0.f;                       // this thread's first row scale
   bf16 rv = {};                         // and residual value (converted once the loads are out)
   float4 w0 = {}, w1 = {};              // the norm weight of its first chunk
-  if (FMT == kInt8 && tid < MATS * band) {
+  if (kRowScale && tid < MATS * band) {
     int local;
     const int q = part_of(p, r0 + tid % band, local);
     sc = __ldg(p.s[MATS == 1 ? q : tid / band] + local);
@@ -719,8 +781,12 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
       for (int k = 0; k < U; ++k)
 #pragma unroll
         for (int b = 0; b < BT; ++b)
-          if (b < p.B && j0 + k * nthr < chunks)
-            dst[b * chunks + act_chunk(j0 + k * nthr)] = u[k][b];
+          if (b < p.B && j0 + k * nthr < chunks) {
+            if constexpr (FMT == kRowQ4)
+              stage_act_q4(act + (size_t)b * p.K, p.K, j0 + k * nthr, u[k][b]);
+            else
+              dst[b * chunks + act_chunk(j0 + k * nthr)] = u[k][b];
+          }
     }
   } else {
     // h = bf16(x * rsqrt(mean(x^2) + eps) * w), as rms_norm_kernel rounds it:
@@ -783,7 +849,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
       }
     }
   }
-  if (FMT == kInt8)
+  if (kRowScale)
     for (int t = tid; t < MATS * band; t += nthr) {
       if (t >= nthr) {
         int local;
@@ -824,6 +890,8 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     const auto dot = [&](int c, float (&into)[NV][BT]) {
       if constexpr (FMT == kQ4G)
         ring_dot_q4g<NV, BT>(wrow, vstride, c, act, p.K, p.B, s, into);
+      else if constexpr (FMT == kRowQ4)
+        ring_dot_q4<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
       else
         ring_dot_int8<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
     };
@@ -850,7 +918,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         v[k] = warp_sum(acc[k][b]);
-        if (FMT == kInt8)
+        if (kRowScale)
           v[k] *= ep_scale[(MATS == 2 ? k * p.band_cap : k) + t];
       }
       if (lane != b || b >= p.B) continue;
@@ -928,7 +996,7 @@ template <int MATS>
 int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cudaStream_t st) {
   const int grid = plan[0], R = plan[1], S = plan[2], bg = plan[4], smem = plan[5];
   const int warps = plan[7];
-  const bool q4g = wfmt == kQ4G;
+  const bool q4g = wfmt == kQ4G, q4 = wfmt == kRowQ4;
   a.rows_per_stage = R;
   a.stages = S;
   a.stage_bytes = plan[3];
@@ -944,6 +1012,8 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
             a.stage_bytes == MATS * R * (a.row_bytes + (q4g ? kg * 4 : 0)) &&
             need <= smem && smem <= kRingSmemMax && a.K % 16 == 0 &&
             reinterpret_cast<uintptr_t>(a.norm_w) % 16 == 0 &&
+            (!q4 || (MATS == 1 && a.parts == 1 && a.norm_w == nullptr &&
+                     a.row_bytes * 2 == a.K)) &&
             (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
             (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0)) &&
             a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N;
@@ -968,8 +1038,11 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
     for (int q = 0; q < 3; ++q)
       a.out[q] = out[q] == nullptr ? nullptr : out[q] + (size_t)b0 * part_rows[q];
     if (reinterpret_cast<uintptr_t>(a.act) % 16) return (int)cudaErrorInvalidValue;
-    const int e = q4g ? launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st)
-                      : launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
+    int e;
+    if (q4g) e = launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st);
+    else if (!q4) e = launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
+    else if constexpr (MATS == 1) e = launch_ring<kRowQ4, 1>(a, grid, warps, smem, pdl, st);
+    else e = (int)cudaErrorInvalidValue;
     if (e != 0) return e;
   }
   return 0;
@@ -1152,6 +1225,27 @@ int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, in
   a.K = NQ;
   a.N = H;
   a.row_bytes = wfmt == kQ4G ? NQ / 2 : NQ;
+  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+}
+
+// K6 through the weight ring: y [B, N] = bf16((x W^T) * scale[row]) for bf16
+// x [B, K] (B <= 8), int8 (wfmt 1, w [N, K]) or per-row q4 (wfmt 4, w [N, K /
+// 2]) weights and fp32 scales [N]; with pdl a programmatic dependent of the
+// stream's previous kernel. plan: ring_projection's layout. Returns the
+// launch error, or 0.
+int slime_quant_ring(int wfmt, int pdl, const void* x, int B, int K, int N, const void* w,
+                     const void* s, void* y, const int* plan, void* stream) {
+  if ((wfmt != kInt8 && wfmt != kRowQ4) || B < 1) return (int)cudaErrorInvalidValue;
+  RingArgs a = {};
+  a.w[0] = (const unsigned char*)w;
+  a.s[0] = (const float*)s;
+  a.act = (const bf16*)x;
+  a.out[0] = (bf16*)y;
+  a.part_end[0] = N;
+  a.parts = 1;
+  a.K = K;
+  a.N = N;
+  a.row_bytes = wfmt == kRowQ4 ? K / 2 : K;
   return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 

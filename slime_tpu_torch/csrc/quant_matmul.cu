@@ -12,10 +12,12 @@
 //
 // What bounds it on this card. At prefill (M = 2048 rows, K = 4096 or 14336)
 // the product is far above the H100's ridge: operations, at the bf16
-// tensor-core rate. At decode (M = 1) it is the packed weight bytes. K7 with
-// bf16 x of 64 rows or more (the prefill) takes the Hopper kernel at the end
-// of this file (wgmma, weights dequantized in registers); below that, K6,
-// and fp32 x, the kernels here:
+// tensor-core rate. At decode (M = 1) it is the packed weight bytes. K7 and
+// K6 with bf16 x of 64 rows or more (the prefill) take the Hopper kernels at
+// the end of this file (wgmma, weights dequantized in registers); K6 with
+// bf16 x of 1-8 rows (decode) takes the weight ring (csrc/fused_decode.cu,
+// slime_quant_ring); the rows neither takes (9-63, and a K whose rows TMA or
+// the ring cannot read), K7 below 64 rows, and fp32 x, the kernels here:
 //   - one tiled GEMM on mma.sync m16n8k16 bf16 tiles with fp32 sums (the
 //     fragment vocabulary of csrc/flash_attention.cu). A block owns a 64 x 64
 //     output tile; 4 warps own 32 x 32 each;
@@ -677,6 +679,270 @@ __global__ void __launch_bounds__(kWgThreads, 1) q4g_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 at M >= 64 rows of bf16 x: wgmma with the weights dequantized in registers
+// ---------------------------------------------------------------------------
+// K7's design (y^T = W . x^T, the integer weights as wgmma's register A
+// operand, x by TMA as the K-major B operand) for per-row q4 and int8. A
+// stage holds 128 bytes of every weight row of the block (q4: 256 columns,
+// int8: 128) and those columns of x's 128 tokens, both in the 128-byte
+// swizzle; the producer warpgroup streams them into a ring of stages.
+//   - Per-row scales need no partial sums: the accumulator is scaled once,
+//     in the epilogue. The registers K7 spends on `part` go to a taller
+//     block: each consumer warpgroup owns MT m64 tiles (MT 2: 256 weight rows
+//     a block), so one x tile, x being four times a q4 weight's bytes, feeds
+//     twice the rows and x's traffic from L2, which bounds K7, halves.
+//   - A fragments (lane (g, t): rows 16 w + g and + 8, k = 2t, 2t+1 and 2t+8,
+//     2t+9 of a k16 step). q4: k 2t, 2t+1 are one byte, 8 kk + t, its low and
+//     high nibble; (b * 0x1001) & 0x000F000F puts them in the two halves,
+//     XOR 0x43084308 makes each bf16 128 + (n ^ 8) exactly and a bf16x2
+//     subtract of 136 leaves n (K7's magic, one byte instead of two). int8:
+//     one 16-bit load is the pair; bf16 cannot hold 256 integers under one
+//     exponent, so each byte becomes fp32 by K1's prmt + FADD and the pair is
+//     rounded to bf16x2 (exact for -128..127) by one cvt.
+//   - Four k16 steps of fragments a group, two groups' registers: group q + 1
+//     is converted while group q's wgmmas run (wgmma.wait_group 1), and a
+//     stage goes back to the producer once its last group has retired.
+//   - K past the last whole stage: TMA's zero fill; a zero nibble and a zero
+//     byte convert to 0, so they add nothing.
+//   - Epilogue: both warpgroups meet at a barrier, then stage their tiles,
+//     scaled and rounded, as bf16 [tokens][rows] in the stages' memory and
+//     write y in 16-byte rows; with a split over K the fp32 sums go to the
+//     workspace and the reduction kernel adds them in order and scales.
+constexpr int kK6Tok = 128;                // tokens a block (wgmma N)
+constexpr int kK6Threads = 384;            // two consumer warpgroups, one producer
+constexpr int kK6SmemStages = 192 * 1024;  // shared memory for the ring of stages
+
+template <int FMT, int MT>
+struct K6Cfg {
+  static constexpr int BK = FMT == kQ4 ? 256 : 128;        // columns a stage
+  static constexpr int STEPS = BK / 16;                    // k16 steps a stage
+  static constexpr int GROUPS = STEPS / 4;                 // fragment groups a stage
+  static constexpr int XCH = BK / 64;                      // x chunks [tokens][64]
+  static constexpr int ROWS = 128 * MT;                    // weight rows a block
+  static constexpr int X_BYTES = XCH * kK6Tok * 128;
+  static constexpr int STAGE_BYTES = X_BYTES + ROWS * 128;
+  static constexpr int STAGES = kK6SmemStages / STAGE_BYTES < 4 ? kK6SmemStages / STAGE_BYTES : 4;
+  static constexpr int PITCH = 64 * MT + 8;                // bf16 pitch of the epilogue's rows
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
+
+struct K6Params {
+  CUtensorMap x, w;
+  const float* s;
+  bf16* y;
+  float* ws;
+  int M, N, K, kb_per_split;
+};
+
+// The A fragments of k16 steps k0 .. k0 + 3 for the warpgroup's MT m64
+// tiles (rows row0 + 64 mt, + 8) from the stage's weight tile wt ([ROWS][128
+// bytes], piece c of row r at c ^ (r % 8)).
+template <int FMT, int MT>
+__device__ __forceinline__ void k6_frags(uint32_t (&a)[MT][4][4], const unsigned char* wt,
+                                         int row0, int t, int k0) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int kk = k0 + s, row = row0 + 64 * mt + 8 * (x & 1);
+        const unsigned char* r = wt + row * 128;
+        if constexpr (FMT == kQ4) {
+          const int byte = 8 * kk + t + 4 * (x >> 1);
+          const uint32_t b = r[(((byte >> 4) ^ (row & 7)) << 4) + (byte & 15)];
+          uint32_t v = ((b * 0x1001u) & 0x000F000Fu) ^ 0x43084308u;
+          __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+          const uint32_t c = 0x43084308u;                       // bf16x2 (136, 136)
+          h = __hsub2(h, *reinterpret_cast<const __nv_bfloat162*>(&c));
+          a[mt][s][x] = *reinterpret_cast<uint32_t*>(&h);
+        } else {
+          const uint32_t w = (uint32_t)*reinterpret_cast<const uint16_t*>(
+                                 r + ((kk ^ (row & 7)) << 4) + 2 * t + 8 * (x >> 1)) ^ 0x8080u;
+          const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650)) - 8388736.f;
+          const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7651)) - 8388736.f;
+          a[mt][s][x] = pack2_bf16(lo, hi);
+        }
+      }
+}
+
+// issue acc[mt] += A[mt] . x-tile over k16 steps k0 .. k0 + 3, one commit group
+template <int MT>
+__device__ __forceinline__ void k6_issue(float (&acc)[MT][64], const uint32_t (&a)[MT][4][4],
+                                         const bf16* xs, int k0) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int kk = k0 + s;
+    const uint64_t desc = sw128_desc(xs + (kk >> 2) * kK6Tok * 64 + (kk & 3) * 16, 16, 1024);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) wgmma_rs_kmajor128(acc[mt], a[mt][s], desc, 1);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+}
+
+template <int MT>
+__device__ __forceinline__ void k6_keep(uint32_t (&a)[MT][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) keep_frags(a[mt]);
+}
+
+template <int FMT, int MT>
+__global__ void __launch_bounds__(kK6Threads, 1) qmm_wgmma_kernel(
+    const __grid_constant__ K6Params p) {
+  using C = K6Cfg<FMT, MT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);       // stage i: x [XCH][128][64], W [ROWS][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  const int n0 = blockIdx.x * C::ROWS, m0 = blockIdx.y * kK6Tok, z = blockIdx.z;
+  const int nkb = (p.K + C::BK - 1) / C::BK, kb0 = z * p.kb_per_split;
+  const int kb1 = min(nkb, kb0 + p.kb_per_split);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {                                                // the producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int kb = kb0; kb < kb1; ++kb) {
+        const int j = kb - kb0, st = j % C::STAGES;
+        unsigned char* stage = base + st * C::STAGE_BYTES;
+        mbar_wait(&empty[st], ((j / C::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], C::STAGE_BYTES);
+        for (int c = 0; c < C::XCH; ++c)
+          tma_load_2d(stage + c * kK6Tok * 128, &p.x, &full[st], kb * C::BK + 64 * c, m0);
+        tma_load_2d(stage + C::X_BYTES, &p.w, &full[st], kb * 128, n0);
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int tl = threadIdx.x & 127, warp = tl >> 5, g = (tl & 31) >> 2, tq = tl & 3;
+  const int row0 = C::ROWS / 2 * wg + 16 * warp + g;          // the thread's first W-tile row
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+  uint32_t fa[MT][4][4], fb[MT][4][4];         // two groups' fragments
+  for (int kb = kb0; kb < kb1; ++kb) {
+    const int j = kb - kb0, st = j % C::STAGES;
+    const unsigned char* stage = base + st * C::STAGE_BYTES;
+    const bf16* xs = reinterpret_cast<const bf16*>(stage);
+    mbar_wait(&full[st], (j / C::STAGES) & 1);
+#pragma unroll
+    for (int u = 0; u < C::GROUPS; u += 2) {
+      // group u into fa (its last reader, group u - 2, has retired), then u + 1 into fb
+      k6_frags<FMT, MT>(fa, stage + C::X_BYTES, row0, tq, 4 * u);
+      k6_issue<MT>(acc, fa, xs, 4 * u);
+      wgmma_wait<1>();                       // group u - 1 (fb) has retired
+      k6_keep<MT>(fb);
+      if (u == 0 && j > 0) mbar_arrive(&empty[(j - 1) % C::STAGES]);   // it was the last stage's
+      k6_frags<FMT, MT>(fb, stage + C::X_BYTES, row0, tq, 4 * (u + 1));
+      k6_issue<MT>(acc, fb, xs, 4 * (u + 1));
+      wgmma_wait<1>();                       // group u (fa) has retired
+      k6_keep<MT>(fa);
+    }
+  }
+  wgmma_wait_all();
+  k6_keep<MT>(fb);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+
+  // acc[mt][i]: W-tile row row0 + 64 mt + 8 ((i >> 1) & 1), token 8 (i >> 2) + 2 tq + (i & 1)
+  if (p.ws != nullptr) {
+    float* ws = p.ws + (size_t)z * p.M * p.N;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int m = m0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+        const int o = n0 + row0 + 64 * mt + ((i & 2) ? 8 : 0);
+        if (m < p.M && o < p.N) ws[(size_t)m * p.N + o] = acc[mt][i];
+      }
+    return;
+  }
+  float sc[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = n0 + row0 + 64 * mt + 8 * h;
+      sc[mt][h] = o < p.N ? p.s[o] : 0.f;
+    }
+  named_barrier(1, 256);                     // no wgmma of either warpgroup reads a stage now
+  bf16* ys = reinterpret_cast<bf16*>(base) + wg * kK6Tok * C::PITCH;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int tok = 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int r = 64 * mt + 16 * warp + g + ((i & 2) ? 8 : 0);
+      ys[tok * C::PITCH + r] = __float2bfloat16_rn(acc[mt][i] * sc[mt][(i >> 1) & 1]);
+    }
+  named_barrier(2 + wg, 128);
+  const int ob = n0 + C::ROWS / 2 * wg;
+  for (int e = tl; e < kK6Tok * 8 * MT; e += 128) {
+    const int tok = e / (8 * MT), c8 = (e % (8 * MT)) * 8, m = m0 + tok, o = ob + c8;
+    if (m >= p.M || o >= p.N) continue;
+    bf16* dst = p.y + (size_t)m * p.N + o;
+    const bf16* src = ys + tok * C::PITCH + c8;
+    if (o + 8 <= p.N && p.N % 8 == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int c = 0; c < 8 && o + c < p.N; ++c) dst[c] = src[c];
+    }
+  }
+}
+
+template <int FMT, int MT>
+int launch_k6_wgmma(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
+                    void* ws, int splits, int kb_per_split, cudaStream_t st) {
+  using C = K6Cfg<FMT, MT>;
+  static bool smem_set = false;
+  const long long row_bytes = FMT == kQ4 ? K / 2 : K;
+  K6Params p;
+  int err = encode_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (long long)K * 2, 64,
+                      kK6Tok);
+  if (err == 0)
+    err = encode_2d(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, row_bytes, N, row_bytes, 128,
+                    C::ROWS);
+  if (err != 0) return err;
+  p.s = (const float*)s;
+  p.y = (bf16*)y;
+  p.ws = splits > 1 ? (float*)ws : nullptr;
+  p.M = M; p.N = N; p.K = K; p.kb_per_split = kb_per_split;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<FMT, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const dim3 grid((N + C::ROWS - 1) / C::ROWS, (M + kK6Tok - 1) / kK6Tok, splits);
+  qmm_wgmma_kernel<FMT, MT><<<grid, kK6Threads, C::SMEM, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const size_t MN = (size_t)M * N;
+  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+  splitk_reduce_kernel<bf16><<<blocks, 256, 0, st>>>((const float*)ws, splits, M, N,
+                                                      (const float*)s, (bf16*)y);
+  return (int)cudaGetLastError();
+}
+
 int launch_q4g_wgmma(const void* x, int M, int K, const void* w, const void* s, int N,
                      void* y, void* ws, int splits, int kb_per_split, cudaStream_t st) {
   static bool smem_set = false;
@@ -745,6 +1011,26 @@ extern "C" int slime_quant_matmul(int fmt, int x_f32, const void* x, int M, int 
 // `kb_per_split` packed blocks per blockIdx.z into ws fp32 [splits, M, N]
 // when splits > 1. Returns the cudaError_t of the launches (or a tensor-map
 // error code).
+// K6's wgmma instance: bf16 x [M, K] (M >= 64 in the wrapper's route), fmt 0
+// = per-row q4 w [N, K / 2] (K a multiple of 32), 1 = int8 w [N, K] (K a
+// multiple of 16), s fp32 [N]; y bf16 [M, N]. mt: m64 tiles a warpgroup (1
+// or 2: 128 or 256 weight rows a block). A split over K of `kb_per_split`
+// stages per blockIdx.z into ws fp32 [splits, M, N] when splits > 1. Returns
+// the cudaError_t of the launches (or a tensor-map error code).
+extern "C" int slime_quant_matmul_wgmma(int fmt, int mt, const void* x, int M, int K,
+                                        const void* w, const void* s, int N, void* y, void* ws,
+                                        int splits, int kb_per_split, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || (mt != 1 && mt != 2) ||
+      (fmt == kQ4 ? K % 32 != 0 : fmt == kInt8 ? K % 16 != 0 : true))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fmt == kQ4)
+    return mt == 2 ? launch_k6_wgmma<kQ4, 2>(x, M, K, w, s, N, y, ws, splits, kb_per_split, st)
+                   : launch_k6_wgmma<kQ4, 1>(x, M, K, w, s, N, y, ws, splits, kb_per_split, st);
+  return mt == 2 ? launch_k6_wgmma<kInt8, 2>(x, M, K, w, s, N, y, ws, splits, kb_per_split, st)
+                 : launch_k6_wgmma<kInt8, 1>(x, M, K, w, s, N, y, ws, splits, kb_per_split, st);
+}
+
 extern "C" int slime_quant_matmul_q4g_wgmma(const void* x, int M, int K, const void* w,
                                             const void* s, int N, void* y, void* ws,
                                             int splits, int kb_per_split, void* stream) {

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "slime_mlp_ring": [_I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I] + [_P] * 8,
     "slime_qkv_ring": [_I, _I, _P, _P, _F, _I, _I, _I, _I] + [_P] * 11,
     "slime_o_ring": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "slime_quant_ring": [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _I, _I, _P],
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "slime_ring_attend": [_P] * 9 + [_LLP] + [_I] * 11 + [_F, _P],
     "slime_quant_matmul": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_quant_matmul_q4g_wgmma": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "slime_quant_matmul_wgmma": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_w8a8_matmul": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     "slime_int8_dot": [_I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
     "slime_hopper_selftest": [_P] * 9,

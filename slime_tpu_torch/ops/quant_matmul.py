@@ -12,35 +12,54 @@ Port of ``slime_tpu/ops/quant_matmul.py``:
 
 ``layers.linear`` routes per-row ``q4`` to K6 and ``q4g`` to K7 on the card
 (JAX's ``layers.py:52-53`` on the TPU); int8 has no caller in the JAX
-package's routing, so K6's int8 loader is off the serving path. CPU tensors
-take the plain versions; CUDA tensors launch a kernel
-(``csrc/quant_matmul.cu``) or raise. Which one is a pure function of x's
-rows and dtype (``q4g_route``): K7 with bf16 x of at least 64 rows (the
-prefill) runs the Hopper design, ``wgmma`` with the int4 weights dequantized
-in registers as the A operand of y^T = W.x^T and the group scales applied to
-fp32 partial sums; bf16 x below 64 rows (decode) and K6 with bf16 x run the
-``mma.sync`` GEMM; fp32 x (the default compute dtype) runs an FFMA GEMM over
-the weights dequantized to fp32, as JAX's ``astype(x.dtype)``. y comes back
-in x's dtype. K6 takes any K with int8 weights and any even K with q4 (its
-kernels mask the last k-tile and read x in place); q4g takes multiples of
+package's routing, so K6's int8 instances are off the serving path. CPU
+tensors take the plain versions; CUDA tensors launch a kernel or raise.
+Which one is a pure function of the operands' shapes and x's dtype:
+
+- K6 (``k6_route``): bf16 x of 1-8 rows where the weight ring has a plan
+  (``weight_ring.k6_ring_route``: the decode steps) runs the weight ring
+  (``csrc/fused_decode.cu`` ``weight_ring_kernel``, one block an SM
+  streaming bands of whole weight rows by bulk copies); bf16 x of at least
+  64 rows whose rows TMA can read (K a multiple of 16 for int8, of 32 for
+  q4: the prefill) runs ``wgmma`` with the integer weights dequantized in
+  registers as the A operand of y^T = W.x^T and the per-row scale on the
+  fp32 accumulator (``csrc/quant_matmul.cu`` ``qmm_wgmma_kernel``); the
+  other bf16 x (9-63 rows, or a K neither reads, e.g. 1000) runs the
+  ``mma.sync`` GEMM; fp32 x (the default compute dtype) an FFMA GEMM over
+  the weights dequantized to fp32, as JAX's ``astype(x.dtype)``.
+- K7 (``q4g_route``): bf16 x of at least 64 rows (the prefill) runs K7's
+  ``wgmma`` kernel, the group scales applied to fp32 partial sums; bf16 x
+  below 64 rows the ``mma.sync`` GEMM; fp32 x the FFMA GEMM.
+
+y comes back in x's dtype. K6 takes any K with int8 weights and any even K
+with q4 (the ``mma.sync`` and FFMA kernels mask their last k-tile and read x
+in place; ``wgmma`` reads past K as TMA's zero fill); q4g takes multiples of
 256 (``k_multiple``).
 
 Launch counts: ``quant_matmul.q4_launches`` / ``.int8_launches`` and
 ``quant_matmul_q4g.launches`` count every launch, ``.q4_f32_launches``,
 ``.int8_f32_launches`` and ``quant_matmul_q4g.f32_launches`` those with fp32
-x, ``quant_matmul_q4g.wgmma_launches`` those of the ``wgmma`` instance.
+x, ``quant_matmul.q4_ring_launches`` / ``.int8_ring_launches`` those on the
+weight ring, ``quant_matmul.q4_wgmma_launches`` / ``.int8_wgmma_launches``
+and ``quant_matmul_q4g.wgmma_launches`` those of the ``wgmma`` instances.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _cuda
+from . import weight_ring as wr
 from .quantization import int_values
 
 _Q4, _INT8, _Q4G = 0, 1, 2
 _TILE = 64                  # output tile of the mma.sync / FFMA kernels (rows and columns)
-WGMMA_MIN_ROWS = 64         # K7's wgmma instance takes bf16 x from this many rows
-_WG_TILE = 128              # its output tile: 128 weight rows x 128 tokens
+WGMMA_MIN_ROWS = 64         # the wgmma instances take bf16 x from this many rows
+_WG_TILE = 128              # K7's wgmma output tile: 128 weight rows x 128 tokens
+_K6_TOK = 128               # K6's wgmma tile: 128 tokens x 128 or 256 weight rows
+_K6_BK = {_Q4: 256, _INT8: 128}     # columns of one K6 wgmma stage (128 weight bytes a row)
+_RING_FMT = {_Q4: wr.ROW_Q4, _INT8: wr.INT8}    # the ring's codes for K6's formats
 
 
 def quant_matmul_ref(x: torch.Tensor, qw) -> torch.Tensor:
@@ -75,6 +94,30 @@ def q4g_route(rows: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "ffma"
     return "wgmma" if rows >= WGMMA_MIN_ROWS else "mma"
+
+
+def k6_wgmma_strides(K: int, fmt: int) -> bool:
+    """Whether TMA can read K6's operands: x rows of 2K bytes and weight rows
+    of K (int8) or K / 2 (q4) bytes, each a multiple of 16, and K at least one
+    128-byte weight box."""
+    row_bytes = K // 2 if fmt == _Q4 else K
+    return K >= 256 and row_bytes % 16 == 0 and (2 * K) % 16 == 0
+
+
+def k6_route(rows: int, K: int, dtype: torch.dtype, fmt: int, N: int, sms: int) -> str:
+    """K6's kernel for x [rows, K] of ``dtype`` and W [N, K] in ``fmt``
+    (``_Q4`` or ``_INT8``) on a card of ``sms`` SMs: "ring" for bf16 at 1 <=
+    rows <= 8 where the weight ring has a plan (``weight_ring.k6_ring_route``),
+    "wgmma" for bf16 at rows >= WGMMA_MIN_ROWS where TMA reads the rows
+    (``k6_wgmma_strides``), "mma" (the ``mma.sync`` GEMM) for the rest of
+    bf16, "ffma" for fp32. A pure function, so CPU tests can pin it."""
+    if dtype == torch.float32:
+        return "ffma"
+    if wr.k6_ring_route(rows, K, N, dtype, _RING_FMT[fmt], sms) is not None:
+        return "ring"
+    if rows >= WGMMA_MIN_ROWS and k6_wgmma_strides(K, fmt):
+        return "wgmma"
+    return "mma"
 
 
 def k_multiple(fmt: int) -> int:
@@ -142,6 +185,44 @@ def wgmma_splits(M: int, N: int, K: int, sms: int):
     return -(-n_kb // per_split), per_split
 
 
+def k6_wgmma_plan(M: int, N: int, K: int, fmt: int, sms: int):
+    """(m64 tiles a warpgroup, splits, stages per split) of K6's wgmma
+    instance: blocks of 256 weight rows (two m64 tiles a consumer
+    warpgroup, so one x tile feeds twice the rows) where that still gives
+    every SM a block, else 128; a split over K, as K7's, only where the
+    tiles fill at most half the SMs."""
+    tok = -(-M // _K6_TOK)
+    mt = 2 if -(-N // 256) * tok >= sms else 1
+    blocks = -(-N // (128 * mt)) * tok
+    n_kb = -(-K // _K6_BK[fmt])
+    splits = max(1, min(n_kb, sms // blocks)) if 2 * blocks <= sms else 1
+    per_split = -(-n_kb // splits)
+    return mt, -(-n_kb // per_split), per_split
+
+
+def _launch_k6_wgmma(fmt: int, x: torch.Tensor, w: torch.Tensor,
+                     s: torch.Tensor) -> torch.Tensor:
+    M, K, N, w = _operands(fmt, x, w, s)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    mt, splits, per_split = k6_wgmma_plan(M, N, K, fmt, wr.sm_count(x.device))
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    _cuda.check(_cuda.library().slime_quant_matmul_wgmma(
+        fmt, mt, x.data_ptr(), M, K, w.data_ptr(), s.data_ptr(), N, y.data_ptr(),
+        _cuda.ptr(ws), splits, per_split, _cuda.stream()), "quant_matmul (wgmma)")
+    return y
+
+
+def _launch_k6_ring(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                    plan) -> torch.Tensor:
+    M, K, N, w = _operands(fmt, x, w, s)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _cuda.check(_cuda.library().slime_quant_ring(
+        _RING_FMT[fmt], 0, x.data_ptr(), M, K, N, w.data_ptr(), s.data_ptr(), y.data_ptr(),
+        ctypes.addressof(plan[1]), _cuda.stream()), "quant_matmul (weight ring)")
+    return y
+
+
 def _launch_q4g_wgmma(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     M, K, N, w = _operands(_Q4G, x, w, s)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -156,13 +237,24 @@ def _launch_q4g_wgmma(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torc
 
 def quant_matmul(x: torch.Tensor, qw) -> torch.Tensor:
     """x [B, IN] @ dequant(qw).T -> [B, OUT] in x.dtype, for per-row ``q4``
-    or int8 ``q`` weights (K6)."""
+    or int8 ``q`` weights (K6), on the kernel ``k6_route`` names."""
     if x.device.type == "cpu":
         return quant_matmul_ref(x, qw)
     int4 = "q4" in qw
-    y = _launch(_Q4 if int4 else _INT8, x, qw["q4"] if int4 else qw["q"], qw["scale"])
+    fmt, w, s = (_Q4, qw["q4"], qw["scale"]) if int4 else (_INT8, qw["q"], qw["scale"])
+    M, K = (x.shape if x.dim() == 2 else (0, 0))
+    N, sms = w.shape[0], wr.sm_count(x.device)
+    route = k6_route(M, K, x.dtype, fmt, N, sms)
+    if route == "ring":
+        y = _launch_k6_ring(fmt, x, w, s,
+                            wr.k6_ring_route(M, K, N, x.dtype, _RING_FMT[fmt], sms))
+    elif route == "wgmma":
+        y = _launch_k6_wgmma(fmt, x, w, s)
+    else:
+        y = _launch(fmt, x, w, s)
     name = "q4" if int4 else "int8"
-    for suffix, n in (("", 1), ("_f32", int(x.dtype == torch.float32))):
+    for suffix, n in (("", 1), ("_f32", int(route == "ffma")),
+                      ("_ring", int(route == "ring")), ("_wgmma", int(route == "wgmma"))):
         attr = f"{name}{suffix}_launches"
         setattr(quant_matmul, attr, getattr(quant_matmul, attr) + n)
     return y
@@ -186,5 +278,7 @@ def quant_matmul_q4g(x: torch.Tensor, qw) -> torch.Tensor:
 
 quant_matmul.q4_launches = quant_matmul.q4_f32_launches = 0
 quant_matmul.int8_launches = quant_matmul.int8_f32_launches = 0
+quant_matmul.q4_ring_launches = quant_matmul.int8_ring_launches = 0
+quant_matmul.q4_wgmma_launches = quant_matmul.int8_wgmma_launches = 0
 quant_matmul_q4g.launches = quant_matmul_q4g.f32_launches = 0
 quant_matmul_q4g.wgmma_launches = 0

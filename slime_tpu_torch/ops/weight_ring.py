@@ -1,8 +1,9 @@
 """The decode kernels' weight formats, and the weight ring's launch plans.
 
 K1-K3 (``fused_mlp_decode``, ``fused_qkv_decode``, ``fused_o_residual``) in
-bf16 with int8 or q4g weights at 1 <= B <= 8 (``ring_instance``: the decode
-steps of the int8 and 4-bit serving paths) run on the weight ring,
+bf16 with int8 or q4g weights, and K6 (``quant_matmul``) in bf16 with int8
+or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``: the decode steps
+of the int8 and 4-bit serving paths) run on the weight ring,
 ``weight_ring_kernel`` in ``csrc/fused_decode.cu``: a persistent grid, one
 block an SM, each block a band of output rows whose whole weight rows one
 producer thread streams into a ring of shared-memory stages by 1-D bulk
@@ -16,7 +17,11 @@ and every launch of the call has a plan; every other call takes the
 row-per-warp kernels, which take the same operands. A plan
 is missing where two stages and the activations do not fit in a block's
 shared memory: from K = 57920 int8 or 56576 q4g columns with one matrix a
-stage (K1's down, K2, K3), from 32784 or 30976 with two (gate/up).
+stage (K1's down, K2, K3), from 32784 or 30976 with two (gate/up); and where
+a weight row is not a whole number of 16-byte vectors (K6 at K = 1000). K6's
+rule is ``k6_ring_route`` (one matrix a stage, no norm, no residual, the
+per-row scale read by the epilogue as int8's is); where it has no plan K6
+takes its ``mma.sync`` GEMM (``quant_matmul.k6_route``).
 
 This is plain Python, so the CPU tests hold it
 (``tests/test_torch_decode_stream.py``).
@@ -31,8 +36,9 @@ from dataclasses import dataclass
 import torch
 
 # Weight formats (the kernels' format codes): dense bf16 (any float on the
-# CPU), per-row int8, group-128 q4g, dense fp32 (fp32 activations only).
-DENSE, INT8, Q4G, DENSE_F32 = 0, 1, 2, 3
+# CPU), per-row int8, group-128 q4g, dense fp32 (fp32 activations only),
+# per-row q4 (K6 only; quant_matmul.py's own codes 0-2 are another table).
+DENSE, INT8, Q4G, DENSE_F32, ROW_Q4 = 0, 1, 2, 3, 4
 
 RING_MAX_ROWS = 8             # activation rows the ring takes (one launch holds 8 at most)
 RING_BYTES = 128 * 1024       # the ring of stages of one block
@@ -47,10 +53,10 @@ PDL = True                    # chain a call's launches (programmatic dependent 
 
 def ring_instance(B: int, dtype, fmt: int) -> bool:
     """Whether the decode kernels' operands suit the weight ring: bf16
-    activations, int8 or q4g weights, 1 <= B <= 8. Such a call takes the
-    ring where its plans exist; everything else takes the row-per-warp
-    kernels."""
-    return dtype == torch.bfloat16 and fmt in (INT8, Q4G) and 1 <= B <= RING_MAX_ROWS
+    activations, int8, q4g or (K6) per-row q4 weights, 1 <= B <= 8. Such a
+    call takes the ring where its plans exist; everything else takes the
+    row-per-warp kernels (K6: its mma.sync GEMM)."""
+    return dtype == torch.bfloat16 and fmt in (INT8, Q4G, ROW_Q4) and 1 <= B <= RING_MAX_ROWS
 
 
 @dataclass(frozen=True)
@@ -65,7 +71,7 @@ class RingLaunch:
     one after another (``parts``: their row counts; K2's W_q, W_k, W_v)."""
     rows: int                 # N, output rows
     row_bytes: int            # weight bytes a row
-    scale_bytes: int          # q4g scale bytes a row (0 for int8: loaded by the epilogue)
+    scale_bytes: int          # q4g scale bytes a row (0 for int8 and q4: loaded by the epilogue)
     mats: int                 # matrices streamed together (gate/up 2, else 1)
     grid: int
     rows_per_stage: int
@@ -117,8 +123,8 @@ class RingLaunch:
 def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
                 parts=None) -> RingLaunch:
     """The launch plan of one projection of N rows over K columns of int8
-    (K bytes a row) or q4g (K / 2, and K / 128 fp32 scales) weights, for B
-    activation rows, on a card of ``sms`` SMs: one block an SM, each band
+    (K bytes a row), q4g (K / 2, and K / 128 fp32 scales) or per-row q4 (K /
+    2) weights, for B activation rows, on a card of ``sms`` SMs: one block an SM, each band
     at least ``align`` rows; R, the most rows (8, 4, 2 or 1, at least
     ``align``) whose weights stay within STAGE_BYTES; as many activation
     rows a launch as ACT_BYTES holds; as many stages (at least 2) as
@@ -128,7 +134,7 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     whole 16-byte units. Raises where two stages do not fit."""
     q4g = fmt == Q4G
     parts = tuple(parts) if parts else (N,)
-    row_bytes, scale_bytes = (K // 2, K // 128 * 4) if q4g else (K, 0)
+    row_bytes, scale_bytes = (K // 2, K // 128 * 4) if q4g else (K // 2 if fmt == ROW_Q4 else K, 0)
     align = next(a for a in (1, 2, 4) if a * scale_bytes % 16 == 0)
     R = next(r for r in (8, 4, 2, 1)
              if r == align or mats * r * row_bytes <= STAGE_BYTES)
@@ -142,6 +148,7 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     # a stage, its two barriers and its issued index
     stages = min(RING_BYTES // stage, (SMEM_MAX - rest) // (stage + 20))
     if (stages < 2 or row_bytes % 16 or K % 16 or sum(parts) != N or min(parts) < 1
+            or (fmt == ROW_Q4 and (mats > 1 or len(parts) > 1))
             or any(n % align for n in parts) or (mats > 1 and len(parts) > 1)
             or len(parts) > 3):
         raise ValueError(f"no weight-ring plan for [{N}, {K}] ({row_bytes} bytes a row, "
@@ -182,3 +189,13 @@ def projection_plan(B: int, K: int, N: int, fmt: int, sms: int, parts=None):
     space of ``parts``, K3's o projection), or None where it has none."""
     ln = launch_or_none(B, K, N, fmt, 1, sms, parts)
     return None if ln is None else (ln, c_plan(ln))
+
+
+def k6_ring_route(B: int, K: int, N: int, dtype, fmt: int, sms: int):
+    """K6's routing rule on the ring: (plan, its C array) of x [B, K] @ W.T
+    for W [N, K] int8 (``INT8``) or per-row q4 (``ROW_Q4``) where the call takes
+    the weight ring (bf16 x, 1 <= B <= 8, and a plan exists: one matrix a
+    stage, no norm, no residual), else None."""
+    if fmt not in (INT8, ROW_Q4) or not ring_instance(B, dtype, fmt):
+        return None
+    return projection_plan(B, K, N, fmt, sms)

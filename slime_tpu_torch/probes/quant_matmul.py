@@ -12,8 +12,11 @@ with L2 flushed between runs. Each variant runs at three output-row blocks a
 block of 256 threads (``ROWS``: 16, 64, 256, that is 896, 224 and 56 blocks
 for 14336 rows; the TPU's ``bo`` of 512-2048 rows has no meaning here). One
 JSON line per variant and block, named as the JAX script names them
-(``int4_matvec_<variant>_bo<rows>``, packed GB/s and microseconds), then the
-int8 reference line (K6's int8 loader on the [14336, 4096] int8 weight).
+(``int4_matvec_<variant>_bo<rows>``, packed GB/s and microseconds), then
+``int4_matvec_ring``: K6 itself at this shape, on the instance its routing
+takes at one row (the weight ring, ``csrc/fused_decode.cu``), held to the
+same plain version; then the int8 reference line (K6 on the [14336, 4096]
+int8 weight, also on the ring).
 
 Run on a machine with a CUDA card and nvcc, from the repository root:
 
@@ -29,6 +32,7 @@ from ..models.layers import fp32_accumulation
 from . import cuda_ms
 from ..ops import _cuda
 from ..ops import quant_matmul as qm
+from ..ops import weight_ring as wr
 
 IN, OUT = 4096, 14336
 VARIANTS = {"i32": 0, "magic": 1, "twodot": 2}
@@ -80,10 +84,11 @@ matvec.launches = 0
 
 
 def run(device=None, *, runs: int = 25, seed: int = 0, log=print):
-    """Check every (variant, rows) against the plain version, time them, and
-    print one JSON line each plus the int8 reference line; returns the
-    records ({metric, variant, rows, us, gbps, max_abs_err}) and the plain
-    version's and the int8 loader's times."""
+    """Check every (variant, rows) and K6's ring instance against the plain
+    version, time them, and print one JSON line each plus the int8
+    reference line; returns the records ({metric, variant, rows, us, gbps,
+    max_abs_err}; K6's ring: variant "ring", rows 0) and the plain version's
+    and K6's int8 times."""
     if not torch.cuda.is_available():
         raise RuntimeError("the P1 probe runs on a CUDA card")
     dev = torch.device(device) if device is not None else torch.device("cuda")
@@ -106,6 +111,18 @@ def run(device=None, *, runs: int = 25, seed: int = 0, log=print):
                 log(json.dumps({"metric": rec["metric"], "value": rec["gbps"],
                                 "unit": f"GB/s effective ({rec['us']:.2f} us; packed bytes; "
                                         f"H100 HBM 3350)", "vs_baseline": None}))
+        if qm.k6_route(1, IN, x.dtype, qm._Q4, OUT, wr.sm_count(x.device)) != "ring":
+            raise AssertionError("K6 at P1's shape does not take the weight ring")
+        got = qm.quant_matmul(x, qw).float()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"P1 ring (K6): {m}")
+        ms = cuda_ms(lambda: qm.quant_matmul(x, qw), runs, flush)
+        rec = {"metric": "int4_matvec_ring", "variant": "ring", "rows": 0, "us": ms * 1e3,
+               "gbps": packed / ms / 1e6, "max_abs_err": (got - want).abs().max().item()}
+        records.append(rec)
+        log(json.dumps({"metric": rec["metric"], "value": rec["gbps"],
+                        "unit": f"GB/s effective ({rec['us']:.2f} us; packed bytes; "
+                                f"H100 HBM 3350; K6's weight ring)", "vs_baseline": None}))
         plain_ms = cuda_ms(lambda: plain(x, qw), runs, flush)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         q8 = {"q": torch.randint(-128, 128, (OUT, IN), dtype=torch.int8, device=dev,
@@ -113,7 +130,7 @@ def run(device=None, *, runs: int = 25, seed: int = 0, log=print):
               "scale": qw["scale"]}
         int8_ms = cuda_ms(lambda: qm.quant_matmul(x, q8), runs, flush)
     log(json.dumps({"metric": "int8_matvec_reference", "value": OUT * IN / int8_ms / 1e6,
-                    "unit": f"GB/s effective ({int8_ms * 1e3:.2f} us; K6's int8 loader)",
+                    "unit": f"GB/s effective ({int8_ms * 1e3:.2f} us; K6's int8 instance)",
                     "vs_baseline": None}))
     return records, plain_ms, int8_ms
 

@@ -14,7 +14,10 @@ read it, no copy crossing from one matrix into the next, every copy 16-byte
 aligned and a multiple of 16 bytes, the shared memory the kernel's check
 asks for and no more than a block has); the exact int8 / int4 -> fp32
 conversion the kernel does without I2F, on every byte and nibble; and that
-CPU calls take the plain versions and count no launch.
+CPU calls take the plain versions and count no launch. K6 (``quant_matmul``)
+runs the same kernel at decode rows: its rule (``weight_ring.k6_ring_route``)
+and plans for int8 and per-row q4 at B = 1-8, and the q4 consumers'
+de-interleaved activation staging, are held here too.
 """
 import itertools
 
@@ -315,3 +318,81 @@ def test_cpu_call_takes_the_plain_version_and_counts_nothing():
     torch.testing.assert_close(fm.fused_mlp_decode(x, layers, 1),
                                fm.fused_mlp_decode_ref(x, layers, 1), rtol=0, atol=0)
     assert counts == (fm.fused_mlp_decode.launches, fm.fused_mlp_decode.ring_launches)
+
+
+# K6 on the ring: Llama-3-8B's projections (q/o 4096, k/v 1024, gate/up 14336
+# rows at K = 4096; down 4096 at K = 14336) and ragged small widths
+K6_WIDTHS = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+             (1000, 512), (136, 1024), (7, 4128)]
+
+
+@pytest.mark.parametrize("fmt", [INT8, wr.ROW_Q4], ids=["int8", "q4"])
+@pytest.mark.parametrize("width", K6_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("B", range(1, 9))
+def test_k6_ring_plan_covers_every_row_once(fmt, width, B):
+    """K6's one launch a row group on the ring: one matrix a stage, no norm,
+    no residual, the per-row scale read by the epilogue (no scale bytes in a
+    stage); every output row in exactly one band and one bulk copy, where
+    the consumers read it, on 132 SMs and (ragged) on 7."""
+    N, K = width
+    bf = torch.bfloat16
+    for sms in (SMS, 7):
+        ln, c_plan = wr.k6_ring_route(B, K, N, bf, fmt, sms)
+        assert list(c_plan) == ln.ints()
+        assert (ln.rows, ln.mats, ln.parts, ln.scale_bytes) == (N, 1, (), 0)
+        assert ln.row_bytes == (K // 2 if fmt == wr.ROW_Q4 else K)
+        assert ln.grid == min(sms, N)
+        _assert_covers_every_row_once(ln, K, B, [N])
+
+
+def test_k6_ring_route_rule():
+    """k6_ring_route plans bf16 x at 1 <= B <= 8 with int8 or per-row q4
+    weights, and is None for fp32 x, B > 8, q4g or dense weights, and rows
+    that are not whole 16-byte vectors (int8 K = 1000, q4 K = 1008)."""
+    bf = torch.bfloat16
+    for fmt in (INT8, wr.ROW_Q4):
+        assert wr.k6_ring_route(1, 4096, 4096, bf, fmt, SMS) is not None
+        assert wr.k6_ring_route(8, 14336, 4096, bf, fmt, SMS) is not None
+        assert wr.k6_ring_route(9, 4096, 4096, bf, fmt, SMS) is None
+        assert wr.k6_ring_route(1, 4096, 4096, torch.float32, fmt, SMS) is None
+    for fmt in (Q4G, DENSE):
+        assert wr.k6_ring_route(1, 4096, 4096, bf, fmt, SMS) is None
+    assert wr.k6_ring_route(1, 1000, 4096, bf, INT8, SMS) is None
+    assert wr.k6_ring_route(1, 1008, 4096, bf, wr.ROW_Q4, SMS) is None
+    # the q4 down projection at B = 8 stages 4 activation rows a launch: 2 launches
+    ln, _ = wr.k6_ring_route(8, 14336, 4096, bf, wr.ROW_Q4, SMS)
+    assert (ln.batch_rows, ln.rows_per_stage) == (4, 1)
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(1, 4096, 512, wr.ROW_Q4, 2, SMS)         # q4 streams one matrix a stage
+
+
+def _act_chunk(j):
+    return j ^ ((j >> 3) & 1)
+
+
+def test_k6_ring_q4_activations_deinterleaved():
+    """The q4 consumers' view of x (``stage_act_q4`` then ``load_act16`` in
+    csrc/fused_decode.cu): a row staged chunk by chunk, evens to the first
+    half and odds to the second, each half chunk-swizzled; the 16 columns a
+    lane's vector c reads from each half are x's columns 32 c + 2 i (low
+    nibbles of its bytes i) and 32 c + 2 i + 1 (high nibbles); and the eight
+    lanes of a quarter-warp read 16-byte chunks on eight distinct bank groups."""
+    K = 4096
+    x = np.arange(K)
+    smem = np.full(K, -1)
+    for j in range(K // 8):                   # stage_act_q4, one chunk a thread
+        cols = x[8 * j:8 * j + 8]
+        for half, vals in ((0, cols[0::2]), (1, cols[1::2])):
+            at = half * (K // 2) + 8 * _act_chunk(j >> 1) + 4 * (j & 1)
+            smem[at:at + 4] = vals
+    assert (np.sort(smem) == x).all()
+    for c in range(K // 32):                  # load_act16(half, c): chunks 2c, 2c + 1
+        sw = (c >> 2) & 1
+        for half in (0, 1):
+            base = half * (K // 2)
+            got = np.concatenate([smem[base + 8 * (2 * c + (sw ^ k)):][:8] for k in (0, 1)])
+            np.testing.assert_array_equal(got, 32 * c + 2 * np.arange(16) + half)
+    for half in (0, 1):
+        for q in range(0, 32, 8):             # a quarter-warp's first chunks
+            banks = {(_act_chunk(2 * c) % 8) for c in range(q, q + 8)}
+            assert len(banks) == 8

@@ -26,6 +26,7 @@ from slime_tpu_torch.ops import fused_mlp, fused_qkvo
 from slime_tpu_torch.ops import quant_matmul as qm
 from slime_tpu_torch.ops import quantization as quant
 from slime_tpu_torch.ops import w8a8_matmul as w8
+from slime_tpu_torch.ops import weight_ring as wr
 
 pytestmark = pytest.mark.gpu
 RTOL = 2 ** -7
@@ -528,7 +529,8 @@ QMM_CASES = [("q4", 1, 1024, 4096), ("q4", 2048, 4096, 4096), ("q4", 37, 1000, 1
 def test_quant_matmul_kernels(dev, case, dtype):
     """K6 (q4, int8) and K7 (q4g) against their plain versions: exact
     products, fp32 sums in another order, out in x's dtype (bf16: the
-    mma.sync kernel; fp32: the FFMA kernel)."""
+    instance the routing names, for K6 the weight ring at one row, wgmma at
+    2048 and 130, mma.sync at 37; fp32: the FFMA kernel)."""
     fmt, M, N, K = case
     g = torch.Generator(device=dev).manual_seed(M + N)
     qw = _qweight(fmt, N, K, g, dev)
@@ -646,21 +648,85 @@ def test_quant_matmul_kernels_reject(dev):
 
 
 def test_linear_routes_q4g_to_k7_and_q4_to_k6(dev):
-    """layers.linear on a CUDA tensor: q4g launches K7, per-row q4 K6, and
-    NF4 / int8 take the dequantize path (no launch)."""
+    """layers.linear on a CUDA tensor: q4g launches K7, per-row q4 K6 (6
+    rows on its weight ring, 80 rows on its wgmma instance), and NF4 / int8
+    take the dequantize path (no launch)."""
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((2, 3, 512), device=dev, generator=g).to(torch.bfloat16)
     w = torch.randn((256, 512), device=dev, generator=g) * 0.02
     counts = lambda: (qm.quant_matmul_q4g.launches, qm.quant_matmul.q4_launches,  # noqa: E731
-                      qm.quant_matmul.int8_launches)
+                      qm.quant_matmul.int8_launches, qm.quant_matmul.q4_ring_launches,
+                      qm.quant_matmul.q4_wgmma_launches, qm.quant_matmul.int8_ring_launches,
+                      qm.quant_matmul.int8_wgmma_launches)
     c0 = counts()
     y = L.linear({"weight": quant.quantize_weight_q4g(w)}, x)
-    assert y.shape == (2, 3, 256) and counts() == (c0[0] + 1, c0[1], c0[2])
-    L.linear({"weight": quant.quantize_weight(w, 4)}, x)
-    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2])
+    assert y.shape == (2, 3, 256) and counts() == (c0[0] + 1,) + c0[1:]
+    q4 = quant.quantize_weight(w, 4)
+    y = L.linear({"weight": q4}, x)
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2], c0[3] + 1) + c0[4:]
+    _assert_close(y, qm.quant_matmul_ref(x.reshape(6, 512), q4).reshape(2, 3, 256), atol=2e-3)
+    x80 = torch.randn((2, 40, 512), device=dev, generator=g).to(torch.bfloat16)
+    y = L.linear({"weight": q4}, x80)
+    assert counts() == (c0[0] + 1, c0[1] + 2, c0[2], c0[3] + 1, c0[4] + 1) + c0[5:]
+    _assert_close(y, qm.quant_matmul_ref(x80.reshape(80, 512), q4).reshape(2, 40, 256),
+                  atol=2e-3)
     L.linear({"weight": quant.quantize_weight_nf4(w)}, x)
     L.linear({"weight": quant.quantize_weight(w, 8)}, x)
-    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2])
+    assert counts() == (c0[0] + 1, c0[1] + 2, c0[2], c0[3] + 1, c0[4] + 1) + c0[5:]
+
+
+def _k6_launches(fmt, route):
+    return getattr(qm.quant_matmul, f"{fmt}_{route}_launches")
+
+
+# K6's weight ring: Llama-3-8B's q/o, k/v and down projections, ragged N and K
+K6_RING_WIDTHS = [(4096, 4096), (1024, 4096), (4096, 14336), (1000, 512), (136, 1056)]
+
+
+@pytest.mark.parametrize("width", K6_RING_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("B", range(1, 9))
+@pytest.mark.parametrize("fmt", ["q4", "int8"])
+def test_quant_matmul_ring(dev, fmt, B, width):
+    """K6 on the weight ring (bf16 x, 1-8 rows) against quant_matmul_ref at
+    2e-3 and 2^-7 relative (exact products, fp32 sums in another order, one
+    bf16 rounding): exactly one ring launch a call (the down projection at
+    B > 4 stages its rows in two groups, two launches of the kernel)."""
+    N, K = width
+    g = torch.Generator(device=dev).manual_seed(B * N + K)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((B, K), device=dev, generator=g).to(torch.bfloat16)
+    code = qm._Q4 if fmt == "q4" else qm._INT8
+    assert qm.k6_route(B, K, x.dtype, code, N, wr.sm_count(x.device)) == "ring"
+    before = _k6_launches(fmt, "ring")
+    got = qm.quant_matmul(x, qw)
+    assert _k6_launches(fmt, "ring") == before + 1
+    _assert_close(got, qm.quant_matmul_ref(x, qw), atol=2e-3)
+
+
+K6_WGMMA_WIDTHS = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (1000, 1056),
+                   (136, 4128)]
+
+
+@pytest.mark.parametrize("width", K6_WGMMA_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("M", [64, 100, 2048])
+@pytest.mark.parametrize("fmt", ["q4", "int8"])
+def test_quant_matmul_wgmma(dev, fmt, M, width):
+    """K6's wgmma instance (bf16 x, M >= 64: the integer weights dequantized
+    in registers, the per-row scale on the fp32 accumulator) against
+    quant_matmul_ref at 2e-3 and 2^-7 relative: the prefill's rows, a ragged
+    M and the limit, Llama-3-8B's widths (256-row blocks, 128 for k/v, a
+    split over K where the tiles leave SMs idle), a ragged N and a K past
+    the last whole stage (TMA's zero fill)."""
+    N, K = width
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((M, K), device=dev, generator=g).to(torch.bfloat16)
+    assert qm.k6_route(M, K, x.dtype, qm._Q4 if fmt == "q4" else qm._INT8, N,
+                       wr.sm_count(x.device)) == "wgmma"
+    before = _k6_launches(fmt, "wgmma")
+    got = qm.quant_matmul(x, qw)
+    assert _k6_launches(fmt, "wgmma") == before + 1
+    _assert_close(got, qm.quant_matmul_ref(x, qw), atol=2e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
