@@ -103,6 +103,21 @@ Phase 7  the entry points at their default fp32 compute dtype, each run
          at B = 65 (q4g K1-K3); on config B ``llama.forward`` at S = 2048
          (K6). It runs inside phases 2 and 5, on their models.
 
+Phase 8  serves through the continuous-batching engine
+         (``serve.batch_engine.BatchDecodeEngine``, 4 slots, bf16) on phase
+         2's int8 model before it is freed: bench.py's query twice (the
+         second hits the prefix cache) and text prompts of 60 and 300
+         tokens, 64 greedy tokens each, two submitted at once and two after 4
+         ticks. It holds each answer to ``generate``'s (equal, or parted at a
+         near tie of generate's logits, ENGINE_TIE_ATOL), counts the launches
+         (K4 23 per multimodal admission, K1-K3 on the weight ring 32 each per
+         decode step at B = 4 and per chunk of <= 8 rows, row per warp 32 each
+         per fused chunk of 9-64 rows, K5 never), serves one request through
+         ``start()``/``stop()``, cancels one, traces a 4-slot tick at k = 1 and
+         k = 8 and the 300-token prompt's two chunks, and runs the int8 KV
+         pool twice (finite scales, the same answers, the float pool's first
+         tokens), with TTFTs, the aggregate rate and the peak memory.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -195,6 +210,18 @@ CP_SEQ, CP_RANKS, F32_SEQ = 8192, 4, 2048
 # kernels' former 64-row limit)
 DEFAULT_DTYPE_ROWS = 65
 FUSED = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
+# phase 8: the engine's slots, its two text prompts' lengths (the longer one
+# is admitted in a 256-position chunk and a fused 64-row one), its cache in
+# whole 256-position decode windows, and the bound on generate's logit gap
+# at a step where an engine answer parts from generate's: phase 6's bound
+# between two bf16 attention paths through the random 32 layers, whose
+# logits moved by up to 0.108 there (the engine's chunks and windows are
+# other attention paths than generate's one prefill)
+ENGINE_SLOTS, ENGINE_TEXT, ENGINE_WINDOW, ENGINE_TIE_ATOL = 4, (60, 300), 256, 0.25
+# the rows of that fused chunk (the 300-token prompt's last 44 positions,
+# padded to a power of two), where phase 1 times K1-K3's row-per-warp
+# instances
+CHUNK_ROWS = 64
 # phase 6's comparisons, from readings on an H100 (PERF.md). The
 # last-position logits (std 0.74) of the bf16 ring forward (a) and the bf16
 # K5 forward (b) differed by up to 0.101, as much as any two bf16 attention
@@ -319,15 +346,16 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # mma.sync instance takes bf16 x below 64 rows, which no path sends it (the
 # prefill is padded to 2048 rows; decode runs the fused q4g K1-K3). The P1,
 # P3 and P4 probes are design probes, off every path. K1-K3's row-per-warp
-# instances in bf16 with int8 or q4g weights take B > 8 only (the weight
-# ring takes B <= 8 at these widths), which no path sends them (decode runs
-# at B = 1; phase 7's B = 65 is fp32). Phase 1 checks them; their launch
-# counts stay 0.
+# instances in bf16 with q4g weights take B > 8 only (the weight ring takes
+# B <= 8 at these widths), which no path sends them (decode runs at B = 1
+# and 4; phase 7's B = 65 is fp32); their int8 twins take the engine's
+# fused chunks of 9-64 rows (phase 8). Phase 1 checks them; the launch
+# counts of these off-path instances stay 0.
 OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
             "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
             "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
-    n + sfx for n in FUSED for sfx in ("", "_q4g")) + D256 + WIDE
+    n + "_q4g" for n in FUSED) + D256 + WIDE
 
 
 def _counters():
@@ -585,6 +613,29 @@ def trace_kernel(path, pattern):
     return ms, n
 
 
+def profiled(fn, path, start=None, tries=3):
+    """Run fn() under torch.profiler (host and CUDA activities) and write its
+    chrome trace to ``path``; ``start()``, where given, runs before each
+    session, outside it. A session that recorded no kernel (a process's
+    first session can come back empty) is taken again, up to ``tries``
+    times, fn() included; returns whether the trace holds a kernel, and
+    logs the trace as not measured where it does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        if start is not None:
+            start()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        if trace_kernel(path, "")[1]:
+            return True
+    log(f"profiler: no kernel recorded in {tries} sessions; {Path(path).name} not measured")
+    return False
+
+
 def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
     """Phase 3 (and 5's and 5b's part of it): stage times (host clock around
     synchronised calls, median of 3) and a torch.profiler trace of one TTFT
@@ -592,9 +643,8 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
     unprofiled host wall time. ``tag`` names the phase in the log and the
     trace files. Returns the traces' summary: for a decode step and the
     TTFT, host and device ms, idle share, launches, and [device ms,
-    launches] of each kernel class it names."""
-    from torch.profiler import ProfilerActivity, profile
-
+    launches] of each kernel class it names (a trace the profiler left
+    empty is missing)."""
     from slime_tpu_torch import generate as gen
     from slime_tpu_torch.models import llama, slime, vit
     from slime_tpu_torch.models.layers import fp32_accumulation
@@ -650,15 +700,24 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
         f"{statistics.median(step_ms):.2f} ms, mean {statistics.mean(step_ms):.2f}, "
         f"p90 {np.percentile(step_ms, 90):.2f}, max {max(step_ms):.2f}")
     step_ms = statistics.median(step_ms)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        steps(PROFILE_STEPS)
-    prof.export_chrome_trace(str(out / f"profile_decode_{tag}.json"))
+    summary = {}
+    # up to 3 sessions of PROFILE_STEPS steps: 36 + 24 <= N_NEW cache positions
+    if profiled(lambda: steps(PROFILE_STEPS), out / f"profile_decode_{tag}.json"):
+        summary["decode_step"] = decode_summary(tag, out, step_ms)
+    del cache, last
+
+    if profiled(lambda: request(1).cpu(), out / f"profile_ttft_{tag}.json"):
+        summary["ttft"] = ttft_summary(tag, out, ttft_ms)
+    return summary
+
+
+def decode_summary(tag, out, step_ms):
+    """Phase ``tag``'s traced decode steps: host and device ms per step, idle
+    share, launches, and [device ms, launches] per step of each kernel class."""
     busy, launches, by_name = trace_device(out / f"profile_decode_{tag}.json")
     busy /= PROFILE_STEPS
-    summary = {"decode_step": {"host_ms": step_ms, "device_ms": busy,
-                               "idle_share": 1 - busy / step_ms,
-                               "launches": launches / PROFILE_STEPS, "kernels": {}}}
+    summary = {"host_ms": step_ms, "device_ms": busy, "idle_share": 1 - busy / step_ms,
+               "launches": launches / PROFILE_STEPS, "kernels": {}}
     log(f"phase {tag} decode step: device busy {busy:.2f} ms/step; idle share "
         f"{1 - busy / step_ms:.3f}; {launches / PROFILE_STEPS:.0f} kernel launches/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -672,17 +731,18 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
                           ("K2 row per warp (qkv_kernel)", "qkv_kernel"),
                           ("K1 / K3 row per warp (resid_kernel)", "resid_kernel")):
         ms, n = trace_kernel(out / f"profile_decode_{tag}.json", pattern)
-        summary["decode_step"]["kernels"][what] = [ms / PROFILE_STEPS, n / PROFILE_STEPS]
+        summary["kernels"][what] = [ms / PROFILE_STEPS, n / PROFILE_STEPS]
         log(f"phase {tag} decode {what}: {ms / PROFILE_STEPS:.3f} ms/step of device time over "
             f"{n / PROFILE_STEPS:.0f} launches/step")
-    del cache, last
+    return summary
 
-    with profile(activities=acts) as prof:
-        request(1).cpu()
-    prof.export_chrome_trace(str(out / f"profile_ttft_{tag}.json"))
+
+def ttft_summary(tag, out, ttft_ms):
+    """Phase ``tag``'s traced request: host and device ms, idle share,
+    launches, and [device ms, launches] of each kernel class it ran."""
     busy, launches, by_name = trace_device(out / f"profile_ttft_{tag}.json")
-    summary["ttft"] = {"host_ms": ttft_ms, "device_ms": busy, "idle_share": 1 - busy / ttft_ms,
-                       "launches": launches, "kernels": {}}
+    summary = {"host_ms": ttft_ms, "device_ms": busy, "idle_share": 1 - busy / ttft_ms,
+               "launches": launches, "kernels": {}}
     log(f"phase {tag} TTFT: device busy {busy:.2f} ms of {ttft_ms:.2f} ms unprofiled; "
         f"idle share {1 - busy / ttft_ms:.3f}; {launches} kernel launches")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -695,7 +755,7 @@ def profile_slice(tag, params, cfg, ids, attn, img, anyres, request, ttft_ms):
                           ("K8 int8 GEMM (int8_gemm_kernel)", "int8_gemm_kernel")):
         ms, n = trace_kernel(out / f"profile_ttft_{tag}.json", pattern)
         if n:
-            summary["ttft"]["kernels"][what] = [ms, n]
+            summary["kernels"][what] = [ms, n]
             log(f"phase {tag} TTFT {what}: {ms:.3f} ms of device time over {n} launches")
     return summary
 
@@ -1076,11 +1136,12 @@ def decode_kernels(dev, cfg, g, flush, record):
     1, 8) and q4g (B = 1, 64) in bf16, as before; then, from a generator of
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
-    compute dtype), and q4g at B = 8 in bf16. The records keep B = 1; K1-K3
+    compute dtype), q4g at B = 8 and int8 at B = 64 (the engine's fused
+    chunk, phase 8) in bf16. The records keep B = 1; K1-K3
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
-    their first case (B = 64 or 65). K2 and K3 are timed beside one PyTorch
+    B = 64. K2 and K3 are timed beside one PyTorch
     call of their int8 or q4g product alone (``decode_library``; in fp32
     where the installed torch takes fp32 x, else the reason is logged).
     The MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
@@ -1092,6 +1153,7 @@ def decode_kernels(dev, cfg, g, flush, record):
     NKV, I = cfg2.num_kv_heads * cfg2.head_dim, cfg2.intermediate_size
     g_new = torch.Generator(device=dev).manual_seed(SEED + 3)
     g_q4g8 = torch.Generator(device=dev).manual_seed(SEED + 10)
+    g_chunk = torch.Generator(device=dev).manual_seed(SEED + 11)
     bf, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fmt, batches in (("int8", (1, 8)), ("q4g", (1, 64))):
@@ -1128,6 +1190,8 @@ def decode_kernels(dev, cfg, g, flush, record):
         runs = ((bf, "", batches, g), (bf, "", (65, 128), g_new), (f32, "_f32", (1, 65), g_new))
         if fmt == "q4g":
             runs += ((bf, "", (8,), g_q4g8),)
+        else:       # the engine's fused chunk (phase 8): 64 rows, row per warp
+            runs += ((bf, "", (CHUNK_ROWS,), g_chunk),)
         for dtype, dsfx, bs, gen in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
@@ -1145,15 +1209,17 @@ def decode_kernels(dev, cfg, g, flush, record):
                                    lambda: kern(x, a), lambda: ref(x, a),
                                    nbytes(*acts, *reads) + B * cols * x.element_size(),
                                    2 * B * macs, BF16_OPS if dtype == bf else F32_OPS, flush,
-                                   main=B == 1, dispatch=B == 1, floor=floor, library=library)
+                                   main=B in (1, CHUNK_ROWS), dispatch=B == 1, floor=floor,
+                                   library=library)
                     if ring and B in (1, 8):
                         short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
                                                     "").split("(")[0]
                         split, span = profile_split(lambda: kern(x, a), flush)
                         log(f"phase 1 {name}{fsfx}_ring {fmt} B={B} launches "
                             f"(profiler, device ms each, L2 flushed): "
-                            + ", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
-                            + f"; first start to last end {span:.4f} ms")
+                            + (", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
+                               + f"; first start to last end {span:.4f} ms" if split
+                               else "not measured (the profiler recorded no kernel)"))
         del two, cases
 
 
@@ -1637,10 +1703,272 @@ def default_dtype_run(what, fn, expect):
     return counts
 
 
+def teacher_logits(params, cfg, ids, attn, pv, cm, tokens, j):
+    """``generate``'s bf16 logits [V] at answer step j, given its tokens
+    before j: its prefill, then its decode steps on its own cache (length
+    L + N_NEW), as ``generate`` runs them."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    bf = torch.bfloat16
+    with torch.no_grad(), fp32_accumulation():
+        logits, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
+        cache = llama.prefill_into_cache(
+            llama.init_kv_cache(cfg.llm, 1, L + N_NEW, dtype=bf, device=ids.device),
+            kvs, lengths)
+        del kvs
+        for i in range(1, j + 1):
+            tok = torch.tensor([tokens[i - 1]], device=ids.device)
+            logits, cache = llama.decode_step(params["llm"], cache, tok, cfg.llm,
+                                              compute_dtype=bf)
+    return logits[0].float()
+
+
+def check_answer(name, got, want, logits_at):
+    """An engine answer against ``generate``'s: equal, or parted at a near
+    tie: at the first step where they differ, generate's logit of the
+    engine's token lies within ENGINE_TIE_ATOL of its top logit. Returns
+    the step and gap (None when equal)."""
+    if len(got) != len(want):
+        raise AssertionError(f"phase 8 {name}: {len(got)} tokens, generate gave {len(want)}")
+    if got == want:
+        log(f"phase 8 {name}: {len(got)} tokens equal to generate's")
+        return None
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    lg = logits_at(j)
+    gap = float(lg[want[j]] - lg[got[j]])
+    log(f"phase 8 {name}: parts from generate at step {j} (engine {got[j]}, generate "
+        f"{want[j]}): generate's logit gap {gap:.4g} (near-tie bound {ENGINE_TIE_ATOL}); "
+        f"equal before it")
+    if not 0.0 <= gap <= ENGINE_TIE_ATOL:
+        raise AssertionError(f"phase 8 {name}: not a near tie at step {j}: gap {gap:.4g}")
+    return j, gap
+
+
+def engine_phase(dev, cfg, params):
+    """Phase 8: the continuous-batching engine (``serve.batch_engine``) on
+    phase 2's int8 model, bf16 compute; returns the launch counts of the
+    float engine's run."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+
+    bf = torch.bfloat16
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    V, NL = cfg.llm.vocab_size, cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    img, ids, attn, anyres = query(dev, cfg)
+    crops, mask = anyres(img)
+    with torch.no_grad(), fp32_accumulation():
+        fused_len = int(slime.prepare_multimodal(params, cfg, ids, attn, crops[None],
+                                                 mask[None], compute_dtype=bf).lengths[0])
+    # the fused query and its answer, with the one position the fusion's
+    # max_len (cache_len - max_new_tokens - 1) leaves, in whole windows
+    cache_len = -(-(fused_len + N_NEW + 1) // ENGINE_WINDOW) * ENGINE_WINDOW
+    rng = np.random.default_rng(SEED + 12)
+    text = [rng.integers(5, V, (n,)) for n in ENGINE_TEXT]
+    ids_np = ids[0].cpu().numpy()
+    # (name, input_ids, pixel_values, crop_mask); the first two are submitted
+    # at once, the last two after 4 ticks
+    prompts = [("query A", ids_np, crops, mask), (f"text {ENGINE_TEXT[0]}", text[0], None, None),
+               ("query B", ids_np, crops, mask), (f"text {ENGINE_TEXT[1]}", text[1], None, None)]
+    log(f"phase 8 engine: max_slots {ENGINE_SLOTS}, cache_len {cache_len} (the query fuses to "
+        f"{fused_len} positions), prefill_chunk_len 256, multi_step 8, prefix cache 512 MB, "
+        f"bf16; requests: the query twice, text prompts of {ENGINE_TEXT} tokens, "
+        f"{N_NEW} greedy tokens each")
+
+    def as_tensors(p):
+        t = torch.from_numpy(p[1][None].astype(np.int64)).to(dev)
+        return (t, torch.ones_like(t, dtype=torch.bool),
+                None if p[2] is None else p[2][None], None if p[3] is None else p[3][None])
+    refs = {}
+    for p in prompts[:2] + prompts[3:]:
+        refs[p[1].size] = gen.generate(params, cfg_run, *as_tensors(p), max_new_tokens=N_NEW,
+                                       compute_dtype=bf)[0].tolist()
+
+    def run(kv_quant):
+        """Drive the four requests through tick(); -> (engine, answers, TTFTs
+        in s, wall s, launch counts, peak GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = BatchDecodeEngine(params, cfg_run, max_slots=ENGINE_SLOTS, cache_len=cache_len,
+                                compute_dtype=bf, kv_quant=kv_quant, device=dev)
+        reqs = [Request(input_ids=p[1], pixel_values=p[2], crop_mask=p[3],
+                        max_new_tokens=N_NEW) for p in prompts]
+        ttft = [None] * 4
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs[:2]:
+            eng.submit(r)
+        for tick in range(1, 4000):
+            n = eng.tick()
+            if tick == 4:
+                for r in reqs[2:]:
+                    eng.submit(r)
+            for i, r in enumerate(reqs):
+                if ttft[i] is None and not r.out_queue.empty():
+                    ttft[i] = time.monotonic() - r._t_submit
+            if tick > 4 and n == 0 and eng.pending.empty() and eng._admission is None:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if any(s is not None for s in eng.slots) or not eng.pending.empty():
+            raise AssertionError("phase 8: the engine did not finish its requests")
+        answers = [[t for c in r.stream() for t in c] for r in reqs]
+        return eng, answers, ttft, wall, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    eng, answers, ttft, wall, counts, peak = run(False)
+    ring = sum(n for c, n in eng.chunk_rows.items() if c <= 8)
+    rpw = sum(n for c, n in eng.chunk_rows.items() if 8 < c <= 64)
+    log(f"phase 8 float cache: {sum(map(len, answers))} tokens in {wall:.3f} s "
+        f"({sum(map(len, answers)) / wall:.2f} tok/s aggregate, admissions included); "
+        f"{eng.decode_steps} decode steps at B = {ENGINE_SLOTS}; chunks by padded rows "
+        f"{dict(sorted(eng.chunk_rows.items()))}; peak memory {peak:.2f} GiB")
+    for (name, *_), t in zip(prompts, ttft):
+        log(f"phase 8 TTFT {name}: {t * 1e3:.1f} ms (submit to the tick that emitted its "
+            f"first token)")
+    log(f"phase 8 metrics_summary: {json.dumps(eng.metrics_summary())}")
+    log(f"phase 8 prefix cache: {json.dumps(eng.prefix_cache_stats())}")
+    log(f"phase 8 launches: {json.dumps({n: c for n, c in counts.items() if c})}")
+    want = {"encoder_attention": 2 * vis, "flash_fwd": 0,
+            **{n + "_ring": NL * (eng.decode_steps + ring) for n in FUSED},
+            **{n: NL * rpw for n in FUSED}}
+    wrong = {n: c for n, c in counts.items() if c != want.get(n, 0)}
+    if wrong or not rpw:
+        raise AssertionError(f"phase 8 launches {wrong} (expected {want}); fused chunks of "
+                             f"9-64 rows: {rpw}")
+    for p, got in zip(prompts, answers):
+        args = as_tensors(p)
+        want_toks = refs[p[1].size]
+        check_answer(p[0], got, want_toks,
+                     lambda j: teacher_logits(params, cfg_run, *args, want_toks, j))
+
+    # one request through the engine's own thread
+    eng.start()
+    try:
+        got = [t for c in eng.submit(Request(input_ids=text[0], max_new_tokens=8)).stream()
+               for t in c]
+    finally:
+        eng.stop()
+    check_answer(f"text {ENGINE_TEXT[0]} through start()/stop()", got, refs[text[0].size][:8],
+                 lambda j: teacher_logits(params, cfg_run, *as_tensors(prompts[1]),
+                                          refs[text[0].size], j))
+    # cancellation frees the slot
+    victim = eng.submit(Request(input_ids=text[0], max_new_tokens=N_NEW))
+    for _ in range(3):
+        eng.tick()
+    eng.cancel(victim.request_id)
+    eng.tick()
+    n_cut = len([t for c in victim.stream() for t in c])
+    if not victim.cancelled or n_cut >= N_NEW or any(s is not None for s in eng.slots):
+        raise AssertionError(f"phase 8 cancel: cancelled {victim.cancelled}, {n_cut} tokens, "
+                             f"slots {[s is not None for s in eng.slots]}")
+    log(f"phase 8 cancel: the request stopped after {n_cut} tokens; every slot free")
+
+    # a 4-slot tick at k = 1 and k = 8, traced
+    busy_reqs = [eng.submit(Request(input_ids=text[0], max_new_tokens=200))
+                 for _ in range(ENGINE_SLOTS)]
+    eng.tick()
+    for k in (1, 8):
+        eng._flush_inflight()
+        eng.multi_step = k
+        for _ in range(3):
+            eng.tick()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.tick()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = statistics.median(walls)
+        # exactly three dispatches inside the trace: none in flight at its
+        # start, the last one read at its end
+        eng._flush_inflight()
+
+        def three_ticks():
+            for _ in range(3):
+                eng.tick()
+            eng._flush_inflight()
+
+        path = out / f"profile_engine_tick_k{k}.json"
+        if not profiled(three_ticks, path):
+            continue
+        busy, launches, _ = trace_device(path)
+        busy /= 3
+        log(f"phase 8 tick, {ENGINE_SLOTS} slots, k = {k} ({'overlapped' if k > 1 else 'one step'}): "
+            f"host wall {wall_ms:.2f} ms (median of 5), device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall_ms:.3f}, {launches / 3:.0f} launches per tick, "
+            f"{busy / k:.2f} device ms and {ENGINE_SLOTS * k / wall_ms * 1e3:.1f} tokens/s "
+            f"per step")
+    for r in busy_reqs:
+        eng.cancel(r.request_id)
+    eng.tick()
+    eng._flush_inflight()
+
+    # one 256-position chunk and the 300-token prompt's fused chunk, traced
+    with torch.no_grad(), fp32_accumulation():
+        emb = llama.embed(params["llm"], torch.from_numpy(text[1].astype(np.int64)).to(dev)
+                          ).to(bf)[None]
+        tail = torch.nn.functional.pad(emb[:, 256:], (0, 0, 0, 64 - (emb.shape[1] - 256)))
+        cache1 = llama.init_kv_cache(cfg.llm, 1, cache_len, dtype=bf, device=dev)
+        for name, chunk in (("256-position chunk (non-fused)", emb[:, :256]),
+                            ("64-row fused chunk (K1-K3 row per warp)", tail)):
+            start = 0 if chunk.shape[1] == 256 else 256
+            for _ in range(2):
+                cache1["length"].fill_(start)
+                eng._prefill_chunk(cache1, chunk)
+            torch.cuda.synchronize()
+            path = out / f"profile_engine_chunk_{chunk.shape[1]}.json"
+            if not profiled(lambda: eng._prefill_chunk(cache1, chunk), path,
+                            start=lambda: cache1["length"].fill_(start)):
+                continue
+            busy, launches, by_name = trace_device(path)
+            parts = ", ".join(f"{pat} {ms:.3f} ms / {n}" for pat, (ms, n) in (
+                (pat, trace_kernel(path, pat)) for pat in (
+                    "qkv_kernel", "gate_up_kernel", "resid_kernel", "rms_norm_kernel",
+                    "weight_ring_kernel")) if n)
+            top = "; ".join(f"{ms:.2f} ms {n[:60]}" for n, ms in
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
+            log(f"phase 8 {name}: device busy {busy:.2f} ms, {launches} launches"
+                + (f"; {parts}" if parts else "") + f"; largest: {top}")
+        del cache1
+    del eng
+    torch.cuda.empty_cache()
+
+    # the int8 KV pool: finite scales, the same answers twice, the float
+    # engine's first tokens
+    runs = []
+    for _ in range(2):
+        eng_q, answers_q, ttft_q, wall_q, _, peak_q = run(True)
+        finite = all(bool(torch.isfinite(eng_q.cache[n]).all()) for n in ("k_scale", "v_scale"))
+        runs.append(answers_q)
+        log(f"phase 8 int8 cache: {sum(map(len, answers_q))} tokens in {wall_q:.3f} s; TTFTs "
+            f"{[round(t * 1e3, 1) for t in ttft_q]} ms; scales finite {finite}; peak memory "
+            f"{peak_q:.2f} GiB")
+        del eng_q
+        torch.cuda.empty_cache()
+        if not finite:
+            raise AssertionError("phase 8 int8 cache: scales not finite")
+    same_first = [a[0] == b[0] for a, b in zip(runs[0], answers)]
+    agree = [sum(x == y for x, y in zip(a, b)) for a, b in zip(runs[0], answers)]
+    log(f"phase 8 int8 cache vs float: first tokens equal {same_first}; tokens equal per "
+        f"request {agree} of {N_NEW}")
+    if runs[0] != runs[1] or not all(same_first):
+        raise AssertionError(f"phase 8 int8 cache: repeats {runs[0] == runs[1]}, first tokens "
+                             f"equal {same_first}")
+    return counts
+
+
 def serve_phases(dev, cfg):
-    """Phases 2 and 3 on the int8 serving model, and phase 7's int8 part;
-    returns the launch counts of the counted windows (3 generate requests
-    and 1 stream request; phase 7's first runs)."""
+    """Phases 2 and 3 on the int8 serving model, phase 7's int8 part and
+    phase 8; returns the launch counts of the counted windows (3 generate
+    requests and 1 stream request; phase 7's first runs; phase 8's float
+    engine run)."""
     from slime_tpu_torch.models import projector, sampler, vit
 
     t0 = time.perf_counter()
@@ -1691,6 +2019,8 @@ def serve_phases(dev, cfg):
             {n + "_f32": (L, True) for n in FUSED}).items():
         got[n] += c
     for n, c in got.items():
+        launches[n] += c
+    for n, c in engine_phase(dev, cfg, params).items():          # phase 8
         launches[n] += c
     del params
     return launches
@@ -1919,8 +2249,6 @@ def train_phase(dev, cfg, fa):
     """Phase 4: stages 1-3 of the staged pretraining at full width."""
     import shutil
 
-    from torch.profiler import ProfilerActivity, profile
-
     from slime_tpu_torch.models import llama, projector, sampler, slime, vit
     from slime_tpu_torch.models.layers import fp32_accumulation
     from slime_tpu_torch.ops.loss import chunked_cross_entropy
@@ -2028,34 +2356,31 @@ def train_phase(dev, cfg, fa):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = min(walls)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(out_dir / "profile_train_step.json"))
-    busy, n_kernels, by_name = trace_device(out_dir / "profile_train_step.json")
-    groups = {"flash attention (K5, K5b, K5c)": ("flash_",),
-              "encoder attention (K4)": ("enc_attn",),
-              "GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass", "cublas")}
-    split = {k: 0.0 for k in groups}
-    split["other kernels, copies"] = 0.0
-    for kname, kms in by_name.items():
-        low = kname.lower()
-        key = next((k for k, pats in groups.items() if any(p in low for p in pats)),
-                   "other kernels, copies")
-        split[key] += kms
-    log(f"phase 4 stage-1 step (B=4, S=2048, remat): host wall {wall:.1f} ms "
-        f"(best of 2, unprofiled); device busy {busy:.1f} ms; idle share "
-        f"{1 - busy / wall:.3f}; {n_kernels} kernel launches")
-    for k, kms in split.items():
-        log(f"phase 4 stage-1 step device time {k}: {kms:.1f} ms")
-    for part, pat in (("K5 (flash_fwd_kernel)", "flash_fwd_kernel"),
-                      ("K5b (flash_bwd_dkdv_kernel)", "flash_bwd_dkdv_kernel"),
-                      ("K5c (flash_bwd_dq_kernel)", "flash_bwd_dq_kernel")):
-        kms = sum(v for kname, v in by_name.items() if pat in kname)
-        n = sum(1 for kname in by_name if pat in kname)
-        log(f"phase 4 stage-1 step device time {part}: {kms:.1f} ms ({n} kernel names)")
-    for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"phase 4 stage-1 step kernel {kms:8.2f} ms  {kname[:90]}")
+    if profiled(lambda: step(state, batch), out_dir / "profile_train_step.json"):
+        busy, n_kernels, by_name = trace_device(out_dir / "profile_train_step.json")
+        groups = {"flash attention (K5, K5b, K5c)": ("flash_",),
+                  "encoder attention (K4)": ("enc_attn",),
+                  "GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass", "cublas")}
+        split = {k: 0.0 for k in groups}
+        split["other kernels, copies"] = 0.0
+        for kname, kms in by_name.items():
+            low = kname.lower()
+            key = next((k for k, pats in groups.items() if any(p in low for p in pats)),
+                       "other kernels, copies")
+            split[key] += kms
+        log(f"phase 4 stage-1 step (B=4, S=2048, remat): host wall {wall:.1f} ms "
+            f"(best of 2, unprofiled); device busy {busy:.1f} ms; idle share "
+            f"{1 - busy / wall:.3f}; {n_kernels} kernel launches")
+        for k, kms in split.items():
+            log(f"phase 4 stage-1 step device time {k}: {kms:.1f} ms")
+        for part, pat in (("K5 (flash_fwd_kernel)", "flash_fwd_kernel"),
+                          ("K5b (flash_bwd_dkdv_kernel)", "flash_bwd_dkdv_kernel"),
+                          ("K5c (flash_bwd_dq_kernel)", "flash_bwd_dq_kernel")):
+            kms = sum(v for kname, v in by_name.items() if pat in kname)
+            n = sum(1 for kname in by_name if pat in kname)
+            log(f"phase 4 stage-1 step device time {part}: {kms:.1f} ms ({n} kernel names)")
+        for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"phase 4 stage-1 step kernel {kms:8.2f} ms  {kname[:90]}")
     del state, tx, step
 
     with fp32_accumulation():

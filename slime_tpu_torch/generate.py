@@ -1,7 +1,8 @@
 """Autoregressive generation: multimodal prefill + KV-cache decode loop.
 
 Port of ``slime_tpu/generate.py`` (``generate`` :127-198, ``generate_stream``
-:201-286, the decode loop :97-124). Prefill attention goes through
+:201-286, the decode loop :97-124, ``sample_token`` :30-47 and the serving
+engine's per-row ``sample_token_dynamic`` :50-96). Prefill attention goes through
 ``ops.flash_attention`` under JAX's rule: the K5 kernels for causal CUDA
 tensors at S >= 2048 (multimodal prompts are padded to 2048 positions; bf16
 or the default fp32), the plain ``reference_attention`` otherwise; decode
@@ -30,14 +31,18 @@ from .models.layers import fp32_accumulation
 
 
 def sample_token(logits, *, temperature: float = 0.0, top_p: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
-    """logits [B, V] fp32 -> token [B] int32. temperature <= 0 is greedy
-    (first maximal index, as jnp.argmax); otherwise top_p (the token whose
-    exclusive cumulative probability crosses top_p is kept), then a
-    categorical draw from ``generator``."""
+                 top_k: int = 0, generator: Optional[torch.Generator] = None):
+    """logits [B, V] fp32 -> token [B] int32 (``generate.py:30-47``).
+    temperature <= 0 is greedy (first maximal index, as jnp.argmax);
+    otherwise top_k > 0 keeps the k highest logits (HF semantics, before
+    top_p), top_p keeps the token whose exclusive cumulative probability
+    crosses top_p, then a categorical draw from ``generator``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits / temperature
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
     if top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
@@ -47,6 +52,61 @@ def sample_token(logits, *, temperature: float = 0.0, top_p: float = 1.0,
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def categorical(logits, generator: Optional[torch.Generator] = None):
+    """One draw per row from softmax(logits) [B, V] (-inf entries never
+    drawn) by the Gumbel-max rule, as jax.random.categorical: no host sync
+    and no check of the row sums."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+
+
+def dynamic_filter(logits, temperature, top_p, top_k=None, min_p=None):
+    """The logits ``sample_token_dynamic`` draws from: temperature-scaled,
+    with the tokens each row's filters drop set to -inf."""
+    scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    filt = scaled
+    neg_inf = float("-inf")
+    if top_k is not None:
+        V = logits.shape[-1]
+        kth_idx = torch.clamp(top_k.long(), 1, V) - 1
+        kth = torch.gather(sorted_logits, -1, kth_idx[:, None])
+        filt = torch.where((top_k[:, None] > 0) & (scaled < kth), neg_inf, filt)
+        # HF chains top_p after top_k: the nucleus is computed over the
+        # top-k-filtered distribution (sorted positions >= k drop out)
+        keepk = ((top_k[:, None] <= 0) | (torch.arange(V, device=logits.device)[None]
+                                          < torch.clamp(top_k, min=0)[:, None]))
+        sorted_logits = torch.where(keepk, sorted_logits, neg_inf)
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    cutoff_idx = (cum - probs < top_p[:, None]).sum(dim=-1) - 1
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx[:, None])
+    filt = torch.where((top_p[:, None] < 1.0) & (scaled < cutoff), neg_inf, filt)
+    if min_p is not None:
+        # HF MinPLogitsWarper: drop tokens with prob < min_p * max_prob,
+        # evaluated after the top_k / top_p masks
+        row_probs = torch.softmax(filt, dim=-1)
+        pmax = row_probs.amax(dim=-1, keepdim=True)
+        filt = torch.where((min_p[:, None] > 0.0) & (row_probs < min_p[:, None] * pmax),
+                           neg_inf, filt)
+    return filt
+
+
+def sample_token_dynamic(logits, temperature, top_p, top_k=None, min_p=None, *,
+                         generator: Optional[torch.Generator] = None):
+    """Per-row variant of :func:`sample_token` for the serving engine
+    (``generate.py:50-96``): logits [B, V] fp32 and [B] tensors of knobs.
+    Rows with temperature <= 0 are greedy; top_p >= 1, top_k <= 0 and
+    min_p <= 0 are "off" per row; ``top_k`` / ``min_p`` None leave that
+    filter out. Filters in HF's order (temperature, top_k, top_p, min_p);
+    the nucleus keeps the token whose exclusive cumulative probability
+    crosses top_p."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    sampled = categorical(dynamic_filter(logits, temperature, top_p, top_k, min_p),
+                          generator)
+    return torch.where(temperature > 0, sampled, greedy)
 
 
 @fp32_accumulation()
@@ -103,17 +163,19 @@ def generate(params, cfg: SliMEConfig, input_ids, attention_mask,
              temperature: float = 0.0, top_p: float = 1.0,
              generator: Optional[torch.Generator] = None,
              eos_id: Optional[int] = None, compute_dtype=torch.float32,
-             cache_len: Optional[int] = None):
+             cache_len: Optional[int] = None, kv_quant: bool = False):
     """Multimodal generate -> token ids [B, max_new_tokens] int32 (on the
     inputs' device); cut each row at EOS with ``trim_at_eos``.
-    ``params["llm"]["layers"]`` must be stacked (``llama.stack_layers``)."""
+    ``params["llm"]["layers"]`` must be stacked (``llama.stack_layers``).
+    ``kv_quant``: the int8 KV cache (``llama.init_kv_cache``)."""
     if eos_id is None:
         eos_id = cfg.eos_token_id
     B = input_ids.shape[0]
     last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
                                     pixel_values, crop_mask, compute_dtype)
     cache = llama.init_kv_cache(cfg.llm, B, cache_len or L + max_new_tokens,
-                                dtype=compute_dtype, device=last.device)
+                                dtype=compute_dtype, device=last.device,
+                                quantized=kv_quant)
     cache = llama.prefill_into_cache(cache, kvs, lengths)
     del kvs
     first = sample_token(last, temperature=temperature, top_p=top_p,
@@ -130,15 +192,17 @@ def generate_stream(params, cfg: SliMEConfig, tokenizer, input_ids,
                     max_new_tokens: int = 256, temperature: float = 0.0,
                     top_p: float = 1.0, generator: Optional[torch.Generator] = None,
                     stop_strings=(), chunk: int = 16,
-                    compute_dtype=torch.float32):
+                    compute_dtype=torch.float32, kv_quant: bool = False):
     """Streaming generation (B == 1): decode ``chunk`` tokens at a time and
-    yield the text so far after each chunk. Stops on EOS or a stop string."""
+    yield the text so far after each chunk. Stops on EOS or a stop string.
+    ``kv_quant``: the int8 KV cache."""
     eos_id = cfg.eos_token_id
     matcher = StopStringMatcher(stop_strings, tokenizer) if stop_strings else None
     last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
                                     pixel_values, crop_mask, compute_dtype)
     cache = llama.init_kv_cache(cfg.llm, input_ids.shape[0], L + max_new_tokens + 1,
-                                dtype=compute_dtype, device=last.device)
+                                dtype=compute_dtype, device=last.device,
+                                quantized=kv_quant)
     cache = llama.prefill_into_cache(cache, kvs, lengths)
     del kvs
     cur = sample_token(last, temperature=temperature, top_p=top_p,

@@ -11,14 +11,19 @@ Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
   under JAX's rule or ``use_kernel=True``, the plain version otherwise; with
   ``ring`` (context parallelism, :166-174) it is the collective
   ``ops.ring_attention`` over n virtual ranks or a process group.
-- ``decode_step`` takes JAX's ``fused`` choice (``llama.py:769-888``). The
-  fused path (``_decode_step_fused``, :670-766) runs per layer
-  ``fused_qkv_decode`` -> RoPE -> the KV write -> masked attention over the
-  cache in plain torch (plain XLA in JAX) -> ``fused_o_residual`` ->
-  ``fused_mlp_decode``; on the card those three are the CUDA kernels of
-  ``ops/`` (dense, int8 and q4g). The non-fused path (``layer_decode``) runs
-  the same layer through ``layers.linear``: per-row q4 (K6), NF4, mixed
-  formats and biases.
+- ``decode_step`` (``llama.py:769-888``) and ``prefill_chunk`` (:505-623,
+  C positions per row, each row at its own cache length) share one body,
+  ``_cache_forward``, and take JAX's ``fused`` choice. The fused path
+  (``_decode_step_fused`` :670-766, ``_prefill_chunk_fused`` :398-503) runs
+  per layer ``fused_qkv_decode`` -> RoPE -> the KV write -> masked
+  attention over the cache in plain torch (plain XLA in JAX) ->
+  ``fused_o_residual`` -> ``fused_mlp_decode`` on the [B * C, H] rows; on
+  the card those three are the CUDA kernels of ``ops/`` (dense, int8 and
+  q4g). The non-fused path runs the same layer through ``layers.linear``:
+  per-row q4 (K6), NF4, mixed formats and biases.
+- The KV cache is float or int8 (``init_kv_cache(quantized=True)``,
+  :341-395): int8 k/v with per-(position, head) absmax scales that
+  multiply the scores and the probabilities; no dequantized copy.
 
 Logits are fp32. The int8 ``lm_head`` dequantizes the whole matrix to fp32 on
 every call, as the JAX code does; on the card that is a 2.1 GB temporary at
@@ -242,30 +247,72 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
 
 
 # ----------------------------------------------------------------------------
-# KV-cache decode
+# KV-cache decode and chunked prefill
 # ----------------------------------------------------------------------------
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int,
                   dtype=torch.float32, device=None, quantized: bool = False):
     """[L, B, max_len, KVH, hd] k/v caches and per-row lengths, on ``device``
-    (the current CUDA device when None)."""
-    if quantized:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP: int8 KV cache)")
+    (the current CUDA device when None).
+
+    ``quantized`` (``llama.py:341-361``): k/v are int8 with per-(position,
+    kv-head) absmax scales ``k_scale`` / ``v_scale`` [L, B, max_len, KVH]
+    fp32, initialised to 1. Attention never dequantizes the cache: the int8
+    values feed the products and the scales multiply the scores (k) and the
+    probabilities (v), which per-(t, head) scaling commutes through."""
     device = L.resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                "length": length}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+            "length": length}
+
+
+def cache_quantized(cache) -> bool:
+    return "k_scale" in cache
+
+
+def quantize_kv(x):
+    """x [..., KVH, hd] float -> (int8 [..., KVH, hd], scale [..., KVH] fp32):
+    per-head absmax over the head dim, scale 1 where the absmax is 0."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _write_kv(cache, li, rows, positions, k, v):
+    """Write k/v [B, C, KVH, hd] at [li, rows, positions] ([B, 1] and [B, C]
+    indices), quantized on the way in for an int8 cache. Callers keep every
+    position below the cache length."""
+    if cache_quantized(cache):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        cache["k"][li, rows, positions] = kq
+        cache["v"][li, rows, positions] = vq
+        cache["k_scale"][li, rows, positions] = ks
+        cache["v_scale"][li, rows, positions] = vs
+    else:
+        cache["k"][li, rows, positions] = k.to(cache["k"].dtype)
+        cache["v"][li, rows, positions] = v.to(cache["v"].dtype)
 
 
 def prefill_into_cache(cache, kvs, lengths):
     """Write prefill KV (list of (k [B,S,KVH,hd], v)) into the cache at offset
-    0, in place, and set the lengths. Returns the same cache dict."""
-    S = kvs[0][0].shape[1]
+    0, in place (quantized for an int8 cache), and set the lengths. Returns
+    the same cache dict."""
+    B, S = kvs[0][0].shape[:2]
+    dev = cache["k"].device
+    rows = torch.arange(B, device=dev)[:, None]
+    positions = torch.arange(S, device=dev)[None]
     for li, (k, v) in enumerate(kvs):
-        cache["k"][li, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][li, :, :S] = v.to(cache["v"].dtype)
+        _write_kv(cache, li, rows, positions, k, v)
     cache["length"] = lengths.to(torch.int32)
     return cache
 
@@ -309,19 +356,81 @@ def _fused_attn_ok(layers) -> bool:
     return _uniform_fused_fmt(layers, ("q_proj", "k_proj", "v_proj", "o_proj"))
 
 
-def _attend(q, cache, li, pos, visible, W, cfg: LLMConfig, compute_dtype):
-    """One query row per sequence over layer li's cache window: q [B, NH,
-    hd] -> [B, NH * hd] in compute_dtype. Scores and the softmax in fp32
-    over compute_dtype values; p rounds to compute_dtype before P.V."""
-    B, hd = q.shape[0], cfg.head_dim
-    qg = q.reshape(B, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
+def _attend(q, cache, li, visible, W, cfg: LLMConfig, compute_dtype):
+    """C query rows per sequence over layer li's cache window: q [B, C, NH,
+    hd], visible [B, 1, 1, C, W] -> [B, C, NH * hd] in compute_dtype. Scores
+    and the softmax in fp32 over compute_dtype values; p rounds to
+    compute_dtype before P.V. An int8 cache feeds its int values to the
+    products; its k scales multiply the scores and its v scales the
+    probabilities (``llama.py:843-856``)."""
+    B, C, _, hd = q.shape
+    qg = q.reshape(B, C, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
     kk = cache["k"][li, :, :W].to(compute_dtype).to(torch.float32)
     vv = cache["v"][li, :, :W].to(compute_dtype).to(torch.float32)
-    s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32), kk) / math.sqrt(hd)
+    s = torch.einsum("bckgd,btkd->bkgct", qg.to(torch.float32), kk) / math.sqrt(hd)
+    quant = cache_quantized(cache)
+    if quant:
+        s = s * cache["k_scale"][li, :, :W].transpose(1, 2)[:, :, None, None, :]
     s = torch.where(visible, s, -1e30)
-    p = torch.softmax(s, dim=-1).to(compute_dtype).to(torch.float32)
-    o = torch.einsum("bkgt,btkd->bkgd", p, vv).to(compute_dtype)
-    return o.reshape(B, cfg.num_heads * hd)
+    p = torch.softmax(s, dim=-1)
+    if quant:
+        p = p * cache["v_scale"][li, :, :W].transpose(1, 2)[:, :, None, None, :]
+    p = p.to(compute_dtype).to(torch.float32)
+    o = torch.einsum("bkgct,btkd->bckgd", p, vv).to(compute_dtype)
+    return o.reshape(B, C, cfg.num_heads * hd)
+
+
+def _cache_forward(params, cache, x, cfg: LLMConfig, compute_dtype, window, fused):
+    """The layers over C new positions per row: x [B, C, H] embeddings, each
+    row starting at its own ``cache["length"]`` -> (final normed hidden
+    states [B, C, H], cache). The new k/v are written in place at [li, b,
+    length[b] + c] and the lengths advance by C. ``fused`` runs the
+    projections through K1-K3 on the [B * C, H] rows
+    (``_decode_step_fused`` / ``_prefill_chunk_fused``); otherwise each layer
+    runs through ``layers.linear``. Attention reads the first ``window``
+    cache positions (all when None)."""
+    layers = params["layers"]
+    if fused and not _fused_mlp_ok(layers):
+        raise ValueError("the fused path needs stacked layers with one fused MLP "
+                         "format (dense, per-row int8 or q4g)")
+    B, C, H = x.shape
+    hd, nh, nkv, eps = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.rms_norm_eps
+    dev = x.device
+    positions = cache["length"].long()[:, None] + torch.arange(C, device=dev)[None]
+    cos, sin = rope_table(cfg, cfg.max_position_embeddings, dev)
+    cos_s, sin_s = cos[positions], sin[positions]                  # [B, C, hd]
+    max_len = cache["k"].shape[2]
+    W = max_len if window is None else min(window, max_len)
+    visible = (torch.arange(W, device=dev)[None, None] <= positions[:, :, None]
+               )[:, None, None]                                   # [B, 1, 1, C, W]
+    rows = torch.arange(B, device=dev)[:, None]
+    attn_fused = fused and _fused_attn_ok(layers)
+    x = x.to(compute_dtype).reshape(B * C, H)
+
+    for li in range(cfg.num_layers):
+        lp = None if attn_fused else _layer(layers, li)
+        if attn_fused:
+            qf, kf, vf = fused_qkv_decode(x, layers, li, eps=eps)
+        else:
+            h = L.rms_norm(lp["input_layernorm"], x, eps=eps)
+            qf, kf, vf = (L.linear(lp[n], h) for n in ("q_proj", "k_proj", "v_proj"))
+        q = apply_rope(qf.reshape(B, C, nh, hd), cos_s, sin_s)
+        k = apply_rope(kf.reshape(B, C, nkv, hd), cos_s, sin_s)
+        _write_kv(cache, li, rows, positions, k, vf.reshape(B, C, nkv, hd))
+        o = _attend(q, cache, li, visible, W, cfg, compute_dtype).reshape(B * C, nh * hd)
+        if attn_fused:
+            x = fused_o_residual(o.contiguous(), x, layers, li)
+        else:
+            x = x + L.linear(lp["o_proj"], o)
+        if fused:
+            x = fused_mlp_decode(x, layers, li, eps=eps)
+        else:
+            h = L.rms_norm(lp["post_attention_layernorm"], x, eps=eps)
+            x = x + _mlp(lp, h)
+
+    x = L.rms_norm(params["norm"], x, eps=eps)
+    cache["length"] = cache["length"] + C
+    return x.reshape(B, C, H), cache
 
 
 def decode_step(params, cache, token_ids, cfg: LLMConfig,
@@ -334,54 +443,44 @@ def decode_step(params, cache, token_ids, cfg: LLMConfig,
     MLP has one fused format); False the per-layer ``layers.linear`` path
     (list or stacked layers; per-row q4 takes K6 there on the card, NF4 and
     mixed formats their dequantize path); None is ``_fused_auto_ok``, on any
-    device (the CPU runs the kernels' plain versions). The cache is updated
-    in place (the new k/v at [li, b, length[b]], then length + 1) and
-    returned. ``window``: attend only over the first ``window`` cache
-    positions."""
+    device (the CPU runs the kernels' plain versions). The cache (float or
+    int8) is updated in place (the new k/v at [li, b, length[b]], then
+    length + 1) and returned. ``window``: attend only over the first
+    ``window`` cache positions; callers keep every row's length below it."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_TODO)
-    layers = params["layers"]
     if fused is None:
-        fused = _fused_auto_ok(layers)
-    if fused and not _fused_mlp_ok(layers):
-        raise ValueError("fused decode needs stacked layers with one fused MLP "
-                         "format (dense, per-row int8 or q4g)")
-    B = token_ids.shape[0]
-    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    pos = cache["length"].long()                                    # [B]
-    x = params["embed_tokens"][token_ids].to(compute_dtype)         # [B, H]
-    cos, sin = rope_table(cfg, cfg.max_position_embeddings, x.device)
-    cos_s, sin_s = cos[pos][:, None], sin[pos][:, None]             # [B, 1, hd]
-    max_len = cache["k"].shape[2]
-    W = max_len if window is None else min(window, max_len)
-    bidx = torch.arange(B, device=x.device)
-    visible = torch.arange(W, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
-    attn_fused = fused and _fused_attn_ok(layers)
+        fused = _fused_auto_ok(params["layers"])
+    x = params["embed_tokens"][token_ids][:, None]
+    x, cache = _cache_forward(params, cache, x, cfg, compute_dtype, window, fused)
+    return _lm_head(params, x[:, 0]), cache
 
-    for li in range(cfg.num_layers):
-        lp = None if attn_fused else _layer(layers, li)
-        if attn_fused:
-            qf, kf, vf = fused_qkv_decode(x, layers, li, eps=cfg.rms_norm_eps)
-        else:
-            h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
-            qf, kf, vf = (L.linear(lp[n], h) for n in ("q_proj", "k_proj", "v_proj"))
-        q = apply_rope(qf.reshape(B, 1, nh, hd), cos_s, sin_s)
-        k = apply_rope(kf.reshape(B, 1, nkv, hd), cos_s, sin_s)
-        # in-place KV write at each row's position
-        cache["k"][li, bidx, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][li, bidx, pos] = vf.reshape(B, nkv, hd).to(cache["v"].dtype)
-        o = _attend(q[:, 0], cache, li, pos, visible, W, cfg, compute_dtype)
-        if attn_fused:
-            x = fused_o_residual(o.contiguous(), x, layers, li)
-        else:
-            x = x + L.linear(lp["o_proj"], o)
-        if fused:
-            x = fused_mlp_decode(x, layers, li, eps=cfg.rms_norm_eps)
-        else:
-            h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
-            x = x + _mlp(lp, h)
 
-    x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
-    logits = _lm_head(params, x)
-    cache["length"] = cache["length"] + 1
-    return logits, cache
+def chunk_takes_fused(shape, device, layers) -> bool:
+    """``prefill_chunk``'s automatic choice for embeds of ``shape`` [B, C, H]
+    on ``device``: JAX's rule (``llama.py:522-525``) with "single-device TPU"
+    read as "a CUDA device"."""
+    return (torch.device(device).type == "cuda" and shape[0] * shape[1] <= 64
+            and _fused_auto_ok(layers))
+
+
+def prefill_chunk(params, cache, embeds, cfg: LLMConfig,
+                  compute_dtype=torch.float32, window: Optional[int] = None,
+                  fused: Optional[bool] = None):
+    """Incremental prefill (``llama.py:505-623``): append a C-position chunk
+    embeds [B, C, H] to the cache, each row at its own ``cache["length"]``,
+    and return (logits fp32 [B, C, V], cache), the cache (float or int8)
+    updated in place. Callers keep length + C within the cache.
+
+    ``fused`` runs the chunk's [B * C, H] rows through K1-K3
+    (``_prefill_chunk_fused``, :398-503), whose own routing picks the weight
+    ring or the row-per-warp kernels. None is JAX's auto rule with its
+    single-device TPU read as "the embeds are on a CUDA device": no experts,
+    B * C <= 64 and ``_fused_auto_ok``; larger chunks and CPU tensors take
+    the per-layer ``layers.linear`` path."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    if fused is None:
+        fused = chunk_takes_fused(embeds.shape, embeds.device, params["layers"])
+    x, cache = _cache_forward(params, cache, embeds, cfg, compute_dtype, window, fused)
+    return _lm_head(params, x), cache

@@ -183,9 +183,14 @@ def prepare_multimodal(params, cfg: SliMEConfig, input_ids, attention_mask,
                        training: bool = False,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[Dict] = None, max_len=None,
-                       compute_dtype=torch.float32, remat: bool = False) -> FusedBatch:
-    """Encode images and splice them into the token stream. Only the first
-    IMAGE_TOKEN_INDEX sentinel per sample expands; later ones are dropped."""
+                       compute_dtype=torch.float32, remat: bool = False,
+                       return_img_valid: bool = False):
+    """Encode images and splice them into the token stream -> FusedBatch.
+    Only the first IMAGE_TOKEN_INDEX sentinel per sample expands; later ones
+    are dropped. ``return_img_valid`` also returns the [B, T_img] bool
+    pre-compaction image-slot validity (the selection's outcome), from which
+    the serving engine rebuilds the fused layout's identity stream
+    (slime.py:252-299)."""
     B, S = input_ids.shape
     if max_len is None:
         max_len = cfg.tokenizer_model_max_length
@@ -206,8 +211,9 @@ def prepare_multimodal(params, cfg: SliMEConfig, input_ids, attention_mask,
     first_img = is_img.to(torch.int8).argmax(dim=1)
     img_pos = torch.where(has_img, first_img, S)
     img_valid = img_valid & has_img[:, None]
-    return FusedBatch(*splice(text_emb, text_valid, text_labels, img_embeds,
-                              img_valid, img_pos, max_len=max_len))
+    out = FusedBatch(*splice(text_emb, text_valid, text_labels, img_embeds,
+                             img_valid, img_pos, max_len=max_len))
+    return (out, img_valid) if return_img_valid else out
 
 
 def forward(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values,

@@ -114,9 +114,9 @@ def layers(fmt: str, g, dev):
             "gate_proj": proj(I, H), "up_proj": proj(I, H), "down_proj": proj(H, I)}
 
 
-def profile_split(fn, flush):
-    """({kernel name: mean device ms}, mean span ms) over PROFILED calls, from
-    the profiler's chrome trace."""
+def traced_kernels(fn, flush):
+    """[(start us, end us, name)] of the K1 kernels in one profiler trace of
+    PROFILED calls (L2 flushed before each)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -129,9 +129,22 @@ def profile_split(fn, flush):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kernels = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                      if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
-                      and any(k in e["name"] for k in K1_KERNELS)), key=lambda k: k[0])
+    return sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+                   and any(k in e["name"] for k in K1_KERNELS)), key=lambda k: k[0])
+
+
+def profile_split(fn, flush, tries: int = 3):
+    """({kernel name: mean device ms}, mean span ms) over PROFILED calls, from
+    the profiler's chrome trace; a trace that recorded fewer than PROFILED
+    kernels (a process's first session can come back empty) is taken again,
+    up to ``tries`` times, then reported empty: ({}, None)."""
+    for _ in range(tries):
+        kernels = traced_kernels(fn, flush)
+        if len(kernels) >= PROFILED:
+            break
+    else:
+        return {}, None
     by_name = {}
     for t0, t1, name in kernels:
         by_name.setdefault(name, []).append((t1 - t0) / 1e3)

@@ -1,0 +1,847 @@
+"""Continuous-batching decode engine: port of ``slime_tpu/serve/batch_engine.py``.
+
+A fixed number of decode slots share one KV cache [L, slots, cache_len, KVH,
+hd] (float or int8). Each request is prefilled on its own (multimodal fusion
+included), whole or in ``prefill_chunk_len``-position chunks through
+``llama.prefill_chunk``, its KV written into a free slot, and every engine
+tick advances all active slots with one batched ``llama.decode_step`` (or
+``multi_step`` of them when nothing waits for admission). Finished slots
+(EOS / budget) retire at once and free capacity; ``cancel`` retires a
+request from any thread at the next tick.
+
+What the port keeps of the JAX engine is its outputs: the same admissions,
+chunk sizes, decode windows, retirements and emitted tokens, the first token
+host-sampled with numpy from ``numpy.random.default_rng(seed)`` draw for
+draw, and in-graph draws from a ``torch.Generator`` seeded with ``seed``.
+JAX's compile workarounds (device scalars, pow2 buckets for whole
+admissions, donation, module-level jits) have no counterpart. Each dispatch
+packs what the host reads into one int32 tensor (logprob floats through
+``.view(torch.int32)``); overlapped decode copies it into pinned host memory
+behind the dispatch and waits on that copy's event alone, so the host
+reads dispatch N while N + 1 runs.
+
+Not ported yet (ROADMAP Queue 1 item 4, in this order): speculative
+decoding (``draft_params``), grammars (``register_grammar``; a request with
+a ``grammar_id`` fails), multi-LoRA (``register_adapter``; a request with a
+non-zero ``adapter_id`` fails), tensor-parallel serving (``mesh``).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import traceback
+import uuid
+from collections import Counter, deque
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import IMAGE_TOKEN_INDEX, SliMEConfig
+from ..generate import categorical, sample_token_dynamic
+from ..models import llama, slime
+from ..models.layers import fp32_accumulation, resolve_device
+from ..params import named_leaves
+from .prefix_cache import PrefixCache, image_content_digest, image_slot_identities
+
+_SPEC_TODO = "speculative decoding is not ported yet (ROADMAP Queue 1 item 4)"
+_GRAMMAR_TODO = "grammars are not ported yet (ROADMAP Queue 1 item 4)"
+_LORA_TODO = "multi-LoRA serving is not ported yet (ROADMAP Queue 1 item 4)"
+_MESH_TODO = "tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 4)"
+
+
+@dataclass
+class Request:
+    input_ids: np.ndarray                       # [S]
+    pixel_values: Optional[object] = None      # [MC, 3, t, t] numpy or tensor
+    crop_mask: Optional[object] = None         # [MC]
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_p: float = 1.0                     # nucleus sampling (ignored when greedy)
+    top_k: int = 0                         # 0 = off (HF semantics, before top_p)
+    min_p: float = 0.0                     # 0 = off (HF MinPLogitsWarper)
+    repetition_penalty: float = 1.0        # HF/vLLM: over prompt + generated
+    presence_penalty: float = 0.0          # OpenAI: over generated tokens
+    frequency_penalty: float = 0.0         # OpenAI: over generated tokens
+    prefix_id: Optional[str] = None        # shared prefix from register_prefix()
+    grammar_id: Optional[int] = None       # not served yet: the request fails
+    adapter_id: Optional[int] = None       # not served yet unless 0: fails
+    logprobs: int = 0                      # top-N alternatives per token (<=8)
+    cancelled: bool = False                # set by engine.cancel() at retire time
+    request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:8])
+    out_queue: "queue.Queue" = field(default_factory=queue.Queue)
+    # when logprobs > 0: one {"logprob", "top": [(id, lp), ...]} per emitted
+    # token, appended before its token lands in out_queue
+    logprob_entries: List[dict] = field(default_factory=list)
+
+    def stream(self):
+        """Yield generated token-id lists until completion."""
+        while True:
+            item = self.out_queue.get()
+            if item is None:
+                return
+            yield item
+
+
+class _Slot:
+    __slots__ = ("req", "generated", "budget", "t_first")
+
+    def __init__(self, req: Request):
+        self.req = req
+        self.generated: List[int] = []
+        self.budget = req.max_new_tokens
+        self.t_first = time.monotonic()   # first token just sampled (TTFT end)
+
+
+def _insert(cache, k, v, slot: int, length: int):
+    """k/v [L, S, KVH, hd] float admission KV -> positions [0, S) of the
+    slot's rows, quantized on the way in for an int8 pool; the slot's length
+    set. In place; returns the cache."""
+    S = k.shape[1]
+    if llama.cache_quantized(cache):
+        (kq, ks), (vq, vs) = llama.quantize_kv(k), llama.quantize_kv(v)
+        cache["k"][:, slot, :S] = kq
+        cache["v"][:, slot, :S] = vq
+        cache["k_scale"][:, slot, :S] = ks
+        cache["v_scale"][:, slot, :S] = vs
+    else:
+        cache["k"][:, slot, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, slot, :S] = v.to(cache["v"].dtype)
+    cache["length"][slot] = length
+    return cache
+
+
+def _seed_run(cache1, kblks, vblks, off: int):
+    """Write a contiguous run of cached prefix blocks ([L, blk, KVH, hd]
+    each) into the batch-1 admission cache at position ``off`` (JAX's
+    ``_seed_block`` is the run of one)."""
+    k = torch.cat(list(kblks), dim=1)
+    v = torch.cat(list(vblks), dim=1)
+    cache1["k"][:, 0, off:off + k.shape[1]] = k.to(cache1["k"].dtype)
+    cache1["v"][:, 0, off:off + v.shape[1]] = v.to(cache1["v"].dtype)
+    return cache1
+
+
+def _slice_block(arr, off: int, *, blk: int):
+    """[L, S, KVH, hd] -> a copy of positions [off, off + blk)."""
+    return arr[:, off:off + blk].clone()
+
+
+class BatchDecodeEngine:
+    def __init__(self, params, cfg: SliMEConfig, *, max_slots: int = 8,
+                 cache_len: int = 2048, compute_dtype=None, seed: int = 0,
+                 draft_params=None, mesh=None,
+                 kv_quant: bool = False, prefix_cache_mb: int = 512,
+                 prefix_block: int = 64, device=None):
+        """``device``: where the engine runs, the current CUDA device when
+        None (``layers.resolve_device``); every parameter must already be
+        there. ``kv_quant``: the int8 KV pool (``llama.init_kv_cache``).
+        ``prefix_cache_mb``: byte budget of the automatic prefix KV cache
+        (``serve/prefix_cache.py``), 0 disables it; prompts sharing a
+        ``prefix_block``-granular prefix with an earlier prompt (multimodal
+        ones through their fused identity streams) skip recomputing it.
+        ``draft_params`` / ``mesh`` raise: not ported yet."""
+        if draft_params is not None:
+            raise NotImplementedError(_SPEC_TODO)
+        if mesh is not None:
+            raise NotImplementedError(_MESH_TODO)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        off = [n for n, t in named_leaves(params) if t.device != dev]
+        if off:
+            raise ValueError(f"BatchDecodeEngine on {dev}: {len(off)} parameters are "
+                             f"elsewhere (first: {off[0]})")
+        self.device = dev
+        self.params = params
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype or torch.float32
+        self.max_slots = max_slots
+        self.cache_len = cache_len
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self._np_rng = np.random.default_rng(seed)  # first-token host sampling
+        self.kv_quant = kv_quant
+        self.cache = llama.init_kv_cache(cfg.llm, max_slots, cache_len,
+                                         dtype=self.compute_dtype, device=dev,
+                                         quantized=kv_quant)
+        self.cur_tokens = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
+        self._vocab_size = cfg.llm.vocab_size
+        # penalty state: per-slot prompt presence (set at admission) and
+        # generated-token counts (advanced in-graph); rows of penalty-free
+        # slots are never read, so they go stale for free
+        self.prompt_mask = torch.zeros((max_slots, self._vocab_size), dtype=torch.bool,
+                                       device=dev)
+        self.gen_counts = torch.zeros((max_slots, self._vocab_size), dtype=torch.int32,
+                                      device=dev)
+        # host mirror of cache["length"] per slot: picks the decode window
+        # without a device pull (refreshed from every packed result)
+        self._host_len = np.zeros((max_slots,), np.int64)
+        self.slots: List[Optional[_Slot]] = [None] * max_slots
+        self.pending: "queue.Queue[Request]" = queue.Queue()
+        self.prefixes = {}             # prefix_id -> {"k","v","length"} shared KV
+        self.prefix_cache = None
+        if prefix_cache_mb > 0:
+            self.prefix_cache = PrefixCache(block=prefix_block,
+                                            budget_bytes=prefix_cache_mb << 20)
+        self.prefill_chunk_len = 256   # admission granularity (bounds tick latency)
+        self.multi_step = 8            # decode steps per dispatch when queue is idle
+        # overlapped decode: one dispatch kept in flight in the idle regime;
+        # (host handle, k, active ids, slot snapshot, n_lp) or None
+        self._inflight = None
+        self._admission = None         # in-flight chunked admission state
+        self._cancel_ids: set = set()
+        self._cancel_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._metrics = deque(maxlen=512)   # (ttft_s, n_tokens, decode_s)
+        self._t_start = time.monotonic()
+        # work counters: decode steps dispatched, chunks run by padded length
+        self.decode_steps = 0
+        self.chunk_rows: Counter = Counter()
+
+    # ------------------------------------------------------------------
+    # step functions (JAX's jitted closures)
+    def _prefill(self, embeds, length: int):
+        """Whole prompt embeds [1, S, H] -> (fp32 logits [V] at position
+        length - 1, k, v [L, S, KVH, hd])."""
+        logits, kvs = llama.forward(
+            self.params["llm"], embeds, self.cfg.llm, return_kv=True,
+            compute_dtype=self.compute_dtype,
+            logit_positions=torch.full((1,), length - 1, device=self.device))
+        k = torch.stack([kv[0][0] for kv in kvs])
+        v = torch.stack([kv[1][0] for kv in kvs])
+        return logits[0, 0], k, v
+
+    def _prefill_chunk(self, cache1, chunk):
+        return llama.prefill_chunk(self.params["llm"], cache1, chunk, self.cfg.llm,
+                                   compute_dtype=self.compute_dtype)
+
+    def _sample(self, logits, meta, use_filters: bool):
+        # meta rows: [temps, active, top_p, top_k, min_p, rep, pres, freq]
+        B = self.max_slots
+        temperature = meta[:B]
+        if use_filters:
+            return sample_token_dynamic(logits, temperature, meta[2 * B:3 * B],
+                                        top_k=meta[3 * B:4 * B],
+                                        min_p=meta[4 * B:5 * B],
+                                        generator=self.generator)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        t = torch.clamp(temperature, min=1e-6)[:, None]
+        sampled = categorical(logits / t, self.generator)
+        return torch.where(temperature > 0, sampled, greedy)
+
+    def _penalize(self, logits, meta):
+        # repetition penalty (vLLM/HF: prompt + generated), then OpenAI
+        # presence/frequency (generated only); identity knobs are a no-op
+        B = self.max_slots
+        rep = meta[5 * B:6 * B][:, None]
+        pres = meta[6 * B:7 * B][:, None]
+        freq = meta[7 * B:8 * B][:, None]
+        gcnt = self.gen_counts
+        present = self.prompt_mask | (gcnt > 0)
+        adj = torch.where(logits > 0, logits / rep, logits * rep)
+        logits = torch.where(present, adj, logits)
+        return logits - pres * (gcnt > 0) - freq * gcnt.to(logits.dtype)
+
+    @staticmethod
+    def _logprob_extra(logits, nxt, n_lp: int):
+        # top-N alternatives and the sampled token's logprob on the
+        # distribution the sampler saw (post penalties, pre temperature);
+        # floats ride the int32 packed pull through a bit view
+        lp = torch.log_softmax(logits, dim=-1)
+        top_v, top_i = torch.topk(lp, n_lp, dim=-1)
+        samp = torch.gather(lp, -1, nxt[:, None].long())[:, 0]
+        bits = lambda a: a.to(torch.float32).contiguous().view(torch.int32)  # noqa: E731
+        return [top_i.reshape(-1).to(torch.int32), bits(top_v).reshape(-1), bits(samp)]
+
+    def _decode(self, tokens, meta, active, window, use_filters, use_penalties, n_lp):
+        """One decode step of every slot -> (next tokens [B], logprob extras)."""
+        logits, self.cache = llama.decode_step(
+            self.params["llm"], self.cache, tokens, self.cfg.llm,
+            compute_dtype=self.compute_dtype, window=window)
+        if use_penalties:
+            logits = self._penalize(logits, meta)
+        nxt = self._sample(logits, meta, use_filters)
+        if use_penalties:
+            self.gen_counts.scatter_add_(1, nxt[:, None].long(),
+                                         active.to(torch.int32)[:, None])
+        extra = self._logprob_extra(logits, nxt, n_lp) if n_lp else []
+        return nxt, extra
+
+    def _pin_free_rows(self, active):
+        """Free slots restart at position 0: their writes stay inside their
+        own rows (JAX drops an out-of-range write; here it is an error)."""
+        self.cache["length"] = torch.where(active, self.cache["length"], 0)
+        return self.cache["length"]
+
+    def _step_k(self, meta, k: int, window, use_filters, use_penalties, n_lp):
+        """k decode steps in one dispatch (JAX's ``_step`` is k = 1, its
+        ``_step_k`` k > 1) -> packed int32 [tokens (B, k), lengths (B)] and,
+        with logprobs, [ids (B, k, n_lp), values (B, k, n_lp), sampled (B,
+        k)]. Rows that hit EOS keep sampling (the host discards post-EOS
+        tokens)."""
+        B = self.max_slots
+        active = meta[B:2 * B] > 0.5
+        old_len = self._pin_free_rows(active)
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                           device=self.device)
+        out = zeros(B, k)
+        lps = [zeros(B, k, n_lp), zeros(B, k, n_lp), zeros(B, k)] if n_lp else []
+        tok = self.cur_tokens
+        for i in range(k):
+            tok, ex = self._decode(tok, meta, active, window, use_filters, use_penalties,
+                                   n_lp)
+            out[:, i] = tok
+            for a, e in zip(lps, ex):
+                a[:, i] = e.reshape(a[:, i].shape)
+        self.cache["length"] = torch.where(active, self.cache["length"], old_len)
+        self.cur_tokens = tok
+        return torch.cat([out.reshape(-1), self.cache["length"]]
+                         + [a.reshape(-1) for a in lps])
+
+    def _pull(self, packed):
+        """Start the device-to-host copy of a packed result -> (host tensor,
+        event or None): pinned memory, non-blocking, with an event recorded
+        behind it, so waiting for this dispatch never waits for a later one."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _upload(self, meta: np.ndarray):
+        t = torch.from_numpy(meta)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------
+    def register_grammar(self, token_dfa) -> int:
+        raise NotImplementedError(_GRAMMAR_TODO)
+
+    def register_adapter(self, lora_state: dict) -> int:
+        raise NotImplementedError(_LORA_TODO)
+
+    def register_prefix(self, input_ids, pixel_values=None, crop_mask=None,
+                        prefix_id: Optional[str] = None) -> str:
+        """Prefill a shared prefix (a system prompt, optionally with an image)
+        once; later requests with ``prefix_id`` seed their admission cache
+        with its KV and prefill only their suffix."""
+        req = Request(input_ids=np.asarray(input_ids), pixel_values=pixel_values,
+                      crop_mask=crop_mask)
+        with torch.no_grad(), fp32_accumulation():
+            embeds, length, _ = self._embed_request(req)
+            _, k, v = self._prefill(embeds, length)
+        pid = prefix_id or uuid.uuid4().hex[:8]
+        self.prefixes[pid] = {"k": k[:, :length], "v": v[:, :length],
+                              "length": length, "ids": np.asarray(input_ids),
+                              "text_only": pixel_values is None}
+        return pid
+
+    def submit(self, req: Request) -> Request:
+        req._t_submit = time.monotonic()
+        self.pending.put(req)
+        return req
+
+    def cancel(self, request_id: str) -> None:
+        """Abort a request from any thread; takes effect at the next tick: it
+        leaves the pending queue, its chunked admission is dropped, or its
+        decode slot retires."""
+        with self._cancel_lock:
+            self._cancel_ids.add(request_id)
+
+    def _apply_cancellations(self) -> None:
+        if not self._cancel_ids:
+            return
+        with self._cancel_lock:
+            ids, self._cancel_ids = self._cancel_ids, set()
+        kept = []
+        while True:
+            try:
+                r = self.pending.get_nowait()
+            except queue.Empty:
+                break
+            if r.request_id in ids:
+                r.cancelled = True
+                r.out_queue.put(None)
+            else:
+                kept.append(r)
+        for r in kept:
+            self.pending.put(r)
+        a = self._admission
+        if a is not None and a["req"].request_id in ids:
+            a["req"].cancelled = True
+            a["req"].out_queue.put(None)
+            self._admission = None
+        for i, s in enumerate(self.slots):
+            if s is not None and s.req.request_id in ids:
+                s.req.cancelled = True
+                self._retire(i)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def _embed_request(self, req: Request):
+        """-> (embeds [1, S, H], length, ident). Multimodal fusion runs here,
+        at ``max_len`` = the cache room left after the request's budget.
+
+        Multimodal suffixes of a text-only shared prefix fuse with the full
+        text (prefix ids + suffix ids) and then drop the prefix positions:
+        the text-guided selection conditions on the whole prompt. ``ident``
+        is the fused identity stream of a plain multimodal request (the
+        prefix cache's key), None otherwise."""
+        dev = self.device
+        ids = np.asarray(req.input_ids)[None]
+        if req.pixel_values is not None:
+            base = 0
+            pre = self.prefixes.get(req.prefix_id) if req.prefix_id else None
+            if pre is not None and pre["text_only"]:
+                base = pre["length"]
+                ids = np.concatenate([pre["ids"][None], ids], axis=1)
+            max_len = base + self.cache_len - req.max_new_tokens - 1
+            ids_t = torch.from_numpy(ids.astype(np.int64)).to(dev)
+            fused, img_valid = slime.prepare_multimodal(
+                self.params, self.cfg, ids_t, torch.ones_like(ids_t, dtype=torch.bool),
+                torch.as_tensor(req.pixel_values).to(dev)[None],
+                torch.as_tensor(req.crop_mask).to(dev)[None],
+                compute_dtype=self.compute_dtype, max_len=max_len, return_img_valid=True)
+            length = int(fused.lengths[0])
+            ident = None
+            if req.prefix_id is None:
+                ident = self._fused_identity(ids[0], img_valid[0].cpu().numpy(),
+                                             req)[:length]
+            return fused.embeds[:, base:], length - base, ident
+        embeds = llama.embed(self.params["llm"], torch.from_numpy(
+            ids.astype(np.int64)).to(dev)).to(self.compute_dtype)
+        return embeds, ids.shape[1], None
+
+    @staticmethod
+    def _fused_identity(ids: np.ndarray, img_valid: np.ndarray,
+                        req: Request) -> np.ndarray:
+        """Host reconstruction of the fused sequence's identity stream, in
+        ``slime.splice``'s layout: text[:img_pos] ++ image slots ++
+        text[img_pos:], the sentinel and unselected slots dropped; token ids
+        for text positions, ``image_slot_identities`` of the pixels' content
+        digest for image-feature slots."""
+        is_img = ids == IMAGE_TOKEN_INDEX
+        img_pos = int(np.argmax(is_img)) if is_img.any() else len(ids)
+        text_ident = np.where(is_img, 0, ids).astype(np.uint64)
+        text_valid = ~is_img
+        px, cm = req.pixel_values, req.crop_mask
+        px = px.cpu().numpy() if isinstance(px, torch.Tensor) else np.asarray(px)
+        cm = cm.cpu().numpy() if isinstance(cm, torch.Tensor) else np.asarray(cm)
+        img_ident = image_slot_identities(image_content_digest(px, cm), img_valid.shape[0])
+        ext_ident = np.concatenate([text_ident[:img_pos], img_ident, text_ident[img_pos:]])
+        ext_valid = np.concatenate([text_valid[:img_pos], img_valid, text_valid[img_pos:]])
+        return ext_ident[ext_valid]
+
+    def _admission_step(self) -> bool:
+        """Advance the in-flight chunked admission by one chunk; True when one
+        is in flight (the caller pulls no new work beyond decode)."""
+        if self._admission is None:
+            if self.pending.empty() or self._free_slot() is None:
+                return False
+            req = self.pending.get()
+            if req.prefix_id is not None and req.prefix_id not in self.prefixes:
+                req.out_queue.put(None)    # fail this request, not the engine thread
+                return False
+            if req.grammar_id is not None or req.adapter_id:
+                # no grammar or adapter can be registered yet: an unknown id,
+                # which JAX fails the same way
+                req.out_queue.put(None)
+                return False
+            embeds, length, ident = self._embed_request(req)
+            pre = self.prefixes.get(req.prefix_id) if req.prefix_id else None
+            if (pre["length"] if pre else 0) + length >= self.cache_len:
+                # no room to decode: the pool cannot hold the prompt
+                req.out_queue.put(None)
+                return False
+            cache_key = ident if req.pixel_values is not None else np.asarray(req.input_ids)
+            C = self.prefill_chunk_len
+            base = 0
+            auto_hit = []
+            if (req.prefix_id is None and cache_key is not None
+                    and self.prefix_cache is not None):
+                base, auto_hit = self.prefix_cache.match(cache_key)
+            if req.prefix_id is not None:
+                pre = self.prefixes[req.prefix_id]
+                base = pre["length"]
+                cache1 = llama.init_kv_cache(self.cfg.llm, 1, self.cache_len,
+                                             dtype=self.compute_dtype, device=self.device)
+                cache1 = _insert(cache1, pre["k"], pre["v"], 0, base)
+            elif auto_hit:
+                # automatic prefix-cache hit: seed the matched blocks (one
+                # contiguous chain from position 0), then chunk-prefill only
+                # the suffix
+                cache1 = llama.init_kv_cache(self.cfg.llm, 1, self.cache_len,
+                                             dtype=self.compute_dtype, device=self.device)
+                cache1 = _seed_run(cache1, [e["value"]["k"] for e in auto_hit],
+                                   [e["value"]["v"] for e in auto_hit], 0)
+                cache1["length"] = torch.full((1,), base, dtype=torch.int32,
+                                              device=self.device)
+                embeds = embeds[:, base:]
+                length -= base
+            elif length <= C:
+                self._admit_whole(req, embeds, length, cache_key)
+                return False
+            else:
+                cache1 = llama.init_kv_cache(self.cfg.llm, 1, self.cache_len,
+                                             dtype=self.compute_dtype, device=self.device)
+            # "length"/"off" are suffix-relative; "base" is the shared-prefix
+            # KV already seeded into cache1
+            self._admission = {"req": req, "embeds": embeds, "length": length,
+                               "base": base, "off": 0, "cache1": cache1,
+                               "last_logits": None, "cache_key": cache_key}
+        a = self._admission
+        C = self.prefill_chunk_len
+        off = a["off"]
+        end = min(off + C, a["length"])
+        # pad the chunk to a power of two (at least 8), capped by C and by
+        # the cache room (padded rows must land inside the cache)
+        want = end - off
+        Cc = min(max(8, 1 << (want - 1).bit_length()), C,
+                 self.cache_len - a["base"] - off)
+        end = off + min(want, Cc)
+        chunk = a["embeds"][:, off:off + Cc]
+        if chunk.shape[1] < Cc:
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0, Cc - chunk.shape[1]))
+        logits, a["cache1"] = self._prefill_chunk(a["cache1"], chunk)
+        self.chunk_rows[Cc] += 1
+        a["last_logits"] = logits
+        a["last_off"] = off
+        a["off"] = end
+        # the padded tail advanced length too far; pin it to the true position
+        a["cache1"]["length"] = torch.full((1,), a["base"] + end, dtype=torch.int32,
+                                           device=self.device)
+        if end >= a["length"]:
+            self._finish_admission()
+        return self._admission is not None
+
+    def _finish_admission(self) -> None:
+        a, self._admission = self._admission, None
+        slot_idx = self._free_slot()
+        if slot_idx is None:   # raced out of slots; requeue
+            self.pending.put(a["req"])
+            return
+        last_in_chunk = a["length"] - 1 - a["last_off"]
+        row = a["last_logits"][0, last_in_chunk].cpu().numpy()
+        k, v = a["cache1"]["k"][:, 0], a["cache1"]["v"][:, 0]
+        self._activate(a["req"], slot_idx, row, k, v, a["base"] + a["length"],
+                       a["cache_key"])
+
+    def _admit_whole(self, req: Request, embeds, length: int, cache_key=None) -> None:
+        slot_idx = self._free_slot()
+        if slot_idx is None:
+            self.pending.put(req)
+            return
+        row, k, v = self._prefill(embeds, length)
+        self._activate(req, slot_idx, row.cpu().numpy(), k, v, length, cache_key)
+
+    def _activate(self, req: Request, slot_idx: int, logits_row, k, v, length: int,
+                  cache_key) -> None:
+        """Admission's common tail: first token, prefix blocks, the KV into
+        the slot, penalty rows, and the slot goes live."""
+        first = self._first_token(req, logits_row)
+        self._cache_prompt_blocks(req, k, v, length, cache_key)
+        self.cache = _insert(self.cache, k[:, :length], v[:, :length], slot_idx, length)
+        self._host_len[slot_idx] = length
+        self.cur_tokens[slot_idx] = first
+        self._seed_penalty_rows(req, slot_idx, first)
+        slot = _Slot(req)
+        slot.generated.append(first)
+        slot.budget -= 1          # the prefill-sampled token counts toward the budget
+        self.slots[slot_idx] = slot
+        req.out_queue.put([first])
+        if slot.budget <= 0:
+            self._retire(slot_idx)
+
+    def _cache_prompt_blocks(self, req: Request, k_full, v_full, length: int,
+                             cache_key=None) -> None:
+        """Feed the just-prefilled prompt's full blocks to the prefix cache,
+        keyed by ``cache_key`` (input_ids, or the fused identity stream).
+        Explicit-prefix requests never cache. k/v_full: [L, S, KVH, hd]."""
+        pc = self.prefix_cache
+        if pc is None or cache_key is None or req.prefix_id is not None:
+            return
+        blk = pc.block
+        for b, digest, parent in pc.missing_blocks(cache_key, length):
+            kb = _slice_block(k_full, b * blk, blk=blk)
+            vb = _slice_block(v_full, b * blk, blk=blk)
+            pc.put(digest, parent, {"k": kb, "v": vb},
+                   kb.numel() * kb.element_size() + vb.numel() * vb.element_size())
+
+    def prefix_cache_stats(self) -> Optional[dict]:
+        return None if self.prefix_cache is None else self.prefix_cache.stats()
+
+    def metrics_summary(self) -> dict:
+        """Serving metrics over the last 512 completed requests: TTFT
+        percentiles (submit -> first token, queue time included) and decode
+        throughput, on the host clock."""
+        m = list(self._metrics)
+        if not m:
+            return {"completed": 0}
+        ttft = np.sort(np.asarray([x[0] for x in m]))
+        toks = sum(x[1] for x in m)
+        dec_t = sum(x[2] for x in m)
+        q = lambda p: float(ttft[min(len(ttft) - 1, int(p * (len(ttft) - 1)))])  # noqa: E731
+        return {"completed": len(m), "tokens": int(toks),
+                "ttft_p50_s": round(q(0.5), 4),
+                "ttft_p95_s": round(q(0.95), 4),
+                "decode_tok_s_per_req": round(toks / dec_t, 2),
+                "uptime_s": round(time.monotonic() - self._t_start, 1)}
+
+    def _seed_penalty_rows(self, req: Request, slot_idx: int, first: int) -> None:
+        """Reset this slot's penalty state at admission (prompt presence,
+        counts seeded with the first token); skipped for penalty-free
+        requests, whose knob rows are identity."""
+        if not self._request_has_penalties(req):
+            return
+        self.prompt_mask[slot_idx] = torch.from_numpy(
+            self._prompt_presence(req)).to(self.device)
+        self.gen_counts[slot_idx] = 0
+        self.gen_counts[slot_idx, first] += 1
+
+    @staticmethod
+    def _request_has_penalties(req: Request) -> bool:
+        return (req.repetition_penalty != 1.0 or req.presence_penalty != 0.0
+                or req.frequency_penalty != 0.0)
+
+    def _prompt_presence(self, req: Request) -> np.ndarray:
+        """[V] bool presence of prompt tokens (image sentinels dropped)."""
+        present = np.zeros((self._vocab_size,), bool)
+        ids = np.asarray(req.input_ids)
+        present[ids[(ids >= 0) & (ids < self._vocab_size)]] = True
+        return present
+
+    def _first_token(self, req: Request, logits_row: np.ndarray) -> int:
+        """Sample the prefill's next token on the host with numpy, in float64,
+        with the decode step's chain: penalties (prompt-only at this point),
+        temperature, top_k, top_p, min_p; logprob entries when asked."""
+        if req.repetition_penalty != 1.0:
+            present = self._prompt_presence(req)
+            rep = req.repetition_penalty
+            adj = np.where(logits_row > 0, logits_row / rep, logits_row * rep)
+            logits_row = np.where(present, adj, logits_row)
+        # presence/frequency penalties count generated tokens only: zero here
+
+        def _done(tok: int) -> int:
+            if req.logprobs:
+                r64 = logits_row.astype(np.float64)
+                lp = r64 - np.log(np.sum(np.exp(r64 - r64.max()))) - r64.max()
+                n = min(req.logprobs, 8)
+                top = np.argsort(lp)[::-1][:n]
+                req.logprob_entries.append({
+                    "logprob": float(lp[tok]),
+                    "top": [(int(t), float(lp[t])) for t in top]})
+            return tok
+
+        if req.temperature <= 0.0:
+            return _done(int(np.argmax(logits_row)))
+        x = logits_row.astype(np.float64) / max(req.temperature, 1e-6)
+        if req.top_k > 0:
+            order = np.argsort(x)[::-1]
+            kth = x[order[min(req.top_k, x.size) - 1]]
+            x = np.where(x < kth, -np.inf, x)
+        if req.top_p < 1.0:
+            order = np.argsort(x)[::-1]
+            xs = x[order]
+            p = np.exp(xs - xs[0])
+            p /= p.sum()
+            keep = (np.cumsum(p) - p) < req.top_p   # exclusive-cum rule
+            x = np.where(x < xs[keep][-1], -np.inf, x)
+        if req.min_p > 0.0:
+            p = np.exp(x - np.nanmax(x[np.isfinite(x)]))
+            p /= p.sum()
+            x = np.where(p < req.min_p * p.max(), -np.inf, x)
+        p = np.exp(x - x.max())
+        p /= p.sum()
+        return _done(int(self._np_rng.choice(x.size, p=p)))
+
+    def _retire(self, idx: int) -> None:
+        slot = self.slots[idx]
+        if slot is not None:
+            now = time.monotonic()
+            t_sub = getattr(slot.req, "_t_submit", slot.t_first)
+            self._metrics.append((slot.t_first - t_sub,            # TTFT
+                                  len(slot.generated),
+                                  max(now - slot.t_first, 1e-9)))  # decode wall time
+            slot.req.out_queue.put(None)
+        self.slots[idx] = None
+
+    def tick(self) -> int:
+        """Advance admissions (one chunk) and run one decode dispatch for all
+        active slots. Returns the number of active slots after it."""
+        with torch.no_grad(), fp32_accumulation():
+            return self._tick()
+
+    def _tick(self) -> int:
+        # drain the overlapped dispatch before anything that mutates slot
+        # or queue state, so emits stay in order
+        if self._inflight is not None and (
+                self._cancel_ids or not self.pending.empty()
+                or self._admission is not None):
+            self._flush_inflight()
+        self._apply_cancellations()
+        # one admission chunk per tick bounds added decode latency
+        in_flight = self._admission_step()
+        while not in_flight and not self.pending.empty() \
+                and self._free_slot() is not None:
+            in_flight = self._admission_step()
+            if self._admission is not None:
+                break
+
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            self._flush_inflight()   # tokens for retired slots are discarded
+            return 1 if (in_flight or self._admission is not None) else 0
+
+        # EOS as the very first sample
+        eos = self.cfg.eos_token_id
+        for i in list(active):
+            s = self.slots[i]
+            if s.generated and s.generated[-1] == eos:
+                s.generated.pop()
+                self._retire(i)
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return 0
+
+        B = self.max_slots
+        knobs = np.zeros((8, B), np.float32)
+        knobs[2] = 1.0                       # top_p default
+        knobs[5] = 1.0                       # repetition_penalty default
+        for i in active:
+            r = self.slots[i].req
+            knobs[:, i] = (r.temperature, 1.0, r.top_p, r.top_k, r.min_p,
+                           r.repetition_penalty, r.presence_penalty, r.frequency_penalty)
+        # filters cost a [B, V] sort per step and penalties read the [B, V]
+        # count state: each runs only when an active slot asks
+        use_filters = bool(any(knobs[0, i] > 0.0
+                               and (knobs[2, i] < 1.0 or knobs[3, i] > 0
+                                    or knobs[4, i] > 0.0) for i in active))
+        use_penalties = bool(any(knobs[5, i] != 1.0 or knobs[6, i] != 0.0
+                                 or knobs[7, i] != 0.0 for i in active))
+        n_lp = min(8, max((self.slots[i].req.logprobs for i in active), default=0))
+
+        idle = self._admission is None and self.pending.empty()
+        # tokens already dispatched but not yet pulled (overlapped mode)
+        k_prev = self._inflight[1] if self._inflight is not None else 0
+        min_budget = min(self.slots[i].budget for i in active)
+        k = min(self.multi_step, max(min_budget - k_prev, 1)) if idle else 1
+        top = int(max(self._host_len[i] for i in active)) + k_prev
+        # no row writes past the pool (JAX drops such writes)
+        k = max(1, min(k, self.cache_len - top))
+        meta = self._upload(knobs.reshape(-1))
+        # window: the smallest multiple of 256 that covers every active slot
+        # through this dispatch; _host_len can be k_prev tokens stale
+        need = top + k + 1
+        window = min(self.cache_len, -(-need // 256) * 256)
+        packed = self._step_k(meta, k, window, use_filters, use_penalties, n_lp)
+        self.decode_steps += k
+        handle = self._pull(packed)
+
+        # overlapped decode: in the steady idle regime keep this dispatch in
+        # flight and process the previous one while the device runs
+        snapshot = [self.slots[i] for i in active]
+        overlap = (idle and k > 1 and min_budget - k_prev > k
+                   and need + self.multi_step < self.cache_len)
+        prev, self._inflight = self._inflight, None
+        if overlap:
+            self._inflight = (handle, k, active, snapshot, n_lp)
+            if prev is None:
+                return sum(s is not None for s in self.slots)
+            if self._emit_packed(*prev):
+                # the slot set changed under the in-flight dispatch; drain it
+                self._flush_inflight()
+        else:
+            if prev is not None:
+                self._emit_packed(*prev)
+            self._emit_packed(handle, k, active, snapshot, n_lp)
+        return sum(s is not None for s in self.slots)
+
+    def _flush_inflight(self) -> None:
+        """Pull and process the overlapped dispatch, if any."""
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            self._emit_packed(*prev)
+
+    def _emit_packed(self, handle, k: int, active: List[int], snapshot, n_lp: int) -> bool:
+        """Read one dispatch's packed result and credit tokens to its slots.
+        Returns True if any slot retired. Slots retired or reassigned since
+        the dispatch are skipped by identity."""
+        host, event = handle
+        if event is not None:
+            event.synchronize()
+        packed = host.numpy()
+        B = self.max_slots
+        eos = self.cfg.eos_token_id
+        out_np = packed[:B * k].reshape(B, k)
+        lengths = packed[B * k:B * k + B]
+        lp_ids = lp_vals = lp_samp = None
+        if n_lp:
+            o = B * k + B
+            lp_ids = packed[o:o + B * k * n_lp].reshape(B, k, n_lp)
+            o += B * k * n_lp
+            lp_vals = packed[o:o + B * k * n_lp].view(np.float32).reshape(B, k, n_lp)
+            o += B * k * n_lp
+            lp_samp = packed[o:o + B * k].view(np.float32).reshape(B, k)
+
+        retired = False
+        for i, snap in zip(active, snapshot):
+            s = self.slots[i]
+            if s is not snap:   # retired/reassigned since dispatch: discard
+                continue
+            self._host_len[i] = lengths[i]
+            emit = []
+            for t in out_np[i].tolist():
+                if t == eos:
+                    s.budget = 0
+                    break
+                emit.append(int(t))
+                s.budget -= 1
+                if s.budget <= 0:
+                    break
+            if emit:
+                if s.req.logprobs and lp_ids is not None:
+                    n = s.req.logprobs
+                    for j in range(len(emit)):
+                        s.req.logprob_entries.append({
+                            "logprob": float(lp_samp[i, j]),
+                            "top": list(zip(lp_ids[i, j, :n].tolist(),
+                                            lp_vals[i, j, :n].tolist()))})
+                s.generated.extend(emit)
+                s.req.out_queue.put(emit)
+            if s.budget <= 0 or int(lengths[i]) >= self.cache_len - 1:
+                self._retire(i)
+                retired = True
+        return retired
+
+    # ------------------------------------------------------------------
+    def run_forever(self, idle_sleep: float = 0.005) -> None:
+        while not self._stop.is_set():
+            try:
+                n = self.tick()
+            except Exception:  # noqa: BLE001 — fail in-flight work, keep serving
+                traceback.print_exc()
+                if self._admission is not None:
+                    self._admission["req"].out_queue.put(None)
+                    self._admission = None
+                n = 0
+            if n == 0 and self.pending.empty():
+                time.sleep(idle_sleep)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.run_forever, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=5)

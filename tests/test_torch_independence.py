@@ -259,3 +259,37 @@ def test_latest_checkpoint_and_preemption_guard_match(tmp_path):
             assert not guard.triggered and guard.install_ok()
             guard.trigger()
             assert guard.triggered
+
+
+def test_prefix_cache_copy_matches():
+    """``serve/prefix_cache.py``, the port's own copy: the same content
+    digests and slot identities, and the same matches, misses, insertions,
+    LRU evictions and stats over one random stream of prompts that share
+    prefixes, under a budget that forces eviction."""
+    from slime_tpu.serve import prefix_cache as jpc
+    from slime_tpu_torch.serve import prefix_cache as tpc
+
+    r = np.random.default_rng(3)
+    px = r.standard_normal((3, 3, 8, 8)).astype(np.float32)
+    cm = np.array([True, True, False])
+    digest = jpc.image_content_digest(px, cm)
+    assert tpc.image_content_digest(px, cm) == digest
+    assert tpc.image_content_digest(px.astype(np.float16), cm) != digest
+    np.testing.assert_array_equal(tpc.image_slot_identities(digest, 50),
+                                  jpc.image_slot_identities(digest, 50))
+    caches = [m.PrefixCache(block=4, budget_bytes=96) for m in (tpc, jpc)]
+    base = r.integers(0, 50, 40)
+    for step in range(40):
+        ids = base.copy()
+        ids[r.integers(4, 40):] = r.integers(0, 50, 1)
+        ids = ids[:r.integers(3, 41)]
+        got = []
+        for pc in caches:
+            P, hit = pc.match(ids)
+            missing = pc.missing_blocks(ids, len(ids))
+            for b, d, parent in missing:
+                pc.put(d, parent, {"block": b}, nbytes=8)
+            got.append((P, [e["digest"] for e in hit], missing, pc.match_len(ids),
+                        sorted(pc.entries), pc.stats()))
+        assert got[0] == got[1], step
+    assert caches[0].stats()["evicted_blocks"] > 0

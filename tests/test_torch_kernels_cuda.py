@@ -1208,3 +1208,94 @@ def test_vit_remat_default_dtype(dev):
         outs.append((y.detach(), leaf.grad))
     _assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     _assert_close(outs[1][1], outs[0][1], atol=0, rtol=0)
+
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_engine_matches_generate(dev, kv_quant):
+    """The serving engine on the card at the default fp32 compute dtype
+    (int8 layers, stacked): four requests, one admitted in 16-position
+    chunks and an 8-row one, each fused (B * C <= 64: K1-K3), each token for
+    token equal to generate's on the same KV pool type."""
+    import numpy as np
+
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+    cfg = _small_slime_cfg()
+    params = _small_slime(cfg, dev, "int8")
+    r = np.random.default_rng(3)
+    prompts = [r.integers(5, cfg.llm.vocab_size, (n,)) for n in (7, 12, 9, 40)]
+    eng = BatchDecodeEngine(params, cfg, max_slots=4, cache_len=256, device=dev,
+                            kv_quant=kv_quant)
+    eng.prefill_chunk_len = 16
+    reqs = [eng.submit(Request(input_ids=p, max_new_tokens=12)) for p in prompts]
+    before = fused_mlp.fused_mlp_decode.f32_launches
+    for _ in range(400):
+        if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    got = [[t for c in q.stream() for t in c] for q in reqs]
+    assert eng.chunk_rows == {16: 2, 8: 1}
+    steps = eng.decode_steps + 3                   # decode steps and the fused chunks
+    assert fused_mlp.fused_mlp_decode.f32_launches - before == steps * cfg.llm.num_layers
+    for p, toks in zip(prompts, got):
+        ids = torch.from_numpy(p[None]).to(dev)
+        want = gen.generate(params, cfg, ids, torch.ones_like(ids, dtype=torch.bool),
+                            max_new_tokens=12, kv_quant=kv_quant)[0].tolist()
+        assert toks == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_chunk_matches_unfused(dev, dtype):
+    """A 64-row prefill_chunk through K1-K3 (row per warp) against the same
+    chunk through layers.linear, from the same cache: logits and the new
+    cache entries within 2^-7 relative and 5e-2 absolute in bf16 (kernels
+    each held to 2e-3 by the smoke, their differences carried through two
+    layers and the head), 1e-4 and 1e-3 in fp32 (the order of sums)."""
+    from slime_tpu_torch.models import llama
+    cfg = _small_slime_cfg()
+    llm = _small_slime(cfg, dev, "int8")["llm"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = (torch.randn((1, 64, cfg.llm.hidden_size), device=dev, generator=g) * 0.5).to(dtype)
+    out = {}
+    for fused in (True, False):
+        cache = llama.init_kv_cache(cfg.llm, 1, 128, dtype=dtype, device=dev)
+        cache["length"].fill_(7)
+        before = fused_qkvo.fused_qkv_decode.launches
+        logits, cache = llama.prefill_chunk(llm, cache, emb, cfg.llm, compute_dtype=dtype,
+                                            fused=fused)
+        launched = fused_qkvo.fused_qkv_decode.launches - before
+        assert launched == (cfg.llm.num_layers if fused else 0)
+        out[fused] = (logits, cache["k"][:, 0, 7:71])
+    assert llama.chunk_takes_fused(emb.shape, dev, llm["layers"])
+    tol = dict(atol=5e-2, rtol=RTOL) if dtype == torch.bfloat16 else dict(atol=1e-3, rtol=1e-4)
+    _assert_close(out[True][0], out[False][0], **tol)
+    _assert_close(out[True][1], out[False][1], **tol)
+
+
+def test_decode_step_int8_cache_close(dev):
+    """decode_step over an int8 KV cache against the float cache on the
+    card, at tests/test_kv_quant.py's bound (max logit error under 5% of the
+    largest logit, the same argmax), windowed too."""
+    from slime_tpu_torch.models import llama
+    cfg = _small_slime_cfg()
+    llm = _small_slime(cfg, dev, "int8")["llm"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    emb = torch.randn((2, 9, cfg.llm.hidden_size), device=dev, generator=g) * 0.5
+    logits, kvs = llama.forward(llm, emb, cfg.llm, return_kv=True)
+    tok = logits[:, -1].argmax(-1)
+    lengths = torch.full((2,), 9, dtype=torch.int32, device=dev)
+    out = {}
+    for quantized in (False, True):
+        cache = llama.prefill_into_cache(
+            llama.init_kv_cache(cfg.llm, 2, 64, device=dev, quantized=quantized), kvs, lengths)
+        out[quantized] = llama.decode_step(llm, cache, tok, cfg.llm)[0]
+        if quantized:
+            assert cache["k"].dtype == torch.int8
+            windowed = llama.decode_step(
+                llm, llama.prefill_into_cache(llama.init_kv_cache(
+                    cfg.llm, 2, 64, device=dev, quantized=True), kvs, lengths),
+                tok, cfg.llm, window=32)[0]
+            _assert_close(windowed, out[True], atol=1e-5, rtol=1e-5)
+    err = (out[True] - out[False]).abs().max() / out[False].abs().max()
+    assert float(err) < 0.05, float(err)
+    assert torch.equal(out[True].argmax(-1), out[False].argmax(-1))
