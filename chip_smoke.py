@@ -118,6 +118,23 @@ Phase 8  serves through the continuous-batching engine
          pool twice (finite scales, the same answers, the float pool's first
          tokens), with TTFTs, the aggregate rate and the peak memory.
 
+Phase 9  serves the stack around the engine on phase 2's int8 model (bf16, 4
+         slots) before it is freed, with a stand-in byte tokenizer: the
+         batched worker's HTTP routes from a thread (two greedy streams of
+         61 and 301 tokens submitted together, a ``choices`` grammar
+         request, /v1/chat/completions plain and streamed, /v1/completions
+         with n = 2, /worker_get_status), held to the in-process engine's
+         tokens; then speculative decoding in process (spec_k 4, 8 rounds a
+         dispatch) on one 64-token request with a random 0.6B bf16 draft and
+         with the target as its own draft: every emitted token is the argmax
+         of its verify chunk under the accept rule, the tokens equal the
+         plain engine's up to its first near tie, K1-K3 launch row per warp
+         32 each a verify chunk and on the ring 32 each a plain step (and a
+         draft step where the draft is the target). It traces a dispatch of
+         8 rounds (draft steps, verify chunk, ingest) and a k = 8 tick with
+         one constrained slot against none, and prints the acceptance,
+         TTFTs, rates and the grammar's size and compile time.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -126,7 +143,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -222,6 +241,18 @@ ENGINE_SLOTS, ENGINE_TEXT, ENGINE_WINDOW, ENGINE_TIE_ATOL = 4, (60, 300), 256, 0
 # padded to a power of two), where phase 1 times K1-K3's row-per-warp
 # instances
 CHUNK_ROWS = 64
+# phase 9: speculation's proposals a round and rounds a dispatch (the
+# engine's defaults), the verify chunk's rows (4 slots x (K + 1)), which
+# phase 1 also times; the text prompts' lengths in bytes; the choices
+# grammar; the random draft: scripts/bench_spec_engine_8b.py:59-63's 0.6B
+# bf16 Llama (Llama-3's vocabulary)
+SPEC_K, SPEC_ROUNDS = 4, 8
+VERIFY_ROWS = ENGINE_SLOTS * (SPEC_K + 1)
+SERVE_TEXT = (60, 300)
+CHOICES = ("yes", "no", "maybe")
+DRAFT_LLM = dict(hidden_size=2048, intermediate_size=5504, num_layers=2, num_heads=16,
+                 num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+                 max_position_embeddings=4096)
 # phase 6's comparisons, from readings on an H100 (PERF.md). The
 # last-position logits (std 0.74) of the bf16 ring forward (a) and the bf16
 # K5 forward (b) differed by up to 0.101, as much as any two bf16 attention
@@ -1137,7 +1168,8 @@ def decode_kernels(dev, cfg, g, flush, record):
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
     compute dtype), q4g at B = 8 and int8 at B = 64 (the engine's fused
-    chunk, phase 8) in bf16. The records keep B = 1; K1-K3
+    chunk, phase 8) and 20 (the verify chunk, phase 9) in bf16. The records
+    keep B = 1; K1-K3
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
@@ -1190,8 +1222,9 @@ def decode_kernels(dev, cfg, g, flush, record):
         runs = ((bf, "", batches, g), (bf, "", (65, 128), g_new), (f32, "_f32", (1, 65), g_new))
         if fmt == "q4g":
             runs += ((bf, "", (8,), g_q4g8),)
-        else:       # the engine's fused chunk (phase 8): 64 rows, row per warp
-            runs += ((bf, "", (CHUNK_ROWS,), g_chunk),)
+        else:       # the engine's fused chunk (phase 8): 64 rows, row per warp;
+            # the verify chunk (phase 9): 20 rows
+            runs += ((bf, "", (CHUNK_ROWS, VERIFY_ROWS), g_chunk),)
         for dtype, dsfx, bs, gen in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
@@ -1964,11 +1997,517 @@ def engine_phase(dev, cfg, params):
     return counts
 
 
+class ByteTokenizer:
+    """Stand-in tokenizer for phase 9 (no tokenizer ships with the repo):
+    BOS, then the text's UTF-8 bytes as ids 0-255; decode keeps the ids
+    below 256 as bytes and drops the others."""
+
+    def __init__(self, bos_token_id):
+        self.bos_token_id = bos_token_id
+
+    def __call__(self, text):
+        return types.SimpleNamespace(input_ids=[self.bos_token_id] + list(text.encode()))
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", errors="replace")
+
+
+def draft_params(cfg, generator, device):
+    """The random 0.6B bf16 draft (DRAFT_LLM, stacked layers, int8-valued
+    bf16 weights of scale 0.02 / 127 as bench_spec_engine_8b.py builds
+    them, the lm_head tied to the embedding) and its SliMEConfig."""
+    from slime_tpu_torch.config import LLMConfig
+    dl = LLMConfig(vocab_size=cfg.llm.vocab_size, **DRAFT_LLM)
+    H, HD, I, NL = dl.hidden_size, dl.head_dim, dl.intermediate_size, dl.num_layers
+
+    def w(out_d, in_d):
+        q = torch.randint(-127, 128, (NL, out_d, in_d), dtype=torch.int8, device=device,
+                          generator=generator)
+        return {"weight": (q.to(torch.float32) * (0.02 / 127.0)).to(torch.bfloat16)}
+    layers = {"input_layernorm": {"weight": torch.ones((NL, H), device=device)},
+              "post_attention_layernorm": {"weight": torch.ones((NL, H), device=device)},
+              "q_proj": w(dl.num_heads * HD, H), "k_proj": w(dl.num_kv_heads * HD, H),
+              "v_proj": w(dl.num_kv_heads * HD, H), "o_proj": w(H, dl.num_heads * HD),
+              "gate_proj": w(I, H), "up_proj": w(I, H), "down_proj": w(H, I)}
+    emb = (torch.randn((dl.vocab_size, H), device=device, generator=generator) * 0.02
+           ).to(torch.bfloat16)
+    llm = {"embed_tokens": emb, "norm": {"weight": torch.ones((H,), device=device)},
+           "layers": layers, "lm_head": {"weight": emb}}
+    return {"llm": llm}, dataclasses.replace(cfg, llm=dl)
+
+
+def traced_engine(**kw):
+    """A BatchDecodeEngine that names a speculative round's parts for the
+    profiler (``spec_draft``, ``spec_verify``, ``spec_ingest``) and, while
+    ``record`` is set, keeps each round's live rows, proposals and the
+    argmax of its verify logits."""
+    from torch.profiler import record_function
+
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine
+
+    class Traced(BatchDecodeEngine):
+        record = False
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rounds_log = []
+
+        def _one_round(self, cur, d_len, alive, *a, **k):
+            self._alive = alive
+            return super()._one_round(cur, d_len, alive, *a, **k)
+
+        def _draft_steps(self, *a, **k):
+            with record_function("spec_draft"):
+                return super()._draft_steps(*a, **k)
+
+        def _verify(self, cur, props, window):
+            with record_function("spec_verify"):
+                logits = super()._verify(cur, props, window)
+            if self.record:
+                self.rounds_log.append((self._alive.clone(), props.clone(),
+                                        logits.argmax(dim=-1).to(torch.int32)))
+            return logits
+
+        def _ingest(self, tokens, window):
+            with record_function("spec_ingest"):
+                super()._ingest(tokens, window)
+    return Traced(**kw)
+
+
+def verified_tokens(rounds_log, slot, K):
+    """Host model of the greedy accept rule over one slot's recorded rounds:
+    the concatenation of argmax[:acc + 1], acc the proposals' longest
+    prefix equal to the verify argmax."""
+    out = []
+    for alive, props, am in rounds_log:
+        if not bool(alive[slot]):
+            continue
+        p, a = props[slot].tolist(), am[slot].tolist()
+        acc = next((i for i in range(K) if p[i] != a[i]), K)
+        out.extend(a[:acc + 1])
+    return out
+
+
+def trace_ranges(path, names):
+    """{range: (device ms, launches)} of the kernels launched inside each
+    named ``record_function`` range of a torch.profiler chrome trace (by
+    the correlation of each kernel with its launch call); the rest under
+    None."""
+    ev = json.loads(Path(path).read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+              if e.get("ph") == "X" and e.get("name") in names
+              and str(e.get("cat", "")).lower() == "user_annotation"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
+                 if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    out = {n: [0.0, 0] for n in list(names) + [None]}
+    by_kernel = {n: {} for n in list(names) + [None]}
+    for e in ev:
+        if e.get("ph") != "X" or str(e.get("cat", "")).lower() != "kernel":
+            continue
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        name = next((n for t0, t1, n in ranges if t is not None and t0 <= t <= t1), None)
+        out[name][0] += e["dur"] / 1e3
+        out[name][1] += 1
+        k = e["name"].replace("void (anonymous namespace)::", "").split("(")[0].split("<")[0]
+        by_kernel[name][k] = by_kernel[name].get(k, 0.0) + e["dur"] / 1e3
+    return out, by_kernel
+
+
+def http_post(url, body, timeout=600):
+    """POST JSON -> the open response (an HTTP error raises)."""
+    import urllib.request
+    return urllib.request.urlopen(urllib.request.Request(
+        url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"}),
+        timeout=timeout)
+
+
+def http_json(url, body):
+    with http_post(url, body) as r:
+        return json.loads(r.read())
+
+
+def http_stream(url, body):
+    """POST to a worker stream route -> (the b"\\0"-delimited chunks, seconds
+    to the first chunk, seconds to the last); an error chunk raises."""
+    t0 = time.perf_counter()
+    chunks, first, buf = [], None, b""
+    with http_post(url, body) as r:
+        while True:
+            data = r.read1(65536)
+            if not data:
+                break
+            buf += data
+            *done, buf = buf.split(b"\0")
+            for c in done:
+                if c:
+                    chunks.append(json.loads(c))
+                    first = first or time.perf_counter() - t0
+    bad = [c for c in chunks if c.get("error_code", 0) != 0]
+    if bad or not chunks:
+        raise AssertionError(f"phase 9: error reply from {url}: {bad or 'no chunk'}")
+    return chunks, first, time.perf_counter() - t0
+
+
+def http_sse(url, body):
+    """POST with stream: true to an OpenAI route -> its SSE frames, which
+    must end with [DONE]."""
+    frames, done = [], False
+    with http_post(url, body) as r:
+        for line in r:
+            line = line.strip()
+            if not line:
+                continue
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                done = True
+                break
+            frames.append(json.loads(payload))
+    if not done or not frames:
+        raise AssertionError(f"phase 9: SSE from {url} ended without [DONE]")
+    return frames
+
+
+def plain_logits(params, cfg, prompt, tokens):
+    """The bf16 logits [len(tokens), V] at each answer step, teacher-forced on
+    ``tokens`` after ``prompt`` in one forward (a trailing EOS gives the
+    step after an answer that ended)."""
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    ids = torch.from_numpy(np.concatenate([prompt, tokens]).astype(np.int64))[None]
+    ids = ids.to(params["llm"]["embed_tokens"].device)
+    with torch.no_grad(), fp32_accumulation():
+        logits, _ = llama.forward(params["llm"], llama.embed(params["llm"], ids).to(
+            torch.bfloat16), cfg.llm, compute_dtype=torch.bfloat16)
+    return logits[0, len(prompt) - 1:len(prompt) - 1 + len(tokens)]
+
+
+def near_tie_rule(name, got, want, logits, eos):
+    """``got`` against ``want`` (the plain engine's tokens), with ``logits``
+    the plain tokens' teacher-forced logits: equal up to the first step
+    whose top-two gap lies under ENGINE_TIE_ATOL, and where they part the
+    two tokens' logits lie within ENGINE_TIE_ATOL of each other (a forward
+    is another attention path than the engine's, so either may be the
+    larger). Logs the first near tie and the parting step with its gap."""
+    top2 = logits.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    tie = next((i for i, g in enumerate(gaps) if g < ENGINE_TIE_ATOL), None)
+    # a sequence that ended early ended on EOS, which it does not emit
+    got, want = list(got), list(want)
+    n = max(len(got), len(want))
+    got += [eos] * (n - len(got))
+    want += [eos] * (n - len(want))
+    part = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    gap = None if part is None else float(logits[part, want[part]] - logits[part, got[part]])
+    log(f"phase 9 {name}: {len(got)} tokens; "
+        + ("equal to the plain engine's" if part is None else
+           f"parts from the plain engine's at step {part} (plain {want[part]}, here "
+           f"{got[part]}: teacher-forced logit gap {gap:.4g}), equal before it")
+        + (f"; first plain near tie at step {tie} (top-two gap {gaps[tie]:.4g}, bound "
+           f"{ENGINE_TIE_ATOL})" if tie is not None else "; no plain near tie"))
+    if part is not None and (tie is None or part < tie or abs(gap) > ENGINE_TIE_ATOL):
+        raise AssertionError(f"phase 9 {name}: parts from the plain engine at step {part} "
+                             f"(gap {gap:.4g}), first near tie at {tie}")
+
+
+def drain(req):
+    return [t for c in req.stream() for t in c]
+
+
+def run_one(eng, ids, n):
+    """One request through tick() -> (tokens, TTFT s, decode s): the
+    engine's own record of it (``metrics_summary``'s: submit to the first
+    token's sampling, then to the retirement)."""
+    from slime_tpu_torch.serve.batch_engine import Request
+    req = eng.submit(Request(input_ids=ids, max_new_tokens=n))
+    for _ in range(20 * n):
+        if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    torch.cuda.synchronize()
+    ttft, _, dec = eng._metrics[-1]
+    return drain(req), ttft, dec
+
+
+def serving_stack_phase(dev, cfg, params):
+    """Phase 9: the serving stack on phase 2's int8 model, bf16: the batched
+    worker's HTTP routes (stream, grammar, OpenAI, status) from a thread,
+    then speculation in process with a random draft and with the target as
+    its own draft. Returns the launch counts of its counted windows (the
+    HTTP requests; each speculating engine's request)."""
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+    from slime_tpu_torch.serve.batched_worker import BatchedWorker, build_server
+    from slime_tpu_torch.serve.grammar import choices_regex, compile_regex, compile_token_dfa
+    from slime_tpu_torch.serve.grammar import vocab_bytes_from_tokenizer
+
+    bf = torch.bfloat16
+    out = Path(__file__).resolve().parent / "bench_out"
+    NL, V = cfg.llm.num_layers, cfg.llm.vocab_size
+    tok = ByteTokenizer(cfg.bos_token_id)
+    rng = np.random.default_rng(SEED + 13)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    texts = ["".join(rng.choice(letters, n)) for n in SERVE_TEXT]
+    prompts = [np.asarray(tok(t).input_ids, np.int32) for t in texts]
+    cache_len = -(-(max(map(len, prompts)) + N_NEW + SPEC_ROUNDS * (SPEC_K + 1) + 2)
+                  // ENGINE_WINDOW) * ENGINE_WINDOW
+    common = dict(max_slots=ENGINE_SLOTS, cache_len=cache_len, compute_dtype=bf, device=dev,
+                  prefix_cache_mb=0)
+    launches = {n: 0 for n in KERNELS}
+    log(f"phase 9: the serving stack, max_slots {ENGINE_SLOTS}, cache_len {cache_len}, "
+        f"bf16, spec_k {SPEC_K}, spec_rounds {SPEC_ROUNDS}; text prompts of "
+        f"{[len(p) for p in prompts]} tokens (BOS + bytes), {N_NEW} greedy tokens each")
+
+    # the grammar, compiled for the byte vocabulary at the model's V
+    t0 = time.perf_counter()
+    vocab = vocab_bytes_from_tokenizer(tok, V)
+    pattern = choices_regex(list(CHOICES))
+    tdfa = compile_token_dfa(pattern, vocab, eos_id=cfg.eos_token_id)
+    g_s = time.perf_counter() - t0
+    log(f"phase 9 grammar {pattern!r}: {tdfa.allowed.shape[0]} states, tables "
+        f"{(tdfa.allowed.shape[0] + 1) * V * 5 / 2 ** 20:.2f} MiB on the device (bool + int32 "
+        f"[S + 1, V], state 0 included), compiled in {g_s:.3f} s (vocabulary table and DFA)")
+
+    # ---- the in-process reference: both prompts submitted together ----
+    ref = BatchDecodeEngine(params, cfg, **common)
+    run_one(ref, prompts[0], 8)                      # warm
+    reqs = [ref.submit(Request(input_ids=p, max_new_tokens=N_NEW, logprobs=1))
+            for p in prompts]
+    ttft_in = [None, None]
+    t0 = time.perf_counter()
+    for _ in range(4000):
+        n = ref.tick()
+        for i, r in enumerate(reqs):
+            if ttft_in[i] is None and not r.out_queue.empty():
+                ttft_in[i] = time.perf_counter() - t0
+        if n == 0 and ref.pending.empty() and ref._admission is None:
+            break
+    torch.cuda.synchronize()
+    wall_in = time.perf_counter() - t0
+    want = [drain(r) for r in reqs]
+    del ref
+    log(f"phase 9 in process: {sum(map(len, want))} tokens in {wall_in:.3f} s "
+        f"({sum(map(len, want)) / wall_in:.2f} tok/s aggregate); TTFTs "
+        f"{[round(t * 1e3, 1) for t in ttft_in]} ms")
+
+    # ---- over HTTP: the batched worker and its routes on a thread ----
+    worker = BatchedWorker(controller_addr=None, worker_addr="smoke", model_name="slime-8b",
+                           params=params, cfg=cfg, tokenizer=tok, register=False, **common)
+    srv = build_server(worker, "127.0.0.1", 0, conv_mode="llama3")
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = [None, None]
+
+        def stream(i):
+            got[i] = http_stream(url + "/worker_generate_stream",
+                                 {"prompt": texts[i], "max_new_tokens": N_NEW,
+                                  "temperature": 0.0, "logprobs": 1})
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall_http = time.perf_counter() - t0
+        if any(g is None for g in got):
+            raise AssertionError("phase 9: an HTTP stream failed")
+        http_toks = [[e["token_id"] for e in g[0][-1]["logprobs"]] for g in got]
+        for i, (chunks, first, last) in enumerate(got):
+            n = chunks[-1]["n_tokens"]
+            log(f"phase 9 HTTP stream {len(prompts[i])} tokens: TTFT {first * 1e3:.1f} ms "
+                f"(in process {ttft_in[i] * 1e3:.1f}), {n} tokens, "
+                f"{(n - 1) / max(last - first, 1e-9):.2f} tok/s after the first "
+                f"({len(chunks)} chunks)")
+        log(f"phase 9 HTTP: {sum(map(len, http_toks))} tokens in {wall_http:.3f} s "
+            f"({sum(map(len, http_toks)) / wall_http:.2f} tok/s aggregate; in process "
+            f"{sum(map(len, want)) / wall_in:.2f})")
+        for i in range(2):
+            near_tie_rule(f"HTTP stream {len(prompts[i])} tokens vs in process", http_toks[i],
+                          want[i], plain_logits(params, cfg, prompts[i],
+                                                    want[i] + [cfg.eos_token_id]),
+                          cfg.eos_token_id)
+        # the choices grammar over HTTP
+        g_reply = http_stream(url + "/worker_generate_stream",
+                              {"prompt": texts[0], "max_new_tokens": 8,
+                               "choices": list(CHOICES)})[0][-1]
+        if not compile_regex(pattern).matches(g_reply["text"].encode()):
+            raise AssertionError(f"phase 9 grammar: {g_reply['text']!r} does not match "
+                                 f"{pattern!r}")
+        log(f"phase 9 grammar over HTTP: {g_reply['text']!r} fullmatches {pattern!r} "
+            f"({g_reply['n_tokens']} tokens)")
+        # the OpenAI routes
+        chat = {"model": "slime-8b", "max_tokens": 16, "temperature": 0,
+                "messages": [{"role": "user", "content": texts[0]}]}
+        one = http_json(url + "/v1/chat/completions", chat)
+        frames = http_sse(url + "/v1/chat/completions", {**chat, "stream": True})
+        streamed = "".join(f["choices"][0]["delta"].get("content", "") for f in frames)
+        comp = http_json(url + "/v1/completions", {"prompt": texts[0], "max_tokens": 16,
+                                                   "temperature": 0, "n": 2})
+        status = http_json(url + "/worker_get_status", {})
+        ok = (one["object"] == "chat.completion" and len(one["choices"]) == 1
+              and streamed == one["choices"][0]["message"]["content"]
+              and frames[-1]["choices"][0]["finish_reason"] in ("stop", "length")
+              and [c["index"] for c in comp["choices"]] == [0, 1]
+              and comp["choices"][0]["text"] == comp["choices"][1]["text"]
+              and status["model_names"] == ["slime-8b"])
+        log(f"phase 9 OpenAI: chat {one['usage']}, SSE {len(frames)} frames equal to the JSON "
+            f"reply {streamed == one['choices'][0]['message']['content']}; completions n = 2: "
+            f"{len(comp['choices'])} choices, usage {comp['usage']}; status "
+            f"{json.dumps(status['metrics'])}")
+        if not ok:
+            raise AssertionError(f"phase 9 OpenAI replies: {one}, {comp}, {status}")
+    finally:
+        srv.shutdown()
+        worker.engine.stop()
+        server.join(timeout=30)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    eng = worker.engine
+    ring = sum(n for c, n in eng.chunk_rows.items() if c <= 8)
+    rpw = sum(n for c, n in eng.chunk_rows.items() if 8 < c <= 64)
+    expect = {**{n + "_ring": NL * (eng.decode_steps + ring) for n in FUSED},
+              **{n: NL * rpw for n in FUSED}}
+    wrong = {n: c for n, c in counts.items() if c != expect.get(n, 0)}
+    log(f"phase 9 HTTP launches: {json.dumps({n: c for n, c in counts.items() if c})} "
+        f"({eng.decode_steps} decode steps, chunks {dict(eng.chunk_rows)})")
+    if wrong and dev.type == "cuda":        # a CPU rehearsal counts no launch
+        raise AssertionError(f"phase 9 HTTP launches {wrong} (expected {expect})")
+    for n, c in counts.items():
+        launches[n] += c
+    del worker, eng
+    torch.cuda.empty_cache()
+
+    # ---- speculation in process: one 64-token request, plain and spec ----
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    dparams, dcfg = draft_params(cfg, g, dev)
+    ids = prompts[0]
+    plain = BatchDecodeEngine(params, cfg, **common)
+    run_one(plain, ids, N_NEW)                       # warm
+    plain_toks, plain_ttft, plain_dec = run_one(plain, ids, N_NEW)
+    del plain
+    teacher = plain_logits(params, cfg, ids, plain_toks + [cfg.eos_token_id])
+    log(f"phase 9 plain engine, one request: {len(plain_toks)} tokens, TTFT "
+        f"{plain_ttft * 1e3:.1f} ms, {(len(plain_toks) - 1) / plain_dec:.2f} tok/s after it")
+    for name, dp, dc in (("random draft", dparams, dcfg), ("target as draft", params, cfg)):
+        eng = traced_engine(params=params, cfg=cfg, draft_params=dp, draft_cfg=dc,
+                            spec_k=SPEC_K, spec_rounds=SPEC_ROUNDS, **common)
+        run_one(eng, ids, N_NEW)                     # warm
+        eng.spec_stats.clear()
+        eng.decode_steps = 0
+        eng.chunk_rows.clear()
+        eng.record = True
+        eng.rounds_log.clear()
+        reset_launch_counts()
+        toks, ttft, dec = run_one(eng, ids, N_NEW)
+        counts = launch_counts()
+        eng.record = False
+        st = dict(eng.spec_stats)
+        acc = st.get("accepted", 0) / max(SPEC_K * st.get("slot_rounds", 1), 1)
+        log(f"phase 9 spec, {name}: {len(toks)} tokens, TTFT {ttft * 1e3:.1f} ms, "
+            f"{(len(toks) - 1) / dec:.2f} tok/s after it (plain {(len(plain_toks) - 1) / plain_dec:.2f}); "
+            f"{st.get('rounds', 0)} rounds in {st.get('dispatches', 0)} dispatches "
+            f"({st.get('slot_rounds', 0)} of them live), acceptance "
+            f"{acc:.3f} of {SPEC_K} a round ({(st.get('accepted', 0) + st.get('slot_rounds', 0)) / max(st.get('slot_rounds', 1), 1):.2f} "
+            f"tokens a round), {eng.decode_steps} plain steps")
+        # every emitted token is its verify chunk's argmax under the accept rule
+        ver = verified_tokens([(a.cpu(), p.cpu(), m.cpu()) for a, p, m in eng.rounds_log], 0,
+                              SPEC_K)
+        n = min(len(ver), len(toks) - 1)
+        if toks[1:1 + n] != ver[:n] or n < len(toks) - 1 - eng.decode_steps:
+            raise AssertionError(f"phase 9 spec {name}: emitted tokens are not the verify "
+                                 f"chunks' argmax under the accept rule ({n} checked)")
+        log(f"phase 9 spec, {name}: {n} tokens equal to their verify chunks' argmax under "
+            f"the accept rule")
+        near_tie_rule(f"spec, {name}", toks, plain_toks, teacher, cfg.eos_token_id)
+        draft_fused = dp is params
+        steps = st.get("rounds", 0) * (SPEC_K + 1) if draft_fused else 0
+        ring = sum(n for c, n in eng.chunk_rows.items() if c <= 8)
+        rpw = sum(n for c, n in eng.chunk_rows.items() if 8 < c <= 64)
+        expect = {**{n + "_ring": NL * (eng.decode_steps + ring + steps) for n in FUSED},
+                  **{n: NL * (st.get("rounds", 0) + rpw) for n in FUSED}}
+        wrong = {n: c for n, c in counts.items() if c != expect.get(n, 0)}
+        log(f"phase 9 spec, {name} launches: {json.dumps({n: c for n, c in counts.items() if c})}")
+        if (wrong and dev.type == "cuda") or not st.get("rounds"):
+            raise AssertionError(f"phase 9 spec {name} launches {wrong} (expected {expect})")
+        for k, c in counts.items():
+            launches[k] += c
+        # one dispatch of SPEC_ROUNDS rounds with every slot live, traced
+        busy = [eng.submit(Request(input_ids=ids, max_new_tokens=200))
+                for _ in range(ENGINE_SLOTS)]
+        eng.tick()                                   # admissions
+        eng.tick()                                   # a first dispatch
+        path = out / f"profile_spec_{'random' if not draft_fused else 'self'}.json"
+        walls, rounds = [], []
+
+        def one_tick():
+            r0, t0 = eng.spec_stats["rounds"], time.perf_counter()
+            eng.tick()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rounds.append(eng.spec_stats["rounds"] - r0)
+        if profiled(one_tick, path):
+            R = rounds[-1]
+            parts, kern = trace_ranges(path, ("spec_draft", "spec_verify", "spec_ingest"))
+            b_ms, b_n, _ = trace_device(path)
+            rpw_ms = sum(ms for k, ms in kern["spec_verify"].items()
+                         if k in ("rms_norm_kernel", "qkv_kernel", "resid_kernel",
+                                  "gate_up_kernel"))
+            log(f"phase 9 spec tick, {name}, {ENGINE_SLOTS} live slots, {R} rounds: host wall "
+                f"{walls[-1]:.2f} ms, device busy {b_ms:.2f} ms (idle share "
+                f"{1 - b_ms / walls[-1]:.3f}), {b_n} launches; a round on the device: "
+                f"{b_ms / R:.2f} ms, draft steps {parts['spec_draft'][0] / R:.3f} "
+                f"({parts['spec_draft'][1] // R} launches), verify chunk "
+                f"{parts['spec_verify'][0] / R:.3f} of which K1-K3 row per warp "
+                f"{rpw_ms / R:.3f}, ingest {parts['spec_ingest'][0] / R:.3f}, the rest "
+                f"{parts[None][0] / R:.3f}; {ENGINE_SLOTS * (st.get('accepted', 0) + st.get('slot_rounds', 0)) / max(st.get('slot_rounds', 1), 1) / (walls[-1] / R) * 1e3:.1f} "
+                f"tok/s at this acceptance")
+            top = "; ".join(f"{k} {ms:.2f}" for k, ms in sorted(
+                kern["spec_verify"].items(), key=lambda kv: -kv[1])[:4])
+            log(f"phase 9 spec verify chunk, {name}, largest kernels over {R} rounds (ms): {top}")
+        for r in busy:
+            eng.cancel(r.request_id)
+        eng.tick()
+        del eng
+        torch.cuda.empty_cache()
+
+    # ---- a k = 8 tick with one constrained slot against none ----
+    eng = BatchDecodeEngine(params, cfg, **common)
+    # lowercase and spaces without end (EOS never allowed), so the slot
+    # stays constrained through the traced ticks
+    gid = eng.register_grammar(compile_token_dfa(r"[a-z ]*", vocab))
+    for constrained in (0, 1):
+        busy = [eng.submit(Request(input_ids=ids, max_new_tokens=200,
+                                    grammar_id=gid if i < constrained else None))
+                for i in range(ENGINE_SLOTS)]
+        for _ in range(4):
+            eng.tick()
+        eng._flush_inflight()
+
+        def three_ticks():
+            for _ in range(3):
+                eng.tick()
+            eng._flush_inflight()
+        path = out / f"profile_grammar_tick_{constrained}.json"
+        if profiled(three_ticks, path):
+            b_ms, b_n, _ = trace_device(path)
+            log(f"phase 9 k = 8 tick, {ENGINE_SLOTS} slots, {constrained} constrained: device "
+                f"busy {b_ms / 3:.2f} ms, {b_n / 3:.0f} launches a tick")
+        for r in busy:
+            eng.cancel(r.request_id)
+        eng.tick()
+        eng._flush_inflight()
+    del eng, dparams
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_phases(dev, cfg):
     """Phases 2 and 3 on the int8 serving model, phase 7's int8 part and
-    phase 8; returns the launch counts of the counted windows (3 generate
-    requests and 1 stream request; phase 7's first runs; phase 8's float
-    engine run)."""
+    phases 8 and 9; returns the launch counts of the counted windows (3
+    generate requests and 1 stream request; phase 7's first runs; phase 8's
+    float engine run; phase 9's HTTP requests and speculating requests)."""
     from slime_tpu_torch.models import projector, sampler, vit
 
     t0 = time.perf_counter()
@@ -2021,6 +2560,8 @@ def serve_phases(dev, cfg):
     for n, c in got.items():
         launches[n] += c
     for n, c in engine_phase(dev, cfg, params).items():          # phase 8
+        launches[n] += c
+    for n, c in serving_stack_phase(dev, cfg, params).items():   # phase 9
         launches[n] += c
     del params
     return launches

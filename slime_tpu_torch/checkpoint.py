@@ -1,10 +1,17 @@
-"""Checkpoints: the quantized load's quantization step, and the export side.
+"""Checkpoints: loading, the quantized load's quantization step, and export.
 
-- ``quantize_loaded`` is the quantization step of the JAX package's
-  ``load_pretrained`` (``slime_tpu/checkpoint.py:368-393``): the CLI's
-  ``--load-4bit/--load-8bit --int4-scheme``, ``--quantize-lm-head`` and
-  ``--quantize-vision`` applied to fp parameters. Loading checkpoint files
-  is not ported yet (ROADMAP, Queue 1 step 7).
+- ``load_pretrained`` is the JAX package's loader (``slime_tpu/checkpoint.py:
+  21-394``, numpy only): HF/torch state dicts (safetensors or .bin, sharded
+  or not) onto our parameter trees in three of the reference's four load
+  modes (llava/model/builder.py:26-173): a full checkpoint, a base model
+  plus the staged pretraining's ``mm_projector.bin`` / ``sampler.bin``, and
+  a plain LM. The LoRA mode raises (ROADMAP Queue 1 item 6). It returns
+  CPU tensors with list layers; ``to_torch`` casts and moves them and
+  ``load_for_serving`` also stacks the layers, as the serving entry points
+  need them.
+- ``quantize_loaded`` is its quantization step (``checkpoint.py:368-393``):
+  the CLI's ``--load-4bit/--load-8bit --int4-scheme``,
+  ``--quantize-lm-head`` and ``--quantize-vision`` applied to fp parameters.
 - ``export_*`` and ``save_checkpoint`` are the port's copies of
   ``checkpoint.py:416-583``: our parameter trees -> the reference's flat
   state dicts and files (``config.json`` + ``model.safetensors`` or
@@ -15,18 +22,341 @@
 """
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
-from .config import LLMConfig, SliMEConfig
+from .config import LLMConfig, SliMEConfig, VisionConfig
 from .models import llama, vit
-from .ops.quantization import quantize_params
+from .models.layers import resolve_device
+from .ops.quantization import is_quantized, quantize_params
 
 Tensors = Dict[str, torch.Tensor]
+_LORA_TODO = ("loading a LoRA checkpoint (adapter factors merged into a base model) is not "
+              "ported yet: it needs LoRA itself (ROADMAP Queue 1 item 6)")
+
+
+def _np(x) -> np.ndarray:
+    """torch tensor / array-like -> float32 numpy (bf16-safe)."""
+    if hasattr(x, "detach"):
+        x = x.detach()
+        if str(x.dtype) in ("torch.bfloat16", "torch.float16"):
+            x = x.float()
+        x = x.cpu().numpy()
+    return np.asarray(x)
+
+
+def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
+    """Load a .safetensors or torch .bin file into numpy arrays."""
+    if path.endswith(".safetensors"):
+        from safetensors import safe_open
+        out = {}
+        with safe_open(path, framework="np") as f:
+            for k in f.keys():
+                try:
+                    out[k] = f.get_tensor(k)
+                except Exception:
+                    # bf16 tensors can't map to numpy directly; go through torch
+                    from safetensors.torch import load_file
+                    return {k: _np(v) for k, v in load_file(path).items()}
+        return out
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: _np(v) for k, v in sd.items()}
+
+
+def load_sharded_state_dict(model_dir: str) -> Dict[str, np.ndarray]:
+    """Load all weight shards in an HF model directory."""
+    index_files = [f for f in os.listdir(model_dir)
+                   if f.endswith(".index.json")]
+    files: Iterable[str]
+    if index_files:
+        with open(os.path.join(model_dir, index_files[0])) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        files = sorted(f for f in os.listdir(model_dir)
+                       if f.endswith((".safetensors", ".bin"))
+                       and not f.startswith("training_args"))
+    sd: Dict[str, np.ndarray] = {}
+    for fn in files:
+        sd.update(load_state_dict_file(os.path.join(model_dir, fn)))
+    return sd
+
+
+def _strip(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _normalize_peft_prefixes(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Strip PEFT wrapper prefixes the reference strips at load
+    (builder.py:69-75): 'base_model.' first, then one redundant leading 'model.'
+    when keys start 'model.model.' (named_parameters of a PEFT-wrapped model)."""
+    sd = {(k[len("base_model."):] if k.startswith("base_model.") else k): v
+          for k, v in sd.items()}
+    if any(k.startswith("model.model.") for k in sd):
+        sd = {(k[len("model."):] if k.startswith("model.") else k): v
+              for k, v in sd.items()}
+    return sd
+
+
+# ----------------------------------------------------------------------------------
+# Per-module converters: torch key set -> our pytree layout.
+# ----------------------------------------------------------------------------------
+
+def _lin(sd, key, bias=True):
+    pre = f"{key}." if key else ""
+    p = {"weight": sd[f"{pre}weight"]}
+    if bias and f"{pre}bias" in sd:
+        p["bias"] = sd[f"{pre}bias"]
+    return p
+
+
+def _ln(sd, key):
+    return {"weight": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+
+
+def _mha(sd, key):
+    return {"in_proj_weight": sd[f"{key}.in_proj_weight"],
+            "in_proj_bias": sd[f"{key}.in_proj_bias"],
+            "out_proj": _lin(sd, f"{key}.out_proj")}
+
+
+def convert_resampler(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict:
+    """Resampler state dict (sampler.py:91-173) -> resampler.init() layout."""
+    sd = _strip(sd, prefix) if prefix else sd
+    p = {
+        "pos_embed": sd["pos_embed"].astype(np.float32),
+        "query": sd["query"],
+        "attn": _mha(sd, "attn"),
+        "ln_q": _ln(sd, "ln_q"),
+        "ln_kv": _ln(sd, "ln_kv"),
+        "ln_post": _ln(sd, "ln_post"),
+    }
+    if "kv_proj.weight" in sd:
+        p["kv_proj"] = _lin(sd, "kv_proj", bias=False)
+    if "proj.weight" in sd:
+        p["proj"] = _lin(sd, "proj")
+    if "self_attn.in_proj_weight" in sd:
+        p["self_attn"] = _mha(sd, "self_attn")
+    return p
+
+
+def convert_projector(sd: Dict[str, np.ndarray], cfg: SliMEConfig,
+                      prefix: str = "") -> Dict:
+    """mm_projector state dict -> projector.init() layout.
+
+    Gated keys (builder.py:38-74): projection.{0,2}.{weight,bias}, attn.*, w_gate, w_noise.
+    """
+    sd = _strip(sd, prefix) if prefix else sd
+    t = cfg.mm_projector_type
+    if t == "linear":
+        return {"proj": _lin(sd, "0") if "0.weight" in sd else _lin(sd, "")}
+    m = re.match(r"^mlp(\d+)x_gelu$", t)
+    if m:
+        depth = int(m.group(1))
+        return {"mlp": {"layers": [_lin(sd, str(2 * i)) for i in range(depth)]}}
+    if t == "qformer":
+        return {"resampler": convert_resampler(sd)}
+    assert t == "gated", t
+    return {
+        "projection": {"layers": [_lin(sd, "projection.0"), _lin(sd, "projection.2")]},
+        "attn": convert_resampler(sd, "attn."),
+        "w_gate": sd["w_gate"].astype(np.float32),
+        "w_noise": sd["w_noise"].astype(np.float32),
+    }
+
+
+def convert_sampler(sd: Dict[str, np.ndarray], cfg: SliMEConfig,
+                    prefix: str = "") -> Dict:
+    """TextGuidedSampler state dict (builder.py:222-281) -> sampler.init() layout."""
+    sd = _strip(sd, prefix) if prefix else sd
+    p: Dict = {"post_qformer": convert_resampler(sd, "post_qformer.")}
+    if cfg.mm_resampler_type == "qformer":
+        sel = _strip(sd, "selector.")
+        p["selector"] = {
+            "query": sel["query"],
+            "self_attn": _mha(sel, "self_attn"),
+            "cross_attn": _mha(sel, "cross_attn"),
+            "ln_q": _ln(sel, "ln_q"),
+            "ln_kv": _ln(sel, "ln_kv"),
+            "ln_post": _ln(sel, "ln_post"),
+            "prob_proj": {"fc1": _lin(sel, "prob_proj.0"),
+                          "fc2": _lin(sel, "prob_proj.2")},
+        }
+    return p
+
+
+def convert_clip_vision(sd: Dict[str, np.ndarray], cfg: VisionConfig,
+                        prefix: str = "vision_model.") -> Dict:
+    """HF CLIPVisionModel state dict -> vit.init() layout.
+
+    The patch-embed conv [E,3,ph,pw] flattens to the matmul weight [E, 3*ph*pw] in
+    the order matching vit.embed_patches' (c, ph, pw) patch flattening.
+    """
+    sd = _strip(sd, prefix) if prefix else sd
+    E = cfg.hidden_size
+    conv = sd["embeddings.patch_embedding.weight"]  # [E, 3, ph, pw]
+    params = {
+        "class_embedding": sd["embeddings.class_embedding"].reshape(E),
+        "patch_embedding": conv.reshape(E, -1),
+        "position_embedding": sd["embeddings.position_embedding.weight"],
+        "pre_layernorm": _ln(sd, "pre_layrnorm"),  # HF's historical typo
+        "layers": [],
+    }
+    if "post_layernorm.weight" in sd:  # absent from pre-round-2 saves
+        params["post_layernorm"] = _ln(sd, "post_layernorm")
+    for i in range(cfg.num_layers):
+        b = f"encoder.layers.{i}"
+        params["layers"].append({
+            "layer_norm1": _ln(sd, f"{b}.layer_norm1"),
+            "q_proj": _lin(sd, f"{b}.self_attn.q_proj"),
+            "k_proj": _lin(sd, f"{b}.self_attn.k_proj"),
+            "v_proj": _lin(sd, f"{b}.self_attn.v_proj"),
+            "out_proj": _lin(sd, f"{b}.self_attn.out_proj"),
+            "layer_norm2": _ln(sd, f"{b}.layer_norm2"),
+            "fc1": _lin(sd, f"{b}.mlp.fc1"),
+            "fc2": _lin(sd, f"{b}.mlp.fc2"),
+        })
+    return params
+
+
+def convert_llama(sd: Dict[str, np.ndarray], cfg: LLMConfig,
+                  prefix: str = "model.") -> Dict:
+    """HF LlamaForCausalLM state dict -> llama.init() layout."""
+    body = _strip(sd, prefix) if prefix else sd
+    params = {
+        "embed_tokens": body["embed_tokens.weight"],
+        "norm": {"weight": body["norm.weight"]},
+        "layers": [],
+    }
+    for i in range(cfg.num_layers):
+        b = f"layers.{i}"
+        lp = {
+            "input_layernorm": {"weight": body[f"{b}.input_layernorm.weight"]},
+            "q_proj": _lin(body, f"{b}.self_attn.q_proj"),
+            "k_proj": _lin(body, f"{b}.self_attn.k_proj"),
+            "v_proj": _lin(body, f"{b}.self_attn.v_proj"),
+            "o_proj": _lin(body, f"{b}.self_attn.o_proj"),
+            "post_attention_layernorm": {"weight": body[f"{b}.post_attention_layernorm.weight"]},
+        }
+        if cfg.num_experts > 0:
+            lp["gate"] = _lin(body, f"{b}.block_sparse_moe.gate", bias=False)
+            lp["experts"] = {
+                "w1": np.stack([body[f"{b}.block_sparse_moe.experts.{e}.w1.weight"]
+                                for e in range(cfg.num_experts)]),
+                "w2": np.stack([body[f"{b}.block_sparse_moe.experts.{e}.w2.weight"]
+                                for e in range(cfg.num_experts)]),
+                "w3": np.stack([body[f"{b}.block_sparse_moe.experts.{e}.w3.weight"]
+                                for e in range(cfg.num_experts)]),
+            }
+        else:
+            lp["gate_proj"] = _lin(body, f"{b}.mlp.gate_proj")
+            lp["up_proj"] = _lin(body, f"{b}.mlp.up_proj")
+            lp["down_proj"] = _lin(body, f"{b}.mlp.down_proj")
+        params["layers"].append(lp)
+    if "lm_head.weight" in sd:
+        params["lm_head"] = {"weight": sd["lm_head.weight"]}
+    else:  # tied embeddings
+        params["lm_head"] = {"weight": params["embed_tokens"]}
+    return params
+
+
+def load_pretrained(model_path: str, *, model_base: Optional[str] = None,
+                    cfg: Optional[SliMEConfig] = None, vision_path: Optional[str] = None,
+                    load_bits: Optional[int] = None, quantize_lm_head: bool = False,
+                    quantize_vision: bool = False, int4_scheme: str = "default") -> Dict:
+    """A SliME checkpoint directory -> the parameter tree {vision, projector,
+    sampler, llm} as CPU tensors (list layers), the JAX package's
+    ``load_pretrained`` leaf for leaf: a full checkpoint, ``model_base``
+    overlaid by this directory's files (``mm_projector.bin`` /
+    ``sampler.bin`` adapters), or a plain LM. ``load_bits`` 4/8,
+    ``int4_scheme``, ``quantize_lm_head`` and ``quantize_vision`` go through
+    ``quantize_loaded``. A LoRA checkpoint raises NotImplementedError."""
+    if cfg is None:
+        cfg = SliMEConfig.load(model_path)
+    sd = load_sharded_state_dict(model_path)
+    # adapter files next to a base model, each gated on its own key prefixes
+    for extra, prefixes in (
+            ("mm_projector.bin", ("model.mm_projector.",)),
+            ("sampler.bin", ("model.sampler.",)),
+            ("non_lora_trainables.bin", ("model.mm_projector.", "model.sampler."))):
+        fp = os.path.join(model_path, extra)
+        if not os.path.exists(fp):
+            continue
+        if all(any(k.startswith(p) for k in sd) for p in prefixes):
+            continue  # index-less dirs read the .bin files with the shards
+        sd.update(_normalize_peft_prefixes(load_state_dict_file(fp)))
+    if (any(os.path.exists(os.path.join(model_path, f))
+            for f in ("adapter_model.safetensors", "adapter_model.bin"))
+            or any(".lora_A." in k or ".lora_B." in k for k in sd)):
+        raise NotImplementedError(_LORA_TODO)
+    if model_base is not None:
+        base = load_sharded_state_dict(model_base)
+        base.update(sd)
+        sd = base
+
+    params: Dict = {}
+    params["llm"] = convert_llama(
+        {k: v for k, v in sd.items()
+         if not k.startswith(("model.vision_tower", "model.mm_projector", "model.sampler"))},
+        cfg.llm)
+    params["projector"] = convert_projector(_strip(sd, "model.mm_projector."), cfg)
+    if cfg.has_sampler:
+        params["sampler"] = convert_sampler(_strip(sd, "model.sampler."), cfg)
+    vt = _strip(sd, "model.vision_tower.vision_tower.")
+    if vt:
+        params["vision"] = convert_clip_vision(vt, cfg.vision)
+    elif vision_path:
+        params["vision"] = convert_clip_vision(load_sharded_state_dict(vision_path), cfg.vision)
+    return quantize_loaded(_as_tensors(params), cfg, load_bits=load_bits,
+                           int4_scheme=int4_scheme, quantize_lm_head=quantize_lm_head,
+                           quantize_vision=quantize_vision)
+
+
+def _as_tensors(tree):
+    """numpy tree -> CPU tensors sharing nothing with the loaded arrays
+    (a tied lm_head becomes its own copy of the embedding)."""
+    if isinstance(tree, dict):
+        return {k: _as_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_tensors(v) for v in tree)
+    return torch.from_numpy(np.array(tree))
+
+
+def to_torch(params, dtype=None, device=None):
+    """A loaded tree (tensors or numpy arrays) -> tensors on ``device`` (the
+    current CUDA device when None), floating leaves cast to ``dtype``
+    except the fp32 scales of quantized weights (JAX's ``to_jax``)."""
+    device = resolve_device(device)
+
+    def conv(x, keep_fp32=False):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        if dtype is not None and not keep_fp32 and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    def walk(node):
+        if is_quantized(node):
+            return {k: conv(v, keep_fp32=(k == "scale")) for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return conv(node)
+    return walk(params)
+
+
+def load_for_serving(model_path: str, *, device=None, dtype=torch.bfloat16,
+                     cfg: Optional[SliMEConfig] = None, **load_kw) -> Dict:
+    """What the serving entry points load: ``load_pretrained``, then
+    ``to_torch`` (``dtype`` on ``device``) and the LLM layers stacked for
+    ``generate`` and the fused decode."""
+    params = to_torch(load_pretrained(model_path, cfg=cfg, **load_kw), dtype, device)
+    params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
+    return params
 
 
 def quantize_loaded(params: Dict, cfg: SliMEConfig, *, load_bits=None,

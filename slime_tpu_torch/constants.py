@@ -4,6 +4,16 @@ The values mirror the reference constant set (llava/constants.py:7-13) and
 the anyres geometry (llava/process_image.py:11-21), so datasets, checkpoints
 and prompts interoperate with the JAX package unchanged.
 """
+import os as _os
+
+# Serving heartbeat protocol (llava/constants.py:1-2)
+CONTROLLER_HEART_BEAT_EXPIRATION = 30
+WORKER_HEART_BEAT_INTERVAL = 15
+
+# The web UI's conversation-log directory (SLIME_LOGDIR, else under the
+# user's home), as the JAX package's
+LOGDIR = _os.environ.get("SLIME_LOGDIR", _os.path.join(_os.path.expanduser("~"), ".slime_tpu",
+                                                       "logs"))
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200

@@ -39,6 +39,16 @@ def tokenizer_image_token(prompt: str, tokenizer, image_token_index: int = IMAGE
     return input_ids
 
 
+def get_model_name_from_path(model_path: str) -> str:
+    """A checkpoint directory -> the model name the worker registers
+    (``checkpoint-N`` directories keep their parent's name)."""
+    model_path = model_path.strip("/")
+    parts = model_path.split("/")
+    if parts[-1].startswith("checkpoint-"):
+        return parts[-2] + "_" + parts[-1]
+    return parts[-1]
+
+
 class StopStringMatcher:
     """Host-side stop-string detection between decode chunks: the generated
     ids are checked against each keyword's ids, and the decoded tail against

@@ -20,10 +20,28 @@ packs what the host reads into one int32 tensor (logprob floats through
 behind the dispatch and waits on that copy's event alone, so the host
 reads dispatch N while N + 1 runs.
 
-Not ported yet (ROADMAP Queue 1 item 4, in this order): speculative
-decoding (``draft_params``), grammars (``register_grammar``; a request with
-a ``grammar_id`` fails), multi-LoRA (``register_adapter``; a request with a
-non-zero ``adapter_id`` fails), tensor-parallel serving (``mesh``).
+Constrained decoding (``register_grammar``, ``serve/grammar.py``): the
+registered token DFAs live on the device as one combined table pair (state 0
+passes everything), each slot keeps its automaton state there, and a decode
+step masks the logits and advances the states itself; the tables are
+uploaded once per registration, never per step, and a step with no
+constrained slot skips the mask.
+
+Speculative decoding (``draft_params``, ``serve/speculative.py``): in the
+idle regime, when every active slot is greedy or plain temperature/top_p
+without grammar, penalties or logprobs, a tick runs up to ``spec_rounds``
+rounds: ``spec_k`` draft steps of every slot on a batched draft cache that
+mirrors the slots, one verify chunk of ``max_slots * (spec_k + 1)`` rows
+(``llama.prefill_chunk``, K1-K3 on the card), the per-slot accept rule
+(longest matching prefix, or the rejection rule for sampled slots) and a
+rollback that resets ``cache["length"]``. A slot that stops (EOS, budget,
+cache room) is masked for the dispatch's later rounds, which still run: the
+host bounds the rounds by the largest budget and reads every round in one
+pull at the end, so no round waits for a sync.
+
+Not ported yet: multi-LoRA (``register_adapter``; a request with a non-zero
+``adapter_id`` fails; ROADMAP Queue 1 item 6) and tensor-parallel serving
+(``mesh``; item 12).
 """
 from __future__ import annotations
 
@@ -45,11 +63,12 @@ from ..models import llama, slime
 from ..models.layers import fp32_accumulation, resolve_device
 from ..params import named_leaves
 from .prefix_cache import PrefixCache, image_content_digest, image_slot_identities
+from .speculative import rejection_round, warp_probs
 
-_SPEC_TODO = "speculative decoding is not ported yet (ROADMAP Queue 1 item 4)"
-_GRAMMAR_TODO = "grammars are not ported yet (ROADMAP Queue 1 item 4)"
-_LORA_TODO = "multi-LoRA serving is not ported yet (ROADMAP Queue 1 item 4)"
-_MESH_TODO = "tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 4)"
+_LORA_TODO = ("multi-LoRA serving is not ported yet: it needs LoRA itself "
+              "(ROADMAP Queue 1 item 6)")
+_MESH_TODO = ("tensor-parallel serving is not ported yet: it needs parallel/mesh.py "
+              "(ROADMAP Queue 1 item 12)")
 
 
 @dataclass
@@ -66,7 +85,7 @@ class Request:
     presence_penalty: float = 0.0          # OpenAI: over generated tokens
     frequency_penalty: float = 0.0         # OpenAI: over generated tokens
     prefix_id: Optional[str] = None        # shared prefix from register_prefix()
-    grammar_id: Optional[int] = None       # not served yet: the request fails
+    grammar_id: Optional[int] = None       # constraint from register_grammar()
     adapter_id: Optional[int] = None       # not served yet unless 0: fails
     logprobs: int = 0                      # top-N alternatives per token (<=8)
     cancelled: bool = False                # set by engine.cancel() at retire time
@@ -86,12 +105,13 @@ class Request:
 
 
 class _Slot:
-    __slots__ = ("req", "generated", "budget", "t_first")
+    __slots__ = ("req", "generated", "budget", "draft", "t_first")
 
     def __init__(self, req: Request):
         self.req = req
         self.generated: List[int] = []
         self.budget = req.max_new_tokens
+        self.draft = None      # {"len": draft cache position} once speculating
         self.t_first = time.monotonic()   # first token just sampled (TTFT end)
 
 
@@ -132,7 +152,8 @@ def _slice_block(arr, off: int, *, blk: int):
 class BatchDecodeEngine:
     def __init__(self, params, cfg: SliMEConfig, *, max_slots: int = 8,
                  cache_len: int = 2048, compute_dtype=None, seed: int = 0,
-                 draft_params=None, mesh=None,
+                 draft_params=None, draft_cfg: Optional[SliMEConfig] = None,
+                 spec_k: int = 4, spec_rounds: int = 8, mesh=None,
                  kv_quant: bool = False, prefix_cache_mb: int = 512,
                  prefix_block: int = 64, device=None):
         """``device``: where the engine runs, the current CUDA device when
@@ -142,18 +163,22 @@ class BatchDecodeEngine:
         (``serve/prefix_cache.py``), 0 disables it; prompts sharing a
         ``prefix_block``-granular prefix with an earlier prompt (multimodal
         ones through their fused identity streams) skip recomputing it.
-        ``draft_params`` / ``mesh`` raise: not ported yet."""
-        if draft_params is not None:
-            raise NotImplementedError(_SPEC_TODO)
+        ``draft_params`` / ``draft_cfg``: a text-only draft model of the same
+        vocabulary for speculative rounds (``spec_k`` proposals a round, up
+        to ``spec_rounds`` rounds a dispatch); it may be ``params`` itself.
+        ``mesh`` raises: not ported yet."""
         if mesh is not None:
             raise NotImplementedError(_MESH_TODO)
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params needs its draft_cfg")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        off = [n for n, t in named_leaves(params) if t.device != dev]
-        if off:
-            raise ValueError(f"BatchDecodeEngine on {dev}: {len(off)} parameters are "
-                             f"elsewhere (first: {off[0]})")
+        for what, tree in (("parameters", params), ("draft parameters", draft_params)):
+            off = [n for n, t in named_leaves(tree or {}) if t.device != dev]
+            if off:
+                raise ValueError(f"BatchDecodeEngine on {dev}: {len(off)} {what} are "
+                                 f"elsewhere (first: {off[0]})")
         self.device = dev
         self.params = params
         self.cfg = cfg
@@ -168,6 +193,12 @@ class BatchDecodeEngine:
                                          quantized=kv_quant)
         self.cur_tokens = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._vocab_size = cfg.llm.vocab_size
+        # constrained decoding: registered TokenDFAs, their offsets in the
+        # combined tables, and each slot's automaton state on the device
+        self.grammars = []
+        self._g_offsets: List[int] = []
+        self._rebuild_grammar_tables()
+        self.gram_state = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         # penalty state: per-slot prompt presence (set at admission) and
         # generated-token counts (advanced in-graph); rows of penalty-free
         # slots are never read, so they go stale for free
@@ -200,6 +231,17 @@ class BatchDecodeEngine:
         # work counters: decode steps dispatched, chunks run by padded length
         self.decode_steps = 0
         self.chunk_rows: Counter = Counter()
+        # speculation: the draft, its batched cache mirroring the slots, and
+        # counters (rounds dispatched; slot-rounds read and proposals they
+        # accepted; draft prefills)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = spec_k
+        self.spec_rounds = max(1, spec_rounds)
+        self.spec_stats = Counter()
+        if draft_params is not None:
+            self.d_cache = llama.init_kv_cache(draft_cfg.llm, max_slots, cache_len,
+                                               dtype=self.compute_dtype, device=dev)
 
     # ------------------------------------------------------------------
     # step functions (JAX's jitted closures)
@@ -256,14 +298,24 @@ class BatchDecodeEngine:
         bits = lambda a: a.to(torch.float32).contiguous().view(torch.int32)  # noqa: E731
         return [top_i.reshape(-1).to(torch.int32), bits(top_v).reshape(-1), bits(samp)]
 
-    def _decode(self, tokens, meta, active, window, use_filters, use_penalties, n_lp):
-        """One decode step of every slot -> (next tokens [B], logprob extras)."""
+    def _decode(self, tokens, meta, active, window, use_filters, use_penalties, n_lp,
+                use_grammar=False):
+        """One decode step of every slot -> (next tokens [B], logprob extras).
+        ``use_grammar``: mask each row to its automaton state's allowed
+        tokens before the penalties and the sampler, then advance the states
+        of the active rows."""
         logits, self.cache = llama.decode_step(
             self.params["llm"], self.cache, tokens, self.cfg.llm,
             compute_dtype=self.compute_dtype, window=window)
+        if use_grammar:
+            gs = self.gram_state.long()
+            logits = logits.masked_fill(~self._g_allowed[gs], float("-inf"))
         if use_penalties:
             logits = self._penalize(logits, meta)
         nxt = self._sample(logits, meta, use_filters)
+        if use_grammar:
+            self.gram_state = torch.where(active, self._g_nxt[gs, nxt.long()],
+                                          self.gram_state)
         if use_penalties:
             self.gen_counts.scatter_add_(1, nxt[:, None].long(),
                                          active.to(torch.int32)[:, None])
@@ -276,7 +328,8 @@ class BatchDecodeEngine:
         self.cache["length"] = torch.where(active, self.cache["length"], 0)
         return self.cache["length"]
 
-    def _step_k(self, meta, k: int, window, use_filters, use_penalties, n_lp):
+    def _step_k(self, meta, k: int, window, use_filters, use_penalties, n_lp,
+                use_grammar=False):
         """k decode steps in one dispatch (JAX's ``_step`` is k = 1, its
         ``_step_k`` k > 1) -> packed int32 [tokens (B, k), lengths (B)] and,
         with logprobs, [ids (B, k, n_lp), values (B, k, n_lp), sampled (B,
@@ -292,7 +345,7 @@ class BatchDecodeEngine:
         tok = self.cur_tokens
         for i in range(k):
             tok, ex = self._decode(tok, meta, active, window, use_filters, use_penalties,
-                                   n_lp)
+                                   n_lp, use_grammar)
             out[:, i] = tok
             for a, e in zip(lps, ex):
                 a[:, i] = e.reshape(a[:, i].shape)
@@ -320,8 +373,162 @@ class BatchDecodeEngine:
         return t
 
     # ------------------------------------------------------------------
+    # speculation (JAX's _one_round / _spec_rounds closures)
+    def _draft_prefill(self, ids: np.ndarray):
+        """Draft KV [L, S, KVH, hd] of a token context (no logits kept)."""
+        dl = self.draft_cfg.llm
+        t = torch.from_numpy(ids.astype(np.int64)).to(self.device)[None]
+        embeds = llama.embed(self.draft_params["llm"], t).to(self.compute_dtype)
+        _, kvs = llama.forward(self.draft_params["llm"], embeds, dl, return_kv=True,
+                               compute_dtype=self.compute_dtype,
+                               logit_positions=torch.full((1,), t.shape[1] - 1,
+                                                          device=self.device))
+        return torch.stack([kv[0][0] for kv in kvs]), torch.stack([kv[1][0] for kv in kvs])
+
+    def _d_insert(self, k, v, slot: int, length: int) -> None:
+        self.d_cache = _insert(self.d_cache, k, v, slot, length)
+
+    def _draft_steps(self, cur, d_len, alive, window, temps=None, tps=None,
+                     use_sampling=False):
+        """K draft steps of every slot from its token ``cur`` at its draft
+        position ``d_len`` (0 for rows not alive) -> (proposals [B, K],
+        their warped draft probs [B, K, V] when sampling, else None)."""
+        K, dl, dp = self.spec_k, self.draft_cfg.llm, self.draft_params["llm"]
+        self.d_cache["length"] = torch.where(alive, d_len, 0).to(torch.int32)
+        props, qrows = [], []
+        tok = cur
+        for _ in range(K):
+            lg, self.d_cache = llama.decode_step(dp, self.d_cache, tok, dl,
+                                                 compute_dtype=self.compute_dtype,
+                                                 window=window)
+            if use_sampling:
+                q = warp_probs(lg, temps, tps)
+                tok = categorical(torch.log(q + 1e-30), self.generator)
+                qrows.append(q)
+            else:
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            props.append(tok)
+        return torch.stack(props, dim=1), (torch.stack(qrows, dim=1) if qrows else None)
+
+    def _verify(self, cur, props, window):
+        """The verify chunk: every slot's [cur, proposals] as one (K + 1)-wide
+        ``prefill_chunk`` of B * (K + 1) rows -> logits [B, K + 1, V]; the
+        cache lengths advance by K + 1 (the caller rolls them back)."""
+        tp = self.params["llm"]
+        embeds = llama.embed(tp, torch.cat([cur[:, None], props], dim=1)).to(self.compute_dtype)
+        logits, self.cache = llama.prefill_chunk(tp, self.cache, embeds, self.cfg.llm,
+                                                 compute_dtype=self.compute_dtype,
+                                                 window=window)
+        return logits
+
+    def _ingest(self, tokens, window) -> None:
+        """One draft step that only writes the KV of ``tokens`` [B]."""
+        _, self.d_cache = llama.decode_step(self.draft_params["llm"], self.d_cache, tokens,
+                                            self.draft_cfg.llm,
+                                            compute_dtype=self.compute_dtype, window=window)
+
+    def _one_round(self, cur, d_len, alive, window, temps=None, tps=None,
+                   use_sampling=False):
+        """One batched draft-K / verify / rollback round over every slot ->
+        (cur', d_len', targets [B, K+1], acc [B]). Per live slot,
+        targets[b, :acc[b] + 1] are the target's greedy tokens (or, with
+        ``use_sampling``, the accepted proposals and the rejection-resampled
+        or bonus token). Rows not alive compute at position 0 of their own
+        cache rows (their slot retires after the dispatch) and keep their
+        lengths and tokens."""
+        K = self.spec_k
+        old_len = self.cache["length"]
+        props, qrows = self._draft_steps(cur, d_len, alive, window, temps, tps, use_sampling)
+        self.cache["length"] = torch.where(alive, old_len, 0)
+        logits = self._verify(cur, props, window)
+        if use_sampling:
+            targets, acc = rejection_round(self.generator, props, qrows,
+                                           warp_probs(logits, temps, tps))
+        else:
+            targets = torch.argmax(logits, dim=-1).to(torch.int32)
+            miss = props != targets[:, :K]
+            acc = torch.where(miss.any(dim=1), miss.to(torch.int32).argmax(dim=1),
+                              K).to(torch.int32)
+        n_emit = torch.where(alive, acc + 1, 0).to(torch.int32)
+        # rollback: the verified prefix per slot; rows not alive keep theirs
+        self.cache["length"] = (old_len + n_emit).to(torch.int32)
+        # the draft ingests props[:, K-1], so a fully accepted round leaves a
+        # complete draft cache; the next round's d_len rolls it back
+        self._ingest(props[:, K - 1], window)
+        rows = torch.arange(cur.shape[0], device=cur.device)
+        new_cur = torch.where(alive, targets[rows, acc.long()], cur)
+        return new_cur, d_len + n_emit, targets, acc
+
+    def _spec_rounds(self, meta, rounds: int, window, sknobs=None, use_sampling=False):
+        """``rounds`` batched rounds (``spec_rounds`` at most) in one
+        dispatch. ``meta`` int32 [3B] = [d_len, budget, spec mask]. Returns
+        packed int32 [lengths (B), accs (R, B), toks (R, B, K+1)]: for slot
+        b and round r with accs[r, b] >= 0, toks[r, b, :accs[r, b] + 1] are
+        the round's tokens; a slot stops on EOS, its budget or the cache
+        room, and its later rounds read -1."""
+        B, K, R = self.max_slots, self.spec_k, self.spec_rounds
+        eos = self.cfg.eos_token_id
+        cap = self.cache_len - K - 2
+        d_len, budget, alive = meta[:B], meta[B:2 * B], meta[2 * B:] > 0
+        temps = sknobs[:B] if use_sampling else None
+        tps = sknobs[B:] if use_sampling else None
+        emitted = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        accs = torch.full((R, B), -1, dtype=torch.int32, device=self.device)
+        toks = torch.zeros((R, B, K + 1), dtype=torch.int32, device=self.device)
+        pos = torch.arange(K + 1, device=self.device)[None]
+        cur = self.cur_tokens
+        for r in range(rounds):
+            cur, d_len, targets, acc = self._one_round(cur, d_len, alive, window, temps,
+                                                       tps, use_sampling)
+            accs[r] = torch.where(alive, acc, -1)
+            toks[r] = targets
+            has_eos = ((pos <= acc[:, None]) & (targets == eos)).any(dim=1)
+            emitted = emitted + torch.where(alive, acc + 1, 0)
+            alive = alive & ~has_eos & (emitted < budget) & (self.cache["length"] < cap)
+        self.cur_tokens = cur
+        return torch.cat([self.cache["length"], accs.reshape(-1), toks.reshape(-1)])
+
+    # ------------------------------------------------------------------
     def register_grammar(self, token_dfa) -> int:
-        raise NotImplementedError(_GRAMMAR_TODO)
+        """Register a compiled grammar (``serve/grammar.TokenDFA`` over this
+        model's vocabulary) for requests' ``grammar_id``. The combined
+        device tables are rebuilt and uploaded here, once per registration.
+        Registration only appends, so existing grammars keep their state
+        offsets while the engine thread runs."""
+        if token_dfa.allowed.shape[1] != self._vocab_size:
+            raise ValueError(f"grammar over {token_dfa.allowed.shape[1]} tokens, the model "
+                             f"has {self._vocab_size}")
+        self.grammars.append(token_dfa)
+        self._rebuild_grammar_tables()
+        return len(self.grammars) - 1
+
+    def _rebuild_grammar_tables(self) -> None:
+        """The combined tables: state 0 passes everything; a state that
+        allows nothing forces EOS (the slot ends instead of wedging); EOS
+        leads back to state 0."""
+        V = self._vocab_size
+        eos = self.cfg.eos_token_id
+        rows_a = [np.ones((1, V), bool)]
+        rows_n = [np.zeros((1, V), np.int32)]
+        offsets = []
+        off = 1
+        for td in self.grammars:
+            a = td.allowed.copy()
+            stuck = ~a.any(axis=1)
+            if stuck.any() and 0 <= eos < V:
+                a[stuck, eos] = True
+            x = (td.nxt + off).astype(np.int32)
+            if 0 <= eos < V:
+                x[:, eos] = 0
+            offsets.append(off)
+            rows_a.append(a)
+            rows_n.append(x)
+            off += a.shape[0]
+        self._g_allowed_h = np.concatenate(rows_a)
+        self._g_nxt_h = np.concatenate(rows_n)
+        self._g_allowed = torch.from_numpy(self._g_allowed_h).to(self.device)
+        self._g_nxt = torch.from_numpy(self._g_nxt_h).to(self.device)
+        self._g_offsets = offsets
 
     def register_adapter(self, lora_state: dict) -> int:
         raise NotImplementedError(_LORA_TODO)
@@ -452,9 +659,12 @@ class BatchDecodeEngine:
             if req.prefix_id is not None and req.prefix_id not in self.prefixes:
                 req.out_queue.put(None)    # fail this request, not the engine thread
                 return False
-            if req.grammar_id is not None or req.adapter_id:
-                # no grammar or adapter can be registered yet: an unknown id,
-                # which JAX fails the same way
+            if req.grammar_id is not None and not 0 <= req.grammar_id < len(self.grammars):
+                req.out_queue.put(None)    # an unknown grammar fails the request
+                return False
+            if req.adapter_id:
+                # no adapter can be registered yet: an unknown id, which JAX
+                # fails the same way
                 req.out_queue.put(None)
                 return False
             embeds, length, ident = self._embed_request(req)
@@ -553,6 +763,9 @@ class BatchDecodeEngine:
         self.cache = _insert(self.cache, k[:, :length], v[:, :length], slot_idx, length)
         self._host_len[slot_idx] = length
         self.cur_tokens[slot_idx] = first
+        gid = req.grammar_id
+        self.gram_state[slot_idx] = (0 if gid is None
+                                     else int(self._g_nxt_h[self._g_offsets[gid], first]))
         self._seed_penalty_rows(req, slot_idx, first)
         slot = _Slot(req)
         slot.generated.append(first)
@@ -622,8 +835,12 @@ class BatchDecodeEngine:
 
     def _first_token(self, req: Request, logits_row: np.ndarray) -> int:
         """Sample the prefill's next token on the host with numpy, in float64,
-        with the decode step's chain: penalties (prompt-only at this point),
-        temperature, top_k, top_p, min_p; logprob entries when asked."""
+        with the decode step's chain: grammar mask, penalties (prompt-only at
+        this point), temperature, top_k, top_p, min_p; logprob entries when
+        asked."""
+        if req.grammar_id is not None:
+            logits_row = np.where(self._g_allowed_h[self._g_offsets[req.grammar_id]],
+                                  logits_row, -np.inf)
         if req.repetition_penalty != 1.0:
             present = self._prompt_presence(req)
             rep = req.repetition_penalty
@@ -729,8 +946,23 @@ class BatchDecodeEngine:
         use_penalties = bool(any(knobs[5, i] != 1.0 or knobs[6, i] != 0.0
                                  or knobs[7, i] != 0.0 for i in active))
         n_lp = min(8, max((self.slots[i].req.logprobs for i in active), default=0))
+        use_grammar = any(self.slots[i].req.grammar_id is not None for i in active)
 
         idle = self._admission is None and self.pending.empty()
+        if (self.draft_params is not None and idle and not use_penalties and n_lp == 0
+                and not use_grammar
+                and all((self.slots[i].req.temperature == 0.0
+                         or (self.slots[i].req.top_k == 0 and self.slots[i].req.min_p == 0.0))
+                        and self.slots[i].budget > 1
+                        and int(self._host_len[i]) + self.spec_k + 2 <= self.cache_len
+                        for i in active)):
+            if self._inflight is not None:
+                # spec emits must not reorder with a plain dispatch's: read
+                # it, and gate again on the slots it leaves
+                self._flush_inflight()
+                return sum(s is not None for s in self.slots)
+            if self._spec_tick(active):
+                return sum(s is not None for s in self.slots)
         # tokens already dispatched but not yet pulled (overlapped mode)
         k_prev = self._inflight[1] if self._inflight is not None else 0
         min_budget = min(self.slots[i].budget for i in active)
@@ -743,7 +975,8 @@ class BatchDecodeEngine:
         # through this dispatch; _host_len can be k_prev tokens stale
         need = top + k + 1
         window = min(self.cache_len, -(-need // 256) * 256)
-        packed = self._step_k(meta, k, window, use_filters, use_penalties, n_lp)
+        packed = self._step_k(meta, k, window, use_filters, use_penalties, n_lp,
+                              use_grammar)
         self.decode_steps += k
         handle = self._pull(packed)
 
@@ -818,10 +1051,96 @@ class BatchDecodeEngine:
                                             lp_vals[i, j, :n].tolist()))})
                 s.generated.extend(emit)
                 s.req.out_queue.put(emit)
+                # plain tokens bypassed the draft cache: reseed it before the
+                # next speculative tick
+                s.draft = None
             if s.budget <= 0 or int(lengths[i]) >= self.cache_len - 1:
                 self._retire(i)
                 retired = True
         return retired
+
+    def _spec_tick(self, active: List[int]) -> bool:
+        """Speculative rounds for every active slot in one dispatch and one
+        pull. Returns False (the caller takes the plain step) when a draft
+        cannot be seeded for lack of cache room.
+
+        The draft is text-only: a multimodal request's draft context holds
+        pad (id 0) in place of the image sentinel, which costs acceptance,
+        never exactness (the verify chunk corrects every rejected draft)."""
+        eos = self.cfg.eos_token_id
+        R, K, B = self.spec_rounds, self.spec_k, self.max_slots
+        for i in active:                     # seed missing or invalidated drafts
+            s = self.slots[i]
+            if s.draft is None:
+                ids = np.asarray(s.req.input_ids).copy()
+                ids[ids < 0] = 0
+                ctx = np.concatenate([ids, np.asarray(s.generated[:-1], ids.dtype)])
+                if ctx.size == 0 or ctx.size + s.budget + K + 2 >= self.cache_len:
+                    return False
+                k, v = self._draft_prefill(ctx)
+                self._d_insert(k, v, i, int(ctx.size))
+                self.spec_stats["draft_prefills"] += 1
+                s.draft = {"len": int(ctx.size)}
+        meta = np.zeros((3, B), np.int32)
+        sknobs = np.zeros((2, B), np.float32)
+        sknobs[1] = 1.0
+        for i in active:
+            s = self.slots[i]
+            meta[:, i] = (s.draft["len"], s.budget, 1)
+            sknobs[:, i] = (s.req.temperature, s.req.top_p)
+        use_sampling = bool((sknobs[0] > 0).any())
+        # every live slot emits at least one token a round: no slot outlives
+        # the largest budget's rounds
+        rounds = min(R, max(self.slots[i].budget for i in active))
+        # the window covers every target slot and draft through all rounds
+        need = max(max(int(self._host_len[i]), int(meta[0, i])) for i in active) \
+            + rounds * (K + 1) + 2
+        window = min(self.cache_len, -(-need // 256) * 256)
+        packed = self._spec_rounds(self._upload(meta.reshape(-1)), rounds, window,
+                                   self._upload(sknobs.reshape(-1)), use_sampling)
+        self.spec_stats["dispatches"] += 1
+        self.spec_stats["rounds"] += rounds
+        host, event = self._pull(packed)
+        if event is not None:
+            event.synchronize()
+        packed = host.numpy()
+        lengths = packed[:B]
+        accs = packed[B:B + R * B].reshape(R, B)
+        toks = packed[B + R * B:].reshape(R, B, K + 1)
+        for i in active:
+            s = self.slots[i]
+            self._host_len[i] = int(lengths[i])
+            emit = []
+            cut = False                      # EOS or the budget landed mid-round
+            for r in range(R):
+                acc = int(accs[r, i])
+                if acc < 0:                  # the slot had stopped
+                    break
+                self.spec_stats["slot_rounds"] += 1
+                self.spec_stats["accepted"] += acc
+                e_r = 0
+                for t in toks[r, i, :acc + 1].tolist():
+                    if t == eos:
+                        s.budget = 0
+                        break
+                    emit.append(int(t))
+                    s.budget -= 1
+                    e_r += 1
+                    if s.budget <= 0:
+                        break
+                s.draft["len"] += e_r
+                if e_r < acc + 1:
+                    cut = True
+                if cut or s.budget <= 0:
+                    break
+            if cut:
+                s.budget = 0      # the slot retires now; the advance past the cut is moot
+            if emit:
+                s.generated.extend(emit)
+                s.req.out_queue.put(emit)
+            if s.budget <= 0 or int(lengths[i]) >= self.cache_len - K - 2:
+                self._retire(i)
+        return True
 
     # ------------------------------------------------------------------
     def run_forever(self, idle_sleep: float = 0.005) -> None:

@@ -13,6 +13,11 @@ originals.
 - ``checkpoint.save_checkpoint``: the files of an adapters-only save and of a
   full save are byte for byte the JAX package's; ``state_ckpt``'s resume
   discovery and the ``PreemptionGuard``.
+- The serving modules the port copies (``serve/grammar``, ``protocol``,
+  ``controller``, ``openai_api``, ``tools``, ``gradio_web_server``,
+  ``conversation``): the originals' code statement for statement, the
+  grammar's tables byte for byte, the serving constants. The checkpoint
+  loader is held leaf for leaf in ``test_torch_checkpoint_load.py``.
 
 Tolerance: none; every compared value and file is equal.
 """
@@ -293,3 +298,76 @@ def test_prefix_cache_copy_matches():
                         sorted(pc.entries), pc.stats()))
         assert got[0] == got[1], step
     assert caches[0].stats()["evicted_blocks"] > 0
+
+
+OWN_COPIES = ["serve/grammar.py", "serve/protocol.py", "serve/controller.py",
+              "serve/openai_api.py", "serve/tools.py", "serve/gradio_web_server.py",
+              "conversation.py"]
+
+
+def _code_dump(path, renames=()):
+    """The module's AST without docstrings, with ``renames`` applied to its
+    string constants: what the code does, its docstrings aside."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            for a, b in renames:
+                node.value = node.value.replace(a, b)
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", OWN_COPIES)
+def test_own_copies_are_the_originals_code(rel):
+    """The port's own copies of the JAX package's jax-free serving modules
+    are its code statement for statement (docstrings aside; the web UI's
+    text names the port's modules)."""
+    renames = (("slime_tpu.serve.", "slime_tpu_torch.serve."),)
+    assert (_code_dump(os.path.join(REPO, "slime_tpu_torch", rel))
+            == _code_dump(os.path.join(REPO, "slime_tpu", rel), renames)), rel
+
+
+def test_grammar_copy_compiles_the_same_tables():
+    """``serve/grammar.py``: byte-equal byte DFAs and token tables over
+    ``tests/test_grammar.py``'s patterns, a JSON schema and a choices
+    grammar, on a vocabulary of single bytes, multi-byte pieces and an
+    empty token."""
+    from slime_tpu.serve import grammar as jg
+    from slime_tpu_torch.serve import grammar as tg
+
+    from .test_grammar import PATTERNS
+
+    schema = {"type": "object", "properties": {
+        "name": {"type": "string"}, "n": {"type": "integer"},
+        "tags": {"type": "array", "items": {"enum": ["a", "b"]}, "maxItems": 2}}}
+    pats = PATTERNS + [tg.json_schema_regex(schema), tg.choices_regex(["yes", "no", "a.b"]),
+                       tg.json_object_regex(3)]
+    assert tg.json_schema_regex(schema) == jg.json_schema_regex(schema)
+    assert tg.json_object_regex(3) == jg.json_object_regex(3)
+    vocab = ([b"</s>", b""] + [bytes([c]) for c in b'abcdefxyz.@ 0123456789_{}":,[]-']
+             + [b"ab", b"cd", b"12", b"foo", b"ba", b'":', b"\xc3\xa9"])
+    for pat in pats:
+        t, j = tg.compile_regex(pat), jg.compile_regex(pat)
+        np.testing.assert_array_equal(t.trans, j.trans)
+        np.testing.assert_array_equal(t.accept, j.accept)
+        t, j = tg.compile_token_dfa(pat, vocab, eos_id=0), jg.compile_token_dfa(pat, vocab,
+                                                                                 eos_id=0)
+        for name in ("allowed", "nxt", "accept"):
+            a, b = getattr(t, name), getattr(j, name)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (pat, name)
+
+
+def test_serving_constants_match():
+    from slime_tpu import constants as jc
+    from slime_tpu_torch import constants as tc
+    for name in ("CONTROLLER_HEART_BEAT_EXPIRATION", "WORKER_HEART_BEAT_INTERVAL", "LOGDIR",
+                 "DEFAULT_IMAGE_TOKEN"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    for path in ("a/b/model-x", "a/llava-13b/checkpoint-200/", "m"):
+        assert ttok.get_model_name_from_path(path) == jtok.get_model_name_from_path(path)

@@ -1299,3 +1299,106 @@ def test_decode_step_int8_cache_close(dev):
     err = (out[True] - out[False]).abs().max() / out[False].abs().max()
     assert float(err) < 0.05, float(err)
     assert torch.equal(out[True].argmax(-1), out[False].argmax(-1))
+
+
+def _engine_run(eng, prompts, n):
+    from slime_tpu_torch.serve.batch_engine import Request
+    reqs = [eng.submit(Request(input_ids=p, max_new_tokens=n)) for p in prompts]
+    for _ in range(400):
+        if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    return [[t for c in q.stream() for t in c] for q in reqs]
+
+
+def test_spec_engine_matches_plain_engine(dev):
+    """Speculative rounds on the card at the default fp32 compute dtype (int8
+    layers, stacked; an unrelated int8 draft of the same widths and the
+    target as its own draft): three requests, the plain engine's tokens
+    exactly; every round's verify chunk of 4 x 5 rows launched K1-K3 in
+    each layer."""
+    import numpy as np
+
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine
+    cfg = _small_slime_cfg()
+    params = _small_slime(cfg, dev, "int8")
+    draft = _small_slime(cfg, dev, "int8")
+    g = torch.Generator(device=dev).manual_seed(7)
+    for leaf in (draft["llm"]["layers"]["gate_proj"]["weight"]["q"],
+                 draft["llm"]["layers"]["q_proj"]["weight"]["q"]):
+        leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=dev,
+                                 dtype=torch.int8))
+    r = np.random.default_rng(4)
+    prompts = [r.integers(5, cfg.llm.vocab_size, (n,)) for n in (7, 12, 9)]
+    want = _engine_run(BatchDecodeEngine(params, cfg, max_slots=4, cache_len=256, device=dev),
+                       prompts, 20)
+    for d in (draft, params):
+        eng = BatchDecodeEngine(params, cfg, max_slots=4, cache_len=256, device=dev,
+                                draft_params=d, draft_cfg=cfg, spec_k=4)
+        before = fused_qkvo.fused_qkv_decode.f32_launches
+        got = _engine_run(eng, prompts, 20)
+        assert got == want
+        verify = eng.spec_stats["rounds"]
+        assert verify >= 4
+        # K2 once a layer in each verify chunk, each of the round's 4 draft
+        # steps and its ingest (int8 drafts take the fused decode too), and
+        # each plain step
+        launched = fused_qkvo.fused_qkv_decode.f32_launches - before
+        assert launched == cfg.llm.num_layers * (6 * verify + eng.decode_steps), launched
+    # the target as its own draft: (nearly) every proposal accepted
+    assert eng.spec_stats["accepted"] >= 0.9 * 4 * eng.spec_stats["slot_rounds"]
+
+
+def test_constrained_request_on_card(dev):
+    """A grammar on the card: the combined tables on the device, the mask in
+    the decode step; the output's bytes match the regex, greedy and sampled."""
+    import dataclasses
+    import re
+
+    import numpy as np
+
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+    from slime_tpu_torch.serve.grammar import compile_token_dfa
+    cfg = _small_slime_cfg()
+    params = _small_slime(cfg, dev, "int8")
+    vocab = [bytes([i]) if i < 128 else b"" for i in range(cfg.llm.vocab_size)]
+    eos = 200
+    cfg = dataclasses.replace(cfg, eos_token_id=eos)
+    vocab[eos] = b""
+    pat = r"(yes|no|[a-c]{2,5})(,(yes|no|[a-c]{2,5})){1,3}"
+    eng = BatchDecodeEngine(params, cfg, max_slots=4, cache_len=256, device=dev)
+    gid = eng.register_grammar(compile_token_dfa(pat, vocab, eos_id=eos))
+    assert eng._g_allowed.device.type == "cuda"
+    r = np.random.default_rng(5)
+    reqs = [eng.submit(Request(input_ids=r.integers(5, 128, (9,)), max_new_tokens=40,
+                               grammar_id=gid, temperature=t)) for t in (0.0, 0.9)]
+    reqs.append(eng.submit(Request(input_ids=r.integers(5, 128, (9,)), max_new_tokens=12)))
+    for _ in range(400):
+        if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    for q in reqs[:2]:
+        text = b"".join(vocab[t] for c in q.stream() for t in c).decode()
+        assert re.fullmatch(pat, text), text
+    assert len([t for c in reqs[2].stream() for t in c]) > 0
+
+
+def test_verify_chunk_launches_row_per_warp(dev):
+    """The verify chunk's shape, 4 slots x (K = 4 + 1) = 20 rows in bf16 on
+    int8 layers: K1-K3's row-per-warp instances once a layer, the weight
+    ring never (it takes B <= 8)."""
+    from slime_tpu_torch.models import llama
+    cfg = _small_slime_cfg()
+    llm = _small_slime(cfg, dev, "int8")["llm"]
+    g = torch.Generator(device=dev).manual_seed(8)
+    emb = (torch.randn((4, 5, cfg.llm.hidden_size), device=dev, generator=g) * 0.5).to(
+        torch.bfloat16)
+    cache = llama.init_kv_cache(cfg.llm, 4, 64, dtype=torch.bfloat16, device=dev)
+    cache["length"].copy_(torch.tensor([3, 9, 0, 17], device=dev))
+    wrappers = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode,
+                fused_qkvo.fused_o_residual)
+    before = [(w.launches, w.ring_launches) for w in wrappers]
+    logits, _ = llama.prefill_chunk(llm, cache, emb, cfg.llm, compute_dtype=torch.bfloat16)
+    after = [(w.launches, w.ring_launches) for w in wrappers]
+    assert llama.chunk_takes_fused(emb.shape, dev, llm["layers"])
+    for (l0, r0), (l1, r1) in zip(before, after):
+        assert (l1 - l0, r1 - r0) == (cfg.llm.num_layers, 0)
+    assert bool(torch.isfinite(logits).all())

@@ -304,18 +304,19 @@ def test_engine_kv_quant(setup):
 
 
 def test_refusals_and_unserved_requests(setup):
-    """What is not ported yet raises NotImplementedError; requests naming a
-    grammar or adapter fail (no id can be registered), as JAX fails an
-    unknown id; params elsewhere than the engine's device raise."""
+    """What is not ported yet (multi-LoRA, tensor parallelism) raises
+    NotImplementedError; a draft without its config raises; requests naming
+    an unregistered grammar or an adapter fail (no adapter can be
+    registered), as JAX fails an unknown id; params elsewhere than the
+    engine's device raise."""
     cfg, params, _ = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         BatchDecodeEngine(params, cfg, device="cpu", draft_params=params)
     with pytest.raises(NotImplementedError):
         BatchDecodeEngine(params, cfg, device="cpu", mesh=object())
     eng = _engine(setup)
-    for fn in (eng.register_grammar, eng.register_adapter):
-        with pytest.raises(NotImplementedError):
-            fn(None)
+    with pytest.raises(NotImplementedError):
+        eng.register_adapter(None)
     ids = _ids(cfg, np.random.default_rng(16), 5)
     bad = [Request(input_ids=ids, grammar_id=0), Request(input_ids=ids, adapter_id=1),
            Request(input_ids=ids, prefix_id="unknown"),
