@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query
-(int8, and the CLI's 4-bit configurations), SliME-8B's staged pretraining,
-and a context-parallel (ring attention) prefill of Llama-3-8B's full 8192
-positions.
+(int8, and the CLI's 4-bit configurations) and many fine-tunes at once
+(multi-LoRA), SliME-8B's staged pretraining and its QLoRA SFT through the
+training CLI, and a context-parallel (ring attention) prefill of
+Llama-3-8B's full 8192 positions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -135,6 +136,35 @@ Phase 9  serves the stack around the engine on phase 2's int8 model (bf16, 4
          one constrained slot against none, and prints the acceptance,
          TTFTs, rates and the grammar's size and compile time.
 
+         Then multi-LoRA on the same model: two random adapters (r = 128,
+         alpha = 256, all seven projections, generator seeds 1 and 2)
+         written in PEFT layout by ``checkpoint.save_lora_checkpoint`` and
+         loaded by ``BatchedWorker.load_adapter``; bench.py's query and one
+         text request per adapter, 32 greedy tokens each, submitted
+         together: each adapter's answer held to ``generate`` with it
+         attached, the query's to the plain engine's (up to a near tie);
+         ticks with an adapter slot launch no K1-K3, the ticks after they
+         free launch them on the ring; a k = 1 tick traced with and without
+         an adapter slot.
+
+Phase 10 runs the training CLI (``slime_tpu_torch.train.cli.main``, the
+         port's scripts/train_slime.py) as scripts/llama3_8b_lora_sft.sh
+         runs it with --bits 4 (QLoRA: an NF4 LLM, r = 128, alpha = 256,
+         llama3 template, S = 2048, modality-grouped batches) plus --remat
+         and --gradient-accumulation-steps 2, on SliME-8B at full width and
+         depth from random weights (a config-only model directory), over 16
+         records (8 with a 672x672 PNG, 8 text-only, ~300-token
+         conversations) and the stand-in byte tokenizer; cut to batch 4 and
+         2 micro-steps, with one saved state. The same command then resumes
+         from it for 2 more micro-steps and is held to the first trainer
+         continued on the same batches; the NF4 base and every frozen leaf
+         keep their bytes; the adapter files load back with ``import_peft``;
+         the native preprocess library loads and its crops lie within the
+         PIL path's bound; K4 launches 23 times a multimodal micro-step, K5
+         64, K5b and K5c 32. One micro-step is traced (idle share, K5-K5c,
+         the NF4 dequantizing copies) and 2 micro-steps run packed
+         (--seq-packing, text-only rows: K5 with segment_ids).
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -250,6 +280,9 @@ SPEC_K, SPEC_ROUNDS = 4, 8
 VERIFY_ROWS = ENGINE_SLOTS * (SPEC_K + 1)
 SERVE_TEXT = (60, 300)
 CHOICES = ("yes", "no", "maybe")
+# phase 9's multi-LoRA adapters (scripts/llama3_8b_lora_sft.sh's rank and
+# alpha) and their requests' greedy tokens
+LORA_R, LORA_ALPHA, LORA_NEW = 128, 256, 32
 DRAFT_LLM = dict(hidden_size=2048, intermediate_size=5504, num_layers=2, num_heads=16,
                  num_kv_heads=8, head_dim=128, rope_theta=500000.0,
                  max_position_embeddings=4096)
@@ -281,6 +314,12 @@ TRAIN_TEXT, TRAIN_PROMPT, TRAIN_LR = 300, 40, 1e-3
 # 1.8e-5 relative on the loss and 6.3e-4 on the projector's gradient norm
 # (PERF.md)
 TRAIN_RTOL = 5e-3
+# phase 10: the training CLI's records (half with an image), its batch
+# (scripts/llama3_8b_lora_sft.sh has 16), K4's launches an encode (the
+# tower's 23 layers run), and the resume comparison's bound: one bf16 ulp
+# of a leaf's largest entry
+TRAIN_CLI_RECORDS, TRAIN_CLI_BATCH, TRAIN_CLI_K4 = 16, 4, 23
+TRAIN_CLI_RESUME_TOL = 2 ** -8
 KERNELS = {
     "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
                           "slime_tpu/ops/encoder_attention.py:88"),
@@ -1758,24 +1797,25 @@ def teacher_logits(params, cfg, ids, attn, pv, cm, tokens, j):
     return logits[0].float()
 
 
-def check_answer(name, got, want, logits_at):
-    """An engine answer against ``generate``'s: equal, or parted at a near
-    tie: at the first step where they differ, generate's logit of the
-    engine's token lies within ENGINE_TIE_ATOL of its top logit. Returns
-    the step and gap (None when equal)."""
+def check_answer(name, got, want, logits_at, phase="8"):
+    """An engine answer against ``want`` (``generate``'s, or the engine's
+    own on the plain path): equal, or parted at a near tie: at the first
+    step where they differ, generate's logit of the engine's token lies
+    within ENGINE_TIE_ATOL of that of ``want``'s token. Returns the step and
+    gap (None when equal)."""
     if len(got) != len(want):
-        raise AssertionError(f"phase 8 {name}: {len(got)} tokens, generate gave {len(want)}")
+        raise AssertionError(f"phase {phase} {name}: {len(got)} tokens, the reference gave "
+                             f"{len(want)}")
     if got == want:
-        log(f"phase 8 {name}: {len(got)} tokens equal to generate's")
+        log(f"phase {phase} {name}: {len(got)} tokens equal")
         return None
     j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
     lg = logits_at(j)
     gap = float(lg[want[j]] - lg[got[j]])
-    log(f"phase 8 {name}: parts from generate at step {j} (engine {got[j]}, generate "
-        f"{want[j]}): generate's logit gap {gap:.4g} (near-tie bound {ENGINE_TIE_ATOL}); "
-        f"equal before it")
-    if not 0.0 <= gap <= ENGINE_TIE_ATOL:
-        raise AssertionError(f"phase 8 {name}: not a near tie at step {j}: gap {gap:.4g}")
+    log(f"phase {phase} {name}: parts at step {j} (here {got[j]}, reference {want[j]}): "
+        f"generate's logit gap {gap:.4g} (near-tie bound {ENGINE_TIE_ATOL}); equal before it")
+    if not abs(gap) <= ENGINE_TIE_ATOL:
+        raise AssertionError(f"phase {phase} {name}: not a near tie at step {j}: gap {gap:.4g}")
     return j, gap
 
 
@@ -1998,12 +2038,16 @@ def engine_phase(dev, cfg, params):
 
 
 class ByteTokenizer:
-    """Stand-in tokenizer for phase 9 (no tokenizer ships with the repo):
-    BOS, then the text's UTF-8 bytes as ids 0-255; decode keeps the ids
-    below 256 as bytes and drops the others."""
+    """Stand-in tokenizer for phases 9 and 10 (no tokenizer ships with the
+    repo): BOS, then the text's UTF-8 bytes as ids 0-255; decode keeps the
+    ids below 256 as bytes and drops the others. ``pad_token_id`` and
+    ``model_max_length`` are what the data pipeline and the training CLI
+    read of a tokenizer (the padding id is never a byte)."""
 
-    def __init__(self, bos_token_id):
+    def __init__(self, bos_token_id, pad_token_id=None, model_max_length=2048):
         self.bos_token_id = bos_token_id
+        self.pad_token_id = pad_token_id
+        self.model_max_length = model_max_length
 
     def __call__(self, text):
         return types.SimpleNamespace(input_ids=[self.bos_token_id] + list(text.encode()))
@@ -2503,6 +2547,192 @@ def serving_stack_phase(dev, cfg, params):
     return launches
 
 
+LORA_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def random_adapter(cfg, seed, device):
+    """A random rank-LORA_R adapter (alpha LORA_ALPHA) on all seven
+    projections of every layer, per-layer paths (PEFT's layout), fp32 from a
+    torch.Generator: A ~ N(0, 1/in), B ~ N(0, (0.02)^2 / r), so each
+    projection moves by about 4% of its output: the answers part from the
+    base's."""
+    llm = cfg.llm
+    H, hd, I = llm.hidden_size, llm.head_dim, llm.intermediate_size
+    dims = {"q_proj": (llm.num_heads * hd, H), "k_proj": (llm.num_kv_heads * hd, H),
+            "v_proj": (llm.num_kv_heads * hd, H), "o_proj": (H, llm.num_heads * hd),
+            "gate_proj": (I, H), "up_proj": (I, H), "down_proj": (H, I)}
+    g = torch.Generator(device=device).manual_seed(seed)
+    adapters = {}
+    for li in range(llm.num_layers):
+        for proj in LORA_PROJ:
+            o, i = dims[proj]
+            adapters[f"llm/layers/{li}/{proj}"] = {
+                "A": torch.randn((LORA_R, i), generator=g, device=device) / i ** 0.5,
+                "B": torch.randn((o, LORA_R), generator=g, device=device) * (0.02 / LORA_R ** 0.5)}
+    return {"rank": LORA_R, "alpha": LORA_ALPHA, "adapters": adapters}
+
+
+def multi_lora_phase(dev, cfg, params):
+    """Phase 9, multi-LoRA: two random adapters written in PEFT layout
+    (``checkpoint.save_lora_checkpoint``) and loaded by
+    ``BatchedWorker.load_adapter`` on phase 2's int8 model (bf16); one base
+    request (bench.py's query) and one text request per adapter, LORA_NEW
+    greedy tokens each, submitted together. Each adapter answer is held to
+    ``generate`` on the params with that adapter attached, the base answer to
+    the plain engine's, both up to the first near tie; ticks with an adapter
+    slot launch no K1-K3, ticks after the adapter slots free launch them on
+    the ring. Then a k = 1 tick traced with and without an adapter slot.
+    Returns the launch counts of the mixed run."""
+    import shutil
+
+    from slime_tpu_torch import checkpoint as ckpt
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.serve.batch_engine import Request
+    from slime_tpu_torch.serve.batched_worker import BatchedWorker
+    from slime_tpu_torch.train import lora
+
+    bf = torch.bfloat16
+    out = Path(__file__).resolve().parent / "bench_out"
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    img, ids, attn, anyres = query(dev, cfg)
+    crops, mask = anyres(img)
+    ids_np = ids[0].cpu().numpy()
+    tok = ByteTokenizer(cfg.bos_token_id)
+    rng = np.random.default_rng(SEED + 15)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    texts = [np.asarray(tok("".join(rng.choice(letters, n))).input_ids, np.int32)
+             for n in SERVE_TEXT]
+    cache_len = 2048
+    worker = BatchedWorker(controller_addr=None, worker_addr="smoke", model_name="slime-8b",
+                           params=params, cfg=cfg_run, tokenizer=tok, register=False,
+                           max_slots=ENGINE_SLOTS, cache_len=cache_len, compute_dtype=bf,
+                           device=dev, prefix_cache_mb=0)
+    eng = worker.engine
+    eng.stop()           # this phase ticks the worker's engine itself
+    # the plain engine's answer to the query (no adapter registered yet)
+    base_req = eng.submit(Request(input_ids=ids_np, pixel_values=crops, crop_mask=mask,
+                                  max_new_tokens=LORA_NEW))
+    for _ in range(400):
+        if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    want_base = drain(base_req)
+
+    states, t0 = [], time.perf_counter()
+    for i, seed in enumerate((1, 2)):
+        st = random_adapter(cfg, seed, dev)
+        d = out / f"lora_adapter_{i + 1}"
+        shutil.rmtree(d, ignore_errors=True)
+        ckpt.save_lora_checkpoint(str(d), {}, st, cfg)
+        states.append(st)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aids = [worker.load_adapter(f"a{i + 1}", str(out / f"lora_adapter_{i + 1}"))
+            for i in range(2)]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (out / "lora_adapter_1").iterdir()) / 2 ** 30
+    log(f"phase 9 multi-LoRA: two adapters r = {LORA_R}, alpha = {LORA_ALPHA}, on "
+        f"{len(LORA_PROJ)} projections x {cfg.llm.num_layers} layers ({size:.2f} GiB each in "
+        f"PEFT layout): written in {save_s:.1f} s, loaded and registered in {load_s:.1f} s "
+        f"as adapter ids {aids}; registry {eng._n_adapters} entries, rank {eng._lora_rank}")
+
+    # generate's answers with each adapter attached as lora entries (stacked)
+    wants = []
+    for st, p in zip(states, texts):
+        attached = lora.attach(params, lora.stack_adapter_state(st, cfg.llm.num_layers))
+        t = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        wants.append(gen.generate(attached, cfg_run, t, torch.ones_like(t, dtype=torch.bool),
+                                  max_new_tokens=LORA_NEW, compute_dtype=bf)[0].tolist())
+    plains = [run_one(eng, p, LORA_NEW)[0] for p in texts]
+
+    # the mixed run: adapters first (whole admissions), then the query (five
+    # chunks), so the adapter slots free first and the query decodes alone
+    reqs = [eng.submit(Request(input_ids=p, max_new_tokens=LORA_NEW, adapter_id=a))
+            for p, a in zip(texts, aids)]
+    reqs.append(eng.submit(Request(input_ids=ids_np, pixel_values=crops, crop_mask=mask,
+                                   max_new_tokens=LORA_NEW)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fused = [n + "_ring" for n in FUSED] + list(FUSED)
+    ticks, t0 = [], time.perf_counter()
+    for _ in range(2000):
+        before = launch_counts()
+        lora_before = eng._use_lora
+        n = eng.tick()
+        after = launch_counts()
+        ticks.append((lora_before and eng._use_lora,
+                      sum(after[k] - before[k] for k in fused)))
+        if n == 0 and eng.pending.empty() and eng._admission is None:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    got = [drain(r) for r in reqs]
+    with_lora = [k for lo, k in ticks if lo]
+    last = max((i for i, (lo, _) in enumerate(ticks) if lo), default=len(ticks))
+    after_free = [k for _, k in ticks[last + 1:]]
+    log(f"phase 9 multi-LoRA mixed run: {sum(map(len, got))} tokens in {wall:.3f} s over "
+        f"{len(ticks)} ticks; {len(with_lora)} ticks with an adapter slot launched "
+        f"{sum(with_lora)} K1-K3; the {len(after_free)} ticks after the adapter slots freed "
+        f"launched {sum(after_free)} (ring: {json.dumps({k: counts[k] for k in fused[:3]})}); "
+        f"gathered view built {eng.lora_view_builds} times")
+    if dev.type == "cuda" and (sum(with_lora) or not with_lora or not sum(after_free)):
+        raise AssertionError(f"phase 9 multi-LoRA: K1-K3 launches {with_lora} with an adapter "
+                             f"slot, {after_free} after")
+    for i, (g, w, pl, p, st) in enumerate(zip(got, wants, plains, texts, states)):
+        attached = lora.attach(params, lora.stack_adapter_state(st, cfg.llm.num_layers))
+        near_tie_rule(f"multi-LoRA adapter {i + 1} vs generate with it attached", g, w,
+                      plain_logits(attached, cfg, p, w + [cfg.eos_token_id]), cfg.eos_token_id)
+        differs = next((j for j, (a, b) in enumerate(zip(w, pl)) if a != b), None)
+        log(f"phase 9 multi-LoRA adapter {i + 1}: generate's answer with it parts from the "
+            f"base engine's at step {differs}")
+        if differs is None:
+            raise AssertionError(f"phase 9 multi-LoRA: adapter {i + 1} changes no token")
+    check_answer("multi-LoRA base query vs the plain engine", got[2], want_base,
+                 lambda j: teacher_logits(params, cfg_run, ids, attn, crops[None], mask[None],
+                                          want_base, j), phase="9")
+
+    # a k = 1 tick with an adapter slot against one without (4 slots busy)
+    for with_adapter in (1, 0):
+        busy = [eng.submit(Request(input_ids=texts[0], max_new_tokens=200,
+                                   adapter_id=aids[0] if i < with_adapter else None))
+                for i in range(ENGINE_SLOTS)]
+        for _ in range(4):
+            eng.tick()
+        eng._flush_inflight()
+        eng.multi_step = 1
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.tick()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = statistics.median(walls)
+
+        def three_ticks():
+            for _ in range(3):
+                eng.tick()
+            eng._flush_inflight()
+        path = out / f"profile_lora_tick_{with_adapter}.json"
+        if profiled(three_ticks, path):
+            busy_ms, n_k, _ = trace_device(path)
+            busy_ms /= 3
+            log(f"phase 9 multi-LoRA k = 1 tick, {ENGINE_SLOTS} slots, {with_adapter} with an "
+                f"adapter: host wall {wall_ms:.2f} ms (median of 5), device busy "
+                f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+                f"{n_k / 3:.0f} launches a tick")
+        eng.multi_step = 8
+        for r in busy:
+            eng.cancel(r.request_id)
+        eng.tick()
+        eng._flush_inflight()
+    del worker, eng
+    for i in range(2):
+        shutil.rmtree(out / f"lora_adapter_{i + 1}", ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def serve_phases(dev, cfg):
     """Phases 2 and 3 on the int8 serving model, phase 7's int8 part and
     phases 8 and 9; returns the launch counts of the counted windows (3
@@ -2562,6 +2792,8 @@ def serve_phases(dev, cfg):
     for n, c in engine_phase(dev, cfg, params).items():          # phase 8
         launches[n] += c
     for n, c in serving_stack_phase(dev, cfg, params).items():   # phase 9
+        launches[n] += c
+    for n, c in multi_lora_phase(dev, cfg, params).items():      # phase 9, multi-LoRA
         launches[n] += c
     del params
     return launches
@@ -2945,6 +3177,280 @@ def train_phase(dev, cfg, fa):
     return launches
 
 
+def tree_hash(tree):
+    """{path: two int64 sums over each leaf's bytes} (any write moves them)."""
+    from slime_tpu_torch.params import named_leaves
+
+    out = {}
+    for path, t in named_leaves(tree):
+        b = t.detach().reshape(-1).view(torch.uint8)
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for c in range(0, b.numel(), 2 ** 28):
+            x = b[c:c + 2 ** 28].to(torch.int64)
+            s1, s2 = s1 + x.sum(), s2 + (x * (x + 7)).sum()
+        out[path] = (int(s1), int(s2))
+    return out
+
+
+def sft_data(root, cfg, tok):
+    """TRAIN_CLI_RECORDS LLaVA-format records, half with a 672x672 PNG (PIL,
+    from the seed), half text-only, each a ~300-token conversation (the
+    stand-in tokenizer's bytes); -> (all records' JSON, the text-only JSON)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 20)
+    (root / "images").mkdir(parents=True)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz      "))
+    words = lambda n: "".join(rng.choice(letters, n)).strip()  # noqa: E731
+    recs, texts = [], []
+    for i in range(TRAIN_CLI_RECORDS):
+        q, a = words(90 + int(rng.integers(0, 20))), words(190 + int(rng.integers(0, 30)))
+        if i % 2 == 0:
+            Image.fromarray(rng.integers(0, 255, (672, 672, 3), dtype=np.uint8)).save(
+                root / "images" / f"{i}.png")
+            recs.append({"id": str(i), "image": f"{i}.png", "conversations": [
+                {"from": "human", "value": "<image>\n" + q}, {"from": "gpt", "value": a}]})
+        else:
+            texts.append({"id": str(i), "conversations": [
+                {"from": "human", "value": q}, {"from": "gpt", "value": a}]})
+    (root / "sft.json").write_text(json.dumps(recs + texts))
+    (root / "text.json").write_text(json.dumps(texts))
+    return root / "sft.json", root / "text.json"
+
+
+def train_cli_phase(dev, cfg):
+    """Phase 10: the training CLI (``slime_tpu_torch.train.cli.main``),
+    QLoRA on SliME-8B at full width and depth from random weights, as
+    scripts/llama3_8b_lora_sft.sh runs it with --bits 4, cut in batch and
+    steps; its resume, held to the uninterrupted trainer; one traced
+    micro-step; a packed text-only run. Returns the launch counts of its
+    training runs (the CLI's three commands)."""
+    import gc
+    import shutil
+
+    from torch.profiler import record_function
+
+    from slime_tpu_torch.data import native
+    from slime_tpu_torch.data.image_ops import process_anyres_image_host
+    from slime_tpu_torch.models import layers
+    from slime_tpu_torch.params import named_leaves
+    from slime_tpu_torch.train import cli, lora
+
+    out = Path(__file__).resolve().parent / "bench_out"
+    root = out / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "model").mkdir(parents=True)
+    cfg.save(str(root / "model"))                      # config only: random weights
+    tok = ByteTokenizer(cfg.bos_token_id, pad_token_id=cfg.eos_token_id)
+    sft_json, text_json = sft_data(root, cfg, tok)
+    L = cfg.llm.num_layers
+
+    # the native preprocess library, and its crops against the PIL path's
+    from PIL import Image
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 10: the native preprocess library did not build or load")
+    img = Image.open(root / "images" / "0.png")
+    nat, nmask, _ = native.anyres_preprocess_native(np.asarray(img.convert("RGB")))
+    pil, pmask, _ = process_anyres_image_host(img)
+    n = int(nmask.sum())
+    diff = float(np.abs(nat[:n] - pil[:n]).mean())
+    corr = float(np.corrcoef(nat[:n].ravel(), pil[:n].ravel())[0, 1])
+    log(f"phase 10 native preprocess: {native.build_native().name} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; crops of a 672x672 image against the PIL path: "
+        f"mean |diff| {diff:.4f} (bound 0.08), correlation {corr:.5f} (bound 0.995)")
+    if not (np.array_equal(nmask, pmask) and diff < 0.08 and corr > 0.995):
+        raise AssertionError("phase 10: native crops outside the PIL path's bound")
+
+    flags = ["--model-path", str(root / "model"), "--data-path", str(sft_json),
+             "--image-folder", str(root / "images"), "--version", "llama3",
+             "--model-max-length", "2048", "--lora-enable", "--lora-r", "128",
+             "--lora-alpha", "256", "--bits", "4", "--learning-rate", "2e-4",
+             "--mm-projector-lr", "2e-5", "--warmup-ratio", "0.03", "--logging-steps", "1",
+             "--group-by-modality-length", "--per-device-batch-size", str(TRAIN_CLI_BATCH),
+             "--remat", "--gradient-accumulation-steps", "2"]
+    log(f"phase 10: python -m slime_tpu_torch.train.cli {' '.join(flags[6:])} (from "
+        f"scripts/llama3_8b_lora_sft.sh with --bits 4; cut: --per-device-batch-size "
+        f"{TRAIN_CLI_BATCH} for 16, --max-steps / --save-steps for one saved state, "
+        f"--logging-steps 1 for 10, no --pretrain-mm-* warm starts: random weights from "
+        f"--seed); {TRAIN_CLI_RECORDS} records, half with a 672x672 image")
+    hashes = []
+    real_build = cli.build_params
+
+    def build(*a):
+        p = real_build(*a)
+        torch.cuda.synchronize()
+        hashes.append(tree_hash(p))
+        return p
+    counts = {k: 0 for k in ("encoder_attention", "flash_fwd", "flash_bwd_dkdv",
+                             "flash_bwd_dq")}
+
+    def run(tag, argv, steps, mm_steps):
+        out_dir = argv[argv.index("--output-dir") + 1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = cli.main(argv, tokenizer=tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        c = {k: got[k] for k in counts}
+        want = {"encoder_attention": TRAIN_CLI_K4 * mm_steps, "flash_fwd": 2 * L * steps,
+                "flash_bwd_dkdv": L * steps, "flash_bwd_dq": L * steps}
+        recs = [json.loads(x) for x in (Path(out_dir) / "metrics.jsonl").read_text()
+                .splitlines()][-steps:]
+        for r in recs:
+            log(f"phase 10 {tag} step {r['step']}: loss {r['loss']:.5f}, grad_norm "
+                f"{r['grad_norm']:.5f}, {r['tokens_per_sec']:.1f} tokens/s host "
+                f"({TRAIN_CLI_BATCH * 2048 / r['tokens_per_sec'] * 1e3:.1f} ms a step), "
+                f"target tokens {r.get('target_tokens')}"
+                + (f", packing efficiency {r['packing_efficiency']:.3f}"
+                   if "packing_efficiency" in r else ""))
+        log(f"phase 10 {tag}: {wall:.1f} s in all (parameters built, NF4 quantized, "
+            f"trained, saved); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB; launches {json.dumps(c)} (expected {json.dumps(want)})")
+        if len(recs) != steps or not all(np.isfinite(r["loss"]) for r in recs):
+            raise AssertionError(f"phase 10 {tag}: losses {[r['loss'] for r in recs]}")
+        if dev.type == "cuda" and c != want:
+            raise AssertionError(f"phase 10 {tag}: launches {c} != {want}")
+        for k in counts:
+            counts[k] += c[k]
+        return tr, recs
+
+    cli.build_params = build
+    try:
+        run_dir = str(root / "run")
+        # 2 micro-steps (one update), state-2 saved; then the same command
+        # resumes from state-2 and takes steps 3-4 (the next update)
+        tr1, _ = run("run", flags + ["--output-dir", run_dir, "--max-steps", "2",
+                                     "--save-steps", "2"], 2, 2)
+        tr2, recs2 = run("resumed run", flags + ["--output-dir", run_dir, "--max-steps", "4",
+                                                 "--save-steps", "0"], 2, 2)
+        if tr2.state["step"] != 4 or sorted(p.name for p in Path(run_dir).iterdir()) != [
+                "adapter_config.json", "adapter_model.bin", "checkpoint-2", "config.json",
+                "metrics.jsonl", "non_lora_trainables.bin", "state-2"]:
+            raise AssertionError(f"phase 10: resumed at step {tr2.state['step']}, files "
+                                 f"{sorted(p.name for p in Path(run_dir).iterdir())}")
+        # only the adapters and the extras moved: the base's bytes are the
+        # freshly built ones', the NF4 layers included
+        after = tree_hash(tr2.base)
+        nf4 = sorted(p for p in after if p.endswith("/nf4"))
+        moved = sorted(p for p in after if after[p] != hashes[1].get(p))
+        if moved or after.keys() != hashes[1].keys() or not nf4:
+            raise AssertionError(f"phase 10: the frozen base moved ({moved[:4]}) or holds no "
+                                 f"NF4 leaf ({len(nf4)})")
+        trained = tr2.state["params"]
+        base_leaves = dict(named_leaves(tr2.base))
+        extras_moved = [p for p, t in named_leaves(trained["extras"])
+                        if not torch.equal(t, base_leaves[p])]
+        b_max = max(float(ab["B"].detach().abs().max()) for ab in trained["adapters"].values())
+        log(f"phase 10: base unchanged ({len(after)} leaves, {len(nf4)} NF4, hashes equal to "
+            f"the freshly built ones'); adapters' largest |B| {b_max:.3g}; "
+            f"{len(extras_moved)} projector/sampler leaves moved")
+        if not b_max > 0 or not extras_moved:
+            raise AssertionError("phase 10: the adapters or the extras did not move")
+        # the saved adapter files load back with import_peft
+        from slime_tpu_torch import checkpoint as ckpt
+        sd = ckpt.load_state_dict_file(str(Path(run_dir) / "adapter_model.bin"))
+        back = lora.import_peft(sd, r=128, alpha=256)
+        bad = [p for p, ab in trained["adapters"].items()
+               if not all(np.array_equal(back["adapters"][p][k].numpy(),
+                                         ab[k].detach().cpu().numpy()) for k in "AB")]
+        log(f"phase 10: adapter_model.bin loads back with import_peft: "
+            f"{len(back['adapters'])} adapters, {len(bad)} differ")
+        if bad or set(back["adapters"]) != set(trained["adapters"]):
+            raise AssertionError(f"phase 10: adapter files differ: {bad[:3]}")
+        resumed = {p: t.detach().clone() for p, t in named_leaves(trained)}
+        del tr2, trained, back, sd, base_leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the uninterrupted run: the first trainer continues through steps
+        # 3-4 on the batches the resumed command was fed (JAX's resume skips
+        # none: the loader's first two)
+        from slime_tpu_torch.config import SliMEConfig
+        args = cli.parse_args(flags + ["--output-dir", str(root / "cont")])
+        ds = cli.build_dataset(args, SliMEConfig.load(str(root / "model")), tok)
+        tr1.rc = dataclasses.replace(tr1.rc, max_steps=4, save_steps=0,
+                                     output_dir=str(root / "cont"))
+        (root / "cont").mkdir()
+        tr1.metrics_file = str(root / "cont" / "metrics.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated() / 2 ** 30
+        reset_launch_counts()
+        tr1.train(cli.batches(args, ds, tok.pad_token_id))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs1 = [json.loads(x) for x in (root / "cont" / "metrics.jsonl").read_text()
+                 .splitlines()]
+        worst = max(float((t.detach() - resumed[p]).abs().max() / max(
+            float(resumed[p].abs().max()), 1e-30)) for p, t in named_leaves(tr1.state["params"]))
+        dl = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(recs1, recs2))
+        log(f"phase 10 resume: steps 3-4 of the uninterrupted trainer against the resumed "
+            f"command: losses {[r['loss'] for r in recs1]} vs {[r['loss'] for r in recs2]} "
+            f"(largest rel diff {dl:.3g}); trained leaves' largest diff {worst:.3g} of the "
+            f"leaf's largest entry (bound {TRAIN_CLI_RESUME_TOL:g}: a bf16 ulp)")
+        log(f"phase 10 QLoRA steps: peak memory {peak:.2f} GiB over the steps "
+            f"({base_mem:.2f} GiB held before them: the NF4 base, fp32 embeddings, lm_head "
+            f"and tower, the adapters, Adam and the accumulator)")
+        if worst > TRAIN_CLI_RESUME_TOL or dl > TRAIN_CLI_RESUME_TOL:
+            raise AssertionError("phase 10: the resumed run is not the uninterrupted one")
+
+        # one traced micro-step: idle share, K5-K5c, the dequantizing copies
+        batch = tr1._put(next(iter(cli.batches(args, ds, tok.pad_token_id))))
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tr1.step_fn(tr1.state, batch, tr1.generator)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = min(walls)
+        real_deq = layers.dequantize_weight
+
+        def traced_deq(w):
+            with record_function("dequantize"):
+                return real_deq(w)
+        path = out / "profile_qlora_step.json"
+        layers.dequantize_weight = traced_deq
+        try:
+            ok = profiled(lambda: tr1.step_fn(tr1.state, batch, tr1.generator), path)
+        finally:
+            layers.dequantize_weight = real_deq
+        if ok:
+            busy, n_k, by_name = trace_device(path)
+            parts, _ = trace_ranges(path, ["dequantize"])
+            log(f"phase 10 QLoRA micro-step (B = {TRAIN_CLI_BATCH}, S = 2048, remat, "
+                f"multimodal): host wall {wall:.1f} ms (best of 2, unprofiled), "
+                f"{TRAIN_CLI_BATCH * 2048 / wall * 1e3:.1f} tokens/s; device busy {busy:.1f} "
+                f"ms; idle share {1 - busy / wall:.3f}; {n_k} kernel launches")
+            for part, pat in (("K5 (flash_fwd_kernel)", "flash_fwd_kernel"),
+                              ("K5b (flash_bwd_dkdv_kernel)", "flash_bwd_dkdv_kernel"),
+                              ("K5c (flash_bwd_dq_kernel)", "flash_bwd_dq_kernel"),
+                              ("K4 (enc_attn)", "enc_attn")):
+                ms, nk = trace_kernel(path, pat)
+                log(f"phase 10 QLoRA micro-step device time {part}: {ms:.2f} ms, {nk} launches")
+            log(f"phase 10 QLoRA micro-step device time in the NF4 dequantizing copies "
+                f"(forward, recompute and backward): {parts['dequantize'][0]:.1f} ms over "
+                f"{parts['dequantize'][1]} launches")
+            for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                log(f"phase 10 QLoRA micro-step kernel {kms:8.2f} ms  {kname[:90]}")
+        del tr1, batch, resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # packed text-only rows: K5 with segment_ids
+        run("packed run", flags + ["--data-path", str(text_json), "--output-dir",
+                                   str(root / "packed"), "--seq-packing", "--max-steps", "2",
+                                   "--save-steps", "0", "--num-train-epochs", "2"], 2, 0)
+    finally:
+        cli.build_params = real_build
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def context_parallel_phase(dev, cfg):
     """Phase 6: context-parallel prefill at full width on phase 2's int8
     SliME-8B LLM (B = 1, S = CP_SEQ random token ids from the seed, logits
@@ -3138,6 +3644,9 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in context_parallel_phase(dev, cfg).items():     # phase 6
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in train_cli_phase(dev, cfg).items():            # phase 10
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

@@ -4,8 +4,9 @@
   21-394``, numpy only): HF/torch state dicts (safetensors or .bin, sharded
   or not) onto our parameter trees in three of the reference's four load
   modes (llava/model/builder.py:26-173): a full checkpoint, a base model
-  plus the staged pretraining's ``mm_projector.bin`` / ``sampler.bin``, and
-  a plain LM. The LoRA mode raises (ROADMAP Queue 1 item 6). It returns
+  plus the staged pretraining's ``mm_projector.bin`` / ``sampler.bin``, a
+  LoRA checkpoint merged at load into ``model_base`` (:85-101, :308-365), and
+  a plain LM. It returns
   CPU tensors with list layers; ``to_torch`` casts and moves them and
   ``load_for_serving`` also stacks the layers, as the serving entry points
   need them.
@@ -19,6 +20,9 @@
   ``sampler.bin``), byte for byte what the JAX package writes for the same
   values. Each tensor is saved as its own compact CPU copy, so a view into a
   stacked ``[L, ...]`` weight never drags its whole storage into the file.
+  ``save_lora_checkpoint`` (:586) writes the reference's LoRA split
+  (``adapter_config.json``, ``adapter_model.bin`` with PEFT key names,
+  ``non_lora_trainables.bin``), byte for byte the JAX package's files.
 """
 from __future__ import annotations
 
@@ -36,8 +40,6 @@ from .models.layers import resolve_device
 from .ops.quantization import is_quantized, quantize_params
 
 Tensors = Dict[str, torch.Tensor]
-_LORA_TODO = ("loading a LoRA checkpoint (adapter factors merged into a base model) is not "
-              "ported yet: it needs LoRA itself (ROADMAP Queue 1 item 6)")
 
 
 def _np(x) -> np.ndarray:
@@ -105,6 +107,47 @@ def _normalize_peft_prefixes(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]
 # ----------------------------------------------------------------------------------
 # Per-module converters: torch key set -> our pytree layout.
 # ----------------------------------------------------------------------------------
+
+def _lora_rank_alpha(model_path: str, lora_sd: Dict[str, np.ndarray]):
+    """(r, alpha) from adapter_config.json, else the rank from the factors'
+    shapes and alpha = 2r (the reference's r = 128, alpha = 256)."""
+    cfg_fp = os.path.join(model_path, "adapter_config.json")
+    ac = {}
+    if os.path.exists(cfg_fp):
+        with open(cfg_fp) as f:
+            ac = json.load(f)
+        if "r" in ac:
+            return int(ac["r"]), int(ac.get("lora_alpha", 2 * ac["r"]))
+    r = next((v.shape[0] for k, v in lora_sd.items() if ".lora_A." in k), None)
+    if r is None:
+        raise ValueError(
+            f"cannot infer LoRA rank for {model_path}: adapter_config.json has "
+            "no 'r' and no '.lora_A.' factors were found in the adapter state "
+            "dict (unsupported adapter naming?)")
+    return int(r), int(ac.get("lora_alpha", 2 * r))
+
+
+def _merge_lora(params: Dict, model_path: str, lora_sd: Dict[str, np.ndarray]) -> None:
+    """W <- W + (alpha / r) B A in place on the numpy tree (PEFT's
+    merge_and_unload); refuses adapters that map onto no loaded weight."""
+    from .train import lora as lora_lib
+    r, alpha = _lora_rank_alpha(model_path, lora_sd)
+    state = lora_lib.import_peft(lora_sd, r=r, alpha=alpha)
+    scale = alpha / r
+    merged = 0
+    for path, ab in state["adapters"].items():
+        node = params
+        for part in path.split("/"):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        w = np.asarray(node["weight"], np.float32)
+        delta = scale * (np.asarray(ab["B"], np.float32) @ np.asarray(ab["A"], np.float32))
+        node["weight"] = (w + delta).astype(np.asarray(node["weight"]).dtype)
+        merged += 1
+    if not merged:
+        raise ValueError(f"LoRA adapter keys in {model_path} did not map onto any "
+                         "loaded weights: key-name mismatch, refusing to return an "
+                         "unmerged model")
+
 
 def _lin(sd, key, bias=True):
     pre = f"{key}." if key else ""
@@ -272,9 +315,11 @@ def load_pretrained(model_path: str, *, model_base: Optional[str] = None,
     sampler, llm} as CPU tensors (list layers), the JAX package's
     ``load_pretrained`` leaf for leaf: a full checkpoint, ``model_base``
     overlaid by this directory's files (``mm_projector.bin`` /
-    ``sampler.bin`` adapters), or a plain LM. ``load_bits`` 4/8,
-    ``int4_scheme``, ``quantize_lm_head`` and ``quantize_vision`` go through
-    ``quantize_loaded``. A LoRA checkpoint raises NotImplementedError."""
+    ``sampler.bin`` adapters), a LoRA checkpoint (``adapter_model.*`` or
+    inline ``lora_*`` keys) merged into ``model_base`` (without one it
+    raises ValueError), or a plain LM. ``load_bits`` 4/8, ``int4_scheme``,
+    ``quantize_lm_head`` and ``quantize_vision`` go through
+    ``quantize_loaded``, after the merge."""
     if cfg is None:
         cfg = SliMEConfig.load(model_path)
     sd = load_sharded_state_dict(model_path)
@@ -289,10 +334,18 @@ def load_pretrained(model_path: str, *, model_base: Optional[str] = None,
         if all(any(k.startswith(p) for k in sd) for p in prefixes):
             continue  # index-less dirs read the .bin files with the shards
         sd.update(_normalize_peft_prefixes(load_state_dict_file(fp)))
-    if (any(os.path.exists(os.path.join(model_path, f))
-            for f in ("adapter_model.safetensors", "adapter_model.bin"))
-            or any(".lora_A." in k or ".lora_B." in k for k in sd)):
-        raise NotImplementedError(_LORA_TODO)
+    # the LoRA load mode (builder.py:52-91): low-rank factors in
+    # adapter_model.{safetensors,bin} (or inline lora_* keys), merged below
+    adapter_fp = next((os.path.join(model_path, f)
+                       for f in ("adapter_model.safetensors", "adapter_model.bin")
+                       if os.path.exists(os.path.join(model_path, f))), None)
+    lora_sd = (load_state_dict_file(adapter_fp) if adapter_fp
+               else {k: v for k, v in sd.items() if ".lora_A." in k or ".lora_B." in k})
+    if lora_sd and model_base is None:
+        raise ValueError(
+            f"{model_path} is a LoRA checkpoint (low-rank adapter factors found): "
+            "pass model_base so the adapters can be merged into the base weights "
+            "(reference builder.py:52-91)")
     if model_base is not None:
         base = load_sharded_state_dict(model_base)
         base.update(sd)
@@ -311,6 +364,8 @@ def load_pretrained(model_path: str, *, model_base: Optional[str] = None,
         params["vision"] = convert_clip_vision(vt, cfg.vision)
     elif vision_path:
         params["vision"] = convert_clip_vision(load_sharded_state_dict(vision_path), cfg.vision)
+    if lora_sd:
+        _merge_lora(params, model_path, lora_sd)
     return quantize_loaded(_as_tensors(params), cfg, load_bits=load_bits,
                            int4_scheme=int4_scheme, quantize_lm_head=quantize_lm_head,
                            quantize_vision=quantize_vision)
@@ -538,3 +593,30 @@ def save_checkpoint(path: str, params: Dict, cfg: SliMEConfig, *,
         torch.save(sd, os.path.join(path, "pytorch_model.bin"))
     else:
         save_file(sd, os.path.join(path, "model.safetensors"))
+
+
+def save_lora_checkpoint(path: str, params: Dict, lora_state: Dict,
+                         cfg: SliMEConfig) -> None:
+    """Write the reference's LoRA checkpoint directory (train.py:1185-1196):
+    config.json, adapter_config.json, adapter_model.bin (PEFT key names) and
+    non_lora_trainables.bin (the projector and sampler trained outside
+    PEFT). ``load_pretrained(path, model_base=...)`` merges it back."""
+    from .train.lora import export_peft
+
+    os.makedirs(path, exist_ok=True)
+    cfg.save(path)
+    targets = sorted({p.rsplit("/", 1)[-1] for p in lora_state["adapters"]})
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": int(lora_state["rank"]),
+                   "lora_alpha": int(lora_state["alpha"]),
+                   "lora_dropout": 0.0, "bias": "none",
+                   "target_modules": targets,
+                   "task_type": "CAUSAL_LM"}, f, indent=2)
+    torch.save(export_peft(lora_state), os.path.join(path, "adapter_model.bin"))
+    non_lora: Tensors = {}
+    if "projector" in params:
+        non_lora.update(export_projector(params["projector"], cfg))
+    if "sampler" in params and cfg.has_sampler:
+        non_lora.update(export_sampler(params["sampler"], cfg))
+    if non_lora:
+        torch.save(non_lora, os.path.join(path, "non_lora_trainables.bin"))

@@ -34,15 +34,23 @@ def _pil_to_chw(img) -> np.ndarray:
 
 
 def process_anyres_image_host(img, *, tile: int = IMAGE_WIDTH,
-                              max_crops: int = MAX_CROPS, normalize: bool = True
+                              max_crops: int = MAX_CROPS, use_native: bool = False,
+                              normalize: bool = True
                               ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
     """PIL image -> (crops [max_crops, 3, tile, tile], crop_mask [max_crops]
     bool, grid (cols, rows)). crops[0] is the global view (a square bicubic
     resize), then the local tiles of the resized-and-padded image row-major,
     then zeros with mask False. ``normalize=False`` keeps raw uint8 crops
-    (``slime.encode_images`` normalizes those on the device)."""
+    (``slime.encode_images`` normalizes those on the device). ``use_native``
+    takes the C++ library (``data.native``) where it is built, else PIL."""
     from PIL import Image
 
+    if use_native:
+        from . import native
+        if native.available():
+            arr = np.asarray(img.convert("RGB"), dtype=np.uint8)
+            return native.anyres_preprocess_native(arr, tile=tile, max_crops=max_crops,
+                                                   normalize=normalize)
     img = img.convert("RGB")
     best = anyres.select_best_resolution_uhd(img.size, (tile, tile))
     (nw, nh), (px, py) = anyres.resize_and_pad_geometry(img.size, best)
@@ -65,6 +73,30 @@ def process_anyres_image_host(img, *, tile: int = IMAGE_WIDTH,
             mask[k] = True
             k += 1
     return out, mask, (cols, rows)
+
+
+def expand2square_np(chw: np.ndarray, fill: Tuple[int, int, int]) -> np.ndarray:
+    """Pad [3, H, W] to a centred square canvas of ``fill`` (the reference's
+    expand2square, llava/mm_utils.py:217-228)."""
+    c, h, w = chw.shape
+    if h == w:
+        return chw
+    side = max(h, w)
+    out = np.empty((c, side, side), dtype=chw.dtype)
+    out[:] = np.asarray(fill, dtype=chw.dtype).reshape(3, 1, 1)
+    y0, x0 = (side - h) // 2, (side - w) // 2
+    out[:, y0:y0 + h, x0:x0 + w] = chw
+    return out
+
+
+def process_pad_image_host(img, *, tile: int = IMAGE_WIDTH) -> np.ndarray:
+    """'pad' mode: square canvas of the CLIP mean, bicubic resize to
+    ``tile``, CLIP-normalized [3, tile, tile] (llava/mm_utils.py:234-238)."""
+    from PIL import Image
+
+    fill = tuple(int(x * 255) for x in CLIP_IMAGE_MEAN)
+    sq = Image.fromarray(expand2square_np(_pil_to_chw(img), fill).transpose(1, 2, 0))
+    return clip_normalize(_pil_to_chw(sq.resize((tile, tile), Image.BICUBIC)))
 
 
 def make_device_anyres_fn(src_hw: Tuple[int, int], *, tile: int = IMAGE_WIDTH,

@@ -66,6 +66,32 @@ def linear_init(in_dim: int, out_dim: int, *, generator, device=None,
     return p
 
 
+class _DequantMatmul(torch.autograd.Function):
+    """x @ dequant(W)^T for a frozen quantized weight, saving the packed
+    weight (not its dequantized copy) for the backward, which dequantizes
+    again to form dX. Autograd of the plain product would keep each layer's
+    dequantized weight alive until the backward (QLoRA's memory)."""
+
+    @staticmethod
+    def forward(ctx, x, qw_keys, *qw_vals):
+        w = dequantize_weight(dict(zip(qw_keys, qw_vals))).to(x.dtype)
+        ctx.qw_keys = qw_keys
+        ctx.save_for_backward(*qw_vals)
+        return torch.matmul(x, w.transpose(-1, -2))
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        w = dequantize_weight(dict(zip(ctx.qw_keys, saved))).to(dy.dtype)
+        return (torch.matmul(dy, w), None) + (None,) * len(saved)
+
+
+def _adapter(x, a, b):
+    """(x A^T) B^T: each product accumulates in fp32 and rounds to x.dtype."""
+    xa = torch.matmul(x, a.to(x.dtype).transpose(-1, -2))
+    return torch.matmul(xa, b.to(x.dtype).transpose(-1, -2))
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ W.T [in, out] (+ b). Torch layout: weight [out, in].
 
@@ -73,22 +99,37 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     read as "a CUDA tensor": per-row ``q4`` goes to the K6 kernel and ``q4g``
     to K7 (``ops.quant_matmul``); every other format (int8, NF4, grouped
     ``q4``), and every format on the CPU, dequantizes to fp32 and is cast to
-    ``x.dtype`` before the matmul, as XLA does."""
-    if "lora" in p or "lora_b" in p:
-        raise NotImplementedError("LoRA adapters are not ported yet "
-                                  "(ROADMAP Queue 1 step 9: lora.py)")
+    ``x.dtype`` before the matmul, as XLA does (under autograd through
+    ``_DequantMatmul``, which keeps only the packed weight for the backward).
+
+    Adapters, as ``layers.py:70-85``: a ``"lora"`` entry ({"A": [r, in], "B":
+    [out, r]}, alpha / r folded into B; ``train.lora.attach``) adds
+    ``(x A^T) B^T``; a ``"lora_b"`` entry (A [B, r, in], B [B, out, r]: one
+    adapter per batch row, the serving engine's gathered view) adds row b's
+    own product, x's rows taken b-major. A and B are cast to ``x.dtype``,
+    each product accumulates in fp32 and rounds to ``x.dtype``, and the sum
+    with the base output is in ``x.dtype``."""
     w = p["weight"]
     if isinstance(w, dict) and x.device.type == "cuda" and (
             ("q4" in w and w["scale"].shape[-1] == 1) or "q4g" in w):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         y = quant_matmul_q4g(x2, w) if "q4g" in w else quant_matmul(x2, w)
         y = y.reshape(*x.shape[:-1], -1)
+    elif isinstance(w, dict) and torch.is_grad_enabled() and x.requires_grad:
+        keys = tuple(w)
+        y = _DequantMatmul.apply(x, keys, *(w[k] for k in keys))
     else:
         if isinstance(w, dict):
             w = dequantize_weight(w)
         y = torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
+    if "lora" in p:
+        y = y + _adapter(x, p["lora"]["A"], p["lora"]["B"])
+    if "lora_b" in p:
+        a, b = p["lora_b"]["A"], p["lora_b"]["B"]
+        xb = x.reshape(a.shape[0], -1, x.shape[-1])
+        y = y + _adapter(xb, a, b).reshape(y.shape)
     return y
 
 

@@ -29,12 +29,20 @@ DEFAULT_LOSS_CHUNK = 256
 
 def _head_logits(x, head):
     """fp32 logits [..., V] of x [..., H] through the lm_head dict (or raw
-    [V, H] array): its weight, dequantized if int8, rounded to x's dtype."""
+    [V, H] array): its weight, dequantized if int8, rounded to x's dtype.
+    A ``"lora"`` entry adds (x A^T) B^T as ``loss.py:36-60``: x A^T rounded
+    to x's dtype, then its product with B (rounded to x's dtype) in fp32."""
     w = head["weight"] if isinstance(head, dict) else head
     if isinstance(w, dict):
         w = dequantize_weight(w)
     w32 = w.to(x.dtype).to(torch.float32)
-    return torch.matmul(x.to(torch.float32), w32.T)
+    logits = torch.matmul(x.to(torch.float32), w32.T)
+    if isinstance(head, dict) and "lora" in head:
+        a, b = head["lora"]["A"], head["lora"]["B"]
+        xa = torch.matmul(x, a.to(x.dtype).T)
+        logits = logits + torch.matmul(xa.to(torch.float32),
+                                       b.to(x.dtype).to(torch.float32).T)
+    return logits
 
 
 def _dense_nll(x, head, targets, valid):
@@ -66,9 +74,6 @@ def chunked_cross_entropy(x, lm_head_weight, labels, *,
     else:
         targets = labels
     valid = targets != ignore_index
-    if isinstance(lm_head_weight, dict) and "lora" in lm_head_weight:
-        raise NotImplementedError("LoRA adapters are not ported yet "
-                                  "(ROADMAP Queue 1 step 9: lora.py)")
 
     if chunk is None or chunk >= S:
         return _dense_nll(x, lm_head_weight, targets, valid)

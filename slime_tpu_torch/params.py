@@ -5,6 +5,10 @@ Both packages hold parameters as the same nested dicts in torch layout
 so converting is a leaf-by-leaf copy. bf16 crosses through a 16-bit integer
 view, so it is bit-exact; int8 stays int8 and fp32 stays fp32.
 
+Python numbers and strings cross unchanged, so a lora state (``{"rank",
+"alpha", "adapters": {path: {"A", "B"}}}``, ``train.lora``) crosses both ways
+like a parameter tree.
+
 ``named_leaves`` / ``map_leaves`` walk such a tree with the leaf paths JAX's
 ``optim._path_str`` writes ("llm/layers/0/q_proj/weight").
 """
@@ -40,6 +44,8 @@ def from_jax_numpy(tree, device=None, dtype=None):
         return {k: from_jax_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_numpy(v, device, dtype) for v in tree)
+    if isinstance(tree, (bool, int, float, str)):
+        return tree
     return _leaf_to_torch(tree, device, dtype)
 
 
@@ -50,6 +56,8 @@ def to_jax_numpy(tree):
         return {k: to_jax_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_jax_numpy(v) for v in tree)
+    if isinstance(tree, (bool, int, float, str)):
+        return tree
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

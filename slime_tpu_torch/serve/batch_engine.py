@@ -39,9 +39,20 @@ cache room) is masked for the dispatch's later rounds, which still run: the
 host bounds the rounds by the largest budget and reads every round in one
 pull at the end, so no round waits for a sync.
 
-Not ported yet: multi-LoRA (``register_adapter``; a request with a non-zero
-``adapter_id`` fails; ROADMAP Queue 1 item 6) and tensor-parallel serving
-(``mesh``; item 12).
+Multi-LoRA (``register_adapter``): one base model serves many fine-tunes at
+once. The registry holds each projection's adapters stacked [N, L, r, ...]
+on the device (id 0 is the base: zeros); a slot's adapter applies as
+``layers.linear``'s per-row ``lora_b`` entry, gathered to the slots from the
+registry only when the slot->adapter map changes (``lora_view_builds``
+counts the rebuilds), never per step. A tick with an adapter slot decodes
+non-fused (the fused kernels K1-K3 cannot see the per-row deltas); when the
+last adapter slot frees, decode returns to the fused path. A request's
+admission prefill runs with its own adapter attached as single ``lora``
+entries; an unknown ``adapter_id``, or an adapter with a shared prefix
+(whose KV the base computed), fails the request, and adapted prompts never
+enter the prefix cache.
+
+Not ported yet: tensor-parallel serving (``mesh``; ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -65,8 +76,6 @@ from ..params import named_leaves
 from .prefix_cache import PrefixCache, image_content_digest, image_slot_identities
 from .speculative import rejection_round, warp_probs
 
-_LORA_TODO = ("multi-LoRA serving is not ported yet: it needs LoRA itself "
-              "(ROADMAP Queue 1 item 6)")
 _MESH_TODO = ("tensor-parallel serving is not ported yet: it needs parallel/mesh.py "
               "(ROADMAP Queue 1 item 12)")
 
@@ -86,7 +95,7 @@ class Request:
     frequency_penalty: float = 0.0         # OpenAI: over generated tokens
     prefix_id: Optional[str] = None        # shared prefix from register_prefix()
     grammar_id: Optional[int] = None       # constraint from register_grammar()
-    adapter_id: Optional[int] = None       # not served yet unless 0: fails
+    adapter_id: Optional[int] = None       # LoRA from register_adapter(); 0 = base
     logprobs: int = 0                      # top-N alternatives per token (<=8)
     cancelled: bool = False                # set by engine.cancel() at retire time
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:8])
@@ -242,22 +251,36 @@ class BatchDecodeEngine:
         if draft_params is not None:
             self.d_cache = llama.init_kv_cache(draft_cfg.llm, max_slots, cache_len,
                                                dtype=self.compute_dtype, device=dev)
+        # multi-LoRA: the stacked [N, L, ...] registry per projection, each
+        # slot's adapter id, the decode view with gathered "lora_b" entries
+        # (rebuilt only when the slot->adapter map changes) and the prefill
+        # views per adapter id
+        self.lora_stacks = None
+        self._lora_rank = None
+        self._n_adapters = 1                  # id 0 = the base model
+        self._slot_adapter = np.zeros((max_slots,), np.int64)
+        self._params_lora = None
+        self._params_single = {}
+        self._use_lora = False
+        self.lora_view_builds = 0
 
     # ------------------------------------------------------------------
     # step functions (JAX's jitted closures)
-    def _prefill(self, embeds, length: int):
+    def _prefill(self, embeds, length: int, params=None):
         """Whole prompt embeds [1, S, H] -> (fp32 logits [V] at position
-        length - 1, k, v [L, S, KVH, hd])."""
+        length - 1, k, v [L, S, KVH, hd]); ``params`` defaults to the base."""
+        params = self.params if params is None else params
         logits, kvs = llama.forward(
-            self.params["llm"], embeds, self.cfg.llm, return_kv=True,
+            params["llm"], embeds, self.cfg.llm, return_kv=True,
             compute_dtype=self.compute_dtype,
             logit_positions=torch.full((1,), length - 1, device=self.device))
         k = torch.stack([kv[0][0] for kv in kvs])
         v = torch.stack([kv[1][0] for kv in kvs])
         return logits[0, 0], k, v
 
-    def _prefill_chunk(self, cache1, chunk):
-        return llama.prefill_chunk(self.params["llm"], cache1, chunk, self.cfg.llm,
+    def _prefill_chunk(self, cache1, chunk, params=None):
+        params = self.params if params is None else params
+        return llama.prefill_chunk(params["llm"], cache1, chunk, self.cfg.llm,
                                    compute_dtype=self.compute_dtype)
 
     def _sample(self, logits, meta, use_filters: bool):
@@ -304,9 +327,12 @@ class BatchDecodeEngine:
         ``use_grammar``: mask each row to its automaton state's allowed
         tokens before the penalties and the sampler, then advance the states
         of the active rows."""
+        # an adapter slot decodes non-fused: K1-K3 cannot see lora_b deltas
+        params = self._params_lora if self._use_lora else self.params
         logits, self.cache = llama.decode_step(
-            self.params["llm"], self.cache, tokens, self.cfg.llm,
-            compute_dtype=self.compute_dtype, window=window)
+            params["llm"], self.cache, tokens, self.cfg.llm,
+            compute_dtype=self.compute_dtype, window=window,
+            fused=False if self._use_lora else None)
         if use_grammar:
             gs = self.gram_state.long()
             logits = logits.masked_fill(~self._g_allowed[gs], float("-inf"))
@@ -531,7 +557,106 @@ class BatchDecodeEngine:
         self._g_offsets = offsets
 
     def register_adapter(self, lora_state: dict) -> int:
-        raise NotImplementedError(_LORA_TODO)
+        """Register a LoRA adapter for per-request serving -> its adapter_id.
+
+        ``lora_state`` is ``train.lora``'s layout over this engine's LLM
+        layers, stacked ({"rank", "alpha", "adapters": {path: {"A" [L, r,
+        in], "B" [L, out, r]}}}, ``lora.stack_adapter_state``); entries off
+        the LLM layers are ignored. Adapters of different ranks zero-pad to
+        the largest; a projection one adapter leaves out is zeros for it."""
+        scale = lora_state["alpha"] / lora_state["rank"]
+        f32 = dict(dtype=torch.float32, device=self.device)
+        new = {}
+        for path, ab in lora_state["adapters"].items():
+            parts = path.split("/")
+            if "layers" not in parts:
+                continue                       # not an LLM-layer target
+            A = torch.as_tensor(ab["A"]).detach().to(**f32)
+            B = torch.as_tensor(ab["B"]).detach().to(**f32) * scale
+            if A.dim() != 3 or B.dim() != 3:
+                raise ValueError("register_adapter needs stacked [L, ...] adapters "
+                                 "(lora.stack_adapter_state)")
+            new[parts[-1]] = {"A": A, "B": B}
+        if not new:
+            raise ValueError("no LLM-layer adapters in lora_state")
+        rank = max(self._lora_rank or 0, max(v["A"].shape[1] for v in new.values()))
+        old_n = self._n_adapters
+        stacks = {}
+        for proj in set(new) | set(self.lora_stacks or {}):
+            if self.lora_stacks is not None and proj in self.lora_stacks:
+                oa, ob = self.lora_stacks[proj]["A"], self.lora_stacks[proj]["B"]
+            else:                              # newly targeted: zeros before
+                L_, _, in_d = new[proj]["A"].shape
+                oa = torch.zeros((old_n, L_, 0, in_d), **f32)
+                ob = torch.zeros((old_n, L_, new[proj]["B"].shape[1], 0), **f32)
+            oa = torch.nn.functional.pad(oa, (0, 0, 0, rank - oa.shape[2]))
+            ob = torch.nn.functional.pad(ob, (0, rank - ob.shape[3]))
+            if proj in new:
+                na, nb = new[proj]["A"], new[proj]["B"]
+            else:
+                na, nb = torch.zeros_like(oa[0]), torch.zeros_like(ob[0])
+            na = torch.nn.functional.pad(na, (0, 0, 0, rank - na.shape[1]))
+            nb = torch.nn.functional.pad(nb, (0, rank - nb.shape[2]))
+            stacks[proj] = {"A": torch.cat([oa, na[None]]), "B": torch.cat([ob, nb[None]])}
+        self.lora_stacks = stacks
+        self._lora_rank = rank
+        self._n_adapters = old_n + 1
+        self._params_single.clear()
+        self._refresh_lora_view(force=True)
+        return self._n_adapters - 1
+
+    def _with_layer_entries(self, entries):
+        """The params tree with ``entries(proj) -> {key: factors}`` merged
+        into each adapted projection of the LLM layers (list or stacked; a
+        list takes layer li's slice of leading-[L] factors)."""
+        base = self.params["llm"]["layers"]
+        if isinstance(base, dict):
+            layers = dict(base)
+            for proj in self.lora_stacks:
+                layers[proj] = {**layers[proj], **entries(proj)}
+        else:
+            layers = []
+            for li, lp in enumerate(base):
+                lp = dict(lp)
+                for proj in self.lora_stacks:
+                    lp[proj] = {**lp[proj], **{
+                        k: {n: t[li] for n, t in ab.items()}
+                        for k, ab in entries(proj).items()}}
+                layers.append(lp)
+        return {**self.params, "llm": {**self.params["llm"], "layers": layers}}
+
+    def _refresh_lora_view(self, force: bool = False) -> None:
+        """Rebuild the decode view with each slot's adapter gathered into
+        ``lora_b`` entries ([L, B, r, in] / [L, B, out, r]). Called when the
+        slot->adapter map changes."""
+        if self.lora_stacks is None:
+            return
+        self._use_lora = bool(self._slot_adapter.any())
+        if not self._use_lora and not force:
+            return
+        idx = torch.from_numpy(self._slot_adapter).to(self.device)
+        gathered = {proj: {n: t.index_select(0, idx).transpose(0, 1) for n, t in ab.items()}
+                    for proj, ab in self.lora_stacks.items()}
+        self._params_lora = self._with_layer_entries(lambda proj: {"lora_b": gathered[proj]})
+        self.lora_view_builds += 1
+
+    def _prefill_params(self, req: Request):
+        """The params for this request's admission prefill: the base tree,
+        or the tree with the request's adapter attached as single ``lora``
+        entries (cached per adapter id)."""
+        aid = req.adapter_id or 0
+        if not aid:
+            return self.params
+        if aid not in self._params_single:
+            self._params_single[aid] = self._with_layer_entries(lambda proj: {"lora": {
+                n: t[aid] for n, t in self.lora_stacks[proj].items()}})
+        return self._params_single[aid]
+
+    def _assign_adapter(self, slot_idx: int, req: Request) -> None:
+        aid = req.adapter_id or 0
+        if self._slot_adapter[slot_idx] != aid:
+            self._slot_adapter[slot_idx] = aid
+            self._refresh_lora_view()
 
     def register_prefix(self, input_ids, pixel_values=None, crop_mask=None,
                         prefix_id: Optional[str] = None) -> str:
@@ -662,9 +787,10 @@ class BatchDecodeEngine:
             if req.grammar_id is not None and not 0 <= req.grammar_id < len(self.grammars):
                 req.out_queue.put(None)    # an unknown grammar fails the request
                 return False
-            if req.adapter_id:
-                # no adapter can be registered yet: an unknown id, which JAX
-                # fails the same way
+            if req.adapter_id and (not 0 < req.adapter_id < self._n_adapters
+                                   or req.prefix_id is not None):
+                # an unknown adapter, or a shared prefix (its KV computed with
+                # the base weights) under an adapter that would change it
                 req.out_queue.put(None)
                 return False
             embeds, length, ident = self._embed_request(req)
@@ -678,6 +804,7 @@ class BatchDecodeEngine:
             base = 0
             auto_hit = []
             if (req.prefix_id is None and cache_key is not None
+                    and not req.adapter_id        # adapters change prefix KV
                     and self.prefix_cache is not None):
                 base, auto_hit = self.prefix_cache.match(cache_key)
             if req.prefix_id is not None:
@@ -722,7 +849,8 @@ class BatchDecodeEngine:
         chunk = a["embeds"][:, off:off + Cc]
         if chunk.shape[1] < Cc:
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, Cc - chunk.shape[1]))
-        logits, a["cache1"] = self._prefill_chunk(a["cache1"], chunk)
+        logits, a["cache1"] = self._prefill_chunk(a["cache1"], chunk,
+                                                  self._prefill_params(a["req"]))
         self.chunk_rows[Cc] += 1
         a["last_logits"] = logits
         a["last_off"] = off
@@ -751,7 +879,7 @@ class BatchDecodeEngine:
         if slot_idx is None:
             self.pending.put(req)
             return
-        row, k, v = self._prefill(embeds, length)
+        row, k, v = self._prefill(embeds, length, self._prefill_params(req))
         self._activate(req, slot_idx, row.cpu().numpy(), k, v, length, cache_key)
 
     def _activate(self, req: Request, slot_idx: int, logits_row, k, v, length: int,
@@ -767,6 +895,7 @@ class BatchDecodeEngine:
         self.gram_state[slot_idx] = (0 if gid is None
                                      else int(self._g_nxt_h[self._g_offsets[gid], first]))
         self._seed_penalty_rows(req, slot_idx, first)
+        self._assign_adapter(slot_idx, req)
         slot = _Slot(req)
         slot.generated.append(first)
         slot.budget -= 1          # the prefill-sampled token counts toward the budget
@@ -779,9 +908,11 @@ class BatchDecodeEngine:
                              cache_key=None) -> None:
         """Feed the just-prefilled prompt's full blocks to the prefix cache,
         keyed by ``cache_key`` (input_ids, or the fused identity stream).
-        Explicit-prefix requests never cache. k/v_full: [L, S, KVH, hd]."""
+        Explicit-prefix and adapted requests never cache (their KV is not a
+        function of the key alone). k/v_full: [L, S, KVH, hd]."""
         pc = self.prefix_cache
-        if pc is None or cache_key is None or req.prefix_id is not None:
+        if (pc is None or cache_key is None or req.prefix_id is not None
+                or req.adapter_id):
             return
         blk = pc.block
         for b, digest, parent in pc.missing_blocks(cache_key, length):
@@ -891,6 +1022,9 @@ class BatchDecodeEngine:
                                   max(now - slot.t_first, 1e-9)))  # decode wall time
             slot.req.out_queue.put(None)
         self.slots[idx] = None
+        if self._slot_adapter[idx]:
+            self._slot_adapter[idx] = 0
+            self._refresh_lora_view()
 
     def tick(self) -> int:
         """Advance admissions (one chunk) and run one decode dispatch for all
@@ -950,7 +1084,7 @@ class BatchDecodeEngine:
 
         idle = self._admission is None and self.pending.empty()
         if (self.draft_params is not None and idle and not use_penalties and n_lp == 0
-                and not use_grammar
+                and not use_grammar and not self._use_lora
                 and all((self.slots[i].req.temperature == 0.0
                          or (self.slots[i].req.top_k == 0 and self.slots[i].req.min_p == 0.0))
                         and self.slots[i].budget > 1

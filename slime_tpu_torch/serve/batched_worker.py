@@ -12,8 +12,10 @@ Start it on the card (the default device) from a checkpoint directory:
     python -m slime_tpu_torch.serve.batched_worker --model-path DIR \\
         --controller-address http://localhost:21001 --load-8bit --kv-cache-int8
 
-``--device cpu`` runs it on the CPU. ``--adapter-path`` (multi-LoRA) and
-``--tensor-parallel`` above 1 raise: not ported yet.
+``--device cpu`` runs it on the CPU. ``--adapter-path NAME=DIR`` (repeatable)
+serves LoRA checkpoints beside the base model (``load_adapter``); a request
+picks one with ``"adapter": NAME`` or ``"adapter_id": N``.
+``--tensor-parallel`` above 1 raises: not ported yet.
 """
 from __future__ import annotations
 
@@ -25,12 +27,13 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..config import SliMEConfig
 from ..constants import WORKER_HEART_BEAT_INTERVAL
 from ..data.image_ops import process_anyres_image_host
 from ..data.tokenization import StopStringMatcher, tokenizer_image_token
-from .batch_engine import _LORA_TODO, _MESH_TODO, BatchDecodeEngine, Request
+from .batch_engine import _MESH_TODO, BatchDecodeEngine, Request
 from .protocol import ErrorCode, SERVER_ERROR_MSG, JsonHTTPServer
 
 
@@ -56,6 +59,7 @@ class BatchedWorker:
                                         prefix_cache_mb=prefix_cache_mb,
                                         prefix_block=prefix_block, device=device)
         self._grammar_cache = {}
+        self.adapters = {}   # name -> adapter id (load_adapter)
         self._vocab_bytes = None
         self.engine.start()
         if register and controller_addr:
@@ -128,10 +132,37 @@ class BatchedWorker:
             self._grammar_cache[pattern] = self.engine.register_grammar(tdfa)
         return self._grammar_cache[pattern]
 
+    def _adapter_id(self, p: dict):
+        """Multi-LoRA: ``adapter`` (a name from ``load_adapter``) or
+        ``adapter_id`` (an id from ``register_adapter``) in the payload."""
+        if p.get("adapter"):
+            return self.adapters.get(str(p["adapter"]))
+        if p.get("adapter_id") is not None:
+            return int(p["adapter_id"])
+        return None
+
+    def load_adapter(self, name: str, adapter_dir: str) -> int:
+        """Load a reference-layout LoRA checkpoint directory
+        (``adapter_model.bin`` + ``adapter_config.json``), stack it over the
+        LLM's layers and register it with the engine -> its adapter id."""
+        import json
+        import os
+
+        from ..train import lora as lora_lib
+        with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+            acfg = json.load(f)
+        sd = torch.load(os.path.join(adapter_dir, "adapter_model.bin"),
+                        map_location="cpu", weights_only=True)
+        state = lora_lib.import_peft({k: v.float() for k, v in sd.items()},
+                                     r=int(acfg.get("r", 64)),
+                                     alpha=int(acfg.get("lora_alpha", 16)))
+        state = lora_lib.stack_adapter_state(state, self.cfg.llm.num_layers)
+        aid = self.engine.register_adapter(state)
+        self.adapters[name] = aid
+        return aid
+
     def generate_stream(self, p: dict):
         try:
-            if p.get("adapter") or p.get("adapter_id"):
-                raise NotImplementedError(_LORA_TODO)
             prompt = p["prompt"]
             images = p.get("images") or []
             pix = cmask = None
@@ -167,6 +198,7 @@ class BatchedWorker:
                           presence_penalty=float(p.get("presence_penalty", 0.0)),
                           frequency_penalty=float(p.get("frequency_penalty", 0.0)),
                           prefix_id=pid, grammar_id=gid,
+                          adapter_id=self._adapter_id(p),
                           logprobs=int(p.get("logprobs") or 0))
             self.engine.submit(req)
             generated = []
@@ -210,8 +242,6 @@ def build_server(worker: BatchedWorker, host: str, port: int,
 
 
 def main(argv=None):
-    import torch
-
     from .. import checkpoint as ckpt
     from ..data.tokenization import get_model_name_from_path
     from ..models.layers import resolve_device
@@ -236,7 +266,8 @@ def main(argv=None):
     ap.add_argument("--kv-cache-int8", action="store_true",
                     help="int8 KV cache with per-(position, head) scales")
     ap.add_argument("--adapter-path", action="append", default=[], metavar="NAME=DIR",
-                    help="serve a LoRA adapter beside the base model (not ported yet)")
+                    help="serve a LoRA adapter beside the base model (repeatable); "
+                         'requests select it with {"adapter": NAME}')
     ap.add_argument("--conv-mode", default=None,
                     help="conversation template of the /v1 routes (default: from the "
                          "model name)")
@@ -247,8 +278,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the worker runs (default: the current CUDA device)")
     args = ap.parse_args(argv)
-    if args.adapter_path:
-        raise NotImplementedError(_LORA_TODO)
     if args.tensor_parallel > 1:
         raise NotImplementedError(_MESH_TODO)
     from transformers import AutoTokenizer
@@ -274,6 +303,9 @@ def main(argv=None):
                            draft_params=draft_params, draft_cfg=draft_cfg,
                            spec_k=args.spec_k, kv_quant=args.kv_cache_int8,
                            prefix_cache_mb=args.prefix_cache_mb, device=dev)
+    for spec in args.adapter_path:
+        nm, _, d = spec.partition("=")
+        worker.load_adapter(nm, d or nm)
     srv = build_server(worker, args.host, args.port, conv_mode=args.conv_mode)
     print(f"batched worker {name} on {args.host}:{srv.port} (+ OpenAI /v1 routes), "
           f"device {dev}", flush=True)

@@ -26,6 +26,15 @@ Per trainable label group the update is optax's
 
 A trainable leaf that got no gradient (a branch the stage never runs) takes
 a zero gradient, as JAX's would be, so its moments decay in step with optax.
+
+``gradient_accumulation_steps`` k > 1 wraps the optimizer in ``MultiSteps``,
+``optax.MultiSteps``' semantics: each micro-step folds its gradients into a
+running mean (Welford, as optax), the inner update runs on every k-th
+micro-step with that mean and leaves the parameters untouched on the others,
+and the schedules count inner updates. ``make_lora_optimizer`` builds the
+optimizer over a LoRA trainable tree {"adapters", "extras"} (optim.py:131-165):
+the adapters at the base LR, the extras (projector, sampler) in the
+``mm_projector_lr`` group.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import torch
 
 from ..params import map_leaves, named_leaves
 
-_TODO = "(ROADMAP: the port's training queue)"
+_OPT8_TODO = "(ROADMAP Queue 1 item 7: train/opt8.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +68,7 @@ class TrainConfig:
     unfreeze_mm_vision_tower: bool = False
     mm_learnable_gated: int = -1
     gradient_accumulation_steps: int = 1
-    # "adamw" (fp32 moments) or "adamw8bit" (not ported yet)
+    # "adamw" (fp32 moments) or "adamw8bit" (not ported yet: ROADMAP Queue 1 item 7)
     optim: str = "adamw"
 
 
@@ -141,6 +150,10 @@ class GroupedAdamW:
                                 "schedule": make_schedule(tc, lr), "opt": opt,
                                 "count": 0})
 
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return [p for g in self.groups for p in g["params"]]
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         sq = []
@@ -166,21 +179,91 @@ class GroupedAdamW:
             return torch.zeros(())
         return torch.sqrt(sum(sq))
 
+    def state_dict(self) -> Dict:
+        return {"counts": [g["count"] for g in self.groups],
+                "opts": [g["opt"].state_dict() for g in self.groups]}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        for g, count, opt in zip(self.groups, sd["counts"], sd["opts"]):
+            g["count"] = count
+            g["opt"].load_state_dict(opt)
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, k)`` over the inner optimizer's leaves (see
+    the module docstring). ``step()`` returns the global norm of this
+    micro-step's gradients, as the train step logs it."""
+
+    def __init__(self, inner: GroupedAdamW, k: int):
+        self.inner, self.k = inner, k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for p in inner.params]
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        params = self.inner.params
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads)) \
+            if grads else torch.zeros(())
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (self.mini_step + 1))
+        if self.mini_step < self.k - 1:
+            self.mini_step += 1
+            for p in params:
+                p.grad = None
+            return gnorm
+        for p, a in zip(params, self.acc):
+            p.grad = a.clone()
+        self.inner.step()
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+        return gnorm
+
+    def state_dict(self) -> Dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.mini_step, self.gradient_step = sd["mini_step"], sd["gradient_step"]
+        for a, b in zip(self.acc, sd["acc"]):
+            a.copy_(b)
+
+
+def _build(groups, tc: TrainConfig):
+    if tc.optim != "adamw":
+        raise NotImplementedError(f"optim={tc.optim!r} (8-bit Adam moments) is not "
+                                  f"ported yet {_OPT8_TODO}")
+    tx = GroupedAdamW(groups, tc)
+    return MultiSteps(tx, tc.gradient_accumulation_steps) \
+        if tc.gradient_accumulation_steps > 1 else tx
+
 
 def make_optimizer(params, tc: TrainConfig):
-    """-> (GroupedAdamW over the trainable leaves of ``params``, labels tree).
+    """-> (GroupedAdamW over the trainable leaves of ``params``, wrapped in
+    ``MultiSteps`` under accumulation; the labels tree).
 
     ``params`` must already carry the labels' ``requires_grad`` flags
     (``step.init_train_state`` sets them)."""
-    if tc.optim != "adamw":
-        raise NotImplementedError(f"optim={tc.optim!r} (train/opt8.py) is not "
-                                  f"ported yet {_TODO}")
-    if tc.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient accumulation (optax.MultiSteps) is "
-                                  f"not ported yet {_TODO}")
     labels = label_tree(params, tc)
     groups: Dict[str, List[Tuple[str, torch.Tensor]]] = {}
     for (path, leaf), (_, label) in zip(named_leaves(params), named_leaves(labels)):
         if label != "frozen":
             groups.setdefault(label, []).append((path, leaf))
-    return GroupedAdamW(groups, tc), labels
+    return _build(groups, tc), labels
+
+
+def make_lora_optimizer(trainable, tc: TrainConfig):
+    """-> (the optimizer over a LoRA trainable tree {"adapters", "extras"},
+    labels tree): the adapters at the base LR, the extras in the "proj"
+    group at ``mm_projector_lr`` (or the base LR). Optimizer state exists
+    only for this tree; the frozen (possibly quantized) base has none."""
+    labels = map_leaves(lambda path, leaf: "proj" if path.startswith("extras/") else "base",
+                        trainable)
+    groups: Dict[str, List[Tuple[str, torch.Tensor]]] = {"base": [], "proj": []}
+    for (path, leaf), (_, label) in zip(named_leaves(trainable), named_leaves(labels)):
+        groups[label].append((path, leaf))
+    return _build({k: v for k, v in groups.items() if v}, tc), labels

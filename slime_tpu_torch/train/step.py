@@ -1,7 +1,16 @@
 """Training step: loss, gradients of the trainable leaves, optimizer update.
 
 Port of ``slime_tpu/train/step.py`` (``make_train_step`` :26-55,
-``init_train_state`` :132-154) as plain functions over the parameter dict.
+``init_train_state`` :132-154, and the LoRA / QLoRA pair
+``make_lora_train_step`` / ``init_lora_train_state`` :58-130) as plain
+functions over the parameter dict.
+
+In LoRA mode the trainable tree is ``{"adapters", "extras"}`` (the lora
+factors, and fresh copies of the projector and sampler); the base, bf16 or
+quantized (int8, NF4: QLoRA), is a frozen input that never requires grad and
+never enters the optimizer. The forward attaches the adapters in factored
+form (``lora.attach`` -> ``layers.linear``'s ``lora`` branch), so a quantized
+base keeps its own path.
 
 ``init_train_state`` labels the leaves (``optim.label_tree``) and returns a
 state whose trainable leaves are fresh copies with ``requires_grad=True``,
@@ -26,7 +35,8 @@ from ..config import SliMEConfig
 from ..models import slime
 from ..models.layers import fp32_accumulation
 from ..params import map_leaves
-from .optim import TrainConfig, make_optimizer, trainable_label
+from . import lora as lora_lib
+from .optim import TrainConfig, make_lora_optimizer, make_optimizer, trainable_label
 
 
 def init_train_state(params, tc: TrainConfig):
@@ -56,6 +66,51 @@ def make_train_step(cfg: SliMEConfig, tc: TrainConfig, tx,
     def step(state, batch, generator=None, noise=None):
         with fp32_accumulation():
             loss, aux = slime.loss_fn(state["params"], cfg, batch, training=True,
+                                      generator=generator, noise=noise,
+                                      use_kernel=use_kernel,
+                                      compute_dtype=compute_dtype, remat=remat,
+                                      loss_chunk=loss_chunk)
+            loss.backward()
+        gnorm = tx.step()
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm, **aux}
+
+    return step
+
+
+def init_lora_train_state(base_params, lora_state, tc: TrainConfig,
+                          train_extras=("projector", "sampler")):
+    """-> (base, state {"params": {"adapters", "extras"}, "opt_state",
+    "step"}, tx). The trainable leaves are fresh copies that require grad;
+    ``base`` is the caller's tree (shared, frozen; its projector and sampler
+    are shadowed by the extras in the step)."""
+    def fresh(path, leaf):
+        return leaf.detach().clone().requires_grad_(True)
+
+    trainable = map_leaves(fresh, {
+        "adapters": lora_state["adapters"],
+        "extras": {k: base_params[k] for k in train_extras if k in base_params}})
+    base = dict(base_params)
+    tx, _ = make_lora_optimizer(trainable, tc)
+    return base, {"params": trainable, "opt_state": tx, "step": 0}, tx
+
+
+def make_lora_train_step(cfg: SliMEConfig, tc: TrainConfig, tx, *, rank: int, alpha: int,
+                         use_kernel: Optional[bool] = None,
+                         compute_dtype=torch.bfloat16, remat: bool = False,
+                         loss_chunk="auto"):
+    """Returns step(state, base_params, batch, generator=None, noise=None)
+    -> (state, metrics), as ``make_train_step``'s step over the LoRA
+    trainable tree."""
+    del tc
+
+    def step(state, base_params, batch, generator=None, noise=None):
+        trainable = state["params"]
+        params = {**base_params, **trainable["extras"]}
+        params = lora_lib.attach(params, {"rank": rank, "alpha": alpha,
+                                          "adapters": trainable["adapters"]})
+        with fp32_accumulation():
+            loss, aux = slime.loss_fn(params, cfg, batch, training=True,
                                       generator=generator, noise=noise,
                                       use_kernel=use_kernel,
                                       compute_dtype=compute_dtype, remat=remat,

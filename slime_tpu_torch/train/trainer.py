@@ -1,8 +1,8 @@
-"""Training orchestration: SliME's staged training as one explicit loop.
+"""Training orchestration: SliME's staged training and SFT as one explicit loop.
 
-Port of ``slime_tpu/train/trainer.py`` (``RunConfig``, ``Trainer`` without
-its LoRA and DPO branches, ``run_stage``; :42-143, :145-251). The staged
-pretraining runs through it:
+Port of ``slime_tpu/train/trainer.py`` (``RunConfig``, ``Trainer``,
+``run_stage``; :42-251) without its DPO branch. The staged pretraining runs
+through it:
 
 - stage 1: ``tune_mm_mlp_adapter``, ``use_global_only``,
   ``mm_learnable_gated=0`` (the gated projector's MLP expert trains);
@@ -10,18 +10,21 @@ pretraining runs through it:
 - stage 3: ``tune_mm_mlp_adapter``, ``use_local_only`` (the compression
   layer, ``sampler``, and the projector).
 
-In all three the LLM body and the vision tower are frozen.
+In all three the LLM body and the vision tower are frozen. ``lora=`` (a
+``train.lora`` state) is LoRA mode: only the adapters and the projector and
+sampler train, over a frozen base that may be quantized (QLoRA); saves write
+the reference's LoRA layout and ``params_host`` the merged tree.
 
 The input pipeline's ``Prefetcher`` runs the host-to-device copy in its
-producer thread, from pinned memory; a SIGTERM (``PreemptionGuard``) saves
-the parameters and ends the loop; ``checkpoint.save_checkpoint`` writes the
-reference's files (the staged ``mm_projector.bin`` / ``sampler.bin``). The
-step counter stays on the host; device scalars are read only at log steps.
-
-Not ported yet (ROADMAP): the Orbax train-state save and resume
-(``state_ckpt``; a ``resume_from`` or a found ``state-*`` directory raises,
-and a save step or a preemption writes the parameter checkpoint only), LoRA
-and DPO.
+producer thread, from pinned memory. Every ``save_steps`` the trainer writes
+a model checkpoint (``checkpoint-<step>``) and a train-state checkpoint
+(``state-<step>``: parameters, optimizer, step and generator); a SIGTERM
+(``PreemptionGuard``) writes the state and ends the loop. A new trainer in
+the same output directory (or with ``resume_from``) resumes from the latest
+state and continues exactly; like JAX's it feeds the batches it is given
+from their start (consumed batches are not skipped). The step counter stays
+on the host; device scalars are read only at log steps. DPO raises (ROADMAP
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -38,13 +41,16 @@ import torch
 from .. import checkpoint as ckpt_lib
 from ..config import SliMEConfig
 from ..data.dataset import Prefetcher
-from ..params import named_leaves
+from ..parallel.memory_plan import check_grad_accum_fit
+from ..params import map_leaves, named_leaves
+from . import lora as lora_lib
 from . import state_ckpt
 from .optim import TrainConfig
 from .preemption import PreemptionGuard
-from .step import init_train_state, make_train_step
+from .step import (init_lora_train_state, init_train_state, make_lora_train_step,
+                   make_train_step)
 
-_TODO = "is not ported yet (ROADMAP: the port's training queue)"
+_DPO_TODO = "DPO training is not ported yet (ROADMAP Queue 1 item 8: train/dpo.py)"
 
 
 @dataclasses.dataclass
@@ -56,7 +62,8 @@ class RunConfig:
     seed: int = 3407                      # reference fixed seed (train.py:1202-1213)
     adapters_only_save: bool = False      # staged pretrain: mm_projector/sampler only
     resume_from: Optional[str] = None
-    handle_preemption: bool = True        # SIGTERM -> save + clean exit
+    async_save: bool = False              # train-state saves written in the background
+    handle_preemption: bool = True        # SIGTERM -> state save + clean exit
     prefetch_depth: int = 2               # input-pipeline queue depth (0 = off)
 
 
@@ -71,23 +78,54 @@ class Trainer:
                  lora=None, dpo=None, ref_params=None):
         """``params``: the parameter tree on its device; the trainer trains
         copies of its trainable leaves and shares the frozen ones.
-        ``generator`` feeds the training noise (default: a generator on the
-        parameters' device seeded with ``rc.seed``)."""
-        if lora is not None or dpo is not None or ref_params is not None:
-            raise NotImplementedError(f"LoRA / DPO training {_TODO}")
+        ``lora``: a ``train.lora`` state switches to LoRA mode (``params``
+        may hold a quantized LLM: QLoRA). ``generator`` feeds the training
+        noise (default: a generator on the parameters' device seeded with
+        ``rc.seed``); its state is part of the train-state checkpoint."""
+        if dpo is not None or ref_params is not None:
+            raise NotImplementedError(_DPO_TODO)
         self.cfg, self.tc, self.rc = cfg, tc, rc
         self.compute_dtype = compute_dtype or torch.bfloat16
-        self.state, self.tx = init_train_state(params, tc)
-        self.step_fn = make_train_step(cfg, tc, self.tx, use_kernel=use_kernel,
-                                       compute_dtype=self.compute_dtype, remat=remat)
-        resume = rc.resume_from or state_ckpt.latest_checkpoint(rc.output_dir)
-        if resume:
-            raise NotImplementedError(f"resuming from {resume}: the train-state "
-                                      f"checkpoint (state_ckpt) {_TODO}")
+        self.lora = lora
+        if lora is not None:
+            self.base, self.state, self.tx = init_lora_train_state(params, lora, tc)
+            lora_step = make_lora_train_step(
+                cfg, tc, self.tx, rank=lora["rank"], alpha=lora["alpha"],
+                use_kernel=use_kernel, compute_dtype=self.compute_dtype, remat=remat)
+            base = self.base    # bound here: a closure over self would make a cycle
+            self.step_fn = lambda state, batch, g: lora_step(state, base, batch, g)
+        else:
+            self.state, self.tx = init_train_state(params, tc)
+            self.step_fn = make_train_step(cfg, tc, self.tx, use_kernel=use_kernel,
+                                           compute_dtype=self.compute_dtype, remat=remat)
+        if tc.gradient_accumulation_steps > 1:
+            # fail fast if the fp32 accumulator provably cannot fit next to
+            # the state just built (only the trainable leaves accumulate)
+            trainable = [leaf for _, leaf in named_leaves(self.state["params"])
+                         if leaf.requires_grad]
+            check_grad_accum_fit(trainable, tc.gradient_accumulation_steps)
         self.device = _first_device(params)
         self.generator = generator or torch.Generator(device=self.device).manual_seed(rc.seed)
+        resume = rc.resume_from or state_ckpt.latest_checkpoint(rc.output_dir)
+        if resume:
+            self.state["step"] = state_ckpt.restore_train_state(
+                resume, target=self._checkpointed())["step"]
+            print(f"[train] resumed from {resume} at step {self.state['step']}",
+                  flush=True)
         self.metrics_file = os.path.join(rc.output_dir, "metrics.jsonl")
         os.makedirs(rc.output_dir, exist_ok=True)
+
+    def _checkpointed(self) -> Dict:
+        """What a train-state checkpoint holds: the trainable tree, the
+        optimizer, the step and the generator."""
+        return {"params": self.state["params"], "opt_state": self.tx,
+                "step": self.state["step"], "generator": self.generator}
+
+    def save_state(self, step: int, **meta) -> None:
+        state_ckpt.save_train_state(
+            os.path.join(self.rc.output_dir, f"state-{step}"), self._checkpointed(),
+            extra={"step": step, **meta},
+            async_save=self.rc.async_save and not meta)
 
     @property
     def params(self):
@@ -118,7 +156,13 @@ class Trainer:
             batches = pf
         else:
             batches = (self._put(b) for b in batches)
+        try:
+            return self._steps(batches, pf, guard)
+        finally:
+            if pf is not None:
+                pf.close()
 
+    def _steps(self, batches, pf, guard) -> Dict:
         t_loop0 = last_log = time.perf_counter()
         tokens_since = 0
         step = self.state["step"]
@@ -127,9 +171,9 @@ class Trainer:
             if self.rc.max_steps is not None and step >= self.rc.max_steps:
                 break
             if guard is not None and guard.triggered:
-                print(f"[train] preemption signal: saving checkpoint-{step} "
-                      "(parameters only) and exiting", flush=True)
-                self.save(os.path.join(self.rc.output_dir, f"checkpoint-{step}"))
+                print(f"[train] preemption signal: saving state-{step} and exiting",
+                      flush=True)
+                self.save_state(step, preempted=True)
                 break
             self.state, m = self.step_fn(self.state, batch, self.generator)
             tokens_since += int(np.prod(batch["input_ids"].shape))
@@ -155,17 +199,39 @@ class Trainer:
                 tokens_since = 0
             if self.rc.save_steps and step % self.rc.save_steps == 0:
                 self.save(os.path.join(self.rc.output_dir, f"checkpoint-{step}"))
+                self.save_state(step)
+        state_ckpt.wait_for_saves()
         return {k: float(v) for k, v in m.items()}
 
     def save(self, path: str) -> None:
-        """Write a checkpoint directory (``checkpoint.save_checkpoint``): the
+        """Write a checkpoint directory: in LoRA mode the reference's LoRA
+        layout (``checkpoint.save_lora_checkpoint``: adapters, the
+        projector and sampler); else ``checkpoint.save_checkpoint``, the
         projector and sampler only with ``adapters_only_save`` (the
-        staged-pretrain files), else the whole tree."""
+        staged-pretrain files), or the whole tree."""
+        if self.lora is not None:
+            trainable = self.state["params"]
+            ckpt_lib.save_lora_checkpoint(
+                path, trainable["extras"],
+                {"rank": self.lora["rank"], "alpha": self.lora["alpha"],
+                 "adapters": trainable["adapters"]}, self.cfg)
+            return
         params = self.params
         if self.rc.adapters_only_save:
             params = {k: params[k] for k in ("projector", "sampler") if k in params}
         ckpt_lib.save_checkpoint(path, params, self.cfg,
                                  adapters_only=self.rc.adapters_only_save)
+
+    def params_host(self):
+        """The trained tree on the host: in LoRA mode the base with the
+        trained extras and the adapters merged in (``lora.merge``)."""
+        params = self.params
+        if self.lora is not None:
+            params = lora_lib.merge(
+                {**self.base, **self.state["params"]["extras"]},
+                {"rank": self.lora["rank"], "alpha": self.lora["alpha"],
+                 "adapters": self.state["params"]["adapters"]})
+        return map_leaves(lambda _, t: t.detach().to("cpu"), params)
 
 
 def run_stage(params, cfg: SliMEConfig, tc: TrainConfig, rc: RunConfig,

@@ -1,18 +1,22 @@
 """Loading checkpoints in the port (``checkpoint.load_pretrained``,
 ``to_torch``, ``load_for_serving``) and the entry points that load them:
-the non-LoRA tests of ``tests/test_load_modes.py`` on the CPU with
-checkpoints written by the JAX package's ``save_checkpoint`` at
-``SliMEConfig.tiny()``.
+the tests of ``tests/test_load_modes.py`` on the CPU with checkpoints
+written by the JAX package's ``save_checkpoint`` / ``save_lora_checkpoint``
+at ``SliMEConfig.tiny()``.
 
 - Every mode gives the JAX package's loaded tree leaf for leaf (the same
   paths, dtypes and values): a full checkpoint, a base plus the staged
   pretraining's ``mm_projector.bin`` / ``sampler.bin``, a plain LM, and the
   quantized loads (8-bit, 4-bit in each int4 scheme, the int8 lm_head, the
-  W8A8 tower). A LoRA checkpoint raises NotImplementedError.
+  W8A8 tower), and a LoRA checkpoint merged into its base (also quantized
+  after the merge). A LoRA checkpoint without a base, or whose factors map
+  onto no weight, raises ValueError. ``save_lora_checkpoint`` writes the JAX
+  package's files byte for byte.
 - ``python -m slime_tpu_torch.serve.cli --device cpu`` on a saved tiny
   checkpoint with piped input prints an answer, with and without a draft
-  model; without a card and without ``--device`` the entry points raise;
-  ``--adapter-path`` and ``--tensor-parallel 2`` raise NotImplementedError.
+  model; without a card and without ``--device`` the entry points raise
+  (``--adapter-path`` too); ``--tensor-parallel 2`` raises
+  NotImplementedError.
 """
 import os
 import subprocess
@@ -130,14 +134,65 @@ def test_to_torch_keeps_quantized_scales_fp32(saved):
 
 
 def test_lora_checkpoint_raises(saved, tmp_path):
+    """A LoRA checkpoint without ``model_base`` is refused, as is one whose
+    factors map onto no loaded weight."""
     _, _, base = saved
     d = tmp_path / "lora"
     d.mkdir()
     SliMEConfig.tiny().save(str(d))
     torch.save({"base_model.model.model.layers.0.self_attn.q_proj.lora_A.weight":
                 torch.zeros(4, 32)}, d / "adapter_model.bin")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="model_base"):
+        tckpt.load_pretrained(str(d))
+    torch.save({"base_model.model.model.layers.0.self_attn.q_proj.lora_A.magnitude":
+                torch.zeros(4, 32)}, d / "adapter_model.bin")
+    with pytest.raises(ValueError, match="did not map"):
         tckpt.load_pretrained(str(d), model_base=base)
+
+
+def _lora_dir(saved, tmp_path, seed=3, with_config=True):
+    from slime_tpu.train import lora as jlora
+    jcfg, params, _ = saved
+    state = jax.device_get(jlora.init_lora(jax.random.PRNGKey(1), params, r=4, alpha=8))
+    r = np.random.default_rng(seed)
+    for ab in state["adapters"].values():
+        ab["B"] = (r.standard_normal(ab["B"].shape) * 0.05).astype(np.float32)
+    d = str(tmp_path / "jax_lora")
+    jckpt.save_lora_checkpoint(d, {"projector": params["projector"],
+                                   "sampler": params["sampler"]}, state, jcfg)
+    if not with_config:
+        os.remove(os.path.join(d, "adapter_config.json"))
+    return d, state
+
+
+@pytest.mark.parametrize("load_bits,with_config", [(None, True), (None, False), (8, True)])
+def test_lora_checkpoint_matches_jax(saved, tmp_path, load_bits, with_config):
+    """The LoRA load mode: adapter_model.bin (+ adapter_config.json, or the
+    rank from the factors and alpha = 2r) and non_lora_trainables.bin over
+    model_base, merged at load, leaf for leaf JAX's tree."""
+    jcfg, _, base = saved
+    d, _ = _lora_dir(saved, tmp_path, with_config=with_config)
+    _same_tree(tckpt.load_pretrained(d, model_base=base, load_bits=load_bits),
+               jckpt.load_pretrained(d, model_base=base, load_bits=load_bits))
+    sd = tckpt.load_state_dict_file(os.path.join(d, "adapter_model.bin"))
+    assert tckpt._lora_rank_alpha(d, sd) == jckpt._lora_rank_alpha(d, sd) == (4, 8)
+
+
+def test_save_lora_checkpoint_files_match_jax(saved, tmp_path):
+    from slime_tpu_torch import params as bridge
+    jcfg, params, _ = saved
+    d, state = _lora_dir(saved, tmp_path)
+    out = str(tmp_path / "port_lora")
+    tp = bridge.from_jax_numpy(jax.device_get(params), device="cpu")
+    tckpt.save_lora_checkpoint(out, {"projector": tp["projector"], "sampler": tp["sampler"]},
+                               bridge.from_jax_numpy(state, device="cpu"),
+                               SliMEConfig.from_json_dict(jcfg.to_json_dict()))
+    names = sorted(os.listdir(d))
+    assert names == sorted(os.listdir(out)) == ["adapter_config.json", "adapter_model.bin",
+                                                "config.json", "non_lora_trainables.bin"]
+    for name in names:
+        with open(os.path.join(d, name), "rb") as a, open(os.path.join(out, name), "rb") as b:
+            assert a.read() == b.read(), name
 
 
 # ---------------------------------------------------------------- entry points
@@ -180,7 +235,7 @@ def test_entry_points_run_on_the_card_unless_asked(saved, monkeypatch):
     for main in (cli.main, batched_worker.main, model_worker.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--model-path", base])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         batched_worker.main(["--model-path", base, "--adapter-path", "a=b"])
     for main in (cli.main, batched_worker.main):
         with pytest.raises(NotImplementedError, match="item 12"):

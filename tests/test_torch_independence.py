@@ -13,10 +13,13 @@ originals.
 - ``checkpoint.save_checkpoint``: the files of an adapters-only save and of a
   full save are byte for byte the JAX package's; ``state_ckpt``'s resume
   discovery and the ``PreemptionGuard``.
-- The serving modules the port copies (``serve/grammar``, ``protocol``,
+- The modules the port copies (``serve/grammar``, ``protocol``,
   ``controller``, ``openai_api``, ``tools``, ``gradio_web_server``,
-  ``conversation``): the originals' code statement for statement, the
-  grammar's tables byte for byte, the serving constants. The checkpoint
+  ``conversation``, ``data/preprocess``, ``data/packing``): the originals'
+  code statement for statement, the grammar's tables byte for byte, the
+  serving constants; the native preprocess library's C++ source
+  (``slime_tpu_torch/native/slime_preprocess.cpp``) byte for byte
+  ``native/slime_preprocess.cpp``. The checkpoint
   loader is held leaf for leaf in ``test_torch_checkpoint_load.py``.
 
 Tolerance: none; every compared value and file is equal.
@@ -302,7 +305,7 @@ def test_prefix_cache_copy_matches():
 
 OWN_COPIES = ["serve/grammar.py", "serve/protocol.py", "serve/controller.py",
               "serve/openai_api.py", "serve/tools.py", "serve/gradio_web_server.py",
-              "conversation.py"]
+              "conversation.py", "data/preprocess.py", "data/packing.py"]
 
 
 def _code_dump(path, renames=()):
@@ -331,6 +334,14 @@ def test_own_copies_are_the_originals_code(rel):
     renames = (("slime_tpu.serve.", "slime_tpu_torch.serve."),)
     assert (_code_dump(os.path.join(REPO, "slime_tpu_torch", rel))
             == _code_dump(os.path.join(REPO, "slime_tpu", rel), renames)), rel
+
+
+def test_native_source_copy_is_the_original():
+    """The port builds the native preprocess library from its own copy of
+    the C++ source, byte for byte the JAX package's."""
+    with open(os.path.join(REPO, "slime_tpu_torch", "native", "slime_preprocess.cpp"),
+              "rb") as a, open(os.path.join(REPO, "native", "slime_preprocess.cpp"), "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_grammar_copy_compiles_the_same_tables():

@@ -57,11 +57,17 @@ def test_linear_int8():
 
 
 def test_linear_rejects_unported_formats():
-    """LoRA and multi-LoRA adapters are not ported yet (every weight format is)."""
-    with pytest.raises(NotImplementedError):
-        TL.linear({"weight": torch.zeros(4, 4), "lora_b": {}}, torch.zeros(1, 4))
-    with pytest.raises(NotImplementedError):
-        TL.linear({"weight": torch.zeros(4, 4), "lora": {}}, torch.zeros(1, 4))
+    """Every weight format and both adapter entries are ported
+    (``tests/test_torch_lora.py`` holds them to JAX); a per-row ``lora_b``
+    entry whose batch does not divide x's rows is refused, and a zero
+    adapter changes nothing."""
+    x = torch.ones(3, 4)
+    with pytest.raises(RuntimeError):
+        TL.linear({"weight": torch.zeros(4, 4), "lora_b": {"A": torch.zeros(2, 1, 4),
+                                                           "B": torch.zeros(2, 4, 1)}}, x)
+    w = torch.arange(16.0).reshape(4, 4)
+    zero = {"A": torch.zeros(1, 4), "B": torch.zeros(4, 1)}
+    assert torch.equal(TL.linear({"weight": w, "lora": zero}, x), TL.linear({"weight": w}, x))
 
 
 def test_norms():

@@ -304,19 +304,21 @@ def test_engine_kv_quant(setup):
 
 
 def test_refusals_and_unserved_requests(setup):
-    """What is not ported yet (multi-LoRA, tensor parallelism) raises
-    NotImplementedError; a draft without its config raises; requests naming
-    an unregistered grammar or an adapter fail (no adapter can be
-    registered), as JAX fails an unknown id; params elsewhere than the
-    engine's device raise."""
+    """What is not ported yet (tensor parallelism) raises
+    NotImplementedError; a draft without its config raises; an adapter
+    that is not stacked [L, ...] is refused; requests naming an
+    unregistered grammar or adapter fail, as JAX fails an unknown id;
+    params elsewhere than the engine's device raise."""
     cfg, params, _ = setup
     with pytest.raises(ValueError):
         BatchDecodeEngine(params, cfg, device="cpu", draft_params=params)
     with pytest.raises(NotImplementedError):
         BatchDecodeEngine(params, cfg, device="cpu", mesh=object())
     eng = _engine(setup)
-    with pytest.raises(NotImplementedError):
-        eng.register_adapter(None)
+    with pytest.raises(ValueError, match="stacked"):
+        eng.register_adapter({"rank": 2, "alpha": 2, "adapters": {"llm/layers/0/q_proj": {
+            "A": torch.zeros((2, cfg.llm.hidden_size)),
+            "B": torch.zeros((cfg.llm.hidden_size, 2))}}})
     ids = _ids(cfg, np.random.default_rng(16), 5)
     bad = [Request(input_ids=ids, grammar_id=0), Request(input_ids=ids, adapter_id=1),
            Request(input_ids=ids, prefix_id="unknown"),

@@ -336,13 +336,20 @@ def test_trainer_stages_match_jax_train_step(setup, jax_kernel_attention, tmp_pa
 
 
 def test_trainer_refuses_what_is_not_ported(setup, tmp_path):
+    """DPO (ROADMAP Queue 1 item 8) and 8-bit Adam moments (item 7) raise
+    NotImplementedError; LoRA and resume are ported
+    (``tests/test_torch_lora_train.py``): a ``state-*`` directory with no
+    train state in it is an error, not an empty resume."""
     cfg, p = setup
     scfg, tc = _stage(cfg, 1)
     tp = bridge.from_jax_numpy(p, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)), lora={"rank": 4})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)), dpo=object())
+    with pytest.raises(NotImplementedError, match="item 7"):
+        Trainer(tp, scfg, dataclasses.replace(tc, optim="adamw8bit"),
+                RunConfig(output_dir=str(tmp_path)))
     (tmp_path / "state-3").mkdir()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)))
 
 
