@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The PyTorch port's main paths on one NVIDIA GPU: SliME-8B serving a query
-(int8, and the CLI's 4-bit configurations) and many fine-tunes at once
-(multi-LoRA), SliME-8B's staged pretraining and its QLoRA SFT through the
-training CLI, and a context-parallel (ring attention) prefill of
-Llama-3-8B's full 8192 positions.
+(int8, and the CLI's 4-bit configurations; several images, beam search, the
+identity resampler) and many fine-tunes at once (multi-LoRA), SliME-8B's
+staged pretraining, its QLoRA SFT and QLoRA-DPO through the training CLI and
+a full-parameter step with 8-bit Adam moments, and a context-parallel (ring
+attention) prefill of Llama-3-8B's full 8192 positions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -165,6 +166,36 @@ Phase 10 runs the training CLI (``slime_tpu_torch.train.cli.main``, the
          the NF4 dequantizing copies) and 2 micro-steps run packed
          (--seq-packing, text-only rows: K5 with segment_ids).
 
+         Then the other branches on phase 2's model (counted, inside phase
+         2 after multi-LoRA): ``generate`` with two images ([1, 2, 8, 3,
+         336, 336], a 4096-position prompt) twice, the same tokens; one
+         image through ``prepare_multimodal_multi``, exactly
+         ``prepare_multimodal``'s fusion; ``beam_search`` at 3 beams (K1-K3
+         on the ring at 3 rows) and at 1 beam against greedy ``generate``,
+         the best beam's joint log-prob against greedy's, and one step's
+         cache reorder timed alone; a two-image request to the model
+         worker over HTTP, the in-process ``generate``'s tokens; the
+         identity resampler at full width (mlp2x_gelu, 4 local crops, 5 x
+         576 image tokens) through ``generate``, its 'unpad' merge (every
+         row the flat merge's or ``image_newline``) and the sampler's
+         'spatial' merge (a permutation of the flat rows), exactly.
+
+Phase 11a runs QLoRA-DPO from the CLI: phase 10's QLoRA flags with --task
+         DPO --dpo-loss-type sigmoid --dpo-beta 0.1, 2 pairs (4 rows) a
+         step, S = 2048, 3 steps over 8 preference records (4 with a
+         672x672 image, ~300-byte answers sharing a prompt): the first loss
+         log 2 (adapters at B = 0), the NF4 base's bytes kept, the adapters
+         moved, K4 2 x 23, K5 3 x 32, K5b and K5c 32 a step, one step traced;
+         then an ipo, token-weighted, SFT-mixed command for a step.
+Phase 11b builds phase 4's bf16 SliME-8B and trains every leaf but the
+         tower with 8-bit Adam moments (B = 1, S = 2048, remat) through the
+         ``Trainer``: the state's bytes against fp32 Adam's, peak memory,
+         step and update times; gate_proj's codes and scales after step 1
+         against ``opt8.leaf_update`` on the same gradient (layers 0, 1 and
+         31), exactly; every trainable leaf moved; step 2 after the train
+         state's round trip through the host equal to the uninterrupted
+         step 2.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -320,6 +351,18 @@ TRAIN_RTOL = 5e-3
 # of a leaf's largest entry
 TRAIN_CLI_RECORDS, TRAIN_CLI_BATCH, TRAIN_CLI_K4 = 16, 4, 23
 TRAIN_CLI_RESUME_TOL = 2 ** -8
+# phases 2-3's other branches: the two-image and identity prompts' length
+# (room for two images' 2 x 1585 tokens and the identity path's 5 x 576), the
+# greedy and beam tokens, and the slack of the best beam's joint log-prob
+# against greedy's when both are scored again teacher-forced at B = 1 (bf16
+# logits of another row count; phase 6 saw bf16 paths move logits by 0.1)
+BRANCH_LEN, BRANCH_NEW, BEAM_SCORE_SLACK = 4096, 32, 0.1
+# phase 11a: QLoRA-DPO's preference records (half with an image), pairs a
+# step (bench_dpo_8b.py's 4 rows) and steps; phase 11b: the full-parameter
+# step's learning rate (large enough that one Adam step of +-lr moves a bf16
+# 1.0, the norms' weights, by at least an ulp)
+DPO_RECORDS, DPO_PAIRS, DPO_STEPS = 8, 2, 3
+OPT8_LR = 5e-3
 KERNELS = {
     "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
                           "slime_tpu/ops/encoder_attention.py:88"),
@@ -2795,6 +2838,8 @@ def serve_phases(dev, cfg):
         launches[n] += c
     for n, c in multi_lora_phase(dev, cfg, params).items():      # phase 9, multi-LoRA
         launches[n] += c
+    for n, c in branches_phase(dev, cfg, params).items():        # phases 2-3, branches
+        launches[n] += c
     del params
     return launches
 
@@ -3022,7 +3067,7 @@ def train_phase(dev, cfg, fa):
     """Phase 4: stages 1-3 of the staged pretraining at full width."""
     import shutil
 
-    from slime_tpu_torch.models import llama, projector, sampler, slime, vit
+    from slime_tpu_torch.models import llama, slime
     from slime_tpu_torch.models.layers import fp32_accumulation
     from slime_tpu_torch.ops.loss import chunked_cross_entropy
     from slime_tpu_torch.params import named_leaves
@@ -3033,12 +3078,8 @@ def train_phase(dev, cfg, fa):
     bf = torch.bfloat16
     out_dir = Path(__file__).resolve().parent / "bench_out"
     t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    params = {"vision": vit.init(cfg.vision, generator=g, device=dev, dtype=bf),
-              "projector": projector.init(cfg, generator=g, device=dev),
-              "sampler": sampler.init(cfg, generator=g, device=dev),
-              "llm": llama.init(cfg.llm, generator=g, device=dev, dtype=bf)}
-    params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
+    params = bf16_train_params(dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
     torch.cuda.synchronize()
     log(f"phase 4 params built on the card in {time.perf_counter() - t0:.1f} s: LLM "
         f"and CLIP-L bf16, projector and sampler fp32; "
@@ -3451,6 +3492,622 @@ def train_cli_phase(dev, cfg):
     return counts
 
 
+class ByteIdTokenizer(ByteTokenizer):
+    """The byte tokenizer whose decode writes every id (``IdText``): a random
+    model's answers are mostly ids above 255, which text would drop."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return IdText().decode(ids)
+
+
+def png_b64(arr):
+    """A uint8 [H, W, 3] image as base64 PNG bytes (the HTTP image format)."""
+    import base64
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def expect_launches(tag, got, want):
+    """Raise unless each kernel of ``want`` ({record: count}) launched its
+    count exactly (on the card; the CPU's plain versions count nothing)."""
+    off = {n: (got.get(n, 0), w) for n, w in want.items() if got.get(n, 0) != w}
+    log(f"phase {tag} launches {json.dumps({n: got.get(n, 0) for n in want})} (expected "
+        f"{json.dumps(want)})")
+    if torch.cuda.is_available() and off:
+        raise AssertionError(f"phase {tag}: launches (got, expected) {off}")
+
+
+def seq_score(params, cfg, ids, attn, pv, cm, tokens):
+    """The joint bf16 log-prob of ``tokens`` after the prompt, teacher-forced
+    through ``prefill`` and B = 1 decode steps (a cache of L + len)."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    bf = torch.bfloat16
+    with torch.no_grad(), fp32_accumulation():
+        logits, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
+        cache = llama.prefill_into_cache(
+            llama.init_kv_cache(cfg.llm, 1, L + len(tokens), dtype=bf, device=ids.device),
+            kvs, lengths)
+        del kvs
+        score = 0.0
+        for i, t in enumerate(tokens):
+            score += float(torch.log_softmax(logits.float(), dim=-1)[0, t])
+            if i + 1 < len(tokens):
+                logits, cache = llama.decode_step(
+                    params["llm"], cache, torch.tensor([t], dtype=torch.int32, device=ids.device),
+                    cfg.llm, compute_dtype=bf)
+    return score
+
+
+def branches_phase(dev, cfg, params):
+    """Phases 2-3's other branches on the int8 model (bf16), each counted
+    window with the counts set to 0 just before and read just after: a
+    two-image ``generate`` (twice: the same tokens); one image through the
+    multi-image splice against ``prepare_multimodal``; ``beam_search`` at
+    3 beams (K1-K3 on the ring at 3 rows), at 1 beam against greedy
+    ``generate`` and its best beam's score against greedy's; a two-image
+    request to the model worker over HTTP against the in-process
+    ``generate``; the identity resampler at full width (LLaVA-NeXT's layout:
+    mlp2x_gelu, 4 local crops, 5 x 576 image tokens) through ``generate``,
+    its 'unpad' merge and the sampler's 'spatial' merge, exactly. Returns
+    the counted windows' launches."""
+    import gc
+
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from slime_tpu_torch.data.image_ops import (make_device_anyres_fn,
+                                                process_anyres_image_host,
+                                                spatial_local_perm, unpad_token_order)
+    from slime_tpu_torch.data.tokenization import tokenizer_image_token
+    from slime_tpu_torch.models import projector, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.serve.model_worker import ModelWorker
+    from slime_tpu_torch.serve.model_worker import build_server as build_worker
+
+    bf = torch.bfloat16
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    img, ids, attn, anyres = query(dev, cfg)
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    rng = np.random.default_rng(SEED + 30)
+    img2_np = rng.integers(0, 255, (672, 672, 3), dtype=np.uint8)
+    img2 = torch.from_numpy(img2_np).to(dev)
+    counts = {}
+
+    def window(tag, fn, want):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        expect_launches(tag, got, want)
+        for n, c in got.items():
+            counts[n] = counts.get(n, 0) + c
+        return out, wall
+
+    ring = lambda steps: {n + "_ring": L * steps for n in FUSED}   # noqa: E731
+
+    # two images: [1, 2, 8, 3, 336, 336], each <image> its own block
+    ids2 = ids.clone()
+    ids2[:, 20] = IMAGE_TOKEN_INDEX
+    cfg2 = dataclasses.replace(cfg_run, tokenizer_model_max_length=BRANCH_LEN)
+
+    def two_images():
+        (c1, m1), (c2, m2) = anyres(img), anyres(img2)
+        return gen.generate(params, cfg2, ids2, attn, torch.stack([c1, c2])[None],
+                            torch.stack([m1, m2])[None], max_new_tokens=BRANCH_NEW,
+                            compute_dtype=bf)
+    a, wall = window("2 two-image generate", two_images,
+                     {"encoder_attention": vis, "flash_fwd": L, **ring(BRANCH_NEW - 1)})
+    b = two_images()
+    (c1, m1), (c2, m2) = anyres(img), anyres(img2)
+    _, _, lengths, Lpad = gen.prefill(params, cfg2, ids2, attn, torch.stack([c1, c2])[None],
+                                      torch.stack([m1, m2])[None], bf)
+    log(f"phase 2 two-image generate ([1, 2, 8, 3, 336, 336], sentinels at 2 and 20): "
+        f"{int(lengths[0])} valid of {Lpad} positions; {BRANCH_NEW} greedy tokens in "
+        f"{wall * 1e3:.1f} ms; repeats {torch.equal(a, b)}; first tokens {a[0, :6].tolist()}")
+    if not torch.equal(a, b) or a.shape != (1, BRANCH_NEW):
+        raise AssertionError("phase 2: the two-image answers differ or are misshapen")
+
+    # one image through the multi-image splice: the single-image fusion, exactly
+    c, m = anyres(img)
+    with torch.no_grad(), fp32_accumulation():
+        single = slime.prepare_multimodal(params, cfg, ids, attn, c[None], m[None],
+                                          compute_dtype=bf)
+        multi = slime.prepare_multimodal_multi(params, cfg, ids, attn, c[None, None],
+                                               m[None, None], compute_dtype=bf)
+    same = all(torch.equal(x, y) for x, y in zip(single, multi))
+    log(f"phase 2 one image through prepare_multimodal_multi equals prepare_multimodal: "
+        f"{same} (embeds, mask, positions, labels, lengths; {int(single.lengths[0])} valid)")
+    if not same:
+        raise AssertionError("phase 2: the multi-image splice of one image is not the "
+                             "single-image fusion")
+
+    # beam search on bench.py's query
+    def beam(K):
+        c, m = anyres(img)
+        return gen.beam_search(params, cfg_run, ids, attn, c[None], m[None], num_beams=K,
+                               max_new_tokens=BRANCH_NEW, compute_dtype=bf)
+    beam(3)                                           # warm-up (the sort's workspace)
+    b3, wall = window("2 beam search, 3 beams", lambda: beam(3),
+                      {"encoder_attention": vis, "flash_fwd": L, **ring(BRANCH_NEW - 1)})
+    b1 = beam(1).cpu()
+    c, m = anyres(img)
+    greedy = gen.generate(params, cfg_run, ids, attn, c[None], m[None],
+                          max_new_tokens=BRANCH_NEW, compute_dtype=bf).cpu()
+    part = next((i for i in range(BRANCH_NEW) if int(b1[0, i]) != int(greedy[0, i])), None)
+    gap = None
+    if part is not None:
+        logits = teacher_logits(params, cfg_run, ids, attn, c[None], m[None],
+                                greedy[0].tolist(), part)
+        top2 = logits.float().topk(2).values
+        gap = float(top2[0] - top2[1])
+    s_beam = seq_score(params, cfg_run, ids, attn, c[None], m[None], b3[0].tolist())
+    s_greedy = seq_score(params, cfg_run, ids, attn, c[None], m[None], greedy[0].tolist())
+    log(f"phase 2 beam_search (3 beams, {BRANCH_NEW} tokens, bench.py's query): "
+        f"{wall * 1e3:.1f} ms, {wall * 1e3 / BRANCH_NEW:.2f} ms a token; 1 beam "
+        + ("equals greedy generate token for token" if part is None else
+           f"parts from greedy at step {part} (greedy's top-two gap there {gap:.4g}, "
+           f"bound {ENGINE_TIE_ATOL})")
+        + f"; best beam's joint log-prob {s_beam:.4f} / {BRANCH_NEW} = "
+        f"{s_beam / BRANCH_NEW:.5f} against greedy's {s_greedy:.4f} / {BRANCH_NEW} = "
+        f"{s_greedy / BRANCH_NEW:.5f} (teacher-forced, B = 1; slack {BEAM_SCORE_SLACK})")
+    if part is not None and gap > ENGINE_TIE_ATOL:
+        raise AssertionError(f"phase 2: 1-beam search parts from greedy at step {part}")
+    if dev.type == "cuda":
+        # a step's reorder of the whole cache by source beam (k, v of every
+        # layer at 3 rows x L + BRANCH_NEW positions), alone on the device
+        _, kvs, lengths, Lp = gen.prefill(params, cfg_run, ids, attn, c[None], m[None], bf)
+        kv = torch.zeros((L, 3, Lp + BRANCH_NEW) + kvs[0][0].shape[2:], dtype=bf, device=dev)
+        del kvs
+        gather = torch.tensor([2, 0, 0], device=dev)
+        reorder = cuda_ms(lambda: (kv[:, gather], kv[:, gather]))
+        log(f"phase 2 beam_search's cache reorder a step (k and v [{L}, 3, {Lp + BRANCH_NEW}, "
+            f"{cfg.llm.num_kv_heads}, {cfg.llm.head_dim}] bf16 gathered by source beam): "
+            f"{reorder:.3f} ms on the device, {2 * nbytes(kv) * 2 / reorder / 1e6:.0f} GB/s "
+            f"(read and write)")
+        del kv
+    if s_beam < s_greedy - BEAM_SCORE_SLACK:
+        raise AssertionError("phase 2: the best beam scores below greedy")
+
+    # a two-image request to the model worker over HTTP
+    tok = ByteIdTokenizer(cfg.bos_token_id)
+    worker = ModelWorker(controller_addr=None, worker_addr=None, model_name="slime-8b",
+                         params=params, cfg=cfg, tokenizer=tok, compute_dtype=bf,
+                         register=False, device=dev)
+    srv = build_worker(worker, "localhost", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        prompt = "<image>\n<image>\nWhat differs between the two pictures?"
+        imgs = [img.cpu().numpy(), img2_np]
+        chunks, first_s, total_s = http_stream(
+            f"http://localhost:{srv.port}/worker_generate_stream",
+            {"prompt": prompt, "images": [png_b64(x) for x in imgs],
+             "max_new_tokens": BRANCH_NEW, "temperature": 0.0})
+    finally:
+        srv.shutdown()
+    del worker, srv                   # the server's routes refer to the worker and its params
+    from PIL import Image
+    crops = [process_anyres_image_host(Image.fromarray(x), max_crops=1 + cfg.max_local_crops)
+             for x in imgs]
+    hids = torch.from_numpy(tokenizer_image_token(prompt, tok, return_tensors="np")[None]
+                            .astype(np.int64)).to(dev)
+    with torch.no_grad():
+        want = gen.generate(params, cfg, hids, torch.ones_like(hids, dtype=torch.bool),
+                            torch.from_numpy(np.stack([x for x, _, _ in crops]))[None].to(dev),
+                            torch.from_numpy(np.stack([y for _, y, _ in crops]))[None].to(dev),
+                            max_new_tokens=BRANCH_NEW, compute_dtype=bf,
+                            cache_len=cfg.tokenizer_model_max_length + BRANCH_NEW + 1)
+    want_text = tok.decode(gen.trim_at_eos(want, cfg.eos_token_id)[0])
+    log(f"phase 9 model worker over HTTP, two images: {len(chunks)} chunks, first after "
+        f"{first_s * 1e3:.1f} ms, all in {total_s * 1e3:.1f} ms; streamed tokens equal the "
+        f"in-process generate's: {chunks[-1]['text'] == want_text}")
+    if chunks[-1]["text"] != want_text:
+        raise AssertionError("phase 9: the two-image HTTP answer differs from generate's")
+
+    # the identity resampler at full width (LLaVA-NeXT's layout)
+    cfg_id = dataclasses.replace(cfg, mm_projector_type="mlp2x_gelu",
+                                 mm_resampler_type="identity", max_local_crops=4,
+                                 tokenizer_model_max_length=BRANCH_LEN)
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    params_id = {"vision": params["vision"], "llm": params["llm"],
+                 "projector": projector.init(cfg_id, generator=g, device=dev)}
+    anyres5 = make_device_anyres_fn((672, 672), max_crops=5, device=dev)
+    c5, m5 = anyres5(img)
+    cfg_id_run = dataclasses.replace(cfg_id, eos_token_id=-1)
+    out, wall = window(
+        "2 identity resampler generate",
+        lambda: gen.generate(params_id, cfg_id_run, ids, attn, c5[None], m5[None],
+                             max_new_tokens=8, compute_dtype=bf),
+        {"encoder_attention": vis, "flash_fwd": L, **ring(7)})
+    _, _, lengths, Lpad = gen.prefill(params_id, cfg_id_run, ids, attn, c5[None], m5[None], bf)
+    log(f"phase 2 identity resampler (mlp2x_gelu projector, fp32, random; {int(m5.sum())} "
+        f"crops x 576 tokens): generate of 8 tokens {wall * 1e3:.1f} ms; prefill "
+        f"{int(lengths[0])} valid of {Lpad} positions; tokens {out[0].tolist()}")
+    if int(lengths[0]) != 5 * 576 + ids.shape[1] - 1 or not bool((out >= 0).all()):
+        raise AssertionError(f"phase 2: the identity path's prefill has {int(lengths[0])} "
+                             f"valid positions")
+
+    # its 'unpad' merge: every row the flat merge's or image_newline, exactly
+    P, grid = cfg.vision.num_patches, cfg.vision.num_patches_per_side
+    cfg_un = dataclasses.replace(cfg_id, mm_patch_merge_type="spatial_unpad")
+    newline = (torch.randn((cfg.hidden_size,), generator=g, device=dev)
+               / cfg.hidden_size ** 0.5)
+    src, valid = unpad_token_order(2, 2, grid, (672, 672), 4 * P + 2 * grid)
+    src_t, valid_t = torch.from_numpy(src).to(dev), torch.from_numpy(valid).to(dev)
+    with torch.no_grad(), fp32_accumulation():
+        flat, _ = slime.encode_images(params_id, cfg_id, c5[None], m5[None], ids, attn,
+                                      compute_dtype=bf)
+        un, un_valid = slime.encode_images({**params_id, "image_newline": newline}, cfg_un,
+                                           c5[None], m5[None], ids, attn, compute_dtype=bf,
+                                           unpad_order=(src_t[None], valid_t[None]))
+        want = torch.cat([flat[0, :P], torch.where(
+            (src_t < 0)[:, None], newline.to(bf)[None],
+            flat[0, P + src_t.clamp(min=0).long()])])
+    ok = torch.equal(un[0], want) and bool(un_valid.all())
+    log(f"phase 2 'unpad' merge: {un.shape[1]} rows ({int((src < 0).sum())} newlines); each "
+        f"row the flat merge's or image_newline, exactly: {ok}")
+    if not ok:
+        raise AssertionError("phase 2: the unpad merge's rows are not the flat merge's")
+
+    # the sampler's 'spatial' merge: a permutation of the flat local rows
+    dim = cfg.mm_resampler_dim
+    perm = torch.from_numpy(spatial_local_perm(2, 2, int(round(dim ** 0.5)),
+                                               cfg.max_local_crops * dim)).to(dev)
+    with torch.no_grad(), fp32_accumulation():
+        flat, _ = slime.encode_images(params, cfg, c[None], m[None], ids, attn,
+                                      compute_dtype=bf)
+        sp, _ = slime.encode_images(params, cfg, c[None], m[None], ids, attn,
+                                    compute_dtype=bf, local_token_perm=perm[None])
+    ok = torch.equal(sp[0, P + 1:], flat[0, P + 1:][perm.long()])
+    log(f"phase 2 'spatial' merge: the local block ({cfg.max_local_crops * dim} rows) a "
+        f"permutation of the flat merge's, exactly: {ok}")
+    if not ok:
+        raise AssertionError("phase 2: the spatial merge is not a permutation of the flat one")
+    del params_id, flat, un, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dpo_data(root):
+    """DPO_RECORDS preference records, half with a 672x672 PNG (from the
+    seed): a ~90-byte prompt and ~300-byte chosen and rejected answers that
+    share it; -> the records' JSON path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 40)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz      "))
+    words = lambda n: "".join(rng.choice(letters, n)).strip()  # noqa: E731
+    recs = []
+    for i in range(DPO_RECORDS):
+        q = words(90)
+        rec = {"id": str(i), "conversations": [{"from": "human", "value": q}],
+               "chosen": words(290 + int(rng.integers(0, 20))),
+               "rejected": words(290 + int(rng.integers(0, 20)))}
+        if i % 2 == 0:
+            Image.fromarray(rng.integers(0, 255, (672, 672, 3), dtype=np.uint8)).save(
+                root / "images" / f"p{i}.png")
+            rec["image"] = f"p{i}.png"
+            rec["conversations"][0]["value"] = "<image>\n" + q
+        recs.append(rec)
+    (root / "pref.json").write_text(json.dumps(recs))
+    return root / "pref.json"
+
+
+def dpo_cli_phase(dev, cfg):
+    """Phase 11a: QLoRA-DPO from the command line (``train.cli.main`` with
+    phase 10's QLoRA flags and --task DPO), bench_dpo_8b.py's step (policy
+    forward, dX backward, remat re-forward, a reference forward without
+    gradient) at SliME-8B's full width and depth from random fp32 weights;
+    then an ipo, token-weighted, SFT-mixed command for one step. Returns the
+    launch counts of both commands."""
+    import gc
+    import shutil
+
+    from slime_tpu_torch.train import cli
+
+    out = Path(__file__).resolve().parent / "bench_out"
+    root = out / "dpo_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "model").mkdir(parents=True)
+    cfg.save(str(root / "model"))
+    tok = ByteTokenizer(cfg.bos_token_id, pad_token_id=cfg.eos_token_id)
+    pref = dpo_data(root)
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    flags = ["--model-path", str(root / "model"), "--data-path", str(pref),
+             "--image-folder", str(root / "images"), "--version", "llama3",
+             "--model-max-length", "2048", "--lora-enable", "--lora-r", "128",
+             "--lora-alpha", "256", "--bits", "4", "--learning-rate", "2e-4",
+             "--mm-projector-lr", "2e-5", "--warmup-ratio", "0.03", "--logging-steps", "1",
+             "--per-device-batch-size", str(DPO_PAIRS), "--remat", "--save-steps", "0",
+             "--task", "DPO", "--device", str(dev)]
+    log(f"phase 11a: python -m slime_tpu_torch.train.cli {' '.join(flags[6:])} "
+        f"--dpo-loss-type sigmoid --dpo-beta 0.1 --max-steps {DPO_STEPS} (phase 10's QLoRA "
+        f"flags; {DPO_RECORDS} preference records, half with a 672x672 image; "
+        f"{DPO_PAIRS} pairs = {2 * DPO_PAIRS} rows a step)")
+    hashes = []
+    real_build = cli.build_params
+
+    def build(*a):
+        p = real_build(*a)
+        torch.cuda.synchronize()
+        hashes.append(tree_hash(p))
+        return p
+    counts = {}
+    # a step: the reference's forward and the policy's (no gradient for the
+    # frozen tower: one encode each), the policy's layers again under remat,
+    # and its backward
+    per_step = {"encoder_attention": 2 * vis, "flash_fwd": 3 * L, "flash_bwd_dkdv": L,
+                "flash_bwd_dq": L}
+
+    def run(tag, argv, steps):
+        out_dir = argv[argv.index("--output-dir") + 1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = cli.main(argv, tokenizer=tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        expect_launches(f"11a {tag}", got, {n: c * steps for n, c in per_step.items()})
+        for n in per_step:
+            counts[n] = counts.get(n, 0) + got[n]
+        recs = [json.loads(x) for x in (Path(out_dir) / "metrics.jsonl").read_text()
+                .splitlines()]
+        for r in recs:
+            log(f"phase 11a {tag} step {r['step']}: loss {r['loss']:.6f}, reward margin "
+                f"{r['reward_margin']:.5f}, accuracy {r['reward_accuracy']:.2f}, grad_norm "
+                f"{r['grad_norm']:.5f}, {r['tokens_per_sec']:.1f} tokens/s host "
+                f"({2 * DPO_PAIRS * 2048 / r['tokens_per_sec'] * 1e3:.1f} ms a step)"
+                + "".join(f", {k} {r[k]:.2f}" for k in ("target_tokens", "target_weight_mass")
+                          if k in r))
+        log(f"phase 11a {tag}: {wall:.1f} s in all (parameters built, NF4 quantized, "
+            f"trained, saved); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if len(recs) != steps or not all(np.isfinite(r["loss"]) for r in recs):
+            raise AssertionError(f"phase 11a {tag}: losses {[r['loss'] for r in recs]}")
+        return tr, recs
+
+    cli.build_params = build
+    try:
+        tr, recs = run("sigmoid", flags + ["--output-dir", str(root / "run"), "--max-steps",
+                                           str(DPO_STEPS), "--dpo-loss-type", "sigmoid",
+                                           "--dpo-beta", "0.1"], DPO_STEPS)
+        # the adapters start at B = 0: the policy is the reference, h = 0
+        if abs(recs[0]["loss"] - np.log(2.0)) > 1e-3:
+            raise AssertionError(f"phase 11a: first loss {recs[0]['loss']} is not log 2")
+        after = tree_hash(tr.base)
+        moved = sorted(p for p in after if after[p] != hashes[0].get(p))
+        b_max = max(float(ab["B"].detach().abs().max())
+                    for ab in tr.state["params"]["adapters"].values())
+        nf4 = sum(p.endswith("/nf4") for p in after)
+        log(f"phase 11a: first loss {recs[0]['loss']:.6f} (log 2 = {np.log(2.0):.6f}); base "
+            f"unchanged ({len(after)} leaves, {nf4} NF4); adapters' largest |B| {b_max:.3g}")
+        if moved or not nf4 or not b_max > 0:
+            raise AssertionError(f"phase 11a: the base moved ({moved[:3]}) or the adapters "
+                                 f"did not")
+
+        # one traced step
+        from slime_tpu_torch.config import SliMEConfig
+        args = cli.parse_args(flags + ["--output-dir", str(root / "run")])
+        ds = cli.build_dataset(args, SliMEConfig.load(str(root / "model")), tok)
+        batch = tr._put(next(iter(cli.batches(args, ds, tok.pad_token_id))))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.step_fn(tr.state, batch, tr.generator)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"phase 11a QLoRA-DPO step alone: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({held:.2f} GiB held "
+            f"before it: the NF4 base, fp32 embeddings, lm_head and tower, the adapters and "
+            f"Adam)")
+        path = out / "profile_dpo_step.json"
+        if profiled(lambda: tr.step_fn(tr.state, batch, tr.generator), path):
+            busy, n_k, by_name = trace_device(path)
+            log(f"phase 11a QLoRA-DPO step ({2 * DPO_PAIRS} rows, S = 2048, remat): host wall "
+                f"{wall:.1f} ms (unprofiled), {2 * DPO_PAIRS * 2048 / wall * 1e3:.1f} "
+                f"tokens/s; device busy {busy:.1f} ms; idle share {1 - busy / wall:.3f}; "
+                f"{n_k} kernel launches")
+            for part, pat in (("K5 (flash_fwd_kernel)", "flash_fwd_kernel"),
+                              ("K5b (flash_bwd_dkdv_kernel)", "flash_bwd_dkdv_kernel"),
+                              ("K5c (flash_bwd_dq_kernel)", "flash_bwd_dq_kernel"),
+                              ("K4 (enc_attn)", "enc_attn")):
+                ms, nk = trace_kernel(path, pat)
+                log(f"phase 11a QLoRA-DPO step device time {part}: {ms:.2f} ms, {nk} launches")
+            for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                log(f"phase 11a QLoRA-DPO step kernel {kms:8.2f} ms  {kname[:90]}")
+        del tr, batch, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr, recs = run("ipo, token-weighted, SFT mix",
+                       flags + ["--output-dir", str(root / "ipo"), "--max-steps", "1",
+                                "--dpo-loss-type", "ipo", "--dpo-token-weighted",
+                                "--sft-weight", "0.1"], 1)
+        if "target_weight_mass" not in recs[0] or "target_tokens" in recs[0]:
+            raise AssertionError(f"phase 11a: the token-weighted step logged {sorted(recs[0])}")
+        del tr
+    finally:
+        cli.build_params = real_build
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_train_params(dev, cfg, seed=SEED):
+    """Phase 4's build of SliME-8B for training: LLM and CLIP-L bf16 (LLM
+    layers stacked), projector and sampler fp32, from ``seed``."""
+    from slime_tpu_torch.models import llama, projector, sampler, vit
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = {"vision": vit.init(cfg.vision, generator=g, device=dev, dtype=bf),
+              "projector": projector.init(cfg, generator=g, device=dev),
+              "sampler": sampler.init(cfg, generator=g, device=dev),
+              "llm": llama.init(cfg.llm, generator=g, device=dev, dtype=bf)}
+    params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
+    return params
+
+
+def moments(tr):
+    """The 8-bit moments of a trainer's optimizer, as a tree."""
+    return {str(i): st for i, st in enumerate(st for g in tr.tx.groups for st in g["opt"].state)}
+
+
+def opt8_phase(dev, cfg):
+    """Phase 11b: a full-parameter step with 8-bit Adam moments on phase 4's
+    bf16 SliME-8B (every leaf but the frozen tower trainable), B = 1, S =
+    2048, remat, through the ``Trainer``: the state's size against fp32
+    Adam's, peak memory, step and update times; every trainable leaf moved;
+    ``layers/gate_proj``'s codes and scales after step 1 against opt8's
+    whole-leaf function on the same gradient, exactly; step 2 after the
+    train state's round trip through the host (``state_ckpt``) equal to the
+    uninterrupted step 2. Returns the launch counts of its 3 steps."""
+    import gc
+    import shutil
+
+    from slime_tpu_torch.params import named_leaves
+    from slime_tpu_torch.train import opt8, state_ckpt
+    from slime_tpu_torch.train import optim as optim_mod
+    from slime_tpu_torch.train.optim import TrainConfig, label_tree
+    from slime_tpu_torch.train.trainer import RunConfig, Trainer
+
+    out = Path(__file__).resolve().parent / "bench_out" / "opt8"
+    shutil.rmtree(out, ignore_errors=True)
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    tc = TrainConfig(learning_rate=OPT8_LR, total_steps=2, warmup_ratio=0.0,
+                     lr_schedule="constant", optim="adamw8bit")
+    rc = RunConfig(output_dir=str(out), save_steps=0, log_steps=1, max_steps=1, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(bf16_train_params(dev, cfg), cfg, tc, rc, remat=True)
+    torch.cuda.synchronize()
+    labels = dict(named_leaves(label_tree(tr.params, tc)))
+    trainable = {p: t for p, t in named_leaves(tr.params) if labels[p] != "frozen"}
+    est = opt8.state_bytes(trainable)
+    held = sum(t.numel() * t.element_size() for g in tr.tx.groups
+               for st in g["opt"].state for t in st.values())
+    log(f"phase 11b trainer built in {time.perf_counter() - t0:.1f} s: "
+        f"{est['params'] / 1e9:.3f} G trainable parameters ({len(trainable)} leaves; the "
+        f"tower frozen); opt8.state_bytes {est['int8_adam_bytes'] / 2 ** 30:.2f} GiB against "
+        f"fp32 Adam's {est['fp32_adam_bytes'] / 2 ** 30:.2f} GiB (ratio {est['ratio']:.3f}); "
+        f"8-bit state as allocated {held / 2 ** 30:.2f} GiB; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    # as allocated, each leaf's last block is padded to 256 codes
+    padded = sum(-(-t.numel() // opt8.BLOCK) * (2 * opt8.BLOCK + 8) for t in trainable.values())
+    if held != padded:
+        raise AssertionError(f"phase 11b: the state holds {held} bytes, not {padded}")
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in train_batches(cfg, np.random.default_rng(SEED + 50), 2, 1)]
+
+    gate = tr.params["llm"]["layers"]["gate_proj"]["weight"]
+    rows = (0, 1, L - 1)          # layer 1 crosses the first 2^26-element slice
+    seen = {}
+    real_update, real_step = opt8.update_leaf, optim_mod.GroupedAdamW.step
+    upd_ms = []
+
+    def spy(g, st, **kw):
+        if g is gate.grad and not seen:
+            seen.update(g={r: g[r].clone() for r in rows}, st=st)
+        return real_update(g, st, **kw)
+
+    def timed_step(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        norm = real_step(self)
+        torch.cuda.synchronize()
+        upd_ms.append((time.perf_counter() - t0) * 1e3)
+        return norm
+
+    before = snapshot(tr.params)
+    walls = []
+
+    def step(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train(batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    reset_launch_counts()
+    opt8.update_leaf, optim_mod.GroupedAdamW.step = spy, timed_step
+    try:
+        m1 = step(batches[:1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # gate_proj's codes and scales against the whole-leaf function
+        bc1, bc2 = opt8.bias_corrections(1, tc.adam_b1, tc.adam_b2, dev)
+        nb = gate[0].numel() // opt8.BLOCK
+        z = opt8.init_leaf(gate[0])
+        exact = True
+        for r in rows:
+            _, mq, ms, vq, vs = opt8.leaf_update(
+                seen["g"][r], z["m_q"], z["m_s"], z["v_q"], z["v_s"], bc1=bc1, bc2=bc2,
+                b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
+            st = seen["st"]
+            exact &= all(torch.equal(st[k][r * nb:(r + 1) * nb], w)
+                         for k, w in (("m_q", mq), ("m_s", ms), ("v_q", vq), ("v_s", vs)))
+        log(f"phase 11b step 1: loss {m1['loss']:.5f}, grad_norm {m1['grad_norm']:.4f}; host "
+            f"{walls[0]:.1f} ms, of it the 8-bit update {upd_ms[0]:.1f} ms; peak memory "
+            f"{peak:.2f} GiB; layers/gate_proj's codes and scales of layers {list(rows)} "
+            f"equal opt8.leaf_update of the same gradient: {exact}")
+        if not seen or not exact:
+            raise AssertionError("phase 11b: gate_proj's 8-bit moments are not the "
+                                 "whole-leaf function's")
+        del seen["g"]
+        saved = state_ckpt._to_host(tr._checkpointed())     # the train state, on the host
+        tr.rc = dataclasses.replace(rc, max_steps=2)
+        m2 = step(batches[1:])
+        h2, st2 = tree_hash(tr.params), tree_hash(moments(tr))
+        moved = moved_leaves(before, snapshot(tr.params))
+        stay = sorted(p for p in moved if labels[p] == "frozen")
+        # w_noise is never read (the gate's noise scale comes from w_gate, as
+        # in the reference): its gradient is 0 and Adam leaves it in place
+        still = sorted(p for p in trainable if p not in moved and p != "projector/w_noise")
+        # resume: the state from after step 1, restored into the trainer
+        tr.state["step"] = state_ckpt._restore_into(tr._checkpointed(), saved)["step"]
+        del saved
+        m2r = step(batches[1:])
+    finally:
+        opt8.update_leaf, optim_mod.GroupedAdamW.step = real_update, real_step
+    same = (m2r["loss"] == m2["loss"] and tree_hash(tr.params) == h2
+            and tree_hash(moments(tr)) == st2)
+    got = launch_counts()
+    expect_launches("11b", got, {"encoder_attention": 3 * vis, "flash_fwd": 3 * 2 * L,
+                                 "flash_bwd_dkdv": 3 * L, "flash_bwd_dq": 3 * L})
+    log(f"phase 11b step 2: loss {m2['loss']:.5f}; host {walls[1]:.1f} ms, update "
+        f"{upd_ms[1]:.1f} ms; {len(moved)} leaves moved, {len(still)} trainable leaves did not "
+        f"({still[:3]}), {len(stay)} frozen ones did ({stay[:3]}); step 2 after the train "
+        f"state's round trip through the host: loss {m2r['loss']:.5f}, parameters and "
+        f"moments equal the uninterrupted step's: {same}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not all(np.isfinite([m1["loss"], m2["loss"]])) or still or stay or not same:
+        raise AssertionError("phase 11b: a loss is not finite, a trainable leaf did not move, "
+                             "a frozen one did, or the resumed step differs")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return {n: got[n] for n in ("encoder_attention", "flash_fwd", "flash_bwd_dkdv",
+                                "flash_bwd_dq")}
+
+
 def context_parallel_phase(dev, cfg):
     """Phase 6: context-parallel prefill at full width on phase 2's int8
     SliME-8B LLM (B = 1, S = CP_SEQ random token ids from the seed, logits
@@ -3647,6 +4304,12 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in train_cli_phase(dev, cfg).items():            # phase 10
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in dpo_cli_phase(dev, cfg).items():              # phase 11a
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in opt8_phase(dev, cfg).items():                 # phase 11b
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

@@ -1,8 +1,10 @@
 """Autoregressive generation: multimodal prefill + KV-cache decode loop.
 
 Port of ``slime_tpu/generate.py`` (``generate`` :127-198, ``generate_stream``
-:201-286, the decode loop :97-124, ``sample_token`` :30-47 and the serving
-engine's per-row ``sample_token_dynamic`` :50-96). Prefill attention goes through
+:201-286, ``beam_search`` :304-392, the decode loop :97-124, ``sample_token``
+:30-47 and the serving engine's per-row ``sample_token_dynamic`` :50-96).
+Pixels of 6 dimensions [B, N, MC, 3, t, t] are a multi-image prompt
+(``slime.prepare_multimodal_multi``), 5 dimensions one image a sample. Prefill attention goes through
 ``ops.flash_attention`` under JAX's rule: the K5 kernels for causal CUDA
 tensors at S >= 2048 (multimodal prompts are padded to 2048 positions; bf16
 or the default fp32), the plain ``reference_attention`` otherwise; decode
@@ -136,15 +138,14 @@ def _decode_loop(params_llm, cache, first_token, eos_id: int, *, cfg: SliMEConfi
 @fp32_accumulation()
 def prefill(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values,
             crop_mask, compute_dtype):
-    """Multimodal (or text-only) prefill -> (logits at each row's last valid
-    position [B, V] fp32, per-layer (k, v), valid lengths [B], padded length L)."""
+    """Multimodal (one image or several a sample) or text-only prefill ->
+    (logits at each row's last valid position [B, V] fp32, per-layer (k, v),
+    valid lengths [B], padded length L)."""
     if pixel_values is not None:
-        if pixel_values.dim() == 6:
-            raise NotImplementedError("multi-image prompts are not ported yet "
-                                      "(ROADMAP: multi-image/unpad/identity)")
-        fused = slime.prepare_multimodal(params, cfg, input_ids, attention_mask,
-                                         pixel_values, crop_mask,
-                                         compute_dtype=compute_dtype)
+        prep = (slime.prepare_multimodal_multi if pixel_values.dim() == 6
+                else slime.prepare_multimodal)
+        fused = prep(params, cfg, input_ids, attention_mask, pixel_values, crop_mask,
+                     compute_dtype=compute_dtype)
         embeds, positions, lengths = fused.embeds, fused.positions, fused.lengths
     else:
         embeds = llama.embed(params["llm"], torch.where(input_ids < 0, 0, input_ids)
@@ -241,6 +242,78 @@ def generate_stream(params, cfg: SliMEConfig, tokenizer, input_ids,
         yield text
         if done:
             break
+
+
+def top_k_stable(x, k: int):
+    """(values, indices) of the k largest entries of each row, ties to the
+    lower index first, as ``jax.lax.top_k`` (``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@fp32_accumulation()
+def beam_search(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values=None,
+                crop_mask=None, *, num_beams: int = 3, max_new_tokens: int = 32,
+                eos_id: Optional[int] = None, length_penalty: float = 1.0,
+                compute_dtype=torch.float32):
+    """Deterministic beam search (HF ``num_beams``; ``generate.py:304-392``)
+    -> token ids [B, max_new_tokens] int32 of each row's best beam.
+
+    The beams are a batch dimension of B*K rows (beam-major per row). The
+    seed is the top K first tokens; each of the ``max_new_tokens - 1`` steps
+    runs ``llama.decode_step`` on the B*K rows (its kernels under JAX's
+    auto rule), takes the top K of the joint log-probs over K*V, and
+    reorders the cache rows, the finished flags and the tokens by source
+    beam. A finished beam continues only by EOS at log-prob 0. The best beam
+    has the highest score / gen_len ** length_penalty, gen_len counting
+    through the first EOS of a finished beam, else ``max_new_tokens``."""
+    if eos_id is None:
+        eos_id = cfg.eos_token_id
+    B, K = input_ids.shape[0], num_beams
+    NEG = -1e30
+    last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
+                                    pixel_values, crop_mask, compute_dtype)
+    cache = llama.init_kv_cache(cfg.llm, B, L + max_new_tokens, dtype=compute_dtype,
+                                device=last.device)
+    cache = llama.prefill_into_cache(cache, kvs, lengths)
+    del kvs
+    # each row's cache repeated for its K beams: [b0k0, b0k1, ..., b1k0, ...]
+    cache = {k: v.repeat_interleave(K, dim=1 if k in ("k", "v") else 0)
+             for k, v in cache.items()}
+    lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)              # [B, V]
+    V = lp0.shape[-1]
+    scores, t0 = top_k_stable(lp0, K)                                     # [B, K]
+    dev = lp0.device
+    out = torch.zeros((B * K, max_new_tokens), dtype=torch.int32, device=dev)
+    out[:, 0] = t0.reshape(-1)
+    done = t0 == eos_id
+    toks = t0.reshape(-1).to(torch.int32)
+    frozen = torch.full((V,), NEG, dtype=torch.float32, device=dev)
+    frozen[eos_id] = 0.0                # a negative id wraps, as JAX's .at[] does
+    rows = torch.arange(B, device=dev)[:, None] * K
+    for t in range(1, max_new_tokens):
+        logits, cache = llama.decode_step(params["llm"], cache, toks, cfg.llm,
+                                          compute_dtype=compute_dtype)
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(B, K, V)
+        lp = torch.where(done[..., None], frozen, lp)
+        joint = scores[..., None] + lp
+        scores, best = top_k_stable(joint.reshape(B, K * V), K)
+        src_beam = best // V
+        tok = (best % V).to(torch.int32)
+        gather = (rows + src_beam).reshape(-1)
+        cache = {k: (v[:, gather] if k in ("k", "v") else v[gather])
+                 for k, v in cache.items()}
+        done = torch.gather(done, 1, src_beam) | (tok == eos_id)
+        out = out[gather]
+        out[:, t] = tok.reshape(-1)
+        toks = tok.reshape(-1)
+    out = out.reshape(B, K, max_new_tokens)
+    gen_len = (out == eos_id).to(torch.int8).argmax(dim=-1) + 1
+    gen_len = torch.where(done, gen_len, max_new_tokens).to(torch.float32)
+    final = scores / gen_len ** length_penalty
+    pick = final.argmax(dim=1)
+    return out[torch.arange(B, device=dev), pick]
 
 
 def trim_at_eos(tokens, eos_id: int):

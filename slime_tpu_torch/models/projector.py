@@ -1,12 +1,16 @@
-"""Vision projector: linear / mlpNx_gelu / gated (2-expert MoE).
+"""Vision projector: identity / linear / mlpNx_gelu / qformer / qformer_text /
+gated (2-expert MoE).
 
 Port of ``slime_tpu/models/projector.py``. The ``gated`` type is SliME's
 2-expert MoE: an MLP projection expert and a Resampler attention-adapter
 expert mixed by a softmax gate over per-token features; with k == 2 == number
 of experts the top-k gate is a dense softmax mixture (``projector.py:110-146``).
 In training the gate logits get Gaussian noise (``gate_weights``, :82-99),
-drawn from an explicit ``torch.Generator`` or passed in as ``noise``. The
-``qformer`` and ``qformer_text`` types are not ported yet.
+drawn from an explicit ``torch.Generator`` or passed in as ``noise``.
+``identity`` returns its input; ``qformer`` is a Resampler at grid 24
+(576 queries of the vision width); ``qformer_text`` the text-conditioned
+Resampler (``resampler.apply_with_text``), reached only through ``apply``
+with text: ``slime.encode_images`` passes none, as in JAX.
 """
 from __future__ import annotations
 
@@ -49,10 +53,18 @@ def init(cfg: SliMEConfig, *, generator, device=None,
     ptype = cfg.mm_projector_type
     if ptype == "linear":
         return {"proj": L.linear_init(cfg.mm_hidden_size, cfg.hidden_size, **kw)}
+    if ptype == "identity":
+        return {}
     m = re.match(r"^mlp(\d+)x_gelu$", ptype)
     if m:
         return {"mlp": _mlp_init(cfg.mm_hidden_size, cfg.hidden_size,
                                  int(m.group(1)), **kw)}
+    if ptype in ("qformer", "qformer_text"):
+        text = ptype == "qformer_text"
+        return {"resampler": resampler.init(
+            grid_size=24, embed_dim=cfg.mm_hidden_size,
+            kv_dim=None if text else cfg.mm_hidden_size,
+            llm_hidden_size=cfg.hidden_size, with_text=text, **kw)}
     if ptype == "gated":
         zeros = lambda: torch.zeros((cfg.mm_hidden_size, 2),   # noqa: E731
                                     device=device, dtype=dtype)
@@ -64,7 +76,7 @@ def init(cfg: SliMEConfig, *, generator, device=None,
             "w_gate": zeros(),
             "w_noise": zeros(),
         }
-    raise NotImplementedError(f"projector type {ptype!r} is not ported yet")
+    raise ValueError(f"Unknown projector type: {ptype}")
 
 
 def gate_weights(params, x, *, training: bool = False, generator=None,
@@ -87,17 +99,29 @@ def gate_weights(params, x, *, training: bool = False, generator=None,
 
 
 def apply(params, x, *, cfg: SliMEConfig, training: bool = False,
-          generator=None, noise=None) -> torch.Tensor:
+          generator=None, noise=None, text_embedding=None,
+          text_mask=None) -> torch.Tensor:
     """x [N, L, mm_hidden] -> [N, L_out, llm_hidden]. For the gated type a
     sequence of other than 576 tokens takes the MLP expert alone;
-    ``training``, ``generator`` and ``noise`` reach ``gate_weights``."""
+    ``training``, ``generator`` and ``noise`` reach ``gate_weights``.
+    ``qformer_text`` needs ``text_embedding`` [N, Lt, llm_hidden] and
+    ``text_mask`` [N, Lt]."""
     t = cfg.mm_projector_type
+    if t == "identity":
+        return x
     if t == "linear":
         return L.linear(params["proj"], x)
     if t.startswith("mlp"):
         return _mlp_apply(params["mlp"], x)
+    if t == "qformer":
+        return resampler.apply(params["resampler"], x, num_heads=cfg.mm_num_heads)
+    if t == "qformer_text":
+        if text_embedding is None or text_mask is None:
+            raise ValueError("the qformer_text projector needs text_embedding and text_mask")
+        return resampler.apply_with_text(params["resampler"], x, text_embedding, text_mask,
+                                         num_heads=cfg.mm_num_heads)
     if t != "gated":
-        raise NotImplementedError(f"projector type {t!r} is not ported yet")
+        raise ValueError(f"Unknown projector type: {t}")
     if x.shape[1] != 576 or cfg.mm_learnable_gated == 0:
         return _mlp_apply(params["projection"], x)
     att = resampler.apply(params["attn"], x, num_heads=cfg.mm_num_heads)

@@ -1,13 +1,24 @@
 """SliME multimodal fusion: ViT -> gated projector / local compression ->
 text-guided selection -> static-shape token splice -> LLM embeddings.
 
-Port of ``slime_tpu/models/slime.py`` for one image per sample with the
-sampler path and the flat merge (``encode_images`` :82-207, ``_splice_one``
-:210-249, ``prepare_multimodal`` :252-299), and the training entry points
+Port of ``slime_tpu/models/slime.py``: ``init`` (:42-56), ``encode_images``
+(:82-207), ``_splice_one`` (:210-249), ``prepare_multimodal`` (:252-299),
+the multi-image ``_splice_multi``, ``sentinel_positions`` and
+``prepare_multimodal_multi`` (:304-401), and the training entry points
 ``forward`` (:404-427) and ``loss_fn`` (:430-504), multimodal and packed
-text-only. The splice is batched over samples where the JAX package vmaps.
-Multi-image prompts, the 'unpad' and 'spatial' merges and the identity
-resampler are not ported yet.
+text-only. The splices are batched over samples where the JAX package vmaps.
+
+``encode_images`` takes both of JAX's branches:
+
+- with a sampler (``cosine`` or ``qformer`` selector): the global view
+  through the projector, the local crops compressed, projected, reordered by
+  ``local_token_perm`` (the 'spatial' merge, from
+  ``data.image_ops.spatial_local_perm``) and selected by the text;
+- without one (the ``identity`` resampler, plain LLaVA checkpoints): every
+  crop's patch tokens through the projector, merged flat, or with
+  ``unpad_order`` under an 'unpad' merge type (``data.image_ops.
+  unpad_token_order``): the base view, then the host-ordered local tokens
+  with the learned ``image_newline`` at the end of each kept row.
 
 Training noise (the gate's and the selection's) comes from an explicit
 ``torch.Generator`` or from a ``noise`` dict the caller passes: ``"gate"``
@@ -36,26 +47,27 @@ class FusedBatch(NamedTuple):
     lengths: torch.Tensor     # [B] int32
 
 
-def _check_supported(cfg: SliMEConfig):
-    if not cfg.has_sampler or cfg.mm_patch_merge_type != "flat":
-        raise NotImplementedError("only the sampler path with the flat merge is "
-                                  "ported (ROADMAP: multi-image/unpad/identity)")
-
-
 def _any_requires_grad(tree) -> bool:
     return any(t.requires_grad for _, t in named_leaves(tree))
 
 
 def init(cfg: SliMEConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
     """Random parameters with the JAX ``slime.init`` key set and shapes, on
-    ``device`` (the current CUDA device when None; ``"cpu"`` to build there)."""
-    _check_supported(cfg)
+    ``device`` (the current CUDA device when None; ``"cpu"`` to build there):
+    ``sampler`` only with a sampler, ``image_newline`` [H] (N(0, 1) / sqrt(H))
+    only under an 'unpad' merge type."""
     device = layers.resolve_device(device)
     kw = dict(generator=generator, device=device, dtype=dtype)
-    return {"vision": vit.init(cfg.vision, **kw),
-            "projector": projector.init(cfg, **kw),
-            "llm": llama.init(cfg.llm, **kw),
-            "sampler": sampler.init(cfg, **kw)}
+    params = {"vision": vit.init(cfg.vision, **kw),
+              "projector": projector.init(cfg, **kw),
+              "llm": llama.init(cfg.llm, **kw)}
+    if cfg.has_sampler:
+        params["sampler"] = sampler.init(cfg, **kw)
+    if "unpad" in cfg.mm_patch_merge_type:
+        params["image_newline"] = (torch.randn((cfg.hidden_size,), generator=generator,
+                                               device=device, dtype=torch.float32)
+                                   / (cfg.hidden_size ** 0.5))
+    return params
 
 
 def image_token_budget(cfg: SliMEConfig) -> int:
@@ -76,7 +88,7 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
                   input_ids, attention_mask, *, training: bool = False,
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[Dict] = None, compute_dtype=torch.float32,
-                  remat: bool = False):
+                  remat: bool = False, local_token_perm=None, unpad_order=None):
     """-> (img_embeds [B, T_img, H], img_valid [B, T_img]).
 
     pixel_values [B, MC, 3, t, t] (float, or uint8 normalized here);
@@ -84,8 +96,10 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
     gate and selection noise (from ``noise`` or ``generator``).
     ``use_global_only`` / ``use_local_only`` keep only the global view or
     only the selected local tokens valid (the separator with neither).
-    ``remat`` reaches the vision tower (``vit.apply``), as slime.py:116."""
-    _check_supported(cfg)
+    ``remat`` reaches the vision tower (``vit.apply``), as slime.py:116.
+    ``local_token_perm`` [B, (MC - 1) * dim] reorders the compressed local
+    tokens (the 'spatial' merge); ``unpad_order`` (src [B, n], valid [B, n])
+    lays out the identity path's local tokens (the 'unpad' merge)."""
     B, MC = pixel_values.shape[:2]
     P = cfg.vision.num_patches
     dim = cfg.mm_resampler_dim
@@ -104,6 +118,28 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
                           .to(compute_dtype), cfg.vision, remat=remat)
     feats = feats.reshape(B, MC, P, -1)
 
+    if not cfg.has_sampler:
+        # identity resampler: every crop's patch tokens through the projector
+        proj = projector.apply(params["projector"], feats.reshape(B * MC, P, -1), cfg=cfg,
+                               training=training, generator=generator,
+                               noise=noise.get("gate"))
+        if "unpad" in cfg.mm_patch_merge_type and unpad_order is not None:
+            unpad_src, unpad_valid = unpad_order
+            proj = proj.reshape(B, MC, P, -1)
+            base, local = proj[:, 0], proj[:, 1:].reshape(B, (MC - 1) * P, -1)
+            newline = params["image_newline"].to(local.dtype).expand(B, 1, local.shape[-1])
+            pool = torch.cat([local, newline], dim=1)            # [B, nloc + 1, H]
+            # src == -1 marks a newline slot: the pool's last row
+            idx = torch.where(unpad_src < 0, pool.shape[1] - 1, unpad_src)
+            idx = idx.clamp(0, pool.shape[1] - 1).long()
+            gathered = torch.gather(pool, 1, idx[..., None].expand(*idx.shape, pool.shape[-1]))
+            img_embeds = torch.cat([base.to(compute_dtype), gathered.to(compute_dtype)], dim=1)
+            img_valid = torch.cat([crop_mask[:, :1].to(torch.bool).repeat_interleave(P, dim=1),
+                                   unpad_valid.to(torch.bool)], dim=1)
+            return img_embeds, img_valid
+        img_embeds = proj.reshape(B, MC * P, -1).to(compute_dtype)
+        return img_embeds, crop_mask.to(torch.bool).repeat_interleave(P, dim=1)
+
     # global view: the full gated projector; local crops: compression, then
     # the projector (its MLP expert, since they are not 576 tokens long)
     global_f = projector.apply(params["projector"], feats[:, 0], cfg=cfg,
@@ -114,6 +150,12 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
     local_p = projector.apply(params["projector"], local_c, cfg=cfg)
     local_p = local_p.reshape(B, (MC - 1) * dim, -1)
     token_valid = crop_mask[:, 1:].to(torch.bool).repeat_interleave(dim, dim=1)
+    if local_token_perm is not None:
+        # the 'spatial' merge: crop-major tokens into row-major spatial order
+        perm = local_token_perm.long()
+        local_p = torch.gather(local_p, 1, perm[..., None].expand(*perm.shape,
+                                                                   local_p.shape[-1]))
+        token_valid = torch.gather(token_valid, 1, perm)
 
     text_emb, text_mask = _text_embeds_for_selector(params, input_ids, attention_mask)
     keep, _ = sampler.select(params["sampler"], local_p, text_emb, text_mask,
@@ -214,6 +256,97 @@ def prepare_multimodal(params, cfg: SliMEConfig, input_ids, attention_mask,
     out = FusedBatch(*splice(text_emb, text_valid, text_labels, img_embeds,
                              img_valid, img_pos, max_len=max_len))
     return (out, img_valid) if return_img_valid else out
+
+
+def splice_multi(text_emb, text_valid, text_labels, img_emb, img_valid, sent_pos, *,
+                 max_len: int):
+    """Batched ``_splice_multi``: img_emb [B, N, T, H], img_valid [B, N, T],
+    sent_pos [B, N] (ascending sentinel positions, S where missing). Block
+    k inserts at expanded offset sent_pos[k] + k*T; the valid slots move to a
+    right-padded prefix of length max_len, scattered as JAX's ``.at[tgt].set``
+    into max_len + 1 rows whose last (the dropped and the overflowing slots)
+    is cut off."""
+    B, S, H = text_emb.shape
+    N, T = img_emb.shape[1:3]
+    E = S + N * T
+    dev = text_emb.device
+    e = torch.arange(E, device=dev)                                   # [E]
+    f = sent_pos + torch.arange(N, device=dev)[None] * T              # [B, N]
+    in_block = (e[None, None] >= f[..., None]) & (e[None, None] < f[..., None] + T)
+    blocks_before = (e[None, None] >= (f[..., None] + T)).sum(dim=1)  # [B, E]
+    which = in_block.to(torch.int8).argmax(dim=1)                     # [B, E]
+    any_block = in_block.any(dim=1)
+
+    img_flat = img_emb.reshape(B, N * T, H)
+    img_src = which * T + (e[None] - torch.gather(f, 1, which))
+    img_src = img_src.clamp(0, N * T - 1)
+    txt_src = (e[None] - blocks_before * T).clamp(0, S - 1)
+
+    emb_ext = torch.where(any_block[..., None],
+                          torch.gather(img_flat, 1, img_src[..., None].expand(B, E, H)),
+                          torch.gather(text_emb, 1, txt_src[..., None].expand(B, E, H)))
+    valid_ext = torch.where(any_block, torch.gather(img_valid.reshape(B, N * T), 1, img_src),
+                            torch.gather(text_valid, 1, txt_src))
+    lab_ext = torch.where(any_block, IGNORE_INDEX, torch.gather(text_labels, 1, txt_src))
+
+    tgt = torch.cumsum(valid_ext.to(torch.int64), dim=1) - 1
+    tgt = torch.where(valid_ext, tgt.clamp(max=max_len), max_len)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, E)
+    out_emb = torch.zeros((B, max_len + 1, H), dtype=emb_ext.dtype, device=dev)
+    out_emb[rows, tgt] = emb_ext
+    out_lab = torch.full((B, max_len + 1), IGNORE_INDEX, dtype=lab_ext.dtype, device=dev)
+    out_lab[rows, tgt] = lab_ext
+    out_emb, out_lab = out_emb[:, :max_len], out_lab[:, :max_len]
+    length = valid_ext.sum(dim=1).clamp(max=max_len)
+    mask = torch.arange(max_len, device=dev)[None] < length[:, None]
+    out_lab = torch.where(mask, out_lab, IGNORE_INDEX)
+    positions = torch.arange(max_len, dtype=torch.int32, device=dev).expand(B, max_len)
+    return out_emb, mask, positions, out_lab, length.to(torch.int32)
+
+
+def sentinel_positions(input_ids, n_max: int):
+    """[B, S] -> ascending positions of the first n_max sentinels (S pads)."""
+    B, S = input_ids.shape
+    is_img = input_ids == IMAGE_TOKEN_INDEX
+    pos = torch.where(is_img, torch.arange(S, device=input_ids.device)[None], S)
+    return torch.sort(pos, dim=1).values[:, :n_max]
+
+
+def prepare_multimodal_multi(params, cfg: SliMEConfig, input_ids, attention_mask,
+                             pixel_values, crop_mask, labels=None, *,
+                             training: bool = False,
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[Dict] = None, max_len=None,
+                             compute_dtype=torch.float32, remat: bool = False):
+    """Multi-image fusion -> FusedBatch: pixel_values [B, N, MC, 3, t, t],
+    crop_mask [B, N, MC]; each of the first N sentinels of a sample expands
+    into its image's block, in order. An image past the sample's sentinel
+    count, or with no valid crop, contributes nothing (slime.py:356-401)."""
+    B, N = pixel_values.shape[:2]
+    S = input_ids.shape[1]
+    if max_len is None:
+        max_len = cfg.tokenizer_model_max_length
+    pv = pixel_values.reshape(B * N, *pixel_values.shape[2:])
+    cm = crop_mask.reshape(B * N, -1)
+    img_embeds, img_valid = encode_images(
+        params, cfg, pv, cm, input_ids.repeat_interleave(N, dim=0),
+        attention_mask.repeat_interleave(N, dim=0), training=training,
+        generator=generator, noise=noise, compute_dtype=compute_dtype, remat=remat)
+    T = img_embeds.shape[1]
+    img_embeds = img_embeds.reshape(B, N, T, -1)
+    img_valid = img_valid.reshape(B, N, T)
+    sent = sentinel_positions(input_ids, N)                             # [B, N]
+    img_valid = img_valid & (sent < S)[:, :, None] & crop_mask.any(dim=2)[:, :, None]
+
+    is_img = input_ids == IMAGE_TOKEN_INDEX
+    text_emb = llama.embed(params["llm"], torch.where(is_img, 0, input_ids)
+                           ).to(compute_dtype)
+    text_valid = attention_mask.to(torch.bool) & ~is_img
+    if labels is None:
+        labels = torch.full_like(input_ids, IGNORE_INDEX)
+    text_labels = torch.where(is_img, IGNORE_INDEX, labels)
+    return FusedBatch(*splice_multi(text_emb, text_valid, text_labels, img_embeds,
+                                    img_valid, sent, max_len=max_len))
 
 
 def forward(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values,

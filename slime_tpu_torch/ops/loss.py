@@ -1,7 +1,8 @@
 """Chunked next-token cross entropy: the [B, S, V] logits never exist at once.
 
 Port of ``slime_tpu/ops/loss.py`` (``_head_logits``, ``_dense_nll``,
-``chunked_cross_entropy``, ``chunked_ce_mean``; :32-109, :185). The vocab
+``chunked_cross_entropy``, ``chunked_ce_mean``, and DPO's per-row
+``_dense_seq_logp`` / ``chunked_sequence_logp``; :32-185). The vocab
 projection and the NLL run one sequence chunk at a time; each chunk is a
 ``torch.utils.checkpoint`` region (JAX checkpoints the scan body), so its
 logits are freed after the forward and recomputed in the backward. At
@@ -95,6 +96,68 @@ def chunked_cross_entropy(x, lm_head_weight, labels, *,
         total = total + s
         count = count + n
     return total, count
+
+
+def _dense_seq_logp(x, head, targets, valid, weights=None):
+    """Per row: (sum of w * log p(target), sum of w) in fp32; w is the valid
+    mask, or ``weights`` where valid."""
+    logits = _head_logits(x, head)
+    safe = torch.where(valid, targets, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    logp = gold - lse
+    if weights is None:
+        w = valid.to(torch.float32)
+    else:
+        w = torch.where(valid, weights, 0.0).to(torch.float32)
+    return (logp * w).sum(dim=-1), w.sum(dim=-1)
+
+
+def chunked_sequence_logp(x, lm_head_weight, labels, *,
+                          chunk: Optional[int] = DEFAULT_LOSS_CHUNK,
+                          ignore_index: int = IGNORE_INDEX, shift: bool = True,
+                          weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sequence sum of log p(target): ([B] fp32, [B] fp32 weight mass),
+    DPO's primitive. The same chunking as ``chunked_cross_entropy`` (each
+    chunk a checkpoint region while autograd records), accumulating per row.
+    ``weights`` [B, S] (aligned with ``labels`` and shifted with them) scale
+    each target's log-prob; unweighted, the mass is the valid-target count."""
+    B, S, H = x.shape
+    if shift:
+        targets = torch.cat([labels[:, 1:],
+                             torch.full((B, 1), ignore_index, dtype=labels.dtype,
+                                        device=labels.device)], dim=1)
+        if weights is not None:
+            weights = torch.cat([weights[:, 1:],
+                                 torch.zeros((B, 1), dtype=weights.dtype,
+                                             device=weights.device)], dim=1)
+    else:
+        targets = labels
+    valid = targets != ignore_index
+
+    if chunk is None or chunk >= S:
+        return _dense_seq_logp(x, lm_head_weight, targets, valid, weights)
+
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad), value=ignore_index)
+        valid = targets != ignore_index
+        if weights is not None:
+            weights = torch.nn.functional.pad(weights, (0, pad))
+    logp = torch.zeros((B,), dtype=torch.float32, device=x.device)
+    mass = torch.zeros((B,), dtype=torch.float32, device=x.device)
+    for c in range(0, x.shape[1], chunk):
+        args = (x[:, c:c + chunk], lm_head_weight, targets[:, c:c + chunk],
+                valid[:, c:c + chunk],
+                None if weights is None else weights[:, c:c + chunk])
+        if torch.is_grad_enabled():
+            s, m = checkpoint(_dense_seq_logp, *args, use_reentrant=False)
+        else:
+            s, m = _dense_seq_logp(*args)
+        logp = logp + s
+        mass = mass + m
+    return logp, mass
 
 
 def chunked_ce_mean(x, lm_head_weight, labels, *,

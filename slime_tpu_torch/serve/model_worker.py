@@ -5,8 +5,9 @@ time per semaphore slot, and heartbeats to the controller (port of
 Registration and 15 s heartbeats, ``/worker_generate_stream`` with base64
 images -> anyres crops -> ``tokenizer_image_token`` -> ``generate_stream``
 on the worker's device, the token-budget check, a concurrency semaphore and
-the error envelopes. A prompt with more than one image gets the port's
-multi-image NotImplementedError as its error reply.
+the error envelopes. A prompt with several images goes to ``generate_stream``
+as [1, N, MC, ...] pixels: each ``<image>`` sentinel expands into its image's
+tokens, in order (``slime.prepare_multimodal_multi``).
 
     python -m slime_tpu_torch.serve.model_worker --model-path DIR [--device cpu]
 """
@@ -120,7 +121,7 @@ class ModelWorker:
                 pix = torch.from_numpy(np.stack(crops_l)).to(self.device)   # [N, MC, ...]
                 cmask = torch.from_numpy(np.stack(mask_l)).to(self.device)
                 if len(crops_l) > 1:
-                    # multi-image: [1, N, MC, ...] (generate raises: not ported yet)
+                    # multi-image: [1, N, MC, ...], one block a sentinel
                     pix, cmask = pix[None], cmask[None]
 
             ids = tokenizer_image_token(prompt, self.tokenizer, return_tensors="np")

@@ -6,20 +6,27 @@ flow (:118-314): the config with the run's overrides; weights from a
 checkpoint directory, or random ones from ``--seed`` when it holds only a
 ``config.json``; the LLM quantized for QLoRA (``--bits 8/4`` with
 ``--lora-enable``: int8, or NF4); the staged adapters' warm starts; the
-dataset (``data.dataset.SupervisedDataset``), its loader or the packed
-loader (``--seq-packing``, text-only); the ``Trainer`` (LoRA mode with
-``--lora-enable``; gradient accumulation; resume from the latest
-``state-<step>`` in ``--output-dir``); and the final save, which writes
-the JAX CLI's files. ``--device`` (the port's own flag) picks where it
+dataset (``data.dataset.SupervisedDataset``, or ``data.dpo.PreferenceDataset``
+under ``--task DPO``), its loader, the pair loader or the packed loader
+(``--seq-packing``, text-only SFT); the ``Trainer`` (LoRA mode with
+``--lora-enable``; DPO with ``--task DPO``, against ``--ref-model-path`` or
+the starting weights, or LoRA-DPO against the frozen base; 8-bit Adam
+moments with ``--optim adamw8bit``; gradient accumulation; resume from the
+latest ``state-<step>`` in ``--output-dir``); and the final save, which
+writes the JAX CLI's files. ``--device`` (the port's own flag) picks where it
 runs: the current CUDA device unless it says otherwise.
 
     python -m slime_tpu_torch.train.cli --model-path DIR --data-path data.json \\
         --image-folder IMAGES --output-dir OUT --version llama3 \\
         --lora-enable --bits 4 --remat
 
-Not ported yet, each raising NotImplementedError: ``--task DPO`` (ROADMAP
-Queue 1 item 8), ``--optim adamw8bit`` (item 7), ``--mesh-*`` above 1 and a
-multi-process launch (item 12).
+    python -m slime_tpu_torch.train.cli ... --task DPO --dpo-beta 0.1 \\
+        --dpo-loss-type sigmoid --lora-enable --bits 4
+
+JAX's refusals are kept: ``--bits 8/4`` without ``--lora-enable``,
+``--seq-packing`` with ``--task DPO``, ``--ref-model-path`` with
+``--lora-enable``. Not ported yet, raising NotImplementedError:
+``--mesh-*`` above 1 and a multi-process launch (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -31,8 +38,6 @@ from typing import Optional, Sequence
 
 import torch
 
-_DPO_TODO = "--task DPO is not ported yet (ROADMAP Queue 1 item 8: train/dpo.py)"
-_OPT8_TODO = "--optim adamw8bit is not ported yet (ROADMAP Queue 1 item 7: train/opt8.py)"
 _MESH_TODO = ("a mesh or a multi-process launch is not ported yet (ROADMAP Queue 1 "
               "item 12: parallel/mesh.py)")
 
@@ -77,24 +82,34 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--warmup-ratio", type=float, default=0.03)
     ap.add_argument("--lr-scheduler-type", default="cosine")
     ap.add_argument("--optim", default="adamw", choices=["adamw", "adamw8bit"],
-                    help="adamw8bit (8-bit moments) is not ported yet")
+                    help="adamw8bit stores Adam moments as blockwise int8 "
+                         "(~2.06 B/param vs 8: train/opt8.py)")
     ap.add_argument("--model-max-length", type=int, default=2048)
     ap.add_argument("--save-steps", type=int, default=1000)
     ap.add_argument("--async-save", action="store_true",
                     help="train-state saves written in the background")
     ap.add_argument("--logging-steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=3407)
-    # DPO (not ported yet: every --task DPO run raises)
-    ap.add_argument("--task", default="SFT", choices=["SFT", "DPO"])
+    # DPO (the reference's --task DPO fields, train.py:133-166: train/dpo.py
+    # and data/dpo.py)
+    ap.add_argument("--task", default="SFT", choices=["SFT", "DPO"],
+                    help="SFT, or DPO over preference pairs (records with "
+                         "chosen/rejected or output_1/output_2 + preference)")
     ap.add_argument("--dpo-beta", type=float, default=0.1)
     ap.add_argument("--dpo-loss-type", default="sigmoid",
                     choices=["sigmoid", "ipo", "kto_pair"])
-    ap.add_argument("--dpo-use-average", action="store_true")
-    ap.add_argument("--dpo-token-weighted", action="store_true")
+    ap.add_argument("--dpo-use-average", action="store_true",
+                    help="average per-token log-probs instead of sums")
+    ap.add_argument("--dpo-token-weighted", action="store_true",
+                    help="up-weight tokens where chosen/rejected differ")
     ap.add_argument("--dpo-token-weight", type=float, default=1.1)
-    ap.add_argument("--sft-weight", type=float, default=0.0)
+    ap.add_argument("--sft-weight", type=float, default=0.0,
+                    help="mix in plain NLL on the chosen rows")
     ap.add_argument("--dpo-weight", type=float, default=1.0)
-    ap.add_argument("--ref-model-path", default=None)
+    ap.add_argument("--ref-model-path", default=None,
+                    help="reference-policy checkpoint for full-parameter DPO "
+                         "(default: the starting weights); refused with "
+                         "--lora-enable, whose reference is the frozen base")
     # LoRA / QLoRA (reference r = 128, alpha = 256; --bits 8/4 quantizes the
     # frozen LLM base, the bitsandbytes k-bit path, train.py:956-972)
     ap.add_argument("--lora-enable", action="store_true")
@@ -119,16 +134,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    if args.task == "DPO":
-        raise NotImplementedError(_DPO_TODO)
-    if args.optim == "adamw8bit":
-        raise NotImplementedError(_OPT8_TODO)
     if (args.mesh_data > 1 or (args.mesh_fsdp or 1) > 1 or args.mesh_model > 1
             or int(os.environ.get("WORLD_SIZE", "1")) > 1):
         raise NotImplementedError(_MESH_TODO)
     if args.bits != 16 and not args.lora_enable:
         raise SystemExit("--bits 8/4 trains a quantized base: only valid with "
                          "--lora-enable (QLoRA)")
+
+
+def _refuse_dpo(args) -> None:
+    """JAX's DPO refusals (scripts/train_slime.py:253-260, :270)."""
+    if args.task != "DPO":
+        return
+    if args.ref_model_path and args.lora_enable:
+        raise SystemExit("--ref-model-path is incompatible with --lora-enable: LoRA-DPO "
+                         "uses the frozen base as the reference policy (drop "
+                         "--ref-model-path, or run full-parameter DPO)")
+    if args.seq_packing:
+        raise SystemExit("--seq-packing does not compose with --task DPO (pair rows "
+                         "must stay aligned)")
 
 
 def build_params(args, cfg, device):
@@ -164,7 +188,29 @@ def build_params(args, cfg, device):
     return params
 
 
+def build_ref_params(args, cfg, device):
+    """Full-parameter DPO's reference policy from ``--ref-model-path`` (its
+    LLM layers stacked as the policy's), or None: the starting weights."""
+    if not args.ref_model_path:
+        return None
+    from .. import checkpoint as ckpt
+    from ..models import llama
+    ref = ckpt.to_torch(ckpt.load_pretrained(args.ref_model_path, cfg=cfg), device=device)
+    if cfg.llm.num_experts == 0 and isinstance(ref["llm"].get("layers"), list):
+        ref["llm"]["layers"] = llama.stack_layers(ref["llm"]["layers"])
+    return ref
+
+
 def build_dataset(args, cfg, tokenizer):
+    if args.task == "DPO":
+        from ..data.dpo import PreferenceDataset
+        return PreferenceDataset(args.data_path, tokenizer, image_folder=args.image_folder,
+                                 image_aspect_ratio=args.image_aspect_ratio,
+                                 conv_version=args.version,
+                                 max_crops=1 + cfg.max_local_crops,
+                                 tile=cfg.vision.image_size, pixel_dtype=args.pixel_dtype,
+                                 token_weighted=args.dpo_token_weighted,
+                                 token_weight=args.dpo_token_weight)
     from ..data.dataset import SupervisedDataset
     return SupervisedDataset(args.data_path, tokenizer, image_folder=args.image_folder,
                              image_aspect_ratio=args.image_aspect_ratio,
@@ -173,11 +219,18 @@ def build_dataset(args, cfg, tokenizer):
 
 
 def batches(args, ds, pad_token_id: int):
-    """The run's numpy batches, epoch after epoch: packed text-only rows
-    (``--seq-packing``) or ``data_loader``'s collated ones."""
+    """The run's numpy batches, epoch after epoch: stacked preference pairs
+    (``--task DPO``), packed text-only rows (``--seq-packing``) or
+    ``data_loader``'s collated ones."""
     from ..data.dataset import data_loader
+    from ..data.dpo import dpo_loader
     from ..data.packing import packed_loader
     for epoch in range(args.num_train_epochs):
+        if args.task == "DPO":
+            yield from dpo_loader(ds, batch_size=args.per_device_batch_size,
+                                  seq_len=args.model_max_length, pad_token_id=pad_token_id,
+                                  seed=args.seed + epoch, num_workers=8)
+            continue
         if args.seq_packing:
             order = list(range(len(ds)))
             random.Random(args.seed + epoch).shuffle(order)
@@ -205,6 +258,7 @@ def main(argv: Optional[Sequence[str]] = None, tokenizer=None):
 
     args = parse_args(argv)
     _refuse_unported(args)
+    _refuse_dpo(args)
     device = resolve_device(args.device)
     cfg = SliMEConfig.load(args.model_path)
     cfg = dataclasses.replace(cfg, use_global_only=args.use_global_only,
@@ -237,10 +291,19 @@ def main(argv: Optional[Sequence[str]] = None, tokenizer=None):
         lora_state = lora_lib.init_lora(
             params, generator=torch.Generator(device=device).manual_seed(args.seed + 1),
             r=args.lora_r, alpha=args.lora_alpha)
+    dpo_cfg = None
+    if args.task == "DPO":
+        from .dpo import DPOConfig
+        dpo_cfg = DPOConfig(beta=args.dpo_beta, loss_type=args.dpo_loss_type,
+                            use_average=args.dpo_use_average,
+                            token_weighted=args.dpo_token_weighted,
+                            token_weight=args.dpo_token_weight, sft_weight=args.sft_weight,
+                            dpo_weight=args.dpo_weight)
     trainer = Trainer(params, cfg, tc, rc,
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                       use_kernel=args.use_pallas_attention or None, remat=args.remat,
-                      lora=lora_state)
+                      lora=lora_state, dpo=dpo_cfg,
+                      ref_params=build_ref_params(args, cfg, device) if dpo_cfg else None)
     if args.seq_packing and any(n > 0 for n in ds.modality_lengths):
         raise SystemExit("--seq-packing is text-only (image features splice into the "
                          "embedding sequence; token-aligned segments can't describe them)")

@@ -27,6 +27,16 @@ Per trainable label group the update is optax's
 A trainable leaf that got no gradient (a branch the stage never runs) takes
 a zero gradient, as JAX's would be, so its moments decay in step with optax.
 
+``optim="adamw8bit"`` (``optim.py:102-150``) stores both moments as int8
+codes with per-256-block scales (``train.opt8``): within each label group the
+chain is the same, clipping, then ``scale_by_adam8bit``, then the decayed
+weights under the same mask, then the schedule, with optax's arithmetic
+(``p + (-lr) * (u + wd * p)`` in the gradient's dtype).
+
+The clip pass never makes a whole-leaf copy: each leaf's sum of squares is
+taken in fp32 over slices of 2^26 elements and the clip is written back in
+place slice by slice with the same arithmetic.
+
 ``gradient_accumulation_steps`` k > 1 wraps the optimizer in ``MultiSteps``,
 ``optax.MultiSteps``' semantics: each micro-step folds its gradients into a
 running mean (Welford, as optax), the inner update runs on every k-th
@@ -45,8 +55,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..params import map_leaves, named_leaves
+from . import opt8
 
-_OPT8_TODO = "(ROADMAP Queue 1 item 7: train/opt8.py)"
+_SLICE = 2 ** 26        # elements of a leaf the clip pass touches at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +79,8 @@ class TrainConfig:
     unfreeze_mm_vision_tower: bool = False
     mm_learnable_gated: int = -1
     gradient_accumulation_steps: int = 1
-    # "adamw" (fp32 moments) or "adamw8bit" (not ported yet: ROADMAP Queue 1 item 7)
+    # "adamw" (fp32 moments) or "adamw8bit" (blockwise int8 moments,
+    # train/opt8.py: ~2.06 bytes a parameter against 8)
     optim: str = "adamw"
 
 
@@ -126,11 +138,24 @@ def make_schedule(tc: TrainConfig, lr: float) -> Callable[[int], float]:
     return lambda count: lr            # "constant"
 
 
+def _sq_norm(g: torch.Tensor) -> torch.Tensor:
+    """fp32 sum of squares of ``g``, over slices of the flattened leaf."""
+    flat = g.reshape(-1)
+    return sum(c.to(torch.float32).square().sum() for c in flat.split(_SLICE))
+
+
+def _clip_(g: torch.Tensor, keep: torch.Tensor, norm: torch.Tensor, max_norm: float):
+    """``g = g if keep else (g / norm) * max_norm``, in place, slice by slice."""
+    for c in g.view(-1).split(_SLICE):
+        c.copy_(torch.where(keep, c, (c / norm) * max_norm))
+
+
 class GroupedAdamW:
     """AdamW per label group with per-group global-norm clipping (see the
-    module docstring). ``step()`` updates the trainable leaves in place,
-    clears their gradients, and returns the global norm of the gradients it
-    was given (over all trainable leaves, before clipping) as a 0-d tensor."""
+    module docstring); 8-bit moments under ``optim="adamw8bit"``. ``step()``
+    updates the trainable leaves in place, clears their gradients, and
+    returns the global norm of the gradients it was given (over all
+    trainable leaves, before clipping) as a 0-d tensor."""
 
     def __init__(self, groups: Dict[str, List[Tuple[str, torch.Tensor]]],
                  tc: TrainConfig):
@@ -144,8 +169,12 @@ class GroupedAdamW:
             param_groups = [{"params": ps, "weight_decay": wd}
                             for ps, wd in ((decay, tc.weight_decay), (no_decay, 0.0))
                             if ps]
-            opt = torch.optim.AdamW(param_groups, lr=0.0,
-                                    betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps)
+            if tc.optim == "adamw8bit":
+                opt = opt8.AdamW8bit(param_groups, betas=(tc.adam_b1, tc.adam_b2),
+                                     eps=tc.adam_eps)
+            else:
+                opt = torch.optim.AdamW(param_groups, lr=0.0,
+                                        betas=(tc.adam_b1, tc.adam_b2), eps=tc.adam_eps)
             self.groups.append({"label": label, "params": [p for _, p in leaves],
                                 "schedule": make_schedule(tc, lr), "opt": opt,
                                 "count": 0})
@@ -163,12 +192,12 @@ class GroupedAdamW:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
-            norm_sq = sum(gr.to(torch.float32).square().sum() for gr in grads)
+            norm_sq = sum(_sq_norm(gr) for gr in grads)
             sq.append(norm_sq)
             norm = torch.sqrt(norm_sq)
             keep = norm < self.tc.max_grad_norm
             for gr in grads:
-                gr.copy_(torch.where(keep, gr, (gr / norm) * self.tc.max_grad_norm))
+                _clip_(gr, keep, norm, self.tc.max_grad_norm)
             lr = g["schedule"](g["count"])
             for pg in g["opt"].param_groups:
                 pg["lr"] = lr
@@ -204,8 +233,7 @@ class MultiSteps:
     def step(self) -> torch.Tensor:
         params = self.inner.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads)) \
-            if grads else torch.zeros(())
+        gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) if grads else torch.zeros(())
         for a, g in zip(self.acc, grads):
             a.add_((g - a) / (self.mini_step + 1))
         if self.mini_step < self.k - 1:
@@ -234,9 +262,8 @@ class MultiSteps:
 
 
 def _build(groups, tc: TrainConfig):
-    if tc.optim != "adamw":
-        raise NotImplementedError(f"optim={tc.optim!r} (8-bit Adam moments) is not "
-                                  f"ported yet {_OPT8_TODO}")
+    if tc.optim not in ("adamw", "adamw8bit"):
+        raise ValueError(f"unknown optim {tc.optim!r}: adamw or adamw8bit")
     tx = GroupedAdamW(groups, tc)
     return MultiSteps(tx, tc.gradient_accumulation_steps) \
         if tc.gradient_accumulation_steps > 1 else tx

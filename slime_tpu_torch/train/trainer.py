@@ -1,8 +1,7 @@
 """Training orchestration: SliME's staged training and SFT as one explicit loop.
 
 Port of ``slime_tpu/train/trainer.py`` (``RunConfig``, ``Trainer``,
-``run_stage``; :42-251) without its DPO branch. The staged pretraining runs
-through it:
+``run_stage``; :42-251). The staged pretraining runs through it:
 
 - stage 1: ``tune_mm_mlp_adapter``, ``use_global_only``,
   ``mm_learnable_gated=0`` (the gated projector's MLP expert trains);
@@ -13,7 +12,12 @@ through it:
 In all three the LLM body and the vision tower are frozen. ``lora=`` (a
 ``train.lora`` state) is LoRA mode: only the adapters and the projector and
 sampler train, over a frozen base that may be quantized (QLoRA); saves write
-the reference's LoRA layout and ``params_host`` the merged tree.
+the reference's LoRA layout and ``params_host`` the merged tree. ``dpo=`` (a
+``train.dpo.DPOConfig``) trains by DPO over stacked pair batches
+(``data.dpo.dpo_loader``) in place of the SFT step: full-parameter against
+``ref_params`` (by default the tree the trainer starts from, which it never
+writes: its trainable leaves are copies), or LoRA-DPO against the frozen
+base; logging, saving and resume are the SFT step's.
 
 The input pipeline's ``Prefetcher`` runs the host-to-device copy in its
 producer thread, from pinned memory. Every ``save_steps`` the trainer writes
@@ -23,8 +27,7 @@ a model checkpoint (``checkpoint-<step>``) and a train-state checkpoint
 the same output directory (or with ``resume_from``) resumes from the latest
 state and continues exactly; like JAX's it feeds the batches it is given
 from their start (consumed batches are not skipped). The step counter stays
-on the host; device scalars are read only at log steps. DPO raises (ROADMAP
-Queue 1 item 8).
+on the host; device scalars are read only at log steps.
 """
 from __future__ import annotations
 
@@ -49,8 +52,6 @@ from .optim import TrainConfig
 from .preemption import PreemptionGuard
 from .step import (init_lora_train_state, init_train_state, make_lora_train_step,
                    make_train_step)
-
-_DPO_TODO = "DPO training is not ported yet (ROADMAP Queue 1 item 8: train/dpo.py)"
 
 
 @dataclasses.dataclass
@@ -79,15 +80,31 @@ class Trainer:
         """``params``: the parameter tree on its device; the trainer trains
         copies of its trainable leaves and shares the frozen ones.
         ``lora``: a ``train.lora`` state switches to LoRA mode (``params``
-        may hold a quantized LLM: QLoRA). ``generator`` feeds the training
-        noise (default: a generator on the parameters' device seeded with
-        ``rc.seed``); its state is part of the train-state checkpoint."""
-        if dpo is not None or ref_params is not None:
-            raise NotImplementedError(_DPO_TODO)
+        may hold a quantized LLM: QLoRA). ``dpo``: a ``train.dpo.DPOConfig``
+        switches the objective to DPO; full-parameter DPO's reference is
+        ``ref_params`` (default: ``params`` itself, never written), LoRA-DPO's
+        the frozen base. ``generator`` feeds the training noise (default: a
+        generator on the parameters' device seeded with ``rc.seed``); its
+        state is part of the train-state checkpoint."""
         self.cfg, self.tc, self.rc = cfg, tc, rc
         self.compute_dtype = compute_dtype or torch.bfloat16
         self.lora = lora
-        if lora is not None:
+        self.dpo = dpo
+        if dpo is not None:
+            from .dpo import make_dpo_train_step, make_lora_dpo_train_step
+            kw = dict(use_kernel=use_kernel, compute_dtype=self.compute_dtype, remat=remat)
+            if lora is not None:
+                self.base, self.state, self.tx = init_lora_train_state(params, lora, tc)
+                dpo_step = make_lora_dpo_train_step(cfg, tc, self.tx, dpo, rank=lora["rank"],
+                                                    alpha=lora["alpha"], **kw)
+                ref = self.base
+            else:
+                self.state, self.tx = init_train_state(params, tc)
+                dpo_step = make_dpo_train_step(cfg, tc, self.tx, dpo, **kw)
+                ref = map_leaves(lambda _, t: t.detach(),
+                                 ref_params if ref_params is not None else params)
+            self.step_fn = lambda state, batch, g: dpo_step(state, ref, batch, g)
+        elif lora is not None:
             self.base, self.state, self.tx = init_lora_train_state(params, lora, tc)
             lora_step = make_lora_train_step(
                 cfg, tc, self.tx, rank=lora["rank"], alpha=lora["alpha"],

@@ -8,9 +8,9 @@ random params through ``params.from_jax_numpy``, the offline
 ``tests/toy_tokenizer.py`` and fp32 compute.
 
 Greedy text over HTTP equals the in-process engine's, the draftless
-worker's, and JAX's batched worker's for the same prompt and params. The
-two-image request gets the port's multi-image NotImplementedError as its
-error reply (ROADMAP Queue 1 item 9).
+worker's, and JAX's batched worker's for the same prompt and params. A
+two-image request streams the tokens of the in-process multi-image
+``generate``.
 """
 import base64
 import io
@@ -143,15 +143,34 @@ def test_image_count_mismatch_is_error(stack):
     assert chunks[-1]["error_code"] != 0
 
 
-def test_two_image_generation_is_not_ported(stack):
-    """Two images: the reply is the port's multi-image NotImplementedError
-    (ROADMAP Queue 1 item 9), as an error chunk."""
-    _, wport, _, _ = stack
+def test_two_image_generation_is_not_ported(stack, models):
+    """Two images (multi-image prompts are ported): the worker streams the
+    tokens of the in-process ``generate`` on the same [1, 2, MC, ...]
+    crops, each ``<image>`` expanding into its own image."""
+    from slime_tpu_torch.data.image_ops import process_anyres_image_host
+    from slime_tpu_torch.data.tokenization import tokenizer_image_token
+    from slime_tpu_torch.generate import generate, trim_at_eos
+    from PIL import Image
+    _, wport, cfg, tok = stack
+    _, params, _ = models
+    imgs = [_b64img((255, 0, 0)), _b64img((0, 0, 255), (400, 200))]
+    prompt = "<image> and <image> what differs"
     chunks = _stream(f"http://localhost:{wport}/worker_generate_stream",
-                     {"prompt": "<image> and <image> what differs",
-                      "images": [_b64img((255, 0, 0)), _b64img((0, 0, 255))],
-                      "max_new_tokens": 3, "temperature": 0.0})
-    assert chunks[-1]["error_code"] != 0 and "multi-image" in chunks[-1]["text"]
+                     {"prompt": prompt, "images": imgs, "max_new_tokens": 5,
+                      "temperature": 0.0})
+    assert chunks and all(c["error_code"] == 0 for c in chunks)
+    crops = [process_anyres_image_host(
+        Image.open(io.BytesIO(base64.b64decode(b))).convert("RGB"),
+        tile=cfg.vision.image_size, max_crops=1 + cfg.max_local_crops) for b in imgs]
+    ids = torch.from_numpy(tokenizer_image_token(prompt, tok, return_tensors="np")[None]
+                           .astype(np.int64))
+    with torch.no_grad():
+        out = generate(params, cfg, ids, torch.ones_like(ids, dtype=torch.bool),
+                       torch.from_numpy(np.stack([c for c, _, _ in crops]))[None],
+                       torch.from_numpy(np.stack([m for _, m, _ in crops]))[None],
+                       max_new_tokens=5, compute_dtype=torch.float32)
+    want = trim_at_eos(out, cfg.eos_token_id)[0]
+    assert want and chunks[-1]["text"] == tok.decode(want, skip_special_tokens=True)
 
 
 def test_multi_worker_dispatch():

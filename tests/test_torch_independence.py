@@ -15,8 +15,8 @@ originals.
   discovery and the ``PreemptionGuard``.
 - The modules the port copies (``serve/grammar``, ``protocol``,
   ``controller``, ``openai_api``, ``tools``, ``gradio_web_server``,
-  ``conversation``, ``data/preprocess``, ``data/packing``): the originals'
-  code statement for statement, the grammar's tables byte for byte, the
+  ``conversation``, ``data/preprocess``, ``data/packing``, ``data/dpo``):
+  the originals' code statement for statement, the grammar's tables byte for byte, the
   serving constants; the native preprocess library's C++ source
   (``slime_tpu_torch/native/slime_preprocess.cpp``) byte for byte
   ``native/slime_preprocess.cpp``. The checkpoint
@@ -305,7 +305,7 @@ def test_prefix_cache_copy_matches():
 
 OWN_COPIES = ["serve/grammar.py", "serve/protocol.py", "serve/controller.py",
               "serve/openai_api.py", "serve/tools.py", "serve/gradio_web_server.py",
-              "conversation.py", "data/preprocess.py", "data/packing.py"]
+              "conversation.py", "data/preprocess.py", "data/packing.py", "data/dpo.py"]
 
 
 def _code_dump(path, renames=()):

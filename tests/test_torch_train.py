@@ -336,21 +336,75 @@ def test_trainer_stages_match_jax_train_step(setup, jax_kernel_attention, tmp_pa
 
 
 def test_trainer_refuses_what_is_not_ported(setup, tmp_path):
-    """DPO (ROADMAP Queue 1 item 8) and 8-bit Adam moments (item 7) raise
-    NotImplementedError; LoRA and resume are ported
-    (``tests/test_torch_lora_train.py``): a ``state-*`` directory with no
-    train state in it is an error, not an empty resume."""
+    """A ``state-*`` directory with no train state in it is an error, not an
+    empty resume. (DPO and 8-bit Adam moments are ported: the trainer tests
+    below run them.)"""
     cfg, p = setup
     scfg, tc = _stage(cfg, 1)
     tp = bridge.from_jax_numpy(p, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)), dpo=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(tp, scfg, dataclasses.replace(tc, optim="adamw8bit"),
-                RunConfig(output_dir=str(tmp_path)))
     (tmp_path / "state-3").mkdir()
     with pytest.raises(FileNotFoundError):
         Trainer(tp, scfg, tc, RunConfig(output_dir=str(tmp_path)))
+
+
+def test_trainer_adamw8bit_stage_matches_jax_train_step(setup, jax_kernel_attention,
+                                                        tmp_path):
+    """Stage 1 with ``optim="adamw8bit"`` through ``run_stage`` vs JAX's
+    ``make_train_step`` over its 8-bit ``make_optimizer``: 2 steps, the
+    losses and every leaf."""
+    cfg, p = setup
+    scfg, tc = _stage(cfg, 1, optim="adamw8bit")
+    batches = [_batch(40 + i) for i in range(2)]
+    jtc = joptim.TrainConfig(**dataclasses.asdict(tc))
+    state, tx = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, p), jtc)
+    jstep_fn = jstep.make_train_step(scfg, jtc, tx, compute_dtype=jnp.float32)
+    want_losses = []
+    for i, b in enumerate(batches):
+        state, m = jstep_fn(state, jax.tree_util.tree_map(jnp.asarray, b),
+                            jax.random.PRNGKey(i))
+        want_losses.append(float(m["loss"]))
+    tparams, _ = run_stage(bridge.from_jax_numpy(p, device="cpu"), scfg, tc,
+                           RunConfig(output_dir=str(tmp_path), save_steps=0, log_steps=1),
+                           batches, compute_dtype=torch.float32)
+    recs = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    np.testing.assert_allclose([r["loss"] for r in recs], want_losses, rtol=RTOL)
+    want = _leaf_dict(jax.device_get(state["params"]))
+    for path, leaf in bridge.named_leaves(tparams):
+        np.testing.assert_allclose(leaf.detach().numpy(), want[path], rtol=RTOL, atol=ATOL,
+                                   err_msg=path)
+
+
+def test_trainer_dpo_step(setup, tmp_path):
+    """``Trainer(dpo=...)`` runs the DPO step in place of the SFT step on
+    stacked pair batches: the first loss is log 2 (the reference is the
+    starting tree), the JAX metric names are logged, the starting tree is
+    not written, a saved state resumes."""
+    from slime_tpu_torch.train.dpo import DPOConfig
+    cfg, p = setup
+    scfg, tc = _stage(cfg, 1)
+    tc = dataclasses.replace(tc, warmup_ratio=0.0, lr_schedule="constant")
+    tp = bridge.from_jax_numpy(p, device="cpu")
+    before = {k: v.clone() for k, v in bridge.named_leaves(tp)}
+    b = _batch(50)
+    pair = {k: np.concatenate([v, v]) if k in ("input_ids", "labels", "attention_mask")
+            else v for k, v in b.items()}
+    pair["labels"][B:, -3:] = 9                      # the rejected answers differ
+    rc = RunConfig(output_dir=str(tmp_path), save_steps=1, log_steps=1)
+    tr = Trainer(tp, scfg, tc, rc, dpo=DPOConfig(), compute_dtype=torch.float32)
+    last = tr.train([pair, pair])
+    recs = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert recs[0]["loss"] == pytest.approx(np.log(2.0), rel=1e-5)
+    assert recs[1]["loss"] < recs[0]["loss"] and last["reward_margin"] > 0
+    assert {"reward_margin", "reward_accuracy", "chosen_reward", "rejected_reward",
+            "policy_chosen_logp", "policy_rejected_logp", "target_tokens"} <= set(recs[1])
+    for k, v in bridge.named_leaves(tp):
+        assert torch.equal(v, before[k]), k
+    resumed = Trainer(bridge.from_jax_numpy(p, device="cpu"), scfg, tc, rc, dpo=DPOConfig(),
+                      compute_dtype=torch.float32)
+    assert resumed.state["step"] == 2
+    for (k, x), (_, y) in zip(bridge.named_leaves(tr.params),
+                              bridge.named_leaves(resumed.params)):
+        assert torch.equal(x, y), k
 
 
 def test_flash_attention_use_kernel_on_cpu_raises():

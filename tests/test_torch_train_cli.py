@@ -15,8 +15,14 @@
   uninterrupted trainer fed the same batches. The files each run writes are
   the JAX CLI's (names of a run of ``scripts/train_slime.py`` itself with
   the same flags, on its own checkpoint).
-- ``--task DPO``, ``--optim adamw8bit`` and a mesh raise NotImplementedError
-  naming their ROADMAP items; ``--bits 4`` without LoRA exits.
+- ``--task DPO`` (full-parameter with ``--optim adamw8bit`` and with
+  ``--ref-model-path``, LoRA, QLoRA) end to end on preference pairs, one
+  multimodal, as ``tests/test_cli_entrypoints.py::test_train_slime_cli_dpo``
+  runs the JAX CLI: the DPO metrics logged, the files saved, the 8-bit
+  moments in the optimizer, LoRA-DPO's first loss at log 2.
+- JAX's refusals: ``--bits 4`` without LoRA, ``--seq-packing`` with DPO,
+  ``--ref-model-path`` with ``--lora-enable``; a mesh raises
+  NotImplementedError naming ROADMAP item 12.
 
 Tolerance: none; resumed parameters equal the uninterrupted ones exactly.
 """
@@ -220,15 +226,77 @@ def test_resume_continues_exactly(model_dir, data, tmp_path):
     assert torch.equal(first.generator.get_state(), resumed.generator.get_state())
 
 
+def _pref_data(data):
+    recs = [{"id": "0", "image": "x.png",
+             "conversations": [{"from": "human", "value": "<image>\nwhat is this ?"}],
+             "chosen": "a cat .", "rejected": "a dog ."},
+            {"id": "1", "conversations": [{"from": "human", "value": "2 + 2 ?"}],
+             "output_1": {"value": "4 ."}, "output_2": {"value": "5 ."},
+             "preference": 1}] * 2
+    path = data / "pref.json"
+    path.write_text(json.dumps(recs))
+    return str(path)
+
+
+def _logged(out):
+    return [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+
+
+def test_dpo_and_adamw8bit_runs(model_dir, data, tmp_path):
+    """--task DPO through the CLI, as test_train_slime_cli_dpo runs the JAX
+    one (token-weighted pairs, one multimodal; batch 2, 2 steps): full
+    parameters with 8-bit moments; again against the first run's
+    checkpoint as --ref-model-path; LoRA and QLoRA, whose first loss is
+    log 2 (the adapters start at B = 0, the base is the reference)."""
+    from slime_tpu_torch.train.opt8 import AdamW8bit
+    model, tok = model_dir
+    pref = _pref_data(data)
+    dpo = ["--task", "DPO", "--dpo-beta", "0.1", "--dpo-token-weighted", "--max-steps", "2",
+           "--save-steps", "0", "--learning-rate", "1e-4"]
+    full = str(tmp_path / "full")
+    tr = cli.main(_argv(model, pref, full, *dpo, "--optim", "adamw8bit", img=str(data)),
+                  tokenizer=tok)
+    assert tr.dpo is not None and tr.state["step"] == 2
+    assert all(isinstance(g["opt"], AdamW8bit) for g in tr.tx.groups)
+    assert all(st["m_q"].dtype == torch.int8 for g in tr.tx.groups for st in g["opt"].state)
+    recs = _logged(full)
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all("reward_margin" in r and "target_weight_mass" in r
+               and "target_tokens" not in r and np.isfinite(r["loss"]) for r in recs)
+    assert sorted(os.listdir(full)) == ["config.json", "metrics.jsonl", "model.safetensors"]
+
+    ref = cli.main(_argv(model, pref, str(tmp_path / "ref"), *dpo, "--ref-model-path", full,
+                         "--dpo-loss-type", "ipo", "--sft-weight", "0.1", img=str(data)),
+                   tokenizer=tok)
+    assert np.isfinite(_logged(str(tmp_path / "ref"))[0]["loss"])
+    assert isinstance(ref.params["llm"]["layers"], dict)           # stacked, as the policy
+
+    for tag, extra in (("lora", ["--lora-r", "4"]), ("qlora", ["--bits", "4", "--lora-r", "4"])):
+        out = str(tmp_path / tag)
+        tr = cli.main(_argv(model, pref, out, *dpo, "--lora-enable", "--dpo-loss-type",
+                            "kto_pair", *extra, img=str(data)), tokenizer=tok)
+        assert tr.lora is not None and tr.state["step"] == 2
+        recs = _logged(out)
+        # kto_pair at policy == reference: 1 - sigmoid(0) per term
+        assert recs[0]["loss"] == pytest.approx(0.5, abs=1e-5)
+        assert "adapter_model.bin" in os.listdir(out)
+
+
 def test_refusals(model_dir, data, tmp_path):
+    """JAX's refusals (scripts/train_slime.py:145-148, :253-260, :270) and
+    the mesh, which is not ported (ROADMAP item 12)."""
     model, tok = model_dir
     base = _argv(model, str(data / "txt.json"), str(tmp_path / "r"))
-    for extra, item in ((["--task", "DPO"], "item 8"), (["--optim", "adamw8bit"], "item 7"),
-                        (["--mesh-fsdp", "2"], "item 12"), (["--mesh-model", "2"], "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra in (["--mesh-fsdp", "2"], ["--mesh-model", "2"]):
+        with pytest.raises(NotImplementedError, match="item 12"):
             cli.main(base + extra, tokenizer=tok)
     with pytest.raises(SystemExit, match="lora-enable"):
         cli.main(base + ["--bits", "4"], tokenizer=tok)
+    with pytest.raises(SystemExit, match="seq-packing"):
+        cli.main(base + ["--task", "DPO", "--seq-packing"], tokenizer=tok)
+    with pytest.raises(SystemExit, match="ref-model-path"):
+        cli.main(base + ["--task", "DPO", "--lora-enable", "--ref-model-path", model],
+                 tokenizer=tok)
 
 
 def test_run_writes_the_jax_cli_files(tmp_path):
