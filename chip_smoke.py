@@ -3,8 +3,10 @@
 (int8, and the CLI's 4-bit configurations; several images, beam search, the
 identity resampler) and many fine-tunes at once (multi-LoRA), SliME-8B's
 staged pretraining, its QLoRA SFT and QLoRA-DPO through the training CLI and
-a full-parameter step with 8-bit Adam moments, and a context-parallel (ring
-attention) prefill of Llama-3-8B's full 8192 positions.
+a full-parameter step with 8-bit Adam moments, a context-parallel (ring
+attention) prefill of Llama-3-8B's full 8192 positions, and SliME-8B's
+evaluation (the eval harness, the benchmark drivers, the video path, the eval
+CLI and the checkpoint verifier) in bf16.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -25,7 +27,8 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          in int8 and q4g at B up to 128, bf16 and fp32 (in bf16 at B <= 8
          on their weight ring, with its launches' device times from the
          profiler, K2 and K3 beside torch's int8 / int4 weight-only
-         product), the flash-attention
+         product), and on dense bf16 weights at B = 1 and 4 (row per warp,
+         beside torch.nn.functional.linear of the bf16 product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
@@ -196,6 +199,23 @@ Phase 11b builds phase 4's bf16 SliME-8B and trains every leaf but the
          state's round trip through the host equal to the uninterrupted
          step 2.
 
+Phase 12  builds SliME-8B at full width and depth in bf16 throughout (dense
+         stacked LLM: what the eval CLI loads a bf16 checkpoint into) and
+         runs the evaluation path with a byte tokenizer and EOS off:
+         ``eval.harness.run_eval`` on 8 questions over 4 images (16 tokens,
+         llama3 template) at batch 4 and at batch 1, equal up to a logged
+         near tie, the launches of each request asserted (K4 23, K5 32,
+         dense K1-K3 32 a decode step) and one batch and the decode step
+         traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
+         prefix leads greedy's after they part, as beam search guarantees);
+         ``video.run_video_mme`` on 8 frames of 640x360 against ``generate``
+         on ``process_video_frames``' pixels; ``benchmarks.run_mmbench`` with
+         circular rounds; then the model, its LLM cut to 2 layers at full
+         width (for disk and time only), saved and run through ``eval.cli``
+         (2 chunks, ``--merge --scorer textvqa``) and
+         ``tools.verify_released_weights`` (record, check: PASS; one
+         corrupted weight: FAIL, rc 1).
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -279,7 +299,9 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "quant_matmul_int8_f32": 1e-4, "quant_matmul_q4g_f32": 1e-4,
         "w8a8_matmul_f32": 1e-6, "ring_attention_rdma_f32": 1e-4,
         "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
-        "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0}
+        "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0,
+        "fused_qkv_decode_dense": 2e-3, "fused_o_residual_dense": 2e-3,
+        "fused_mlp_decode_dense": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -363,6 +385,12 @@ BRANCH_LEN, BRANCH_NEW, BEAM_SCORE_SLACK = 4096, 32, 0.1
 # 1.0, the norms' weights, by at least an ulp)
 DPO_RECORDS, DPO_PAIRS, DPO_STEPS = 8, 2, 3
 OPT8_LR = 5e-3
+# phase 12: the eval harness's questions (on 4 images of these sizes, one
+# prompt past a 64-token bucket), new tokens an answer, batch, beams, the
+# video's frames and the LLM layers of the checkpoint written for the CLI
+EVAL_SIZES = ((672, 672), (1000, 600), (400, 900), (336, 336))
+EVAL_QUESTIONS, EVAL_NEW, EVAL_BATCH, EVAL_BEAMS = 8, 16, 4, 3
+EVAL_FRAMES, EVAL_CKPT_LAYERS = 8, 2
 KERNELS = {
     "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
                           "slime_tpu/ops/encoder_attention.py:88"),
@@ -430,6 +458,14 @@ KERNELS = {
     "p4_q4g_unpack": ("slime_tpu_torch/csrc/int4_probes.cu",
                       "scripts/bench_q4g_unpack_probe.py:90"),
     "p3_int8_dot": ("slime_tpu_torch/csrc/int8_dot.cu", "scripts/bench_int8_dot_probe.py:59"),
+    # K1-K3's row-per-warp kernels on dense bf16 weights with bf16 activations:
+    # the bf16 checkpoints of the eval path (phase 12)
+    "fused_qkv_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_qkvo.py:209"),
+    "fused_mlp_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_mlp.py:366"),
 }
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
@@ -513,6 +549,7 @@ def _counters():
     for n, fn in fused.items():
         out[n + "_ring"] = (fn, "ring_launches")
         out[n + "_q4g_ring"] = (fn, "q4g_ring_launches")
+        out[n + "_dense"] = (fn, "dense_launches")
     return out
 
 
@@ -532,7 +569,9 @@ def launch_counts():
         # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g ones
         ring_q4g = counts[n + "_q4g_ring"]
         counts[n + "_ring"] -= ring_q4g
-        counts[n] -= counts[n + "_ring"]
+        # what is left of .launches in bf16: int8 and dense weights, row per
+        # warp (.dense: the dense ones)
+        counts[n] -= counts[n + "_ring"] + counts[n + "_dense"]
         counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
@@ -1338,6 +1377,79 @@ def decode_kernels(dev, cfg, g, flush, record):
         del two, cases
 
 
+def dense_llm_layers(cfg, generator, device):
+    """Random stacked decode layers on dense bf16 weights, N(0, 0.02): what
+    a bf16 checkpoint loads into (``checkpoint.load_for_serving``)."""
+    H, HD, I, NL = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_layers
+
+    def w(out_d, in_d):
+        return (torch.randn((NL, out_d, in_d), device=device, generator=generator)
+                * 0.02).to(torch.bfloat16)
+
+    ones = lambda *s: torch.ones(s, device=device)     # noqa: E731
+    return {"input_layernorm": {"weight": ones(NL, H)},
+            "q_proj": {"weight": w(cfg.num_heads * HD, H)},
+            "k_proj": {"weight": w(cfg.num_kv_heads * HD, H)},
+            "v_proj": {"weight": w(cfg.num_kv_heads * HD, H)},
+            "o_proj": {"weight": w(H, cfg.num_heads * HD)},
+            "post_attention_layernorm": {"weight": ones(NL, H)},
+            "gate_proj": {"weight": w(I, H)},
+            "up_proj": {"weight": w(I, H)},
+            "down_proj": {"weight": w(H, I)}}
+
+
+def dense_decode_kernels(dev, cfg, flush, record):
+    """Phase 1 for K1-K3's dense bf16 instance (row per warp; the eval path's
+    bf16 checkpoints, phase 12) at 8B width, layer 1 of a 2-layer stack, B =
+    1 and 4 (the records keep B = 1), from a generator of its own. Each is
+    timed beside ``torch.nn.functional.linear`` of its bf16 product alone on
+    the same weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and
+    W_up concatenated, then W_down on a fixed intermediate), a yardstick; the
+    MLP is held to the one-ulp bound of its bf16 intermediate."""
+    import torch.nn.functional as F
+
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+
+    cfg2 = dataclasses.replace(cfg.llm, num_layers=2)
+    H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
+    NKV, I = cfg2.num_kv_heads * cfg2.head_dim, cfg2.intermediate_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    two = dense_llm_layers(cfg2, g, dev)
+    w = lambda *names: [two[n]["weight"][1] for n in names]     # noqa: E731
+    wqkv = torch.cat(w("q_proj", "k_proj", "v_proj"))
+    wgu = torch.cat(w("gate_proj", "up_proj"))
+    wo, wd = w("o_proj")[0], w("down_proj")[0]
+    for B in (1, 4):
+        x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+        a = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+        mid = torch.randn((B, I), device=dev, generator=g).to(torch.bfloat16)
+        # name: (kernel, plain, library, layer-1 tensors read, activations,
+        # output columns, MACs per row)
+        cases = {
+            "fused_qkv_decode": (lambda: fused_qkvo.fused_qkv_decode(x, two, 1),
+                                 lambda: fused_qkvo.fused_qkv_decode_ref(x, two, 1),
+                                 lambda: F.linear(x, wqkv),
+                                 w("input_layernorm", "q_proj", "k_proj", "v_proj"), (x,),
+                                 NQ + 2 * NKV, H * (NQ + 2 * NKV)),
+            "fused_o_residual": (lambda: fused_qkvo.fused_o_residual(a, x, two, 1),
+                                 lambda: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
+                                 lambda: F.linear(a, wo), w("o_proj"), (x, a), H, NQ * H),
+            "fused_mlp_decode": (lambda: fused_mlp.fused_mlp_decode(x, two, 1),
+                                 lambda: fused_mlp.fused_mlp_decode_ref(x, two, 1),
+                                 lambda: (F.linear(x, wgu), F.linear(mid, wd)),
+                                 w("post_attention_layernorm", "gate_proj", "up_proj",
+                                   "down_proj"), (x,), H, 3 * H * I),
+        }
+        for name, (kern, ref, lib, reads, acts, cols, macs) in cases.items():
+            floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
+                     if name == "fused_mlp_decode" else None)
+            check_and_time(record, name + "_dense", f"8B width dense bf16 B={B} layer 1",
+                           kern, ref, nbytes(*acts, *reads) + B * cols * x.element_size(),
+                           2 * B * macs, BF16_OPS, flush, main=B == 1, dispatch=B == 1,
+                           floor=floor, library=lib)
+    del two, wqkv, wgu
+
+
 def decode_library(name, fmt, two, x, a):
     """One PyTorch call of K2's or K3's bf16 product alone (no row norm, no
     residual) on layer 1's weights: torch._weight_int8pack_mm (int8) or
@@ -1672,6 +1784,7 @@ def kernel_phase(dev, cfg):
     p2.run(dev, runs=TIMED_RUNS, seed=SEED, log=log)           # the P2 probe: K4's variants
     with fp32_accumulation():
         decode_kernels(dev, cfg, g, flush, record)
+        dense_decode_kernels(dev, cfg, flush, record)
         flash_kernels(dev, g, flush, record)
         flash_kernels_d256(dev, torch.Generator(device=dev).manual_seed(SEED + 2), flush,
                            record)
@@ -3521,9 +3634,10 @@ def expect_launches(tag, got, want):
         raise AssertionError(f"phase {tag}: launches (got, expected) {off}")
 
 
-def seq_score(params, cfg, ids, attn, pv, cm, tokens):
-    """The joint bf16 log-prob of ``tokens`` after the prompt, teacher-forced
-    through ``prefill`` and B = 1 decode steps (a cache of L + len)."""
+def seq_logprobs(params, cfg, ids, attn, pv, cm, tokens):
+    """Each of ``tokens``' bf16 log-probs after the prompt and the tokens
+    before it, teacher-forced through ``prefill`` and B = 1 decode steps (a
+    cache of L + len)."""
     from slime_tpu_torch import generate as gen
     from slime_tpu_torch.models import llama
     from slime_tpu_torch.models.layers import fp32_accumulation
@@ -3535,14 +3649,19 @@ def seq_score(params, cfg, ids, attn, pv, cm, tokens):
             llama.init_kv_cache(cfg.llm, 1, L + len(tokens), dtype=bf, device=ids.device),
             kvs, lengths)
         del kvs
-        score = 0.0
+        out = []
         for i, t in enumerate(tokens):
-            score += float(torch.log_softmax(logits.float(), dim=-1)[0, t])
+            out.append(float(torch.log_softmax(logits.float(), dim=-1)[0, t]))
             if i + 1 < len(tokens):
                 logits, cache = llama.decode_step(
                     params["llm"], cache, torch.tensor([t], dtype=torch.int32, device=ids.device),
                     cfg.llm, compute_dtype=bf)
-    return score
+    return out
+
+
+def seq_score(params, cfg, ids, attn, pv, cm, tokens):
+    """The joint bf16 log-prob of ``tokens`` after the prompt (``seq_logprobs``)."""
+    return sum(seq_logprobs(params, cfg, ids, attn, pv, cm, tokens))
 
 
 def branches_phase(dev, cfg, params):
@@ -4266,6 +4385,362 @@ def context_parallel_phase(dev, cfg):
     return launches
 
 
+class IdByteTokenizer(ByteTokenizer):
+    """ByteTokenizer whose decode writes printable bytes as themselves and
+    every other id as ``<id>``, so an answer's text names each token."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i) if 32 < i < 127 else f"<{i}>" for i in ids)
+
+
+class Recorder:
+    """Wraps ``generate`` / ``beam_search`` as the eval drivers call them,
+    keeping each call's inputs and tokens."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, fn):
+        def recorded(params, cfg, ids, attn, pv=None, cm=None, **kw):
+            out = fn(params, cfg, ids, attn, pv, cm, **kw)
+            self.calls.append((ids, attn, pv, cm, out))
+            return out
+        return recorded
+
+    def rows(self):
+        """[(ids, attn, pv, cm, tokens) of one row] over every call, in order."""
+        return [tuple(None if t is None else t[b:b + 1] for t in call[:4])
+                + (call[4][b].tolist(),)
+                for call in self.calls for b in range(call[0].shape[0])]
+
+
+def eval_data(root, cfg):
+    """Phase 12's files: 4 images, 8 questions on them (one long), 8 video
+    frames of 640x360 in ``frames/v0``, an MMBench TSV of 2 rows with 4
+    options, a TextVQA annotation."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 40)
+    (root / "imgs").mkdir(parents=True)
+    for i, (w, h) in enumerate(EVAL_SIZES):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            root / "imgs" / f"im{i}.png")
+    texts = ["What is in the picture?", "What color is the sky here?",
+             "Describe the image in one sentence. " * 4, "Is there a cat?",
+             "How many objects are there?", "What is written on the sign?",
+             "Where was this taken?", "Which animal is this?"]
+    questions = [{"question_id": i, "image": f"im{i % len(EVAL_SIZES)}.png", "text": t}
+                 for i, t in enumerate(texts[:EVAL_QUESTIONS])]
+    (root / "frames" / "v0").mkdir(parents=True)
+    for i in range(EVAL_FRAMES):
+        Image.fromarray(rng.integers(0, 255, (360, 640, 3), dtype=np.uint8)).save(
+            root / "frames" / "v0" / f"{i:03d}.png")
+    video = [{"video_id": "v0", "videoID": "v0", "question_id": f"v0-{i}",
+              "duration": "short", "question": q, "answer": "A",
+              "options": ["A. a cat", "B. a dog", "C. a car", "D. a tree"]}
+             for i, q in enumerate(("What is shown?", "What moves in the video?"))]
+    cols = ["index", "question", "hint", "A", "B", "C", "D", "answer", "category", "image"]
+    lines = ["\t".join(cols)]
+    for i in range(2):
+        buf = io.BytesIO()
+        # small: the TSV reader (csv, as the JAX package's) takes fields up to 128 KiB
+        Image.fromarray(rng.integers(0, 255, (120, 160, 3), dtype=np.uint8)).save(buf, "PNG")
+        lines.append("\t".join([str(i), f"Which option fits image {i}?", "a photo",
+                                "red", "green", "blue", "black", "A", "c",
+                                base64.b64encode(buf.getvalue()).decode()]))
+    (root / "mmbench.tsv").write_text("\n".join(lines) + "\n")
+    (root / "q.jsonl").write_text("".join(json.dumps(q) + "\n" for q in questions))
+    (root / "ann.json").write_text(json.dumps({"data": [
+        {"question_id": q["question_id"], "answers": ["yes"] * 10} for q in questions]}))
+    return questions, video
+
+
+def eval_phase(dev, cfg):
+    """Phase 12: evaluation on SliME-8B at full width and depth, bf16
+    throughout (dense LLM, stacked; what ``eval.cli`` loads a bf16
+    checkpoint into), with a byte tokenizer and EOS off (every answer runs
+    its EVAL_NEW tokens). ``eval.harness.run_eval`` answers EVAL_QUESTIONS
+    questions at batch 4 and at batch 1 (equal up to a logged near tie, held
+    by generate's teacher-forced logits), with the launches per request
+    asserted (K4 23 an encode, K5 32 a prefill, dense K1-K3 32 a decode step
+    each) and one batch traced; ``run_eval(num_beams=3)`` on 2 questions
+    (``check_beam``: beam search's guarantee against greedy's answer);
+    ``video.run_video_mme`` on
+    8 frames against ``generate`` on ``process_video_frames``' pixels;
+    ``benchmarks.run_mmbench`` with ``all_rounds``; then the model cut to
+    EVAL_CKPT_LAYERS LLM layers (full width; for disk and time only) saved
+    and run through ``eval.cli`` (2 chunks, ``--merge --scorer textvqa``) and
+    ``tools.verify_released_weights`` (record, check, and a corrupted
+    weight that must fail). Returns the counted windows' launches."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+
+    from safetensors.torch import load_file, save_file
+
+    from slime_tpu_torch import checkpoint as ckpt
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.data.tokenization import tokenizer_image_token
+    from slime_tpu_torch.eval import benchmarks, cli, harness, video
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.tools import verify_released_weights as verify
+
+    bf = torch.bfloat16
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    cfg = dataclasses.replace(cfg, eos_token_id=-1)
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "bench_out" / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    questions, video_qs = eval_data(root, cfg)
+    tok = IdByteTokenizer(cfg.bos_token_id)
+    t0 = time.perf_counter()
+    params = ckpt.to_torch(bf16_train_params(dev, cfg, seed=SEED + 41), dtype=bf, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 12 params built on the card in {time.perf_counter() - t0:.1f} s: SliME-8B, "
+        f"bf16 throughout, LLM dense and stacked; {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        "GiB allocated")
+    counts, near_ties = {}, []
+    real = {"generate": gen.generate, "beam_search": gen.beam_search}
+
+    def window(tag, fn, per_call=None):
+        """fn() with the launch counts from 0 and generate / beam_search
+        recorded; ``per_call`` ({record: launches a call}) is asserted."""
+        rec = Recorder()
+        gen.generate, gen.beam_search = rec.wrap(real["generate"]), rec.wrap(real["beam_search"])
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gen.generate, gen.beam_search = real["generate"], real["beam_search"]
+        got = launch_counts()
+        if per_call is not None:
+            expect_launches(tag, got, {n: c * len(rec.calls) for n, c in per_call.items()})
+            extra = {n: c for n, c in got.items() if c and n not in per_call}
+            if extra and torch.cuda.is_available():
+                raise AssertionError(f"phase {tag}: launched off the path: {extra}")
+        for n, c in got.items():
+            counts[n] = counts.get(n, 0) + c
+        return rec, wall
+
+    def request(steps):
+        """The launches of one generate call of ``steps`` decode steps."""
+        return {"encoder_attention": vis, "flash_fwd": L,
+                **{n + "_dense": L * steps for n in FUSED}}
+
+    def run(name, bs, qs=questions, **kw):
+        return lambda: harness.run_eval(
+            params, cfg, tok, qs, image_folder=str(root / "imgs"),
+            answers_file=str(root / f"{name}.jsonl"), conv_mode="llama3", batch_size=bs,
+            max_new_tokens=EVAL_NEW, progress=False, **kw)
+
+    # ---- run_eval at batch 4 and 1: equal up to a near tie ----
+    rec4, wall4 = window("12 run_eval batch 4", run("b4", EVAL_BATCH), request(EVAL_NEW - 1))
+    rec1, wall1 = window("12 run_eval batch 1", run("b1", 1), request(EVAL_NEW - 1))
+    rows4, rows1 = rec4.rows(), rec1.rows()
+    lens = [int(r[1].sum()) for r in rows1]
+    log(f"phase 12 run_eval: {EVAL_QUESTIONS} questions, {EVAL_NEW} tokens each; host "
+        f"{wall4 * 1e3 / EVAL_QUESTIONS:.1f} ms a request at batch {EVAL_BATCH} "
+        f"({len(rec4.calls)} calls), {wall1 * 1e3 / EVAL_QUESTIONS:.1f} at batch 1; prompts "
+        f"{min(lens)}-{max(lens)} tokens, padded to {sorted({r[0].shape[1] for r in rows4})} "
+        f"(batch {EVAL_BATCH}) and {sorted({r[0].shape[1] for r in rows1})} (batch 1)")
+    answers4 = [json.loads(x) for x in open(root / "b4.jsonl")]
+    answers1 = [json.loads(x) for x in open(root / "b1.jsonl")]
+    if ([a["question_id"] for a in answers4] != list(range(EVAL_QUESTIONS))
+            or [a["question_id"] for a in answers1] != list(range(EVAL_QUESTIONS))):
+        raise AssertionError("phase 12: the answers files lack a question")
+    for i, (r4, r1, a4, a1) in enumerate(zip(rows4, rows1, answers4, answers1)):
+        if len(r4[4]) != EVAL_NEW or (r4[4] == r1[4]) != (a4["text"] == a1["text"]):
+            raise AssertionError(f"phase 12 question {i}: tokens and text disagree")
+        ids1, attn1, pv1, cm1 = r1[:4]
+        part = check_answer(f"run_eval question {i}, batch {EVAL_BATCH} against batch 1",
+                            r4[4], r1[4], lambda j: teacher_logits(
+                                params, cfg, ids1, attn1, pv1, cm1, r1[4], j), phase="12")
+        if part is not None:
+            near_ties.append((i, *part))
+    log(f"phase 12 batch {EVAL_BATCH} against batch 1: {len(near_ties)} near ties forgiven "
+        f"{near_ties}")
+
+    # ---- one batch traced, and the decode step at batch 4 ----
+    out = root / "trace"
+    out.mkdir()
+    batch = run("trace", EVAL_BATCH, questions[:EVAL_BATCH])
+    host = host_ms(batch, runs=1)
+    if profiled(batch, out / "profile_eval_batch.json"):
+        busy, launches, by_name = trace_device(out / "profile_eval_batch.json")
+        log(f"phase 12 traced batch ({EVAL_BATCH} questions, {EVAL_NEW} tokens): device busy "
+            f"{busy:.1f} ms of {host:.1f} ms unprofiled; idle share {1 - busy / host:.3f}; "
+            f"{launches} kernel launches")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"phase 12 batch kernel {ms:8.3f} ms  {name[:90]}")
+    ids, attn, pv, cm, _ = rec4.calls[0]
+    with torch.no_grad():
+        last, kvs, lengths, Lp = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
+        cache = llama.prefill_into_cache(llama.init_kv_cache(
+            cfg.llm, ids.shape[0], Lp + N_NEW, dtype=bf, device=dev), kvs, lengths)
+        del kvs
+        first = last.argmax(-1).to(torch.int32)
+
+        def steps(n):
+            gen._decode_loop(params["llm"], cache, first, -1, cfg=cfg, max_new_tokens=n + 1,
+                             temperature=0.0, top_p=1.0, compute_dtype=bf, generator=None)
+            torch.cuda.synchronize()
+
+        steps(2)
+        step_ms = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            steps(1)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(step_ms)
+        log(f"phase 12 decode step at batch {EVAL_BATCH} (dense bf16): host {step_ms:.2f} ms "
+            "(median of 8)")
+        if profiled(lambda: steps(PROFILE_STEPS), out / "profile_decode_12.json"):
+            decode_summary("12", out, step_ms)
+        del cache, last
+
+    # ---- beams: the best beam's prefix leads greedy's where beam search says ----
+    recb, wallb = window("12 beams", run("beams", 2, questions[:2], num_beams=EVAL_BEAMS),
+                         request(EVAL_NEW - 1))
+    for i, (rb, r1) in enumerate(zip(recb.rows(), rows1)):
+        beam, greedy = (np.cumsum(seq_logprobs(params, cfg, *r1[:4], t)) for t in (rb[4], r1[4]))
+        check_beam(i, rb[4], r1[4], beam, greedy)
+    log(f"phase 12 beams: {EVAL_BEAMS} beams x 2 questions, {EVAL_NEW} tokens, host "
+        f"{wallb * 1e3:.1f} ms")
+
+    # ---- video: run_video_mme against generate on process_video_frames' pixels ----
+    recv, wallv = window("12 video", lambda: video.run_video_mme(
+        params, cfg, tok, video_qs, frames_root=str(root / "frames"),
+        answers_file=str(root / "video.jsonl"), max_new_tokens=EVAL_NEW),
+        request(EVAL_NEW - 1))
+    pix, mask = video.process_video_frames(video.load_frames(str(root / "frames" / "v0")),
+                                           tile=cfg.vision.image_size,
+                                           max_crops=1 + cfg.max_local_crops)
+    rec_v = json.loads(open(root / "video.jsonl").read())
+    for q, got, call in zip(video_qs, rec_v["questions"], recv.calls):
+        ids_np = tokenizer_image_token(video.build_video_mme_prompt(
+            q["question"], q["options"]), tok, return_tensors="np")
+        ids, attn = harness.padded_batch([ids_np], 1, (len(ids_np) + 63) // 64 * 64, dev)
+        toks = gen.generate(params, cfg, ids, attn, torch.from_numpy(pix[None]).to(dev),
+                            torch.from_numpy(mask[None]).to(dev), max_new_tokens=EVAL_NEW,
+                            temperature=0.0, compute_dtype=bf)
+        if (toks.tolist() != call[4].tolist()
+                or got["response"] != harness.decode_row(tok, toks, 0, cfg.eos_token_id)):
+            raise AssertionError(f"phase 12 video {q['question_id']}: run_video_mme's answer "
+                                 "is not generate's")
+    log(f"phase 12 video: {int(mask.sum())} of {len(mask)} frame slots, {len(video_qs)} "
+        f"questions equal to generate on process_video_frames' pixels; host "
+        f"{wallv * 1e3 / len(video_qs):.1f} ms a question")
+
+    # ---- MMBench: circular rounds ----
+    recm, wallm = window("12 mmbench", lambda: benchmarks.run_mmbench(
+        params, cfg, tok, str(root / "mmbench.tsv"), answers_file=str(root / "mmbench.jsonl"),
+        conv_mode="llama3", all_rounds=True, max_new_tokens=EVAL_NEW), request(EVAL_NEW - 1))
+    mm = [json.loads(x) for x in open(root / "mmbench.jsonl")]
+    if ([(r["question_id"], r["round_id"]) for r in mm]
+            != [(str(i), k) for i in range(2) for k in range(4)]
+            or mm[1]["options"] != ["green", "blue", "black", "red"]):
+        raise AssertionError(f"phase 12 mmbench: rounds {[(r['question_id'], r['round_id']) for r in mm]}")
+    log(f"phase 12 mmbench: 2 rows x 4 rotated rounds, host {wallm * 1e3 / len(mm):.1f} ms a "
+        "round")
+
+    # ---- the CLI and the verifier on a saved checkpoint (LLM cut for disk and time) ----
+    cfg_c = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                             num_layers=EVAL_CKPT_LAYERS))
+    d = root / "ckpt"
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(str(d), params, cfg_c)
+    size = sum(f.stat().st_size for f in d.iterdir())
+    log(f"phase 12 checkpoint: SliME-8B cut to {EVAL_CKPT_LAYERS} LLM layers at full width "
+        f"(for disk and time only), {size / 2 ** 30:.2f} GiB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--model-path", str(d), "--question-file", str(root / "q.jsonl"),
+            "--image-folder", str(root / "imgs"), "--answers-file",
+            str(root / "cli" / "ans_{chunk}.jsonl"), "--num-chunks", "2", "--batch-size", "2",
+            "--max-new-tokens", "8", "--device", str(dev)]
+    t0 = time.perf_counter()
+    for k in ("0", "1"):
+        window(f"12 eval.cli chunk {k}", lambda: cli.main(argv + ["--chunk-idx", k],
+                                                        tokenizer=tok))
+    wall_cli = time.perf_counter() - t0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(argv + ["--merge", "--scorer", "textvqa", "--annotation-file",
+                         str(root / "ann.json")])
+    merged = [json.loads(x) for x in open(root / "cli" / "ans_merged.jsonl")]
+    if [r["question_id"] for r in merged] != list(range(EVAL_QUESTIONS)):
+        raise AssertionError(f"phase 12 eval.cli: merged {[r['question_id'] for r in merged]}")
+    log(f"phase 12 eval.cli: 2 chunks of {EVAL_QUESTIONS // 2} in {wall_cli:.1f} s (loads "
+        f"included), merged and scored: {printed.getvalue().splitlines()[-1]}")
+    rcs = []
+    for what, args in (("record", ["--record"]), ("check", [])):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            window(f"12 verify {what}", lambda: rcs.append(verify.main(
+                [str(d), "--skip-quant", "--device", str(dev)] + args)))
+        log(f"phase 12 verify_released_weights {what}: rc {rcs[-1]} in "
+            f"{time.perf_counter() - t0:.1f} s; " + "; ".join(
+                x for x in printed.getvalue().splitlines() if x.startswith("[")))
+    fp = d / "model.safetensors"
+    sd = load_file(str(fp))
+    g = torch.Generator().manual_seed(SEED)
+    for k in sd:
+        if "layers.0.self_attn.q_proj.weight" in k:
+            sd[k] = sd[k] + 0.05 * torch.randn(sd[k].shape, generator=g).to(sd[k].dtype)
+    save_file(sd, str(fp))
+    del sd
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        window("12 verify corrupted", lambda: rcs.append(verify.main(
+            [str(d), "--skip-quant", "--device", str(dev)])))
+    log(f"phase 12 verify_released_weights, one corrupted q_proj: rc {rcs[-1]}; " + "; ".join(
+        x for x in printed.getvalue().splitlines() if x.startswith("[")))
+    if rcs != [0, 0, 1]:
+        raise AssertionError(f"phase 12 verify_released_weights: rcs {rcs}, expected [0, 0, 1]")
+    log(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_beam(i, beam_toks, greedy_toks, beam, greedy):
+    """Beam search's guarantee against greedy decoding, on teacher-forced
+    prefix log-probs (``beam``, ``greedy``: cumulative, bf16, B = 1): with d
+    the first step where the best beam parts from greedy's tokens, greedy's
+    prefix either stays among the beams to the end (then the best beam's
+    final score is at least greedy's) or is dropped at a step t >= d where
+    every kept prefix, the best beam's ancestor included, scored at least
+    greedy's. Either way the best beam's prefix leads greedy's at some step
+    t >= d (within BEAM_SCORE_SLACK: another attention path's logits). A
+    final score below greedy's is allowed: beam search does not promise
+    more (3 beams ended below greedy on 2 of 40 random prompts, exactly, in
+    fp32 on a CPU)."""
+    d = next((j for j, (a, b) in enumerate(zip(beam_toks, greedy_toks)) if a != b), None)
+    lead = None if d is None else max(range(d, len(beam)), key=lambda t: beam[t] - greedy[t])
+    log(f"phase 12 beams, question {i}: best beam's log-prob {beam[-1]:.3f}, greedy's "
+        f"{greedy[-1]:.3f}; "
+        + ("the same tokens" if d is None else
+           f"parts from greedy at step {d}; its prefix leads greedy's by "
+           f"{beam[lead] - greedy[lead]:.3f} at step {lead}")
+        + f" (teacher-forced at B = 1, slack {BEAM_SCORE_SLACK})")
+    if d is not None and beam[lead] - greedy[lead] < -BEAM_SCORE_SLACK:
+        raise AssertionError(f"phase 12 beams, question {i}: the best beam never leads "
+                             f"greedy's prefix after step {d}")
+
+
 def main():
     # ---------------- phase 0 ----------------
     if not torch.cuda.is_available():
@@ -4310,6 +4785,9 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in opt8_phase(dev, cfg).items():                 # phase 11b
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in eval_phase(dev, cfg).items():                 # phase 12
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

@@ -53,7 +53,8 @@ def _np(x) -> np.ndarray:
 
 
 def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
-    """Load a .safetensors or torch .bin file into numpy arrays."""
+    """Load a .safetensors or torch .bin file into numpy arrays (bf16 tensors
+    as fp32)."""
     if path.endswith(".safetensors"):
         from safetensors import safe_open
         out = {}
@@ -61,6 +62,10 @@ def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
             for k in f.keys():
                 try:
                     out[k] = f.get_tensor(k)
+                    if out[k].dtype.name == "bfloat16":
+                        # numpy holds bf16 only where ml_dtypes is loaded;
+                        # torch takes no such array: fp32, as the path below
+                        out[k] = out[k].astype(np.float32)
                 except Exception:
                     # bf16 tensors can't map to numpy directly; go through torch
                     from safetensors.torch import load_file

@@ -18,7 +18,8 @@ into shared memory by 1-D bulk copies, with the launch plans of
 memory included, takes the row-per-warp kernels. Launch counts:
 ``.ring_launches`` counts the calls that took the ring
 (``.q4g_ring_launches`` those on q4g weights), beside the counts every call
-adds.
+adds (``fused_qkvo.count``: ``.dense_launches`` the bf16 calls on dense bf16
+weights among them).
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
@@ -194,3 +195,4 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
 fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0
 fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0
 fused_mlp_decode.ring_launches = fused_mlp_decode.q4g_ring_launches = 0
+fused_mlp_decode.dense_launches = 0

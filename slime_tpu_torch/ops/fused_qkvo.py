@@ -37,7 +37,9 @@ Launch counts (one per wrapper call that launches, nowhere else):
 ``.launches`` every call, ``.q4g_launches`` those on q4g weights,
 ``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both;
 ``.ring_launches`` the calls that took the weight ring,
-``.q4g_ring_launches`` those on q4g weights.
+``.q4g_ring_launches`` those on q4g weights; ``.dense_launches`` those with
+bf16 activations on dense bf16 weights (the row-per-warp kernels' dense
+instance, which the bf16 checkpoints of the eval path run).
 """
 from __future__ import annotations
 
@@ -183,6 +185,7 @@ def count(fn, x, fmt) -> None:
     """One launch of ``fn`` on ``x``'s dtype and weight format ``fmt``."""
     f32, q4g = act_f32(x), int(fmt == Q4G)
     fn.launches += 1
+    fn.dense_launches += int(fmt == DENSE and not f32)
     fn.q4g_launches += q4g
     fn.f32_launches += f32
     fn.f32_q4g_launches += f32 * q4g
@@ -306,4 +309,4 @@ def fused_o_residual(attn, x, layers, layer_idx):
 
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
-    _fn.ring_launches = _fn.q4g_ring_launches = 0
+    _fn.ring_launches = _fn.q4g_ring_launches = _fn.dense_launches = 0

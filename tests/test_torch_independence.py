@@ -15,7 +15,9 @@ originals.
   discovery and the ``PreemptionGuard``.
 - The modules the port copies (``serve/grammar``, ``protocol``,
   ``controller``, ``openai_api``, ``tools``, ``gradio_web_server``,
-  ``conversation``, ``data/preprocess``, ``data/packing``, ``data/dpo``):
+  ``conversation``, ``data/preprocess``, ``data/packing``, ``data/dpo``,
+  ``eval/{scorers,sqa_prompt,mmhal,gpt_review,webpage,xlsx}`` and the MMHal
+  rubric):
   the originals' code statement for statement, the grammar's tables byte for byte, the
   serving constants; the native preprocess library's C++ source
   (``slime_tpu_torch/native/slime_preprocess.cpp``) byte for byte
@@ -305,7 +307,9 @@ def test_prefix_cache_copy_matches():
 
 OWN_COPIES = ["serve/grammar.py", "serve/protocol.py", "serve/controller.py",
               "serve/openai_api.py", "serve/tools.py", "serve/gradio_web_server.py",
-              "conversation.py", "data/preprocess.py", "data/packing.py", "data/dpo.py"]
+              "conversation.py", "data/preprocess.py", "data/packing.py", "data/dpo.py",
+              "eval/scorers.py", "eval/sqa_prompt.py", "eval/mmhal.py", "eval/gpt_review.py",
+              "eval/webpage.py", "eval/xlsx.py"]
 
 
 def _code_dump(path, renames=()):
@@ -334,6 +338,18 @@ def test_own_copies_are_the_originals_code(rel):
     renames = (("slime_tpu.serve.", "slime_tpu_torch.serve."),)
     assert (_code_dump(os.path.join(REPO, "slime_tpu_torch", rel))
             == _code_dump(os.path.join(REPO, "slime_tpu", rel), renames)), rel
+
+
+def test_mmhal_rubric_copy_is_the_original():
+    """``eval/mmhal.py``'s judging rubric, read beside the module, is byte for
+    byte the JAX package's, and both load it as the same template."""
+    from slime_tpu.eval import mmhal as jm
+    from slime_tpu_torch.eval import mmhal as tm
+
+    with open(os.path.join(REPO, "slime_tpu_torch", "eval", "mmhal_rubric.txt"), "rb") as a, \
+            open(os.path.join(REPO, "slime_tpu", "eval", "mmhal_rubric.txt"), "rb") as b:
+        assert a.read() == b.read()
+    assert tm.JUDGE_TEMPLATE == jm.JUDGE_TEMPLATE
 
 
 def test_native_source_copy_is_the_original():
