@@ -6,7 +6,9 @@ staged pretraining, its QLoRA SFT and QLoRA-DPO through the training CLI and
 a full-parameter step with 8-bit Adam moments, a context-parallel (ring
 attention) prefill of Llama-3-8B's full 8192 positions, and SliME-8B's
 evaluation (the eval harness, the benchmark drivers, the video path, the eval
-CLI and the checkpoint verifier) in bf16.
+CLI and the checkpoint verifier) in bf16, and the other model families:
+Mixtral-8x7B's MoE layers (16 of 32 layers) serving and training, MPT-7B
+and a Mamba block.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -216,6 +218,31 @@ Phase 12  builds SliME-8B at full width and depth in bf16 throughout (dense
          ``tools.verify_released_weights`` (record, check: PASS; one
          corrupted weight: FAIL, rc 1).
 
+Phase 13  the other model families. SliME with Mixtral-8x7B (MoE layers:
+         8 experts, top 2) at full width, cut to 16 of its 32 layers (its
+         bf16 experts hold 2.82 GB a layer: 90.2 GB at 32 layers would not
+         fit the card), bf16, stacked, from seed 0: ``_moe`` on layer 0 for
+         64 tokens (the sparse dispatch) against the same tokens in chunks of
+         16 (the dense masked path) in fp32 and bf16, and
+         ``moe_ffn_sparse`` against a per-token loop; bench.py's query
+         through ``generate`` (32 greedy tokens, K4 23 and K5 16 launches,
+         nothing else; the first 8 tokens held to the argmax of a full
+         forward teacher-forced on them, in bf16 and in fp32 compute), the
+         prefill's and a decode step's device and host times, host syncs and
+         the sparse dispatch's share of the prefill; 4 requests through the
+         engine with an int8 KV pool, 256-position chunks and k = 1 ticks,
+         each held to ``generate`` on an int8 cache, in bf16 and in fp32
+         compute. Where two bf16 runs part, every routing of both is taped
+         and the first layer whose top-k differs must have done so at a
+         router near tie (``router_tie_rule``); in fp32 compute a split must
+         be a near tie of the logits. ``slime.loss_fn`` and its backward on 2
+         of the layers at S = 2048 with remat and the router aux loss (K5b,
+         K5c once a layer; the gates' gradients non-zero). Then MPT-7B at
+         full width and depth (bf16 ``forward`` on 2048 ids, top-1 held to
+         the fp32 forward of the same weights up to near ties) and a Mamba
+         block at d_model 1024 on [5, 577, 1024] (against its scan done one
+         position at a time, and causal).
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -391,6 +418,18 @@ OPT8_LR = 5e-3
 EVAL_SIZES = ((672, 672), (1000, 600), (400, 900), (336, 336))
 EVAL_QUESTIONS, EVAL_NEW, EVAL_BATCH, EVAL_BEAMS = 8, 16, 4, 3
 EVAL_FRAMES, EVAL_CKPT_LAYERS = 8, 2
+# phase 13: Mixtral-8x7B cut to 16 of its 32 layers (a memory cut: one
+# layer's bf16 experts are 8 x 3 x 14336 x 4096 x 2 B = 2.82 GB, 90.2 GB at
+# 32 layers, over the card's 80 GB) and 2 of them for the training
+# backward; the layer check's tokens and dense chunk; tokens a request, the
+# first of them held to full forwards; MPT-7B's prompt; the Mamba block's
+# input (5 crops of 577 tokens at CLIP-L's width)
+MIXTRAL_LAYERS, MIXTRAL_TRAIN_LAYERS = 16, 2
+MOE_TOKENS, MOE_CHUNK, MOE_NEW, MOE_FORWARD_TOKENS = 64, 16, 32, 8
+# a router near tie (router_tie_rule): the chosen and the dropped expert's
+# gate logits within this many bf16 ulps of the row's largest |logit|
+ROUTER_TIE_ULPS = 4
+MPT_SEQ, MAMBA_SHAPE = 2048, (5, 577, 1024)
 KERNELS = {
     "encoder_attention": ("slime_tpu_torch/csrc/encoder_attention.cu",
                           "slime_tpu/ops/encoder_attention.py:88"),
@@ -1931,25 +1970,26 @@ def default_dtype_run(what, fn, expect):
     return counts
 
 
-def teacher_logits(params, cfg, ids, attn, pv, cm, tokens, j):
-    """``generate``'s bf16 logits [V] at answer step j, given its tokens
-    before j: its prefill, then its decode steps on its own cache (length
-    L + N_NEW), as ``generate`` runs them."""
+def teacher_logits(params, cfg, ids, attn, pv, cm, tokens, j, dtype=torch.bfloat16,
+                   kv_quant=False):
+    """``generate``'s logits [V] at answer step j (``dtype`` compute, a float
+    or with ``kv_quant`` an int8 cache), given its tokens before j: its
+    prefill, then its decode steps on its own cache (length L + N_NEW), as
+    ``generate`` runs them."""
     from slime_tpu_torch import generate as gen
     from slime_tpu_torch.models import llama
     from slime_tpu_torch.models.layers import fp32_accumulation
 
-    bf = torch.bfloat16
     with torch.no_grad(), fp32_accumulation():
-        logits, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, bf)
+        logits, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, dtype)
         cache = llama.prefill_into_cache(
-            llama.init_kv_cache(cfg.llm, 1, L + N_NEW, dtype=bf, device=ids.device),
-            kvs, lengths)
+            llama.init_kv_cache(cfg.llm, 1, L + N_NEW, dtype=dtype, device=ids.device,
+                                quantized=kv_quant), kvs, lengths)
         del kvs
         for i in range(1, j + 1):
             tok = torch.tensor([tokens[i - 1]], device=ids.device)
             logits, cache = llama.decode_step(params["llm"], cache, tok, cfg.llm,
-                                              compute_dtype=bf)
+                                              compute_dtype=dtype)
     return logits[0].float()
 
 
@@ -2382,7 +2422,7 @@ def plain_logits(params, cfg, prompt, tokens):
     return logits[0, len(prompt) - 1:len(prompt) - 1 + len(tokens)]
 
 
-def near_tie_rule(name, got, want, logits, eos):
+def near_tie_rule(name, got, want, logits, eos, phase="9", ref="the plain engine's"):
     """``got`` against ``want`` (the plain engine's tokens), with ``logits``
     the plain tokens' teacher-forced logits: equal up to the first step
     whose top-two gap lies under ENGINE_TIE_ATOL, and where they part the
@@ -2399,14 +2439,14 @@ def near_tie_rule(name, got, want, logits, eos):
     want += [eos] * (n - len(want))
     part = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     gap = None if part is None else float(logits[part, want[part]] - logits[part, got[part]])
-    log(f"phase 9 {name}: {len(got)} tokens; "
-        + ("equal to the plain engine's" if part is None else
-           f"parts from the plain engine's at step {part} (plain {want[part]}, here "
+    log(f"phase {phase} {name}: {len(got)} tokens; "
+        + (f"equal to {ref}" if part is None else
+           f"parts from {ref} at step {part} (plain {want[part]}, here "
            f"{got[part]}: teacher-forced logit gap {gap:.4g}), equal before it")
         + (f"; first plain near tie at step {tie} (top-two gap {gaps[tie]:.4g}, bound "
            f"{ENGINE_TIE_ATOL})" if tie is not None else "; no plain near tie"))
     if part is not None and (tie is None or part < tie or abs(gap) > ENGINE_TIE_ATOL):
-        raise AssertionError(f"phase 9 {name}: parts from the plain engine at step {part} "
+        raise AssertionError(f"phase {phase} {name}: parts from {ref} at step {part} "
                              f"(gap {gap:.4g}), first near tie at {tie}")
 
 
@@ -4741,6 +4781,713 @@ def check_beam(i, beam_toks, greedy_toks, beam, greedy):
                              f"greedy's prefix after step {d}")
 
 
+def mixtral_config():
+    """Phase 13's Mixtral-family SliME: Mixtral-8x7B at full width (the
+    reference's llava_mixtral LLM, ``LLMConfig.mixtral_8x7b``) cut to
+    MIXTRAL_LAYERS layers, with its BOS / EOS ids."""
+    from slime_tpu_torch.config import LLMConfig, SliMEConfig
+    llm = dataclasses.replace(LLMConfig.mixtral_8x7b(), num_layers=MIXTRAL_LAYERS)
+    return SliMEConfig(llm=llm, bos_token_id=1, eos_token_id=2)
+
+
+def mpt_config():
+    """MPT-7B (``MPTConfig()``): d_model 4096, 32 layers, vocabulary 50432."""
+    from slime_tpu_torch.models.mpt import MPTConfig
+    return MPTConfig()
+
+
+def mixtral_params(dev, cfg, seed=SEED):
+    """SliME with ``cfg``'s MoE LLM in bf16 on the card from ``seed``, the
+    LLM layers written into their stacked [L, ...] storage as each is drawn
+    (a list and its stacked copy of the experts would not fit together)."""
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.params import map_leaves, named_leaves
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = cfg.llm.num_layers
+    params = slime.init(dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=0)),
+                        generator=g, device=dev, dtype=bf)
+    stacked = None
+    for i in range(L):
+        lp = llama.init_layer(cfg.llm, generator=g, device=dev, dtype=bf)
+        if stacked is None:
+            stacked = map_leaves(lambda _, t: torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
+                                                          device=dev), lp)
+        drawn = dict(named_leaves(lp))
+        for path, t in named_leaves(stacked):
+            t[i].copy_(drawn[path])
+        del lp, drawn
+    params["llm"]["layers"] = stacked
+    return params
+
+
+def routing(lp, x, cfg):
+    """``_moe``'s expert choice for x [B, S, H]: (gate logits fp32, top-k ids)."""
+    from slime_tpu_torch.models import layers, llama
+    logits = layers.linear(lp["gate"], x).to(torch.float32)
+    return logits, llama.top_k_stable(logits, cfg.num_experts_per_tok)[1]
+
+
+def moe_layer_check(dev, cfg, params):
+    """Phase 13's layer check on layer 0: ``_moe`` on MOE_TOKENS tokens at
+    once (the sparse dispatch) against the same tokens in chunks of
+    MOE_CHUNK (the dense masked path), in fp32 (within 1e-4) and bf16
+    (within 8 bf16 ulps of the largest output); tokens whose top-k
+    set differs between the two calls must be router near ties (their k-th
+    and next gate logits within 2 ulps of the logits' type) and are left
+    out. Then ``moe_ffn_sparse`` against a per-token loop (fp32, 1e-4)."""
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation, silu
+    from slime_tpu_torch.ops.moe_dispatch import moe_ffn_sparse
+
+    llm, H, K = cfg.llm, cfg.llm.hidden_size, cfg.llm.num_experts_per_tok
+    lp = llama._layer(params["llm"]["layers"], 0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn((1, MOE_TOKENS, H), generator=g, device=dev)
+    chunks = range(0, MOE_TOKENS, MOE_CHUNK)
+    with torch.no_grad(), fp32_accumulation():
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            sparse = llama._moe(lp, xd, llm)[0].float()
+            dense = torch.cat([llama._moe(lp, xd[:, i:i + MOE_CHUNK], llm)[0]
+                               for i in chunks], dim=1).float()
+            logits, ti = routing(lp, xd, llm)
+            ti_c = torch.cat([routing(lp, xd[:, i:i + MOE_CHUNK], llm)[1] for i in chunks], dim=1)
+            same = (ti.sort(-1).values == ti_c.sort(-1).values).all(-1)[0]       # [T]
+            top = logits[0].sort(-1, descending=True).values
+            gap = top[:, K - 1] - top[:, K]
+            eps = torch.finfo(dt).eps
+            tie_ok = bool((gap[~same] <= 2 * eps * top[~same, K - 1].abs()).all())
+            err = (sparse - dense)[0, same].abs().max().item() if bool(same.any()) else 0.0
+            if dt == torch.float32:
+                bound = 1e-4
+            else:
+                top_mag = dense[0, same].abs().max().item()
+                bound = 8 * 2.0 ** (np.floor(np.log2(top_mag)) - 7)
+            log(f"phase 13 _moe layer 0, {MOE_TOKENS} tokens sparse against {MOE_TOKENS // MOE_CHUNK}"
+                f" dense chunks of {MOE_CHUNK}, {str(dt)[6:]}: max |diff| {err:.3g} (bound "
+                f"{bound:.3g}) over {int(same.sum())} tokens; {int((~same).sum())} left out at "
+                f"router near ties (gaps {[round(v, 6) for v in gap[~same].tolist()]})")
+            if err > bound or not tie_ok:
+                raise AssertionError(f"phase 13 _moe {dt}: sparse vs dense {err:.3g} > {bound:.3g}"
+                                     f" or a routing change away from a near tie")
+        # the sparse dispatch against its plain per-token loop, fp32
+        E = llm.num_experts
+        topi = torch.stack([torch.randperm(E, generator=g, device=dev)[:K]
+                            for _ in range(MOE_TOKENS)])
+        topw = torch.rand((MOE_TOKENS, K), generator=g, device=dev)
+        ex = lp["experts"]
+        x2 = x[0]
+        got = moe_ffn_sparse(x2, ex["w1"], ex["w2"], ex["w3"], topi, topw)
+        w1, w2, w3 = (ex[n].float() for n in ("w1", "w2", "w3"))
+        want = torch.zeros_like(x2)
+        for t in range(MOE_TOKENS):
+            for j in topi[t].argsort().tolist():            # expert-ascending, as the combine
+                e = int(topi[t, j])
+                a = silu(w1[e] @ x2[t]) * (w3[e] @ x2[t])
+                want[t] += topw[t, j] * (w2[e] @ a)
+        del w1, w2, w3
+        err = (got - want).abs().max().item()
+        log(f"phase 13 moe_ffn_sparse against a per-token loop, {MOE_TOKENS} tokens, top "
+            f"{K} of {E}, fp32: max |diff| {err:.3g} (bound 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"phase 13 moe_ffn_sparse vs per-token loop: {err:.3g}")
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made: CUDA's sync debug mode warns at each),
+    or (fn(), None) off the card."""
+    import warnings
+    if not torch.cuda.is_available():
+        return fn(), None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+class RoutingTape:
+    """``llama._moe``'s routing while installed (a context manager): the
+    gate's fp32 logits and top-k ids by key, layer and sequence position.
+    Each model call runs ``_moe`` once a layer, in order, so a call's layer
+    is its count modulo the depth; at layer 0, ``rows(B, S)`` names each
+    batch row's key (None: not recorded) and first position (an int or a
+    0-d tensor)."""
+
+    def __init__(self, n_layers, rows):
+        self.n_layers, self.rows = n_layers, rows
+        self.calls, self.cur, self.chunks = 0, None, {}
+
+    def __enter__(self):
+        from slime_tpu_torch.models import llama
+        real = llama._moe
+
+        def moe(lp, x, cfg):
+            out, (logits, topi) = real(lp, x, cfg)
+            layer = self.calls % self.n_layers
+            if layer == 0:
+                self.cur = self.rows(*x.shape[:2])
+            self.calls += 1
+            for b, (key, start) in enumerate(self.cur):
+                if key is not None:
+                    self.chunks.setdefault(key, []).append((layer, start, logits[b], topi[b]))
+            return out, (logits, topi)
+        self._restore = (llama, real)
+        llama._moe = moe
+        return self
+
+    def __exit__(self, *exc):
+        llama, real = self._restore
+        llama._moe = real
+
+    def table(self, key, n):
+        """(gate logits [L, n, E], top-k ids [L, n, K]) of ``key`` at
+        positions < n, numpy. A later call's rows overwrite an earlier
+        one's (a decode step writes over the padding a prefill routed);
+        raises where a (layer, position) was never routed."""
+        L = self.n_layers
+        logits = topi = None
+        seen = np.zeros((L, n), bool)
+        for layer, start, lg, ti in self.chunks.get(key, []):
+            start = int(start)
+            m = min(lg.shape[0], n - start)
+            if m <= 0:
+                continue
+            if logits is None:
+                logits = np.zeros((L, n, lg.shape[-1]), np.float32)
+                topi = np.zeros((L, n, ti.shape[-1]), np.int64)
+            logits[layer, start:start + m] = lg[:m].float().cpu().numpy()
+            topi[layer, start:start + m] = ti[:m].cpu().numpy()
+            seen[layer, start:start + m] = True
+        if logits is None or not seen.all():
+            raise AssertionError(f"routing tape: key {key} routed at {int(seen.sum())} of "
+                                 f"{L * n} (layer, position) pairs")
+        return logits, topi
+
+
+def sequence_rows(key, n0):
+    """``RoutingTape`` rows of one sequence (B = 1) of ``n0`` prompt
+    positions: a call over S > 1 positions starts at 0 (a prefill or a full
+    forward); each one-position call is the next decode step, from n0 on."""
+    nxt = [n0]
+
+    def rows(B, S):
+        if S > 1:
+            return [(key, 0)]
+        nxt[0] += 1
+        return [(key, nxt[0] - 1)]
+    return rows
+
+
+def engine_rows(eng):
+    """``RoutingTape`` rows of ``eng``'s model calls, keyed by ``id`` of the
+    request: a decode tick routes every live slot at its cached length, an
+    admission chunk its request from the chunk's offset, a whole admission
+    its request from 0."""
+    whole = [None]
+    real = eng._admit_whole
+
+    def admit(req, *a, **k):
+        whole[0] = req
+        return real(req, *a, **k)
+    eng._admit_whole = admit
+
+    def rows(B, S):
+        if S == 1:
+            lengths = eng.cache["length"].clone()
+            return [(None if sl is None else id(sl.req), lengths[b])
+                    for b, sl in enumerate(eng.slots)]
+        a = eng._admission
+        if a is not None:
+            return [(id(a["req"]), a["base"] + a["off"])]
+        return [(id(whole[0]), 0)]
+    return rows
+
+
+def router_tie_rule(name, got, want, tapes, keys, n0, logits_at, phase="13"):
+    """``got`` against ``want``, two runs' greedy tokens of one request of
+    ``n0`` prompt positions, with each run's ``RoutingTape`` and its key
+    there: equal, or parted at step j for a reason rounding explains. Step
+    j's logits see positions 0 .. n0 - 1 + j; at each of them and every
+    layer the runs' top-k sets are compared. Where none differs, the split
+    must be a near tie of the logits (``logits_at(j)``: the two tokens'
+    logits within ENGINE_TIE_ATOL). Where sets differ, every such flip in
+    the first layer that has one (below it no routing differed, so its
+    inputs differ by rounding only) must be a router near tie: in each run
+    the gate logits of the expert it chose and of the one it dropped lie
+    within ROUTER_TIE_ULPS bf16 ulps of the row's largest |logit|. Flips in
+    later layers follow from it and are counted. Returns (step, the
+    first flipping layer or None), or None when equal."""
+    if got == want:
+        log(f"phase {phase} {name}: {len(got)} tokens equal")
+        return None
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    n = n0 + j
+    lg_a, ti_a = tapes[0].table(keys[0], n)
+    lg_b, ti_b = tapes[1].table(keys[1], n)
+    flip = (np.sort(ti_a, -1) != np.sort(ti_b, -1)).any(-1)             # [L, n]
+    head = (f"phase {phase} {name}: parts at step {j} (here {got[j]}, reference {want[j]}), "
+            f"equal before it")
+    if not flip.any():
+        lg = logits_at(j)
+        gap = float(lg[want[j]] - lg[got[j]])
+        log(f"{head}; no routing differs at the {n} positions it sees in {flip.shape[0]} "
+            f"layers; logit gap {gap:.4g} (near-tie bound {ENGINE_TIE_ATOL})")
+        if not abs(gap) <= ENGINE_TIE_ATOL:
+            raise AssertionError(f"phase {phase} {name}: parts at step {j} with no routing "
+                                 f"change and no near tie (gap {gap:.4g})")
+        return j, None
+    per_layer = flip.sum(-1)
+    l0 = int(np.nonzero(per_layer)[0][0])
+
+    def ulp(row):
+        return 2.0 ** (np.floor(np.log2(np.abs(row).max())) - 7)
+    gaps = []
+    for q in np.nonzero(flip[l0])[0].tolist():
+        sa, sb = set(ti_a[l0, q].tolist()), set(ti_b[l0, q].tolist())
+        only_a, only_b = sorted(sa - sb), sorted(sb - sa)
+        ga = (lg_a[l0, q, only_a].min() - lg_a[l0, q, only_b].max()) / ulp(lg_a[l0, q])
+        gb = (lg_b[l0, q, only_b].min() - lg_b[l0, q, only_a].max()) / ulp(lg_b[l0, q])
+        gaps.append((q, float(ga), float(gb)))
+    rows = ~flip[l0]
+    ulps = 2.0 ** (np.floor(np.log2(np.abs(lg_a[l0]).max(-1))) - 7)           # [n]
+    drift = float((np.abs(lg_a[l0] - lg_b[l0]).max(-1) / ulps)[rows].max()) if rows.any() else 0.0
+    worst = max(max(ga, gb) for _, ga, gb in gaps)
+    log(f"{head}; routing differs at {int(flip.sum())} (layer, position) pairs of "
+        f"{flip.size}, by layer {per_layer.tolist()}; first at layer {l0}: "
+        + ", ".join(f"position {q} gate gaps {ga:.3g} / {gb:.3g} ulps" for q, ga, gb in gaps[:6])
+        + (f" (+{len(gaps) - 6} more)" if len(gaps) > 6 else "")
+        + f"; worst {worst:.3g} (router near-tie bound {ROUTER_TIE_ULPS}); the layer's gate "
+        f"logits elsewhere differ by {drift:.3g} ulps at most")
+    if not worst <= ROUTER_TIE_ULPS:
+        raise AssertionError(f"phase {phase} {name}: a routing at layer {l0} flipped at a gate "
+                             f"gap of {worst:.3g} bf16 ulps, over {ROUTER_TIE_ULPS}")
+    return j, l0
+
+
+def forced_logits(params, cfg, ids, attn, pv, cm, tokens, dtype):
+    """The logits [len(tokens), V] fp32 of one full forward (``dtype``
+    compute) over the prefill's fused sequence with ``tokens`` written after
+    its valid positions: row j predicts tokens[j] from the prompt and
+    tokens[:j]."""
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    with torch.no_grad(), fp32_accumulation():
+        fused = slime.prepare_multimodal(params, cfg, ids, attn, pv, cm, compute_dtype=dtype)
+        n0, n = int(fused.lengths[0]), len(tokens)
+        if n0 + n > fused.embeds.shape[1]:
+            raise AssertionError(f"the prompt fuses to {n0} positions: no room for {n} tokens")
+        emb = fused.embeds.clone()
+        emb[0, n0:n0 + n] = llama.embed(params["llm"], torch.tensor(tokens, device=ids.device)
+                                        ).to(dtype)
+        hidden, _ = llama.forward(params["llm"], emb, cfg.llm, positions=fused.positions,
+                                  compute_dtype=dtype, return_hidden=True)
+        return llama._lm_head(params["llm"], hidden[0, n0 - 1:n0 - 1 + n])
+
+
+def mixtral_serve(dev, cfg, params):
+    """Phase 13's serving: bench.py's query through ``generate`` (MOE_NEW
+    greedy tokens, twice: the same tokens), its launches (K4 23 an encode,
+    K5 one a layer a prefill, nothing else), the first MOE_FORWARD_TOKENS
+    tokens against the argmax of a full forward teacher-forced on them (in
+    bf16 equal up to ``router_tie_rule``'s near ties, the routing of both
+    taped; in fp32 compute on the same weights, up to ``near_tie_rule``'s),
+    and the prefill's and a decode step's times, host syncs and the MoE
+    dispatch's share of the prefill. Returns the launches of the counted
+    window."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.params import named_leaves
+
+    bf = torch.bfloat16
+    out_dir = Path(__file__).resolve().parent / "bench_out"
+    out_dir.mkdir(exist_ok=True)
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    L = cfg.llm.num_layers
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    img, ids, attn, anyres = query(dev, cfg)
+    crops, mask = anyres(img)
+
+    def request():
+        return gen.generate(params, cfg_run, ids, attn, crops[None], mask[None],
+                            max_new_tokens=MOE_NEW, compute_dtype=bf)[0].tolist()
+
+    request()                                                   # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = request()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n0 = int(slime.prepare_multimodal(params, cfg_run, ids, attn, crops[None], mask[None],
+                                      compute_dtype=bf).lengths[0])
+    with RoutingTape(L, sequence_rows(0, n0)) as gen_tape:
+        again = request()
+    expect_launches("13 Mixtral request", counts, {"encoder_attention": vis, "flash_fwd": L})
+    extra = {n: c for n, c in counts.items() if c and n not in ("encoder_attention", "flash_fwd")}
+    if extra or toks != again or len(toks) != MOE_NEW or not all(
+            0 <= t < cfg.llm.vocab_size for t in toks):
+        raise AssertionError(f"phase 13 generate: off-path launches {extra}, repeats "
+                             f"{toks == again}, {len(toks)} tokens")
+    log(f"phase 13 Mixtral generate: {MOE_NEW} tokens in {wall * 1e3:.1f} ms host (one "
+        f"request); repeats: True; tokens {toks[:12]}...")
+
+    # the first tokens against a full forward teacher-forced on them: in
+    # bf16 up to a router near tie (the two runs' routing taped: the sparse
+    # dispatch's products see other row counts, and the decode steps take
+    # the dense masked path), in fp32 compute (bf16 weights) up to a near
+    # tie of the logits
+    n = MOE_FORWARD_TOKENS
+    for dt in (bf, torch.float32):
+        want = toks if dt == bf else gen.generate(
+            params, cfg_run, ids, attn, crops[None], mask[None], max_new_tokens=n,
+            compute_dtype=dt)[0].tolist()
+        with RoutingTape(L, sequence_rows(0, n0)) as fwd_tape:
+            logits = forced_logits(params, cfg_run, ids, attn, crops[None], mask[None],
+                                   want[:n], dt)
+        name = f"Mixtral generate's first {n} tokens against full forwards, {str(dt)[6:]}"
+        if dt == bf:
+            router_tie_rule(name, logits.argmax(-1).tolist(), want[:n], (fwd_tape, gen_tape),
+                            (0, 0), n0, lambda j: logits[j])
+        else:
+            near_tie_rule(name, want[:n], logits.argmax(-1).tolist(), logits, -1, phase="13",
+                          ref="the argmax of the full forward")
+        del logits, fwd_tape
+    del gen_tape
+
+    # the prefill and a decode step: times, syncs, the MoE dispatch's share
+    with torch.no_grad(), fp32_accumulation():
+        def prefill():
+            return gen.prefill(params, cfg_run, ids, attn, crops[None], mask[None], bf)
+        (last, kvs, lengths, S), pre_syncs = count_syncs(prefill)
+        cache = llama.prefill_into_cache(
+            llama.init_kv_cache(cfg.llm, 1, S + 64, dtype=bf, device=dev), kvs, lengths)
+        del kvs
+        tok = last.argmax(-1)
+
+        def step():
+            nonlocal cache
+            lg, cache = llama.decode_step(params["llm"], cache, tok, cfg.llm, compute_dtype=bf)
+            return lg
+        step()
+        _, step_syncs = count_syncs(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        step_host = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        pre_host = host_ms(prefill)
+
+        real = llama.moe_ffn_sparse
+
+        def marked(*a):
+            with torch.profiler.record_function("moe_dispatch"):
+                return real(*a)
+        path = out_dir / "profile_mixtral_prefill.json"
+        llama.moe_ffn_sparse = marked
+        try:
+            traced = profiled(prefill, path)
+        finally:
+            llama.moe_ffn_sparse = real
+        if traced:
+            busy, launches, _ = trace_device(path)
+            rng_ms, _ = trace_ranges(path, ["moe_dispatch"])
+            share = rng_ms["moe_dispatch"][0] / busy
+            log(f"phase 13 Mixtral prefill ({S} positions, {int(lengths[0])} valid, {L} layers):"
+                f" host {pre_host:.1f} ms, device busy {busy:.2f} ms, {launches} launches; the "
+                f"sparse MoE dispatch {rng_ms['moe_dispatch'][0]:.2f} ms of it ({share:.3f}); "
+                f"host syncs {pre_syncs}")
+        path = out_dir / "profile_mixtral_decode.json"
+        if profiled(lambda: [step() for _ in range(PROFILE_STEPS)], path):
+            busy, launches, by_name = trace_device(path)
+            busy /= PROFILE_STEPS
+            experts = sum(nbytes(t) for t in params["llm"]["layers"]["experts"].values())
+            weights = sum(nbytes(t) for _, t in named_leaves(params["llm"]["layers"]))
+            weights += nbytes(params["llm"]["lm_head"]["weight"])
+            top = "; ".join(f"{ms / PROFILE_STEPS:.2f} ms {k[:50]}" for k, ms in
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
+            log(f"phase 13 Mixtral decode step (B = 1, dense masked MoE): device {busy:.2f} ms,"
+                f" host {step_host:.2f} ms, idle share {1 - busy / step_host:.3f}, "
+                f"{launches / PROFILE_STEPS:.0f} launches, host syncs {step_syncs}; bytes bound: "
+                f"experts {experts / 1e9:.2f} GB {experts / HBM_BPS * 1e3:.2f} ms, layers and "
+                f"lm_head {weights / 1e9:.2f} GB {weights / HBM_BPS * 1e3:.2f} ms; largest: {top}")
+        del cache, last
+    return counts
+
+
+def mixtral_engine(dev, cfg, params):
+    """Phase 13's engine: 4 requests (bench.py's query twice, text prompts of
+    ENGINE_TEXT tokens) through ``BatchDecodeEngine`` with an int8 KV pool,
+    256-position admission chunks (the sparse dispatch) and k = 1 ticks (the
+    dense masked MoE at B = 4). Each answer is held to ``generate``'s on an
+    int8 cache: in fp32 compute (bf16 weights) up to a near tie of the
+    logits; in bf16 (timed, launches counted: K4 per multimodal admission,
+    K5 never) up to ``router_tie_rule``'s near ties, the routing of the
+    engine and of each ``generate`` taped. Returns the bf16 run's
+    launches."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    img, ids, attn, anyres = query(dev, cfg)
+    crops, mask = anyres(img)
+    with torch.no_grad(), fp32_accumulation():
+        fused_len = int(slime.prepare_multimodal(params, cfg, ids, attn, crops[None],
+                                                 mask[None], compute_dtype=bf).lengths[0])
+    cache_len = -(-(fused_len + MOE_NEW + 1) // ENGINE_WINDOW) * ENGINE_WINDOW
+    rng = np.random.default_rng(SEED + 13)
+    text = [rng.integers(5, cfg.llm.vocab_size, (n,)) for n in ENGINE_TEXT]
+    ids_np = ids[0].cpu().numpy()
+    prompts = [("query A", ids_np, crops, mask), (f"text {ENGINE_TEXT[0]}", text[0], None, None),
+               ("query B", ids_np, crops, mask), (f"text {ENGINE_TEXT[1]}", text[1], None, None)]
+
+    def as_tensors(p):
+        t = torch.from_numpy(p[1][None].astype(np.int64)).to(dev)
+        return (t, torch.ones_like(t, dtype=torch.bool),
+                None if p[2] is None else p[2][None], None if p[3] is None else p[3][None])
+
+    def run(dtype):
+        """The four requests through tick(), their routing taped -> (answers,
+        launches, the tape, the requests' keys in it)."""
+        eng = BatchDecodeEngine(params, cfg_run, max_slots=ENGINE_SLOTS, cache_len=cache_len,
+                                compute_dtype=dtype, kv_quant=True, prefix_cache_mb=0,
+                                device=dev)
+        eng.multi_step = 1
+        reqs = [Request(input_ids=p[1], pixel_values=p[2], crop_mask=p[3],
+                        max_new_tokens=MOE_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with RoutingTape(cfg.llm.num_layers, engine_rows(eng)) as tape:
+            for r in reqs:
+                eng.submit(r)
+            for _ in range(4000):
+                if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+                    break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        answers = [[t for c in r.stream() for t in c] for r in reqs]
+        if not all(bool(torch.isfinite(eng.cache[n]).all()) for n in ("k_scale", "v_scale")):
+            raise AssertionError("phase 13 engine: int8 pool scales not finite")
+        ntok = sum(map(len, answers))
+        log(f"phase 13 engine, {str(dtype)[6:]} (int8 KV pool, {ENGINE_SLOTS} slots, cache_len "
+            f"{cache_len}, chunks of {eng.prefill_chunk_len}, k = 1): {ntok} tokens in "
+            f"{wall:.3f} s ({ntok / wall:.2f} tok/s aggregate, admissions included), "
+            f"{eng.decode_steps} decode steps; chunks by padded rows "
+            f"{dict(sorted(eng.chunk_rows.items()))}; routing taped")
+        return answers, counts, tape, [id(r) for r in reqs]
+
+    answers, _, _, _ = run(f32)
+    for p, got in zip(prompts, answers):
+        args = as_tensors(p)
+        want = gen.generate(params, cfg_run, *args, max_new_tokens=MOE_NEW, compute_dtype=f32,
+                            kv_quant=True)[0].tolist()
+        check_answer(f"{p[0]}, fp32", got, want,
+                     lambda j: teacher_logits(params, cfg_run, *args, want, j, dtype=f32,
+                                              kv_quant=True), phase="13")
+    answers, counts, tape, keys = run(bf)
+    expect_launches("13 engine, bfloat16", counts, {"encoder_attention": 2 * vis,
+                                                    "flash_fwd": 0})
+    for p, got, key in zip(prompts, answers, keys):
+        args = as_tensors(p)
+        n0 = fused_len if p[2] is not None else len(p[1])
+        with RoutingTape(cfg.llm.num_layers, sequence_rows(0, n0)) as gen_tape:
+            want = gen.generate(params, cfg_run, *args, max_new_tokens=MOE_NEW,
+                                compute_dtype=bf, kv_quant=True)[0].tolist()
+        router_tie_rule(f"{p[0]}, bf16 engine against bf16 generate (int8 cache)", got, want,
+                        (tape, gen_tape), (key, 0), n0,
+                        lambda j: teacher_logits(params, cfg_run, *args, want, j, dtype=bf,
+                                                 kv_quant=True))
+        del gen_tape
+    del tape
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mixtral_train(dev, cfg, params):
+    """Phase 13's training check: ``slime.loss_fn`` and its backward on
+    MIXTRAL_TRAIN_LAYERS of the model's layers (copies, at full width), B =
+    1, S = the model's 2048, bf16, remat, ``router_aux_loss_coef`` 0.02:
+    the aux finite and positive, the gates' gradients non-zero, K5b and K5c
+    once a layer, K5 twice (remat) and K4 once an encode. Returns the
+    window's launches."""
+    from slime_tpu_torch.models import slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.params import map_leaves
+
+    n = MIXTRAL_TRAIN_LAYERS
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    tcfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=n,
+                                                            router_aux_loss_coef=0.02))
+    layers = map_leaves(lambda _, t: t[:n].clone().requires_grad_(True),
+                        params["llm"]["layers"])
+    tparams = dict(params, llm=dict(params["llm"], layers=layers))
+    batch = train_batches(tcfg, np.random.default_rng(SEED + 23), 1, 1)[0]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with fp32_accumulation():
+        loss, metrics = slime.loss_fn(tparams, tcfg, batch, training=True,
+                                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                                      compute_dtype=torch.bfloat16, remat=True)
+        loss.backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    aux = float(metrics["router_aux_loss"])
+    gate = layers["gate"]["weight"].grad
+    gate_norm = float(gate.float().norm()) if gate is not None else 0.0
+    log(f"phase 13 Mixtral train step ({n} layers, B = 1, S = {batch['input_ids'].shape[1]}, "
+        f"bf16, remat): loss {float(loss.detach()):.4f}, router_aux_loss {aux:.4f}, gate grad norm "
+        f"{gate_norm:.4g}; host {wall:.1f} ms forward + backward; peak {peak:.2f} GiB")
+    # remat recomputes each LLM layer's forward (K5 twice); the frozen tower
+    # needs no backward, so no recompute (K4 once)
+    expect_launches("13 train", counts, {"encoder_attention": vis, "flash_fwd": 2 * n,
+                                         "flash_bwd_dkdv": n, "flash_bwd_dq": n})
+    if not (np.isfinite(aux) and aux > 0 and gate_norm > 0 and np.isfinite(float(loss.detach()))):
+        raise AssertionError(f"phase 13 train: loss {float(loss.detach())}, aux {aux}, gate grad "
+                             f"{gate_norm}")
+    del layers, tparams, gate
+    return counts
+
+
+def mpt_check(dev):
+    """Phase 13's MPT: the model of ``mpt_config()`` at full width and depth
+    in bf16 from a seed, ``forward`` on [1, MPT_SEQ] ids in bf16 and, on the
+    same weights, in fp32: the argmax at every position equal up to a logged
+    near tie (the fp32 logits of the two tokens within ENGINE_TIE_ATOL)."""
+    from slime_tpu_torch.models import mpt
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    mcfg = mpt_config()
+    t0 = time.perf_counter()
+    params = mpt.init(mcfg, generator=torch.Generator(device=dev).manual_seed(SEED + 31),
+                      device=dev, dtype=torch.bfloat16)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, mcfg.vocab_size, (1, MPT_SEQ))).to(dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 MPT (d_model {mcfg.d_model}, {mcfg.n_layers} layers, vocabulary "
+        f"{mcfg.vocab_size}, bf16) built in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad(), fp32_accumulation():
+        bf_ms = host_ms(lambda: mpt.forward(params, ids, mcfg, compute_dtype=torch.bfloat16))
+        lb = mpt.forward(params, ids, mcfg, compute_dtype=torch.bfloat16)[0]
+        f32_ms = host_ms(lambda: mpt.forward(params, ids, mcfg), runs=1)
+        lf = mpt.forward(params, ids, mcfg)[0]
+    if not bool(torch.isfinite(lb).all() and torch.isfinite(lf).all()):
+        raise AssertionError("phase 13 MPT: logits not finite")
+    tb, tf = lb.argmax(-1), lf.argmax(-1)
+    diff = (tb != tf).nonzero()[:, 0]
+    gaps = (lf[diff, tf[diff]] - lf[diff, tb[diff]]).tolist()
+    log(f"phase 13 MPT forward [1, {MPT_SEQ}]: bf16 {bf_ms:.1f} ms, fp32 {f32_ms:.1f} ms host; "
+        f"top-1 equal at {MPT_SEQ - len(gaps)} of {MPT_SEQ} positions; where not, the fp32 "
+        f"logit gap {max(gaps) if gaps else 0.0:.4g} at most (near-tie bound {ENGINE_TIE_ATOL}); "
+        f"max |bf16 - fp32| logit {(lb - lf).abs().max().item():.4g}")
+    if gaps and max(gaps) > ENGINE_TIE_ATOL:
+        raise AssertionError(f"phase 13 MPT: bf16 top-1 parts from fp32 beyond a near tie "
+                             f"({max(gaps):.4g})")
+    del params, lb, lf
+
+
+def sequential_scan(u, delta, A, B, C, D):
+    """The selective scan's recurrence one position at a time."""
+    h = torch.zeros(u.shape[0], u.shape[2], A.shape[1], device=u.device)
+    ys = []
+    for t in range(u.shape[1]):
+        h = torch.exp(delta[:, t, :, None] * A) * h + (delta[:, t] * u[:, t])[..., None] \
+            * B[:, t, None, :]
+        ys.append(torch.einsum("bcn,bn->bc", h, C[:, t]))
+    return torch.stack(ys, dim=1) + u * D[None, None]
+
+
+def mamba_check(dev):
+    """Phase 13's Mamba block at d_model MAMBA_SHAPE[2] on [MAMBA_SHAPE] in
+    fp32: ``apply`` against the same block with its scan done one position
+    at a time (within 1e-4), ``selective_scan`` against that loop, and
+    causality (a late perturbation moves no earlier output)."""
+    from slime_tpu_torch.models import mamba
+
+    B, S, D = MAMBA_SHAPE
+    p = mamba.init(d_model=D, generator=torch.Generator(device=dev).manual_seed(SEED + 37),
+                   device=dev)
+    x = torch.randn(MAMBA_SHAPE, generator=torch.Generator(device=dev).manual_seed(SEED + 38),
+                    device=dev)
+    with torch.no_grad():
+        y = mamba.apply(p, x)
+        ms = host_ms(lambda: mamba.apply(p, x))
+        real = mamba.selective_scan
+        mamba.selective_scan = sequential_scan
+        try:
+            y_seq = mamba.apply(p, x)
+        finally:
+            mamba.selective_scan = real
+        x2 = x.clone()
+        x2[:, S - 100] += 10.0
+        y2 = mamba.apply(p, x2)
+    err = (y - y_seq).abs().max().item()
+    before = (y2[:, :S - 100] - y[:, :S - 100]).abs().max().item()
+    after = (y2[:, S - 100:] - y[:, S - 100:]).abs().max().item()
+    log(f"phase 13 Mamba block, d_model {D}, [{B}, {S}, {D}] fp32: {ms:.2f} ms host; against "
+        f"the sequential scan max |diff| {err:.3g} (bound 1e-4); a perturbation at position "
+        f"{S - 100} moves earlier outputs by {before:.3g}, later ones by {after:.3g}")
+    if not (bool(torch.isfinite(y).all()) and err <= 1e-4 and before <= 1e-5 and after > 0):
+        raise AssertionError(f"phase 13 Mamba: diff {err:.3g}, causal {before:.3g} / {after:.3g}")
+
+
+def model_families_phase(dev):
+    """Phase 13: the other model families. Mixtral-8x7B at full width cut
+    to MIXTRAL_LAYERS layers (one layer's bf16 experts are 2.82 GB; 32
+    layers hold 90.2 GB, over the card's 80 GB), bf16, stacked, seed 0:
+    the MoE layer check, bench.py's query through ``generate`` and the
+    engine, a training backward on 2 of its layers; then MPT-7B at full
+    width and depth and the Mamba block. Returns the counted windows'
+    launches."""
+    from slime_tpu_torch.config import LLMConfig
+
+    cfg = mixtral_config()
+    t_phase = time.perf_counter()
+    full = LLMConfig.mixtral_8x7b().num_layers
+    experts = (cfg.llm.num_experts * 3 * cfg.llm.intermediate_size * cfg.llm.hidden_size * 2)
+    log(f"phase 13 Mixtral-8x7B at full width, {cfg.llm.num_layers} of {full} layers: a "
+        f"memory cut (bf16 experts {experts / 1e9:.2f} GB a layer, {full * experts / 1e9:.1f} "
+        f"GB at {full} layers, over the card's 80 GB)")
+    t0 = time.perf_counter()
+    params = mixtral_params(dev, cfg)
+    torch.cuda.synchronize()
+    log(f"phase 13 Mixtral SliME built on {dev} in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    counts = {}
+    moe_layer_check(dev, cfg, params)
+    for part in (mixtral_serve, mixtral_engine, mixtral_train):
+        for n, c in part(dev, cfg, params).items():
+            counts[n] = counts.get(n, 0) + c
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    mpt_check(dev)
+    torch.cuda.empty_cache()
+    mamba_check(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     # ---------------- phase 0 ----------------
     if not torch.cuda.is_available():
@@ -4788,6 +5535,9 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in eval_phase(dev, cfg).items():                 # phase 12
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in model_families_phase(dev).items():            # phase 13
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

@@ -30,6 +30,7 @@ from .config import SliMEConfig
 from .data.tokenization import StopStringMatcher
 from .models import llama, slime
 from .models.layers import fp32_accumulation
+from .models.llama import top_k_stable
 
 
 def sample_token(logits, *, temperature: float = 0.0, top_p: float = 1.0,
@@ -242,14 +243,6 @@ def generate_stream(params, cfg: SliMEConfig, tokenizer, input_ids,
         yield text
         if done:
             break
-
-
-def top_k_stable(x, k: int):
-    """(values, indices) of the k largest entries of each row, ties to the
-    lower index first, as ``jax.lax.top_k`` (``torch.topk`` promises no
-    order among ties)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 @fp32_accumulation()

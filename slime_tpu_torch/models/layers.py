@@ -159,6 +159,14 @@ def rms_norm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
             * p["weight"].to(torch.float32)).to(x.dtype)
 
 
+def silu(x):
+    """``jax.nn.silu`` as XLA lowers it: x * (1 / (1 + exp(-x))), each op
+    rounded to x.dtype. In bf16 this is bit for bit JAX's on the CPU, where
+    one rounding of x * sigmoid(x) differs in about a quarter of the values;
+    in fp32 the two agree to an ulp."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 # ----------------------------------------------------------------------------
 # torch-style MultiheadAttention (packed in-projection), as the JAX package's
 # resampler and router use it.

@@ -1,6 +1,7 @@
-"""Decoder-only LLM (Llama-3 family) in PyTorch: prefill and KV-cache decode.
+"""Decoder-only LLM (Llama / Mistral / Mixtral) in PyTorch: prefill and
+KV-cache decode.
 
-Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
+Port of ``slime_tpu/models/llama.py``:
 
 - ``forward`` is the full-sequence forward of prefill and training over list
   or stacked ``[L, ...]`` layers (``llama.py:233-323``), with ``positions``,
@@ -24,6 +25,13 @@ Port of ``slime_tpu/models/llama.py`` for dense (non-MoE) models:
 - The KV cache is float or int8 (``init_kv_cache(quantized=True)``,
   :341-395): int8 k/v with per-(position, head) absmax scales that
   multiply the scores and the probabilities; no dequantized copy.
+- Mixtral's MoE layers (``cfg.num_experts > 0``: ``gate`` [E, H],
+  ``experts`` w1 / w3 [E, I, H] and w2 [E, H, I]) replace the dense MLP in
+  every entry point (``_moe``, :126-153): top-k routing over the gate's fp32
+  logits, the sparse dispatch (``ops.moe_dispatch``) at B * S >= 32 and the
+  dense masked path below, and the router load-balancing loss
+  (``_router_aux``), returned by ``forward(return_aux=True)`` as the mean
+  over layers. The fused decode is dense-MLP only, as JAX's.
 
 Logits are fp32. The int8 ``lm_head`` dequantizes the whole matrix to fp32 on
 every call, as the JAX code does; on the card that is a 2.1 GB temporary at
@@ -40,52 +48,59 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_mlp import auto_block_ok, fused_mlp_decode, silu
+from ..ops.fused_mlp import auto_block_ok, fused_mlp_decode
 from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
+from ..ops.moe_dispatch import moe_ffn_sparse
 from ..ops.quantization import dequantize_weight
 from ..ops.ring_attention import ring_attention
 from . import layers as L
 
-_MOE_TODO = "MoE layers are not ported yet (ROADMAP Queue 1 step 11)"
+# _moe's switch (llama.py:137): the sparse dispatch from this many tokens on
+MOE_SPARSE_TOKENS = 32
+
+
+def _normal(shape, generator, device, dtype):
+    return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
 
 
 def init_layer(cfg: LLMConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
-    """One decoder layer's random parameters (``init``'s per-layer dict)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
-    H, HD = cfg.hidden_size, cfg.head_dim
+    """One decoder layer's random parameters (``init``'s per-layer dict): a
+    SwiGLU MLP, or with ``cfg.num_experts`` the MoE block's ``gate`` and
+    ``experts`` (N(0, 0.02), ``llama.py:54-62``)."""
+    H, HD, I, E = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_experts
     device = L.resolve_device(device)
     kw = dict(generator=generator, device=device, dtype=dtype)
-    return {
+    lp = {
         "input_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
         "q_proj": L.linear_init(H, cfg.num_heads * HD, bias=cfg.attention_bias, **kw),
         "k_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
         "v_proj": L.linear_init(H, cfg.num_kv_heads * HD, bias=cfg.attention_bias, **kw),
         "o_proj": L.linear_init(cfg.num_heads * HD, H, bias=False, **kw),
         "post_attention_layernorm": L.rms_norm_init(H, device=device, dtype=dtype),
-        "gate_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
-        "up_proj": L.linear_init(H, cfg.intermediate_size, bias=False, **kw),
-        "down_proj": L.linear_init(cfg.intermediate_size, H, bias=False, **kw),
     }
+    if E > 0:
+        lp["gate"] = L.linear_init(H, E, bias=False, **kw)
+        lp["experts"] = {"w1": _normal((E, I, H), generator, device, dtype),
+                         "w2": _normal((E, H, I), generator, device, dtype),
+                         "w3": _normal((E, I, H), generator, device, dtype)}
+    else:
+        lp["gate_proj"] = L.linear_init(H, I, bias=False, **kw)
+        lp["up_proj"] = L.linear_init(H, I, bias=False, **kw)
+        lp["down_proj"] = L.linear_init(I, H, bias=False, **kw)
+    return lp
 
 
 def init(cfg: LLMConfig, *, generator, device=None, dtype=torch.float32) -> Dict:
     """Random parameters with the JAX ``llama.init`` key set and shapes
     (list-of-layers layout), on ``device`` (the current CUDA device when
     None)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     H = cfg.hidden_size
     device = L.resolve_device(device)
-
-    def normal(*shape):
-        return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
-
-    params: Dict = {"embed_tokens": normal(cfg.vocab_size, H),
+    params: Dict = {"embed_tokens": _normal((cfg.vocab_size, H), generator, device, dtype),
                     "norm": L.rms_norm_init(H, device=device, dtype=dtype),
                     "layers": [init_layer(cfg, generator=generator, device=device, dtype=dtype)
                                for _ in range(cfg.num_layers)]}
-    params["lm_head"] = {"weight": normal(cfg.vocab_size, H)}
+    params["lm_head"] = {"weight": _normal((cfg.vocab_size, H), generator, device, dtype)}
     return params
 
 
@@ -151,7 +166,58 @@ def apply_rope(x, cos, sin):
 def _mlp(lp, x):
     g = L.linear(lp["gate_proj"], x)
     u = L.linear(lp["up_proj"], x)
-    return L.linear(lp["down_proj"], silu(g) * u)
+    return L.linear(lp["down_proj"], L.silu(g) * u)
+
+
+def top_k_stable(x, k: int):
+    """(values, indices) of the k largest entries along the last dim, ties
+    to the lower index first, as ``jax.lax.top_k`` (``torch.topk`` promises
+    no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router_aux(logits, topi, num_experts: int):
+    """Switch/Mixtral load-balancing loss (HF ``load_balancing_loss_func``,
+    ``llama.py:112-123``): E * sum over (slot k, expert e) of the share of
+    tokens whose k-th choice is e times e's mean router probability. A
+    balanced routing gives about top_k."""
+    T = logits.shape[0] * logits.shape[1]
+    probs = torch.softmax(logits.reshape(T, -1), dim=-1)                 # [T, E]
+    onehot = torch.nn.functional.one_hot(topi.reshape(T, -1).long(),
+                                         num_experts).to(torch.float32)  # [T, K, E]
+    tokens_per_expert = onehot.mean(dim=0)                               # [K, E]
+    router_prob = probs.mean(dim=0)                                      # [E]
+    return (tokens_per_expert * router_prob[None, :]).sum() * num_experts
+
+
+def _moe(lp, x, cfg: LLMConfig):
+    """Mixtral's block-sparse MoE on x [B, S, H] -> (out [B, S, H], its
+    routing: the gate's fp32 logits [B, S, E] and the top-k ids [B, S, K],
+    from which ``_layer_prefill`` forms the aux loss).
+    Top-k softmax routing over the gate's fp32 logits; the experts run
+    sparsely (``ops.moe_dispatch``: sorted, grouped, k/E of the dense work)
+    at B * S >= 32, else densely (every expert on every token, the others
+    weighted 0), with JAX's rounding points on each path (``llama.py:126-153``).
+    The products run in the promoted type of x and the weights, as JAX's
+    promotes; the dense path rounds each to x.dtype."""
+    B, S, H = x.shape
+    ex = lp["experts"]
+    logits = L.linear(lp["gate"], x).to(torch.float32)                  # [B, S, E]
+    topw, topi = top_k_stable(logits, cfg.num_experts_per_tok)
+    topw = torch.softmax(topw, dim=-1)
+    if B * S >= MOE_SPARSE_TOKENS:
+        out = moe_ffn_sparse(x.reshape(B * S, H), ex["w1"], ex["w2"], ex["w3"],
+                             topi.reshape(B * S, -1), topw.to(x.dtype).reshape(B * S, -1))
+        return out.reshape(B, S, H), (logits, topi)
+    w_full = torch.zeros_like(logits).scatter(-1, topi, topw)           # [B, S, E]
+    dt = torch.promote_types(x.dtype, ex["w1"].dtype)
+    xd = x.to(dt)
+    h1 = torch.einsum("bsh,eih->bsei", xd, ex["w1"].to(dt)).to(x.dtype)
+    h3 = torch.einsum("bsh,eih->bsei", xd, ex["w3"].to(dt)).to(x.dtype)
+    a = L.silu(h1) * h3
+    y = torch.einsum("bsei,ehi->bseh", a.to(dt), ex["w2"].to(dt)).to(x.dtype)
+    return torch.einsum("bseh,bse->bsh", y, w_full.to(x.dtype)), (logits, topi)
 
 
 def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
@@ -175,7 +241,12 @@ def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
     x = x + L.linear(lp["o_proj"], out)
     h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
-    return x + _mlp(lp, h), (k, v)
+    if cfg.num_experts > 0:
+        h, (logits, topi) = _moe(lp, h, cfg)
+        aux = _router_aux(logits, topi, cfg.num_experts)
+    else:
+        h, aux = _mlp(lp, h), None           # a dense layer adds nothing to the aux
+    return x + h, (k, v), aux
 
 
 def embed(params, input_ids):
@@ -197,7 +268,7 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
             use_kernel: Optional[bool] = None, return_kv: bool = False,
             compute_dtype=torch.float32, remat: bool = False,
             logit_positions=None, return_hidden: bool = False,
-            segment_ids=None, ring=None):
+            segment_ids=None, ring=None, return_aux: bool = False):
     """Full-sequence forward (training / prefill). embeds [B, S, H];
     positions [B, S] or None (arange); segment_ids [B, S] (packed sequences:
     attention stays inside a segment; pass per-segment positions too).
@@ -214,9 +285,11 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
     ``logit_positions`` index the shard). ``remat`` keeps the ring (JAX's
     non-scan remat path drops it, which changes no number: the ring is exact).
     ``ring`` with ``segment_ids`` raises: JAX's ring branch ignores them,
-    which is wrong attention for packed sequences (ROADMAP Queue 3)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    which is wrong attention for packed sequences (ROADMAP Queue 3).
+
+    ``return_aux``: a third element, the router load-balancing loss averaged
+    over the layers (0 for dense layers); it comes out of each ``remat``
+    region with the hidden state, so its gradient reaches the gates."""
     if ring is not None and segment_ids is not None:
         raise ValueError("forward: ring attention does not take segment_ids (packed "
                          "sequences); JAX's ring branch ignores them (ROADMAP Queue 3)")
@@ -229,20 +302,26 @@ def forward(params, embeds, cfg: LLMConfig, *, positions=None,
     else:
         cos_s, sin_s = cos[positions.long()], sin[positions.long()]
     remat = remat and torch.is_grad_enabled()
-    kvs = []
+    kvs, auxes = [], []
     for i in range(cfg.num_layers):
         args = (_layer(params["layers"], i), x, cos_s, sin_s, cfg, use_kernel,
                 segment_ids, ring)
         if remat:
-            x, kv = checkpoint(_layer_prefill, *args, use_reentrant=False)
+            x, kv, aux = checkpoint(_layer_prefill, *args, use_reentrant=False)
         else:
-            x, kv = _layer_prefill(*args)
+            x, kv, aux = _layer_prefill(*args)
+        if aux is not None:
+            auxes.append(aux)
         if return_kv:
             kvs.append(kv)
     x = L.rms_norm(params["norm"], x, eps=cfg.rms_norm_eps)
     if logit_positions is not None:
         x = torch.gather(x, 1, logit_positions[:, None, None].expand(B, 1, x.shape[-1]))
     out = x if return_hidden else _lm_head(params, x)
+    if return_aux:
+        aux = (sum(auxes) if auxes else
+               torch.zeros((), dtype=torch.float32, device=x.device)) / cfg.num_layers
+        return out, (kvs if return_kv else None), aux
     return out, (kvs if return_kv else None)
 
 
@@ -387,9 +466,12 @@ def _cache_forward(params, cache, x, cfg: LLMConfig, compute_dtype, window, fuse
     length[b] + c] and the lengths advance by C. ``fused`` runs the
     projections through K1-K3 on the [B * C, H] rows
     (``_decode_step_fused`` / ``_prefill_chunk_fused``); otherwise each layer
-    runs through ``layers.linear``. Attention reads the first ``window``
-    cache positions (all when None)."""
+    runs through ``layers.linear``, and MoE layers through ``_moe`` on the
+    [B, C, H] rows (dense masked at B * C < 32, else sparse). Attention
+    reads the first ``window`` cache positions (all when None)."""
     layers = params["layers"]
+    if fused and cfg.num_experts > 0:
+        raise ValueError("the fused decode is dense-MLP only; MoE layers take fused=False")
     if fused and not _fused_mlp_ok(layers):
         raise ValueError("the fused path needs stacked layers with one fused MLP "
                          "format (dense, per-row int8 or q4g)")
@@ -426,7 +508,10 @@ def _cache_forward(params, cache, x, cfg: LLMConfig, compute_dtype, window, fuse
             x = fused_mlp_decode(x, layers, li, eps=eps)
         else:
             h = L.rms_norm(lp["post_attention_layernorm"], x, eps=eps)
-            x = x + _mlp(lp, h)
+            if cfg.num_experts > 0:
+                x = x + _moe(lp, h.reshape(B, C, H), cfg)[0].reshape(B * C, H)
+            else:
+                x = x + _mlp(lp, h)
 
     x = L.rms_norm(params["norm"], x, eps=eps)
     cache["length"] = cache["length"] + C
@@ -446,9 +531,8 @@ def decode_step(params, cache, token_ids, cfg: LLMConfig,
     device (the CPU runs the kernels' plain versions). The cache (float or
     int8) is updated in place (the new k/v at [li, b, length[b]], then
     length + 1) and returned. ``window``: attend only over the first
-    ``window`` cache positions; callers keep every row's length below it."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    ``window`` cache positions; callers keep every row's length below it.
+    MoE layers run non-fused (None picks it; True raises)."""
     if fused is None:
         fused = _fused_auto_ok(params["layers"])
     x = params["embed_tokens"][token_ids][:, None]
@@ -478,8 +562,6 @@ def prefill_chunk(params, cache, embeds, cfg: LLMConfig,
     single-device TPU read as "the embeds are on a CUDA device": no experts,
     B * C <= 64 and ``_fused_auto_ok``; larger chunks and CPU tensors take
     the per-layer ``layers.linear`` path."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     if fused is None:
         fused = chunk_takes_fused(embeds.shape, embeds.device, params["layers"])
     x, cache = _cache_forward(params, cache, embeds, cfg, compute_dtype, window, fused)

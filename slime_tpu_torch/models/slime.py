@@ -354,19 +354,23 @@ def forward(params, cfg: SliMEConfig, input_ids, attention_mask, pixel_values,
             generator: Optional[torch.Generator] = None,
             noise: Optional[Dict] = None, use_kernel: Optional[bool] = None,
             compute_dtype=torch.float32, remat: bool = False,
-            return_hidden: bool = False):
+            return_hidden: bool = False, return_aux: bool = False):
     """End to end -> (logits [B, L, V] fp32, or the final hidden states with
-    ``return_hidden``; the FusedBatch). ``remat`` checkpoints each LLM layer
-    and each vision block (slime.py:404-427)."""
+    ``return_hidden``; the FusedBatch), and with ``return_aux`` a third
+    element, the LLM's router load-balancing loss (MoE configs; 0 for dense
+    ones). ``remat`` checkpoints each LLM layer and each vision block
+    (slime.py:404-427)."""
     fused = prepare_multimodal(params, cfg, input_ids, attention_mask,
                                pixel_values, crop_mask, labels,
                                training=training, generator=generator,
                                noise=noise, compute_dtype=compute_dtype, remat=remat)
-    out, _ = llama.forward(params["llm"], fused.embeds, cfg.llm,
-                           positions=fused.positions, use_kernel=use_kernel,
-                           compute_dtype=compute_dtype, remat=remat,
-                           return_hidden=return_hidden)
-    return out, fused
+    out = llama.forward(params["llm"], fused.embeds, cfg.llm,
+                        positions=fused.positions, use_kernel=use_kernel,
+                        compute_dtype=compute_dtype, remat=remat,
+                        return_hidden=return_hidden, return_aux=return_aux)
+    if return_aux:
+        return out[0], fused, out[2]
+    return out[0], fused
 
 
 def loss_fn(params, cfg: SliMEConfig, batch, *, training: bool = True,
@@ -381,30 +385,40 @@ def loss_fn(params, cfg: SliMEConfig, batch, *, training: bool = True,
     an int forces a chunk size, None one dense projection. A batch with
     ``segment_ids`` is a packed text-only batch: attention stays inside each
     segment, positions restart per segment (``batch["positions"]``), and a
-    token is a target only when it continues its predecessor's segment."""
+    token is a target only when it continues its predecessor's segment.
+
+    MoE configs with ``router_aux_loss_coef`` > 0 add the coefficient times
+    the router load-balancing loss, logged as ``metrics["router_aux_loss"]``
+    (HF MixtralForCausalLM's ``output_router_logits``, slime.py:434-504)."""
+    want_aux = cfg.llm.num_experts > 0 and cfg.llm.router_aux_loss_coef > 0
     if loss_chunk == "auto":
         loss_chunk = DEFAULT_LOSS_CHUNK if cfg.llm.vocab_size >= 16384 else None
     head = params["llm"]["lm_head"]
     if batch.get("segment_ids") is not None:
         seg = batch["segment_ids"]
         embeds = llama.embed(params["llm"], batch["input_ids"]).to(compute_dtype)
-        hidden, _ = llama.forward(params["llm"], embeds, cfg.llm,
-                                  positions=batch["positions"], segment_ids=seg,
-                                  use_kernel=use_kernel, compute_dtype=compute_dtype,
-                                  remat=remat, return_hidden=True)
+        out = llama.forward(params["llm"], embeds, cfg.llm,
+                            positions=batch["positions"], segment_ids=seg,
+                            use_kernel=use_kernel, compute_dtype=compute_dtype,
+                            remat=remat, return_hidden=True, return_aux=want_aux)
         continues = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)
         prev_ok = torch.cat([torch.zeros_like(continues[:, :1]), continues], dim=1)
         labels = torch.where(prev_ok, batch["labels"], IGNORE_INDEX)
-        total, count = chunked_cross_entropy(hidden, head, labels, chunk=loss_chunk)
-        count = torch.clamp(count, min=1)
-        return total / count, {"n_target_tokens": count,
-                               "packing_efficiency": (seg > 0).to(torch.float32).mean()}
-    hidden, fused = forward(params, cfg, batch["input_ids"], batch["attention_mask"],
-                            batch["pixel_values"], batch["crop_mask"],
-                            batch.get("labels"), training=training,
-                            generator=generator, noise=noise, use_kernel=use_kernel,
-                            compute_dtype=compute_dtype, remat=remat,
-                            return_hidden=True)
-    total, count = chunked_cross_entropy(hidden, head, fused.labels, chunk=loss_chunk)
+        total, count = chunked_cross_entropy(out[0], head, labels, chunk=loss_chunk)
+        metrics = {"packing_efficiency": (seg > 0).to(torch.float32).mean()}
+    else:
+        out = forward(params, cfg, batch["input_ids"], batch["attention_mask"],
+                      batch["pixel_values"], batch["crop_mask"],
+                      batch.get("labels"), training=training,
+                      generator=generator, noise=noise, use_kernel=use_kernel,
+                      compute_dtype=compute_dtype, remat=remat,
+                      return_hidden=True, return_aux=want_aux)
+        total, count = chunked_cross_entropy(out[0], head, out[1].labels, chunk=loss_chunk)
+        metrics = {}
     count = torch.clamp(count, min=1)
-    return total / count, {"n_target_tokens": count}
+    loss = total / count
+    metrics = {"n_target_tokens": count, **metrics}
+    if want_aux:
+        metrics["router_aux_loss"] = out[2].detach()
+        loss = loss + cfg.llm.router_aux_loss_coef * out[2]
+    return loss, metrics

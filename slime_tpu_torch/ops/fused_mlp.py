@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from ..models.layers import silu
 from . import _cuda
 from . import weight_ring as wr
 from .fused_qkvo import (Q4G, _at, act_f32, check_operands, count, count_ring, kernel_fmt,
@@ -93,11 +94,6 @@ def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
     projections have a plan), None where it takes the row-per-warp
     kernels."""
     return ring_plan(B, H, I, fmt, sms) if ring_instance(B, dtype, fmt) else None
-
-
-def silu(x):
-    """x * sigmoid(x), written as jax.nn.silu."""
-    return x * torch.sigmoid(x)
 
 
 def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
