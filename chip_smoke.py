@@ -243,6 +243,24 @@ Phase 13  the other model families. SliME with Mixtral-8x7B (MoE layers:
          block at d_model 1024 on [5, 577, 1024] (against its scan done one
          position at a time, and causal).
 
+Phase 14  the (data, fsdp, model) mesh over NCCL, one rank a card, at
+         min(device_count, 4) ranks (the last phase: at one rank this
+         process is rank 0 and destroys its group at the end; at more the
+         ranks are spawned). Phase 2's int8 SliME-8B at full width and depth
+         sharded by the rule table: bench.py's query through
+         ``generate(mesh=...)`` (64 greedy tokens, bit-equal at one rank to
+         the unsharded non-fused ``generate``, JAX's decode under a mesh;
+         K4 23 and K5 32 launches, K1-K3 none), TTFT, one decode step traced
+         (device and host ms, NCCL's kernels); phase 8's four requests
+         through the engine with ``mesh=`` (each held to ``generate(mesh)``
+         up to a near tie); a LoRA step (r 128 on the int8 base, S = 2048,
+         remat, 2 rows a rank, 2 steps) on (1, world, 1) against the
+         one-process step on the same global batch (at one rank within the
+         one-process step's own repeat spread), step ms, tokens/s, peak GiB,
+         K5b and K5c launched; ``moe_ffn_ep`` at Mixtral-8x7B's layer shapes
+         (2048 tokens, factor 4: nothing dropped) against
+         ``moe_ffn_sparse`` in fp32 (1e-4) and bf16 (8 ulps), timed.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
@@ -4927,8 +4945,8 @@ class RoutingTape:
         from slime_tpu_torch.models import llama
         real = llama._moe
 
-        def moe(lp, x, cfg):
-            out, (logits, topi) = real(lp, x, cfg)
+        def moe(lp, x, cfg, plan=None):
+            out, (logits, topi) = real(lp, x, cfg, plan)
             layer = self.calls % self.n_layers
             if layer == 0:
                 self.cur = self.rows(*x.shape[:2])
@@ -5488,6 +5506,406 @@ def model_families_phase(dev):
     return counts
 
 
+# phase 14: the mesh. Serving's answer length, the LoRA step's rows a rank
+# and steps, the expert-parallel check's tokens and capacity (nothing dropped)
+TP_NEW, MESH_LORA_ROWS, MESH_LORA_STEPS = 64, 2, 2
+EP_TOKENS, EP_FACTOR = 2048, 4.0
+# the sharded LoRA step against the one-process one. At one rank the mesh
+# runs the one-process arithmetic: loss, grad norm and adapters within the
+# one-process step's own repeat spread (0 where it repeats exactly). Across
+# ranks the sums run in another order and bf16's backward through 32 layers
+# carries it into Adam's first steps, which move an entry by the learning
+# rate whatever the size of its gradient: these relative bounds, and the
+# adapters' distance under this share of the distance they moved
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_ADAPTER_SHARE = 1e-3, 1e-2, 0.25
+
+
+def plain_generate(params, cfg, ids, attn, pv, cm, n, dtype=torch.bfloat16):
+    """``generate``'s greedy tokens with the non-fused decode step (the
+    single-card reference of the mesh, which runs non-fused as JAX's)."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    with torch.no_grad(), fp32_accumulation():
+        logits, kvs, lengths, L = gen.prefill(params, cfg, ids, attn, pv, cm, dtype)
+        cache = llama.prefill_into_cache(llama.init_kv_cache(cfg.llm, 1, L + n, dtype=dtype,
+                                                             device=ids.device), kvs, lengths)
+        del kvs
+        toks = [int(logits[0].argmax())]
+        for _ in range(n - 1):
+            logits, cache = llama.decode_step(params["llm"], cache,
+                                              torch.tensor([toks[-1]], device=ids.device),
+                                              cfg.llm, compute_dtype=dtype, fused=False)
+            toks.append(int(logits[0].argmax()))
+    return toks
+
+
+def mesh_serve(dev, cfg, params, mesh, say):
+    """Phase 14 (a): bench.py's query through ``generate(mesh=...)`` and
+    phase 8's four requests through the engine with ``mesh=``; -> launch
+    counts of the counted windows (the generate request, the engine run)."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.parallel.mesh import layer_list, local_bytes, shard_params
+    from slime_tpu_torch.serve.batch_engine import BatchDecodeEngine, Request
+
+    bf, lead = torch.bfloat16, mesh.rank == 0
+    cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
+    NL, V = cfg.llm.num_layers, cfg.llm.vocab_size
+    vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    img, ids, attn, anyres = query(dev, cfg)
+    crops, mask = anyres(img)
+    args = (ids, attn, crops[None], mask[None])
+    want = plain_generate(params, cfg_run, *args, TP_NEW)
+    sp = shard_params(mesh, layer_list(params))      # the serving entry points' layout
+    torch.cuda.synchronize()
+    say(f"phase 14 params sharded by the rule table, the LLM layers a list: "
+        f"{local_bytes(sp) / 2 ** 30:.3f} GiB held by this rank (the whole tree "
+        f"{local_bytes(params) / 2 ** 30:.3f} GiB); {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated on this card")
+
+    def request(n=TP_NEW):
+        return gen.generate(sp, cfg_run, *args, max_new_tokens=n, compute_dtype=bf, mesh=mesh)
+    request(2)                                                      # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = request()[0].tolist()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    request(1)
+    torch.cuda.synchronize()
+    ttft = (time.perf_counter() - t0) * 1e3
+    if mesh.size == 1 and got != want:
+        raise AssertionError(f"phase 14 generate(mesh): {got} != the unsharded non-fused {want}")
+    if mesh.size > 1:
+        check_answer("generate(mesh)", got, want, lambda j: teacher_logits(
+            params, cfg_run, *args, want, j), phase="14")
+    expect = {"encoder_attention": vis, "flash_fwd": NL,
+              **{n + sfx: 0 for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense")}}
+    wrong = {n: (counts[n], c) for n, c in expect.items() if counts[n] != c}
+    if wrong and dev.type == "cuda":                  # the CPU counts nothing
+        raise AssertionError(f"phase 14 generate(mesh) launches (got, want): {wrong}")
+    say(f"phase 14 generate(mesh), bench.py's query, {TP_NEW} greedy tokens: "
+        f"{'bit-equal to' if got == want else 'within the near-tie rule of'} the unsharded "
+        f"non-fused generate; TTFT {ttft:.1f} ms, host wall {wall:.1f} ms, decode step "
+        f"{(wall - ttft) / (TP_NEW - 1):.2f} ms (host wall); launches on this rank: K4 "
+        f"{counts['encoder_attention']}, K5 {counts['flash_fwd']}, K1-K3 none")
+
+    # one decode step at B = 1, traced: device and host ms, NCCL's share
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+    with torch.no_grad(), fp32_accumulation(), mesh:
+        _, kvs, lengths, L = gen.prefill(sp, cfg_run, *args, bf)
+        cache = llama.prefill_into_cache(llama.init_kv_cache(cfg.llm, 1, L + 16, dtype=bf,
+                                                             device=dev), kvs, lengths)
+        del kvs
+        tok = torch.tensor([got[0]], device=dev)
+
+        def step():
+            return llama.decode_step(sp["llm"], cache, tok, cfg.llm, compute_dtype=bf)
+        step()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        path = out / f"trace_phase14_decode_rank{mesh.rank}.json"
+        if profiled(step, path):
+            busy, n_k, by = trace_device(path)
+            nccl_ms, nccl_n = trace_kernel(path, "nccl")
+            say(f"phase 14 decode step (B = 1, mesh of {mesh.size}): device busy {busy:.3f} ms, "
+                f"host wall {statistics.median(walls):.3f} ms, {n_k} kernel launches; NCCL "
+                f"kernels {nccl_n} launches, {nccl_ms:.4f} ms ({nccl_ms / max(busy, 1e-9):.4f} "
+                f"of the busy time)")
+    del cache
+
+    # the engine on phase 8's four requests, under the mesh
+    with torch.no_grad(), fp32_accumulation():
+        fused_len = int(slime.prepare_multimodal(params, cfg, *args, compute_dtype=bf
+                                                 ).lengths[0])
+    cache_len = -(-(fused_len + N_NEW + 1) // ENGINE_WINDOW) * ENGINE_WINDOW
+    rng = np.random.default_rng(SEED + 12)
+    text = [rng.integers(5, V, (n,)) for n in ENGINE_TEXT]
+    ids_np = ids[0].cpu().numpy()
+    prompts = [("query A", ids_np, crops, mask), (f"text {ENGINE_TEXT[0]}", text[0], None, None),
+               ("query B", ids_np, crops, mask), (f"text {ENGINE_TEXT[1]}", text[1], None, None)]
+
+    def as_tensors(p):
+        t = torch.from_numpy(p[1][None].astype(np.int64)).to(dev)
+        return (t, torch.ones_like(t, dtype=torch.bool),
+                None if p[2] is None else p[2][None], None if p[3] is None else p[3][None])
+
+    def drive(eng):
+        """Phase 8's script: two requests, two more at tick 4 -> the answers."""
+        reqs = [Request(input_ids=p[1], pixel_values=p[2], crop_mask=p[3],
+                        max_new_tokens=N_NEW) for p in prompts]
+        for r in reqs[:2]:
+            eng.submit(r)
+        for tick in range(1, 4000):
+            n = eng.tick()
+            if tick == 4:
+                for r in reqs[2:]:
+                    eng.submit(r)
+            if tick > 4 and n == 0 and eng.pending.empty() and eng._admission is None:
+                break
+        eng.stop()
+        return [[t for c in r.stream() for t in c] for r in reqs]
+
+    refs = {}
+    if mesh.size > 1:               # generate(mesh) is a collective: every rank runs it
+        for p in (prompts[0], prompts[1], prompts[3]):
+            refs[p[1].size] = gen.generate(sp, cfg_run, *as_tensors(p), max_new_tokens=N_NEW,
+                                           compute_dtype=bf, mesh=mesh)[0].tolist()
+    engine_kw = dict(max_slots=ENGINE_SLOTS, cache_len=cache_len, compute_dtype=bf, device=dev)
+    eng = BatchDecodeEngine(sp, cfg_run, mesh=mesh, **engine_kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if not lead:
+        eng.follow()
+        return _add(counts, launch_counts())
+    answers = drive(eng)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    ecounts = launch_counts()
+    say(f"phase 14 engine(mesh), phase 8's four requests: {sum(map(len, answers))} tokens in "
+        f"{ewall:.3f} s, {eng.decode_steps} decode steps; K4 {ecounts['encoder_attention']}, "
+        f"K5 {ecounts['flash_fwd']}, K1-K3 {sum(ecounts[n] for n in FUSED)}")
+    if dev.type == "cuda" and (ecounts["encoder_attention"] != 2 * vis or any(
+            ecounts[n + sfx] for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense"))):
+        raise AssertionError(f"phase 14 engine(mesh) launches: "
+                             f"{ {n: c for n, c in ecounts.items() if c} }")
+    if mesh.size == 1:
+        # the plain engine on the same requests and settings, non-fused as
+        # under the mesh (list layers): the same arithmetic, so equal tokens
+        listed = {**params, "llm": {**params["llm"], "layers": [
+            llama._layer(params["llm"]["layers"], i) for i in range(NL)]}}
+        plain = drive(BatchDecodeEngine(listed, cfg_run, **engine_kw))
+        if answers != plain:
+            raise AssertionError(f"phase 14 engine(mesh) {answers} != the unsharded "
+                                 f"non-fused engine's {plain}")
+        say("phase 14 engine(mesh) answers equal the unsharded non-fused engine's token "
+            "for token")
+        return _add(counts, ecounts)
+    for p, a in zip(prompts, answers):          # the teacher on this card alone
+        ref = refs[p[1].size]
+        check_answer(f"engine(mesh) {p[0]}", a, ref, lambda j, p=p, ref=ref: teacher_logits(
+            params, cfg_run, *as_tensors(p), ref, j), phase="14")
+    return _add(counts, ecounts)
+
+
+def _add(a, b):
+    return {n: a.get(n, 0) + b.get(n, 0) for n in set(a) | set(b)}
+
+
+def mesh_lora(dev, cfg, params, world, say):
+    """Phase 14 (b): a LoRA step of SliME-8B (int8 base) on the (1, world, 1)
+    mesh against the one-process step on the same global batch; -> launch
+    counts of the mesh steps."""
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from slime_tpu_torch.params import named_leaves
+    from slime_tpu_torch.train import lora as lora_lib
+    from slime_tpu_torch.train.optim import TrainConfig
+    from slime_tpu_torch.train.step import init_lora_train_state, make_lora_train_step
+
+    L = cfg.llm.num_layers
+    base = {**params, "llm": {**params["llm"], "layers": [
+        llama._layer(params["llm"]["layers"], i) for i in range(L)]}}
+    lora = lora_lib.init_lora(base, generator=torch.Generator(device=dev).manual_seed(SEED + 3),
+                              r=LORA_R, alpha=LORA_ALPHA)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_schedule="constant",
+                     total_steps=8)
+    rows = MESH_LORA_ROWS * world
+    batches = train_batches(cfg, np.random.default_rng(SEED + 14), MESH_LORA_STEPS, rows)
+    put = lambda b: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)  # noqa: E731
+                     for k, v in b.items()}
+    kw = dict(rank=LORA_R, alpha=LORA_ALPHA, compute_dtype=torch.bfloat16, remat=True)
+
+    def run(mesh):
+        b, state, tx = init_lora_train_state(base, lora, tc, mesh=mesh)
+        step = make_lora_train_step(cfg, tc, tx, mesh=mesh, **kw)
+        recs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for batch in batches:
+            bt = put(batch if mesh is None else shard_batch(mesh, batch))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b, bt)
+            torch.cuda.synchronize()
+            recs.append(((time.perf_counter() - t0) * 1e3, float(m["loss"]),
+                         float(m["grad_norm"])))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        adapters = state["params"]["adapters"]
+        if mesh is not None:
+            from slime_tpu_torch.parallel.mesh import unshard_params
+            adapters = unshard_params(mesh, adapters)
+        return recs, {p: t.detach().float().cpu() for p, t in named_leaves(adapters)}, counts, peak
+
+    one, a1, _, peak1 = run(None)
+    again, a1b, _, _ = run(None)              # the one-process step's own repeat
+    mesh = make_mesh(1, world, 1)
+    got, a2, counts, peak = run(mesh)
+    start = {p: t.float().cpu() for p, t in named_leaves(lora["adapters"])}
+    dist = lambda a, b: sum(float((a[p] - b[p]).norm() ** 2) for p in a) ** 0.5  # noqa: E731
+    moved, spread, dist_ = dist(a1, start), dist(a1b, a1), dist(a2, a1)
+    tokens = rows * cfg.tokenizer_model_max_length
+    for i, ((ms1, l1, g1), (_, l1b, g1b), (ms2, l2, g2)) in enumerate(zip(one, again, got)):
+        say(f"phase 14 LoRA step {i + 1} (SliME-8B int8 base, r {LORA_R}, S = "
+            f"{cfg.tokenizer_model_max_length}, remat, {MESH_LORA_ROWS} rows a rank), mesh "
+            f"(1,{world},1): loss {l2:.6f} (one process {l1:.6f}, again {l1b:.6f}), grad_norm "
+            f"{g2:.6f} ({g1:.6f}, {g1b:.6f}), step {ms2:.1f} ms ({ms1:.1f}), "
+            f"{tokens / ms2 * 1e3:.1f} tokens/s")
+        if world == 1:
+            ok = abs(l2 - l1) <= abs(l1b - l1) and abs(g2 - g1) <= abs(g1b - g1)
+        else:
+            ok = (abs(l2 - l1) <= MESH_LOSS_RTOL * abs(l1)
+                  and abs(g2 - g1) <= MESH_NORM_RTOL * abs(g1))
+        if not ok:
+            raise AssertionError(f"phase 14 LoRA step {i + 1}: loss {l2} vs {l1} ({l1b}), "
+                                 f"grad_norm {g2} vs {g1} ({g1b})")
+    say(f"phase 14 LoRA adapters after {MESH_LORA_STEPS} steps: distance to the one-process "
+        f"ones {dist_:.4g} (the one-process step against its repeat: {spread:.4g}), "
+        f"{dist_ / max(moved, 1e-30):.4g} of the distance they moved ({moved:.4g}); peak "
+        f"{peak:.2f} GiB on this rank (one process {peak1:.2f} GiB); launches: K5 "
+        f"{counts['flash_fwd']}, K5b {counts['flash_bwd_dkdv']}, K5c "
+        f"{counts['flash_bwd_dq']}, K4 {counts['encoder_attention']}")
+    bound = spread if world == 1 else max(2 * spread, MESH_ADAPTER_SHARE * moved)
+    if not (moved > 0 and dist_ <= bound):
+        raise AssertionError(f"phase 14 LoRA adapters: {dist_} apart (bound {bound}), "
+                             f"moved {moved}")
+    if dev.type == "cuda" and not (counts["flash_bwd_dkdv"] and counts["flash_bwd_dq"]):
+        raise AssertionError(f"phase 14 LoRA step: K5b/K5c not launched: {counts}")
+    return counts
+
+
+def mesh_moe(dev, mesh, say):
+    """Phase 14 (c): ``moe_ffn_ep`` at Mixtral-8x7B's layer shapes against
+    ``moe_dispatch.moe_ffn_sparse`` on the same tokens (this rank's)."""
+    from slime_tpu_torch.config import LLMConfig
+    from slime_tpu_torch.models.llama import top_k_stable
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.ops.moe_dispatch import moe_ffn_sparse
+    from slime_tpu_torch.ops.moe_ep import moe_ffn_ep
+
+    llm = LLMConfig.mixtral_8x7b()
+    E, K, H, I = llm.num_experts, llm.num_experts_per_tok, llm.hidden_size, llm.intermediate_size
+    n, m = mesh.shape["model"], mesh.coords["model"]
+    El, Tl = E // n, EP_TOKENS // n
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    w1, w3 = (torch.randn((E, I, H), generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+              for _ in range(2))
+    w2 = torch.randn((E, H, I), generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+    x = torch.randn((EP_TOKENS, H), generator=g, device=dev)[m * Tl:(m + 1) * Tl]
+    topw, topi = top_k_stable(torch.randn((EP_TOKENS, E), generator=g, device=dev), K)
+    topw, topi = torch.softmax(topw, -1)[m * Tl:(m + 1) * Tl], topi[m * Tl:(m + 1) * Tl]
+    mine = slice(m * El, (m + 1) * El)
+    with torch.no_grad(), fp32_accumulation():
+        for dt in (torch.float32, torch.bfloat16):
+            ws = [w.to(dt) for w in (w1, w2, w3)]
+            xd = x.to(dt)
+            got = moe_ffn_ep(xd, *(w[mine] for w in ws), topi, topw.to(dt), mesh=mesh,
+                             capacity_factor=EP_FACTOR).float()
+            want = moe_ffn_sparse(xd, *ws, topi, topw.to(dt)).float()
+            err = (got - want).abs().max().item()
+            bound = 1e-4 if dt == torch.float32 else \
+                8 * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+            ms = cuda_ms(lambda: moe_ffn_ep(xd, *(w[mine] for w in ws), topi, topw.to(dt),
+                                            mesh=mesh, capacity_factor=EP_FACTOR), runs=5)
+            sparse_ms = cuda_ms(lambda: moe_ffn_sparse(xd, *ws, topi, topw.to(dt)), runs=5)
+            say(f"phase 14 moe_ffn_ep (E={E}, K={K}, H={H}, I={I}, {Tl} tokens a rank, factor "
+                f"{EP_FACTOR}, {str(dt)[6:]}) over {n} rank(s): max |diff| against "
+                f"moe_ffn_sparse {err:.3g} (bound {bound:.3g}); {ms:.3f} ms (moe_ffn_sparse "
+                f"{sparse_ms:.3f} ms)")
+            if not err <= bound:
+                raise AssertionError(f"phase 14 moe_ffn_ep {dt}: {err:.3g} > {bound:.3g}")
+            del ws, got, want
+
+
+def mesh_rank(rank, world, address, cfg):
+    """Phase 14 on one rank of a ``world``-rank NCCL group; -> launch counts
+    (rank 0 logs)."""
+    import torch.distributed as dist
+
+    from slime_tpu_torch.models import projector, sampler, vit
+    from slime_tpu_torch.ops import _cuda
+    from slime_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    _cuda.library()
+    dist.init_process_group("nccl", init_method=address, world_size=world, rank=rank)
+    say = log if rank == 0 else (lambda msg: None)
+    try:
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        kw = dict(generator=g, device=dev, dtype=torch.bfloat16)
+        params = {"vision": vit.init(cfg.vision, **kw), "projector": projector.init(cfg, **kw),
+                  "sampler": sampler.init(cfg, **kw), "llm": int8_llm_params(cfg.llm, g, dev)}
+        mesh = make_mesh(1, 1, world)
+        say(f"phase 14 mesh (1, 1, {world}) over NCCL, {world} rank(s), one a card; phase 2's "
+            f"int8 SliME-8B built in {time.perf_counter() - t0:.1f} s")
+        counts = mesh_serve(dev, cfg, params, mesh, say)
+        counts = _add(counts, mesh_lora(dev, cfg, params, world, say))
+        del params
+        torch.cuda.empty_cache()
+        mesh_moe(dev, mesh, say)
+        dist.barrier()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank_main(rank, world, address, cfg, where):
+    counts = mesh_rank(rank, world, address, cfg)
+    if rank == 0:
+        Path(where).write_text(json.dumps(counts))
+
+
+def mesh_phase(dev, cfg):
+    """Phase 14: the (data, fsdp, model) mesh over NCCL, one rank a card, at
+    min(device_count, 4) ranks: tensor-parallel serving (generate and the
+    engine), a sharded LoRA step and the expert-parallel dispatch. At one
+    rank this process is rank 0 (the phase is the last: it destroys its
+    group); at more, the ranks are spawned. -> rank 0's launch counts."""
+    import gc
+    import socket
+
+    del dev
+    gc.collect()                      # an earlier phase's cycles hold its tensors
+    torch.cuda.empty_cache()
+    world = min(torch.cuda.device_count(), 4)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    log(f"phase 14: world {world} (one NCCL rank a card); the arithmetic across 2 and 4 ranks "
+        f"is held on the CPU over gloo against the JAX package (tests/test_torch_tp_serving.py, "
+        f"test_torch_parallel_train.py, test_torch_moe_ep.py)")
+    t0 = time.perf_counter()
+    if world == 1:
+        counts = mesh_rank(0, 1, address, cfg)
+    else:
+        import torch.multiprocessing as mp
+        where = Path(__file__).resolve().parent / "bench_out" / "phase14_counts.json"
+        where.parent.mkdir(exist_ok=True)
+        mp.start_processes(_mesh_rank_main, args=(world, address, cfg, str(where)),
+                           nprocs=world, start_method="spawn")
+        counts = json.loads(where.read_text())
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+
 def main():
     # ---------------- phase 0 ----------------
     if not torch.cuda.is_available():
@@ -5538,6 +5956,9 @@ def main():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in model_families_phase(dev).items():            # phase 13
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in mesh_phase(dev, cfg).items():                 # phase 14, last
         launches[name] += n
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:

@@ -38,6 +38,7 @@ from .config import LLMConfig, SliMEConfig, VisionConfig
 from .models import llama, vit
 from .models.layers import resolve_device
 from .ops.quantization import is_quantized, quantize_params
+from .parallel.mesh import shard_params
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -410,11 +411,17 @@ def to_torch(params, dtype=None, device=None):
 
 
 def load_for_serving(model_path: str, *, device=None, dtype=torch.bfloat16,
-                     cfg: Optional[SliMEConfig] = None, **load_kw) -> Dict:
+                     cfg: Optional[SliMEConfig] = None, mesh=None, **load_kw) -> Dict:
     """What the serving entry points load: ``load_pretrained``, then
     ``to_torch`` (``dtype`` on ``device``) and the LLM layers stacked for
-    ``generate`` and the fused decode."""
-    params = to_torch(load_pretrained(model_path, cfg=cfg, **load_kw), dtype, device)
+    ``generate`` and the fused decode. Under a ``mesh`` (tensor-parallel
+    serving, where the fused decode is off) the tree is cast on the CPU and
+    each rank moves only its shard to its card (``parallel.mesh.
+    shard_params``), the LLM layers a list that the rule table splits."""
+    params = load_pretrained(model_path, cfg=cfg, **load_kw)
+    if mesh is not None:
+        return shard_params(mesh, to_torch(params, dtype, "cpu"))
+    params = to_torch(params, dtype, device)
     params["llm"]["layers"] = llama.stack_layers(params["llm"]["layers"])
     return params
 

@@ -18,6 +18,15 @@ row is done, which costs one device-to-host sync per step.
 Prefill and the decode loop run under ``layers.fp32_accumulation``: every
 matmul accumulates in fp32, as in the JAX package, whatever the caller's
 TF32 / reduced-precision settings are.
+
+``mesh=`` (``generate``, ``generate_stream``; ``generate.py:133-197``,
+:206-264) is tensor-parallel inference on every rank of a
+``parallel.mesh.Mesh``: the parameters are sharded by the rule table unless
+they already are (stacked layers as their list, ``mesh.layer_list``), the KV
+cache holds this rank's kv heads, the fused decode is off, and prefill and
+the decode loop run under the mesh. The logits are all-gathered, so every
+rank samples the same tokens from a generator seeded alike, and leaves the
+loop at the same step.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from .data.tokenization import StopStringMatcher
 from .models import llama, slime
 from .models.layers import fp32_accumulation
 from .models.llama import top_k_stable
+from .parallel.mesh import layer_list, on_mesh, shard_params, use_mesh
 
 
 def sample_token(logits, *, temperature: float = 0.0, top_p: float = 1.0,
@@ -165,13 +175,24 @@ def generate(params, cfg: SliMEConfig, input_ids, attention_mask,
              temperature: float = 0.0, top_p: float = 1.0,
              generator: Optional[torch.Generator] = None,
              eos_id: Optional[int] = None, compute_dtype=torch.float32,
-             cache_len: Optional[int] = None, kv_quant: bool = False):
+             cache_len: Optional[int] = None, kv_quant: bool = False, mesh=None):
     """Multimodal generate -> token ids [B, max_new_tokens] int32 (on the
     inputs' device); cut each row at EOS with ``trim_at_eos``.
-    ``params["llm"]["layers"]`` must be stacked (``llama.stack_layers``).
+    ``params["llm"]["layers"]`` must be stacked (``llama.stack_layers``) for
+    the fused decode; under ``mesh`` (tensor-parallel, see the module
+    docstring) they may be a list too.
     ``kv_quant``: the int8 KV cache (``llama.init_kv_cache``)."""
     if eos_id is None:
         eos_id = cfg.eos_token_id
+    if mesh is not None:
+        if not on_mesh(params, mesh):
+            params = shard_params(mesh, layer_list(params))
+        with use_mesh(mesh):
+            return generate(params, cfg, input_ids, attention_mask, pixel_values,
+                            crop_mask, max_new_tokens=max_new_tokens,
+                            temperature=temperature, top_p=top_p, generator=generator,
+                            eos_id=eos_id, compute_dtype=compute_dtype,
+                            cache_len=cache_len, kv_quant=kv_quant)
     B = input_ids.shape[0]
     last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
                                     pixel_values, crop_mask, compute_dtype)
@@ -194,18 +215,23 @@ def generate_stream(params, cfg: SliMEConfig, tokenizer, input_ids,
                     max_new_tokens: int = 256, temperature: float = 0.0,
                     top_p: float = 1.0, generator: Optional[torch.Generator] = None,
                     stop_strings=(), chunk: int = 16,
-                    compute_dtype=torch.float32, kv_quant: bool = False):
+                    compute_dtype=torch.float32, kv_quant: bool = False, mesh=None):
     """Streaming generation (B == 1): decode ``chunk`` tokens at a time and
     yield the text so far after each chunk. Stops on EOS or a stop string.
-    ``kv_quant``: the int8 KV cache."""
+    ``kv_quant``: the int8 KV cache. ``mesh``: tensor-parallel, as
+    ``generate``; the mesh is entered around each device step only, so the
+    caller's code between the yields runs outside it."""
     eos_id = cfg.eos_token_id
     matcher = StopStringMatcher(stop_strings, tokenizer) if stop_strings else None
-    last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
-                                    pixel_values, crop_mask, compute_dtype)
-    cache = llama.init_kv_cache(cfg.llm, input_ids.shape[0], L + max_new_tokens + 1,
-                                dtype=compute_dtype, device=last.device,
-                                quantized=kv_quant)
-    cache = llama.prefill_into_cache(cache, kvs, lengths)
+    if mesh is not None and not on_mesh(params, mesh):
+        params = shard_params(mesh, layer_list(params))
+    with use_mesh(mesh):
+        last, kvs, lengths, L = prefill(params, cfg, input_ids, attention_mask,
+                                        pixel_values, crop_mask, compute_dtype)
+        cache = llama.init_kv_cache(cfg.llm, input_ids.shape[0], L + max_new_tokens + 1,
+                                    dtype=compute_dtype, device=last.device,
+                                    quantized=kv_quant)
+        cache = llama.prefill_into_cache(cache, kvs, lengths)
     del kvs
     cur = sample_token(last, temperature=temperature, top_p=top_p,
                        generator=generator)
@@ -218,10 +244,11 @@ def generate_stream(params, cfg: SliMEConfig, tokenizer, input_ids,
     first_chunk = True
     while len(generated) < max_new_tokens and not done:
         n = min(chunk, max_new_tokens - len(generated)) + (0 if first_chunk else 1)
-        toks, cache = _decode_loop(params["llm"], cache, cur, eos_id, cfg=cfg,
-                                   max_new_tokens=n, temperature=temperature,
-                                   top_p=top_p, compute_dtype=compute_dtype,
-                                   generator=generator)
+        with use_mesh(mesh):
+            toks, cache = _decode_loop(params["llm"], cache, cur, eos_id, cfg=cfg,
+                                       max_new_tokens=n, temperature=temperature,
+                                       top_p=top_p, compute_dtype=compute_dtype,
+                                       generator=generator)
         row = toks[0].tolist()
         if not first_chunk:
             row = row[1:]

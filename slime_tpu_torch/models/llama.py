@@ -33,6 +33,14 @@ Port of ``slime_tpu/models/llama.py``:
   (``_router_aux``), returned by ``forward(return_aux=True)`` as the mean
   over layers. The fused decode is dense-MLP only, as JAX's.
 
+Under an active mesh (``parallel.mesh``; ``generate(mesh=...)``, the
+engine, the trainer) every layer runs on this rank's view of its
+parameters (``parallel.tensor_parallel.llm_layer``): attention on
+``H / tp`` heads and ``KVH / tp`` kv heads, the MLP and the experts on
+``I / tp`` neurons, each pair ended by one all-reduce over ``model``; the
+embedding and ``lm_head`` are vocab-parallel; the KV cache holds the local
+kv heads (``init_kv_cache``). The fused decode is off there, as in JAX.
+
 Logits are fp32. The int8 ``lm_head`` dequantizes the whole matrix to fp32 on
 every call, as the JAX code does; on the card that is a 2.1 GB temporary at
 the 128k vocabulary (see PERF.md).
@@ -53,6 +61,8 @@ from ..ops.fused_qkvo import fused_o_residual, fused_qkv_decode
 from ..ops.moe_dispatch import moe_ffn_sparse
 from ..ops.quantization import dequantize_weight
 from ..ops.ring_attention import ring_attention
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import active as active_mesh, kv_heads_local
 from . import layers as L
 
 # _moe's switch (llama.py:137): the sparse dispatch from this many tokens on
@@ -163,10 +173,13 @@ def apply_rope(x, cos, sin):
 # Prefill
 # ----------------------------------------------------------------------------
 
-def _mlp(lp, x):
-    g = L.linear(lp["gate_proj"], x)
-    u = L.linear(lp["up_proj"], x)
-    return L.linear(lp["down_proj"], L.silu(g) * u)
+def _mlp(lp, x, plan=None):
+    """SwiGLU; under a mesh ``plan`` says how its pair is split."""
+    xi = tp.enter(x, plan is not None and plan.mlp)
+    g = L.linear(lp["gate_proj"], xi)
+    u = L.linear(lp["up_proj"], xi)
+    return tp.project_out(L.linear, lp["down_proj"], L.silu(g) * u,
+                          plan.mlp_out if plan is not None else "none")
 
 
 def top_k_stable(x, k: int):
@@ -181,17 +194,24 @@ def _router_aux(logits, topi, num_experts: int):
     """Switch/Mixtral load-balancing loss (HF ``load_balancing_loss_func``,
     ``llama.py:112-123``): E * sum over (slot k, expert e) of the share of
     tokens whose k-th choice is e times e's mean router probability. A
-    balanced routing gives about top_k."""
+    balanced routing gives about top_k. Under a mesh whose batch axes hold
+    more than one rank the two means are over the global batch."""
     T = logits.shape[0] * logits.shape[1]
     probs = torch.softmax(logits.reshape(T, -1), dim=-1)                 # [T, E]
     onehot = torch.nn.functional.one_hot(topi.reshape(T, -1).long(),
                                          num_experts).to(torch.float32)  # [T, K, E]
-    tokens_per_expert = onehot.mean(dim=0)                               # [K, E]
-    router_prob = probs.mean(dim=0)                                      # [E]
+    mesh = active_mesh()
+    if mesh is not None and mesh.axis_size("dp") > 1:
+        n = tp.reduce_dp(torch.tensor(float(T), device=logits.device))
+        tokens_per_expert = tp.reduce_dp(onehot.sum(dim=0)) / n
+        router_prob = tp.reduce_dp(probs.sum(dim=0)) / n
+    else:
+        tokens_per_expert = onehot.mean(dim=0)                           # [K, E]
+        router_prob = probs.mean(dim=0)                                  # [E]
     return (tokens_per_expert * router_prob[None, :]).sum() * num_experts
 
 
-def _moe(lp, x, cfg: LLMConfig):
+def _moe(lp, x, cfg: LLMConfig, plan=None):
     """Mixtral's block-sparse MoE on x [B, S, H] -> (out [B, S, H], its
     routing: the gate's fp32 logits [B, S, E] and the top-k ids [B, S, K],
     from which ``_layer_prefill`` forms the aux loss).
@@ -200,34 +220,46 @@ def _moe(lp, x, cfg: LLMConfig):
     at B * S >= 32, else densely (every expert on every token, the others
     weighted 0), with JAX's rounding points on each path (``llama.py:126-153``).
     The products run in the promoted type of x and the weights, as JAX's
-    promotes; the dense path rounds each to x.dtype."""
+    promotes; the dense path rounds each to x.dtype. Under a mesh whose
+    ``plan`` splits the experts' neurons, each rank runs its I / tp of
+    every expert and one all-reduce adds them."""
     B, S, H = x.shape
     ex = lp["experts"]
     logits = L.linear(lp["gate"], x).to(torch.float32)                  # [B, S, E]
     topw, topi = top_k_stable(logits, cfg.num_experts_per_tok)
     topw = torch.softmax(topw, dim=-1)
+    split = plan is not None and plan.mlp
+    # both enter the split experts: each rank's combine weights see only its
+    # neurons' part of the outputs, so their gradients add over the ranks
+    xe, topw = tp.enter(x, split), tp.enter(topw, split)
     if B * S >= MOE_SPARSE_TOKENS:
-        out = moe_ffn_sparse(x.reshape(B * S, H), ex["w1"], ex["w2"], ex["w3"],
+        out = moe_ffn_sparse(xe.reshape(B * S, H), ex["w1"], ex["w2"], ex["w3"],
                              topi.reshape(B * S, -1), topw.to(x.dtype).reshape(B * S, -1))
-        return out.reshape(B, S, H), (logits, topi)
-    w_full = torch.zeros_like(logits).scatter(-1, topi, topw)           # [B, S, E]
-    dt = torch.promote_types(x.dtype, ex["w1"].dtype)
-    xd = x.to(dt)
-    h1 = torch.einsum("bsh,eih->bsei", xd, ex["w1"].to(dt)).to(x.dtype)
-    h3 = torch.einsum("bsh,eih->bsei", xd, ex["w3"].to(dt)).to(x.dtype)
-    a = L.silu(h1) * h3
-    y = torch.einsum("bsei,ehi->bseh", a.to(dt), ex["w2"].to(dt)).to(x.dtype)
-    return torch.einsum("bseh,bse->bsh", y, w_full.to(x.dtype)), (logits, topi)
+        out = out.reshape(B, S, H)
+    else:
+        w_full = torch.zeros_like(logits).scatter(-1, topi, topw)       # [B, S, E]
+        dt = torch.promote_types(x.dtype, ex["w1"].dtype)
+        xd = xe.to(dt)
+        h1 = torch.einsum("bsh,eih->bsei", xd, ex["w1"].to(dt)).to(x.dtype)
+        h3 = torch.einsum("bsh,eih->bsei", xd, ex["w3"].to(dt)).to(x.dtype)
+        a = L.silu(h1) * h3
+        y = torch.einsum("bsei,ehi->bseh", a.to(dt), ex["w2"].to(dt)).to(x.dtype)
+        out = torch.einsum("bseh,bse->bsh", y, w_full.to(x.dtype))
+    if split:
+        out = tp.reduce_model(out)
+    return out, (logits, topi)
 
 
 def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
                    segment_ids=None, ring=None):
     B, S, _ = x.shape
+    lp, cfg, plan = tp.llm_layer(lp, cfg)
     hd = cfg.head_dim
     h = L.rms_norm(lp["input_layernorm"], x, eps=cfg.rms_norm_eps)
-    q = L.linear(lp["q_proj"], h).reshape(B, S, cfg.num_heads, hd)
-    k = L.linear(lp["k_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
-    v = L.linear(lp["v_proj"], h).reshape(B, S, cfg.num_kv_heads, hd)
+    hq = tp.enter(h, plan is not None and plan.attn)
+    q = L.linear(lp["q_proj"], hq).reshape(B, S, cfg.num_heads, hd)
+    k = L.linear(lp["k_proj"], hq).reshape(B, S, cfg.num_kv_heads, hd)
+    v = L.linear(lp["v_proj"], hq).reshape(B, S, cfg.num_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -239,29 +271,38 @@ def _layer_prefill(lp, x, cos, sin, cfg: LLMConfig, use_kernel=None,
         out = flash_attention(qh, kh, vh, causal=True, use_kernel=use_kernel,
                               segment_ids=segment_ids)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
-    x = x + L.linear(lp["o_proj"], out)
+    x = x + tp.project_out(L.linear, lp["o_proj"], out,
+                           plan.attn_out if plan is not None else "none")
     h = L.rms_norm(lp["post_attention_layernorm"], x, eps=cfg.rms_norm_eps)
     if cfg.num_experts > 0:
-        h, (logits, topi) = _moe(lp, h, cfg)
+        h, (logits, topi) = _moe(lp, h, cfg, plan)
         aux = _router_aux(logits, topi, cfg.num_experts)
     else:
-        h, aux = _mlp(lp, h), None           # a dense layer adds nothing to the aux
+        h, aux = _mlp(lp, h, plan), None     # a dense layer adds nothing to the aux
     return x + h, (k, v), aux
 
 
 def embed(params, input_ids):
+    """Token embeddings (vocab-parallel under a mesh: ``tp.embed``)."""
+    if active_mesh() is not None:
+        return tp.embed(params["embed_tokens"], input_ids)
     return params["embed_tokens"][input_ids.long()]
 
 
 def _lm_head(params, x):
     """Final vocab projection -> fp32 logits. The weight (dequantized when
     int8) is cast to x.dtype and the products accumulate in fp32, as the JAX
-    einsum with preferred_element_type=fp32."""
-    w = params["lm_head"]["weight"]
+    einsum with preferred_element_type=fp32. Under a mesh each rank
+    computes its vocab slice and the all-gather joins them (every rank
+    then holds the same logits)."""
+    head, offset = tp.head_view(params["lm_head"])
+    if offset is not None:
+        x = tp.enter(x)
+    w = head["weight"]
     if isinstance(w, dict):
         w = dequantize_weight(w)
-    return torch.matmul(x.to(torch.float32),
-                        w.to(x.dtype).to(torch.float32).T)
+    logits = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32).T)
+    return logits if offset is None else tp.gather_model(logits, -1)
 
 
 def forward(params, embeds, cfg: LLMConfig, *, positions=None,
@@ -338,9 +379,13 @@ def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int,
     kv-head) absmax scales ``k_scale`` / ``v_scale`` [L, B, max_len, KVH]
     fp32, initialised to 1. Attention never dequantizes the cache: the int8
     values feed the products and the scales multiply the scores (k) and the
-    probabilities (v), which per-(t, head) scaling commutes through."""
+    probabilities (v), which per-(t, head) scaling commutes through.
+
+    Under an active mesh the cache holds this rank's kv heads
+    (``parallel.mesh.kv_heads_local``)."""
     device = L.resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len,
+             kv_heads_local(cfg.num_kv_heads, active_mesh()), cfg.head_dim)
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -472,11 +517,13 @@ def _cache_forward(params, cache, x, cfg: LLMConfig, compute_dtype, window, fuse
     layers = params["layers"]
     if fused and cfg.num_experts > 0:
         raise ValueError("the fused decode is dense-MLP only; MoE layers take fused=False")
+    if fused and active_mesh() is not None:
+        raise ValueError("the fused decode runs on one card; under a mesh take fused=False")
     if fused and not _fused_mlp_ok(layers):
         raise ValueError("the fused path needs stacked layers with one fused MLP "
                          "format (dense, per-row int8 or q4g)")
     B, C, H = x.shape
-    hd, nh, nkv, eps = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.rms_norm_eps
+    hd, eps = cfg.head_dim, cfg.rms_norm_eps
     dev = x.device
     positions = cache["length"].long()[:, None] + torch.arange(C, device=dev)[None]
     cos, sin = rope_table(cfg, cfg.max_position_embeddings, dev)
@@ -490,28 +537,32 @@ def _cache_forward(params, cache, x, cfg: LLMConfig, compute_dtype, window, fuse
     x = x.to(compute_dtype).reshape(B * C, H)
 
     for li in range(cfg.num_layers):
-        lp = None if attn_fused else _layer(layers, li)
+        lp, lcfg, plan = (None, cfg, None) if attn_fused else tp.llm_layer(_layer(layers, li),
+                                                                          cfg)
+        nh, nkv = lcfg.num_heads, lcfg.num_kv_heads
         if attn_fused:
             qf, kf, vf = fused_qkv_decode(x, layers, li, eps=eps)
         else:
-            h = L.rms_norm(lp["input_layernorm"], x, eps=eps)
+            h = tp.enter(L.rms_norm(lp["input_layernorm"], x, eps=eps),
+                         plan is not None and plan.attn)
             qf, kf, vf = (L.linear(lp[n], h) for n in ("q_proj", "k_proj", "v_proj"))
         q = apply_rope(qf.reshape(B, C, nh, hd), cos_s, sin_s)
         k = apply_rope(kf.reshape(B, C, nkv, hd), cos_s, sin_s)
         _write_kv(cache, li, rows, positions, k, vf.reshape(B, C, nkv, hd))
-        o = _attend(q, cache, li, visible, W, cfg, compute_dtype).reshape(B * C, nh * hd)
+        o = _attend(q, cache, li, visible, W, lcfg, compute_dtype).reshape(B * C, nh * hd)
         if attn_fused:
             x = fused_o_residual(o.contiguous(), x, layers, li)
         else:
-            x = x + L.linear(lp["o_proj"], o)
+            x = x + tp.project_out(L.linear, lp["o_proj"], o,
+                                   plan.attn_out if plan is not None else "none")
         if fused:
             x = fused_mlp_decode(x, layers, li, eps=eps)
         else:
             h = L.rms_norm(lp["post_attention_layernorm"], x, eps=eps)
             if cfg.num_experts > 0:
-                x = x + _moe(lp, h.reshape(B, C, H), cfg)[0].reshape(B * C, H)
+                x = x + _moe(lp, h.reshape(B, C, H), lcfg, plan)[0].reshape(B * C, H)
             else:
-                x = x + _mlp(lp, h)
+                x = x + _mlp(lp, h, plan)
 
     x = L.rms_norm(params["norm"], x, eps=eps)
     cache["length"] = cache["length"] + C
@@ -534,8 +585,8 @@ def decode_step(params, cache, token_ids, cfg: LLMConfig,
     ``window`` cache positions; callers keep every row's length below it.
     MoE layers run non-fused (None picks it; True raises)."""
     if fused is None:
-        fused = _fused_auto_ok(params["layers"])
-    x = params["embed_tokens"][token_ids][:, None]
+        fused = active_mesh() is None and _fused_auto_ok(params["layers"])
+    x = embed(params, token_ids)[:, None]
     x, cache = _cache_forward(params, cache, x, cfg, compute_dtype, window, fused)
     return _lm_head(params, x[:, 0]), cache
 
@@ -545,7 +596,7 @@ def chunk_takes_fused(shape, device, layers) -> bool:
     on ``device``: JAX's rule (``llama.py:522-525``) with "single-device TPU"
     read as "a CUDA device"."""
     return (torch.device(device).type == "cuda" and shape[0] * shape[1] <= 64
-            and _fused_auto_ok(layers))
+            and active_mesh() is None and _fused_auto_ok(layers))
 
 
 def prefill_chunk(params, cache, embeds, cfg: LLMConfig,

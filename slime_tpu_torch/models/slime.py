@@ -25,6 +25,12 @@ Training noise (the gate's and the selection's) comes from an explicit
 [B, 576, 2] for the global view's gate logits and ``"select"`` [B, M] for
 the selection scores. The vision tower runs under ``torch.no_grad()`` while
 none of its parameters requires a gradient (it is frozen in stages 1-3).
+
+Under an active mesh (``parallel.mesh``) the projector, the sampler and
+``image_newline`` are gathered whole where they are used, the tower and the
+LLM run their Megatron pairs on this rank's share, and ``loss_fn``'s token
+mean is over the global batch (each rank's sum and count all-reduced over
+the batch axes; JAX's ``chunked_ce_mean`` is the total over the count).
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ import torch
 from ..config import (CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, IGNORE_INDEX,
                       IMAGE_TOKEN_INDEX, SliMEConfig)
 from ..ops.loss import DEFAULT_LOSS_CHUNK, chunked_cross_entropy
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import active as active_mesh
 from ..params import named_leaves
 from . import layers, llama, projector, sampler, vit
 
@@ -104,6 +112,10 @@ def encode_images(params, cfg: SliMEConfig, pixel_values, crop_mask,
     P = cfg.vision.num_patches
     dim = cfg.mm_resampler_dim
     dev = pixel_values.device
+    if active_mesh() is not None:
+        params = {**params, **tp.whole_tree({k: params[k] for k in
+                                             ("projector", "sampler", "image_newline")
+                                             if k in params})}
 
     if pixel_values.dtype == torch.uint8:
         mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=dev).reshape(3, 1, 1)
@@ -415,6 +427,9 @@ def loss_fn(params, cfg: SliMEConfig, batch, *, training: bool = True,
                       return_hidden=True, return_aux=want_aux)
         total, count = chunked_cross_entropy(out[0], head, out[1].labels, chunk=loss_chunk)
         metrics = {}
+    mesh = active_mesh()
+    if mesh is not None and mesh.axis_size("dp") > 1:
+        total, count = tp.reduce_dp(total), tp.reduce_dp(count)
     count = torch.clamp(count, min=1)
     loss = total / count
     metrics = {"n_target_tokens": count, **metrics}

@@ -12,6 +12,12 @@ Feature selection as in the reference: tap hidden state ``select_layer``
 (per-row int8 weights, q/k/v packed into one ``qkv`` linear); ``_linear``
 sends such weights through ``ops.w8a8_matmul`` (the K8 kernel on the card)
 and everything else through ``layers.linear``, as ``vit.py:60-70`` does.
+
+Under an active mesh (``parallel.mesh``) each block runs on this rank's view
+(``parallel.tensor_parallel.vit_layer``): K4 on ``16 / tp`` heads, fc1 on
+its neurons, out_proj and fc2 ended by an all-reduce over ``model`` (or, in
+the W8A8 tower, run whole on the gathered input: K8 quantizes each row over
+the whole input); the embeddings are gathered whole.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ..config import VisionConfig
 from ..ops.encoder_attention import encoder_attention
 from ..ops.quantization import quantize_weight
 from ..ops.w8a8_matmul import w8a8_linear
+from ..parallel import tensor_parallel as tp
 from . import layers as L
 
 
@@ -79,25 +86,31 @@ def _linear(p, x):
     return L.linear(p, x)
 
 
-def _attention(p, x, num_heads: int):
-    B, S, E = x.shape
-    hd = E // num_heads
+def _attention(p, x, num_heads: int, hd: int, plan=None):
+    """x [B, S, E] through ``num_heads`` heads of width ``hd`` (this rank's
+    heads under a mesh ``plan``)."""
+    B, S, _ = x.shape
+    x = tp.enter(x, plan is not None and plan.attn)
     if "qkv" in p:
         # one packed [3E, E] projection: x is read (and quantized) once
         q, k, v = (t.reshape(B, S, num_heads, hd)
-                   for t in _linear(p["qkv"], x).split(E, dim=-1))
+                   for t in _linear(p["qkv"], x).split(num_heads * hd, dim=-1))
     else:
         q, k, v = (_linear(p[n], x).reshape(B, S, num_heads, hd)
                    for n in ("q_proj", "k_proj", "v_proj"))
     out = encoder_attention(q, k, v, scale=1.0 / math.sqrt(hd))
-    return _linear(p["out_proj"], out.reshape(B, S, E))
+    return tp.project_out(_linear, p["out_proj"], out.reshape(B, S, num_heads * hd),
+                          plan.attn_out if plan is not None else "none")
 
 
 def _block(p, x, cfg: VisionConfig):
+    p, heads, plan = tp.vit_layer(p, cfg)
     h = L.layer_norm(p["layer_norm1"], x, eps=cfg.layer_norm_eps)
-    x = x + _attention(p, h, cfg.num_heads)
+    x = x + _attention(p, h, heads, cfg.hidden_size // cfg.num_heads, plan)
     h = L.layer_norm(p["layer_norm2"], x, eps=cfg.layer_norm_eps)
-    h = _linear(p["fc2"], quick_gelu(_linear(p["fc1"], h)))
+    h = _linear(p["fc1"], tp.enter(h, plan is not None and plan.mlp))
+    h = tp.project_out(_linear, p["fc2"], quick_gelu(h),
+                       plan.mlp_out if plan is not None else "none")
     return x + h
 
 
@@ -167,8 +180,9 @@ def apply(params, pixel_values, cfg: VisionConfig, *, remat: bool = False):
     backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` around
     ``_block``, vit.py:180-192) when autograd records: the stash drops to each
     block's input, and the numbers stay the same."""
-    x = embed_patches(params, pixel_values, cfg)
-    x = L.layer_norm(params["pre_layernorm"], x, eps=cfg.layer_norm_eps)
+    top = tp.whole_tree({k: v for k, v in params.items() if k != "layers"})
+    x = embed_patches(top, pixel_values, cfg)
+    x = L.layer_norm(top["pre_layernorm"], x, eps=cfg.layer_norm_eps)
     remat = remat and torch.is_grad_enabled()
     for i in range(_layers_run(cfg)):
         if remat:

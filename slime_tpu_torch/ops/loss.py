@@ -14,6 +14,11 @@ product accumulates in fp32 (JAX's ``preferred_element_type=float32``); the
 port runs it as an fp32 matmul of the two rounded operands, which is exact
 in the products and sums in fp32. As in JAX, the head is dequantized and
 cast inside each chunk, so no full copy of it outlives its chunk.
+
+Under an active mesh whose model axis divides the vocabulary, each rank
+projects onto its vocab slice only (``parallel.tensor_parallel.head_view``)
+and the log-sum-exp and the target's logit are reduced over ``model``
+(``vocab_nll``): no rank holds the whole logits.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import IGNORE_INDEX
+from ..parallel import tensor_parallel as tp
 from .quantization import dequantize_weight
 
 DEFAULT_LOSS_CHUNK = 256
@@ -46,12 +52,22 @@ def _head_logits(x, head):
     return logits
 
 
+def _lse_gold(x, head, safe):
+    """(log-sum-exp of the logits, the target's logit) at each position;
+    vocab-parallel under a mesh."""
+    head, offset = tp.head_view(head)
+    if offset is not None:
+        logits = _head_logits(tp.enter(x), head)
+        return tp.vocab_nll(logits, safe, offset)
+    logits = _head_logits(x, head)
+    return (torch.logsumexp(logits, dim=-1),
+            torch.gather(logits, -1, safe[..., None])[..., 0])
+
+
 def _dense_nll(x, head, targets, valid):
     """(sum of -log p(target) over valid positions, valid count)."""
-    logits = _head_logits(x, head)
     safe = torch.where(valid, targets, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse, gold = _lse_gold(x, head, safe)
     nll = lse - gold
     return (torch.where(valid, nll, 0.0).sum(),
             valid.sum().to(torch.int32))
@@ -101,10 +117,8 @@ def chunked_cross_entropy(x, lm_head_weight, labels, *,
 def _dense_seq_logp(x, head, targets, valid, weights=None):
     """Per row: (sum of w * log p(target), sum of w) in fp32; w is the valid
     mask, or ``weights`` where valid."""
-    logits = _head_logits(x, head)
     safe = torch.where(valid, targets, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse, gold = _lse_gold(x, head, safe)
     logp = gold - lse
     if weights is None:
         w = valid.to(torch.float32)

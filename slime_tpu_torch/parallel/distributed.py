@@ -6,14 +6,18 @@ process group: one process per card with NCCL, or per CPU worker with gloo
 (the tests). Nothing on a machine tells the program of a cluster, so the
 caller gives the rendezvous address, the world size and the rank, or sets
 the JAX package's environment variables ``COORDINATOR_ADDRESS`` (``host:port``
-or a ``tcp://`` / ``file://`` URL), ``NUM_PROCESSES`` and ``PROCESS_ID``. With
-one process every function here is a no-op, as in JAX.
+or a ``tcp://`` / ``file://`` URL), ``NUM_PROCESSES`` and ``PROCESS_ID``, or
+torchrun's ``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK``. Under NCCL each rank is bound to ``cuda:LOCAL_RANK`` (the
+process id when no local rank is given). With one process every function
+here is a no-op, as in JAX.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 
 
@@ -24,19 +28,26 @@ def initialize(coordinator_address: Optional[str] = None,
     fallbacks; a no-op for one process. ``backend`` is ``"nccl"`` on the
     cards (the default: the port runs on the card) or ``"gloo"`` on the
     CPU."""
+    env = os.environ
     if num_processes is None:
-        num_processes = int(os.environ.get("NUM_PROCESSES", "1"))
+        num_processes = int(env.get("NUM_PROCESSES", env.get("WORLD_SIZE", "1")))
     if num_processes <= 1 and coordinator_address is None:
         return
     if dist.is_initialized():
         return
-    address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
+    address = coordinator_address or env.get("COORDINATOR_ADDRESS")
+    if not address and env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
     if not address:
-        raise ValueError("initialize: no coordinator address (argument or "
-                         "COORDINATOR_ADDRESS) for a multi-process group")
+        raise ValueError("initialize: no coordinator address (argument, "
+                         "COORDINATOR_ADDRESS or MASTER_ADDR/MASTER_PORT) for a "
+                         "multi-process group")
     if "://" not in address:
         address = f"tcp://{address}"
-    rank = process_id if process_id is not None else int(os.environ.get("PROCESS_ID", "0"))
+    rank = process_id if process_id is not None else int(
+        env.get("PROCESS_ID", env.get("RANK", "0")))
+    if backend == "nccl":
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)))
     dist.init_process_group(backend, init_method=address, world_size=num_processes,
                             rank=rank)
 
@@ -59,6 +70,16 @@ def local_batch_slice(global_batch: int) -> slice:
     per = global_batch // n
     i = process_index()
     return slice(i * per, (i + 1) * per)
+
+
+def broadcast_object(obj=None, src: int = 0):
+    """Rank ``src``'s ``obj`` on every rank (rank 0's decisions: a prompt
+    read from stdin, a batch order); ``obj`` itself with one process."""
+    if process_count() == 1:
+        return obj
+    box = [obj if process_index() == src else None]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def barrier(name: str = "barrier") -> None:

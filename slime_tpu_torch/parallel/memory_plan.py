@@ -7,8 +7,8 @@ the whole window; the check refuses a run whose accumulator provably cannot
 fit next to what the card already holds, before the first step. The budget
 comes from ``torch.cuda.mem_get_info`` on the leaves' card; with no card and
 no explicit budget the check is skipped, as JAX skips it without device
-statistics. The rest of that module (the per-mesh plan) is not ported yet
-(ROADMAP Queue 1 item 12).
+statistics. The rest of that module (the per-mesh plan over the pipeline's
+stacked specs) is not ported yet (ROADMAP Queue 1 item 12b).
 """
 from __future__ import annotations
 

@@ -52,7 +52,20 @@ entries; an unknown ``adapter_id``, or an adapter with a shared prefix
 (whose KV the base computed), fails the request, and adapted prompts never
 enter the prefix cache.
 
-Not ported yet: tensor-parallel serving (``mesh``; ROADMAP Queue 1 item 12).
+Tensor-parallel serving (``mesh``, ``parallel/mesh.py``): the parameters
+(and the draft's) are sharded by the rule table unless they already are
+(stacked layers as their list, ``mesh.layer_list``), every KV pool holds
+this rank's kv heads, the fused decode is off, and every step runs under the
+mesh (``llama``'s per-layer views, one all-reduce a Megatron pair). JAX
+decides once for every device; here each rank runs the whole engine, so its
+host decisions must agree: rank 0 owns the requests. ``submit``, ``cancel``,
+``register_grammar``, ``register_adapter`` and ``register_prefix`` on rank 0
+become operations that the next ``tick`` broadcasts to every rank
+(``broadcast_object_list``) and applies in one order before the tick's work;
+admission, chunking, prefix-cache hits, speculative acceptance, grammar
+states and the adapter map then follow on every rank from the same inputs
+and the same (all-gathered) logits, with the same seeded generators. The
+other ranks call ``follow()``, which ticks until rank 0's ``stop()``.
 """
 from __future__ import annotations
 
@@ -67,17 +80,39 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import IMAGE_TOKEN_INDEX, SliMEConfig
 from ..generate import categorical, sample_token_dynamic
 from ..models import llama, slime
 from ..models.layers import fp32_accumulation, resolve_device
+from ..parallel.mesh import layer_list, on_mesh, shard_params, use_mesh
 from ..params import named_leaves
 from .prefix_cache import PrefixCache, image_content_digest, image_slot_identities
 from .speculative import rejection_round, warp_probs
 
-_MESH_TODO = ("tensor-parallel serving is not ported yet: it needs parallel/mesh.py "
-              "(ROADMAP Queue 1 item 12)")
+
+class _Discard:
+    """The out_queue of a request mirrored on a follower rank: rank 0
+    streams the tokens; the copies are dropped."""
+
+    def put(self, item) -> None:
+        del item
+
+
+_WIRE_SKIP = ("out_queue", "logprob_entries")
+
+
+def _host(node):
+    """A broadcast operation's argument with its tensors copied to the host
+    (each rank puts them on its own card)."""
+    if isinstance(node, torch.Tensor):
+        return node.detach().cpu()
+    if isinstance(node, dict):
+        return {k: _host(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_host(v) for v in node)
+    return node
 
 
 @dataclass
@@ -175,11 +210,24 @@ class BatchDecodeEngine:
         ``draft_params`` / ``draft_cfg``: a text-only draft model of the same
         vocabulary for speculative rounds (``spec_k`` proposals a round, up
         to ``spec_rounds`` rounds a dispatch); it may be ``params`` itself.
-        ``mesh`` raises: not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
+        ``mesh``: tensor-parallel serving on every rank of the mesh (see
+        the module docstring); ``device`` defaults to the mesh's."""
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params needs its draft_cfg")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device if device is None else device
+            same = draft_params is params
+            if not on_mesh(params, mesh):
+                params = shard_params(mesh, layer_list(params))
+            if same:
+                draft_params = params
+            elif draft_params is not None and not on_mesh(draft_params, mesh):
+                draft_params = shard_params(mesh, layer_list(draft_params))
+        # rank 0's pending operations, broadcast and applied by the next tick
+        self._ops: list = []
+        self._ops_lock = threading.Lock()
+        self._following = False
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -197,9 +245,10 @@ class BatchDecodeEngine:
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._np_rng = np.random.default_rng(seed)  # first-token host sampling
         self.kv_quant = kv_quant
-        self.cache = llama.init_kv_cache(cfg.llm, max_slots, cache_len,
-                                         dtype=self.compute_dtype, device=dev,
-                                         quantized=kv_quant)
+        with use_mesh(mesh):
+            self.cache = llama.init_kv_cache(cfg.llm, max_slots, cache_len,
+                                             dtype=self.compute_dtype, device=dev,
+                                             quantized=kv_quant)
         self.cur_tokens = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._vocab_size = cfg.llm.vocab_size
         # constrained decoding: registered TokenDFAs, their offsets in the
@@ -249,8 +298,9 @@ class BatchDecodeEngine:
         self.spec_rounds = max(1, spec_rounds)
         self.spec_stats = Counter()
         if draft_params is not None:
-            self.d_cache = llama.init_kv_cache(draft_cfg.llm, max_slots, cache_len,
-                                               dtype=self.compute_dtype, device=dev)
+            with use_mesh(mesh):
+                self.d_cache = llama.init_kv_cache(draft_cfg.llm, max_slots, cache_len,
+                                                   dtype=self.compute_dtype, device=dev)
         # multi-LoRA: the stacked [N, L, ...] registry per projection, each
         # slot's adapter id, the decode view with gathered "lora_b" entries
         # (rebuilt only when the slot->adapter map changes) and the prefill
@@ -515,12 +565,79 @@ class BatchDecodeEngine:
         return torch.cat([self.cache["length"], accs.reshape(-1), toks.reshape(-1)])
 
     # ------------------------------------------------------------------
+    # rank 0's operations under a mesh
+    def _leader(self) -> bool:
+        return self.mesh is not None and not self._following
+
+    def _defer(self, op) -> None:
+        with self._ops_lock:
+            self._ops.append(op)
+
+    def _exchange_ops(self) -> None:
+        """Broadcast rank 0's pending operations and apply them, in order,
+        on every rank (rank 0 applies its own objects)."""
+        if not self._following:
+            with self._ops_lock:
+                ops, self._ops = self._ops, []
+            wire = [[self._to_wire(op) for op in ops]]
+        else:
+            ops, wire = None, [None]
+        if self.mesh.size > 1:
+            dist.broadcast_object_list(wire, src=0, group=self.mesh.group("world"))
+        for op in (ops if ops is not None else [self._from_wire(o) for o in wire[0]]):
+            self._apply_op(op)
+
+    @staticmethod
+    def _to_wire(op):
+        kind, arg = op
+        if kind == "submit":
+            arg = {k: getattr(arg, k) for k in arg.__dataclass_fields__ if k not in _WIRE_SKIP}
+        return kind, _host(arg)
+
+    @staticmethod
+    def _from_wire(op):
+        kind, arg = op
+        if kind == "submit":
+            return kind, Request(**arg, out_queue=_Discard())
+        return op
+
+    def _apply_op(self, op) -> None:
+        kind, arg = op
+        if kind == "submit":
+            self.pending.put(arg)
+        elif kind == "cancel":
+            with self._cancel_lock:
+                self._cancel_ids.add(arg)
+        elif kind == "grammar":
+            if self._following:               # rank 0 registered it at once
+                self._register_grammar(arg)
+        elif kind == "adapter":
+            if self._following:
+                self._register_adapter(arg)
+        elif kind == "prefix":
+            self._register_prefix(*arg)
+        elif kind == "stop":
+            self._stop.set()
+
+    def follow(self) -> None:
+        """A rank other than 0: tick with rank 0 until its ``stop()``."""
+        self._following = True
+        while not self._stop.is_set():
+            self.tick()
+
     def register_grammar(self, token_dfa) -> int:
         """Register a compiled grammar (``serve/grammar.TokenDFA`` over this
         model's vocabulary) for requests' ``grammar_id``. The combined
         device tables are rebuilt and uploaded here, once per registration.
         Registration only appends, so existing grammars keep their state
-        offsets while the engine thread runs."""
+        offsets while the engine thread runs. Under a mesh the other ranks
+        register it at the next tick."""
+        gid = self._register_grammar(token_dfa)
+        if self._leader():
+            self._defer(("grammar", token_dfa))
+        return gid
+
+    def _register_grammar(self, token_dfa) -> int:
         if token_dfa.allowed.shape[1] != self._vocab_size:
             raise ValueError(f"grammar over {token_dfa.allowed.shape[1]} tokens, the model "
                              f"has {self._vocab_size}")
@@ -557,13 +674,20 @@ class BatchDecodeEngine:
         self._g_offsets = offsets
 
     def register_adapter(self, lora_state: dict) -> int:
-        """Register a LoRA adapter for per-request serving -> its adapter_id.
+        """Register a LoRA adapter for per-request serving -> its adapter_id
+        (under a mesh the other ranks register it at the next tick).
 
         ``lora_state`` is ``train.lora``'s layout over this engine's LLM
         layers, stacked ({"rank", "alpha", "adapters": {path: {"A" [L, r,
         in], "B" [L, out, r]}}}, ``lora.stack_adapter_state``); entries off
         the LLM layers are ignored. Adapters of different ranks zero-pad to
         the largest; a projection one adapter leaves out is zeros for it."""
+        aid = self._register_adapter(lora_state)
+        if self._leader():
+            self._defer(("adapter", lora_state))
+        return aid
+
+    def _register_adapter(self, lora_state: dict) -> int:
         scale = lora_state["alpha"] / lora_state["rank"]
         f32 = dict(dtype=torch.float32, device=self.device)
         new = {}
@@ -662,13 +786,21 @@ class BatchDecodeEngine:
                         prefix_id: Optional[str] = None) -> str:
         """Prefill a shared prefix (a system prompt, optionally with an image)
         once; later requests with ``prefix_id`` seed their admission cache
-        with its KV and prefill only their suffix."""
+        with its KV and prefill only their suffix. Under a mesh every rank
+        prefills it at the next tick (requests submitted after this call
+        see it)."""
+        pid = prefix_id or uuid.uuid4().hex[:8]
+        if self._leader():
+            self._defer(("prefix", (np.asarray(input_ids), pixel_values, crop_mask, pid)))
+            return pid
+        return self._register_prefix(input_ids, pixel_values, crop_mask, pid)
+
+    def _register_prefix(self, input_ids, pixel_values, crop_mask, pid: str) -> str:
         req = Request(input_ids=np.asarray(input_ids), pixel_values=pixel_values,
                       crop_mask=crop_mask)
         with torch.no_grad(), fp32_accumulation():
             embeds, length, _ = self._embed_request(req)
             _, k, v = self._prefill(embeds, length)
-        pid = prefix_id or uuid.uuid4().hex[:8]
         self.prefixes[pid] = {"k": k[:, :length], "v": v[:, :length],
                               "length": length, "ids": np.asarray(input_ids),
                               "text_only": pixel_values is None}
@@ -676,13 +808,19 @@ class BatchDecodeEngine:
 
     def submit(self, req: Request) -> Request:
         req._t_submit = time.monotonic()
-        self.pending.put(req)
+        if self._leader():
+            self._defer(("submit", req))
+        else:
+            self.pending.put(req)
         return req
 
     def cancel(self, request_id: str) -> None:
         """Abort a request from any thread; takes effect at the next tick: it
         leaves the pending queue, its chunked admission is dropped, or its
         decode slot retires."""
+        if self._leader():
+            self._defer(("cancel", request_id))
+            return
         with self._cancel_lock:
             self._cancel_ids.add(request_id)
 
@@ -1028,8 +1166,14 @@ class BatchDecodeEngine:
 
     def tick(self) -> int:
         """Advance admissions (one chunk) and run one decode dispatch for all
-        active slots. Returns the number of active slots after it."""
-        with torch.no_grad(), fp32_accumulation():
+        active slots. Returns the number of active slots after it. Under a
+        mesh every rank ticks together: rank 0's operations are broadcast
+        and applied first."""
+        with torch.no_grad(), fp32_accumulation(), use_mesh(self.mesh):
+            if self.mesh is not None:
+                self._exchange_ops()
+                if self._stop.is_set():
+                    return 0
             return self._tick()
 
     def _tick(self) -> int:
@@ -1287,7 +1431,7 @@ class BatchDecodeEngine:
                     self._admission["req"].out_queue.put(None)
                     self._admission = None
                 n = 0
-            if n == 0 and self.pending.empty():
+            if n == 0 and self.pending.empty() and not self._ops:
                 time.sleep(idle_sleep)
 
     def start(self) -> None:
@@ -1295,6 +1439,12 @@ class BatchDecodeEngine:
         self._thread.start()
 
     def stop(self) -> None:
+        """End the engine thread; under a mesh rank 0 also ends the other
+        ranks' ``follow()`` (one last tick broadcasts the stop)."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)
+        if self._leader():
+            self._defer(("stop", None))
+            with torch.no_grad(), use_mesh(self.mesh):
+                self._exchange_ops()

@@ -15,7 +15,15 @@ Start it on the card (the default device) from a checkpoint directory:
 ``--device cpu`` runs it on the CPU. ``--adapter-path NAME=DIR`` (repeatable)
 serves LoRA checkpoints beside the base model (``load_adapter``); a request
 picks one with ``"adapter": NAME`` or ``"adapter_id": N``.
-``--tensor-parallel`` above 1 raises: not ported yet.
+
+``--tensor-parallel N`` shards the model over N cards, one process each,
+started by a launcher that sets torchrun's environment:
+
+    torchrun --nproc-per-node N -m slime_tpu_torch.serve.batched_worker \
+        --model-path DIR --tensor-parallel N ...
+
+Rank 0 serves HTTP (the controller sees one worker) and owns the engine's
+requests; the other ranks run the engine's ``follow()`` loop only.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from ..config import SliMEConfig
 from ..constants import WORKER_HEART_BEAT_INTERVAL
 from ..data.image_ops import process_anyres_image_host
 from ..data.tokenization import StopStringMatcher, tokenizer_image_token
-from .batch_engine import _MESH_TODO, BatchDecodeEngine, Request
+from .batch_engine import BatchDecodeEngine, Request
 from .protocol import ErrorCode, SERVER_ERROR_MSG, JsonHTTPServer
 
 
@@ -44,9 +52,11 @@ class BatchedWorker:
                  compute_dtype=None, register: bool = True,
                  draft_params=None, draft_cfg: Optional[SliMEConfig] = None,
                  spec_k: int = 4, kv_quant: bool = False,
-                 prefix_cache_mb: int = 512, prefix_block: int = 64, device=None):
+                 prefix_cache_mb: int = 512, prefix_block: int = 64, device=None,
+                 mesh=None):
         """``device``: the engine's (the current CUDA device when None);
-        ``params`` and ``draft_params`` must already be there."""
+        ``params`` and ``draft_params`` must already be there. ``mesh``:
+        tensor-parallel serving (this is rank 0; ``BatchDecodeEngine``)."""
         self.controller_addr = controller_addr
         self.worker_addr = worker_addr
         self.model_name = model_name
@@ -57,7 +67,8 @@ class BatchedWorker:
                                         draft_params=draft_params, draft_cfg=draft_cfg,
                                         spec_k=spec_k, kv_quant=kv_quant,
                                         prefix_cache_mb=prefix_cache_mb,
-                                        prefix_block=prefix_block, device=device)
+                                        prefix_block=prefix_block, device=device,
+                                        mesh=mesh)
         self._grammar_cache = {}
         self.adapters = {}   # name -> adapter id (load_adapter)
         self._vocab_bytes = None
@@ -108,6 +119,8 @@ class BatchedWorker:
         ids = np.asarray(tokenizer_image_token(p["prompt"], self.tokenizer,
                                                return_tensors="np"))
         pid = self.engine.register_prefix(ids, prefix_id=p.get("prefix_id"))
+        while pid not in self.engine.prefixes:       # under a mesh: the next tick
+            time.sleep(0.005)
         return {"prefix_id": pid, "length": int(self.engine.prefixes[pid]["length"])}
 
     def _grammar_id(self, p: dict):
@@ -245,6 +258,7 @@ def main(argv=None):
     from .. import checkpoint as ckpt
     from ..data.tokenization import get_model_name_from_path
     from ..models.layers import resolve_device
+    from ..parallel.mesh import tp_mesh
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="localhost")
@@ -274,27 +288,36 @@ def main(argv=None):
     ap.add_argument("--prefix-cache-mb", type=int, default=512,
                     help="byte budget of the automatic prefix KV cache; 0 disables it")
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="shard the model over N cards (not ported yet); 1 = one card")
+                    help="shard the model over N cards, one process each (torchrun "
+                         "--nproc-per-node N); 1 = one card")
     ap.add_argument("--device", default=None,
                     help="where the worker runs (default: the current CUDA device)")
     args = ap.parse_args(argv)
-    if args.tensor_parallel > 1:
-        raise NotImplementedError(_MESH_TODO)
     from transformers import AutoTokenizer
 
-    dev = resolve_device(args.device)
+    mesh = tp_mesh(args.tensor_parallel, args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = SliMEConfig.load(args.model_path)
     params = ckpt.load_for_serving(
         args.model_path, device=dev, cfg=cfg, model_base=args.model_base,
         load_bits=8 if args.load_8bit else (4 if args.load_4bit else None),
-        quantize_vision=args.quantize_vision)
+        quantize_vision=args.quantize_vision, mesh=mesh)
     tokenizer = AutoTokenizer.from_pretrained(args.model_base or args.model_path)
     name = args.model_name or get_model_name_from_path(args.model_path)
     draft_params = draft_cfg = None
     if args.draft_model_path:
         draft_cfg = SliMEConfig.load(args.draft_model_path)
         draft_params = ckpt.load_for_serving(args.draft_model_path, device=dev,
-                                             cfg=draft_cfg)
+                                             cfg=draft_cfg, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        engine = BatchDecodeEngine(params, cfg, max_slots=args.max_slots,
+                                   cache_len=args.cache_len, compute_dtype=torch.bfloat16,
+                                   draft_params=draft_params, draft_cfg=draft_cfg,
+                                   spec_k=args.spec_k, kv_quant=args.kv_cache_int8,
+                                   prefix_cache_mb=args.prefix_cache_mb, device=dev,
+                                   mesh=mesh)
+        engine.follow()
+        return
     worker = BatchedWorker(controller_addr=args.controller_address,
                            worker_addr=f"http://{args.host}:{args.port}", model_name=name,
                            params=params, cfg=cfg, tokenizer=tokenizer,
@@ -302,7 +325,7 @@ def main(argv=None):
                            compute_dtype=torch.bfloat16, register=not args.no_register,
                            draft_params=draft_params, draft_cfg=draft_cfg,
                            spec_k=args.spec_k, kv_quant=args.kv_cache_int8,
-                           prefix_cache_mb=args.prefix_cache_mb, device=dev)
+                           prefix_cache_mb=args.prefix_cache_mb, device=dev, mesh=mesh)
     for spec in args.adapter_path:
         nm, _, d = spec.partition("=")
         worker.load_adapter(nm, d or nm)

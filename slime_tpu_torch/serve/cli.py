@@ -6,7 +6,10 @@ greedy speculative decoding (``speculative_generate_device``).
     python -m slime_tpu_torch.serve.cli --model-path DIR [--image-file X.jpg]
 
 It runs on the current CUDA device unless ``--device`` says otherwise
-(``--device cpu``); ``--tensor-parallel`` above 1 raises (not ported yet).
+(``--device cpu``). ``--tensor-parallel N`` shards the model over N cards,
+one process each (``torchrun --nproc-per-node N -m slime_tpu_torch.serve.cli
+... --tensor-parallel N``): rank 0 reads the prompts and prints, every rank
+generates (``generate_stream(mesh=...)``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ def main(argv=None):
     from ..data.tokenization import get_model_name_from_path, tokenizer_image_token
     from ..generate import generate_stream, trim_at_eos
     from ..models.layers import resolve_device
-    from .batch_engine import _MESH_TODO
+    from ..parallel import distributed
+    from ..parallel.mesh import tp_mesh, use_mesh
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-path", required=True)
@@ -50,28 +54,30 @@ def main(argv=None):
     ap.add_argument("--kv-cache-int8", action="store_true",
                     help="int8 KV cache with per-(position, head) scales")
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="shard the model over N cards (not ported yet); 1 = one card")
+                    help="shard the model over N cards, one process each (torchrun "
+                         "--nproc-per-node N); 1 = one card")
     ap.add_argument("--device", default=None,
                     help="where the model runs (default: the current CUDA device)")
     ap.add_argument("--debug", action="store_true")
     args = ap.parse_args(argv)
-    if args.tensor_parallel > 1:
-        raise NotImplementedError(_MESH_TODO)
 
     from transformers import AutoTokenizer
-    dev = resolve_device(args.device)
+    mesh = tp_mesh(args.tensor_parallel, args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     bf = torch.bfloat16
     cfg = SliMEConfig.load(args.model_path)
     params = ckpt.load_for_serving(
         args.model_path, device=dev, cfg=cfg, model_base=args.model_base,
         load_bits=8 if args.load_8bit else (4 if args.load_4bit else None),
         quantize_lm_head=args.quantize_lm_head, int4_scheme=args.int4_scheme,
-        quantize_vision=args.quantize_vision)
+        quantize_vision=args.quantize_vision, mesh=mesh)
     tokenizer = AutoTokenizer.from_pretrained(args.model_base or args.model_path)
     draft = None
     if args.draft_model_path:
         dcfg = SliMEConfig.load(args.draft_model_path)
-        draft = (ckpt.load_for_serving(args.draft_model_path, device=dev, cfg=dcfg), dcfg)
+        draft = (ckpt.load_for_serving(args.draft_model_path, device=dev, cfg=dcfg,
+                                       mesh=mesh), dcfg)
 
     conv_mode = args.conv_mode or conv_mode_from_model_name(
         get_model_name_from_path(args.model_path))
@@ -88,10 +94,13 @@ def main(argv=None):
         cmask = torch.from_numpy(mask[None]).to(dev)
 
     while True:
-        try:
-            inp = input(f"{conv.roles[0]}: ")
-        except EOFError:
-            break
+        inp = ""
+        if lead:
+            try:
+                inp = input(f"{conv.roles[0]}: ")
+            except EOFError:
+                inp = ""
+        inp = distributed.broadcast_object(inp)
         if not inp:
             break
         if image_pending:
@@ -105,31 +114,34 @@ def main(argv=None):
         input_ids = torch.from_numpy(ids[None].astype(np.int64)).to(dev)
         attn = torch.ones_like(input_ids, dtype=torch.bool)
 
-        print(f"{conv.roles[1]}: ", end="", flush=True)
+        show = print if lead else (lambda *a, **k: None)
+        show(f"{conv.roles[1]}: ", end="", flush=True)
         out_text = ""
         stop = conv.sep2 if conv.sep2 else conv.sep
         if draft is not None and pix is None:
             from .speculative import speculative_generate_device
-            toks, rate = speculative_generate_device(
-                params, cfg, draft[0], draft[1], input_ids,
-                max_new_tokens=args.max_new_tokens, compute_dtype=bf)
+            with use_mesh(mesh):
+                toks, rate = speculative_generate_device(
+                    params, cfg, draft[0], draft[1], input_ids,
+                    max_new_tokens=args.max_new_tokens, compute_dtype=bf)
             out_text = tokenizer.decode(trim_at_eos(toks, cfg.eos_token_id)[0],
                                         skip_special_tokens=True)
             if stop and out_text.endswith(stop):
                 out_text = out_text[:-len(stop)].rstrip()
-            print(out_text + f"   [spec-accept {rate:.0%}]")
+            show(out_text + f"   [spec-accept {rate:.0%}]")
         else:
             with torch.no_grad():
                 for text in generate_stream(params, cfg, tokenizer, input_ids, attn, pix, cmask,
                                             max_new_tokens=args.max_new_tokens,
                                             temperature=args.temperature,
                                             stop_strings=[stop] if stop else [],
-                                            compute_dtype=bf, kv_quant=args.kv_cache_int8):
-                    print(text[len(out_text):], end="", flush=True)
+                                            compute_dtype=bf, kv_quant=args.kv_cache_int8,
+                                            mesh=mesh):
+                    show(text[len(out_text):], end="", flush=True)
                     out_text = text
-            print()
+            show()
         conv.messages[-1][1] = out_text
-        if args.debug:
+        if args.debug and lead:
             print({"prompt": prompt, "outputs": out_text})
 
 

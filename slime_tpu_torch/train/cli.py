@@ -25,8 +25,17 @@ runs: the current CUDA device unless it says otherwise.
 
 JAX's refusals are kept: ``--bits 8/4`` without ``--lora-enable``,
 ``--seq-packing`` with ``--task DPO``, ``--ref-model-path`` with
-``--lora-enable``. Not ported yet, raising NotImplementedError:
-``--mesh-*`` above 1 and a multi-process launch (ROADMAP Queue 1 item 12).
+``--lora-enable``.
+
+Several cards, one process each, under torchrun's environment:
+
+    torchrun --nproc-per-node N -m slime_tpu_torch.train.cli ... --mesh-fsdp N
+
+``--mesh-data`` x ``--mesh-fsdp`` x ``--mesh-model`` must equal the world
+size (``--mesh-fsdp`` unset takes what is left, as JAX's); the loader yields
+the global batch, ``--per-device-batch-size`` x data x fsdp
+(``scripts/train_slime.py:227-234``), and each rank feeds its rows of it.
+``--device cpu`` runs the ranks over gloo.
 """
 from __future__ import annotations
 
@@ -38,8 +47,6 @@ from typing import Optional, Sequence
 
 import torch
 
-_MESH_TODO = ("a mesh or a multi-process launch is not ported yet (ROADMAP Queue 1 "
-              "item 12: parallel/mesh.py)")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -118,7 +125,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--bits", type=int, default=16, choices=[16, 8, 4],
                     help="quantize the (frozen) LLM base for QLoRA; requires "
                          "--lora-enable")
-    # mesh (one card only, for now)
+    # mesh: (data, fsdp, model) over the launch's processes
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-fsdp", type=int, default=None)
     ap.add_argument("--mesh-model", type=int, default=1)
@@ -134,9 +141,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    if (args.mesh_data > 1 or (args.mesh_fsdp or 1) > 1 or args.mesh_model > 1
-            or int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        raise NotImplementedError(_MESH_TODO)
     if args.bits != 16 and not args.lora_enable:
         raise SystemExit("--bits 8/4 trains a quantized base: only valid with "
                          "--lora-enable (QLoRA)")
@@ -218,16 +222,33 @@ def build_dataset(args, cfg, tokenizer):
                              tile=cfg.vision.image_size, pixel_dtype=args.pixel_dtype)
 
 
-def batches(args, ds, pad_token_id: int):
-    """The run's numpy batches, epoch after epoch: stacked preference pairs
+def make_run_mesh(args, device_arg):
+    """The run's mesh, or None for one process and a mesh of one: the
+    launch's process group (gloo with ``--device cpu``, else NCCL) split as
+    ``--mesh-*`` say."""
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 and args.mesh_data * (args.mesh_fsdp or 1) * args.mesh_model <= 1:
+        return None
+    cpu = device_arg is not None and torch.device(device_arg).type == "cpu"
+    distributed.initialize(backend="gloo" if cpu else "nccl")
+    return make_mesh(args.mesh_data, args.mesh_fsdp, args.mesh_model,
+                     device="cpu" if cpu else None)
+
+
+def batches(args, ds, pad_token_id: int, batch_size: Optional[int] = None):
+    """The run's numpy batches of ``batch_size`` rows (default
+    ``--per-device-batch-size``), epoch after epoch: stacked preference pairs
     (``--task DPO``), packed text-only rows (``--seq-packing``) or
     ``data_loader``'s collated ones."""
+    bs = batch_size or args.per_device_batch_size
     from ..data.dataset import data_loader
     from ..data.dpo import dpo_loader
     from ..data.packing import packed_loader
     for epoch in range(args.num_train_epochs):
         if args.task == "DPO":
-            yield from dpo_loader(ds, batch_size=args.per_device_batch_size,
+            yield from dpo_loader(ds, batch_size=bs,
                                   seq_len=args.model_max_length, pad_token_id=pad_token_id,
                                   seed=args.seed + epoch, num_workers=8)
             continue
@@ -235,10 +256,10 @@ def batches(args, ds, pad_token_id: int):
             order = list(range(len(ds)))
             random.Random(args.seed + epoch).shuffle(order)
             yield from packed_loader((ds[i] for i in order),
-                                     batch_size=args.per_device_batch_size,
+                                     batch_size=bs,
                                      seq_len=args.model_max_length, pad_token_id=pad_token_id)
             continue
-        yield from data_loader(ds, batch_size=args.per_device_batch_size,
+        yield from data_loader(ds, batch_size=bs,
                                seq_len=args.model_max_length, pad_token_id=pad_token_id,
                                seed=args.seed + epoch,
                                group_by_modality_length=args.group_by_modality_length,
@@ -259,7 +280,9 @@ def main(argv: Optional[Sequence[str]] = None, tokenizer=None):
     args = parse_args(argv)
     _refuse_unported(args)
     _refuse_dpo(args)
-    device = resolve_device(args.device)
+    mesh = make_run_mesh(args, args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    batch_mult = 1 if mesh is None else mesh.axis_size("dp")
     cfg = SliMEConfig.load(args.model_path)
     cfg = dataclasses.replace(cfg, use_global_only=args.use_global_only,
                               use_local_only=args.use_local_only,
@@ -303,13 +326,16 @@ def main(argv: Optional[Sequence[str]] = None, tokenizer=None):
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                       use_kernel=args.use_pallas_attention or None, remat=args.remat,
                       lora=lora_state, dpo=dpo_cfg,
-                      ref_params=build_ref_params(args, cfg, device) if dpo_cfg else None)
+                      ref_params=build_ref_params(args, cfg, device) if dpo_cfg else None,
+                      mesh=mesh)
     if args.seq_packing and any(n > 0 for n in ds.modality_lengths):
         raise SystemExit("--seq-packing is text-only (image features splice into the "
                          "embedding sequence; token-aligned segments can't describe them)")
-    trainer.train(prefetch(batches(args, ds, tokenizer.pad_token_id or 0), depth=2))
+    trainer.train(prefetch(batches(args, ds, tokenizer.pad_token_id or 0,
+                                   args.per_device_batch_size * batch_mult), depth=2))
     trainer.save(args.output_dir)
-    print(f"done -> {args.output_dir}", flush=True)
+    if trainer.main:
+        print(f"done -> {args.output_dir}", flush=True)
     return trainer
 
 

@@ -38,6 +38,8 @@ from ..config import IGNORE_INDEX, SliMEConfig
 from ..models import slime
 from ..models.layers import fp32_accumulation
 from ..ops.loss import DEFAULT_LOSS_CHUNK, chunked_sequence_logp
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import active as active_mesh, use_mesh
 from . import lora as lora_lib
 from .optim import TrainConfig
 
@@ -60,6 +62,22 @@ class DPOConfig:
             raise ValueError(f"loss_type {self.loss_type!r} not in {LOSS_TYPES}")
 
 
+def _mean(x):
+    """The mean over the global batch: under a mesh whose batch axes hold
+    several ranks, each rank's sum and count are all-reduced (a pair's rows
+    stay on one rank, ``trainer.shard_pairs``)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.axis_size("dp") == 1:
+        return x.mean()
+    n = tp.reduce_dp(torch.tensor(float(x.numel()), device=x.device))
+    return tp.reduce_dp(x.sum()) / n
+
+
+def _sum(x):
+    mesh = active_mesh()
+    return x.sum() if mesh is None or mesh.axis_size("dp") == 1 else tp.reduce_dp(x.sum())
+
+
 def dpo_losses(policy_chosen, policy_rejected, ref_chosen, ref_rejected, *,
                beta: float, loss_type: str = "sigmoid"
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -75,8 +93,8 @@ def dpo_losses(policy_chosen, policy_rejected, ref_chosen, ref_rejected, *,
         # half (the KLs are exactly 0 while the policy is the reference);
         # torch.maximum does the same, torch.clamp passes it whole
         zero = policy_chosen.new_zeros(())
-        chosen_kl = torch.maximum((policy_chosen - ref_chosen).mean(), zero)
-        rejected_kl = torch.maximum((policy_rejected - ref_rejected).mean(), zero)
+        chosen_kl = torch.maximum(_mean(policy_chosen - ref_chosen), zero)
+        rejected_kl = torch.maximum(_mean(policy_rejected - ref_rejected), zero)
         losses = torch.cat([
             1.0 - torch.sigmoid(beta * ((policy_chosen - ref_chosen) - rejected_kl)),
             1.0 - torch.sigmoid(beta * (chosen_kl - (policy_rejected - ref_rejected))),
@@ -149,43 +167,45 @@ def _dpo_objective(logp, mass, ref_logp, ref_mass, dc: DPOConfig):
     pc, pr, rc, rr = p[:B], p[B:], r[:B], r[B:]
     losses, chosen_rewards, rejected_rewards = dpo_losses(
         pc, pr, rc, rr, beta=dc.beta, loss_type=dc.loss_type)
-    loss = dc.dpo_weight * losses.mean()
+    loss = dc.dpo_weight * _mean(losses)
     if dc.sft_weight > 0.0:
         # plain NLL on the chosen rows, per target token (the SFT scale)
-        sft = -logp[:B].sum() / torch.clamp(mass[:B].sum(), min=1e-9)
+        sft = -_sum(logp[:B]) / torch.clamp(_sum(mass[:B]), min=1e-9)
         loss = loss + dc.sft_weight * sft
     n_chosen = mass[:B].sum()
     return loss, _dpo_metrics(chosen_rewards, rejected_rewards, pc, pr, n_chosen,
                               weighted=dc.token_weighted)
 
 
-def _step_body(cfg, tx, dc, kw, policy, ref_params, batch):
+def _step_body(cfg, tx, dc, kw, policy, ref_params, batch, mesh=None):
     token_weights = batch.get("target_weights") if dc.token_weighted else None
-    with fp32_accumulation():
+    with fp32_accumulation(), use_mesh(mesh):
         with torch.no_grad():
             ref_logp, ref_mass = pair_logps(ref_params, cfg, batch,
                                             token_weights=token_weights, **kw)
         logp, mass = pair_logps(policy(), cfg, batch, token_weights=token_weights, **kw)
         loss, aux = _dpo_objective(logp, mass, ref_logp, ref_mass, dc)
         loss.backward()
-    gnorm = tx.step()
+        tp.sync_grads(tx.params)
+        gnorm = tx.step()
     return {"loss": loss.detach(), "grad_norm": gnorm,
             **{k: v.detach() for k, v in aux.items()}}
 
 
 def make_dpo_train_step(cfg: SliMEConfig, tc: TrainConfig, tx, dc: DPOConfig, *,
                         use_kernel: Optional[bool] = None, compute_dtype=torch.bfloat16,
-                        remat: bool = False, loss_chunk="auto"):
+                        remat: bool = False, loss_chunk="auto", mesh=None):
     """Full-parameter DPO: step(state, ref_params, batch, generator=None) ->
     (state, metrics); ``ref_params`` is the frozen reference policy. The
-    generator is unused: the selection runs without noise."""
+    generator is unused: the selection runs without noise. Under ``mesh``
+    the batch holds this rank's pairs (both rows of each)."""
     del tc
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
               loss_chunk=loss_chunk)
 
     def step(state, ref_params, batch, generator=None):
         del generator
-        m = _step_body(cfg, tx, dc, kw, lambda: state["params"], ref_params, batch)
+        m = _step_body(cfg, tx, dc, kw, lambda: state["params"], ref_params, batch, mesh)
         state["step"] += 1
         return state, m
 
@@ -195,7 +215,7 @@ def make_dpo_train_step(cfg: SliMEConfig, tc: TrainConfig, tx, dc: DPOConfig, *,
 def make_lora_dpo_train_step(cfg: SliMEConfig, tc: TrainConfig, tx, dc: DPOConfig, *,
                              rank: int, alpha: int, use_kernel: Optional[bool] = None,
                              compute_dtype=torch.bfloat16, remat: bool = False,
-                             loss_chunk="auto"):
+                             loss_chunk="auto", mesh=None):
     """LoRA/QLoRA DPO: step(state, base_params, batch, generator=None) ->
     (state, metrics). The reference is ``base_params`` itself (adapters off,
     the original projector and sampler); the policy is the base with the
@@ -212,7 +232,7 @@ def make_lora_dpo_train_step(cfg: SliMEConfig, tc: TrainConfig, tx, dc: DPOConfi
             params = {**base_params, **trainable["extras"]}
             return lora_lib.attach(params, {"rank": rank, "alpha": alpha,
                                             "adapters": trainable["adapters"]})
-        m = _step_body(cfg, tx, dc, kw, policy, base_params, batch)
+        m = _step_body(cfg, tx, dc, kw, policy, base_params, batch, mesh)
         state["step"] += 1
         return state, m
 

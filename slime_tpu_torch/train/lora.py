@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..ops.quantization import dequantize_weight
+from ..parallel.mesh import copy_spec
 
 DEFAULT_TARGETS = (r"llm/layers/\d+/(q|k|v|o)_proj$",
                    r"llm/layers/\d+/(gate|up|down)_proj$")
@@ -153,7 +154,8 @@ def attach(params, lora_state: Optional[Dict]):
         return params
     scale = lora_state["alpha"] / lora_state["rank"]
     return _rebuild(params, lora_state,
-                    lambda node, ab, _: {**node, "lora": {"A": ab["A"], "B": ab["B"] * scale}})
+                    lambda node, ab, _: {**node, "lora": {
+                        "A": ab["A"], "B": copy_spec(ab["B"] * scale, ab["B"])}})
 
 
 _ATTN_LEAVES = ("q_proj", "k_proj", "v_proj", "o_proj")

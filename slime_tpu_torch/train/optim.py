@@ -35,7 +35,10 @@ weights under the same mask, then the schedule, with optax's arithmetic
 
 The clip pass never makes a whole-leaf copy: each leaf's sum of squares is
 taken in fp32 over slices of 2^26 elements and the clip is written back in
-place slice by slice with the same arithmetic.
+place slice by slice with the same arithmetic. Under an active mesh every
+norm is the global one (``parallel.tensor_parallel.global_sq_norm``: each
+shard's squares summed over the ranks, each replicated leaf counted once),
+so every rank clips by the same factor; Adam then updates the local shards.
 
 ``gradient_accumulation_steps`` k > 1 wraps the optimizer in ``MultiSteps``,
 ``optax.MultiSteps``' semantics: each micro-step folds its gradients into a
@@ -54,6 +57,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.tensor_parallel import global_sq_norm
 from ..params import map_leaves, named_leaves
 from . import opt8
 
@@ -192,7 +196,7 @@ class GroupedAdamW:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
-            norm_sq = sum(_sq_norm(gr) for gr in grads)
+            norm_sq = global_sq_norm(g["params"], [_sq_norm(gr) for gr in grads])
             sq.append(norm_sq)
             norm = torch.sqrt(norm_sq)
             keep = norm < self.tc.max_grad_norm
@@ -229,11 +233,16 @@ class MultiSteps:
         self.gradient_step = 0
         self.acc = [torch.zeros_like(p) for p in inner.params]
 
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return self.inner.params
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         params = self.inner.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) if grads else torch.zeros(())
+        gnorm = (torch.sqrt(global_sq_norm(params, [_sq_norm(g) for g in grads]))
+                 if grads else torch.zeros(()))
         for a, g in zip(self.acc, grads):
             a.add_((g - a) / (self.mini_step + 1))
         if self.mini_step < self.k - 1:

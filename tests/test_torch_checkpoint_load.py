@@ -15,8 +15,8 @@ at ``SliMEConfig.tiny()``.
 - ``python -m slime_tpu_torch.serve.cli --device cpu`` on a saved tiny
   checkpoint with piped input prints an answer, with and without a draft
   model; without a card and without ``--device`` the entry points raise
-  (``--adapter-path`` too); ``--tensor-parallel 2`` raises
-  NotImplementedError.
+  (``--adapter-path`` too); ``--tensor-parallel 2`` outside a launch of 2
+  processes raises ValueError.
 """
 import os
 import subprocess
@@ -238,5 +238,5 @@ def test_entry_points_run_on_the_card_unless_asked(saved, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batched_worker.main(["--model-path", base, "--adapter-path", "a=b"])
     for main in (cli.main, batched_worker.main):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="launch of 1 processes"):
             main(["--model-path", base, "--tensor-parallel", "2"])

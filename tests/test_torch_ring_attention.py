@@ -25,9 +25,6 @@ free localhost port, and wait at most ``RANK_TIMEOUT`` seconds: past it every
 rank is killed and the test fails, so a hang cannot hold up the suite.
 """
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -39,7 +36,8 @@ from slime_tpu_torch.models import llama as tllama
 from slime_tpu_torch.ops import ring_attention as tra
 from slime_tpu_torch.ops import ring_attention_rdma as trd
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from .torch_ranks import run_ranks
+
 RING_TOL = dict(atol=2e-5, rtol=1e-4)       # JAX's tests/test_ring_attention.py
 RDMA_TOL = dict(atol=2e-5, rtol=2e-5)       # JAX's tests/test_ring_attention_rdma.py
 LLAMA_TOL = dict(atol=5e-4, rtol=1e-3)      # JAX's test_llama_forward_with_ring
@@ -146,17 +144,11 @@ def test_ring_attention_rdma_matches_jax(case):
 # (3) the process-group form over gloo
 # --------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _worker(argv):
-    """One rank of a process group (run in a subprocess): argv = [job, rank,
-    world, address, directory, backend]. Reads ``inputs.pt`` there, writes
-    ``rank{r}.pt``. With ``nccl`` rank r works on card r."""
-    job, rank, world, address, where, backend = argv
+    """One rank of a process group (``torch_ranks.run_ranks``): argv = [rank,
+    world, address, directory, job, backend]. Reads ``inputs.pt`` there,
+    writes ``rank{r}.pt``. With ``nccl`` rank r works on card r."""
+    rank, world, address, where, job, backend = argv
     rank, world = int(rank), int(world)
     import torch.distributed as dist
 
@@ -193,28 +185,8 @@ def _worker(argv):
 def _run_ranks(job, world, inputs, tmp_path, backend="gloo"):
     """Run ``world`` ranks of ``job`` on ``inputs``; their outputs, by rank.
     Kills every rank and fails past RANK_TIMEOUT."""
-    torch.save(inputs, tmp_path / "inputs.pt")
-    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "SLIME_PLATFORM")}
-    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    address = f"tcp://localhost:{_free_port()}"
-    code = ("import sys; from tests.test_torch_ring_attention import _worker; "
-            "_worker(sys.argv[1:])")
-    procs = [subprocess.Popen([sys.executable, "-c", code, job, str(r), str(world), address,
-                               str(tmp_path), backend], cwd=REPO, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
-    try:
-        errs = [p.communicate(timeout=RANK_TIMEOUT)[1] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for p in procs:
-            p.communicate()
-        pytest.fail(f"{job} over {backend} (world {world}) did not finish in "
-                    f"{RANK_TIMEOUT} s")
-    for r, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-3000:]}"
-    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+    return run_ranks("test_torch_ring_attention", world, inputs, tmp_path,
+                     args=(job, backend), timeout=RANK_TIMEOUT)
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -304,16 +304,21 @@ def test_engine_kv_quant(setup):
 
 
 def test_refusals_and_unserved_requests(setup):
-    """What is not ported yet (tensor parallelism) raises
-    NotImplementedError; a draft without its config raises; an adapter
+    """A one-process mesh serves the plain engine's tokens (tensor
+    parallelism is ported; ``test_torch_tp_serving.py`` runs it on several
+    ranks); a draft without its config raises; an adapter
     that is not stacked [L, ...] is refused; requests naming an
     unregistered grammar or adapter fail, as JAX fails an unknown id;
     params elsewhere than the engine's device raise."""
     cfg, params, _ = setup
     with pytest.raises(ValueError):
         BatchDecodeEngine(params, cfg, device="cpu", draft_params=params)
-    with pytest.raises(NotImplementedError):
-        BatchDecodeEngine(params, cfg, device="cpu", mesh=object())
+    from slime_tpu_torch.parallel.mesh import make_mesh
+    ids = _ids(cfg, np.random.default_rng(17), 6)
+    one = BatchDecodeEngine(params, cfg, max_slots=2, cache_len=128, device="cpu",
+                            prefix_cache_mb=0, mesh=make_mesh(device="cpu"))
+    assert _run(one, [Request(input_ids=ids, max_new_tokens=5)]) == \
+        _run(_engine(setup), [Request(input_ids=ids, max_new_tokens=5)])
     eng = _engine(setup)
     with pytest.raises(ValueError, match="stacked"):
         eng.register_adapter({"rank": 2, "alpha": 2, "adapters": {"llm/layers/0/q_proj": {

@@ -21,8 +21,8 @@
   runs the JAX CLI: the DPO metrics logged, the files saved, the 8-bit
   moments in the optimizer, LoRA-DPO's first loss at log 2.
 - JAX's refusals: ``--bits 4`` without LoRA, ``--seq-packing`` with DPO,
-  ``--ref-model-path`` with ``--lora-enable``; a mesh raises
-  NotImplementedError naming ROADMAP item 12.
+  ``--ref-model-path`` with ``--lora-enable``; a mesh larger than the
+  launch raises ValueError.
 
 Tolerance: none; resumed parameters equal the uninterrupted ones exactly.
 """
@@ -284,11 +284,11 @@ def test_dpo_and_adamw8bit_runs(model_dir, data, tmp_path):
 
 def test_refusals(model_dir, data, tmp_path):
     """JAX's refusals (scripts/train_slime.py:145-148, :253-260, :270) and
-    the mesh, which is not ported (ROADMAP item 12)."""
+    a mesh of more ranks than the launch has processes."""
     model, tok = model_dir
     base = _argv(model, str(data / "txt.json"), str(tmp_path / "r"))
     for extra in (["--mesh-fsdp", "2"], ["--mesh-model", "2"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="the world has 1"):
             cli.main(base + extra, tokenizer=tok)
     with pytest.raises(SystemExit, match="lora-enable"):
         cli.main(base + ["--bits", "4"], tokenizer=tok)
