@@ -7,7 +7,7 @@ a full-parameter step with 8-bit Adam moments, a context-parallel (ring
 attention) prefill of Llama-3-8B's full 8192 positions, and SliME-8B's
 evaluation (the eval harness, the benchmark drivers, the video path, the eval
 CLI and the checkpoint verifier) in bf16, and the other model families:
-Mixtral-8x7B's MoE layers (16 of 32 layers) serving and training, MPT-7B
+Mixtral-8x7B's MoE layers (8 of 32 layers) serving and training, MPT-7B
 and a Mamba block.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
@@ -157,8 +157,10 @@ Phase 10 runs the training CLI (``slime_tpu_torch.train.cli.main``, the
          port's scripts/train_slime.py) as scripts/llama3_8b_lora_sft.sh
          runs it with --bits 4 (QLoRA: an NF4 LLM, r = 128, alpha = 256,
          llama3 template, S = 2048, modality-grouped batches) plus --remat
-         and --gradient-accumulation-steps 2, on SliME-8B at full width and
-         depth from random weights (a config-only model directory), over 16
+         and --gradient-accumulation-steps 2, on SliME-8B at full width,
+         its LLM cut to CUT_LAYERS = 8 of 32 layers (for the script's time;
+         32 until PR 20), from random weights (a config-only model
+         directory), over 16
          records (8 with a 672x672 PNG, 8 text-only, ~300-token
          conversations) and the stand-in byte tokenizer; cut to batch 4 and
          2 micro-steps, with one saved state. The same command then resumes
@@ -167,8 +169,9 @@ Phase 10 runs the training CLI (``slime_tpu_torch.train.cli.main``, the
          keep their bytes; the adapter files load back with ``import_peft``;
          the native preprocess library loads and its crops lie within the
          PIL path's bound; K4 launches 23 times a multimodal micro-step, K5
-         64, K5b and K5c 32. One micro-step is traced (idle share, K5-K5c,
-         the NF4 dequantizing copies) and 2 micro-steps run packed
+         twice and K5b and K5c once a layer. One micro-step is traced (idle
+         share, K5-K5c, the NF4 dequantizing copies) and 2 micro-steps run
+         packed
          (--seq-packing, text-only rows: K5 with segment_ids).
 
          Then the other branches on phase 2's model (counted, inside phase
@@ -186,28 +189,33 @@ Phase 10 runs the training CLI (``slime_tpu_torch.train.cli.main``, the
          'spatial' merge (a permutation of the flat rows), exactly.
 
 Phase 11a runs QLoRA-DPO from the CLI: phase 10's QLoRA flags with --task
-         DPO --dpo-loss-type sigmoid --dpo-beta 0.1, 2 pairs (4 rows) a
+         DPO --dpo-loss-type sigmoid --dpo-beta 0.1, on phase 10's cut
+         model (8 of 32 LLM layers), 2 pairs (4 rows) a
          step, S = 2048, 3 steps over 8 preference records (4 with a
          672x672 image, ~300-byte answers sharing a prompt): the first loss
          log 2 (adapters at B = 0), the NF4 base's bytes kept, the adapters
-         moved, K4 2 x 23, K5 3 x 32, K5b and K5c 32 a step, one step traced;
+         moved, K4 2 x 23, K5 3 and K5b and K5c once a layer a step, one
+         step traced;
          then an ipo, token-weighted, SFT-mixed command for a step.
-Phase 11b builds phase 4's bf16 SliME-8B and trains every leaf but the
+Phase 11b builds phase 4's bf16 SliME-8B, its LLM cut to 8 of 32 layers
+         (for time; 32 until PR 20), and trains every leaf but the
          tower with 8-bit Adam moments (B = 1, S = 2048, remat) through the
          ``Trainer``: the state's bytes against fp32 Adam's, peak memory,
          step and update times; gate_proj's codes and scales after step 1
          against ``opt8.leaf_update`` on the same gradient (layers 0, 1 and
-         31), exactly; every trainable leaf moved; step 2 after the train
+         the last), exactly; every trainable leaf moved; step 2 after the train
          state's round trip through the host equal to the uninterrupted
          step 2.
 
-Phase 12  builds SliME-8B at full width and depth in bf16 throughout (dense
+Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
+         (for time; 32 until PR 20), in bf16 throughout (dense
          stacked LLM: what the eval CLI loads a bf16 checkpoint into) and
          runs the evaluation path with a byte tokenizer and EOS off:
          ``eval.harness.run_eval`` on 8 questions over 4 images (16 tokens,
          llama3 template) at batch 4 and at batch 1, equal up to a logged
-         near tie, the launches of each request asserted (K4 23, K5 32,
-         dense K1-K3 32 a decode step) and one batch and the decode step
+         near tie, the launches of each request asserted (K4 23, K5 and
+         dense K1-K3 once a layer a prefill and a decode step) and one
+         batch and the decode step
          traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
          prefix leads greedy's after they part, as beam search guarantees);
          ``video.run_video_mme`` on 8 frames of 640x360 against ``generate``
@@ -219,13 +227,14 @@ Phase 12  builds SliME-8B at full width and depth in bf16 throughout (dense
          corrupted weight: FAIL, rc 1).
 
 Phase 13  the other model families. SliME with Mixtral-8x7B (MoE layers:
-         8 experts, top 2) at full width, cut to 16 of its 32 layers (its
+         8 experts, top 2) at full width, cut to 8 of its 32 layers (its
          bf16 experts hold 2.82 GB a layer: 90.2 GB at 32 layers would not
-         fit the card), bf16, stacked, from seed 0: ``_moe`` on layer 0 for
+         fit the card; 16 until PR 20, 8 for the script's time), bf16,
+         stacked, from seed 0: ``_moe`` on layer 0 for
          64 tokens (the sparse dispatch) against the same tokens in chunks of
          16 (the dense masked path) in fp32 and bf16, and
          ``moe_ffn_sparse`` against a per-token loop; bench.py's query
-         through ``generate`` (32 greedy tokens, K4 23 and K5 16 launches,
+         through ``generate`` (32 greedy tokens, K4 23 and K5 8 launches,
          nothing else; the first 8 tokens held to the argmax of a full
          forward teacher-forced on them, in bf16 and in fp32 compute), the
          prefill's and a decode step's device and host times, host syncs and
@@ -259,7 +268,21 @@ Phase 14  the (data, fsdp, model) mesh over NCCL, one rank a card, at
          one-process step's own repeat spread), step ms, tokens/s, peak GiB,
          K5b and K5c launched; ``moe_ffn_ep`` at Mixtral-8x7B's layer shapes
          (2048 tokens, factor 4: nothing dropped) against
-         ``moe_ffn_sparse`` in fp32 (1e-4) and bf16 (8 ulps), timed.
+         ``moe_ffn_sparse`` in fp32 (1e-4) and bf16 (8 ulps), timed; then
+         the composed multimodal train step (``parallel.composed``) of
+         SliME-8B at full width, its LLM cut to 4 of 32 layers (6 at three
+         ranks; a memory cut that the stages divide), on the (data, fsdp,
+         model, pp) = (1, 1, 1, world) mesh: full-parameter bf16 with AdamW,
+         4 rows of 1 + 7 crops, S = 2048, n_micro 4, remat, 2 steps; at one
+         rank step 1's loss within the one-process step's own repeat spread
+         (``train.step.make_train_step``, run first and freed); K4, K5, K5b
+         and K5c launched; step ms, tokens/s, peak GiB beside
+         ``memory_plan.plan_mm``'s bytes (JAX's model, recorded);
+         ``pipeline_forward`` held to ``llama.forward`` (top-1 up to near
+         ties) on the same weights.
+
+``main`` logs each phase's wall time, and all of them in one line before
+the records.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
@@ -430,19 +453,24 @@ BRANCH_LEN, BRANCH_NEW, BEAM_SCORE_SLACK = 4096, 32, 0.1
 # 1.0, the norms' weights, by at least an ulp)
 DPO_RECORDS, DPO_PAIRS, DPO_STEPS = 8, 2, 3
 OPT8_LR = 5e-3
+# phases 10, 11a, 11b and 12 run SliME-8B at full width with its LLM cut to
+# this many of its 32 layers, for the script's time (they ran at 32 until
+# PR 20; the serving phases 2-9 keep all 32)
+CUT_LAYERS = 8
 # phase 12: the eval harness's questions (on 4 images of these sizes, one
 # prompt past a 64-token bucket), new tokens an answer, batch, beams, the
 # video's frames and the LLM layers of the checkpoint written for the CLI
 EVAL_SIZES = ((672, 672), (1000, 600), (400, 900), (336, 336))
 EVAL_QUESTIONS, EVAL_NEW, EVAL_BATCH, EVAL_BEAMS = 8, 16, 4, 3
 EVAL_FRAMES, EVAL_CKPT_LAYERS = 8, 2
-# phase 13: Mixtral-8x7B cut to 16 of its 32 layers (a memory cut: one
+# phase 13: Mixtral-8x7B cut to 8 of its 32 layers (a memory cut, one
 # layer's bf16 experts are 8 x 3 x 14336 x 4096 x 2 B = 2.82 GB, 90.2 GB at
-# 32 layers, over the card's 80 GB) and 2 of them for the training
-# backward; the layer check's tokens and dense chunk; tokens a request, the
+# 32 layers, over the card's 80 GB; 16 until PR 20, then 8 for the script's
+# time) and 2 of them for the training backward; the layer check's tokens
+# and dense chunk; tokens a request, the
 # first of them held to full forwards; MPT-7B's prompt; the Mamba block's
 # input (5 crops of 577 tokens at CLIP-L's width)
-MIXTRAL_LAYERS, MIXTRAL_TRAIN_LAYERS = 16, 2
+MIXTRAL_LAYERS, MIXTRAL_TRAIN_LAYERS = 8, 2
 MOE_TOKENS, MOE_CHUNK, MOE_NEW, MOE_FORWARD_TOKENS = 64, 16, 32, 8
 # a router near tie (router_tie_rule): the chosen and the dropped expert's
 # gate logits within this many bf16 ulps of the row's largest |logit|
@@ -3003,14 +3031,13 @@ def serve_phases(dev, cfg):
         got[n] += c
     for n, c in got.items():
         launches[n] += c
-    for n, c in engine_phase(dev, cfg, params).items():          # phase 8
-        launches[n] += c
-    for n, c in serving_stack_phase(dev, cfg, params).items():   # phase 9
-        launches[n] += c
-    for n, c in multi_lora_phase(dev, cfg, params).items():      # phase 9, multi-LoRA
-        launches[n] += c
-    for n, c in branches_phase(dev, cfg, params).items():        # phases 2-3, branches
-        launches[n] += c
+    log(f"phases 2, 3, 7: wall {time.perf_counter() - t0:.1f} s")
+    walls = []
+    for tag, phase in (("phase 8", engine_phase), ("phase 9", serving_stack_phase),
+                       ("phase 9 multi-LoRA", multi_lora_phase),
+                       ("phases 2-3 branches", branches_phase)):
+        for n, c in timed(walls, tag, phase, dev, cfg, params).items():
+            launches[n] += c
     del params
     return launches
 
@@ -3432,7 +3459,8 @@ def sft_data(root, cfg, tok):
 
 def train_cli_phase(dev, cfg):
     """Phase 10: the training CLI (``slime_tpu_torch.train.cli.main``),
-    QLoRA on SliME-8B at full width and depth from random weights, as
+    QLoRA on SliME-8B at full width and ``cfg``'s depth (CUT_LAYERS of 32
+    from ``main``, for time) from random weights, as
     scripts/llama3_8b_lora_sft.sh runs it with --bits 4, cut in batch and
     steps; its resume, held to the uninterrupted trainer; one traced
     micro-step; a packed text-only run. Returns the launch counts of its
@@ -3985,7 +4013,8 @@ def dpo_cli_phase(dev, cfg):
     """Phase 11a: QLoRA-DPO from the command line (``train.cli.main`` with
     phase 10's QLoRA flags and --task DPO), bench_dpo_8b.py's step (policy
     forward, dX backward, remat re-forward, a reference forward without
-    gradient) at SliME-8B's full width and depth from random fp32 weights;
+    gradient) at SliME-8B's full width and ``cfg``'s depth (CUT_LAYERS of
+    32 from ``main``) from random fp32 weights;
     then an ipo, token-weighted, SFT-mixed command for one step. Returns the
     launch counts of both commands."""
     import gc
@@ -4147,7 +4176,8 @@ def moments(tr):
 
 def opt8_phase(dev, cfg):
     """Phase 11b: a full-parameter step with 8-bit Adam moments on phase 4's
-    bf16 SliME-8B (every leaf but the frozen tower trainable), B = 1, S =
+    bf16 SliME-8B at ``cfg``'s depth (CUT_LAYERS of 32 from ``main``; every
+    leaf but the frozen tower trainable), B = 1, S =
     2048, remat, through the ``Trainer``: the state's size against fp32
     Adam's, peak memory, step and update times; every trainable leaf moved;
     ``layers/gate_proj``'s codes and scales after step 1 against opt8's
@@ -4517,14 +4547,16 @@ def eval_data(root, cfg):
 
 
 def eval_phase(dev, cfg):
-    """Phase 12: evaluation on SliME-8B at full width and depth, bf16
+    """Phase 12: evaluation on SliME-8B at full width and ``cfg``'s depth
+    (CUT_LAYERS of 32 from ``main``), bf16
     throughout (dense LLM, stacked; what ``eval.cli`` loads a bf16
     checkpoint into), with a byte tokenizer and EOS off (every answer runs
     its EVAL_NEW tokens). ``eval.harness.run_eval`` answers EVAL_QUESTIONS
     questions at batch 4 and at batch 1 (equal up to a logged near tie, held
     by generate's teacher-forced logits), with the launches per request
-    asserted (K4 23 an encode, K5 32 a prefill, dense K1-K3 32 a decode step
-    each) and one batch traced; ``run_eval(num_beams=3)`` on 2 questions
+    asserted (K4 23 an encode, K5 a prefill and dense K1-K3 a decode step
+    once a layer each) and one batch traced; ``run_eval(num_beams=3)`` on 2
+    questions
     (``check_beam``: beam search's guarantee against greedy's answer);
     ``video.run_video_mme`` on
     8 frames against ``generate`` on ``process_video_frames``' pixels;
@@ -5832,6 +5864,141 @@ def mesh_moe(dev, mesh, say):
             del ws, got, want
 
 
+# phase 14 (d): the composed step. The LLM's layers (a memory cut; the
+# stages divide them), the global rows, micro-batches and steps; the positions
+# a row at which pipeline_forward's top-1 is held to llama.forward's
+COMPOSED_LAYERS = {3: 6}
+COMPOSED_LAYERS_DEFAULT, COMPOSED_ROWS, COMPOSED_MICRO, COMPOSED_STEPS = 4, 4, 4, 2
+COMPOSED_POSITIONS = 256
+
+
+def composed_step(dev, cfg, world, say):
+    """Phase 14 (d): the composed multimodal train step of SliME-8B (every
+    width, the LLM cut to 4 of 32 layers, 6 at three ranks) on the (data,
+    fsdp, model, pp) = (1, 1, 1, world) mesh, full-parameter bf16 with
+    AdamW, n_micro = 4, 2 steps; at one rank step 1's loss within the
+    one-process step's own repeat spread; ``pipeline_forward`` against
+    ``llama.forward`` (top-1 up to near ties); -> launch counts of the
+    composed steps."""
+    from slime_tpu_torch.models import llama, slime
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.parallel import composed, memory_plan
+    from slime_tpu_torch.parallel.mesh import make_mesh
+    from slime_tpu_torch.parallel.pipeline import pipeline_forward
+    from slime_tpu_torch.train.optim import TrainConfig, adamw
+    from slime_tpu_torch.train.step import init_train_state, make_train_step
+
+    t_part = time.perf_counter()
+    n_layers = COMPOSED_LAYERS.get(world, COMPOSED_LAYERS_DEFAULT)
+    ccfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=n_layers))
+    S = ccfg.tokenizer_model_max_length
+    params = slime.init(ccfg, generator=torch.Generator(device=dev).manual_seed(SEED + 20),
+                        device=dev, dtype=torch.bfloat16)
+    batch = train_batches(ccfg, np.random.default_rng(SEED + 21), 1, COMPOSED_ROWS)[0]
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    noise = {"gate": torch.randn((COMPOSED_ROWS, ccfg.vision.num_patches, 2), generator=g,
+                                 device=dev),
+             "select": torch.randn((COMPOSED_ROWS, ccfg.max_local_crops
+                                    * ccfg.mm_resampler_dim), generator=g, device=dev)}
+    kw = dict(compute_dtype=torch.bfloat16, remat=True)
+
+    # the one-process full-parameter step, twice from the same state (its
+    # repeat spread), freed before the composed state is built
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_schedule="constant",
+                     total_steps=8)
+    ref = []
+    for _ in range(2):
+        state, tx = init_train_state(params, tc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = make_train_step(ccfg, tc, tx, **kw)(state, batch, noise=noise)
+        ref.append((float(m["loss"]), (time.perf_counter() - t0) * 1e3))
+        del state, tx, m
+        gc_cuda()
+
+    mesh = composed.make_composed_mesh(1, 1, 1, world)
+    state = composed.init_composed_mm_train_state(params, adamw(TRAIN_LR), mesh=mesh)
+    step = composed.make_composed_mm_train_step(ccfg, mesh=mesh, n_micro=COMPOSED_MICRO, **kw)
+    cbatch, cnoise = composed.composed_batch(mesh, batch), composed.composed_batch(mesh, noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    recs = []
+    for _ in range(COMPOSED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, cbatch, noise=cnoise)
+        torch.cuda.synchronize()
+        recs.append(((time.perf_counter() - t0) * 1e3, float(m["loss"]), float(m["grad_norm"])))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plans = {name: memory_plan.plan_mm(ccfg, n_pp=world, batch=COMPOSED_ROWS, seq=S,
+                                       n_micro=COMPOSED_MICRO, **pkw)
+             for name, pkw in (("JAX's layout: fp32 Adam and master", {}),
+                               ("the port's: bf16 moments, no master",
+                                dict(opt_bytes=2, master_fp32=False)))}
+    tokens = COMPOSED_ROWS * S
+    for i, (ms, loss, gn) in enumerate(recs):
+        say(f"phase 14 composed step {i + 1} (SliME-8B, LLM {n_layers} of 32 layers, mesh "
+            f"(data, fsdp, model, pp) = (1, 1, 1, {world}), {COMPOSED_ROWS} rows, S = {S}, "
+            f"n_micro {COMPOSED_MICRO}, bf16, AdamW, remat): loss {loss:.6f}, grad_norm "
+            f"{gn:.6f}, step {ms:.1f} ms, {tokens / ms * 1e3:.1f} tokens/s")
+    say(f"phase 14 composed: one-process step 1 loss {ref[0][0]:.6f}, again {ref[1][0]:.6f} "
+        f"({ref[0][1]:.1f} ms, {ref[1][1]:.1f} ms); peak {peak / 2 ** 30:.2f} GiB on this rank; "
+        + "; ".join(f"plan_mm ({name}) {p.total / 2 ** 30:.2f} GiB ({p.per_category_gb})"
+                    for name, p in plans.items())
+        + f"; launches: K4 {counts['encoder_attention']}, K5 {counts['flash_fwd']}, K5b "
+        f"{counts['flash_bwd_dkdv']}, K5c {counts['flash_bwd_dq']}")
+    losses = [r[1] for r in recs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 14 composed: losses {losses}")
+    if world == 1 and not abs(losses[0] - ref[0][0]) <= abs(ref[1][0] - ref[0][0]):
+        raise AssertionError(f"phase 14 composed step 1: loss {losses[0]} against the "
+                             f"one-process {ref[0][0]} ({ref[1][0]})")
+    if dev.type == "cuda" and not all(counts[n] for n in ("encoder_attention", "flash_fwd",
+                                                         "flash_bwd_dkdv", "flash_bwd_dq")):
+        raise AssertionError(f"phase 14 composed: K4, K5, K5b or K5c not launched: {counts}")
+    del state, step
+    gc_cuda()
+
+    # pipeline_forward against llama.forward on the same weights and rows
+    llm, lcfg = params["llm"], ccfg.llm
+    ids = batch["input_ids"]
+    rows = torch.arange(COMPOSED_ROWS, device=dev)[:, None]
+    at = torch.linspace(0, ids.shape[1] - 1, COMPOSED_POSITIONS, device=dev).long()
+    at = at[None].expand(COMPOSED_ROWS, -1)
+    with torch.no_grad(), fp32_accumulation():
+        embeds = llama.embed(llm, torch.where(ids < 0, 0, ids))
+        want, _ = llama.forward(llm, embeds, lcfg, compute_dtype=torch.bfloat16,
+                                return_hidden=True)
+        got = pipeline_forward(llm, embeds, lcfg, mesh=make_mesh(1, 1, 1, n_pp=world),
+                               n_micro=COMPOSED_MICRO, return_hidden=True)
+        want_l = llama._lm_head(llm, want[rows, at])
+        got_l = llama._lm_head(llm, got[rows, at])
+    top2 = want_l.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = got_l.argmax(-1) != want_l.argmax(-1)
+    worst = float(gap[differ].max()) if bool(differ.any()) else 0.0
+    say(f"phase 14 pipeline_forward over {world} stage(s) against llama.forward ({n_layers} "
+        f"layers, bf16, {COMPOSED_ROWS} x {ids.shape[1]}): top-1 equal at "
+        f"{int((~differ).sum())} of {differ.numel()} positions, the others at top-2 gaps up "
+        f"to {worst:.4f} (near-tie bound {ENGINE_TIE_ATOL}); hidden max |diff| "
+        f"{float((got - want).abs().max()):.4g}")
+    if worst > ENGINE_TIE_ATOL:
+        raise AssertionError(f"phase 14 pipeline_forward: top-1 parts at a gap of {worst}")
+    del params, got, want
+    gc_cuda()
+    say(f"phase 14 composed part: {time.perf_counter() - t_part:.1f} s")
+    return counts
+
+
+def gc_cuda():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def mesh_rank(rank, world, address, cfg):
     """Phase 14 on one rank of a ``world``-rank NCCL group; -> launch counts
     (rank 0 logs)."""
@@ -5860,6 +6027,7 @@ def mesh_rank(rank, world, address, cfg):
         del params
         torch.cuda.empty_cache()
         mesh_moe(dev, mesh, say)
+        counts = _add(counts, composed_step(dev, cfg, world, say))
         dist.barrier()
         return counts
     finally:
@@ -5906,7 +6074,18 @@ def mesh_phase(dev, cfg):
 
 
 
+def timed(walls, tag, fn, *args):
+    """fn(*args), its wall time logged and kept in ``walls``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    walls.append((tag, time.perf_counter() - t0))
+    log(f"{tag}: wall {walls[-1][1]:.1f} s")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
+    walls = []
     # ---------------- phase 0 ----------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -5930,36 +6109,25 @@ def main():
         f"nvcc (cached library: {_cuda.build_seconds is None}); load "
         f"{time.perf_counter() - t0:.2f} s")
     cfg = SliMEConfig.slime_8b()
+    cut = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=CUT_LAYERS))
+    walls.append(("phase 0 (checks, kernel build)", time.perf_counter() - t_start))
 
-    record = kernel_phase(dev, cfg)                              # phase 1
-    launches = serve_phases(dev, cfg)                            # phases 2, 3
-    torch.cuda.empty_cache()
-    for name, n in train_phase(dev, cfg, fa).items():            # phase 4
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in quantized_serve_phases(dev, cfg).items():     # phases 5, 5b
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in context_parallel_phase(dev, cfg).items():     # phase 6
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in train_cli_phase(dev, cfg).items():            # phase 10
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in dpo_cli_phase(dev, cfg).items():              # phase 11a
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in opt8_phase(dev, cfg).items():                 # phase 11b
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in eval_phase(dev, cfg).items():                 # phase 12
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in model_families_phase(dev).items():            # phase 13
-        launches[name] += n
-    torch.cuda.empty_cache()
-    for name, n in mesh_phase(dev, cfg).items():                 # phase 14, last
-        launches[name] += n
+    record = timed(walls, "phase 1", kernel_phase, dev, cfg)
+    launches = timed(walls, "phases 2, 3, 7-9 and the branches", serve_phases, dev, cfg)
+    for tag, phase, args in (("phase 4", train_phase, (dev, cfg, fa)),
+                             ("phases 5, 5b, 7", quantized_serve_phases, (dev, cfg)),
+                             ("phase 6", context_parallel_phase, (dev, cfg)),
+                             ("phase 10", train_cli_phase, (dev, cut)),
+                             ("phase 11a", dpo_cli_phase, (dev, cut)),
+                             ("phase 11b", opt8_phase, (dev, cut)),
+                             ("phase 12", eval_phase, (dev, cut)),
+                             ("phase 13", model_families_phase, (dev,)),
+                             ("phase 14", mesh_phase, (dev, cfg))):      # 14 last
+        torch.cuda.empty_cache()
+        for name, n in timed(walls, tag, phase, *args).items():
+            launches[name] += n
+    log("wall time by phase: " + "; ".join(f"{tag} {sec:.1f} s" for tag, sec in walls)
+        + f"; the whole script {time.perf_counter() - t_start:.1f} s")
     idle = [n for n in KERNELS if n not in OFF_PATH and launches[n] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -122,6 +122,15 @@ def stack_layers(layers):
     return torch.stack(layers)
 
 
+def unstack_layers(layers, num_layers: int):
+    """Inverse of ``stack_layers`` (``llama.py:211-216``): a stacked dict ->
+    the list of its ``num_layers`` layers (views, no copy); a list as it
+    is."""
+    if not isinstance(layers, dict):
+        return layers
+    return [_layer(layers, i) for i in range(num_layers)]
+
+
 def _layer(layers, i):
     """Layer i of a list or of a stacked dict (views, no copy)."""
     if isinstance(layers, list):

@@ -1,20 +1,27 @@
 """A multi-process dry run of the port's parallelism on tiny shapes.
 
-Port of ``dryrun_multichip`` (``__graft_entry__.py:85-226``) without its
-pipeline and composed parts: N ranks, one process each, run
+Port of ``dryrun_multichip`` (``__graft_entry__.py:85-226``): N ranks, one
+process each, run
 
 - one full-parameter train step on the ``(1, N/2, 2)`` mesh (``(1, N, 1)``
   for odd N), its loss held to the single-process step's;
 - a tensor-parallel ``generate(mesh=...)`` on ``(1, 1, N)``, its tokens held
   to the single-process ones;
+- the pipeline's wavefront (``parallel.pipeline.pipeline_forward``) over N
+  stages of an N-layer LLM at n_micro = N, held to the unsharded
+  ``llama.forward``;
 - the expert-parallel dispatch ``ops.moe_ep.moe_ffn_ep`` over the model
   axis, held to the dense oracle;
 - the sequence ring ``ops.ring_attention`` over a process group, held to the
   plain attention;
+- when 8 divides N, the composed multimodal train step
+  (``parallel.composed``) of ``SliMEConfig.tiny()`` on the (data, fsdp,
+  model, pp) = (1, N/4, 2, 2) mesh, 8 rows, n_micro = 4: its loss finite;
 
 and rank 0 prints one line per part. Run it with gloo on the CPU:
 
     python -m slime_tpu_torch.parallel.dryrun --ranks 4 --backend gloo
+    python -m slime_tpu_torch.parallel.dryrun --ranks 8 --backend gloo
 
 or with NCCL, one rank per card (``--ranks`` at most the card count). It
 starts the ranks itself (``torch.multiprocessing``), on a free localhost
@@ -97,6 +104,48 @@ def _decode_part(dev, n: int, say):
         f"equal the one-process tokens")
 
 
+def _pp_part(dev, n: int, say):
+    from ..config import LLMConfig
+    from ..models import llama
+    from .mesh import make_mesh
+    from .pipeline import pipeline_forward
+
+    cfg = LLMConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=n,
+                    num_heads=4, num_kv_heads=2, head_dim=8, max_position_embeddings=64)
+    params = llama.init(cfg, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 64, (n, 8))).to(dev)
+    with torch.no_grad():
+        embeds = llama.embed(params, ids)
+        want, _ = llama.forward(params, embeds, cfg)
+        got = pipeline_forward(params, embeds, cfg, mesh=make_mesh(1, 1, 1, device=dev, n_pp=n),
+                               n_micro=n)
+    err = float((got - want).abs().max())
+    assert err < 1e-5, err
+    say(f"pp wavefront over {n} stages (n_micro {n}): max |err| vs llama.forward {err:.2e}")
+
+
+def _composed_part(dev, n: int, say):
+    from ..config import SliMEConfig
+    from ..models import slime
+    from ..train.optim import adamw
+    from .composed import (composed_batch, init_composed_mm_train_state, make_composed_mesh,
+                           make_composed_mm_train_step)
+
+    cfg = SliMEConfig.tiny()
+    params = slime.init(cfg, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    mesh = make_composed_mesh(1, n // 4, 2, 2, device=dev)
+    state = init_composed_mm_train_state(params, adamw(1e-3), mesh=mesh)
+    step = make_composed_mm_train_step(cfg, mesh=mesh, n_micro=4, compute_dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in _batch(cfg, 8, 16, np.random.default_rng(3)).items()}
+    state, m = step(state, composed_batch(mesh, batch),
+                    generator=torch.Generator(device=dev).manual_seed(9 + dist.get_rank()))
+    loss = float(m["loss"])
+    assert np.isfinite(loss), loss
+    say(f"composed multimodal train step on mesh (data, fsdp, model, pp) = "
+        f"(1,{n // 4},2,2): loss={loss:.6f} grad_norm={float(m['grad_norm']):.6f}")
+
+
 def _moe_part(dev, n: int, say):
     from ..ops.moe_ep import moe_ffn_ep
     from .mesh import make_mesh
@@ -150,7 +199,10 @@ def _rank(rank: int, n: int, backend: str, address: str) -> None:
     say = (lambda s: print(f"dryrun({n}, {backend}): {s}", flush=True)) if rank == 0 \
         else (lambda s: None)
     try:
-        for part in (_train_part, _decode_part, _moe_part, _ring_part):
+        parts = [_train_part, _decode_part, _pp_part, _moe_part, _ring_part]
+        if n % 8 == 0:
+            parts.append(_composed_part)
+        for part in parts:
             part(dev, n, say)
         dist.barrier()
     finally:

@@ -8,6 +8,16 @@ coordinates (data-major: rank = (data * n_fsdp + fsdp) * n_model + model, the
 order of JAX's ``np.asarray(devices).reshape(n_data, n_fsdp, n_model)``), and
 one process group per axis (and ``dp``, data x fsdp, the batch axes).
 
+An optional fourth axis, ``pp`` (``n_pp`` > 1: the pipeline stages of
+``parallel.pipeline`` and ``parallel.composed``), sits between ``fsdp`` and
+``model`` in JAX's composed order ``(data, fsdp, pp, model)``
+(``slime_tpu/parallel/composed.py:35``): rank = ((data * n_fsdp + fsdp) *
+n_pp + pp) * n_model + model, which at ``n_pp`` = 1 is the order above. It
+brings a ``pp`` group and a ``batch`` group over (data, fsdp, pp), over which
+the composed multimodal step splits its encode; at ``n_pp`` = 1 neither is
+created (``pp`` is None, ``batch`` is ``dp``), so the groups of a
+three-axis mesh are made in the same order as before.
+
 - ``data`` x ``fsdp`` split the batch; leaves whose rule names ``fsdp`` are
   stored in shards along that dimension and gathered where they are used
   (``parallel.tensor_parallel``), their gradients reduce-scattered back;
@@ -45,6 +55,8 @@ from ..params import map_leaves, named_leaves
 from . import distributed
 
 AXES = ("data", "fsdp", "model")
+# the composed order (composed.py:35): pp just outside model
+COMPOSED_AXES = ("data", "fsdp", "pp", "model")
 SPEC_ATTR = "_mesh_spec"
 MESH_ATTR = "_mesh_id"
 
@@ -84,36 +96,63 @@ _QUANT_LEAVES = ("q", "q4", "q4g", "nf4")
 
 
 class Mesh:
-    """This rank's view of a ``(data, fsdp, model)`` grid of processes.
+    """This rank's view of a ``(data, fsdp, model)`` grid of processes, or
+    of a ``(data, fsdp, pp, model)`` one with ``n_pp`` > 1.
 
-    ``shape`` maps each axis to its size, ``coords`` to this rank's index on
-    it; ``group(axis)`` is the process group of the ranks that differ from
-    this one only along ``axis`` (``"dp"``: along data and fsdp; ``"world"``:
-    every rank). Without an initialized default group the mesh must be of
-    one process and has no groups: ``group`` returns None and the
-    collectives of ``parallel.tensor_parallel`` skip."""
+    ``shape`` maps each axis to its size (``pp`` only when ``n_pp`` > 1:
+    ``axis_size`` and ``index`` read it as 1 and 0 otherwise), ``coords``
+    to this rank's index on it; ``group(axis)``
+    is the process group of the ranks that differ from this one only along
+    ``axis`` (``"dp"``: along data and fsdp; ``"batch"``: along data, fsdp
+    and pp; ``"world"``: every rank). Without an initialized default group
+    the mesh must be of one process and has no groups: ``group`` returns
+    None and the collectives of ``parallel.tensor_parallel`` skip."""
 
     def __init__(self, n_data: int, n_fsdp: int, n_model: int, rank: int = 0,
-                 groups: Optional[Dict] = None, device=None):
-        self.shape = {"data": n_data, "fsdp": n_fsdp, "model": n_model}
+                 groups: Optional[Dict] = None, device=None, n_pp: int = 1):
         self.rank = rank
-        self.coords = dict(zip(AXES, rank_coords(rank, n_data, n_fsdp, n_model)))
+        self.coords = grid_coords(rank, n_data, n_fsdp, n_pp, n_model)
+        if n_pp > 1:
+            self.shape = {"data": n_data, "fsdp": n_fsdp, "pp": n_pp, "model": n_model}
+        else:                           # a three-axis mesh, as before the pp axis
+            self.shape = {"data": n_data, "fsdp": n_fsdp, "model": n_model}
+            del self.coords["pp"]
         self._groups = groups or {}
         self.device = torch.device(device) if device is not None else _default_device()
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["fsdp"] * self.shape["model"]
+        return int(np.prod(list(self.shape.values())))
 
     def group(self, axis: str):
+        if axis == "batch" and "pp" not in self.shape:
+            axis = "dp"
         return self._groups.get(axis)
 
     def axis_size(self, axis: str) -> int:
+        """The size of ``axis`` (1 for ``pp`` on a three-axis mesh), or of
+        ``dp``, ``batch`` or ``world``."""
         if axis == "dp":
             return self.shape["data"] * self.shape["fsdp"]
+        if axis == "batch":
+            return self.axis_size("dp") * self.axis_size("pp")
         if axis == "world":
             return self.size
-        return self.shape[axis]
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 on an axis the mesh lacks)."""
+        return self.coords.get(axis, 0)
+
+    def rank_at(self, axis: str, index: int) -> int:
+        """The global rank of the process at ``index`` on ``axis`` and at this
+        rank's coordinates on the other axes."""
+        stride = 1
+        for a in reversed(COMPOSED_AXES):
+            if a == axis:
+                return self.rank + (index - self.index(a)) * stride
+            stride *= self.axis_size(a)
+        raise ValueError(f"no axis {axis!r}")
 
     def __enter__(self):
         _STACK.append(self)
@@ -124,7 +163,8 @@ class Mesh:
         return False
 
     def __repr__(self):
-        return (f"Mesh(data={self.shape['data']}, fsdp={self.shape['fsdp']}, "
+        pp = f"pp={self.shape['pp']}, " if "pp" in self.shape else ""
+        return (f"Mesh(data={self.shape['data']}, fsdp={self.shape['fsdp']}, {pp}"
                 f"model={self.shape['model']}, rank={self.rank})")
 
 
@@ -154,35 +194,52 @@ def rank_coords(rank: int, n_data: int, n_fsdp: int, n_model: int) -> Tuple[int,
     return rank // (n_fsdp * n_model), (rank // n_model) % n_fsdp, rank % n_model
 
 
+def grid_coords(rank: int, n_data: int, n_fsdp: int, n_pp: int, n_model: int) -> Dict[str, int]:
+    """{axis: index} of a rank on the (data, fsdp, pp, model) grid, data-major
+    (``composed.make_composed_mesh``'s device reshape); ``rank_coords`` at
+    ``n_pp`` = 1."""
+    idx = np.unravel_index(rank, (n_data, n_fsdp, n_pp, n_model))
+    return {a: int(i) for a, i in zip(COMPOSED_AXES, idx)}
+
+
+def _lines(grid: np.ndarray, axes: Tuple[int, ...]) -> np.ndarray:
+    """The groups of ranks that differ only along ``axes`` of ``grid``, one a
+    row, the other axes' order kept."""
+    moved = np.moveaxis(grid, axes, tuple(range(-len(axes), 0)))
+    return moved.reshape(-1, int(np.prod([grid.shape[a] for a in axes])))
+
+
 def make_mesh(n_data: int = 1, n_fsdp: Optional[int] = None, n_model: int = 1,
-              device=None) -> Mesh:
+              device=None, n_pp: int = 1) -> Mesh:
     """The mesh over the default process group's ranks (one process and no
     groups when none is initialized). ``n_fsdp`` None takes what is left of
-    the world after data x model, as JAX. The product must equal the world
-    size. Every rank must call it, in the same order as its other group
-    creations: it creates the axis groups with ``dist.new_group``."""
+    the world after data x model (x pp), as JAX. The product must equal the
+    world size. Every rank must call it, in the same order as its other group
+    creations: it creates the axis groups with ``dist.new_group`` (``pp`` and
+    ``batch`` only when ``n_pp`` > 1)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_fsdp is None:
-        n_fsdp = world // (n_data * n_model)
-    if n_data * n_fsdp * n_model != world:
-        raise ValueError(f"mesh (data={n_data}, fsdp={n_fsdp}, model={n_model}) has "
-                         f"{n_data * n_fsdp * n_model} ranks, the world has {world}")
+        n_fsdp = world // (n_data * n_model * n_pp)
+    if n_data * n_fsdp * n_model * n_pp != world:
+        pp = f", pp={n_pp}" if n_pp > 1 else ""
+        raise ValueError(f"mesh (data={n_data}, fsdp={n_fsdp}, model={n_model}{pp}) has "
+                         f"{n_data * n_fsdp * n_model * n_pp} ranks, the world has {world}")
     if not dist.is_initialized():
-        return Mesh(n_data, n_fsdp, n_model, 0, None, device)
+        return Mesh(n_data, n_fsdp, n_model, 0, None, device, n_pp=n_pp)
     rank = dist.get_rank()
-    grid = np.arange(world).reshape(n_data, n_fsdp, n_model)
+    grid = np.arange(world).reshape(n_data, n_fsdp, n_pp, n_model)
+    named = [("data", (0,)), ("fsdp", (1,)), ("model", (3,)), ("dp", (0, 1))]
+    if n_pp > 1:
+        named += [("pp", (2,)), ("batch", (0, 1, 2))]
     groups = {}
     # every rank creates every group, in one order
-    for axis, lines in (("data", grid.transpose(1, 2, 0).reshape(-1, n_data)),
-                        ("fsdp", grid.transpose(0, 2, 1).reshape(-1, n_fsdp)),
-                        ("model", grid.reshape(-1, n_model)),
-                        ("dp", grid.transpose(2, 0, 1).reshape(n_model, -1))):
-        for ranks in lines:
+    for axis, axes in named:
+        for ranks in _lines(grid, axes):
             g = dist.new_group([int(r) for r in ranks])
             if rank in ranks:
                 groups[axis] = g
     groups["world"] = dist.group.WORLD
-    return Mesh(n_data, n_fsdp, n_model, rank, groups, device)
+    return Mesh(n_data, n_fsdp, n_model, rank, groups, device, n_pp=n_pp)
 
 
 def tp_mesh(n: int, device=None) -> Optional[Mesh]:
@@ -275,7 +332,7 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """This rank's block of a whole tensor under ``spec``."""
     for d, ax in enumerate(spec):
         for a in ((ax,) if isinstance(ax, str) else (ax or ())):
-            t = _chunk(t, d, mesh.shape[a], mesh.coords[a])
+            t = _chunk(t, d, mesh.axis_size(a), mesh.index(a))
     return t
 
 
@@ -293,14 +350,15 @@ def layer_list(params):
     return {**params, "llm": {**llm, "layers": listed}}
 
 
-def shard_params(mesh: Mesh, params):
-    """Each rank keeps its shard of every leaf (``param_pspec``), a fresh
+def shard_params(mesh: Mesh, params, spec_fn=None):
+    """Each rank keeps its shard of every leaf (``param_pspec``, or
+    ``spec_fn(path, shape)``: the composed steps' stacked specs), a fresh
     contiguous copy on the mesh's device with its spec recorded. Always
     copies, as JAX's ``shard_params``."""
     def put(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        spec = param_pspec(path, leaf.shape, mesh)
+        spec = (spec_fn or (lambda p, shape: param_pspec(p, shape, mesh)))(path, leaf.shape)
         out = local_shard(leaf.detach(), spec, mesh).to(mesh.device).contiguous().clone()
         setattr(out, SPEC_ATTR, spec)
         setattr(out, MESH_ATTR, id(mesh))

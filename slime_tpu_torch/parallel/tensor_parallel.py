@@ -189,6 +189,13 @@ def reduce_dp(t):
     return t if g is None else _ReduceOut.apply(t, g)
 
 
+def reduce_batch(t):
+    """``reduce_dp`` over (data, fsdp, pp): the composed steps spread their
+    rows over the pipeline stages too."""
+    g = _group("batch")
+    return t if g is None else _ReduceOut.apply(t, g)
+
+
 def max_model(t):
     """All-reduce max over ``model``, no gradient."""
     return _all_reduce(t.detach(), _group("model"), dist.ReduceOp.MAX)
@@ -520,16 +527,23 @@ def sync_grads(leaves) -> None:
     leaf split over fsdp). Model ranks need nothing: a split leaf's gradient
     is its shard's, a whole leaf's is the same on every model rank (a whole
     leaf that meets only this rank's part of a pair, an adapter factor,
-    passes through ``enter``, whose backward sums it over ``model``)."""
+    passes through ``enter``, whose backward sums it over ``model``). On a
+    mesh with pipeline stages a leaf that is not split over ``pp`` (the
+    head, the tower) is summed over ``pp`` too: each stage computed its own
+    part of its gradient (the embedding on stage 0, the head on its rows)."""
     mesh = active()
     if mesh is None:
         return
     for p in leaves:
         if p.grad is None:
             continue
-        axis = "data" if "fsdp" in spec_of(p) else "dp"
+        spec = spec_of(p)
+        axis = "data" if "fsdp" in spec else "dp"
         g = mesh.group(axis)
         if g is not None and mesh.axis_size(axis) > 1:
+            dist.all_reduce(p.grad, group=g)
+        g = mesh.group("pp")
+        if g is not None and mesh.axis_size("pp") > 1 and "pp" not in spec:
             dist.all_reduce(p.grad, group=g)
 
 
@@ -542,7 +556,7 @@ def replicas(p) -> int:
     split = 1
     for ax in spec_of(p):
         if ax is not None:
-            split *= mesh.shape[ax]
+            split *= mesh.axis_size(ax)
     return mesh.size // split
 
 

@@ -162,14 +162,14 @@ class GroupedAdamW:
     trainable leaves, before clipping) as a 0-d tensor."""
 
     def __init__(self, groups: Dict[str, List[Tuple[str, torch.Tensor]]],
-                 tc: TrainConfig):
+                 tc: TrainConfig, decays: Callable[[str, torch.Tensor], bool] = _decays):
         self.tc = tc
         self.groups = []
         for label, leaves in groups.items():
             lr = (tc.mm_projector_lr or tc.learning_rate) if label == "proj" \
                 else tc.learning_rate
-            decay = [p for path, p in leaves if _decays(path, p)]
-            no_decay = [p for path, p in leaves if not _decays(path, p)]
+            decay = [p for path, p in leaves if decays(path, p)]
+            no_decay = [p for path, p in leaves if not decays(path, p)]
             param_groups = [{"params": ps, "weight_decay": wd}
                             for ps, wd in ((decay, tc.weight_decay), (no_decay, 0.0))
                             if ps]
@@ -268,6 +268,20 @@ class MultiSteps:
         self.mini_step, self.gradient_step = sd["mini_step"], sd["gradient_step"]
         for a, b in zip(self.acc, sd["acc"]):
             a.copy_(b)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> Callable:
+    """``optax.adamw(learning_rate)`` with its defaults, as a transform: a
+    function of the trainable leaves ``[(path, tensor)]`` that returns their
+    optimizer (a ``GroupedAdamW`` of one group: a constant rate, no
+    clipping, every leaf decayed, as optax's adamw without a mask). The
+    pipeline and composed steps take it where JAX's take an optax
+    transform (``init_pp_train_state(params, tx, ...)``)."""
+    tc = TrainConfig(learning_rate=learning_rate, weight_decay=weight_decay, adam_b1=b1,
+                     adam_b2=b2, adam_eps=eps, warmup_ratio=0.0, lr_schedule="constant",
+                     max_grad_norm=math.inf)
+    return lambda leaves: GroupedAdamW({"base": list(leaves)}, tc, decays=lambda *_: True)
 
 
 def _build(groups, tc: TrainConfig):

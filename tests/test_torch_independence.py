@@ -6,7 +6,9 @@ originals.
   ``slime_tpu`` imports every module of ``slime_tpu_torch`` and every module
   ``chip_smoke.py`` names, then ``chip_smoke`` itself; the MoE dispatch,
   MPT and Mamba modules, and ``parallel.mesh``, ``parallel.tensor_parallel``,
-  ``ops.moe_ep`` and ``parallel.dryrun``, are among those it walks.
+  ``ops.moe_ep``, ``parallel.dryrun``, ``parallel.pipeline``,
+  ``parallel.composed`` and ``parallel.memory_plan``, are among those it
+  walks.
 - ``config``: ``SliMEConfig.slime_8b().to_json_dict()`` and every preset,
   field by field, and ``save``/``load`` across the packages.
 - ``data.anyres`` grids over a sweep of image sizes, the host anyres crops,
@@ -75,11 +77,14 @@ def test_port_and_smoke_import_nothing_of_jax():
         for m in mods:
             importlib.import_module(m)
         # the MoE dispatch, MPT and Mamba modules, and the mesh, its views,
-        # the expert-parallel dispatch and the dry run are among those walked
+        # the expert-parallel dispatch, the dry run, the pipeline, the
+        # composed steps and the memory plan are among those walked
         assert {"slime_tpu_torch.ops.moe_dispatch", "slime_tpu_torch.models.mpt",
                 "slime_tpu_torch.models.mamba", "slime_tpu_torch.parallel.mesh",
                 "slime_tpu_torch.parallel.tensor_parallel", "slime_tpu_torch.ops.moe_ep",
-                "slime_tpu_torch.parallel.dryrun"} <= set(mods)
+                "slime_tpu_torch.parallel.dryrun", "slime_tpu_torch.parallel.pipeline",
+                "slime_tpu_torch.parallel.composed",
+                "slime_tpu_torch.parallel.memory_plan"} <= set(mods)
         names = set()
         for node in ast.walk(ast.parse(open("chip_smoke.py").read())):
             if isinstance(node, ast.Import):
