@@ -29,8 +29,10 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          in int8 and q4g at B up to 128, bf16 and fp32 (in bf16 at B <= 8
          on their weight ring, with its launches' device times from the
          profiler, K2 and K3 beside torch's int8 / int4 weight-only
-         product), and on dense bf16 weights at B = 1 and 4 (row per warp,
-         beside torch.nn.functional.linear of the bf16 product), the flash-attention
+         product), and on dense bf16 weights at B = 1, 4, 6 and 8 (K2, and
+         K1 at B <= 4, on the weight ring, each beside the instance its rule
+         does not take on the same inputs, K3 row per warp; all beside
+         torch.nn.functional.linear of the bf16 product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
@@ -213,8 +215,9 @@ Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
          runs the evaluation path with a byte tokenizer and EOS off:
          ``eval.harness.run_eval`` on 8 questions over 4 images (16 tokens,
          llama3 template) at batch 4 and at batch 1, equal up to a logged
-         near tie, the launches of each request asserted (K4 23, K5 and
-         dense K1-K3 once a layer a prefill and a decode step) and one
+         near tie, the launches of each request asserted (K4 23, K5 once a
+         layer a prefill, dense K2 on the weight ring, K1 on it at up to 4
+         rows, dense K3 row per warp, once a layer a decode step) and one
          batch and the decode step
          traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
          prefix leads greedy's after they part, as beam search guarantees);
@@ -369,7 +372,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
         "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0,
         "fused_qkv_decode_dense": 2e-3, "fused_o_residual_dense": 2e-3,
-        "fused_mlp_decode_dense": 2e-3}
+        "fused_mlp_decode_dense": 2e-3, "fused_qkv_decode_dense_ring": 2e-3,
+        "fused_mlp_decode_dense_ring": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -543,15 +547,25 @@ KERNELS = {
     "p4_q4g_unpack": ("slime_tpu_torch/csrc/int4_probes.cu",
                       "scripts/bench_q4g_unpack_probe.py:90"),
     "p3_int8_dot": ("slime_tpu_torch/csrc/int8_dot.cu", "scripts/bench_int8_dot_probe.py:59"),
-    # K1-K3's row-per-warp kernels on dense bf16 weights with bf16 activations:
-    # the bf16 checkpoints of the eval path (phase 12)
+    # K1-K3's row-per-warp kernels on dense bf16 weights with bf16 activations
+    # (the bf16 checkpoints of the eval path, phase 12: K3, K1 at B > 4, K2 at
+    # B > 8)
     "fused_qkv_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_qkvo.py:146"),
     "fused_o_residual_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_mlp.py:366"),
+    # K1 (B <= 4) and K2 (B <= 8) on the weight ring with dense bf16 weights:
+    # the bf16 checkpoints' decode steps (phase 12)
+    "fused_qkv_decode_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                    "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_mlp_decode_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                    "slime_tpu/ops/fused_mlp.py:366"),
 }
+# the decode kernels with a dense bf16 instance on the weight ring (K3's
+# dense instance is row per warp only)
+DENSE_RING = ("fused_qkv_decode", "fused_mlp_decode")
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
 KERNELS.update({"ring_attention_rdma" + sfx: KERNELS["ring_attention_rdma"]
@@ -583,9 +597,12 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # instances in bf16 with q4g weights take B > 8 only (the weight ring takes
 # B <= 8 at these widths), which no path sends them (decode runs at B = 1
 # and 4; phase 7's B = 65 is fp32); their int8 twins take the engine's
-# fused chunks of 9-64 rows (phase 8). Phase 1 checks them; the launch
-# counts of these off-path instances stay 0.
-OFF_PATH = ("quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
+# fused chunks of 9-64 rows (phase 8). K2's row-per-warp instance on dense
+# bf16 weights takes B > 8 only (the ring takes B <= 8), which no path sends
+# it (phase 12's bf16 model decodes at 1-6 rows; K1's dense instance takes
+# beam search's 6 row per warp). Phase 1 checks them; the launch counts of
+# these off-path instances stay 0.
+OFF_PATH = ("fused_qkv_decode_dense", "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
             "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
             "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
@@ -635,6 +652,8 @@ def _counters():
         out[n + "_ring"] = (fn, "ring_launches")
         out[n + "_q4g_ring"] = (fn, "q4g_ring_launches")
         out[n + "_dense"] = (fn, "dense_launches")
+        if n in DENSE_RING:
+            out[n + "_dense_ring"] = (fn, "dense_ring_launches")
     return out
 
 
@@ -651,12 +670,14 @@ def launch_counts():
         counts[n + "_q4g"] -= both
         counts[n + "_f32"] -= both
     for n in FUSED:
-        # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g ones
-        ring_q4g = counts[n + "_q4g_ring"]
-        counts[n + "_ring"] -= ring_q4g
-        # what is left of .launches in bf16: int8 and dense weights, row per
-        # warp (.dense: the dense ones)
-        counts[n] -= counts[n + "_ring"] + counts[n + "_dense"]
+        # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g
+        # ones, .dense_ring the dense bf16 ones; .dense every bf16 call on
+        # dense weights, on the ring or row per warp
+        ring_q4g, ring_dense = counts[n + "_q4g_ring"], counts.get(n + "_dense_ring", 0)
+        counts[n + "_ring"] -= ring_q4g + ring_dense
+        counts[n + "_dense"] -= ring_dense
+        # what is left of .launches in bf16: int8 weights row per warp
+        counts[n] -= counts[n + "_ring"] + counts[n + "_dense"] + ring_dense
         counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
@@ -1484,16 +1505,25 @@ def dense_llm_layers(cfg, generator, device):
 
 
 def dense_decode_kernels(dev, cfg, flush, record):
-    """Phase 1 for K1-K3's dense bf16 instance (row per warp; the eval path's
-    bf16 checkpoints, phase 12) at 8B width, layer 1 of a 2-layer stack, B =
-    1 and 4 (the records keep B = 1), from a generator of its own. Each is
-    timed beside ``torch.nn.functional.linear`` of its bf16 product alone on
-    the same weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and
-    W_up concatenated, then W_down on a fixed intermediate), a yardstick; the
-    MLP is held to the one-ulp bound of its bf16 intermediate."""
+    """Phase 1 for K1-K3 on dense bf16 weights (the eval path's bf16
+    checkpoints, phase 12) at 8B width, layer 1 of a 2-layer stack, B = 1, 4,
+    6 and 8 (the records keep B = 1), from a generator of their own. K2
+    takes the weight ring there and K1 at B <= 4 (``*_dense_ring``: each
+    wrapper's routing rule); each is also timed on the instance its rule
+    does not take, on the same inputs (``fused_mlp.mlp_launch`` /
+    ``fused_qkvo.qkv_launch`` with ``ring`` False or True, uncounted: the
+    row-per-warp "was" lines, records ``*_dense``, and the ring's lines
+    where the rule keeps K1 row per warp). K3 stays row per warp
+    (``fused_o_residual_dense``). Each is timed beside
+    ``torch.nn.functional.linear`` of its bf16 product alone on the same
+    weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and W_up
+    concatenated, then W_down on a fixed intermediate), a yardstick; the MLP
+    is held to the one-ulp bound of its bf16 intermediate. The ring's
+    launches' device times (profiler) are logged at B = 1 and 4."""
     import torch.nn.functional as F
 
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    from slime_tpu_torch.probes.mlp_decode import profile_split
 
     cfg2 = dataclasses.replace(cfg.llm, num_layers=2)
     H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
@@ -1504,34 +1534,65 @@ def dense_decode_kernels(dev, cfg, flush, record):
     wqkv = torch.cat(w("q_proj", "k_proj", "v_proj"))
     wgu = torch.cat(w("gate_proj", "up_proj"))
     wo, wd = w("o_proj")[0], w("down_proj")[0]
-    for B in (1, 4):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    routes = {"fused_qkv_decode": lambda B: fused_qkvo.qkv_ring_route(
+                  B, torch.bfloat16, fused_qkvo.DENSE, H, NQ, NKV, sms),
+              "fused_o_residual": lambda B: fused_qkvo.o_ring_route(
+                  B, torch.bfloat16, fused_qkvo.DENSE, NQ, H, sms),
+              "fused_mlp_decode": lambda B: fused_mlp.ring_route(
+                  B, torch.bfloat16, fused_qkvo.DENSE, H, I, sms)}
+    short = lambda n: n.replace("void (anonymous namespace)::", "").split("(")[0]  # noqa: E731
+    for B in (1, 4, 6, 8):
         x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
         a = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
         mid = torch.randn((B, I), device=dev, generator=g).to(torch.bfloat16)
-        # name: (kernel, plain, library, layer-1 tensors read, activations,
+        # name: (kernel, plain, library, the instance the rule does not take
+        # on the same inputs (uncounted), layer-1 tensors read, activations,
         # output columns, MACs per row)
         cases = {
             "fused_qkv_decode": (lambda: fused_qkvo.fused_qkv_decode(x, two, 1),
                                  lambda: fused_qkvo.fused_qkv_decode_ref(x, two, 1),
                                  lambda: F.linear(x, wqkv),
+                                 lambda: fused_qkvo.qkv_launch(x, two, 1, 1e-5,
+                                                               ring=not ring)[:3],
                                  w("input_layernorm", "q_proj", "k_proj", "v_proj"), (x,),
                                  NQ + 2 * NKV, H * (NQ + 2 * NKV)),
             "fused_o_residual": (lambda: fused_qkvo.fused_o_residual(a, x, two, 1),
                                  lambda: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
-                                 lambda: F.linear(a, wo), w("o_proj"), (x, a), H, NQ * H),
+                                 lambda: F.linear(a, wo), None, w("o_proj"), (x, a), H,
+                                 NQ * H),
             "fused_mlp_decode": (lambda: fused_mlp.fused_mlp_decode(x, two, 1),
                                  lambda: fused_mlp.fused_mlp_decode_ref(x, two, 1),
                                  lambda: (F.linear(x, wgu), F.linear(mid, wd)),
+                                 lambda: fused_mlp.mlp_launch(x, two, 1, 1e-5,
+                                                              ring=not ring)[0],
                                  w("post_attention_layernorm", "gate_proj", "up_proj",
                                    "down_proj"), (x,), H, 3 * H * I),
         }
-        for name, (kern, ref, lib, reads, acts, cols, macs) in cases.items():
+        for name, (kern, ref, lib, other, reads, acts, cols, macs) in cases.items():
             floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                      if name == "fused_mlp_decode" else None)
-            check_and_time(record, name + "_dense", f"8B width dense bf16 B={B} layer 1",
-                           kern, ref, nbytes(*acts, *reads) + B * cols * x.element_size(),
-                           2 * B * macs, BF16_OPS, flush, main=B == 1, dispatch=B == 1,
-                           floor=floor, library=lib)
+            ring = routes[name](B) is not None
+            moved = nbytes(*acts, *reads) + B * cols * x.element_size()
+            check_and_time(record, name + ("_dense_ring" if ring else "_dense"),
+                           f"8B width dense bf16 B={B} layer 1"
+                           + (" (weight ring)" if ring else " (row per warp)"),
+                           kern, ref, moved, 2 * B * macs, BF16_OPS, flush, main=B == 1,
+                           dispatch=B == 1, floor=floor, library=lib)
+            if other is not None:
+                check_and_time(record, name + ("_dense" if ring else "_dense_ring"),
+                               f"8B width dense bf16 B={B} layer 1 "
+                               + ("(was: the row-per-warp instance)" if ring else
+                                  "(the weight ring, which the rule does not take here)"),
+                               other, ref, moved, 2 * B * macs, BF16_OPS, flush, main=B == 1,
+                               floor=floor, library=lib)
+            if ring and B in (1, 4):
+                split, span = profile_split(kern, flush)
+                log(f"phase 1 {name}_dense_ring B={B} launches (profiler, device ms each, "
+                    f"L2 flushed): "
+                    + (", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
+                       + f"; first start to last end {span:.4f} ms" if split
+                       else "not measured (the profiler recorded no kernel)"))
     del two, wqkv, wgu
 
 
@@ -4554,8 +4615,10 @@ def eval_phase(dev, cfg):
     its EVAL_NEW tokens). ``eval.harness.run_eval`` answers EVAL_QUESTIONS
     questions at batch 4 and at batch 1 (equal up to a logged near tie, held
     by generate's teacher-forced logits), with the launches per request
-    asserted (K4 23 an encode, K5 a prefill and dense K1-K3 a decode step
-    once a layer each) and one batch traced; ``run_eval(num_beams=3)`` on 2
+    asserted (K4 23 an encode, K5 a prefill once a layer; a decode step
+    dense K2 on the weight ring, K1 on it at <= 4 rows (row per warp at
+    beam search's 6) and dense K3 row per warp once a layer each) and one
+    batch traced; ``run_eval(num_beams=3)`` on 2
     questions
     (``check_beam``: beam search's guarantee against greedy's answer);
     ``video.run_video_mme`` on
@@ -4577,6 +4640,8 @@ def eval_phase(dev, cfg):
     from slime_tpu_torch.data.tokenization import tokenizer_image_token
     from slime_tpu_torch.eval import benchmarks, cli, harness, video
     from slime_tpu_torch.models import llama
+    from slime_tpu_torch.ops import fused_mlp
+    from slime_tpu_torch.ops.weight_ring import DENSE
     from slime_tpu_torch.tools import verify_released_weights as verify
 
     bf = torch.bfloat16
@@ -4621,10 +4686,20 @@ def eval_phase(dev, cfg):
             counts[n] = counts.get(n, 0) + c
         return rec, wall
 
-    def request(steps):
-        """The launches of one generate call of ``steps`` decode steps."""
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    llm = cfg.llm
+
+    def request(steps, rows):
+        """The launches of one generate call of ``steps`` decode steps at
+        ``rows`` rows: dense K2 on the weight ring, K1 where its rule takes
+        the ring (B <= 4), K3 row per warp."""
+        k1_ring = fused_mlp.ring_route(rows, bf, DENSE, llm.hidden_size,
+                                       llm.intermediate_size, sms) is not None
         return {"encoder_attention": vis, "flash_fwd": L,
-                **{n + "_dense": L * steps for n in FUSED}}
+                "fused_qkv_decode_dense_ring": L * steps,
+                "fused_mlp_decode" + ("_dense_ring" if k1_ring else "_dense"): L * steps,
+                "fused_o_residual_dense": L * steps}
 
     def run(name, bs, qs=questions, **kw):
         return lambda: harness.run_eval(
@@ -4633,8 +4708,9 @@ def eval_phase(dev, cfg):
             max_new_tokens=EVAL_NEW, progress=False, **kw)
 
     # ---- run_eval at batch 4 and 1: equal up to a near tie ----
-    rec4, wall4 = window("12 run_eval batch 4", run("b4", EVAL_BATCH), request(EVAL_NEW - 1))
-    rec1, wall1 = window("12 run_eval batch 1", run("b1", 1), request(EVAL_NEW - 1))
+    rec4, wall4 = window("12 run_eval batch 4", run("b4", EVAL_BATCH),
+                         request(EVAL_NEW - 1, EVAL_BATCH))
+    rec1, wall1 = window("12 run_eval batch 1", run("b1", 1), request(EVAL_NEW - 1, 1))
     rows4, rows1 = rec4.rows(), rec1.rows()
     lens = [int(r[1].sum()) for r in rows1]
     log(f"phase 12 run_eval: {EVAL_QUESTIONS} questions, {EVAL_NEW} tokens each; host "
@@ -4699,7 +4775,7 @@ def eval_phase(dev, cfg):
 
     # ---- beams: the best beam's prefix leads greedy's where beam search says ----
     recb, wallb = window("12 beams", run("beams", 2, questions[:2], num_beams=EVAL_BEAMS),
-                         request(EVAL_NEW - 1))
+                         request(EVAL_NEW - 1, 2 * EVAL_BEAMS))
     for i, (rb, r1) in enumerate(zip(recb.rows(), rows1)):
         beam, greedy = (np.cumsum(seq_logprobs(params, cfg, *r1[:4], t)) for t in (rb[4], r1[4]))
         check_beam(i, rb[4], r1[4], beam, greedy)
@@ -4710,7 +4786,7 @@ def eval_phase(dev, cfg):
     recv, wallv = window("12 video", lambda: video.run_video_mme(
         params, cfg, tok, video_qs, frames_root=str(root / "frames"),
         answers_file=str(root / "video.jsonl"), max_new_tokens=EVAL_NEW),
-        request(EVAL_NEW - 1))
+        request(EVAL_NEW - 1, 1))
     pix, mask = video.process_video_frames(video.load_frames(str(root / "frames" / "v0")),
                                            tile=cfg.vision.image_size,
                                            max_crops=1 + cfg.max_local_crops)
@@ -4733,7 +4809,8 @@ def eval_phase(dev, cfg):
     # ---- MMBench: circular rounds ----
     recm, wallm = window("12 mmbench", lambda: benchmarks.run_mmbench(
         params, cfg, tok, str(root / "mmbench.tsv"), answers_file=str(root / "mmbench.jsonl"),
-        conv_mode="llama3", all_rounds=True, max_new_tokens=EVAL_NEW), request(EVAL_NEW - 1))
+        conv_mode="llama3", all_rounds=True, max_new_tokens=EVAL_NEW),
+        request(EVAL_NEW - 1, 1))
     mm = [json.loads(x) for x in open(root / "mmbench.jsonl")]
     if ([(r["question_id"], r["round_id"]) for r in mm]
             != [(str(i), k) for i in range(2) for k in range(4)]

@@ -39,10 +39,14 @@
 //
 // The weight ring (weight_ring_kernel): K1-K3's bf16 instances for int8 and
 // q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
-// paths, wherever a launch plan exists (the wrappers' routing rule).
+// paths, and K1's and K2's for dense bf16 weights (FMT kDense: the bf16
+// checkpoints' decode steps; K2 at B <= 8, K1 at B <= 4, where the ring
+// beat row per warp on an H100; K3 on dense weights stays row per warp),
+// wherever a launch plan exists (the wrappers' routing rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
-// SM) and by one dependent 16-byte load a lane in flight. Instead:
+// SM) and by one dependent 16-byte load a lane in flight (dense bf16: 8
+// weights a load, 27% of HBM's rate for K2 at B = 1). Instead:
 //   - a persistent grid (one block an SM) walks contiguous bands of output
 //     rows; one producer thread streams each band, R whole rows of every
 //     matrix a stage (one contiguous range each, ~8 KB), into a ring of up
@@ -54,6 +58,18 @@
 //   - int8 and int4 become fp32 exactly without I2F: the byte (XOR 0x80) or
 //     the nibble (XOR 8) is put into the low mantissa of 2^23 by one prmt,
 //     and one FADD of -(2^23 + 128) or -(2^23 + 8) leaves its signed value;
+//     a bf16 weight is the high half of its fp32 (a shift or a mask). A
+//     dense lane's 16-byte vector c holds columns 8 c .. 8 c + 7, which is
+//     activation chunk c: a quarter-warp reads eight chunks in a row, all
+//     32 banks once under the swizzle below. A dense row is twice an int8
+//     one (a stage at R = 1: 16 KB for gate/up at H = 4096, 28 KB for down
+//     at I = 14336, so 8 and 4 stages). With so few stages in flight one
+//     warp a row left most warps idle and each row's sum a long serial
+//     chain (on an H100 down at B = 4 took 0.121 ms against a 0.035 ms
+//     bound), so a dense plan splits each row's vectors over `split`
+//     warps (16 / the rows in flight: 4 for down, 2 for gate/up, 1 for
+//     K2's 16 stages), whose sums meet in shared memory: the fp32 sum of
+//     exact products, in another order;
 //   - the activations (h for gate/up, a for down, attn for o; for q/k/v x,
 //     normalised by each block as it copies it: K2's input norm needs no
 //     launch of its own; at most 8 rows, cut into launches of fewer rows
@@ -82,9 +98,13 @@
 //     pairs read as q4g's and int8's are, without bank conflicts; the
 //     nibbles convert as q4g's do. It is launched without PDL: in the
 //     non-fused decode it follows plain PyTorch kernels.
-// What bounds it: HBM's bytes for int8 (the ring without its dot products
-// streams the weights barely faster); for q4g, with two weights a byte, also
-// the consumers' instructions (about five a weight).
+// What bounds it: HBM's bytes for int8 and dense bf16 (the ring without its
+// dot products streams the weights barely faster); for q4g, with two weights
+// a byte, also the consumers' instructions (about five a weight). Where the
+// 128 KB ring does not hold two stages, or two stages and the activations do
+// not fit in shared memory, there is no plan (dense at B = 1: from K =
+// 32784 columns with one matrix a stage, 16400 with two, about half of
+// int8's; at more rows fewer) and the call takes the row-per-warp kernels.
 // Sums stay fp32 FFMA of exact products, in another order than the plain
 // version's; scales, silu, the bf16 intermediate and the fp32 residual are
 // the row-per-warp kernels'.
@@ -398,7 +418,8 @@ __global__ void __launch_bounds__(kThreads) gate_up_kernel(
 inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
 
 // ---------------------------------------------------------------------------
-// The weight ring: K1-K3's bf16 instances for int8 and q4g weights at B <= 8
+// The weight ring: K1-K3's bf16 instances for int8 and q4g weights, and K1's
+// and K2's for dense bf16 weights, at B <= 8
 // ---------------------------------------------------------------------------
 constexpr int kRingMaxWarps = 16;                       // consumer warps a block, at most
 constexpr int kRingMaxRows = 8;                         // activation rows a launch
@@ -411,8 +432,10 @@ constexpr int kRingSmemMax = 232448;                    // 227 KB, a block's mos
 // `parts` matrices one after another (K2: W_q, W_k, W_v; else one), part p
 // rows [part_end[p - 1], part_end[p]) of w[p], written to out[p].
 struct RingArgs {
-  const unsigned char* w[3];   // weights [rows, row_bytes]: int8 [rows, K], q4g or q4 [rows, K / 2]
-  const float* s[3];           // scales: int8 and q4 [rows] (one a row), q4g [rows, K / 128]
+  const unsigned char* w[3];   // weights [rows, row_bytes]: int8 [rows, K], q4g or q4
+                               // [rows, K / 2], dense bf16 [rows, K] (2 K bytes)
+  const float* s[3];           // scales: int8 and q4 [rows] (one a row), q4g [rows, K / 128];
+                               // dense: none
   const bf16* act;             // [B, K] activations, copied into shared memory whole
   const bf16* resid;           // [B, N] added to the output (MATS == 1), or null
   bf16* out[3];                // [B, rows of the part] (MATS 2: out[0], [B, N])
@@ -427,6 +450,7 @@ struct RingArgs {
   int stage_bytes;             // MATS * R * row_bytes (q4g: + MATS * R * K / 128 * 4)
   int align;                   // bands start at multiples of this many rows
   int band_cap;                // rows a band holds at most: ceil(N / grid) + align
+  int split;                   // consumer warps that share a row's columns (dense; else 1)
 };
 
 // 16 int8 weights (one 16-byte vector) -> fp32, exactly and without I2F: each
@@ -601,6 +625,31 @@ __device__ __forceinline__ void ring_dot_q4(const unsigned char* wrow, int mat_s
   }
 }
 
+// acc[m][b] += act[b, 8 c .. 8 c + 7] . W_m[row, same], for the dense bf16
+// vector c of one row of each matrix in the stage: the eight columns are
+// activation chunk c, so lanes c .. c + 7 (a quarter-warp's 16-byte reads)
+// read eight chunks of one swizzle group, 128 bytes on all 32 banks.
+template <int MATS, int BT>
+__device__ __forceinline__ void ring_dot_bf16(const unsigned char* wrow, int mat_stride, int c,
+                                              const bf16* act, int K, int B,
+                                              float (&acc)[MATS][BT]) {
+  float wf[MATS][8];
+#pragma unroll
+  for (int m = 0; m < MATS; ++m)
+    bf16x8_f32(*reinterpret_cast<const uint4*>(wrow + m * mat_stride + 16 * c), wf[m]);
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    if (b < B) {
+      float hf[8];
+      bf16x8_f32(reinterpret_cast<const uint4*>(act + (size_t)b * K)[act_chunk(c)], hf);
+#pragma unroll
+      for (int m = 0; m < MATS; ++m)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][b] = fmaf(hf[j], wf[m][j], acc[m][b]);
+    }
+  }
+}
+
 // Chunk j (columns 8 j .. 8 j + 7) of an activation row into shared memory
 // for the q4 dot: its even columns to the even half, its odd ones to the odd
 // half (K / 2 further), each half chunk-swizzled as a row of K / 2: the four
@@ -684,7 +733,7 @@ __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
 // operands of the band: int8 and q4 row
 // scales [MATS][band_cap] and the residual x [B][band_cap] (fp32, MATS 1
 // with a residual), loaded once at the start so no row waits on global
-// memory. The producer streams only weights, from the block's start; the
+// memory; for dense weights last the split rows' warp sums [2][W][MATS G][BT]. The producer streams only weights, from the block's start; the
 // consumers wait (griddepcontrol.wait) for the previous kernel's writes,
 // then stage the activations themselves with plain loads (a bulk copy
 // behind the weights' would arrive only once the stages before it had: on
@@ -700,7 +749,10 @@ __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
 // still waits for stage i - S: the parity wait would then see stage i - 2
 // S's completed phase and return at once. So the producer writes i into
 // issued[slot] once the stage is armed, and a warp waits for that before it
-// waits on the barrier.
+// waits on the barrier. Dense weights (p.split > 1) deal each row to a group
+// of split warps instead, each summing a split-th of its vectors (lane
+// vectors kp * 32 + lane, every 32 split further); the group adds its warp
+// sums in shared memory in warp order, and its first warp writes the row.
 template <int FMT, int MATS, int BT, int G>
 __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     const __grid_constant__ RingArgs p) {
@@ -715,6 +767,10 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   float* ep_scale = red + kRingMaxRows * kRingMaxWarps;           // int8: [MATS][cap]
   constexpr bool kRowScale = FMT == kInt8 || FMT == kRowQ4;        // a scale a row
   float* ep_res = ep_scale + (kRowScale ? MATS * p.band_cap : 0);   // resid: [B][cap]
+  // dense: the split rows' warp sums, [2][W][MATS * G][BT] (after the
+  // epilogue's residual rows, which a MATS-2 plan does not reserve)
+  float* part = ep_res + (MATS == 1 ? p.B * p.band_cap : 0);
+  const int ks = FMT == kDense ? p.split : 1;                       // warps a row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = band_start(blockIdx.x, gridDim.x, p.N, p.align);
   const int r1 = band_start(blockIdx.x + 1, gridDim.x, p.N, p.align);
@@ -722,7 +778,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], R / G);
+      mbar_init(&empty[s], R / G * ks);
       issued[s] = -1;
     }
     fence_barrier_init();
@@ -871,7 +927,10 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   constexpr int NV = MATS * G;
   const int vecs = p.row_bytes >> 4, mat_stride = R * p.row_bytes, kg = p.K / 128;
   const int vstride = MATS == 2 ? mat_stride : p.row_bytes;
-  for (int t = warp * G; t < band; t += W * G) {
+  // warp group grp (ks warps, each a ks-th of the row's vectors: kp) takes
+  // rows t .. t + G - 1 of the band as one warp does when ks is 1
+  const int grp = warp / ks, kp = warp % ks, NG = W / ks;
+  for (int t = grp * G; t < band; t += NG * G) {
     const int i = t / R, r = t % R, slot = i % S;
     float acc[NV][BT];
 #pragma unroll
@@ -892,26 +951,55 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
         ring_dot_q4g<NV, BT>(wrow, vstride, c, act, p.K, p.B, s, into);
       else if constexpr (FMT == kRowQ4)
         ring_dot_q4<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
+      else if constexpr (FMT == kDense)
+        ring_dot_bf16<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
       else
         ring_dot_int8<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
     };
-    int c = lane;
+    int c = kp * 32 + lane;
     if constexpr (BT == 1) {
       // two vectors at a time into two sets of sums: twice the loads and
       // FFMA chains in flight, where one activation row leaves few
       float acc2[NV][BT];
 #pragma unroll
       for (int v = 0; v < NV; ++v) acc2[v][0] = 0.f;
-      for (; c + 32 < vecs; c += 64) {
+      for (; c + 32 * ks < vecs; c += 64 * ks) {
         dot(c, acc);
-        dot(c + 32, acc2);
+        dot(c + 32 * ks, acc2);
       }
 #pragma unroll
       for (int v = 0; v < NV; ++v) acc[v][0] += acc2[v][0];
     }
-    for (; c < vecs; c += 32) dot(c, acc);
+    for (; c < vecs; c += 32 * ks) dot(c, acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);    // this warp's rows of the stage are read
+    if constexpr (FMT == kDense) {
+      if (ks > 1) {
+        // the group's ks warp sums of each output through shared memory
+        // (double-buffered by round: a buffer is written again only after
+        // the group's next barrier, which its reader has passed), added in
+        // warp order by warp kp 0 into its lane 0; the epilogue's warp_sum
+        // then adds only zeros to it
+        float* buf = part + (size_t)(((t / (NG * G)) & 1) * W + grp * ks) * NV * BT;
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            const float v = warp_sum(acc[k][b]);
+            if (lane == 0) buf[(kp * NV + k) * BT + b] = v;
+          }
+        named_barrier(2 + grp, ks * 32);
+        if (kp != 0) continue;
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            float v = 0.f;
+            for (int q = 0; q < ks; ++q) v += buf[(q * NV + k) * BT + b];
+            acc[k][b] = lane == 0 ? v : 0.f;
+          }
+      }
+    }
 #pragma unroll
     for (int b = 0; b < BT; ++b) {
       float v[NV];
@@ -990,30 +1078,40 @@ int launch_ring(const RingArgs& a, int grid, int warps, int smem, bool pdl, cuda
 // The launches of one projection over activation rows [0, B) in groups of
 // plan[4] (each group its own launch, streaming the weights again): plan =
 // {grid, rows_per_stage, stages, stage_bytes, batch_rows, smem, align,
-// consumer warps}. The plan is checked against what the kernel needs; one
-// it cannot run is refused.
+// consumer warps, split (warps a row: dense only)}, kPlanInts ints. The plan
+// is checked against what the kernel needs; one it cannot run is refused.
+constexpr int kPlanInts = 9;
+
 template <int MATS>
 int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cudaStream_t st) {
   const int grid = plan[0], R = plan[1], S = plan[2], bg = plan[4], smem = plan[5];
-  const int warps = plan[7];
-  const bool q4g = wfmt == kQ4G, q4 = wfmt == kRowQ4;
+  const int warps = plan[7], split = plan[8];
+  const bool q4g = wfmt == kQ4G, q4 = wfmt == kRowQ4, dense = wfmt == kDense;
   a.rows_per_stage = R;
   a.stages = S;
   a.stage_bytes = plan[3];
   a.align = plan[6];
   a.band_cap = grid < 1 ? 0 : (a.N + grid - 1) / grid + a.align;
-  const int kg = a.K / 128;
-  const long long ep = (long long)((q4g ? 0 : MATS) + (MATS == 1 ? bg : 0)) * a.band_cap;
+  a.split = split;
+  const int kg = a.K / 128, G = MATS == 1 && R % 2 == 0 ? 2 : 1;    // launch_ring_bt's G
+  const int bt = bg <= 1 ? 1 : bg <= 2 ? 2 : bg <= 4 ? 4 : 8;        // launch_ring's BT, at most
+  // dense: a split row's warp sums, [2][warps][MATS * G][BT] fp32
+  const long long part = dense ? 4LL * 2 * warps * MATS * G * bt : 0;
+  const long long ep = (long long)((q4g || dense ? 0 : MATS) + (MATS == 1 ? bg : 0)) *
+                       a.band_cap;
   const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * 2 + 8 * 2 * S +
-                         4 * S + 4 * kRingMaxRows * kRingMaxWarps + 4 * ep;
+                         4 * S + 4 * kRingMaxRows * kRingMaxWarps + 4 * ep + part;
   bool ok = (R == 1 || R == 2 || R == 4 || R == 8) && S >= 1 && bg >= 1 &&
             bg <= kRingMaxRows && grid >= 1 && grid <= a.N && a.row_bytes % 16 == 0 &&
             warps >= R && warps % R == 0 && warps <= kRingMaxWarps &&
+            split >= 1 && (split == 1 || dense) && warps % split == 0 &&
+            (warps / split) % (R / G) == 0 &&
             a.stage_bytes == MATS * R * (a.row_bytes + (q4g ? kg * 4 : 0)) &&
             need <= smem && smem <= kRingSmemMax && a.K % 16 == 0 &&
             reinterpret_cast<uintptr_t>(a.norm_w) % 16 == 0 &&
             (!q4 || (MATS == 1 && a.parts == 1 && a.norm_w == nullptr &&
                      a.row_bytes * 2 == a.K)) &&
+            (!dense || a.row_bytes == 2 * a.K) &&
             (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
             (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0)) &&
             a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N;
@@ -1040,6 +1138,7 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
     if (reinterpret_cast<uintptr_t>(a.act) % 16) return (int)cudaErrorInvalidValue;
     int e;
     if (q4g) e = launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st);
+    else if (dense) e = launch_ring<kDense, MATS>(a, grid, warps, smem, pdl, st);
     else if (!q4) e = launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
     else if constexpr (MATS == 1) e = launch_ring<kRowQ4, 1>(a, grid, warps, smem, pdl, st);
     else e = (int)cudaErrorInvalidValue;
@@ -1128,22 +1227,26 @@ int slime_gate_up_gemv(int act_f32, int wfmt, const void* h, int B, int K, const
 #undef SLIME_DISPATCH
 
 // K1 through the weight ring: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T),
-// y = x + a Wd^T, for bf16 x [B, H] (B <= 8) and int8 (wfmt 1) or q4g (2)
-// weights. h [B, H] and a [B, I] are the caller's scratch. plan: the launch
-// plans of gate/up (plan[0..7]) and down (plan[8..15]), ring_projection's
-// layout. With pdl, gate/up and down are programmatic dependents of the
-// kernel before them. Returns the first launch error, or 0.
+// y = x + a Wd^T, for bf16 x [B, H] (B <= 8) and dense bf16 (wfmt 0), int8
+// (1) or q4g (2) weights. h [B, H] and a [B, I] are the caller's scratch.
+// plan: the launch plans of gate/up (plan[0..8]) and down (plan[9..17]),
+// ring_projection's layout. With pdl, gate/up and down are programmatic
+// dependents of the kernel before them. Returns the first launch error, or 0.
 int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float eps, void* h,
                    void* a, void* y, int B, int H, int I, const void* wg, const void* sg,
                    const void* wu, const void* su, const void* wd, const void* sd,
                    const int* plan, void* stream) {
-  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1) return (int)cudaErrorInvalidValue;
+  if ((wfmt != kDense && wfmt != kInt8 && wfmt != kQ4G) || B < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
                                                   (bf16*)h, H, eps);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  const int q4g = wfmt == kQ4G;
+  // weight bytes a row of `k` columns
+  const auto row_bytes = [wfmt](int k) {
+    return wfmt == kQ4G ? k / 2 : wfmt == kDense ? 2 * k : k;
+  };
   RingArgs gu = {};
   gu.w[0] = (const unsigned char*)wg;
   gu.w[1] = (const unsigned char*)wu;
@@ -1155,7 +1258,7 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   gu.parts = 1;
   gu.K = H;
   gu.N = I;
-  gu.row_bytes = q4g ? H / 2 : H;
+  gu.row_bytes = row_bytes(H);
   e = ring_projection<2>(wfmt, pdl != 0, plan, gu, B, st);
   if (e != 0) return e;
   RingArgs dn = {};
@@ -1168,21 +1271,21 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   dn.parts = 1;
   dn.K = I;
   dn.N = H;
-  dn.row_bytes = q4g ? I / 2 : I;
-  return ring_projection<1>(wfmt, pdl != 0, plan + 8, dn, B, st);
+  dn.row_bytes = row_bytes(I);
+  return ring_projection<1>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st);
 }
 
 // K2 through the weight ring: q [B, NQ], k and v [B, NKV] = h W^T (scaled)
 // with h = rms_norm(x) * norm_w, in one launch over the row space [0, NQ +
 // 2 NKV) of W_q, W_k, W_v; each block normalises x into its shared memory.
-// bf16 x (B <= 8), fp32 norm_w [H], int8 (wfmt 1) or q4g (2) weights; with
-// pdl a programmatic dependent of the stream's previous kernel. plan:
-// ring_projection's layout. Returns the launch error, or 0.
+// bf16 x (B <= 8), fp32 norm_w [H], dense bf16 (wfmt 0), int8 (1) or q4g (2)
+// weights; with pdl a programmatic dependent of the stream's previous
+// kernel. plan: ring_projection's layout. Returns the launch error, or 0.
 int slime_qkv_ring(int wfmt, int pdl, const void* x, const void* norm_w, float eps, int B,
                    int H, int NQ, int NKV, const void* wq, const void* sq, const void* wk,
                    const void* sk, const void* wv, const void* sv, void* q, void* k, void* v,
                    const int* plan, void* stream) {
-  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1 || norm_w == nullptr)
+  if ((wfmt != kDense && wfmt != kInt8 && wfmt != kQ4G) || B < 1 || norm_w == nullptr)
     return (int)cudaErrorInvalidValue;
   RingArgs a = {};
   const void* w[3] = {wq, wk, wv};
@@ -1202,15 +1305,16 @@ int slime_qkv_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   a.eps = eps;
   a.K = H;
   a.N = NQ + 2 * NKV;
-  a.row_bytes = wfmt == kQ4G ? H / 2 : H;
+  a.row_bytes = wfmt == kQ4G ? H / 2 : wfmt == kDense ? 2 * H : H;
   return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // K3 through the weight ring: y [B, H] = x + attn W_o^T (scaled), for bf16
-// attn [B, NQ] and x (B <= 8), int8 (wfmt 1) or q4g (2) weights; with pdl a
-// programmatic dependent of the stream's previous kernel (which may have
-// written attn or x: the consumers read both after griddepcontrol.wait). plan:
-// ring_projection's layout. Returns the launch error, or 0.
+// attn [B, NQ] and x (B <= 8), int8 (wfmt 1) or q4g (2) weights (dense K3
+// stays row per warp: wfmt 0 is refused); with pdl a programmatic dependent
+// of the stream's previous kernel (which may have written attn or x: the
+// consumers read both after griddepcontrol.wait). plan: ring_projection's
+// layout. Returns the launch error, or 0.
 int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, int B, int NQ,
                  int H, const void* wo, const void* so, const int* plan, void* stream) {
   if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1) return (int)cudaErrorInvalidValue;

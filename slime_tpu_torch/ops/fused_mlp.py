@@ -7,23 +7,27 @@ and keeps ``a = silu(g) * u`` in VMEM. On the card it takes two launches in
 one wrapper (``csrc/fused_decode.cu``): gate/up into an ``a [B, I]`` scratch,
 a few tens of KB that stays in L2, then down plus the residual.
 
-bf16 activations with int8 or q4g weights at B <= 8 (``ring_instance``: the
-decode steps of the int8 and 4-bit serving paths) take the weight ring
-(``weight_ring_kernel``, ``ops/weight_ring.py``) where both projections
-have a launch plan (``ring_route``): one C call launches the row norm,
-gate/up and down, the last two as programmatic dependents of the launch
-before them, each a persistent grid that streams bands of whole weight rows
-into shared memory by 1-D bulk copies, with the launch plans of
-``ring_plan``. Every other input, a layer too wide for the ring's shared
-memory included, takes the row-per-warp kernels. Launch counts:
+bf16 activations with int8 or q4g weights at B <= 8, or dense bf16
+weights at B <= DENSE_RING_ROWS (4) (``ring_instance``: the decode steps of
+the int8 and 4-bit serving paths and of a bf16 checkpoint) take the weight
+ring (``weight_ring_kernel``, ``ops/weight_ring.py``) where both
+projections have a launch plan (``ring_route``): one C call launches the
+row norm, gate/up and down, the last two as programmatic dependents of the
+launch before them, each a persistent grid that streams bands of whole
+weight rows into shared memory by 1-D bulk copies, with the launch plans of
+``ring_plan``. Every other input, fp32 activations, B > 8 (dense: B > 4)
+and a layer too wide for the ring's shared memory included, takes the
+row-per-warp kernels. Launch counts:
 ``.ring_launches`` counts the calls that took the ring
-(``.q4g_ring_launches`` those on q4g weights), beside the counts every call
-adds (``fused_qkvo.count``: ``.dense_launches`` the bf16 calls on dense bf16
-weights among them).
+(``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` those
+on dense bf16 weights), beside the counts every call adds
+(``fused_qkvo.count``: ``.dense_launches`` the bf16 calls on dense bf16
+weights among them, on the ring or row per warp).
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
-accumulate in fp32 over exactly converted int8 or int4;
+accumulate in fp32 over exactly converted bf16, int8 or int4 (on the ring
+and row per warp alike, in other orders);
 per-row int8 scales multiply the fp32 results, q4g scales each 128-column
 group's fp32 partial sum; a = silu(g) * u rounds to the working dtype; down
 accumulates in fp32 with its scales, and x is added in fp32 before the final
@@ -44,7 +48,7 @@ import torch
 from ..models.layers import silu
 from . import _cuda
 from . import weight_ring as wr
-from .fused_qkvo import (Q4G, _at, act_f32, check_operands, count, count_ring, kernel_fmt,
+from .fused_qkvo import (DENSE, Q4G, _at, act_f32, check_operands, count, count_ring, kernel_fmt,
                          layer_mats, norm_weight, proj_ref, rms_h, rms_norm_launch,
                          split_weight)
 from .quantization import int_values
@@ -52,6 +56,13 @@ from .weight_ring import ring_instance
 
 # the TPU kernel's preferred intermediate chunk per format (fused_mlp.py:323)
 _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
+# dense bf16 weights take the ring at B <= 4 only: on an H100 at SliME-8B's
+# width the ring beat the row-per-warp kernels at 1 and 4 rows and lost at
+# 6 and 8, where its consumers' FFMAs and shared-memory reads set the pace
+# and down's [B, 14336] activations take two launches (PERF.md, K1 dense).
+# Measured at that width (H 4096, I 14336) only: other dense widths with
+# ring plans take the same limit unmeasured
+DENSE_RING_ROWS = 4
 
 
 def _block_divisor(I: int, want: int, *, step: int = 128) -> int:
@@ -90,10 +101,12 @@ def ring_plan(B: int, H: int, I: int, fmt: int, sms: int):
 
 def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
     """The routing rule of ``fused_mlp_decode``: ``ring_plan``'s plans where
-    the call takes the weight ring (``ring_instance`` holds and both
-    projections have a plan), None where it takes the row-per-warp
-    kernels."""
-    return ring_plan(B, H, I, fmt, sms) if ring_instance(B, dtype, fmt) else None
+    the call takes the weight ring (``ring_instance`` holds, dense weights
+    at B <= DENSE_RING_ROWS only, and both projections have a plan), None
+    where it takes the row-per-warp kernels."""
+    if not ring_instance(B, dtype, fmt) or (fmt == DENSE and B > DENSE_RING_ROWS):
+        return None
+    return ring_plan(B, H, I, fmt, sms)
 
 
 def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
@@ -145,6 +158,20 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     or raise."""
     if x.device.type == "cpu":
         return fused_mlp_decode_ref(x, layers, layer_idx, eps=eps)
+    y, fmt, ring = mlp_launch(x, layers, layer_idx, eps)
+    if ring:
+        count_ring(fused_mlp_decode, fmt)
+    count(fused_mlp_decode, x, fmt)
+    return y
+
+
+def mlp_launch(x, layers, layer_idx, eps, ring=None):
+    """K1's launches on CUDA x -> (y, weight format, whether the weight ring
+    ran): with ``ring`` None the routing rule's choice (``ring_route``),
+    with False the row-per-warp kernels, with True the ring wherever it has
+    plans (``ring_plan``, the rule's row limit aside). Counts nothing:
+    ``fused_mlp_decode`` counts its calls; chip_smoke.py's phase 1 times the
+    instance the rule does not take on the same inputs."""
     gate_up = layer_mats(layers, ("gate_proj", "up_proj"), layer_idx)
     down = layer_mats(layers, ("down_proj",), layer_idx)
     check_operands(x, gate_up)
@@ -165,7 +192,10 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     a = torch.empty((B, I), dtype=x.dtype, device=x.device)
     check_operands(a, down)
     y = torch.empty_like(x)
-    route = ring_route(B, x.dtype, fmt, H, I, wr.sm_count(x.device))
+    sms = wr.sm_count(x.device)
+    route = (ring_route(B, x.dtype, fmt, H, I, sms) if ring is None
+             else ring_plan(B, H, I, fmt, sms) if ring and ring_instance(B, x.dtype, fmt)
+             else None)
     if route is not None:
         nw = norm_weight(x, norm_w)
         *_, plan = route
@@ -174,7 +204,6 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
             fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(),
             y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd),
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
-        count_ring(fused_mlp_decode, fmt)
     else:
         h = rms_norm_launch(x, norm_w, eps, lib)
         wfmt, f32 = kernel_fmt(wg, fmt), act_f32(x)
@@ -184,11 +213,10 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
         _cuda.check(lib.slime_resid_gemv(
             f32, wfmt, a.data_ptr(), B, I, p(wd), p(sd), H, x.data_ptr(), y.data_ptr(),
             _cuda.stream()), "fused_mlp_decode down")
-    count(fused_mlp_decode, x, fmt)
-    return y
+    return y, fmt, route is not None
 
 
 fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0
 fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0
 fused_mlp_decode.ring_launches = fused_mlp_decode.q4g_ring_launches = 0
-fused_mlp_decode.dense_launches = 0
+fused_mlp_decode.dense_launches = fused_mlp_decode.dense_ring_launches = 0

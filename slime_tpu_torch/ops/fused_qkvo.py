@@ -25,21 +25,26 @@ layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
 
 bf16 activations with int8 or q4g weights at B <= 8 (``ring_instance``: the
-decode steps of the int8 and 4-bit serving paths) take the weight ring
+decode steps of the int8 and 4-bit serving paths), and for K2 also with
+dense bf16 weights (a bf16 checkpoint's decode steps), take the weight ring
 (``weight_ring_kernel``, ``ops/weight_ring.py``) where a launch plan exists
 (``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch over the row
 space of W_q, W_k and W_v whose blocks each normalise x as they stage it
 (no row-norm launch), K3 as one ring launch; each a programmatic dependent
-of the caller's last kernel. Every other input, a layer too wide for the
-ring's shared memory included, takes the row-per-warp kernels.
+of the caller's last kernel. Every other input, dense K3, fp32 activations,
+B > 8 and a layer too wide for the ring's shared memory included, takes the
+row-per-warp kernels. The dense ring's sums are fp32 over the exact bf16
+products, as the row-per-warp kernels', in another order; q, k, v round to
+bf16 once.
 
 Launch counts (one per wrapper call that launches, nowhere else):
 ``.launches`` every call, ``.q4g_launches`` those on q4g weights,
 ``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both;
 ``.ring_launches`` the calls that took the weight ring,
-``.q4g_ring_launches`` those on q4g weights; ``.dense_launches`` those with
-bf16 activations on dense bf16 weights (the row-per-warp kernels' dense
-instance, which the bf16 checkpoints of the eval path run).
+``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` (K2
+only) those on dense bf16 weights; ``.dense_launches`` the calls with bf16 activations on
+dense bf16 weights (the bf16 checkpoints of the eval path), on the ring or
+row per warp (``chip_smoke.launch_counts`` takes these subsets apart).
 """
 from __future__ import annotations
 
@@ -195,6 +200,8 @@ def count_ring(fn, fmt) -> None:
     """One call of ``fn`` that took the weight ring, on weight format ``fmt``."""
     fn.ring_launches += 1
     fn.q4g_ring_launches += fmt == Q4G
+    if fmt == DENSE:                    # K1 and K2 only: dense K3 is never on the ring
+        fn.dense_ring_launches += 1
 
 
 def norm_weight(x, norm_w):
@@ -229,8 +236,8 @@ def qkv_ring_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int)
 def o_ring_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int):
     """The routing rule of ``fused_o_residual``: (plan, its C array) of the
     o projection's ring launch, or None where the call takes the
-    row-per-warp kernel."""
-    if not ring_instance(B, dtype, fmt):
+    row-per-warp kernel (always on dense weights: the ring has no dense K3)."""
+    if fmt == DENSE or not ring_instance(B, dtype, fmt):
         return None
     return wr.projection_plan(B, NQ, H, fmt, sms)
 
@@ -242,6 +249,19 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return fused_qkv_decode_ref(x, layers, layer_idx, eps=eps)
+    q, k, v, fmt, ring = qkv_launch(x, layers, layer_idx, eps)
+    if ring:
+        count_ring(fused_qkv_decode, fmt)
+    count(fused_qkv_decode, x, fmt)
+    return q, k, v
+
+
+def qkv_launch(x, layers, layer_idx, eps, ring: bool = True):
+    """K2's launches on CUDA x -> (q, k, v, weight format, whether the weight
+    ring ran): the routing rule's choice (``qkv_ring_route``), or with
+    ``ring`` False the row-per-warp kernels. Counts nothing: ``fused_qkv_decode`` counts its calls;
+    chip_smoke.py's phase 1 times the instance the rule does not take on
+    the same inputs."""
     mats = layer_mats(layers, ("q_proj", "k_proj", "v_proj"), layer_idx)
     check_operands(x, mats)
     (wq, sq, fmt), (wk, sk, _), (wv, sv, _) = mats
@@ -258,22 +278,21 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     k = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     p = _cuda.ptr
-    route = qkv_ring_route(B, x.dtype, fmt, H, NQ, NKV, wr.sm_count(x.device))
+    route = (None if not ring
+             else qkv_ring_route(B, x.dtype, fmt, H, NQ, NKV, wr.sm_count(x.device)))
     if route is not None:
         nw = norm_weight(x, norm_w)
         _cuda.check(lib.slime_qkv_ring(
             fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, B, H, NQ, NKV, p(wq), p(sq),
             p(wk), p(sk), p(wv), p(sv), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             ctypes.addressof(route[1]), _cuda.stream()), "fused_qkv_decode (weight ring)")
-        count_ring(fused_qkv_decode, fmt)
     else:
         h = rms_norm_launch(x, norm_w, eps, lib)
         _cuda.check(lib.slime_qkv_gemv(
             act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
             p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _cuda.stream()), "fused_qkv_decode")
-    count(fused_qkv_decode, x, fmt)
-    return q, k, v
+    return q, k, v, fmt, route is not None
 
 
 def fused_o_residual(attn, x, layers, layer_idx):
@@ -310,3 +329,4 @@ def fused_o_residual(attn, x, layers, layer_idx):
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
     _fn.ring_launches = _fn.q4g_ring_launches = _fn.dense_launches = 0
+fused_qkv_decode.dense_ring_launches = 0

@@ -1,24 +1,30 @@
 """The decode kernels' weight formats, and the weight ring's launch plans.
 
 K1-K3 (``fused_mlp_decode``, ``fused_qkv_decode``, ``fused_o_residual``) in
-bf16 with int8 or q4g weights, and K6 (``quant_matmul``) in bf16 with int8
-or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``: the decode steps
-of the int8 and 4-bit serving paths) run on the weight ring,
+bf16 with int8 or q4g weights, K1 and K2 in bf16 with dense bf16 weights
+(K1 at B <= 4: ``fused_mlp.DENSE_RING_ROWS``), and K6 (``quant_matmul``)
+in bf16 with int8 or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``:
+the decode steps of the int8 and 4-bit serving paths and of a bf16
+checkpoint) run on the weight ring,
 ``weight_ring_kernel`` in ``csrc/fused_decode.cu``: a persistent grid, one
 block an SM, each block a band of output rows whose whole weight rows one
 producer thread streams into a ring of shared-memory stages by 1-D bulk
-copies, sixteen consumer warps each summing whole rows. ``ring_launch`` is
+copies, sixteen consumer warps each summing whole rows (dense bf16 rows
+split over a few warps each). ``ring_launch`` is
 the plan of one such launch, checked again by the C side, which refuses one
 it cannot run.
 
 The routing rule (``fused_mlp.ring_route``, ``fused_qkvo.qkv_ring_route``
 and ``o_ring_route``): a call takes the ring where ``ring_instance`` holds
 and every launch of the call has a plan; every other call takes the
-row-per-warp kernels, which take the same operands. A plan
-is missing where two stages and the activations do not fit in a block's
-shared memory: from K = 57920 int8 or 56576 q4g columns with one matrix a
-stage (K1's down, K2, K3), from 32784 or 30976 with two (gate/up); and where
-a weight row is not a whole number of 16-byte vectors (K6 at K = 1000). K6's
+row-per-warp kernels, which take the same operands. Dense K3 stays row
+per warp (``o_ring_route``). A plan is missing where the ring (RING_BYTES)
+does not hold two stages or two stages and the activations do not fit in a
+block's shared memory: from K = 57920 int8, 56576 q4g or 32784 dense bf16
+columns with one matrix a stage (K1's down, K2, K3), from 32784, 30976 or
+16400 with two (gate/up), at B = 1 (dense at B = 8 from fewer, about 28900
+and 12900: the activations fill the rest); and where a weight row is not a
+whole number of 16-byte vectors (K6 at K = 1000). K6's
 rule is ``k6_ring_route`` (one matrix a stage, no norm, no residual, the
 per-row scale read by the epilogue as int8's is); where it has no plan K6
 takes its ``mma.sync`` GEMM (``quant_matmul.k6_route``).
@@ -53,10 +59,12 @@ PDL = True                    # chain a call's launches (programmatic dependent 
 
 def ring_instance(B: int, dtype, fmt: int) -> bool:
     """Whether the decode kernels' operands suit the weight ring: bf16
-    activations, int8, q4g or (K6) per-row q4 weights, 1 <= B <= 8. Such a
-    call takes the ring where its plans exist; everything else takes the
-    row-per-warp kernels (K6: its mma.sync GEMM)."""
-    return dtype == torch.bfloat16 and fmt in (INT8, Q4G, ROW_Q4) and 1 <= B <= RING_MAX_ROWS
+    activations, dense bf16, int8, q4g or (K6) per-row q4 weights, 1 <= B <=
+    8. Such a call takes the ring where its plans exist (dense K3 excepted:
+    ``fused_qkvo.o_ring_route``); everything else takes the row-per-warp
+    kernels (K6: its mma.sync GEMM)."""
+    return (dtype == torch.bfloat16 and fmt in (DENSE, INT8, Q4G, ROW_Q4)
+            and 1 <= B <= RING_MAX_ROWS)
 
 
 @dataclass(frozen=True)
@@ -68,10 +76,12 @@ class RingLaunch:
     ceil(B / batch_rows) launches, each streaming the weights); ``smem``
     bytes of shared memory a block; bands start at multiples of ``align``
     rows. With one matrix a stage, the row space may be several matrices
-    one after another (``parts``: their row counts; K2's W_q, W_k, W_v)."""
+    one after another (``parts``: their row counts; K2's W_q, W_k, W_v).
+    Dense bf16 rows are each summed by ``split`` warps (else 1)."""
     rows: int                 # N, output rows
-    row_bytes: int            # weight bytes a row
-    scale_bytes: int          # q4g scale bytes a row (0 for int8 and q4: loaded by the epilogue)
+    row_bytes: int            # weight bytes a row (dense bf16: 2 K)
+    scale_bytes: int          # q4g scale bytes a row (0 for int8 and q4, loaded by the
+    #                           epilogue, and for dense, which has none)
     mats: int                 # matrices streamed together (gate/up 2, else 1)
     grid: int
     rows_per_stage: int
@@ -82,6 +92,7 @@ class RingLaunch:
     align: int
     warps: int                # consumer warps a block
     parts: tuple = ()         # row counts of the row space's matrices (mats 1); () = (rows,)
+    split: int = 1            # consumer warps that share a row's vectors (dense only)
 
     def bands(self):
         """[(first row, end row)] of every block, as the kernel cuts them
@@ -117,37 +128,49 @@ class RingLaunch:
 
     def ints(self):
         return [self.grid, self.rows_per_stage, self.stages, self.stage_bytes,
-                self.batch_rows, self.smem, self.align, self.warps]
+                self.batch_rows, self.smem, self.align, self.warps, self.split]
 
 
 def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
                 parts=None) -> RingLaunch:
-    """The launch plan of one projection of N rows over K columns of int8
-    (K bytes a row), q4g (K / 2, and K / 128 fp32 scales) or per-row q4 (K /
-    2) weights, for B activation rows, on a card of ``sms`` SMs: one block an SM, each band
+    """The launch plan of one projection of N rows over K columns of dense
+    bf16 (2 K bytes a row, no scales), int8 (K bytes), q4g (K / 2, and K /
+    128 fp32 scales) or per-row q4 (K / 2) weights, for B activation rows,
+    on a card of ``sms`` SMs: one block an SM, each band
     at least ``align`` rows; R, the most rows (8, 4, 2 or 1, at least
     ``align``) whose weights stay within STAGE_BYTES; as many activation
     rows a launch as ACT_BYTES holds; as many stages (at least 2) as
     RING_BYTES holds and shared memory leaves room for. q4g bands, and every
     part of the row space (``parts``, row counts summing to N; one matrix a
     stage only), start at multiples of the fewest rows whose scales are
-    whole 16-byte units. Raises where two stages do not fit."""
+    whole 16-byte units. Dense rows, twice int8's and so few in flight,
+    are each split over ``split`` consumer warps: the most (a power of
+    two) that leaves a warp group for every row the ring holds. Raises
+    where two stages do not fit."""
     q4g = fmt == Q4G
     parts = tuple(parts) if parts else (N,)
-    row_bytes, scale_bytes = (K // 2, K // 128 * 4) if q4g else (K // 2 if fmt == ROW_Q4 else K, 0)
+    row_bytes = {DENSE: 2 * K, INT8: K}.get(fmt, K // 2)
+    scale_bytes = K // 128 * 4 if q4g else 0
     align = next(a for a in (1, 2, 4) if a * scale_bytes % 16 == 0)
     R = next(r for r in (8, 4, 2, 1)
              if r == align or mats * r * row_bytes <= STAGE_BYTES)
     stage = mats * R * (row_bytes + scale_bytes)
     bg = max(1, min(B, RING_MAX_ROWS, ACT_BYTES // (2 * K)))
+    # the kernel's rows a warp (two with one matrix of even R) and its
+    # instance's activation rows (BT); dense: a split row's warp sums,
+    # [2][warps][mats * G][BT] fp32
+    G = 2 if mats == 1 and R % 2 == 0 else 1
+    part = 4 * 2 * RING_WARPS * mats * G * next(b for b in (1, 2, 4, 8) if b >= bg)
     grid = min(sms, N // align)           # at least `align` rows a band: none empty
-    # the epilogue's operands of a band: int8 row scales, the residual rows
+    # the epilogue's operands of a band: int8 and q4 row scales, the residual rows
     band_cap = -(-N // grid) + align
-    epilogue = ((0 if q4g else mats) + (bg if mats == 1 else 0)) * band_cap * 4
-    rest = bg * K * 2 + epilogue + RED_BYTES      # activations, epilogue, the norm's sums
+    epilogue = ((mats if fmt in (INT8, ROW_Q4) else 0) + (bg if mats == 1 else 0)) * band_cap * 4
+    # activations, epilogue, the norm's sums (dense: and a split row's sums)
+    rest = bg * K * 2 + epilogue + RED_BYTES + (part if fmt == DENSE else 0)
     # a stage, its two barriers and its issued index
     stages = min(RING_BYTES // stage, (SMEM_MAX - rest) // (stage + 20))
-    if (stages < 2 or row_bytes % 16 or K % 16 or sum(parts) != N or min(parts) < 1
+    if (stages < 2 or fmt not in (DENSE, INT8, Q4G, ROW_Q4) or row_bytes % 16 or K % 16
+            or sum(parts) != N or min(parts) < 1
             or (fmt == ROW_Q4 and (mats > 1 or len(parts) > 1))
             or any(n % align for n in parts) or (mats > 1 and len(parts) > 1)
             or len(parts) > 3):
@@ -156,8 +179,13 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     # more than half an SM's shared memory: one block of a ring kernel an SM,
     # also when the next kernel's blocks start early (PDL) on SMs that free up
     smem = max(stages * (stage + 20) + rest, SMEM_HALF)
+    split = 1
+    if fmt == DENSE:
+        in_flight = stages * R // G
+        while split * 2 * in_flight <= RING_WARPS:
+            split *= 2
     return RingLaunch(N, row_bytes, scale_bytes, mats, grid, R, stages, stage, bg, smem,
-                      align, RING_WARPS, parts if len(parts) > 1 else ())
+                      align, RING_WARPS, parts if len(parts) > 1 else (), split)
 
 
 def launch_or_none(B: int, K: int, N: int, fmt: int, mats: int, sms: int, parts=None):

@@ -1,7 +1,8 @@
 """K1 (``fused_mlp_decode``) at SliME-8B's width, on the card.
 
-For int8 and q4g weights in bf16 at B = 1 and 8 (layer 1 of a 2-layer stack
-at H = 4096, I = 14336), this prints one JSON line each with:
+For int8, q4g and dense bf16 weights in bf16 at B = 1 and 8 (dense also at
+4, the eval path's batch; layer 1 of a 2-layer stack at H = 4096, I =
+14336), this prints one JSON line each with:
 
 - ``ms``: the whole call's device time (the median of CUDA-event timings
   with L2 flushed and the launches queued behind a device sleep, so the
@@ -26,7 +27,7 @@ how many of them are the integer divisions' I2F.U32.RP.
 It imports the port by absolute name, so the same file measures another
 checkout's K1 put first on the path, for a before/after in one call:
 
-    python3 -m slime_tpu_torch.probes.mlp_decode
+    python3 -m slime_tpu_torch.probes.mlp_decode [int8] [q4g] [dense]
     cd <other checkout> && PYTHONPATH=. python3 <this checkout>/slime_tpu_torch/probes/mlp_decode.py
 """
 import json
@@ -34,6 +35,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -100,8 +102,12 @@ def host_us(fn, calls: int = 50) -> float:
 
 def layers(fmt: str, g, dev):
     """Stacked post-attention norm and MLP weights, 2 layers: int8 per-row
-    (scales 0.02 / 127, as bench.py) or q4g (N(0, 0.02) weights quantized)."""
+    (scales 0.02 / 127, as bench.py), q4g (N(0, 0.02) weights quantized) or
+    dense bf16 (N(0, 0.02))."""
     def proj(out_d, in_d):
+        if fmt == "dense":
+            return {"weight": (torch.randn((2, out_d, in_d), device=dev, generator=g)
+                               * 0.02).to(torch.bfloat16)}
         if fmt == "q4g":
             w = torch.randn((2, out_d, in_d), device=dev, generator=g) * 0.02
             return {"weight": quant.quantize_weight_q4g(w)}
@@ -181,8 +187,16 @@ def i2f_counts() -> dict:
     return counts
 
 
-def run(runs: int = 25, seed: int = 0, log=print):
-    """Measure K1 at 8B width, int8 and q4g, B = 1 and 8; returns the records."""
+def weight_tensors(p):
+    """A projection's weight tensors: the dense weight, or the quantized
+    values and their scales."""
+    w = p["weight"]
+    return list(w.values()) if isinstance(w, dict) else [w]
+
+
+def run(runs: int = 25, seed: int = 0, log=print, formats=("int8", "q4g", "dense")):
+    """Measure K1 at 8B width in ``formats``, B = 1 and 8 (dense also 4);
+    returns the records."""
     if not torch.cuda.is_available():
         raise RuntimeError("K1 is measured on a CUDA card")
     from slime_tpu_torch.models.layers import fp32_accumulation
@@ -191,13 +205,13 @@ def run(runs: int = 25, seed: int = 0, log=print):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)   # 256 MB > L2
     records = []
     with fp32_accumulation():
-        for fmt in ("int8", "q4g"):
+        for fmt in formats:
             g = torch.Generator(device=dev).manual_seed(seed)
             two = layers(fmt, g, dev)
             wbytes = sum(t[1].numel() * t.element_size() for n in ("gate_proj", "up_proj",
                                                                     "down_proj")
-                         for t in two[n]["weight"].values())
-            for B in (1, 8):
+                         for t in weight_tensors(two[n]))
+            for B in ((1, 4, 8) if fmt == "dense" else (1, 8)):
                 x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
                 fn = lambda: fused_mlp.fused_mlp_decode(x, two, 1)  # noqa: E731
                 got, want = fn(), fused_mlp.fused_mlp_decode_ref(x, two, 1)
@@ -229,4 +243,4 @@ def run(runs: int = 25, seed: int = 0, log=print):
 
 
 if __name__ == "__main__":
-    run()
+    run(**({"formats": tuple(sys.argv[1:])} if sys.argv[1:] else {}))

@@ -1,9 +1,9 @@
 """K2 (``fused_qkv_decode``) and K3 (``fused_o_residual``) at SliME-8B's
 width, on the card.
 
-For int8 and q4g weights in bf16 at B = 1 and 8 (layer 1 of a 2-layer stack
-at H = NQ = 4096, NKV = 1024), this prints one JSON line per kernel and case
-with:
+For int8, q4g and dense bf16 weights in bf16 at B = 1 and 8 (dense also at
+4, the eval path's batch; layer 1 of a 2-layer stack at H = NQ = 4096, NKV =
+1024), this prints one JSON line per kernel and case with:
 
 - ``ms``: the call's device time (the median of CUDA-event timings with L2
   flushed and the launches queued behind a device sleep, so the events time
@@ -26,11 +26,12 @@ with:
 It imports the port by absolute name, so the same file measures another
 checkout's K2 and K3 put first on the path, for a before/after in one call:
 
-    python3 -m slime_tpu_torch.probes.qkvo_decode
+    python3 -m slime_tpu_torch.probes.qkvo_decode [int8] [q4g] [dense]
     cd <other checkout> && PYTHONPATH=. python3 <this checkout>/slime_tpu_torch/probes/qkvo_decode.py
 """
 import json
 import os
+import sys
 import tempfile
 
 import torch
@@ -48,8 +49,12 @@ KERNELS = ("rms_norm", "qkv_kernel", "resid_kernel", "weight_ring")
 
 def layers(fmt: str, g, dev):
     """Stacked input norm and attention projections, 2 layers: int8 per-row
-    (scales 0.02 / 127, as bench.py) or q4g (N(0, 0.02) weights quantized)."""
+    (scales 0.02 / 127, as bench.py), q4g (N(0, 0.02) weights quantized) or
+    dense bf16 (N(0, 0.02))."""
     def proj(out_d, in_d):
+        if fmt == "dense":
+            return {"weight": (torch.randn((2, out_d, in_d), device=dev, generator=g)
+                               * 0.02).to(torch.bfloat16)}
         if fmt == "q4g":
             w = torch.randn((2, out_d, in_d), device=dev, generator=g) * 0.02
             return {"weight": quant.quantize_weight_q4g(w)}
@@ -118,9 +123,9 @@ def pdl_owner():
     return weight_ring
 
 
-def run(runs: int = 25, seed: int = 0, log=print):
-    """Measure K2 and K3 at 8B width, int8 and q4g, B = 1 and 8; returns the
-    records."""
+def run(runs: int = 25, seed: int = 0, log=print, formats=("int8", "q4g", "dense")):
+    """Measure K2 and K3 at 8B width in ``formats``, B = 1 and 8 (dense also
+    4); returns the records."""
     if not torch.cuda.is_available():
         raise RuntimeError("K2 and K3 are measured on a CUDA card")
     from slime_tpu_torch.models.layers import fp32_accumulation
@@ -130,12 +135,13 @@ def run(runs: int = 25, seed: int = 0, log=print):
     records = []
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     with fp32_accumulation():
-        for fmt in ("int8", "q4g"):
+        for fmt in formats:
             g = torch.Generator(device=dev).manual_seed(seed)
             two = layers(fmt, g, dev)
-            wb = {n: nbytes(*[t[1] for t in two[n]["weight"].values()])
+            wb = {n: nbytes(*[t[1] for t in (two[n]["weight"].values() if fmt != "dense"
+                                              else [two[n]["weight"]])])
                   for n in ("q_proj", "k_proj", "v_proj", "o_proj")}
-            for B in (1, 8):
+            for B in ((1, 4, 8) if fmt == "dense" else (1, 8)):
                 x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
                 attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
                 cases = {
@@ -175,4 +181,4 @@ def run(runs: int = 25, seed: int = 0, log=print):
 
 
 if __name__ == "__main__":
-    run()
+    run(**({"formats": tuple(sys.argv[1:])} if sys.argv[1:] else {}))

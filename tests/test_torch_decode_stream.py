@@ -7,17 +7,20 @@ inputs reach it and how it is launched is plain Python, held here: the
 routing rule of K1, K2 and K3 for every (B, dtype, weight format) that
 ``chip_smoke.py``'s phase 1 sends them, and at layers too wide for the
 ring's shared memory (they take the row-per-warp kernels instead of
-raising); the launch plans at SliME-8B's width and at small widths whose
+raising), dense bf16 weights included (K1 and K2 on the ring, K3 row per
+warp); the launch plans at SliME-8B's width, the 0.6B draft's and small
+widths whose
 row counts are ragged against the blocks and the stages (every output row
 in exactly one band and one bulk copy, landing where the consumer warps
 read it, no copy crossing from one matrix into the next, every copy 16-byte
 aligned and a multiple of 16 bytes, the shared memory the kernel's check
 asks for and no more than a block has); the exact int8 / int4 -> fp32
-conversion the kernel does without I2F, on every byte and nibble; and that
-CPU calls take the plain versions and count no launch. K6 (``quant_matmul``)
-runs the same kernel at decode rows: its rule (``weight_ring.k6_ring_route``)
-and plans for int8 and per-row q4 at B = 1-8, and the q4 consumers'
-de-interleaved activation staging, are held here too.
+conversion the kernel does without I2F, on every byte and nibble; the
+dense consumers' view of the swizzled activations; and that CPU calls take
+the plain versions and count no launch. K6 (``quant_matmul``) runs the same
+kernel at decode rows: its rule (``weight_ring.k6_ring_route``) and plans
+for int8 and per-row q4 at B = 1-8, and the q4 consumers' de-interleaved
+activation staging, are held here too.
 """
 import itertools
 
@@ -33,31 +36,41 @@ from slime_tpu_torch.ops.fused_qkvo import DENSE, INT8, Q4G
 SMS = 132                       # an H100 SXM's SMs
 WIDTHS = [(4096, 14336),        # SliME-8B (Llama-3-8B): H, I
           (768, 1280), (256, 512), (512, 2816)]
+DRAFT = (2048, 5504)            # chip_smoke.DRAFT_LLM, the 0.6B bf16 draft: H, I
 
 # phase 1's decode cases: (weight format, activation dtype) -> batch rows
 PHASE1 = {(INT8, torch.bfloat16): (1, 8, 65, 128), (Q4G, torch.bfloat16): (1, 64, 65, 128),
-          (INT8, torch.float32): (1, 65), (Q4G, torch.float32): (1, 65)}
+          (INT8, torch.float32): (1, 65), (Q4G, torch.float32): (1, 65),
+          (DENSE, torch.bfloat16): (1, 4, 8)}
 
 
 @pytest.mark.parametrize("fmt_dtype", list(PHASE1), ids=lambda fd: f"{fd[0]}-{fd[1]}")
 def test_ring_instance_rule(fmt_dtype):
-    """bf16 activations with int8 or q4g weights at 1 <= B <= 8 take the ring,
-    every other input phase 1 sends (fp32, B > 8) the row-per-warp kernels."""
+    """bf16 activations with dense bf16, int8 or q4g weights at 1 <= B <= 8
+    suit the ring, every other input phase 1 sends (fp32, B > 8) the
+    row-per-warp kernels; dense fp32 weights never take it."""
     fmt, dtype = fmt_dtype
     for B in PHASE1[fmt_dtype] + tuple(range(1, 10)):
         assert wr.ring_instance(B, dtype, fmt) == (dtype == torch.bfloat16 and B <= 8)
-    assert not any(wr.ring_instance(B, dtype, DENSE) for B in range(1, 10))
+        assert wr.ring_instance(B, dtype, DENSE) == (dtype == torch.bfloat16 and B <= 8)
+    assert not any(wr.ring_instance(B, d, wr.DENSE_F32) for B in range(1, 10)
+                   for d in (torch.bfloat16, torch.float32))
     assert not wr.ring_instance(0, torch.bfloat16, fmt)
 
 
 def _need(ln: wr.RingLaunch, K: int) -> int:
     """The shared memory ``ring_projection`` (csrc/fused_decode.cu) checks a
     plan for: ring, activations, barriers and issued indices, the folded
-    norm's partial sums, epilogue."""
-    S, q4g = ln.stages, ln.scale_bytes > 0
+    norm's partial sums, epilogue (a row scale a row for int8 and q4, none
+    for q4g, whose scales ride in the stages, or dense bf16, 2 K bytes a row)."""
+    S, q4g, dense = ln.stages, ln.scale_bytes > 0, ln.row_bytes == 2 * K
     band_cap = -(-ln.rows // ln.grid) + ln.align
-    ep = ((0 if q4g else ln.mats) + (ln.batch_rows if ln.mats == 1 else 0)) * band_cap
-    return S * ln.stage_bytes + ln.batch_rows * K * 2 + 8 * 2 * S + 4 * S + 4 * 8 * 16 + 4 * ep
+    ep = ((0 if q4g or dense else ln.mats) + (ln.batch_rows if ln.mats == 1 else 0)) * band_cap
+    G = 2 if ln.mats == 1 and ln.rows_per_stage % 2 == 0 else 1
+    bt = next(b for b in (1, 2, 4, 8) if b >= ln.batch_rows)
+    part = 4 * 2 * ln.warps * ln.mats * G * bt if dense else 0     # a split row's warp sums
+    return (S * ln.stage_bytes + ln.batch_rows * K * 2 + 8 * 2 * S + 4 * S + 4 * 8 * 16 + 4 * ep
+            + part)
 
 
 def _assert_covers_every_row_once(ln: wr.RingLaunch, K: int, B: int, mat_rows):
@@ -73,6 +86,13 @@ def _assert_covers_every_row_once(ln: wr.RingLaunch, K: int, B: int, mat_rows):
     assert ln.stage_bytes == mats * R * (ln.row_bytes + ln.scale_bytes)
     assert ln.stage_bytes % 16 == 0 and ln.stages >= 2
     assert ln.warps % R == 0 and R % ln.align == 0
+    # split warps a row (dense only): a group of them for every row in
+    # flight, and the kernel's G rows a group dividing its groups
+    G = 2 if mats == 1 and R % 2 == 0 else 1
+    groups = ln.warps // ln.split
+    assert ln.split == 1 or ln.row_bytes == 2 * K
+    assert ln.warps % ln.split == 0 and groups % (R // G) == 0
+    assert groups >= ln.stages * R // G or ln.split == 1
     assert wr.SMEM_HALF <= ln.smem <= wr.SMEM_MAX and _need(ln, K) <= ln.smem
     # activation rows: one launch a group, each group's rows 16-byte aligned
     assert 1 <= ln.batch_rows <= 8 and ln.batch_rows * K * 2 <= wr.ACT_BYTES
@@ -117,7 +137,10 @@ def _assert_covers_every_row_once(ln: wr.RingLaunch, K: int, B: int, mat_rows):
         assert (c[0] == 1).all() and (c[1] == (1 if ln.scale_bytes else 0)).all()
 
 
-@pytest.mark.parametrize("fmt", [INT8, Q4G], ids=["int8", "q4g"])
+ROW_BYTES = {DENSE: lambda K: 2 * K, INT8: lambda K: K, Q4G: lambda K: K // 2}
+
+
+@pytest.mark.parametrize("fmt", [INT8, Q4G, DENSE], ids=["int8", "q4g", "dense"])
 @pytest.mark.parametrize("width", WIDTHS, ids=lambda w: f"H{w[0]}-I{w[1]}")
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("sms", [SMS, 7])
@@ -127,7 +150,7 @@ def test_ring_plan_covers_every_row_once(fmt, width, B, sms):
     assert list(ints) == gate_up.ints() + down.ints()
     for ln, K, N, mats in ((gate_up, H, I, 2), (down, I, H, 1)):
         assert (ln.rows, ln.mats, ln.parts) == (N, mats, ())
-        assert ln.row_bytes == (K // 2 if fmt == Q4G else K)
+        assert ln.row_bytes == ROW_BYTES[fmt](K)
         assert ln.scale_bytes == (K // 128 * 4 if fmt == Q4G else 0)
         assert ln.grid == min(sms, N)
         _assert_covers_every_row_once(ln, K, B, [N] * mats)
@@ -149,6 +172,59 @@ def test_ring_plan_at_8b_width():
     assert (gu.batch_rows, dn.batch_rows) == (8, 4)
 
 
+def test_dense_ring_plan_at_8b_width():
+    """Dense bf16 at SliME-8B's width: gate/up a stage of one row of each
+    (16 KB), 8 stages, each row pair summed by 2 warps; down one 28 KB row a
+    stage, 4 stages, each row by 4 warps, and 4 activation rows a launch (B
+    = 4, phase 12's batch, in one launch; B = 8 in two); K2 one 8 KB row a
+    stage, 16 stages, a warp a row, every row of the row space [W_q; W_k;
+    W_v] on one of 132 bands."""
+    for B in (1, 4, 8):
+        gu, dn, _ = fm.ring_plan(B, 4096, 14336, DENSE, SMS)
+        assert (gu.rows_per_stage, gu.stage_bytes, gu.stages, gu.split) == (1, 16384, 8, 2)
+        assert (dn.rows_per_stage, dn.stage_bytes, dn.stages, dn.split) == (1, 28672, 4, 4)
+        assert (gu.batch_rows, dn.batch_rows) == (B, min(B, 4))
+        assert gu.scale_bytes == dn.scale_bytes == 0
+        qkv, _ = fq.qkv_ring_route(B, torch.bfloat16, DENSE, 4096, 4096, 1024, SMS)
+        assert (qkv.rows_per_stage, qkv.stage_bytes, qkv.stages, qkv.grid, qkv.split) == (
+            1, 8192, 16, SMS, 1)
+        assert all(ln.smem > wr.SMEM_HALF for ln in (gu, dn, qkv))
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 8])
+@pytest.mark.parametrize("sms", [SMS, 7])
+def test_dense_ring_plans_at_the_draft_width(B, sms):
+    """The 0.6B draft's widths (H 2048, I 5504; NQ 2048, NKV 1024): K1's two
+    projections and K2's row space on the ring (K2 two 4 KB rows a stage:
+    the kernel's two-rows-a-warp instance), and the dense K3 plan that the
+    kernel has but the rule does not take, every row once."""
+    H, I = DRAFT
+    bf = torch.bfloat16
+    assert (fm.ring_route(B, bf, DENSE, H, I, sms) is not None) == (B <= 4)
+    gate_up, down, _ = fm.ring_plan(B, H, I, DENSE, sms)
+    qkv, _ = fq.qkv_ring_route(B, bf, DENSE, H, 2048, 1024, sms)
+    assert fq.o_ring_route(B, bf, DENSE, 2048, H, sms) is None
+    o, _ = wr.projection_plan(B, 2048, H, DENSE, sms)
+    assert qkv.rows_per_stage == 2 and qkv.parts == (2048, 1024, 1024)
+    for ln, K, mat_rows in ((gate_up, H, [I, I]), (down, I, [H]),
+                            (qkv, H, [2048, 1024, 1024]), (o, 2048, [H])):
+        assert ln.row_bytes == 2 * K and ln.scale_bytes == 0
+        _assert_covers_every_row_once(ln, K, B, mat_rows)
+
+
+def test_dense_mlp_ring_row_limit():
+    """Dense K1 takes the ring at 1-4 rows and the row-per-warp kernels at
+    5-8, where its ring plans exist all the same (``mlp_launch(ring=True)``
+    runs them: phase 1's comparison); int8 and q4g keep the ring to 8."""
+    bf = torch.bfloat16
+    assert fm.DENSE_RING_ROWS == 4
+    for B in range(1, 9):
+        assert (fm.ring_route(B, bf, DENSE, 4096, 14336, SMS) is not None) == (B <= 4)
+        assert fm.ring_plan(B, 4096, 14336, DENSE, SMS) is not None
+        for fmt in (INT8, Q4G):
+            assert fm.ring_route(B, bf, fmt, 4096, 14336, SMS) is not None
+
+
 def test_ring_plan_refuses_rows_too_long():
     with pytest.raises(ValueError, match="no weight-ring plan"):
         wr.ring_launch(1, 1 << 17, 256, INT8, 2, SMS)
@@ -158,10 +234,11 @@ def test_ring_plan_refuses_rows_too_long():
 # (int8 NKV 40 and 136: stages of 8 rows that meet W_q's or W_k's end; q4g
 # at H 768, 6 scales a row, whose bands and parts start on even rows)
 QKV_WIDTHS = {INT8: [(4096, 4096, 1024), (256, 256, 64), (256, 256, 40), (768, 512, 136)],
-              Q4G: [(4096, 4096, 1024), (512, 512, 256), (768, 512, 256), (256, 256, 32)]}
+              Q4G: [(4096, 4096, 1024), (512, 512, 256), (768, 512, 256), (256, 256, 32)],
+              DENSE: [(4096, 4096, 1024), (256, 256, 64), (256, 256, 40), (768, 512, 136)]}
 
 
-@pytest.mark.parametrize("fmt", [INT8, Q4G], ids=["int8", "q4g"])
+@pytest.mark.parametrize("fmt", [INT8, Q4G, DENSE], ids=["int8", "q4g", "dense"])
 @pytest.mark.parametrize("case", range(4))
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("sms", [SMS, 7])
@@ -169,16 +246,21 @@ def test_qkv_and_o_ring_plans_cover_every_row_once(fmt, case, B, sms):
     """K2's one launch over the row space [W_q; W_k; W_v] and K3's over W_o:
     every row of q, k, v and y in exactly one band and one bulk copy, none
     crossing a matrix (a stage that meets W_q's end splits its copy there),
-    16-byte aligned, shared memory within a block's."""
+    16-byte aligned, shared memory within a block's. Dense K3 is not routed
+    to the ring: its plan is held as the kernel would take it."""
     H, NQ, NKV = QKV_WIDTHS[fmt][case]
     bf = torch.bfloat16
     qkv, c_qkv = fq.qkv_ring_route(B, bf, fmt, H, NQ, NKV, sms)
-    o, c_o = fq.o_ring_route(B, bf, fmt, NQ, H, sms)
+    if fmt == DENSE:
+        assert fq.o_ring_route(B, bf, fmt, NQ, H, sms) is None
+        o, c_o = wr.projection_plan(B, NQ, H, fmt, sms)
+    else:
+        o, c_o = fq.o_ring_route(B, bf, fmt, NQ, H, sms)
     assert list(c_qkv) == qkv.ints() and list(c_o) == o.ints()
     assert (qkv.rows, qkv.mats, qkv.parts) == (NQ + 2 * NKV, 1, (NQ, NKV, NKV))
     assert (o.rows, o.mats, o.parts) == (H, 1, ())
     for ln, K, mat_rows in ((qkv, H, [NQ, NKV, NKV]), (o, NQ, [H])):
-        assert ln.row_bytes == (K // 2 if fmt == Q4G else K)
+        assert ln.row_bytes == ROW_BYTES[fmt](K)
         assert ln.grid == min(sms, ln.rows // ln.align)
         _assert_covers_every_row_once(ln, K, B, mat_rows)
 
@@ -204,22 +286,28 @@ RING_FORMATS = [(f, d, B) for (f, d), bs in PHASE1.items() for B in bs + tuple(r
 def test_ring_routes_at_phase1(fmt, dtype, B):
     """K1, K2 and K3 at SliME-8B width take the ring exactly where
     ``ring_instance`` holds (every plan exists there), the row-per-warp
-    kernels elsewhere."""
+    kernels elsewhere; on dense bf16 weights K2 so, K1 at B <= 4 only (the
+    card measured the ring slower at 8 rows), and K3 never."""
     want = wr.ring_instance(B, dtype, fmt)
-    assert (fm.ring_route(B, dtype, fmt, 4096, 14336, SMS) is not None) == want
+    assert (fm.ring_route(B, dtype, fmt, 4096, 14336, SMS) is not None) == (
+        want and (fmt != DENSE or B <= fm.DENSE_RING_ROWS))
     assert (fq.qkv_ring_route(B, dtype, fmt, 4096, 4096, 1024, SMS) is not None) == want
-    assert (fq.o_ring_route(B, dtype, fmt, 4096, 4096, SMS) is not None) == want
-    for route in (lambda d: fm.ring_route(B, d, DENSE, 4096, 14336, SMS),
-                  lambda d: fq.qkv_ring_route(B, d, DENSE, 4096, 4096, 1024, SMS),
-                  lambda d: fq.o_ring_route(B, d, DENSE, 4096, 4096, SMS)):
-        assert route(dtype) is None
+    assert (fq.o_ring_route(B, dtype, fmt, 4096, 4096, SMS) is not None) == (
+        want and fmt != DENSE)
+    dense = dtype == torch.bfloat16 and B <= 8
+    assert (fm.ring_route(B, dtype, DENSE, 4096, 14336, SMS) is not None) == (
+        dense and B <= 4)
+    assert (fq.qkv_ring_route(B, dtype, DENSE, 4096, 4096, 1024, SMS) is not None) == dense
+    assert fq.o_ring_route(B, dtype, DENSE, 4096, 4096, SMS) is None
 
 
 # layers too wide for the ring's shared memory, where K1 raised before: int8
 # from I = 58048 (down) or H = 32784 (gate/up), q4g from I = 56576 or H =
-# 30976 (a wide H lacks gate/up's plan, a wide I down's)
+# 30976 (a wide H lacks gate/up's plan, a wide I down's); dense bf16 from I
+# = 32784 or H = 16400 (the 128 KB ring holds two stages of rows of 2 I or
+# 2 x 2 H bytes up to there; at B = 8 the activations leave less)
 WIDE = [(INT8, 4096, 58048), (INT8, 32784, 14336), (Q4G, 4096, 56576),
-        (Q4G, 30976, 14336)]
+        (Q4G, 30976, 14336), (DENSE, 4096, 32784), (DENSE, 16400, 14336)]
 
 
 @pytest.mark.parametrize("fmt,H,I", WIDE, ids=lambda v: str(v))
@@ -242,7 +330,7 @@ def test_wide_layers_route_to_the_row_per_warp_kernels(fmt, H, I, B):
     for route, ln in ((fq.qkv_ring_route(B, bf, fmt, H, 4096, 1024, SMS),
                        wr.launch_or_none(B, H, 6144, fmt, 1, SMS, (4096, 1024, 1024))),
                       (fq.o_ring_route(B, bf, fmt, 4096, H, SMS),
-                       wr.launch_or_none(B, 4096, H, fmt, 1, SMS))):
+                       None if fmt == DENSE else wr.launch_or_none(B, 4096, H, fmt, 1, SMS))):
         assert (route is None) == (ln is None)
 
 
@@ -260,6 +348,22 @@ def test_wide_qkv_and_o_route_to_the_row_per_warp_kernels(B):
         wr.ring_launch(B, 58112, 256, INT8, 1, SMS)
 
 
+@pytest.mark.parametrize("B,last,first_missing", [(1, 32768, 32784), (8, 28896, 28912)])
+def test_wide_dense_qkv_routes_to_the_row_per_warp_kernels(B, last, first_missing):
+    """Dense K2 at SliME-8B's row space (one matrix a stage, rows of 2 H
+    bytes) has a ring plan up to H = 32768 at B = 1 (the 128 KB ring holds
+    two 64 KB stages) and 28896 at B = 8 (two stages, the activations and
+    the epilogue fill shared memory); from the next 16 columns the call
+    takes the row-per-warp kernels."""
+    bf = torch.bfloat16
+    assert fq.qkv_ring_route(B, bf, DENSE, last, 4096, 1024, SMS) is not None
+    assert fq.qkv_ring_route(B, bf, DENSE, first_missing, 4096, 1024, SMS) is None
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(B, first_missing, 6144, DENSE, 1, SMS, (4096, 1024, 1024))
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(1, 4096, 512, wr.DENSE_F32, 1, SMS)       # no fp32 ring
+
+
 def test_int8_int4_to_fp32_without_i2f():
     """The kernel's conversion on every value: the byte XOR 0x80 (or the
     nibble XOR 8) as the low mantissa of 2^23, minus 2^23 + 128 (or + 8), is
@@ -273,9 +377,10 @@ def test_int8_int4_to_fp32_without_i2f():
 
 
 def _counts():
-    return [getattr(fn, a) for fn in (fm.fused_mlp_decode, fq.fused_qkv_decode,
-                                      fq.fused_o_residual)
-            for a in ("launches", "ring_launches", "q4g_ring_launches")]
+    return [getattr(fn, a, 0) for fn in (fm.fused_mlp_decode, fq.fused_qkv_decode,
+                                         fq.fused_o_residual)
+            for a in ("launches", "ring_launches", "q4g_ring_launches", "dense_launches",
+                      "dense_ring_launches")]
 
 
 def test_cpu_qkv_and_o_take_the_plain_version_and_count_nothing():
@@ -318,6 +423,36 @@ def test_cpu_call_takes_the_plain_version_and_counts_nothing():
     torch.testing.assert_close(fm.fused_mlp_decode(x, layers, 1),
                                fm.fused_mlp_decode_ref(x, layers, 1), rtol=0, atol=0)
     assert counts == (fm.fused_mlp_decode.launches, fm.fused_mlp_decode.ring_launches)
+
+
+def test_cpu_dense_calls_take_the_plain_version_and_count_nothing():
+    """bf16 x with dense bf16 weights at B = 4, where the card takes the ring
+    for K1 and K2: on the CPU K1-K3 are their plain versions, count no
+    launch, and agree with the fp32 products rounded once."""
+    g = torch.Generator().manual_seed(2)
+
+    def w(out_d, in_d):
+        return {"weight": (0.05 * torch.randn((2, out_d, in_d), generator=g)).to(torch.bfloat16)}
+    layers = {"input_layernorm": {"weight": 1 + 0.1 * torch.randn((2, 256), generator=g)},
+              "post_attention_layernorm": {"weight": torch.ones((2, 256))},
+              "q_proj": w(256, 256), "k_proj": w(64, 256), "v_proj": w(64, 256),
+              "o_proj": w(256, 256), "gate_proj": w(512, 256), "up_proj": w(512, 256),
+              "down_proj": w(256, 512)}
+    x = torch.randn((4, 256), generator=g).to(torch.bfloat16)
+    attn = torch.randn((4, 256), generator=g).to(torch.bfloat16)
+    assert fm.ring_route(4, x.dtype, DENSE, 256, 512, SMS) is not None
+    assert fq.qkv_ring_route(4, x.dtype, DENSE, 256, 256, 64, SMS) is not None
+    assert fq.o_ring_route(4, x.dtype, DENSE, 256, 256, SMS) is None
+    before = _counts()
+    h = fq.rms_h(x, layers["input_layernorm"]["weight"][1], 1e-5).float()
+    for got, name in zip(fq.fused_qkv_decode(x, layers, 1), ("q_proj", "k_proj", "v_proj")):
+        want = (h @ layers[name]["weight"][1].float().T).to(torch.bfloat16)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(fq.fused_o_residual(attn, x, layers, 1),
+                               fq.fused_o_residual_ref(attn, x, layers, 1), rtol=0, atol=0)
+    torch.testing.assert_close(fm.fused_mlp_decode(x, layers, 1),
+                               fm.fused_mlp_decode_ref(x, layers, 1), rtol=0, atol=0)
+    assert _counts() == before
 
 
 # K6 on the ring: Llama-3-8B's projections (q/o 4096, k/v 1024, gate/up 14336
@@ -396,3 +531,25 @@ def test_k6_ring_q4_activations_deinterleaved():
         for q in range(0, 32, 8):             # a quarter-warp's first chunks
             banks = {(_act_chunk(2 * c) % 8) for c in range(q, q + 8)}
             assert len(banks) == 8
+
+
+@pytest.mark.parametrize("K", [4096, 14336, 5504, 256])
+def test_dense_ring_activations_read_in_place(K):
+    """The dense consumers' view of an activation row (staged chunk j at
+    ``act_chunk(j)``, read by ``ring_dot_bf16`` in csrc/fused_decode.cu): a
+    lane's 16-byte weight vector c holds columns 8 c .. 8 c + 7, and the
+    chunk it reads holds exactly those columns; the eight lanes of a
+    quarter-warp (vectors c .. c + 7, c a multiple of 8: the warp's 32 lanes
+    take 32 vectors in a row, and BT = 1's second vector is 32 further) read
+    chunks on eight distinct bank groups, 128 bytes on all 32 banks."""
+    x = np.arange(K)
+    smem = np.full(K, -1)
+    for j in range(K // 8):                   # the consumers' staging, one chunk a thread
+        smem[8 * _act_chunk(j):8 * _act_chunk(j) + 8] = x[8 * j:8 * j + 8]
+    assert (np.sort(smem) == x).all()
+    for c in range(K // 8):
+        np.testing.assert_array_equal(smem[8 * _act_chunk(c):][:8], 8 * c + np.arange(8))
+    for q in range(0, K // 8, 8):
+        chunks = [_act_chunk(c) for c in range(q, min(q + 8, K // 8))]
+        assert len({ch % 8 for ch in chunks}) == len(chunks)
+        assert len({ch // 8 for ch in chunks}) == 1     # one 128-byte line

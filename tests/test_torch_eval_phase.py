@@ -6,7 +6,8 @@ the eval CLI's chunks and merge, the verifier's record, check and
 corrupted-weight failure), and it launches no kernel (the CPU takes every
 kernel's plain version, so every count stays 0; the launch checks run on
 the card only). Its dense bf16 K1-K3 launch counters are split off from the
-row-per-warp int8 records by ``launch_counts``."""
+row-per-warp int8 records by ``launch_counts``, and K1's and K2's dense
+weight-ring calls from the row-per-warp dense ones and the int8 ring's."""
 import pytest
 import torch
 
@@ -48,3 +49,20 @@ def test_dense_counts_split_from_row_per_warp(fn, monkeypatch):
     cs.reset_launch_counts()
     assert (got[name + "_dense"], got[name], got[name + "_f32"]) == (1, 1, 1)
     assert sum(got.values()) == 3
+
+
+@pytest.mark.parametrize("fn", [fused_qkvo.fused_qkv_decode, fused_mlp.fused_mlp_decode])
+def test_dense_ring_counts_split_from_the_int8_ring(fn):
+    """A dense bf16 call on the weight ring lands in the ``_dense_ring``
+    record only (not in ``_dense``, the row-per-warp dense instance, nor in
+    ``_ring``, the int8 ring); an int8 ring call in ``_ring`` only."""
+    name = fn.__name__
+    cs.reset_launch_counts()
+    x = torch.zeros((4, 8), dtype=torch.bfloat16)
+    for fmt in (fused_qkvo.DENSE, fused_qkvo.INT8):
+        fused_qkvo.count_ring(fn, fmt)
+        fused_qkvo.count(fn, x, fmt)
+    got = cs.launch_counts()
+    cs.reset_launch_counts()
+    assert (got[name + "_dense_ring"], got[name + "_ring"]) == (1, 1)
+    assert sum(got.values()) == 2

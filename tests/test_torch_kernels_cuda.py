@@ -328,11 +328,14 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_qkvo.fused_o_residual.launches,
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
-    # the weight ring takes bf16 x with int8 or q4g weights at B <= 8, nothing else
-    routed = bf and fmt in ("int8", "q4g") and B <= 8
-    assert fused_mlp.fused_mlp_decode.ring_launches == ring + routed
-    q4g = fmt == "q4g"
-    assert _ring_counts() == tuple(c + routed * (1, q4g)[i % 2] for i, c in enumerate(rings))
+    # the weight ring takes bf16 x with int8, q4g or (K2; K1 at B <= 4)
+    # dense bf16 weights at B <= 8, nothing else
+    routed = bf and fmt in ("int8", "q4g", "bf16") and B <= 8
+    mlp_routed = routed and (fmt != "bf16" or B <= fused_mlp.DENSE_RING_ROWS)
+    assert fused_mlp.fused_mlp_decode.ring_launches == ring + mlp_routed
+    q4g, o_routed = fmt == "q4g", routed and fmt != "bf16"
+    assert _ring_counts() == (rings[0] + routed, rings[1] + routed * q4g,
+                              rings[2] + o_routed, rings[3] + o_routed * q4g)
 
 
 def _ring_counts():
@@ -423,6 +426,51 @@ def test_fused_decode_no_ring_plan(dev, B):
     _assert_close(fused_qkvo.fused_o_residual(attn, x, wide_nq, 1),
                   fused_qkvo.fused_o_residual_ref(attn, x, wide_nq, 1), atol=2e-3)
     assert fused_qkvo.fused_o_residual.ring_launches == o + 1
+
+
+# (H, NQ, NKV, I): SliME-8B's widths, and the 0.6B bf16 draft's
+# (chip_smoke.DRAFT_LLM: K2 two rows a stage, each warp two rows at once)
+DENSE_WIDTHS = [(4096, 4096, 1024, 14336), (2048, 2048, 1024, 5504)]
+
+
+@pytest.mark.parametrize("width", DENSE_WIDTHS, ids=lambda w: f"H{w[0]}")
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_dense_ring_decode(dev, width, B):
+    """K2 on dense bf16 weights at B <= 8 and K1 at B <= 4 take the weight
+    ring (``.dense_ring_launches`` rise by one) and agree with their plain
+    versions at phase 1's tolerances (K2 atol 2e-3, K1 the one-ulp bound of
+    its bf16 intermediate), as do the instances the rule does not take on
+    the same inputs (``ring=False`` / ``True``, uncounted); K3 stays row
+    per warp."""
+    H, NQ, NKV, I = width
+    g = torch.Generator(device=dev).manual_seed(400 + B + H)
+    layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
+                           device=dev)
+    x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+    fns = (fused_qkvo.fused_qkv_decode, fused_qkvo.fused_o_residual,
+           fused_mlp.fused_mlp_decode)
+    before = [(f.launches, f.ring_launches, f.dense_launches,
+               getattr(f, "dense_ring_launches", 0)) for f in fns]
+    want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
+    for got in (fused_qkvo.fused_qkv_decode(x, layers, 1),
+                fused_qkvo.qkv_launch(x, layers, 1, 1e-5, ring=False)[:3]):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            _assert_close(a, b, atol=2e-3)
+    _assert_close(fused_qkvo.fused_o_residual(attn, x, layers, 1),
+                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
+    want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
+    floor = fused_mlp.intermediate_ulp_bound(x, layers, 1)
+    for got in (fused_mlp.fused_mlp_decode(x, layers, 1),
+                fused_mlp.mlp_launch(x, layers, 1, 1e-5, ring=False)[0],
+                fused_mlp.mlp_launch(x, layers, 1, 1e-5, ring=True)[0]):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_mlp_close(got, want, floor)
+    after = [(f.launches, f.ring_launches, f.dense_launches,
+              getattr(f, "dense_ring_launches", 0)) for f in fns]
+    assert after == [(c[0] + 1, c[1] + ring, c[2] + 1, c[3] + ring)
+                     for c, ring in zip(before, (1, 0, B <= fused_mlp.DENSE_RING_ROWS))]
 
 
 def _mlp_layers(H, I, fmt, generator, device):
