@@ -28,11 +28,13 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          its P2 design probe, the fused QKV / O-residual / MLP decode kernels
          in int8 and q4g at B up to 128, bf16 and fp32 (in bf16 at B <= 8
          on their weight ring, with its launches' device times from the
-         profiler, K2 and K3 beside torch's int8 / int4 weight-only
-         product), and on dense bf16 weights at B = 1, 4, 6 and 8 (K2, and
-         K1 at B <= 4, on the weight ring, each beside the instance its rule
-         does not take on the same inputs, K3 row per warp; all beside
-         torch.nn.functional.linear of the bf16 product), the flash-attention
+         profiler; K1 in bf16 on int8 weights from 9 rows on tensor cores,
+         at B = 9-128 beside its row-per-warp instance on the same inputs;
+         K1-K3 beside torch's int8 / int4 weight-only product), and on dense
+         bf16 weights at B = 1, 4, 6 and 8 (K2, and K1 and K3 at B <= 4, on
+         the weight ring, each beside the instance its rule does not take on
+         the same inputs; all beside torch.nn.functional.linear of the bf16
+         product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
@@ -120,8 +122,9 @@ Phase 8  serves through the continuous-batching engine
          ticks. It holds each answer to ``generate``'s (equal, or parted at a
          near tie of generate's logits, ENGINE_TIE_ATOL), counts the launches
          (K4 23 per multimodal admission, K1-K3 on the weight ring 32 each per
-         decode step at B = 4 and per chunk of <= 8 rows, row per warp 32 each
-         per fused chunk of 9-64 rows, K5 never), serves one request through
+         decode step at B = 4 and per chunk of <= 8 rows, K1 on tensor cores
+         and K2-K3 row per warp 32 each per fused chunk of 9-64 rows, K5
+         never), serves one request through
          ``start()``/``stop()``, cancels one, traces a 4-slot tick at k = 1 and
          k = 8 and the 300-token prompt's two chunks, and runs the int8 KV
          pool twice (finite scales, the same answers, the float pool's first
@@ -137,8 +140,9 @@ Phase 9  serves the stack around the engine on phase 2's int8 model (bf16, 4
          dispatch) on one 64-token request with a random 0.6B bf16 draft and
          with the target as its own draft: every emitted token is the argmax
          of its verify chunk under the accept rule, the tokens equal the
-         plain engine's up to its first near tie, K1-K3 launch row per warp
-         32 each a verify chunk and on the ring 32 each a plain step (and a
+         plain engine's up to its first near tie, K1 on tensor cores and
+         K2-K3 row per warp launch 32 each a verify chunk and K1-K3 on the
+         ring 32 each a plain step (and a
          draft step where the draft is the target). It traces a dispatch of
          8 rounds (draft steps, verify chunk, ingest) and a k = 8 tick with
          one constrained slot against none, and prints the acceptance,
@@ -216,8 +220,8 @@ Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
          ``eval.harness.run_eval`` on 8 questions over 4 images (16 tokens,
          llama3 template) at batch 4 and at batch 1, equal up to a logged
          near tie, the launches of each request asserted (K4 23, K5 once a
-         layer a prefill, dense K2 on the weight ring, K1 on it at up to 4
-         rows, dense K3 row per warp, once a layer a decode step) and one
+         layer a prefill, dense K2 on the weight ring, K1 and K3 on it at up
+         to 4 rows, once a layer a decode step) and one
          batch and the decode step
          traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
          prefix leads greedy's after they part, as beam search guarantees);
@@ -373,7 +377,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0,
         "fused_qkv_decode_dense": 2e-3, "fused_o_residual_dense": 2e-3,
         "fused_mlp_decode_dense": 2e-3, "fused_qkv_decode_dense_ring": 2e-3,
-        "fused_mlp_decode_dense_ring": 2e-3}
+        "fused_mlp_decode_dense_ring": 2e-3, "fused_o_residual_dense_ring": 2e-3,
+        "fused_mlp_decode_wgmma": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -396,6 +401,10 @@ ENGINE_SLOTS, ENGINE_TEXT, ENGINE_WINDOW, ENGINE_TIE_ATOL = 4, (60, 300), 256, 0
 # padded to a power of two), where phase 1 times K1-K3's row-per-warp
 # instances
 CHUNK_ROWS = 64
+# the other rows where phase 1 times K1's tensor-core instance (int8, bf16)
+# beside its row-per-warp one: with 20 and 64, every tile shape from one
+# row past the ring's 8 to one 64-token tile, and 65 and 128 (two tiles)
+K1_WGMMA_ROWS = (9, 16, 32)
 # phase 9: speculation's proposals a round and rounds a dispatch (the
 # engine's defaults), the verify chunk's rows (4 slots x (K + 1)), which
 # phase 1 also times; the text prompts' lengths in bytes; the choices
@@ -556,16 +565,23 @@ KERNELS = {
                                "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_mlp.py:366"),
-    # K1 (B <= 4) and K2 (B <= 8) on the weight ring with dense bf16 weights:
-    # the bf16 checkpoints' decode steps (phase 12)
+    # K1 and K3 (B <= 4) and K2 (B <= 8) on the weight ring with dense bf16
+    # weights: the bf16 checkpoints' decode steps (phase 12)
     "fused_qkv_decode_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
                                     "slime_tpu/ops/fused_qkvo.py:146"),
     "fused_mlp_decode_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
                                     "slime_tpu/ops/fused_mlp.py:366"),
+    "fused_o_residual_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                    "slime_tpu/ops/fused_qkvo.py:209"),
+    # K1 on tensor cores (bf16 x, int8 weights, B >= 9: the engine's fused
+    # chunks, phase 8, and the speculative verify chunk, phase 9): K6's
+    # wgmma main loop (csrc/qmm_wgmma.cuh) with a SwiGLU epilogue, then down
+    # split over I, launched by slime_mlp_wgmma
+    "fused_mlp_decode_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_mlp.py:366"),
 }
-# the decode kernels with a dense bf16 instance on the weight ring (K3's
-# dense instance is row per warp only)
-DENSE_RING = ("fused_qkv_decode", "fused_mlp_decode")
+# the decode kernels with a dense bf16 instance on the weight ring
+DENSE_RING = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
 KERNELS.update({"ring_attention_rdma" + sfx: KERNELS["ring_attention_rdma"]
@@ -596,13 +612,17 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # P3 and P4 probes are design probes, off every path. K1-K3's row-per-warp
 # instances in bf16 with q4g weights take B > 8 only (the weight ring takes
 # B <= 8 at these widths), which no path sends them (decode runs at B = 1
-# and 4; phase 7's B = 65 is fp32); their int8 twins take the engine's
-# fused chunks of 9-64 rows (phase 8). K2's row-per-warp instance on dense
-# bf16 weights takes B > 8 only (the ring takes B <= 8), which no path sends
-# it (phase 12's bf16 model decodes at 1-6 rows; K1's dense instance takes
-# beam search's 6 row per warp). Phase 1 checks them; the launch counts of
-# these off-path instances stay 0.
-OFF_PATH = ("fused_qkv_decode_dense", "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
+# and 4; phase 7's B = 65 is fp32); the int8 twins of K2 and K3 take the
+# engine's fused chunks of 9-64 rows (phase 8), while K1's int8 bf16
+# row-per-warp instance takes no path: K1 runs those chunks on tensor cores
+# (``fused_mlp_decode_wgmma``; phase 1 times the row-per-warp one as its
+# "was"). K2's row-per-warp instance on dense bf16 weights takes B > 8 only
+# (the ring takes B <= 8), which no path sends it (phase 12's bf16 model
+# decodes at 1-6 rows; K1's and K3's dense instances take beam search's 6
+# row per warp). Phase 1 checks them; the launch counts of these off-path
+# instances stay 0.
+OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode",
+            "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
             "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
             "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
@@ -654,6 +674,7 @@ def _counters():
         out[n + "_dense"] = (fn, "dense_launches")
         if n in DENSE_RING:
             out[n + "_dense_ring"] = (fn, "dense_ring_launches")
+    out["fused_mlp_decode_wgmma"] = (fused["fused_mlp_decode"], "wgmma_launches")
     return out
 
 
@@ -676,8 +697,10 @@ def launch_counts():
         ring_q4g, ring_dense = counts[n + "_q4g_ring"], counts.get(n + "_dense_ring", 0)
         counts[n + "_ring"] -= ring_q4g + ring_dense
         counts[n + "_dense"] -= ring_dense
-        # what is left of .launches in bf16: int8 weights row per warp
-        counts[n] -= counts[n + "_ring"] + counts[n + "_dense"] + ring_dense
+        # what is left of .launches in bf16: int8 weights row per warp (K1's
+        # tensor-core instance apart)
+        counts[n] -= (counts[n + "_ring"] + counts[n + "_dense"] + ring_dense
+                      + counts.get(n + "_wgmma", 0))
         counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
@@ -1395,15 +1418,23 @@ def decode_kernels(dev, cfg, g, flush, record):
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
     compute dtype), q4g at B = 8 and int8 at B = 64 (the engine's fused
-    chunk, phase 8) and 20 (the verify chunk, phase 9) in bf16. The records
+    chunk, phase 8) and 20 (the verify chunk, phase 9) in bf16, and K1 alone
+    at K1_WGMMA_ROWS. The records
     keep B = 1; K1-K3
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
-    B = 64. K2 and K3 are timed beside one PyTorch
-    call of their int8 or q4g product alone (``decode_library``; in fp32
-    where the installed torch takes fp32 x, else the reason is logged).
-    The MLP in bf16 is held to the one-ulp bound of its bf16 intermediate."""
+    B = 64. K1 in bf16 on int8 weights at B >= 9 takes its tensor-core
+    instance (``fused_mlp_decode_wgmma``, record kept at B = 64; its
+    launches' device times logged at 20 and 64), each timed beside the
+    row-per-warp instance on the same inputs (``mlp_launch(route="rows")``,
+    uncounted: the "was" lines, record ``fused_mlp_decode``); at B = 8 the
+    tensor-core instance is also timed where the rule keeps the ring. K2
+    and K3 are timed beside one PyTorch call of their int8 or q4g product
+    alone (``decode_library``; in fp32 where the installed torch takes fp32
+    x, else the reason is logged), K1 in bf16 beside two: [W_gate; W_up],
+    then W_down on a fixed intermediate. The MLP in bf16 is held to the
+    one-ulp bound of its bf16 intermediate."""
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.probes.mlp_decode import profile_split
 
@@ -1413,6 +1444,7 @@ def decode_kernels(dev, cfg, g, flush, record):
     g_new = torch.Generator(device=dev).manual_seed(SEED + 3)
     g_q4g8 = torch.Generator(device=dev).manual_seed(SEED + 10)
     g_chunk = torch.Generator(device=dev).manual_seed(SEED + 11)
+    g_k1 = torch.Generator(device=dev).manual_seed(SEED + 13)
     bf, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fmt, batches in (("int8", (1, 8)), ("q4g", (1, 64))):
@@ -1439,43 +1471,90 @@ def decode_kernels(dev, cfg, g, flush, record):
                                    "down_proj"), H, 3 * H * I),
         }
         code = fused_qkvo.INT8 if fmt == "int8" else fused_qkvo.Q4G
-        # each wrapper's routing rule: (B, dtype) -> the weight ring or not
-        routes = {"fused_qkv_decode": lambda B, d: fused_qkvo.qkv_ring_route(
-                      B, d, code, H, NQ, NKV, sms),
-                  "fused_o_residual": lambda B, d: fused_qkvo.o_ring_route(
-                      B, d, code, NQ, H, sms),
-                  "fused_mlp_decode": lambda B, d: fused_mlp.ring_route(B, d, code, H, I, sms)}
-        # (activation dtype, record suffix, batch sizes, generator)
-        runs = ((bf, "", batches, g), (bf, "", (65, 128), g_new), (f32, "_f32", (1, 65), g_new))
+        # each wrapper's routing rule: (B, dtype) -> the record suffix of the
+        # instance it takes ("_ring", K1's "_wgmma", or "" row per warp)
+        k1 = {"ring": "_ring", "wgmma": "_wgmma", "rows": ""}
+        routes = {"fused_qkv_decode": lambda B, d: "_ring" if fused_qkvo.qkv_ring_route(
+                      B, d, code, H, NQ, NKV, sms) is not None else "",
+                  "fused_o_residual": lambda B, d: "_ring" if fused_qkvo.o_ring_route(
+                      B, d, code, NQ, H, sms) is not None else "",
+                  "fused_mlp_decode": lambda B, d: k1[fused_mlp.k1_route(
+                      B, d, code, H, I, sms)]}
+        # K1's yardstick: [W_gate; W_up] then W_down on a fixed intermediate
+        # (mid), each one PyTorch call of the int8 or int4 product alone
+        mats = [two[n]["weight"] for n in ("gate_proj", "up_proj", "down_proj")]
+        if fmt == "int8":
+            gu_q = torch.cat([m["q"][1] for m in mats[:2]])
+            gu_s = torch.cat([m["scale"][1, :, 0] for m in mats[:2]])
+
+            def k1_library(x, mid):
+                f1 = int8pack_library("fused_mlp_decode", x, gu_q, gu_s)
+                f2 = int8pack_library("fused_mlp_decode", mid, mats[2]["q"][1],
+                                      mats[2]["scale"][1, :, 0])
+                return None if f1 is None or f2 is None else (lambda: (f1(), f2()))
+        else:
+            gu_w = {"q4g": torch.cat([m["q4g"][1] for m in mats[:2]]),
+                    "scale": torch.cat([m["scale"][1] for m in mats[:2]])}
+            dn_w = {"q4g": mats[2]["q4g"][1], "scale": mats[2]["scale"][1]}
+
+            def k1_library(x, mid):
+                f1 = int4pack_library(x, gu_w, "fused_mlp_decode_q4g")
+                f2 = int4pack_library(mid, dn_w, "fused_mlp_decode_q4g")
+                return None if f1 is None or f2 is None else (lambda: (f1(), f2()))
+        # (activation dtype, record suffix, batch sizes, generator, the one
+        # kernel timed or None for all three)
+        runs = ((bf, "", batches, g, None), (bf, "", (65, 128), g_new, None),
+                (f32, "_f32", (1, 65), g_new, None))
         if fmt == "q4g":
-            runs += ((bf, "", (8,), g_q4g8),)
-        else:       # the engine's fused chunk (phase 8): 64 rows, row per warp;
-            # the verify chunk (phase 9): 20 rows
-            runs += ((bf, "", (CHUNK_ROWS, VERIFY_ROWS), g_chunk),)
-        for dtype, dsfx, bs, gen in runs:
+            runs += ((bf, "", (8,), g_q4g8, None),)
+        else:       # the engine's fused chunk (phase 8): 64 rows; the verify
+            # chunk (phase 9): 20 rows; K1's other tensor-core rows
+            runs += ((bf, "", (CHUNK_ROWS, VERIFY_ROWS), g_chunk, None),
+                     (bf, "", K1_WGMMA_ROWS, g_k1, "fused_mlp_decode"))
+        for dtype, dsfx, bs, gen, only in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
                 a = torch.randn((B, NQ), device=dev, generator=gen).to(dtype)
+                mid = (torch.randn((B, I), device=dev, generator=g_k1).to(dtype)
+                       if dtype == bf else None)
                 for name, (kern, ref, reads, cols, macs) in cases.items():
+                    if only not in (None, name):
+                        continue
                     acts = (x, a) if name == "fused_o_residual" else (x,)
                     floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                              if name == "fused_mlp_decode" and dtype == bf else None)
-                    ring = routes[name](B, dtype) is not None
+                    sfx = routes[name](B, dtype)
                     library = (decode_library(name, fmt, two, x, a)
-                               if name != "fused_mlp_decode" else None)
-                    check_and_time(record, name + dsfx + fsfx + ("_ring" if ring else ""),
-                                   f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} "
-                                   f"B={B} layer 1",
-                                   lambda: kern(x, a), lambda: ref(x, a),
-                                   nbytes(*acts, *reads) + B * cols * x.element_size(),
-                                   2 * B * macs, BF16_OPS if dtype == bf else F32_OPS, flush,
-                                   main=B in (1, CHUNK_ROWS), dispatch=B == 1, floor=floor,
-                                   library=library)
-                    if ring and B in (1, 8):
-                        short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
-                                                    "").split("(")[0]
+                               if name != "fused_mlp_decode"
+                               else k1_library(x, mid) if mid is not None else None)
+                    moved = nbytes(*acts, *reads) + B * cols * x.element_size()
+                    ops, peak = 2 * B * macs, BF16_OPS if dtype == bf else F32_OPS
+                    label = f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} B={B} layer 1"
+                    check_and_time(record, name + dsfx + fsfx + sfx, label,
+                                   lambda: kern(x, a), lambda: ref(x, a), moved, ops, peak,
+                                   flush, main=B in (1, CHUNK_ROWS), dispatch=B == 1,
+                                   floor=floor, library=library)
+                    if name == "fused_mlp_decode" and sfx == "_wgmma":
+                        # the row-per-warp instance on the same inputs (uncounted)
+                        check_and_time(record, name, label + " (was: the row-per-warp "
+                                       "instance)", lambda: fused_mlp.mlp_launch(
+                                           x, two, 1, 1e-5, route="rows")[0],
+                                       lambda: ref(x, a), moved, ops, peak, flush,
+                                       main=B == CHUNK_ROWS, floor=floor, library=library)
+                    if name == "fused_mlp_decode" and fmt == "int8" and dtype == bf and B == 8:
+                        # the tensor-core instance where the rule keeps the ring
+                        check_and_time(record, name + "_wgmma", label + " (the tensor-core "
+                                       "instance, which the rule does not take here)",
+                                       lambda: fused_mlp.mlp_launch(
+                                           x, two, 1, 1e-5, route="wgmma")[0],
+                                       lambda: ref(x, a), moved, ops, peak, flush,
+                                       main=False, floor=floor, library=library)
+                    short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
+                                                "").split("(")[0]
+                    if (sfx == "_ring" and B in (1, 8)) or (sfx == "_wgmma"
+                                                            and B in (VERIFY_ROWS, CHUNK_ROWS)):
                         split, span = profile_split(lambda: kern(x, a), flush)
-                        log(f"phase 1 {name}{fsfx}_ring {fmt} B={B} launches "
+                        log(f"phase 1 {name}{fsfx}{sfx} {fmt} B={B} launches "
                             f"(profiler, device ms each, L2 flushed): "
                             + (", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
                                + f"; first start to last end {span:.4f} ms" if split
@@ -1508,13 +1587,13 @@ def dense_decode_kernels(dev, cfg, flush, record):
     """Phase 1 for K1-K3 on dense bf16 weights (the eval path's bf16
     checkpoints, phase 12) at 8B width, layer 1 of a 2-layer stack, B = 1, 4,
     6 and 8 (the records keep B = 1), from a generator of their own. K2
-    takes the weight ring there and K1 at B <= 4 (``*_dense_ring``: each
+    takes the weight ring there and K1 and K3 at B <= 4 (``*_dense_ring``: each
     wrapper's routing rule); each is also timed on the instance its rule
-    does not take, on the same inputs (``fused_mlp.mlp_launch`` /
-    ``fused_qkvo.qkv_launch`` with ``ring`` False or True, uncounted: the
-    row-per-warp "was" lines, records ``*_dense``, and the ring's lines
-    where the rule keeps K1 row per warp). K3 stays row per warp
-    (``fused_o_residual_dense``). Each is timed beside
+    does not take, on the same inputs (``fused_mlp.mlp_launch`` with
+    ``route`` "rows" or "ring", ``fused_qkvo.qkv_launch`` / ``o_launch``
+    with ``ring`` False or True, uncounted: the row-per-warp "was" lines,
+    records ``*_dense``, and the ring's lines where the rule keeps K1 row
+    per warp). Each is timed beside
     ``torch.nn.functional.linear`` of its bf16 product alone on the same
     weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and W_up
     concatenated, then W_down on a fixed intermediate), a yardstick; the MLP
@@ -1559,13 +1638,14 @@ def dense_decode_kernels(dev, cfg, flush, record):
                                  NQ + 2 * NKV, H * (NQ + 2 * NKV)),
             "fused_o_residual": (lambda: fused_qkvo.fused_o_residual(a, x, two, 1),
                                  lambda: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
-                                 lambda: F.linear(a, wo), None, w("o_proj"), (x, a), H,
-                                 NQ * H),
+                                 lambda: F.linear(a, wo),
+                                 lambda: fused_qkvo.o_launch(a, x, two, 1, ring=not ring)[0],
+                                 w("o_proj"), (x, a), H, NQ * H),
             "fused_mlp_decode": (lambda: fused_mlp.fused_mlp_decode(x, two, 1),
                                  lambda: fused_mlp.fused_mlp_decode_ref(x, two, 1),
                                  lambda: (F.linear(x, wgu), F.linear(mid, wd)),
-                                 lambda: fused_mlp.mlp_launch(x, two, 1, 1e-5,
-                                                              ring=not ring)[0],
+                                 lambda: fused_mlp.mlp_launch(
+                                     x, two, 1, 1e-5, route="rows" if ring else "ring")[0],
                                  w("post_attention_layernorm", "gate_proj", "up_proj",
                                    "down_proj"), (x,), H, 3 * H * I),
         }
@@ -2122,6 +2202,25 @@ def check_answer(name, got, want, logits_at, phase="8"):
     return j, gap
 
 
+def chunk_launches(llm, chunks, sms):
+    """K1-K3's launches over int8 bf16 chunks {padded rows: count} of 9-64
+    rows (the engine's fused chunks, the speculative verify chunks): K2 and
+    K3 row per warp, K1 on the instance its rule takes (``k1_route``: tensor
+    cores from ``fused_mlp.K1_WGMMA_MIN_ROWS`` rows), each once a layer."""
+    from slime_tpu_torch.ops import fused_mlp
+    out = {"fused_qkv_decode": 0, "fused_o_residual": 0, "fused_mlp_decode": 0,
+           "fused_mlp_decode_wgmma": 0}
+    for c, n in chunks.items():
+        if not 8 < c <= 64:
+            continue
+        route = fused_mlp.k1_route(c, torch.bfloat16, fused_mlp.INT8, llm.hidden_size,
+                                   llm.intermediate_size, sms)
+        for name in ("fused_qkv_decode", "fused_o_residual",
+                     "fused_mlp_decode" + ("_wgmma" if route == "wgmma" else "")):
+            out[name] += llm.num_layers * n
+    return out
+
+
 def engine_phase(dev, cfg, params):
     """Phase 8: the continuous-batching engine (``serve.batch_engine``) on
     phase 2's int8 model, bf16 compute; returns the launch counts of the
@@ -2137,6 +2236,8 @@ def engine_phase(dev, cfg, params):
     cfg_run = dataclasses.replace(cfg, eos_token_id=-1)
     V, NL = cfg.llm.vocab_size, cfg.llm.num_layers
     vis = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
     img, ids, attn, anyres = query(dev, cfg)
     crops, mask = anyres(img)
     with torch.no_grad(), fp32_accumulation():
@@ -2214,7 +2315,7 @@ def engine_phase(dev, cfg, params):
     log(f"phase 8 launches: {json.dumps({n: c for n, c in counts.items() if c})}")
     want = {"encoder_attention": 2 * vis, "flash_fwd": 0,
             **{n + "_ring": NL * (eng.decode_steps + ring) for n in FUSED},
-            **{n: NL * rpw for n in FUSED}}
+            **chunk_launches(cfg.llm, eng.chunk_rows, sms)}
     wrong = {n: c for n, c in counts.items() if c != want.get(n, 0)}
     if wrong or not rpw:
         raise AssertionError(f"phase 8 launches {wrong} (expected {want}); fused chunks of "
@@ -2293,7 +2394,7 @@ def engine_phase(dev, cfg, params):
         tail = torch.nn.functional.pad(emb[:, 256:], (0, 0, 0, 64 - (emb.shape[1] - 256)))
         cache1 = llama.init_kv_cache(cfg.llm, 1, cache_len, dtype=bf, device=dev)
         for name, chunk in (("256-position chunk (non-fused)", emb[:, :256]),
-                            ("64-row fused chunk (K1-K3 row per warp)", tail)):
+                            ("64-row fused chunk (K1 wgmma, K2-K3 row per warp)", tail)):
             start = 0 if chunk.shape[1] == 256 else 256
             for _ in range(2):
                 cache1["length"].fill_(start)
@@ -2307,7 +2408,7 @@ def engine_phase(dev, cfg, params):
             parts = ", ".join(f"{pat} {ms:.3f} ms / {n}" for pat, (ms, n) in (
                 (pat, trace_kernel(path, pat)) for pat in (
                     "qkv_kernel", "gate_up_kernel", "resid_kernel", "rms_norm_kernel",
-                    "weight_ring_kernel")) if n)
+                    "weight_ring_kernel", "qmm_wgmma_kernel", "splitk_reduce_kernel")) if n)
             top = "; ".join(f"{ms:.2f} ms {n[:60]}" for n, ms in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
             log(f"phase 8 {name}: device busy {busy:.2f} ms, {launches} launches"
@@ -2589,6 +2690,8 @@ def serving_stack_phase(dev, cfg, params):
     bf = torch.bfloat16
     out = Path(__file__).resolve().parent / "bench_out"
     NL, V = cfg.llm.num_layers, cfg.llm.vocab_size
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
     tok = ByteTokenizer(cfg.bos_token_id)
     rng = np.random.default_rng(SEED + 13)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
@@ -2713,9 +2816,8 @@ def serving_stack_phase(dev, cfg, params):
     counts = launch_counts()
     eng = worker.engine
     ring = sum(n for c, n in eng.chunk_rows.items() if c <= 8)
-    rpw = sum(n for c, n in eng.chunk_rows.items() if 8 < c <= 64)
     expect = {**{n + "_ring": NL * (eng.decode_steps + ring) for n in FUSED},
-              **{n: NL * rpw for n in FUSED}}
+              **chunk_launches(cfg.llm, eng.chunk_rows, sms)}
     wrong = {n: c for n, c in counts.items() if c != expect.get(n, 0)}
     log(f"phase 9 HTTP launches: {json.dumps({n: c for n, c in counts.items() if c})} "
         f"({eng.decode_steps} decode steps, chunks {dict(eng.chunk_rows)})")
@@ -2771,9 +2873,11 @@ def serving_stack_phase(dev, cfg, params):
         draft_fused = dp is params
         steps = st.get("rounds", 0) * (SPEC_K + 1) if draft_fused else 0
         ring = sum(n for c, n in eng.chunk_rows.items() if c <= 8)
-        rpw = sum(n for c, n in eng.chunk_rows.items() if 8 < c <= 64)
+        # the verify chunks (VERIFY_ROWS rows each) beside the admissions' chunks
+        chunks = dict(eng.chunk_rows)
+        chunks[VERIFY_ROWS] = chunks.get(VERIFY_ROWS, 0) + st.get("rounds", 0)
         expect = {**{n + "_ring": NL * (eng.decode_steps + ring + steps) for n in FUSED},
-                  **{n: NL * (st.get("rounds", 0) + rpw) for n in FUSED}}
+                  **chunk_launches(cfg.llm, chunks, sms)}
         wrong = {n: c for n, c in counts.items() if c != expect.get(n, 0)}
         log(f"phase 9 spec, {name} launches: {json.dumps({n: c for n, c in counts.items() if c})}")
         if (wrong and dev.type == "cuda") or not st.get("rounds"):
@@ -2801,13 +2905,16 @@ def serving_stack_phase(dev, cfg, params):
             rpw_ms = sum(ms for k, ms in kern["spec_verify"].items()
                          if k in ("rms_norm_kernel", "qkv_kernel", "resid_kernel",
                                   "gate_up_kernel"))
+            wg_ms = sum(ms for k, ms in kern["spec_verify"].items()
+                        if k in ("qmm_wgmma_kernel", "splitk_reduce_kernel"))
             log(f"phase 9 spec tick, {name}, {ENGINE_SLOTS} live slots, {R} rounds: host wall "
                 f"{walls[-1]:.2f} ms, device busy {b_ms:.2f} ms (idle share "
                 f"{1 - b_ms / walls[-1]:.3f}), {b_n} launches; a round on the device: "
                 f"{b_ms / R:.2f} ms, draft steps {parts['spec_draft'][0] / R:.3f} "
                 f"({parts['spec_draft'][1] // R} launches), verify chunk "
-                f"{parts['spec_verify'][0] / R:.3f} of which K1-K3 row per warp "
-                f"{rpw_ms / R:.3f}, ingest {parts['spec_ingest'][0] / R:.3f}, the rest "
+                f"{parts['spec_verify'][0] / R:.3f} of which the row norms and K1-K3 row "
+                f"per warp {rpw_ms / R:.3f}, K1's tensor-core launches {wg_ms / R:.3f}, "
+                f"ingest {parts['spec_ingest'][0] / R:.3f}, the rest "
                 f"{parts[None][0] / R:.3f}; {ENGINE_SLOTS * (st.get('accepted', 0) + st.get('slot_rounds', 0)) / max(st.get('slot_rounds', 1), 1) / (walls[-1] / R) * 1e3:.1f} "
                 f"tok/s at this acceptance")
             top = "; ".join(f"{k} {ms:.2f}" for k, ms in sorted(
@@ -2956,7 +3063,7 @@ def multi_lora_phase(dev, cfg, params):
                                    max_new_tokens=LORA_NEW)))
     torch.cuda.synchronize()
     reset_launch_counts()
-    fused = [n + "_ring" for n in FUSED] + list(FUSED)
+    fused = [n + "_ring" for n in FUSED] + list(FUSED) + ["fused_mlp_decode_wgmma"]
     ticks, t0 = [], time.perf_counter()
     for _ in range(2000):
         before = launch_counts()
@@ -4616,8 +4723,8 @@ def eval_phase(dev, cfg):
     questions at batch 4 and at batch 1 (equal up to a logged near tie, held
     by generate's teacher-forced logits), with the launches per request
     asserted (K4 23 an encode, K5 a prefill once a layer; a decode step
-    dense K2 on the weight ring, K1 on it at <= 4 rows (row per warp at
-    beam search's 6) and dense K3 row per warp once a layer each) and one
+    dense K2 on the weight ring, K1 and K3 on it at <= 4 rows (row per warp
+    at beam search's 6) once a layer each) and one
     batch traced; ``run_eval(num_beams=3)`` on 2
     questions
     (``check_beam``: beam search's guarantee against greedy's answer);
@@ -4640,7 +4747,7 @@ def eval_phase(dev, cfg):
     from slime_tpu_torch.data.tokenization import tokenizer_image_token
     from slime_tpu_torch.eval import benchmarks, cli, harness, video
     from slime_tpu_torch.models import llama
-    from slime_tpu_torch.ops import fused_mlp
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.ops.weight_ring import DENSE
     from slime_tpu_torch.tools import verify_released_weights as verify
 
@@ -4692,14 +4799,16 @@ def eval_phase(dev, cfg):
 
     def request(steps, rows):
         """The launches of one generate call of ``steps`` decode steps at
-        ``rows`` rows: dense K2 on the weight ring, K1 where its rule takes
-        the ring (B <= 4), K3 row per warp."""
+        ``rows`` rows: dense K2 on the weight ring, K1 and K3 where their
+        rules take the ring (B <= 4)."""
         k1_ring = fused_mlp.ring_route(rows, bf, DENSE, llm.hidden_size,
                                        llm.intermediate_size, sms) is not None
+        k3_ring = fused_qkvo.o_ring_route(rows, bf, DENSE, llm.num_heads * llm.head_dim,
+                                          llm.hidden_size, sms) is not None
         return {"encoder_attention": vis, "flash_fwd": L,
                 "fused_qkv_decode_dense_ring": L * steps,
                 "fused_mlp_decode" + ("_dense_ring" if k1_ring else "_dense"): L * steps,
-                "fused_o_residual_dense": L * steps}
+                "fused_o_residual" + ("_dense_ring" if k3_ring else "_dense"): L * steps}
 
     def run(name, bs, qs=questions, **kw):
         return lambda: harness.run_eval(
@@ -5694,7 +5803,7 @@ def mesh_serve(dev, cfg, params, mesh, say):
     if mesh.size > 1:
         check_answer("generate(mesh)", got, want, lambda j: teacher_logits(
             params, cfg_run, *args, want, j), phase="14")
-    expect = {"encoder_attention": vis, "flash_fwd": NL,
+    expect = {"encoder_attention": vis, "flash_fwd": NL, "fused_mlp_decode_wgmma": 0,
               **{n + sfx: 0 for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense")}}
     wrong = {n: (counts[n], c) for n, c in expect.items() if counts[n] != c}
     if wrong and dev.type == "cuda":                  # the CPU counts nothing
@@ -5786,8 +5895,10 @@ def mesh_serve(dev, cfg, params, mesh, say):
     ecounts = launch_counts()
     say(f"phase 14 engine(mesh), phase 8's four requests: {sum(map(len, answers))} tokens in "
         f"{ewall:.3f} s, {eng.decode_steps} decode steps; K4 {ecounts['encoder_attention']}, "
-        f"K5 {ecounts['flash_fwd']}, K1-K3 {sum(ecounts[n] for n in FUSED)}")
-    if dev.type == "cuda" and (ecounts["encoder_attention"] != 2 * vis or any(
+        f"K5 {ecounts['flash_fwd']}, K1-K3 "
+        f"{sum(ecounts[n] for n in FUSED) + ecounts['fused_mlp_decode_wgmma']}")
+    if dev.type == "cuda" and (ecounts["encoder_attention"] != 2 * vis or ecounts[
+            "fused_mlp_decode_wgmma"] or any(
             ecounts[n + sfx] for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense"))):
         raise AssertionError(f"phase 14 engine(mesh) launches: "
                              f"{ {n: c for n, c in ecounts.items() if c} }")

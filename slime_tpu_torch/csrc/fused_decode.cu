@@ -39,10 +39,10 @@
 //
 // The weight ring (weight_ring_kernel): K1-K3's bf16 instances for int8 and
 // q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
-// paths, and K1's and K2's for dense bf16 weights (FMT kDense: the bf16
-// checkpoints' decode steps; K2 at B <= 8, K1 at B <= 4, where the ring
-// beat row per warp on an H100; K3 on dense weights stays row per warp),
-// wherever a launch plan exists (the wrappers' routing rule).
+// paths, and those for dense bf16 weights (FMT kDense: the bf16
+// checkpoints' decode steps; K2 at B <= 8, K1 and K3 at B <= 4, where the
+// ring beat row per warp on an H100), wherever a launch plan exists (the
+// wrappers' routing rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
 // SM) and by one dependent 16-byte load a lane in flight (dense bf16: 8
@@ -108,7 +108,22 @@
 // Sums stay fp32 FFMA of exact products, in another order than the plain
 // version's; scales, silu, the bf16 intermediate and the fp32 residual are
 // the row-per-warp kernels'.
+//
+// K1 at 9 and more bf16 rows with int8 weights (the engine's fused chunks
+// and the speculative verify chunk) runs on tensor cores instead
+// (slime_mlp_wgmma): the row-per-warp kernels re-read every weight row from
+// L2 once per tile of 8 rows and convert each weight on every pass (64 rows:
+// 2.49 ms against a 0.053 ms bytes bound on an H100), while the 22.5 GFLOP of
+// a 64-row SliME-8B MLP take 0.023 ms at the bf16 tensor-core rate. It runs
+// K6's int8 wgmma main loop (qmm_wgmma.cuh, 64 tokens a tile) twice: gate/up
+// with the SwiGLU epilogue (W_gate's and W_up's same 64 rows are one
+// warpgroup's two m64 tiles, so g and u of a (row, token) meet in one
+// thread), then down split over I into an fp32 workspace that the
+// reduction sums in order, scales and adds the residual to. The weights
+// stream from HBM once a token tile; the sums stay fp32 over exact
+// products, so the bf16 intermediate is the only rounding that can differ.
 #include "hopper_common.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -1275,6 +1290,77 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   return ring_projection<1>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st);
 }
 
+// K1 on tensor cores: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T), y = x + a
+// Wd^T for bf16 x [B, H] (any B; the wrapper's rule sends 9 and more rows)
+// and int8 weights with per-row fp32 scales, in three launches on the
+// stream: the row norm (rms_norm_kernel, 1024 threads a row) into h [B, H];
+// gate/up, qmm_wgmma_kernel<int8, 2, 64, kEpiSwiGLU> (128 intermediate rows
+// a block, token tiles of 64 in grid.y) into a [B, I]; down, the same main
+// loop over W_down (128 output rows a block, the scale epilogue), split over
+// I into `splits` ranges of `kb_per_split` 128-column stages whose fp32
+// sums go to ws [splits, B, H]; then splitk_reduce_kernel adds the splits
+// in order, scales and adds x in fp32 into y [B, H]. H and I are multiples
+// of 16 and at least 256 (the rows TMA reads: quant_matmul.k6_wgmma_strides),
+// the splits cover I's stages, none empty. h, a and ws are the caller's
+// scratch. Returns the first launch error (or a tensor-map error code), or 0.
+int slime_mlp_wgmma(const void* x, const void* norm_w, float eps, void* h, void* a, void* ws,
+                    void* y, int B, int H, int I, const void* wg, const void* sg,
+                    const void* wu, const void* su, const void* wd, const void* sd,
+                    int splits, int kb_per_split, void* stream) {
+  using GU = K6Cfg<kK6Int8, 2, 64>;
+  using DN = K6Cfg<kK6Int8, 1, 64>;
+  const int nkb = (I + DN::BK - 1) / DN::BK;
+  if (B < 1 || H < 256 || I < 256 || H % 16 || I % 16 || ws == nullptr || splits < 1 ||
+      kb_per_split < 1 || (long long)splits * kb_per_split < nkb ||
+      (long long)(splits - 1) * kb_per_split >= nkb)
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<kK6Int8, 2, 64, kEpiSwiGLU>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GU::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, DN::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  K6Params gu = {}, dn = {};
+  int err = encode_2d(&gu.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, H, B, 2LL * H, 64, 64);
+  if (err == 0)
+    err = encode_2d(&gu.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wg, H, I, H, 128, 64);
+  if (err == 0)
+    err = encode_2d(&gu.w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, wu, H, I, H, 128, 64);
+  if (err == 0)
+    err = encode_2d(&dn.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, I, B, 2LL * I, 64, 64);
+  if (err == 0)
+    err = encode_2d(&dn.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wd, I, H, I, 128, DN::ROWS);
+  if (err != 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
+                                                  (bf16*)h, H, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  gu.s = (const float*)sg;
+  gu.s2 = (const float*)su;
+  gu.y = (bf16*)a;
+  gu.M = B; gu.N = I; gu.K = H; gu.kb_per_split = (H + GU::BK - 1) / GU::BK;
+  const int tiles = (B + 63) / 64;
+  qmm_wgmma_kernel<kK6Int8, 2, 64, kEpiSwiGLU>
+      <<<dim3((I + 127) / 128, tiles, 1), kK6Threads, GU::SMEM, st>>>(gu);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dn.s = (const float*)sd;
+  dn.ws = (float*)ws;
+  dn.M = B; dn.N = H; dn.K = I; dn.kb_per_split = kb_per_split;
+  qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>
+      <<<dim3((H + DN::ROWS - 1) / DN::ROWS, tiles, splits), kK6Threads, DN::SMEM, st>>>(dn);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  splitk_reduce_kernel<bf16><<<reduce_blocks(B, H), 256, 0, st>>>(
+      (const float*)ws, splits, B, H, (const float*)sd, (const bf16*)x, (bf16*)y);
+  return (int)cudaGetLastError();
+}
+
 // K2 through the weight ring: q [B, NQ], k and v [B, NKV] = h W^T (scaled)
 // with h = rms_norm(x) * norm_w, in one launch over the row space [0, NQ +
 // 2 NKV) of W_q, W_k, W_v; each block normalises x into its shared memory.
@@ -1310,14 +1396,16 @@ int slime_qkv_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
 }
 
 // K3 through the weight ring: y [B, H] = x + attn W_o^T (scaled), for bf16
-// attn [B, NQ] and x (B <= 8), int8 (wfmt 1) or q4g (2) weights (dense K3
-// stays row per warp: wfmt 0 is refused); with pdl a programmatic dependent
-// of the stream's previous kernel (which may have written attn or x: the
-// consumers read both after griddepcontrol.wait). plan: ring_projection's
-// layout. Returns the launch error, or 0.
+// attn [B, NQ] and x (B <= 8), dense bf16 (wfmt 0: rows of 2 NQ bytes, each
+// split over plan[8] warps, no scales), int8 (1) or q4g (2) weights; with
+// pdl a programmatic dependent of the stream's previous kernel (which may
+// have written attn or x: the consumers read both after
+// griddepcontrol.wait). plan: ring_projection's layout. Returns the launch
+// error, or 0.
 int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, int B, int NQ,
                  int H, const void* wo, const void* so, const int* plan, void* stream) {
-  if ((wfmt != kInt8 && wfmt != kQ4G) || B < 1) return (int)cudaErrorInvalidValue;
+  if ((wfmt != kDense && wfmt != kInt8 && wfmt != kQ4G) || B < 1)
+    return (int)cudaErrorInvalidValue;
   RingArgs a = {};
   a.w[0] = (const unsigned char*)wo;
   a.s[0] = (const float*)so;
@@ -1328,7 +1416,7 @@ int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, in
   a.parts = 1;
   a.K = NQ;
   a.N = H;
-  a.row_bytes = wfmt == kQ4G ? NQ / 2 : NQ;
+  a.row_bytes = wfmt == kQ4G ? NQ / 2 : wfmt == kDense ? 2 * NQ : NQ;
   return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 

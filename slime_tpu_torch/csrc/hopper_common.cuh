@@ -2,7 +2,8 @@
 // encoder_attention.cu; K5's forward and the K5b / K5c backward in
 // flash_attention.cu; K9's bf16 kernel in ring_attention.cu, which shares
 // K5's main loop through hopper_attention.cuh; K7's wgmma instance in
-// quant_matmul.cu; the int8 GEMM of P3 and K8 in int8_gemm.cuh), and its
+// quant_matmul.cu; K6's and K1's int8 main loop in qmm_wgmma.cuh; the int8
+// GEMM of P3 and K8 in int8_gemm.cuh), and its
 // self-test (hopper_selftest.cu).
 //
 // A tile of R rows x W columns of bf16 lives in shared memory as W / 64 chunks,
@@ -26,7 +27,8 @@
 //     memory (SS: S = Q.K^T or S^T = K.Q^T, both K-major) or from registers
 //     (RS: O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q, the shared
 //     operand MN-major through the transpose bit; K7's W . x^T with x
-//     K-major, wgmma_rs_kmajor128); the scores' fp32 accumulator
+//     K-major, wgmma_rs_kmajor128; K6's and K1's at 64 or 128 tokens,
+//     wgmma_rs_kmajor<N>); the scores' fp32 accumulator
 //     rounded into P's register A fragment (acc_to_a_frag); the epilogue
 //     store of a 64-row output tile by TMA.
 //   - Device: wgmma.mma_async m64nNk32 s8 x s8 -> s32, both operands K-major
@@ -462,6 +464,38 @@ __device__ __forceinline__ void wgmma_rs_kmajor128(float (&d)[64], const uint32_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) = [d if scale_d] + A (64 x 16 bf16, registers) . B (16 x
+// 64, shared, K-major): K1's W . h^T over a tile of 64 tokens (qmm_wgmma.cuh).
+__device__ __forceinline__ void wgmma_rs_kmajor64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// the K-major RS product at N = 64 or 128 tokens
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  wgmma_rs_kmajor64(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t b, int scale_d) {
+  wgmma_rs_kmajor128(d, a, b, scale_d);
 }
 
 // ---------------------------------------------------------------------------

@@ -7,22 +7,33 @@ and keeps ``a = silu(g) * u`` in VMEM. On the card it takes two launches in
 one wrapper (``csrc/fused_decode.cu``): gate/up into an ``a [B, I]`` scratch,
 a few tens of KB that stays in L2, then down plus the residual.
 
-bf16 activations with int8 or q4g weights at B <= 8, or dense bf16
-weights at B <= DENSE_RING_ROWS (4) (``ring_instance``: the decode steps of
-the int8 and 4-bit serving paths and of a bf16 checkpoint) take the weight
-ring (``weight_ring_kernel``, ``ops/weight_ring.py``) where both
-projections have a launch plan (``ring_route``): one C call launches the
-row norm, gate/up and down, the last two as programmatic dependents of the
-launch before them, each a persistent grid that streams bands of whole
-weight rows into shared memory by 1-D bulk copies, with the launch plans of
-``ring_plan``. Every other input, fp32 activations, B > 8 (dense: B > 4)
-and a layer too wide for the ring's shared memory included, takes the
-row-per-warp kernels. Launch counts:
-``.ring_launches`` counts the calls that took the ring
+The routing rule (``k1_route``, a pure function of the shapes and the
+dtype) picks one of three instances:
+
+- "ring": bf16 activations with int8 or q4g weights at B <= 8, or dense
+  bf16 weights at B <= DENSE_RING_ROWS (4) (``ring_instance``: the decode
+  steps of the int8 and 4-bit serving paths and of a bf16 checkpoint),
+  where both projections have a launch plan (``ring_route``): one C call
+  launches the row norm, gate/up and down on the weight ring
+  (``weight_ring_kernel``, ``ops/weight_ring.py``), the last two as
+  programmatic dependents of the launch before them, each a persistent grid
+  that streams bands of whole weight rows into shared memory by 1-D bulk
+  copies, with the launch plans of ``ring_plan``;
+- "wgmma": bf16 activations with int8 weights at B >= K1_WGMMA_MIN_ROWS (9:
+  the engine's fused chunks, the speculative verify chunk) where TMA reads
+  the rows (H and I as ``quant_matmul.k6_wgmma_strides`` asks): the row
+  norm, then K6's int8 wgmma main loop over [W_gate; W_up] with a SwiGLU
+  epilogue into ``a``, then over W_down split over I into an fp32
+  workspace (``k1_wgmma_plan``) that a reduction sums, scales and adds x to;
+- "rows": every other input (fp32 activations, q4g and dense bf16 at B > 8,
+  dense at 5-8, a layer too wide for the ring or whose rows TMA cannot
+  read) takes the row-per-warp kernels.
+
+Launch counts: ``.ring_launches`` counts the calls that took the ring
 (``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` those
-on dense bf16 weights), beside the counts every call adds
-(``fused_qkvo.count``: ``.dense_launches`` the bf16 calls on dense bf16
-weights among them, on the ring or row per warp).
+on dense bf16 weights), ``.wgmma_launches`` those on tensor cores, beside
+the counts every call adds (``fused_qkvo.count``: ``.dense_launches`` the
+bf16 calls on dense bf16 weights among them, on the ring or row per warp).
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
@@ -48,9 +59,10 @@ import torch
 from ..models.layers import silu
 from . import _cuda
 from . import weight_ring as wr
-from .fused_qkvo import (DENSE, Q4G, _at, act_f32, check_operands, count, count_ring, kernel_fmt,
-                         layer_mats, norm_weight, proj_ref, rms_h, rms_norm_launch,
-                         split_weight)
+from .fused_qkvo import (DENSE, INT8, Q4G, _at, act_f32, check_operands, count, count_ring,
+                         kernel_fmt, layer_mats, norm_weight, proj_ref, rms_h,
+                         rms_norm_launch, split_weight)
+from .quant_matmul import k6_wgmma_strides
 from .quantization import int_values
 from .weight_ring import ring_instance
 
@@ -63,6 +75,12 @@ _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
 # Measured at that width (H 4096, I 14336) only: other dense widths with
 # ring plans take the same limit unmeasured
 DENSE_RING_ROWS = 4
+# int8 weights in bf16 take the tensor-core instance from this many rows
+# (the ring takes 1-8): on an H100 at SliME-8B's width it beat the
+# row-per-warp kernels at every B from 9 to 128 (PERF.md, K1 wgmma)
+K1_WGMMA_MIN_ROWS = 9
+WGMMA_TOK = 64          # tokens a tile of the tensor-core instance (wgmma n64)
+_WG_ROWS, _WG_BK = 128, 128     # down's output rows a block; int8 columns a stage
 
 
 def _block_divisor(I: int, want: int, *, step: int = 128) -> int:
@@ -107,6 +125,41 @@ def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
     if not ring_instance(B, dtype, fmt) or (fmt == DENSE and B > DENSE_RING_ROWS):
         return None
     return ring_plan(B, H, I, fmt, sms)
+
+
+def wgmma_instance(dtype, fmt: int, H: int, I: int) -> bool:
+    """Whether the tensor-core instance takes the operands: bf16 x, int8
+    weights, rows TMA reads (H and I as K6's wgmma instance asks: multiples
+    of 16, at least 256)."""
+    return (dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(H, INT8)
+            and k6_wgmma_strides(I, INT8))
+
+
+def k1_route(B: int, dtype, fmt: int, H: int, I: int, sms: int) -> str:
+    """The routing rule of ``fused_mlp_decode``: "ring" where ``ring_route``
+    has plans, "wgmma" where ``wgmma_instance`` holds at B >=
+    K1_WGMMA_MIN_ROWS, "rows" (the row-per-warp kernels) for everything
+    else. A pure function, so CPU tests can pin it."""
+    if ring_route(B, dtype, fmt, H, I, sms) is not None:
+        return "ring"
+    if B >= K1_WGMMA_MIN_ROWS and wgmma_instance(dtype, fmt, H, I):
+        return "wgmma"
+    return "rows"
+
+
+def k1_wgmma_plan(B: int, H: int, I: int, sms: int):
+    """(splits, stages per split) of the tensor-core instance's down
+    projection: blocks of 128 output rows for each 64-token tile, split over
+    I's 128-column stages into as many ranges as one wave of blocks (one an
+    SM) holds, none empty. At SliME-8B's width (32 row blocks a tile, 112
+    stages) that is 4 splits of 28 stages, 128 blocks on 132 SMs: a fifth
+    split would start a second wave, and no split of 112 stages over 132
+    blocks gives any block fewer than 28."""
+    blocks = -(-H // _WG_ROWS) * -(-B // WGMMA_TOK)
+    n_kb = -(-I // _WG_BK)
+    splits = max(1, min(n_kb, sms // blocks))
+    per = -(-n_kb // splits)
+    return -(-n_kb // per), per
 
 
 def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
@@ -158,18 +211,22 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     or raise."""
     if x.device.type == "cpu":
         return fused_mlp_decode_ref(x, layers, layer_idx, eps=eps)
-    y, fmt, ring = mlp_launch(x, layers, layer_idx, eps)
-    if ring:
+    y, fmt, route = mlp_launch(x, layers, layer_idx, eps)
+    if route == "ring":
         count_ring(fused_mlp_decode, fmt)
+    fused_mlp_decode.wgmma_launches += route == "wgmma"
     count(fused_mlp_decode, x, fmt)
     return y
 
 
-def mlp_launch(x, layers, layer_idx, eps, ring=None):
-    """K1's launches on CUDA x -> (y, weight format, whether the weight ring
-    ran): with ``ring`` None the routing rule's choice (``ring_route``),
-    with False the row-per-warp kernels, with True the ring wherever it has
-    plans (``ring_plan``, the rule's row limit aside). Counts nothing:
+def mlp_launch(x, layers, layer_idx, eps, route=None):
+    """K1's launches on CUDA x -> (y, weight format, the instance that ran:
+    "ring", "wgmma" or "rows"): with ``route`` None the routing rule's
+    choice (``k1_route``); "rows" the row-per-warp kernels; "ring" the ring
+    wherever it has plans (``ring_plan``, the rule's row limit aside; the
+    row-per-warp kernels elsewhere); "wgmma" the tensor-core instance
+    wherever ``wgmma_instance`` holds (the rule's row limit aside), else a
+    ValueError. Counts nothing:
     ``fused_mlp_decode`` counts its calls; chip_smoke.py's phase 1 times the
     instance the rule does not take on the same inputs."""
     gate_up = layer_mats(layers, ("gate_proj", "up_proj"), layer_idx)
@@ -193,17 +250,32 @@ def mlp_launch(x, layers, layer_idx, eps, ring=None):
     check_operands(a, down)
     y = torch.empty_like(x)
     sms = wr.sm_count(x.device)
-    route = (ring_route(B, x.dtype, fmt, H, I, sms) if ring is None
-             else ring_plan(B, H, I, fmt, sms) if ring and ring_instance(B, x.dtype, fmt)
-             else None)
-    if route is not None:
+    if route is None:
+        route = k1_route(B, x.dtype, fmt, H, I, sms)
+    plans = (ring_plan(B, H, I, fmt, sms)
+             if route == "ring" and ring_instance(B, x.dtype, fmt) else None)
+    if route == "ring" and plans is None:
+        route = "rows"
+    if route == "wgmma" and not wgmma_instance(x.dtype, fmt, H, I):
+        raise ValueError(f"K1's wgmma instance takes bf16 x with int8 weights whose rows "
+                         f"TMA reads, got {x.dtype} format {fmt}, H {H}, I {I}")
+    if route == "ring":
         nw = norm_weight(x, norm_w)
-        *_, plan = route
+        *_, plan = plans
         h = torch.empty_like(x)
         _cuda.check(lib.slime_mlp_ring(
             fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(),
             y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd),
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
+    elif route == "wgmma":
+        nw = norm_weight(x, norm_w)
+        splits, per_split = k1_wgmma_plan(B, H, I, sms)
+        h = torch.empty_like(x)
+        ws = torch.empty((splits, B, H), dtype=torch.float32, device=x.device)
+        _cuda.check(lib.slime_mlp_wgmma(
+            x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(), ws.data_ptr(),
+            y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd), splits,
+            per_split, _cuda.stream()), "fused_mlp_decode (wgmma)")
     else:
         h = rms_norm_launch(x, norm_w, eps, lib)
         wfmt, f32 = kernel_fmt(wg, fmt), act_f32(x)
@@ -213,10 +285,11 @@ def mlp_launch(x, layers, layer_idx, eps, ring=None):
         _cuda.check(lib.slime_resid_gemv(
             f32, wfmt, a.data_ptr(), B, I, p(wd), p(sd), H, x.data_ptr(), y.data_ptr(),
             _cuda.stream()), "fused_mlp_decode down")
-    return y, fmt, route is not None
+    return y, fmt, route
 
 
 fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0
 fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0
 fused_mlp_decode.ring_launches = fused_mlp_decode.q4g_ring_launches = 0
 fused_mlp_decode.dense_launches = fused_mlp_decode.dense_ring_launches = 0
+fused_mlp_decode.wgmma_launches = 0

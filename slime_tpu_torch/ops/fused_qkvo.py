@@ -24,25 +24,25 @@ scales transposed, ``[L, in/128, out]`` (a Mosaic tiling device); that
 layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
 
-bf16 activations with int8 or q4g weights at B <= 8 (``ring_instance``: the
-decode steps of the int8 and 4-bit serving paths), and for K2 also with
-dense bf16 weights (a bf16 checkpoint's decode steps), take the weight ring
-(``weight_ring_kernel``, ``ops/weight_ring.py``) where a launch plan exists
-(``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch over the row
-space of W_q, W_k and W_v whose blocks each normalise x as they stage it
-(no row-norm launch), K3 as one ring launch; each a programmatic dependent
-of the caller's last kernel. Every other input, dense K3, fp32 activations,
-B > 8 and a layer too wide for the ring's shared memory included, takes the
-row-per-warp kernels. The dense ring's sums are fp32 over the exact bf16
-products, as the row-per-warp kernels', in another order; q, k, v round to
-bf16 once.
+bf16 activations with int8, q4g or dense bf16 weights at B <= 8
+(``ring_instance``: the decode steps of the int8 and 4-bit serving paths
+and of a bf16 checkpoint; dense K3 at B <= DENSE_O_RING_ROWS, 4) take the
+weight ring (``weight_ring_kernel``, ``ops/weight_ring.py``) where a launch
+plan exists (``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch
+over the row space of W_q, W_k and W_v whose blocks each normalise x as
+they stage it (no row-norm launch), K3 as one ring launch; each a
+programmatic dependent of the caller's last kernel. Every other input, fp32
+activations, B > 8 and a layer too wide for the ring's shared memory
+included, takes the row-per-warp kernels. The dense ring's sums are fp32
+over the exact bf16 products, as the row-per-warp kernels', in another
+order; q, k, v round to bf16 once.
 
 Launch counts (one per wrapper call that launches, nowhere else):
 ``.launches`` every call, ``.q4g_launches`` those on q4g weights,
 ``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both;
 ``.ring_launches`` the calls that took the weight ring,
-``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` (K2
-only) those on dense bf16 weights; ``.dense_launches`` the calls with bf16 activations on
+``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches``
+those on dense bf16 weights; ``.dense_launches`` the calls with bf16 activations on
 dense bf16 weights (the bf16 checkpoints of the eval path), on the ring or
 row per warp (``chip_smoke.launch_counts`` takes these subsets apart).
 """
@@ -59,6 +59,11 @@ from .weight_ring import DENSE, DENSE_F32, INT8, Q4G, ring_instance
 
 _FMT_NAMES = {DENSE: "dense", INT8: "int8", Q4G: "q4g"}
 ACT_DTYPES = (torch.bfloat16, torch.float32)
+# dense bf16 K3 takes the ring at these many rows at most: on an H100 at
+# SliME-8B's width (W_o [4096, 4096]) the ring beat the row-per-warp kernel
+# at 1 and 4 rows and lost at 6 (PERF.md, K3 dense). Measured at that width
+# only
+DENSE_O_RING_ROWS = 4
 
 
 def split_weight(p):
@@ -200,8 +205,7 @@ def count_ring(fn, fmt) -> None:
     """One call of ``fn`` that took the weight ring, on weight format ``fmt``."""
     fn.ring_launches += 1
     fn.q4g_ring_launches += fmt == Q4G
-    if fmt == DENSE:                    # K1 and K2 only: dense K3 is never on the ring
-        fn.dense_ring_launches += 1
+    fn.dense_ring_launches += fmt == DENSE
 
 
 def norm_weight(x, norm_w):
@@ -235,9 +239,10 @@ def qkv_ring_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int)
 
 def o_ring_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int):
     """The routing rule of ``fused_o_residual``: (plan, its C array) of the
-    o projection's ring launch, or None where the call takes the
-    row-per-warp kernel (always on dense weights: the ring has no dense K3)."""
-    if fmt == DENSE or not ring_instance(B, dtype, fmt):
+    o projection's ring launch where the call takes the weight ring
+    (``ring_instance`` holds, dense weights at B <= DENSE_O_RING_ROWS only,
+    and the plan exists), None where it takes the row-per-warp kernel."""
+    if not ring_instance(B, dtype, fmt) or (fmt == DENSE and B > DENSE_O_RING_ROWS):
         return None
     return wr.projection_plan(B, NQ, H, fmt, sms)
 
@@ -300,6 +305,20 @@ def fused_o_residual(attn, x, layers, layer_idx):
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return fused_o_residual_ref(attn, x, layers, layer_idx)
+    y, fmt, ring = o_launch(attn, x, layers, layer_idx)
+    if ring:
+        count_ring(fused_o_residual, fmt)
+    count(fused_o_residual, x, fmt)
+    return y
+
+
+def o_launch(attn, x, layers, layer_idx, ring=None):
+    """K3's launch on CUDA tensors -> (y, weight format, whether the weight
+    ring ran): with ``ring`` None the routing rule's choice
+    (``o_ring_route``), with False the row-per-warp kernel, with True the
+    ring wherever it has a plan (the rule's row limit aside). Counts
+    nothing: ``fused_o_residual`` counts its calls; chip_smoke.py's phase 1
+    times the instance the rule does not take on the same inputs."""
     mats = layer_mats(layers, ("o_proj",), layer_idx)
     check_operands(attn, mats)
     (wo, so, fmt), = mats
@@ -311,22 +330,23 @@ def fused_o_residual(attn, x, layers, layer_idx):
     lib = _cuda.library()
     y = torch.empty_like(x)
     NQ = attn.shape[1]
-    route = o_ring_route(B, x.dtype, fmt, NQ, H, wr.sm_count(x.device))
+    sms = wr.sm_count(x.device)
+    route = (o_ring_route(B, x.dtype, fmt, NQ, H, sms) if ring is None
+             else wr.projection_plan(B, NQ, H, fmt, sms)
+             if ring and ring_instance(B, x.dtype, fmt) else None)
     if route is not None:
         _cuda.check(lib.slime_o_ring(
             fmt, int(wr.PDL), attn.data_ptr(), x.data_ptr(), y.data_ptr(), B, NQ, H,
             wo.data_ptr(), _cuda.ptr(so), ctypes.addressof(route[1]), _cuda.stream()),
             "fused_o_residual (weight ring)")
-        count_ring(fused_o_residual, fmt)
     else:
         _cuda.check(lib.slime_resid_gemv(
             act_f32(x), kernel_fmt(wo, fmt), attn.data_ptr(), B, NQ, wo.data_ptr(),
             _cuda.ptr(so), H, x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
-    count(fused_o_residual, x, fmt)
-    return y
+    return y, fmt, route is not None
 
 
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
     _fn.ring_launches = _fn.q4g_ring_launches = _fn.dense_launches = 0
-fused_qkv_decode.dense_ring_launches = 0
+    _fn.dense_ring_launches = 0

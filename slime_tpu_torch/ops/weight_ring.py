@@ -1,8 +1,9 @@
 """The decode kernels' weight formats, and the weight ring's launch plans.
 
 K1-K3 (``fused_mlp_decode``, ``fused_qkv_decode``, ``fused_o_residual``) in
-bf16 with int8 or q4g weights, K1 and K2 in bf16 with dense bf16 weights
-(K1 at B <= 4: ``fused_mlp.DENSE_RING_ROWS``), and K6 (``quant_matmul``)
+bf16 with int8, q4g or dense bf16 weights (dense K1 at B <= 4:
+``fused_mlp.DENSE_RING_ROWS``; dense K3 at B <= 4:
+``fused_qkvo.DENSE_O_RING_ROWS``), and K6 (``quant_matmul``)
 in bf16 with int8 or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``:
 the decode steps of the int8 and 4-bit serving paths and of a bf16
 checkpoint) run on the weight ring,
@@ -17,8 +18,9 @@ it cannot run.
 The routing rule (``fused_mlp.ring_route``, ``fused_qkvo.qkv_ring_route``
 and ``o_ring_route``): a call takes the ring where ``ring_instance`` holds
 and every launch of the call has a plan; every other call takes the
-row-per-warp kernels, which take the same operands. Dense K3 stays row
-per warp (``o_ring_route``). A plan is missing where the ring (RING_BYTES)
+row-per-warp kernels, which take the same operands (K1 at 9 and more
+int8 rows its tensor-core instance: ``fused_mlp.k1_route``). A plan is
+missing where the ring (RING_BYTES)
 does not hold two stages or two stages and the activations do not fit in a
 block's shared memory: from K = 57920 int8, 56576 q4g or 32784 dense bf16
 columns with one matrix a stage (K1's down, K2, K3), from 32784, 30976 or
@@ -60,7 +62,8 @@ PDL = True                    # chain a call's launches (programmatic dependent 
 def ring_instance(B: int, dtype, fmt: int) -> bool:
     """Whether the decode kernels' operands suit the weight ring: bf16
     activations, dense bf16, int8, q4g or (K6) per-row q4 weights, 1 <= B <=
-    8. Such a call takes the ring where its plans exist (dense K3 excepted:
+    8. Such a call takes the ring where its plans exist (dense K1 and K3
+    up to their row limits: ``fused_mlp.ring_route``,
     ``fused_qkvo.o_ring_route``); everything else takes the row-per-warp
     kernels (K6: its mma.sync GEMM)."""
     return (dtype == torch.bfloat16 and fmt in (DENSE, INT8, Q4G, ROW_Q4)

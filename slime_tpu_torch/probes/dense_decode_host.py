@@ -6,9 +6,9 @@ prefills 4 right-padded text prompts (117, 160, 200 and 246 valid tokens of
 256) and times single greedy decode steps (``generate._decode_loop`` with
 one new token) under two routes of the same process, in turns:
 
-- ``rule``: the routing rule as it stands (dense K1 and K2 on the weight
-  ring at B = 4);
-- ``row``: dense K1 and K2 forced onto the row-per-warp kernels (the
+- ``rule``: the routing rule as it stands (dense K1, K2 and K3 on the
+  weight ring at B = 4);
+- ``row``: dense K1, K2 and K3 forced onto the row-per-warp kernels (the
   routing functions answer None for dense weights), as before the ring took
   them.
 
@@ -58,18 +58,18 @@ PROFILED_FUNCS = ("decode_step", "fused_qkv_decode", "qkv_launch", "fused_o_resi
 
 @contextlib.contextmanager
 def route(name: str):
-    """Run the body under route ``name``: "rule", or "row" (dense K1 and K2
-    row per warp)."""
-    mlp_rule, qkv_rule = fused_mlp.ring_route, fused_qkvo.qkv_ring_route
+    """Run the body under route ``name``: "rule", or "row" (dense K1, K2 and
+    K3 row per warp)."""
+    rules = (fused_mlp.ring_route, fused_qkvo.qkv_ring_route, fused_qkvo.o_ring_route)
     if name == "row":
-        fused_mlp.ring_route = lambda B, dtype, fmt, *a: (
-            None if fmt == DENSE else mlp_rule(B, dtype, fmt, *a))
-        fused_qkvo.qkv_ring_route = lambda B, dtype, fmt, *a: (
-            None if fmt == DENSE else qkv_rule(B, dtype, fmt, *a))
+        def dense_none(rule):
+            return lambda B, dtype, fmt, *a: None if fmt == DENSE else rule(B, dtype, fmt, *a)
+        fused_mlp.ring_route, fused_qkvo.qkv_ring_route, fused_qkvo.o_ring_route = map(
+            dense_none, rules)
     try:
         yield
     finally:
-        fused_mlp.ring_route, fused_qkvo.qkv_ring_route = mlp_rule, qkv_rule
+        fused_mlp.ring_route, fused_qkvo.qkv_ring_route, fused_qkvo.o_ring_route = rules
 
 
 def card_line() -> str:

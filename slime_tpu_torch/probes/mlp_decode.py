@@ -50,7 +50,8 @@ SLEEP_CYCLES = 2_000_000          # ~1 ms at the H100's clock: longer than a wra
 PROFILED = 10
 # kernels of csrc/fused_decode.cu that one fused_mlp_decode call launches
 # (the weight ring's kernel was mlp_ring_kernel before K2 and K3 shared it)
-K1_KERNELS = ("rms_norm", "gate_up", "resid", "mlp_ring", "weight_ring")
+K1_KERNELS = ("rms_norm", "gate_up", "resid", "mlp_ring", "weight_ring", "qmm_wgmma",
+              "splitk_reduce")
 
 
 def pdl_owner():

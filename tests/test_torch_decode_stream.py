@@ -1,5 +1,6 @@
 """K1-K3's weight ring (``ops/weight_ring.py``, ``fused_mlp.ring_plan``,
-``fused_qkvo.qkv_ring_route`` / ``o_ring_route``) on the CPU.
+``fused_qkvo.qkv_ring_route`` / ``o_ring_route``) and K1's tensor-core
+instance (``fused_mlp.k1_route``, ``k1_wgmma_plan``) on the CPU.
 
 The ring's kernel (``csrc/fused_decode.cu`` ``weight_ring_kernel``) runs
 only on the card (``tests/test_torch_kernels_cuda.py``); what decides which
@@ -7,8 +8,11 @@ inputs reach it and how it is launched is plain Python, held here: the
 routing rule of K1, K2 and K3 for every (B, dtype, weight format) that
 ``chip_smoke.py``'s phase 1 sends them, and at layers too wide for the
 ring's shared memory (they take the row-per-warp kernels instead of
-raising), dense bf16 weights included (K1 and K2 on the ring, K3 row per
-warp); the launch plans at SliME-8B's width, the 0.6B draft's and small
+raising), dense bf16 weights included (K1 at <= 4 rows, K2 and K3 on the
+ring); K1's choice among the ring, its tensor-core instance (bf16 x, int8
+weights, 9 and more rows, rows TMA reads) and the row-per-warp kernels, and
+the split over I of that instance's down projection (every stage once, one
+wave of blocks); the launch plans at SliME-8B's width, the 0.6B draft's and small
 widths whose
 row counts are ragged against the blocks and the stages (every output row
 in exactly one band and one bulk copy, landing where the consumer warps
@@ -196,15 +200,17 @@ def test_dense_ring_plan_at_8b_width():
 def test_dense_ring_plans_at_the_draft_width(B, sms):
     """The 0.6B draft's widths (H 2048, I 5504; NQ 2048, NKV 1024): K1's two
     projections and K2's row space on the ring (K2 two 4 KB rows a stage:
-    the kernel's two-rows-a-warp instance), and the dense K3 plan that the
-    kernel has but the rule does not take, every row once."""
+    the kernel's two-rows-a-warp instance), and K3's (routed at B <= 4,
+    held as the kernel would take it at 8), every row once."""
     H, I = DRAFT
     bf = torch.bfloat16
     assert (fm.ring_route(B, bf, DENSE, H, I, sms) is not None) == (B <= 4)
     gate_up, down, _ = fm.ring_plan(B, H, I, DENSE, sms)
     qkv, _ = fq.qkv_ring_route(B, bf, DENSE, H, 2048, 1024, sms)
-    assert fq.o_ring_route(B, bf, DENSE, 2048, H, sms) is None
     o, _ = wr.projection_plan(B, 2048, H, DENSE, sms)
+    route = fq.o_ring_route(B, bf, DENSE, 2048, H, sms)
+    assert (route is not None) == (B <= fq.DENSE_O_RING_ROWS)
+    assert route is None or route[0] == o
     assert qkv.rows_per_stage == 2 and qkv.parts == (2048, 1024, 1024)
     for ln, K, mat_rows in ((gate_up, H, [I, I]), (down, I, [H]),
                             (qkv, H, [2048, 1024, 1024]), (o, 2048, [H])):
@@ -223,6 +229,101 @@ def test_dense_mlp_ring_row_limit():
         assert fm.ring_plan(B, 4096, 14336, DENSE, SMS) is not None
         for fmt in (INT8, Q4G):
             assert fm.ring_route(B, bf, fmt, 4096, 14336, SMS) is not None
+
+
+def test_dense_o_ring_row_limit():
+    """Dense K3 takes the ring at 1-4 rows (``DENSE_O_RING_ROWS``: the card
+    measured it faster than row per warp at 1 and 4 and slower at 6), the
+    row-per-warp kernel from 5, where its plans exist all the same
+    (``o_launch(ring=True)`` runs them: phase 1's comparison); at
+    SliME-8B's width (W_o [4096, 4096]) one 8 KB row a stage, 16 stages, a
+    warp a row, one band an SM, all of B <= 8 rows in one launch."""
+    bf = torch.bfloat16
+    assert fq.DENSE_O_RING_ROWS == 4
+    for B in range(1, 10):
+        route = fq.o_ring_route(B, bf, DENSE, 4096, 4096, SMS)
+        assert (route is not None) == (B <= 4)
+        if B <= 8:
+            o, c_o = wr.projection_plan(B, 4096, 4096, DENSE, SMS)
+            assert route is None or (o, list(c_o)) == (route[0], list(route[1]))
+            assert list(c_o) == o.ints()
+            assert (o.rows_per_stage, o.stage_bytes, o.stages, o.split, o.grid) == (
+                1, 8192, 16, 1, SMS)
+            assert (o.batch_rows, o.row_bytes, o.scale_bytes) == (B, 8192, 0)
+            assert o.smem > wr.SMEM_HALF
+
+
+# K1's rows at SliME-8B's width: the ring's 1-8, one past it, the verify
+# chunk's 20, the fused chunk's 64, and one and two token tiles past it
+K1_ROUTE_ROWS = tuple(range(1, 9)) + (9, 20, 64, 65, 128)
+
+
+@pytest.mark.parametrize("fmt", [INT8, Q4G, DENSE, wr.DENSE_F32],
+                         ids=["int8", "q4g", "dense", "dense_f32"])
+@pytest.mark.parametrize("B", K1_ROUTE_ROWS)
+def test_k1_route_rule(fmt, B):
+    """bf16 x: int8 weights take the ring at 1-8 rows and the tensor-core
+    instance from 9, q4g the ring at 1-8 and the row-per-warp kernels from
+    9, dense bf16 the ring at 1-4 and row per warp from 5; fp32 x (dense
+    fp32 weights among them) always row per warp."""
+    bf, f32 = torch.bfloat16, torch.float32
+    want = {INT8: "ring" if B <= 8 else "wgmma", Q4G: "ring" if B <= 8 else "rows",
+            DENSE: "ring" if B <= fm.DENSE_RING_ROWS else "rows", wr.DENSE_F32: "rows"}
+    assert fm.k1_route(B, bf, fmt, 4096, 14336, SMS) == want[fmt]
+    assert fm.k1_route(B, f32, fmt, 4096, 14336, SMS) == "rows"
+    assert fm.K1_WGMMA_MIN_ROWS == 9
+
+
+# (H, I, route at B >= 9 with int8 weights): rows TMA reads (multiples of 16
+# bytes, at least 256: quant_matmul.k6_wgmma_strides) and rows it does not
+K1_STRIDES = [(4096, 14336, "wgmma"), (2048, 5504, "wgmma"), (256, 512, "wgmma"),
+              (256, 336, "wgmma"), (4104, 14336, "rows"), (4096, 14344, "rows"),
+              (4096, 1000, "rows"), (128, 512, "rows"), (256, 240, "rows")]
+
+
+@pytest.mark.parametrize("H,I,want", K1_STRIDES, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [9, 20, 64, 65, 128])
+def test_k1_route_needs_rows_tma_reads(H, I, want, B):
+    """int8 weights from 9 rows take the tensor-core instance only where TMA
+    reads h's, a's and the weights' rows; elsewhere the row-per-warp
+    kernels, which take any row of 16-byte vectors. Rows up to 8 never take
+    it, also where the ring has no plan (a layer too wide for it)."""
+    bf = torch.bfloat16
+    assert fm.k1_route(B, bf, INT8, H, I, SMS) == want
+    assert fm.k1_route(8, bf, INT8, 4096, 58048, SMS) == "rows"
+
+
+@pytest.mark.parametrize("width", WIDTHS + [DRAFT, (256, 336)], ids=lambda w: f"H{w[0]}-I{w[1]}")
+@pytest.mark.parametrize("B", [9, 20, 33, 64, 65, 128, 512])
+@pytest.mark.parametrize("sms", [SMS, 7])
+def test_k1_wgmma_down_split_covers_every_stage_once(width, B, sms):
+    """The down projection's split over I: every 128-column stage in exactly
+    one split, none empty; the blocks (128 output rows a 64-token tile, a
+    split) one wave of one an SM where the tiles alone leave room, and no
+    block running more stages than the best one-wave split gives it."""
+    H, I = width
+    splits, per = fm.k1_wgmma_plan(B, H, I, sms)
+    n_kb = -(-I // 128)
+    ranges = [range(z * per, min(n_kb, (z + 1) * per)) for z in range(splits)]
+    assert all(len(r) for r in ranges)
+    assert sorted(k for r in ranges for k in r) == list(range(n_kb))
+    blocks = -(-H // 128) * -(-B // fm.WGMMA_TOK)
+    assert blocks * splits <= max(sms, blocks)
+    assert per == min(-(-n_kb // z) for z in range(1, max(1, sms // blocks) + 1))
+
+
+def test_k1_wgmma_plan_at_8b_width():
+    """SliME-8B's down (W_down [4096, 14336]: 32 row blocks a token tile, 112
+    stages): 4 splits of 28 stages, 128 blocks on 132 SMs, up to 64 rows; 2
+    of 56 at 65-128 rows (two tiles). A fifth split would give 160 blocks,
+    a second wave on a card of one such block an SM; and however the 32 x
+    112 = 3584 block-stages are dealt to 132 blocks, one block runs at least
+    28, as each of these 128 does."""
+    for B in (9, 20, 64):
+        assert fm.k1_wgmma_plan(B, 4096, 14336, SMS) == (4, 28)
+    for B in (65, 128):
+        assert fm.k1_wgmma_plan(B, 4096, 14336, SMS) == (2, 56)
+    assert 4 * 32 <= SMS < 5 * 32
 
 
 def test_ring_plan_refuses_rows_too_long():
@@ -246,12 +347,13 @@ def test_qkv_and_o_ring_plans_cover_every_row_once(fmt, case, B, sms):
     """K2's one launch over the row space [W_q; W_k; W_v] and K3's over W_o:
     every row of q, k, v and y in exactly one band and one bulk copy, none
     crossing a matrix (a stage that meets W_q's end splits its copy there),
-    16-byte aligned, shared memory within a block's. Dense K3 is not routed
-    to the ring: its plan is held as the kernel would take it."""
+    16-byte aligned, shared memory within a block's; dense K3's rows of
+    2 NQ bytes too (routed at B <= DENSE_O_RING_ROWS; past it its plan is
+    held as the kernel would take it)."""
     H, NQ, NKV = QKV_WIDTHS[fmt][case]
     bf = torch.bfloat16
     qkv, c_qkv = fq.qkv_ring_route(B, bf, fmt, H, NQ, NKV, sms)
-    if fmt == DENSE:
+    if fmt == DENSE and B > fq.DENSE_O_RING_ROWS:
         assert fq.o_ring_route(B, bf, fmt, NQ, H, sms) is None
         o, c_o = wr.projection_plan(B, NQ, H, fmt, sms)
     else:
@@ -286,19 +388,21 @@ RING_FORMATS = [(f, d, B) for (f, d), bs in PHASE1.items() for B in bs + tuple(r
 def test_ring_routes_at_phase1(fmt, dtype, B):
     """K1, K2 and K3 at SliME-8B width take the ring exactly where
     ``ring_instance`` holds (every plan exists there), the row-per-warp
-    kernels elsewhere; on dense bf16 weights K2 so, K1 at B <= 4 only (the
-    card measured the ring slower at 8 rows), and K3 never."""
+    kernels elsewhere; on dense bf16 weights K2 and K3 so (K3 up to
+    DENSE_O_RING_ROWS, 4), K1 at B <= 4 only (the card measured the
+    ring slower at 8 rows)."""
     want = wr.ring_instance(B, dtype, fmt)
     assert (fm.ring_route(B, dtype, fmt, 4096, 14336, SMS) is not None) == (
         want and (fmt != DENSE or B <= fm.DENSE_RING_ROWS))
     assert (fq.qkv_ring_route(B, dtype, fmt, 4096, 4096, 1024, SMS) is not None) == want
     assert (fq.o_ring_route(B, dtype, fmt, 4096, 4096, SMS) is not None) == (
-        want and fmt != DENSE)
+        want and (fmt != DENSE or B <= fq.DENSE_O_RING_ROWS))
     dense = dtype == torch.bfloat16 and B <= 8
     assert (fm.ring_route(B, dtype, DENSE, 4096, 14336, SMS) is not None) == (
         dense and B <= 4)
     assert (fq.qkv_ring_route(B, dtype, DENSE, 4096, 4096, 1024, SMS) is not None) == dense
-    assert fq.o_ring_route(B, dtype, DENSE, 4096, 4096, SMS) is None
+    assert (fq.o_ring_route(B, dtype, DENSE, 4096, 4096, SMS) is not None) == (
+        dense and B <= fq.DENSE_O_RING_ROWS)
 
 
 # layers too wide for the ring's shared memory, where K1 raised before: int8
@@ -330,7 +434,8 @@ def test_wide_layers_route_to_the_row_per_warp_kernels(fmt, H, I, B):
     for route, ln in ((fq.qkv_ring_route(B, bf, fmt, H, 4096, 1024, SMS),
                        wr.launch_or_none(B, H, 6144, fmt, 1, SMS, (4096, 1024, 1024))),
                       (fq.o_ring_route(B, bf, fmt, 4096, H, SMS),
-                       None if fmt == DENSE else wr.launch_or_none(B, 4096, H, fmt, 1, SMS))):
+                       None if fmt == DENSE and B > fq.DENSE_O_RING_ROWS
+                       else wr.launch_or_none(B, 4096, H, fmt, 1, SMS))):
         assert (route is None) == (ln is None)
 
 
@@ -380,7 +485,7 @@ def _counts():
     return [getattr(fn, a, 0) for fn in (fm.fused_mlp_decode, fq.fused_qkv_decode,
                                          fq.fused_o_residual)
             for a in ("launches", "ring_launches", "q4g_ring_launches", "dense_launches",
-                      "dense_ring_launches")]
+                      "dense_ring_launches", "wgmma_launches")]
 
 
 def test_cpu_qkv_and_o_take_the_plain_version_and_count_nothing():
@@ -427,7 +532,7 @@ def test_cpu_call_takes_the_plain_version_and_counts_nothing():
 
 def test_cpu_dense_calls_take_the_plain_version_and_count_nothing():
     """bf16 x with dense bf16 weights at B = 4, where the card takes the ring
-    for K1 and K2: on the CPU K1-K3 are their plain versions, count no
+    for K1, K2 and K3: on the CPU K1-K3 are their plain versions, count no
     launch, and agree with the fp32 products rounded once."""
     g = torch.Generator().manual_seed(2)
 
@@ -442,7 +547,7 @@ def test_cpu_dense_calls_take_the_plain_version_and_count_nothing():
     attn = torch.randn((4, 256), generator=g).to(torch.bfloat16)
     assert fm.ring_route(4, x.dtype, DENSE, 256, 512, SMS) is not None
     assert fq.qkv_ring_route(4, x.dtype, DENSE, 256, 256, 64, SMS) is not None
-    assert fq.o_ring_route(4, x.dtype, DENSE, 256, 256, SMS) is None
+    assert fq.o_ring_route(4, x.dtype, DENSE, 256, 256, SMS) is not None
     before = _counts()
     h = fq.rms_h(x, layers["input_layernorm"]["weight"][1], 1e-5).float()
     for got, name in zip(fq.fused_qkv_decode(x, layers, 1), ("q_proj", "k_proj", "v_proj")):

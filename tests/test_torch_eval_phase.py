@@ -7,7 +7,8 @@ corrupted-weight failure), and it launches no kernel (the CPU takes every
 kernel's plain version, so every count stays 0; the launch checks run on
 the card only). Its dense bf16 K1-K3 launch counters are split off from the
 row-per-warp int8 records by ``launch_counts``, and K1's and K2's dense
-weight-ring calls from the row-per-warp dense ones and the int8 ring's."""
+weight-ring calls (K3's too) from the row-per-warp dense ones and the
+int8 ring's, and K1's tensor-core calls from its int8 row-per-warp ones."""
 import pytest
 import torch
 
@@ -51,7 +52,8 @@ def test_dense_counts_split_from_row_per_warp(fn, monkeypatch):
     assert sum(got.values()) == 3
 
 
-@pytest.mark.parametrize("fn", [fused_qkvo.fused_qkv_decode, fused_mlp.fused_mlp_decode])
+@pytest.mark.parametrize("fn", [fused_qkvo.fused_qkv_decode, fused_mlp.fused_mlp_decode,
+                                fused_qkvo.fused_o_residual])
 def test_dense_ring_counts_split_from_the_int8_ring(fn):
     """A dense bf16 call on the weight ring lands in the ``_dense_ring``
     record only (not in ``_dense``, the row-per-warp dense instance, nor in
@@ -65,4 +67,20 @@ def test_dense_ring_counts_split_from_the_int8_ring(fn):
     got = cs.launch_counts()
     cs.reset_launch_counts()
     assert (got[name + "_dense_ring"], got[name + "_ring"]) == (1, 1)
+    assert sum(got.values()) == 2
+
+
+def test_wgmma_counts_split_from_row_per_warp():
+    """A K1 call on its tensor-core instance (int8 weights, bf16 x) lands in
+    the ``fused_mlp_decode_wgmma`` record only, not in the int8
+    row-per-warp record; a row-per-warp call in the plain record only."""
+    fn = fused_mlp.fused_mlp_decode
+    cs.reset_launch_counts()
+    x = torch.zeros((20, 8), dtype=torch.bfloat16)
+    fn.wgmma_launches += 1
+    fused_qkvo.count(fn, x, fused_qkvo.INT8)
+    fused_qkvo.count(fn, x, fused_qkvo.INT8)
+    got = cs.launch_counts()
+    cs.reset_launch_counts()
+    assert (got["fused_mlp_decode_wgmma"], got["fused_mlp_decode"]) == (1, 1)
     assert sum(got.values()) == 2

@@ -307,6 +307,7 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
               fused_qkvo.fused_o_residual.launches,
               fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches)
     ring = fused_mlp.fused_mlp_decode.ring_launches
+    wgmma = fused_mlp.fused_mlp_decode.wgmma_launches
     rings = _ring_counts()
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
@@ -328,12 +329,16 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_qkvo.fused_o_residual.launches,
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
-    # the weight ring takes bf16 x with int8, q4g or (K2; K1 at B <= 4)
-    # dense bf16 weights at B <= 8, nothing else
+    # the weight ring takes bf16 x with int8, q4g or (K2, K3; K1 at B <= 4)
+    # dense bf16 weights at B <= 8, nothing else; K1's tensor-core instance
+    # bf16 x with int8 weights from 9 rows
     routed = bf and fmt in ("int8", "q4g", "bf16") and B <= 8
     mlp_routed = routed and (fmt != "bf16" or B <= fused_mlp.DENSE_RING_ROWS)
     assert fused_mlp.fused_mlp_decode.ring_launches == ring + mlp_routed
-    q4g, o_routed = fmt == "q4g", routed and fmt != "bf16"
+    assert fused_mlp.fused_mlp_decode.wgmma_launches == wgmma + (
+        bf and fmt == "int8" and B >= fused_mlp.K1_WGMMA_MIN_ROWS)
+    q4g = fmt == "q4g"
+    o_routed = routed and (fmt != "bf16" or B <= fused_qkvo.DENSE_O_RING_ROWS)
     assert _ring_counts() == (rings[0] + routed, rings[1] + routed * q4g,
                               rings[2] + o_routed, rings[3] + o_routed * q4g)
 
@@ -436,12 +441,12 @@ DENSE_WIDTHS = [(4096, 4096, 1024, 14336), (2048, 2048, 1024, 5504)]
 @pytest.mark.parametrize("width", DENSE_WIDTHS, ids=lambda w: f"H{w[0]}")
 @pytest.mark.parametrize("B", [1, 3, 8])
 def test_dense_ring_decode(dev, width, B):
-    """K2 on dense bf16 weights at B <= 8 and K1 at B <= 4 take the weight
-    ring (``.dense_ring_launches`` rise by one) and agree with their plain
-    versions at phase 1's tolerances (K2 atol 2e-3, K1 the one-ulp bound of
-    its bf16 intermediate), as do the instances the rule does not take on
-    the same inputs (``ring=False`` / ``True``, uncounted); K3 stays row
-    per warp."""
+    """K2 on dense bf16 weights at B <= 8 and K1 and K3 at B <= 4 take the
+    weight ring (``.dense_ring_launches`` rise by one) and agree with their
+    plain versions at phase 1's tolerances (K2 and K3 atol 2e-3, K1 the
+    one-ulp bound of its bf16 intermediate), as do the instances the rule
+    does not take on the same inputs (``ring=False`` / ``True``, K1's
+    ``route`` "rows" / "ring", uncounted)."""
     H, NQ, NKV, I = width
     g = torch.Generator(device=dev).manual_seed(400 + B + H)
     layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
@@ -458,19 +463,124 @@ def test_dense_ring_decode(dev, width, B):
         for a, b in zip(got, want):
             assert a.dtype == torch.bfloat16 and a.shape == b.shape
             _assert_close(a, b, atol=2e-3)
-    _assert_close(fused_qkvo.fused_o_residual(attn, x, layers, 1),
-                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
+    want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
+    for got in (fused_qkvo.fused_o_residual(attn, x, layers, 1),
+                fused_qkvo.o_launch(attn, x, layers, 1, ring=False)[0],
+                fused_qkvo.o_launch(attn, x, layers, 1, ring=True)[0]):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_close(got, want, atol=2e-3)
     want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
     floor = fused_mlp.intermediate_ulp_bound(x, layers, 1)
     for got in (fused_mlp.fused_mlp_decode(x, layers, 1),
-                fused_mlp.mlp_launch(x, layers, 1, 1e-5, ring=False)[0],
-                fused_mlp.mlp_launch(x, layers, 1, 1e-5, ring=True)[0]):
+                fused_mlp.mlp_launch(x, layers, 1, 1e-5, route="rows")[0],
+                fused_mlp.mlp_launch(x, layers, 1, 1e-5, route="ring")[0]):
         assert got.dtype == torch.bfloat16 and got.shape == x.shape
         _assert_mlp_close(got, want, floor)
     after = [(f.launches, f.ring_launches, f.dense_launches,
               getattr(f, "dense_ring_launches", 0)) for f in fns]
     assert after == [(c[0] + 1, c[1] + ring, c[2] + 1, c[3] + ring)
-                     for c, ring in zip(before, (1, 0, B <= fused_mlp.DENSE_RING_ROWS))]
+                     for c, ring in zip(before, (1, B <= fused_qkvo.DENSE_O_RING_ROWS,
+                                                 B <= fused_mlp.DENSE_RING_ROWS))]
+
+
+@pytest.mark.parametrize("width", [(4096, 4096), (256, 256)], ids=lambda w: f"H{w[0]}")
+@pytest.mark.parametrize("B", range(1, 9))
+def test_dense_o_ring(dev, width, B):
+    """Dense bf16 K3 on the weight ring at every B of 1-8 (the BT = 1, 2, 4,
+    8 instances with rows unused; the rule takes it at B <= 4, ``ring=True``
+    above) at SliME-8B's width and a narrow one, and the row-per-warp
+    instance on the same inputs: against the plain version at atol 2e-3;
+    the wrapper's call counted once, on the ring's record where the rule
+    takes it, the forced launches not at all."""
+    H, NQ = width
+    g = torch.Generator(device=dev).manual_seed(500 + B + H)
+    layers = decode_layers(L=2, H=H, NQ=NQ, NKV=128, I=256, fmt="bf16", generator=g,
+                           device=dev)
+    x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+    fn = fused_qkvo.fused_o_residual
+    before = (fn.launches, fn.ring_launches, fn.dense_ring_launches)
+    want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
+    for got in (fn(attn, x, layers, 1),
+                fused_qkvo.o_launch(attn, x, layers, 1, ring=True)[0],
+                fused_qkvo.o_launch(attn, x, layers, 1, ring=False)[0]):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_close(got, want, atol=2e-3)
+    ring = B <= fused_qkvo.DENSE_O_RING_ROWS
+    assert (fn.launches, fn.ring_launches, fn.dense_ring_launches) == (
+        before[0] + 1, before[1] + ring, before[2] + ring)
+
+
+def _check_wgmma(x, layers):
+    """fused_mlp_decode on its tensor-core instance (``.wgmma_launches`` and
+    ``.launches`` up by one, the ring's count not) and the row-per-warp
+    instance on the same inputs (uncounted), each held to the one-ulp bound
+    of the bf16 intermediate."""
+    fn = fused_mlp.fused_mlp_decode
+    before = (fn.launches, fn.wgmma_launches, fn.ring_launches)
+    want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
+    floor = fused_mlp.intermediate_ulp_bound(x, layers, 1)
+    for got in (fn(x, layers, 1), fused_mlp.mlp_launch(x, layers, 1, 1e-5, route="rows")[0]):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_mlp_close(got, want, floor)
+    assert (fn.launches, fn.wgmma_launches, fn.ring_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+
+
+# the tensor-core instance's rows: one past the ring's 8, a token tile's
+# ragged ends (16, 20 the verify chunk, 33), a whole tile (64, the fused
+# chunk), and one and two tiles more
+K1_WGMMA_ROWS = [9, 16, 20, 33, 64, 65, 128]
+
+
+@pytest.mark.parametrize("width", [(256, 512), (256, 336), (768, 1280)],
+                         ids=lambda w: f"H{w[0]}-I{w[1]}")
+@pytest.mark.parametrize("B", K1_WGMMA_ROWS)
+def test_fused_mlp_wgmma(dev, width, B):
+    """K1 in bf16 on int8 weights from 9 rows at narrow widths: I = 512 (whole
+    128-row blocks and stages), 336 (a ragged last gate/up block and last
+    down stage, TMA's zero fill past I) and 1280 at H = 768 (down's 10
+    stages split over a grid of 6 row blocks a token tile)."""
+    H, I = width
+    g = torch.Generator(device=dev).manual_seed(600 + B + I)
+    layers = _mlp_layers(H, I, "int8", g, dev)
+    assert fused_mlp.k1_route(B, torch.bfloat16, wr.INT8, H, I,
+                              wr.sm_count(torch.device("cuda"))) == "wgmma"
+    _check_wgmma(torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16), layers)
+
+
+@pytest.mark.parametrize("B", [9, 20, 33])
+def test_fused_mlp_wgmma_8b(dev, B):
+    """The same at SliME-8B's width (H = 4096, I = 14336: 112 gate/up blocks,
+    down in 4 splits of 28 stages); 64, 65 and 128 rows run in
+    test_fused_decode_kernels."""
+    g = torch.Generator(device=dev).manual_seed(700 + B)
+    layers = _mlp_layers(4096, 14336, "int8", g, dev)
+    _check_wgmma(torch.randn((B, 4096), device=dev, generator=g).to(torch.bfloat16), layers)
+
+
+def test_fused_mlp_wgmma_rejects(dev):
+    """No fallback: the instance raises on operands it does not take (q4g
+    weights), and a plan its C side refuses (a split that misses stages)
+    raises through ``_cuda.check``; nothing is counted."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((20, 256), device=dev, generator=g).to(torch.bfloat16)
+    fn = fused_mlp.fused_mlp_decode
+    before = (fn.launches, fn.wgmma_launches)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_mlp.mlp_launch(x, _mlp_layers(256, 512, "q4g", g, dev), 1, 1e-5, route="wgmma")
+    layers = _mlp_layers(256, 512, "int8", g, dev)
+    (wg, sg, _), (wu, su, _) = fused_qkvo.layer_mats(layers, ("gate_proj", "up_proj"), 1)
+    (wd, sd, _), = fused_qkvo.layer_mats(layers, ("down_proj",), 1)
+    nw = layers["post_attention_layernorm"]["weight"][1].float().contiguous()
+    h, a = torch.empty_like(x), torch.empty((20, 512), dtype=x.dtype, device=dev)
+    ws, y = torch.empty((1, 20, 256), device=dev), torch.empty_like(x)
+    p = _cuda.ptr
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.check(_cuda.library().slime_mlp_wgmma(
+            p(x), p(nw), 1e-5, p(h), p(a), p(ws), p(y), 20, 256, 512, p(wg), p(sg), p(wu),
+            p(su), p(wd), p(sd), 1, 1, _cuda.stream()), "fused_mlp_decode (wgmma)")
+    assert (fn.launches, fn.wgmma_launches) == before
 
 
 def _mlp_layers(H, I, fmt, generator, device):
