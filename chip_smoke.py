@@ -122,9 +122,8 @@ Phase 8  serves through the continuous-batching engine
          ticks. It holds each answer to ``generate``'s (equal, or parted at a
          near tie of generate's logits, ENGINE_TIE_ATOL), counts the launches
          (K4 23 per multimodal admission, K1-K3 on the weight ring 32 each per
-         decode step at B = 4 and per chunk of <= 8 rows, K1 on tensor cores
-         and K2-K3 row per warp 32 each per fused chunk of 9-64 rows, K5
-         never), serves one request through
+         decode step at B = 4 and per chunk of <= 8 rows, K1-K3 on tensor
+         cores 32 each per fused chunk of 9-64 rows, K5 never), serves one request through
          ``start()``/``stop()``, cancels one, traces a 4-slot tick at k = 1 and
          k = 8 and the 300-token prompt's two chunks, and runs the int8 KV
          pool twice (finite scales, the same answers, the float pool's first
@@ -140,9 +139,9 @@ Phase 9  serves the stack around the engine on phase 2's int8 model (bf16, 4
          dispatch) on one 64-token request with a random 0.6B bf16 draft and
          with the target as its own draft: every emitted token is the argmax
          of its verify chunk under the accept rule, the tokens equal the
-         plain engine's up to its first near tie, K1 on tensor cores and
-         K2-K3 row per warp launch 32 each a verify chunk and K1-K3 on the
-         ring 32 each a plain step (and a
+         plain engine's up to its first near tie, K1-K3 on tensor cores
+         launch 32 each a verify chunk and K1-K3 on the ring 32 each a
+         plain step (and a
          draft step where the draft is the target). It traces a dispatch of
          8 rounds (draft steps, verify chunk, ingest) and a k = 8 tick with
          one constrained slot against none, and prints the acceptance,
@@ -378,7 +377,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_qkv_decode_dense": 2e-3, "fused_o_residual_dense": 2e-3,
         "fused_mlp_decode_dense": 2e-3, "fused_qkv_decode_dense_ring": 2e-3,
         "fused_mlp_decode_dense_ring": 2e-3, "fused_o_residual_dense_ring": 2e-3,
-        "fused_mlp_decode_wgmma": 2e-3}
+        "fused_mlp_decode_wgmma": 2e-3, "fused_qkv_decode_wgmma": 2e-3,
+        "fused_o_residual_wgmma": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -403,7 +403,8 @@ ENGINE_SLOTS, ENGINE_TEXT, ENGINE_WINDOW, ENGINE_TIE_ATOL = 4, (60, 300), 256, 0
 CHUNK_ROWS = 64
 # the other rows where phase 1 times K1's tensor-core instance (int8, bf16)
 # beside its row-per-warp one: with 20 and 64, every tile shape from one
-# row past the ring's 8 to one 64-token tile, and 65 and 128 (two tiles)
+# row past the ring's 8 to one 64-token tile, and 65 and 128 (two tiles);
+# K2's and K3's at the first of them (and 20, 64, 65, 128)
 K1_WGMMA_ROWS = (9, 16, 32)
 # phase 9: speculation's proposals a round and rounds a dispatch (the
 # engine's defaults), the verify chunk's rows (4 slots x (K + 1)), which
@@ -579,6 +580,14 @@ KERNELS = {
     # split over I, launched by slime_mlp_wgmma
     "fused_mlp_decode_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_mlp.py:366"),
+    # K2 and K3 on tensor cores (bf16 x, int8 weights, B >= 9: the same
+    # chunks): K1's down launch (split_wgmma) over [W_q; W_k; W_v] after the
+    # row norm (slime_qkv_wgmma) and over W_o with x as the residual
+    # (slime_o_wgmma)
+    "fused_qkv_decode_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                               "slime_tpu/ops/fused_qkvo.py:209"),
 }
 # the decode kernels with a dense bf16 instance on the weight ring
 DENSE_RING = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
@@ -612,16 +621,16 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # P3 and P4 probes are design probes, off every path. K1-K3's row-per-warp
 # instances in bf16 with q4g weights take B > 8 only (the weight ring takes
 # B <= 8 at these widths), which no path sends them (decode runs at B = 1
-# and 4; phase 7's B = 65 is fp32); the int8 twins of K2 and K3 take the
-# engine's fused chunks of 9-64 rows (phase 8), while K1's int8 bf16
-# row-per-warp instance takes no path: K1 runs those chunks on tensor cores
-# (``fused_mlp_decode_wgmma``; phase 1 times the row-per-warp one as its
-# "was"). K2's row-per-warp instance on dense bf16 weights takes B > 8 only
-# (the ring takes B <= 8), which no path sends it (phase 12's bf16 model
-# decodes at 1-6 rows; K1's and K3's dense instances take beam search's 6
-# row per warp). Phase 1 checks them; the launch counts of these off-path
-# instances stay 0.
-OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode",
+# and 4; phase 7's B = 65 is fp32); nor do K1-K3's int8 bf16 row-per-warp
+# instances take one: K1-K3 run the engine's fused chunks of 9-64 rows
+# (phase 8) and the verify chunks (phase 9) on tensor cores (``*_wgmma``;
+# phase 1 times the row-per-warp ones as their "was"). K2's row-per-warp
+# instance on dense bf16 weights takes B > 8 only (the ring takes B <= 8),
+# which no path sends it (phase 12's bf16 model decodes at 1-6 rows; K1's
+# and K3's dense instances take beam search's 6 row per warp). Phase 1
+# checks them; the launch counts of these off-path instances stay 0.
+OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode", "fused_qkv_decode",
+            "fused_o_residual",
             "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
             "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
@@ -674,7 +683,7 @@ def _counters():
         out[n + "_dense"] = (fn, "dense_launches")
         if n in DENSE_RING:
             out[n + "_dense_ring"] = (fn, "dense_ring_launches")
-    out["fused_mlp_decode_wgmma"] = (fused["fused_mlp_decode"], "wgmma_launches")
+        out[n + "_wgmma"] = (fn, "wgmma_launches")
     return out
 
 
@@ -697,10 +706,10 @@ def launch_counts():
         ring_q4g, ring_dense = counts[n + "_q4g_ring"], counts.get(n + "_dense_ring", 0)
         counts[n + "_ring"] -= ring_q4g + ring_dense
         counts[n + "_dense"] -= ring_dense
-        # what is left of .launches in bf16: int8 weights row per warp (K1's
+        # what is left of .launches in bf16: int8 weights row per warp (the
         # tensor-core instance apart)
         counts[n] -= (counts[n + "_ring"] + counts[n + "_dense"] + ring_dense
-                      + counts.get(n + "_wgmma", 0))
+                      + counts[n + "_wgmma"])
         counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
@@ -1412,24 +1421,30 @@ def q4g_llm_layers(cfg, generator, device):
             "down_proj": {"weight": q(H, I)}}
 
 
+def short_kernel(name):
+    """A profiler kernel name without its return type, namespace and
+    arguments (a kernel that is not a template has no "void " in front)."""
+    return name.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
+
+
 def decode_kernels(dev, cfg, g, flush, record):
     """Phase 1 for K1-K3 at 8B width, layer 1 of a 2-layer stack: int8 (B =
     1, 8) and q4g (B = 1, 64) in bf16, as before; then, from a generator of
     their own, both formats at B = 65 and 128 in bf16 (one launch each, past
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
     compute dtype), q4g at B = 8 and int8 at B = 64 (the engine's fused
-    chunk, phase 8) and 20 (the verify chunk, phase 9) in bf16, and K1 alone
-    at K1_WGMMA_ROWS. The records
-    keep B = 1; K1-K3
+    chunk, phase 8), 20 (the verify chunk, phase 9) and 9 in bf16, and K1
+    alone at K1_WGMMA_ROWS' other rows. The records keep B = 1; K1-K3
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
-    B = 64. K1 in bf16 on int8 weights at B >= 9 takes its tensor-core
-    instance (``fused_mlp_decode_wgmma``, record kept at B = 64; its
-    launches' device times logged at 20 and 64), each timed beside the
-    row-per-warp instance on the same inputs (``mlp_launch(route="rows")``,
-    uncounted: the "was" lines, record ``fused_mlp_decode``); at B = 8 the
-    tensor-core instance is also timed where the rule keeps the ring. K2
+    B = 64. K1-K3 in bf16 on int8 weights at B >= 9 take their tensor-core
+    instances (``*_wgmma``, records kept at B = 64; their launches' device
+    times logged at 20 and 64), each timed beside the row-per-warp instance
+    on the same inputs (``route="rows"``, uncounted: the "was" lines,
+    records ``fused_qkv_decode`` etc.); at B = 8 the tensor-core instances
+    are also timed where the rule keeps the ring, and K2's at 20 and 64 rows
+    also in 3 splits of H (a partial second wave) beside the plan's 2. K2
     and K3 are timed beside one PyTorch call of their int8 or q4g product
     alone (``decode_library``; in fp32 where the installed torch takes fp32
     x, else the reason is logged), K1 in bf16 beside two: [W_gate; W_up],
@@ -1472,14 +1487,22 @@ def decode_kernels(dev, cfg, g, flush, record):
         }
         code = fused_qkvo.INT8 if fmt == "int8" else fused_qkvo.Q4G
         # each wrapper's routing rule: (B, dtype) -> the record suffix of the
-        # instance it takes ("_ring", K1's "_wgmma", or "" row per warp)
-        k1 = {"ring": "_ring", "wgmma": "_wgmma", "rows": ""}
-        routes = {"fused_qkv_decode": lambda B, d: "_ring" if fused_qkvo.qkv_ring_route(
-                      B, d, code, H, NQ, NKV, sms) is not None else "",
-                  "fused_o_residual": lambda B, d: "_ring" if fused_qkvo.o_ring_route(
-                      B, d, code, NQ, H, sms) is not None else "",
-                  "fused_mlp_decode": lambda B, d: k1[fused_mlp.k1_route(
+        # instance it takes ("_ring", "_wgmma", or "" row per warp)
+        sfx_of = {"ring": "_ring", "wgmma": "_wgmma", "rows": ""}
+        routes = {"fused_qkv_decode": lambda B, d: sfx_of[fused_qkvo.k2_route(
+                      B, d, code, H, NQ, NKV, sms)],
+                  "fused_o_residual": lambda B, d: sfx_of[fused_qkvo.k3_route(
+                      B, d, code, NQ, H, sms)],
+                  "fused_mlp_decode": lambda B, d: sfx_of[fused_mlp.k1_route(
                       B, d, code, H, I, sms)]}
+        # each wrapper's launches on a given instance (uncounted; K2 and K3
+        # also split otherwise than the plan where n is given)
+        forced = {"fused_qkv_decode": lambda x, a, r, n=None: fused_qkvo.qkv_launch(
+                      x, two, 1, 1e-5, route=r, splits=n)[:3],
+                  "fused_o_residual": lambda x, a, r, n=None: fused_qkvo.o_launch(
+                      a, x, two, 1, route=r, splits=n)[0],
+                  "fused_mlp_decode": lambda x, a, r, n=None: fused_mlp.mlp_launch(
+                      x, two, 1, 1e-5, route=r)[0]}
         # K1's yardstick: [W_gate; W_up] then W_down on a fixed intermediate
         # (mid), each one PyTorch call of the int8 or int4 product alone
         mats = [two[n]["weight"] for n in ("gate_proj", "up_proj", "down_proj")]
@@ -1508,9 +1531,11 @@ def decode_kernels(dev, cfg, g, flush, record):
         if fmt == "q4g":
             runs += ((bf, "", (8,), g_q4g8, None),)
         else:       # the engine's fused chunk (phase 8): 64 rows; the verify
-            # chunk (phase 9): 20 rows; K1's other tensor-core rows
+            # chunk (phase 9): 20 rows; the tensor-core instances' first row
+            # (9) and K1's other ones
             runs += ((bf, "", (CHUNK_ROWS, VERIFY_ROWS), g_chunk, None),
-                     (bf, "", K1_WGMMA_ROWS, g_k1, "fused_mlp_decode"))
+                     (bf, "", K1_WGMMA_ROWS[:1], g_k1, None),
+                     (bf, "", K1_WGMMA_ROWS[1:], g_k1, "fused_mlp_decode"))
         for dtype, dsfx, bs, gen, only in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
@@ -1534,29 +1559,34 @@ def decode_kernels(dev, cfg, g, flush, record):
                                    lambda: kern(x, a), lambda: ref(x, a), moved, ops, peak,
                                    flush, main=B in (1, CHUNK_ROWS), dispatch=B == 1,
                                    floor=floor, library=library)
-                    if name == "fused_mlp_decode" and sfx == "_wgmma":
+                    if sfx == "_wgmma":
                         # the row-per-warp instance on the same inputs (uncounted)
                         check_and_time(record, name, label + " (was: the row-per-warp "
-                                       "instance)", lambda: fused_mlp.mlp_launch(
-                                           x, two, 1, 1e-5, route="rows")[0],
+                                       "instance)", lambda: forced[name](x, a, "rows"),
                                        lambda: ref(x, a), moved, ops, peak, flush,
                                        main=B == CHUNK_ROWS, floor=floor, library=library)
-                    if name == "fused_mlp_decode" and fmt == "int8" and dtype == bf and B == 8:
+                    if name == "fused_qkv_decode" and sfx == "_wgmma" and B in (
+                            VERIFY_ROWS, CHUNK_ROWS):
+                        # 3 splits of H (144 blocks a token tile: a partial second
+                        # wave) against the plan's one wave (uncounted)
+                        plan = fused_qkvo.wgmma_plan(B, NQ + 2 * NKV, H, sms)[0]
+                        check_and_time(record, name + sfx, label + " (3 splits, not the "
+                                       f"plan's {plan})", lambda: forced[name](x, a, "wgmma", 3),
+                                       lambda: ref(x, a), moved, ops, peak, flush,
+                                       main=False, library=library)
+                    if fmt == "int8" and dtype == bf and B == 8:
                         # the tensor-core instance where the rule keeps the ring
                         check_and_time(record, name + "_wgmma", label + " (the tensor-core "
                                        "instance, which the rule does not take here)",
-                                       lambda: fused_mlp.mlp_launch(
-                                           x, two, 1, 1e-5, route="wgmma")[0],
+                                       lambda: forced[name](x, a, "wgmma"),
                                        lambda: ref(x, a), moved, ops, peak, flush,
                                        main=False, floor=floor, library=library)
-                    short = lambda n: n.replace("void (anonymous namespace)::",  # noqa: E731
-                                                "").split("(")[0]
                     if (sfx == "_ring" and B in (1, 8)) or (sfx == "_wgmma"
                                                             and B in (VERIFY_ROWS, CHUNK_ROWS)):
                         split, span = profile_split(lambda: kern(x, a), flush)
                         log(f"phase 1 {name}{fsfx}{sfx} {fmt} B={B} launches "
                             f"(profiler, device ms each, L2 flushed): "
-                            + (", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
+                            + (", ".join(f"{short_kernel(n)} {ms:.4f}" for n, ms in split.items())
                                + f"; first start to last end {span:.4f} ms" if split
                                else "not measured (the profiler recorded no kernel)"))
         del two, cases
@@ -1591,7 +1621,7 @@ def dense_decode_kernels(dev, cfg, flush, record):
     wrapper's routing rule); each is also timed on the instance its rule
     does not take, on the same inputs (``fused_mlp.mlp_launch`` with
     ``route`` "rows" or "ring", ``fused_qkvo.qkv_launch`` / ``o_launch``
-    with ``ring`` False or True, uncounted: the row-per-warp "was" lines,
+    alike, uncounted: the row-per-warp "was" lines,
     records ``*_dense``, and the ring's lines where the rule keeps K1 row
     per warp). Each is timed beside
     ``torch.nn.functional.linear`` of its bf16 product alone on the same
@@ -1620,7 +1650,6 @@ def dense_decode_kernels(dev, cfg, flush, record):
                   B, torch.bfloat16, fused_qkvo.DENSE, NQ, H, sms),
               "fused_mlp_decode": lambda B: fused_mlp.ring_route(
                   B, torch.bfloat16, fused_qkvo.DENSE, H, I, sms)}
-    short = lambda n: n.replace("void (anonymous namespace)::", "").split("(")[0]  # noqa: E731
     for B in (1, 4, 6, 8):
         x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
         a = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
@@ -1632,14 +1661,15 @@ def dense_decode_kernels(dev, cfg, flush, record):
             "fused_qkv_decode": (lambda: fused_qkvo.fused_qkv_decode(x, two, 1),
                                  lambda: fused_qkvo.fused_qkv_decode_ref(x, two, 1),
                                  lambda: F.linear(x, wqkv),
-                                 lambda: fused_qkvo.qkv_launch(x, two, 1, 1e-5,
-                                                               ring=not ring)[:3],
+                                 lambda: fused_qkvo.qkv_launch(
+                                     x, two, 1, 1e-5, route="rows" if ring else "ring")[:3],
                                  w("input_layernorm", "q_proj", "k_proj", "v_proj"), (x,),
                                  NQ + 2 * NKV, H * (NQ + 2 * NKV)),
             "fused_o_residual": (lambda: fused_qkvo.fused_o_residual(a, x, two, 1),
                                  lambda: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
                                  lambda: F.linear(a, wo),
-                                 lambda: fused_qkvo.o_launch(a, x, two, 1, ring=not ring)[0],
+                                 lambda: fused_qkvo.o_launch(
+                                     a, x, two, 1, route="rows" if ring else "ring")[0],
                                  w("o_proj"), (x, a), H, NQ * H),
             "fused_mlp_decode": (lambda: fused_mlp.fused_mlp_decode(x, two, 1),
                                  lambda: fused_mlp.fused_mlp_decode_ref(x, two, 1),
@@ -1670,7 +1700,7 @@ def dense_decode_kernels(dev, cfg, flush, record):
                 split, span = profile_split(kern, flush)
                 log(f"phase 1 {name}_dense_ring B={B} launches (profiler, device ms each, "
                     f"L2 flushed): "
-                    + (", ".join(f"{short(n)} {ms:.4f}" for n, ms in split.items())
+                    + (", ".join(f"{short_kernel(n)} {ms:.4f}" for n, ms in split.items())
                        + f"; first start to last end {span:.4f} ms" if split
                        else "not measured (the profiler recorded no kernel)"))
     del two, wqkv, wgu
@@ -2204,20 +2234,22 @@ def check_answer(name, got, want, logits_at, phase="8"):
 
 def chunk_launches(llm, chunks, sms):
     """K1-K3's launches over int8 bf16 chunks {padded rows: count} of 9-64
-    rows (the engine's fused chunks, the speculative verify chunks): K2 and
-    K3 row per warp, K1 on the instance its rule takes (``k1_route``: tensor
-    cores from ``fused_mlp.K1_WGMMA_MIN_ROWS`` rows), each once a layer."""
-    from slime_tpu_torch.ops import fused_mlp
-    out = {"fused_qkv_decode": 0, "fused_o_residual": 0, "fused_mlp_decode": 0,
-           "fused_mlp_decode_wgmma": 0}
+    rows (the engine's fused chunks, the speculative verify chunks): each on
+    the instance its rule takes (``k1_route``, ``k2_route``, ``k3_route``:
+    tensor cores from ``K1_WGMMA_MIN_ROWS`` rows), each once a layer."""
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    H, I = llm.hidden_size, llm.intermediate_size
+    NQ, NKV = llm.num_heads * llm.head_dim, llm.num_kv_heads * llm.head_dim
+    out = {n + sfx: 0 for n in FUSED for sfx in ("", "_wgmma")}
     for c, n in chunks.items():
         if not 8 < c <= 64:
             continue
-        route = fused_mlp.k1_route(c, torch.bfloat16, fused_mlp.INT8, llm.hidden_size,
-                                   llm.intermediate_size, sms)
-        for name in ("fused_qkv_decode", "fused_o_residual",
-                     "fused_mlp_decode" + ("_wgmma" if route == "wgmma" else "")):
-            out[name] += llm.num_layers * n
+        bf, fmt = torch.bfloat16, fused_qkvo.INT8
+        for name, route in (("fused_qkv_decode", fused_qkvo.k2_route(c, bf, fmt, H, NQ, NKV,
+                                                                     sms)),
+                            ("fused_o_residual", fused_qkvo.k3_route(c, bf, fmt, NQ, H, sms)),
+                            ("fused_mlp_decode", fused_mlp.k1_route(c, bf, fmt, H, I, sms))):
+            out[name + ("_wgmma" if route == "wgmma" else "")] += llm.num_layers * n
     return out
 
 
@@ -2394,7 +2426,7 @@ def engine_phase(dev, cfg, params):
         tail = torch.nn.functional.pad(emb[:, 256:], (0, 0, 0, 64 - (emb.shape[1] - 256)))
         cache1 = llama.init_kv_cache(cfg.llm, 1, cache_len, dtype=bf, device=dev)
         for name, chunk in (("256-position chunk (non-fused)", emb[:, :256]),
-                            ("64-row fused chunk (K1 wgmma, K2-K3 row per warp)", tail)):
+                            ("64-row fused chunk (K1-K3 wgmma)", tail)):
             start = 0 if chunk.shape[1] == 256 else 256
             for _ in range(2):
                 cache1["length"].fill_(start)
@@ -2408,7 +2440,7 @@ def engine_phase(dev, cfg, params):
             parts = ", ".join(f"{pat} {ms:.3f} ms / {n}" for pat, (ms, n) in (
                 (pat, trace_kernel(path, pat)) for pat in (
                     "qkv_kernel", "gate_up_kernel", "resid_kernel", "rms_norm_kernel",
-                    "weight_ring_kernel", "qmm_wgmma_kernel", "splitk_reduce_kernel")) if n)
+                    "weight_ring_kernel", "qmm_wgmma_kernel", "split_reduce_kernel")) if n)
             top = "; ".join(f"{ms:.2f} ms {n[:60]}" for n, ms in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
             log(f"phase 8 {name}: device busy {busy:.2f} ms, {launches} launches"
@@ -2903,17 +2935,18 @@ def serving_stack_phase(dev, cfg, params):
             parts, kern = trace_ranges(path, ("spec_draft", "spec_verify", "spec_ingest"))
             b_ms, b_n, _ = trace_device(path)
             rpw_ms = sum(ms for k, ms in kern["spec_verify"].items()
-                         if k in ("rms_norm_kernel", "qkv_kernel", "resid_kernel",
-                                  "gate_up_kernel"))
+                         if k in ("qkv_kernel", "resid_kernel", "gate_up_kernel"))
             wg_ms = sum(ms for k, ms in kern["spec_verify"].items()
-                        if k in ("qmm_wgmma_kernel", "splitk_reduce_kernel"))
+                        if k in ("rms_norm_kernel", "qmm_wgmma_kernel",
+                                 "split_reduce_kernel"))
             log(f"phase 9 spec tick, {name}, {ENGINE_SLOTS} live slots, {R} rounds: host wall "
                 f"{walls[-1]:.2f} ms, device busy {b_ms:.2f} ms (idle share "
                 f"{1 - b_ms / walls[-1]:.3f}), {b_n} launches; a round on the device: "
                 f"{b_ms / R:.2f} ms, draft steps {parts['spec_draft'][0] / R:.3f} "
                 f"({parts['spec_draft'][1] // R} launches), verify chunk "
-                f"{parts['spec_verify'][0] / R:.3f} of which the row norms and K1-K3 row "
-                f"per warp {rpw_ms / R:.3f}, K1's tensor-core launches {wg_ms / R:.3f}, "
+                f"{parts['spec_verify'][0] / R:.3f} of which K1-K3 row per warp "
+                f"{rpw_ms / R:.3f}, K1-K3 on tensor cores (row norms included) "
+                f"{wg_ms / R:.3f}, "
                 f"ingest {parts['spec_ingest'][0] / R:.3f}, the rest "
                 f"{parts[None][0] / R:.3f}; {ENGINE_SLOTS * (st.get('accepted', 0) + st.get('slot_rounds', 0)) / max(st.get('slot_rounds', 1), 1) / (walls[-1] / R) * 1e3:.1f} "
                 f"tok/s at this acceptance")
@@ -3063,7 +3096,7 @@ def multi_lora_phase(dev, cfg, params):
                                    max_new_tokens=LORA_NEW)))
     torch.cuda.synchronize()
     reset_launch_counts()
-    fused = [n + "_ring" for n in FUSED] + list(FUSED) + ["fused_mlp_decode_wgmma"]
+    fused = [n + sfx for n in FUSED for sfx in ("", "_ring", "_wgmma")]
     ticks, t0 = [], time.perf_counter()
     for _ in range(2000):
         before = launch_counts()
@@ -5803,8 +5836,9 @@ def mesh_serve(dev, cfg, params, mesh, say):
     if mesh.size > 1:
         check_answer("generate(mesh)", got, want, lambda j: teacher_logits(
             params, cfg_run, *args, want, j), phase="14")
-    expect = {"encoder_attention": vis, "flash_fwd": NL, "fused_mlp_decode_wgmma": 0,
-              **{n + sfx: 0 for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense")}}
+    expect = {"encoder_attention": vis, "flash_fwd": NL,
+              **{n + sfx: 0 for n in FUSED
+                 for sfx in ("", "_ring", "_q4g_ring", "_dense", "_wgmma")}}
     wrong = {n: (counts[n], c) for n, c in expect.items() if counts[n] != c}
     if wrong and dev.type == "cuda":                  # the CPU counts nothing
         raise AssertionError(f"phase 14 generate(mesh) launches (got, want): {wrong}")
@@ -5896,10 +5930,10 @@ def mesh_serve(dev, cfg, params, mesh, say):
     say(f"phase 14 engine(mesh), phase 8's four requests: {sum(map(len, answers))} tokens in "
         f"{ewall:.3f} s, {eng.decode_steps} decode steps; K4 {ecounts['encoder_attention']}, "
         f"K5 {ecounts['flash_fwd']}, K1-K3 "
-        f"{sum(ecounts[n] for n in FUSED) + ecounts['fused_mlp_decode_wgmma']}")
-    if dev.type == "cuda" and (ecounts["encoder_attention"] != 2 * vis or ecounts[
-            "fused_mlp_decode_wgmma"] or any(
-            ecounts[n + sfx] for n in FUSED for sfx in ("", "_ring", "_q4g_ring", "_dense"))):
+        f"{sum(ecounts[n + sfx] for n in FUSED for sfx in ('', '_wgmma'))}")
+    if dev.type == "cuda" and (ecounts["encoder_attention"] != 2 * vis or any(
+            ecounts[n + sfx] for n in FUSED
+            for sfx in ("", "_ring", "_q4g_ring", "_dense", "_wgmma"))):
         raise AssertionError(f"phase 14 engine(mesh) launches: "
                              f"{ {n: c for n, c in ecounts.items() if c} }")
     if mesh.size == 1:

@@ -122,6 +122,13 @@
 // reduction sums in order, scales and adds the residual to. The weights
 // stream from HBM once a token tile; the sums stay fp32 over exact
 // products, so the bf16 intermediate is the only rounding that can differ.
+// K2 and K3 at those rows take the same down launch (split_wgmma): K3 with
+// attn as the activations and x as the residual (slime_o_wgmma), K2 after
+// the row norm over the row space [W_q; W_k; W_v], one tensor map a matrix
+// (NQ and NQ + NKV on block boundaries, so a block's rows lie in one),
+// whose reduction scales each part and writes q, k and v apart
+// (slime_qkv_wgmma). Their row-per-warp kernels took 0.37 and 0.27 ms at 64
+// rows on an H100, 2% of their bytes bound.
 #include "hopper_common.cuh"
 #include "qmm_wgmma.cuh"
 
@@ -1290,50 +1297,126 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   return ring_projection<1>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st);
 }
 
+}  // extern "C"
+
+namespace {
+
+// q, k, v (parts 3) or y (parts 1) of a split projection: bf16(resid + sum_z
+// ws[z] * s[p][row]) with ws [splits, B, N] over the row space [0, end[parts
+// - 1]), the splits added in order, each part's scale on the fp32 sum, the
+// residual (K1's down, K3: x [B, N], one part) added in fp32, and one bf16
+// rounding into part p's own [B, end[p] - end[p - 1]] output.
+struct SplitOut {
+  const float* s[3];
+  bf16* y[3];
+  int end[3];
+  int parts;
+};
+
+__global__ void split_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
+                                    const SplitOut o, const bf16* __restrict__ resid) {
+  const size_t MN = (size_t)M * N;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += ws[z * MN + e];
+    // the part by selects, not by an index into o (which would copy it to
+    // local memory)
+    const int m = (int)(e / N), n = (int)(e % N);
+    const bool p1 = o.parts > 1 && n >= o.end[0], p2 = o.parts > 2 && n >= o.end[1];
+    const int start = p2 ? o.end[1] : p1 ? o.end[0] : 0;
+    const int width = (p2 ? o.end[2] : p1 ? o.end[1] : o.end[0]) - start, c = n - start;
+    v *= (p2 ? o.s[2] : p1 ? o.s[1] : o.s[0])[c];
+    if (resid != nullptr) v = __bfloat162float(resid[e]) + v;
+    (p2 ? o.y[2] : p1 ? o.y[1] : o.y[0])[(size_t)m * width + c] = __float2bfloat16_rn(v);
+  }
+}
+
+using SplitCfg = K6Cfg<kK6Int8, 1, 64>;     // split_wgmma's main loop
+
+// Whether split_wgmma takes the operands: K a multiple of 16 and at least 256
+// (the rows TMA reads), 1-3 parts, every part end but the last on a 128-row
+// block boundary, the residual with one part only, and splits of
+// `kb_per_split` stages that cover K's, none empty.
+bool split_ok(int B, int K, const SplitOut& o, const void* resid, const void* ws, int splits,
+              int kb_per_split) {
+  const int nkb = (K + SplitCfg::BK - 1) / SplitCfg::BK;
+  bool ok = B >= 1 && K >= 256 && K % 16 == 0 && ws != nullptr && o.parts >= 1 &&
+            o.parts <= 3 && splits >= 1 && kb_per_split >= 1 &&
+            (long long)splits * kb_per_split >= nkb &&
+            (long long)(splits - 1) * kb_per_split < nkb && (resid == nullptr || o.parts == 1);
+  for (int q = 0; ok && q < o.parts; ++q)
+    ok = o.end[q] > (q > 0 ? o.end[q - 1] : 0) &&
+         (q + 1 == o.parts || o.end[q] % SplitCfg::ROWS == 0);
+  return ok;
+}
+
+// The scale-epilogue main loop over bf16 act [B, K] (qmm_wgmma_kernel<int8, 1,
+// 64, kEpiScale>: 128 rows a block, 64-token tiles in grid.y) and the row
+// space [0, N = o.end[o.parts - 1]) of o.parts int8 matrices w[p] [end[p] -
+// end[p - 1], K], split over K into `splits` ranges of `kb_per_split`
+// 128-column stages whose fp32 sums go to ws [splits, B, N]; then
+// split_reduce_kernel. The operands as split_ok asks. Returns the first
+// launch error (or a tensor-map error code), or 0.
+int split_wgmma(const void* act, int B, int K, const void* const* w, const SplitOut& o,
+                const void* resid, void* ws, int splits, int kb_per_split, cudaStream_t st) {
+  using C = SplitCfg;
+  const int N = o.end[o.parts - 1];
+  if (!split_ok(B, K, o, resid, ws, splits, kb_per_split)) return (int)cudaErrorInvalidValue;
+  int err = qmm_wgmma_smem<kK6Int8, 1, 64, kEpiScale>();
+  K6Params p = {};
+  CUtensorMap* maps[3] = {&p.w, &p.w2, &p.w3};
+  if (err == 0)
+    err = encode_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, act, K, B, 2LL * K, 64, 64);
+  for (int q = 0; err == 0 && q < o.parts; ++q)
+    err = encode_2d(maps[q], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[q], K,
+                    o.end[q] - (q > 0 ? o.end[q - 1] : 0), K, 128, C::ROWS);
+  if (err != 0) return err;
+  p.n1 = o.parts > 1 ? o.end[0] : 0;
+  p.n2 = o.parts > 2 ? o.end[1] : 0;
+  p.ws = (float*)ws;
+  p.M = B; p.N = N; p.K = K; p.kb_per_split = kb_per_split;
+  qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>
+      <<<dim3((N + C::ROWS - 1) / C::ROWS, (B + 63) / 64, splits), kK6Threads, C::SMEM, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  split_reduce_kernel<<<reduce_blocks(B, N), 256, 0, st>>>((const float*)ws, splits, B, N, o,
+                                                           (const bf16*)resid);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
 // K1 on tensor cores: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T), y = x + a
 // Wd^T for bf16 x [B, H] (any B; the wrapper's rule sends 9 and more rows)
-// and int8 weights with per-row fp32 scales, in three launches on the
+// and int8 weights with per-row fp32 scales, in four launches on the
 // stream: the row norm (rms_norm_kernel, 1024 threads a row) into h [B, H];
 // gate/up, qmm_wgmma_kernel<int8, 2, 64, kEpiSwiGLU> (128 intermediate rows
-// a block, token tiles of 64 in grid.y) into a [B, I]; down, the same main
-// loop over W_down (128 output rows a block, the scale epilogue), split over
-// I into `splits` ranges of `kb_per_split` 128-column stages whose fp32
-// sums go to ws [splits, B, H]; then splitk_reduce_kernel adds the splits
-// in order, scales and adds x in fp32 into y [B, H]. H and I are multiples
-// of 16 and at least 256 (the rows TMA reads: quant_matmul.k6_wgmma_strides),
-// the splits cover I's stages, none empty. h, a and ws are the caller's
-// scratch. Returns the first launch error (or a tensor-map error code), or 0.
+// a block, token tiles of 64 in grid.y) into a [B, I]; down, split_wgmma
+// over W_down (K3's launch with a as the activations and x as the residual)
+// split over I into `splits` ranges of `kb_per_split` stages in ws [splits,
+// B, H], and its reduction into y [B, H]. H and I are multiples of 16 and at
+// least 256 (the rows TMA reads: quant_matmul.k6_wgmma_strides). h, a and ws
+// are the caller's scratch. Returns the first launch error (or a tensor-map
+// error code), or 0.
 int slime_mlp_wgmma(const void* x, const void* norm_w, float eps, void* h, void* a, void* ws,
                     void* y, int B, int H, int I, const void* wg, const void* sg,
                     const void* wu, const void* su, const void* wd, const void* sd,
                     int splits, int kb_per_split, void* stream) {
   using GU = K6Cfg<kK6Int8, 2, 64>;
-  using DN = K6Cfg<kK6Int8, 1, 64>;
-  const int nkb = (I + DN::BK - 1) / DN::BK;
-  if (B < 1 || H < 256 || I < 256 || H % 16 || I % 16 || ws == nullptr || splits < 1 ||
-      kb_per_split < 1 || (long long)splits * kb_per_split < nkb ||
-      (long long)(splits - 1) * kb_per_split >= nkb)
+  const SplitOut dn = {{(const float*)sd}, {(bf16*)y}, {H}, 1};
+  if (H < 256 || H % 16 || !split_ok(B, I, dn, x, ws, splits, kb_per_split))
     return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<kK6Int8, 2, 64, kEpiSwiGLU>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GU::SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, DN::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  K6Params gu = {}, dn = {};
-  int err = encode_2d(&gu.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, H, B, 2LL * H, 64, 64);
+  int err = qmm_wgmma_smem<kK6Int8, 2, 64, kEpiSwiGLU>();
+  K6Params gu = {};
+  if (err == 0)
+    err = encode_2d(&gu.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, H, B, 2LL * H, 64, 64);
   if (err == 0)
     err = encode_2d(&gu.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wg, H, I, H, 128, 64);
   if (err == 0)
     err = encode_2d(&gu.w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, wu, H, I, H, 128, 64);
-  if (err == 0)
-    err = encode_2d(&dn.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, I, B, 2LL * I, 64, 64);
-  if (err == 0)
-    err = encode_2d(&dn.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wd, I, H, I, 128, DN::ROWS);
   if (err != 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
@@ -1344,21 +1427,51 @@ int slime_mlp_wgmma(const void* x, const void* norm_w, float eps, void* h, void*
   gu.s2 = (const float*)su;
   gu.y = (bf16*)a;
   gu.M = B; gu.N = I; gu.K = H; gu.kb_per_split = (H + GU::BK - 1) / GU::BK;
-  const int tiles = (B + 63) / 64;
   qmm_wgmma_kernel<kK6Int8, 2, 64, kEpiSwiGLU>
-      <<<dim3((I + 127) / 128, tiles, 1), kK6Threads, GU::SMEM, st>>>(gu);
+      <<<dim3((I + 127) / 128, (B + 63) / 64, 1), kK6Threads, GU::SMEM, st>>>(gu);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dn.s = (const float*)sd;
-  dn.ws = (float*)ws;
-  dn.M = B; dn.N = H; dn.K = I; dn.kb_per_split = kb_per_split;
-  qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>
-      <<<dim3((H + DN::ROWS - 1) / DN::ROWS, tiles, splits), kK6Threads, DN::SMEM, st>>>(dn);
-  e = cudaGetLastError();
+  return split_wgmma(a, B, I, &wd, dn, x, ws, splits, kb_per_split, st);
+}
+
+// K3 on tensor cores: y [B, H] = x + attn W_o^T (scaled) for bf16 attn [B,
+// NQ] and x [B, H] (any B; the wrapper's rule sends 9 and more rows) and int8
+// W_o [H, NQ] with fp32 scales [H]: K1's down launch (split_wgmma) over
+// attn, split over NQ into `splits` ranges of `kb_per_split` stages in ws
+// [splits, B, H], x the residual. NQ a multiple of 16 and at least 256.
+// Returns the first launch error (or a tensor-map error code), or 0.
+int slime_o_wgmma(const void* attn, const void* x, void* ws, void* y, int B, int NQ, int H,
+                  const void* wo, const void* so, int splits, int kb_per_split, void* stream) {
+  const SplitOut o = {{(const float*)so}, {(bf16*)y}, {H}, 1};
+  return split_wgmma(attn, B, NQ, &wo, o, x, ws, splits, kb_per_split, (cudaStream_t)stream);
+}
+
+// K2 on tensor cores: h = rms_norm(x) * norm_w, then q [B, NQ], k and v [B,
+// NKV] = h W^T (scaled) for bf16 x [B, H] (any B; the wrapper's rule sends 9
+// and more rows) and int8 W_q [NQ, H], W_k and W_v [NKV, H] with fp32 scales:
+// the row norm (1024 threads a row) into h [B, H], then one split_wgmma
+// over the row space [W_q; W_k; W_v] (NQ and NQ + NKV on 128-row block
+// boundaries), split over H into `splits` ranges of `kb_per_split` stages in
+// ws [splits, B, NQ + 2 NKV], whose reduction writes q, k and v apart. H a
+// multiple of 16 and at least 256. h and ws are the caller's scratch.
+// Returns the first launch error (or a tensor-map error code), or 0.
+int slime_qkv_wgmma(const void* x, const void* norm_w, float eps, void* h, void* ws, int B,
+                    int H, int NQ, int NKV, const void* wq, const void* sq, const void* wk,
+                    const void* sk, const void* wv, const void* sv, void* q, void* k, void* v,
+                    int splits, int kb_per_split, void* stream) {
+  const SplitOut o = {{(const float*)sq, (const float*)sk, (const float*)sv},
+                      {(bf16*)q, (bf16*)k, (bf16*)v},
+                      {NQ, NQ + NKV, NQ + 2 * NKV},
+                      3};
+  const void* w[3] = {wq, wk, wv};
+  if (norm_w == nullptr || !split_ok(B, H, o, nullptr, ws, splits, kb_per_split))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
+                                                  (bf16*)h, H, eps);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  splitk_reduce_kernel<bf16><<<reduce_blocks(B, H), 256, 0, st>>>(
-      (const float*)ws, splits, B, H, (const float*)sd, (const bf16*)x, (bf16*)y);
-  return (int)cudaGetLastError();
+  return split_wgmma(h, B, H, w, o, nullptr, ws, splits, kb_per_split, st);
 }
 
 // K2 through the weight ring: q [B, NQ], k and v [B, NKV] = h W^T (scaled)

@@ -24,7 +24,7 @@
 //     stage goes back to the producer once its last group has retired.
 //   - K past the last whole stage: TMA's zero fill; a zero nibble and a zero
 //     byte convert to 0, so they add nothing.
-//   - TOK, the tokens a block (wgmma N): 128 for K6's prefill, 64 for K1's
+//   - TOK, the tokens a block (wgmma N): 128 for K6's prefill, 64 for K1-K3's
 //     9-64-row chunks (a block of rows beyond 64 loops over token tiles in
 //     grid.y, each streaming the weights again).
 //   - The epilogue (EPI):
@@ -32,7 +32,10 @@
 //       tiles, scaled and rounded, as bf16 [tokens][rows] in the stages'
 //       memory and write y in 16-byte rows; with a split over K (ws set) the
 //       fp32 sums go to the workspace and splitk_reduce_kernel adds them in
-//       order, scales and (K1's down) adds the residual.
+//       order, scales and (K1's down, K3) adds the residual. The rows may
+//       span up to three matrices (K2's [W_q; W_k; W_v]: w, w2, w3 from rows
+//       0, n1, n2, each on a block boundary): the producer picks a block's
+//       tensor map by its first row.
 //       kEpiSwiGLU (K1's gate/up, MT 2): a warpgroup's two m64 tiles are 64
 //       rows of W_gate and the same 64 rows of W_up (two tensor maps fill
 //       each stage), so a thread holds g and u of the same (row, token): it
@@ -64,12 +67,14 @@ struct K6Cfg {
 
 struct K6Params {
   CUtensorMap x, w;
-  CUtensorMap w2;          // kEpiSwiGLU: W_up (w is W_gate)
+  CUtensorMap w2;          // kEpiSwiGLU: W_up (w is W_gate); kEpiScale: the row space's
+  CUtensorMap w3;          // second and third matrix (K2's W_k, W_v), from rows n1, n2
   const float* s;
   const float* s2;         // kEpiSwiGLU: W_up's scales
   bf16* y;
   float* ws;
   int M, N, K, kb_per_split;
+  int n1, n2;              // kEpiScale: where w2's and w3's rows start (0: w alone)
 };
 
 // The A fragments of k16 steps k0 .. k0 + 3 for the warpgroup's MT m64
@@ -173,7 +178,10 @@ __global__ void __launch_bounds__(kK6Threads, 1) qmm_wgmma_kernel(
             tma_load_2d(stage + C::X_BYTES + q * 64 * 128, (q & 1) ? &p.w2 : &p.w, &full[st],
                         kb * 128, n0 + 64 * (q >> 1));
         } else {
-          tma_load_2d(stage + C::X_BYTES, &p.w, &full[st], kb * 128, n0);
+          // the block's rows lie in one matrix (n1, n2 on block boundaries)
+          const bool third = p.n2 > 0 && n0 >= p.n2, second = !third && p.n1 > 0 && n0 >= p.n1;
+          tma_load_2d(stage + C::X_BYTES, third ? &p.w3 : second ? &p.w2 : &p.w, &full[st],
+                      kb * 128, n0 - (third ? p.n2 : second ? p.n1 : 0));
         }
       }
     }
@@ -271,6 +279,16 @@ __global__ void __launch_bounds__(kK6Threads, 1) qmm_wgmma_kernel(
       for (int c = 0; c < 8 && o + c < p.N; ++c) dst[c] = src[c];
     }
   }
+}
+
+// Lets the instance take its stages' dynamic shared memory: once a process
+// for each instance, whichever caller launches it first. Returns the error.
+template <int FMT, int MT, int TOK, int EPI>
+int qmm_wgmma_smem() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      qmm_wgmma_kernel<FMT, MT, TOK, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K6Cfg<FMT, MT, TOK>::SMEM);
+  return (int)e;
 }
 
 __device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }

@@ -675,7 +675,6 @@ template <int FMT, int MT>
 int launch_k6_wgmma(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
                     void* ws, int splits, int kb_per_split, cudaStream_t st) {
   using C = K6Cfg<FMT, MT, kK6Tok>;
-  static bool smem_set = false;
   const long long row_bytes = FMT == kQ4 ? K / 2 : K;
   K6Params p = {};
   int err = encode_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (long long)K * 2, 64,
@@ -688,12 +687,8 @@ int launch_k6_wgmma(const void* x, int M, int K, const void* w, const void* s, i
   p.y = (bf16*)y;
   p.ws = splits > 1 ? (float*)ws : nullptr;
   p.M = M; p.N = N; p.K = K; p.kb_per_split = kb_per_split;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<FMT, MT, kK6Tok, kEpiScale>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
+  err = qmm_wgmma_smem<FMT, MT, kK6Tok, kEpiScale>();
+  if (err != 0) return err;
   const dim3 grid((N + C::ROWS - 1) / C::ROWS, (M + kK6Tok - 1) / kK6Tok, splits);
   qmm_wgmma_kernel<FMT, MT, kK6Tok, kEpiScale><<<grid, kK6Threads, C::SMEM, st>>>(p);
   cudaError_t e = cudaGetLastError();

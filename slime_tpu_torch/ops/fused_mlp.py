@@ -24,7 +24,8 @@ dtype) picks one of three instances:
   the rows (H and I as ``quant_matmul.k6_wgmma_strides`` asks): the row
   norm, then K6's int8 wgmma main loop over [W_gate; W_up] with a SwiGLU
   epilogue into ``a``, then over W_down split over I into an fp32
-  workspace (``k1_wgmma_plan``) that a reduction sums, scales and adds x to;
+  workspace (``fused_qkvo.wgmma_plan``) that a reduction sums, scales and
+  adds x to: K3's tensor-core launch with ``a`` as its activations;
 - "rows": every other input (fp32 activations, q4g and dense bf16 at B > 8,
   dense at 5-8, a layer too wide for the ring or whose rows TMA cannot
   read) takes the row-per-warp kernels.
@@ -59,9 +60,9 @@ import torch
 from ..models.layers import silu
 from . import _cuda
 from . import weight_ring as wr
-from .fused_qkvo import (DENSE, INT8, Q4G, _at, act_f32, check_operands, count, count_ring,
-                         kernel_fmt, layer_mats, norm_weight, proj_ref, rms_h,
-                         rms_norm_launch, split_weight)
+from .fused_qkvo import (DENSE, INT8, K1_WGMMA_MIN_ROWS, Q4G, _at, act_f32, check_operands,
+                         count, count_route, kernel_fmt, layer_mats, norm_weight, proj_ref,
+                         rms_h, rms_norm_launch, split_weight, wgmma_plan)
 from .quant_matmul import k6_wgmma_strides
 from .quantization import int_values
 from .weight_ring import ring_instance
@@ -75,12 +76,6 @@ _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
 # Measured at that width (H 4096, I 14336) only: other dense widths with
 # ring plans take the same limit unmeasured
 DENSE_RING_ROWS = 4
-# int8 weights in bf16 take the tensor-core instance from this many rows
-# (the ring takes 1-8): on an H100 at SliME-8B's width it beat the
-# row-per-warp kernels at every B from 9 to 128 (PERF.md, K1 wgmma)
-K1_WGMMA_MIN_ROWS = 9
-WGMMA_TOK = 64          # tokens a tile of the tensor-core instance (wgmma n64)
-_WG_ROWS, _WG_BK = 128, 128     # down's output rows a block; int8 columns a stage
 
 
 def _block_divisor(I: int, want: int, *, step: int = 128) -> int:
@@ -147,21 +142,6 @@ def k1_route(B: int, dtype, fmt: int, H: int, I: int, sms: int) -> str:
     return "rows"
 
 
-def k1_wgmma_plan(B: int, H: int, I: int, sms: int):
-    """(splits, stages per split) of the tensor-core instance's down
-    projection: blocks of 128 output rows for each 64-token tile, split over
-    I's 128-column stages into as many ranges as one wave of blocks (one an
-    SM) holds, none empty. At SliME-8B's width (32 row blocks a tile, 112
-    stages) that is 4 splits of 28 stages, 128 blocks on 132 SMs: a fifth
-    split would start a second wave, and no split of 112 stages over 132
-    blocks gives any block fewer than 28."""
-    blocks = -(-H // _WG_ROWS) * -(-B // WGMMA_TOK)
-    n_kb = -(-I // _WG_BK)
-    splits = max(1, min(n_kb, sms // blocks))
-    per = -(-n_kb // splits)
-    return -(-n_kb // per), per
-
-
 def fused_mlp_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
     """Plain version of ``fused_mlp_decode``."""
     h = rms_h(x, layers["post_attention_layernorm"]["weight"][layer_idx], eps)
@@ -212,9 +192,7 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     if x.device.type == "cpu":
         return fused_mlp_decode_ref(x, layers, layer_idx, eps=eps)
     y, fmt, route = mlp_launch(x, layers, layer_idx, eps)
-    if route == "ring":
-        count_ring(fused_mlp_decode, fmt)
-    fused_mlp_decode.wgmma_launches += route == "wgmma"
+    count_route(fused_mlp_decode, fmt, route)
     count(fused_mlp_decode, x, fmt)
     return y
 
@@ -269,7 +247,7 @@ def mlp_launch(x, layers, layer_idx, eps, route=None):
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
     elif route == "wgmma":
         nw = norm_weight(x, norm_w)
-        splits, per_split = k1_wgmma_plan(B, H, I, sms)
+        splits, per_split = wgmma_plan(B, H, I, sms)
         h = torch.empty_like(x)
         ws = torch.empty((splits, B, H), dtype=torch.float32, device=x.device)
         _cuda.check(lib.slime_mlp_wgmma(

@@ -33,16 +33,27 @@ over the row space of W_q, W_k and W_v whose blocks each normalise x as
 they stage it (no row-norm launch), K3 as one ring launch; each a
 programmatic dependent of the caller's last kernel. Every other input, fp32
 activations, B > 8 and a layer too wide for the ring's shared memory
-included, takes the row-per-warp kernels. The dense ring's sums are fp32
-over the exact bf16 products, as the row-per-warp kernels', in another
-order; q, k, v round to bf16 once.
+included, takes the row-per-warp kernels, but for one: bf16 activations
+with int8 weights at B >= K1_WGMMA_MIN_ROWS (9: the engine's fused chunks,
+the speculative verify chunk) take the tensor-core instance where TMA
+reads the rows (``qkv_wgmma_instance``, ``o_wgmma_instance``): K1's down
+launch (``slime_o_wgmma``: K6's int8 wgmma main loop split over the
+contraction into an fp32 workspace, then a reduction that adds the splits
+in order, scales and adds x), for K2 after the row norm over the row space
+[W_q; W_k; W_v] (``slime_qkv_wgmma``: NQ and NQ + NKV on 128-row blocks,
+one tensor map a matrix; the reduction writes q, k and v apart). The
+routing rules ``k2_route`` and ``k3_route`` name the instance: "ring",
+"wgmma" or "rows". Sums on every instance are fp32 over the exact products
+(bf16 x bf16, int8 or int4), in other orders than the plain version's; the
+per-row scale multiplies the fp32 sum; q, k, v and y round to bf16 once.
 
 Launch counts (one per wrapper call that launches, nowhere else):
 ``.launches`` every call, ``.q4g_launches`` those on q4g weights,
 ``.f32_launches`` those with fp32 activations, ``.f32_q4g_launches`` both;
 ``.ring_launches`` the calls that took the weight ring,
 ``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches``
-those on dense bf16 weights; ``.dense_launches`` the calls with bf16 activations on
+those on dense bf16 weights; ``.wgmma_launches`` those on the tensor-core
+instance; ``.dense_launches`` the calls with bf16 activations on
 dense bf16 weights (the bf16 checkpoints of the eval path), on the ring or
 row per warp (``chip_smoke.launch_counts`` takes these subsets apart).
 """
@@ -54,6 +65,7 @@ import torch
 
 from . import _cuda
 from . import weight_ring as wr
+from .quant_matmul import k6_wgmma_strides
 from .quantization import int_values
 from .weight_ring import DENSE, DENSE_F32, INT8, Q4G, ring_instance
 
@@ -64,6 +76,13 @@ ACT_DTYPES = (torch.bfloat16, torch.float32)
 # at 1 and 4 rows and lost at 6 (PERF.md, K3 dense). Measured at that width
 # only
 DENSE_O_RING_ROWS = 4
+# int8 weights in bf16 take the tensor-core instances of K1-K3 from this many
+# rows (the ring takes 1-8): on an H100 at SliME-8B's width K1's beat the
+# row-per-warp kernels at every B from 9 to 128 (PERF.md, K1 wgmma), and
+# K2's and K3's run the same main loop
+K1_WGMMA_MIN_ROWS = 9
+WGMMA_TOK = 64          # tokens a tile of the tensor-core instances (wgmma n64)
+_WG_ROWS, _WG_BK = 128, 128     # rows of the row space a block; int8 columns a stage
 
 
 def split_weight(p):
@@ -247,6 +266,67 @@ def o_ring_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int):
     return wr.projection_plan(B, NQ, H, fmt, sms)
 
 
+def wgmma_plan(B: int, N: int, K: int, sms: int, splits=None):
+    """(splits, stages per split) of the tensor-core instances' split
+    launch (K1's down, K2, K3): blocks of 128 rows of the row space [0, N)
+    for each 64-token tile, split over K's 128-column stages into as many
+    ranges as one wave of blocks (one an SM) holds, or into about ``splits``
+    where given; none empty. At SliME-8B's width on 132 SMs up to 64 rows:
+    K1's down (N 4096, K 14336) 4 splits of 28 stages, K2 (N 6144, K 4096)
+    2 of 16, K3 (N 4096, K 4096) 4 of 8."""
+    blocks = -(-N // _WG_ROWS) * -(-B // WGMMA_TOK)
+    n_kb = -(-K // _WG_BK)
+    want = max(1, min(n_kb, sms // blocks if splits is None else splits))
+    per = -(-n_kb // want)
+    return -(-n_kb // per), per
+
+
+def qkv_wgmma_instance(dtype, fmt: int, H: int, NQ: int, NKV: int) -> bool:
+    """Whether K2's tensor-core instance takes the operands: bf16 x, int8
+    weights, rows TMA reads (H as ``quant_matmul.k6_wgmma_strides`` asks)
+    and NQ and NQ + NKV on 128-row block boundaries (a block's rows lie in
+    one matrix)."""
+    return (dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(H, INT8)
+            and NQ % _WG_ROWS == 0 and (NQ + NKV) % _WG_ROWS == 0)
+
+
+def o_wgmma_instance(dtype, fmt: int, NQ: int) -> bool:
+    """Whether K3's tensor-core instance takes the operands: bf16 attn and
+    x, int8 W_o whose rows of NQ bytes TMA reads."""
+    return dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(NQ, INT8)
+
+
+def k2_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int) -> str:
+    """The routing rule of ``fused_qkv_decode``: "ring" where
+    ``qkv_ring_route`` has a plan, "wgmma" where ``qkv_wgmma_instance``
+    holds at B >= K1_WGMMA_MIN_ROWS, "rows" (the row-per-warp kernels) for
+    everything else. A pure function, so CPU tests can pin it."""
+    if qkv_ring_route(B, dtype, fmt, H, NQ, NKV, sms) is not None:
+        return "ring"
+    if B >= K1_WGMMA_MIN_ROWS and qkv_wgmma_instance(dtype, fmt, H, NQ, NKV):
+        return "wgmma"
+    return "rows"
+
+
+def k3_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int) -> str:
+    """The routing rule of ``fused_o_residual``: "ring" where
+    ``o_ring_route`` has a plan, "wgmma" where ``o_wgmma_instance`` holds at
+    B >= K1_WGMMA_MIN_ROWS, "rows" for everything else."""
+    if o_ring_route(B, dtype, fmt, NQ, H, sms) is not None:
+        return "ring"
+    if B >= K1_WGMMA_MIN_ROWS and o_wgmma_instance(dtype, fmt, NQ):
+        return "wgmma"
+    return "rows"
+
+
+def count_route(fn, fmt, route: str) -> None:
+    """One call of ``fn`` that took ``route`` ("ring", "wgmma" or "rows"),
+    beside ``count``."""
+    if route == "ring":
+        count_ring(fn, fmt)
+    fn.wgmma_launches += route == "wgmma"
+
+
 def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     """x [B, H] -> (q [B, NQ], k [B, NKV], v [B, NKV]) for layer ``layer_idx``
     of the stacked dict, h = rms_norm(x, input_layernorm) computed first.
@@ -254,19 +334,22 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return fused_qkv_decode_ref(x, layers, layer_idx, eps=eps)
-    q, k, v, fmt, ring = qkv_launch(x, layers, layer_idx, eps)
-    if ring:
-        count_ring(fused_qkv_decode, fmt)
+    q, k, v, fmt, route = qkv_launch(x, layers, layer_idx, eps)
+    count_route(fused_qkv_decode, fmt, route)
     count(fused_qkv_decode, x, fmt)
     return q, k, v
 
 
-def qkv_launch(x, layers, layer_idx, eps, ring: bool = True):
-    """K2's launches on CUDA x -> (q, k, v, weight format, whether the weight
-    ring ran): the routing rule's choice (``qkv_ring_route``), or with
-    ``ring`` False the row-per-warp kernels. Counts nothing: ``fused_qkv_decode`` counts its calls;
-    chip_smoke.py's phase 1 times the instance the rule does not take on
-    the same inputs."""
+def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
+    """K2's launches on CUDA x -> (q, k, v, weight format, the instance that
+    ran: "ring", "wgmma" or "rows"): with ``route`` None the routing rule's
+    choice (``k2_route``); "rows" the row-per-warp kernels; "ring" the ring
+    wherever it has a plan (the row-per-warp kernels elsewhere); "wgmma" the
+    tensor-core instance wherever ``qkv_wgmma_instance`` holds (the rule's
+    row limit aside), else a ValueError; ``splits`` overrides its split
+    count (``wgmma_plan``). Counts nothing: ``fused_qkv_decode`` counts its
+    calls; chip_smoke.py's phase 1 times the instances the rule does not
+    take on the same inputs."""
     mats = layer_mats(layers, ("q_proj", "k_proj", "v_proj"), layer_idx)
     check_operands(x, mats)
     (wq, sq, fmt), (wk, sk, _), (wv, sv, _) = mats
@@ -283,21 +366,38 @@ def qkv_launch(x, layers, layer_idx, eps, ring: bool = True):
     k = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     p = _cuda.ptr
-    route = (None if not ring
-             else qkv_ring_route(B, x.dtype, fmt, H, NQ, NKV, wr.sm_count(x.device)))
-    if route is not None:
+    sms = wr.sm_count(x.device)
+    if route is None:
+        route = k2_route(B, x.dtype, fmt, H, NQ, NKV, sms)
+    plan = qkv_ring_route(B, x.dtype, fmt, H, NQ, NKV, sms) if route == "ring" else None
+    if route == "ring" and plan is None:
+        route = "rows"
+    if route == "wgmma" and not qkv_wgmma_instance(x.dtype, fmt, H, NQ, NKV):
+        raise ValueError(f"K2's wgmma instance takes bf16 x with int8 weights whose rows TMA "
+                         f"reads and NQ, NQ + NKV on 128-row blocks, got {x.dtype} format "
+                         f"{fmt}, H {H}, NQ {NQ}, NKV {NKV}")
+    if route == "ring":
         nw = norm_weight(x, norm_w)
         _cuda.check(lib.slime_qkv_ring(
             fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, B, H, NQ, NKV, p(wq), p(sq),
             p(wk), p(sk), p(wv), p(sv), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ctypes.addressof(route[1]), _cuda.stream()), "fused_qkv_decode (weight ring)")
+            ctypes.addressof(plan[1]), _cuda.stream()), "fused_qkv_decode (weight ring)")
+    elif route == "wgmma":
+        nw = norm_weight(x, norm_w)
+        n_split, per = wgmma_plan(B, NQ + 2 * NKV, H, sms, splits)
+        h = torch.empty_like(x)
+        ws = torch.empty((n_split, B, NQ + 2 * NKV), dtype=torch.float32, device=x.device)
+        _cuda.check(lib.slime_qkv_wgmma(
+            x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), ws.data_ptr(), B, H, NQ, NKV,
+            p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), n_split, per, _cuda.stream()), "fused_qkv_decode (wgmma)")
     else:
         h = rms_norm_launch(x, norm_w, eps, lib)
         _cuda.check(lib.slime_qkv_gemv(
             act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
             p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _cuda.stream()), "fused_qkv_decode")
-    return q, k, v, fmt, route is not None
+    return q, k, v, fmt, route
 
 
 def fused_o_residual(attn, x, layers, layer_idx):
@@ -305,20 +405,22 @@ def fused_o_residual(attn, x, layers, layer_idx):
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return fused_o_residual_ref(attn, x, layers, layer_idx)
-    y, fmt, ring = o_launch(attn, x, layers, layer_idx)
-    if ring:
-        count_ring(fused_o_residual, fmt)
+    y, fmt, route = o_launch(attn, x, layers, layer_idx)
+    count_route(fused_o_residual, fmt, route)
     count(fused_o_residual, x, fmt)
     return y
 
 
-def o_launch(attn, x, layers, layer_idx, ring=None):
-    """K3's launch on CUDA tensors -> (y, weight format, whether the weight
-    ring ran): with ``ring`` None the routing rule's choice
-    (``o_ring_route``), with False the row-per-warp kernel, with True the
-    ring wherever it has a plan (the rule's row limit aside). Counts
-    nothing: ``fused_o_residual`` counts its calls; chip_smoke.py's phase 1
-    times the instance the rule does not take on the same inputs."""
+def o_launch(attn, x, layers, layer_idx, route=None, splits=None):
+    """K3's launch on CUDA tensors -> (y, weight format, the instance that
+    ran): with ``route`` None the routing rule's choice (``k3_route``);
+    "rows" the row-per-warp kernel; "ring" the ring wherever it has a plan
+    (the rule's dense row limit aside; the row-per-warp kernel elsewhere);
+    "wgmma" the tensor-core instance wherever ``o_wgmma_instance`` holds
+    (the rule's row limit aside), else a ValueError; ``splits`` overrides
+    its split count. Counts nothing: ``fused_o_residual`` counts its calls;
+    chip_smoke.py's phase 1 times the instances the rule does not take on
+    the same inputs."""
     mats = layer_mats(layers, ("o_proj",), layer_idx)
     check_operands(attn, mats)
     (wo, so, fmt), = mats
@@ -331,22 +433,35 @@ def o_launch(attn, x, layers, layer_idx, ring=None):
     y = torch.empty_like(x)
     NQ = attn.shape[1]
     sms = wr.sm_count(x.device)
-    route = (o_ring_route(B, x.dtype, fmt, NQ, H, sms) if ring is None
-             else wr.projection_plan(B, NQ, H, fmt, sms)
-             if ring and ring_instance(B, x.dtype, fmt) else None)
-    if route is not None:
+    if route is None:
+        route = k3_route(B, x.dtype, fmt, NQ, H, sms)
+    plan = (wr.projection_plan(B, NQ, H, fmt, sms)
+            if route == "ring" and ring_instance(B, x.dtype, fmt) else None)
+    if route == "ring" and plan is None:
+        route = "rows"
+    if route == "wgmma" and not o_wgmma_instance(x.dtype, fmt, NQ):
+        raise ValueError(f"K3's wgmma instance takes bf16 attn with int8 weights whose rows "
+                         f"TMA reads, got {x.dtype} format {fmt}, NQ {NQ}")
+    if route == "ring":
         _cuda.check(lib.slime_o_ring(
             fmt, int(wr.PDL), attn.data_ptr(), x.data_ptr(), y.data_ptr(), B, NQ, H,
-            wo.data_ptr(), _cuda.ptr(so), ctypes.addressof(route[1]), _cuda.stream()),
+            wo.data_ptr(), _cuda.ptr(so), ctypes.addressof(plan[1]), _cuda.stream()),
             "fused_o_residual (weight ring)")
+    elif route == "wgmma":
+        n_split, per = wgmma_plan(B, H, NQ, sms, splits)
+        ws = torch.empty((n_split, B, H), dtype=torch.float32, device=x.device)
+        _cuda.check(lib.slime_o_wgmma(
+            attn.data_ptr(), x.data_ptr(), ws.data_ptr(), y.data_ptr(), B, NQ, H,
+            wo.data_ptr(), _cuda.ptr(so), n_split, per, _cuda.stream()),
+            "fused_o_residual (wgmma)")
     else:
         _cuda.check(lib.slime_resid_gemv(
             act_f32(x), kernel_fmt(wo, fmt), attn.data_ptr(), B, NQ, wo.data_ptr(),
             _cuda.ptr(so), H, x.data_ptr(), y.data_ptr(), _cuda.stream()), "fused_o_residual")
-    return y, fmt, route is not None
+    return y, fmt, route
 
 
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
     _fn.ring_launches = _fn.q4g_ring_launches = _fn.dense_launches = 0
-    _fn.dense_ring_launches = 0
+    _fn.dense_ring_launches = _fn.wgmma_launches = 0

@@ -49,9 +49,11 @@ HBM_BPS = 3.35e12
 SLEEP_CYCLES = 2_000_000          # ~1 ms at the H100's clock: longer than a wrapper's enqueue
 PROFILED = 10
 # kernels of csrc/fused_decode.cu that one fused_mlp_decode call launches
-# (the weight ring's kernel was mlp_ring_kernel before K2 and K3 shared it)
+# (the weight ring's kernel was mlp_ring_kernel before K2 and K3 shared it;
+# the tensor-core instance's reduction was splitk_reduce_kernel before K2
+# and K3 shared it as split_reduce_kernel)
 K1_KERNELS = ("rms_norm", "gate_up", "resid", "mlp_ring", "weight_ring", "qmm_wgmma",
-              "splitk_reduce")
+              "splitk_reduce", "split_reduce")
 
 
 def pdl_owner():

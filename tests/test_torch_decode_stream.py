@@ -1,6 +1,7 @@
 """K1-K3's weight ring (``ops/weight_ring.py``, ``fused_mlp.ring_plan``,
-``fused_qkvo.qkv_ring_route`` / ``o_ring_route``) and K1's tensor-core
-instance (``fused_mlp.k1_route``, ``k1_wgmma_plan``) on the CPU.
+``fused_qkvo.qkv_ring_route`` / ``o_ring_route``) and K1-K3's tensor-core
+instances (``fused_mlp.k1_route``, ``fused_qkvo.k2_route`` / ``k3_route``,
+``fused_qkvo.wgmma_plan``) on the CPU.
 
 The ring's kernel (``csrc/fused_decode.cu`` ``weight_ring_kernel``) runs
 only on the card (``tests/test_torch_kernels_cuda.py``); what decides which
@@ -12,10 +13,11 @@ raising), dense bf16 weights included (K1 at <= 4 rows, K2 and K3 on the
 ring); K1's choice among the ring, its tensor-core instance (bf16 x, int8
 weights, 9 and more rows, rows TMA reads) and the row-per-warp kernels, and
 the split over I of that instance's down projection (every stage once, one
-wave of blocks); the launch plans at SliME-8B's width, the 0.6B draft's and small
-widths whose
-row counts are ragged against the blocks and the stages (every output row
-in exactly one band and one bulk copy, landing where the consumer warps
+wave of blocks); K2's and K3's same choice (K2 also needs NQ and NQ + NKV
+on 128-row blocks) and their splits over H and NQ; the launch plans at
+SliME-8B's width, the 0.6B draft's and small widths whose row counts are
+ragged against the blocks and the stages (every output row in exactly one
+band and one bulk copy, landing where the consumer warps
 read it, no copy crossing from one matrix into the next, every copy 16-byte
 aligned and a multiple of 16 bytes, the shared memory the kernel's check
 asks for and no more than a block has); the exact int8 / int4 -> fp32
@@ -302,12 +304,21 @@ def test_k1_wgmma_down_split_covers_every_stage_once(width, B, sms):
     split) one wave of one an SM where the tiles alone leave room, and no
     block running more stages than the best one-wave split gives it."""
     H, I = width
-    splits, per = fm.k1_wgmma_plan(B, H, I, sms)
-    n_kb = -(-I // 128)
+    _assert_one_wave_split(B, H, I, sms)
+
+
+def _assert_one_wave_split(B, N, K, sms):
+    """``wgmma_plan``'s split of K's 128-column stages for a row space of N
+    rows: every stage in exactly one split, none empty; the blocks (128 rows
+    a 64-token tile, a split) one wave of one an SM where the tiles alone
+    leave room, and no block running more stages than the best one-wave
+    split gives it."""
+    splits, per = fq.wgmma_plan(B, N, K, sms)
+    n_kb = -(-K // 128)
     ranges = [range(z * per, min(n_kb, (z + 1) * per)) for z in range(splits)]
     assert all(len(r) for r in ranges)
     assert sorted(k for r in ranges for k in r) == list(range(n_kb))
-    blocks = -(-H // 128) * -(-B // fm.WGMMA_TOK)
+    blocks = -(-N // 128) * -(-B // fq.WGMMA_TOK)
     assert blocks * splits <= max(sms, blocks)
     assert per == min(-(-n_kb // z) for z in range(1, max(1, sms // blocks) + 1))
 
@@ -320,10 +331,108 @@ def test_k1_wgmma_plan_at_8b_width():
     112 = 3584 block-stages are dealt to 132 blocks, one block runs at least
     28, as each of these 128 does."""
     for B in (9, 20, 64):
-        assert fm.k1_wgmma_plan(B, 4096, 14336, SMS) == (4, 28)
+        assert fq.wgmma_plan(B, 4096, 14336, SMS) == (4, 28)
     for B in (65, 128):
-        assert fm.k1_wgmma_plan(B, 4096, 14336, SMS) == (2, 56)
+        assert fq.wgmma_plan(B, 4096, 14336, SMS) == (2, 56)
     assert 4 * 32 <= SMS < 5 * 32
+
+
+# K2 (H, NQ, NKV) at B >= 9 with int8 weights: the route, "wgmma" where TMA
+# reads rows of H bytes (multiples of 16, at least 256) and NQ and NQ + NKV
+# fall on 128-row blocks; K3 (NQ, H) needs only rows of NQ bytes TMA reads
+K2_WGMMA_WIDTHS = [((4096, 4096, 1024), "wgmma"), ((2048, 2048, 1024), "wgmma"),
+                   ((256, 256, 128), "wgmma"), ((512, 384, 256), "wgmma"),
+                   ((4104, 4096, 1024), "rows"), ((4096, 4096, 1000), "rows"),
+                   ((4096, 4000, 1024), "rows"), ((256, 256, 64), "rows"),
+                   ((128, 256, 128), "rows"), ((240, 256, 128), "rows")]
+K3_WGMMA_WIDTHS = [((4096, 4096), "wgmma"), ((2048, 2048), "wgmma"), ((256, 256), "wgmma"),
+                   ((336, 4000), "wgmma"), ((4104, 4096), "rows"), ((128, 256), "rows"),
+                   ((240, 256), "rows"), ((1000, 4096), "rows")]
+
+
+@pytest.mark.parametrize("fmt", [INT8, Q4G, DENSE, wr.DENSE_F32],
+                         ids=["int8", "q4g", "dense", "dense_f32"])
+@pytest.mark.parametrize("B", K1_ROUTE_ROWS)
+def test_k2_k3_route_rule(fmt, B):
+    """bf16 x at SliME-8B's width: int8 weights take the ring at 1-8 rows
+    and the tensor-core instance from 9, as K1's; q4g the ring at 1-8 and
+    the row-per-warp kernels from 9; dense bf16 K2 the ring at 1-8, K3 at
+    1-4, row per warp past them; fp32 x always row per warp."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ring = {INT8: 8, Q4G: 8, DENSE: 8, wr.DENSE_F32: 0}[fmt]
+    o_ring = fq.DENSE_O_RING_ROWS if fmt == DENSE else ring
+    deep = "wgmma" if fmt == INT8 else "rows"
+    assert fq.k2_route(B, bf, fmt, 4096, 4096, 1024, SMS) == ("ring" if B <= ring else deep)
+    assert fq.k3_route(B, bf, fmt, 4096, 4096, SMS) == ("ring" if B <= o_ring else deep)
+    assert fq.k2_route(B, f32, fmt, 4096, 4096, 1024, SMS) == "rows"
+    assert fq.k3_route(B, f32, fmt, 4096, 4096, SMS) == "rows"
+    assert fq.K1_WGMMA_MIN_ROWS == fm.K1_WGMMA_MIN_ROWS == 9
+
+
+@pytest.mark.parametrize("widths,want", K2_WGMMA_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [9, 20, 64, 65, 128])
+def test_k2_route_needs_rows_tma_reads_and_whole_blocks(widths, want, B):
+    """K2 from 9 int8 rows takes the tensor-core instance only where TMA
+    reads the rows of h and of the weights and a 128-row block never spans
+    two of W_q, W_k, W_v; elsewhere the row-per-warp kernels. The pure
+    instance check agrees, and 8 rows stay on the ring (or row per warp
+    where it has no plan)."""
+    H, NQ, NKV = widths
+    bf = torch.bfloat16
+    assert fq.k2_route(B, bf, INT8, H, NQ, NKV, SMS) == want
+    assert fq.qkv_wgmma_instance(bf, INT8, H, NQ, NKV) == (want == "wgmma")
+    assert fq.k2_route(8, bf, INT8, H, NQ, NKV, SMS) != "wgmma"
+    assert fq.k2_route(8, bf, INT8, 58112, 256, 128, SMS) == "rows"
+
+
+@pytest.mark.parametrize("widths,want", K3_WGMMA_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [9, 20, 64, 65, 128])
+def test_k3_route_needs_rows_tma_reads(widths, want, B):
+    """K3 from 9 int8 rows takes the tensor-core instance where TMA reads
+    the rows of attn and W_o (NQ a multiple of 16, at least 256), at any H
+    (its output rows need no block boundary); elsewhere row per warp."""
+    NQ, H = widths
+    bf = torch.bfloat16
+    assert fq.k3_route(B, bf, INT8, NQ, H, SMS) == want
+    assert fq.o_wgmma_instance(bf, INT8, NQ) == (want == "wgmma")
+    assert fq.k3_route(8, bf, INT8, 58112, 256, SMS) == "rows"
+
+
+# the row spaces and contractions of K2 (N = NQ + 2 NKV, K = H) and K3 (N =
+# H, K = NQ): SliME-8B's, the 0.6B draft's (H = NQ = 2048, NKV 1024) and
+# small ragged ones
+SPLIT_SHAPES = [(6144, 4096), (4096, 4096), (4096, 2048), (2048, 2048), (512, 256),
+                (384, 768), (1280, 336), (256, 4000)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda v: f"N{v[0]}-K{v[1]}")
+@pytest.mark.parametrize("B", [9, 20, 33, 64, 65, 128, 512])
+@pytest.mark.parametrize("sms", [SMS, 11, 7])
+def test_k2_k3_wgmma_split_covers_every_stage_once(shape, B, sms):
+    """K2's split over H and K3's over NQ: every stage once, in one wave of
+    blocks where the tiles leave room (``wgmma_plan``, K1's down's rule)."""
+    N, K = shape
+    _assert_one_wave_split(B, N, K, sms)
+
+
+def test_k2_k3_wgmma_plan_at_8b_width():
+    """SliME-8B on 132 SMs: K2's row space [W_q; W_k; W_v] (6144 rows, 48
+    blocks a token tile) over H = 4096 (32 stages) in 2 splits of 16, 96
+    blocks, a third split would start a second wave (144); K3 (W_o [4096,
+    4096]: 32 blocks, 32 stages) in 4 splits of 8, 128 blocks. At 65-128
+    rows (two tiles) K2 runs unsplit (96 blocks) and K3 in 2 of 16. The
+    draft's widths (H = NQ = 2048, NKV = 1024): K2 4 of 4 (128 blocks), K3
+    8 of 2. Asked for 3 splits, K2 takes 11, 11 and 10 stages."""
+    for B in (9, 20, 64):
+        assert fq.wgmma_plan(B, 6144, 4096, SMS) == (2, 16)
+        assert fq.wgmma_plan(B, 4096, 4096, SMS) == (4, 8)
+        assert fq.wgmma_plan(B, 4096, 2048, SMS) == (4, 4)
+        assert fq.wgmma_plan(B, 2048, 2048, SMS) == (8, 2)
+    for B in (65, 128):
+        assert fq.wgmma_plan(B, 6144, 4096, SMS) == (1, 32)
+        assert fq.wgmma_plan(B, 4096, 4096, SMS) == (2, 16)
+    assert fq.wgmma_plan(64, 6144, 4096, SMS, splits=3) == (3, 11)
+    assert 2 * 48 <= SMS < 3 * 48
 
 
 def test_ring_plan_refuses_rows_too_long():
@@ -482,15 +591,18 @@ def test_int8_int4_to_fp32_without_i2f():
 
 
 def _counts():
-    return [getattr(fn, a, 0) for fn in (fm.fused_mlp_decode, fq.fused_qkv_decode,
-                                         fq.fused_o_residual)
+    return [getattr(fn, a) for fn in (fm.fused_mlp_decode, fq.fused_qkv_decode,
+                                      fq.fused_o_residual)
             for a in ("launches", "ring_launches", "q4g_ring_launches", "dense_launches",
                       "dense_ring_launches", "wgmma_launches")]
 
 
-def test_cpu_qkv_and_o_take_the_plain_version_and_count_nothing():
-    """bf16 x with int8 weights at B = 3, where the card takes the ring: on
-    the CPU K2 and K3 are their plain versions and count no launch."""
+@pytest.mark.parametrize("B", [3, 20])
+def test_cpu_qkv_and_o_take_the_plain_version_and_count_nothing(B):
+    """bf16 x with int8 weights at B = 3, where the card takes the ring, and
+    at B = 20, where it takes the tensor-core instances: on the CPU K2 and
+    K3 are their plain versions and count no launch, on the ring's counters
+    or on ``.wgmma_launches``."""
     g = torch.Generator().manual_seed(1)
 
     def q(out_d, in_d):
@@ -498,12 +610,13 @@ def test_cpu_qkv_and_o_take_the_plain_version_and_count_nothing():
                                               generator=g),
                            "scale": torch.full((2, out_d, 1), 1e-3)}}
     layers = {"input_layernorm": {"weight": 1 + 0.1 * torch.randn((2, 256), generator=g)},
-              "q_proj": q(256, 256), "k_proj": q(64, 256), "v_proj": q(64, 256),
+              "q_proj": q(256, 256), "k_proj": q(128, 256), "v_proj": q(128, 256),
               "o_proj": q(256, 256)}
-    x = torch.randn((3, 256), generator=g).to(torch.bfloat16)
-    attn = torch.randn((3, 256), generator=g).to(torch.bfloat16)
-    assert fq.qkv_ring_route(3, x.dtype, INT8, 256, 256, 64, SMS) is not None
-    assert fq.o_ring_route(3, x.dtype, INT8, 256, 256, SMS) is not None
+    x = torch.randn((B, 256), generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, 256), generator=g).to(torch.bfloat16)
+    want = "ring" if B <= 8 else "wgmma"
+    assert fq.k2_route(B, x.dtype, INT8, 256, 256, 128, SMS) == want
+    assert fq.k3_route(B, x.dtype, INT8, 256, 256, SMS) == want
     before = _counts()
     for got, want in zip(fq.fused_qkv_decode(x, layers, 1),
                          fq.fused_qkv_decode_ref(x, layers, 1)):

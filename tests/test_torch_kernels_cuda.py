@@ -307,7 +307,7 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
               fused_qkvo.fused_o_residual.launches,
               fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches)
     ring = fused_mlp.fused_mlp_decode.ring_launches
-    wgmma = fused_mlp.fused_mlp_decode.wgmma_launches
+    wgmma = _wgmma_counts()
     rings = _ring_counts()
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
@@ -330,17 +330,24 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
     # the weight ring takes bf16 x with int8, q4g or (K2, K3; K1 at B <= 4)
-    # dense bf16 weights at B <= 8, nothing else; K1's tensor-core instance
-    # bf16 x with int8 weights from 9 rows
+    # dense bf16 weights at B <= 8, nothing else; K1-K3's tensor-core
+    # instances bf16 x with int8 weights from 9 rows
     routed = bf and fmt in ("int8", "q4g", "bf16") and B <= 8
     mlp_routed = routed and (fmt != "bf16" or B <= fused_mlp.DENSE_RING_ROWS)
     assert fused_mlp.fused_mlp_decode.ring_launches == ring + mlp_routed
-    assert fused_mlp.fused_mlp_decode.wgmma_launches == wgmma + (
-        bf and fmt == "int8" and B >= fused_mlp.K1_WGMMA_MIN_ROWS)
+    tc = bf and fmt == "int8" and B >= fused_mlp.K1_WGMMA_MIN_ROWS
+    assert _wgmma_counts() == tuple(c + tc for c in wgmma)
     q4g = fmt == "q4g"
     o_routed = routed and (fmt != "bf16" or B <= fused_qkvo.DENSE_O_RING_ROWS)
     assert _ring_counts() == (rings[0] + routed, rings[1] + routed * q4g,
                               rings[2] + o_routed, rings[3] + o_routed * q4g)
+
+
+def _wgmma_counts():
+    """K1's, K2's and K3's tensor-core launch counts."""
+    return tuple(fn.wgmma_launches for fn in (fused_mlp.fused_mlp_decode,
+                                              fused_qkvo.fused_qkv_decode,
+                                              fused_qkvo.fused_o_residual))
 
 
 def _ring_counts():
@@ -445,8 +452,8 @@ def test_dense_ring_decode(dev, width, B):
     weight ring (``.dense_ring_launches`` rise by one) and agree with their
     plain versions at phase 1's tolerances (K2 and K3 atol 2e-3, K1 the
     one-ulp bound of its bf16 intermediate), as do the instances the rule
-    does not take on the same inputs (``ring=False`` / ``True``, K1's
-    ``route`` "rows" / "ring", uncounted)."""
+    does not take on the same inputs (``route`` "rows" / "ring",
+    uncounted)."""
     H, NQ, NKV, I = width
     g = torch.Generator(device=dev).manual_seed(400 + B + H)
     layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
@@ -459,14 +466,14 @@ def test_dense_ring_decode(dev, width, B):
                getattr(f, "dense_ring_launches", 0)) for f in fns]
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
     for got in (fused_qkvo.fused_qkv_decode(x, layers, 1),
-                fused_qkvo.qkv_launch(x, layers, 1, 1e-5, ring=False)[:3]):
+                fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="rows")[:3]):
         for a, b in zip(got, want):
             assert a.dtype == torch.bfloat16 and a.shape == b.shape
             _assert_close(a, b, atol=2e-3)
     want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
     for got in (fused_qkvo.fused_o_residual(attn, x, layers, 1),
-                fused_qkvo.o_launch(attn, x, layers, 1, ring=False)[0],
-                fused_qkvo.o_launch(attn, x, layers, 1, ring=True)[0]):
+                fused_qkvo.o_launch(attn, x, layers, 1, route="rows")[0],
+                fused_qkvo.o_launch(attn, x, layers, 1, route="ring")[0]):
         assert got.dtype == torch.bfloat16 and got.shape == x.shape
         _assert_close(got, want, atol=2e-3)
     want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
@@ -487,7 +494,7 @@ def test_dense_ring_decode(dev, width, B):
 @pytest.mark.parametrize("B", range(1, 9))
 def test_dense_o_ring(dev, width, B):
     """Dense bf16 K3 on the weight ring at every B of 1-8 (the BT = 1, 2, 4,
-    8 instances with rows unused; the rule takes it at B <= 4, ``ring=True``
+    8 instances with rows unused; the rule takes it at B <= 4, ``route="ring"``
     above) at SliME-8B's width and a narrow one, and the row-per-warp
     instance on the same inputs: against the plain version at atol 2e-3;
     the wrapper's call counted once, on the ring's record where the rule
@@ -502,8 +509,8 @@ def test_dense_o_ring(dev, width, B):
     before = (fn.launches, fn.ring_launches, fn.dense_ring_launches)
     want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
     for got in (fn(attn, x, layers, 1),
-                fused_qkvo.o_launch(attn, x, layers, 1, ring=True)[0],
-                fused_qkvo.o_launch(attn, x, layers, 1, ring=False)[0]):
+                fused_qkvo.o_launch(attn, x, layers, 1, route="ring")[0],
+                fused_qkvo.o_launch(attn, x, layers, 1, route="rows")[0]):
         assert got.dtype == torch.bfloat16 and got.shape == x.shape
         _assert_close(got, want, atol=2e-3)
     ring = B <= fused_qkvo.DENSE_O_RING_ROWS
@@ -581,6 +588,115 @@ def test_fused_mlp_wgmma_rejects(dev):
             p(x), p(nw), 1e-5, p(h), p(a), p(ws), p(y), 20, 256, 512, p(wg), p(sg), p(wu),
             p(su), p(wd), p(sd), 1, 1, _cuda.stream()), "fused_mlp_decode (wgmma)")
     assert (fn.launches, fn.wgmma_launches) == before
+
+
+def _check_qkvo_wgmma(x, attn, layers):
+    """fused_qkv_decode and fused_o_residual on their tensor-core instances
+    (``.wgmma_launches`` and ``.launches`` up by one, the ring's counts not)
+    and the row-per-warp instances on the same inputs (uncounted), against
+    the plain versions at phase 1's atol 2e-3."""
+    fns = (fused_qkvo.fused_qkv_decode, fused_qkvo.fused_o_residual)
+    before = [(f.launches, f.wgmma_launches, f.ring_launches) for f in fns]
+    want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
+    for got in (fused_qkvo.fused_qkv_decode(x, layers, 1),
+                fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="rows")[:3]):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape and a.is_contiguous()
+            _assert_close(a, b, atol=2e-3)
+    want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
+    for got in (fused_qkvo.fused_o_residual(attn, x, layers, 1),
+                fused_qkvo.o_launch(attn, x, layers, 1, route="rows")[0]):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_close(got, want, atol=2e-3)
+    assert [(f.launches, f.wgmma_launches, f.ring_launches) for f in fns] == [
+        (c[0] + 1, c[1] + 1, c[2]) for c in before]
+
+
+# (H, NQ, NKV): SliME-8B's widths (K2: 48 blocks of 128 rows in 2 splits of
+# 16 stages; K3: 32 blocks in 4 splits of 8) and a narrow one (H 512: K2's
+# row space of 768 rows, a split over H's 4 stages)
+QKVO_WGMMA_WIDTHS = [(4096, 4096, 1024), (512, 512, 128)]
+
+
+@pytest.mark.parametrize("width", QKVO_WGMMA_WIDTHS, ids=lambda w: f"H{w[0]}")
+@pytest.mark.parametrize("B", [9, 20, 64, 65, 128])
+def test_fused_qkvo_wgmma(dev, width, B):
+    """K2 and K3 in bf16 on int8 weights from 9 rows take their tensor-core
+    instances: one past the ring's 8, the verify chunk's 20, the fused
+    chunk's 64 (one token tile) and one and two tiles past it."""
+    H, NQ, NKV = width
+    g = torch.Generator(device=dev).manual_seed(800 + B + H)
+    layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=256, fmt="int8", generator=g,
+                           device=dev)
+    sms = wr.sm_count(torch.device("cuda"))
+    assert fused_qkvo.k2_route(B, torch.bfloat16, wr.INT8, H, NQ, NKV, sms) == "wgmma"
+    assert fused_qkvo.k3_route(B, torch.bfloat16, wr.INT8, NQ, H, sms) == "wgmma"
+    x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
+    _check_qkvo_wgmma(x, attn, layers)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_fused_qkvo_wgmma_other_splits(dev, splits):
+    """The same launches split otherwise than the rule's plan (K2 at 8B
+    width unsplit and in 3 splits of 11, 11 and 10 stages, phase 1's
+    comparison; K3 alike): the same sums in another order, uncounted."""
+    g = torch.Generator(device=dev).manual_seed(900 + splits)
+    layers = decode_layers(L=2, H=4096, NQ=4096, NKV=1024, I=256, fmt="int8", generator=g,
+                           device=dev)
+    x = torch.randn((64, 4096), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((64, 4096), device=dev, generator=g).to(torch.bfloat16)
+    before = _wgmma_counts()
+    for a, b in zip(fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="wgmma",
+                                          splits=splits)[:3],
+                    fused_qkvo.fused_qkv_decode_ref(x, layers, 1)):
+        _assert_close(a, b, atol=2e-3)
+    _assert_close(fused_qkvo.o_launch(attn, x, layers, 1, route="wgmma", splits=splits)[0],
+                  fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), atol=2e-3)
+    assert _wgmma_counts() == before
+
+
+def test_fused_qkvo_wgmma_rejects(dev):
+    """No fallback: the instances raise on operands they do not take (q4g
+    weights), and a split plan the C side refuses (a split that misses
+    stages) returns cudaErrorInvalidValue before anything launches; nothing
+    is counted."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((20, 512), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((20, 512), device=dev, generator=g).to(torch.bfloat16)
+    fns = (fused_qkvo.fused_qkv_decode, fused_qkvo.fused_o_residual)
+    before = [(f.launches, f.wgmma_launches) for f in fns]
+    q4g = decode_layers(L=2, H=512, NQ=512, NKV=256, I=256, fmt="q4g", generator=g,
+                        device=dev)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.qkv_launch(x, q4g, 1, 1e-5, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.o_launch(attn, x, q4g, 1, route="wgmma")
+    layers = decode_layers(L=2, H=512, NQ=512, NKV=128, I=256, fmt="int8", generator=g,
+                           device=dev)
+    (wq, sq, _), (wk, sk, _), (wv, sv, _) = fused_qkvo.layer_mats(
+        layers, ("q_proj", "k_proj", "v_proj"), 1)
+    (wo, so, _), = fused_qkvo.layer_mats(layers, ("o_proj",), 1)
+    nw = layers["input_layernorm"]["weight"][1].float().contiguous()
+    h, y = torch.empty_like(x), torch.empty_like(x)
+    q = torch.empty((20, 512), dtype=x.dtype, device=dev)
+    k, v = (torch.empty((20, 128), dtype=x.dtype, device=dev) for _ in range(2))
+    ws = torch.empty((4, 20, 768), device=dev)
+    p, lib = _cuda.ptr, _cuda.library()
+    invalid = 1                                       # cudaErrorInvalidValue
+    # 4 stages: 1 split of 2 misses two, 3 splits of 2 leave one empty
+    for splits, per in ((1, 2), (3, 2)):
+        assert lib.slime_qkv_wgmma(p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 512, 128, p(wq),
+                                   p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v),
+                                   splits, per, _cuda.stream()) == invalid
+        assert lib.slime_o_wgmma(p(attn), p(x), p(ws), p(y), 20, 512, 512, p(wo), p(so),
+                                 splits, per, _cuda.stream()) == invalid
+    # NQ off a 128-row block: refused as well
+    assert lib.slime_qkv_wgmma(p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 448, 128, p(wq),
+                               p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v), 1, 4,
+                               _cuda.stream()) == invalid
+    torch.cuda.synchronize()
+    assert [(f.launches, f.wgmma_launches) for f in fns] == before
 
 
 def _mlp_layers(H, I, fmt, generator, device):
