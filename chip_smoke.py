@@ -31,10 +31,11 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          profiler; K1 in bf16 on int8 weights from 9 rows on tensor cores,
          at B = 9-128 beside its row-per-warp instance on the same inputs;
          K1-K3 beside torch's int8 / int4 weight-only product), and on dense
-         bf16 weights at B = 1, 4, 6 and 8 (K2, and K1 and K3 at B <= 4, on
-         the weight ring, each beside the instance its rule does not take on
-         the same inputs; all beside torch.nn.functional.linear of the bf16
-         product), the flash-attention
+         bf16 weights at B = 1, 4, 6 and 8, K1 and K2 also at 5, 9, 20, 40,
+         64, 65 and 128 (all three on the weight ring at B <= 4, K1 and K2
+         on tensor cores from 5, K3 row per warp; each beside the instances
+         its rule does not take on the same inputs; all beside
+         torch.nn.functional.linear of the bf16 product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
@@ -219,14 +220,21 @@ Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
          ``eval.harness.run_eval`` on 8 questions over 4 images (16 tokens,
          llama3 template) at batch 4 and at batch 1, equal up to a logged
          near tie, the launches of each request asserted (K4 23, K5 once a
-         layer a prefill, dense K2 on the weight ring, K1 and K3 on it at up
-         to 4 rows, once a layer a decode step) and one
+         layer a prefill, dense K1-K3 on the weight ring at up to 4 rows,
+         K1 and K2 on tensor cores and K3 row per warp at beam search's 6,
+         once a layer a decode step) and one
          batch and the decode step
          traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
          prefix leads greedy's after they part, as beam search guarantees);
          ``video.run_video_mme`` on 8 frames of 640x360 against ``generate``
          on ``process_video_frames``' pixels; ``benchmarks.run_mmbench`` with
-         circular rounds; then the model, its LLM cut to 2 layers at full
+         circular rounds; the serving engine at the batched worker's
+         defaults (8 slots) on 8 text prompts, plainly and speculating with
+         a random 0.6B draft (spec_k 4), its tokens against ``generate``'s
+         and each other's up to a near tie, the launches of its 8-row
+         decode steps, its 64-row fused chunk and its 40-row verify chunks
+         asserted (K1 and K2 on tensor cores, K3 row per warp), the chunk, a
+         tick and a speculative tick traced; then the model, its LLM cut to 2 layers at full
          width (for disk and time only), saved and run through ``eval.cli``
          (2 chunks, ``--merge --scorer textvqa``) and
          ``tools.verify_released_weights`` (record, check: PASS; one
@@ -293,6 +301,7 @@ the records.
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failure raises before that line.
 """
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -341,7 +350,15 @@ BULK_SIZES = (4800, 9584)
 # The MLP decode kernel in bf16 is held instead to the one-ulp bound of its
 # bf16 intermediate a = silu(g) u (fused_mlp.intermediate_ulp_bound, per
 # element: sum_i ulp(a_i) |w_down[o, i]|), which a fixed floor from one draw
-# could not prove.
+# could not prove. K2 on dense bf16 weights on an instance that writes its
+# bf16 row norm h (the tensor-core one; the row-per-warp one past 8 rows)
+# is held in two parts: h to the plain version's up to rounding flips
+# (fused_qkvo.norm_flips: one ulp, on values within 2^-17 of a midpoint; a
+# flip moves every element of the row that holds the same bf16 x: at 20
+# rows on an H100 50 of h's 81920 elements, which moved q, k, v up to
+# 2.29e-3 past RTOL from the plain version's, 2.6e-6 from the projections
+# of the kernel's own h; PERF.md), and q, k, v to the plain projections of
+# that h at ATOL.
 # The fp32 instances (the entry points' default compute dtype) round nothing
 # the plain versions do not, so only the order of fp32 sums differs: 1e-4 on
 # outputs of order 1 (K4 rounds its fp32 l to bf16 as the plain version
@@ -378,7 +395,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_mlp_decode_dense": 2e-3, "fused_qkv_decode_dense_ring": 2e-3,
         "fused_mlp_decode_dense_ring": 2e-3, "fused_o_residual_dense_ring": 2e-3,
         "fused_mlp_decode_wgmma": 2e-3, "fused_qkv_decode_wgmma": 2e-3,
-        "fused_o_residual_wgmma": 2e-3}
+        "fused_o_residual_wgmma": 2e-3, "fused_mlp_decode_dense_wgmma": 2e-3,
+        "fused_qkv_decode_dense_wgmma": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -406,6 +424,11 @@ CHUNK_ROWS = 64
 # row past the ring's 8 to one 64-token tile, and 65 and 128 (two tiles);
 # K2's and K3's at the first of them (and 20, 64, 65, 128)
 K1_WGMMA_ROWS = (9, 16, 32)
+# the rows past the dense ring's where phase 1 times K1's and K2's dense
+# instances (a bf16 checkpoint): 5, one past the ring's 4; 9, one past 8;
+# the verify chunks of 4 and 8 slots (20, 40); the fused chunk (64); one
+# and two token tiles past it
+DENSE_WGMMA_ROWS = (5, 9, 20, 40, 64, 65, 128)
 # phase 9: speculation's proposals a round and rounds a dispatch (the
 # engine's defaults), the verify chunk's rows (4 slots x (K + 1)), which
 # phase 1 also times; the text prompts' lengths in bytes; the choices
@@ -477,6 +500,13 @@ CUT_LAYERS = 8
 EVAL_SIZES = ((672, 672), (1000, 600), (400, 900), (336, 336))
 EVAL_QUESTIONS, EVAL_NEW, EVAL_BATCH, EVAL_BEAMS = 8, 16, 4, 3
 EVAL_FRAMES, EVAL_CKPT_LAYERS = 8, 2
+# phase 12's engine: the batched worker's defaults (max_slots 8, spec_k 4,
+# spec_rounds 8, cache_len 2048, a 512 MB prefix cache) on the bf16
+# checkpoint; text prompts of random ids (one of 300: its admission ends in
+# a fused chunk of its last 44 positions, padded to 64 rows) and the greedy
+# tokens of each
+EVAL_SLOTS, EVAL_SPEC_K = 8, 4
+EVAL_ENGINE_TEXT, EVAL_ENGINE_NEW = (300, 24, 31, 40, 47, 52, 60, 75), 16
 # phase 13: Mixtral-8x7B cut to 8 of its 32 layers (a memory cut, one
 # layer's bf16 experts are 8 x 3 x 14336 x 4096 x 2 B = 2.82 GB, 90.2 GB at
 # 32 layers, over the card's 80 GB; 16 until PR 20, then 8 for the script's
@@ -588,9 +618,20 @@ KERNELS = {
                                "slime_tpu/ops/fused_qkvo.py:146"),
     "fused_o_residual_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_qkvo.py:209"),
+    # K1 and K2 on tensor cores with dense bf16 weights (bf16 x: a bf16
+    # checkpoint's fused chunks and verify chunks, and its decode steps
+    # past the ring's rows where the rules take them; phase 12's engine):
+    # the same launches on the main loop's dense format, each weight tile
+    # wgmma's A operand straight from shared memory
+    "fused_mlp_decode_dense_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                     "slime_tpu/ops/fused_mlp.py:366"),
+    "fused_qkv_decode_dense_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                     "slime_tpu/ops/fused_qkvo.py:146"),
 }
-# the decode kernels with a dense bf16 instance on the weight ring
+# the decode kernels with a dense bf16 instance on the weight ring, and on
+# tensor cores
 DENSE_RING = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
+DENSE_WGMMA = ("fused_qkv_decode", "fused_mlp_decode")
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
 KERNELS.update({"ring_attention_rdma" + sfx: KERNELS["ring_attention_rdma"]
@@ -624,12 +665,15 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # and 4; phase 7's B = 65 is fp32); nor do K1-K3's int8 bf16 row-per-warp
 # instances take one: K1-K3 run the engine's fused chunks of 9-64 rows
 # (phase 8) and the verify chunks (phase 9) on tensor cores (``*_wgmma``;
-# phase 1 times the row-per-warp ones as their "was"). K2's row-per-warp
-# instance on dense bf16 weights takes B > 8 only (the ring takes B <= 8),
-# which no path sends it (phase 12's bf16 model decodes at 1-6 rows; K1's
-# and K3's dense instances take beam search's 6 row per warp). Phase 1
-# checks them; the launch counts of these off-path instances stay 0.
-OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode", "fused_qkv_decode",
+# phase 1 times the row-per-warp ones as their "was"). K1's and K2's
+# row-per-warp instances on dense bf16 weights take no bf16 rows at these
+# widths: the ring takes 1-4 and the tensor-core instances 5 and more
+# (phase 12's decode steps, its engine's ticks, fused and verify chunks);
+# K3's dense row-per-warp instance takes beam search's 6 rows and the
+# engine's. Phase 1 checks them; the launch counts of these off-path
+# instances stay 0.
+OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode_dense", "fused_mlp_decode",
+            "fused_qkv_decode",
             "fused_o_residual",
             "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
             "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
@@ -684,6 +728,8 @@ def _counters():
         if n in DENSE_RING:
             out[n + "_dense_ring"] = (fn, "dense_ring_launches")
         out[n + "_wgmma"] = (fn, "wgmma_launches")
+        if n in DENSE_WGMMA:
+            out[n + "_dense_wgmma"] = (fn, "dense_wgmma_launches")
     return out
 
 
@@ -701,15 +747,17 @@ def launch_counts():
         counts[n + "_f32"] -= both
     for n in FUSED:
         # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g
-        # ones, .dense_ring the dense bf16 ones; .dense every bf16 call on
-        # dense weights, on the ring or row per warp
+        # ones, .dense_ring the dense bf16 ones; .wgmma the calls on tensor
+        # cores, .dense_wgmma the dense bf16 ones; .dense every bf16 call on
+        # dense weights, on any instance
         ring_q4g, ring_dense = counts[n + "_q4g_ring"], counts.get(n + "_dense_ring", 0)
+        wgmma_dense = counts.get(n + "_dense_wgmma", 0)
         counts[n + "_ring"] -= ring_q4g + ring_dense
-        counts[n + "_dense"] -= ring_dense
-        # what is left of .launches in bf16: int8 weights row per warp (the
-        # tensor-core instance apart)
+        counts[n + "_wgmma"] -= wgmma_dense
+        counts[n + "_dense"] -= ring_dense + wgmma_dense
+        # what is left of .launches in bf16: int8 weights row per warp
         counts[n] -= (counts[n + "_ring"] + counts[n + "_dense"] + ring_dense
-                      + counts[n + "_wgmma"])
+                      + counts[n + "_wgmma"] + wgmma_dense)
         counts[n + "_q4g"] -= ring_q4g
     for n in ("encoder_attention", "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g",
               "w8a8_matmul"):
@@ -818,20 +866,22 @@ def host_ms(fn, runs=3):
 def compare(name, got, want, floor=None):
     """(max abs error, smallest absolute floor that passes at RTOL) of kernel
     output(s) vs the plain version; raise if not close: within RTOL and
-    ATOL[name], or with ``floor`` (a tensor of the output's shape) within
-    RTOL, the floor and 1e-6 elementwise."""
+    ATOL[name], or with ``floor`` (a tensor of the output's shape, or a
+    tuple of them, one an output) within RTOL, the floor and 1e-6
+    elementwise."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    floors = floor if isinstance(floor, tuple) else (floor,) * len(got)
     err = need = 0.0
-    for g, w in zip(got, want):
+    for g, w, f in zip(got, want, floors):
         g, w = g.float(), w.float()
         excess = (g - w).abs() - RTOL * w.abs()
-        if floor is None:
+        if f is None:
             torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL[name],
                                        msg=lambda m: f"{name}: kernel vs plain: {m}")
-        elif not bool((excess <= floor + 1e-6).all()):
+        elif not bool((excess <= f + 1e-6).all()):
             raise AssertionError(f"{name}: kernel vs plain beyond the one-ulp bound by "
-                                 f"{(excess - floor).max().item():.3g}")
+                                 f"{(excess - f).max().item():.3g}")
         err = max(err, (g - w).abs().max().item())
         need = max(need, excess.max().item())
     return err, need
@@ -1051,15 +1101,16 @@ def ttft_summary(tag, out, ttft_ms):
 
 
 def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main,
-                   library=None, dispatch=False, floor=None, clean=False):
-    """Hold kern() to its plain version ref() and time both (and one PyTorch
-    call computing the same function, where there is one). ``moved`` bytes
-    and ``ops`` operations at ``peak`` give the bound; the record keeps the
-    ``main`` case, the main path's shape (an instance that no main case
-    reaches keeps its first). ``dispatch`` also logs the wrapper's host cost
-    per call; ``floor`` is compare's; ``clean`` also logs kern()'s time with
-    L2 flushed by reading (no write-back charged to it)."""
-    err, need = compare(name, kern(), ref(), floor)
+                   library=None, dispatch=False, floor=None, clean=False, want=None):
+    """Hold kern() to its plain version ref() (or to ``want`` where given)
+    and time both (and one PyTorch call computing the same function, where
+    there is one). ``moved`` bytes and ``ops`` operations at ``peak`` give
+    the bound; the record keeps the ``main`` case, the main path's shape (an
+    instance that no main case reaches keeps its first). ``dispatch`` also
+    logs the wrapper's host cost per call; ``floor`` is compare's; ``clean``
+    also logs kern()'s time with L2 flushed by reading (no write-back
+    charged to it)."""
+    err, need = compare(name, kern(), ref() if want is None else want, floor)
     rec = record[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
@@ -1067,8 +1118,9 @@ def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main
     b_ms, b_by = bound(moved, ops, peak)
     if main or "ms" not in rec:     # an instance off the main shape keeps its first case
         rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    floors = floor if isinstance(floor, tuple) else (floor,)
     tol = (f"set {ATOL[name]:g}" if floor is None
-           else f"one-ulp bound up to {floor.max().item():.3g}")
+           else f"one-ulp bound up to {max(f.max().item() for f in floors):.3g}")
     log(f"phase 1 {name} {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}); "
         f"max_abs_err {err:.3g}, floor needed {need:.3g} ({tol})"
@@ -1447,9 +1499,9 @@ def decode_kernels(dev, cfg, g, flush, record):
     also in 3 splits of H (a partial second wave) beside the plan's 2. K2
     and K3 are timed beside one PyTorch call of their int8 or q4g product
     alone (``decode_library``; in fp32 where the installed torch takes fp32
-    x, else the reason is logged), K1 in bf16 beside two: [W_gate; W_up],
-    then W_down on a fixed intermediate. The MLP in bf16 is held to the
-    one-ulp bound of its bf16 intermediate."""
+    x, else the reason is logged), K1 beside two: [W_gate; W_up], then
+    W_down on a fixed intermediate (in fp32 likewise). The MLP in bf16 is
+    held to the one-ulp bound of its bf16 intermediate."""
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.probes.mlp_decode import profile_split
 
@@ -1460,6 +1512,7 @@ def decode_kernels(dev, cfg, g, flush, record):
     g_q4g8 = torch.Generator(device=dev).manual_seed(SEED + 10)
     g_chunk = torch.Generator(device=dev).manual_seed(SEED + 11)
     g_k1 = torch.Generator(device=dev).manual_seed(SEED + 13)
+    g_mid32 = torch.Generator(device=dev).manual_seed(SEED + 15)
     bf, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for fmt, batches in (("int8", (1, 8)), ("q4g", (1, 64))):
@@ -1540,8 +1593,8 @@ def decode_kernels(dev, cfg, g, flush, record):
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
                 a = torch.randn((B, NQ), device=dev, generator=gen).to(dtype)
-                mid = (torch.randn((B, I), device=dev, generator=g_k1).to(dtype)
-                       if dtype == bf else None)
+                mid = torch.randn((B, I), device=dev,
+                                  generator=g_k1 if dtype == bf else g_mid32).to(dtype)
                 for name, (kern, ref, reads, cols, macs) in cases.items():
                     if only not in (None, name):
                         continue
@@ -1550,8 +1603,7 @@ def decode_kernels(dev, cfg, g, flush, record):
                              if name == "fused_mlp_decode" and dtype == bf else None)
                     sfx = routes[name](B, dtype)
                     library = (decode_library(name, fmt, two, x, a)
-                               if name != "fused_mlp_decode"
-                               else k1_library(x, mid) if mid is not None else None)
+                               if name != "fused_mlp_decode" else k1_library(x, mid))
                     moved = nbytes(*acts, *reads) + B * cols * x.element_size()
                     ops, peak = 2 * B * macs, BF16_OPS if dtype == bf else F32_OPS
                     label = f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} B={B} layer 1"
@@ -1614,26 +1666,33 @@ def dense_llm_layers(cfg, generator, device):
 
 
 def dense_decode_kernels(dev, cfg, flush, record):
-    """Phase 1 for K1-K3 on dense bf16 weights (the eval path's bf16
-    checkpoints, phase 12) at 8B width, layer 1 of a 2-layer stack, B = 1, 4,
-    6 and 8 (the records keep B = 1), from a generator of their own. K2
-    takes the weight ring there and K1 and K3 at B <= 4 (``*_dense_ring``: each
-    wrapper's routing rule); each is also timed on the instance its rule
-    does not take, on the same inputs (``fused_mlp.mlp_launch`` with
-    ``route`` "rows" or "ring", ``fused_qkvo.qkv_launch`` / ``o_launch``
-    alike, uncounted: the row-per-warp "was" lines,
-    records ``*_dense``, and the ring's lines where the rule keeps K1 row
-    per warp). Each is timed beside
-    ``torch.nn.functional.linear`` of its bf16 product alone on the same
-    weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and W_up
-    concatenated, then W_down on a fixed intermediate), a yardstick; the MLP
-    is held to the one-ulp bound of its bf16 intermediate. The ring's
-    launches' device times (profiler) are logged at B = 1 and 4."""
+    """Phase 1 for K1-K3 on dense bf16 weights (a bf16 checkpoint: the eval
+    path and phase 12's engine) at 8B width, layer 1 of a 2-layer stack,
+    from a generator of their own: all three at B = 1, 4, 6 and 8, K1 and
+    K2 also at DENSE_WGMMA_ROWS (5, the verify chunks of 4 and 8 slots, the
+    fused chunk, one and two token tiles past it). Each runs the instance
+    its wrapper's rule takes (``k1_route``, ``k2_route``, ``k3_route``:
+    records ``*_dense_ring``, ``*_dense_wgmma`` or ``*_dense`` row per
+    warp; the ring's records keep B = 1, the tensor-core ones B = 64), and
+    is timed beside the instances the rule does not take on the same inputs
+    (``fused_mlp.mlp_launch`` with ``route``, ``fused_qkvo.qkv_launch`` /
+    ``o_launch`` alike, uncounted): at 4-8 rows every instance there is, at
+    1 and from 9 the row-per-warp one ("was": the instance the rule took
+    before the ring or the tensor-core ones). K1's and K2's tensor-core
+    instances have their launches' device times (profiler) logged at 64
+    rows, as the ring's at 1 and 4. Each is timed
+    beside ``torch.nn.functional.linear`` of its bf16 product alone on the
+    same weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and
+    W_up concatenated, then W_down on a fixed intermediate), a yardstick;
+    the MLP is held to the one-ulp bound of its bf16 intermediate, K2 on
+    tensor cores, and row per warp off the decode rows 1, 4, 6 and 8, to
+    the plain projections of the row norm it wrote (``qkv_own_norm``)."""
     import torch.nn.functional as F
 
     from slime_tpu_torch.ops import fused_mlp, fused_qkvo
     from slime_tpu_torch.probes.mlp_decode import profile_split
 
+    bf = torch.bfloat16
     cfg2 = dataclasses.replace(cfg.llm, num_layers=2)
     H, NQ = cfg2.hidden_size, cfg2.num_heads * cfg2.head_dim
     NKV, I = cfg2.num_kv_heads * cfg2.head_dim, cfg2.intermediate_size
@@ -1644,66 +1703,104 @@ def dense_decode_kernels(dev, cfg, flush, record):
     wgu = torch.cat(w("gate_proj", "up_proj"))
     wo, wd = w("o_proj")[0], w("down_proj")[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    routes = {"fused_qkv_decode": lambda B: fused_qkvo.qkv_ring_route(
-                  B, torch.bfloat16, fused_qkvo.DENSE, H, NQ, NKV, sms),
-              "fused_o_residual": lambda B: fused_qkvo.o_ring_route(
-                  B, torch.bfloat16, fused_qkvo.DENSE, NQ, H, sms),
-              "fused_mlp_decode": lambda B: fused_mlp.ring_route(
-                  B, torch.bfloat16, fused_qkvo.DENSE, H, I, sms)}
-    for B in (1, 4, 6, 8):
-        x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
-        a = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
-        mid = torch.randn((B, I), device=dev, generator=g).to(torch.bfloat16)
-        # name: (kernel, plain, library, the instance the rule does not take
-        # on the same inputs (uncounted), layer-1 tensors read, activations,
-        # output columns, MACs per row)
+    D = fused_qkvo.DENSE
+    routes = {"fused_qkv_decode": lambda B: fused_qkvo.k2_route(B, bf, D, H, NQ, NKV, sms),
+              "fused_o_residual": lambda B: fused_qkvo.k3_route(B, bf, D, NQ, H, sms),
+              "fused_mlp_decode": lambda B: fused_mlp.k1_route(B, bf, D, H, I, sms)}
+    # the instance each rule took before the tensor-core ones (the "was")
+    before = {"fused_qkv_decode": lambda B: "ring" if B <= 8 else "rows",
+              "fused_o_residual": lambda B: "ring" if B <= fused_qkvo.DENSE_O_RING_ROWS
+              else "rows",
+              "fused_mlp_decode": lambda B: "ring" if B <= fused_mlp.DENSE_RING_ROWS
+              else "rows"}
+    sfx = {"ring": "_dense_ring", "wgmma": "_dense_wgmma", "rows": "_dense"}
+    what = {"ring": "the weight ring", "wgmma": "the tensor-core instance",
+            "rows": "the row-per-warp instance"}
+    # the decode rows at which all three run, every instance held to the
+    # plain version outright where it does not run on tensor cores
+    decode_rows = (1, 4, 6, 8)
+    for B in sorted(set(decode_rows) | set(DENSE_WGMMA_ROWS)):
+        x = torch.randn((B, H), device=dev, generator=g).to(bf)
+        a = torch.randn((B, NQ), device=dev, generator=g).to(bf)
+        mid = torch.randn((B, I), device=dev, generator=g).to(bf)
+        # name: (kernel, plain, library, the instances on the same inputs
+        # (uncounted), layer-1 tensors read, activations, output columns,
+        # MACs per row)
         cases = {
             "fused_qkv_decode": (lambda: fused_qkvo.fused_qkv_decode(x, two, 1),
                                  lambda: fused_qkvo.fused_qkv_decode_ref(x, two, 1),
                                  lambda: F.linear(x, wqkv),
-                                 lambda: fused_qkvo.qkv_launch(
-                                     x, two, 1, 1e-5, route="rows" if ring else "ring")[:3],
+                                 lambda r: fused_qkvo.qkv_launch(x, two, 1, 1e-5, route=r)[:3],
                                  w("input_layernorm", "q_proj", "k_proj", "v_proj"), (x,),
                                  NQ + 2 * NKV, H * (NQ + 2 * NKV)),
             "fused_o_residual": (lambda: fused_qkvo.fused_o_residual(a, x, two, 1),
                                  lambda: fused_qkvo.fused_o_residual_ref(a, x, two, 1),
                                  lambda: F.linear(a, wo),
-                                 lambda: fused_qkvo.o_launch(
-                                     a, x, two, 1, route="rows" if ring else "ring")[0],
+                                 lambda r: fused_qkvo.o_launch(a, x, two, 1, route=r)[0],
                                  w("o_proj"), (x, a), H, NQ * H),
             "fused_mlp_decode": (lambda: fused_mlp.fused_mlp_decode(x, two, 1),
                                  lambda: fused_mlp.fused_mlp_decode_ref(x, two, 1),
                                  lambda: (F.linear(x, wgu), F.linear(mid, wd)),
-                                 lambda: fused_mlp.mlp_launch(
-                                     x, two, 1, 1e-5, route="rows" if ring else "ring")[0],
+                                 lambda r: fused_mlp.mlp_launch(x, two, 1, 1e-5, route=r)[0],
                                  w("post_attention_layernorm", "gate_proj", "up_proj",
                                    "down_proj"), (x,), H, 3 * H * I),
         }
-        for name, (kern, ref, lib, other, reads, acts, cols, macs) in cases.items():
+        for name, (kern, ref, lib, forced, reads, acts, cols, macs) in cases.items():
+            if name == "fused_o_residual" and B not in decode_rows:
+                continue
             floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                      if name == "fused_mlp_decode" else None)
-            ring = routes[name](B) is not None
+            own = lambda r: (qkv_own_norm(x, two, 1, r, f"B={B} {what[r]}")  # noqa: E731
+                             if name == "fused_qkv_decode" and r != "ring"
+                             and (r == "wgmma" or B not in decode_rows) else None)
+            route = routes[name](B)
             moved = nbytes(*acts, *reads) + B * cols * x.element_size()
-            check_and_time(record, name + ("_dense_ring" if ring else "_dense"),
-                           f"8B width dense bf16 B={B} layer 1"
-                           + (" (weight ring)" if ring else " (row per warp)"),
-                           kern, ref, moved, 2 * B * macs, BF16_OPS, flush, main=B == 1,
-                           dispatch=B == 1, floor=floor, library=lib)
-            if other is not None:
-                check_and_time(record, name + ("_dense" if ring else "_dense_ring"),
-                               f"8B width dense bf16 B={B} layer 1 "
-                               + ("(was: the row-per-warp instance)" if ring else
-                                  "(the weight ring, which the rule does not take here)"),
-                               other, ref, moved, 2 * B * macs, BF16_OPS, flush, main=B == 1,
-                               floor=floor, library=lib)
-            if ring and B in (1, 4):
+            label = f"8B width dense bf16 B={B} layer 1"
+            check_and_time(record, name + sfx[route], f"{label} ({what[route]})", kern, ref,
+                           moved, 2 * B * macs, BF16_OPS, flush,
+                           main=B == (CHUNK_ROWS if route == "wgmma" else 1),
+                           dispatch=B == 1, floor=floor, library=lib, want=own(route))
+            others = ["rows"] if B > 8 or B == 1 else ["ring", "rows"] + (
+                ["wgmma"] if name != "fused_o_residual" else [])
+            for other in others:
+                if other == route:
+                    continue
+                was = "rows" if route == "ring" else before[name](B)
+                kind = ("was: " if other == was else "") + what[other]
+                check_and_time(record, name + sfx[other], f"{label} ({kind}, which the rule "
+                               "does not take here)", lambda: forced(other), ref, moved,
+                               2 * B * macs, BF16_OPS, flush, main=False, floor=floor,
+                               library=lib, want=own(other))
+            if (route == "ring" and B in (1, 4)) or (route == "wgmma" and B == CHUNK_ROWS):
                 split, span = profile_split(kern, flush)
-                log(f"phase 1 {name}_dense_ring B={B} launches (profiler, device ms each, "
+                log(f"phase 1 {name}{sfx[route]} B={B} launches (profiler, device ms each, "
                     f"L2 flushed): "
                     + (", ".join(f"{short_kernel(n)} {ms:.4f}" for n, ms in split.items())
                        + f"; first start to last end {span:.4f} ms" if split
                        else "not measured (the profiler recorded no kernel)"))
     del two, wqkv, wgu
+
+
+def qkv_own_norm(x, layers, li, route, label, eps=1e-5):
+    """What K2's instance ``route`` (one that writes its bf16 row norm h:
+    "wgmma", "rows") is held to on dense bf16 weights: the plain
+    projections of the h it wrote (``fused_qkvo.qkv_proj_ref``), once h
+    has been held to the plain version's up to rounding flips
+    (``fused_qkvo.norm_flips``; raises on any other difference). Logs the
+    flips and how far q, k, v stand from the plain version's own (the
+    floor that comparison would need at RTOL)."""
+    from slime_tpu_torch.ops import fused_qkvo
+    *out, _, _, h = fused_qkvo.qkv_launch(x, layers, li, eps, route=route)
+    flips, bad = fused_qkvo.norm_flips(h, x, layers["input_layernorm"]["weight"][li], eps)
+    if bad:
+        raise AssertionError(f"fused_qkv_decode {label}: {bad} elements of its row norm h "
+                             f"differ from the plain version's by more than a rounding flip")
+    need = max(((a.float() - b.float()).abs() - RTOL * b.float().abs()).max().item()
+               for a, b in zip(out, fused_qkvo.fused_qkv_decode_ref(x, layers, li)))
+    log(f"phase 1 fused_qkv_decode dense {label}: h differs from the plain version's in "
+        f"{flips} of {h.numel()} elements, each a rounding flip; q, k, v against the plain "
+        f"version's own h: floor needed {need:.3g}")
+    return fused_qkvo.qkv_proj_ref(h, layers, li)
 
 
 def decode_library(name, fmt, two, x, a):
@@ -4832,16 +4929,11 @@ def eval_phase(dev, cfg):
 
     def request(steps, rows):
         """The launches of one generate call of ``steps`` decode steps at
-        ``rows`` rows: dense K2 on the weight ring, K1 and K3 where their
-        rules take the ring (B <= 4)."""
-        k1_ring = fused_mlp.ring_route(rows, bf, DENSE, llm.hidden_size,
-                                       llm.intermediate_size, sms) is not None
-        k3_ring = fused_qkvo.o_ring_route(rows, bf, DENSE, llm.num_heads * llm.head_dim,
-                                          llm.hidden_size, sms) is not None
+        ``rows`` rows: dense K1-K3 on the instances their rules take (the
+        ring at 1-4 rows; K1 and K2 on tensor cores, K3 row per warp, at
+        beam search's 6)."""
         return {"encoder_attention": vis, "flash_fwd": L,
-                "fused_qkv_decode_dense_ring": L * steps,
-                "fused_mlp_decode" + ("_dense_ring" if k1_ring else "_dense"): L * steps,
-                "fused_o_residual" + ("_dense_ring" if k3_ring else "_dense"): L * steps}
+                **dense_fused_launches(llm, {rows: steps}, sms)}
 
     def run(name, bs, qs=questions, **kw):
         return lambda: harness.run_eval(
@@ -4961,6 +5053,10 @@ def eval_phase(dev, cfg):
     log(f"phase 12 mmbench: 2 rows x 4 rotated rounds, host {wallm * 1e3 / len(mm):.1f} ms a "
         "round")
 
+    # ---- the engine at the batched worker's defaults, plain and speculating ----
+    for n, c in eval_engine(dev, cfg, params).items():
+        counts[n] = counts.get(n, 0) + c
+
     # ---- the CLI and the verifier on a saved checkpoint (LLM cut for disk and time) ----
     cfg_c = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
                                                              num_layers=EVAL_CKPT_LAYERS))
@@ -5023,6 +5119,270 @@ def eval_phase(dev, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def dense_fused_launches(llm, rows, sms):
+    """K1-K3's launches over fused calls in bf16 on dense bf16 weights,
+    ``rows`` {rows a call: calls} (decode steps at a batch or the engine's
+    slots, fused chunks of at most 64 rows, verify chunks): each once a
+    layer a call, on the instance its rule takes (``k1_route``, ``k2_route``,
+    ``k3_route``), by record."""
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    bf, D = torch.bfloat16, fused_qkvo.DENSE
+    H, I = llm.hidden_size, llm.intermediate_size
+    NQ, NKV = llm.num_heads * llm.head_dim, llm.num_kv_heads * llm.head_dim
+    sfx = {"ring": "_dense_ring", "wgmma": "_dense_wgmma", "rows": "_dense"}
+    out = {}
+    for r, n in rows.items():
+        for name, route in (("fused_qkv_decode", fused_qkvo.k2_route(r, bf, D, H, NQ, NKV, sms)),
+                            ("fused_o_residual", fused_qkvo.k3_route(r, bf, D, NQ, H, sms)),
+                            ("fused_mlp_decode", fused_mlp.k1_route(r, bf, D, H, I, sms))):
+            if n:
+                out[name + sfx[route]] = out.get(name + sfx[route], 0) + llm.num_layers * n
+    return out
+
+
+@contextlib.contextmanager
+def named_projections():
+    """K1's, K2's and K3's wrapper calls as profiler ranges ("K1", "K2",
+    "K3") where llama's decode and chunk paths look them up
+    (``trace_ranges`` reads them); the wrappers themselves, and their
+    counts, unchanged."""
+    from torch.profiler import record_function
+
+    from slime_tpu_torch.models import llama
+    names = ("fused_mlp_decode", "fused_qkv_decode", "fused_o_residual")
+    real = [getattr(llama, n) for n in names]
+
+    def named(tag, fn):
+        def call(*a, **k):
+            with record_function(tag):
+                return fn(*a, **k)
+        return call
+    for n, tag, fn in zip(names, ("K1", "K2", "K3"), real):
+        setattr(llama, n, named(tag, fn))
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, real):
+            setattr(llama, n, fn)
+
+
+@contextlib.contextmanager
+def dense_routes_before():
+    """The dense routes of 5-8 rows as they stood before K1's and K2's dense
+    tensor-core instances (K1 row per warp past the ring's 4 rows, K2 on
+    the ring up to 8): DENSE_WGMMA_MIN_ROWS at 9, in both modules whose
+    rules read it (phase 12's comparison of an 8-slot tick)."""
+    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
+    now = fused_qkvo.DENSE_WGMMA_MIN_ROWS
+    fused_mlp.DENSE_WGMMA_MIN_ROWS = fused_qkvo.DENSE_WGMMA_MIN_ROWS = 9
+    try:
+        yield
+    finally:
+        fused_mlp.DENSE_WGMMA_MIN_ROWS = fused_qkvo.DENSE_WGMMA_MIN_ROWS = now
+
+
+def kernel_shares(path, busy):
+    """"K1 a ms, K2 b ms, K3 c ms (shares of ``busy``)" from a trace taken
+    under ``named_projections``."""
+    parts, _ = trace_ranges(path, ("K1", "K2", "K3"))
+    return ", ".join(f"{k} {parts[k][0]:.3f} ms in {parts[k][1]} launches "
+                     f"({parts[k][0] / busy if busy else 0.0:.3f} of it)"
+                     for k in ("K1", "K2", "K3"))
+
+
+def eval_engine(dev, cfg, params):
+    """Phase 12's engine: ``BatchDecodeEngine`` at the batched worker's
+    defaults (EVAL_SLOTS slots, cache_len 2048, the prefix cache) on phase
+    12's dense bf16 SliME-8B (``cfg``'s depth), bf16, EVAL_ENGINE_TEXT
+    prompts of random ids with EVAL_ENGINE_NEW greedy tokens each: plainly,
+    then speculating (spec_k EVAL_SPEC_K, 8 rounds a dispatch) with phase
+    9's random 0.6B dense bf16 draft (its widths take the non-fused
+    decode). Launches asserted on the card: K1-K3 on the instances their
+    rules take (K1 and K2 on their dense tensor-core instances, K3 row per
+    warp) once a layer in the 300-token prompt's 64-row fused chunk, in
+    every 8-slot decode step and in every 40-row verify chunk. The plain
+    engine's tokens held to ``generate``'s, the speculating engine's to
+    the plain engine's, up to ``near_tie_rule``. Device times (profiler):
+    the 64-row chunk, an 8-slot tick at k = 1 and k = 8 (beside its host
+    time), a speculative tick's verify chunks, with K1's, K2's and K3's
+    share of each. Returns the counted runs' launches."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+    from slime_tpu_torch.serve.batch_engine import Request
+
+    bf = torch.bfloat16
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    rng = np.random.default_rng(SEED + 42)
+    prompts = [rng.integers(5, cfg.llm.vocab_size, (n,)) for n in EVAL_ENGINE_TEXT]
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    dparams, dcfg = draft_params(cfg, g, dev)
+    common = dict(params=params, cfg=cfg, max_slots=EVAL_SLOTS, compute_dtype=bf, device=dev)
+    verify_rows = EVAL_SLOTS * (EVAL_SPEC_K + 1)
+    log(f"phase 12 engine: max_slots {EVAL_SLOTS}, cache_len 2048, bf16, dense LLM of "
+        f"{cfg.llm.num_layers} layers; {len(prompts)} text prompts of {EVAL_ENGINE_TEXT} "
+        f"tokens, {EVAL_ENGINE_NEW} greedy tokens each; speculation: spec_k {EVAL_SPEC_K}, "
+        f"the random 0.6B dense bf16 draft, verify chunks of {verify_rows} rows")
+    launches = {}
+
+    def run(**kw):
+        """Every prompt through tick() -> (engine, tokens, wall s, launches)."""
+        eng = traced_engine(**common, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reqs = [eng.submit(Request(input_ids=p, max_new_tokens=EVAL_ENGINE_NEW))
+                for p in prompts]
+        t0 = time.perf_counter()
+        for _ in range(4000):
+            if eng.tick() == 0 and eng.pending.empty() and eng._admission is None:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if any(s is not None for s in eng.slots):
+            raise AssertionError("phase 12 engine: the engine did not finish its requests")
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        return eng, [drain(r) for r in reqs], wall, counts
+
+    def fill_slots(eng):
+        """EVAL_SLOTS long requests on the short prompts, admitted whole."""
+        return [eng.submit(Request(input_ids=prompts[1 + i % (len(prompts) - 1)],
+                                   max_new_tokens=200)) for i in range(EVAL_SLOTS)]
+
+    def check_launches(tag, eng, counts, rounds=0):
+        fused = {c: n for c, n in eng.chunk_rows.items() if c <= 64}
+        calls = {EVAL_SLOTS: eng.decode_steps}
+        for c, n in list(fused.items()) + [(verify_rows, rounds)]:
+            calls[c] = calls.get(c, 0) + n
+        want = dense_fused_launches(cfg.llm, calls, sms)
+        wrong = {n: c for n, c in counts.items() if c != want.get(n, 0)}
+        log(f"phase 12 {tag} launches: {json.dumps({n: c for n, c in counts.items() if c})} "
+            f"({eng.decode_steps} decode steps at {EVAL_SLOTS} rows, chunks "
+            f"{dict(sorted(eng.chunk_rows.items()))}, {rounds} verify chunks)")
+        if 64 not in fused or (wrong and dev.type == "cuda"):
+            raise AssertionError(f"phase 12 {tag} launches {wrong} (expected {want}); fused "
+                                 f"chunks {fused}")
+
+    # ---- the plain engine, against generate ----
+    eng, plain, wall, counts = run()
+    n_tok = sum(map(len, plain))
+    log(f"phase 12 plain engine: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s "
+        f"aggregate, admissions included)")
+    check_launches("plain engine", eng, counts)
+    for p, got in zip(prompts, plain):
+        ids = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        want = gen.generate(params, cfg, ids, torch.ones_like(ids, dtype=torch.bool),
+                            max_new_tokens=EVAL_ENGINE_NEW, temperature=0.0,
+                            compute_dtype=bf)[0].tolist()
+        near_tie_rule(f"engine, {len(p)}-token prompt", got, want,
+                      plain_logits(params, cfg, p, want), cfg.eos_token_id, phase="12",
+                      ref="generate's")
+
+    # the 300-token prompt's 64-row fused chunk, traced
+    with torch.no_grad(), fp32_accumulation():
+        emb = llama.embed(params["llm"], torch.from_numpy(prompts[0].astype(np.int64)).to(
+            dev)).to(bf)[None]
+        tail = torch.nn.functional.pad(emb[:, 256:], (0, 0, 0, 64 - (emb.shape[1] - 256)))
+        cache1 = llama.init_kv_cache(cfg.llm, 1, eng.cache_len, dtype=bf, device=dev)
+        for _ in range(2):
+            cache1["length"].fill_(256)
+            eng._prefill_chunk(cache1, tail)
+        torch.cuda.synchronize()
+        path = out / "profile_eval_chunk_64.json"
+        with named_projections():
+            traced = profiled(lambda: eng._prefill_chunk(cache1, tail), path,
+                              start=lambda: cache1["length"].fill_(256))
+        if traced:
+            busy, n, _ = trace_device(path)
+            log(f"phase 12 64-row fused chunk (dense): device busy {busy:.3f} ms, {n} launches; "
+                f"{kernel_shares(path, busy)}")
+        del cache1
+
+    # an 8-slot tick at k = 1 and k = 8, traced; at k = 1 in turns with the
+    # dense routes before the tensor-core instances (uncounted)
+    busy_reqs = fill_slots(eng)
+    eng.tick()
+    for i, (k, before) in enumerate(((1, False), (1, True), (1, True), (1, False), (8, False))):
+        eng._flush_inflight()
+        eng.multi_step = k
+        with dense_routes_before() if before else contextlib.nullcontext():
+            for _ in range(3):
+                eng.tick()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.tick()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall_ms = statistics.median(walls)
+            eng._flush_inflight()
+
+            def three_ticks():
+                for _ in range(3):
+                    eng.tick()
+                eng._flush_inflight()
+
+            path = out / f"profile_eval_tick_{i}.json"
+            with named_projections():
+                traced = profiled(three_ticks, path)
+        if traced:
+            busy, n, _ = trace_device(path)
+            log(f"phase 12 tick, {EVAL_SLOTS} live slots, k = {k}"
+                + (" (the dense routes before the tensor-core instances: K1 row per warp, "
+                   "K2 on the ring)" if before else "")
+                + f": host wall {wall_ms:.2f} ms (median of 5), device busy {busy / 3:.3f} ms "
+                f"a tick, idle share {1 - busy / 3 / wall_ms:.3f}, {n / 3:.0f} launches a "
+                f"tick; over 3 ticks {kernel_shares(path, busy)}")
+    for r in busy_reqs:
+        eng.cancel(r.request_id)
+    eng.tick()
+    eng._flush_inflight()
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- speculating, against the plain engine ----
+    eng, spec, wall, counts = run(draft_params=dparams, draft_cfg=dcfg, spec_k=EVAL_SPEC_K)
+    st = dict(eng.spec_stats)
+    n_tok = sum(map(len, spec))
+    log(f"phase 12 speculating engine: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s "
+        f"aggregate); {st.get('rounds', 0)} rounds in {st.get('dispatches', 0)} dispatches, "
+        f"{st.get('accepted', 0)} proposals accepted of {EVAL_SPEC_K * st.get('slot_rounds', 0)}")
+    if not st.get("rounds"):
+        raise AssertionError("phase 12 speculating engine: no round ran")
+    check_launches("speculating engine", eng, counts, st["rounds"])
+    for p, got, want in zip(prompts, spec, plain):
+        near_tie_rule(f"speculating engine, {len(p)}-token prompt", got, want,
+                      plain_logits(params, cfg, p, want), cfg.eos_token_id, phase="12")
+
+    # one speculative dispatch with every slot live, traced
+    busy_reqs = fill_slots(eng)
+    eng.tick()                                   # admissions
+    eng.tick()                                   # a first dispatch
+    r0, t0 = eng.spec_stats["rounds"], time.perf_counter()
+    path = out / "profile_eval_spec_tick.json"
+    with named_projections():
+        traced = profiled(eng.tick, path)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if traced:
+        R = max(eng.spec_stats["rounds"] - r0, 1)
+        busy, n, _ = trace_device(path)
+        parts, _ = trace_ranges(path, ("spec_draft", "spec_verify", "spec_ingest"))
+        v_ms = parts["spec_verify"][0]
+        log(f"phase 12 speculative tick, {EVAL_SLOTS} live slots, {R} rounds: device busy "
+            f"{busy:.2f} ms ({wall_ms:.1f} ms host, the profiler's included); a verify chunk "
+            f"({verify_rows} rows) {v_ms / R:.3f} ms on the device; over the {R} verify "
+            f"chunks {kernel_shares(path, v_ms)}")
+    for r in busy_reqs:
+        eng.cancel(r.request_id)
+    eng.tick()
+    del eng, dparams
+    torch.cuda.empty_cache()
+    return launches
 
 
 def check_beam(i, beam_toks, greedy_toks, beam, greedy):

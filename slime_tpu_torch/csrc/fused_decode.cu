@@ -40,9 +40,9 @@
 // The weight ring (weight_ring_kernel): K1-K3's bf16 instances for int8 and
 // q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
 // paths, and those for dense bf16 weights (FMT kDense: the bf16
-// checkpoints' decode steps; K2 at B <= 8, K1 and K3 at B <= 4, where the
-// ring beat row per warp on an H100), wherever a launch plan exists (the
-// wrappers' routing rule).
+// checkpoints' decode steps; K1-K3 at B <= 4, where the ring beat row per
+// warp on an H100), wherever a launch plan exists (the wrappers' routing
+// rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
 // SM) and by one dependent 16-byte load a lane in flight (dense bf16: 8
@@ -129,6 +129,14 @@
 // whose reduction scales each part and writes q, k and v apart
 // (slime_qkv_wgmma). Their row-per-warp kernels took 0.37 and 0.27 ms at 64
 // rows on an H100, 2% of their bytes bound.
+// K1 and K2 on dense bf16 weights (a bf16 checkpoint's fused chunks, its
+// verify chunk, and its decode steps from the wrappers' DENSE_WGMMA_MIN_ROWS)
+// run the same launches on the main loop's dense format (kK6Bf16): a
+// weight tile is wgmma's A operand straight from shared memory, no scales.
+// Their row-per-warp kernels re-read K1's 352 MB of bf16 weights once per
+// tile of 8 rows: 2.26 ms at 64 rows on an H100 against 0.151 on tensor
+// cores (one pass: 0.105 ms at the bytes rate). Dense K3 keeps its ring and
+// row-per-warp kernels.
 #include "hopper_common.cuh"
 #include "qmm_wgmma.cuh"
 
@@ -1303,9 +1311,10 @@ namespace {
 
 // q, k, v (parts 3) or y (parts 1) of a split projection: bf16(resid + sum_z
 // ws[z] * s[p][row]) with ws [splits, B, N] over the row space [0, end[parts
-// - 1]), the splits added in order, each part's scale on the fp32 sum, the
-// residual (K1's down, K3: x [B, N], one part) added in fp32, and one bf16
-// rounding into part p's own [B, end[p] - end[p - 1]] output.
+// - 1]), the splits added in order, each part's scale on the fp32 sum (none
+// for dense weights: s[0] null), the residual (K1's down, K3: x [B, N], one
+// part) added in fp32, and one bf16 rounding into part p's own [B, end[p] -
+// end[p - 1]] output.
 struct SplitOut {
   const float* s[3];
   bf16* y[3];
@@ -1326,57 +1335,57 @@ __global__ void split_reduce_kernel(const float* __restrict__ ws, int splits, in
     const bool p1 = o.parts > 1 && n >= o.end[0], p2 = o.parts > 2 && n >= o.end[1];
     const int start = p2 ? o.end[1] : p1 ? o.end[0] : 0;
     const int width = (p2 ? o.end[2] : p1 ? o.end[1] : o.end[0]) - start, c = n - start;
-    v *= (p2 ? o.s[2] : p1 ? o.s[1] : o.s[0])[c];
+    if (o.s[0] != nullptr) v *= (p2 ? o.s[2] : p1 ? o.s[1] : o.s[0])[c];
     if (resid != nullptr) v = __bfloat162float(resid[e]) + v;
     (p2 ? o.y[2] : p1 ? o.y[1] : o.y[0])[(size_t)m * width + c] = __float2bfloat16_rn(v);
   }
 }
 
-using SplitCfg = K6Cfg<kK6Int8, 1, 64>;     // split_wgmma's main loop
-
-// Whether split_wgmma takes the operands: K a multiple of 16 and at least 256
-// (the rows TMA reads), 1-3 parts, every part end but the last on a 128-row
+// Whether split_wgmma takes the operands: int8 (wfmt kInt8) or dense bf16
+// (kDense) weights, K as TMA reads the rows (int8: a multiple of 16, dense:
+// of 8; at least 256), 1-3 parts, every part end but the last on a 128-row
 // block boundary, the residual with one part only, and splits of
-// `kb_per_split` stages that cover K's, none empty.
-bool split_ok(int B, int K, const SplitOut& o, const void* resid, const void* ws, int splits,
-              int kb_per_split) {
-  const int nkb = (K + SplitCfg::BK - 1) / SplitCfg::BK;
-  bool ok = B >= 1 && K >= 256 && K % 16 == 0 && ws != nullptr && o.parts >= 1 &&
-            o.parts <= 3 && splits >= 1 && kb_per_split >= 1 &&
+// `kb_per_split` stages (128 int8 or 64 dense columns) that cover K's, none
+// empty.
+bool split_ok(int wfmt, int B, int K, const SplitOut& o, const void* resid, const void* ws,
+              int splits, int kb_per_split) {
+  const bool dense = wfmt == kDense;
+  const int bk = dense ? K6Cfg<kK6Bf16, 1, 64>::BK : K6Cfg<kK6Int8, 1, 64>::BK;
+  const int nkb = (K + bk - 1) / bk;
+  bool ok = (wfmt == kInt8 || dense) && B >= 1 && K >= 256 && K % (dense ? 8 : 16) == 0 &&
+            ws != nullptr && o.parts >= 1 && o.parts <= 3 && splits >= 1 && kb_per_split >= 1 &&
             (long long)splits * kb_per_split >= nkb &&
             (long long)(splits - 1) * kb_per_split < nkb && (resid == nullptr || o.parts == 1);
   for (int q = 0; ok && q < o.parts; ++q)
     ok = o.end[q] > (q > 0 ? o.end[q - 1] : 0) &&
-         (q + 1 == o.parts || o.end[q] % SplitCfg::ROWS == 0);
+         (q + 1 == o.parts || o.end[q] % K6Cfg<kK6Int8, 1, 64>::ROWS == 0);
   return ok;
 }
 
-// The scale-epilogue main loop over bf16 act [B, K] (qmm_wgmma_kernel<int8, 1,
-// 64, kEpiScale>: 128 rows a block, 64-token tiles in grid.y) and the row
-// space [0, N = o.end[o.parts - 1]) of o.parts int8 matrices w[p] [end[p] -
-// end[p - 1], K], split over K into `splits` ranges of `kb_per_split`
-// 128-column stages whose fp32 sums go to ws [splits, B, N]; then
-// split_reduce_kernel. The operands as split_ok asks. Returns the first
-// launch error (or a tensor-map error code), or 0.
-int split_wgmma(const void* act, int B, int K, const void* const* w, const SplitOut& o,
-                const void* resid, void* ws, int splits, int kb_per_split, cudaStream_t st) {
-  using C = SplitCfg;
+// split_wgmma's launches for one weight format
+template <int FMT>
+int split_wgmma_fmt(const void* act, int B, int K, const void* const* w, const SplitOut& o,
+                    const void* resid, void* ws, int splits, int kb_per_split,
+                    cudaStream_t st) {
+  using C = K6Cfg<FMT, 1, 64>;
   const int N = o.end[o.parts - 1];
-  if (!split_ok(B, K, o, resid, ws, splits, kb_per_split)) return (int)cudaErrorInvalidValue;
-  int err = qmm_wgmma_smem<kK6Int8, 1, 64, kEpiScale>();
+  int err = qmm_wgmma_smem<FMT, 1, 64, kEpiScale>();
   K6Params p = {};
   CUtensorMap* maps[3] = {&p.w, &p.w2, &p.w3};
   if (err == 0)
     err = encode_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, act, K, B, 2LL * K, 64, 64);
   for (int q = 0; err == 0 && q < o.parts; ++q)
-    err = encode_2d(maps[q], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[q], K,
-                    o.end[q] - (q > 0 ? o.end[q - 1] : 0), K, 128, C::ROWS);
+    err = FMT == kK6Bf16
+              ? encode_2d(maps[q], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w[q], K,
+                          o.end[q] - (q > 0 ? o.end[q - 1] : 0), 2LL * K, 64, C::ROWS)
+              : encode_2d(maps[q], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[q], K,
+                          o.end[q] - (q > 0 ? o.end[q - 1] : 0), K, 128, C::ROWS);
   if (err != 0) return err;
   p.n1 = o.parts > 1 ? o.end[0] : 0;
   p.n2 = o.parts > 2 ? o.end[1] : 0;
   p.ws = (float*)ws;
   p.M = B; p.N = N; p.K = K; p.kb_per_split = kb_per_split;
-  qmm_wgmma_kernel<kK6Int8, 1, 64, kEpiScale>
+  qmm_wgmma_kernel<FMT, 1, 64, kEpiScale>
       <<<dim3((N + C::ROWS - 1) / C::ROWS, (B + 63) / 64, splits), kK6Threads, C::SMEM, st>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -1385,53 +1394,87 @@ int split_wgmma(const void* act, int B, int K, const void* const* w, const Split
   return (int)cudaGetLastError();
 }
 
+// The scale-epilogue main loop over bf16 act [B, K] (qmm_wgmma_kernel<int8 or
+// bf16, 1, 64, kEpiScale>: 128 rows a block, 64-token tiles in grid.y) and
+// the row space [0, N = o.end[o.parts - 1]) of o.parts int8 (wfmt kInt8) or
+// dense bf16 (kDense) matrices w[p] [end[p] - end[p - 1], K], split over K into `splits` ranges of `kb_per_split` stages whose
+// fp32 sums go to ws [splits, B, N]; then split_reduce_kernel. The operands
+// as split_ok asks. Returns the first launch error (or a tensor-map error
+// code), or 0.
+int split_wgmma(int wfmt, const void* act, int B, int K, const void* const* w,
+                const SplitOut& o, const void* resid, void* ws, int splits, int kb_per_split,
+                cudaStream_t st) {
+  if (!split_ok(wfmt, B, K, o, resid, ws, splits, kb_per_split))
+    return (int)cudaErrorInvalidValue;
+  return wfmt == kInt8
+             ? split_wgmma_fmt<kK6Int8>(act, B, K, w, o, resid, ws, splits, kb_per_split, st)
+             : split_wgmma_fmt<kK6Bf16>(act, B, K, w, o, resid, ws, splits, kb_per_split, st);
+}
+
+// K1's gate/up launch with the SwiGLU epilogue into a [B, I] (128
+// intermediate rows a block, token tiles of 64 in grid.y) for one weight
+// format
+template <int FMT>
+int gate_up_wgmma(const void* h, void* a, int B, int H, int I, const void* wg, const void* sg,
+                  const void* wu, const void* su, cudaStream_t st) {
+  using GU = K6Cfg<FMT, 2, 64>;
+  const bool dense = FMT == kK6Bf16;
+  const CUtensorMapDataType wt = dense ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  int err = qmm_wgmma_smem<FMT, 2, 64, kEpiSwiGLU>();
+  K6Params gu = {};
+  if (err == 0)
+    err = encode_2d(&gu.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, H, B, 2LL * H, 64, 64);
+  if (err == 0) err = encode_2d(&gu.w, wt, wg, H, I, (dense ? 2LL : 1LL) * H, GU::WCOL, 64);
+  if (err == 0) err = encode_2d(&gu.w2, wt, wu, H, I, (dense ? 2LL : 1LL) * H, GU::WCOL, 64);
+  if (err != 0) return err;
+  gu.s = (const float*)sg;
+  gu.s2 = (const float*)su;
+  gu.y = (bf16*)a;
+  gu.M = B; gu.N = I; gu.K = H; gu.kb_per_split = (H + GU::BK - 1) / GU::BK;
+  qmm_wgmma_kernel<FMT, 2, 64, kEpiSwiGLU>
+      <<<dim3((I + 127) / 128, (B + 63) / 64, 1), kK6Threads, GU::SMEM, st>>>(gu);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1 on tensor cores: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T), y = x + a
-// Wd^T for bf16 x [B, H] (any B; the wrapper's rule sends 9 and more rows)
-// and int8 weights with per-row fp32 scales, in four launches on the
-// stream: the row norm (rms_norm_kernel, 1024 threads a row) into h [B, H];
-// gate/up, qmm_wgmma_kernel<int8, 2, 64, kEpiSwiGLU> (128 intermediate rows
-// a block, token tiles of 64 in grid.y) into a [B, I]; down, split_wgmma
-// over W_down (K3's launch with a as the activations and x as the residual)
-// split over I into `splits` ranges of `kb_per_split` stages in ws [splits,
-// B, H], and its reduction into y [B, H]. H and I are multiples of 16 and at
-// least 256 (the rows TMA reads: quant_matmul.k6_wgmma_strides). h, a and ws
-// are the caller's scratch. Returns the first launch error (or a tensor-map
-// error code), or 0.
-int slime_mlp_wgmma(const void* x, const void* norm_w, float eps, void* h, void* a, void* ws,
-                    void* y, int B, int H, int I, const void* wg, const void* sg,
+// Wd^T for bf16 x [B, H] (any B; the wrapper's rule sends 9 and more rows
+// on int8 weights, DENSE_WGMMA_MIN_ROWS and more on dense ones) and int8
+// weights with per-row fp32 scales (wfmt kInt8) or dense bf16 weights
+// without (kDense, scales null), in four launches on the stream: the row
+// norm (rms_norm_kernel, 1024 threads a row) into h [B, H]; gate/up, qmm_wgmma_kernel<int8 or bf16, 2,
+// 64, kEpiSwiGLU> (128 intermediate rows a block, token tiles of 64 in
+// grid.y) into a [B, I]; down, split_wgmma over W_down (K3's launch with a
+// as the activations and x as the residual) split over I into `splits`
+// ranges of `kb_per_split` stages in ws [splits, B, H], and its reduction
+// into y [B, H]. H and I as TMA reads the rows (int8: multiples of 16,
+// dense: of 8; at least 256: quant_matmul.k6_wgmma_strides and
+// fused_mlp.wgmma_instance). h, a and ws are the caller's scratch. Returns
+// the first launch error (or a tensor-map error code), or 0.
+int slime_mlp_wgmma(int wfmt, const void* x, const void* norm_w, float eps, void* h, void* a,
+                    void* ws, void* y, int B, int H, int I, const void* wg, const void* sg,
                     const void* wu, const void* su, const void* wd, const void* sd,
                     int splits, int kb_per_split, void* stream) {
-  using GU = K6Cfg<kK6Int8, 2, 64>;
   const SplitOut dn = {{(const float*)sd}, {(bf16*)y}, {H}, 1};
-  if (H < 256 || H % 16 || !split_ok(B, I, dn, x, ws, splits, kb_per_split))
+  const bool dense = wfmt == kDense;
+  if (H < 256 || H % (dense ? 8 : 16) ||
+      !split_ok(wfmt, B, I, dn, x, ws, splits, kb_per_split) ||
+      (dense ? (sg != nullptr || su != nullptr || sd != nullptr)
+             : (sg == nullptr || su == nullptr || sd == nullptr)))
     return (int)cudaErrorInvalidValue;
-  int err = qmm_wgmma_smem<kK6Int8, 2, 64, kEpiSwiGLU>();
-  K6Params gu = {};
-  if (err == 0)
-    err = encode_2d(&gu.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, H, B, 2LL * H, 64, 64);
-  if (err == 0)
-    err = encode_2d(&gu.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wg, H, I, H, 128, 64);
-  if (err == 0)
-    err = encode_2d(&gu.w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, wu, H, I, H, 128, 64);
-  if (err != 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
                                                   (bf16*)h, H, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  gu.s = (const float*)sg;
-  gu.s2 = (const float*)su;
-  gu.y = (bf16*)a;
-  gu.M = B; gu.N = I; gu.K = H; gu.kb_per_split = (H + GU::BK - 1) / GU::BK;
-  qmm_wgmma_kernel<kK6Int8, 2, 64, kEpiSwiGLU>
-      <<<dim3((I + 127) / 128, (B + 63) / 64, 1), kK6Threads, GU::SMEM, st>>>(gu);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return split_wgmma(a, B, I, &wd, dn, x, ws, splits, kb_per_split, st);
+  const int err = dense ? gate_up_wgmma<kK6Bf16>(h, a, B, H, I, wg, sg, wu, su, st)
+                        : gate_up_wgmma<kK6Int8>(h, a, B, H, I, wg, sg, wu, su, st);
+  if (err != 0) return err;
+  return split_wgmma(wfmt, a, B, I, &wd, dn, x, ws, splits, kb_per_split, st);
 }
 
 // K3 on tensor cores: y [B, H] = x + attn W_o^T (scaled) for bf16 attn [B,
@@ -1443,35 +1486,43 @@ int slime_mlp_wgmma(const void* x, const void* norm_w, float eps, void* h, void*
 int slime_o_wgmma(const void* attn, const void* x, void* ws, void* y, int B, int NQ, int H,
                   const void* wo, const void* so, int splits, int kb_per_split, void* stream) {
   const SplitOut o = {{(const float*)so}, {(bf16*)y}, {H}, 1};
-  return split_wgmma(attn, B, NQ, &wo, o, x, ws, splits, kb_per_split, (cudaStream_t)stream);
+  if (so == nullptr) return (int)cudaErrorInvalidValue;
+  return split_wgmma(kInt8, attn, B, NQ, &wo, o, x, ws, splits, kb_per_split,
+                     (cudaStream_t)stream);
 }
 
 // K2 on tensor cores: h = rms_norm(x) * norm_w, then q [B, NQ], k and v [B,
-// NKV] = h W^T (scaled) for bf16 x [B, H] (any B; the wrapper's rule sends 9
-// and more rows) and int8 W_q [NQ, H], W_k and W_v [NKV, H] with fp32 scales:
-// the row norm (1024 threads a row) into h [B, H], then one split_wgmma
-// over the row space [W_q; W_k; W_v] (NQ and NQ + NKV on 128-row block
-// boundaries), split over H into `splits` ranges of `kb_per_split` stages in
-// ws [splits, B, NQ + 2 NKV], whose reduction writes q, k and v apart. H a
-// multiple of 16 and at least 256. h and ws are the caller's scratch.
-// Returns the first launch error (or a tensor-map error code), or 0.
-int slime_qkv_wgmma(const void* x, const void* norm_w, float eps, void* h, void* ws, int B,
-                    int H, int NQ, int NKV, const void* wq, const void* sq, const void* wk,
-                    const void* sk, const void* wv, const void* sv, void* q, void* k, void* v,
-                    int splits, int kb_per_split, void* stream) {
+// NKV] = h W^T for bf16 x [B, H] (any B; the wrapper's rule sends 9 and
+// more rows on int8 weights, DENSE_WGMMA_MIN_ROWS and more on dense ones)
+// and int8 W_q [NQ, H], W_k and W_v [NKV, H] with fp32 scales (wfmt kInt8)
+// or dense bf16 ones without (kDense, scales null): the row norm (1024
+// threads a row) into h [B, H], then one split_wgmma over the row space
+// [W_q; W_k; W_v] (NQ and NQ + NKV on 128-row block boundaries), split over
+// H into `splits` ranges of `kb_per_split` stages in ws [splits, B, NQ + 2
+// NKV], whose reduction writes q, k and v apart. H as TMA reads the rows
+// (int8: a multiple of 16, dense: of 8; at least 256). h and ws are the
+// caller's scratch. Returns the first launch error (or a tensor-map error
+// code), or 0.
+int slime_qkv_wgmma(int wfmt, const void* x, const void* norm_w, float eps, void* h, void* ws,
+                    int B, int H, int NQ, int NKV, const void* wq, const void* sq,
+                    const void* wk, const void* sk, const void* wv, const void* sv, void* q,
+                    void* k, void* v, int splits, int kb_per_split, void* stream) {
   const SplitOut o = {{(const float*)sq, (const float*)sk, (const float*)sv},
                       {(bf16*)q, (bf16*)k, (bf16*)v},
                       {NQ, NQ + NKV, NQ + 2 * NKV},
                       3};
   const void* w[3] = {wq, wk, wv};
-  if (norm_w == nullptr || !split_ok(B, H, o, nullptr, ws, splits, kb_per_split))
+  const bool dense = wfmt == kDense;
+  if (norm_w == nullptr || !split_ok(wfmt, B, H, o, nullptr, ws, splits, kb_per_split)
+      || (dense ? (sq != nullptr || sk != nullptr || sv != nullptr)
+                : (sq == nullptr || sk == nullptr || sv == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
                                                   (bf16*)h, H, eps);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return split_wgmma(h, B, H, w, o, nullptr, ws, splits, kb_per_split, st);
+  return split_wgmma(wfmt, h, B, H, w, o, nullptr, ws, splits, kb_per_split, st);
 }
 
 // K2 through the weight ring: q [B, NQ], k and v [B, NKV] = h W^T (scaled)

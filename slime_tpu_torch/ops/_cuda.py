@@ -38,9 +38,9 @@ _SIGNATURES = {
     "slime_mlp_ring": [_I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I] + [_P] * 8,
     "slime_qkv_ring": [_I, _I, _P, _P, _F, _I, _I, _I, _I] + [_P] * 11,
     "slime_o_ring": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "slime_mlp_wgmma": [_P, _P, _F, _P, _P, _P, _P, _I, _I, _I] + [_P] * 6 + [_I, _I, _P],
+    "slime_mlp_wgmma": [_I, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I] + [_P] * 6 + [_I, _I, _P],
     "slime_o_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
-    "slime_qkv_wgmma": [_P, _P, _F, _P, _P, _I, _I, _I, _I] + [_P] * 9 + [_I, _I, _P],
+    "slime_qkv_wgmma": [_I, _P, _P, _F, _P, _P, _I, _I, _I, _I] + [_P] * 9 + [_I, _I, _P],
     "slime_quant_ring": [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _I, _I, _P],

@@ -20,21 +20,26 @@ dtype) picks one of three instances:
   that streams bands of whole weight rows into shared memory by 1-D bulk
   copies, with the launch plans of ``ring_plan``;
 - "wgmma": bf16 activations with int8 weights at B >= K1_WGMMA_MIN_ROWS (9:
-  the engine's fused chunks, the speculative verify chunk) where TMA reads
-  the rows (H and I as ``quant_matmul.k6_wgmma_strides`` asks): the row
-  norm, then K6's int8 wgmma main loop over [W_gate; W_up] with a SwiGLU
-  epilogue into ``a``, then over W_down split over I into an fp32
-  workspace (``fused_qkvo.wgmma_plan``) that a reduction sums, scales and
-  adds x to: K3's tensor-core launch with ``a`` as its activations;
-- "rows": every other input (fp32 activations, q4g and dense bf16 at B > 8,
-  dense at 5-8, a layer too wide for the ring or whose rows TMA cannot
-  read) takes the row-per-warp kernels.
+  the engine's fused chunks, the speculative verify chunk), or dense bf16
+  weights at B >= DENSE_WGMMA_MIN_ROWS (a bf16 checkpoint's chunks and
+  decode steps above the ring's rows), where TMA reads the rows
+  (``fused_qkvo.wgmma_strides``): the row norm, then K6's wgmma main loop
+  over [W_gate; W_up] with a SwiGLU epilogue into ``a``, then over W_down
+  split over I into an fp32 workspace (``fused_qkvo.wgmma_plan``) that a
+  reduction sums, scales and adds x to: K3's tensor-core launch with ``a``
+  as its activations. int8 weights become bf16 A fragments in registers;
+  dense ones are the A operand straight from shared memory, 64 columns a
+  stage, with no scales;
+- "rows": every other input (fp32 activations, q4g at B > 8, a layer too
+  wide for the ring or whose rows TMA cannot read) takes the row-per-warp
+  kernels.
 
 Launch counts: ``.ring_launches`` counts the calls that took the ring
 (``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` those
-on dense bf16 weights), ``.wgmma_launches`` those on tensor cores, beside
-the counts every call adds (``fused_qkvo.count``: ``.dense_launches`` the
-bf16 calls on dense bf16 weights among them, on the ring or row per warp).
+on dense bf16 weights), ``.wgmma_launches`` those on tensor cores
+(``.dense_wgmma_launches`` those on dense bf16 weights), beside the counts
+every call adds (``fused_qkvo.count``: ``.dense_launches`` the bf16 calls
+on dense bf16 weights among them, on any instance).
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
@@ -60,10 +65,10 @@ import torch
 from ..models.layers import silu
 from . import _cuda
 from . import weight_ring as wr
-from .fused_qkvo import (DENSE, INT8, K1_WGMMA_MIN_ROWS, Q4G, _at, act_f32, check_operands,
-                         count, count_route, kernel_fmt, layer_mats, norm_weight, proj_ref,
-                         rms_h, rms_norm_launch, split_weight, wgmma_plan)
-from .quant_matmul import k6_wgmma_strides
+from .fused_qkvo import (DENSE, DENSE_WGMMA_MIN_ROWS, K1_WGMMA_MIN_ROWS, Q4G, _at, act_f32,
+                         check_operands, count, count_route, kernel_fmt, layer_mats,
+                         norm_weight, proj_ref, rms_h, rms_norm_launch, split_weight,
+                         wgmma_plan, wgmma_strides)
 from .quantization import int_values
 from .weight_ring import ring_instance
 
@@ -123,21 +128,23 @@ def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
 
 
 def wgmma_instance(dtype, fmt: int, H: int, I: int) -> bool:
-    """Whether the tensor-core instance takes the operands: bf16 x, int8
-    weights, rows TMA reads (H and I as K6's wgmma instance asks: multiples
-    of 16, at least 256)."""
-    return (dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(H, INT8)
-            and k6_wgmma_strides(I, INT8))
+    """Whether the tensor-core instance takes the operands: bf16 x, int8 or
+    dense bf16 weights whose rows TMA reads (H and I as
+    ``fused_qkvo.wgmma_strides`` asks: int8 multiples of 16, dense of 8, at
+    least 256)."""
+    return dtype == torch.bfloat16 and wgmma_strides(H, fmt) and wgmma_strides(I, fmt)
 
 
 def k1_route(B: int, dtype, fmt: int, H: int, I: int, sms: int) -> str:
     """The routing rule of ``fused_mlp_decode``: "ring" where ``ring_route``
     has plans, "wgmma" where ``wgmma_instance`` holds at B >=
-    K1_WGMMA_MIN_ROWS, "rows" (the row-per-warp kernels) for everything
-    else. A pure function, so CPU tests can pin it."""
+    K1_WGMMA_MIN_ROWS (int8) or DENSE_WGMMA_MIN_ROWS (dense), "rows" (the
+    row-per-warp kernels) for everything else. A pure function, so CPU
+    tests can pin it."""
     if ring_route(B, dtype, fmt, H, I, sms) is not None:
         return "ring"
-    if B >= K1_WGMMA_MIN_ROWS and wgmma_instance(dtype, fmt, H, I):
+    least = DENSE_WGMMA_MIN_ROWS if fmt == DENSE else K1_WGMMA_MIN_ROWS
+    if B >= least and wgmma_instance(dtype, fmt, H, I):
         return "wgmma"
     return "rows"
 
@@ -235,8 +242,8 @@ def mlp_launch(x, layers, layer_idx, eps, route=None):
     if route == "ring" and plans is None:
         route = "rows"
     if route == "wgmma" and not wgmma_instance(x.dtype, fmt, H, I):
-        raise ValueError(f"K1's wgmma instance takes bf16 x with int8 weights whose rows "
-                         f"TMA reads, got {x.dtype} format {fmt}, H {H}, I {I}")
+        raise ValueError(f"K1's wgmma instance takes bf16 x with int8 or dense bf16 weights "
+                         f"whose rows TMA reads, got {x.dtype} format {fmt}, H {H}, I {I}")
     if route == "ring":
         nw = norm_weight(x, norm_w)
         *_, plan = plans
@@ -247,11 +254,11 @@ def mlp_launch(x, layers, layer_idx, eps, route=None):
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
     elif route == "wgmma":
         nw = norm_weight(x, norm_w)
-        splits, per_split = wgmma_plan(B, H, I, sms)
+        splits, per_split = wgmma_plan(B, H, I, sms, fmt=fmt)
         h = torch.empty_like(x)
         ws = torch.empty((splits, B, H), dtype=torch.float32, device=x.device)
         _cuda.check(lib.slime_mlp_wgmma(
-            x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(), ws.data_ptr(),
+            fmt, x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(), ws.data_ptr(),
             y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd), splits,
             per_split, _cuda.stream()), "fused_mlp_decode (wgmma)")
     else:
@@ -270,4 +277,4 @@ fused_mlp_decode.launches = fused_mlp_decode.q4g_launches = 0
 fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0
 fused_mlp_decode.ring_launches = fused_mlp_decode.q4g_ring_launches = 0
 fused_mlp_decode.dense_launches = fused_mlp_decode.dense_ring_launches = 0
-fused_mlp_decode.wgmma_launches = 0
+fused_mlp_decode.wgmma_launches = fused_mlp_decode.dense_wgmma_launches = 0

@@ -24,7 +24,19 @@ scales transposed, ``[L, in/128, out]`` (a Mosaic tiling device); that
 layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
 
-bf16 activations with int8, q4g or dense bf16 weights at B <= 8
+bf16 activations with int8 weights at B >= K1_WGMMA_MIN_ROWS (9: the
+engine's fused chunks, the speculative verify chunk), and K2's with dense
+bf16 weights at B >= DENSE_WGMMA_MIN_ROWS (5: a bf16 checkpoint's chunks,
+its verify chunk and its decode steps past 4 rows), take the tensor-core
+instance where TMA reads the rows (``qkv_wgmma_instance``,
+``o_wgmma_instance``): K1's down launch (``slime_o_wgmma``: K6's int8
+wgmma main loop split over the contraction into an fp32 workspace, then a
+reduction that adds the splits in order, scales and adds x), for K2 after
+the row norm over the row space [W_q; W_k; W_v] (``slime_qkv_wgmma``: NQ
+and NQ + NKV on 128-row blocks, one tensor map a matrix; the reduction
+writes q, k and v apart; dense weights are the main loop's A operand from
+shared memory, 64 columns a stage, no scales). Short of those rows, bf16
+activations with int8, q4g or dense bf16 weights at B <= 8
 (``ring_instance``: the decode steps of the int8 and 4-bit serving paths
 and of a bf16 checkpoint; dense K3 at B <= DENSE_O_RING_ROWS, 4) take the
 weight ring (``weight_ring_kernel``, ``ops/weight_ring.py``) where a launch
@@ -32,19 +44,11 @@ plan exists (``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch
 over the row space of W_q, W_k and W_v whose blocks each normalise x as
 they stage it (no row-norm launch), K3 as one ring launch; each a
 programmatic dependent of the caller's last kernel. Every other input, fp32
-activations, B > 8 and a layer too wide for the ring's shared memory
-included, takes the row-per-warp kernels, but for one: bf16 activations
-with int8 weights at B >= K1_WGMMA_MIN_ROWS (9: the engine's fused chunks,
-the speculative verify chunk) take the tensor-core instance where TMA
-reads the rows (``qkv_wgmma_instance``, ``o_wgmma_instance``): K1's down
-launch (``slime_o_wgmma``: K6's int8 wgmma main loop split over the
-contraction into an fp32 workspace, then a reduction that adds the splits
-in order, scales and adds x), for K2 after the row norm over the row space
-[W_q; W_k; W_v] (``slime_qkv_wgmma``: NQ and NQ + NKV on 128-row blocks,
-one tensor map a matrix; the reduction writes q, k and v apart). The
-routing rules ``k2_route`` and ``k3_route`` name the instance: "ring",
-"wgmma" or "rows". Sums on every instance are fp32 over the exact products
-(bf16 x bf16, int8 or int4), in other orders than the plain version's; the
+activations, dense K3 past 4 rows and a layer too wide for the ring's
+shared memory included, takes the row-per-warp kernels. The routing rules
+``k2_route`` and ``k3_route`` name the instance: "ring", "wgmma" or
+"rows". Sums on every instance are fp32 over the exact products (bf16 x
+bf16, int8 or int4), in other orders than the plain version's; the
 per-row scale multiplies the fp32 sum; q, k, v and y round to bf16 once.
 
 Launch counts (one per wrapper call that launches, nowhere else):
@@ -53,9 +57,11 @@ Launch counts (one per wrapper call that launches, nowhere else):
 ``.ring_launches`` the calls that took the weight ring,
 ``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches``
 those on dense bf16 weights; ``.wgmma_launches`` those on the tensor-core
-instance; ``.dense_launches`` the calls with bf16 activations on
-dense bf16 weights (the bf16 checkpoints of the eval path), on the ring or
-row per warp (``chip_smoke.launch_counts`` takes these subsets apart).
+instance, ``.dense_wgmma_launches`` those on dense bf16 weights among
+them; ``.dense_launches`` the calls with bf16 activations on
+dense bf16 weights (the bf16 checkpoints of the eval path and the
+engine), on any instance (``chip_smoke.launch_counts`` takes these subsets
+apart).
 """
 from __future__ import annotations
 
@@ -81,8 +87,17 @@ DENSE_O_RING_ROWS = 4
 # row-per-warp kernels at every B from 9 to 128 (PERF.md, K1 wgmma), and
 # K2's and K3's run the same main loop
 K1_WGMMA_MIN_ROWS = 9
+# dense bf16 weights in bf16 take the tensor-core instances of K1 and K2
+# from this many rows (the ring below): on an H100 at SliME-8B's width K1's
+# beat the row-per-warp kernels at 5, 6 and 8 rows (0.1486, 0.1483, 0.1482
+# ms against 0.2224, 0.2342, 0.2672; its ring takes 1-4), where one pass
+# over the weights costs the same at any tile fill, and K2's beat the ring
+# there (0.0389, 0.0392, 0.0388 against 0.0429, 0.0460, 0.0520) and lost
+# at 4 (0.0390 against 0.0339; PERF.md, K1 and K2 dense wgmma). Measured at
+# that width only
+DENSE_WGMMA_MIN_ROWS = 5
 WGMMA_TOK = 64          # tokens a tile of the tensor-core instances (wgmma n64)
-_WG_ROWS, _WG_BK = 128, 128     # rows of the row space a block; int8 columns a stage
+_WG_ROWS = 128          # rows of the row space a block
 
 
 def split_weight(p):
@@ -109,6 +124,35 @@ def rms_h(x, norm_w, eps):
     xf = x.to(torch.float32)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * norm_w.to(torch.float32)).to(x.dtype)
+
+
+# the relative distance from a bf16 rounding midpoint within which a
+# kernel's row norm may round h = bf16(x r w) the other way than the plain
+# version: four times the largest relative difference (about 2^-19) of two
+# fp32 scales r whose sums of 4096 squares are taken in other tree orders,
+# their own roundings included
+NORM_FLIP_RTOL = 2.0 ** -17
+
+
+def norm_flips(h, x, norm_w, eps):
+    """(elements where h, a kernel's row-norm output [B, H] in bf16, differs
+    from the plain version's ``rms_h``; those among them that are more than
+    one bf16 ulp away, or whose fp32 value lies farther than NORM_FLIP_RTOL
+    (relative) from a bf16 rounding midpoint). The kernels take the fp32 sum
+    of squares in another order, so where x r w lies that close to a
+    midpoint h may round the other way, and with it every element of the row
+    that holds the same bf16 x: the second count, which must be 0, tells
+    such flips from a wrong norm."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    hf = xf * torch.rsqrt(var + eps) * norm_w.to(torch.float32)
+    want = hf.to(h.dtype).to(torch.float32)
+    mag = hf.abs()
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+    near = (ulp / 2 - (hf - want).abs()) <= NORM_FLIP_RTOL * mag
+    diff = h.to(torch.float32) != want
+    bad = diff & (((h.to(torch.float32) - want).abs() > ulp) | ~near)
+    return int(diff.sum()), int(bad.sum())
 
 
 def proj_ref(h, w, s, fmt):
@@ -138,11 +182,17 @@ def _at(s, layer_idx):
 
 def fused_qkv_decode_ref(x, layers, layer_idx, *, eps: float = 1e-5):
     """Plain version of ``fused_qkv_decode`` (fused_qkvo.py:64-97)."""
-    h = rms_h(x, layers["input_layernorm"]["weight"][layer_idx], eps)
+    return qkv_proj_ref(rms_h(x, layers["input_layernorm"]["weight"][layer_idx], eps),
+                        layers, layer_idx)
+
+
+def qkv_proj_ref(h, layers, layer_idx):
+    """(q, k, v) in h.dtype: the plain version's projections of a given row
+    norm h [B, H] (``fused_qkv_decode_ref`` after its ``rms_h``)."""
     outs = []
     for name in ("q_proj", "k_proj", "v_proj"):
         w, s, fmt = split_weight(layers[name])
-        outs.append(proj_ref(h, w[layer_idx], _at(s, layer_idx), fmt).to(x.dtype))
+        outs.append(proj_ref(h, w[layer_idx], _at(s, layer_idx), fmt).to(h.dtype))
     return tuple(outs)
 
 
@@ -266,16 +316,33 @@ def o_ring_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int):
     return wr.projection_plan(B, NQ, H, fmt, sms)
 
 
-def wgmma_plan(B: int, N: int, K: int, sms: int, splits=None):
+def wgmma_stage_cols(fmt: int) -> int:
+    """Columns of K a stage of the tensor-core instances holds: 128 bytes
+    of a weight row, 128 int8 or 64 dense bf16 columns."""
+    return 64 if fmt == DENSE else 128
+
+
+def wgmma_strides(K: int, fmt: int) -> bool:
+    """Whether TMA reads the tensor-core instances' weight rows of K
+    columns: int8 as ``quant_matmul.k6_wgmma_strides`` asks (multiples of
+    16), dense bf16 rows of 2K bytes a multiple of 16 (K a multiple of 8);
+    at least 256 columns either way."""
+    if fmt == DENSE:
+        return K >= 256 and K % 8 == 0
+    return fmt == INT8 and k6_wgmma_strides(K, INT8)
+
+
+def wgmma_plan(B: int, N: int, K: int, sms: int, splits=None, fmt: int = INT8):
     """(splits, stages per split) of the tensor-core instances' split
     launch (K1's down, K2, K3): blocks of 128 rows of the row space [0, N)
-    for each 64-token tile, split over K's 128-column stages into as many
-    ranges as one wave of blocks (one an SM) holds, or into about ``splits``
-    where given; none empty. At SliME-8B's width on 132 SMs up to 64 rows:
-    K1's down (N 4096, K 14336) 4 splits of 28 stages, K2 (N 6144, K 4096)
-    2 of 16, K3 (N 4096, K 4096) 4 of 8."""
+    for each 64-token tile, split over K's stages (``wgmma_stage_cols(fmt)``
+    columns) into as many ranges as one wave of blocks (one an SM) holds, or
+    into about ``splits`` where given; none empty. At SliME-8B's width on
+    132 SMs up to 64 rows, int8: K1's down (N 4096, K 14336) 4 splits of 28
+    stages, K2 (N 6144, K 4096) 2 of 16, K3 (N 4096, K 4096) 4 of 8; dense:
+    K1's down 4 of 56, K2 2 of 32."""
     blocks = -(-N // _WG_ROWS) * -(-B // WGMMA_TOK)
-    n_kb = -(-K // _WG_BK)
+    n_kb = -(-K // wgmma_stage_cols(fmt))
     want = max(1, min(n_kb, sms // blocks if splits is None else splits))
     per = -(-n_kb // want)
     return -(-n_kb // per), per
@@ -283,10 +350,10 @@ def wgmma_plan(B: int, N: int, K: int, sms: int, splits=None):
 
 def qkv_wgmma_instance(dtype, fmt: int, H: int, NQ: int, NKV: int) -> bool:
     """Whether K2's tensor-core instance takes the operands: bf16 x, int8
-    weights, rows TMA reads (H as ``quant_matmul.k6_wgmma_strides`` asks)
-    and NQ and NQ + NKV on 128-row block boundaries (a block's rows lie in
-    one matrix)."""
-    return (dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(H, INT8)
+    or dense bf16 weights whose rows TMA reads (``wgmma_strides``) and NQ
+    and NQ + NKV on 128-row block boundaries (a block's rows lie in one
+    matrix)."""
+    return (dtype == torch.bfloat16 and wgmma_strides(H, fmt)
             and NQ % _WG_ROWS == 0 and (NQ + NKV) % _WG_ROWS == 0)
 
 
@@ -297,14 +364,16 @@ def o_wgmma_instance(dtype, fmt: int, NQ: int) -> bool:
 
 
 def k2_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int) -> str:
-    """The routing rule of ``fused_qkv_decode``: "ring" where
-    ``qkv_ring_route`` has a plan, "wgmma" where ``qkv_wgmma_instance``
-    holds at B >= K1_WGMMA_MIN_ROWS, "rows" (the row-per-warp kernels) for
-    everything else. A pure function, so CPU tests can pin it."""
+    """The routing rule of ``fused_qkv_decode``: "wgmma" where
+    ``qkv_wgmma_instance`` holds at B >= K1_WGMMA_MIN_ROWS (int8) or
+    DENSE_WGMMA_MIN_ROWS (dense), else "ring" where ``qkv_ring_route`` has a
+    plan, "rows" (the row-per-warp kernels) for everything else. A pure
+    function, so CPU tests can pin it."""
+    least = DENSE_WGMMA_MIN_ROWS if fmt == DENSE else K1_WGMMA_MIN_ROWS
+    if B >= least and qkv_wgmma_instance(dtype, fmt, H, NQ, NKV):
+        return "wgmma"
     if qkv_ring_route(B, dtype, fmt, H, NQ, NKV, sms) is not None:
         return "ring"
-    if B >= K1_WGMMA_MIN_ROWS and qkv_wgmma_instance(dtype, fmt, H, NQ, NKV):
-        return "wgmma"
     return "rows"
 
 
@@ -325,6 +394,7 @@ def count_route(fn, fmt, route: str) -> None:
     if route == "ring":
         count_ring(fn, fmt)
     fn.wgmma_launches += route == "wgmma"
+    fn.dense_wgmma_launches += route == "wgmma" and fmt == DENSE
 
 
 def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
@@ -334,7 +404,7 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     version; CUDA tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return fused_qkv_decode_ref(x, layers, layer_idx, eps=eps)
-    q, k, v, fmt, route = qkv_launch(x, layers, layer_idx, eps)
+    q, k, v, fmt, route, _ = qkv_launch(x, layers, layer_idx, eps)
     count_route(fused_qkv_decode, fmt, route)
     count(fused_qkv_decode, x, fmt)
     return q, k, v
@@ -342,8 +412,10 @@ def fused_qkv_decode(x, layers, layer_idx, *, eps: float = 1e-5):
 
 def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
     """K2's launches on CUDA x -> (q, k, v, weight format, the instance that
-    ran: "ring", "wgmma" or "rows"): with ``route`` None the routing rule's
-    choice (``k2_route``); "rows" the row-per-warp kernels; "ring" the ring
+    ran: "ring", "wgmma" or "rows", the row norm h [B, H] where the instance
+    writes it to memory ("wgmma", "rows"; the ring's blocks keep theirs in
+    shared memory: None)): with ``route`` None the routing rule's choice
+    (``k2_route``); "rows" the row-per-warp kernels; "ring" the ring
     wherever it has a plan (the row-per-warp kernels elsewhere); "wgmma" the
     tensor-core instance wherever ``qkv_wgmma_instance`` holds (the rule's
     row limit aside), else a ValueError; ``splits`` overrides its split
@@ -366,6 +438,7 @@ def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
     k = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     v = torch.empty((B, NKV), dtype=x.dtype, device=x.device)
     p = _cuda.ptr
+    h = None
     sms = wr.sm_count(x.device)
     if route is None:
         route = k2_route(B, x.dtype, fmt, H, NQ, NKV, sms)
@@ -373,9 +446,9 @@ def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
     if route == "ring" and plan is None:
         route = "rows"
     if route == "wgmma" and not qkv_wgmma_instance(x.dtype, fmt, H, NQ, NKV):
-        raise ValueError(f"K2's wgmma instance takes bf16 x with int8 weights whose rows TMA "
-                         f"reads and NQ, NQ + NKV on 128-row blocks, got {x.dtype} format "
-                         f"{fmt}, H {H}, NQ {NQ}, NKV {NKV}")
+        raise ValueError(f"K2's wgmma instance takes bf16 x with int8 or dense bf16 weights "
+                         f"whose rows TMA reads and NQ, NQ + NKV on 128-row blocks, got "
+                         f"{x.dtype} format {fmt}, H {H}, NQ {NQ}, NKV {NKV}")
     if route == "ring":
         nw = norm_weight(x, norm_w)
         _cuda.check(lib.slime_qkv_ring(
@@ -384,11 +457,11 @@ def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
             ctypes.addressof(plan[1]), _cuda.stream()), "fused_qkv_decode (weight ring)")
     elif route == "wgmma":
         nw = norm_weight(x, norm_w)
-        n_split, per = wgmma_plan(B, NQ + 2 * NKV, H, sms, splits)
+        n_split, per = wgmma_plan(B, NQ + 2 * NKV, H, sms, splits, fmt)
         h = torch.empty_like(x)
         ws = torch.empty((n_split, B, NQ + 2 * NKV), dtype=torch.float32, device=x.device)
         _cuda.check(lib.slime_qkv_wgmma(
-            x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), ws.data_ptr(), B, H, NQ, NKV,
+            fmt, x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), ws.data_ptr(), B, H, NQ, NKV,
             p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), n_split, per, _cuda.stream()), "fused_qkv_decode (wgmma)")
     else:
@@ -397,7 +470,7 @@ def qkv_launch(x, layers, layer_idx, eps, route=None, splits=None):
             act_f32(x), kernel_fmt(wq, fmt), h.data_ptr(), B, H, p(wq), p(sq), NQ, p(wk),
             p(sk), p(wv), p(sv), NKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _cuda.stream()), "fused_qkv_decode")
-    return q, k, v, fmt, route
+    return q, k, v, fmt, route, h
 
 
 def fused_o_residual(attn, x, layers, layer_idx):
@@ -464,4 +537,4 @@ def o_launch(attn, x, layers, layer_idx, route=None, splits=None):
 for _fn in (fused_qkv_decode, fused_o_residual):
     _fn.launches = _fn.q4g_launches = _fn.f32_launches = _fn.f32_q4g_launches = 0
     _fn.ring_launches = _fn.q4g_ring_launches = _fn.dense_launches = 0
-    _fn.dense_ring_launches = _fn.wgmma_launches = 0
+    _fn.dense_ring_launches = _fn.wgmma_launches = _fn.dense_wgmma_launches = 0

@@ -9,12 +9,15 @@ inputs reach it and how it is launched is plain Python, held here: the
 routing rule of K1, K2 and K3 for every (B, dtype, weight format) that
 ``chip_smoke.py``'s phase 1 sends them, and at layers too wide for the
 ring's shared memory (they take the row-per-warp kernels instead of
-raising), dense bf16 weights included (K1 at <= 4 rows, K2 and K3 on the
-ring); K1's choice among the ring, its tensor-core instance (bf16 x, int8
-weights, 9 and more rows, rows TMA reads) and the row-per-warp kernels, and
-the split over I of that instance's down projection (every stage once, one
-wave of blocks); K2's and K3's same choice (K2 also needs NQ and NQ + NKV
-on 128-row blocks) and their splits over H and NQ; the launch plans at
+raising), dense bf16 weights included (K1-K3 at <= 4 rows on the ring,
+K1 and K2 from 5 on tensor cores); K1's choice among the ring, its
+tensor-core instance (bf16 x, int8 weights from 9 rows or dense bf16 ones
+from DENSE_WGMMA_MIN_ROWS, rows TMA reads) and the row-per-warp kernels,
+and the split over I of that instance's down projection (every stage
+once, one wave of blocks; 128 int8 or 64 dense columns a stage); K2's and
+K3's same choice (K2 also needs NQ and NQ + NKV on 128-row blocks; dense
+K3 has no tensor-core instance) and their splits over H and NQ; the
+launch plans at
 SliME-8B's width, the 0.6B draft's and small widths whose row counts are
 ragged against the blocks and the stages (every output row in exactly one
 band and one bulk copy, landing where the consumer warps
@@ -256,8 +259,9 @@ def test_dense_o_ring_row_limit():
 
 
 # K1's rows at SliME-8B's width: the ring's 1-8, one past it, the verify
-# chunk's 20, the fused chunk's 64, and one and two token tiles past it
-K1_ROUTE_ROWS = tuple(range(1, 9)) + (9, 20, 64, 65, 128)
+# chunks' 20 and 40 (4 and 8 slots), the fused chunk's 64, and one and two
+# token tiles past it
+K1_ROUTE_ROWS = tuple(range(1, 9)) + (9, 20, 40, 64, 65, 128)
 
 
 @pytest.mark.parametrize("fmt", [INT8, Q4G, DENSE, wr.DENSE_F32],
@@ -266,14 +270,15 @@ K1_ROUTE_ROWS = tuple(range(1, 9)) + (9, 20, 64, 65, 128)
 def test_k1_route_rule(fmt, B):
     """bf16 x: int8 weights take the ring at 1-8 rows and the tensor-core
     instance from 9, q4g the ring at 1-8 and the row-per-warp kernels from
-    9, dense bf16 the ring at 1-4 and row per warp from 5; fp32 x (dense
-    fp32 weights among them) always row per warp."""
+    9, dense bf16 the ring at 1-4 and the tensor-core instance from 5; fp32
+    x (dense fp32 weights among them) always row per warp."""
     bf, f32 = torch.bfloat16, torch.float32
     want = {INT8: "ring" if B <= 8 else "wgmma", Q4G: "ring" if B <= 8 else "rows",
-            DENSE: "ring" if B <= fm.DENSE_RING_ROWS else "rows", wr.DENSE_F32: "rows"}
+            DENSE: "ring" if B <= 4 else "wgmma", wr.DENSE_F32: "rows"}
     assert fm.k1_route(B, bf, fmt, 4096, 14336, SMS) == want[fmt]
     assert fm.k1_route(B, f32, fmt, 4096, 14336, SMS) == "rows"
     assert fm.K1_WGMMA_MIN_ROWS == 9
+    assert fm.DENSE_RING_ROWS == 4 and fm.DENSE_WGMMA_MIN_ROWS == 5
 
 
 # (H, I, route at B >= 9 with int8 weights): rows TMA reads (multiples of 16
@@ -307,14 +312,14 @@ def test_k1_wgmma_down_split_covers_every_stage_once(width, B, sms):
     _assert_one_wave_split(B, H, I, sms)
 
 
-def _assert_one_wave_split(B, N, K, sms):
-    """``wgmma_plan``'s split of K's 128-column stages for a row space of N
-    rows: every stage in exactly one split, none empty; the blocks (128 rows
-    a 64-token tile, a split) one wave of one an SM where the tiles alone
-    leave room, and no block running more stages than the best one-wave
-    split gives it."""
-    splits, per = fq.wgmma_plan(B, N, K, sms)
-    n_kb = -(-K // 128)
+def _assert_one_wave_split(B, N, K, sms, fmt=INT8):
+    """``wgmma_plan``'s split of K's stages (128 int8 or 64 dense bf16
+    columns) for a row space of N rows: every stage in exactly one split,
+    none empty; the blocks (128 rows a 64-token tile, a split) one wave of
+    one an SM where the tiles alone leave room, and no block running more
+    stages than the best one-wave split gives it."""
+    splits, per = fq.wgmma_plan(B, N, K, sms, fmt=fmt)
+    n_kb = -(-K // fq.wgmma_stage_cols(fmt))
     ranges = [range(z * per, min(n_kb, (z + 1) * per)) for z in range(splits)]
     assert all(len(r) for r in ranges)
     assert sorted(k for r in ranges for k in r) == list(range(n_kb))
@@ -356,17 +361,21 @@ K3_WGMMA_WIDTHS = [((4096, 4096), "wgmma"), ((2048, 2048), "wgmma"), ((256, 256)
 def test_k2_k3_route_rule(fmt, B):
     """bf16 x at SliME-8B's width: int8 weights take the ring at 1-8 rows
     and the tensor-core instance from 9, as K1's; q4g the ring at 1-8 and
-    the row-per-warp kernels from 9; dense bf16 K2 the ring at 1-8, K3 at
-    1-4, row per warp past them; fp32 x always row per warp."""
+    the row-per-warp kernels from 9; dense bf16 K2 the ring at 1-4 and the
+    tensor-core instance from 5, K3 the ring at 1-4 and row per warp from 5;
+    fp32 x always row per warp."""
     bf, f32 = torch.bfloat16, torch.float32
-    ring = {INT8: 8, Q4G: 8, DENSE: 8, wr.DENSE_F32: 0}[fmt]
-    o_ring = fq.DENSE_O_RING_ROWS if fmt == DENSE else ring
-    deep = "wgmma" if fmt == INT8 else "rows"
+    ring = {INT8: 8, Q4G: 8, DENSE: 4, wr.DENSE_F32: 0}[fmt]
+    o_ring = 4 if fmt == DENSE else ring
+    deep = "wgmma" if fmt in (INT8, DENSE) else "rows"
     assert fq.k2_route(B, bf, fmt, 4096, 4096, 1024, SMS) == ("ring" if B <= ring else deep)
-    assert fq.k3_route(B, bf, fmt, 4096, 4096, SMS) == ("ring" if B <= o_ring else deep)
+    assert fq.k3_route(B, bf, fmt, 4096, 4096, SMS) == (
+        "ring" if B <= o_ring else "wgmma" if fmt == INT8 else "rows")
     assert fq.k2_route(B, f32, fmt, 4096, 4096, 1024, SMS) == "rows"
     assert fq.k3_route(B, f32, fmt, 4096, 4096, SMS) == "rows"
     assert fq.K1_WGMMA_MIN_ROWS == fm.K1_WGMMA_MIN_ROWS == 9
+    assert fq.DENSE_WGMMA_MIN_ROWS == fm.DENSE_WGMMA_MIN_ROWS == 5
+    assert fq.DENSE_O_RING_ROWS == 4
 
 
 @pytest.mark.parametrize("widths,want", K2_WGMMA_WIDTHS, ids=lambda v: str(v))
@@ -433,6 +442,78 @@ def test_k2_k3_wgmma_plan_at_8b_width():
         assert fq.wgmma_plan(B, 4096, 4096, SMS) == (2, 16)
     assert fq.wgmma_plan(64, 6144, 4096, SMS, splits=3) == (3, 11)
     assert 2 * 48 <= SMS < 3 * 48
+
+
+# dense bf16 (H, I, route at B >= 9): rows TMA reads (2 K bytes a multiple of
+# 16, at least 256 columns: ``fused_qkvo.wgmma_strides``) and rows it does not
+K1_DENSE_STRIDES = [(4096, 14336, "wgmma"), (2048, 5504, "wgmma"), (256, 264, "wgmma"),
+                    (264, 512, "wgmma"), (4100, 14336, "rows"), (4096, 14340, "rows"),
+                    (128, 512, "rows"), (256, 248, "rows")]
+# dense K2 (H, NQ, NKV): H as TMA reads it, NQ and NQ + NKV on 128-row blocks
+K2_DENSE_WIDTHS = [((4096, 4096, 1024), "wgmma"), ((2048, 2048, 1024), "wgmma"),
+                   ((264, 512, 128), "wgmma"), ((4100, 4096, 1024), "rows"),
+                   ((4096, 4000, 1024), "rows"), ((256, 256, 64), "rows"),
+                   ((248, 256, 128), "rows")]
+
+
+@pytest.mark.parametrize("H,I,want", K1_DENSE_STRIDES, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [9, 20, 40, 64, 65, 128])
+def test_k1_dense_route_needs_rows_tma_reads(H, I, want, B):
+    """Dense bf16 K1 from 9 rows takes the tensor-core instance only where
+    TMA reads the rows of h, a and the weights (multiples of 8 bf16
+    columns, at least 256); elsewhere the row-per-warp kernels, which take
+    any row of 16-byte vectors. At 1-4 rows the ring, wherever it has a
+    plan; fp32 x never the tensor cores."""
+    bf = torch.bfloat16
+    assert fm.k1_route(B, bf, DENSE, H, I, SMS) == want
+    assert fm.wgmma_instance(bf, DENSE, H, I) == (want == "wgmma")
+    assert not fm.wgmma_instance(torch.float32, wr.DENSE_F32, H, I)
+    assert not fm.wgmma_instance(torch.float32, DENSE, H, I)
+    assert fm.k1_route(4, bf, DENSE, H, I, SMS) == (
+        "ring" if fm.ring_plan(4, H, I, DENSE, SMS) is not None else "rows")
+
+
+@pytest.mark.parametrize("widths,want", K2_DENSE_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [9, 20, 40, 64, 65, 128])
+def test_k2_dense_route_needs_rows_tma_reads_and_whole_blocks(widths, want, B):
+    """Dense bf16 K2 from 9 rows takes the tensor-core instance where TMA
+    reads the rows of h and of the weights and a 128-row block never spans
+    two of W_q, W_k, W_v; elsewhere the row-per-warp kernels. Dense K3 never
+    takes a tensor-core instance: its rule says "rows" past the ring."""
+    H, NQ, NKV = widths
+    bf = torch.bfloat16
+    assert fq.k2_route(B, bf, DENSE, H, NQ, NKV, SMS) == want
+    assert fq.qkv_wgmma_instance(bf, DENSE, H, NQ, NKV) == (want == "wgmma")
+    assert fq.k3_route(B, bf, DENSE, NQ, H, SMS) == "rows"
+    assert not fq.o_wgmma_instance(bf, DENSE, NQ)
+
+
+@pytest.mark.parametrize("shape", [(4096, 14336), (2048, 5504), (6144, 4096), (4096, 2048),
+                                   (512, 256), (384, 264), (1280, 520)],
+                         ids=lambda v: f"N{v[0]}-K{v[1]}")
+@pytest.mark.parametrize("B", [5, 9, 20, 40, 64, 65, 128, 512])
+@pytest.mark.parametrize("sms", [SMS, 11, 7])
+def test_dense_wgmma_split_covers_every_stage_once(shape, B, sms):
+    """The dense instances' split launches (K1's down over I, K2 over H) at
+    the 64-column dense stage: every stage once, in one wave of blocks where
+    the tiles leave room, on 132, 11 and 7 SMs."""
+    N, K = shape
+    _assert_one_wave_split(B, N, K, sms, fmt=DENSE)
+
+
+def test_dense_wgmma_plan_at_8b_width():
+    """SliME-8B on 132 SMs with dense bf16 weights, 64 columns a stage: K1's
+    down (W_down [4096, 14336]: 224 stages, 32 row blocks a token tile) in 4
+    splits of 56 up to 64 rows and 2 of 112 at 65-128; K2 (6144 rows over
+    H's 64 stages) in 2 splits of 32, unsplit at 65-128. The stage widths:
+    128 int8 columns, 64 dense."""
+    for B in (5, 8, 9, 20, 40, 64):
+        assert fq.wgmma_plan(B, 4096, 14336, SMS, fmt=DENSE) == (4, 56)
+        assert fq.wgmma_plan(B, 6144, 4096, SMS, fmt=DENSE) == (2, 32)
+    for B in (65, 128):
+        assert fq.wgmma_plan(B, 4096, 14336, SMS, fmt=DENSE) == (2, 112)
+        assert fq.wgmma_plan(B, 6144, 4096, SMS, fmt=DENSE) == (1, 64)
+    assert (fq.wgmma_stage_cols(INT8), fq.wgmma_stage_cols(DENSE)) == (128, 64)
 
 
 def test_ring_plan_refuses_rows_too_long():

@@ -8,6 +8,13 @@ Inputs come from one seeded numpy generator and run in fp32 through both
 packages, at a non-zero layer index of a 2-layer stack. Tolerance 1e-5
 relative: the same rounding points, fp32 sums in another order. q4g needs
 contractions that are multiples of 256, so its cases run at hidden 256.
+
+bf16 activations on dense bf16 weights (a bf16 checkpoint, whose chunks and
+verify chunks the card runs on tensor cores) are held at the rows of the
+decode step, the 8-slot tick and the verify and fused chunks: one bf16 ulp
+of each output (the same rounding points, fp32 sums in another order can
+flip a bf16 rounding), and for K1 also the one-ulp bound of its bf16
+intermediate (``fused_mlp.intermediate_ulp_bound``).
 """
 import jax
 import jax.numpy as jnp
@@ -118,6 +125,117 @@ def test_mlp_ref_matches_jax_kernel(fmt, B):
                                     bridge.from_jax_numpy(layers, device="cpu"), 1, eps=1e-5)
     _close(got, want)
 
+
+# bf16 rows on dense bf16 weights: a decode step, the engine's 8-slot tick,
+# the verify chunks of 4 and 8 slots, the fused chunk
+DENSE_BF16_ROWS = (1, 8, VERIFY_ROWS, 40, 64)
+PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def _bf16_layers():
+    """The fp32 stack with every projection's weight rounded to bf16 (JAX's
+    bfloat16 arrays), the norms fp32: what a bf16 checkpoint loads into."""
+    layers = _layers("fp32")["layers"]
+    for n in PROJ:
+        layers[n]["weight"] = np.asarray(jnp.asarray(layers[n]["weight"], jnp.bfloat16))
+    return layers
+
+
+def _x_bf16(B, H, seed):
+    return np.asarray(jnp.asarray(_x(B, H, seed), jnp.bfloat16))
+
+
+def _bf16_ulp(a):
+    """The spacing of bf16 at |a| (fp32 numpy): 2^(floor(log2 |a|) - 7)."""
+    a = np.maximum(np.abs(a), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
+
+
+def _within_one_bf16_ulp(got, want, floor=0.0):
+    """|got - want| <= one bf16 ulp of the larger of the two (+ ``floor``),
+    elementwise."""
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    assert g.shape == w.shape
+    excess = np.abs(g - w) - _bf16_ulp(np.maximum(np.abs(g), np.abs(w))) - floor
+    assert (excess <= 0).all(), f"beyond one bf16 ulp by {excess.max():.3g}"
+
+
+@pytest.mark.parametrize("B", DENSE_BF16_ROWS)
+def test_dense_bf16_qkv_ref_matches_jax_kernel(B):
+    layers = _bf16_layers()
+    x = _x_bf16(B, _H("fp32"), seed=40 + B)
+    want = jqkvo.fused_qkv_decode(jnp.asarray(x), jax.tree_util.tree_map(
+        jnp.asarray, layers), 1, eps=1e-5, interpret=True)
+    got = tqkvo.fused_qkv_decode_ref(bridge.from_jax_numpy(x, device="cpu"),
+                                     bridge.from_jax_numpy(layers, device="cpu"), 1, eps=1e-5)
+    for t, j in zip(got, want):
+        assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        _within_one_bf16_ulp(t, j)
+
+
+@pytest.mark.parametrize("B", DENSE_BF16_ROWS)
+def test_dense_bf16_o_residual_ref_matches_jax_kernel(B):
+    layers = _bf16_layers()
+    attn, x = _x_bf16(B, _H("fp32"), seed=50 + B), _x_bf16(B, _H("fp32"), seed=60 + B)
+    want = jqkvo.fused_o_residual(jnp.asarray(attn), jnp.asarray(x),
+                                  jax.tree_util.tree_map(jnp.asarray, layers), 1,
+                                  interpret=True)
+    got = tqkvo.fused_o_residual_ref(bridge.from_jax_numpy(attn, device="cpu"),
+                                     bridge.from_jax_numpy(x, device="cpu"),
+                                     bridge.from_jax_numpy(layers, device="cpu"), 1)
+    assert got.dtype == torch.bfloat16
+    _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("B", DENSE_BF16_ROWS)
+def test_dense_bf16_mlp_ref_matches_jax_kernel(B):
+    layers = _bf16_layers()
+    x = _x_bf16(B, _H("fp32"), seed=70 + B)
+    want = jmlp.fused_mlp_decode(jnp.asarray(x), jax.tree_util.tree_map(
+        jnp.asarray, layers), 1, eps=1e-5, block_inter=128, interpret=True)
+    tx = bridge.from_jax_numpy(x, device="cpu")
+    tl = bridge.from_jax_numpy(layers, device="cpu")
+    got = tmlp.fused_mlp_decode_ref(tx, tl, 1, eps=1e-5)
+    assert got.dtype == torch.bfloat16
+    _within_one_bf16_ulp(got, want, tmlp.intermediate_ulp_bound(tx, tl, 1).numpy())
+
+
+
+def test_norm_flips_tells_rounding_flips_from_a_wrong_norm():
+    """``fused_qkvo.norm_flips``, which the card's checks of dense K2 hold a
+    kernel's row norm h with: the plain h has no difference; h rounded the
+    other way where x r w lies on a bf16 rounding midpoint is a flip, not a
+    fault; one ulp off elsewhere, or two ulps at the midpoint, is a fault.
+    And ``qkv_proj_ref`` of the plain h is the plain version."""
+    g = np.random.default_rng(9)
+    x = torch.from_numpy(g.standard_normal((3, 256)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((1 + 0.1 * g.standard_normal(256)).astype(np.float32))
+    eps = 1e-5
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1) + eps)
+    mid = 1.5 + 2.0 ** -8                     # between bf16 1.5 and 1.5078125
+    w[7] = mid / (xf[1, 7] * r[1])
+    h = tqkvo.rms_h(x, w, eps)
+    assert tqkvo.norm_flips(h, x, w, eps) == (0, 0)
+    near = h.clone()
+    near[1, 7] = 1.5 + 2.0 ** -7 if h[1, 7].item() == 1.5 else 1.5
+    assert tqkvo.norm_flips(near, x, w, eps) == (1, 0)
+    far = h.clone()
+    v = far[0, 3].float()
+    far[0, 3] = v + torch.sign(v) * torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+    assert far[0, 3] != h[0, 3]
+    assert tqkvo.norm_flips(far, x, w, eps) == (1, 1)
+    two = h.clone()
+    two[1, 7] = h[1, 7].float() + (2.0 ** -6 if h[1, 7].item() == 1.5 else -2.0 ** -6)
+    assert tqkvo.norm_flips(two, x, w, eps) == (1, 1)
+    layers = {"input_layernorm": {"weight": w[None].repeat(2, 1)}}
+    for n, out in (("q_proj", 128), ("k_proj", 64), ("v_proj", 64)):
+        layers[n] = {"weight": torch.from_numpy(
+            (0.02 * g.standard_normal((2, out, 256))).astype(np.float32)).to(torch.bfloat16)}
+    for a, b in zip(tqkvo.qkv_proj_ref(h, layers, 1),
+                    tqkvo.fused_qkv_decode_ref(x, layers, 1, eps=eps)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 def test_cpu_dispatch_takes_the_plain_versions():
     layers = bridge.from_jax_numpy(_layers("int8")["layers"], device="cpu")

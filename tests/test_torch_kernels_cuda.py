@@ -79,6 +79,34 @@ def _assert_mlp_close(got, want, floor):
         f"{(err - slack).max().item():.3g} over the one-ulp floor")
 
 
+def _assert_qkv_own_h(launch, x, layers):
+    """K2 in bf16 from ``fused_qkvo.qkv_launch`` on an instance that writes
+    its row norm h to memory (the tensor-core one, the row-per-warp one),
+    held in two parts: h against the plain version's up to the flips
+    ``fused_qkvo.norm_flips`` allows (one bf16 ulp, on values within
+    NORM_FLIP_RTOL of a rounding midpoint: the fp32 sum of squares in
+    another order), and q, k, v against the plain projections of that h
+    (``fused_qkvo.qkv_proj_ref``) at atol 2e-3 and RTOL."""
+    q, k, v, _, _, h = launch
+    torch.cuda.synchronize()
+    assert h is not None and h.dtype == x.dtype and h.shape == x.shape
+    flips, bad = fused_qkvo.norm_flips(h, x, layers["input_layernorm"]["weight"][1], 1e-5)
+    assert bad == 0, f"{bad} of h's {flips} differing elements are no rounding flip"
+    for a, b in zip((q, k, v), fused_qkvo.qkv_proj_ref(h, layers, 1)):
+        assert a.dtype == x.dtype and a.shape == b.shape and a.is_contiguous()
+        _assert_close(a, b, atol=2e-3)
+
+
+def _assert_rule_launch(got, x, layers):
+    """The wrapper's q, k, v (``got``) bit for bit what ``qkv_launch`` gives
+    on the instance the rule takes (deterministic: fp32 splits added in
+    order), which is held by ``_assert_qkv_own_h``."""
+    launch = fused_qkvo.qkv_launch(x, layers, 1, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, launch[:3]))
+    _assert_qkv_own_h(launch, x, layers)
+
+
 def decode_layers(*, L, H, NQ, NKV, I, fmt, generator, device):
     """Random stacked decode weights: int8 per-row (scales ~ N(0, 0.02)
     rows, as bench.py builds them), q4g (N(0, 0.02) weights quantized) or
@@ -309,11 +337,21 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
     ring = fused_mlp.fused_mlp_decode.ring_launches
     wgmma = _wgmma_counts()
     rings = _ring_counts()
+    code = {"int8": wr.INT8, "q4g": wr.Q4G, "bf16": wr.DENSE, "fp32": wr.DENSE_F32}[fmt]
+    sms = wr.sm_count(torch.device("cuda"))
+    r1 = fused_mlp.k1_route(B, dtype, code, 4096, 14336, sms)
+    r2 = fused_qkvo.k2_route(B, dtype, code, 4096, 4096, 1024, sms)
+    r3 = fused_qkvo.k3_route(B, dtype, code, 4096, 4096, sms)
     got = fused_qkvo.fused_qkv_decode(x, layers, 1)
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
     for a, b in zip(got, want):
         assert a.dtype == dtype
-        _assert_close(a, b, **tol)
+        if not (fmt == "bf16" and r2 == "wgmma"):
+            _assert_close(a, b, **tol)
+    if fmt == "bf16" and r2 == "wgmma":
+        # dense K2 on tensor cores, 8 and more rows: h held apart (a flip of
+        # h moves outputs by a multiple of its ulp times the weights)
+        _assert_rule_launch(got, x, layers)
     _assert_close(fused_qkvo.fused_o_residual(attn, x, layers, 1),
                   fused_qkvo.fused_o_residual_ref(attn, x, layers, 1), **tol)
     # the MLP rounds a = silu(g) * u to bf16 before the down projection: held
@@ -329,18 +367,19 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_qkvo.fused_o_residual.launches,
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
-    # the weight ring takes bf16 x with int8, q4g or (K2, K3; K1 at B <= 4)
-    # dense bf16 weights at B <= 8, nothing else; K1-K3's tensor-core
-    # instances bf16 x with int8 weights from 9 rows
-    routed = bf and fmt in ("int8", "q4g", "bf16") and B <= 8
-    mlp_routed = routed and (fmt != "bf16" or B <= fused_mlp.DENSE_RING_ROWS)
-    assert fused_mlp.fused_mlp_decode.ring_launches == ring + mlp_routed
-    tc = bf and fmt == "int8" and B >= fused_mlp.K1_WGMMA_MIN_ROWS
-    assert _wgmma_counts() == tuple(c + tc for c in wgmma)
+    # the weight ring takes bf16 x with int8 or q4g weights at B <= 8 and
+    # dense bf16 weights at B <= 4; the tensor-core instances bf16 x with
+    # int8 weights from 9 rows, and K1's and K2's with dense bf16 weights
+    # from 5: each wrapper's rule
+    on_ring = bf and (fmt in ("int8", "q4g") and B <= 8 or fmt == "bf16" and B <= 4)
+    tc = bf and (fmt == "int8" and B >= 9 or fmt == "bf16" and B >= 5)
+    want = "wgmma" if tc else "ring" if on_ring else "rows"
+    assert (r1, r2, r3) == (want, want, "rows" if tc and fmt == "bf16" else want)
+    assert fused_mlp.fused_mlp_decode.ring_launches == ring + (r1 == "ring")
+    assert _wgmma_counts() == tuple(c + (r == "wgmma") for c, r in zip(wgmma, (r1, r2, r3)))
     q4g = fmt == "q4g"
-    o_routed = routed and (fmt != "bf16" or B <= fused_qkvo.DENSE_O_RING_ROWS)
-    assert _ring_counts() == (rings[0] + routed, rings[1] + routed * q4g,
-                              rings[2] + o_routed, rings[3] + o_routed * q4g)
+    assert _ring_counts() == (rings[0] + (r2 == "ring"), rings[1] + (r2 == "ring") * q4g,
+                              rings[2] + (r3 == "ring"), rings[3] + (r3 == "ring") * q4g)
 
 
 def _wgmma_counts():
@@ -448,12 +487,13 @@ DENSE_WIDTHS = [(4096, 4096, 1024, 14336), (2048, 2048, 1024, 5504)]
 @pytest.mark.parametrize("width", DENSE_WIDTHS, ids=lambda w: f"H{w[0]}")
 @pytest.mark.parametrize("B", [1, 3, 8])
 def test_dense_ring_decode(dev, width, B):
-    """K2 on dense bf16 weights at B <= 8 and K1 and K3 at B <= 4 take the
-    weight ring (``.dense_ring_launches`` rise by one) and agree with their
-    plain versions at phase 1's tolerances (K2 and K3 atol 2e-3, K1 the
-    one-ulp bound of its bf16 intermediate), as do the instances the rule
-    does not take on the same inputs (``route`` "rows" / "ring",
-    uncounted)."""
+    """K1-K3 on dense bf16 weights at B <= 4 take the weight ring
+    (``.dense_ring_launches`` rise by one) and agree with their plain
+    versions at phase 1's tolerances (K2 and K3 atol 2e-3, K1 the one-ulp
+    bound of its bf16 intermediate), as do the instances the rule does not
+    take on the same inputs (``route`` "rows" / "ring", uncounted); at 8
+    rows K1 and K2 take their tensor-core instances (K2 held with its own
+    row norm: ``_assert_qkv_own_h``), the ring forced beside them."""
     H, NQ, NKV, I = width
     g = torch.Generator(device=dev).manual_seed(400 + B + H)
     layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
@@ -465,8 +505,13 @@ def test_dense_ring_decode(dev, width, B):
     before = [(f.launches, f.ring_launches, f.dense_launches,
                getattr(f, "dense_ring_launches", 0)) for f in fns]
     want = fused_qkvo.fused_qkv_decode_ref(x, layers, 1)
-    for got in (fused_qkvo.fused_qkv_decode(x, layers, 1),
-                fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="rows")[:3]):
+    got = fused_qkvo.fused_qkv_decode(x, layers, 1)
+    tc = B >= fused_qkvo.DENSE_WGMMA_MIN_ROWS
+    if tc:
+        _assert_rule_launch(got, x, layers)
+    for got in ([] if tc else [got]) + [
+            fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="rows")[:3],
+            fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="ring")[:3]]:
         for a, b in zip(got, want):
             assert a.dtype == torch.bfloat16 and a.shape == b.shape
             _assert_close(a, b, atol=2e-3)
@@ -486,7 +531,8 @@ def test_dense_ring_decode(dev, width, B):
     after = [(f.launches, f.ring_launches, f.dense_launches,
               getattr(f, "dense_ring_launches", 0)) for f in fns]
     assert after == [(c[0] + 1, c[1] + ring, c[2] + 1, c[3] + ring)
-                     for c, ring in zip(before, (1, B <= fused_qkvo.DENSE_O_RING_ROWS,
+                     for c, ring in zip(before, (B < fused_qkvo.DENSE_WGMMA_MIN_ROWS,
+                                                 B <= fused_qkvo.DENSE_O_RING_ROWS,
                                                  B <= fused_mlp.DENSE_RING_ROWS))]
 
 
@@ -585,9 +631,120 @@ def test_fused_mlp_wgmma_rejects(dev):
     p = _cuda.ptr
     with pytest.raises(RuntimeError, match="CUDA error"):
         _cuda.check(_cuda.library().slime_mlp_wgmma(
-            p(x), p(nw), 1e-5, p(h), p(a), p(ws), p(y), 20, 256, 512, p(wg), p(sg), p(wu),
-            p(su), p(wd), p(sd), 1, 1, _cuda.stream()), "fused_mlp_decode (wgmma)")
+            wr.INT8, p(x), p(nw), 1e-5, p(h), p(a), p(ws), p(y), 20, 256, 512, p(wg), p(sg),
+            p(wu), p(su), p(wd), p(sd), 1, 1, _cuda.stream()),
+            "fused_mlp_decode (wgmma)")
     assert (fn.launches, fn.wgmma_launches) == before
+
+
+def _check_dense_wgmma(x, layers):
+    """fused_mlp_decode and fused_qkv_decode on dense bf16 weights where
+    their rules take the tensor-core instances (``.wgmma_launches`` and
+    ``.dense_wgmma_launches`` up by one each, ``.dense_launches`` too, the
+    rings' counts not), and the row-per-warp instances on the same inputs
+    (uncounted): K2 held with its own row norm (``_assert_qkv_own_h``: h
+    up to rounding flips, the projections at phase 1's atol 2e-3), K1 to
+    the one-ulp bound of its bf16 intermediate."""
+    fns = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode)
+    attrs = ("launches", "wgmma_launches", "dense_wgmma_launches", "dense_launches",
+             "ring_launches")
+    before = [tuple(getattr(f, a) for a in attrs) for f in fns]
+    _assert_rule_launch(fused_qkvo.fused_qkv_decode(x, layers, 1), x, layers)
+    _assert_qkv_own_h(fused_qkvo.qkv_launch(x, layers, 1, 1e-5, route="rows"), x, layers)
+    mlp_want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
+    floor = fused_mlp.intermediate_ulp_bound(x, layers, 1)
+    mlp_got = [fused_mlp.fused_mlp_decode(x, layers, 1),
+               fused_mlp.mlp_launch(x, layers, 1, 1e-5, route="rows")[0]]
+    for out in mlp_got:
+        assert out.dtype == torch.bfloat16 and out.shape == x.shape
+        _assert_mlp_close(out, mlp_want, floor)
+    assert [tuple(getattr(f, a) for a in attrs) for f in fns] == [
+        (c[0] + 1, c[1] + 1, c[2] + 1, c[3] + 1, c[4]) for c in before]
+
+
+# dense bf16 rows the tensor-core instances take: 5-8 (the engine's decode
+# steps past the ring), one past 8, the verify chunks of 4 and 8 slots, the
+# fused chunk, one and two token tiles past it
+DENSE_WGMMA_ROWS = [5, 8, 9, 20, 40, 64, 65, 128]
+# (H, NQ, NKV, I): SliME-8B's widths, and narrow ones: whole 128-row blocks
+# and 64-column stages, and a ragged last gate/up block and down stage (I
+# 264: TMA's zero fill past I; H 264 the same for K2's last stage)
+DENSE_WGMMA_WIDTHS = [(4096, 4096, 1024, 14336), (256, 256, 128, 512), (264, 512, 128, 264)]
+
+
+@pytest.mark.parametrize("width", DENSE_WGMMA_WIDTHS, ids=lambda w: f"H{w[0]}-I{w[3]}")
+@pytest.mark.parametrize("B", DENSE_WGMMA_ROWS)
+def test_fused_dense_wgmma(dev, width, B):
+    """K1 and K2 in bf16 on dense bf16 weights on their tensor-core
+    instances at 5-128 rows, at SliME-8B's width and narrow ones, where
+    both rules take them."""
+    H, NQ, NKV, I = width
+    g = torch.Generator(device=dev).manual_seed(1000 + B + H + I)
+    layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
+                           device=dev)
+    x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    sms = wr.sm_count(torch.device("cuda"))
+    bf = torch.bfloat16
+    assert fused_mlp.wgmma_instance(bf, wr.DENSE, H, I)
+    assert fused_qkvo.qkv_wgmma_instance(bf, wr.DENSE, H, NQ, NKV)
+    r1 = fused_mlp.k1_route(B, bf, wr.DENSE, H, I, sms)
+    r2 = fused_qkvo.k2_route(B, bf, wr.DENSE, H, NQ, NKV, sms)
+    assert r1 == r2 == "wgmma"
+    _check_dense_wgmma(x, layers)
+
+
+def test_fused_dense_wgmma_rejects(dev):
+    """No fallback for the dense instances: ``route="wgmma"`` raises on
+    operands they do not take (dense K3, which has none; fp32 x on fp32
+    weights; rows TMA cannot read: H under 256), and the C side refuses
+    dense weights given scales, int8 weights without them, a format it does
+    not know and a split that misses stages, before anything launches;
+    nothing is counted."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    fns = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode,
+           fused_qkvo.fused_o_residual)
+    before = [(f.launches, f.wgmma_launches, f.dense_wgmma_launches) for f in fns]
+    layers = decode_layers(L=2, H=256, NQ=256, NKV=128, I=512, fmt="bf16", generator=g,
+                           device=dev)
+    x = torch.randn((20, 256), device=dev, generator=g).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.o_launch(x, x, layers, 1, route="wgmma")
+    f32 = decode_layers(L=2, H=256, NQ=256, NKV=128, I=512, fmt="fp32", generator=g,
+                        device=dev)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_mlp.mlp_launch(x.float(), f32, 1, 1e-5, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.qkv_launch(x.float(), f32, 1, 1e-5, route="wgmma")
+    narrow = decode_layers(L=2, H=128, NQ=256, NKV=128, I=512, fmt="bf16", generator=g,
+                           device=dev)
+    x128 = torch.randn((20, 128), device=dev, generator=g).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_mlp.mlp_launch(x128, narrow, 1, 1e-5, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.qkv_launch(x128, narrow, 1, 1e-5, route="wgmma")
+    (wg, _, _), (wu, _, _) = fused_qkvo.layer_mats(layers, ("gate_proj", "up_proj"), 1)
+    (wd, _, _), = fused_qkvo.layer_mats(layers, ("down_proj",), 1)
+    (wq, _, _), (wk, _, _), (wv, _, _) = fused_qkvo.layer_mats(
+        layers, ("q_proj", "k_proj", "v_proj"), 1)
+    nw = layers["post_attention_layernorm"]["weight"][1].float().contiguous()
+    h, a = torch.empty_like(x), torch.empty((20, 512), dtype=x.dtype, device=dev)
+    ws, y = torch.empty((4, 20, 512), device=dev), torch.empty_like(x)
+    q, k, v = (torch.empty((20, n), dtype=x.dtype, device=dev) for n in (256, 128, 128))
+    s512 = torch.ones((512, 1), device=dev)
+    p, lib, st = _cuda.ptr, _cuda.library(), _cuda.stream()
+    invalid = 1                                       # cudaErrorInvalidValue
+    # (format, a scale, splits, stages a split): down's I = 512 is 8 dense
+    # stages, K2's H = 256 is 4
+    for fmt, scale, splits, per in ((wr.DENSE, s512, 1, 8), (wr.INT8, None, 1, 8),
+                                    (wr.Q4G, s512, 1, 8), (wr.DENSE, None, 1, 4)):
+        assert lib.slime_mlp_wgmma(fmt, p(x), p(nw), 1e-5, p(h), p(a), p(ws), p(y), 20, 256,
+                                   512, p(wg), p(scale), p(wu), p(scale), p(wd), p(scale),
+                                   splits, per, st) == invalid
+        assert lib.slime_qkv_wgmma(fmt, p(x), p(nw), 1e-5, p(h), p(ws), 20, 256, 256, 128,
+                                   p(wq), p(scale), p(wk), p(scale), p(wv), p(scale), p(q),
+                                   p(k), p(v), splits, per // 2, st) == invalid
+    torch.cuda.synchronize()
+    assert [(f.launches, f.wgmma_launches, f.dense_wgmma_launches) for f in fns] == before
 
 
 def _check_qkvo_wgmma(x, attn, layers):
@@ -686,14 +843,14 @@ def test_fused_qkvo_wgmma_rejects(dev):
     invalid = 1                                       # cudaErrorInvalidValue
     # 4 stages: 1 split of 2 misses two, 3 splits of 2 leave one empty
     for splits, per in ((1, 2), (3, 2)):
-        assert lib.slime_qkv_wgmma(p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 512, 128, p(wq),
-                                   p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v),
+        assert lib.slime_qkv_wgmma(wr.INT8, p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 512, 128,
+                                   p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v),
                                    splits, per, _cuda.stream()) == invalid
         assert lib.slime_o_wgmma(p(attn), p(x), p(ws), p(y), 20, 512, 512, p(wo), p(so),
                                  splits, per, _cuda.stream()) == invalid
     # NQ off a 128-row block: refused as well
-    assert lib.slime_qkv_wgmma(p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 448, 128, p(wq),
-                               p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v), 1, 4,
+    assert lib.slime_qkv_wgmma(wr.INT8, p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 448, 128,
+                               p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v), 1, 4,
                                _cuda.stream()) == invalid
     torch.cuda.synchronize()
     assert [(f.launches, f.wgmma_launches) for f in fns] == before
@@ -1655,24 +1812,56 @@ def test_constrained_request_on_card(dev):
     assert len([t for c in reqs[2].stream() for t in c]) > 0
 
 
-def test_verify_chunk_launches_row_per_warp(dev):
-    """The verify chunk's shape, 4 slots x (K = 4 + 1) = 20 rows in bf16 on
-    int8 layers: K1-K3's row-per-warp instances once a layer, the weight
-    ring never (it takes B <= 8)."""
+def _verify_chunk_counts(llm, cfg, dev, slots):
+    """One verify chunk of ``slots`` x (K = 4 + 1) rows in bf16 through
+    ``llama.prefill_chunk`` -> ({attribute: [K1's, K2's, K3's rise]}, the
+    chunk's logits)."""
     from slime_tpu_torch.models import llama
-    cfg = _small_slime_cfg()
-    llm = _small_slime(cfg, dev, "int8")["llm"]
     g = torch.Generator(device=dev).manual_seed(8)
-    emb = (torch.randn((4, 5, cfg.llm.hidden_size), device=dev, generator=g) * 0.5).to(
+    emb = (torch.randn((slots, 5, cfg.llm.hidden_size), device=dev, generator=g) * 0.5).to(
         torch.bfloat16)
-    cache = llama.init_kv_cache(cfg.llm, 4, 64, dtype=torch.bfloat16, device=dev)
-    cache["length"].copy_(torch.tensor([3, 9, 0, 17], device=dev))
+    cache = llama.init_kv_cache(cfg.llm, slots, 64, dtype=torch.bfloat16, device=dev)
+    cache["length"].copy_(torch.tensor([3, 9, 0, 17, 5, 1, 30, 12][:slots], device=dev))
+    assert llama.chunk_takes_fused(emb.shape, dev, llm["layers"])
     wrappers = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode,
                 fused_qkvo.fused_o_residual)
-    before = [(w.launches, w.ring_launches) for w in wrappers]
+    attrs = ("launches", "ring_launches", "wgmma_launches", "dense_wgmma_launches",
+             "dense_launches")
+    before = {a: [getattr(w, a) for w in wrappers] for a in attrs}
     logits, _ = llama.prefill_chunk(llm, cache, emb, cfg.llm, compute_dtype=torch.bfloat16)
-    after = [(w.launches, w.ring_launches) for w in wrappers]
-    assert llama.chunk_takes_fused(emb.shape, dev, llm["layers"])
-    for (l0, r0), (l1, r1) in zip(before, after):
-        assert (l1 - l0, r1 - r0) == (cfg.llm.num_layers, 0)
+    torch.cuda.synchronize()
+    return {a: [getattr(w, a) - b for w, b in zip(wrappers, before[a])] for a in attrs}, logits
+
+
+def test_verify_chunk_launches_tensor_cores(dev):
+    """The verify chunk's shape, 4 slots x (K = 4 + 1) = 20 rows in bf16 on
+    int8 layers: K1-K3's tensor-core instances once a layer
+    (``.wgmma_launches``), the weight ring never (it takes B <= 8)."""
+    cfg = _small_slime_cfg()
+    llm = _small_slime(cfg, dev, "int8")["llm"]
+    L = cfg.llm.num_layers
+    rise, logits = _verify_chunk_counts(llm, cfg, dev, 4)
+    assert rise["launches"] == rise["wgmma_launches"] == [L, L, L]
+    assert rise["ring_launches"] == rise["dense_wgmma_launches"] == [0, 0, 0]
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_dense_verify_chunk_launches_tensor_cores(dev):
+    """The default engine's verify chunk, 8 slots x 5 = 40 rows in bf16 on
+    dense bf16 layers (a bf16 checkpoint): K1 and K2 on their tensor-core
+    instances once a layer (``.dense_wgmma_launches``), K3 row per warp,
+    the weight ring never."""
+    from slime_tpu_torch.models import llama, slime
+    cfg = _small_slime_cfg()
+    params = slime.init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    llm = params["llm"]
+    llm["layers"] = llama.stack_layers(llm["layers"])
+    for n, leaf in llm["layers"].items():
+        if n.endswith("_proj"):
+            leaf["weight"] = leaf["weight"].to(torch.bfloat16)
+    L = cfg.llm.num_layers
+    rise, logits = _verify_chunk_counts(llm, cfg, dev, 8)
+    assert rise["launches"] == rise["dense_launches"] == [L, L, L]
+    assert rise["wgmma_launches"] == rise["dense_wgmma_launches"] == [L, L, 0]
+    assert rise["ring_launches"] == [0, 0, 0]
     assert bool(torch.isfinite(logits).all())
