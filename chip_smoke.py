@@ -31,10 +31,10 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          profiler; K1 in bf16 on int8 weights from 9 rows on tensor cores,
          at B = 9-128 beside its row-per-warp instance on the same inputs;
          K1-K3 beside torch's int8 / int4 weight-only product), and on dense
-         bf16 weights at B = 1, 4, 6 and 8, K1 and K2 also at 5, 9, 20, 40,
-         64, 65 and 128 (all three on the weight ring at B <= 4, K1 and K2
-         on tensor cores from 5, K3 row per warp; each beside the instances
-         its rule does not take on the same inputs; all beside
+         bf16 weights at B = 1, 4-6, 8, 9, 20, 40, 64, 65 and 128, K3 also
+         at 2, 3 and 7 (all three on the weight ring at B <= 4 and on
+         tensor cores from 5; each beside the instances its rule does not
+         take on the same inputs, K3's at 1-8; all beside
          torch.nn.functional.linear of the bf16 product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
          = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
@@ -221,8 +221,8 @@ Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
          llama3 template) at batch 4 and at batch 1, equal up to a logged
          near tie, the launches of each request asserted (K4 23, K5 once a
          layer a prefill, dense K1-K3 on the weight ring at up to 4 rows,
-         K1 and K2 on tensor cores and K3 row per warp at beam search's 6,
-         once a layer a decode step) and one
+         on tensor cores at beam search's 6, once a layer a decode step)
+         and one
          batch and the decode step
          traced; ``run_eval(num_beams=3)`` on 2 questions (the best beam's
          prefix leads greedy's after they part, as beam search guarantees);
@@ -233,8 +233,9 @@ Phase 12  builds SliME-8B at full width, its LLM cut to 8 of 32 layers
          a random 0.6B draft (spec_k 4), its tokens against ``generate``'s
          and each other's up to a near tie, the launches of its 8-row
          decode steps, its 64-row fused chunk and its 40-row verify chunks
-         asserted (K1 and K2 on tensor cores, K3 row per warp), the chunk, a
-         tick and a speculative tick traced; then the model, its LLM cut to 2 layers at full
+         asserted (K1-K3 on tensor cores, K3 never row per warp), the chunk
+         and an 8-slot tick traced, each also with K3 row per warp from 5
+         rows as before (uncounted), a speculative tick traced; then the model, its LLM cut to 2 layers at full
          width (for disk and time only), saved and run through ``eval.cli``
          (2 chunks, ``--merge --scorer textvqa``) and
          ``tools.verify_released_weights`` (record, check: PASS; one
@@ -396,7 +397,7 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_mlp_decode_dense_ring": 2e-3, "fused_o_residual_dense_ring": 2e-3,
         "fused_mlp_decode_wgmma": 2e-3, "fused_qkv_decode_wgmma": 2e-3,
         "fused_o_residual_wgmma": 2e-3, "fused_mlp_decode_dense_wgmma": 2e-3,
-        "fused_qkv_decode_dense_wgmma": 2e-3}
+        "fused_qkv_decode_dense_wgmma": 2e-3, "fused_o_residual_dense_wgmma": 2e-3}
 # H100 SXM data sheet, dense: HBM bytes/s, bf16 and int8 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS, F32_OPS = 3.35e12, 989e12, 1979e12, 67e12
@@ -424,11 +425,14 @@ CHUNK_ROWS = 64
 # row past the ring's 8 to one 64-token tile, and 65 and 128 (two tiles);
 # K2's and K3's at the first of them (and 20, 64, 65, 128)
 K1_WGMMA_ROWS = (9, 16, 32)
-# the rows past the dense ring's where phase 1 times K1's and K2's dense
+# the rows past the dense ring's where phase 1 times K1-K3's dense
 # instances (a bf16 checkpoint): 5, one past the ring's 4; 9, one past 8;
 # the verify chunks of 4 and 8 slots (20, 40); the fused chunk (64); one
 # and two token tiles past it
 DENSE_WGMMA_ROWS = (5, 9, 20, 40, 64, 65, 128)
+# dense K3 also at every row count of 1-8: its tensor-core instance beside
+# the ring at 1-4 (where the rule's boundary lies) and the "was" at 5-8
+DENSE_O_ROWS = tuple(range(1, 9)) + DENSE_WGMMA_ROWS[1:]
 # phase 9: speculation's proposals a round and rounds a dispatch (the
 # engine's defaults), the verify chunk's rows (4 slots x (K + 1)), which
 # phase 1 also times; the text prompts' lengths in bytes; the choices
@@ -588,15 +592,15 @@ KERNELS = {
                       "scripts/bench_q4g_unpack_probe.py:90"),
     "p3_int8_dot": ("slime_tpu_torch/csrc/int8_dot.cu", "scripts/bench_int8_dot_probe.py:59"),
     # K1-K3's row-per-warp kernels on dense bf16 weights with bf16 activations
-    # (the bf16 checkpoints of the eval path, phase 12: K3, K1 at B > 4, K2 at
-    # B > 8)
+    # (the bf16 checkpoints of the eval path before their tensor-core
+    # instances; off the paths, phase 1 times them as the "was")
     "fused_qkv_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_qkvo.py:146"),
     "fused_o_residual_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_qkvo.py:209"),
     "fused_mlp_decode_dense": ("slime_tpu_torch/csrc/fused_decode.cu",
                                "slime_tpu/ops/fused_mlp.py:366"),
-    # K1 and K3 (B <= 4) and K2 (B <= 8) on the weight ring with dense bf16
+    # K1-K3 (B <= 4) on the weight ring with dense bf16
     # weights: the bf16 checkpoints' decode steps (phase 12)
     "fused_qkv_decode_dense_ring": ("slime_tpu_torch/csrc/fused_decode.cu",
                                     "slime_tpu/ops/fused_qkvo.py:146"),
@@ -627,11 +631,13 @@ KERNELS = {
                                      "slime_tpu/ops/fused_mlp.py:366"),
     "fused_qkv_decode_dense_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
                                      "slime_tpu/ops/fused_qkvo.py:146"),
+    "fused_o_residual_dense_wgmma": ("slime_tpu_torch/csrc/fused_decode.cu",
+                                     "slime_tpu/ops/fused_qkvo.py:209"),
 }
 # the decode kernels with a dense bf16 instance on the weight ring, and on
 # tensor cores
 DENSE_RING = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
-DENSE_WGMMA = ("fused_qkv_decode", "fused_mlp_decode")
+DENSE_WGMMA = ("fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")
 # K9's fp32 instance (FFMA, any D) and its bf16 FFMA instance (D other than
 # 128 and 256)
 KERNELS.update({"ring_attention_rdma" + sfx: KERNELS["ring_attention_rdma"]
@@ -667,12 +673,12 @@ WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # (phase 8) and the verify chunks (phase 9) on tensor cores (``*_wgmma``;
 # phase 1 times the row-per-warp ones as their "was"). K1's and K2's
 # row-per-warp instances on dense bf16 weights take no bf16 rows at these
-# widths: the ring takes 1-4 and the tensor-core instances 5 and more
-# (phase 12's decode steps, its engine's ticks, fused and verify chunks);
-# K3's dense row-per-warp instance takes beam search's 6 rows and the
-# engine's. Phase 1 checks them; the launch counts of these off-path
-# instances stay 0.
-OFF_PATH = ("fused_qkv_decode_dense", "fused_mlp_decode_dense", "fused_mlp_decode",
+# widths, nor K3's: the ring takes 1-4 and the tensor-core instances the
+# rest (phase 12's decode steps, beam search's 6 rows, its engine's ticks,
+# fused and verify chunks). Phase 1 checks them; the
+# launch counts of these off-path instances stay 0.
+OFF_PATH = ("fused_qkv_decode_dense", "fused_o_residual_dense", "fused_mlp_decode_dense",
+            "fused_mlp_decode",
             "fused_qkv_decode",
             "fused_o_residual",
             "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
@@ -1668,19 +1674,20 @@ def dense_llm_layers(cfg, generator, device):
 def dense_decode_kernels(dev, cfg, flush, record):
     """Phase 1 for K1-K3 on dense bf16 weights (a bf16 checkpoint: the eval
     path and phase 12's engine) at 8B width, layer 1 of a 2-layer stack,
-    from a generator of their own: all three at B = 1, 4, 6 and 8, K1 and
-    K2 also at DENSE_WGMMA_ROWS (5, the verify chunks of 4 and 8 slots, the
-    fused chunk, one and two token tiles past it). Each runs the instance
+    from a generator of their own: all three at B = 1, 4, 6, 8 and at
+    DENSE_WGMMA_ROWS (5, the verify chunks of 4 and 8 slots, the fused
+    chunk, one and two token tiles past it), K3 also at 2, 3 and 7
+    (DENSE_O_ROWS: every row count of 1-8). Each runs the instance
     its wrapper's rule takes (``k1_route``, ``k2_route``, ``k3_route``:
     records ``*_dense_ring``, ``*_dense_wgmma`` or ``*_dense`` row per
     warp; the ring's records keep B = 1, the tensor-core ones B = 64), and
     is timed beside the instances the rule does not take on the same inputs
     (``fused_mlp.mlp_launch`` with ``route``, ``fused_qkvo.qkv_launch`` /
-    ``o_launch`` alike, uncounted): at 4-8 rows every instance there is, at
-    1 and from 9 the row-per-warp one ("was": the instance the rule took
-    before the ring or the tensor-core ones). K1's and K2's tensor-core
-    instances have their launches' device times (profiler) logged at 64
-    rows, as the ring's at 1 and 4. Each is timed
+    ``o_launch`` alike, uncounted): at 4-8 rows every instance there is
+    (K3 at 1-8), at 1 and from 9 the row-per-warp one ("was": the instance
+    the rule took before the ring or the tensor-core ones). The
+    tensor-core instances have their launches' device times (profiler)
+    logged at 64 rows, as the ring's at 1 and 4. Each is timed
     beside ``torch.nn.functional.linear`` of its bf16 product alone on the
     same weights (K2: W_q, W_k, W_v concatenated; K3: W_o; K1: W_gate and
     W_up concatenated, then W_down on a fixed intermediate), a yardstick;
@@ -1719,7 +1726,7 @@ def dense_decode_kernels(dev, cfg, flush, record):
     # the decode rows at which all three run, every instance held to the
     # plain version outright where it does not run on tensor cores
     decode_rows = (1, 4, 6, 8)
-    for B in sorted(set(decode_rows) | set(DENSE_WGMMA_ROWS)):
+    for B in sorted(set(decode_rows) | set(DENSE_WGMMA_ROWS) | set(DENSE_O_ROWS)):
         x = torch.randn((B, H), device=dev, generator=g).to(bf)
         a = torch.randn((B, NQ), device=dev, generator=g).to(bf)
         mid = torch.randn((B, I), device=dev, generator=g).to(bf)
@@ -1746,7 +1753,8 @@ def dense_decode_kernels(dev, cfg, flush, record):
                                    "down_proj"), (x,), H, 3 * H * I),
         }
         for name, (kern, ref, lib, forced, reads, acts, cols, macs) in cases.items():
-            if name == "fused_o_residual" and B not in decode_rows:
+            k3 = name == "fused_o_residual"
+            if B not in (DENSE_O_ROWS if k3 else decode_rows + DENSE_WGMMA_ROWS):
                 continue
             floor = (fused_mlp.intermediate_ulp_bound(x, two, 1)
                      if name == "fused_mlp_decode" else None)
@@ -1756,12 +1764,16 @@ def dense_decode_kernels(dev, cfg, flush, record):
             route = routes[name](B)
             moved = nbytes(*acts, *reads) + B * cols * x.element_size()
             label = f"8B width dense bf16 B={B} layer 1"
+            # the host's cost a call also where K3's boundary lies (4 rows)
+            host = B == 1 or (k3 and B == 4)
             check_and_time(record, name + sfx[route], f"{label} ({what[route]})", kern, ref,
                            moved, 2 * B * macs, BF16_OPS, flush,
                            main=B == (CHUNK_ROWS if route == "wgmma" else 1),
-                           dispatch=B == 1, floor=floor, library=lib, want=own(route))
-            others = ["rows"] if B > 8 or B == 1 else ["ring", "rows"] + (
-                ["wgmma"] if name != "fused_o_residual" else [])
+                           dispatch=host, floor=floor, library=lib, want=own(route))
+            # K3's tensor-core instance also at 1-4, beside the ring: where
+            # its boundary (fused_qkvo.DENSE_O_RING_ROWS) lies
+            others = (["rows"] if B > 8 or (B == 1 and not k3)
+                      else ["ring", "rows", "wgmma"])
             for other in others:
                 if other == route:
                     continue
@@ -1770,7 +1782,8 @@ def dense_decode_kernels(dev, cfg, flush, record):
                 check_and_time(record, name + sfx[other], f"{label} ({kind}, which the rule "
                                "does not take here)", lambda: forced(other), ref, moved,
                                2 * B * macs, BF16_OPS, flush, main=False, floor=floor,
-                               library=lib, want=own(other))
+                               library=lib, want=own(other),
+                               dispatch=k3 and B == 4 and other in ("ring", "wgmma"))
             if (route == "ring" and B in (1, 4)) or (route == "wgmma" and B == CHUNK_ROWS):
                 split, span = profile_split(kern, flush)
                 log(f"phase 1 {name}{sfx[route]} B={B} launches (profiler, device ms each, "
@@ -4853,8 +4866,8 @@ def eval_phase(dev, cfg):
     questions at batch 4 and at batch 1 (equal up to a logged near tie, held
     by generate's teacher-forced logits), with the launches per request
     asserted (K4 23 an encode, K5 a prefill once a layer; a decode step
-    dense K2 on the weight ring, K1 and K3 on it at <= 4 rows (row per warp
-    at beam search's 6) once a layer each) and one
+    dense K1-K3 on the weight ring at <= 4 rows (tensor cores past them)
+    once a layer each) and one
     batch traced; ``run_eval(num_beams=3)`` on 2
     questions
     (``check_beam``: beam search's guarantee against greedy's answer);
@@ -4930,8 +4943,7 @@ def eval_phase(dev, cfg):
     def request(steps, rows):
         """The launches of one generate call of ``steps`` decode steps at
         ``rows`` rows: dense K1-K3 on the instances their rules take (the
-        ring at 1-4 rows; K1 and K2 on tensor cores, K3 row per warp, at
-        beam search's 6)."""
+        ring at 1-4 rows; tensor cores past them)."""
         return {"encoder_attention": vis, "flash_fwd": L,
                 **dense_fused_launches(llm, {rows: steps}, sms)}
 
@@ -5169,18 +5181,21 @@ def named_projections():
 
 
 @contextlib.contextmanager
-def dense_routes_before():
-    """The dense routes of 5-8 rows as they stood before K1's and K2's dense
-    tensor-core instances (K1 row per warp past the ring's 4 rows, K2 on
-    the ring up to 8): DENSE_WGMMA_MIN_ROWS at 9, in both modules whose
-    rules read it (phase 12's comparison of an 8-slot tick)."""
-    from slime_tpu_torch.ops import fused_mlp, fused_qkvo
-    now = fused_qkvo.DENSE_WGMMA_MIN_ROWS
-    fused_mlp.DENSE_WGMMA_MIN_ROWS = fused_qkvo.DENSE_WGMMA_MIN_ROWS = 9
+def dense_k3_before():
+    """Dense bf16 K3's route as it stood before its tensor-core instance:
+    row per warp where ``k3_route`` now says "wgmma" (phase 12's comparison
+    of the 64-row chunk and an 8-slot tick); every other route as now."""
+    from slime_tpu_torch.ops import fused_qkvo
+    now = fused_qkvo.k3_route
+
+    def before(B, dtype, fmt, NQ, H, sms):
+        route = now(B, dtype, fmt, NQ, H, sms)
+        return "rows" if fmt == fused_qkvo.DENSE and route == "wgmma" else route
+    fused_qkvo.k3_route = before
     try:
         yield
     finally:
-        fused_mlp.DENSE_WGMMA_MIN_ROWS = fused_qkvo.DENSE_WGMMA_MIN_ROWS = now
+        fused_qkvo.k3_route = now
 
 
 def kernel_shares(path, busy):
@@ -5200,14 +5215,17 @@ def eval_engine(dev, cfg, params):
     then speculating (spec_k EVAL_SPEC_K, 8 rounds a dispatch) with phase
     9's random 0.6B dense bf16 draft (its widths take the non-fused
     decode). Launches asserted on the card: K1-K3 on the instances their
-    rules take (K1 and K2 on their dense tensor-core instances, K3 row per
-    warp) once a layer in the 300-token prompt's 64-row fused chunk, in
-    every 8-slot decode step and in every 40-row verify chunk. The plain
+    rules take (their dense tensor-core instances, as many launches each,
+    K3 never row per warp) once a layer in the 300-token prompt's 64-row
+    fused chunk, in every 8-slot decode step and in every 40-row verify
+    chunk. The plain
     engine's tokens held to ``generate``'s, the speculating engine's to
     the plain engine's, up to ``near_tie_rule``. Device times (profiler):
-    the 64-row chunk, an 8-slot tick at k = 1 and k = 8 (beside its host
-    time), a speculative tick's verify chunks, with K1's, K2's and K3's
-    share of each. Returns the counted runs' launches."""
+    the 64-row chunk and an 8-slot tick at k = 1, each in turns with dense
+    K3 row per warp as before (``dense_k3_before``, uncounted), the tick at
+    k = 8 (each tick beside its host time), a speculative tick's verify
+    chunks, with K1's, K2's and K3's share of each. Returns the counted
+    runs' launches."""
     from slime_tpu_torch import generate as gen
     from slime_tpu_torch.models import llama
     from slime_tpu_torch.models.layers import fp32_accumulation
@@ -5268,6 +5286,13 @@ def eval_engine(dev, cfg, params):
         if 64 not in fused or (wrong and dev.type == "cuda"):
             raise AssertionError(f"phase 12 {tag} launches {wrong} (expected {want}); fused "
                                  f"chunks {fused}")
+        tc = [counts.get(n + "_dense_wgmma", 0) for n in DENSE_WGMMA]
+        if dev.type == "cuda" and (counts.get("fused_o_residual_dense", 0)
+                                   or len(set(tc)) != 1 or not tc[0]):
+            raise AssertionError(f"phase 12 {tag}: dense K2, K3, K1 on tensor cores {tc} "
+                                 f"times, K3 row per warp "
+                                 f"{counts.get('fused_o_residual_dense', 0)}: expected as "
+                                 f"many tensor-core launches each and none row per warp")
 
     # ---- the plain engine, against generate ----
     eng, plain, wall, counts = run()
@@ -5294,24 +5319,27 @@ def eval_engine(dev, cfg, params):
             cache1["length"].fill_(256)
             eng._prefill_chunk(cache1, tail)
         torch.cuda.synchronize()
-        path = out / "profile_eval_chunk_64.json"
-        with named_projections():
-            traced = profiled(lambda: eng._prefill_chunk(cache1, tail), path,
-                              start=lambda: cache1["length"].fill_(256))
-        if traced:
-            busy, n, _ = trace_device(path)
-            log(f"phase 12 64-row fused chunk (dense): device busy {busy:.3f} ms, {n} launches; "
-                f"{kernel_shares(path, busy)}")
+        for i, before in enumerate((False, True, True, False)):
+            path = out / f"profile_eval_chunk_64_{i}.json"
+            cache1["length"].fill_(256)
+            with named_projections(), dense_k3_before() if before else contextlib.nullcontext():
+                traced = profiled(lambda: eng._prefill_chunk(cache1, tail), path,
+                                  start=lambda: cache1["length"].fill_(256))
+            if traced:
+                busy, n, _ = trace_device(path)
+                log(f"phase 12 64-row fused chunk (dense"
+                    + (", K3 row per warp as before its tensor-core instance" if before else "")
+                    + f"): device busy {busy:.3f} ms, {n} launches; {kernel_shares(path, busy)}")
         del cache1
 
-    # an 8-slot tick at k = 1 and k = 8, traced; at k = 1 in turns with the
-    # dense routes before the tensor-core instances (uncounted)
+    # an 8-slot tick at k = 1 and k = 8, traced; at k = 1 in turns with
+    # dense K3's route before its tensor-core instance (uncounted)
     busy_reqs = fill_slots(eng)
     eng.tick()
     for i, (k, before) in enumerate(((1, False), (1, True), (1, True), (1, False), (8, False))):
         eng._flush_inflight()
         eng.multi_step = k
-        with dense_routes_before() if before else contextlib.nullcontext():
+        with dense_k3_before() if before else contextlib.nullcontext():
             for _ in range(3):
                 eng.tick()
             walls = []
@@ -5333,8 +5361,7 @@ def eval_engine(dev, cfg, params):
         if traced:
             busy, n, _ = trace_device(path)
             log(f"phase 12 tick, {EVAL_SLOTS} live slots, k = {k}"
-                + (" (the dense routes before the tensor-core instances: K1 row per warp, "
-                   "K2 on the ring)" if before else "")
+                + (" (K3 row per warp as before its tensor-core instance)" if before else "")
                 + f": host wall {wall_ms:.2f} ms (median of 5), device busy {busy / 3:.3f} ms "
                 f"a tick, idle share {1 - busy / 3 / wall_ms:.3f}, {n / 3:.0f} launches a "
                 f"tick; over 3 ticks {kernel_shares(path, busy)}")

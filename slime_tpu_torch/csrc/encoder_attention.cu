@@ -42,8 +42,7 @@
 // same semantics on the FFMA units, rounded where encoder_attention_ref rounds
 // for fp32 inputs: qs = q * scale and p enter their products unrounded (their
 // dtype is fp32), while p = exp(bf16(min(s, 80))) and l = bf16(sum p) keep
-// their bf16 roundings. It is the simplest right kernel, in the style of
-// flash_attention.cu's FFMA forward.
+// their bf16 roundings. Its design is described above the kernel.
 #include "hopper_common.cuh"
 
 namespace {
@@ -173,11 +172,39 @@ int launch_enc(EncParams& p, const void* q, const void* k, const void* v, void* 
   return (int)cudaGetLastError();
 }
 
-// One block per (64 query rows, head, crop), 256 threads: thread (ty = tid /
-// 16, tx = tid % 16) owns rows 4 ty .. 4 ty + 3, keys tx + 16 c (c < 4) of a
-// 64-key tile and output columns tx + 16 n (n < DP / 16). q (scaled), k and
-// v tiles are staged as [64][DP + 1] floats, D zero-padded to DP (64 or 128):
-// the 16 threads reading 16 keys at one depth hit 16 distinct banks.
+// fp32 q/k/v: an FFMA kernel. What bounds it on this card: the two products
+// (2 x 2 x 577^2 x 64 flops a head: 0.163 ms for CLIP-L's 128 heads at 67
+// TFLOP/s) weigh 15 times its bytes, and an SM issues 128 FMAs a clock but
+// moves 128 bytes a clock from shared memory into registers, so the design
+// keeps each loaded word feeding 4 or 8 FMAs and the copies off the FMA
+// units' path:
+//   - one block per (BM query rows, head, crop), 2 BM threads: thread (ty =
+//     tid / 16, tx = tid % 16) holds rows 8 ty .. 8 ty + 7 and keys tx + 16 c
+//     (c < 4) of a 64-key tile's S, and the same rows by columns 4 tx .. 4 tx
+//     + 3 (+ 64 where D > 64) of O, in registers (8 x 4 and 8 x 4 or 8 x 8);
+//   - q (scaled once, fp32) stays in shared memory row-major; its reads are
+//     float4 over 4 depths: per 4 depths 8 q and 4 k float4 loads feed 128
+//     FMAs; p goes to shared memory key-major, so P.V reads 2 float4 of p
+//     and 1-2 of v a key for 32-64 FMAs;
+//   - k and v tiles of 64 keys come by 16-byte cp.async (zero-filled past S
+//     and past D) into a two-stage ring: the next tile's copy is issued
+//     right after the one barrier of a tile and lands while this tile
+//     computes;
+//   - row strides padded by 4 floats (q and k rows, p's key rows) and q's
+//     rows skewed by 4 more every 8, so a warp's 16 distinct k rows, and
+//     the 2 q rows 8 apart that it reads at once, fall in distinct banks;
+//   - a row's keys live in one half-warp, so p is exchanged with __syncwarp
+//     only; warps whose rows all lie past S skip the arithmetic, and P.V
+//     stops at the tile's last key (rounded up to 4).
+// It reaches about 36% of the FFMA peak on an H100 (PERF.md, K4); 64 query
+// rows a block, 8 x 8 tiles, depth-major q and k, and S and P.V on two
+// warp groups of a block were tried beside it and ran no faster. BM is 128
+// at D <= 64 (136 KB of shared memory) and 64 at D <= 128 (184 KB).
+// Semantics as encoder_attention_ref for fp32 inputs: qs = q * scale and p
+// enter their products unrounded (their dtype is fp32), p = exp(bf16(min(s,
+// 80))), l = bf16(sum p) from the fp32 sum (in another order), o = (sum p v)
+// / l. q/k/v are read through their (batch, seq, head) strides, every one a
+// multiple of 16 bytes (the wrapper copies a view that is not).
 struct EncF32Params {
   const float* q; const float* k; const float* v;
   float* o;
@@ -186,101 +213,168 @@ struct EncF32Params {
   float scale;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(256) enc_attn_f32_kernel(const EncF32Params p) {
-  constexpr int LD = DP + 1, NO = DP / 16, LDP = 65;
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  float* Qs = reinterpret_cast<float*>(smem_f32);             // [64][LD]
-  float* Ks = Qs + 64 * LD;                                     // [64][LD]
-  float* Vs = Ks + 64 * LD;                                     // [64][LD]
-  float* Ps = Vs + 64 * LD;                                     // [64][LDP]
-  const int S = p.S, D = p.D, q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// the fp32 kernel's shared memory, in floats: q [BM rows of DP + 4, skewed],
+// k [2][64][DP + 4], v [2][64][DP], p key-major [64][BM + 4]
+template <int DP, int BM>
+struct F32Cfg {
+  static constexpr int BN = 64, NT = 2 * BM, LQ = DP + 4, LP = BM + 4;
+  static constexpr int QF = BM * LQ + BM / 2, KF = BN * LQ, VF = BN * DP, PF = BN * LP;
+  static constexpr size_t SMEM = (size_t)(QF + 2 * KF + 2 * VF + PF) * sizeof(float);
+};
+
+// float offset of q row r: 4 floats of skew every 8 rows
+__device__ __forceinline__ int q_row(int r, int lq) { return r * lq + (r >> 3) * 4; }
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src unread)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+template <int DP, int BM>
+__global__ void __launch_bounds__(2 * BM) enc_attn_f32_kernel(const EncF32Params p) {
+  using C = F32Cfg<DP, BM>;
+  constexpr int BN = C::BN, NT = C::NT, LQ = C::LQ, LP = C::LP, C4 = DP / 4, NH = DP / 64;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;
+  float* Ks = Qs + C::QF;
+  float* Vs = Ks + 2 * C::KF;
+  float* Pt = Vs + 2 * C::VF;
+  const int S = p.S, D = p.D, q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float* qp = p.q + b * p.st[0] + h * p.st[2];
   const float* kp = p.k + b * p.st[3] + h * p.st[5];
   const float* vp = p.v + b * p.st[6] + h * p.st[8];
-  for (int e = threadIdx.x; e < 64 * DP; e += 256) {
-    const int r = e / DP, c = e % DP;
-    Qs[r * LD + c] = q0 + r < S && c < D ? qp[(q0 + r) * p.st[1] + c] * p.scale : 0.f;
+  const int ntiles = (S + BN - 1) / BN;
+
+  auto stage = [&](int j) {             // key tile j into ring stage j & 1
+    float* ks = Ks + (j & 1) * C::KF;
+    float* vs = Vs + (j & 1) * C::VF;
+    for (int e = tid; e < BN * C4; e += NT) {
+      const int r = e / C4, c = (e % C4) * 4, key = j * BN + r;
+      const bool in = key < S && c < D;
+      cp_async16(ks + r * LQ + c, in ? kp + key * p.st[4] + c : kp, in);
+      cp_async16(vs + r * DP + c, in ? vp + key * p.st[7] + c : vp, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage(0);
+  for (int e = tid; e < BM * C4; e += NT) {
+    const int r = e / C4, c = (e % C4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S && c < D) {
+      x = *reinterpret_cast<const float4*>(qp + (q0 + r) * p.st[1] + c);
+      x = make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
+    }
+    *reinterpret_cast<float4*>(Qs + q_row(r, LQ) + c) = x;
   }
-  float o[4][NO], l[4];
+
+  // a warp's rows are 16 (ty pairs 2w, 2w + 1): it works if any lies below S
+  const bool live = q0 + (tid >> 5) * 16 < S;
+  float o[8][4 * NH], l[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     l[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) o[i][n] = 0.f;
+    for (int n = 0; n < 4 * NH; ++n) o[i][n] = 0.f;
   }
-  for (int k0 = 0; k0 < S; k0 += 64) {
-    __syncthreads();                                            // the last tile is consumed
-    for (int e = threadIdx.x; e < 64 * DP; e += 256) {
-      const int r = e / DP, c = e % DP;
-      const bool in = k0 + r < S && c < D;
-      Ks[r * LD + c] = in ? kp[(k0 + r) * p.st[4] + c] : 0.f;
-      Vs[r * LD + c] = in ? vp[(k0 + r) * p.st[7] + c] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4];
+  for (int j = 0; j < ntiles; ++j) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();                    // tile j landed; tile j - 1's stage is free
+    if (j + 1 < ntiles) stage(j + 1);
+    if (!live) continue;
+    const float* ks = Ks + (j & 1) * C::KF;
+    const float* vs = Vs + (j & 1) * C::VF;
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[4];
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      float4 kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + d];
+      for (int c = 0; c < 4; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * LQ + d);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + q_row(8 * ty + i, LQ) + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = k0 + tx + 16 * c < S ? expf(bf16r(fminf(s[i][c], kClamp))) : 0.f;
-        Ps[(4 * ty + i) * LDP + tx + 16 * c] = e;
-        l[i] += e;
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qv.x, kv[c].x, s[i][c]);
+          s[i][c] = fmaf(qv.y, kv[c].y, s[i][c]);
+          s[i][c] = fmaf(qv.z, kv[c].z, s[i][c]);
+          s[i][c] = fmaf(qv.w, kv[c].w, s[i][c]);
+        }
       }
-    __syncwarp();                                               // a row's p is its half-warp's
-#pragma unroll 4
-    for (int kk = 0; kk < 64; ++kk) {
-      float pv[4], vv[NO];
+    }
+    const int k0 = j * BN, kn = min(BN, S - k0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * LDP + kk];
+    for (int c = 0; c < 4; ++c) {
+      const bool in = tx + 16 * c < kn;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) vv[n] = Vs[kk * LD + tx + 16 * n];
+      for (int i = 0; i < 8; ++i) {
+        const float e = in ? expf(bf16r(fminf(s[i][c], kClamp))) : 0.f;
+        l[i] += e;
+        s[i][c] = e;
+      }
+      float* prow = Pt + (tx + 16 * c) * LP + 8 * ty;
+      *reinterpret_cast<float4*>(prow) = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      *reinterpret_cast<float4*>(prow + 4) = make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+    }
+    __syncwarp();                       // a row's p is its half-warp's
+    const int kend = (kn + 3) & ~3;     // p and v are 0 past S
+    for (int kk = 0; kk < kend; kk += 4) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int t = 0; t < 4; ++t) {
+        const float4 pa = *reinterpret_cast<const float4*>(Pt + (kk + t) * LP + 8 * ty);
+        const float4 pb = *reinterpret_cast<const float4*>(Pt + (kk + t) * LP + 8 * ty + 4);
+        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-        for (int n = 0; n < NO; ++n) o[i][n] = fmaf(pv[i], vv[n], o[i][n]);
+        for (int n = 0; n < NH; ++n) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vs + (kk + t) * DP + 64 * n + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[i][4 * n] = fmaf(pr[i], vv.x, o[i][4 * n]);
+            o[i][4 * n + 1] = fmaf(pr[i], vv.y, o[i][4 * n + 1]);
+            o[i][4 * n + 2] = fmaf(pr[i], vv.z, o[i][4 * n + 2]);
+            o[i][4 * n + 3] = fmaf(pr[i], vv.w, o[i][4 * n + 3]);
+          }
+        }
+      }
     }
   }
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float lt = l[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
     lt = bf16r(lt);
-    const int row = q0 + 4 * ty + i;
+    const int row = q0 + 8 * ty + i;
     if (row >= S) continue;
     float* orow = p.o + (((long long)b * S + row) * p.H + h) * D;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      if (tx + 16 * n < D) orow[tx + 16 * n] = o[i][n] / lt;
+    for (int n = 0; n < NH; ++n) {
+      const int col = 64 * n + 4 * tx;
+      if (col < D)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(o[i][4 * n] / lt, o[i][4 * n + 1] / lt, o[i][4 * n + 2] / lt,
+                        o[i][4 * n + 3] / lt);
+    }
   }
 }
 
-template <int DP>
+template <int DP, int BM>
 int launch_enc_f32(const EncF32Params& p, int B, void* stream) {
-  const size_t smem = (size_t)(3 * 64 * (DP + 1) + 64 * 65) * sizeof(float);
-  auto kernel = enc_attn_f32_kernel<DP>;
+  using C = F32Cfg<DP, BM>;
+  auto kernel = enc_attn_f32_kernel<DP, BM>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+                                       (int)C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((p.S + 63) / 64, p.H, B), 256, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<dim3((p.S + BM - 1) / BM, p.H, B), C::NT, C::SMEM, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -291,7 +385,8 @@ extern "C" {
 // q/k/v [B, S, H, D] bf16 (fp32 == 0) or fp32 (fp32 == 1) with unit stride
 // over D and element strides (batch, seq, head), 16-byte aligned; o is a
 // contiguous [B, S, H, D] output of their dtype. S <= 1024, D <= 128, D % 8
-// == 0 (the wrapper checks). fp32 takes the FFMA kernel (variant 0 only).
+// == 0 (the wrapper checks). fp32 takes the FFMA kernel (variant 0 only):
+// 128 query rows a block at D <= 64, 64 at D <= 128 (shared memory).
 // variant 0 is the production design; 1-3 are the P2 probe's others (D <= 64):
 //   0: 128 query rows (2 warpgroups), 64-key tiles, 2 stages
 //   1:  64 query rows (1 warpgroup),  64-key tiles, 2 stages
@@ -317,7 +412,8 @@ int slime_encoder_attention(const void* q, const void* k, const void* v, void* o
     f.H = H;
     f.D = D;
     f.scale = scale;
-    return D <= 64 ? launch_enc_f32<64>(f, B, stream) : launch_enc_f32<128>(f, B, stream);
+    return D <= 64 ? launch_enc_f32<64, 128>(f, B, stream)
+                   : launch_enc_f32<128, 64>(f, B, stream);
   }
   EncParams p;
   p.S = S;

@@ -1477,17 +1477,21 @@ int slime_mlp_wgmma(int wfmt, const void* x, const void* norm_w, float eps, void
   return split_wgmma(wfmt, a, B, I, &wd, dn, x, ws, splits, kb_per_split, st);
 }
 
-// K3 on tensor cores: y [B, H] = x + attn W_o^T (scaled) for bf16 attn [B,
-// NQ] and x [B, H] (any B; the wrapper's rule sends 9 and more rows) and int8
-// W_o [H, NQ] with fp32 scales [H]: K1's down launch (split_wgmma) over
-// attn, split over NQ into `splits` ranges of `kb_per_split` stages in ws
-// [splits, B, H], x the residual. NQ a multiple of 16 and at least 256.
-// Returns the first launch error (or a tensor-map error code), or 0.
-int slime_o_wgmma(const void* attn, const void* x, void* ws, void* y, int B, int NQ, int H,
-                  const void* wo, const void* so, int splits, int kb_per_split, void* stream) {
+// K3 on tensor cores: y [B, H] = x + attn W_o^T for bf16 attn [B, NQ] and x
+// [B, H] (any B; the wrapper's rule sends 9 and more rows on int8 weights,
+// DENSE_WGMMA_MIN_ROWS and more on dense ones) and int8 W_o [H, NQ] with
+// fp32 scales [H] (wfmt kInt8) or dense bf16 W_o without (kDense, so null):
+// K1's down launch (split_wgmma) over attn, split over NQ into `splits`
+// ranges of `kb_per_split` stages (128 int8 or 64 dense columns) in ws
+// [splits, B, H], x the residual. NQ as TMA reads the rows (int8: a
+// multiple of 16, dense: of 8; at least 256). Returns the first launch
+// error (or a tensor-map error code), or 0.
+int slime_o_wgmma(int wfmt, const void* attn, const void* x, void* ws, void* y, int B, int NQ,
+                  int H, const void* wo, const void* so, int splits, int kb_per_split,
+                  void* stream) {
   const SplitOut o = {{(const float*)so}, {(bf16*)y}, {H}, 1};
-  if (so == nullptr) return (int)cudaErrorInvalidValue;
-  return split_wgmma(kInt8, attn, B, NQ, &wo, o, x, ws, splits, kb_per_split,
+  if (wfmt == kDense ? so != nullptr : so == nullptr) return (int)cudaErrorInvalidValue;
+  return split_wgmma(wfmt, attn, B, NQ, &wo, o, x, ws, splits, kb_per_split,
                      (cudaStream_t)stream);
 }
 

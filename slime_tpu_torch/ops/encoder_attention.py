@@ -5,14 +5,17 @@ Port of ``slime_tpu/ops/encoder_attention.py``. The TPU kernel (K4,
 replaces the softmax's row-max subtract with a clamp, ``exp(min(s, 80))``: the
 result equals the stabilized softmax unless a score exceeds 80, and fp32 cannot
 overflow (1024 * e^80 < fp32 max). The Hopper kernel
-(``csrc/encoder_attention.cu``: TMA tiles in an mbarrier ring, both products
-as ``wgmma``) keeps those semantics; ``encoder_attention_ref`` is the same math
-in plain PyTorch.
+(``csrc/encoder_attention.cu``; in bf16 TMA tiles in an mbarrier ring, both
+products as ``wgmma``) keeps those semantics; ``encoder_attention_ref`` is
+the same math in plain PyTorch.
 
-The kernel takes bf16 (``wgmma``) or fp32 (an FFMA kernel, the tower's
-default compute dtype) q/k/v and returns their dtype. Which CUDA inputs
-launch it is JAX's rule (``takes_kernel``, a pure function of the shape); the
-others take ``stable_attention``, JAX's ``_xla_attention``.
+The kernel takes bf16 (``wgmma``) or fp32 q/k/v and returns their dtype.
+fp32 (the tower's default compute dtype) runs an FFMA kernel designed for
+Hopper's FFMA units: 8 x 4 register tiles of S and O (8 x 8 of O at D > 64)
+fed by float4 shared-memory reads, k/v tiles of 64 keys in a two-stage
+``cp.async`` ring, 128 query rows a block (64 at D > 64). Which CUDA inputs
+launch it is JAX's rule (``takes_kernel``, a pure function of the shape);
+the others take ``stable_attention``, JAX's ``_xla_attention``.
 
 The gradient is JAX's (``_enc_bwd``, :133-138): the backward recomputes the
 attention through the plain stabilized softmax (``stable_attention``, JAX's

@@ -25,17 +25,17 @@ layout is accepted by its shape and read transposed. NF4 and grouped int8
 have no fused kernel (``llama._fused_fmt``) and raise here.
 
 bf16 activations with int8 weights at B >= K1_WGMMA_MIN_ROWS (9: the
-engine's fused chunks, the speculative verify chunk), and K2's with dense
-bf16 weights at B >= DENSE_WGMMA_MIN_ROWS (5: a bf16 checkpoint's chunks,
-its verify chunk and its decode steps past 4 rows), take the tensor-core
+engine's fused chunks, the speculative verify chunk), and with dense bf16
+weights at B >= DENSE_WGMMA_MIN_ROWS (5: a bf16 checkpoint's chunks, its
+verify chunk and its decode steps past 4 rows), take the tensor-core
 instance where TMA reads the rows (``qkv_wgmma_instance``,
-``o_wgmma_instance``): K1's down launch (``slime_o_wgmma``: K6's int8
-wgmma main loop split over the contraction into an fp32 workspace, then a
+``o_wgmma_instance``): K1's down launch (``slime_o_wgmma``: K6's wgmma
+main loop split over the contraction into an fp32 workspace, then a
 reduction that adds the splits in order, scales and adds x), for K2 after
 the row norm over the row space [W_q; W_k; W_v] (``slime_qkv_wgmma``: NQ
 and NQ + NKV on 128-row blocks, one tensor map a matrix; the reduction
-writes q, k and v apart; dense weights are the main loop's A operand from
-shared memory, 64 columns a stage, no scales). Short of those rows, bf16
+writes q, k and v apart). Dense weights are the main loop's A operand from
+shared memory, 64 columns a stage, no scales. Short of those rows, bf16
 activations with int8, q4g or dense bf16 weights at B <= 8
 (``ring_instance``: the decode steps of the int8 and 4-bit serving paths
 and of a bf16 checkpoint; dense K3 at B <= DENSE_O_RING_ROWS, 4) take the
@@ -44,8 +44,8 @@ plan exists (``qkv_ring_route``, ``o_ring_route``): K2 as one ring launch
 over the row space of W_q, W_k and W_v whose blocks each normalise x as
 they stage it (no row-norm launch), K3 as one ring launch; each a
 programmatic dependent of the caller's last kernel. Every other input, fp32
-activations, dense K3 past 4 rows and a layer too wide for the ring's
-shared memory included, takes the row-per-warp kernels. The routing rules
+activations and a layer too wide for the ring's shared memory included,
+takes the row-per-warp kernels. The routing rules
 ``k2_route`` and ``k3_route`` name the instance: "ring", "wgmma" or
 "rows". Sums on every instance are fp32 over the exact products (bf16 x
 bf16, int8 or int4), in other orders than the plain version's; the
@@ -77,24 +77,31 @@ from .weight_ring import DENSE, DENSE_F32, INT8, Q4G, ring_instance
 
 _FMT_NAMES = {DENSE: "dense", INT8: "int8", Q4G: "q4g"}
 ACT_DTYPES = (torch.bfloat16, torch.float32)
-# dense bf16 K3 takes the ring at these many rows at most: on an H100 at
-# SliME-8B's width (W_o [4096, 4096]) the ring beat the row-per-warp kernel
-# at 1 and 4 rows and lost at 6 (PERF.md, K3 dense). Measured at that width
-# only
+# dense bf16 K3 takes the ring at these many rows at most, its tensor-core
+# instance from DENSE_WGMMA_MIN_ROWS: on an H100 at SliME-8B's width (W_o
+# [4096, 4096]) the tensor-core instance beat the ring at 5-8 rows (0.0255-
+# 0.0267 ms against 0.0340-0.0418) and lost at 1-2; alone, L2 flushed, it
+# beat the ring at 4 too (0.0252-0.0266 against 0.0292-0.0294, three
+# calls), but in a decode step at 4 rows, where the ring's launch overlaps
+# the last kernel's tail (PDL) and the tensor-core instance launches twice,
+# the gain did not show: 6.62 ms on the device with K3 on tensor cores
+# against 6.49 and 6.78 on the ring, three calls (PERF.md, K3 dense
+# wgmma), so 4 rows stay on the ring until one call compares the step in
+# turns. Measured at that width only
 DENSE_O_RING_ROWS = 4
 # int8 weights in bf16 take the tensor-core instances of K1-K3 from this many
 # rows (the ring takes 1-8): on an H100 at SliME-8B's width K1's beat the
 # row-per-warp kernels at every B from 9 to 128 (PERF.md, K1 wgmma), and
 # K2's and K3's run the same main loop
 K1_WGMMA_MIN_ROWS = 9
-# dense bf16 weights in bf16 take the tensor-core instances of K1 and K2
-# from this many rows (the ring below): on an H100 at SliME-8B's width K1's
-# beat the row-per-warp kernels at 5, 6 and 8 rows (0.1486, 0.1483, 0.1482
-# ms against 0.2224, 0.2342, 0.2672; its ring takes 1-4), where one pass
-# over the weights costs the same at any tile fill, and K2's beat the ring
-# there (0.0389, 0.0392, 0.0388 against 0.0429, 0.0460, 0.0520) and lost
-# at 4 (0.0390 against 0.0339; PERF.md, K1 and K2 dense wgmma). Measured at
-# that width only
+# dense bf16 weights in bf16 take the tensor-core instances of K1-K3 from
+# this many rows (the ring below): on an H100 at SliME-8B's width K1's beat
+# the row-per-warp kernels at 5, 6 and 8 rows (0.1486, 0.1483, 0.1482 ms
+# against 0.2224, 0.2342, 0.2672; its ring takes 1-4), where one pass over
+# the weights costs the same at any tile fill, and K2's beat the ring there
+# (0.0389, 0.0392, 0.0388 against 0.0429, 0.0460, 0.0520) and lost at 4
+# (0.0390 against 0.0339; PERF.md, K1 and K2 dense wgmma); K3's: above.
+# Measured at that width only
 DENSE_WGMMA_MIN_ROWS = 5
 WGMMA_TOK = 64          # tokens a tile of the tensor-core instances (wgmma n64)
 _WG_ROWS = 128          # rows of the row space a block
@@ -340,7 +347,7 @@ def wgmma_plan(B: int, N: int, K: int, sms: int, splits=None, fmt: int = INT8):
     into about ``splits`` where given; none empty. At SliME-8B's width on
     132 SMs up to 64 rows, int8: K1's down (N 4096, K 14336) 4 splits of 28
     stages, K2 (N 6144, K 4096) 2 of 16, K3 (N 4096, K 4096) 4 of 8; dense:
-    K1's down 4 of 56, K2 2 of 32."""
+    K1's down 4 of 56, K2 2 of 32, K3 4 of 16."""
     blocks = -(-N // _WG_ROWS) * -(-B // WGMMA_TOK)
     n_kb = -(-K // wgmma_stage_cols(fmt))
     want = max(1, min(n_kb, sms // blocks if splits is None else splits))
@@ -359,8 +366,9 @@ def qkv_wgmma_instance(dtype, fmt: int, H: int, NQ: int, NKV: int) -> bool:
 
 def o_wgmma_instance(dtype, fmt: int, NQ: int) -> bool:
     """Whether K3's tensor-core instance takes the operands: bf16 attn and
-    x, int8 W_o whose rows of NQ bytes TMA reads."""
-    return dtype == torch.bfloat16 and fmt == INT8 and k6_wgmma_strides(NQ, INT8)
+    x, int8 or dense bf16 W_o whose rows of NQ columns TMA reads
+    (``wgmma_strides``)."""
+    return dtype == torch.bfloat16 and wgmma_strides(NQ, fmt)
 
 
 def k2_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int) -> str:
@@ -379,11 +387,14 @@ def k2_route(B: int, dtype, fmt: int, H: int, NQ: int, NKV: int, sms: int) -> st
 
 def k3_route(B: int, dtype, fmt: int, NQ: int, H: int, sms: int) -> str:
     """The routing rule of ``fused_o_residual``: "ring" where
-    ``o_ring_route`` has a plan, "wgmma" where ``o_wgmma_instance`` holds at
-    B >= K1_WGMMA_MIN_ROWS, "rows" for everything else."""
+    ``o_ring_route`` has a plan (dense weights at B <= DENSE_O_RING_ROWS
+    only), "wgmma" where ``o_wgmma_instance`` holds at B >=
+    K1_WGMMA_MIN_ROWS (int8) or DENSE_WGMMA_MIN_ROWS (dense), "rows" for
+    everything else."""
     if o_ring_route(B, dtype, fmt, NQ, H, sms) is not None:
         return "ring"
-    if B >= K1_WGMMA_MIN_ROWS and o_wgmma_instance(dtype, fmt, NQ):
+    least = DENSE_WGMMA_MIN_ROWS if fmt == DENSE else K1_WGMMA_MIN_ROWS
+    if B >= least and o_wgmma_instance(dtype, fmt, NQ):
         return "wgmma"
     return "rows"
 
@@ -513,18 +524,18 @@ def o_launch(attn, x, layers, layer_idx, route=None, splits=None):
     if route == "ring" and plan is None:
         route = "rows"
     if route == "wgmma" and not o_wgmma_instance(x.dtype, fmt, NQ):
-        raise ValueError(f"K3's wgmma instance takes bf16 attn with int8 weights whose rows "
-                         f"TMA reads, got {x.dtype} format {fmt}, NQ {NQ}")
+        raise ValueError(f"K3's wgmma instance takes bf16 attn with int8 or dense bf16 "
+                         f"weights whose rows TMA reads, got {x.dtype} format {fmt}, NQ {NQ}")
     if route == "ring":
         _cuda.check(lib.slime_o_ring(
             fmt, int(wr.PDL), attn.data_ptr(), x.data_ptr(), y.data_ptr(), B, NQ, H,
             wo.data_ptr(), _cuda.ptr(so), ctypes.addressof(plan[1]), _cuda.stream()),
             "fused_o_residual (weight ring)")
     elif route == "wgmma":
-        n_split, per = wgmma_plan(B, H, NQ, sms, splits)
+        n_split, per = wgmma_plan(B, H, NQ, sms, splits, fmt)
         ws = torch.empty((n_split, B, H), dtype=torch.float32, device=x.device)
         _cuda.check(lib.slime_o_wgmma(
-            attn.data_ptr(), x.data_ptr(), ws.data_ptr(), y.data_ptr(), B, NQ, H,
+            fmt, attn.data_ptr(), x.data_ptr(), ws.data_ptr(), y.data_ptr(), B, NQ, H,
             wo.data_ptr(), _cuda.ptr(so), n_split, per, _cuda.stream()),
             "fused_o_residual (wgmma)")
     else:

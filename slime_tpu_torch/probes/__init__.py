@@ -1,8 +1,9 @@
 """Design probes of the TPU package, as hand-written kernels on the card:
 P1 (``quant_matmul``), P2 (``encoder_attention``), P3 (``int8_dot``) and P4
 (``q4g_unpack``); K8 at the CLIP-L tower's shapes (``w8a8_shapes``), K1 at
-SliME-8B's width (``mlp_decode``), K2 and K3 (``qkvo_decode``), and config
-B's TTFT and decode step traced, K6's share in them (``config_b``)."""
+SliME-8B's width (``mlp_decode``), K2 and K3 (``qkvo_decode``), K4 in fp32
+at CLIP-L's shape (``encoder_attention_f32``), and config B's TTFT and
+decode step traced, K6's share in them (``config_b``)."""
 from __future__ import annotations
 
 import statistics

@@ -10,13 +10,14 @@ routing rule of K1, K2 and K3 for every (B, dtype, weight format) that
 ``chip_smoke.py``'s phase 1 sends them, and at layers too wide for the
 ring's shared memory (they take the row-per-warp kernels instead of
 raising), dense bf16 weights included (K1-K3 at <= 4 rows on the ring,
-K1 and K2 from 5 on tensor cores); K1's choice among the ring, its
+from 5 on tensor cores); K1's choice among the ring, its
 tensor-core instance (bf16 x, int8 weights from 9 rows or dense bf16 ones
 from DENSE_WGMMA_MIN_ROWS, rows TMA reads) and the row-per-warp kernels,
 and the split over I of that instance's down projection (every stage
 once, one wave of blocks; 128 int8 or 64 dense columns a stage); K2's and
-K3's same choice (K2 also needs NQ and NQ + NKV on 128-row blocks; dense
-K3 has no tensor-core instance) and their splits over H and NQ; the
+K3's same choice (K2 also needs NQ and NQ + NKV on 128-row blocks) and
+their splits over H and NQ, dense K3's launch planned with its weight
+format; the
 launch plans at
 SliME-8B's width, the 0.6B draft's and small widths whose row counts are
 ragged against the blocks and the stages (every output row in exactly one
@@ -239,7 +240,7 @@ def test_dense_mlp_ring_row_limit():
 def test_dense_o_ring_row_limit():
     """Dense K3 takes the ring at 1-4 rows (``DENSE_O_RING_ROWS``: the card
     measured it faster than row per warp at 1 and 4 and slower at 6), the
-    row-per-warp kernel from 5, where its plans exist all the same
+    tensor-core instance from 5, where its plans exist all the same
     (``o_launch(ring=True)`` runs them: phase 1's comparison); at
     SliME-8B's width (W_o [4096, 4096]) one 8 KB row a stage, 16 stages, a
     warp a row, one band an SM, all of B <= 8 rows in one launch."""
@@ -361,16 +362,15 @@ K3_WGMMA_WIDTHS = [((4096, 4096), "wgmma"), ((2048, 2048), "wgmma"), ((256, 256)
 def test_k2_k3_route_rule(fmt, B):
     """bf16 x at SliME-8B's width: int8 weights take the ring at 1-8 rows
     and the tensor-core instance from 9, as K1's; q4g the ring at 1-8 and
-    the row-per-warp kernels from 9; dense bf16 K2 the ring at 1-4 and the
-    tensor-core instance from 5, K3 the ring at 1-4 and row per warp from 5;
-    fp32 x always row per warp."""
+    the row-per-warp kernels from 9; dense bf16 K2 and K3 the ring at 1-4
+    and the tensor-core instance from 5; fp32 x always row per warp."""
     bf, f32 = torch.bfloat16, torch.float32
     ring = {INT8: 8, Q4G: 8, DENSE: 4, wr.DENSE_F32: 0}[fmt]
     o_ring = 4 if fmt == DENSE else ring
     deep = "wgmma" if fmt in (INT8, DENSE) else "rows"
     assert fq.k2_route(B, bf, fmt, 4096, 4096, 1024, SMS) == ("ring" if B <= ring else deep)
     assert fq.k3_route(B, bf, fmt, 4096, 4096, SMS) == (
-        "ring" if B <= o_ring else "wgmma" if fmt == INT8 else "rows")
+        "ring" if B <= o_ring else deep)
     assert fq.k2_route(B, f32, fmt, 4096, 4096, 1024, SMS) == "rows"
     assert fq.k3_route(B, f32, fmt, 4096, 4096, SMS) == "rows"
     assert fq.K1_WGMMA_MIN_ROWS == fm.K1_WGMMA_MIN_ROWS == 9
@@ -478,14 +478,91 @@ def test_k1_dense_route_needs_rows_tma_reads(H, I, want, B):
 def test_k2_dense_route_needs_rows_tma_reads_and_whole_blocks(widths, want, B):
     """Dense bf16 K2 from 9 rows takes the tensor-core instance where TMA
     reads the rows of h and of the weights and a 128-row block never spans
-    two of W_q, W_k, W_v; elsewhere the row-per-warp kernels. Dense K3 never
-    takes a tensor-core instance: its rule says "rows" past the ring."""
+    two of W_q, W_k, W_v; elsewhere the row-per-warp kernels. Dense K3 takes
+    its tensor-core instance at each of these widths: TMA reads every NQ
+    here (rows of attn and W_o, 8 bf16 columns a 16 bytes, at least 256)
+    and its output rows need no block boundary."""
     H, NQ, NKV = widths
     bf = torch.bfloat16
     assert fq.k2_route(B, bf, DENSE, H, NQ, NKV, SMS) == want
     assert fq.qkv_wgmma_instance(bf, DENSE, H, NQ, NKV) == (want == "wgmma")
-    assert fq.k3_route(B, bf, DENSE, NQ, H, SMS) == "rows"
-    assert not fq.o_wgmma_instance(bf, DENSE, NQ)
+    assert fq.k3_route(B, bf, DENSE, NQ, H, SMS) == "wgmma"
+    assert fq.o_wgmma_instance(bf, DENSE, NQ)
+
+
+# dense K3 (NQ, H): rows of attn and W_o TMA reads (NQ a multiple of 8 bf16
+# columns, at least 256; int8 needs NQ % 16), at any H; and rows it does not
+K3_DENSE_WIDTHS = [((4096, 4096), "wgmma"), ((2048, 2048), "wgmma"), ((264, 512), "wgmma"),
+                   ((1000, 4096), "wgmma"), ((256, 264), "wgmma"), ((4100, 4096), "rows"),
+                   ((248, 256), "rows"), ((128, 256), "rows")]
+
+
+@pytest.mark.parametrize("widths,want", K3_DENSE_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("B", [5, 6, 8, 9, 20, 40, 64, 65, 128])
+def test_k3_dense_route_needs_rows_tma_reads(widths, want, B):
+    """Dense bf16 K3 from DENSE_WGMMA_MIN_ROWS (5) takes the tensor-core
+    instance where TMA reads the rows of attn and W_o; elsewhere the
+    row-per-warp kernel. NQ 1000 is dense's and not int8's (int8 rows of
+    1000 bytes are no multiple of 16); fp32 x never takes it; at 4 rows the
+    ring wherever it has a plan."""
+    NQ, H = widths
+    bf = torch.bfloat16
+    assert fq.k3_route(B, bf, DENSE, NQ, H, SMS) == want
+    assert fq.o_wgmma_instance(bf, DENSE, NQ) == (want == "wgmma")
+    assert not fq.o_wgmma_instance(torch.float32, DENSE, NQ)
+    assert not fq.o_wgmma_instance(torch.float32, wr.DENSE_F32, NQ)
+    assert fq.o_wgmma_instance(bf, INT8, 1000) is False
+    assert fq.k3_route(4, bf, DENSE, NQ, H, SMS) == (
+        "ring" if fq.o_ring_route(4, bf, DENSE, NQ, H, SMS) is not None else "rows")
+
+
+def test_dense_k3_wgmma_plan_at_8b_width():
+    """Dense K3 at SliME-8B's width (W_o [4096, 4096]: 32 row blocks a token
+    tile, 64 dense stages of 64 columns) on 132 SMs: 4 splits of 16 stages
+    (128 blocks) from 5 to 64 rows, 2 of 32 at 65-128 (two tiles); int8's
+    128-column stages give 4 of 8."""
+    for B in (5, 8, 20, 40, 64):
+        assert fq.wgmma_plan(B, 4096, 4096, SMS, fmt=DENSE) == (4, 16)
+    for B in (65, 128):
+        assert fq.wgmma_plan(B, 4096, 4096, SMS, fmt=DENSE) == (2, 32)
+    assert fq.wgmma_plan(64, 4096, 4096, SMS) == (4, 8)
+
+
+@pytest.mark.parametrize("fmt,B,want", [(DENSE, 5, (4, 16)), (DENSE, 64, (4, 16)),
+                                        (DENSE, 128, (2, 32)), (INT8, 64, (4, 8))],
+                         ids=lambda v: str(v))
+def test_o_launch_plans_with_the_weight_format(monkeypatch, fmt, B, want):
+    """``o_launch`` on K3's tensor-core instance passes the weight's format
+    to ``slime_o_wgmma`` and plans the split with it (``wgmma_plan(fmt=)``:
+    64-column dense stages, 128-column int8 ones), at SliME-8B's width on
+    132 SMs: the C library, the device checks and the SM count are stood in
+    for, so the launch's arguments are read on the CPU."""
+    from slime_tpu_torch.ops import _cuda
+    calls = []
+
+    class Lib:
+        def slime_o_wgmma(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_cuda, "library", lambda: Lib())
+    monkeypatch.setattr(_cuda, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(_cuda, "stream", lambda: 0)
+    monkeypatch.setattr(wr, "sm_count", lambda device: SMS)
+    g = torch.Generator().manual_seed(B)
+    if fmt == DENSE:
+        w = {"weight": torch.randn((2, 4096, 4096), generator=g).to(torch.bfloat16)}
+    else:
+        w = {"weight": {"q": torch.zeros((2, 4096, 4096), dtype=torch.int8),
+                        "scale": torch.ones((2, 4096, 1))}}
+    attn, x = (torch.randn((B, 4096), generator=g).to(torch.bfloat16) for _ in range(2))
+    assert fq.k3_route(B, torch.bfloat16, fmt, 4096, 4096, SMS) == "wgmma"
+    y, got_fmt, route = fq.o_launch(attn, x, {"o_proj": w}, 1)
+    assert (got_fmt, route, y.shape, y.dtype) == (fmt, "wgmma", x.shape, torch.bfloat16)
+    (args,) = calls
+    assert args[0] == fmt and args[5:8] == (B, 4096, 4096)
+    assert args[-3:-1] == want and fq.wgmma_plan(B, 4096, 4096, SMS, fmt=fmt) == want
+    assert (args[-4] is None) == (fmt == DENSE)
 
 
 @pytest.mark.parametrize("shape", [(4096, 14336), (2048, 5504), (6144, 4096), (4096, 2048),

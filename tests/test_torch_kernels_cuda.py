@@ -203,14 +203,33 @@ def test_encoder_attention_kernel(dev, shape):
     _assert_close(out, ea.encoder_attention_ref(q, k, v), atol=2e-3)
 
 
-@pytest.mark.parametrize("shape", [(8, 577, 16, 64), (1, 64, 2, 40)] + [
-    (2, S, 3, D) for S in (1, 100, 577, 1024) for D in (64, 128)])
-def test_encoder_attention_kernel_fp32(dev, shape):
-    """The fp32 K4 (FFMA) against the plain version in fp32: the same
-    roundings (bf16 clamped scores, l rounded to bf16), sums in another
-    order."""
+def _qkv(shape, layout, g, dev):
+    """fp32 q, k, v of ``shape``: three tensors ("contiguous"), or views of
+    one packed qkv projection [B, S, 3 H D] ("packed"), as the ViT's."""
+    B, S, H, D = shape
+    if layout == "contiguous":
+        return tuple(torch.randn(shape, device=dev, generator=g) for _ in range(3))
+    qkv = torch.randn((B, S, 3 * H * D), device=dev, generator=g)
+    return tuple(t.reshape(shape) for t in qkv.split(H * D, dim=-1))
+
+
+# fp32 K4: CLIP-L's shape, then S from one key to 1024 (one key tile, one
+# short of and one past 64) at head dims 40 and 72 (zero-filled to 64 and
+# 128 columns), 64 and 128
+ENC_F32_SHAPES = [(8, 577, 16, 64), (1, 64, 2, 40)] + [
+    (2, S, 3, D) for S in (1, 63, 64, 65, 100, 577, 1024) for D in (40, 64, 72, 128)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+@pytest.mark.parametrize("shape", ENC_F32_SHAPES)
+def test_encoder_attention_kernel_fp32(dev, shape, layout):
+    """The fp32 K4 (FFMA) against the plain version in fp32, on contiguous
+    q/k/v and on views of one packed projection (read through their
+    strides): the same roundings (bf16 clamped scores, l rounded to bf16),
+    sums in another order."""
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
+    q, k, v = _qkv(shape, layout, g, dev)
+    assert layout == "contiguous" or not q.is_contiguous()
     before = (ea.encoder_attention.launches, ea.encoder_attention.f32_launches)
     out = ea.encoder_attention_kernel(q, k, v, scale=shape[-1] ** -0.5)
     assert out.dtype == torch.float32
@@ -219,6 +238,7 @@ def test_encoder_attention_kernel_fp32(dev, shape):
     # l = bf16(sum p): fp32 sums in another order can round l to the
     # neighbouring bf16 value, which moves a whole row by 2^-8 relative
     _assert_close(out, ea.encoder_attention_ref(q, k, v), atol=ATOL_F32, rtol=RTOL)
+
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -369,12 +389,12 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
     # the weight ring takes bf16 x with int8 or q4g weights at B <= 8 and
     # dense bf16 weights at B <= 4; the tensor-core instances bf16 x with
-    # int8 weights from 9 rows, and K1's and K2's with dense bf16 weights
-    # from 5: each wrapper's rule
+    # int8 weights from 9 rows, and with dense bf16 weights from 5: each
+    # wrapper's rule
     on_ring = bf and (fmt in ("int8", "q4g") and B <= 8 or fmt == "bf16" and B <= 4)
     tc = bf and (fmt == "int8" and B >= 9 or fmt == "bf16" and B >= 5)
     want = "wgmma" if tc else "ring" if on_ring else "rows"
-    assert (r1, r2, r3) == (want, want, "rows" if tc and fmt == "bf16" else want)
+    assert (r1, r2, r3) == (want, want, want)
     assert fused_mlp.fused_mlp_decode.ring_launches == ring + (r1 == "ring")
     assert _wgmma_counts() == tuple(c + (r == "wgmma") for c, r in zip(wgmma, (r1, r2, r3)))
     q4g = fmt == "q4g"
@@ -492,8 +512,8 @@ def test_dense_ring_decode(dev, width, B):
     versions at phase 1's tolerances (K2 and K3 atol 2e-3, K1 the one-ulp
     bound of its bf16 intermediate), as do the instances the rule does not
     take on the same inputs (``route`` "rows" / "ring", uncounted); at 8
-    rows K1 and K2 take their tensor-core instances (K2 held with its own
-    row norm: ``_assert_qkv_own_h``), the ring forced beside them."""
+    rows K1-K3 take their tensor-core instances (K2 held with its own row
+    norm: ``_assert_qkv_own_h``), the ring forced beside them."""
     H, NQ, NKV, I = width
     g = torch.Generator(device=dev).manual_seed(400 + B + H)
     layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
@@ -637,15 +657,17 @@ def test_fused_mlp_wgmma_rejects(dev):
     assert (fn.launches, fn.wgmma_launches) == before
 
 
-def _check_dense_wgmma(x, layers):
-    """fused_mlp_decode and fused_qkv_decode on dense bf16 weights where
-    their rules take the tensor-core instances (``.wgmma_launches`` and
-    ``.dense_wgmma_launches`` up by one each, ``.dense_launches`` too, the
-    rings' counts not), and the row-per-warp instances on the same inputs
-    (uncounted): K2 held with its own row norm (``_assert_qkv_own_h``: h
-    up to rounding flips, the projections at phase 1's atol 2e-3), K1 to
-    the one-ulp bound of its bf16 intermediate."""
-    fns = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode)
+def _check_dense_wgmma(x, attn, layers):
+    """fused_mlp_decode, fused_qkv_decode and fused_o_residual on dense bf16
+    weights where their rules take the tensor-core instances
+    (``.wgmma_launches`` and ``.dense_wgmma_launches`` up by one each,
+    ``.dense_launches`` too, the rings' counts not), and the row-per-warp
+    instances on the same inputs (uncounted): K2 held with its own row norm
+    (``_assert_qkv_own_h``: h up to rounding flips, the projections at
+    phase 1's atol 2e-3), K1 to the one-ulp bound of its bf16
+    intermediate, K3 (no row norm) to the plain version at atol 2e-3."""
+    fns = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode,
+           fused_qkvo.fused_o_residual)
     attrs = ("launches", "wgmma_launches", "dense_wgmma_launches", "dense_launches",
              "ring_launches")
     before = [tuple(getattr(f, a) for a in attrs) for f in fns]
@@ -658,14 +680,20 @@ def _check_dense_wgmma(x, layers):
     for out in mlp_got:
         assert out.dtype == torch.bfloat16 and out.shape == x.shape
         _assert_mlp_close(out, mlp_want, floor)
+    o_want = fused_qkvo.fused_o_residual_ref(attn, x, layers, 1)
+    for out in (fused_qkvo.fused_o_residual(attn, x, layers, 1),
+                fused_qkvo.o_launch(attn, x, layers, 1, route="rows")[0]):
+        assert out.dtype == torch.bfloat16 and out.shape == x.shape
+        _assert_close(out, o_want, atol=2e-3)
     assert [tuple(getattr(f, a) for a in attrs) for f in fns] == [
         (c[0] + 1, c[1] + 1, c[2] + 1, c[3] + 1, c[4]) for c in before]
 
 
 # dense bf16 rows the tensor-core instances take: 5-8 (the engine's decode
-# steps past the ring), one past 8, the verify chunks of 4 and 8 slots, the
-# fused chunk, one and two token tiles past it
-DENSE_WGMMA_ROWS = [5, 8, 9, 20, 40, 64, 65, 128]
+# steps past the ring; 6 beam search's 3 beams x 2 questions), one past 8,
+# the verify chunks of 4 and 8 slots, the fused chunk, one and two token
+# tiles past it
+DENSE_WGMMA_ROWS = [5, 6, 8, 9, 20, 40, 64, 65, 128]
 # (H, NQ, NKV, I): SliME-8B's widths, and narrow ones: whole 128-row blocks
 # and 64-column stages, and a ragged last gate/up block and down stage (I
 # 264: TMA's zero fill past I; H 264 the same for K2's last stage)
@@ -675,31 +703,35 @@ DENSE_WGMMA_WIDTHS = [(4096, 4096, 1024, 14336), (256, 256, 128, 512), (264, 512
 @pytest.mark.parametrize("width", DENSE_WGMMA_WIDTHS, ids=lambda w: f"H{w[0]}-I{w[3]}")
 @pytest.mark.parametrize("B", DENSE_WGMMA_ROWS)
 def test_fused_dense_wgmma(dev, width, B):
-    """K1 and K2 in bf16 on dense bf16 weights on their tensor-core
-    instances at 5-128 rows, at SliME-8B's width and narrow ones, where
-    both rules take them."""
+    """K1-K3 in bf16 on dense bf16 weights on their tensor-core instances
+    at 5-128 rows, at SliME-8B's width and narrow ones (K3 over NQ, its
+    output rows H ragged against the 128-row blocks at H 264), where all
+    three rules take them."""
     H, NQ, NKV, I = width
     g = torch.Generator(device=dev).manual_seed(1000 + B + H + I)
     layers = decode_layers(L=2, H=H, NQ=NQ, NKV=NKV, I=I, fmt="bf16", generator=g,
                            device=dev)
     x = torch.randn((B, H), device=dev, generator=g).to(torch.bfloat16)
+    attn = torch.randn((B, NQ), device=dev, generator=g).to(torch.bfloat16)
     sms = wr.sm_count(torch.device("cuda"))
     bf = torch.bfloat16
     assert fused_mlp.wgmma_instance(bf, wr.DENSE, H, I)
     assert fused_qkvo.qkv_wgmma_instance(bf, wr.DENSE, H, NQ, NKV)
+    assert fused_qkvo.o_wgmma_instance(bf, wr.DENSE, NQ)
     r1 = fused_mlp.k1_route(B, bf, wr.DENSE, H, I, sms)
     r2 = fused_qkvo.k2_route(B, bf, wr.DENSE, H, NQ, NKV, sms)
-    assert r1 == r2 == "wgmma"
-    _check_dense_wgmma(x, layers)
+    r3 = fused_qkvo.k3_route(B, bf, wr.DENSE, NQ, H, sms)
+    assert r1 == r2 == r3 == "wgmma"
+    _check_dense_wgmma(x, attn, layers)
 
 
 def test_fused_dense_wgmma_rejects(dev):
     """No fallback for the dense instances: ``route="wgmma"`` raises on
-    operands they do not take (dense K3, which has none; fp32 x on fp32
-    weights; rows TMA cannot read: H under 256), and the C side refuses
-    dense weights given scales, int8 weights without them, a format it does
-    not know and a split that misses stages, before anything launches;
-    nothing is counted."""
+    operands they do not take (fp32 x on fp32 weights; rows TMA cannot
+    read: H, or K3's NQ, under 256), and the C side refuses dense weights
+    given scales, int8 weights without them, a format it does not know and
+    a split that misses stages, before anything launches; nothing is
+    counted."""
     g = torch.Generator(device=dev).manual_seed(11)
     fns = (fused_mlp.fused_mlp_decode, fused_qkvo.fused_qkv_decode,
            fused_qkvo.fused_o_residual)
@@ -707,10 +739,10 @@ def test_fused_dense_wgmma_rejects(dev):
     layers = decode_layers(L=2, H=256, NQ=256, NKV=128, I=512, fmt="bf16", generator=g,
                            device=dev)
     x = torch.randn((20, 256), device=dev, generator=g).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="wgmma"):
-        fused_qkvo.o_launch(x, x, layers, 1, route="wgmma")
     f32 = decode_layers(L=2, H=256, NQ=256, NKV=128, I=512, fmt="fp32", generator=g,
                         device=dev)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.o_launch(x.float(), x.float(), f32, 1, route="wgmma")
     with pytest.raises(ValueError, match="wgmma"):
         fused_mlp.mlp_launch(x.float(), f32, 1, 1e-5, route="wgmma")
     with pytest.raises(ValueError, match="wgmma"):
@@ -722,8 +754,13 @@ def test_fused_dense_wgmma_rejects(dev):
         fused_mlp.mlp_launch(x128, narrow, 1, 1e-5, route="wgmma")
     with pytest.raises(ValueError, match="wgmma"):
         fused_qkvo.qkv_launch(x128, narrow, 1, 1e-5, route="wgmma")
+    narrow_o = decode_layers(L=2, H=256, NQ=128, NKV=128, I=512, fmt="bf16", generator=g,
+                             device=dev)
+    with pytest.raises(ValueError, match="wgmma"):
+        fused_qkvo.o_launch(x128, x, narrow_o, 1, route="wgmma")
     (wg, _, _), (wu, _, _) = fused_qkvo.layer_mats(layers, ("gate_proj", "up_proj"), 1)
     (wd, _, _), = fused_qkvo.layer_mats(layers, ("down_proj",), 1)
+    (wo, _, _), = fused_qkvo.layer_mats(layers, ("o_proj",), 1)
     (wq, _, _), (wk, _, _), (wv, _, _) = fused_qkvo.layer_mats(
         layers, ("q_proj", "k_proj", "v_proj"), 1)
     nw = layers["post_attention_layernorm"]["weight"][1].float().contiguous()
@@ -743,6 +780,10 @@ def test_fused_dense_wgmma_rejects(dev):
         assert lib.slime_qkv_wgmma(fmt, p(x), p(nw), 1e-5, p(h), p(ws), 20, 256, 256, 128,
                                    p(wq), p(scale), p(wk), p(scale), p(wv), p(scale), p(q),
                                    p(k), p(v), splits, per // 2, st) == invalid
+        # K3: NQ = 256 is 4 dense stages, as K2's H
+        s256 = None if scale is None else scale[:256]
+        assert lib.slime_o_wgmma(fmt, p(x), p(x), p(ws), p(y), 20, 256, 256, p(wo), p(s256),
+                                 splits, per // 2, st) == invalid
     torch.cuda.synchronize()
     assert [(f.launches, f.wgmma_launches, f.dense_wgmma_launches) for f in fns] == before
 
@@ -846,8 +887,8 @@ def test_fused_qkvo_wgmma_rejects(dev):
         assert lib.slime_qkv_wgmma(wr.INT8, p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 512, 128,
                                    p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v),
                                    splits, per, _cuda.stream()) == invalid
-        assert lib.slime_o_wgmma(p(attn), p(x), p(ws), p(y), 20, 512, 512, p(wo), p(so),
-                                 splits, per, _cuda.stream()) == invalid
+        assert lib.slime_o_wgmma(wr.INT8, p(attn), p(x), p(ws), p(y), 20, 512, 512, p(wo),
+                                 p(so), splits, per, _cuda.stream()) == invalid
     # NQ off a 128-row block: refused as well
     assert lib.slime_qkv_wgmma(wr.INT8, p(x), p(nw), 1e-5, p(h), p(ws), 20, 512, 448, 128,
                                p(wq), p(sq), p(wk), p(sk), p(wv), p(sv), p(q), p(k), p(v), 1, 4,
@@ -1848,9 +1889,9 @@ def test_verify_chunk_launches_tensor_cores(dev):
 
 def test_dense_verify_chunk_launches_tensor_cores(dev):
     """The default engine's verify chunk, 8 slots x 5 = 40 rows in bf16 on
-    dense bf16 layers (a bf16 checkpoint): K1 and K2 on their tensor-core
-    instances once a layer (``.dense_wgmma_launches``), K3 row per warp,
-    the weight ring never."""
+    dense bf16 layers (a bf16 checkpoint): K1-K3 on their tensor-core
+    instances once a layer (``.dense_wgmma_launches``), the weight ring
+    never."""
     from slime_tpu_torch.models import llama, slime
     cfg = _small_slime_cfg()
     params = slime.init(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1862,6 +1903,6 @@ def test_dense_verify_chunk_launches_tensor_cores(dev):
     L = cfg.llm.num_layers
     rise, logits = _verify_chunk_counts(llm, cfg, dev, 8)
     assert rise["launches"] == rise["dense_launches"] == [L, L, L]
-    assert rise["wgmma_launches"] == rise["dense_wgmma_launches"] == [L, L, 0]
+    assert rise["wgmma_launches"] == rise["dense_wgmma_launches"] == [L, L, L]
     assert rise["ring_launches"] == [0, 0, 0]
     assert bool(torch.isfinite(logits).all())
