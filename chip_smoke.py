@@ -28,7 +28,9 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          its P2 design probe, the fused QKV / O-residual / MLP decode kernels
          in int8 and q4g at B up to 128, bf16 and fp32 (in bf16 at B <= 8
          on their weight ring, with its launches' device times from the
-         profiler; K1 in bf16 on int8 weights from 9 rows on tensor cores,
+         profiler; K1 in fp32 on the ring at B = 1-8, each beside its
+         row-per-warp instance on the same inputs; K1 in bf16 on int8
+         weights from 9 rows on tensor cores,
          at B = 9-128 beside its row-per-warp instance on the same inputs;
          K1-K3 beside torch's int8 / int4 weight-only product), and on dense
          bf16 weights at B = 1, 4-6, 8, 9, 20, 40, 64, 65 and 128, K3 also
@@ -37,7 +39,9 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          take on the same inputs, K3's at 1-8; all beside
          torch.nn.functional.linear of the bf16 product), the flash-attention
          forward and its dK/dV and dQ backward kernels in bf16 and fp32 at D
-         = 128, 256 and 384, the quantized matmul in q4, int8 and q4g (K6 on
+         = 128, 256 and 384 (the fp32 forward at D = 128 on register tiles
+         in turns with the chunked FFMA kernel it replaced), the quantized
+         matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
          beside its mma.sync instance on the same inputs), also at a K that
          is not a multiple of 128, and the W8A8
@@ -110,10 +114,15 @@ Phase 7  the entry points at their default fp32 compute dtype, each run
          twice with the counts set to 0 before the first run and read after
          it (finite, the same both times, the expected kernels launched): on
          phase 2's int8 model one ``generate`` with the image for 8 tokens
-         and ``decode_step`` at B = 65; on config A ``llama.forward`` at S =
-         2048 (K7), one W8A8 ``encode_images`` (K8, K4) and ``decode_step``
-         at B = 65 (q4g K1-K3); on config B ``llama.forward`` at S = 2048
-         (K6). It runs inside phases 2 and 5, on their models.
+         (K1 on its fp32 weight ring 32 x 7 times, row per warp never) and
+         ``decode_step`` at B = 65 (K1 row per warp); on config A
+         ``llama.forward`` at S = 2048 (K7), one W8A8 ``encode_images`` (K8,
+         K4) and ``decode_step`` at B = 65 and at B = 1 (q4g K1-K3; K1 on
+         its fp32 ring at B = 1); on config B ``llama.forward`` at S = 2048
+         (K6). On the int8 model it traces the fp32 ``generate``'s prefill
+         and one decode step in turns with K5's and K1's fp32 routes as
+         before (device ms, K5's and K1's shares). It runs inside phases 2
+         and 5, on their models.
 
 Phase 8  serves through the continuous-batching engine
          (``serve.batch_engine.BatchDecodeEngine``, 4 slots, bf16) on phase
@@ -387,7 +396,8 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "encoder_attention_f32": 1e-4, "fused_qkv_decode_f32": 1e-4,
         "fused_o_residual_f32": 1e-4, "fused_mlp_decode_f32": 1e-4,
         "fused_qkv_decode_f32_q4g": 1e-4, "fused_o_residual_f32_q4g": 1e-4,
-        "fused_mlp_decode_f32_q4g": 1e-4, "quant_matmul_q4_f32": 1e-4,
+        "fused_mlp_decode_f32_q4g": 1e-4, "fused_mlp_decode_f32_ring": 1e-4,
+        "fused_mlp_decode_f32_q4g_ring": 1e-4, "quant_matmul_q4_f32": 1e-4,
         "quant_matmul_int8_f32": 1e-4, "quant_matmul_q4g_f32": 1e-4,
         "w8a8_matmul_f32": 1e-6, "ring_attention_rdma_f32": 1e-4,
         "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
@@ -653,6 +663,10 @@ KERNELS.update({n + "_f32": KERNELS[n] for n in (
     "quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g", "w8a8_matmul")})
 KERNELS.update({n + "_f32_q4g": KERNELS[n] for n in (
     "fused_qkv_decode", "fused_o_residual", "fused_mlp_decode")})
+# K1's fp32 instances on the weight ring (fp32 x, int8 or q4g weights, B <=
+# fused_mlp.F32_RING_ROWS: the default compute dtype's decode steps)
+KERNELS.update({"fused_mlp_decode" + sfx: KERNELS["fused_mlp_decode"]
+                for sfx in ("_f32_ring", "_f32_q4g_ring")})
 D256 = tuple(n for n in KERNELS if n.endswith("_d256"))
 WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # K6's int8 instances have no caller on any path: the JAX package routes only q4
@@ -727,6 +741,8 @@ def _counters():
     for n, fn in fused.items():
         for sfx in ("", "_q4g", "_f32", "_f32_q4g"):
             out[n + sfx] = (fn, sfx.lstrip("_") + ("_" if sfx else "") + "launches")
+    out["fused_mlp_decode_f32_ring"] = (fused_mlp.fused_mlp_decode, "f32_ring_launches")
+    out["fused_mlp_decode_f32_q4g_ring"] = (fused_mlp.fused_mlp_decode, "f32_q4g_ring_launches")
     for n, fn in fused.items():
         out[n + "_ring"] = (fn, "ring_launches")
         out[n + "_q4g_ring"] = (fn, "q4g_ring_launches")
@@ -751,6 +767,15 @@ def launch_counts():
         counts[n] -= counts[n + "_q4g"] + counts[n + "_f32"] - both
         counts[n + "_q4g"] -= both
         counts[n + "_f32"] -= both
+    # K1's .f32_ring counts its fp32 calls on the ring, .f32_q4g_ring the q4g
+    # ones among them; both are also in .ring / .q4g_ring and .f32 / .f32_q4g
+    n = "fused_mlp_decode"
+    f32_q4g_ring = counts[n + "_f32_q4g_ring"]
+    counts[n + "_f32_ring"] -= f32_q4g_ring
+    counts[n + "_ring"] -= counts[n + "_f32_ring"] + f32_q4g_ring
+    counts[n + "_q4g_ring"] -= f32_q4g_ring
+    counts[n + "_f32"] -= counts[n + "_f32_ring"]
+    counts[n + "_f32_q4g"] -= f32_q4g_ring
     for n in FUSED:
         # .ring counts the calls on the weight ring (bf16), .q4g_ring the q4g
         # ones, .dense_ring the dense bf16 ones; .wgmma the calls on tensor
@@ -1107,7 +1132,8 @@ def ttft_summary(tag, out, ttft_ms):
 
 
 def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main,
-                   library=None, dispatch=False, floor=None, clean=False, want=None):
+                   library=None, dispatch=False, floor=None, clean=False, want=None,
+                   timed=None):
     """Hold kern() to its plain version ref() (or to ``want`` where given)
     and time both (and one PyTorch call computing the same function, where
     there is one). ``moved`` bytes and ``ops`` operations at ``peak`` give
@@ -1115,12 +1141,17 @@ def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main
     instance that no main case reaches keeps its first). ``dispatch`` also
     logs the wrapper's host cost per call; ``floor`` is compare's; ``clean``
     also logs kern()'s time with L2 flushed by reading (no write-back
-    charged to it)."""
+    charged to it). ``timed``: (plain ms, library ms) an earlier call took
+    on the same inputs, used instead of timing them again. Returns (plain
+    ms, library ms)."""
     err, need = compare(name, kern(), ref() if want is None else want, floor)
     rec = record[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    ms, plain = cuda_ms(kern, flush=flush), cuda_ms(ref, flush=flush)
-    lib = None if library is None else cuda_ms(library, flush=flush)
+    ms = cuda_ms(kern, flush=flush)
+    if timed is None:
+        timed = (cuda_ms(ref, flush=flush),
+                 None if library is None else cuda_ms(library, flush=flush))
+    plain, lib = timed
     b_ms, b_by = bound(moved, ops, peak)
     if main or "ms" not in rec:     # an instance off the main shape keeps its first case
         rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
@@ -1132,6 +1163,7 @@ def check_and_time(record, name, label, kern, ref, moved, ops, peak, flush, main
         f"max_abs_err {err:.3g}, floor needed {need:.3g} ({tol})"
         + (f"; host dispatch {dispatch_us(kern):.1f} us/call" if dispatch else "")
         + (f"; ms_clean_flush {cuda_ms(kern, flush=flush, clean=True):.4f}" if clean else ""))
+    return timed
 
 
 def sdpa(q, k, v, **kw):
@@ -1231,7 +1263,8 @@ def flash_kernels_f32(dev, g, flush, record):
     causal, in llama's [B, S, H, D] storage, against the plain versions;
     timed beside torch's fp32 scaled_dot_product_attention (forward; its
     backward for K5b and K5c alike), with the bound at the 67 TFLOP/s fp32
-    rate."""
+    rate; then the forward's register-tile instance in turns with the
+    chunked FFMA kernel it replaced."""
     from slime_tpu_torch.ops import flash_attention as fa
 
     B, S = 1, 2048
@@ -1257,7 +1290,21 @@ def flash_kernels_f32(dev, g, flush, record):
     for name, (kern, ref, moved, ops, lib) in cases.items():
         check_and_time(record, name, "[1,32|8,2048,128] fp32 causal", kern, ref, moved, ops,
                        F32_OPS, flush, True, library=lib)
-    del q, k, v, do, ro, rl, delta, ql, kl, vl, lo, cases
+    # the forward's register tiles (fa.fwd_route's "tiles") in turns with the
+    # chunked FFMA kernel they replaced, on the same inputs (fwd_launch:
+    # uncounted), each held to the plain version
+    fwd = {r: (lambda r=r: fa.fwd_launch(q, k, v, route=r)) for r in ("tiles", "ffma")}
+    errs = {r: compare("flash_fwd_f32", fn(), (ro, rl))[0] for r, fn in fwd.items()}
+    ms = {r: [] for r in fwd}
+    for r in ("tiles", "ffma", "ffma", "tiles"):
+        ms[r].append(cuda_ms(fwd[r], flush=flush))
+    b_ms = bound(nbytes(q, k, v, ro, rl), 2 * prod, F32_OPS)[0]
+    log("phase 1 flash_fwd_f32 [1,32|8,2048,128] fp32 causal in turns (ms, max_abs_err, share "
+        f"of the {b_ms:.4f} ms bound): register tiles {ms['tiles'][0]:.4f}, "
+        f"{ms['tiles'][1]:.4f} ({errs['tiles']:.3g}, {b_ms / min(ms['tiles']):.3f}); was, the "
+        f"chunked FFMA kernel {ms['ffma'][0]:.4f}, {ms['ffma'][1]:.4f} ({errs['ffma']:.3g}, "
+        f"{b_ms / min(ms['ffma']):.3f})")
+    del q, k, v, do, ro, rl, delta, ql, kl, vl, lo, cases, fwd
     torch.cuda.empty_cache()
 
 
@@ -1492,7 +1539,9 @@ def decode_kernels(dev, cfg, g, flush, record):
     the former 64-row limit) and at B = 1 and 65 in fp32 (the default
     compute dtype), q4g at B = 8 and int8 at B = 64 (the engine's fused
     chunk, phase 8), 20 (the verify chunk, phase 9) and 9 in bf16, and K1
-    alone at K1_WGMMA_ROWS' other rows. The records keep B = 1; K1-K3
+    alone at K1_WGMMA_ROWS' other rows and in fp32 at B = 2-8 (at B <= 8
+    each fp32 K1 beside the instance its rule does not take: row per warp,
+    the "was", where it takes the ring). The records keep B = 1; K1-K3
     in bf16 at B <= 8 take the weight ring (``*_ring``, ``*_q4g_ring``: the
     routing rule of each wrapper), whose launches' device time (profiler)
     is logged at B = 1 and 8, and the row-per-warp bf16 instances keep
@@ -1595,6 +1644,9 @@ def decode_kernels(dev, cfg, g, flush, record):
             runs += ((bf, "", (CHUNK_ROWS, VERIFY_ROWS), g_chunk, None),
                      (bf, "", K1_WGMMA_ROWS[:1], g_k1, None),
                      (bf, "", K1_WGMMA_ROWS[1:], g_k1, "fused_mlp_decode"))
+        # K1 in fp32 at the ring's other rows (1 above), each beside the
+        # instance the rule does not take: where F32_RING_ROWS lies
+        runs += ((f32, "_f32", tuple(range(2, 9)), g_new, "fused_mlp_decode"),)
         for dtype, dsfx, bs, gen, only in runs:
             for B in bs:
                 x = torch.randn((B, H), device=dev, generator=gen).to(dtype)
@@ -1613,10 +1665,22 @@ def decode_kernels(dev, cfg, g, flush, record):
                     moved = nbytes(*acts, *reads) + B * cols * x.element_size()
                     ops, peak = 2 * B * macs, BF16_OPS if dtype == bf else F32_OPS
                     label = f"8B width {fmt} {'bf16' if dtype == bf else 'fp32'} B={B} layer 1"
-                    check_and_time(record, name + dsfx + fsfx + sfx, label,
-                                   lambda: kern(x, a), lambda: ref(x, a), moved, ops, peak,
-                                   flush, main=B in (1, CHUNK_ROWS), dispatch=B == 1,
-                                   floor=floor, library=library)
+                    timed = check_and_time(record, name + dsfx + fsfx + sfx, label,
+                                           lambda: kern(x, a), lambda: ref(x, a), moved, ops,
+                                           peak, flush, main=B in (1, CHUNK_ROWS),
+                                           dispatch=B == 1, floor=floor, library=library)
+                    if dtype == f32 and name == "fused_mlp_decode" and B <= 8:
+                        # the fp32 instance the rule does not take here, on the
+                        # same inputs (uncounted): row per warp (the "was")
+                        # where it takes the ring, the ring past F32_RING_ROWS
+                        other = "rows" if sfx == "_ring" else "ring"
+                        check_and_time(record, name + dsfx + fsfx + ("_ring" if sfx == "" else ""),
+                                       label + (" (was: the row-per-warp instance)"
+                                                if other == "rows" else
+                                                " (the ring, which the rule does not take here)"),
+                                       lambda: forced[name](x, a, other), lambda: ref(x, a),
+                                       moved, ops, peak, flush, main=B == 1 and other == "rows",
+                                       timed=timed)
                     if sfx == "_wgmma":
                         # the row-per-warp instance on the same inputs (uncounted)
                         check_and_time(record, name, label + " (was: the row-per-warp "
@@ -1642,7 +1706,7 @@ def decode_kernels(dev, cfg, g, flush, record):
                     if (sfx == "_ring" and B in (1, 8)) or (sfx == "_wgmma"
                                                             and B in (VERIFY_ROWS, CHUNK_ROWS)):
                         split, span = profile_split(lambda: kern(x, a), flush)
-                        log(f"phase 1 {name}{fsfx}{sfx} {fmt} B={B} launches "
+                        log(f"phase 1 {name}{dsfx}{fsfx}{sfx} {fmt} B={B} launches "
                             f"(profiler, device ms each, L2 flushed): "
                             + (", ".join(f"{short_kernel(n)} {ms:.4f}" for n, ms in split.items())
                                + f"; first start to last end {span:.4f} ms" if split
@@ -2295,6 +2359,62 @@ def default_dtype_run(what, fn, expect):
         raise AssertionError(f"phase 7 {what}: finite {ok}, repeats {same}, launches off "
                              f"{wrong} (expected {expect})")
     return counts
+
+
+def default_dtype_traces(params, cfg, ids, attn, img, anyres):
+    """Phase 7's traces of the default fp32 dtype on the int8 model: the
+    prefill of ``generate`` with the image (encode, fusion, the LLM's 2048
+    positions) and one decode step after it, under torch.profiler, in turns
+    with K5's and K1's fp32 routes as they stood before (``f32_routes_
+    before``: now, before, before, now), logged: device busy ms and
+    launches, K5's device ms and launches in the prefill, K1's (its
+    wrapper's calls as a profiler range) in the step."""
+    from slime_tpu_torch import generate as gen
+    from slime_tpu_torch.models import llama
+    from slime_tpu_torch.models.layers import fp32_accumulation
+
+    f32 = torch.float32
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+    crops, mask = anyres(img)
+    pv, cm = crops[None], mask[None]
+    for turn, before in enumerate((False, True, True, False)):
+        tag = f"{turn}_{'before' if before else 'now'}"
+        pre, dec = out / f"profile_f32_prefill_{tag}.json", out / f"profile_f32_step_{tag}.json"
+        held = {}
+
+        def prefill():
+            held["p"] = gen.prefill(params, cfg, ids, attn, pv, cm, f32)
+        with f32_routes_before() if before else contextlib.nullcontext(), fp32_accumulation():
+            if not profiled(prefill, pre):
+                continue
+            last, kvs, lengths, Lp = held.pop("p")
+            cache = llama.prefill_into_cache(
+                llama.init_kv_cache(cfg.llm, 1, Lp + 8, dtype=f32, device=ids.device), kvs, lengths)
+            first = last.argmax(-1).to(torch.int32)
+            del kvs, last
+
+            def step():
+                gen._decode_loop(params["llm"], cache, first, -1, cfg=cfg, max_new_tokens=2,
+                                 temperature=0.0, top_p=1.0, compute_dtype=f32, generator=None)
+            step()
+            with named_projections():
+                traced = profiled(step, dec)
+        busy, n, _ = trace_device(pre)
+        k5_ms, k5_n = trace_kernel(pre, "flash_fwd")
+        step_log = "; decode step not measured"
+        if traced:
+            s_busy, s_n, _ = trace_device(dec)
+            k1_ms, k1_n = trace_ranges(dec, ("K1",))[0]["K1"]
+            step_log = (f"; decode step {s_busy:.3f} ms device, {s_n} launches, K1 {k1_ms:.3f} ms "
+                        f"in {k1_n} launches ({k1_ms / s_busy if s_busy else 0.0:.3f} of it)")
+        routes = ("as before: chunked FFMA, row per warp" if before
+                  else "now: register tiles, the weight ring")
+        log(f"phase 7 fp32 trace {tag} (K5, K1 {routes}): prefill {busy:.3f} ms device, {n} "
+            f"launches, K5 {k5_ms:.3f} ms in {k5_n} launches "
+            f"({k5_ms / busy if busy else 0.0:.3f} of it){step_log}")
+        del cache
+        torch.cuda.empty_cache()
 
 
 def teacher_logits(params, cfg, ids, attn, pv, cm, tokens, j, dtype=torch.bfloat16,
@@ -3326,10 +3446,15 @@ def serve_phases(dev, cfg):
         crops, mask = anyres(img)
         return gen.generate(params, cfg_run, ids, attn, crops[None], mask[None],
                             max_new_tokens=n_new)
+    # K1 with fp32 x takes the ring at B = 1, row per warp never; K2 and K3
+    # row per warp
     got = default_dtype_run(
         "generate with an image, int8 LLM, 8 tokens", request,
         {"encoder_attention_f32": (vis, True), "flash_fwd_f32": (L, True),
-         **{n + "_f32": (L * (n_new - 1), True) for n in FUSED}})
+         "fused_mlp_decode_f32_ring": (L * (n_new - 1), True),
+         "fused_mlp_decode_f32": (0, True),
+         **{n + "_f32": (L * (n_new - 1), True) for n in FUSED if n != "fused_mlp_decode"}})
+    default_dtype_traces(params, cfg_run, ids, attn, img, anyres)
     tok = torch.from_numpy(np.random.default_rng(SEED).integers(
         5, cfg.llm.vocab_size, (DEFAULT_DTYPE_ROWS,))).to(dev)
 
@@ -3338,7 +3463,8 @@ def serve_phases(dev, cfg):
         return llama.decode_step(params["llm"], cache, tok, cfg.llm)[0]
     for n, c in default_dtype_run(
             f"decode_step at B = {DEFAULT_DTYPE_ROWS}, stacked int8 layers", step,
-            {n + "_f32": (L, True) for n in FUSED}).items():
+            {"fused_mlp_decode_f32_ring": (0, True),
+             **{n + "_f32": (L, True) for n in FUSED}}).items():
         got[n] += c
     for n, c in got.items():
         launches[n] += c
@@ -3421,14 +3547,19 @@ def default_dtype_quantized(dev, cfg, params, fmt):
         return slime.encode_images(params, cfg, crops[None], mask[None], q_ids, attn)
     tok = torch.from_numpy(rng.integers(5, cfg.llm.vocab_size, (DEFAULT_DTYPE_ROWS,))).to(dev)
 
-    def step():
-        cache = llama.init_kv_cache(cfg.llm, DEFAULT_DTYPE_ROWS, 16, device=dev)
-        return llama.decode_step(params["llm"], cache, tok, cfg.llm)[0]
+    def step(rows=DEFAULT_DTYPE_ROWS):
+        cache = llama.init_kv_cache(cfg.llm, rows, 16, device=dev)
+        return llama.decode_step(params["llm"], cache, tok[:rows], cfg.llm)[0]
     for what, fn, expect in (
             ("W8A8 encode_images (8 crops)", encode,
              {"w8a8_matmul_f32": (4 * vis, True), "encoder_attention_f32": (vis, True)}),
             (f"decode_step at B = {DEFAULT_DTYPE_ROWS}, stacked q4g layers", step,
-             {n + "_f32_q4g": (L, True) for n in FUSED})):
+             {"fused_mlp_decode_f32_q4g_ring": (0, True),
+              **{n + "_f32_q4g": (L, True) for n in FUSED}}),
+            # one row: K1 on its fp32 q4g ring, K2 and K3 row per warp
+            ("decode_step at B = 1, stacked q4g layers", lambda: step(1),
+             {"fused_mlp_decode_f32_q4g_ring": (L, True), "fused_mlp_decode_f32_q4g": (0, True),
+              "fused_qkv_decode_f32_q4g": (L, True), "fused_o_residual_f32_q4g": (L, True)})):
         for n, c in default_dtype_run(what, fn, expect).items():
             got[n] += c
     return got
@@ -5178,6 +5309,29 @@ def named_projections():
     finally:
         for n, fn in zip(names, real):
             setattr(llama, n, fn)
+
+
+@contextlib.contextmanager
+def f32_routes_before():
+    """K5's and K1's fp32 routes as they stood before their Hopper redesign
+    (phase 7's comparison): the fp32 forward at D = 128 on the chunked FFMA
+    kernel, K1 with fp32 x row per warp; every other route as now. The
+    wrappers count as ever."""
+    from slime_tpu_torch.ops import flash_attention as fa
+    from slime_tpu_torch.ops import fused_mlp
+    fwd, k1 = fa.fwd_route, fused_mlp.k1_route
+
+    def fwd_before(dtype, D):
+        route = fwd(dtype, D)
+        return "ffma" if route == "tiles" else route
+
+    def k1_before(B, dtype, fmt, H, I, sms):
+        return "rows" if dtype == torch.float32 else k1(B, dtype, fmt, H, I, sms)
+    fa.fwd_route, fused_mlp.k1_route = fwd_before, k1_before
+    try:
+        yield
+    finally:
+        fa.fwd_route, fused_mlp.k1_route = fwd, k1
 
 
 @contextlib.contextmanager

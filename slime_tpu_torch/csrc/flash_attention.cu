@@ -21,8 +21,8 @@
 //     scale; dv += bf16(p)^T do, dk += bf16(ds)^T q, dq += bf16(ds) k, all
 //     accumulated in fp32 and rounded once to bf16 at the end.
 // Every kernel also takes fp32 q/k/v/do (the FFMA kernels at the end of this
-// file): then p and ds are never rounded, and the outputs are fp32. D is any
-// multiple of 128, in both dtypes.
+// file; the forward at D = 128 on register tiles): then p and ds are never
+// rounded, and the outputs are fp32. D is any multiple of 128, in both dtypes.
 // Rows and keys past S read as zeros (TMA's out-of-bounds fill, bound checks
 // in the FFMA kernels), which is what JAX's _zero_tail does for the TPU's
 // ragged block padding; keys past S are masked.
@@ -70,9 +70,13 @@
 //     forms S and dP over the whole D, so the fp32 accumulators of a thread
 //     stay those of D = 128;
 //   - the backward kernels write dq, dk, dv from registers through strides;
-//   - the FFMA kernels (fp32 inputs at every D, bf16 at D > 256) stage 64-row
-//     tiles in 128- or 256-column chunks of D and loop over the chunks for
-//     the scores; each block owns one chunk of the output's columns;
+//   - the chunked FFMA kernels (the fp32 backward at every D, the fp32
+//     forward at D > 128, bf16 at D > 256) stage 64-row tiles in 128- or
+//     256-column chunks of D and loop over the chunks for the scores; each
+//     block owns one chunk of the output's columns;
+//   - the fp32 forward at D = 128 (llama.forward's default compute dtype)
+//     runs on FFMA register tiles fed by a cp.async ring
+//     (flash_fwd_tiles_kernel, described above it);
 //   - q/k/v/do are read through (batch, head, sequence) element strides, so
 //     llama's [B, S, H, D] projections need no transpose copy; outputs are
 //     written through strides too. lse and delta are [B, H, S] fp32.
@@ -544,11 +548,13 @@ __global__ void __launch_bounds__(160, 1) flash_bwd_dkdv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// FFMA kernels: fp32 inputs at every D, bf16 inputs at D > 256
+// Chunked FFMA kernels: the backward in fp32 at every D, the forward in fp32
+// at D > 128, and all three in bf16 at D > 256
 // ---------------------------------------------------------------------------
 // Plain fp32 FMAs (no TF32): what JAX's interpret-mode kernels compute for
 // fp32 inputs, and what llama.forward's default fp32 compute dtype sends
-// here; for bf16 inputs p and ds are rounded to bf16 before their products,
+// here (its forward at D = 128 takes flash_fwd_tiles_kernel below); for bf16
+// inputs p and ds are rounded to bf16 before their products,
 // as in the wgmma kernels. 256 threads; thread (ty = tid / 16, tx = tid % 16)
 // owns rows R ty .. R ty + R - 1 of the block (R = 4 for 64 rows), columns tx
 // + 16 c (c < 4) of a 64-wide tile and output columns tx + 16 n (n < DC / 16)
@@ -559,8 +565,9 @@ __global__ void __launch_bounds__(160, 1) flash_bwd_dkdv_kernel(
 // D > DC the scores are formed once per output chunk. The 16 threads of a row
 // group are one half-warp, so row reductions are shuffles within it. Shared
 // memory holds the operands, so these kernels are bound by its bandwidth (two
-// loads per two FMAs in the score loop), not by the 67 TFLOP/s fp32 peak; a
-// register-blocked design is for a later version.
+// loads per two FMAs in the score loop), not by the 67 TFLOP/s fp32 peak
+// (the fp32 forward at D = 128 ran at 17% of it on an H100; the register-tile
+// kernel below replaced it there).
 constexpr int kF32Threads = 256;
 constexpr int kRows = 4;               // block rows per thread
 constexpr int kCols = kTile / 16;      // tile columns per thread
@@ -696,6 +703,261 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Args<T
 #pragma unroll
     for (int n = 0; n < NO; ++n) from_f32(op + row[i] * a.so.s + tx + 16 * n, o[i][n] / dn);
     if (tx == 0 && oc == 0) a.lse[((long long)b * a.H + h) * S + row[i]] = m[i] + logf(dn);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5's fp32 forward at D = 128 on register tiles
+// ---------------------------------------------------------------------------
+// What bounds it on this card: operations. At the serving prefill's shape
+// (q [1, 32, 2048, 128], kv [1, 8, 2048, 128], causal) its two products take
+// 34.4 GFLOP, 0.513 ms at the 67 TFLOP/s fp32 rate, against 0.013 ms for its
+// bytes; and an SM issues 128 FMAs a clock but moves only 128 bytes a clock
+// from shared memory into registers. So, on the pattern of K4's fp32 kernel
+// (encoder_attention.cu), each loaded word feeds 4-8 FMAs and the copies stay
+// off the FMA units' path:
+//   - one block per (128 query rows, q head, batch), 256 threads: thread (ty
+//     = tid / 16, tx = tid % 16) holds rows 8 ty .. 8 ty + 7 and keys tx + 16
+//     c (c < 4) of a 64-key tile's S, and the same rows by columns 4 tx .. 4
+//     tx + 3 and 64 + 4 tx .. 67 + 4 tx of O, in registers (8 x 4 and 8 x 8):
+//     per 4 depths 8 q and 4 k float4 loads feed 128 FMAs, per key of P.V 2
+//     float4 of p and 2 of v feed 64;
+//   - the online softmax in registers, scores in log2 units (s scale log2 e),
+//     so each p and each rescale exp(m_old - m_new) of O and l is one exp2: a
+//     row's keys lie in one half-warp, so its running max is a 16-lane
+//     shuffle reduction and its sum l a per-thread partial until the end; p
+//     goes to shared memory key-major and is read back within the half-warp;
+//   - q stays in shared memory; 64-key k tiles come by 16-byte cp.async
+//     (zero-filled past S) into a two-stage ring, v tiles into one stage
+//     (197 KB in all, one block and 8 warps an SM; two v stages would need
+//     234 KB): a tile's v is issued at its first barrier, lands while S is
+//     formed and is waited for at a second barrier before P.V. On an H100
+//     this ran 28% faster than 64 query rows with two v stages (184 KB, 4
+//     warps an SM; PERF.md, K5 fp32);
+//   - row strides padded by 4 floats (q and k rows, p's key rows) and q's
+//     rows skewed by 4 more every 8, so a warp's 16 distinct k rows, and the
+//     2 q rows 8 apart that it reads at once, fall in distinct banks;
+//   - causal blocks visit key tiles up to their last row; a warp whose rows
+//     all precede a tile skips it and P.V stops at the warp's last key; only
+//     tiles on the diagonal, at the ragged end or with segment ids mask;
+//     warps whose rows all lie past S skip the arithmetic;
+//   - a 1-D grid with the query tiles slowest, the heaviest first, so every
+//     head's longest tiles start before any shorter one.
+// GQA: head h reads kv head h / (H / KVH). Semantics as the chunked kernel's:
+// plain fp32 FMAs (no TF32), p never rounded, masked scores -1e30, m from
+// -1e30, l == 0 read as 1, lse = m + log(l).
+struct TileArgs {
+  const float* q; const float* k; const float* v;
+  float* out; float* lse; const int* seg;
+  Mat sq, sk, sv, so;
+  int B, H, KVH, S, causal, nqt;          // nqt: query tiles of BM rows
+  float scale2;                           // scale log2(e)
+};
+
+// shared memory in floats: q [BM rows of D + 4, skewed], k [2][64][D + 4],
+// v [64][D], p key-major [64][BM + 4]
+struct TileCfg {
+  static constexpr int D = 128, BM = 128, BN = 64, NT = 2 * BM, LQ = D + 4, LP = BM + 4;
+  static constexpr int QF = BM * LQ + BM / 2, KF = BN * LQ, VF = BN * D, PF = BN * LP;
+  static constexpr size_t SMEM = (size_t)(QF + 2 * KF + VF + PF) * sizeof(float);
+};
+
+// float offset of q row r: 4 floats of skew every 8 rows
+__device__ __forceinline__ int tile_q_row(int r) { return r * (128 + 4) + (r >> 3) * 4; }
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src unread)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(TileCfg::NT, 1) flash_fwd_tiles_kernel(const TileArgs a) {
+  using C = TileCfg;
+  constexpr int D = C::D, BM = C::BM, BN = C::BN, NT = C::NT, LQ = C::LQ, LP = C::LP;
+  constexpr int C4 = D / 4;
+  extern __shared__ __align__(16) float smem_t[];
+  float* Qs = smem_t;
+  float* Ks = Qs + C::QF;
+  float* Vs = Ks + 2 * C::KF;
+  float* Pt = Vs + C::VF;
+  const int S = a.S, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bh = (int)(blockIdx.x % (unsigned)(a.B * a.H));
+  const int q0 = (a.nqt - 1 - (int)(blockIdx.x / (unsigned)(a.B * a.H))) * BM;
+  const int h = bh % a.H, b = bh / a.H, hk = h / (a.H / a.KVH);
+  const float* qp = a.q + b * a.sq.b + h * a.sq.h;
+  const float* kp = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vp = a.v + b * a.sv.b + hk * a.sv.h;
+  const int* segb = a.seg != nullptr ? a.seg + (long long)b * S : nullptr;
+  const int kend = a.causal ? min(S, q0 + BM) : S;
+  const int ntiles = (kend + BN - 1) / BN;
+
+  // key rows [k0, k0 + BN) of k or v (row stride rs) into dst (row stride ld)
+  const auto stage = [&](float* dst, int ld, const float* src, long long rs, int k0) {
+    for (int e = tid; e < BN * C4; e += NT) {
+      const int r = e / C4, c = (e % C4) * 4;
+      const bool in = k0 + r < S;
+      cp_async16(dst + r * ld + c, in ? src + (k0 + r) * rs + c : src, in);
+    }
+  };
+  for (int e = tid; e < BM * C4; e += NT) {
+    const int r = e / C4, c = (e % C4) * 4;
+    const bool in = q0 + r < S;
+    cp_async16(Qs + tile_q_row(r) + c, in ? qp + (q0 + r) * a.sq.s + c : qp, in);
+  }
+  stage(Ks, LQ, kp, a.sk.s, 0);
+  cp_async_commit();
+
+  // a warp's rows are 16 (ty pairs 2 w, 2 w + 1): wr0 .. wr0 + 15
+  const int wr0 = q0 + 16 * (tid >> 5);
+  const bool live = wr0 < S;
+  int segr[8];
+  float o[8][8], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ty + i;
+    segr[i] = segb != nullptr && row < S ? segb[row] : 0;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) o[i][n] = 0.f;
+  }
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BN;
+    cp_async_wait<0>();
+    __syncthreads();              // tile j's k landed; j - 1's k stage, v and p are free
+    stage(Vs, D, vp, a.sv.s, k0);
+    cp_async_commit();
+    if (j + 1 < ntiles) stage(Ks + ((j + 1) & 1) * C::KF, LQ, kp, a.sk.s, k0 + BN);
+    cp_async_commit();            // (empty on the last tile: wait<1> below stays exact)
+    // causal: a warp whose rows all precede the tile has nothing in it
+    const bool work = live && (!a.causal || k0 <= wr0 + 15);
+    if (work) {
+      const float* ks = Ks + (j & 1) * C::KF;
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float4 kv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * LQ + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qs + tile_q_row(8 * ty + i) + d);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[i][c] = fmaf(qv.x, kv[c].x, s[i][c]);
+            s[i][c] = fmaf(qv.y, kv[c].y, s[i][c]);
+            s[i][c] = fmaf(qv.z, kv[c].z, s[i][c]);
+            s[i][c] = fmaf(qv.w, kv[c].w, s[i][c]);
+          }
+        }
+      }
+      // the mask: keys past S, causality, segment ids; only on edge tiles
+      const bool edge = segb != nullptr || k0 + BN > S ||
+                        (a.causal && k0 + BN - 1 > q0 + 8 * ty);
+      int segk[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + tx + 16 * c;
+        segk[c] = segb != nullptr && key < S ? segb[key] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = q0 + 8 * ty + i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[i][c] * a.scale2;
+          if (edge) {
+            const int key = k0 + tx + 16 * c;
+            bool ok = key < S;
+            if (a.causal) ok = ok && key <= row;
+            if (segb != nullptr) ok = ok && segr[i] == segk[c];
+            if (!ok) x = kNegInf;
+          }
+          s[i][c] = x;
+          mx = fmaxf(mx, x);
+        }
+        const float mn = fmaxf(m[i], max16(mx));
+        const float al = exp2f(m[i] - mn);
+        float ls = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = exp2f(s[i][c] - mn);
+          ls += s[i][c];
+        }
+        l[i] = l[i] * al + ls;
+        m[i] = mn;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) o[i][n] *= al;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* prow = Pt + (tx + 16 * c) * LP + 8 * ty;
+        *reinterpret_cast<float4*>(prow) = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+        *reinterpret_cast<float4*>(prow + 4) = make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+      }
+    }
+    cp_async_wait<1>();           // this tile's v (the newest group is k's next tile)
+    __syncthreads();              // every thread's part of v landed (p: its half-warp's)
+    if (work) {
+      const float* vs = Vs;
+      // p is 0 past S and past the warp's last row (causal): stop there
+      int kn = min(BN, S - k0);
+      if (a.causal) kn = min(kn, wr0 + 16 - k0);
+      const int kq = (kn + 3) & ~3;
+      for (int kk = 0; kk < kq; kk += 4) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 pa = *reinterpret_cast<const float4*>(Pt + (kk + t) * LP + 8 * ty);
+          const float4 pb = *reinterpret_cast<const float4*>(Pt + (kk + t) * LP + 8 * ty + 4);
+          const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vs + (kk + t) * D + 64 * n + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              o[i][4 * n] = fmaf(pr[i], vv.x, o[i][4 * n]);
+              o[i][4 * n + 1] = fmaf(pr[i], vv.y, o[i][4 * n + 1]);
+              o[i][4 * n + 2] = fmaf(pr[i], vv.z, o[i][4 * n + 2]);
+              o[i][4 * n + 3] = fmaf(pr[i], vv.w, o[i][4 * n + 3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!live) return;
+  float* op = a.out + b * a.so.b + h * a.so.h;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float lt = sum16(l[i]);
+    const float dn = lt == 0.f ? 1.f : lt;
+    const int row = q0 + 8 * ty + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      *reinterpret_cast<float4*>(op + row * a.so.s + 64 * n + 4 * tx) =
+          make_float4(o[i][4 * n] / dn, o[i][4 * n + 1] / dn, o[i][4 * n + 2] / dn,
+                      o[i][4 * n + 3] / dn);
+    if (tx == 0) a.lse[((long long)b * a.H + h) * S + row] = m[i] / kLog2e + logf(dn);
   }
 }
 
@@ -1109,6 +1371,28 @@ int run_fwd_ffma(const void* q, const void* k, const void* v, void* out, void* l
                 dim3((S + kBlock - 1) / kBlock, H, B * (D / DC)), a, stream);
 }
 
+// The fp32 forward at D = 128 on register tiles: a 1-D grid of (S / 128) x
+// B x H blocks.
+int run_fwd_tiles(const void* q, const void* k, const void* v, void* out, void* lse,
+                  const void* seg, const long long* strides, int B, int H, int KVH, int S,
+                  int causal, float scale, void* stream) {
+  TileArgs a = {};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.out = (float*)out;
+  a.lse = (float*)lse;
+  a.seg = (const int*)seg;
+  a.sq = mat(strides, 0); a.sk = mat(strides, 1); a.sv = mat(strides, 2); a.so = mat(strides, 3);
+  a.B = B; a.H = H; a.KVH = KVH; a.S = S; a.causal = causal;
+  a.nqt = (S + TileCfg::BM - 1) / TileCfg::BM;
+  a.scale2 = scale * kLog2e;
+  const long long blocks = (long long)a.nqt * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return launch(flash_fwd_tiles_kernel, TileCfg::NT, TileCfg::SMEM, dim3((unsigned)blocks), a,
+                stream);
+}
+
 // dK/dV on the FFMA units: 64 keys a block with 128-column chunks, 32 with 256
 template <typename T, int DC>
 int run_dkdv_ffma(const void* q, const void* k, const void* v, const void* dout,
@@ -1154,22 +1438,35 @@ extern "C" {
 // (fp32 == 1), unit stride over D, 16-byte aligned; `strides` holds (batch,
 // head, seq) element strides of q, k, v, out. out has q's shape and dtype; lse
 // is a contiguous [B, H, S] fp32 output; seg is a contiguous [B, S] int32
-// array or null. D is a multiple of 128: bf16 at D = 128 and 256 takes the
-// wgmma kernel, fp32 and bf16 at D > 256 the FFMA one.
+// array or null. D is a multiple of 128. `kernel` names the instance (the
+// wrapper's rule, flash_attention.fwd_route, picks it): 0 the wgmma kernel
+// (bf16 at D = 128 and 256), 1 the chunked FFMA kernel (any D, either dtype:
+// the rule's for fp32 at D > 128 and bf16 at D > 256), 2 the register-tile
+// FFMA kernel (fp32 at D = 128). An instance that does not take the inputs
+// is refused.
 int slime_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                     const void* seg, const long long* strides, int B, int H, int KVH,
-                    int S, int D, int fp32, int causal, float scale, void* stream) {
+                    int S, int D, int fp32, int causal, float scale, int kernel,
+                    void* stream) {
   if (bad_shape(B, H, KVH, S, D)) return (int)cudaErrorInvalidValue;
 #define SLIME_FWD(T, DC) run_fwd_ffma<T, DC>(q, k, v, out, lse, seg, strides, B, H, KVH, S, D, \
                                              causal, scale, stream)
-  if (fp32) return wide_chunks(D) ? SLIME_FWD(float, 256) : SLIME_FWD(float, 128);
-  if (D == 128)
-    return run_fwd_wgmma<128, 128>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal,
-                                   scale, stream);
-  if (D == 256)
-    return run_fwd_wgmma<256, 64>(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal,
-                                  scale, stream);
-  return wide_chunks(D) ? SLIME_FWD(bf16, 256) : SLIME_FWD(bf16, 128);
+  switch (kernel) {
+    case 0:
+      if (fp32 || (D != 128 && D != 256)) return (int)cudaErrorInvalidValue;
+      return D == 128 ? run_fwd_wgmma<128, 128>(q, k, v, out, lse, seg, strides, B, H, KVH, S,
+                                                causal, scale, stream)
+                      : run_fwd_wgmma<256, 64>(q, k, v, out, lse, seg, strides, B, H, KVH, S,
+                                               causal, scale, stream);
+    case 1:
+      if (fp32) return wide_chunks(D) ? SLIME_FWD(float, 256) : SLIME_FWD(float, 128);
+      return wide_chunks(D) ? SLIME_FWD(bf16, 256) : SLIME_FWD(bf16, 128);
+    case 2:
+      if (!fp32 || D != 128) return (int)cudaErrorInvalidValue;
+      return run_fwd_tiles(q, k, v, out, lse, seg, strides, B, H, KVH, S, causal, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #undef SLIME_FWD
 }
 

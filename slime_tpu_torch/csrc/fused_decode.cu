@@ -41,8 +41,10 @@
 // q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
 // paths, and those for dense bf16 weights (FMT kDense: the bf16
 // checkpoints' decode steps; K1-K3 at B <= 4, where the ring beat row per
-// warp on an H100), wherever a launch plan exists (the wrappers' routing
-// rule).
+// warp on an H100), and K1's fp32 instances for int8 and q4g weights (TA
+// float: the entry points' default compute dtype, at the rows
+// fused_mlp.F32_RING_ROWS names), wherever a launch plan exists (the
+// wrappers' routing rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
 // SM) and by one dependent 16-byte load a lane in flight (dense bf16: 8
@@ -70,7 +72,9 @@
 //     warps (16 / the rows in flight: 4 for down, 2 for gate/up, 1 for
 //     K2's 16 stages), whose sums meet in shared memory: the fp32 sum of
 //     exact products, in another order;
-//   - the activations (h for gate/up, a for down, attn for o; for q/k/v x,
+//   - the activations (TA: bf16, or fp32 for K1's fp32 instances, where a
+//     lane's 16 columns are four 16-byte chunks under a swizzle of their
+//     own, act_chunk_f32; h for gate/up, a for down, attn for o; for q/k/v x,
 //     normalised by each block as it copies it: K2's input norm needs no
 //     launch of its own; at most 8 rows, cut into launches of fewer rows
 //     where they would not fit) are copied into shared memory once a block
@@ -137,6 +141,8 @@
 // tile of 8 rows: 2.26 ms at 64 rows on an H100 against 0.151 on tensor
 // cores (one pass: 0.105 ms at the bytes rate). Dense K3 keeps its ring and
 // row-per-warp kernels.
+#include <type_traits>
+
 #include "hopper_common.cuh"
 #include "qmm_wgmma.cuh"
 
@@ -466,9 +472,11 @@ struct RingArgs {
                                // [rows, K / 2], dense bf16 [rows, K] (2 K bytes)
   const float* s[3];           // scales: int8 and q4 [rows] (one a row), q4g [rows, K / 128];
                                // dense: none
-  const bf16* act;             // [B, K] activations, copied into shared memory whole
-  const bf16* resid;           // [B, N] added to the output (MATS == 1), or null
-  bf16* out[3];                // [B, rows of the part] (MATS 2: out[0], [B, N])
+  // activations, residual and outputs in the kernel's activation type TA
+  // (bf16, or fp32 for K1's int8 and q4g instances)
+  const void* act;             // [B, K] activations, copied into shared memory whole
+  const void* resid;           // [B, N] added to the output (MATS == 1), or null
+  void* out[3];                // [B, rows of the part] (MATS 2: out[0], [B, N])
   int part_end[3];             // MATS 1: where each part of the row space ends (the last N)
   int parts;                   // 1 to 3 (MATS 2: 1)
   const float* norm_w;         // [K] fp32: act is x, and the block stages rms_norm(x) * w
@@ -519,6 +527,24 @@ __device__ __forceinline__ void int4x16_f32(const uint4 v, float* f) {
 // row cover all 32 banks. K is a multiple of 16.
 __device__ __forceinline__ int act_chunk(int j) { return j ^ ((j >> 3) & 1); }
 
+// fp32 activations (K1's fp32 instances): a row of K fp32 as K / 4 16-byte
+// chunks, chunk j stored at j ^ ((j >> 3) & 3). A lane's 16 columns are now
+// four chunks (4 c .. 4 c + 3), read one at a time: for the k-th, the eight
+// lanes of a quarter-warp (pairs 16 blk + (lane & 7) for q4g, vectors c .. c
+// + 7 for int8, c a multiple of 8) read chunks 4 c + k, which fall on two
+// bank groups unswizzled (a 4-way conflict) and on four under bf16's swizzle
+// (2-way); this one spreads them over all eight (bit 2 of the chunk is c's
+// bit 0, bits 0-1 become k XOR c's bits 1-2). It stays within a 64-byte
+// group of 4 chunks (K is a multiple of 16).
+__device__ __forceinline__ int act_chunk_f32(int j) { return j ^ ((j >> 3) & 3); }
+
+// where chunk j of an activation row of type TA is stored
+template <typename TA>
+__device__ __forceinline__ int act_slot(int j) {
+  if constexpr (std::is_same<TA, float>::value) return act_chunk_f32(j);
+  else return act_chunk(j);
+}
+
 // 8 bf16 (one 16-byte chunk) -> 8 fp32
 __device__ __forceinline__ void bf16x8_f32(const uint4 v, float* f) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -537,11 +563,21 @@ __device__ __forceinline__ void load_act16(const bf16* row, int cc, float* f) {
   bf16x8_f32(q[sw ^ 1], f + 8);
 }
 
+// the same of a swizzled fp32 row (act_chunk_f32): four 16-byte chunks
+__device__ __forceinline__ void load_act16(const float* row, int cc, float* f) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v = q[act_chunk_f32(4 * cc + k)];
+    f[4 * k] = v.x; f[4 * k + 1] = v.y; f[4 * k + 2] = v.z; f[4 * k + 3] = v.w;
+  }
+}
+
 // acc[m][b] += act[b, 16 c .. 16 c + 15] . W_m[row, same], for the int8 vector
 // c of one row of each matrix in the stage (matrix m at wrow + m * mat_stride).
-template <int MATS, int BT>
+template <int MATS, int BT, typename TA>
 __device__ __forceinline__ void ring_dot_int8(const unsigned char* wrow, int mat_stride, int c,
-                                              const bf16* act, int K, int B,
+                                              const TA* act, int K, int B,
                                               float (&acc)[MATS][BT]) {
   float wf[MATS][16];
 #pragma unroll
@@ -565,9 +601,9 @@ __device__ __forceinline__ void ring_dot_int8(const unsigned char* wrow, int mat
 // ones, j = 16 (c % 8)): one fp32 partial sum for each group's 16 columns,
 // times the group's scale (s_m: the row's K / 128 scales in the stage),
 // added to acc.
-template <int MATS, int BT>
+template <int MATS, int BT, typename TA>
 __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_stride, int c,
-                                             const bf16* act, int K, int B,
+                                             const TA* act, int K, int B,
                                              const float* const (&s)[MATS],
                                              float (&acc)[MATS][BT]) {
   const int blk = c >> 3, lo = 16 * blk + (c & 7);      // lo: a pair of chunks
@@ -742,18 +778,18 @@ __device__ __forceinline__ void ring_load(const RingArgs& p, unsigned char* ring
 // a = bf16(silu(g) u); MATS 1 y = bf16(x + d) with res = x[b, row] (down,
 // o), or bf16(d) with res 0 (q/k/v), into its part's output, as
 // gate_up_kernel, resid_kernel and qkv_kernel round them.
-template <int MATS>
+template <int MATS, typename TA>
 __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
                                               const float (&v)[MATS], float res) {
   if constexpr (MATS == 2) {
     const float g = v[0], u = v[1];
     const float sig = 1.f / (1.f + expf(-g));
-    act_store(p.out[0] + (size_t)b * p.N + row, g * sig * u);
+    act_store(static_cast<TA*>(p.out[0]) + (size_t)b * p.N + row, g * sig * u);
   } else {
     int local;
     const int q = part_of(p, row, local);
     const int n = p.part_end[q] - (q ? p.part_end[q - 1] : 0);
-    act_store(p.out[q] + (size_t)b * n + local, res + v[0]);
+    act_store(static_cast<TA*>(p.out[q]) + (size_t)b * n + local, res + v[0]);
   }
 }
 
@@ -783,13 +819,13 @@ __device__ __forceinline__ void ring_epilogue(const RingArgs& p, int row, int b,
 // of split warps instead, each summing a split-th of its vectors (lane
 // vectors kp * 32 + lane, every 32 split further); the group adds its warp
 // sums in shared memory in warp order, and its first warp writes the row.
-template <int FMT, int MATS, int BT, int G>
+template <int FMT, int MATS, int BT, int G, typename TA>
 __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     const __grid_constant__ RingArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.stages, R = p.rows_per_stage, W = blockDim.x / 32 - 1;
   unsigned char* ring = smem;
-  bf16* act = reinterpret_cast<bf16*>(smem + (size_t)S * p.stage_bytes);
+  TA* act = reinterpret_cast<TA*>(smem + (size_t)S * p.stage_bytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(act + (size_t)p.B * p.K);
   uint64_t* empty = full + S;
   int* issued = reinterpret_cast<int*>(empty + S);                // the stage each slot holds
@@ -833,11 +869,13 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
   // the residual. Under the weights' stream a load's round trip takes
   // microseconds, so each thread issues its loads (up to eight 16-byte
   // chunks: all of a 4096-wide layer's activations) before it uses any.
-  const int tid = threadIdx.x, nthr = W * 32, chunks = p.K / 8;
+  // chunks: 16-byte chunks of an activation row
+  const int tid = threadIdx.x, nthr = W * 32, chunks = p.K * (int)sizeof(TA) / 16;
   const bool res = MATS == 1 && p.resid != nullptr, norm = p.norm_w != nullptr;
   const float4* nw = reinterpret_cast<const float4*>(p.norm_w);
+  const TA* resid = static_cast<const TA*>(p.resid);
   float sc = 0.f;                       // this thread's first row scale
-  bf16 rv = {};                         // and residual value (converted once the loads are out)
+  TA rv = {};                           // and residual value (converted once the loads are out)
   float4 w0 = {}, w1 = {};              // the norm weight of its first chunk
   if (kRowScale && tid < MATS * band) {
     int local;
@@ -849,7 +887,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     w1 = __ldg(nw + 2 * tid + 1);
   }
   griddep_wait();
-  if (res && tid < p.B * band) rv = p.resid[(size_t)(tid / band) * p.N + r0 + tid % band];
+  if (res && tid < p.B * band) rv = resid[(size_t)(tid / band) * p.N + r0 + tid % band];
   const uint4* src = reinterpret_cast<const uint4*>(p.act);
   uint4* dst = reinterpret_cast<uint4*>(act);
   if (!norm) {
@@ -871,10 +909,10 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
             if constexpr (FMT == kRowQ4)
               stage_act_q4(act + (size_t)b * p.K, p.K, j0 + k * nthr, u[k][b]);
             else
-              dst[b * chunks + act_chunk(j0 + k * nthr)] = u[k][b];
+              dst[b * chunks + act_slot<TA>(j0 + k * nthr)] = u[k][b];
           }
     }
-  } else {
+  } else if constexpr (std::is_same<TA, bf16>::value) {
     // h = bf16(x * rsqrt(mean(x^2) + eps) * w), as rms_norm_kernel rounds it:
     // each thread's sums of squares, then the block's over its warps
     uint4 v[BT];                        // chunk j of every activation row
@@ -946,7 +984,7 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     }
   if (res)
     for (int t = tid; t < p.B * band; t += nthr) {
-      if (t >= nthr) rv = p.resid[(size_t)(t / band) * p.N + r0 + t % band];
+      if (t >= nthr) rv = resid[(size_t)(t / band) * p.N + r0 + t % band];
       ep_res[(t / band) * p.band_cap + t % band] = act_f32(rv);
     }
   named_barrier(1, nthr);
@@ -979,12 +1017,12 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
     const auto dot = [&](int c, float (&into)[NV][BT]) {
       if constexpr (FMT == kQ4G)
         ring_dot_q4g<NV, BT>(wrow, vstride, c, act, p.K, p.B, s, into);
-      else if constexpr (FMT == kRowQ4)
-        ring_dot_q4<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
-      else if constexpr (FMT == kDense)
-        ring_dot_bf16<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
-      else
+      else if constexpr (FMT == kInt8)
         ring_dot_int8<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
+      else if constexpr (FMT == kRowQ4)       // (these two: bf16 activations only)
+        ring_dot_q4<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
+      else
+        ring_dot_bf16<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
     };
     int c = kp * 32 + lane;
     if constexpr (BT == 1) {
@@ -1041,14 +1079,14 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
       }
       if (lane != b || b >= p.B) continue;
       if constexpr (MATS == 2) {
-        ring_epilogue<2>(p, r0 + t, b, v, 0.f);
+        ring_epilogue<2, TA>(p, r0 + t, b, v, 0.f);
       } else {
 #pragma unroll
         for (int g = 0; g < G; ++g) {   // the band's last rows may not fill the group
           const float vg[1] = {v[g]};
           if (t + g < band)
-            ring_epilogue<1>(p, r0 + t + g, b, vg,
-                             p.resid ? ep_res[b * p.band_cap + t + g] : 0.f);
+            ring_epilogue<1, TA>(p, r0 + t + g, b, vg,
+                                 p.resid ? ep_res[b * p.band_cap + t + g] : 0.f);
         }
       }
     }
@@ -1057,17 +1095,17 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
 
 // Launch one weight_ring_kernel instance; with `pdl`, as a programmatic
 // dependent of the stream's previous kernel.
-template <int FMT, int MATS, int BT, int G>
+template <int FMT, int MATS, int BT, int G, typename TA>
 int launch_ring_g(const RingArgs& a, int grid, int warps, int smem, bool pdl,
                   cudaStream_t st) {
   static bool attrs_set = false;               // once per instance
   if (!attrs_set) {
-    cudaError_t e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G>,
+    cudaError_t e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G, TA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kRingSmemMax);
     // the most shared memory for the carveout: a block takes over half an SM's
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G>,
+      e = cudaFuncSetAttribute(weight_ring_kernel<FMT, MATS, BT, G, TA>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
@@ -1083,26 +1121,26 @@ int launch_ring_g(const RingArgs& a, int grid, int warps, int smem, bool pdl,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, weight_ring_kernel<FMT, MATS, BT, G>, a);
+  return (int)cudaLaunchKernelEx(&cfg, weight_ring_kernel<FMT, MATS, BT, G, TA>, a);
 }
 
 // One matrix with an even number of rows a stage: each warp sums two rows of
 // a stage at once (G 2), so each activation it loads serves both.
-template <int FMT, int MATS, int BT>
+template <int FMT, int MATS, int BT, typename TA>
 int launch_ring_bt(const RingArgs& a, int grid, int warps, int smem, bool pdl,
                    cudaStream_t st) {
   if constexpr (MATS == 1)
     if (a.rows_per_stage % 2 == 0)
-      return launch_ring_g<FMT, MATS, BT, 2>(a, grid, warps, smem, pdl, st);
-  return launch_ring_g<FMT, MATS, BT, 1>(a, grid, warps, smem, pdl, st);
+      return launch_ring_g<FMT, MATS, BT, 2, TA>(a, grid, warps, smem, pdl, st);
+  return launch_ring_g<FMT, MATS, BT, 1, TA>(a, grid, warps, smem, pdl, st);
 }
 
-template <int FMT, int MATS>
+template <int FMT, int MATS, typename TA>
 int launch_ring(const RingArgs& a, int grid, int warps, int smem, bool pdl, cudaStream_t st) {
-  if (a.B <= 1) return launch_ring_bt<FMT, MATS, 1>(a, grid, warps, smem, pdl, st);
-  if (a.B <= 2) return launch_ring_bt<FMT, MATS, 2>(a, grid, warps, smem, pdl, st);
-  if (a.B <= 4) return launch_ring_bt<FMT, MATS, 4>(a, grid, warps, smem, pdl, st);
-  return launch_ring_bt<FMT, MATS, 8>(a, grid, warps, smem, pdl, st);
+  if (a.B <= 1) return launch_ring_bt<FMT, MATS, 1, TA>(a, grid, warps, smem, pdl, st);
+  if (a.B <= 2) return launch_ring_bt<FMT, MATS, 2, TA>(a, grid, warps, smem, pdl, st);
+  if (a.B <= 4) return launch_ring_bt<FMT, MATS, 4, TA>(a, grid, warps, smem, pdl, st);
+  return launch_ring_bt<FMT, MATS, 8, TA>(a, grid, warps, smem, pdl, st);
 }
 
 // The launches of one projection over activation rows [0, B) in groups of
@@ -1110,13 +1148,16 @@ int launch_ring(const RingArgs& a, int grid, int warps, int smem, bool pdl, cuda
 // {grid, rows_per_stage, stages, stage_bytes, batch_rows, smem, align,
 // consumer warps, split (warps a row: dense only)}, kPlanInts ints. The plan
 // is checked against what the kernel needs; one it cannot run is refused.
+// TA: the activations' type, bf16 or (K1's int8 and q4g instances, no row
+// norm in the kernel) fp32, sizeof(TA) bytes an activation.
 constexpr int kPlanInts = 9;
 
-template <int MATS>
+template <int MATS, typename TA>
 int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cudaStream_t st) {
   const int grid = plan[0], R = plan[1], S = plan[2], bg = plan[4], smem = plan[5];
   const int warps = plan[7], split = plan[8];
   const bool q4g = wfmt == kQ4G, q4 = wfmt == kRowQ4, dense = wfmt == kDense;
+  constexpr bool f32 = std::is_same<TA, float>::value;
   a.rows_per_stage = R;
   a.stages = S;
   a.stage_bytes = plan[3];
@@ -1129,8 +1170,8 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
   const long long part = dense ? 4LL * 2 * warps * MATS * G * bt : 0;
   const long long ep = (long long)((q4g || dense ? 0 : MATS) + (MATS == 1 ? bg : 0)) *
                        a.band_cap;
-  const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * 2 + 8 * 2 * S +
-                         4 * S + 4 * kRingMaxRows * kRingMaxWarps + 4 * ep + part;
+  const long long need = (long long)S * a.stage_bytes + (long long)bg * a.K * sizeof(TA) +
+                         8 * 2 * S + 4 * S + 4 * kRingMaxRows * kRingMaxWarps + 4 * ep + part;
   bool ok = (R == 1 || R == 2 || R == 4 || R == 8) && S >= 1 && bg >= 1 &&
             bg <= kRingMaxRows && grid >= 1 && grid <= a.N && a.row_bytes % 16 == 0 &&
             warps >= R && warps % R == 0 && warps <= kRingMaxWarps &&
@@ -1144,7 +1185,8 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
             (!dense || a.row_bytes == 2 * a.K) &&
             (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
             (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0)) &&
-            a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N;
+            a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N &&
+            (!f32 || ((wfmt == kInt8 || q4g) && a.norm_w == nullptr));
   // every part non-empty, and for q4g starting on a row whose scales are
   // whole 16-byte units; every matrix 16-byte aligned
   int part_rows[3] = {0, 0, 0};
@@ -1156,9 +1198,10 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
     ok = ok && reinterpret_cast<uintptr_t>(a.w[m]) % 16 == 0 &&
          (!q4g || reinterpret_cast<uintptr_t>(a.s[m]) % 16 == 0);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const bf16* act = a.act;
-  const bf16* resid = a.resid;
-  bf16* out[3] = {a.out[0], a.out[1], a.out[2]};
+  const TA* act = static_cast<const TA*>(a.act);
+  const TA* resid = static_cast<const TA*>(a.resid);
+  TA* out[3] = {static_cast<TA*>(a.out[0]), static_cast<TA*>(a.out[1]),
+                static_cast<TA*>(a.out[2])};
   for (int b0 = 0; b0 < B; b0 += bg) {
     a.B = min(bg, B - b0);
     a.act = act + (size_t)b0 * a.K;
@@ -1167,10 +1210,13 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
       a.out[q] = out[q] == nullptr ? nullptr : out[q] + (size_t)b0 * part_rows[q];
     if (reinterpret_cast<uintptr_t>(a.act) % 16) return (int)cudaErrorInvalidValue;
     int e;
-    if (q4g) e = launch_ring<kQ4G, MATS>(a, grid, warps, smem, pdl, st);
-    else if (dense) e = launch_ring<kDense, MATS>(a, grid, warps, smem, pdl, st);
-    else if (!q4) e = launch_ring<kInt8, MATS>(a, grid, warps, smem, pdl, st);
-    else if constexpr (MATS == 1) e = launch_ring<kRowQ4, 1>(a, grid, warps, smem, pdl, st);
+    if (q4g) e = launch_ring<kQ4G, MATS, TA>(a, grid, warps, smem, pdl, st);
+    else if (wfmt == kInt8) e = launch_ring<kInt8, MATS, TA>(a, grid, warps, smem, pdl, st);
+    else if constexpr (f32) e = (int)cudaErrorInvalidValue;
+    else if (dense) e = launch_ring<kDense, MATS, TA>(a, grid, warps, smem, pdl, st);
+    else if constexpr (MATS == 1)
+      e = q4 ? launch_ring<kRowQ4, 1, TA>(a, grid, warps, smem, pdl, st)
+             : (int)cudaErrorInvalidValue;
     else e = (int)cudaErrorInvalidValue;
     if (e != 0) return e;
   }
@@ -1257,20 +1303,27 @@ int slime_gate_up_gemv(int act_f32, int wfmt, const void* h, int B, int K, const
 #undef SLIME_DISPATCH
 
 // K1 through the weight ring: h = rms_norm(x), a = silu(h Wg^T) (h Wu^T),
-// y = x + a Wd^T, for bf16 x [B, H] (B <= 8) and dense bf16 (wfmt 0), int8
-// (1) or q4g (2) weights. h [B, H] and a [B, I] are the caller's scratch.
+// y = x + a Wd^T, for x [B, H] (B <= 8) bf16 (act_f32 0) with dense bf16
+// (wfmt 0), int8 (1) or q4g (2) weights, or fp32 (act_f32 1: h, a and y
+// fp32 too, 4 bytes an activation in the plans) with int8 or q4g weights.
+// h [B, H] and a [B, I] are the caller's scratch.
 // plan: the launch plans of gate/up (plan[0..8]) and down (plan[9..17]),
 // ring_projection's layout. With pdl, gate/up and down are programmatic
 // dependents of the kernel before them. Returns the first launch error, or 0.
-int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float eps, void* h,
-                   void* a, void* y, int B, int H, int I, const void* wg, const void* sg,
-                   const void* wu, const void* su, const void* wd, const void* sd,
-                   const int* plan, void* stream) {
-  if ((wfmt != kDense && wfmt != kInt8 && wfmt != kQ4G) || B < 1)
+int slime_mlp_ring(int wfmt, int act_f32, int pdl, const void* x, const void* norm_w, float eps,
+                   void* h, void* a, void* y, int B, int H, int I, const void* wg,
+                   const void* sg, const void* wu, const void* su, const void* wd,
+                   const void* sd, const int* plan, void* stream) {
+  if ((wfmt != kDense && wfmt != kInt8 && wfmt != kQ4G) || (act_f32 && wfmt == kDense) ||
+      B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
-                                                  (bf16*)h, H, eps);
+  if (act_f32)
+    rms_norm_kernel<float, 1024><<<B, 1024, 0, st>>>((const float*)x, (const float*)norm_w,
+                                                     (float*)h, H, eps);
+  else
+    rms_norm_kernel<bf16, 1024><<<B, 1024, 0, st>>>((const bf16*)x, (const float*)norm_w,
+                                                    (bf16*)h, H, eps);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
   // weight bytes a row of `k` columns
@@ -1282,27 +1335,29 @@ int slime_mlp_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   gu.w[1] = (const unsigned char*)wu;
   gu.s[0] = (const float*)sg;
   gu.s[1] = (const float*)su;
-  gu.act = (const bf16*)h;
-  gu.out[0] = (bf16*)a;
+  gu.act = h;
+  gu.out[0] = a;
   gu.part_end[0] = I;
   gu.parts = 1;
   gu.K = H;
   gu.N = I;
   gu.row_bytes = row_bytes(H);
-  e = ring_projection<2>(wfmt, pdl != 0, plan, gu, B, st);
+  e = act_f32 ? ring_projection<2, float>(wfmt, pdl != 0, plan, gu, B, st)
+              : ring_projection<2, bf16>(wfmt, pdl != 0, plan, gu, B, st);
   if (e != 0) return e;
   RingArgs dn = {};
   dn.w[0] = (const unsigned char*)wd;
   dn.s[0] = (const float*)sd;
-  dn.act = (const bf16*)a;
-  dn.resid = (const bf16*)x;
-  dn.out[0] = (bf16*)y;
+  dn.act = a;
+  dn.resid = x;
+  dn.out[0] = y;
   dn.part_end[0] = H;
   dn.parts = 1;
   dn.K = I;
   dn.N = H;
   dn.row_bytes = row_bytes(I);
-  return ring_projection<1>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st);
+  return act_f32 ? ring_projection<1, float>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st)
+                 : ring_projection<1, bf16>(wfmt, pdl != 0, plan + kPlanInts, dn, B, st);
 }
 
 }  // extern "C"
@@ -1548,19 +1603,19 @@ int slime_qkv_ring(int wfmt, int pdl, const void* x, const void* norm_w, float e
   for (int p = 0; p < 3; ++p) {
     a.w[p] = (const unsigned char*)w[p];
     a.s[p] = (const float*)s[p];
-    a.out[p] = (bf16*)out[p];
+    a.out[p] = out[p];
   }
   a.part_end[0] = NQ;
   a.part_end[1] = NQ + NKV;
   a.part_end[2] = NQ + 2 * NKV;
   a.parts = 3;
-  a.act = (const bf16*)x;
+  a.act = x;
   a.norm_w = (const float*)norm_w;
   a.eps = eps;
   a.K = H;
   a.N = NQ + 2 * NKV;
   a.row_bytes = wfmt == kQ4G ? H / 2 : wfmt == kDense ? 2 * H : H;
-  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+  return ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // K3 through the weight ring: y [B, H] = x + attn W_o^T (scaled), for bf16
@@ -1577,15 +1632,15 @@ int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, in
   RingArgs a = {};
   a.w[0] = (const unsigned char*)wo;
   a.s[0] = (const float*)so;
-  a.act = (const bf16*)attn;
-  a.resid = (const bf16*)x;
-  a.out[0] = (bf16*)y;
+  a.act = attn;
+  a.resid = x;
+  a.out[0] = y;
   a.part_end[0] = H;
   a.parts = 1;
   a.K = NQ;
   a.N = H;
   a.row_bytes = wfmt == kQ4G ? NQ / 2 : wfmt == kDense ? 2 * NQ : NQ;
-  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+  return ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // K6 through the weight ring: y [B, N] = bf16((x W^T) * scale[row]) for bf16
@@ -1599,14 +1654,14 @@ int slime_quant_ring(int wfmt, int pdl, const void* x, int B, int K, int N, cons
   RingArgs a = {};
   a.w[0] = (const unsigned char*)w;
   a.s[0] = (const float*)s;
-  a.act = (const bf16*)x;
-  a.out[0] = (bf16*)y;
+  a.act = x;
+  a.out[0] = y;
   a.part_end[0] = N;
   a.parts = 1;
   a.K = K;
   a.N = N;
   a.row_bytes = wfmt == kRowQ4 ? K / 2 : K;
-  return ring_projection<1>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+  return ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // cudaError_t's text, or that of the TMA tensor-map helpers' codes

@@ -35,7 +35,7 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "slime_resid_gemv": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "slime_gate_up_gemv": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
-    "slime_mlp_ring": [_I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I] + [_P] * 8,
+    "slime_mlp_ring": [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I] + [_P] * 8,
     "slime_qkv_ring": [_I, _I, _P, _P, _F, _I, _I, _I, _I] + [_P] * 11,
     "slime_o_ring": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "slime_mlp_wgmma": [_I, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I] + [_P] * 6 + [_I, _I, _P],
@@ -44,7 +44,7 @@ _SIGNATURES = {
     "slime_quant_ring": [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _I, _I, _P],
-    "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _P],
+    "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _I, _P],
     "slime_flash_bwd_dkdv": [_P] * 9 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_ring_attend": [_P] * 9 + [_LLP] + [_I] * 11 + [_F, _P],

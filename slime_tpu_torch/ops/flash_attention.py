@@ -38,9 +38,12 @@ all fp32 (no TF32 and no rounding: what JAX's interpret-mode kernels compute
 for fp32, and what ``llama.forward``'s default fp32 compute dtype sends
 them), at any D that is a multiple of 128, as JAX's rule sends every such D
 to its kernels. bf16 at D = 128 and 256 takes the Hopper ``wgmma`` kernels
-fed by TMA through an mbarrier ring (forward, dK/dV and dQ alike); fp32, and
-bf16 at D > 256 (no model in the repo has such a head), take FFMA tiles over
-128- or 256-column chunks of D. Outputs come back in the inputs' dtype.
+fed by TMA through an mbarrier ring (forward, dK/dV and dQ alike); the fp32
+forward at D = 128 (the default compute dtype's prefill) takes FFMA register
+tiles fed by a ``cp.async`` ring; the fp32 backward, the fp32 forward at D >
+128 and bf16 at D > 256 (no model in the repo has such a head) take FFMA
+tiles over 128- or 256-column chunks of D. ``fwd_route`` is the forward's
+rule, a pure function. Outputs come back in the inputs' dtype.
 ``kernel_input_error`` states what they take.
 
 Launch counts (one per kernel launch, nowhere else):
@@ -274,15 +277,48 @@ def _count(q, kernel: str) -> None:
         setattr(flash_attention, name, getattr(flash_attention, name) + n)
 
 
-def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-              segment_ids=None):
-    """K5 forward -> (out [B, H, S, D], lse [B, H, S] fp32)."""
+# the forward's instances, by slime_flash_fwd's kernel codes: the wgmma
+# kernel (bf16 at D = 128, 256), the chunked FFMA kernel (any D and dtype),
+# the register-tile FFMA kernel (fp32 at D = 128)
+FWD_KERNELS = {"wgmma": 0, "ffma": 1, "tiles": 2}
+
+
+def fwd_route(dtype, D: int) -> str:
+    """The forward's routing rule, a pure function of the dtype and the head
+    dim: "wgmma" for bf16 at D = 128 and 256, "tiles" for fp32 at D = 128
+    (the default compute dtype's prefill), "ffma" (the chunked FFMA kernel)
+    for every other D the kernels take (fp32 at D > 128, bf16 at D > 256)."""
+    if dtype == torch.bfloat16 and D in (128, 256):
+        return "wgmma"
+    if dtype == torch.float32 and D == 128:
+        return "tiles"
+    return "ffma"
+
+
+def fwd_takes(route: str, dtype, D: int) -> bool:
+    """Whether the forward's instance ``route`` takes inputs of ``dtype`` at
+    head dim D (a multiple of 128): the wgmma kernel bf16 at D = 128 and 256,
+    the chunked FFMA kernel either dtype at any D, the register-tile kernel
+    fp32 at D = 128."""
+    if route == "wgmma":
+        return dtype == torch.bfloat16 and D in (128, 256)
+    if route == "tiles":
+        return dtype == torch.float32 and D == 128
+    return route == "ffma"
+
+
+def fwd_launch(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+               segment_ids=None, route: Optional[str] = None):
+    """K5 forward's launch on CUDA tensors -> (out, lse), counting nothing:
+    ``route`` None is the rule's instance (``fwd_route``), else a key of
+    FWD_KERNELS (chip_smoke.py's phase 1 times the others on the same
+    inputs); an instance that does not take the inputs raises."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
-                             segment_ids=segment_ids)
     q, k, v = _check_kernel_inputs(q, k, v)
     B, H, S, D = q.shape
+    route = fwd_route(q.dtype, D) if route is None else route
+    if not fwd_takes(route, q.dtype, D):
+        raise ValueError(f"K5's forward instance {route!r} does not take {q.dtype} at D = {D}")
     seg = _seg_arg(segment_ids, q)
     out = _bshd_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -290,7 +326,19 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     _cuda.check(_cuda.library().slime_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _cuda.ptr(seg), strides, B, H, k.shape[1], S, D, _fp32(q), int(causal), scale,
-        _cuda.stream()), "flash_fwd")
+        FWD_KERNELS[route], _cuda.stream()), f"flash_fwd ({route})")
+    return out, lse
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+              segment_ids=None):
+    """K5 forward -> (out [B, H, S, D], lse [B, H, S] fp32): the instance
+    ``fwd_route`` picks."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
+                             segment_ids=segment_ids)
+    out, lse = fwd_launch(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)
     _count(q, "fwd")
     return out, lse
 

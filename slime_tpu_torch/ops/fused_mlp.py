@@ -11,9 +11,12 @@ The routing rule (``k1_route``, a pure function of the shapes and the
 dtype) picks one of three instances:
 
 - "ring": bf16 activations with int8 or q4g weights at B <= 8, or dense
-  bf16 weights at B <= DENSE_RING_ROWS (4) (``ring_instance``: the decode
-  steps of the int8 and 4-bit serving paths and of a bf16 checkpoint),
-  where both projections have a launch plan (``ring_route``): one C call
+  bf16 weights at B <= DENSE_RING_ROWS (4), or fp32 activations with int8
+  or q4g weights at B <= F32_RING_ROWS (``ring_instance``: the decode
+  steps of the int8 and 4-bit serving paths, of a bf16 checkpoint, and of
+  the entry points' default fp32 compute dtype), where both projections
+  have a launch plan (``ring_route``; fp32 activations take 4 bytes each
+  in the plans, so fewer rows a launch): one C call
   launches the row norm, gate/up and down on the weight ring
   (``weight_ring_kernel``, ``ops/weight_ring.py``), the last two as
   programmatic dependents of the launch before them, each a persistent grid
@@ -30,16 +33,17 @@ dtype) picks one of three instances:
   as its activations. int8 weights become bf16 A fragments in registers;
   dense ones are the A operand straight from shared memory, 64 columns a
   stage, with no scales;
-- "rows": every other input (fp32 activations, q4g at B > 8, a layer too
-  wide for the ring or whose rows TMA cannot read) takes the row-per-warp
-  kernels.
+- "rows": every other input (fp32 activations past F32_RING_ROWS or on
+  dense weights, q4g at B > 8, a layer too wide for the ring or whose rows
+  TMA cannot read) takes the row-per-warp kernels.
 
 Launch counts: ``.ring_launches`` counts the calls that took the ring
 (``.q4g_ring_launches`` those on q4g weights, ``.dense_ring_launches`` those
-on dense bf16 weights), ``.wgmma_launches`` those on tensor cores
-(``.dense_wgmma_launches`` those on dense bf16 weights), beside the counts
-every call adds (``fused_qkvo.count``: ``.dense_launches`` the bf16 calls
-on dense bf16 weights among them, on any instance).
+on dense bf16 weights, ``.f32_ring_launches`` those with fp32 activations,
+``.f32_q4g_ring_launches`` those with both), ``.wgmma_launches`` those on
+tensor cores (``.dense_wgmma_launches`` those on dense bf16 weights), beside
+the counts every call adds (``fused_qkvo.count``: ``.dense_launches`` the
+bf16 calls on dense bf16 weights among them, on any instance).
 
 Rounding kept from the TPU kernel (fused_mlp.py:227-292), with the working
 dtype bf16 or fp32 (the activations'): h rounds to the working dtype; dots
@@ -81,6 +85,13 @@ _PREFERRED_BLOCK = {"dense": 512, "int8": 1024, "q4g": 1024}
 # Measured at that width (H 4096, I 14336) only: other dense widths with
 # ring plans take the same limit unmeasured
 DENSE_RING_ROWS = 4
+# fp32 activations (the entry points' default compute dtype) with int8 or
+# q4g weights take the ring at B <= this many rows (all the ring takes), the
+# row-per-warp kernels above: on an H100 at SliME-8B's width the ring beat
+# row per warp at every B from 1 to 8, int8 0.0890-0.2763 ms against
+# 0.1634-0.8630, q4g 0.0705-0.2388 against 0.1509-0.7586 (PERF.md, K1 fp32
+# ring). Measured at that width only
+F32_RING_ROWS = 8
 
 
 def _block_divisor(I: int, want: int, *, step: int = 128) -> int:
@@ -108,23 +119,25 @@ def auto_block_ok(layers) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def ring_plan(B: int, H: int, I: int, fmt: int, sms: int):
-    """(gate/up, down) launch plans of ``fused_mlp_decode`` on the ring, and
-    the C array of both that the launch takes; None where either projection
-    has no plan."""
-    gu = wr.launch_or_none(B, H, I, fmt, 2, sms)
-    dn = wr.launch_or_none(B, I, H, fmt, 1, sms)
+def ring_plan(B: int, H: int, I: int, fmt: int, sms: int, act_bytes: int = 2):
+    """(gate/up, down) launch plans of ``fused_mlp_decode`` on the ring for
+    activations of ``act_bytes`` bytes (bf16 2, fp32 4), and the C array of
+    both that the launch takes; None where either projection has no plan."""
+    gu = wr.launch_or_none(B, H, I, fmt, 2, sms, act_bytes=act_bytes)
+    dn = wr.launch_or_none(B, I, H, fmt, 1, sms, act_bytes=act_bytes)
     return None if gu is None or dn is None else (gu, dn, wr.c_plan(gu, dn))
 
 
 def ring_route(B: int, dtype, fmt: int, H: int, I: int, sms: int):
     """The routing rule of ``fused_mlp_decode``: ``ring_plan``'s plans where
-    the call takes the weight ring (``ring_instance`` holds, dense weights
-    at B <= DENSE_RING_ROWS only, and both projections have a plan), None
-    where it takes the row-per-warp kernels."""
-    if not ring_instance(B, dtype, fmt) or (fmt == DENSE and B > DENSE_RING_ROWS):
+    the call takes the weight ring (``ring_instance`` holds with fp32
+    admitted up to F32_RING_ROWS, dense weights at B <= DENSE_RING_ROWS
+    only, and both projections have a plan), None where it takes the
+    row-per-warp kernels."""
+    if (not ring_instance(B, dtype, fmt, f32_rows=F32_RING_ROWS)
+            or (fmt == DENSE and B > DENSE_RING_ROWS)):
         return None
-    return ring_plan(B, H, I, fmt, sms)
+    return ring_plan(B, H, I, fmt, sms, wr.act_bytes(dtype))
 
 
 def wgmma_instance(dtype, fmt: int, H: int, I: int) -> bool:
@@ -201,6 +214,9 @@ def fused_mlp_decode(x, layers, layer_idx, *, eps: float = 1e-5):
     y, fmt, route = mlp_launch(x, layers, layer_idx, eps)
     count_route(fused_mlp_decode, fmt, route)
     count(fused_mlp_decode, x, fmt)
+    f32_ring = int(route == "ring" and act_f32(x) == 1)
+    fused_mlp_decode.f32_ring_launches += f32_ring
+    fused_mlp_decode.f32_q4g_ring_launches += f32_ring * (fmt == Q4G)
     return y
 
 
@@ -237,8 +253,9 @@ def mlp_launch(x, layers, layer_idx, eps, route=None):
     sms = wr.sm_count(x.device)
     if route is None:
         route = k1_route(B, x.dtype, fmt, H, I, sms)
-    plans = (ring_plan(B, H, I, fmt, sms)
-             if route == "ring" and ring_instance(B, x.dtype, fmt) else None)
+    plans = (ring_plan(B, H, I, fmt, sms, wr.act_bytes(x.dtype))
+             if route == "ring" and ring_instance(B, x.dtype, fmt, f32_rows=wr.RING_MAX_ROWS)
+             else None)
     if route == "ring" and plans is None:
         route = "rows"
     if route == "wgmma" and not wgmma_instance(x.dtype, fmt, H, I):
@@ -249,8 +266,8 @@ def mlp_launch(x, layers, layer_idx, eps, route=None):
         *_, plan = plans
         h = torch.empty_like(x)
         _cuda.check(lib.slime_mlp_ring(
-            fmt, int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(), a.data_ptr(),
-            y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd),
+            fmt, act_f32(x), int(wr.PDL), x.data_ptr(), nw.data_ptr(), eps, h.data_ptr(),
+            a.data_ptr(), y.data_ptr(), B, H, I, p(wg), p(sg), p(wu), p(su), p(wd), p(sd),
             ctypes.addressof(plan), _cuda.stream()), "fused_mlp_decode (weight ring)")
     elif route == "wgmma":
         nw = norm_weight(x, norm_w)
@@ -278,3 +295,4 @@ fused_mlp_decode.f32_launches = fused_mlp_decode.f32_q4g_launches = 0
 fused_mlp_decode.ring_launches = fused_mlp_decode.q4g_ring_launches = 0
 fused_mlp_decode.dense_launches = fused_mlp_decode.dense_ring_launches = 0
 fused_mlp_decode.wgmma_launches = fused_mlp_decode.dense_wgmma_launches = 0
+fused_mlp_decode.f32_ring_launches = fused_mlp_decode.f32_q4g_ring_launches = 0

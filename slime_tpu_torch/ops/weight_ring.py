@@ -3,7 +3,9 @@
 K1-K3 (``fused_mlp_decode``, ``fused_qkv_decode``, ``fused_o_residual``) in
 bf16 with int8, q4g or dense bf16 weights (dense K1 at B <= 4:
 ``fused_mlp.DENSE_RING_ROWS``; dense K3 at B <= 4:
-``fused_qkvo.DENSE_O_RING_ROWS``), and K6 (``quant_matmul``)
+``fused_qkvo.DENSE_O_RING_ROWS``), K1 in fp32 with int8 or q4g weights (at
+B <= ``fused_mlp.F32_RING_ROWS``: the default compute dtype's decode steps),
+and K6 (``quant_matmul``)
 in bf16 with int8 or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``:
 the decode steps of the int8 and 4-bit serving paths and of a bf16
 checkpoint) run on the weight ring,
@@ -59,15 +61,25 @@ RED_BYTES = 4 * RING_MAX_ROWS * 16   # the folded row norm's partial sums, [rows
 PDL = True                    # chain a call's launches (programmatic dependent launch)
 
 
-def ring_instance(B: int, dtype, fmt: int) -> bool:
+def ring_instance(B: int, dtype, fmt: int, f32_rows: int = 0) -> bool:
     """Whether the decode kernels' operands suit the weight ring: bf16
     activations, dense bf16, int8, q4g or (K6) per-row q4 weights, 1 <= B <=
-    8. Such a call takes the ring where its plans exist (dense K1 and K3
-    up to their row limits: ``fused_mlp.ring_route``,
+    8; and, where a caller admits fp32 activations (K1 alone, up to
+    ``f32_rows`` rows: ``fused_mlp.F32_RING_ROWS``), fp32 with int8 or q4g
+    weights. Such a call takes the ring where its plans exist (dense K1 and
+    K3 up to their row limits: ``fused_mlp.ring_route``,
     ``fused_qkvo.o_ring_route``); everything else takes the row-per-warp
     kernels (K6: its mma.sync GEMM)."""
-    return (dtype == torch.bfloat16 and fmt in (DENSE, INT8, Q4G, ROW_Q4)
-            and 1 <= B <= RING_MAX_ROWS)
+    if not 1 <= B <= RING_MAX_ROWS:
+        return False
+    if dtype == torch.float32:
+        return fmt in (INT8, Q4G) and B <= f32_rows
+    return dtype == torch.bfloat16 and fmt in (DENSE, INT8, Q4G, ROW_Q4)
+
+
+def act_bytes(dtype) -> int:
+    """Bytes an activation on the ring: 4 for fp32, 2 for bf16."""
+    return 4 if dtype == torch.float32 else 2
 
 
 @dataclass(frozen=True)
@@ -80,7 +92,9 @@ class RingLaunch:
     bytes of shared memory a block; bands start at multiples of ``align``
     rows. With one matrix a stage, the row space may be several matrices
     one after another (``parts``: their row counts; K2's W_q, W_k, W_v).
-    Dense bf16 rows are each summed by ``split`` warps (else 1)."""
+    Dense bf16 rows are each summed by ``split`` warps (else 1).
+    ``act_bytes``: 2 (bf16) or 4 (fp32) an activation, as the launch's
+    entry point is told (not part of the C plan)."""
     rows: int                 # N, output rows
     row_bytes: int            # weight bytes a row (dense bf16: 2 K)
     scale_bytes: int          # q4g scale bytes a row (0 for int8 and q4, loaded by the
@@ -96,6 +110,7 @@ class RingLaunch:
     warps: int                # consumer warps a block
     parts: tuple = ()         # row counts of the row space's matrices (mats 1); () = (rows,)
     split: int = 1            # consumer warps that share a row's vectors (dense only)
+    act_bytes: int = 2        # bytes an activation: bf16 2, fp32 4
 
     def bands(self):
         """[(first row, end row)] of every block, as the kernel cuts them
@@ -135,11 +150,12 @@ class RingLaunch:
 
 
 def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
-                parts=None) -> RingLaunch:
+                parts=None, act_bytes: int = 2) -> RingLaunch:
     """The launch plan of one projection of N rows over K columns of dense
     bf16 (2 K bytes a row, no scales), int8 (K bytes), q4g (K / 2, and K /
-    128 fp32 scales) or per-row q4 (K / 2) weights, for B activation rows,
-    on a card of ``sms`` SMs: one block an SM, each band
+    128 fp32 scales) or per-row q4 (K / 2) weights, for B activation rows of
+    ``act_bytes`` bytes each (2: bf16; 4: fp32, with int8 or q4g weights
+    only), on a card of ``sms`` SMs: one block an SM, each band
     at least ``align`` rows; R, the most rows (8, 4, 2 or 1, at least
     ``align``) whose weights stay within STAGE_BYTES; as many activation
     rows a launch as ACT_BYTES holds; as many stages (at least 2) as
@@ -158,7 +174,7 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     R = next(r for r in (8, 4, 2, 1)
              if r == align or mats * r * row_bytes <= STAGE_BYTES)
     stage = mats * R * (row_bytes + scale_bytes)
-    bg = max(1, min(B, RING_MAX_ROWS, ACT_BYTES // (2 * K)))
+    bg = max(1, min(B, RING_MAX_ROWS, ACT_BYTES // (act_bytes * K)))
     # the kernel's rows a warp (two with one matrix of even R) and its
     # instance's activation rows (BT); dense: a split row's warp sums,
     # [2][warps][mats * G][BT] fp32
@@ -169,14 +185,15 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     band_cap = -(-N // grid) + align
     epilogue = ((mats if fmt in (INT8, ROW_Q4) else 0) + (bg if mats == 1 else 0)) * band_cap * 4
     # activations, epilogue, the norm's sums (dense: and a split row's sums)
-    rest = bg * K * 2 + epilogue + RED_BYTES + (part if fmt == DENSE else 0)
+    rest = bg * K * act_bytes + epilogue + RED_BYTES + (part if fmt == DENSE else 0)
     # a stage, its two barriers and its issued index
     stages = min(RING_BYTES // stage, (SMEM_MAX - rest) // (stage + 20))
     if (stages < 2 or fmt not in (DENSE, INT8, Q4G, ROW_Q4) or row_bytes % 16 or K % 16
             or sum(parts) != N or min(parts) < 1
             or (fmt == ROW_Q4 and (mats > 1 or len(parts) > 1))
             or any(n % align for n in parts) or (mats > 1 and len(parts) > 1)
-            or len(parts) > 3):
+            or len(parts) > 3 or act_bytes not in (2, 4)
+            or (act_bytes == 4 and fmt not in (INT8, Q4G))):
         raise ValueError(f"no weight-ring plan for [{N}, {K}] ({row_bytes} bytes a row, "
                          f"stages of {stage} bytes, parts {parts})")
     # more than half an SM's shared memory: one block of a ring kernel an SM,
@@ -188,13 +205,14 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
         while split * 2 * in_flight <= RING_WARPS:
             split *= 2
     return RingLaunch(N, row_bytes, scale_bytes, mats, grid, R, stages, stage, bg, smem,
-                      align, RING_WARPS, parts if len(parts) > 1 else (), split)
+                      align, RING_WARPS, parts if len(parts) > 1 else (), split, act_bytes)
 
 
-def launch_or_none(B: int, K: int, N: int, fmt: int, mats: int, sms: int, parts=None):
+def launch_or_none(B: int, K: int, N: int, fmt: int, mats: int, sms: int, parts=None,
+                   act_bytes: int = 2):
     """``ring_launch``'s plan, or None where it has none."""
     try:
-        return ring_launch(B, K, N, fmt, mats, sms, parts)
+        return ring_launch(B, K, N, fmt, mats, sms, parts, act_bytes)
     except ValueError:
         return None
 

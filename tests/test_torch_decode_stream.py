@@ -30,7 +30,10 @@ dense consumers' view of the swizzled activations; and that CPU calls take
 the plain versions and count no launch. K6 (``quant_matmul``) runs the same
 kernel at decode rows: its rule (``weight_ring.k6_ring_route``) and plans
 for int8 and per-row q4 at B = 1-8, and the q4 consumers' de-interleaved
-activation staging, are held here too.
+activation staging, are held here too. K1 alone takes fp32 activations on
+the ring (int8 and q4g weights, B <= ``fused_mlp.F32_RING_ROWS``): its rule,
+its plans with 4-byte activations, the fp32 consumers' swizzled view of
+them, and that K2's, K3's and K6's rules still keep fp32 off the ring.
 """
 import itertools
 
@@ -79,8 +82,8 @@ def _need(ln: wr.RingLaunch, K: int) -> int:
     G = 2 if ln.mats == 1 and ln.rows_per_stage % 2 == 0 else 1
     bt = next(b for b in (1, 2, 4, 8) if b >= ln.batch_rows)
     part = 4 * 2 * ln.warps * ln.mats * G * bt if dense else 0     # a split row's warp sums
-    return (S * ln.stage_bytes + ln.batch_rows * K * 2 + 8 * 2 * S + 4 * S + 4 * 8 * 16 + 4 * ep
-            + part)
+    return (S * ln.stage_bytes + ln.batch_rows * K * ln.act_bytes + 8 * 2 * S + 4 * S
+            + 4 * 8 * 16 + 4 * ep + part)
 
 
 def _assert_covers_every_row_once(ln: wr.RingLaunch, K: int, B: int, mat_rows):
@@ -105,10 +108,10 @@ def _assert_covers_every_row_once(ln: wr.RingLaunch, K: int, B: int, mat_rows):
     assert groups >= ln.stages * R // G or ln.split == 1
     assert wr.SMEM_HALF <= ln.smem <= wr.SMEM_MAX and _need(ln, K) <= ln.smem
     # activation rows: one launch a group, each group's rows 16-byte aligned
-    assert 1 <= ln.batch_rows <= 8 and ln.batch_rows * K * 2 <= wr.ACT_BYTES
+    assert 1 <= ln.batch_rows <= 8 and ln.batch_rows * K * ln.act_bytes <= wr.ACT_BYTES
     groups = list(range(0, B, ln.batch_rows))
     assert sum(min(ln.batch_rows, B - b0) for b0 in groups) == B
-    assert all(b0 * K * 2 % 16 == 0 for b0 in groups)
+    assert all(b0 * K * ln.act_bytes % 16 == 0 for b0 in groups)
     # bands: contiguous, non-empty, every row once, starts on `align`
     bands = ln.bands()
     assert bands[0][0] == 0 and bands[-1][1] == N and len(bands) == ln.grid
@@ -272,12 +275,14 @@ def test_k1_route_rule(fmt, B):
     """bf16 x: int8 weights take the ring at 1-8 rows and the tensor-core
     instance from 9, q4g the ring at 1-8 and the row-per-warp kernels from
     9, dense bf16 the ring at 1-4 and the tensor-core instance from 5; fp32
-    x (dense fp32 weights among them) always row per warp."""
+    x with int8 or q4g weights the ring at 1-F32_RING_ROWS rows and row per
+    warp past them, on dense (bf16 or fp32) weights always row per warp."""
     bf, f32 = torch.bfloat16, torch.float32
     want = {INT8: "ring" if B <= 8 else "wgmma", Q4G: "ring" if B <= 8 else "rows",
             DENSE: "ring" if B <= 4 else "wgmma", wr.DENSE_F32: "rows"}
     assert fm.k1_route(B, bf, fmt, 4096, 14336, SMS) == want[fmt]
-    assert fm.k1_route(B, f32, fmt, 4096, 14336, SMS) == "rows"
+    f32_ring = fmt in (INT8, Q4G) and B <= fm.F32_RING_ROWS
+    assert fm.k1_route(B, f32, fmt, 4096, 14336, SMS) == ("ring" if f32_ring else "rows")
     assert fm.K1_WGMMA_MIN_ROWS == 9
     assert fm.DENSE_RING_ROWS == 4 and fm.DENSE_WGMMA_MIN_ROWS == 5
 
@@ -659,8 +664,11 @@ def test_ring_routes_at_phase1(fmt, dtype, B):
     DENSE_O_RING_ROWS, 4), K1 at B <= 4 only (the card measured the
     ring slower at 8 rows)."""
     want = wr.ring_instance(B, dtype, fmt)
+    # K1 alone admits fp32 (int8, q4g) up to F32_RING_ROWS
+    k1 = wr.ring_instance(B, dtype, fmt, f32_rows=fm.F32_RING_ROWS)
+    assert k1 == (want or (dtype == torch.float32 and B <= fm.F32_RING_ROWS))
     assert (fm.ring_route(B, dtype, fmt, 4096, 14336, SMS) is not None) == (
-        want and (fmt != DENSE or B <= fm.DENSE_RING_ROWS))
+        k1 and (fmt != DENSE or B <= fm.DENSE_RING_ROWS))
     assert (fq.qkv_ring_route(B, dtype, fmt, 4096, 4096, 1024, SMS) is not None) == want
     assert (fq.o_ring_route(B, dtype, fmt, 4096, 4096, SMS) is not None) == (
         want and (fmt != DENSE or B <= fq.DENSE_O_RING_ROWS))
@@ -929,3 +937,129 @@ def test_dense_ring_activations_read_in_place(K):
         chunks = [_act_chunk(c) for c in range(q, min(q + 8, K // 8))]
         assert len({ch % 8 for ch in chunks}) == len(chunks)
         assert len({ch // 8 for ch in chunks}) == 1     # one 128-byte line
+
+
+# K1 with fp32 activations (the entry points' default compute dtype) on the
+# ring: int8 and q4g weights, 4 bytes an activation in the plans
+F32_FORMATS = [INT8, Q4G]
+
+
+@pytest.mark.parametrize("fmt", F32_FORMATS, ids=["int8", "q4g"])
+@pytest.mark.parametrize("B", range(1, 9))
+def test_f32_ring_plans_at_8b_width(fmt, B):
+    """SliME-8B's gate/up [14336, 4096] and down [4096, 14336] with fp32
+    activations: h's rows are 16 KB, so all 8 fit ACT_BYTES in one launch;
+    a's are 56 KB, so down stages 1 row a launch at B = 1 (beside its 128 KB
+    ring) and 2 from B = 2 (ceil(B / 2) launches); shared memory within a
+    block's, every row once. The rule's plan at B <= F32_RING_ROWS is this
+    one."""
+    gu, dn, ints = fm.ring_plan(B, 4096, 14336, fmt, SMS, 4)
+    assert list(ints) == gu.ints() + dn.ints()
+    assert gu.act_bytes == dn.act_bytes == 4
+    assert (gu.batch_rows, dn.batch_rows) == (B, min(B, 2))
+    assert gu.smem <= wr.SMEM_MAX and dn.smem <= wr.SMEM_MAX
+    if B == 1:
+        assert dn.batch_rows * 14336 * 4 == 57344 and dn.stages >= 9
+    for ln, K, N, mats in ((gu, 4096, 14336, 2), (dn, 14336, 4096, 1)):
+        assert ln.row_bytes == ROW_BYTES[fmt](K)
+        _assert_covers_every_row_once(ln, K, B, [N] * mats)
+    route = fm.ring_route(B, torch.float32, fmt, 4096, 14336, SMS)
+    assert (route is not None) == (B <= fm.F32_RING_ROWS)
+    assert route is None or route == fm.ring_plan(B, 4096, 14336, fmt, SMS, 4)
+
+
+@pytest.mark.parametrize("fmt", F32_FORMATS, ids=["int8", "q4g"])
+@pytest.mark.parametrize("width", WIDTHS[1:] + [(2048, 5632)], ids=lambda w: f"H{w[0]}-I{w[1]}")
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("sms", [SMS, 7])
+def test_f32_ring_plan_covers_every_row_once(fmt, width, B, sms):
+    """K1's fp32 plans at small and ragged widths (q4g at H = 768: bands on
+    even rows; the 0.6B draft's H with an I that q4g takes): every row in
+    exactly one band and one copy, 4-byte activations in shared memory."""
+    H, I = width
+    gate_up, down, _ = fm.ring_plan(B, H, I, fmt, sms, 4)
+    for ln, K, N, mats in ((gate_up, H, I, 2), (down, I, H, 1)):
+        assert (ln.rows, ln.mats, ln.act_bytes) == (N, mats, 4)
+        _assert_covers_every_row_once(ln, K, B, [N] * mats)
+
+
+@pytest.mark.parametrize("B", range(1, 10))
+def test_f32_stays_off_the_ring_for_k2_k3_k6(B):
+    """Only K1 admits fp32 activations: K2's, K3's and K6's rules keep fp32
+    off the ring at every row count (row per warp; K6 its FFMA GEMM), and
+    dense weights never take it in fp32."""
+    f32 = torch.float32
+    for fmt in F32_FORMATS:
+        assert fq.qkv_ring_route(B, f32, fmt, 4096, 4096, 1024, SMS) is None
+        assert fq.o_ring_route(B, f32, fmt, 4096, 4096, SMS) is None
+        assert fq.k2_route(B, f32, fmt, 4096, 4096, 1024, SMS) == "rows"
+        assert fq.k3_route(B, f32, fmt, 4096, 4096, SMS) == "rows"
+        assert not wr.ring_instance(B, f32, fmt)
+    for fmt in (INT8, wr.ROW_Q4):
+        assert wr.k6_ring_route(B, 4096, 4096, f32, fmt, SMS) is None
+    for fmt in (DENSE, wr.DENSE_F32, wr.ROW_Q4):
+        assert not wr.ring_instance(B, f32, fmt, f32_rows=8)
+        assert fm.ring_route(B, f32, fmt, 4096, 14336, SMS) is None
+
+
+def test_f32_ring_plan_refuses_other_formats():
+    """4-byte activations only with int8 or q4g weights; 2 or 4 bytes only."""
+    for fmt in (DENSE, wr.ROW_Q4):
+        with pytest.raises(ValueError, match="no weight-ring plan"):
+            wr.ring_launch(1, 4096, 4096, fmt, 1, SMS, act_bytes=4)
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(1, 4096, 4096, INT8, 1, SMS, act_bytes=3)
+    assert wr.act_bytes(torch.float32) == 4 and wr.act_bytes(torch.bfloat16) == 2
+
+
+def _act_chunk_f32(j):
+    return j ^ ((j >> 3) & 3)
+
+
+@pytest.mark.parametrize("K", [4096, 14336, 256, 768])
+def test_f32_ring_activations_swizzled(K):
+    """The fp32 consumers' view of an activation row (the staging puts
+    16-byte chunk j, 4 floats, at ``act_chunk_f32(j)``; ``load_act16`` reads
+    columns 16 c .. 16 c + 15 as chunks act_chunk_f32(4 c + k), k < 4): every
+    column where it belongs; for each k the eight lanes of a quarter-warp
+    (int8 vectors c .. c + 7, c a multiple of 8; q4g pairs 16 blk + 0..7 and
+    their high halves 8 further) read chunks on eight distinct bank groups,
+    where unswizzled chunks would fall on two (a 4-way conflict) and bf16's
+    swizzle on four (2-way)."""
+    x = np.arange(K)
+    smem = np.full(K, -1)
+    for j in range(K // 4):
+        smem[4 * _act_chunk_f32(j):4 * _act_chunk_f32(j) + 4] = x[4 * j:4 * j + 4]
+    assert (np.sort(smem) == x).all()
+    for c in range(K // 16):
+        got = np.concatenate([smem[4 * _act_chunk_f32(4 * c + k):][:4] for k in range(4)])
+        np.testing.assert_array_equal(got, 16 * c + np.arange(16))
+    lanes = [list(range(q, q + 8)) for q in range(0, K // 16, 8)]          # int8
+    lanes += [[16 * blk + i + hi for i in range(8)] for blk in range(K // 256)
+              for hi in (0, 8)]                                             # q4g
+    for group in lanes:
+        for k in range(4):
+            assert len({_act_chunk_f32(4 * c + k) % 8 for c in group}) == 8
+            assert len({(4 * c + k) % 8 for c in group}) == 2
+            assert len({_act_chunk(4 * c + k) % 8 for c in group}) == 4
+
+
+def test_cpu_f32_call_takes_the_plain_version_and_counts_nothing():
+    """fp32 x with int8 weights at B = 1, where the card takes the ring: on
+    the CPU K1 is its plain version and counts no launch, the fp32 ring's
+    counters included."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randint(-127, 128, (2, 512, 256), dtype=torch.int8, generator=g)
+    layers = {"post_attention_layernorm": {"weight": torch.ones((2, 256))},
+              "gate_proj": {"weight": {"q": q, "scale": torch.full((2, 512, 1), 1e-3)}},
+              "up_proj": {"weight": {"q": q.flip(1), "scale": torch.full((2, 512, 1), 1e-3)}},
+              "down_proj": {"weight": {"q": q.transpose(1, 2).contiguous(),
+                                       "scale": torch.full((2, 256, 1), 1e-3)}}}
+    x = torch.randn((1, 256), generator=g)
+    assert fm.k1_route(1, x.dtype, INT8, 256, 512, SMS) == "ring"
+    f = fm.fused_mlp_decode
+    counts = (f.launches, f.ring_launches, f.f32_ring_launches, f.f32_q4g_ring_launches)
+    got = fm.fused_mlp_decode(x, layers, 1)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, fm.fused_mlp_decode_ref(x, layers, 1), rtol=0, atol=0)
+    assert counts == (f.launches, f.ring_launches, f.f32_ring_launches, f.f32_q4g_ring_launches)

@@ -234,3 +234,53 @@ def test_kernel_input_rule(case):
     make, accepted = K5_INPUTS[case]
     err = tfa.kernel_input_error(*make())
     assert (err is None) == accepted, err
+
+
+def test_fwd_route_rule():
+    """The forward's instance, a pure function of dtype and head dim: bf16 at
+    D = 128 and 256 the wgmma kernel, fp32 at D = 128 (the default compute
+    dtype's prefill) the register-tile kernel, the chunked FFMA kernel for
+    fp32 at D > 128 and bf16 at D > 256; each instance takes what it is
+    routed and refuses what it cannot run."""
+    bf, f32 = torch.bfloat16, torch.float32
+    want = {(bf, 128): "wgmma", (bf, 256): "wgmma", (bf, 384): "ffma", (bf, 512): "ffma",
+            (f32, 128): "tiles", (f32, 256): "ffma", (f32, 384): "ffma", (f32, 512): "ffma"}
+    for (dtype, d), route in want.items():
+        assert tfa.fwd_route(dtype, d) == route
+        assert tfa.fwd_takes(route, dtype, d)
+        assert tfa.fwd_takes("ffma", dtype, d)
+        assert tfa.fwd_takes("tiles", dtype, d) == (route == "tiles")
+        assert not tfa.fwd_takes("wgmma", f32, d)
+    assert not tfa.fwd_takes("none", f32, 128)
+    assert set(tfa.FWD_KERNELS) == {"wgmma", "ffma", "tiles"}
+
+
+# the register-tile route's shape (fp32, D = 128) at ragged S with GQA and
+# segment ids: (B, S, causal, segments)
+F32_TILES_CASES = {"causal_segments_s80": (1, 80, True, "packed"),
+                   "noncausal_segments_s70": (2, 70, False, "packed"),
+                   "causal_s80": (1, 80, True, None)}
+
+
+@pytest.mark.parametrize("case", list(F32_TILES_CASES))
+def test_f32_tiles_route_fwd_matches_jax_kernel(case):
+    """fp32 q/k/v at D = 128 (H = 4, KVH = 2), the inputs the card's rule sends
+    to the register-tile forward: the port's ``flash_fwd`` (on CPU tensors,
+    its plain version) against JAX's forward kernel in interpret mode (32-row
+    blocks, so a ragged last tile), output and lse, at 1e-5 relative and
+    absolute (fp32 sums in another order)."""
+    B, S, causal, kind = F32_TILES_CASES[case]
+    d = 128
+    assert tfa.fwd_route(torch.float32, d) == "tiles"
+    q, k, v, _ = _inputs(B, S, seed=11, d=d)
+    seg = _segments(B, S, kind)
+    out, lse = jfa._fwd(*map(jnp.asarray, (q, k, v)),
+                        None if seg is None else jnp.asarray(seg),
+                        scale=1.0 / np.sqrt(d), causal=causal, block_q=BLOCK,
+                        block_k=BLOCK, interpret=True)
+    got_out, got_lse = tfa.flash_fwd(
+        *map(torch.from_numpy, (q, k, v)), causal=causal,
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    assert got_out.dtype == torch.float32
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse).transpose(0, 2, 1), **TOL)

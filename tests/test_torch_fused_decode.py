@@ -126,6 +126,28 @@ def test_mlp_ref_matches_jax_kernel(fmt, B):
     _close(got, want)
 
 
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+def test_f32_mlp_on_the_ring_route_matches_jax_kernel(fmt):
+    """fp32 x at B = 1 with int8 and q4g weights, where the card's rule now
+    takes the weight ring (``k1_route`` "ring", 4-byte activations): the
+    wrapper (on CPU tensors, the plain version) against JAX's interpret-mode
+    kernel at 1e-5 relative and absolute (fp32 sums in another order; the
+    ring keeps h and a in fp32, the int8 scale on the fp32 row sum and the
+    q4g scales on each group's partial sum, as the plain version does)."""
+    cfg = _cfg(fmt)
+    code = tqkvo.INT8 if fmt == "int8" else tqkvo.Q4G
+    assert tmlp.k1_route(1, torch.float32, code, cfg.hidden_size, cfg.intermediate_size,
+                         132) == "ring"
+    layers = _layers(fmt)["layers"]
+    x = _x(1, _H(fmt), seed=77)
+    want = jmlp.fused_mlp_decode(jnp.asarray(x), jax.tree_util.tree_map(
+        jnp.asarray, layers), 1, eps=1e-5, block_inter=128, interpret=True)
+    got = tmlp.fused_mlp_decode(torch.from_numpy(x),
+                                bridge.from_jax_numpy(layers, device="cpu"), 1, eps=1e-5)
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
 # bf16 rows on dense bf16 weights: a decode step, the engine's 8-slot tick,
 # the verify chunks of 4 and 8 slots, the fused chunk
 DENSE_BF16_ROWS = (1, 8, VERIFY_ROWS, 40, 64)

@@ -14,6 +14,8 @@ The entry points' default-dtype tests (``test_*_default_dtype``) run a path
 twice on the card: through the kernels, then with every kernel wrapper of
 the path replaced by its plain version (``plain_kernels``).
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -388,13 +390,15 @@ def test_fused_decode_kernels(dev, fmt_dtype, B):
             fused_mlp.fused_mlp_decode.launches, fused_mlp.fused_mlp_decode.f32_launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + (not bf))
     # the weight ring takes bf16 x with int8 or q4g weights at B <= 8 and
-    # dense bf16 weights at B <= 4; the tensor-core instances bf16 x with
+    # dense bf16 weights at B <= 4 (K1 also fp32 x with int8 or q4g weights
+    # at B <= F32_RING_ROWS); the tensor-core instances bf16 x with
     # int8 weights from 9 rows, and with dense bf16 weights from 5: each
     # wrapper's rule
     on_ring = bf and (fmt in ("int8", "q4g") and B <= 8 or fmt == "bf16" and B <= 4)
     tc = bf and (fmt == "int8" and B >= 9 or fmt == "bf16" and B >= 5)
     want = "wgmma" if tc else "ring" if on_ring else "rows"
-    assert (r1, r2, r3) == (want, want, want)
+    f32_ring = not bf and fmt in ("int8", "q4g") and B <= fused_mlp.F32_RING_ROWS
+    assert (r1, r2, r3) == ("ring" if f32_ring else want, want, want)
     assert fused_mlp.fused_mlp_decode.ring_launches == ring + (r1 == "ring")
     assert _wgmma_counts() == tuple(c + (r == "wgmma") for c, r in zip(wgmma, (r1, r2, r3)))
     q4g = fmt == "q4g"
@@ -931,6 +935,84 @@ def test_fused_mlp_ring_batches(dev, fmt, B):
                 fmt)
 
 
+def _f32_ring_counts():
+    f = fused_mlp.fused_mlp_decode
+    return (f.launches, f.ring_launches, f.q4g_ring_launches, f.f32_launches,
+            f.f32_ring_launches, f.f32_q4g_ring_launches)
+
+
+def _check_f32_ring(x, layers, fmt):
+    """K1 with fp32 x on the weight ring against the plain version (RTOL_F32,
+    ATOL_F32: only the order of fp32 sums differs): through the wrapper,
+    which counts one call on every ring counter it belongs to, where the
+    rule takes the ring (B <= F32_RING_ROWS); through ``mlp_launch(route=
+    "ring")``, uncounted, everywhere."""
+    B, H = x.shape
+    I = layers["gate_proj"]["weight"][next(iter(layers["gate_proj"]["weight"]))].shape[1]
+    code = wr.INT8 if fmt == "int8" else wr.Q4G
+    routed = fused_mlp.k1_route(B, x.dtype, code, H, I, wr.sm_count(x.device))
+    assert routed == ("ring" if B <= fused_mlp.F32_RING_ROWS else "rows")
+    want = fused_mlp.fused_mlp_decode_ref(x, layers, 1)
+    before = _f32_ring_counts()
+    y, _, route = fused_mlp.mlp_launch(x, layers, 1, 1e-5, route="ring")
+    assert route == "ring" and y.dtype == torch.float32 and y.shape == x.shape
+    _assert_close(y, want, atol=ATOL_F32, rtol=RTOL_F32)
+    assert _f32_ring_counts() == before
+    got = fused_mlp.fused_mlp_decode(x, layers, 1)
+    _assert_close(got, want, atol=ATOL_F32, rtol=RTOL_F32)
+    ring, q4g = routed == "ring", fmt == "q4g"
+    assert _f32_ring_counts() == (before[0] + 1, before[1] + ring, before[2] + ring * q4g,
+                                  before[3] + 1, before[4] + ring, before[5] + ring * q4g)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("B", range(1, 9))
+def test_fused_mlp_f32_ring(dev, fmt, B):
+    """K1 with fp32 activations on the weight ring at 8B width (H = 4096, I =
+    14336) at every B from 1 to 8 (fp32 h and a, 4 bytes an activation: down
+    two rows a launch from B = 2)."""
+    g = torch.Generator(device=dev).manual_seed(400 + B)
+    layers = _mlp_layers(4096, 14336, fmt, g, dev)
+    _check_f32_ring(torch.randn((B, 4096), device=dev, generator=g), layers, fmt)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "q4g"])
+@pytest.mark.parametrize("width", [(768, 1280), (256, 512), (2048, 5632)])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_fused_mlp_f32_ring_ragged(dev, fmt, width, B):
+    """K1's fp32 ring at small and ragged widths (q4g at H = 768: bands on
+    even rows; 5632: the 0.6B draft's H with an I that q4g takes)."""
+    H, I = width
+    g = torch.Generator(device=dev).manual_seed(H + 2 * B)
+    layers = _mlp_layers(H, I, fmt, g, dev)
+    _check_f32_ring(torch.randn((B, H), device=dev, generator=g), layers, fmt)
+
+
+def test_fused_mlp_f32_ring_rejects(dev):
+    """The ring's C entry refuses fp32 activations on dense weights, and a
+    plan counted in 2-byte activations for fp32 ones that would not fit
+    (down at B = 8 in one launch)."""
+    lib = _cuda.library()
+    g = torch.Generator(device=dev).manual_seed(5)
+    layers = _mlp_layers(4096, 14336, "int8", g, dev)
+    x = torch.randn((8, 4096), device=dev, generator=g)
+    sms = wr.sm_count(x.device)
+    (wg, sg, _), (wu, su, _) = fused_qkvo.layer_mats(layers, ("gate_proj", "up_proj"), 1)
+    (wd, sd, _), = fused_qkvo.layer_mats(layers, ("down_proj",), 1)
+    nw = layers["post_attention_layernorm"]["weight"][1].contiguous()
+    h, a, y = torch.empty_like(x), torch.empty((8, 14336), device=dev), torch.empty_like(x)
+    invalid = 1                                        # cudaErrorInvalidValue
+    bf16_plan = fused_mlp.ring_plan(8, 4096, 14336, wr.INT8, sms)[2]
+    for wfmt, plan in ((wr.DENSE, fused_mlp.ring_plan(8, 4096, 14336, wr.INT8, sms, 4)[2]),
+                       (wr.INT8, bf16_plan)):
+        assert lib.slime_mlp_ring(
+            wfmt, 1, 0, x.data_ptr(), nw.data_ptr(), 1e-5, h.data_ptr(), a.data_ptr(),
+            y.data_ptr(), 8, 4096, 14336, wg.data_ptr(), sg.data_ptr(), wu.data_ptr(),
+            su.data_ptr(), wd.data_ptr(), sd.data_ptr(), ctypes.addressof(plan),
+            _cuda.stream()) == invalid
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("fmt", ["int8", "q4g"])
 @pytest.mark.parametrize("width", [(768, 1280), (256, 512), (512, 2816)])
 @pytest.mark.parametrize("B", [1, 3, 8])
@@ -1410,6 +1492,59 @@ def test_flash_kernels_fp32(dev, case):
         _assert_close(got, want, atol=1e-4)
     assert (fa.flash_attention.fwd_f32_launches, fa.flash_attention.dkdv_f32_launches,
             fa.flash_attention.dq_f32_launches) == tuple(c + 1 for c in counts)
+
+
+# the fp32 forward's register-tile instance (fp32, D = 128): (B, H, KVH, S,
+# causal, segments): the serving prefill's shape, ragged S (80, 577: a
+# ragged last query tile and key tile), non-causal, packed segments
+TILES_CASES = [(1, 32, 8, 2048, 128, True, False), (1, 4, 2, 80, 128, True, True),
+               (2, 4, 2, 577, 128, False, False), (1, 8, 2, 577, 128, True, True),
+               (2, 4, 2, 70, 128, False, True), (1, 4, 1, 2000, 128, True, False)]
+
+
+@pytest.mark.parametrize("case", TILES_CASES)
+def test_flash_fwd_f32_tiles(dev, case):
+    """K5's fp32 forward on register tiles (the rule's instance for fp32 at D
+    = 128) against flash_fwd_ref, output and lse, at atol 1e-5 (fp32 sums in
+    another order; p never rounded), and against the chunked FFMA kernel it
+    replaced on the same inputs; the wrapper counts one fp32 forward a call
+    (the same bits as the forced launch), the forced launches none."""
+    B, H, KVH, S, D, causal, segmented = case
+    g = torch.Generator(device=dev).manual_seed(S + 2)
+    q, k, v = (_bhsd(B, S, n, D, g, dev).float() for n in (H, KVH, KVH))
+    seg = None
+    if segmented:
+        seg = torch.ones((B, S), dtype=torch.int32, device=dev)
+        seg[:, S // 3:2 * S // 3], seg[:, 2 * S // 3:] = 2, 3
+    kw = dict(causal=causal, segment_ids=seg)
+    assert fa.fwd_route(q.dtype, D) == "tiles"
+    ro, rl = fa.flash_fwd_ref(q, k, v, **kw)
+    counts = (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches)
+    out, lse = fa.fwd_launch(q, k, v, route="tiles", **kw)
+    old_out, old_lse = fa.fwd_launch(q, k, v, route="ffma", **kw)
+    assert (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches) == counts
+    assert out.dtype == torch.float32 and lse.shape == (B, H, S)
+    for got, want in ((out, ro), (lse, rl), (out, old_out), (lse, old_lse)):
+        _assert_close(got, want, atol=1e-5, rtol=RTOL_F32)
+    got, _ = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    assert (fa.flash_attention.fwd_launches, fa.flash_attention.fwd_f32_launches) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+def test_flash_fwd_routes_reject(dev):
+    """An instance that does not take the inputs raises before any launch:
+    the register tiles in bf16 or at D = 256, the wgmma kernel in fp32."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = _bhsd(1, 256, 2, 128, g, dev)
+    with pytest.raises(ValueError):
+        fa.fwd_launch(q, q, q, route="tiles")
+    with pytest.raises(ValueError):
+        fa.fwd_launch(q.float(), q.float(), q.float(), route="wgmma")
+    q = _bhsd(1, 256, 2, 256, g, dev).float()
+    with pytest.raises(ValueError):
+        fa.fwd_launch(q, q, q, route="tiles")
 
 
 # (n, H, KVH, S/n, causal): group size 4 (Llama-3-8B's 32/8) and MHA, at the
