@@ -43,8 +43,11 @@ Phase 1  runs the self-tests of the wgmma tile vocabulary
          in turns with the chunked FFMA kernel it replaced), the quantized
          matmul in q4, int8 and q4g (K6 on
          its weight ring at decode rows and on wgmma at prefill rows, each
-         beside its mma.sync instance on the same inputs), also at a K that
-         is not a multiple of 128, and the W8A8
+         beside its mma.sync instance on the same inputs; with fp32 x K6
+         and K7 on register tiles at 64-2048 rows and K6 on its weight ring
+         at 1-8 rows, each in turns with the first FFMA kernel on the same
+         inputs and beside a dequantize-and-matmul yardstick), also at a K
+         that is not a multiple of 128, and the W8A8
          matmul at the CLIP-L tower's four linears and at such a K, bf16 and
          fp32, the ring-attention kernel K9 on 4 virtual ranks at S = 8192
          in bf16 and fp32, at D = 64 and at S/n = 48, the int4 design probes
@@ -116,13 +119,19 @@ Phase 7  the entry points at their default fp32 compute dtype, each run
          phase 2's int8 model one ``generate`` with the image for 8 tokens
          (K1 on its fp32 weight ring 32 x 7 times, row per warp never) and
          ``decode_step`` at B = 65 (K1 row per warp); on config A
-         ``llama.forward`` at S = 2048 (K7), one W8A8 ``encode_images`` (K8,
+         ``llama.forward`` at S = 2048 (K7 on register tiles), one W8A8
+         ``encode_images`` (K8,
          K4) and ``decode_step`` at B = 65 and at B = 1 (q4g K1-K3; K1 on
          its fp32 ring at B = 1); on config B ``llama.forward`` at S = 2048
-         (K6). On the int8 model it traces the fp32 ``generate``'s prefill
-         and one decode step in turns with K5's and K1's fp32 routes as
-         before (device ms, K5's and K1's shares). It runs inside phases 2
-         and 5, on their models.
+         (K6 on register tiles) and ``decode_step`` at B = 1 (K6 on its
+         fp32 weight ring),
+         K6's and K7's first FFMA kernel never. On the int8 model it traces
+         the fp32 ``generate``'s prefill and one decode step in turns with
+         K5's and K1's fp32 routes as before (device ms, K5's and K1's
+         shares); config A's fp32 forward (K7 on register tiles) and config
+         B's fp32 decode step in turns with K6's and K7's fp32 routes as
+         before (device ms, their shares). It runs inside phases 2 and 5,
+         on their models.
 
 Phase 8  serves through the continuous-batching engine
          (``serve.batch_engine.BatchDecodeEngine``, 4 slots, bf16) on phase
@@ -399,6 +408,9 @@ ATOL = {"encoder_attention": 2e-3, "fused_qkv_decode": 2e-3,
         "fused_mlp_decode_f32_q4g": 1e-4, "fused_mlp_decode_f32_ring": 1e-4,
         "fused_mlp_decode_f32_q4g_ring": 1e-4, "quant_matmul_q4_f32": 1e-4,
         "quant_matmul_int8_f32": 1e-4, "quant_matmul_q4g_f32": 1e-4,
+        "quant_matmul_q4_f32_tiles": 1e-4, "quant_matmul_int8_f32_tiles": 1e-4,
+        "quant_matmul_q4g_f32_tiles": 1e-4, "quant_matmul_q4_f32_ring": 1e-4,
+        "quant_matmul_int8_f32_ring": 1e-4,
         "w8a8_matmul_f32": 1e-6, "ring_attention_rdma_f32": 1e-4,
         "ring_attention_rdma_ffma": 1e-4, "quant_matmul_q4g_wgmma": 2e-3,
         "p1_int4_matvec": 2e-3, "p4_q4g_unpack": 1e-4, "p3_int8_dot": 0.0,
@@ -667,13 +679,25 @@ KERNELS.update({n + "_f32_q4g": KERNELS[n] for n in (
 # fused_mlp.F32_RING_ROWS: the default compute dtype's decode steps)
 KERNELS.update({"fused_mlp_decode" + sfx: KERNELS["fused_mlp_decode"]
                 for sfx in ("_f32_ring", "_f32_q4g_ring")})
+# K6's and K7's fp32 instances on register tiles (fp32 x from
+# quant_matmul.F32_TILES_MIN_ROWS rows: the default compute dtype's
+# prefill), and K6's on the weight ring (fp32 x, 1 to
+# quant_matmul.K6_F32_RING_ROWS rows: config B's default-dtype decode steps)
+KERNELS.update({n + "_f32_tiles": KERNELS[n]
+                for n in ("quant_matmul_q4", "quant_matmul_int8", "quant_matmul_q4g")})
+KERNELS.update({n + "_f32_ring": KERNELS[n + "_ring"]
+                for n in ("quant_matmul_q4", "quant_matmul_int8")})
 D256 = tuple(n for n in KERNELS if n.endswith("_d256"))
 WIDE = tuple(n for n in KERNELS if n.endswith("_wide"))
 # K6's int8 instances have no caller on any path: the JAX package routes only q4
 # and q4g weights to its quantized matmuls (layers.py:52-59). K6's q4
 # mma.sync instance takes bf16 x of 9-63 rows (or a K the ring and TMA
 # cannot read), which no path sends it: config B's decode takes the ring and
-# its prefill wgmma. No path of the
+# its prefill wgmma. K6's and K7's first FFMA instances take fp32 x of
+# K6_F32_RING_ROWS + 1 to F32_TILES_MIN_ROWS - 1 rows (K7: below
+# F32_TILES_MIN_ROWS; or a K that is not a multiple of 128), which no path
+# sends them: the fp32 prefills take the register tiles, config B's fp32
+# decode the weight ring, config A's the fused q4g K1-K3. No path of the
 # port trains in fp32 on the card (phase 4 trains the bf16 model), so the
 # fp32 K5b and K5c have none either, and no model here has a head dim of 256
 # or more (nor one other than 128 for K9's bf16 FFMA instance). K7's
@@ -696,7 +720,9 @@ OFF_PATH = ("fused_qkv_decode_dense", "fused_o_residual_dense", "fused_mlp_decod
             "fused_qkv_decode",
             "fused_o_residual",
             "quant_matmul_int8", "quant_matmul_int8_f32", "quant_matmul_int8_ring",
-            "quant_matmul_int8_wgmma", "quant_matmul_q4", "flash_bwd_dkdv_f32",
+            "quant_matmul_int8_wgmma", "quant_matmul_int8_f32_tiles",
+            "quant_matmul_int8_f32_ring", "quant_matmul_q4_f32", "quant_matmul_q4g_f32",
+            "quant_matmul_q4", "flash_bwd_dkdv_f32",
             "flash_bwd_dq_f32", "quant_matmul_q4g", "ring_attention_rdma_ffma",
             "p1_int4_matvec", "p4_q4g_unpack", "p3_int8_dot") + tuple(
     n + "_q4g" for n in FUSED) + D256 + WIDE
@@ -733,9 +759,10 @@ def _counters():
            "quant_matmul_int8": (qm.quant_matmul, "int8_launches"),
            "quant_matmul_int8_f32": (qm.quant_matmul, "int8_f32_launches"),
            **{f"quant_matmul_{f}_{r}": (qm.quant_matmul, f"{f}_{r}_launches")
-              for f in ("q4", "int8") for r in ("ring", "wgmma")},
+              for f in ("q4", "int8") for r in ("ring", "wgmma", "f32_tiles", "f32_ring")},
            "quant_matmul_q4g": (qm.quant_matmul_q4g, "launches"),
            "quant_matmul_q4g_f32": (qm.quant_matmul_q4g, "f32_launches"),
+           "quant_matmul_q4g_f32_tiles": (qm.quant_matmul_q4g, "f32_tiles_launches"),
            "w8a8_matmul": (w8.w8a8_matmul, "launches"),
            "w8a8_matmul_f32": (w8.w8a8_matmul, "f32_launches")}
     for n, fn in fused.items():
@@ -794,11 +821,13 @@ def launch_counts():
               "w8a8_matmul"):
         counts[n] -= counts[n + "_f32"]
     # K7's .launches counts every route, K9's every instance; K6's every
-    # route too: what is left is its mma.sync instance
-    counts["quant_matmul_q4g"] -= counts["quant_matmul_q4g_wgmma"]
+    # route too (its other counts one instance each): what is left is the
+    # mma.sync instance
+    counts["quant_matmul_q4g"] -= (counts["quant_matmul_q4g_wgmma"]
+                                   + counts["quant_matmul_q4g_f32_tiles"])
     for f in ("q4", "int8"):
-        counts[f"quant_matmul_{f}"] -= (counts[f"quant_matmul_{f}_ring"]
-                                        + counts[f"quant_matmul_{f}_wgmma"])
+        counts[f"quant_matmul_{f}"] -= sum(counts[f"quant_matmul_{f}_{r}"] for r in (
+            "ring", "wgmma", "f32_tiles", "f32_ring"))
     counts["ring_attention_rdma"] -= (counts["ring_attention_rdma_f32"]
                                       + counts["ring_attention_rdma_ffma"])
     for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
@@ -1959,6 +1988,106 @@ def int_mm_library(x, qw):
         return None
 
 
+def dequant_yardstick(x, qw):
+    """torch.matmul(x, dequantize_weight(qw).T) with fp32 x, TF32 off: the
+    weights dequantized to fp32 by one call, then one product. A yardstick,
+    not the library call of the same function (none computes the fp32
+    quantized product: torch._weight_int4pack_mm takes bf16 x only)."""
+    from slime_tpu_torch.ops import quantization as quant
+    return lambda: torch.matmul(x, quant.dequantize_weight(qw).T)
+
+
+def quant_f32_case(record, fmt, x, qw, main, flush, was_main=False, library=None):
+    """K6 (``fmt`` "q4", "int8") or K7 ("q4g") with fp32 x [M, K] on the
+    instance its rule names (record ``quant_matmul_<fmt>_f32``, with
+    ``_tiles`` or ``_ring`` for the register tiles and the weight ring)
+    against its plain version, timed beside the dequantize-and-matmul
+    yardstick (``library``: another PyTorch call where given); where the
+    rule names a new instance, also the first FFMA kernel on the same
+    inputs (record ``quant_matmul_<fmt>_f32``, its "was"; not counted) and
+    the two in turns (now, was, was, now), L2 flushed; where it names
+    another instance than the register tiles and they take K, their time
+    on the same inputs too (logged, not counted: the row rules' reading).
+    Returns the route."""
+    from slime_tpu_torch.ops import quant_matmul as qm
+    from slime_tpu_torch.ops import weight_ring as wr
+
+    M, K = x.shape
+    code = {"q4": qm._Q4, "int8": qm._INT8, "q4g": qm._Q4G}[fmt]
+    w = qw["q" if fmt == "int8" else fmt]
+    N = w.shape[0]
+    if fmt == "q4g":
+        kern, ref, route = qm.quant_matmul_q4g, qm.quant_matmul_q4g_ref, qm.q4g_route(M, x.dtype)
+    else:
+        kern, ref = qm.quant_matmul, qm.quant_matmul_ref
+        route = qm.k6_route(M, K, x.dtype, code, N, wr.sm_count(x.device))
+    base = f"quant_matmul_{fmt}_f32"
+    name = base if route == "ffma" else f"{base}_{route}"
+    moved, ops = nbytes(x, *qw.values()) + M * N * 4, 2 * M * N * K
+    label = f"x [{M}, {K}] fp32, W [{N}, {K}] ({route})"
+    now = lambda: kern(x, qw)  # noqa: E731
+    timed = check_and_time(record, name, label, now, lambda: ref(x, qw), moved, ops, F32_OPS,
+                           flush, main, dispatch=M == 1, clean=route == "ring",
+                           library=dequant_yardstick(x, qw) if library is None else library)
+    if route != "ffma":
+        was = lambda: qm._launch(code, x, w, qw["scale"])  # noqa: E731
+        check_and_time(record, base, f"{label}; was: the first FFMA kernel", was,
+                       lambda: ref(x, qw), moved, ops, F32_OPS, flush, was_main, timed=timed)
+        t = [cuda_ms(fn, flush=flush) for fn in (now, was, was, now)]
+        log(f"phase 1 {name} {label}: in turns now {t[0]:.4f}, was {t[1]:.4f}, {t[2]:.4f}, "
+            f"now {t[3]:.4f} ms (the first FFMA kernel {(t[1] + t[2]) / (t[0] + t[3]):.2f}x "
+            f"the time)")
+    if route != "tiles" and K % 128 == 0:      # the row rules' other side, uncounted
+        tiles = lambda: qm._launch_tiles(code, x, w, qw["scale"])  # noqa: E731
+        err = (tiles() - ref(x, qw)).abs().max().item()
+        log(f"phase 1 {name} {label}: the register tiles on the same inputs "
+            f"{cuda_ms(tiles, flush=flush):.4f} ms (max_abs_err {err:.3g})")
+    return route
+
+
+def quant_f32_kernels(dev, flush, record):
+    """Phase 1 for K6 and K7 with fp32 x (the entry points' default compute
+    dtype) on their redesigned instances, from a generator of its own, each
+    beside the first FFMA kernel in turns (``quant_f32_case``): the
+    register tiles at 2048 rows at config B's (q4) and config A's (q4g)
+    other projection shapes (k/v [1024, 4096], gate [14336, 4096], down
+    [4096, 14336]; q4g q [4096, 4096]), int8 at q, and at 64, 65 and 128
+    rows at q (where the row rule's boundary lies); K6's weight ring at 1,
+    2, 4 and 8 rows at q and down and at 1 and 8 at k/v and gate (q's one
+    row is quant_kernels' case), each also beside the register tiles on
+    the same inputs (logged: the ring's row rule)."""
+    from slime_tpu_torch.ops import quantization as quant
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def draw(fmt, M, N, K):
+        w = torch.randn((N, K), device=dev, generator=g) * 0.02
+        x = torch.randn((M, K), device=dev, generator=g)
+        qw = (quant.quantize_weight_q4g(w) if fmt == "q4g"
+              else quant.quantize_weight(w, 4 if fmt == "q4" else 8))
+        return x, qw
+
+    for fmt, M, N, K in (("q4", 2048, 1024, 4096), ("q4", 2048, 14336, 4096),
+                         ("q4", 2048, 4096, 14336), ("q4g", 2048, 4096, 4096),
+                         ("q4g", 2048, 1024, 4096), ("q4g", 2048, 4096, 14336),
+                         ("int8", 2048, 4096, 4096), ("q4", 64, 4096, 4096),
+                         ("q4", 65, 4096, 4096), ("q4", 128, 4096, 4096),
+                         ("q4g", 64, 4096, 4096), ("q4g", 65, 4096, 4096),
+                         ("q4g", 128, 4096, 4096)):
+        x, qw = draw(fmt, M, N, K)
+        quant_f32_case(record, fmt, x, qw, fmt == "int8", flush,
+                       library=int8pack_library("quant_matmul_int8_f32_tiles", x, qw["q"],
+                                                qw["scale"][:, 0]) if fmt == "int8" else None)
+        del x, qw
+    for M, N, K in ((2, 4096, 4096), (4, 4096, 4096), (8, 4096, 4096), (1, 4096, 14336),
+                    (2, 4096, 14336), (4, 4096, 14336), (8, 4096, 14336), (1, 1024, 4096),
+                    (8, 1024, 4096), (1, 14336, 4096), (8, 14336, 4096)):
+        x, qw = draw("q4", M, N, K)
+        quant_f32_case(record, "q4", x, qw, False, flush)
+        del x, qw
+    torch.cuda.empty_cache()
+
+
 def quant_kernels(dev, g, flush, record):
     """Phase 1 for the quantized matmul (K6: q4 and int8; K7: q4g) and the
     W8A8 matmul (K8) at the serving shapes: K6 at decode (B = 1) and
@@ -2038,13 +2167,17 @@ def quant_kernels(dev, g, flush, record):
              ("quant_matmul_q4g_wgmma", 64, 14336, 4096, False),
              ("quant_matmul_q4g_wgmma", 100, 4096, 4096, False),
              ("quant_matmul_q4g", 1, 4096, 4096, True)]
-    f32_cases = [("quant_matmul_q4_f32", 1, 4096, 4096, True),
-                 ("quant_matmul_q4_f32", 2048, 4096, 4096, False),
-                 ("quant_matmul_int8_f32", 1, 4096, 4096, True),
-                 ("quant_matmul_q4g_f32", 2048, 14336, 4096, True),
-                 ("quant_matmul_q4g_f32", 1, 4096, 4096, False)]
+    # fp32 x: (record of the first FFMA kernel, rows, out, in, the new
+    # instance's record case, the first FFMA kernel's), on the draws of
+    # earlier versions of this phase; each on the instance its rule now
+    # names, beside the first FFMA kernel where that is another
+    f32_cases = [("quant_matmul_q4_f32", 1, 4096, 4096, True, True),
+                 ("quant_matmul_q4_f32", 2048, 4096, 4096, True, False),
+                 ("quant_matmul_int8_f32", 1, 4096, 4096, True, True),
+                 ("quant_matmul_q4g_f32", 2048, 14336, 4096, True, True),
+                 ("quant_matmul_q4g_f32", 1, 4096, 4096, False, False)]
     g_f32 = torch.Generator(device=dev).manual_seed(SEED + 4)
-    for name, M, N, K, main in cases + f32_cases:
+    for name, M, N, K, main, *was_main in cases + f32_cases:
         gen, dtype = (g_f32, f32) if name.endswith("_f32") else (g, bf)
         w = torch.randn((N, K), device=dev, generator=gen) * 0.02
         x = torch.randn((M, K), device=dev, generator=gen).to(dtype)
@@ -2055,16 +2188,18 @@ def quant_kernels(dev, g, flush, record):
             qw = quant.quantize_weight(w, 4 if name.startswith("quant_matmul_q4") else 8)
             kern, ref = qm.quant_matmul, qm.quant_matmul_ref
         del w
+        if dtype == f32:
+            fmt = name[len("quant_matmul_"):-len("_f32")]
+            quant_f32_case(record, fmt, x, qw, main, flush, was_main[0],
+                           library=int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
+                           if fmt == "int8" else None)
+            continue
         library = None
-        if name in ("quant_matmul_q4g_wgmma", "quant_matmul_q4g", "quant_matmul_q4g_f32") and main:
+        if name in ("quant_matmul_q4g_wgmma", "quant_matmul_q4g") and main:
             library = int4pack_library(x, qw, name)
-        if name == "quant_matmul_int8_f32":
-            library = int8pack_library(name, x, qw["q"], qw["scale"][:, 0])
-        check_and_time(record, name, f"x [{M}, {K}] {'fp32' if dtype == f32 else 'bf16'}, "
-                       f"W [{N}, {K}]", lambda: kern(x, qw), lambda: ref(x, qw),
-                       nbytes(x, *qw.values()) + M * N * x.element_size(), 2 * M * N * K,
-                       F32_OPS if dtype == f32 else BF16_OPS, flush, main, dispatch=M == 1,
-                       library=library)
+        check_and_time(record, name, f"x [{M}, {K}] bf16, W [{N}, {K}]", lambda: kern(x, qw),
+                       lambda: ref(x, qw), nbytes(x, *qw.values()) + M * N * x.element_size(),
+                       2 * M * N * K, BF16_OPS, flush, main, dispatch=M == 1, library=library)
     # K6's other instances and shapes, from a generator of their own: the
     # ring at k/v and at 8 rows (beside mma.sync: the down projection's 8
     # rows take two ring launches), q4 wgmma at gate_proj and k/v, int8 on
@@ -2221,6 +2356,7 @@ def kernel_phase(dev, cfg):
         flash_kernels_wide(dev, torch.Generator(device=dev).manual_seed(SEED + 6), flush,
                            record)
         quant_kernels(dev, g, flush, record)
+        quant_f32_kernels(dev, flush, record)
         ring_kernel(dev, g, flush, record)
         ring_kernel_instances(dev, torch.Generator(device=dev).manual_seed(SEED + 7), flush,
                               record)
@@ -3518,38 +3654,101 @@ def quantized_model(dev, cfg, scheme, quantize_vision):
     return params
 
 
+@contextlib.contextmanager
+def quant_f32_routes_before():
+    """K6's and K7's fp32 routes as they stood before their redesign (phase
+    7's comparison): the first FFMA kernel at every row count, no weight
+    ring, no register tiles; every other route as now. The wrappers count
+    as ever."""
+    from slime_tpu_torch.ops import quant_matmul as qm
+    k6, k7 = qm.k6_route, qm.q4g_route
+
+    def k6_before(rows, K, dtype, fmt, N, sms):
+        return "ffma" if dtype == torch.float32 else k6(rows, K, dtype, fmt, N, sms)
+
+    def k7_before(rows, dtype):
+        return "ffma" if dtype == torch.float32 else k7(rows, dtype)
+    qm.k6_route, qm.q4g_route = k6_before, k7_before
+    try:
+        yield
+    finally:
+        qm.k6_route, qm.q4g_route = k6, k7
+
+
+# the kernels of K6's and K7's fp32 instances by name in a trace: the first
+# FFMA kernel and the register tiles, their split-K reduction, the weight ring
+QMM_F32_KERNELS = ("qmm_f32", "splitk_reduce_kernel", "weight_ring_kernel")
+
+
+def quant_f32_traces(tag, what, fn):
+    """Phase 7: fn() (a warm-up, then traced) under torch.profiler in turns
+    with K6's and K7's fp32 routes as before (``quant_f32_routes_before``:
+    now, before, before, now), logged: device busy ms and launches, the
+    quantized matmul's device ms and launches (QMM_F32_KERNELS) and share;
+    the traces go to bench_out/profile_f32_<tag>_<turn>.json."""
+    out = Path(__file__).resolve().parent / "bench_out"
+    out.mkdir(exist_ok=True)
+    for turn, before in enumerate((False, True, True, False)):
+        turn = f"{turn}_{'before' if before else 'now'}"
+        path = out / f"profile_f32_{tag}_{turn}.json"
+        with quant_f32_routes_before() if before else contextlib.nullcontext():
+            fn()
+            if not profiled(fn, path):
+                continue
+        busy, n, _ = trace_device(path)
+        parts = [trace_kernel(path, p) for p in QMM_F32_KERNELS]
+        q_ms, q_n = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        routes = ("as before: the first FFMA kernel" if before
+                  else "now: the register tiles, the weight ring")
+        log(f"phase 7 fp32 trace {what} {turn} (K6, K7 {routes}): {busy:.3f} ms device, {n} "
+            f"launches, K6/K7 {q_ms:.3f} ms in {q_n} launches "
+            f"({q_ms / busy if busy else 0.0:.3f} of it)")
+
+
 def default_dtype_quantized(dev, cfg, params, fmt):
     """Phase 7 on a 4-bit model (config A: ``fmt`` "q4g", W8A8 tower; config
     B: "q4"): ``llama.forward`` at S = F32_SEQ random ids in fp32 (K7 or K6
-    in each linear, the fp32 K5 in each layer); on config A also one W8A8
-    encode of bench.py's image in fp32 (``encode_images``: K8 and K4) and
-    ``decode_step`` at B = DEFAULT_DTYPE_ROWS (the q4g K1-K3). Returns the
-    first runs' launch counts."""
+    on register tiles in each linear, the first FFMA kernel never, the fp32
+    K5 in each layer); on config A the forward traced in turns with K7's
+    fp32 route as before, one W8A8 encode of bench.py's image in fp32
+    (``encode_images``: K8 and K4) and ``decode_step`` at B =
+    DEFAULT_DTYPE_ROWS (the q4g K1-K3) and at B = 1; on config B
+    ``decode_step`` at B = 1 (K6 on its fp32 weight ring in each linear,
+    the first FFMA kernel never), traced in turns with K6's fp32 route as
+    before. Returns the first runs' launch counts."""
     from slime_tpu_torch.models import llama, slime
 
     L, vis = cfg.llm.num_layers, cfg.vision.num_layers + cfg.vision.select_layer + 1
     rng = np.random.default_rng(SEED)
     ids = torch.from_numpy(rng.integers(5, cfg.llm.vocab_size, (1, F32_SEQ))).to(dev)
     last = torch.tensor([F32_SEQ - 1], device=dev)
-    kernel = "quant_matmul_q4g_f32" if fmt == "q4g" else "quant_matmul_q4_f32"
+    was = f"quant_matmul_{fmt}_f32"
 
     def forward():
         emb = llama.embed(params["llm"], ids).to(torch.float32)
         return llama.forward(params["llm"], emb, cfg.llm, logit_positions=last)[0]
-    got = default_dtype_run(f"llama.forward, {fmt} layers, S = {F32_SEQ}", forward,
-                            {kernel: (7 * L, True), "flash_fwd_f32": (L, True)})
-    if fmt != "q4g":
-        return got
-    img, q_ids, attn, anyres = query(dev, cfg)
-
-    def encode():
-        crops, mask = anyres(img)
-        return slime.encode_images(params, cfg, crops[None], mask[None], q_ids, attn)
+    what = f"llama.forward, {fmt} layers, S = {F32_SEQ}"
+    got = default_dtype_run(what, forward, {was + "_tiles": (7 * L, True), was: (0, True),
+                                            "flash_fwd_f32": (L, True)})
     tok = torch.from_numpy(rng.integers(5, cfg.llm.vocab_size, (DEFAULT_DTYPE_ROWS,))).to(dev)
 
     def step(rows=DEFAULT_DTYPE_ROWS):
         cache = llama.init_kv_cache(cfg.llm, rows, 16, device=dev)
         return llama.decode_step(params["llm"], cache, tok[:rows], cfg.llm)[0]
+    if fmt != "q4g":
+        what = "decode_step at B = 1, stacked q4 layers"
+        for n, c in default_dtype_run(what, lambda: step(1), {
+                "quant_matmul_q4_f32_ring": (7 * L, True), "quant_matmul_q4_f32": (0, True),
+                "quant_matmul_q4_f32_tiles": (0, True)}).items():
+            got[n] += c
+        quant_f32_traces("config_b_step", what, lambda: step(1))
+        return got
+    quant_f32_traces("config_a_forward", what, forward)
+    img, q_ids, attn, anyres = query(dev, cfg)
+
+    def encode():
+        crops, mask = anyres(img)
+        return slime.encode_images(params, cfg, crops[None], mask[None], q_ids, attn)
     for what, fn, expect in (
             ("W8A8 encode_images (8 crops)", encode,
              {"w8a8_matmul_f32": (4 * vis, True), "encoder_attention_f32": (vis, True)}),

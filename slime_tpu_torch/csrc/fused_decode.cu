@@ -41,10 +41,11 @@
 // q4g weights at B <= 8, the decode steps of the int8 and 4-bit serving
 // paths, and those for dense bf16 weights (FMT kDense: the bf16
 // checkpoints' decode steps; K1-K3 at B <= 4, where the ring beat row per
-// warp on an H100), and K1's fp32 instances for int8 and q4g weights (TA
+// warp on an H100), K1's fp32 instances for int8 and q4g weights (TA
 // float: the entry points' default compute dtype, at the rows
-// fused_mlp.F32_RING_ROWS names), wherever a launch plan exists (the
-// wrappers' routing rule).
+// fused_mlp.F32_RING_ROWS names) and K6's for int8 and per-row q4 weights
+// (at the rows quant_matmul.K6_F32_RING_ROWS names), wherever a launch plan
+// exists (the wrappers' routing rule).
 // On an H100 the row-per-warp kernels above reach 47-57% of HBM's rate
 // there, held by one I2F a weight (the conversion pipe does 16 a clock an
 // SM) and by one dependent 16-byte load a lane in flight (dense bf16: 8
@@ -93,15 +94,16 @@
 //     three parts, [0, NQ) of W_q, then W_k and W_v, a stage's copies split
 //     where it meets a part's end, so no copy crosses from one matrix into
 //     the next;
-//   - K6 (quant_matmul) at 1 <= B <= 8 bf16 rows is the MATS 1 instance with
-//     no norm and no residual, y = bf16((x . w_int) * scale[row]), for int8
-//     or per-row q4 weights (FMT kRowQ4: byte j of a row holds column 2j in its
-//     low nibble and 2j + 1 in its high one). Its blocks stage x
-//     de-interleaved, the even columns then the odd ones (each half
-//     chunk-swizzled as a row), so a lane's 16 packed bytes meet two chunk
-//     pairs read as q4g's and int8's are, without bank conflicts; the
-//     nibbles convert as q4g's do. It is launched without PDL: in the
-//     non-fused decode it follows plain PyTorch kernels.
+//   - K6 (quant_matmul) at 1 <= B <= 8 rows is the MATS 1 instance with no
+//     norm and no residual, y = TA((x . w_int) * scale[row]), for int8 or
+//     per-row q4 weights (FMT kRowQ4: byte j of a row holds column 2j in its
+//     low nibble and 2j + 1 in its high one), bf16 or fp32 x. Its blocks
+//     stage x de-interleaved, the even columns then the odd ones (each half
+//     chunk-swizzled as a row, by act_chunk or act_chunk_f32), so a lane's
+//     16 packed bytes meet two chunk pairs (fp32: two runs of four chunks)
+//     read as q4g's and int8's are, without bank conflicts; the nibbles
+//     convert as q4g's do. It is launched without PDL: in the non-fused
+//     decode it follows plain PyTorch kernels.
 // What bounds it: HBM's bytes for int8 and dense bf16 (the ring without its
 // dot products streams the weights barely faster); for q4g, with two weights
 // a byte, also the consumers' instructions (about five a weight). Where the
@@ -661,9 +663,9 @@ __device__ __forceinline__ void ring_dot_q4g(const unsigned char* wrow, int mat_
 // against activations staged de-interleaved (stage_act_q4): the low
 // nibbles meet columns 16 c .. 16 c + 15 of the even half, the high ones the
 // same of the odd half (K / 2 further), both read as load_act16 reads a row.
-template <int MATS, int BT>
+template <int MATS, int BT, typename TA>
 __device__ __forceinline__ void ring_dot_q4(const unsigned char* wrow, int mat_stride, int c,
-                                            const bf16* act, int K, int B,
+                                            const TA* act, int K, int B,
                                             float (&acc)[MATS][BT]) {
   uint4 v[MATS];
 #pragma unroll
@@ -727,6 +729,16 @@ __device__ __forceinline__ void stage_act_q4(bf16* row, int K, int j, const uint
   uint2* o = reinterpret_cast<uint2*>(row + K / 2) + 2 * act_chunk(j >> 1) + (j & 1);
   *e = ev;
   *o = od;
+}
+
+// The same for fp32 activations (K6's fp32 instance): chunk j holds columns
+// 4 j .. 4 j + 3, so its two even and two odd values fill half of chunk j / 2
+// of either half, each half swizzled as a row of K / 2 (act_chunk_f32).
+__device__ __forceinline__ void stage_act_q4(float* row, int K, int j, const uint4 u) {
+  uint2* e = reinterpret_cast<uint2*>(row) + 2 * act_chunk_f32(j >> 1) + (j & 1);
+  uint2* o = reinterpret_cast<uint2*>(row + K / 2) + 2 * act_chunk_f32(j >> 1) + (j & 1);
+  *e = make_uint2(u.x, u.z);
+  *o = make_uint2(u.y, u.w);
 }
 
 // Band g of a projection's N rows: [band_start(g), band_start(g + 1)), each
@@ -1019,9 +1031,9 @@ __global__ void __launch_bounds__((kRingMaxWarps + 1) * 32) weight_ring_kernel(
         ring_dot_q4g<NV, BT>(wrow, vstride, c, act, p.K, p.B, s, into);
       else if constexpr (FMT == kInt8)
         ring_dot_int8<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
-      else if constexpr (FMT == kRowQ4)       // (these two: bf16 activations only)
+      else if constexpr (FMT == kRowQ4)
         ring_dot_q4<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
-      else
+      else                                    // (dense: bf16 activations only)
         ring_dot_bf16<NV, BT>(wrow, vstride, c, act, p.K, p.B, into);
     };
     int c = kp * 32 + lane;
@@ -1186,7 +1198,7 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
             (a.align == 1 || a.align == 2 || a.align == 4) && R % a.align == 0 &&
             (!q4g || (a.K % 256 == 0 && a.align * kg % 4 == 0)) &&
             a.parts >= 1 && a.parts <= (MATS == 1 ? 3 : 1) && a.part_end[a.parts - 1] == a.N &&
-            (!f32 || ((wfmt == kInt8 || q4g) && a.norm_w == nullptr));
+            (!f32 || ((wfmt == kInt8 || q4g || q4) && a.norm_w == nullptr));
   // every part non-empty, and for q4g starting on a row whose scales are
   // whole 16-byte units; every matrix 16-byte aligned
   int part_rows[3] = {0, 0, 0};
@@ -1212,11 +1224,11 @@ int ring_projection(int wfmt, bool pdl, const int* plan, RingArgs a, int B, cuda
     int e;
     if (q4g) e = launch_ring<kQ4G, MATS, TA>(a, grid, warps, smem, pdl, st);
     else if (wfmt == kInt8) e = launch_ring<kInt8, MATS, TA>(a, grid, warps, smem, pdl, st);
-    else if constexpr (f32) e = (int)cudaErrorInvalidValue;
+    else if (q4) {
+      if constexpr (MATS == 1) e = launch_ring<kRowQ4, 1, TA>(a, grid, warps, smem, pdl, st);
+      else e = (int)cudaErrorInvalidValue;
+    } else if constexpr (f32) e = (int)cudaErrorInvalidValue;    // dense: bf16 only
     else if (dense) e = launch_ring<kDense, MATS, TA>(a, grid, warps, smem, pdl, st);
-    else if constexpr (MATS == 1)
-      e = q4 ? launch_ring<kRowQ4, 1, TA>(a, grid, warps, smem, pdl, st)
-             : (int)cudaErrorInvalidValue;
     else e = (int)cudaErrorInvalidValue;
     if (e != 0) return e;
   }
@@ -1643,13 +1655,14 @@ int slime_o_ring(int wfmt, int pdl, const void* attn, const void* x, void* y, in
   return ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
-// K6 through the weight ring: y [B, N] = bf16((x W^T) * scale[row]) for bf16
-// x [B, K] (B <= 8), int8 (wfmt 1, w [N, K]) or per-row q4 (wfmt 4, w [N, K /
-// 2]) weights and fp32 scales [N]; with pdl a programmatic dependent of the
-// stream's previous kernel. plan: ring_projection's layout. Returns the
-// launch error, or 0.
-int slime_quant_ring(int wfmt, int pdl, const void* x, int B, int K, int N, const void* w,
-                     const void* s, void* y, const int* plan, void* stream) {
+// K6 through the weight ring: y [B, N] = (x W^T) * scale[row] for x [B, K]
+// (B <= 8) bf16 (act_f32 0: y rounded to bf16) or fp32 (act_f32 1: y fp32, 4
+// bytes an activation in the plan), int8 (wfmt 1, w [N, K]) or per-row q4
+// (wfmt 4, w [N, K / 2]) weights and fp32 scales [N]; with pdl a
+// programmatic dependent of the stream's previous kernel. plan:
+// ring_projection's layout. Returns the launch error, or 0.
+int slime_quant_ring(int wfmt, int pdl, int act_f32, const void* x, int B, int K, int N,
+                     const void* w, const void* s, void* y, const int* plan, void* stream) {
   if ((wfmt != kInt8 && wfmt != kRowQ4) || B < 1) return (int)cudaErrorInvalidValue;
   RingArgs a = {};
   a.w[0] = (const unsigned char*)w;
@@ -1661,7 +1674,8 @@ int slime_quant_ring(int wfmt, int pdl, const void* x, int B, int K, int N, cons
   a.K = K;
   a.N = N;
   a.row_bytes = wfmt == kRowQ4 ? K / 2 : K;
-  return ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
+  return act_f32 ? ring_projection<1, float>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream)
+                 : ring_projection<1, bf16>(wfmt, pdl != 0, plan, a, B, (cudaStream_t)stream);
 }
 
 // cudaError_t's text, or that of the TMA tensor-map helpers' codes

@@ -38,11 +38,15 @@
 //     a fixed order, applies the per-row scale and rounds to bf16.
 // Loads are plain 16-byte loads staged through registers (no cp.async, TMA or
 // wgmma yet): a right and simple first version.
-// fp32 x (the default compute dtype of llama.forward and generate) takes a
-// second kernel on the FFMA units with the same tiles and split: the weights
-// are dequantized to fp32 in shared memory (exact integers, JAX's
-// astype(x.dtype)), every product is an fp32 FMA (no TF32), the scales apply
-// as above, and y is fp32.
+// fp32 x (the default compute dtype of llama.forward and generate): the
+// weights are dequantized to fp32 (exact integers, JAX's astype(x.dtype)),
+// every product is an fp32 FMA (no TF32, no tensor cores), the scales apply
+// as above, and y is fp32. From 65 rows with K a multiple of 128 (the
+// prefill) it runs the FFMA GEMM on register tiles fed by a cp.async ring
+// (qmm_f32_tiles_kernel below; on an H100 1.6x the first FFMA kernel's
+// speed); K6 at 1-8 rows the weight ring (fused_decode.cu, fp32
+// activations); the rest the first FFMA kernel, with the mma.sync kernel's
+// tiles and split.
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -436,6 +440,296 @@ __global__ void __launch_bounds__(kF32Threads) qmm_f32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 x at prefill rows: the FFMA GEMM on register tiles
+// ---------------------------------------------------------------------------
+// The product is far above the card's ridge (2048 rows: 4096 FMAs a weight
+// byte), so the FFMA units bound it: 67 TFLOP/s of fp32 FMAs outside the
+// tensor cores, which fp32 x may not use (no TF32). The kernel above spends 8
+// scalar shared loads on 16 FMAs; this one is built as the classic SGEMM so
+// that shared memory feeds the FFMA units with room to spare:
+//   - a block of 256 threads owns a 128 x 128 output tile, a thread 8 x 8
+//     outputs: warp w takes rows 32 (w / 2) .. + 31 and weight rows 64 (w %
+//     2) .. + 63; lane (lm = lane / 8, ln = lane % 8) the rows lm + 4 i and
+//     the weight rows 4 ln + c and 32 + 4 ln + c (i, c < 8, 4). Per 4 depths
+//     a thread reads its 8 x rows as 8 float4 and, per depth, its 8 weight
+//     columns as 2 float4, for 256 FMAs: 16 LDS.128 where the kernel above
+//     issues 128 scalar loads. Each LDS.128 of a warp touches 4 (x) or 8
+//     (W) distinct 16-byte units on distinct bank groups;
+//   - x [128][64] fp32 a stage comes by 16-byte cp.async (zero-filled past
+//     M) into a ring of 3 slots, rows padded to 68 floats so that rows 1
+//     apart lie 17 units (one bank group) apart; each thread also copies its
+//     own 2 x 8 (q4) or 2 x 16 (int8, q4g) packed weight bytes of the stage
+//     and, once its own copies have landed, unpacks them to fp32 (exact
+//     integers, JAX's astype(x.dtype); by the 2^23 trick, not I2F) into a
+//     double-buffered k-major tile [64][128]: a warp writes 32 weight rows
+//     of one depth, 32 banks, and no barrier waits for another thread's
+//     bytes. One barrier a stage: stage i's x and W tile are whole, stage i
+//     - 1's readers done. 190 KB: one block and 8 warps an SM. On an H100
+//     64-column stages ran 5% faster than 32-column ones (3 or 4 stages,
+//     one or two blocks an SM), and this loop alone, without copies or
+//     barriers, at 76% of the fp32 peak (PERF.md, K6 / K7 fp32);
+//   - K6 applies the per-row scale once, in the epilogue. K7's 128-column
+//     group is 2 stages: its products go to a fresh fp32 `part`, which is
+//     scaled by scale[o, g] (loaded as the group starts) and added to the
+//     accumulator, as the plain version sums;
+//   - where the output tiles leave SMs idle the wrapper splits K over
+//     blockIdx.z in 128-column tiles into the fp32 workspace, and
+//     splitk_reduce_kernel<float> adds them in order.
+// K a multiple of 128 (the wrapper's rule; the kernel above takes the rest).
+constexpr int kTT = 128;             // output tile: 128 rows of x by 128 weight rows
+constexpr int kTK = 64;              // fp32 columns a stage
+constexpr int kTThreads = 256;
+constexpr int kTLX = kTK + 4;        // x row pitch (floats)
+
+constexpr int kTStages = 3;          // slots of the cp.async ring
+constexpr int kTXF = kTT * kTLX;     // floats of an x stage
+constexpr int kTWF = kTK * kTT;      // floats of a W tile
+constexpr int kTPB = kTThreads * 16 * (kTK / 32);                  // packed bytes a stage slot
+constexpr int kTSmem = (kTStages * kTXF + 2 * kTWF) * 4 + kTStages * kTPB;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue stage k0's copies: x[m0 .. m0 + 127][k0 .. k0 + kTK - 1] into xs
+// (kTK / 8 chunks a thread) and this thread's packed weight bytes into its
+// 16-byte slots of pw: weight row n0 + (tid % 128), columns k0 + 16 (tid /
+// 128 + 2 q) .. + 15 for q < kTK / 32 (q4: 8 bytes; int8: 16; q4g: the 16
+// bytes of those columns' group, whose low or high nibbles they are).
+template <int FMT>
+__device__ __forceinline__ void tile_issue(float* xs, unsigned char* pw,
+                                           const float* __restrict__ x, int M, int K,
+                                           const uint8_t* __restrict__ w, int N, int m0, int n0,
+                                           int k0) {
+  constexpr int kRowChunks = kTK / 4;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kTT * kRowChunks / kTThreads; ++q) {
+    const int e = tid + q * kTThreads, r = e / kRowChunks, c = (e % kRowChunks) * 4;
+    const bool in = m0 + r < M;
+    cp_async16(xs + r * kTLX + c, in ? x + (size_t)(m0 + r) * K + k0 + c : x, in);
+  }
+  const int n = tid & (kTT - 1);
+  const bool in = n0 + n < N;
+#pragma unroll
+  for (int q = 0; q < kTK / 32; ++q) {
+    const int col = k0 + 16 * ((tid >> 7) + 2 * q);
+    unsigned char* dst = pw + 16 * (tid + q * kTThreads);
+    if (FMT == kQ4) {
+      const uint8_t* src = w + (size_t)(n0 + n) * (K / 2) + col / 2;
+      cp_async8(dst, in ? src : w, in);
+    } else {
+      const uint8_t* src = FMT == kInt8
+          ? w + (size_t)(n0 + n) * K + col
+          : w + (size_t)(n0 + n) * (K / 2) + (col / (2 * kGroup)) * kGroup + col % kGroup;
+      cp_async16(dst, in ? src : w, in);
+    }
+  }
+}
+
+// int8 byte b, or nibble b of a packed byte, -> fp32 exactly without I2F
+// (which runs at a quarter of the FMA rate): b XOR 0x80 (its value + 128), or
+// the nibble XOR 8 (+ 8), in the low mantissa of 2^23, minus 2^23 + 128 (+ 8)
+__device__ __forceinline__ float int8_f32(uint32_t b) {
+  return __uint_as_float(0x4B000000u | ((b & 0xffu) ^ 0x80u)) - 8388736.f;
+}
+__device__ __forceinline__ float nib_f32(uint32_t b, int shift) {
+  return __uint_as_float(0x4B000000u | (((b >> shift) & 0xFu) ^ 8u)) - 8388616.f;
+}
+
+// This thread's packed bytes of stage k0 (its own copies, landed) -> the
+// fp32 W tile wt [kTK depths][128 weight rows]: depths 16 (tid / 128 + 2 q)
+// .. + 15 of weight row tid % 128.
+template <int FMT>
+__device__ __forceinline__ void tile_unpack(float* wt, const unsigned char* pw, int k0) {
+  const int tid = threadIdx.x, n = tid & (kTT - 1);
+  const int shift = ((k0 / kGroup) & 1) * 4;       // q4g: group 2b low, 2b + 1 high nibbles
+#pragma unroll
+  for (int q = 0; q < kTK / 32; ++q) {
+    const int d0 = 16 * ((tid >> 7) + 2 * q);
+    const uint4 v = *reinterpret_cast<const uint4*>(pw + 16 * (tid + q * kTThreads));
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float f;
+      if (FMT == kInt8)                            // byte j: column j
+        f = int8_f32(wd[j / 4] >> (8 * (j % 4)));
+      else if (FMT == kQ4)                         // byte j / 2: column j low (even), high (odd)
+        f = nib_f32(wd[j / 8] >> (8 * ((j / 2) % 4)), 4 * (j & 1));
+      else
+        f = nib_f32(wd[j / 4] >> (8 * (j % 4)), shift);
+      wt[(d0 + j) * kTT + n] = f;
+    }
+  }
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(kTThreads, 1) qmm_f32_tiles_kernel(
+    const float* __restrict__ x, int M, int K, const uint8_t* __restrict__ w,
+    const float* __restrict__ s, int N, float* __restrict__ y, float* __restrict__ ws,
+    int tiles_per_split) {
+  constexpr int S = kTStages, kStagesPerTile = 128 / kTK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);                    // [S][128][kTLX]
+  float* wt = xs + S * kTXF;                                     // [2][kTK][128]
+  unsigned char* pw = reinterpret_cast<unsigned char*>(wt + 2 * kTWF);    // [S][kTPB]
+
+  const int n0 = blockIdx.x * kTT, m0 = blockIdx.y * kTT, z = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lm = lane >> 3, ln = lane & 7;
+  const int row0 = 32 * (warp >> 1) + lm;                        // rows row0 + 4 i
+  const int col0 = 64 * (warp & 1) + 4 * ln;                     // weight rows col0 + c, + 32
+  const int kt0 = z * tiles_per_split, kt1 = min(K / 128, kt0 + tiles_per_split);
+  const int ns = (kt1 - kt0) * kStagesPerTile, kb = kt0 * 128;
+  const int G = K / kGroup;
+
+  float acc[8][8], part[8][8], sc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+  // K7: this thread's weight rows' scales of group g
+  const auto load_scales = [&](int g) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = n0 + col0 + (j & 3) + 32 * (j >> 2);
+      sc[j] = o < N ? __ldg(s + (size_t)o * G + g) : 0.f;
+    }
+  };
+  if (FMT == kQ4G) load_scales(kb / kGroup);
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < ns)
+      tile_issue<FMT>(xs + i * kTXF, pw + i * kTPB, x, M, K, w, N, m0, n0, kb + i * kTK);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 2>();                                         // stage 0: own copies
+  if (ns > 0) tile_unpack<FMT>(wt, pw, kb);
+
+  for (int i = 0; i < ns; ++i) {
+    // stage i's x (every thread's copies) and W tile are in; stage i - 1's
+    // readers are done with its slot and with W tile (i + 1) % 2
+    __syncthreads();
+    if (i + S - 1 < ns) {
+      const int st = (i + S - 1) % S;
+      tile_issue<FMT>(xs + st * kTXF, pw + st * kTPB, x, M, K, w, N, m0, n0,
+                      kb + (i + S - 1) * kTK);
+    }
+    cp_async_commit();
+    cp_async_wait<S - 2>();                                       // stage i + 1: own copies
+    if (i + 1 < ns)
+      tile_unpack<FMT>(wt + ((i + 1) & 1) * kTWF, pw + ((i + 1) % S) * kTPB,
+                       kb + (i + 1) * kTK);
+    const float* xt = xs + (i % S) * kTXF + row0 * kTLX;
+    const float* wcur = wt + (i & 1) * kTWF + col0;
+#pragma unroll 2
+    for (int kq = 0; kq < kTK / 4; ++kq) {
+      float4 a[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        a[r] = *reinterpret_cast<const float4*>(xt + 4 * r * kTLX + 4 * kq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(wcur + (4 * kq + kk) * kTT);
+        const float4 b1 = *reinterpret_cast<const float4*>(wcur + (4 * kq + kk) * kTT + 32);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (FMT == kQ4G) part[r][j] = fmaf(av, b[j], part[r][j]);
+            else acc[r][j] = fmaf(av, b[j], acc[r][j]);
+          }
+        }
+      }
+    }
+    if (FMT == kQ4G && (i + 1) % kStagesPerTile == 0) {          // the group's partial sums
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[r][j] += part[r][j] * sc[j];
+          part[r][j] = 0.f;
+        }
+      if (i + 1 < ns) load_scales((kb + (i + 1) * kTK) / kGroup);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: row row0 + 4 r, weight rows col0 + 0..3 and col0 + 32 + 0..3
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int m = m0 + row0 + 4 * r;
+    if (m >= M) continue;
+#pragma unroll
+    for (int hj = 0; hj < 2; ++hj) {
+      const int o = n0 + col0 + 32 * hj;
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[c] = acc[r][4 * hj + c];
+        if (ws == nullptr && FMT != kQ4G && o + c < N) v[c] *= __ldg(s + o + c);
+      }
+      float* dst = ws != nullptr ? ws + ((size_t)z * M + m) * N + o : y + (size_t)m * N + o;
+      if (o + 4 <= N && N % 4 == 0) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (o + c < N) dst[c] = v[c];
+      }
+    }
+  }
+}
+
+template <int FMT>
+int launch_f32_tiles(const void* x, int M, int K, const void* w, const void* s, int N, void* y,
+                     void* ws, int splits, int tiles_per_split, cudaStream_t st) {
+  static bool smem_set = false;             // once per kernel instance
+  cudaError_t err;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(qmm_f32_tiles_kernel<FMT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(qmm_f32_tiles_kernel<FMT>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((N + kTT - 1) / kTT, (M + kTT - 1) / kTT, splits);
+  qmm_f32_tiles_kernel<FMT><<<grid, kTThreads, kTSmem, st>>>(
+      (const float*)x, M, K, (const uint8_t*)w, (const float*)s, N, (float*)y,
+      splits > 1 ? (float*)ws : nullptr, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  splitk_reduce_kernel<float><<<reduce_blocks(M, N), 256, 0, st>>>(
+      (const float*)ws, splits, M, N, FMT == kQ4G ? nullptr : (const float*)s, nullptr,
+      (float*)y);
+  return (int)cudaGetLastError();
+}
+
 // x, y of type TX (bf16: the mma.sync kernel; float: the FFMA kernel); TAIL:
 // K is not a multiple of the 128-column k-tile (the instance that masks it)
 template <int FMT, typename TX, bool TAIL>
@@ -759,6 +1053,29 @@ extern "C" int slime_quant_matmul(int fmt, int x_f32, const void* x, int M, int 
   cudaStream_t st = (cudaStream_t)stream;
   return x_f32 ? launch_fmt<float>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st)
                : launch_fmt<bf16>(fmt, x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+}
+
+// The fp32 register-tile instance (qmm_f32_tiles_kernel): fp32 x [M, K], fmt
+// and w, s as slime_quant_matmul's, K a multiple of 128 (of 256 for q4g),
+// y fp32 [M, N]; a split over K of `tiles_per_split` 128-column tiles per
+// blockIdx.z into ws fp32 [splits, M, N] when splits > 1 (every split
+// non-empty). Returns the cudaError_t of the launches.
+extern "C" int slime_quant_matmul_f32_tiles(int fmt, const void* x, int M, int K, const void* w,
+                                            const void* s, int N, void* y, void* ws, int splits,
+                                            int tiles_per_split, void* stream) {
+  if (M < 1 || N < 1 || K < 128 || K % 128 != 0 || (fmt == kQ4G && K % 256 != 0) ||
+      splits < 1 || tiles_per_split < 1 || (splits > 1 && ws == nullptr) ||
+      (long long)(splits - 1) * tiles_per_split >= K / 128 ||
+      (long long)splits * tiles_per_split < K / 128)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fmt == kQ4)
+    return launch_f32_tiles<kQ4>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kInt8)
+    return launch_f32_tiles<kInt8>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  if (fmt == kQ4G)
+    return launch_f32_tiles<kQ4G>(x, M, K, w, s, N, y, ws, splits, tiles_per_split, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7's wgmma instance: bf16 x [M, K] (M >= 64 in the wrapper's route), q4g w

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "slime_mlp_wgmma": [_I, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I] + [_P] * 6 + [_I, _I, _P],
     "slime_o_wgmma": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     "slime_qkv_wgmma": [_I, _P, _P, _F, _P, _P, _I, _I, _I, _I] + [_P] * 9 + [_I, _I, _P],
-    "slime_quant_ring": [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "slime_quant_ring": [_I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "slime_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I]
                                + [_LL] * 9 + [_F, _I, _I, _P],
     "slime_flash_fwd": [_P] * 6 + [_LLP] + [_I] * 7 + [_F, _I, _P],
@@ -49,6 +49,7 @@ _SIGNATURES = {
     "slime_flash_bwd_dq": [_P] * 8 + [_LLP] + [_I] * 7 + [_F, _P],
     "slime_ring_attend": [_P] * 9 + [_LLP] + [_I] * 11 + [_F, _P],
     "slime_quant_matmul": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "slime_quant_matmul_f32_tiles": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_quant_matmul_q4g_wgmma": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_quant_matmul_wgmma": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     "slime_w8a8_matmul": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P],

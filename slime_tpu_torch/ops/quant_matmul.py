@@ -25,11 +25,17 @@ Which one is a pure function of the operands' shapes and x's dtype:
   registers as the A operand of y^T = W.x^T and the per-row scale on the
   fp32 accumulator (``csrc/quant_matmul.cu`` ``qmm_wgmma_kernel``); the
   other bf16 x (9-63 rows, or a K neither reads, e.g. 1000) runs the
-  ``mma.sync`` GEMM; fp32 x (the default compute dtype) an FFMA GEMM over
-  the weights dequantized to fp32, as JAX's ``astype(x.dtype)``.
+  ``mma.sync`` GEMM. fp32 x (the default compute dtype; the weights
+  dequantized to fp32, as JAX's ``astype(x.dtype)``, every product an fp32
+  FMA) of 1-``K6_F32_RING_ROWS`` rows takes the weight ring too (config B's
+  decode steps), from ``F32_TILES_MIN_ROWS`` rows with K a multiple of 128
+  the FFMA GEMM on register tiles fed by a ``cp.async`` ring
+  (``qmm_f32_tiles_kernel``: the prefill), and the rows between (or another
+  K) the first FFMA GEMM.
 - K7 (``q4g_route``): bf16 x of at least 64 rows (the prefill) runs K7's
   ``wgmma`` kernel, the group scales applied to fp32 partial sums; bf16 x
-  below 64 rows the ``mma.sync`` GEMM; fp32 x the FFMA GEMM.
+  below 64 rows the ``mma.sync`` GEMM; fp32 x from ``F32_TILES_MIN_ROWS``
+  rows the register-tile GEMM, below them the first FFMA GEMM.
 
 y comes back in x's dtype. K6 takes any K with int8 weights and any even K
 with q4 (the ``mma.sync`` and FFMA kernels mask their last k-tile and read x
@@ -37,11 +43,15 @@ in place; ``wgmma`` reads past K as TMA's zero fill); q4g takes multiples of
 256 (``k_multiple``).
 
 Launch counts: ``quant_matmul.q4_launches`` / ``.int8_launches`` and
-``quant_matmul_q4g.launches`` count every launch, ``.q4_f32_launches``,
-``.int8_f32_launches`` and ``quant_matmul_q4g.f32_launches`` those with fp32
-x, ``quant_matmul.q4_ring_launches`` / ``.int8_ring_launches`` those on the
-weight ring, ``quant_matmul.q4_wgmma_launches`` / ``.int8_wgmma_launches``
-and ``quant_matmul_q4g.wgmma_launches`` those of the ``wgmma`` instances.
+``quant_matmul_q4g.launches`` count every launch; the others one instance
+each: ``.q4_f32_launches``, ``.int8_f32_launches`` and
+``quant_matmul_q4g.f32_launches`` the first FFMA GEMM's,
+``.q4_f32_tiles_launches``, ``.int8_f32_tiles_launches`` and
+``quant_matmul_q4g.f32_tiles_launches`` the register tiles',
+``quant_matmul.q4_ring_launches`` / ``.int8_ring_launches`` the weight
+ring's with bf16 x, ``.q4_f32_ring_launches`` / ``.int8_f32_ring_launches``
+with fp32 x, ``quant_matmul.q4_wgmma_launches`` / ``.int8_wgmma_launches``
+and ``quant_matmul_q4g.wgmma_launches`` the ``wgmma`` instances'.
 """
 from __future__ import annotations
 
@@ -56,6 +66,12 @@ from .quantization import int_values
 _Q4, _INT8, _Q4G = 0, 1, 2
 _TILE = 64                  # output tile of the mma.sync / FFMA kernels (rows and columns)
 WGMMA_MIN_ROWS = 64         # the wgmma instances take bf16 x from this many rows
+# the fp32 register-tile instance takes fp32 x from this many rows: at 64 the
+# first FFMA kernel's one 64-row tile ran 7-16% faster on an H100, from 65
+# the register tiles 1.5-1.6x (PERF.md, K6 / K7 fp32)
+F32_TILES_MIN_ROWS = 65
+K6_F32_RING_ROWS = 8        # K6 takes the weight ring with fp32 x up to this many rows
+_F32_TILE = 128             # the register-tile instance's output tile, and its split unit in K
 _WG_TILE = 128              # K7's wgmma output tile: 128 weight rows x 128 tokens
 _K6_TOK = 128               # K6's wgmma tile: 128 tokens x 128 or 256 weight rows
 _K6_BK = {_Q4: 256, _INT8: 128}     # columns of one K6 wgmma stage (128 weight bytes a row)
@@ -90,9 +106,11 @@ def quant_matmul_q4g_ref(x: torch.Tensor, qw) -> torch.Tensor:
 def q4g_route(rows: int, dtype: torch.dtype) -> str:
     """K7's kernel for x of ``rows`` rows and ``dtype``: "wgmma" for bf16 at
     rows >= WGMMA_MIN_ROWS, "mma" (the ``mma.sync`` GEMM) for bf16 below,
-    "ffma" for fp32. A pure function, so CPU tests can pin it."""
+    "tiles" (the register-tile FFMA GEMM) for fp32 at rows >=
+    F32_TILES_MIN_ROWS, "ffma" (the first FFMA GEMM) for fp32 below. A pure
+    function, so CPU tests can pin it."""
     if dtype == torch.float32:
-        return "ffma"
+        return "tiles" if rows >= F32_TILES_MIN_ROWS else "ffma"
     return "wgmma" if rows >= WGMMA_MIN_ROWS else "mma"
 
 
@@ -107,14 +125,17 @@ def k6_wgmma_strides(K: int, fmt: int) -> bool:
 def k6_route(rows: int, K: int, dtype: torch.dtype, fmt: int, N: int, sms: int) -> str:
     """K6's kernel for x [rows, K] of ``dtype`` and W [N, K] in ``fmt``
     (``_Q4`` or ``_INT8``) on a card of ``sms`` SMs: "ring" for bf16 at 1 <=
-    rows <= 8 where the weight ring has a plan (``weight_ring.k6_ring_route``),
-    "wgmma" for bf16 at rows >= WGMMA_MIN_ROWS where TMA reads the rows
-    (``k6_wgmma_strides``), "mma" (the ``mma.sync`` GEMM) for the rest of
-    bf16, "ffma" for fp32. A pure function, so CPU tests can pin it."""
-    if dtype == torch.float32:
-        return "ffma"
-    if wr.k6_ring_route(rows, K, N, dtype, _RING_FMT[fmt], sms) is not None:
+    rows <= 8 and fp32 at 1 <= rows <= K6_F32_RING_ROWS where the weight
+    ring has a plan (``weight_ring.k6_ring_route``); for the rest of fp32,
+    "tiles" (the register-tile FFMA GEMM) at rows >= F32_TILES_MIN_ROWS with
+    K a multiple of 128, else "ffma" (the first FFMA GEMM); for the rest of
+    bf16, "wgmma" at rows >= WGMMA_MIN_ROWS where TMA reads the rows
+    (``k6_wgmma_strides``), else "mma" (the ``mma.sync`` GEMM). A pure
+    function, so CPU tests can pin it."""
+    if wr.k6_ring_route(rows, K, N, dtype, _RING_FMT[fmt], sms, K6_F32_RING_ROWS) is not None:
         return "ring"
+    if dtype == torch.float32:
+        return "tiles" if rows >= F32_TILES_MIN_ROWS and K % _F32_TILE == 0 else "ffma"
     if rows >= WGMMA_MIN_ROWS and k6_wgmma_strides(K, fmt):
         return "wgmma"
     return "mma"
@@ -174,6 +195,29 @@ def _launch(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torc
     return y
 
 
+def tiles_plan(M: int, N: int, K: int, sms: int):
+    """(splits, 128-column tiles per split) of the register-tile instance
+    (one block an SM, K6 and K7 alike): a split over K only where its 128 x
+    128 output tiles fill at most half the SMs, as ``wgmma_splits``."""
+    blocks = -(-N // _F32_TILE) * -(-M // _F32_TILE)
+    n_kt = K // _F32_TILE
+    splits = max(1, min(n_kt, sms // blocks)) if 2 * blocks <= sms else 1
+    per_split = -(-n_kt // splits)
+    return -(-n_kt // per_split), per_split
+
+
+def _launch_tiles(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    M, K, N, w = _operands(fmt, x, w, s)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    splits, per_split = tiles_plan(M, N, K, wr.sm_count(x.device))
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    _cuda.check(_cuda.library().slime_quant_matmul_f32_tiles(
+        fmt, x.data_ptr(), M, K, w.data_ptr(), s.data_ptr(), N, y.data_ptr(), _cuda.ptr(ws),
+        splits, per_split, _cuda.stream()), "quant_matmul (fp32 register tiles)")
+    return y
+
+
 def wgmma_splits(M: int, N: int, K: int, sms: int):
     """(splits, packed blocks per split) of K7's wgmma instance: a split
     over K only where its 128 x 128 tiles fill at most half the SMs (one
@@ -218,8 +262,9 @@ def _launch_k6_ring(fmt: int, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     M, K, N, w = _operands(fmt, x, w, s)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _cuda.check(_cuda.library().slime_quant_ring(
-        _RING_FMT[fmt], 0, x.data_ptr(), M, K, N, w.data_ptr(), s.data_ptr(), y.data_ptr(),
-        ctypes.addressof(plan[1]), _cuda.stream()), "quant_matmul (weight ring)")
+        _RING_FMT[fmt], 0, int(x.dtype == torch.float32), x.data_ptr(), M, K, N, w.data_ptr(),
+        s.data_ptr(), y.data_ptr(), ctypes.addressof(plan[1]), _cuda.stream()),
+        "quant_matmul (weight ring)")
     return y
 
 
@@ -246,17 +291,20 @@ def quant_matmul(x: torch.Tensor, qw) -> torch.Tensor:
     N, sms = w.shape[0], wr.sm_count(x.device)
     route = k6_route(M, K, x.dtype, fmt, N, sms)
     if route == "ring":
-        y = _launch_k6_ring(fmt, x, w, s,
-                            wr.k6_ring_route(M, K, N, x.dtype, _RING_FMT[fmt], sms))
+        y = _launch_k6_ring(fmt, x, w, s, wr.k6_ring_route(M, K, N, x.dtype, _RING_FMT[fmt], sms,
+                                                           K6_F32_RING_ROWS))
     elif route == "wgmma":
         y = _launch_k6_wgmma(fmt, x, w, s)
+    elif route == "tiles":
+        y = _launch_tiles(fmt, x, w, s)
     else:
         y = _launch(fmt, x, w, s)
-    name = "q4" if int4 else "int8"
-    for suffix, n in (("", 1), ("_f32", int(route == "ffma")),
-                      ("_ring", int(route == "ring")), ("_wgmma", int(route == "wgmma"))):
+    name, f32 = ("q4" if int4 else "int8"), x.dtype == torch.float32
+    for suffix, n in (("", 1), ("_f32", route == "ffma"), ("_f32_tiles", route == "tiles"),
+                      ("_ring", route == "ring" and not f32),
+                      ("_f32_ring", route == "ring" and f32), ("_wgmma", route == "wgmma")):
         attr = f"{name}{suffix}_launches"
-        setattr(quant_matmul, attr, getattr(quant_matmul, attr) + n)
+        setattr(quant_matmul, attr, getattr(quant_matmul, attr) + int(n))
     return y
 
 
@@ -268,17 +316,19 @@ def quant_matmul_q4g(x: torch.Tensor, qw) -> torch.Tensor:
     route = q4g_route(x.shape[0] if x.dim() == 2 else 0, x.dtype)
     if route == "wgmma":
         y = _launch_q4g_wgmma(x, qw["q4g"], qw["scale"])
+    elif route == "tiles":
+        y = _launch_tiles(_Q4G, x, qw["q4g"], qw["scale"])
     else:
         y = _launch(_Q4G, x, qw["q4g"], qw["scale"])
     quant_matmul_q4g.launches += 1
     quant_matmul_q4g.f32_launches += route == "ffma"
+    quant_matmul_q4g.f32_tiles_launches += route == "tiles"
     quant_matmul_q4g.wgmma_launches += route == "wgmma"
     return y
 
 
-quant_matmul.q4_launches = quant_matmul.q4_f32_launches = 0
-quant_matmul.int8_launches = quant_matmul.int8_f32_launches = 0
-quant_matmul.q4_ring_launches = quant_matmul.int8_ring_launches = 0
-quant_matmul.q4_wgmma_launches = quant_matmul.int8_wgmma_launches = 0
+for _f in ("q4", "int8"):
+    for _sfx in ("", "_f32", "_f32_tiles", "_ring", "_f32_ring", "_wgmma"):
+        setattr(quant_matmul, f"{_f}{_sfx}_launches", 0)
 quant_matmul_q4g.launches = quant_matmul_q4g.f32_launches = 0
-quant_matmul_q4g.wgmma_launches = 0
+quant_matmul_q4g.f32_tiles_launches = quant_matmul_q4g.wgmma_launches = 0

@@ -8,7 +8,8 @@ B <= ``fused_mlp.F32_RING_ROWS``: the default compute dtype's decode steps),
 and K6 (``quant_matmul``)
 in bf16 with int8 or per-row q4 weights, at 1 <= B <= 8 (``ring_instance``:
 the decode steps of the int8 and 4-bit serving paths and of a bf16
-checkpoint) run on the weight ring,
+checkpoint), and in fp32 at B <= ``quant_matmul.K6_F32_RING_ROWS`` (config
+B's default-dtype decode steps) run on the weight ring,
 ``weight_ring_kernel`` in ``csrc/fused_decode.cu``: a persistent grid, one
 block an SM, each block a band of output rows whose whole weight rows one
 producer thread streams into a ring of shared-memory stages by 1-D bulk
@@ -31,7 +32,7 @@ and 12900: the activations fill the rest); and where a weight row is not a
 whole number of 16-byte vectors (K6 at K = 1000). K6's
 rule is ``k6_ring_route`` (one matrix a stage, no norm, no residual, the
 per-row scale read by the epilogue as int8's is); where it has no plan K6
-takes its ``mma.sync`` GEMM (``quant_matmul.k6_route``).
+takes its other GEMMs (``quant_matmul.k6_route``).
 
 This is plain Python, so the CPU tests hold it
 (``tests/test_torch_decode_stream.py``).
@@ -64,16 +65,17 @@ PDL = True                    # chain a call's launches (programmatic dependent 
 def ring_instance(B: int, dtype, fmt: int, f32_rows: int = 0) -> bool:
     """Whether the decode kernels' operands suit the weight ring: bf16
     activations, dense bf16, int8, q4g or (K6) per-row q4 weights, 1 <= B <=
-    8; and, where a caller admits fp32 activations (K1 alone, up to
-    ``f32_rows`` rows: ``fused_mlp.F32_RING_ROWS``), fp32 with int8 or q4g
-    weights. Such a call takes the ring where its plans exist (dense K1 and
-    K3 up to their row limits: ``fused_mlp.ring_route``,
-    ``fused_qkvo.o_ring_route``); everything else takes the row-per-warp
-    kernels (K6: its mma.sync GEMM)."""
+    8; and, where a caller admits fp32 activations up to ``f32_rows`` rows
+    (K1: ``fused_mlp.F32_RING_ROWS``, with int8 or q4g weights; K6:
+    ``quant_matmul.K6_F32_RING_ROWS``, with int8 or per-row q4 weights; K2
+    and K3 admit none), fp32 with int8, q4g or per-row q4 weights. Such a
+    call takes the ring where its plans exist (dense K1 and K3 up to their
+    row limits: ``fused_mlp.ring_route``, ``fused_qkvo.o_ring_route``);
+    everything else takes the row-per-warp kernels (K6: its other GEMMs)."""
     if not 1 <= B <= RING_MAX_ROWS:
         return False
     if dtype == torch.float32:
-        return fmt in (INT8, Q4G) and B <= f32_rows
+        return fmt in (INT8, Q4G, ROW_Q4) and B <= f32_rows
     return dtype == torch.bfloat16 and fmt in (DENSE, INT8, Q4G, ROW_Q4)
 
 
@@ -154,8 +156,8 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
     """The launch plan of one projection of N rows over K columns of dense
     bf16 (2 K bytes a row, no scales), int8 (K bytes), q4g (K / 2, and K /
     128 fp32 scales) or per-row q4 (K / 2) weights, for B activation rows of
-    ``act_bytes`` bytes each (2: bf16; 4: fp32, with int8 or q4g weights
-    only), on a card of ``sms`` SMs: one block an SM, each band
+    ``act_bytes`` bytes each (2: bf16; 4: fp32, with int8, q4g or per-row
+    q4 weights), on a card of ``sms`` SMs: one block an SM, each band
     at least ``align`` rows; R, the most rows (8, 4, 2 or 1, at least
     ``align``) whose weights stay within STAGE_BYTES; as many activation
     rows a launch as ACT_BYTES holds; as many stages (at least 2) as
@@ -193,7 +195,7 @@ def ring_launch(B: int, K: int, N: int, fmt: int, mats: int, sms: int,
             or (fmt == ROW_Q4 and (mats > 1 or len(parts) > 1))
             or any(n % align for n in parts) or (mats > 1 and len(parts) > 1)
             or len(parts) > 3 or act_bytes not in (2, 4)
-            or (act_bytes == 4 and fmt not in (INT8, Q4G))):
+            or (act_bytes == 4 and fmt not in (INT8, Q4G, ROW_Q4))):
         raise ValueError(f"no weight-ring plan for [{N}, {K}] ({row_bytes} bytes a row, "
                          f"stages of {stage} bytes, parts {parts})")
     # more than half an SM's shared memory: one block of a ring kernel an SM,
@@ -233,18 +235,20 @@ def sm_count(device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def projection_plan(B: int, K: int, N: int, fmt: int, sms: int, parts=None):
+def projection_plan(B: int, K: int, N: int, fmt: int, sms: int, parts=None,
+                    act_bytes: int = 2):
     """(plan, its C array) of one MATS-1 projection on the ring (K2's row
-    space of ``parts``, K3's o projection), or None where it has none."""
-    ln = launch_or_none(B, K, N, fmt, 1, sms, parts)
+    space of ``parts``, K3's o projection, K6), or None where it has none."""
+    ln = launch_or_none(B, K, N, fmt, 1, sms, parts, act_bytes)
     return None if ln is None else (ln, c_plan(ln))
 
 
-def k6_ring_route(B: int, K: int, N: int, dtype, fmt: int, sms: int):
+def k6_ring_route(B: int, K: int, N: int, dtype, fmt: int, sms: int, f32_rows: int = 0):
     """K6's routing rule on the ring: (plan, its C array) of x [B, K] @ W.T
     for W [N, K] int8 (``INT8``) or per-row q4 (``ROW_Q4``) where the call takes
-    the weight ring (bf16 x, 1 <= B <= 8, and a plan exists: one matrix a
-    stage, no norm, no residual), else None."""
-    if fmt not in (INT8, ROW_Q4) or not ring_instance(B, dtype, fmt):
+    the weight ring (bf16 x, or fp32 x up to ``f32_rows`` rows, 1 <= B <= 8,
+    and a plan exists: one matrix a stage, no norm, no residual, 4 bytes an
+    fp32 activation), else None."""
+    if fmt not in (INT8, ROW_Q4) or not ring_instance(B, dtype, fmt, f32_rows):
         return None
-    return projection_plan(B, K, N, fmt, sms)
+    return projection_plan(B, K, N, fmt, sms, act_bytes=act_bytes(dtype))

@@ -30,10 +30,12 @@ dense consumers' view of the swizzled activations; and that CPU calls take
 the plain versions and count no launch. K6 (``quant_matmul``) runs the same
 kernel at decode rows: its rule (``weight_ring.k6_ring_route``) and plans
 for int8 and per-row q4 at B = 1-8, and the q4 consumers' de-interleaved
-activation staging, are held here too. K1 alone takes fp32 activations on
-the ring (int8 and q4g weights, B <= ``fused_mlp.F32_RING_ROWS``): its rule,
-its plans with 4-byte activations, the fp32 consumers' swizzled view of
-them, and that K2's, K3's and K6's rules still keep fp32 off the ring.
+activation staging, are held here too. K1 and K6 take fp32 activations on
+the ring (K1: int8 and q4g weights, B <= ``fused_mlp.F32_RING_ROWS``; K6:
+int8 and per-row q4, B <= ``quant_matmul.K6_F32_RING_ROWS``): their rules,
+their plans with 4-byte activations, the fp32 consumers' swizzled view of
+them (K6's q4 de-interleaved), and that K2's and K3's rules still keep fp32
+off the ring.
 """
 import itertools
 
@@ -43,6 +45,7 @@ import torch
 
 from slime_tpu_torch.ops import fused_mlp as fm
 from slime_tpu_torch.ops import fused_qkvo as fq
+from slime_tpu_torch.ops import quant_matmul as qm
 from slime_tpu_torch.ops import weight_ring as wr
 from slime_tpu_torch.ops.fused_qkvo import DENSE, INT8, Q4G
 
@@ -985,8 +988,12 @@ def test_f32_ring_plan_covers_every_row_once(fmt, width, B, sms):
 
 @pytest.mark.parametrize("B", range(1, 10))
 def test_f32_stays_off_the_ring_for_k2_k3_k6(B):
-    """Only K1 admits fp32 activations: K2's, K3's and K6's rules keep fp32
-    off the ring at every row count (row per warp; K6 its FFMA GEMM), and
+    """Only K1 and K6 admit fp32 activations, each through its own row
+    limit: K2's and K3's rules keep fp32 off the ring at every row count
+    (row per warp), as does any caller that admits none (``f32_rows`` 0:
+    K6's rule without its limit); K6 with its limit
+    (``quant_matmul.K6_F32_RING_ROWS``) takes the ring at 1-8 rows with
+    int8 and per-row q4 weights, K1's rule never takes per-row q4, and
     dense weights never take it in fp32."""
     f32 = torch.float32
     for fmt in F32_FORMATS:
@@ -997,16 +1004,26 @@ def test_f32_stays_off_the_ring_for_k2_k3_k6(B):
         assert not wr.ring_instance(B, f32, fmt)
     for fmt in (INT8, wr.ROW_Q4):
         assert wr.k6_ring_route(B, 4096, 4096, f32, fmt, SMS) is None
-    for fmt in (DENSE, wr.DENSE_F32, wr.ROW_Q4):
+        k6 = wr.k6_ring_route(B, 4096, 4096, f32, fmt, SMS, qm.K6_F32_RING_ROWS)
+        assert (k6 is not None) == (B <= qm.K6_F32_RING_ROWS)
+        assert k6 is None or k6[0].act_bytes == 4
+        assert wr.ring_instance(B, f32, fmt, f32_rows=8) == (B <= 8)
+        assert qm.k6_route(B, 4096, f32, qm._Q4 if fmt == wr.ROW_Q4 else qm._INT8, 4096,
+                           SMS) == ("ring" if B <= qm.K6_F32_RING_ROWS else "ffma")
+    for fmt in (DENSE, wr.DENSE_F32):
         assert not wr.ring_instance(B, f32, fmt, f32_rows=8)
+    for fmt in (DENSE, wr.DENSE_F32, wr.ROW_Q4):
         assert fm.ring_route(B, f32, fmt, 4096, 14336, SMS) is None
 
 
 def test_f32_ring_plan_refuses_other_formats():
-    """4-byte activations only with int8 or q4g weights; 2 or 4 bytes only."""
-    for fmt in (DENSE, wr.ROW_Q4):
-        with pytest.raises(ValueError, match="no weight-ring plan"):
-            wr.ring_launch(1, 4096, 4096, fmt, 1, SMS, act_bytes=4)
+    """4-byte activations only with int8, q4g or per-row q4 weights (one
+    matrix a stage for q4); 2 or 4 bytes only."""
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(1, 4096, 4096, DENSE, 1, SMS, act_bytes=4)
+    with pytest.raises(ValueError, match="no weight-ring plan"):
+        wr.ring_launch(1, 4096, 4096, wr.ROW_Q4, 2, SMS, act_bytes=4)
+    assert wr.ring_launch(1, 4096, 4096, wr.ROW_Q4, 1, SMS, act_bytes=4).act_bytes == 4
     with pytest.raises(ValueError, match="no weight-ring plan"):
         wr.ring_launch(1, 4096, 4096, INT8, 1, SMS, act_bytes=3)
     assert wr.act_bytes(torch.float32) == 4 and wr.act_bytes(torch.bfloat16) == 2
@@ -1042,6 +1059,63 @@ def test_f32_ring_activations_swizzled(K):
             assert len({_act_chunk_f32(4 * c + k) % 8 for c in group}) == 8
             assert len({(4 * c + k) % 8 for c in group}) == 2
             assert len({_act_chunk(4 * c + k) % 8 for c in group}) == 4
+
+
+# K6 with fp32 x on the ring at SliME-8B's widths: q/o, k/v, gate/up at K =
+# 4096 and down at K = 14336
+K6_F32_WIDTHS = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]
+
+
+@pytest.mark.parametrize("fmt", [INT8, wr.ROW_Q4], ids=["int8", "q4"])
+@pytest.mark.parametrize("width", K6_F32_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("B", range(1, 9))
+def test_k6_f32_ring_plans_at_8b_width(fmt, width, B):
+    """K6's fp32 plans (``k6_ring_route`` admitting fp32 at every row count
+    the ring takes; the rule's limit ``quant_matmul.K6_F32_RING_ROWS``
+    lies within them): 4-byte
+    activations; x's rows are 16 KB at K = 4096, so all B fit ACT_BYTES in
+    one launch, and 56 KB at K = 14336, so down stages 2 rows a launch
+    (ceil(B / 2) launches, each streaming the weights); one matrix a stage,
+    no scale bytes; every output row in exactly one band and one copy, the
+    shared memory within a block's."""
+    N, K = width
+    assert 1 <= qm.K6_F32_RING_ROWS <= wr.RING_MAX_ROWS
+    ln, c_plan = wr.k6_ring_route(B, K, N, torch.float32, fmt, SMS, wr.RING_MAX_ROWS)
+    assert list(c_plan) == ln.ints()
+    assert (ln.rows, ln.mats, ln.parts, ln.scale_bytes, ln.act_bytes) == (N, 1, (), 0, 4)
+    assert ln.row_bytes == (K // 2 if fmt == wr.ROW_Q4 else K)
+    assert ln.batch_rows == (B if K == 4096 else min(B, 2))
+    assert ln.smem <= wr.SMEM_MAX
+    _assert_covers_every_row_once(ln, K, B, [N])
+
+
+@pytest.mark.parametrize("K", [4096, 14336, 1056])
+def test_k6_f32_ring_q4_activations_deinterleaved(K):
+    """The fp32 q4 consumers' view of x (``stage_act_q4(float*)`` then
+    ``load_act16(const float*)`` in csrc/fused_decode.cu): chunk j of a row
+    (columns 4 j .. 4 j + 3) puts its two even columns into half-chunk j % 2
+    of chunk j / 2 of the even half and its odd ones likewise into the odd
+    half (K / 2 further), each half swizzled by ``act_chunk_f32`` as a row
+    of K / 2; the 16 columns a lane's vector c reads from each half (chunks
+    act_chunk_f32(4 c + k)) are x's columns 32 c + 2 i (low nibbles of its
+    bytes i) and 32 c + 2 i + 1 (high nibbles); and for each k the eight
+    lanes of a quarter-warp read chunks on eight distinct bank groups."""
+    x = np.arange(K)
+    smem = np.full(K, -1)
+    for j in range(K // 4):                   # one 16-byte chunk a thread
+        for half in (0, 1):
+            at = half * (K // 2) + 4 * _act_chunk_f32(j >> 1) + 2 * (j & 1)
+            smem[at:at + 2] = x[4 * j + half:4 * j + 4:2]
+    assert (np.sort(smem) == x).all()
+    for c in range(K // 32):
+        for half in (0, 1):
+            base = half * (K // 2)
+            got = np.concatenate([smem[base + 4 * _act_chunk_f32(4 * c + k):][:4]
+                                  for k in range(4)])
+            np.testing.assert_array_equal(got, 32 * c + 2 * np.arange(16) + half)
+    for q in range(0, K // 32 - 7, 8):        # a quarter-warp's vectors c .. c + 7
+        for k in range(4):
+            assert len({_act_chunk_f32(4 * c + k) % 8 for c in range(q, q + 8)}) == 8
 
 
 def test_cpu_f32_call_takes_the_plain_version_and_counts_nothing():

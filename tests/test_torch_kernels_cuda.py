@@ -1070,6 +1070,17 @@ def _qweight(fmt, N, K, g, dev):
     return quant.quantize_weight(w, 4 if fmt == "q4" else 8)
 
 
+def _route_counter(fmt, route, dtype):
+    """(wrapper, attribute) of the launch count of K6's or K7's instance
+    ``route`` with x of ``dtype``."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    sfx = {"ffma": "_f32", "tiles": "_f32_tiles", "ring": f32 + "_ring",
+           "wgmma": "_wgmma", "mma": ""}[route]
+    if fmt == "q4g":
+        return qm.quant_matmul_q4g, sfx.lstrip("_") + ("_" if sfx else "") + "launches"
+    return qm.quant_matmul, f"{fmt}{sfx}_launches"
+
+
 # (fmt, M, N, K): decode rows (split over K), prefill rows, a ragged M and a
 # ragged N (not a multiple of the 64-wide tile)
 QMM_CASES = [("q4", 1, 1024, 4096), ("q4", 2048, 4096, 4096), ("q4", 37, 1000, 1024),
@@ -1082,24 +1093,32 @@ QMM_CASES = [("q4", 1, 1024, 4096), ("q4", 2048, 4096, 4096), ("q4", 37, 1000, 1
 @pytest.mark.parametrize("case", QMM_CASES)
 def test_quant_matmul_kernels(dev, case, dtype):
     """K6 (q4, int8) and K7 (q4g) against their plain versions: exact
-    products, fp32 sums in another order, out in x's dtype (bf16: the
-    instance the routing names, for K6 the weight ring at one row, wgmma at
-    2048 and 130, mma.sync at 37; fp32: the FFMA kernel)."""
+    products, fp32 sums in another order, out in x's dtype, on the instance
+    the routing names (bf16: for K6 the weight ring at one row, wgmma at
+    2048 and 130, mma.sync at 37; fp32: the weight ring at one row for K6,
+    the register tiles at 2048, 130 and 70, the first FFMA kernel at 37 and
+    at one q4g row), each launch counted once, on its instance."""
     fmt, M, N, K = case
     g = torch.Generator(device=dev).manual_seed(M + N)
     qw = _qweight(fmt, N, K, g, dev)
     x = torch.randn((M, K), device=dev, generator=g).to(dtype)
     f32 = dtype == torch.float32
     if fmt == "q4g":
-        before = (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.f32_launches)
-        got, want = qm.quant_matmul_q4g(x, qw), qm.quant_matmul_q4g_ref(x, qw)
-        assert (qm.quant_matmul_q4g.launches, qm.quant_matmul_q4g.f32_launches) == (
-            before[0] + 1, before[1] + f32)
+        route = qm.q4g_route(M, dtype)
+        total = (qm.quant_matmul_q4g, "launches")
+        kern, ref = qm.quant_matmul_q4g, qm.quant_matmul_q4g_ref
     else:
-        names = (f"{fmt}_launches", f"{fmt}_f32_launches")
-        before = [getattr(qm.quant_matmul, n) for n in names]
-        got, want = qm.quant_matmul(x, qw), qm.quant_matmul_ref(x, qw)
-        assert [getattr(qm.quant_matmul, n) for n in names] == [before[0] + 1, before[1] + f32]
+        route = qm.k6_route(M, K, dtype, qm._Q4 if fmt == "q4" else qm._INT8, N,
+                            wr.sm_count(x.device))
+        total = (qm.quant_matmul, f"{fmt}_launches")
+        kern, ref = qm.quant_matmul, qm.quant_matmul_ref
+    if route == "mma":                  # the total is the mma.sync instance's count too
+        counters = [total]
+    else:
+        counters = [total, _route_counter(fmt, route, dtype)]
+    before = [getattr(fn, n) for fn, n in counters]
+    got, want = kern(x, qw), ref(x, qw)
+    assert [getattr(fn, n) for fn, n in counters] == [b + 1 for b in before]
     assert got.dtype == dtype
     _assert_close(got, want, **(dict(atol=ATOL_F32, rtol=RTOL_F32) if f32 else dict(atol=2e-3)))
 
@@ -1123,9 +1142,70 @@ def test_quant_matmul_q4g_wgmma(dev, M, N):
     _assert_close(got, qm.quant_matmul_q4g_ref(x, qw), atol=2e-3)
 
 
+# the register-tile instance (fp32 x from F32_TILES_MIN_ROWS rows, K a
+# multiple of 128): q/o, k/v (a split over K where the tiles leave SMs
+# idle), gate and a ragged N (not a multiple of 4: the scalar epilogue)
+F32_TILES_WIDTHS = [(4096, 4096), (1024, 4096), (14336, 4096), (1002, 512)]
+
+
+@pytest.mark.parametrize("width", F32_TILES_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("M", [64, 65, 128, 300])
+@pytest.mark.parametrize("fmt", ["q4", "int8", "q4g"])
+def test_quant_matmul_f32_tiles(dev, fmt, M, width):
+    """K6 and K7 with fp32 x on register tiles (qmm_f32_tiles_kernel: fp32
+    FMAs of exact integer weights, K6's per-row scale in the epilogue, K7's
+    group scales on fp32 partial sums) against their plain versions at 1e-4
+    and 1e-5 relative, with and without the split over K (``_launch_tiles``
+    itself, uncounted); through the wrapper where the rule names them (from
+    F32_TILES_MIN_ROWS rows: one launch on the tiles instance, none on the
+    first FFMA kernel; at 64 rows the reverse), and the first FFMA kernel
+    (``_launch``) right on the same inputs."""
+    N, K = width
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((M, K), device=dev, generator=g)
+    code = {"q4": qm._Q4, "int8": qm._INT8, "q4g": qm._Q4G}[fmt]
+    sms = wr.sm_count(x.device)
+    if fmt == "q4g":
+        route = qm.q4g_route(M, x.dtype)
+        kern, ref, w = qm.quant_matmul_q4g, qm.quant_matmul_q4g_ref, qw["q4g"]
+    else:
+        route = qm.k6_route(M, K, x.dtype, code, N, sms)
+        kern, ref, w = qm.quant_matmul, qm.quant_matmul_ref, qw[fmt if fmt == "q4" else "q"]
+    assert route == ("tiles" if M >= qm.F32_TILES_MIN_ROWS else "ffma")
+    counters = [_route_counter(fmt, "tiles", x.dtype), _route_counter(fmt, "ffma", x.dtype)]
+    before = [getattr(fn, n) for fn, n in counters]
+    got = kern(x, qw)
+    tiles = route == "tiles"
+    assert [getattr(fn, n) for fn, n in counters] == [before[0] + tiles, before[1] + 1 - tiles]
+    want = ref(x, qw)
+    _assert_close(got, want, atol=ATOL_F32, rtol=RTOL_F32)
+    _assert_close(qm._launch_tiles(code, x, w, qw["scale"]), want, atol=ATOL_F32, rtol=RTOL_F32)
+    _assert_close(qm._launch(code, x, w, qw["scale"]), want, atol=ATOL_F32, rtol=RTOL_F32)
+    splits, per = qm.tiles_plan(M, N, K, sms)
+    assert (splits - 1) * per < K // 128 <= splits * per
+
+
+def test_quant_matmul_f32_tiles_rejects(dev):
+    """The tiles instance's C entry refuses a K that is not a multiple of
+    128 (of 256 for q4g) and a split that leaves a range empty."""
+    x = torch.zeros((64, 384), device=dev)
+    w = torch.zeros((64, 384), device=dev, dtype=torch.int8)
+    s = torch.ones((64, 1), device=dev)
+    y = torch.empty((64, 64), device=dev)
+    lib = _cuda.library()
+    for fmt, K, splits, per in ((qm._INT8, 200, 1, 2), (qm._Q4G, 384, 1, 3),
+                                (qm._INT8, 384, 3, 2), (qm._INT8, 384, 1, 2)):
+        ws = torch.empty((splits, 64, 64), device=dev)
+        assert lib.slime_quant_matmul_f32_tiles(
+            fmt, x.data_ptr(), 64, K, w.data_ptr(), s.data_ptr(), 64, y.data_ptr(),
+            ws.data_ptr(), splits, per, _cuda.stream()) != 0
+
+
 def test_quant_matmul_q4g_route(dev):
     """The route on the card is q4g_route's: bf16 below 64 rows and fp32 x
-    do not launch the wgmma instance."""
+    do not launch the wgmma instance (fp32 at 300 rows takes the register
+    tiles, at 64 the first FFMA kernel)."""
     g = torch.Generator(device=dev).manual_seed(3)
     qw = _qweight("q4g", 512, 1024, g, dev)
     for M, dtype, wgmma in ((63, torch.bfloat16, 0), (64, torch.bfloat16, 1),
@@ -1231,6 +1311,34 @@ def test_linear_routes_q4g_to_k7_and_q4_to_k6(dev):
 
 def _k6_launches(fmt, route):
     return getattr(qm.quant_matmul, f"{fmt}_{route}_launches")
+
+
+# K6's fp32 ring: q/o, k/v, down and a ragged width
+K6_F32_RING_WIDTHS = [(4096, 4096), (1024, 4096), (4096, 14336), (136, 1056)]
+
+
+@pytest.mark.parametrize("width", K6_F32_RING_WIDTHS, ids=lambda w: f"N{w[0]}-K{w[1]}")
+@pytest.mark.parametrize("B", range(1, 9))
+@pytest.mark.parametrize("fmt", ["q4", "int8"])
+def test_quant_matmul_f32_ring(dev, fmt, B, width):
+    """K6 with fp32 x on the weight ring (1-K6_F32_RING_ROWS rows: fp32
+    activations staged de-interleaved for q4, as bf16's, under the fp32
+    swizzle) against quant_matmul_ref at 1e-4 and 1e-5 relative (exact
+    products, fp32 sums in another order, nothing rounded): one fp32 ring
+    launch a call, none on the bf16 ring's count or the FFMA kernels'."""
+    N, K = width
+    g = torch.Generator(device=dev).manual_seed(B * N + K + 1)
+    qw = _qweight(fmt, N, K, g, dev)
+    x = torch.randn((B, K), device=dev, generator=g)
+    code = qm._Q4 if fmt == "q4" else qm._INT8
+    assert B <= qm.K6_F32_RING_ROWS
+    assert qm.k6_route(B, K, x.dtype, code, N, wr.sm_count(x.device)) == "ring"
+    names = ("f32_ring", "ring", "f32", "f32_tiles")
+    before = [_k6_launches(fmt, n) for n in names]
+    got = qm.quant_matmul(x, qw)
+    assert [_k6_launches(fmt, n) for n in names] == [before[0] + 1] + before[1:]
+    assert got.dtype == torch.float32
+    _assert_close(got, qm.quant_matmul_ref(x, qw), atol=ATOL_F32, rtol=RTOL_F32)
 
 
 # K6's weight ring: Llama-3-8B's q/o, k/v and down projections, ragged N and K
@@ -1687,7 +1795,8 @@ def _counts():
             "k3_f32": fused_qkvo.fused_o_residual.f32_launches,
             "k4_f32": ea.encoder_attention.f32_launches,
             "k5_f32": fa.flash_attention.fwd_f32_launches,
-            "k7_f32": qm.quant_matmul_q4g.f32_launches,
+            "k7_f32": (qm.quant_matmul_q4g.f32_launches
+                       + qm.quant_matmul_q4g.f32_tiles_launches),
             "k8_f32": w8.w8a8_matmul.f32_launches}
 
 
@@ -1764,9 +1873,9 @@ def test_generate_default_dtype(dev, monkeypatch, llm_format):
 @pytest.mark.parametrize("scheme,fmt", [("absmax", "q4"), ("group", "q4g")])
 def test_forward_quantized_default_dtype(dev, monkeypatch, scheme, fmt):
     """llama.forward on per-row q4 / q4g layers at its default fp32 compute
-    dtype: K6's or K7's fp32 instance in each of a layer's 7 linears and the
-    fp32 K5 at S = 2048; the logits agree with the same forward through the
-    plain versions."""
+    dtype: K6's or K7's fp32 register-tile instance in each of a layer's 7
+    linears and the fp32 K5 at S = 2048; the logits agree with the same
+    forward through the plain versions."""
     from slime_tpu_torch.checkpoint import quantize_loaded
     from slime_tpu_torch.models import llama, slime
     cfg = _small_slime_cfg()
@@ -1780,7 +1889,8 @@ def test_forward_quantized_default_dtype(dev, monkeypatch, scheme, fmt):
         return llama.forward(llm, llama.embed(llm, ids).to(torch.float32), cfg.llm)[0]
 
     def counts():
-        k = qm.quant_matmul.q4_f32_launches if fmt == "q4" else qm.quant_matmul_q4g.f32_launches
+        k = (qm.quant_matmul.q4_f32_tiles_launches if fmt == "q4"
+             else qm.quant_matmul_q4g.f32_tiles_launches)
         return k, fa.flash_attention.fwd_f32_launches
 
     before = counts()

@@ -151,7 +151,8 @@ def test_tma_operand_copies_only_what_tma_cannot_read():
 @pytest.mark.parametrize("rows,dtype,route", [
     (64, torch.bfloat16, "wgmma"), (2048, torch.bfloat16, "wgmma"),
     (63, torch.bfloat16, "mma"), (1, torch.bfloat16, "mma"),
-    (2048, torch.float32, "ffma"), (1, torch.float32, "ffma")])
+    (2048, torch.float32, "tiles"), (65, torch.float32, "tiles"), (64, torch.float32, "ffma"),
+    (1, torch.float32, "ffma")])
 def test_q4g_route(rows, dtype, route):
     """K7's kernel is a pure function of x's rows and dtype."""
     assert qm.q4g_route(rows, dtype) == route

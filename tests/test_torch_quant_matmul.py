@@ -166,9 +166,11 @@ def test_plain_versions_scale_after_the_exact_dot():
 
 
 # k6_route at each boundary: decode rows (1, 8) take the weight ring where
-# a plan exists, 9-63 the mma.sync GEMM, 64 and more wgmma where TMA reads
-# the rows (K a multiple of 16 bytes of int8 / q4 weights); K = 1000 and 1002
-# have rows neither reads; fp32 x always takes the FFMA GEMM
+# a plan exists, in bf16 and (up to K6_F32_RING_ROWS) fp32; bf16 9-63 rows
+# the mma.sync GEMM, 64 and more wgmma where TMA reads the rows (K a
+# multiple of 16 bytes of int8 / q4 weights); fp32 from F32_TILES_MIN_ROWS
+# rows the register tiles where K is a multiple of 128, else the first FFMA
+# GEMM; K = 1000 and 1002 have rows neither the ring nor TMA reads
 @pytest.mark.parametrize("fmt", ["q4", "int8"])
 @pytest.mark.parametrize("K", [4096, 14336, 1000, 1002])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -176,16 +178,53 @@ def test_plain_versions_scale_after_the_exact_dot():
 def test_k6_route(rows, dtype, K, fmt):
     code = tqm._Q4 if fmt == "q4" else tqm._INT8
     whole = K in (4096, 14336)          # rows of whole 16-byte vectors in both formats
-    if dtype == torch.float32:
-        want = "ffma"
-    elif rows <= 8 and whole:
+    f32 = dtype == torch.float32
+    if rows <= (tqm.K6_F32_RING_ROWS if f32 else 8) and whole:
         want = "ring"
+    elif f32:
+        want = "tiles" if rows >= tqm.F32_TILES_MIN_ROWS and K % 128 == 0 else "ffma"
     elif rows >= 64 and whole:
         want = "wgmma"
     else:
         want = "mma"
     for N in (4096, 1024, 14336):
         assert tqm.k6_route(rows, K, dtype, code, N, 132) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rows", [1, 8, 9, 63, 64, 65, 128, 2048])
+def test_q4g_route(rows, dtype):
+    """K7's rule: bf16 below 64 rows mma.sync, from 64 wgmma; fp32 below
+    F32_TILES_MIN_ROWS the first FFMA GEMM, from there the register tiles
+    (config A's fp32 prefill at 2048 rows); no weight ring (K7's decode
+    rows run the fused q4g K1-K3)."""
+    if dtype == torch.float32:
+        want = "tiles" if rows >= tqm.F32_TILES_MIN_ROWS else "ffma"
+    else:
+        want = "wgmma" if rows >= tqm.WGMMA_MIN_ROWS else "mma"
+    assert tqm.q4g_route(rows, dtype) == want
+
+
+@pytest.mark.parametrize("M,N,K", [(2048, 4096, 4096), (2048, 1024, 4096), (2048, 14336, 4096),
+                                   (2048, 4096, 14336), (64, 4096, 4096), (65, 4096, 4096),
+                                   (128, 1024, 4096), (300, 1002, 512), (1, 4096, 4096)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_f32_tiles_plan(M, N, K, sms):
+    """The register tiles' split over K (``tiles_plan``): 128-column tiles,
+    every split non-empty and together exactly K's, a split only where the
+    128 x 128 output tiles fill at most half the SMs (one block an SM), and
+    then no more blocks than the SMs hold at once; the prefill's shapes on
+    132 SMs run unsplit."""
+    splits, per = tqm.tiles_plan(M, N, K, sms)
+    n_kt, blocks = K // 128, -(-N // 128) * -(-M // 128)
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < n_kt <= splits * per
+    if 2 * blocks > sms:
+        assert splits == 1
+    else:
+        assert blocks * splits <= max(sms, blocks)
+    if M == 2048 and sms == 132:
+        assert splits == 1
 
 
 def _sw128_offset(row: int, byte: int) -> int:
@@ -269,16 +308,117 @@ def test_k6_wgmma_fragment_map(fmt):
 
 
 def test_cpu_quant_matmul_takes_the_plain_version_at_every_route():
-    """bf16 x at the ring's, wgmma's and mma.sync's rows: on the CPU K6 is its
-    plain version and counts no launch of any instance."""
+    """bf16 and fp32 x at the ring's, wgmma's, mma.sync's, the register
+    tiles' and the first FFMA GEMM's rows: on the CPU K6 and K7 are their
+    plain versions and count no launch of any instance."""
     names = [f"{f}{sfx}_launches" for f in ("q4", "int8")
-             for sfx in ("", "_f32", "_ring", "_wgmma")]
-    before = [getattr(tqm.quant_matmul, n) for n in names]
+             for sfx in ("", "_f32", "_f32_tiles", "_ring", "_f32_ring", "_wgmma")]
+    k7 = ("launches", "f32_launches", "f32_tiles_launches", "wgmma_launches")
+    counts = lambda: ([getattr(tqm.quant_matmul, n) for n in names]  # noqa: E731
+                      + [getattr(tqm.quant_matmul_q4g, n) for n in k7])
+    before = counts()
     for M in (1, 8, 9, 64):
         x, w = _data(M, 64, 512, seed=M)
-        tx = torch.from_numpy(x).to(torch.bfloat16)
-        for bits in (4, 8):
-            qw = TQ.quantize_weight(torch.from_numpy(w), bits)
-            torch.testing.assert_close(tqm.quant_matmul(tx, qw), tqm.quant_matmul_ref(tx, qw),
-                                       rtol=0, atol=0)
-    assert [getattr(tqm.quant_matmul, n) for n in names] == before
+        for dtype in (torch.bfloat16, torch.float32):
+            tx = torch.from_numpy(x).to(dtype)
+            for bits in (4, 8):
+                qw = TQ.quantize_weight(torch.from_numpy(w), bits)
+                torch.testing.assert_close(tqm.quant_matmul(tx, qw),
+                                           tqm.quant_matmul_ref(tx, qw), rtol=0, atol=0)
+            q4g = TQ.quantize_weight_q4g(torch.from_numpy(w))
+            torch.testing.assert_close(tqm.quant_matmul_q4g(tx, q4g),
+                                       tqm.quant_matmul_q4g_ref(tx, q4g), rtol=0, atol=0)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("fmt,M", [("q4", 1), ("q4", 8), ("q4", 65), ("int8", 3),
+                                   ("int8", 70), ("q4g", 1), ("q4g", 65)])
+def test_f32_wrappers_match_jax_kernels(fmt, M):
+    """K6 and K7 through their wrappers with fp32 x (the port on the CPU
+    takes the plain versions) against JAX's Pallas kernels in interpret
+    mode, at the rows the card sends to the weight ring (1-8) and to the
+    register tiles (65 and more), with a ragged output count: the same
+    exact integer products, fp32 sums in another order."""
+    N, K = 320, 512
+    x, w = _data(M, N, K, seed=M + N)
+    if fmt == "q4g":
+        qw = JQ.quantize_weight_q4g(jnp.asarray(w), group=128)
+        jx, tx, tw = _inputs(x, qw, "float32")
+        want = jqm.quant_matmul_q4g(jx, qw, block_out=128, block_in=256, interpret=True)
+        got = tqm.quant_matmul_q4g(tx, tw)
+    else:
+        qw = JQ.quantize_weight(jnp.asarray(w), 4 if fmt == "q4" else 8)
+        jx, tx, tw = _inputs(x, qw, "float32")
+        want = jqm.quant_matmul(jx, qw, block_out=128, block_rows=16, interpret=True)
+        got = tqm.quant_matmul(tx, tw)
+    _close(got, want, "float32")
+
+
+def _tiles_consts():
+    """The register-tile kernel's tile, stage width and x row pitch, read
+    from csrc/quant_matmul.cu."""
+    import re
+    from pathlib import Path
+    src = (Path(tqm.__file__).resolve().parent.parent / "csrc" / "quant_matmul.cu").read_text()
+    tt = int(re.search(r"constexpr int kTT = (\d+);", src).group(1))
+    tk = int(re.search(r"constexpr int kTK = (\d+);", src).group(1))
+    assert "constexpr int kTLX = kTK + 4;" in src
+    return tt, tk, tk + 4
+
+
+def _f32_of_bits(bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("fmt", ["q4", "int8", "q4g"])
+def test_f32_tiles_unpack_model(fmt):
+    """The register tiles' weight path, modelled as ``tile_issue`` and
+    ``tile_unpack`` in csrc/quant_matmul.cu address it: each of the 256
+    threads copies its own packed bytes of a stage (weight row tid % 128;
+    q4 8 bytes, int8 and q4g 16, at columns 16 (tid / 128 + 2 q)) and
+    converts them by the 2^23 trick (int8: b ^ 0x80 in the mantissa minus
+    2^23 + 128; a nibble: n ^ 8 minus 2^23 + 8; q4g the low nibbles for an
+    even group, the high for an odd one) into depths of the fp32 tile: every
+    (row, depth) of every stage exactly once, equal to ``int_values``; a
+    warp's unpack writes one depth of 32 consecutive rows (32 banks); a
+    warp's x reads (4 rows lm + 4 r apart by one, at one depth) fall in 4
+    distinct bank groups."""
+    tt, tk, tlx = _tiles_consts()
+    r = np.random.default_rng(11)
+    K = 512
+    w = torch.from_numpy(r.standard_normal((tt, K)).astype(np.float32))
+    qw = (TQ.quantize_weight_q4g(w) if fmt == "q4g"
+          else TQ.quantize_weight(w, 4 if fmt == "q4" else 8))
+    packed = qw["q" if fmt == "int8" else fmt].numpy().view(np.uint8)
+    ints = TQ.int_values(qw).numpy().astype(np.float32)
+    for k0 in range(0, K, tk):
+        tile = np.full((tk, tt), np.nan, np.float32)
+        for tid in range(256):
+            n = tid % tt
+            for q in range(tk // 32):
+                d0 = 16 * (tid // 128 + 2 * q)
+                col = k0 + d0
+                if fmt == "q4":
+                    src = packed[n, col // 2:col // 2 + 8]
+                    vals = [_f32_of_bits(0x4B000000 | (((int(src[j // 2]) >> (4 * (j & 1))) & 0xF)
+                                                       ^ 8)) - np.float32(8388616)
+                            for j in range(16)]
+                elif fmt == "int8":
+                    src = packed[n, col:col + 16]
+                    vals = [_f32_of_bits(0x4B000000 | (int(src[j]) ^ 0x80)) - np.float32(8388736)
+                            for j in range(16)]
+                else:
+                    at = (col // 256) * 128 + col % 128
+                    src, shift = packed[n, at:at + 16], ((k0 // 128) & 1) * 4
+                    vals = [_f32_of_bits(0x4B000000 | (((int(src[j]) >> shift) & 0xF) ^ 8))
+                            - np.float32(8388616) for j in range(16)]
+                for j in range(16):
+                    assert np.isnan(tile[d0 + j, n])
+                    tile[d0 + j, n] = vals[j]
+        np.testing.assert_array_equal(tile, ints[:, k0:k0 + tk].T)
+    for warp in range(8):                       # the unpack's writes: tid -> (depth, row)
+        tids = range(32 * warp, 32 * warp + 32)
+        assert len({(t % tt) % 32 for t in tids}) == 32 and len({t // 128 for t in tids}) == 1
+        for rr in range(8):                     # the x reads of one depth
+            rows = [32 * (warp >> 1) + lm + 4 * rr for lm in range(4)]
+            assert len({(row * tlx // 4) % 8 for row in rows}) == 4
